@@ -1,0 +1,20 @@
+"""scvae-tpu on PyTorch and CUDA.
+
+A port of the ``scvae_tpu`` engine to PyTorch with hand-written CUDA kernels
+for an NVIDIA H100 (``sm_90a``).  It imports neither JAX nor ``scvae_tpu``.
+This first slice trains a VAE with a negative-binomial likelihood on a
+count matrix held on the device:
+
+    from scvae_tpu_torch import VariationalAutoencoder
+    model = VariationalAutoencoder(feature_size=2048, latent_size=100,
+                                   hidden_sizes=[256, 256],
+                                   reconstruction_distribution="negative binomial")
+    model.train(counts, number_of_epochs=2, minibatch_size=2048)
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from scvae_tpu_torch.data import DataSet
+from scvae_tpu_torch.models import VariationalAutoencoder
+
+__all__ = ["DataSet", "VariationalAutoencoder"]

@@ -1,0 +1,73 @@
+"""Device-resident staging of count matrices (the ported part of
+``scvae_tpu/data/pipeline.py``).
+
+A dataset that fits in device memory is densified once and held there as a
+plain row-major (N, F) tensor at the narrowest exact integer width (int16 for
+typical transcript counts); every training step gathers its rows with the
+row-gather kernel.  The TPU's packed layout is not needed on the GPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import scipy.sparse
+import torch
+
+
+def narrowest_count_dtype(values, candidates=(np.int16, np.int32)):
+    """Narrowest candidate integer dtype that can represent ``values``
+    exactly, or ``None`` if the values are not integral counts.  Works on
+    CSR matrices without densifying (only the stored entries matter —
+    implicit zeros fit any dtype)."""
+    data = values.data if scipy.sparse.issparse(values) else np.asarray(values)
+    if data.size == 0:
+        return candidates[0]
+    if np.issubdtype(data.dtype, np.integer):
+        lo, hi = data.min(), data.max()
+    elif np.issubdtype(data.dtype, np.floating):
+        # sample-check integrality cheaply before the full pass
+        sample = data.flat[: 4096]
+        if not np.all(sample == np.round(sample)):
+            return None
+        if not np.all(data == np.round(data)):
+            return None
+        lo, hi = data.min(), data.max()
+    else:
+        return None
+    for dtype in candidates:
+        info = np.iinfo(dtype)
+        if lo >= info.min and hi <= info.max:
+            return dtype
+    return None
+
+
+def device_resident_data(
+    arrays: dict[str, Any],
+    *,
+    device: torch.device | str,
+    count_dtype=(np.int16, np.int32),
+) -> dict[str, torch.Tensor]:
+    """Densify each field and place it on ``device`` once.
+
+    The count fields ``x`` and ``t`` are stored at the narrowest of the
+    ``count_dtype`` candidates that holds them exactly (float32 when they
+    are not integral).  Fields that are the same host array (x and t
+    usually are) become the same device tensor, so a step gathers them
+    once."""
+    placed_by_id: dict[int, torch.Tensor] = {}
+    out: dict[str, torch.Tensor] = {}
+    for name, arr in arrays.items():
+        key = id(arr)
+        if key not in placed_by_id:
+            dense = arr.toarray() if scipy.sparse.issparse(arr) else np.asarray(arr)
+            dtype = None
+            if name in ("x", "t"):
+                dtype = narrowest_count_dtype(arr, tuple(count_dtype))
+            dense = dense.astype(dtype or np.float32, copy=False)
+            placed_by_id[key] = torch.from_numpy(
+                np.ascontiguousarray(dense)
+            ).to(device)
+        out[name] = placed_by_id[key]
+    return out

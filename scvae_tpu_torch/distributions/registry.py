@@ -1,0 +1,164 @@
+"""Declarative distribution registry (the ported part of
+``scvae_tpu/distributions/registry.py``).
+
+Maps a distribution name to per-parameter specs (support interval,
+activation, head-size function) and a constructor ``theta → Distribution``.
+The model builds one dense head per parameter from these specs.  This slice
+ports the Gaussian (latent) and negative-binomial (reconstruction) entries;
+the other names of the reference resolve but raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from scvae_tpu_torch.distributions.base import Distribution
+from scvae_tpu_torch.distributions.counts import NegativeBinomial
+from scvae_tpu_torch.distributions.normal import Normal
+
+_F32 = np.finfo(np.float32)
+_HALF_MIN = float(_F32.min / 2)
+_HALF_MAX = float(_F32.max / 2)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _interior(lo: float, hi: float) -> tuple[float, float]:
+    """Nearest float32 values strictly inside [lo, hi]."""
+    return (
+        float(np.nextafter(np.float32(lo), np.float32(np.inf))),
+        float(np.nextafter(np.float32(hi), np.float32(-np.inf))),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ParameterSpec:
+    """One distribution parameter: how its head output becomes a value."""
+
+    support: tuple[float, float]
+    activation: Callable[[torch.Tensor], torch.Tensor] = _identity
+    # Head width as a function of the event size m.
+    size_fn: Callable[[int], int] = lambda m: m
+
+    def constrain(self, raw: torch.Tensor) -> torch.Tensor:
+        """activation → clip to the nearest float32 strictly inside the
+        support (the reference's ``bound ∓ tiny`` rounds back to the bound
+        in float32).  The gradient is zero outside the clip range."""
+        lo_in, hi_in = _interior(*self.support)
+        return torch.clamp(self.activation(raw), lo_in, hi_in)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributionSpec:
+    name: str
+    parameters: dict[str, ParameterSpec]
+    constructor: Callable[[dict[str, torch.Tensor]], Distribution]
+
+    def build(self, theta: dict[str, torch.Tensor]) -> Distribution:
+        return self.constructor(theta)
+
+
+def _make_gaussian(theta):
+    return Normal(loc=theta["mu"], scale=torch.exp(theta["log_sigma"]))
+
+
+def _make_negative_binomial(theta):
+    return NegativeBinomial(
+        total_count=torch.exp(theta["log_r"]), probs=theta["p"]
+    )
+
+
+DISTRIBUTIONS: dict[str, DistributionSpec] = {
+    "gaussian": DistributionSpec(
+        name="gaussian",
+        parameters={
+            "mu": ParameterSpec(support=(_HALF_MIN, _HALF_MAX)),
+            "log_sigma": ParameterSpec(support=(-3.0, 3.0)),
+        },
+        constructor=_make_gaussian,
+    ),
+    "negative binomial": DistributionSpec(
+        name="negative binomial",
+        parameters={
+            "p": ParameterSpec(support=(0.0, 1.0), activation=torch.sigmoid),
+            "log_r": ParameterSpec(support=(-10.0, 10.0)),
+        },
+        constructor=_make_negative_binomial,
+    ),
+}
+
+# "parameters" pins a prior/posterior parameter to a constant instead of a
+# learned dense head.
+LATENT_DISTRIBUTIONS: dict[str, dict[str, Any]] = {
+    "gaussian": {
+        "prior": {"name": "gaussian", "parameters": {"mu": 0.0, "log_sigma": 0.0}},
+        "posterior": {"name": "gaussian", "parameters": {}},
+    },
+    "unit-variance gaussian": {
+        "prior": {"name": "gaussian", "parameters": {"mu": 0.0, "log_sigma": 0.0}},
+        "posterior": {"name": "gaussian", "parameters": {"log_sigma": 0.0}},
+    },
+}
+
+# Names the reference registries define that this port does not have yet.
+_NOT_PORTED = {
+    "reconstruction": (
+        "softplus gaussian", "modified gaussian", "multivariate gaussian",
+        "gaussian mixture", "log-normal", "exponentially_modified_gaussian",
+        "gamma", "categorical", "bernoulli", "poisson", "constrained poisson",
+        "lomax", "zero-inflated poisson", "zero-inflated negative binomial",
+    ),
+    "GMVAE": (
+        "gaussian mixture", "full-covariance gaussian mixture",
+        "legacy gaussian mixture",
+    ),
+}
+
+
+def normalise_string(s: str) -> str:
+    """Lower-case and squash separators/punctuation to underscores/nothing
+    (the reference's name normalisation)."""
+    s = s.lower()
+    replacements = {
+        "_": [" ", "-", "/"],
+        "": ["(", ")", ",", "$", "<", ">", ":", '"', "/", "\\", "|", "?", "*"],
+    }
+    for replacement, characters in replacements.items():
+        pattern = "[" + re.escape("".join(characters)) + "]"
+        s = re.sub(pattern, replacement, s)
+    return s
+
+
+def parse_distribution(distribution: str, model_type: str | None = None) -> str:
+    """Resolve a (possibly alias-formatted) name against the right registry."""
+    distribution = normalise_string(distribution)
+    if model_type is None:
+        kind, registry, missing = "reconstruction", DISTRIBUTIONS, _NOT_PORTED["reconstruction"]
+    elif model_type == "VAE":
+        kind, registry, missing = "latent", LATENT_DISTRIBUTIONS, ()
+    elif model_type == "GMVAE":
+        kind, registry, missing = "latent", {}, _NOT_PORTED["GMVAE"]
+    else:
+        raise ValueError("Model type not found.")
+    for name in registry:
+        if normalise_string(name) == distribution:
+            return name
+    for name in missing:
+        if normalise_string(name) == distribution:
+            raise NotImplementedError(
+                f"The {name} {kind} distribution is not ported yet."
+            )
+    raise ValueError(
+        "{} distribution `{}` not supported{}.".format(
+            kind.capitalize(),
+            distribution,
+            f" for {model_type}" if model_type else "",
+        )
+    )

@@ -1,0 +1,402 @@
+"""Variational auto-encoder: configuration, parameter init, forward pass and
+ELBO objective as functions on parameter dicts.
+
+Counterpart of ``scvae_tpu/models/vae.py``.  Latent samples keep an explicit
+leading sample axis (S = R·L, B, ·).  Training with the negative-binomial
+likelihood takes the fused path (:func:`scvae_tpu_torch.ops.
+fused_log_likelihood`: kernels K2/K3 on CUDA, their plain versions on the
+CPU); evaluation keeps the unfused distribution path, as the JAX package
+does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from scvae_tpu_torch import ops
+from scvae_tpu_torch.distributions import (
+    DISTRIBUTIONS,
+    LATENT_DISTRIBUTIONS,
+    kl_divergence,
+    parse_distribution,
+)
+from scvae_tpu_torch.models import networks
+from scvae_tpu_torch.models.objectives import log_reduce_exp
+
+Params = dict[str, Any]
+State = dict[str, Any]
+Batch = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """Hyperparameters.  Options of the JAX ``VAEConfig`` that this slice
+    has not ported raise ``NotImplementedError``.  Every ported
+    reconstruction likelihood has a fused path, so the JAX switch
+    ``fused_likelihood`` has no counterpart: training always takes it."""
+
+    feature_size: int
+    latent_size: int = 2
+    hidden_sizes: tuple[int, ...] = (100,)
+    reconstruction_distribution: str = "negative binomial"
+    number_of_reconstruction_classes: int = 0
+    latent_distribution: str = "gaussian"
+    parameterise_latent_posterior: bool = False
+    analytical_kl_term: bool | None = None  # None → derived like the reference
+    inference_architecture: str = "MLP"
+    generative_architecture: str = "MLP"
+    minibatch_normalisation: bool = True
+    batch_correction: bool = False
+    number_of_batches: int = 1
+    count_sum: bool = False
+    dropout_keep_probabilities: tuple[float, ...] = ()
+    number_of_warm_up_epochs: int = 0
+    kl_weight: float = 1.0
+    learning_rate: float = 1e-4
+    # Matmul input dtype for TRAINING: None → "bfloat16" on CUDA and
+    # "float32" on the CPU; evaluation always runs float32.
+    precision: str | None = None
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "reconstruction_distribution",
+            parse_distribution(self.reconstruction_distribution),
+        )
+        object.__setattr__(
+            self, "latent_distribution",
+            parse_distribution(self.latent_distribution, model_type="VAE"),
+        )
+        object.__setattr__(self, "hidden_sizes", tuple(self.hidden_sizes))
+        object.__setattr__(
+            self, "dropout_keep_probabilities",
+            tuple(self.dropout_keep_probabilities),
+        )
+        unported = {
+            "number_of_reconstruction_classes": self.number_of_reconstruction_classes,
+            "batch_correction": self.batch_correction,
+            "count_sum": self.count_sum,
+            "inference_architecture": self.inference_architecture != "MLP",
+            "generative_architecture": self.generative_architecture != "MLP",
+        }
+        for name, value in unported.items():
+            if value:
+                raise NotImplementedError(f"{name} is not ported yet")
+        if self.parameterise_latent_posterior:
+            # the reference's cross-parameter validation: only a GMVAE's
+            # mixture posterior may be parameterised by its prior
+            raise ValueError(
+                "Cannot parameterise latent posterior parameters for VAE or "
+                f"{self.latent_distribution} distribution."
+            )
+        resolve_compute_dtype(self.precision, True, "cpu")  # validates the name
+
+    @property
+    def analytical_kl(self) -> bool:
+        if self.analytical_kl_term is not None:
+            return self.analytical_kl_term
+        return self.latent_distribution == "gaussian"
+
+    def _keep_probability(self, i: int) -> float:
+        ps = self.dropout_keep_probabilities
+        return float(ps[i]) if len(ps) > i and ps[i] else 1.0
+
+    @property
+    def dropout_keep_probability_h(self) -> float:
+        return self._keep_probability(0)
+
+    @property
+    def dropout_keep_probability_x(self) -> float:
+        return self._keep_probability(1)
+
+    @property
+    def dropout_keep_probability_z(self) -> float:
+        return self._keep_probability(2)
+
+    @property
+    def latent_spec(self) -> dict[str, Any]:
+        return LATENT_DISTRIBUTIONS[self.latent_distribution]
+
+    @property
+    def reconstruction_spec(self):
+        return DISTRIBUTIONS[self.reconstruction_distribution]
+
+    def compute_dtype(self, training: bool, device: torch.device | str):
+        """Matmul input dtype for this pass (None → full precision)."""
+        return resolve_compute_dtype(self.precision, training, device)
+
+
+def resolve_compute_dtype(precision: str | None, training: bool,
+                          device: torch.device | str):
+    """bf16 matmul inputs for training on CUDA (f32 accumulation); full f32
+    for evaluation and on the CPU unless explicitly requested."""
+    if precision is None:
+        precision = "bfloat16" if torch.device(device).type == "cuda" else "float32"
+    if precision in ("float32", "highest", "f32"):
+        return None
+    if precision not in ("bfloat16", "bf16"):
+        raise ValueError(f"Unknown precision {precision!r}")
+    return torch.bfloat16 if training else None
+
+
+# --------------------------------------------------------------------------
+# Initialisation
+# --------------------------------------------------------------------------
+
+
+def init(config: VAEConfig, generator: torch.Generator) -> tuple[Params, State]:
+    """Parameter and batch-norm-state dicts on the CPU, drawn from the CPU
+    ``generator`` (the same seed gives the same weights on every device)."""
+    params: Params = {}
+    state: State = {}
+    enc_params, enc_state = networks.init_mlp(
+        generator, config.feature_size, config.hidden_sizes,
+        batch_norm=config.minibatch_normalisation,
+    )
+    params["encoder"] = enc_params
+    state["encoder"] = enc_state
+
+    posterior_spec = config.latent_spec["posterior"]
+    post_dist = DISTRIBUTIONS[posterior_spec["name"]]
+    params["posterior"] = {
+        name: networks.init_dense(
+            generator, config.hidden_sizes[-1], spec.size_fn(config.latent_size)
+        )
+        for name, spec in post_dist.parameters.items()
+        if name not in posterior_spec["parameters"]
+    }
+    params["prior"] = {}
+
+    dec_params, dec_state = networks.init_mlp(
+        generator, config.latent_size, tuple(reversed(config.hidden_sizes)),
+        batch_norm=config.minibatch_normalisation,
+    )
+    params["decoder"] = dec_params
+    state["decoder"] = dec_state
+
+    params["reconstruction"] = {
+        name: networks.init_dense(
+            generator, config.hidden_sizes[0], config.feature_size
+        )
+        for name in config.reconstruction_spec.parameters
+    }
+    return params, state
+
+
+# --------------------------------------------------------------------------
+# Forward pass
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class VAEOutputs:
+    q_z: Any  # posterior, batch (B, D)
+    p_z: Any  # prior
+    z: torch.Tensor  # latent samples (S, B, D)
+    p_x: Any  # reconstruction distribution over (S, B, F); None on the fused path
+    decoder_hidden: torch.Tensor  # (S, B, H)
+    new_state: State
+
+
+def _constant(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _build_posterior(config: VAEConfig, params: Params, h: torch.Tensor,
+                     compute_dtype=None):
+    posterior_spec = config.latent_spec["posterior"]
+    dist_spec = DISTRIBUTIONS[posterior_spec["name"]]
+    theta: dict[str, torch.Tensor] = {}
+    for name, spec in dist_spec.parameters.items():
+        if name in posterior_spec["parameters"]:
+            theta[name] = _constant(posterior_spec["parameters"][name], h)
+            continue
+        theta[name] = spec.constrain(networks.apply_dense(
+            params["posterior"][name], h, compute_dtype=compute_dtype
+        ))
+    return dist_spec.build(theta)
+
+
+def _build_prior(config: VAEConfig, like: torch.Tensor):
+    prior_spec = config.latent_spec["prior"]
+    dist_spec = DISTRIBUTIONS[prior_spec["name"]]
+    return dist_spec.build({
+        name: _constant(prior_spec["parameters"][name], like)
+        for name in dist_spec.parameters
+    })
+
+
+def _build_reconstruction(config: VAEConfig, params: Params,
+                          decoder_h: torch.Tensor, compute_dtype=None):
+    spec = config.reconstruction_spec
+    return spec.build({
+        name: pspec.constrain(networks.apply_dense(
+            params["reconstruction"][name], decoder_h,
+            compute_dtype=compute_dtype,
+        ))
+        for name, pspec in spec.parameters.items()
+    })
+
+
+def forward(
+    config: VAEConfig,
+    params: Params,
+    state: State,
+    batch: Batch,
+    generator: torch.Generator | None,
+    *,
+    training: bool,
+    n_iw: int = 1,
+    n_mc: int = 1,
+    deterministic_z: bool = False,
+    build_reconstruction: bool = True,
+    noise: torch.Tensor | None = None,
+) -> VAEOutputs:
+    """Encoder → posterior → z → decoder (→ reconstruction distribution).
+    ``noise`` (S, B, D) replaces the generator's standard-normal draws for
+    z (parity tests feed both frameworks the same draws)."""
+    x = batch["x"]
+    compute_dtype = config.compute_dtype(training, x.device)
+    new_state: State = {}
+
+    h, new_state["encoder"] = networks.apply_mlp(
+        params["encoder"], state.get("encoder", {}), x,
+        training=training, generator=generator,
+        input_dropout_keep_prob=config.dropout_keep_probability_x,
+        hidden_dropout_keep_prob=config.dropout_keep_probability_h,
+        compute_dtype=compute_dtype,
+    )
+    q_z = _build_posterior(config, params, h, compute_dtype)
+    p_z = _build_prior(config, h)
+
+    if deterministic_z:
+        z = q_z.mean()[None]
+    else:
+        z = q_z.sample(generator, (n_iw * n_mc,), noise=noise)
+
+    dec_h, new_state["decoder"] = networks.apply_mlp(
+        params["decoder"], state.get("decoder", {}), z,
+        training=training, generator=generator,
+        input_dropout_keep_prob=config.dropout_keep_probability_z,
+        hidden_dropout_keep_prob=config.dropout_keep_probability_h,
+        compute_dtype=compute_dtype,
+    )
+    p_x = (
+        _build_reconstruction(config, params, dec_h, compute_dtype)
+        if build_reconstruction else None
+    )
+    return VAEOutputs(q_z=q_z, p_z=p_z, z=z, p_x=p_x, decoder_hidden=dec_h,
+                      new_state=new_state)
+
+
+# --------------------------------------------------------------------------
+# Objective
+# --------------------------------------------------------------------------
+
+
+def elbo_terms(
+    config: VAEConfig,
+    params: Params,
+    state: State,
+    batch: Batch,
+    generator: torch.Generator | None,
+    *,
+    training: bool,
+    n_iw: int = 1,
+    n_mc: int = 1,
+    warm_up_weight: float = 1.0,
+    deterministic_z: bool = False,
+    noise: torch.Tensor | None = None,
+) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
+    """The ELBO decomposition (reference ``variational_autoencoder.py:
+    2560-2734``).  The fused path is training-only; evaluation keeps the
+    unfused distribution path and the full ``p_x`` outputs.
+
+    Returns ``lower_bound`` (IW bound), ``lower_bound_weighted`` (training
+    objective with warm-up·kl_weight), ``reconstruction_error``,
+    ``kl_divergence`` and ``kl_divergence_neurons`` (D,)."""
+    use_fused = training and not deterministic_z
+    outputs = forward(
+        config, params, state, batch, generator,
+        training=training, n_iw=n_iw, n_mc=n_mc,
+        deterministic_z=deterministic_z,
+        build_reconstruction=not use_fused, noise=noise,
+    )
+    t = batch["t"]
+    b = t.shape[0]
+    if deterministic_z:
+        n_iw = n_mc = 1
+
+    if use_fused:
+        # The −lgamma(1+t) term is constant in the parameters and additive
+        # per row: when the data pipeline staged its row sums once per
+        # dataset (models.api._append_lgamma_rowsum) the kernel skips it.
+        row_const = batch.get("t_lgamma_rowsum")
+        rows = ops.fused_log_likelihood(
+            config.reconstruction_distribution,
+            outputs.decoder_hidden,
+            params["reconstruction"],
+            t,
+            compute_dtype=config.compute_dtype(training, t.device),
+            include_lgamma_const=row_const is None,
+        )
+        if row_const is not None:
+            rows = rows - row_const
+        log_p_x_given_z = rows.reshape(n_iw, n_mc, b)
+    else:
+        log_p_x_given_z = torch.sum(
+            outputs.p_x.log_prob(t.float()), dim=-1
+        ).reshape(n_iw, n_mc, b)
+    reconstruction_error = torch.mean(log_p_x_given_z)
+
+    if config.analytical_kl and not deterministic_z:
+        kl_pointwise = kl_divergence(outputs.q_z, outputs.p_z)  # (B, D)
+        kl_divergence_neurons = torch.mean(kl_pointwise, dim=0)
+        kl_samples = torch.sum(kl_pointwise, dim=-1)  # (B,) → broadcasts
+    else:
+        z = outputs.z.reshape(n_iw, n_mc, b, -1)
+        kl_pointwise = outputs.q_z.log_prob(z) - outputs.p_z.log_prob(z)
+        kl_divergence_neurons = torch.mean(
+            kl_pointwise.reshape(-1, kl_pointwise.shape[-1]), dim=0
+        )
+        kl_samples = torch.sum(kl_pointwise, dim=-1)  # (R, L, B)
+    kl_scalar = torch.sum(kl_divergence_neurons)
+
+    lower_bound = torch.mean(log_reduce_exp(log_p_x_given_z - kl_samples, dim=0))
+    lower_bound_weighted = torch.mean(
+        log_reduce_exp(
+            log_p_x_given_z - warm_up_weight * config.kl_weight * kl_samples,
+            dim=0,
+        )
+    )
+    metrics = {
+        "lower_bound": lower_bound,
+        "lower_bound_weighted": lower_bound_weighted,
+        "reconstruction_error": reconstruction_error,
+        "kl_divergence": kl_scalar,
+        "kl_divergence_neurons": kl_divergence_neurons,
+    }
+    return metrics, outputs
+
+
+def loss_fn(
+    config: VAEConfig,
+    params: Params,
+    state: State,
+    batch: Batch,
+    generator: torch.Generator | None,
+    *,
+    n_iw: int = 1,
+    n_mc: int = 1,
+    warm_up_weight: float = 1.0,
+    noise: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
+    """Training objective: −lower_bound_weighted (reference ``:2755``)."""
+    metrics, outputs = elbo_terms(
+        config, params, state, batch, generator,
+        training=True, n_iw=n_iw, n_mc=n_mc,
+        warm_up_weight=warm_up_weight, noise=noise,
+    )
+    return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)

@@ -1,0 +1,104 @@
+"""Moving parameters and batch-norm state between the JAX package and the
+port.
+
+Both keep parameters as nested dicts and lists with the same names and the
+same layout (a dense kernel is (in, out)), so conversion is leaf by leaf.
+Leaves are named by their ``jax.tree_util.keystr`` path, e.g.
+``['encoder']['layers'][0]['kernel']`` — the names of the JAX package's
+``.npz`` checkpoints — so a flat mapping of such names loads as well as a
+nested tree.  Nothing here imports JAX: the JAX side hands over numpy
+arrays.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_KEY = re.compile(r"\[(?:'((?:[^'\\]|\\.)*)'|(\d+))\]")
+
+
+def keystr(path: tuple) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys and list indices."""
+    return "".join(f"[{key!r}]" for key in path)
+
+
+def flatten(tree: Any, path: tuple = ()) -> dict[str, Any]:
+    """{keystr path: leaf} of a nested dict/list tree."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {keystr(path): tree}
+    flat: dict[str, Any] = {}
+    for key, value in items:
+        flat.update(flatten(value, path + (key,)))
+    return flat
+
+
+def _parse(name: str) -> list:
+    keys, end = [], 0
+    for match in _KEY.finditer(name):
+        if match.start() != end:
+            raise ValueError(f"not a keystr path: {name!r}")
+        end = match.end()
+        keys.append(match.group(1) if match.group(2) is None else int(match.group(2)))
+    if end != len(name) or not keys:
+        raise ValueError(f"not a keystr path: {name!r}")
+    return keys
+
+
+def _lists(node: Any) -> Any:
+    """Turn dicts keyed 0..n−1 by int into lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        if sorted(node) != list(range(len(node))):
+            raise ValueError(f"list indices {sorted(node)} are not 0..n-1")
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def unflatten(flat: Mapping[str, Any]) -> Any:
+    """Inverse of :func:`flatten`."""
+    root: dict = {}
+    for name, leaf in flat.items():
+        keys = _parse(name)
+        node = root
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+    return _lists(root)
+
+
+def _map(fn, tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
+    """Parameters or batch-norm state of the JAX package (a nested tree of
+    numpy arrays, or a flat {keystr: array} mapping such as a loaded
+    checkpoint) → the port's tree of float32 tensors on ``device``."""
+    if isinstance(tree, Mapping) and tree and all(
+        isinstance(k, str) and k.startswith("[") for k in tree
+    ):
+        tree = unflatten(tree)
+    return _map(
+        lambda leaf: torch.tensor(np.asarray(leaf, np.float32), device=device),
+        tree,
+    )
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The port's tree of tensors → a nested tree of numpy arrays with the
+    same names and layout (``jax.tree.map(jnp.asarray, ...)`` places it)."""
+    return _map(lambda t: t.detach().cpu().numpy(), tree)

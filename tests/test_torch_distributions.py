@@ -1,0 +1,98 @@
+"""The port's distributions against the JAX package's on the same inputs:
+support clipping (with its zero gradient outside the support), NB and
+Normal log_prob / mean / variance, the analytic Normal KL, and name
+parsing.  Both compute the same float32 formulas: rtol 1e-6 with an
+absolute floor of 1e-6 · max|reference| for values near zero."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scvae_tpu import distributions as jd
+from scvae_tpu_torch import distributions as td
+
+
+def assert_close(ours, ref, rtol=1e-6):
+    ours = ours.detach().numpy() if isinstance(ours, torch.Tensor) else ours
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(
+        ours, ref, rtol=rtol, atol=rtol * max(1.0, float(np.abs(ref).max()))
+    )
+
+
+@pytest.mark.parametrize(
+    "dist,param",
+    [("negative binomial", "p"), ("negative binomial", "log_r"),
+     ("gaussian", "log_sigma"), ("gaussian", "mu")],
+)
+def test_constrain_and_gradient(dist, param):
+    raw = np.concatenate([
+        np.linspace(-40.0, 40.0, 161), [-1e30, 1e30, 0.0]
+    ]).astype(np.float32)
+    j_spec = jd.DISTRIBUTIONS[dist].parameters[param]
+    t_spec = td.DISTRIBUTIONS[dist].parameters[param]
+    x = torch.from_numpy(raw).requires_grad_(True)
+    ours = t_spec.constrain(x)
+    (grad,) = torch.autograd.grad(ours.sum(), x)
+    ref = j_spec.constrain(jnp.asarray(raw))
+    ref_grad = jax.grad(lambda r: jnp.sum(j_spec.constrain(r)))(jnp.asarray(raw))
+    assert_close(ours, ref)
+    assert_close(grad, ref_grad)
+    lo, hi = t_spec.support
+    value = ours.detach().numpy()
+    assert np.all(value > np.float32(lo)) and np.all(value < np.float32(hi))
+    # zero gradient wherever the clip is active
+    clipped = (value == value.min()) | (value == value.max())
+    if dist == "negative binomial":
+        assert np.all(grad.numpy()[clipped & (np.abs(raw) > 20)] == 0.0)
+
+
+def _nb_case(seed=0, shape=(7, 40)):
+    rng = np.random.RandomState(seed)
+    r = np.exp(rng.uniform(-3, 3, shape)).astype(np.float32)
+    p = rng.uniform(0.01, 0.99, shape).astype(np.float32)
+    x = rng.poisson(3.0, shape).astype(np.float32)
+    return r, p, x
+
+
+def test_negative_binomial_matches_jax():
+    r, p, x = _nb_case()
+    ours = td.NegativeBinomial(torch.from_numpy(r), torch.from_numpy(p))
+    ref = jd.NegativeBinomial(total_count=jnp.asarray(r), probs=jnp.asarray(p))
+    assert_close(ours.log_prob(torch.from_numpy(x)), ref.log_prob(jnp.asarray(x)))
+    assert_close(ours.mean(), ref.mean())
+    assert_close(ours.variance(), ref.variance())
+
+
+def test_normal_matches_jax():
+    rng = np.random.RandomState(1)
+    loc = rng.randn(5, 3).astype(np.float32)
+    scale = np.exp(rng.uniform(-2, 2, (5, 3))).astype(np.float32)
+    z = rng.randn(2, 5, 3).astype(np.float32)
+    ours = td.Normal(torch.from_numpy(loc), torch.from_numpy(scale))
+    ref = jd.Normal(loc=jnp.asarray(loc), scale=jnp.asarray(scale))
+    assert_close(ours.log_prob(torch.from_numpy(z)), ref.log_prob(jnp.asarray(z)))
+    assert_close(ours.mean(), ref.mean())
+    assert_close(ours.variance(), ref.variance())
+    noise = rng.randn(2, 5, 3).astype(np.float32)
+    sample = ours.sample(None, (2,), noise=torch.from_numpy(noise))
+    assert_close(sample, loc + scale * noise)
+    prior_t = td.Normal(torch.zeros(()), torch.ones(()))
+    prior_j = jd.Normal(loc=jnp.zeros(()), scale=jnp.ones(()))
+    assert_close(td.kl_divergence(ours, prior_t), jd.kl_divergence(ref, prior_j))
+
+
+def test_parse_distribution():
+    for alias in ("negative binomial", "Negative-Binomial", "negative_binomial"):
+        assert td.parse_distribution(alias) == jd.parse_distribution(alias)
+    for alias in ("gaussian", "unit-variance gaussian"):
+        assert td.parse_distribution(alias, "VAE") == jd.parse_distribution(
+            alias, "VAE")
+    with pytest.raises(NotImplementedError):
+        td.parse_distribution("zero-inflated poisson")
+    with pytest.raises(NotImplementedError):
+        td.parse_distribution("gaussian mixture", "GMVAE")
+    with pytest.raises(ValueError):
+        td.parse_distribution("no such distribution")

@@ -1,0 +1,213 @@
+"""Training in the port against the JAX package, and the port's boundaries.
+
+* 20 clip + Adam steps from the same initial parameters on the same batches
+  follow the JAX trajectory (PARITY.md §2: rtol 1e-3), with a deterministic
+  z (unfused path) and with JAX's own z draws injected (the port's fused
+  path against JAX's unfused one);
+* ``epoch_permutation`` gives the JAX package's minibatch order;
+* ``VariationalAutoencoder(...).train(..., device="cpu")`` gives a finite,
+  rising ELBO;
+* the package imports with JAX blocked and imports neither JAX nor
+  ``scvae_tpu``; entry points need CUDA unless ``device="cpu"``.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scvae_tpu.models import step as jstep
+from scvae_tpu.models import vae as jvae
+from scvae_tpu_torch import VariationalAutoencoder
+from scvae_tpu_torch import params as tparams
+from scvae_tpu_torch.models import step as tstep
+from scvae_tpu_torch.models import vae as tvae
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+F, LATENT, HIDDEN, B, LR, STEPS = 12, 3, (8,), 16, 1e-3, 20
+
+
+def _trajectories(deterministic_z):
+    config_kwargs = dict(
+        feature_size=F, latent_size=LATENT, hidden_sizes=HIDDEN,
+        reconstruction_distribution="negative binomial",
+    )
+    jconfig = jvae.VAEConfig(**config_kwargs)
+    tconfig = tvae.VAEConfig(**config_kwargs)
+    params, state = jvae.init(jconfig, jax.random.PRNGKey(0))
+    data = np.random.RandomState(1234).poisson(2.0, (64, F)).astype(np.float32)
+    batches = [data[(i % 4) * B:(i % 4 + 1) * B] for i in range(STEPS)]
+    keys = [jax.random.PRNGKey(100 + i) for i in range(STEPS)]
+
+    def jax_loss(params, model_state, batch, rng, wuw):
+        metrics, outputs = jvae.elbo_terms(
+            jconfig, params, model_state, batch, rng, training=True,
+            deterministic_z=deterministic_z, warm_up_weight=wuw,
+        )
+        return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
+
+    optimizer = jstep.make_optimizer(LR)
+    ts = jstep.create_train_state(params, state, optimizer)
+    train_step = jstep.make_train_step(jax_loss, optimizer, donate=False)
+    jax_curve = []
+    for batch, key in zip(batches, keys):
+        ts, metrics = train_step(
+            ts, {"x": jnp.asarray(batch), "t": jnp.asarray(batch)}, key, 1.0
+        )
+        jax_curve.append(float(metrics["lower_bound"]))
+
+    # the draws JAX's forward makes for z from each step's key
+    noises = iter([
+        torch.from_numpy(np.array(jax.random.normal(
+            jax.random.split(key, 3)[2], (1, B, LATENT))))
+        for key in keys
+    ])
+
+    def port_loss(params, model_state, batch, generator, wuw):
+        metrics, outputs = tvae.elbo_terms(
+            tconfig, params, model_state, batch, generator, training=True,
+            deterministic_z=deterministic_z, warm_up_weight=wuw,
+            noise=None if deterministic_z else next(noises),
+        )
+        return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
+
+    as_numpy = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    t_optimizer = tstep.make_optimizer(LR)
+    tts = tstep.create_train_state(
+        tparams.params_from_jax(as_numpy(params)),
+        tparams.params_from_jax(as_numpy(state)), t_optimizer,
+    )
+    t_step = tstep.make_train_step(port_loss, t_optimizer)
+    port_curve = []
+    for batch in batches:
+        xt = torch.from_numpy(batch)
+        tts, metrics = t_step(tts, {"x": xt, "t": xt}, None, 1.0)
+        port_curve.append(float(metrics["lower_bound"]))
+    return jax_curve, port_curve, ts, tts
+
+
+@pytest.mark.parametrize("deterministic_z", [True, False])
+def test_trajectory_matches_jax(deterministic_z):
+    jax_curve, port_curve, ts, tts = _trajectories(deterministic_z)
+    np.testing.assert_allclose(port_curve, jax_curve, rtol=1e-3)
+    assert tts.step == int(ts.step) == STEPS
+    flat_jax = tparams.flatten(jax.tree_util.tree_map(np.asarray, ts.params))
+    for name, leaf in tparams.flatten(tts.params).items():
+        if "['layers']" in name and name.endswith("['bias']"):
+            # a bias right before batch norm has an exactly zero gradient;
+            # Adam scales each side's float noise up to a full step
+            continue
+        np.testing.assert_allclose(leaf.numpy(), flat_jax[name],
+                                   rtol=1e-3, atol=1e-5)
+
+
+def test_epoch_permutation_matches_jax():
+    for n, batch, seed in ((1000, 64, 0), (68_579, 2048, 3)):
+        ours = tstep.epoch_permutation(n, batch, np.random.RandomState(seed))
+        ref = jstep.epoch_permutation(n, batch, np.random.RandomState(seed))
+        assert ours.dtype == ref.dtype == np.int32
+        np.testing.assert_array_equal(ours, ref)
+
+
+def test_warm_up_weight_matches_jax():
+    from scvae_tpu.models import objectives as jobjectives
+    from scvae_tpu_torch.models import objectives
+
+    for warm_up in (0, 1, 5):
+        for epoch in range(8):
+            assert objectives.warm_up_weight(epoch, warm_up) == (
+                jobjectives.warm_up_weight(epoch, warm_up))
+
+
+def test_train_on_cpu_rises():
+    x = np.random.RandomState(0).poisson(2.0, (256, 40)).astype(np.float32)
+    model = VariationalAutoencoder(
+        feature_size=40, latent_size=4, hidden_sizes=[16, 16],
+        reconstruction_distribution="negative binomial", learning_rate=1e-3,
+    )
+    result = model.train(x, number_of_epochs=2, minibatch_size=64,
+                         device="cpu", verbose=False)
+    curve = result.history["training"]["lower_bound"]
+    assert len(curve) == 2 and np.all(np.isfinite(curve))
+    assert curve[1] > curve[0]
+    assert result.steps_per_epoch == 4 and result.train_state.step == 8
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = VariationalAutoencoder(
+        feature_size=10, latent_size=2, hidden_sizes=[8],
+        reconstruction_distribution="negative binomial",
+    )
+    x = np.ones((32, 10), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)
+    with pytest.raises(NotImplementedError):
+        model.train(x, x, number_of_epochs=1, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.train(x, number_of_epochs=1, device="cpu", metrics_fetch="deferred")
+    with pytest.raises(NotImplementedError):
+        VariationalAutoencoder(feature_size=10, log_directory="models",
+                               reconstruction_distribution="negative binomial")
+    with pytest.raises(NotImplementedError):  # the reference default, Poisson
+        VariationalAutoencoder(feature_size=10)
+
+
+def _package_modules():
+    package = REPO / "scvae_tpu_torch"
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in package.rglob("*.py")
+    )
+
+
+def test_imports_with_jax_blocked():
+    modules = _package_modules()
+    assert "scvae_tpu_torch.models.vae" in modules
+    assert "scvae_tpu_torch.data.pipeline" in modules
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['scvae_tpu'] = None\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'scvae_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted((REPO / "scvae_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "scvae_tpu", "optax"), (
+                    f"{path.relative_to(REPO)} imports {name}"
+                )
+
+
+def test_package_files_are_tracked():
+    """The package's models/ and data/ directories are not caught by an
+    ignore rule meant for the repository root."""
+    paths = ["scvae_tpu_torch/models/vae.py", "scvae_tpu_torch/data/pipeline.py"]
+    out = subprocess.run(["git", "check-ignore", *paths], cwd=REPO,
+                         capture_output=True, text=True)
+    if out.returncode == 128:
+        pytest.skip(f"not a git checkout: {out.stderr.strip()}")
+    assert out.stdout.strip() == ""

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Where the time of a training step goes in the PyTorch/CUDA port.
+
+    python3 tools/profile_torch_step.py
+
+Trains the headline VAE-NB of ``chip_smoke.py`` (68,579 × 2,048 synthetic
+counts, hidden (256, 256), latent 100, minibatch 2,048) for one warm-up
+epoch, then records the second epoch's 33 training steps with
+``torch.profiler`` and prints, for that window: the wall time per step, the
+device time per step summed over kernels, the device-busy share, and the
+device time per step of the 15 largest kernels by name.  Needs one CUDA
+device; prints the card's name and power limit with the numbers.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from scvae_tpu_torch import VariationalAutoencoder  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device is available", file=sys.stderr)
+        return 2
+    counts = chip_smoke.make_counts(chip_smoke.N_CELLS, chip_smoke.N_GENES)
+    model = VariationalAutoencoder(
+        feature_size=chip_smoke.N_GENES, latent_size=chip_smoke.LATENT,
+        hidden_sizes=[chip_smoke.HIDDEN] * 2,
+        reconstruction_distribution="negative binomial",
+    )
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def callback(epoch, train_state, metrics):
+        torch.cuda.synchronize()
+        if epoch == 0:
+            prof.start()
+            window["start"] = time.perf_counter()
+        else:
+            window["seconds"] = time.perf_counter() - window["start"]
+            prof.stop()
+
+    result = model.train(counts, number_of_epochs=2,
+                         minibatch_size=chip_smoke.BATCH,
+                         full_train_evaluation=False, verbose=False,
+                         epoch_callback=callback, device="cuda")
+    steps = result.steps_per_epoch
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    wall_ms = window["seconds"] * 1e3 / steps
+    print(f"card: {chip_smoke.card_line()}")
+    print(f"window: {steps} steps, wall {wall_ms:.4f} ms/step, device "
+          f"{device_us / 1e3 / steps:.4f} ms/step, busy "
+          f"{device_us / 1e3 / steps / wall_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:6.1f}/step  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
