@@ -39,13 +39,17 @@ EPOCHS = 2
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
-# Tolerances of the kernel checks against the plain versions (max abs error
-# relative to the largest |value| of the plain output): float32 sums taken
-# in another order; for the backward also da values that round to a
-# neighbouring bf16 value.
+# Tolerances of the kernel checks against the plain versions: the max abs
+# error over the largest |value| of the plain output.  Forward: float32 sums
+# taken in another order (reads ~2e-7).  Backward with bf16 rounding: also da
+# values that the other order rounds to a neighbouring bf16 value (dW reads
+# ~1.3e-4; a kernel that leaves da or h unrounded reads 1.1e-3 to 2.6e-3).
+# Float32 backward against autograd, and the small step on the GPU against
+# the CPU (gradients over the largest gradient of the model): summation
+# order alone (reads up to 2e-6).
 FORWARD_RTOL = 2e-5
-BACKWARD_RTOL = 1e-3
-AUTOGRAD_RTOL = 2e-4
+BACKWARD_RTOL = 4e-4
+AUTOGRAD_RTOL = 2e-5
 
 
 def log(*args):
@@ -98,9 +102,15 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name, got, want, rtol) -> float:
+def check_close(name, got, want, rtol, scale=None) -> float:
+    """Max abs error of ``got`` against ``want``; fails above ``rtol`` times
+    ``scale`` (by default the largest |value| of ``want``)."""
     err = max_err(got, want)
-    scale = max(1.0, float(want.float().abs().max()))
+    if scale is None:
+        scale = float(want.float().abs().max())
+    log(f"check {name}: max abs error {err:.3g}, "
+        f"{err / scale if scale else float('nan'):.3g} of {scale:.4g} "
+        f"(limit {rtol:g})")
     if not np.isfinite(err) or err > rtol * scale:
         raise AssertionError(
             f"{name}: max abs error {err} exceeds {rtol} x {scale}"
@@ -112,6 +122,9 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+GRAD_NAMES = ("dh", "dW_p", "db_p", "dW_r", "db_r")
 
 
 def phase_kernels(counts_dev):
@@ -127,19 +140,17 @@ def phase_kernels(counts_dev):
     idx = torch.randperm(n, generator=gen, device=dev)[:m].to(torch.int32)
     results = {}
 
-    # K1 — row gather: bit-exact with index_select + cast.
-    (x,) = ops.gather_rows(counts_dev, idx, [bf16])
-    (x_ref,) = ops.reference_gather(counts_dev, idx, [bf16])
-    cases = [
-        (x, x_ref),
-        *zip(ops.gather_rows(counts_dev, idx, [torch.float32, bf16]),
-             ops.reference_gather(counts_dev, idx, [torch.float32, bf16])),
-        *zip(ops.gather_rows(counts_dev[:, :2000].contiguous(), idx, [bf16]),
-             ops.reference_gather(counts_dev[:, :2000], idx, [bf16])),
-        *zip(ops.gather_rows(counts_dev[:4096].float(), idx % 4096,
-                             [torch.float32, bf16]),
-             ops.reference_gather(counts_dev[:4096].float(), idx % 4096,
-                                  [torch.float32, bf16])),
+    # K1 — row gather: bit-exact with index_select + cast, at the headline
+    # shapes, a ragged F and a float32 source, to bf16 and to float32.
+    x = ops.gather_rows(counts_dev, idx, bf16)
+    x_ref = ops.reference_gather(counts_dev, idx, bf16)
+    f32_src = counts_dev[:4096].float()
+    cases = [(x, x_ref)] + [
+        (ops.gather_rows(src, rows, dtype), ops.reference_gather(src, rows, dtype))
+        for src, rows in ((counts_dev, idx),
+                          (counts_dev[:, :2000].contiguous(), idx),
+                          (f32_src, idx % 4096))
+        for dtype in (bf16, torch.float32)
     ]
     for got, want in cases:
         if got.dtype != want.dtype or not torch.equal(got, want):
@@ -148,10 +159,10 @@ def phase_kernels(counts_dev):
     t_bound, by = bound(gather_bytes, 0.0, BF16_FLOPS)
     results["gather_rows"] = {
         "max_abs_err": max_err(x, x_ref),
-        "ms": time_ms(lambda: ops.gather_rows(counts_dev, idx, [bf16]),
+        "ms": time_ms(lambda: ops.gather_rows(counts_dev, idx, bf16),
                       flush=flush),
         "plain_ms": time_ms(lambda: ops.reference_gather(
-            counts_dev, idx, [bf16]), flush=flush),
+            counts_dev, idx, bf16), flush=flush),
         "bound_ms": t_bound, "bound_by": by,
         "library_ms": time_ms(lambda: torch.index_select(
             counts_dev, 0, idx).to(bf16), flush=flush),
@@ -182,7 +193,8 @@ def phase_kernels(counts_dev):
         got = ops.nb_forward(*args, t, compute_dtype=cdt, include_lgamma_const=const)
         want = ops.reference_nb_log_likelihood(
             *args, t, compute_dtype=cdt, include_lgamma_const=const)
-        err = check_close("nb_forward", got, want, FORWARD_RTOL)
+        err = check_close(f"nb_forward F={t.shape[1]} {cdt} t={t.dtype} "
+                          f"const={const}", got, want, FORWARD_RTOL)
         if cdt is bf16 and not const and args is heads:
             fwd_err = err
     fwd_flops = 2 * 2 * m * h_dim * f
@@ -206,16 +218,17 @@ def phase_kernels(counts_dev):
         got = (ops.nb_backward_dh(g, *args, t, compute_dtype=bf16),
                *ops.nb_backward_dw(g, *args, t, compute_dtype=bf16))
         want = ops.reference_nb_backward(g, *args, t, compute_dtype=bf16)
-        errs = [check_close(f"nb_backward[{i}]", a, b, BACKWARD_RTOL)
-                for i, (a, b) in enumerate(zip(got, want))]
+        errs = [check_close(f"nb_backward {part} F={t.shape[1]}", a, b,
+                            BACKWARD_RTOL)
+                for part, a, b in zip(GRAD_NAMES, got, want)]
         if args is heads:
             dh_err, dw_err = errs[0], max(errs[1:])
     leaves = [a.clone().requires_grad_(True) for a in heads]
     ll = ops.reference_nb_log_likelihood(*leaves, x, include_lgamma_const=False)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)  # dh, dW_p, db_p, ...
     got = (ops.nb_backward_dh(g, *heads, x), *ops.nb_backward_dw(g, *heads, x))
-    for i, (a, b) in enumerate(zip(got, want)):
-        check_close(f"nb_backward f32 vs autograd[{i}]", a, b,
+    for part, a, b in zip(GRAD_NAMES, got, want):
+        check_close(f"nb_backward float32 {part} vs autograd", a, b,
                     AUTOGRAD_RTOL)
     bwd_flops = 2 * fwd_flops  # recompute + one gradient product
     dh_bytes = fwd_bytes + m * h_dim * 4
@@ -265,8 +278,12 @@ def phase_small_step():
                               noise=torch.from_numpy(noise).to(device))
         grads = torch.autograd.grad(loss, step.tree_leaves(p))
         results.append([loss.detach().cpu()] + [gr.cpu() for gr in grads])
-    for i, (a, b) in enumerate(zip(*results)):
-        check_close(f"small step [{i}]", b, a, AUTOGRAD_RTOL)
+    (cpu_loss, *cpu_grads), (gpu_loss, *gpu_grads) = results
+    check_close("small step loss", gpu_loss, cpu_loss, AUTOGRAD_RTOL)
+    largest = max(float(g.abs().max()) for g in cpu_grads)
+    for i, (a, b) in enumerate(zip(gpu_grads, cpu_grads)):
+        check_close(f"small step gradient [{i}]", a, b, AUTOGRAD_RTOL,
+                    scale=largest)
 
 
 def main() -> int:

@@ -40,12 +40,14 @@ def init_dense(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
 
 def apply_dense(params: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """Dense layer.  With ``compute_dtype`` (bfloat16) the matmul inputs are
-    cast down and PyTorch accumulates in float32; unlike XLA's
-    ``preferred_element_type`` the product comes back in bfloat16 and is
-    widened before the float32 bias add."""
+    rounded to it and multiplied in float32: bfloat16 inputs, float32
+    accumulation and a float32 product, as XLA's
+    ``preferred_element_type=float32`` gives.  Gradients pass through the
+    roundings as through JAX's casts."""
     kernel = params["kernel"]
     if compute_dtype is not None and kernel.dtype != compute_dtype:
-        y = torch.matmul(x.to(compute_dtype), kernel.to(compute_dtype)).float()
+        y = torch.matmul(x.to(compute_dtype).float(),
+                         kernel.to(compute_dtype).float())
     else:
         y = torch.matmul(x.float(), kernel)
     return y + params["bias"]

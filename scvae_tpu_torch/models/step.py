@@ -100,30 +100,22 @@ def gather_batch(data: dict[str, torch.Tensor], idx: torch.Tensor,
     """One batch of rows from device-resident data.
 
     2-D count fields go through the row-gather kernel (K1); fields that are
-    the same tensor (x and t usually alias one count matrix) share one
-    gather, which emits every dtype they ask for in one pass.
-    ``dtype_overrides`` maps field → output dtype for 2-D fields (default
-    float32); 1-D fields (the staged Σ lgamma(1+t) row constants) use
-    ``index_select``."""
+    the same tensor and ask for the same dtype (x and t alias one count
+    matrix) share one gather.  ``dtype_overrides`` maps field → output
+    dtype for 2-D fields (default float32); 1-D fields (the staged
+    Σ lgamma(1+t) row constants) use ``index_select``."""
     overrides = dtype_overrides or {}
-    wanted: dict[int, list[torch.dtype]] = {}
-    for name, value in data.items():
-        if value.dim() == 2:
-            dtype = overrides.get(name, torch.float32)
-            dtypes = wanted.setdefault(id(value), [])
-            if dtype not in dtypes:
-                dtypes.append(dtype)
-    gathered: dict[int, dict[torch.dtype, torch.Tensor]] = {}
+    gathered: dict[tuple[int, torch.dtype], torch.Tensor] = {}
     batch = {}
     for name, value in data.items():
         if value.dim() != 2:
             batch[name] = value.index_select(0, idx.long())
             continue
-        key = id(value)
+        dtype = overrides.get(name, torch.float32)
+        key = (id(value), dtype)
         if key not in gathered:
-            outs = ops.gather_rows(value, idx, wanted[key])
-            gathered[key] = dict(zip(wanted[key], outs))
-        batch[name] = gathered[key][overrides.get(name, torch.float32)]
+            gathered[key] = ops.gather_rows(value, idx, dtype)
+        batch[name] = gathered[key]
     return batch
 
 

@@ -2,16 +2,17 @@
 //
 // Replaces the Pallas row-DMA gather of scvae_tpu/ops/gather.py
 // (_make_gather_kernel / _gather_call).  B rows picked by an int32 index
-// are copied out of a plain row-major (N, F) count matrix and cast to one or
-// two output dtypes in the same pass, so the encoder input and the
-// likelihood target come out of one read of the source.  The TPU's packed
-// (N*a, F/a) layout and its F alignment rule are not needed here: any F
-// works, the tail of a row is masked.
+// are copied out of a plain row-major (N, F) count matrix and cast to the
+// output dtype in the same pass.  The encoder input and the likelihood
+// target alias one matrix and ask for one dtype, so one gather with one
+// output serves both.  The TPU's packed (N*a, F/a) layout and its F
+// alignment rule are not needed here: any F works, the tail of a row is
+// masked.
 //
 // Bound on the H100: bytes.  Each output row reads F source elements once
-// and writes F elements per output dtype; there is no arithmetic beyond the
-// cast.  One block per gathered row, 16-byte vector loads and stores where
-// F and the pointers allow it, plain element copies otherwise.
+// and writes F output elements; there is no arithmetic beyond the cast.
+// One block per gathered row, 16-byte vector loads and stores where F and
+// the pointers allow it, plain element copies otherwise.
 //
 // The casts go through float (int16 and small int32 counts are exact) and
 // then round to nearest even for bf16, which is what Tensor.to does, so the
@@ -53,73 +54,51 @@ struct alignas(sizeof(T) * kVec) Chunk {
   T v[kVec];
 };
 
-// NOUT output dtypes (1 or 2).  `vec` selects the 8-element vector path; the
-// host sets it only when F % 8 == 0 and every pointer is 16-byte aligned.
-template <typename S, typename O0, typename O1, int NOUT>
+// `vec` selects the 8-element vector path; the host sets it only when
+// F % 8 == 0 and every pointer is 16-byte aligned.
+template <typename S, typename O>
 __global__ void __launch_bounds__(kThreads)
     gather_rows_kernel(const S* __restrict__ src, const int* __restrict__ idx,
-                       long long n_rows, int n_cols, O0* __restrict__ out0,
-                       O1* __restrict__ out1, int vec) {
+                       long long n_rows, int n_cols, O* __restrict__ out,
+                       int vec) {
   const long long b = blockIdx.x;
   const int r = idx[b];
   if (r < 0 || r >= n_rows) __trap();  // an index outside the matrix
   const S* row = src + (long long)r * n_cols;
-  O0* o0 = out0 + b * n_cols;
-  O1* o1 = NOUT == 2 ? out1 + b * n_cols : nullptr;
+  O* o = out + b * n_cols;
   if (vec) {
     const int n_chunks = n_cols / kVec;
     for (int c = threadIdx.x; c < n_chunks; c += kThreads) {
       const Chunk<S> s = reinterpret_cast<const Chunk<S>*>(row)[c];
-      Chunk<O0> a;
+      Chunk<O> a;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) a.v[i] = from_float<O0>(to_float(s.v[i]));
-      reinterpret_cast<Chunk<O0>*>(o0)[c] = a;
-      if (NOUT == 2) {
-        Chunk<O1> d;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i)
-          d.v[i] = from_float<O1>(to_float(s.v[i]));
-        reinterpret_cast<Chunk<O1>*>(o1)[c] = d;
-      }
+      for (int i = 0; i < kVec; ++i) a.v[i] = from_float<O>(to_float(s.v[i]));
+      reinterpret_cast<Chunk<O>*>(o)[c] = a;
     }
   } else {
-    for (int c = threadIdx.x; c < n_cols; c += kThreads) {
-      const float v = to_float(row[c]);
-      o0[c] = from_float<O0>(v);
-      if (NOUT == 2) o1[c] = from_float<O1>(v);
-    }
+    for (int c = threadIdx.x; c < n_cols; c += kThreads)
+      o[c] = from_float<O>(to_float(row[c]));
   }
 }
 
-template <typename S, typename O0, typename O1, int NOUT>
+template <typename S, typename O>
 int launch(const void* src, const int* idx, int n_idx, long long n_rows,
-           int n_cols, void* out0, void* out1, int vec, cudaStream_t stream) {
-  gather_rows_kernel<S, O0, O1, NOUT><<<n_idx, kThreads, 0, stream>>>(
-      static_cast<const S*>(src), idx, n_rows, n_cols, static_cast<O0*>(out0),
-      static_cast<O1*>(out1), vec);
+           int n_cols, void* out, int vec, cudaStream_t stream) {
+  gather_rows_kernel<S, O><<<n_idx, kThreads, 0, stream>>>(
+      static_cast<const S*>(src), idx, n_rows, n_cols, static_cast<O*>(out),
+      vec);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
-int dispatch_outputs(const void* src, const int* idx, int n_idx,
-                     long long n_rows, int n_cols, void* out0, int dt0,
-                     void* out1, int dt1, int vec, cudaStream_t stream) {
-  if (out1 == nullptr) {
-    if (dt0 == kF32)
-      return launch<S, float, float, 1>(src, idx, n_idx, n_rows, n_cols, out0,
-                                        nullptr, vec, stream);
-    if (dt0 == kBF16)
-      return launch<S, __nv_bfloat16, float, 1>(src, idx, n_idx, n_rows,
-                                                n_cols, out0, nullptr, vec,
-                                                stream);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dt0 == kF32 && dt1 == kBF16)
-    return launch<S, float, __nv_bfloat16, 2>(src, idx, n_idx, n_rows, n_cols,
-                                              out0, out1, vec, stream);
-  if (dt0 == kBF16 && dt1 == kF32)
-    return launch<S, __nv_bfloat16, float, 2>(src, idx, n_idx, n_rows, n_cols,
-                                              out0, out1, vec, stream);
+int dispatch_output(const void* src, const int* idx, int n_idx,
+                    long long n_rows, int n_cols, void* out, int out_dtype,
+                    int vec, cudaStream_t stream) {
+  if (out_dtype == kF32)
+    return launch<S, float>(src, idx, n_idx, n_rows, n_cols, out, vec, stream);
+  if (out_dtype == kBF16)
+    return launch<S, __nv_bfloat16>(src, idx, n_idx, n_rows, n_cols, out, vec,
+                                    stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -128,24 +107,22 @@ int dispatch_outputs(const void* src, const int* idx, int n_idx,
 extern "C" {
 
 // Returns a cudaError_t (0 on success).  Output dtype codes: 0 = float32,
-// 1 = bfloat16; source codes: 0 = float32, 2 = int16, 3 = int32.  With two
-// outputs their dtypes must differ (one of each).
+// 1 = bfloat16; source codes: 0 = float32, 2 = int16, 3 = int32.
 int scvae_gather_rows(const void* src, int src_dtype, const int* idx,
-                      int n_idx, long long n_rows, int n_cols, void* out0,
-                      int out0_dtype, void* out1, int out1_dtype, int vec,
-                      void* stream) {
+                      int n_idx, long long n_rows, int n_cols, void* out,
+                      int out_dtype, int vec, void* stream) {
   if (n_idx == 0 || n_cols == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (src_dtype) {
     case kF32:
-      return dispatch_outputs<float>(src, idx, n_idx, n_rows, n_cols, out0,
-                                     out0_dtype, out1, out1_dtype, vec, s);
+      return dispatch_output<float>(src, idx, n_idx, n_rows, n_cols, out,
+                                    out_dtype, vec, s);
     case kI16:
-      return dispatch_outputs<int16_t>(src, idx, n_idx, n_rows, n_cols, out0,
-                                       out0_dtype, out1, out1_dtype, vec, s);
+      return dispatch_output<int16_t>(src, idx, n_idx, n_rows, n_cols, out,
+                                      out_dtype, vec, s);
     case kI32:
-      return dispatch_outputs<int32_t>(src, idx, n_idx, n_rows, n_cols, out0,
-                                       out0_dtype, out1, out1_dtype, vec, s);
+      return dispatch_output<int32_t>(src, idx, n_idx, n_rows, n_cols, out,
+                                      out_dtype, vec, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

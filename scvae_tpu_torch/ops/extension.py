@@ -29,9 +29,9 @@ _library: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # src, src_dtype, idx, n_idx, n_rows, n_cols, out0, dt0, out1, dt1, vec, stream
-    "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _P,
-                          _I, _I, _P],
+    # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, vec, stream
+    "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _I,
+                          _P],
     # h, wp, bp, wr, br, t, t_dtype, out, m, m_t, hidden, f, round, subtract, stream
     "scvae_nb_forward": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                          _I, _P],

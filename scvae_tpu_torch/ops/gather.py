@@ -1,18 +1,15 @@
 """Row gather for device-resident batching (kernel K1).
 
 Each training step gathers a shuffled batch of cell rows from the count
-matrix held on the device and casts them to the dtypes the step wants.  On a
+matrix held on the device and casts them to the dtype the step wants.  On a
 CUDA tensor :func:`gather_rows` launches the hand-written kernel of
-``ops/csrc/gather.cu``, which emits every requested dtype in one pass over
-the source rows; on a CPU tensor it runs the plain version,
-:func:`reference_gather`.  Counterpart of ``scvae_tpu/ops/gather.py``
-without the TPU's packed layout: the source is a plain row-major (N, F)
-matrix and any F works.
+``ops/csrc/gather.cu``, which casts in the same pass over the source rows;
+on a CPU tensor it runs the plain version, :func:`reference_gather`.
+Counterpart of ``scvae_tpu/ops/gather.py`` without the TPU's packed layout:
+the source is a plain row-major (N, F) matrix and any F works.
 """
 
 from __future__ import annotations
-
-from collections.abc import Sequence
 
 import torch
 
@@ -25,24 +22,17 @@ _SOURCE_CODES = {torch.float32: 0, torch.int16: 2, torch.int32: 3}
 _OUTPUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def reference_gather(
-    src: torch.Tensor, idx: torch.Tensor, out_dtypes: Sequence[torch.dtype]
-) -> list[torch.Tensor]:
-    """Plain version: ``index_select`` then a cast per output dtype."""
-    rows = src.index_select(0, idx.long())
-    return [rows.to(dtype) for dtype in out_dtypes]
+def reference_gather(src: torch.Tensor, idx: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version: ``index_select`` then a cast."""
+    return src.index_select(0, idx.long()).to(dtype)
 
 
-def gather_rows(
-    src: torch.Tensor,
-    idx: torch.Tensor,
-    out_dtypes: Sequence[torch.dtype] = (torch.float32,),
-) -> list[torch.Tensor]:
-    """Rows ``idx`` (B,) of ``src`` (N, F) → one (B, F) tensor per dtype in
-    ``out_dtypes`` (at most two, and distinct)."""
-    out_dtypes = list(out_dtypes)
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Rows ``idx`` (B,) of ``src`` (N, F) as a (B, F) tensor of ``dtype``."""
     if not src.is_cuda:
-        return reference_gather(src, idx, out_dtypes)
+        return reference_gather(src, idx, dtype)
     if src.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"need (N, F) rows and (B,) indices, got "
                          f"{tuple(src.shape)} and {tuple(idx.shape)}")
@@ -50,29 +40,23 @@ def gather_rows(
         raise TypeError(f"unsupported source dtype {src.dtype}")
     if idx.dtype != torch.int32 or idx.device != src.device:
         raise TypeError("indices must be int32 on the source's device")
-    if not 1 <= len(out_dtypes) <= 2 or len(set(out_dtypes)) != len(out_dtypes):
-        raise ValueError(f"need one or two distinct output dtypes, got {out_dtypes}")
-    if any(d not in _OUTPUT_CODES for d in out_dtypes):
-        raise TypeError(f"unsupported output dtypes {out_dtypes}")
+    if dtype not in _OUTPUT_CODES:
+        raise TypeError(f"unsupported output dtype {dtype}")
     src = src.contiguous()
     idx = idx.contiguous()
     n, f = src.shape
     b = idx.shape[0]
-    outs = [torch.empty((b, f), dtype=d, device=src.device) for d in out_dtypes]
+    out = torch.empty((b, f), dtype=dtype, device=src.device)
     if b == 0 or f == 0:
-        return outs
+        return out
     # 8-element vector chunks need F % 8 == 0 and chunk-aligned pointers
     vec = f % 8 == 0 and all(
-        t.data_ptr() % (8 * t.element_size()) == 0 for t in [src] + outs
+        t.data_ptr() % (8 * t.element_size()) == 0 for t in (src, out)
     )
-    out1 = outs[1] if len(outs) == 2 else None
     extension.call(
         "scvae_gather_rows", src.device,
         src.data_ptr(), _SOURCE_CODES[src.dtype], idx.data_ptr(), b, n, f,
-        outs[0].data_ptr(), _OUTPUT_CODES[out_dtypes[0]],
-        None if out1 is None else out1.data_ptr(),
-        0 if out1 is None else _OUTPUT_CODES[out_dtypes[1]],
-        int(vec),
+        out.data_ptr(), _OUTPUT_CODES[dtype], int(vec),
     )
     LAUNCHES["gather_rows"] += 1
-    return outs
+    return out

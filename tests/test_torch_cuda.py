@@ -11,7 +11,8 @@ do not use).
 
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
-forward, 1e-3 backward with bf16 rounding, 2e-4 against float32 autograd).
+forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
+autograd).
 """
 
 import pytest
@@ -31,8 +32,9 @@ def device():
 
 
 def _close(got, want, rtol):
+    """Max abs error at most ``rtol`` times the largest |value| of ``want``."""
     err = float((got.float() - want.float()).abs().max())
-    scale = max(1.0, float(want.float().abs().max()))
+    scale = float(want.float().abs().max())
     assert err <= rtol * scale, (err, scale)
 
 
@@ -42,11 +44,10 @@ def test_gather_bit_exact(device, f, src_dtype):
     gen = torch.Generator(device=device).manual_seed(f)
     src = torch.randint(0, 300, (97, f), generator=gen, device=device).to(src_dtype)
     idx = torch.randperm(97, generator=gen, device=device)[:41].to(torch.int32)
-    for dtypes in ([torch.bfloat16], [torch.float32], [torch.bfloat16, torch.float32]):
-        got = ops.gather_rows(src, idx, dtypes)
-        want = ops.reference_gather(src, idx, dtypes)
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype and torch.equal(a, b)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = ops.gather_rows(src, idx, dtype)
+        want = ops.reference_gather(src, idx, dtype)
+        assert got.dtype == want.dtype == dtype and torch.equal(got, want)
 
 
 def _case(device, m, m_t, hidden, f, t_dtype, seed=0):
@@ -79,7 +80,7 @@ def test_nb_kernels_match_plain(device, m, m_t, hidden, f, t_dtype, compute):
     want = ops.reference_nb_backward(g, *heads, t, compute_dtype=compute)
     for a, b in zip(got, want):
         assert a.shape == b.shape
-        _close(a, b, 1e-3 if compute is not None else 2e-5)
+        _close(a, b, 4e-4 if compute is not None else 2e-5)
 
 
 @pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
@@ -89,7 +90,7 @@ def test_nb_backward_matches_autograd(device, m, m_t, hidden, f):
     ll = ops.reference_nb_log_likelihood(*leaves, t)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
     for a, b in zip(ops.nb_backward(g, *heads, t), want):
-        _close(a, b, 2e-4)
+        _close(a, b, 2e-5)
 
 
 def test_fused_function_and_counts(device):

@@ -42,10 +42,8 @@ def test_matches_jax_kernel_interpret(dtype):
         want = jax_gather_rows(
             pack_rows(src), jnp.asarray(idx), (jnp.float32, jnp.bfloat16)
         )
-    got = ops.gather_rows(
-        torch.from_numpy(src), torch.from_numpy(idx),
-        [torch.float32, torch.bfloat16],
-    )
+    got = [ops.gather_rows(torch.from_numpy(src), torch.from_numpy(idx), dtype)
+           for dtype in (torch.float32, torch.bfloat16)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_bits(g), _bits(w))
 
@@ -57,10 +55,10 @@ def test_ragged_width_matches_jax_take(f):
     src = _source(50, f, np.int16, seed=f)
     idx = _idx(50, 16)
     want = jax_step.gather_batch({"x": jnp.asarray(src)}, jnp.asarray(idx))["x"]
-    (got,) = ops.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    got = ops.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
-    (got_bf16,) = ops.gather_rows(
-        torch.from_numpy(src), torch.from_numpy(idx), [torch.bfloat16]
+    got_bf16 = ops.gather_rows(
+        torch.from_numpy(src), torch.from_numpy(idx), torch.bfloat16
     )
     np.testing.assert_array_equal(
         _bits(got_bf16), _bits(np.asarray(jnp.asarray(want).astype(jnp.bfloat16)))
@@ -68,39 +66,45 @@ def test_ragged_width_matches_jax_take(f):
 
 
 def test_gather_batch_shares_one_gather_for_aliased_fields():
-    """x and t are one device tensor: one gather, which emits every dtype
-    the fields ask for; 1-D fields use index_select."""
+    """x and t are one device tensor: one gather when they ask for one dtype
+    (the training path), one per dtype otherwise; 1-D fields use
+    index_select."""
     src = torch.from_numpy(_source(40, 24, np.int16))
     rowsum = torch.arange(40, dtype=torch.float32)
     idx = torch.from_numpy(_idx(40, 8))
-    calls = []
-    original = ops.gather_rows
-
-    def spy(*args):
-        calls.append(args[2])
-        return original(*args)
-
-    ops.gather_rows = spy
-    try:
-        batch = step.gather_batch(
-            {"x": src, "t": src, "t_lgamma_rowsum": rowsum}, idx,
-            dtype_overrides={"x": torch.bfloat16},
-        )
-    finally:
-        ops.gather_rows = original
-    assert calls == [[torch.bfloat16, torch.float32]]
     expected = src.index_select(0, idx.long())
-    assert batch["x"].dtype == torch.bfloat16
-    assert torch.equal(batch["x"].float(), expected.float())
-    assert torch.equal(batch["t"], expected.float())
-    assert torch.equal(batch["t_lgamma_rowsum"], rowsum[idx.long()])
+    original = ops.gather_rows
+    for overrides, dtypes in (
+        ({"x": torch.bfloat16, "t": torch.bfloat16}, [torch.bfloat16]),
+        (None, [torch.float32]),
+        ({"x": torch.bfloat16}, [torch.bfloat16, torch.float32]),
+    ):
+        calls = []
+
+        def spy(*args):
+            calls.append(args[2] if len(args) > 2 else torch.float32)
+            return original(*args)
+
+        ops.gather_rows = spy
+        try:
+            batch = step.gather_batch(
+                {"x": src, "t": src, "t_lgamma_rowsum": rowsum}, idx,
+                dtype_overrides=overrides,
+            )
+        finally:
+            ops.gather_rows = original
+        assert calls == dtypes
+        for name in ("x", "t"):
+            assert batch[name].dtype == (overrides or {}).get(name, torch.float32)
+            assert torch.equal(batch[name].float(), expected.float())
+        assert torch.equal(batch["t_lgamma_rowsum"], rowsum[idx.long()])
 
 
 def test_cpu_wrapper_is_the_plain_version():
     src = torch.from_numpy(_source(30, 20, np.float32))
     idx = torch.from_numpy(_idx(30, 5))
     before = ops.launch_counts()["gather_rows"]
-    got = ops.gather_rows(src, idx, [torch.bfloat16])
-    want = ops.reference_gather(src, idx, [torch.bfloat16])
-    assert torch.equal(got[0], want[0])
+    got = ops.gather_rows(src, idx, torch.bfloat16)
+    want = ops.reference_gather(src, idx, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     assert ops.launch_counts()["gather_rows"] == before  # no kernel launched

@@ -91,6 +91,41 @@ def test_elbo_terms_match_jax(training, n_iw):
                                        rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("n_iw", [1, 2])
+def test_bf16_training_objective_and_gradients_match_jax(n_iw):
+    """bf16 matmul inputs with float32 accumulation and products (the GPU
+    default) against JAX with ``precision="bfloat16"``: the objective at the
+    float32 tolerances above, and the whole parameter gradient to 5e-3 in
+    norm (‖Δ‖/‖g‖): float32 summation order flips a few bf16 roundings,
+    which the backward carries.  Matmuls that return bf16 products fail
+    this test."""
+    jconfig, tconfig, params, state, x = _setup(seed=4, precision="bfloat16")
+    rng = jax.random.PRNGKey(11)
+    batch = {"x": jnp.asarray(x), "t": jnp.asarray(x)}
+
+    def jax_loss(p):
+        return jvae.loss_fn(jconfig, p, state, batch, rng, n_iw=n_iw,
+                            warm_up_weight=0.5)
+
+    (_, (jm, _)), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+    tp, ts = _port(params, state)
+    named = tparams.flatten(tp)
+    leaves = [leaf.requires_grad_(True) for leaf in named.values()]
+    xt = torch.from_numpy(x)
+    loss, (tm, _) = tvae.loss_fn(
+        tconfig, tp, ts, {"x": xt, "t": xt}, None, n_iw=n_iw,
+        warm_up_weight=0.5, noise=torch.from_numpy(_jax_noise(rng, n_iw)),
+    )
+    assert tconfig.compute_dtype(True, "cpu") == torch.bfloat16
+    _compare(jm, {k: v.detach() for k, v in tm.items()})
+    ref = tparams.flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    assert list(ref) == list(named)
+    want = np.concatenate([np.ravel(g) for g in ref.values()])
+    got = torch.cat([g.ravel() for g in torch.autograd.grad(loss, leaves)])
+    err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert err <= 5e-3, err
+
+
 def test_staged_row_constant_matches_in_kernel_constant():
     """The training path with Σ lgamma(1+t) staged per row gives the same
     objective as the path that subtracts it inside the likelihood."""
