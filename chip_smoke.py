@@ -7,15 +7,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training path against its plain PyTorch
+3. kernels — every kernel of the training paths against its plain PyTorch
              version on the same inputs at the headline shapes (68,579 cells ×
-             2,048 genes, minibatch 2,048, decoder width 256), with its time,
-             the plain version's time and the least time the card could take;
-4. slice   — one training loss and its gradients on the CPU (plain versions)
-             and on the GPU (kernels) from the same small input, then
-             ``VariationalAutoencoder(...).train(...)`` at the headline width
-             for two epochs: a finite, rising ELBO, and every kernel launched
-             on every training step.
+             2,048 genes, minibatch 2,048, decoder width 256) for every
+             likelihood family, and at decoder width 1,024; with its time, the
+             plain version's time and the least time the card could take;
+4. slice   — for each trained likelihood (Poisson, zero-inflated Poisson,
+             zero-inflated NB, constrained Poisson, NB): one training loss and
+             its gradients on the CPU (plain versions) and on the GPU (kernels)
+             from the same small input, then ``VariationalAutoencoder(...)
+             .train(...)`` at the headline width for two epochs: a finite,
+             rising ELBO, and each of the family's kernels launched once per
+             training step, the row gather at least once.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -33,23 +36,41 @@ import numpy as np
 import torch
 
 N_CELLS, N_GENES, HIDDEN, LATENT, BATCH = 68_579, 2_048, 256, 100, 2_048
+WIDE_HIDDEN = 1_024
 EPOCHS = 2
+TRAINED = ("poisson", "zero-inflated poisson", "zero-inflated negative binomial",
+           "constrained poisson", "negative binomial")
 
-# Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s.
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
+# float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 # Tolerances of the kernel checks against the plain versions: the max abs
 # error over the largest |value| of the plain output.  Forward: float32 sums
 # taken in another order (reads ~2e-7).  Backward with bf16 rounding: also da
-# values that the other order rounds to a neighbouring bf16 value (dW reads
-# ~1.3e-4; a kernel that leaves da or h unrounded reads 1.1e-3 to 2.6e-3).
-# Float32 backward against autograd, and the small step on the GPU against
-# the CPU (gradients over the largest gradient of the model): summation
-# order alone (reads up to 2e-6).
+# values that the other order rounds to a neighbouring bf16 value (NB's dW
+# reads ~1.3e-4; a kernel that leaves da or h unrounded reads 1.1e-3 to
+# 2.6e-3).  Float32 backward against autograd, the constrained Poisson's
+# backward (which never rounds) and the small step on the GPU against the CPU
+# (gradients over the largest gradient of the model): summation order alone
+# (reads up to 2e-6).
 FORWARD_RTOL = 2e-5
 BACKWARD_RTOL = 4e-4
 AUTOGRAD_RTOL = 2e-5
+
+SOURCES = {
+    "count": "scvae_tpu_torch/ops/csrc/count_likelihood.cu",
+    "cp": "scvae_tpu_torch/ops/csrc/cp_likelihood.cu",
+}
+REPLACES = {
+    "gather_rows": "scvae_tpu/ops/gather.py:223",
+    "forward": "scvae_tpu/ops/fused_likelihood.py:627",
+    "backward": "scvae_tpu/ops/fused_likelihood.py:714",
+    "cp_forward": "scvae_tpu/ops/fused_likelihood.py:1356",
+    "cp_backward": "scvae_tpu/ops/fused_likelihood.py:1417",
+}
 
 
 def log(*args):
@@ -124,24 +145,27 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-GRAD_NAMES = ("dh", "dW_p", "db_p", "dW_r", "db_r")
+def head_weights(gen, n_heads, hidden, f, dev):
+    """Glorot-uniform head kernels and small random biases."""
+    limit = (6.0 / (hidden + f)) ** 0.5
+    weights = [(torch.rand(hidden, f, generator=gen, device=dev) * 2 - 1) * limit
+               for _ in range(n_heads)]
+    biases = [0.1 * torch.randn(f, generator=gen, device=dev)
+              for _ in range(n_heads)]
+    return weights, biases
 
 
-def phase_kernels(counts_dev):
-    """Each kernel against its plain version at the headline shapes."""
+def _cut(tensors, cols):
+    return [x[..., :cols].contiguous() for x in tensors]
+
+
+def check_gather(counts_dev, idx, flush):
+    """K1 — row gather: bit-exact with index_select + cast, at the headline
+    shapes, a ragged F and a float32 source, to bf16 and to float32."""
     from scvae_tpu_torch import ops
 
-    dev = counts_dev.device
-    gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    n, f = counts_dev.shape
-    m, h_dim = BATCH, HIDDEN
-    idx = torch.randperm(n, generator=gen, device=dev)[:m].to(torch.int32)
-    results = {}
-
-    # K1 — row gather: bit-exact with index_select + cast, at the headline
-    # shapes, a ragged F and a float32 source, to bf16 and to float32.
+    m, f = idx.shape[0], counts_dev.shape[1]
     x = ops.gather_rows(counts_dev, idx, bf16)
     x_ref = ops.reference_gather(counts_dev, idx, bf16)
     f32_src = counts_dev[:4096].float()
@@ -157,7 +181,7 @@ def phase_kernels(counts_dev):
             raise AssertionError("gather_rows is not bit-exact")
     gather_bytes = m * f * (counts_dev.element_size() + 2) + m * 4
     t_bound, by = bound(gather_bytes, 0.0, BF16_FLOPS)
-    results["gather_rows"] = {
+    return x, {
         "max_abs_err": max_err(x, x_ref),
         "ms": time_ms(lambda: ops.gather_rows(counts_dev, idx, bf16),
                       flush=flush),
@@ -168,91 +192,235 @@ def phase_kernels(counts_dev):
             counts_dev, 0, idx).to(bf16), flush=flush),
     }
 
-    # K2 / K3 operands: decoder output, glorot head weights, gathered targets.
-    h = torch.relu(torch.randn(m, h_dim, generator=gen, device=dev))
-    limit = (6.0 / (h_dim + f)) ** 0.5
-    w_p, w_r = ((torch.rand(h_dim, f, generator=gen, device=dev) * 2 - 1) * limit
-                for _ in range(2))
-    b_p, b_r = (0.1 * torch.randn(f, generator=gen, device=dev) for _ in range(2))
-    g = torch.randn(m, generator=gen, device=dev) / m
-    heads = (h, w_p, b_p, w_r, b_r)
 
-    def ragged(cols):
-        return (h, w_p[:, :cols].contiguous(), b_p[:cols].contiguous(),
-                w_r[:, :cols].contiguous(), b_r[:cols].contiguous())
+def check_family(name, h, g, x, gen, flush):
+    """K2 and both K3 passes of one base family: the forward (main path with
+    bf16 inputs and the staged lgamma constant, ragged F, float32 inputs with
+    the in-kernel constant, float32 targets), the bf16 backward against the
+    plain backward with the same rounding (and ragged F), and the float32
+    backward against autograd through the plain forward; then their times."""
+    from scvae_tpu_torch import ops
 
-    # K2 — forward: the main path (bf16 inputs, staged lgamma constant),
-    # ragged F, float32 inputs, the in-kernel lgamma constant, f32 targets.
-    fwd_cases = [
-        (heads, x, bf16, False),
-        (ragged(2000), x[:, :2000].contiguous(), bf16, False),
-        (heads, x, None, True),
-        (heads, x.float(), bf16, True),
-    ]
-    for args, t, cdt, const in fwd_cases:
-        got = ops.nb_forward(*args, t, compute_dtype=cdt, include_lgamma_const=const)
-        want = ops.reference_nb_log_likelihood(
-            *args, t, compute_dtype=cdt, include_lgamma_const=const)
-        err = check_close(f"nb_forward F={t.shape[1]} {cdt} t={t.dtype} "
-                          f"const={const}", got, want, FORWARD_RTOL)
-        if cdt is bf16 and not const and args is heads:
+    bf16 = torch.bfloat16
+    fam = ops.FAMILIES[name]
+    k = len(fam.heads)
+    m, hidden = h.shape
+    f = x.shape[1]
+    ws, bs = head_weights(gen, k, hidden, f, h.device)
+    ragged = (_cut(ws, 2000), _cut(bs, 2000), x[:, :2000].contiguous())
+    full = (ws, bs, x)
+
+    fwd_cases = [(full, bf16, False), (ragged, bf16, False),
+                 ((ws, bs, x), None, True), ((ws, bs, x.float()), bf16, True)]
+    for i, ((w_, b_, t), cdt, const) in enumerate(fwd_cases):
+        got = ops.fused_forward(name, h, w_, b_, t, compute_dtype=cdt,
+                                include_lgamma_const=const)
+        want = ops.reference_forward(name, h, w_, b_, t, compute_dtype=cdt,
+                                     include_lgamma_const=const)
+        err = check_close(f"{fam.prefix}_forward F={t.shape[1]} {cdt} "
+                          f"t={t.dtype} const={const}", got, want,
+                          FORWARD_RTOL)
+        if i == 0:  # the main path's case
             fwd_err = err
-    fwd_flops = 2 * 2 * m * h_dim * f
-    fwd_bytes = (m * h_dim * 4 + 2 * (h_dim * f + f) * 4 + m * f * 2 + m * 4)
+
+    parts = ["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
+    for w_, b_, t in (full, ragged):
+        got = ops.fused_backward(name, g, h, w_, b_, t, compute_dtype=bf16)
+        want = ops.reference_backward(name, g, h, w_, b_, t,
+                                      compute_dtype=bf16)
+        errs = [check_close(f"{fam.prefix}_backward {part} F={t.shape[1]}",
+                            a, b, BACKWARD_RTOL)
+                for part, a, b in zip(parts, got, want)]
+        if t is x:
+            dh_err, dw_err = errs[0], max(errs[1:])
+    leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs)]
+    ll = ops.reference_forward(name, leaves[0], leaves[1:1 + k],
+                               leaves[1 + k:], x, include_lgamma_const=False)
+    want = torch.autograd.grad(ll, leaves, grad_outputs=g)  # dh, dWs, dbs
+    got = ops.fused_backward(name, g, h, ws, bs, x)  # dh, dW_0, db_0, …
+    order = [0] + [i for j in range(k) for i in (1 + j, 1 + k + j)]
+    for part, a, i in zip(parts, got, order):
+        check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
+                    want[i], AUTOGRAD_RTOL)
+
+    fwd_flops = 2 * k * m * hidden * f
+    head_bytes = k * (hidden * f + f) * 4
+    fwd_bytes = m * hidden * 4 + head_bytes + m * f * 2 + m * 4
+    results = {}
     t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-    results["nb_forward"] = {
+    results[f"{fam.prefix}_forward"] = {
         "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.nb_forward(
-            *heads, x, compute_dtype=bf16, include_lgamma_const=False),
-            flush=flush),
-        "plain_ms": time_ms(lambda: ops.reference_nb_log_likelihood(
-            *heads, x, compute_dtype=bf16, include_lgamma_const=False),
-            flush=flush),
+        "ms": time_ms(lambda: ops.fused_forward(
+            name, h, ws, bs, x, compute_dtype=bf16,
+            include_lgamma_const=False), flush=flush),
+        "plain_ms": time_ms(lambda: ops.reference_forward(
+            name, h, ws, bs, x, compute_dtype=bf16,
+            include_lgamma_const=False), flush=flush),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
     }
-
-    # K3 — backward, both passes: against the plain backward with the same
-    # rounding (bf16, and ragged F), and in float32 against autograd through
-    # the plain forward.
-    for args, t in ((heads, x), (ragged(2000), x[:, :2000].contiguous())):
-        got = (ops.nb_backward_dh(g, *args, t, compute_dtype=bf16),
-               *ops.nb_backward_dw(g, *args, t, compute_dtype=bf16))
-        want = ops.reference_nb_backward(g, *args, t, compute_dtype=bf16)
-        errs = [check_close(f"nb_backward {part} F={t.shape[1]}", a, b,
-                            BACKWARD_RTOL)
-                for part, a, b in zip(GRAD_NAMES, got, want)]
-        if args is heads:
-            dh_err, dw_err = errs[0], max(errs[1:])
-    leaves = [a.clone().requires_grad_(True) for a in heads]
-    ll = ops.reference_nb_log_likelihood(*leaves, x, include_lgamma_const=False)
-    want = torch.autograd.grad(ll, leaves, grad_outputs=g)  # dh, dW_p, db_p, ...
-    got = (ops.nb_backward_dh(g, *heads, x), *ops.nb_backward_dw(g, *heads, x))
-    for part, a, b in zip(GRAD_NAMES, got, want):
-        check_close(f"nb_backward float32 {part} vs autograd", a, b,
-                    AUTOGRAD_RTOL)
     bwd_flops = 2 * fwd_flops  # recompute + one gradient product
-    dh_bytes = fwd_bytes + m * h_dim * 4
-    dw_bytes = fwd_bytes + 2 * (h_dim * f + f) * 4
-    for name, err, nbytes, fn, plain in (
-        ("nb_backward_dh", dh_err, dh_bytes, ops.nb_backward_dh,
-         ops.reference_nb_dh),
-        ("nb_backward_dw", dw_err, dw_bytes, ops.nb_backward_dw,
-         ops.reference_nb_dw),
+    for kernel, err, nbytes, fn, plain in (
+        ("backward_dh", dh_err, fwd_bytes + m * hidden * 4,
+         ops.fused_backward_dh, ops.reference_dh),
+        ("backward_dw", dw_err, fwd_bytes + head_bytes,
+         ops.fused_backward_dw, ops.reference_dw),
     ):
         t_bound, by = bound(nbytes, bwd_flops, BF16_FLOPS)
-        results[name] = {
+        results[f"{fam.prefix}_{kernel}"] = {
             "max_abs_err": err,
             "ms": time_ms(lambda fn=fn: fn(
-                g, *heads, x, compute_dtype=bf16), flush=flush),
+                name, g, h, ws, bs, x, compute_dtype=bf16), flush=flush),
             "plain_ms": time_ms(lambda plain=plain: plain(
-                g, *heads, x, compute_dtype=bf16), flush=flush),
+                name, g, h, ws, bs, x, compute_dtype=bf16), flush=flush),
             "bound_ms": t_bound, "bound_by": by, "library_ms": None,
         }
+    return results
+
+
+def check_cp(h, g, x, gen, flush):
+    """K6 and both K7 passes in their own precision (h with bf16 values, as
+    training in bf16 hands it over, against float32 W; nothing else rounds):
+    forward ll and lse, ragged F and float32 targets; the backward against
+    the plain backward, and in float32 against autograd; then their times."""
+    from scvae_tpu_torch import ops
+
+    m, hidden = h.shape
+    f = x.shape[1]
+    (w,), (b,) = head_weights(gen, 1, hidden, f, h.device)
+    hv = h.to(torch.bfloat16).float()
+    n = x.float().sum(-1)  # the batch rows' count sums
+    xr = x[:, :2000].contiguous()
+    full = (hv, w, b, x, n)
+    ragged = (hv, w[:, :2000].contiguous(), b[:2000].contiguous(), xr,
+              xr.float().sum(-1))
+    for args in (full, ragged, (hv, w, b, x.float(), n)):
+        ll, lse = ops.cp_forward(*args)
+        ll_ref, lse_ref = ops.reference_cp_forward(*args)
+        label = f"F={args[3].shape[1]} t={args[3].dtype}"
+        err = check_close(f"cp_forward ll {label}", ll, ll_ref, FORWARD_RTOL)
+        check_close(f"cp_forward lse {label}", lse, lse_ref, FORWARD_RTOL)
+        if args is full:
+            fwd_err, lse_full = err, lse
+    for args in (full, ragged):
+        hh, w_, b_, t, n_ = args
+        _, lse = ops.cp_forward(*args)
+        _, lse_ref = ops.reference_cp_forward(*args)
+        got = (ops.cp_backward_dh(g, hh, w_, b_, t, lse),
+               *ops.cp_backward_dw(g, hh, w_, b_, t, lse))
+        want = (ops.reference_cp_dh(g, hh, w_, b_, t, lse_ref),
+                *ops.reference_cp_dw(g, hh, w_, b_, t, lse_ref))
+        errs = [check_close(f"cp_backward {part} F={t.shape[1]}", a, b_ref,
+                            AUTOGRAD_RTOL)
+                for part, a, b_ref in zip(("dh", "dW", "db"), got, want)]
+        if args is full:
+            dh_err, dw_err = errs[0], max(errs[1:])
+    leaves = [a.clone().requires_grad_(True) for a in (h, w, b)]
+    ll, _ = ops.reference_cp_forward(*leaves, x, n)
+    want = torch.autograd.grad(ll, leaves, grad_outputs=g)
+    _, lse = ops.cp_forward(h, w, b, x, n)
+    got = (ops.cp_backward_dh(g, h, w, b, x, lse),
+           *ops.cp_backward_dw(g, h, w, b, x, lse))
+    for part, a, b_ref in zip(("dh", "dW", "db"), got, want):
+        check_close(f"cp_backward float32 {part} vs autograd", a, b_ref,
+                    AUTOGRAD_RTOL)
+
+    # The head product multiplies float32 weights: the float32 rate bounds it.
+    fwd_flops = 2 * m * hidden * f
+    head_bytes = (hidden * f + f) * 4
+    in_bytes = m * hidden * 4 + head_bytes + m * f * 2 + m * 4
+    results = {}
+    t_bound, by = bound(in_bytes + 2 * m * 4, fwd_flops, F32_FLOPS)
+    results["cp_forward"] = {
+        "max_abs_err": fwd_err,
+        "ms": time_ms(lambda: ops.cp_forward(*full), flush=flush),
+        "plain_ms": time_ms(lambda: ops.reference_cp_forward(*full),
+                            flush=flush),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+    }
+    bwd_in = in_bytes + 2 * m * 4  # and lse, Σt
+    for kernel, err, nbytes, fn, plain in (
+        ("cp_backward_dh", dh_err, bwd_in + m * hidden * 4,
+         ops.cp_backward_dh, ops.reference_cp_dh),
+        ("cp_backward_dw", dw_err, bwd_in + head_bytes,
+         ops.cp_backward_dw, ops.reference_cp_dw),
+    ):
+        t_bound, by = bound(nbytes, 2 * fwd_flops, F32_FLOPS)
+        results[kernel] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda fn=fn: fn(g, hv, w, b, x, lse_full),
+                          flush=flush),
+            "plain_ms": time_ms(lambda plain=plain: plain(
+                g, hv, w, b, x, lse_full), flush=flush),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
+    return results
+
+
+def check_wide(x, g, gen):
+    """Decoder width 1,024 (four hidden chunks): NB, ZINB and the
+    constrained Poisson against their plain versions.  The base families'
+    backward is checked in float32, where nothing rounds: with bf16 da the
+    roundings that a different summation order flips grow with the
+    activations and with the steepness of the gradient (ZINB's dW_p read
+    8.4e-4 of its largest value at this width, 6.9e-5 at width 256), so a
+    bf16 reading here would not isolate the hidden-chunk arithmetic."""
+    from scvae_tpu_torch import ops
+
+    bf16 = torch.bfloat16
+    m, f = x.shape
+    h = torch.relu(torch.randn(m, WIDE_HIDDEN, generator=gen, device=x.device))
+    for name in ("negative binomial", "zero-inflated negative binomial"):
+        ws, bs = head_weights(gen, len(ops.FAMILIES[name].heads), WIDE_HIDDEN,
+                              f, x.device)
+        for cdt in (bf16, None):
+            check_close(f"{name} forward H={WIDE_HIDDEN} {cdt}",
+                        ops.fused_forward(name, h, ws, bs, x,
+                                          compute_dtype=cdt),
+                        ops.reference_forward(name, h, ws, bs, x,
+                                              compute_dtype=cdt),
+                        FORWARD_RTOL)
+        got = ops.fused_backward(name, g, h, ws, bs, x)
+        want = ops.reference_backward(name, g, h, ws, bs, x)
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_close(f"{name} backward float32 [{i}] H={WIDE_HIDDEN}", a,
+                        b, AUTOGRAD_RTOL)
+    (w,), (b,) = head_weights(gen, 1, WIDE_HIDDEN, f, x.device)
+    hv, n = h.to(bf16).float(), x.float().sum(-1)
+    ll, lse = ops.cp_forward(hv, w, b, x, n)
+    ll_ref, lse_ref = ops.reference_cp_forward(hv, w, b, x, n)
+    check_close(f"cp_forward H={WIDE_HIDDEN}", ll, ll_ref, FORWARD_RTOL)
+    got = (ops.cp_backward_dh(g, hv, w, b, x, lse),
+           *ops.cp_backward_dw(g, hv, w, b, x, lse))
+    want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
+            *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
+    for i, (a, b_ref) in enumerate(zip(got, want)):
+        check_close(f"cp_backward [{i}] H={WIDE_HIDDEN}", a, b_ref,
+                    AUTOGRAD_RTOL)
+
+
+def phase_kernels(counts_dev):
+    """Each kernel against its plain version at the headline shapes."""
+    from scvae_tpu_torch import ops
+
+    dev = counts_dev.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    n = counts_dev.shape[0]
+    idx = torch.randperm(n, generator=gen, device=dev)[:BATCH].to(torch.int32)
+    x, results = check_gather(counts_dev, idx, flush)
+    results = {"gather_rows": results}
+    # decoder output and row cotangents shared by every family
+    h = torch.relu(torch.randn(BATCH, HIDDEN, generator=gen, device=dev))
+    g = torch.randn(BATCH, generator=gen, device=dev) / BATCH
+    for name in ops.FAMILIES:
+        results.update(check_family(name, h, g, x, gen, flush))
+    results.update(check_cp(h, g, x, gen, flush))
+    check_wide(x, g, gen)
     torch.cuda.synchronize()
     return results
 
 
-def phase_small_step():
+def phase_small_step(name):
     """One training loss and its gradients from the same small input on the
     CPU (plain versions) and on the GPU (kernels), float32."""
     from scvae_tpu_torch.models import step, vae
@@ -260,7 +428,7 @@ def phase_small_step():
 
     config = vae.VAEConfig(
         feature_size=300, latent_size=8, hidden_sizes=(32, 32),
-        reconstruction_distribution="negative binomial", precision="float32",
+        reconstruction_distribution=name, precision="float32",
     )
     rng = np.random.RandomState(0)
     x = rng.poisson(1.5, size=(64, 300)).astype(np.float32)
@@ -273,24 +441,64 @@ def phase_small_step():
         s = step.tree_map(lambda a: a.to(device), state)
         xt = torch.from_numpy(x).to(device)
         batch = {"x": xt, "t": xt,
-                 "t_lgamma_rowsum": torch.sum(lgamma(1.0 + xt), dim=-1)}
+                 "t_lgamma_rowsum": torch.sum(lgamma(1.0 + xt), dim=-1),
+                 "count_sum": xt.sum(-1, keepdim=True)}
         loss, _ = vae.loss_fn(config, p, s, batch, None,
                               noise=torch.from_numpy(noise).to(device))
         grads = torch.autograd.grad(loss, step.tree_leaves(p))
         results.append([loss.detach().cpu()] + [gr.cpu() for gr in grads])
     (cpu_loss, *cpu_grads), (gpu_loss, *gpu_grads) = results
-    check_close("small step loss", gpu_loss, cpu_loss, AUTOGRAD_RTOL)
+    check_close(f"small step loss ({name})", gpu_loss, cpu_loss, AUTOGRAD_RTOL)
     largest = max(float(g.abs().max()) for g in cpu_grads)
     for i, (a, b) in enumerate(zip(gpu_grads, cpu_grads)):
-        check_close(f"small step gradient [{i}]", a, b, AUTOGRAD_RTOL,
-                    scale=largest)
+        check_close(f"small step gradient [{i}] ({name})", a, b,
+                    AUTOGRAD_RTOL, scale=largest)
+
+
+def train_family(name, counts, card):
+    """The headline VAE with likelihood ``name`` for two epochs; returns the
+    kernel launches of the run."""
+    from scvae_tpu_torch import VariationalAutoencoder, ops
+
+    phase_small_step(name)
+    model = VariationalAutoencoder(
+        feature_size=N_GENES, latent_size=LATENT, hidden_sizes=[HIDDEN, HIDDEN],
+        reconstruction_distribution=name,
+    )
+    ops.reset_launch_counts()
+    result = model.train(counts, number_of_epochs=EPOCHS, minibatch_size=BATCH,
+                         seed=0, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = result.steps_per_epoch * EPOCHS
+    prefix = ("cp" if name == "constrained poisson"
+              else ops.FAMILIES[name].prefix)
+    for kernel, count in launches.items():
+        want = steps if kernel.startswith(prefix + "_") else 0
+        if kernel != "gather_rows" and count != want:
+            raise AssertionError(f"{name}: {kernel} launched {count} times in "
+                                 f"{steps} training steps (want {want})")
+    if launches["gather_rows"] < steps:
+        raise AssertionError(f"{name}: gather_rows launched "
+                             f"{launches['gather_rows']} times in {steps} "
+                             "training steps")
+    elbo = result.history["training"]["lower_bound"]
+    if not (np.all(np.isfinite(elbo)) and elbo[-1] > elbo[0]):
+        raise AssertionError(f"{name}: training ELBO not finite and rising: "
+                             f"{elbo}")
+    seconds = result.epoch_seconds[-1]
+    print(f"slice {name}: ELBO {elbo}; epoch {EPOCHS}: "
+          f"{result.steps_per_epoch / seconds:.6g} steps/s, "
+          f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
+          f"launches {({k: v for k, v in launches.items() if v})} "
+          f"({card})", flush=True)
+    return launches
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
         return 2
-    from scvae_tpu_torch import VariationalAutoencoder, ops
     from scvae_tpu_torch.ops import extension
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -317,47 +525,23 @@ def main() -> int:
         f"{v['bound_ms']:.4f}, err {v['max_abs_err']:.3g})"
         for k, v in kernels.items()), flush=True)
 
-    # 4. slice
-    phase_small_step()
-    model = VariationalAutoencoder(
-        feature_size=N_GENES, latent_size=LATENT, hidden_sizes=[HIDDEN, HIDDEN],
-        reconstruction_distribution="negative binomial",
-    )
-    ops.reset_launch_counts()
-    result = model.train(counts, number_of_epochs=EPOCHS, minibatch_size=BATCH,
-                         seed=0, device="cuda")
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    steps = result.steps_per_epoch * EPOCHS
-    for name in ("nb_forward", "nb_backward_dh", "nb_backward_dw"):
-        if launches[name] != steps:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {steps} training steps")
-    if launches["gather_rows"] < steps:
-        raise AssertionError(f"gather_rows launched {launches['gather_rows']} "
-                             f"times in {steps} training steps")
-    elbo = result.history["training"]["lower_bound"]
-    if not (np.all(np.isfinite(elbo)) and elbo[-1] > elbo[0]):
-        raise AssertionError(f"training ELBO not finite and rising: {elbo}")
-    seconds = result.epoch_seconds[-1]
-    print(f"slice: ELBO {elbo}; epoch {EPOCHS}: "
-          f"{result.steps_per_epoch / seconds:.6g} steps/s, "
-          f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s "
-          f"({card})", flush=True)
+    # 4. slice: every kernel's launches summed over the five training paths
+    launches = dict.fromkeys(kernels, 0)
+    for name in TRAINED:
+        for kernel, count in train_family(name, counts, card).items():
+            launches[kernel] += count
 
-    sources = {
-        "gather_rows": ("scvae_tpu_torch/ops/csrc/gather.cu",
-                        "scvae_tpu/ops/gather.py:223"),
-        "nb_forward": ("scvae_tpu_torch/ops/csrc/nb_likelihood.cu",
-                       "scvae_tpu/ops/fused_likelihood.py:627"),
-        "nb_backward_dh": ("scvae_tpu_torch/ops/csrc/nb_likelihood.cu",
-                           "scvae_tpu/ops/fused_likelihood.py:714"),
-        "nb_backward_dw": ("scvae_tpu_torch/ops/csrc/nb_likelihood.cu",
-                           "scvae_tpu/ops/fused_likelihood.py:714"),
-    }
+    def source(name):
+        if name == "gather_rows":
+            return "scvae_tpu_torch/ops/csrc/gather.cu", REPLACES[name]
+        kind = "forward" if name.endswith("forward") else "backward"
+        if name.startswith("cp_"):
+            return SOURCES["cp"], REPLACES["cp_" + kind]
+        return SOURCES["count"], REPLACES[kind]
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name], **values}
+        {"name": name, "route": "cuda", "source": source(name)[0],
+         "replaces": source(name)[1], "launches": launches[name], **values}
         for name, values in kernels.items()
     ]}), flush=True)
     print(card, flush=True)

@@ -2,8 +2,9 @@
 
 A port of the ``scvae_tpu`` engine to PyTorch with hand-written CUDA kernels
 for an NVIDIA H100 (``sm_90a``).  It imports neither JAX nor ``scvae_tpu``.
-This first slice trains a VAE with a negative-binomial likelihood on a
-count matrix held on the device:
+So far it trains a VAE on a count matrix held on the device, with a
+Poisson, negative-binomial, zero-inflated Poisson, zero-inflated
+negative-binomial or constrained-Poisson likelihood:
 
     from scvae_tpu_torch import VariationalAutoencoder
     model = VariationalAutoencoder(feature_size=2048, latent_size=100,

@@ -16,6 +16,8 @@ class DataSet:
             raise ValueError(f"values must be (cells, genes), got {values.shape}")
         self.name = name
         self.values = values
+        # per-cell total counts (N, 1), the constrained likelihoods' N
+        self.count_sum = np.asarray(values.sum(axis=1)).reshape(-1, 1)
 
     @property
     def number_of_examples(self) -> int:

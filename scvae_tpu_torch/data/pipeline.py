@@ -71,3 +71,17 @@ def device_resident_data(
             ).to(device)
         out[name] = placed_by_id[key]
     return out
+
+
+def build_model_arrays(data_set, *,
+                       use_count_sum_as_parameter: bool = False
+                       ) -> dict[str, Any]:
+    """The fields a model batch needs from a
+    :class:`~scvae_tpu_torch.data.DataSet` (the ported part of the JAX
+    package's ``build_model_arrays``): inputs ``x`` and targets ``t`` are
+    the values (preprocessing and binarisation are not ported yet), plus the
+    per-cell ``count_sum`` (N, 1) float32 when the likelihood takes it."""
+    arrays: dict[str, Any] = {"x": data_set.values, "t": data_set.values}
+    if use_count_sum_as_parameter:
+        arrays["count_sum"] = data_set.count_sum.astype(np.float32)
+    return arrays

@@ -1,7 +1,7 @@
 """Likelihood / latent distribution library (the ported part)."""
 
 from scvae_tpu_torch.distributions.base import Distribution, kl_divergence
-from scvae_tpu_torch.distributions.counts import NegativeBinomial
+from scvae_tpu_torch.distributions.counts import NegativeBinomial, Poisson
 from scvae_tpu_torch.distributions.normal import Normal
 from scvae_tpu_torch.distributions.registry import (
     DISTRIBUTIONS,
@@ -10,6 +10,7 @@ from scvae_tpu_torch.distributions.registry import (
     ParameterSpec,
     parse_distribution,
 )
+from scvae_tpu_torch.distributions.zero_inflated import ZeroInflated
 
 __all__ = [
     "DISTRIBUTIONS",
@@ -19,6 +20,8 @@ __all__ = [
     "NegativeBinomial",
     "Normal",
     "ParameterSpec",
+    "Poisson",
+    "ZeroInflated",
     "kl_divergence",
     "parse_distribution",
 ]

@@ -3,9 +3,10 @@
 
 Maps a distribution name to per-parameter specs (support interval,
 activation, head-size function) and a constructor ``theta → Distribution``.
-The model builds one dense head per parameter from these specs.  This slice
-ports the Gaussian (latent) and negative-binomial (reconstruction) entries;
-the other names of the reference resolve but raise ``NotImplementedError``.
+The model builds one dense head per parameter from these specs.  Ported so
+far: the Gaussian (latent) and the count reconstruction likelihoods Poisson,
+constrained Poisson, negative binomial and their zero-inflated forms; the
+other names of the reference resolve but raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import numpy as np
 import torch
 
 from scvae_tpu_torch.distributions.base import Distribution
-from scvae_tpu_torch.distributions.counts import NegativeBinomial
+from scvae_tpu_torch.distributions.counts import NegativeBinomial, Poisson
 from scvae_tpu_torch.distributions.normal import Normal
+from scvae_tpu_torch.distributions.zero_inflated import ZeroInflated
 
 _F32 = np.finfo(np.float32)
 _HALF_MIN = float(_F32.min / 2)
@@ -28,6 +30,10 @@ _HALF_MAX = float(_F32.max / 2)
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
+
+
+def _softmax_last(x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x, dim=-1)
 
 
 def _interior(lo: float, hi: float) -> tuple[float, float]:
@@ -59,9 +65,13 @@ class ParameterSpec:
 class DistributionSpec:
     name: str
     parameters: dict[str, ParameterSpec]
-    constructor: Callable[[dict[str, torch.Tensor]], Distribution]
+    constructor: Callable[..., Distribution]
+    uses_count_sum: bool = False  # the constrained classes take N
 
-    def build(self, theta: dict[str, torch.Tensor]) -> Distribution:
+    def build(self, theta: dict[str, torch.Tensor],
+              count_sum: torch.Tensor | None = None) -> Distribution:
+        if self.uses_count_sum:
+            return self.constructor(theta, count_sum)
         return self.constructor(theta)
 
 
@@ -69,10 +79,28 @@ def _make_gaussian(theta):
     return Normal(loc=theta["mu"], scale=torch.exp(theta["log_sigma"]))
 
 
+def _make_poisson(theta):
+    return Poisson(log_rate=theta["log_lambda"])
+
+
+def _make_constrained_poisson(theta, count_sum):
+    # rate = softmax-normalised λ over genes × per-cell total count N
+    return Poisson(log_rate=torch.log(theta["lambda"] * count_sum))
+
+
+def _make_zero_inflated_poisson(theta):
+    return ZeroInflated(dist=Poisson(log_rate=theta["log_lambda"]),
+                        pi=theta["pi"])
+
+
 def _make_negative_binomial(theta):
     return NegativeBinomial(
         total_count=torch.exp(theta["log_r"]), probs=theta["p"]
     )
+
+
+def _make_zero_inflated_negative_binomial(theta):
+    return ZeroInflated(dist=_make_negative_binomial(theta), pi=theta["pi"])
 
 
 DISTRIBUTIONS: dict[str, DistributionSpec] = {
@@ -84,6 +112,27 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
         },
         constructor=_make_gaussian,
     ),
+    "poisson": DistributionSpec(
+        name="poisson",
+        parameters={"log_lambda": ParameterSpec(support=(-10.0, 10.0))},
+        constructor=_make_poisson,
+    ),
+    "constrained poisson": DistributionSpec(
+        name="constrained poisson",
+        parameters={
+            "lambda": ParameterSpec(support=(0.0, 1.0), activation=_softmax_last)
+        },
+        constructor=_make_constrained_poisson,
+        uses_count_sum=True,
+    ),
+    "zero-inflated poisson": DistributionSpec(
+        name="zero-inflated poisson",
+        parameters={
+            "pi": ParameterSpec(support=(0.0, 1.0), activation=torch.sigmoid),
+            "log_lambda": ParameterSpec(support=(-10.0, 10.0)),
+        },
+        constructor=_make_zero_inflated_poisson,
+    ),
     "negative binomial": DistributionSpec(
         name="negative binomial",
         parameters={
@@ -91,6 +140,15 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
             "log_r": ParameterSpec(support=(-10.0, 10.0)),
         },
         constructor=_make_negative_binomial,
+    ),
+    "zero-inflated negative binomial": DistributionSpec(
+        name="zero-inflated negative binomial",
+        parameters={
+            "pi": ParameterSpec(support=(0.0, 1.0), activation=torch.sigmoid),
+            "p": ParameterSpec(support=(0.0, 1.0), activation=torch.sigmoid),
+            "log_r": ParameterSpec(support=(-10.0, 10.0)),
+        },
+        constructor=_make_zero_inflated_negative_binomial,
     ),
 }
 
@@ -112,8 +170,7 @@ _NOT_PORTED = {
     "reconstruction": (
         "softplus gaussian", "modified gaussian", "multivariate gaussian",
         "gaussian mixture", "log-normal", "exponentially_modified_gaussian",
-        "gamma", "categorical", "bernoulli", "poisson", "constrained poisson",
-        "lomax", "zero-inflated poisson", "zero-inflated negative binomial",
+        "gamma", "categorical", "bernoulli", "lomax",
     ),
     "GMVAE": (
         "gaussian mixture", "full-covariance gaussian mixture",

@@ -3,7 +3,7 @@
 
 Training runs on the device-resident path: the count matrix is staged on the
 device once as row-major int16, each step gathers a shuffled minibatch with
-the row-gather kernel and trains through the fused NB likelihood kernels.
+the row-gather kernel and trains through the fused likelihood kernels.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a GPU they raise.  Arguments that need parts not ported yet (validation and
 early stopping, checkpoints, resume, streaming, meshes, deferred metric
@@ -19,7 +19,11 @@ import scipy.sparse
 import torch
 
 from scvae_tpu_torch.data.dataset import DataSet
-from scvae_tpu_torch.data.pipeline import device_resident_data, narrowest_count_dtype
+from scvae_tpu_torch.data.pipeline import (
+    build_model_arrays,
+    device_resident_data,
+    narrowest_count_dtype,
+)
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import step, training, vae
 from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
@@ -47,13 +51,17 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 
 def _append_lgamma_rowsum(data: dict[str, torch.Tensor],
+                          config: vae.VAEConfig,
                           chunk: int = 8192) -> dict[str, torch.Tensor]:
     """Stage the per-row Σ_f lgamma(1+t) constants once per dataset.
 
     The −lgamma(1+t) term is constant in the parameters and additive per
     row, so it is computed here as an (N,) vector, gathered per batch and
     subtracted outside the forward kernel (``vae.elbo_terms``), which then
-    skips the lgamma chain."""
+    skips the lgamma chain.  Not for the constrained Poisson, whose kernel
+    keeps its own lgamma (as in the JAX package)."""
+    if config.reconstruction_distribution == "constrained poisson":
+        return data
     t = data["t"]
     rowsum = torch.cat([
         torch.sum(lgamma(1.0 + t[start:start + chunk].float()), dim=-1)
@@ -332,11 +340,14 @@ class VariationalAutoencoder:
         )
         generator = torch.Generator(device=device).manual_seed(seed)
 
-        arrays = {"x": values, "t": values}
+        arrays = build_model_arrays(
+            training_set,
+            use_count_sum_as_parameter=self.config.use_count_sum_as_parameter,
+        )
         data = device_resident_data(
             arrays, device=device, count_dtype=self.DEVICE_COUNT_DTYPES
         )
-        data = _append_lgamma_rowsum(data)
+        data = _append_lgamma_rowsum(data, self.config)
         train_epoch = step.make_train_epoch(
             self._loss_fn(n_iw, n_mc), optimizer,
             batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),

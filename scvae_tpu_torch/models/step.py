@@ -99,8 +99,9 @@ def gather_batch(data: dict[str, torch.Tensor], idx: torch.Tensor,
                  dtype_overrides: dict[str, torch.dtype] | None = None):
     """One batch of rows from device-resident data.
 
-    2-D count fields go through the row-gather kernel (K1); fields that are
-    the same tensor and ask for the same dtype (x and t alias one count
+    2-D fields (the count matrix, and the (N, 1) float32 count sums of the
+    constrained Poisson) go through the row-gather kernel (K1); fields that
+    are the same tensor and ask for the same dtype (x and t alias one count
     matrix) share one gather.  ``dtype_overrides`` maps field → output
     dtype for 2-D fields (default float32); 1-D fields (the staged
     Σ lgamma(1+t) row constants) use ``index_select``."""

@@ -2,11 +2,11 @@
 ELBO objective as functions on parameter dicts.
 
 Counterpart of ``scvae_tpu/models/vae.py``.  Latent samples keep an explicit
-leading sample axis (S = R·L, B, ·).  Training with the negative-binomial
-likelihood takes the fused path (:func:`scvae_tpu_torch.ops.
-fused_log_likelihood`: kernels K2/K3 on CUDA, their plain versions on the
-CPU); evaluation keeps the unfused distribution path, as the JAX package
-does.
+leading sample axis (S = R·L, B, ·).  Training with every ported
+reconstruction likelihood (Poisson, NB, ZIP, ZINB, constrained Poisson)
+takes the fused path (:func:`scvae_tpu_torch.ops.fused_log_likelihood`:
+kernels K2/K3 or K6/K7 on CUDA, their plain versions on the CPU);
+evaluation keeps the unfused distribution path, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -92,6 +92,13 @@ class VAEConfig:
                 f"{self.latent_distribution} distribution."
             )
         resolve_compute_dtype(self.precision, True, "cpu")  # validates the name
+
+    @property
+    def use_count_sum_as_parameter(self) -> bool:
+        return (
+            "constrained" in self.reconstruction_distribution
+            or "multinomial" in self.reconstruction_distribution
+        )
 
     @property
     def analytical_kl(self) -> bool:
@@ -229,15 +236,20 @@ def _build_prior(config: VAEConfig, like: torch.Tensor):
 
 
 def _build_reconstruction(config: VAEConfig, params: Params,
-                          decoder_h: torch.Tensor, compute_dtype=None):
+                          decoder_h: torch.Tensor, batch: Batch,
+                          compute_dtype=None):
+    """Reconstruction distribution over (S, B, F) from decoder output."""
     spec = config.reconstruction_spec
-    return spec.build({
+    theta = {
         name: pspec.constrain(networks.apply_dense(
             params["reconstruction"][name], decoder_h,
             compute_dtype=compute_dtype,
         ))
         for name, pspec in spec.parameters.items()
-    })
+    }
+    count_sum = (batch["count_sum"] if config.use_count_sum_as_parameter
+                 else None)  # (B, 1) raw per-cell total
+    return spec.build(theta, count_sum=count_sum)
 
 
 def forward(
@@ -284,7 +296,7 @@ def forward(
         compute_dtype=compute_dtype,
     )
     p_x = (
-        _build_reconstruction(config, params, dec_h, compute_dtype)
+        _build_reconstruction(config, params, dec_h, batch, compute_dtype)
         if build_reconstruction else None
     )
     return VAEOutputs(q_z=q_z, p_z=p_z, z=z, p_x=p_x, decoder_hidden=dec_h,
@@ -330,15 +342,21 @@ def elbo_terms(
         n_iw = n_mc = 1
 
     if use_fused:
+        name = config.reconstruction_distribution
+        count_sum = (batch["count_sum"] if config.use_count_sum_as_parameter
+                     else None)
         # The −lgamma(1+t) term is constant in the parameters and additive
         # per row: when the data pipeline staged its row sums once per
         # dataset (models.api._append_lgamma_rowsum) the kernel skips it.
-        row_const = batch.get("t_lgamma_rowsum")
+        # The constrained Poisson's kernel always subtracts it itself.
+        row_const = (batch.get("t_lgamma_rowsum")
+                     if name != "constrained poisson" else None)
         rows = ops.fused_log_likelihood(
-            config.reconstruction_distribution,
+            name,
             outputs.decoder_hidden,
             params["reconstruction"],
             t,
+            count_sum=count_sum,
             compute_dtype=config.compute_dtype(training, t.device),
             include_lgamma_const=row_const is None,
         )

@@ -6,17 +6,25 @@ extension on first use) and runs its plain version on a CPU tensor.
 
 from scvae_tpu_torch.ops import fused_likelihood, gather
 from scvae_tpu_torch.ops.fused_likelihood import (
-    FusedNBLogLikelihood,
+    FAMILIES,
+    FusedConstrainedPoisson,
+    FusedLogLikelihood,
+    cp_backward_dh,
+    cp_backward_dw,
+    cp_forward,
+    fused_backward,
+    fused_backward_dh,
+    fused_backward_dw,
+    fused_forward,
     fused_log_likelihood,
-    nb_backward,
-    nb_backward_dh,
-    nb_backward_dw,
-    nb_forward,
-    reference_nb_backward,
-    reference_nb_dh,
-    reference_nb_dw,
-    reference_nb_grads,
-    reference_nb_log_likelihood,
+    reference_backward,
+    reference_cp_dh,
+    reference_cp_dw,
+    reference_cp_forward,
+    reference_dh,
+    reference_dw,
+    reference_forward,
+    reference_log_likelihood,
 )
 from scvae_tpu_torch.ops.gather import gather_rows, reference_gather
 from scvae_tpu_torch.ops.special import digamma, lgamma
@@ -39,21 +47,29 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "FusedNBLogLikelihood",
+    "FAMILIES",
+    "FusedConstrainedPoisson",
+    "FusedLogLikelihood",
+    "cp_backward_dh",
+    "cp_backward_dw",
+    "cp_forward",
     "digamma",
+    "fused_backward",
+    "fused_backward_dh",
+    "fused_backward_dw",
+    "fused_forward",
     "fused_log_likelihood",
     "gather_rows",
     "launch_counts",
     "lgamma",
-    "nb_backward",
-    "nb_backward_dh",
-    "nb_backward_dw",
-    "nb_forward",
+    "reference_backward",
+    "reference_cp_dh",
+    "reference_cp_dw",
+    "reference_cp_forward",
+    "reference_dh",
+    "reference_dw",
+    "reference_forward",
     "reference_gather",
-    "reference_nb_backward",
-    "reference_nb_dh",
-    "reference_nb_dw",
-    "reference_nb_grads",
-    "reference_nb_log_likelihood",
+    "reference_log_likelihood",
     "reset_launch_counts",
 ]

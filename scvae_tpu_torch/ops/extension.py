@@ -19,7 +19,7 @@ import torch
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
-SOURCES = ("gather.cu", "nb_likelihood.cu")
+SOURCES = ("gather.cu", "count_likelihood.cu", "cp_likelihood.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -28,20 +28,30 @@ _library: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_HEADS = [_P] * 6  # w0, b0, w1, b1, w2, b2
 _SIGNATURES = {
     # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, vec, stream
     "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _I,
                           _P],
-    # h, wp, bp, wr, br, t, t_dtype, out, m, m_t, hidden, f, round, subtract, stream
-    "scvae_nb_forward": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                         _I, _P],
-    # g, h, wp, bp, wr, br, t, t_dtype, dh, m, m_t, hidden, f, round, stream
-    "scvae_nb_backward_dh": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+    # family, h, heads, t, t_dtype, out, m, m_t, hidden, f, round, subtract,
+    # stream
+    "scvae_fused_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,
+                            _I, _P],
+    # family, g, h, heads, t, t_dtype, dh, m, m_t, hidden, f, round, stream
+    "scvae_fused_backward_dh": [_I, _P, _P, *_HEADS, _P, _I, _P, _I, _I, _I,
+                                _I, _I, _P],
+    # family, g, h, heads, t, t_dtype, dw0, db0, dw1, db1, dw2, db2, m, m_t,
+    # hidden, f, round, stream
+    "scvae_fused_backward_dw": [_I, _P, _P, *_HEADS, _P, _I, *_HEADS, _I, _I,
+                                _I, _I, _I, _P],
+    # h, w, b, t, t_dtype, n, ll, lse, m, m_t, hidden, f, stream
+    "scvae_cp_forward": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, h, w, b, t, t_dtype, lse, sx, dh, m, m_t, hidden, f, stream
+    "scvae_cp_backward_dh": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                             _I, _P],
+    # g, h, w, b, t, t_dtype, lse, sx, dw, db, m, m_t, hidden, f, stream
+    "scvae_cp_backward_dw": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
-    # g, h, wp, bp, wr, br, t, t_dtype, dwp, dbp, dwr, dbr, m, m_t, hidden, f,
-    # round, stream
-    "scvae_nb_backward_dw": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,42 +1,55 @@
-"""Fused negative-binomial decoder heads + log-likelihood (kernels K2, K3).
+"""Fused decoder heads + count log-likelihoods (kernels K2, K3, K6, K7).
 
-The training loss ends with two dense heads on the decoder output (the NB
-``p`` logit and ``log_r``), the elementwise NB log-probability and a sum over
-genes.  The fused path computes
+The training loss ends with one dense head per likelihood parameter on the
+decoder output, the elementwise log-probability and a sum over genes.  The
+fused path computes
 
-    a_k = h W_k + b_k  →  support clip  →  log NB(t)  →  Σ_genes
+    a_k = h W_k + b_k  →  support clip  →  log p(t | a)  →  Σ_genes
 
 without writing the (M, F) activations to device memory, and its backward
-recomputes them tile by tile.  On CUDA tensors :func:`nb_forward` launches
-the hand-written kernel K2 and :func:`nb_backward` the two kernels of K3
-(``ops/csrc/nb_likelihood.cu``); on CPU tensors both run their plain
-versions, :func:`reference_nb_log_likelihood` and
-:func:`reference_nb_backward`.  :class:`FusedNBLogLikelihood` wraps the pair
-as an ``autograd.Function``.
+recomputes them tile by tile.  Counterpart of
+``scvae_tpu/ops/fused_likelihood.py``:
 
-Numerics follow ``scvae_tpu/ops/fused_likelihood.py``: with a
-``compute_dtype`` of bfloat16, h and W are rounded to bf16 and the products
-summed in float32, the elementwise math runs in float32, the backward rounds
-da_k to bf16 before the dh and dW products, and db_k sums the unrounded
-da_k.  Support clips use the nearest float32 strictly inside each support,
-with zero gradient outside the clip range.
+* the base families — Poisson, negative binomial (NB), zero-inflated
+  Poisson (ZIP) and zero-inflated NB (ZINB), :data:`FAMILIES` — share one
+  forward kernel K2 and one backward K3 of two passes
+  (``ops/csrc/count_likelihood.cu``), templated on the family's elementwise
+  (ll, grads) pair as ``_make_fused_from`` is;
+* the constrained Poisson (CP), whose gene-axis softmax couples every gene
+  of a row, has its own forward K6 with an online logsumexp and the backward
+  K7 (``ops/csrc/cp_likelihood.cu``).
+
+On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
+plain versions beside them.  :class:`FusedLogLikelihood` and
+:class:`FusedConstrainedPoisson` wrap them as ``autograd.Function``\\ s and
+:func:`fused_log_likelihood` dispatches by name, with the JAX signature.
+
+Numerics follow the JAX package.  Base families: with a ``compute_dtype`` of
+bfloat16, h and W are rounded to bf16 and the products summed in float32,
+the elementwise math runs in float32, the backward rounds da_k to bf16
+before the dh and dW products, and db_k sums the unrounded da_k.  Support
+clips use the nearest float32 strictly inside each support, with zero
+gradient outside the clip range.  CP takes no compute dtype in the JAX
+kernels: its caller hands them bf16 h, which multiplies float32 W in
+float32.  So here bfloat16 rounds the values of h only, W and da stay
+float32, and dh comes back in float32 (unrounded, as JAX returns it).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
 from scvae_tpu_torch.ops import extension
-from scvae_tpu_torch.ops.special import digamma, lgamma
+from scvae_tpu_torch.ops.special import digamma, lgamma, logaddexp
 
 _TINY = float(np.finfo(np.float32).tiny)
 _P_HI = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 _L_LO = float(np.nextafter(np.float32(-10.0), np.float32(np.inf)))
 _L_HI = float(np.nextafter(np.float32(10.0), np.float32(-np.inf)))
-
-# Kernel launches, counted where each kernel is launched and nowhere else.
-LAUNCHES = {"nb_forward": 0, "nb_backward_dh": 0, "nb_backward_dw": 0}
 
 _T_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,31 +59,147 @@ _T_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # --------------------------------------------------------------------------
 
 
+def _zero_outside(inside, value):
+    return torch.where(inside, value, 0.0)
+
+
+def _p(a):
+    """(raw σ(a), σ(a) clipped into (0, 1), inside-the-clip mask)."""
+    raw = torch.sigmoid(a)
+    return raw, torch.clamp(raw, _TINY, _P_HI), (raw > _TINY) & (raw < _P_HI)
+
+
+def _inside_l(a):
+    return (a > _L_LO) & (a < _L_HI)
+
+
+def poisson_ll(a_l, t):
+    """log Poisson(t | exp(clip(a_l, ±10))) without the −lgamma(1+t)
+    constant."""
+    log_lam = torch.clamp(a_l, _L_LO, _L_HI)
+    return t * log_lam - torch.exp(log_lam)
+
+
+def poisson_grads(a_l, t):
+    lam = torch.exp(torch.clamp(a_l, _L_LO, _L_HI))
+    return (_zero_outside(_inside_l(a_l), t - lam),)
+
+
 def nb_ll(a_p, a_r, t):
     """log NB(t | p = clip(σ(a_p)), r = exp(clip(a_r, ±10))) without the
     −lgamma(1+t) constant."""
-    p = torch.clamp(torch.sigmoid(a_p), _TINY, _P_HI)
+    _, p, _ = _p(a_p)
     r = torch.exp(torch.clamp(a_r, _L_LO, _L_HI))
     return lgamma(t + r) - lgamma(r) + r * torch.log1p(-p) + t * torch.log(p)
 
 
-def reference_nb_grads(a_p, a_r, t):
+def nb_grads(a_p, a_r, t):
     """(∂ll/∂a_p, ∂ll/∂a_r) of :func:`nb_ll`, zero outside each clip range."""
-    p_raw = torch.sigmoid(a_p)
-    p = torch.clamp(p_raw, _TINY, _P_HI)
+    _, p, p_inside = _p(a_p)
     r = torch.exp(torch.clamp(a_r, _L_LO, _L_HI))
-    zero = torch.zeros((), dtype=p.dtype, device=p.device)
-    p_inside = (p_raw > _TINY) & (p_raw < _P_HI)
-    g_p = torch.where(p_inside, t * (1.0 - p) - r * p, zero)
-    r_inside = (a_r > _L_LO) & (a_r < _L_HI)
-    g_r = torch.where(
-        r_inside, r * (digamma(t + r) - digamma(r) + torch.log1p(-p)), zero
-    )
+    g_p = _zero_outside(p_inside, t * (1.0 - p) - r * p)
+    g_r = _zero_outside(_inside_l(a_r),
+                 r * (digamma(t + r) - digamma(r) + torch.log1p(-p)))
     return g_p, g_r
 
 
+def zip_ll(a_pi, a_l, t):
+    """log ZIP(t | π = clip(σ(a_pi)), λ = exp(clip(a_l, ±10))) without the
+    −lgamma(1+t) constant (zero at t = 0, so subtracting it everywhere is
+    exact).  Both branches are evaluated and t > 0 selects, as jnp.where."""
+    _, pi, _ = _p(a_pi)
+    log_lam = torch.clamp(a_l, _L_LO, _L_HI)
+    lam = torch.exp(log_lam)
+    log1m_pi = torch.log1p(-pi)
+    y_pos = log1m_pi + t * log_lam - lam
+    y_zero = logaddexp(torch.log(pi), log1m_pi - lam)
+    return torch.where(t > 0, y_pos, y_zero)
+
+
+def zip_grads(a_pi, a_l, t):
+    _, pi, pi_inside = _p(a_pi)
+    lam = torch.exp(torch.clamp(a_l, _L_LO, _L_HI))
+    # t = 0 branch: S = π + (1−π)e^{−λ}; log S via logaddexp.
+    log_s = logaddexp(torch.log(pi), torch.log1p(-pi) - lam)
+    inv_s = torch.exp(-log_s)
+    elam_over_s = torch.exp(-lam - log_s)
+    g_pi_zero = pi * (1.0 - pi) * (inv_s - elam_over_s)
+    g_l_zero = -lam * (1.0 - pi) * elam_over_s
+    pos = t > 0
+    g_pi = _zero_outside(pi_inside, torch.where(pos, -pi, g_pi_zero))
+    g_l = _zero_outside(_inside_l(a_l), torch.where(pos, t - lam, g_l_zero))
+    return g_pi, g_l
+
+
+def zinb_ll(a_pi, a_p, a_r, t):
+    """log ZINB(t) without the −lgamma(1+t) constant; the base NB in the TFP
+    convention (successes before r failures)."""
+    _, pi, _ = _p(a_pi)
+    _, p, _ = _p(a_p)
+    r = torch.exp(torch.clamp(a_r, _L_LO, _L_HI))
+    log1m_pi = torch.log1p(-pi)
+    nb_pos = lgamma(t + r) - lgamma(r) + r * torch.log1p(-p) + t * torch.log(p)
+    y_pos = log1m_pi + nb_pos
+    # NB(0) = (1−p)^r → log = r·log1p(−p)
+    y_zero = logaddexp(torch.log(pi), log1m_pi + r * torch.log1p(-p))
+    return torch.where(t > 0, y_pos, y_zero)
+
+
+def zinb_grads(a_pi, a_p, a_r, t):
+    _, pi, pi_inside = _p(a_pi)
+    _, p, p_inside = _p(a_p)
+    r = torch.exp(torch.clamp(a_r, _L_LO, _L_HI))
+    log1m_p = torch.log1p(-p)
+    # t = 0 branch: S = π + (1−π)(1−p)^r; q0 = (1−p)^r.
+    log_q0 = r * log1m_p
+    log_s = logaddexp(torch.log(pi), torch.log1p(-pi) + log_q0)
+    inv_s = torch.exp(-log_s)
+    q0_over_s = torch.exp(log_q0 - log_s)
+    one_m_pi = 1.0 - pi
+    g_pi_zero = pi * one_m_pi * (inv_s - q0_over_s)
+    g_p_zero = -one_m_pi * r * p * q0_over_s
+    g_r_zero = one_m_pi * r * log1m_p * q0_over_s
+    g_p_pos = t * (1.0 - p) - r * p
+    g_r_pos = r * (digamma(t + r) - digamma(r) + log1m_p)
+    pos = t > 0
+    return (_zero_outside(pi_inside, torch.where(pos, -pi, g_pi_zero)),
+            _zero_outside(p_inside, torch.where(pos, g_p_pos, g_p_zero)),
+            _zero_outside(_inside_l(a_r), torch.where(pos, g_r_pos, g_r_zero)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """A base likelihood of K2/K3: its code in ``count_likelihood.cu``, the
+    prefix of its launch counters, its head names in kernel order and its
+    elementwise ``ll(*a, t)`` / ``grads(*a, t)``."""
+
+    code: int
+    prefix: str
+    heads: tuple[str, ...]
+    ll: Callable[..., torch.Tensor]
+    grads: Callable[..., tuple[torch.Tensor, ...]]
+
+
+FAMILIES = {
+    "poisson": Family(0, "poisson", ("log_lambda",), poisson_ll, poisson_grads),
+    "negative binomial": Family(1, "nb", ("p", "log_r"), nb_ll, nb_grads),
+    "zero-inflated poisson": Family(2, "zip", ("pi", "log_lambda"), zip_ll,
+                                    zip_grads),
+    "zero-inflated negative binomial": Family(3, "zinb", ("pi", "p", "log_r"),
+                                              zinb_ll, zinb_grads),
+}
+_MAX_HEADS = 3
+
+# Kernel launches, counted where each kernel is launched and nowhere else.
+LAUNCHES = {
+    f"{prefix}_{kernel}": 0
+    for prefix in [fam.prefix for fam in FAMILIES.values()] + ["cp"]
+    for kernel in ("forward", "backward_dh", "backward_dw")
+}
+
+
 # --------------------------------------------------------------------------
-# Plain versions of the kernels
+# Plain versions of K2 / K3
 # --------------------------------------------------------------------------
 
 
@@ -85,56 +214,121 @@ def _cycle_rows(t: torch.Tensor, m: int) -> torch.Tensor:
     return t if t.shape[0] == m else t.repeat(m // t.shape[0], 1)
 
 
-def _activations(h, w_p, b_p, w_r, b_r, compute_dtype):
+def _activations(h, weights, biases, compute_dtype):
     hc = _rounded(h, compute_dtype)
-    a_p = hc @ _rounded(w_p, compute_dtype) + b_p
-    a_r = hc @ _rounded(w_r, compute_dtype) + b_r
-    return hc, a_p, a_r
+    return hc, [hc @ _rounded(w, compute_dtype) + b
+                for w, b in zip(weights, biases)]
 
 
-def reference_nb_log_likelihood(h, w_p, b_p, w_r, b_r, t, *,
-                                compute_dtype=None,
-                                include_lgamma_const=True):
-    """Plain version of K2: row-summed NB log-likelihood (M,).  With
-    ``compute_dtype=None`` this is ``reference_log_likelihood`` of the JAX
-    package for the NB heads; with bfloat16 it rounds like the kernel."""
-    _, a_p, a_r = _activations(h, w_p, b_p, w_r, b_r, compute_dtype)
+def reference_forward(name, h, weights, biases, t, *, compute_dtype=None,
+                      include_lgamma_const=True):
+    """Plain version of K2: the row-summed log-likelihood (M,) of family
+    ``name`` with head ``weights`` / ``biases`` in the family's head order.
+    With ``compute_dtype=None`` this is the JAX ``reference_log_likelihood``;
+    with bfloat16 it rounds like the kernel."""
+    _, acts = _activations(h, weights, biases, compute_dtype)
     tt = _cycle_rows(t.float(), h.shape[0])
-    ll = nb_ll(a_p, a_r, tt)
+    ll = FAMILIES[name].ll(*acts, tt)
     if include_lgamma_const:
         ll = ll - lgamma(1.0 + tt)
     return torch.sum(ll, dim=-1)
 
 
-def _weighted_grads(g, h, w_p, b_p, w_r, b_r, t, compute_dtype):
-    """Rounded h and the row-weighted (da_p, da_r) = g·∂ll/∂a."""
-    hc, a_p, a_r = _activations(h, w_p, b_p, w_r, b_r, compute_dtype)
-    g_p, g_r = reference_nb_grads(a_p, a_r, _cycle_rows(t.float(), h.shape[0]))
+def _weighted_grads(name, g, h, weights, biases, t, compute_dtype):
+    """Rounded h and the row-weighted da_k = g·∂ll/∂a_k."""
+    hc, acts = _activations(h, weights, biases, compute_dtype)
+    gs = FAMILIES[name].grads(*acts, _cycle_rows(t.float(), h.shape[0]))
     g = g.float()[:, None]
-    return hc, g_p * g, g_r * g
+    return hc, [g_k * g for g_k in gs]
 
 
-def reference_nb_dh(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
+def reference_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
     """Plain version of K3's first pass: dh = Σ_k bf16(da_k) W_kᵀ."""
-    _, da_p, da_r = _weighted_grads(g, h, w_p, b_p, w_r, b_r, t, compute_dtype)
-    dh = _rounded(da_p, compute_dtype) @ _rounded(w_p, compute_dtype).T
-    return dh + _rounded(da_r, compute_dtype) @ _rounded(w_r, compute_dtype).T
+    _, das = _weighted_grads(name, g, h, weights, biases, t, compute_dtype)
+    dh = 0.0
+    for da, w in zip(das, weights):
+        dh = dh + _rounded(da, compute_dtype) @ _rounded(w, compute_dtype).T
+    return dh
 
 
-def reference_nb_dw(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
-    """Plain version of K3's second pass: (dW_p, db_p, dW_r, db_r) with
+def reference_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """Plain version of K3's second pass: (dW_0, db_0, dW_1, db_1, …) with
     dW_k = hᵀ bf16(da_k) and db_k = Σ_rows da_k."""
-    hc, da_p, da_r = _weighted_grads(g, h, w_p, b_p, w_r, b_r, t, compute_dtype)
-    return (hc.T @ _rounded(da_p, compute_dtype), da_p.sum(0),
-            hc.T @ _rounded(da_r, compute_dtype), da_r.sum(0))
+    hc, das = _weighted_grads(name, g, h, weights, biases, t, compute_dtype)
+    return tuple(x for da in das
+                 for x in (hc.T @ _rounded(da, compute_dtype), da.sum(0)))
 
 
-def reference_nb_backward(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
-    """Plain version of K3: (dh, dW_p, db_p, dW_r, db_r) for the row
-    cotangents ``g`` (M,)."""
-    args = (g, h, w_p, b_p, w_r, b_r, t)
-    return (reference_nb_dh(*args, compute_dtype=compute_dtype),
-            *reference_nb_dw(*args, compute_dtype=compute_dtype))
+def reference_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """Plain version of K3: (dh, dW_0, db_0, …) for row cotangents g (M,)."""
+    args = (name, g, h, weights, biases, t)
+    return (reference_dh(*args, compute_dtype=compute_dtype),
+            *reference_dw(*args, compute_dtype=compute_dtype))
+
+
+# --------------------------------------------------------------------------
+# Plain versions of K6 / K7 (constrained Poisson)
+# --------------------------------------------------------------------------
+
+
+def _constrained_poisson_ll_rows(a, t, n):
+    """Row sums of the CP log-likelihood from raw activations ``a`` (..., F),
+    targets ``t`` and count sums ``n`` (..., 1); rate = softmax_F(a)·n, so
+
+        Σ_f ll = Σ_f (t·a − lgamma(1+t)) − (Σ_f t)(lse − log n) − n."""
+    lse = torch.logsumexp(a, dim=-1, keepdim=True)
+    sx = torch.sum(t, dim=-1, keepdim=True)
+    rows = (torch.sum(t * a - lgamma(1.0 + t), dim=-1, keepdim=True)
+            - sx * (lse - torch.log(n)) - n)
+    return rows[..., 0]
+
+
+def reference_cp_forward(h, w, b, t, n):
+    """Plain version of K6: (ll (M,), lse (M,)) for h (M, H), W (H, F),
+    b (F,), t (M_t, F) and count sums n (M,)."""
+    a = h.float() @ w.float() + b.float()
+    tt = _cycle_rows(t.float(), h.shape[0])
+    ll = _constrained_poisson_ll_rows(a, tt, n.float()[:, None])
+    return ll, torch.logsumexp(a, dim=-1)
+
+
+def _cp_da(g, h, w, b, t, lse):
+    """h as float32 and da = g·(t − (Σt)·exp(a − lse))."""
+    hf = h.float()
+    a = hf @ w.float() + b.float()
+    tt = _cycle_rows(t.float(), h.shape[0])
+    sx = tt.sum(-1, keepdim=True)
+    return hf, g.float()[:, None] * (tt - sx * torch.exp(a - lse[:, None]))
+
+
+def reference_cp_dh(g, h, w, b, t, lse):
+    """Plain version of K7's first pass: dh = da Wᵀ."""
+    _, da = _cp_da(g, h, w, b, t, lse)
+    return da @ w.float().T
+
+
+def reference_cp_dw(g, h, w, b, t, lse):
+    """Plain version of K7's second pass: (dW, db) = (hᵀ da, Σ_rows da)."""
+    hf, da = _cp_da(g, h, w, b, t, lse)
+    return hf.T @ da, da.sum(0)
+
+
+def reference_log_likelihood(name, h, heads, t, count_sum=None,
+                             compute_dtype=None):
+    """Unfused computation of the same quantity (the JAX package's
+    ``reference_log_likelihood``): exact float32, ``compute_dtype``
+    accepted for call-site symmetry and ignored."""
+    del compute_dtype
+    if name == "constrained poisson":
+        if count_sum is None:
+            raise ValueError("constrained poisson requires count_sum")
+        a = h @ heads["lambda"]["kernel"] + heads["lambda"]["bias"]
+        return _constrained_poisson_ll_rows(a, t, count_sum)
+    if name not in FAMILIES:
+        raise ValueError(f"No fused likelihood for {name!r}")
+    fam = FAMILIES[name]
+    acts = [h @ heads[p]["kernel"] + heads[p]["bias"] for p in fam.heads]
+    return torch.sum(fam.ll(*acts, t) - lgamma(1.0 + t), dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -150,157 +344,292 @@ def _round_flag(compute_dtype) -> int:
     raise ValueError(f"unsupported compute dtype {compute_dtype}")
 
 
-def _checked_cuda(h, w_p, b_p, w_r, b_r, t):
-    """Validate and normalise the kernels' operands; returns them as
-    contiguous float32 tensors (t may stay bfloat16)."""
-    tensors = (h, w_p, b_p, w_r, b_r, t)
+def _checked_cuda(h, weights, biases, t, *rows):
+    """Validate and normalise the kernels' operands: contiguous float32
+    tensors on one CUDA device (t may stay bfloat16).  ``rows`` are (M,)
+    per-row operands."""
+    tensors = (h, *weights, *biases, t, *rows)
     if not all(x.is_cuda and x.device == h.device for x in tensors):
         raise ValueError("all operands must be CUDA tensors on one device")
     m, hidden = h.shape
     f = t.shape[-1]
+    if hidden == 0:
+        raise ValueError("the decoder output has no hidden units")
     if t.dim() != 2 or t.shape[0] == 0 or m % t.shape[0]:
         raise ValueError(f"t {tuple(t.shape)} does not tile h rows {m}")
-    for w, b in ((w_p, b_p), (w_r, b_r)):
+    for w, b in zip(weights, biases):
         if tuple(w.shape) != (hidden, f) or tuple(b.shape) != (f,):
             raise ValueError(f"head shapes {tuple(w.shape)}, {tuple(b.shape)} "
                              f"do not match h {tuple(h.shape)} and t "
                              f"{tuple(t.shape)}")
+    for x in rows:
+        if tuple(x.shape) != (m,):
+            raise ValueError(f"row operand {tuple(x.shape)} does not match "
+                             f"{m} rows")
     if t.dtype not in _T_CODES:
         t = t.float()
-    f32 = [x.float().contiguous() for x in (h, w_p, b_p, w_r, b_r)]
-    return (*f32, t.contiguous())
+    f32 = lambda xs: [x.float().contiguous() for x in xs]  # noqa: E731
+    return (f32([h])[0], f32(weights), f32(biases), t.contiguous(),
+            *f32(rows))
 
 
-def nb_forward(h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None,
-               include_lgamma_const=True) -> torch.Tensor:
-    """Row-summed NB log-likelihood (M,): K2 on CUDA, the plain version on
-    the CPU."""
+def _head_pointers(weights, biases):
+    """w0, b0, w1, b1, w2, b2 pointers; null past the family's heads."""
+    pointers = [p for w, b in zip(weights, biases)
+                for p in (w.data_ptr(), b.data_ptr())]
+    return pointers + [None] * (2 * _MAX_HEADS - len(pointers))
+
+
+def _family_heads(name, weights, biases):
+    fam = FAMILIES[name]
+    if len(weights) != len(fam.heads) or len(biases) != len(fam.heads):
+        raise ValueError(f"{name} takes {len(fam.heads)} heads, got "
+                         f"{len(weights)} weights and {len(biases)} biases")
+    return fam
+
+
+def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
+                  include_lgamma_const=True) -> torch.Tensor:
+    """Row-summed log-likelihood (M,) of family ``name``: K2 on CUDA, the
+    plain version on the CPU."""
+    fam = _family_heads(name, weights, biases)
     if not h.is_cuda:
-        return reference_nb_log_likelihood(
-            h, w_p, b_p, w_r, b_r, t, compute_dtype=compute_dtype,
-            include_lgamma_const=include_lgamma_const,
-        )
-    h, w_p, b_p, w_r, b_r, t = _checked_cuda(h, w_p, b_p, w_r, b_r, t)
+        return reference_forward(name, h, weights, biases, t,
+                                 compute_dtype=compute_dtype,
+                                 include_lgamma_const=include_lgamma_const)
+    h, weights, biases, t = _checked_cuda(h, weights, biases, t)
     m, hidden = h.shape
     out = torch.empty((m,), dtype=torch.float32, device=h.device)
     if m == 0:
         return out
     extension.call(
-        "scvae_nb_forward", h.device,
-        h.data_ptr(), w_p.data_ptr(), b_p.data_ptr(), w_r.data_ptr(),
-        b_r.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], out.data_ptr(),
-        m, t.shape[0], hidden, t.shape[1], _round_flag(compute_dtype),
-        int(include_lgamma_const),
+        "scvae_fused_forward", h.device, fam.code, h.data_ptr(),
+        *_head_pointers(weights, biases), t.data_ptr(), _T_CODES[t.dtype],
+        out.data_ptr(), m, t.shape[0], hidden, t.shape[1],
+        _round_flag(compute_dtype), int(include_lgamma_const),
     )
-    LAUNCHES["nb_forward"] += 1
+    LAUNCHES[f"{fam.prefix}_forward"] += 1
     return out
 
 
-def _checked_backward(g, h, w_p, b_p, w_r, b_r, t):
-    h, w_p, b_p, w_r, b_r, t = _checked_cuda(h, w_p, b_p, w_r, b_r, t)
-    if tuple(g.shape) != (h.shape[0],) or g.device != h.device:
-        raise ValueError(f"row cotangents {tuple(g.shape)} do not match "
-                         f"{h.shape[0]} rows on {h.device}")
-    return g.float().contiguous(), h, w_p, b_p, w_r, b_r, t
+def _checked_backward(g, h, weights, biases, t):
+    h, weights, biases, t, g = _checked_cuda(h, weights, biases, t, g)
+    return g, h, weights, biases, t
 
 
-def nb_backward_dh(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
+def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
     """dh (M, H): K3's first kernel on CUDA, the plain version on the CPU."""
+    fam = _family_heads(name, weights, biases)
     if not h.is_cuda:
-        return reference_nb_dh(g, h, w_p, b_p, w_r, b_r, t,
-                               compute_dtype=compute_dtype)
-    g, h, w_p, b_p, w_r, b_r, t = _checked_backward(g, h, w_p, b_p, w_r, b_r, t)
+        return reference_dh(name, g, h, weights, biases, t,
+                            compute_dtype=compute_dtype)
+    g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
     m, hidden = h.shape
     dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
     if m == 0:
         return dh
     extension.call(
-        "scvae_nb_backward_dh", h.device,
-        g.data_ptr(), h.data_ptr(), w_p.data_ptr(), b_p.data_ptr(),
-        w_r.data_ptr(), b_r.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
+        "scvae_fused_backward_dh", h.device, fam.code, g.data_ptr(),
+        h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
+        _T_CODES[t.dtype], dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
         _round_flag(compute_dtype),
     )
-    LAUNCHES["nb_backward_dh"] += 1
+    LAUNCHES[f"{fam.prefix}_backward_dh"] += 1
     return dh
 
 
-def nb_backward_dw(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
-    """(dW_p, db_p, dW_r, db_r): K3's second kernel on CUDA, the plain
+def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """(dW_0, db_0, dW_1, db_1, …): K3's second kernel on CUDA, the plain
     version on the CPU."""
+    fam = _family_heads(name, weights, biases)
     if not h.is_cuda:
-        return reference_nb_dw(g, h, w_p, b_p, w_r, b_r, t,
-                               compute_dtype=compute_dtype)
-    g, h, w_p, b_p, w_r, b_r, t = _checked_backward(g, h, w_p, b_p, w_r, b_r, t)
+        return reference_dw(name, g, h, weights, biases, t,
+                            compute_dtype=compute_dtype)
+    g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
     m, hidden = h.shape
     f = t.shape[1]
     out = [torch.empty(shape, dtype=torch.float32, device=h.device)
-           for shape in ((hidden, f), (f,), (hidden, f), (f,))]
+           for _ in fam.heads for shape in ((hidden, f), (f,))]
     if f == 0:
         return tuple(out)
+    pointers = [x.data_ptr() for x in out]
+    pointers += [None] * (2 * _MAX_HEADS - len(pointers))
     extension.call(
-        "scvae_nb_backward_dw", h.device,
-        g.data_ptr(), h.data_ptr(), w_p.data_ptr(), b_p.data_ptr(),
-        w_r.data_ptr(), b_r.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        *(x.data_ptr() for x in out), m, t.shape[0], hidden, f,
+        "scvae_fused_backward_dw", h.device, fam.code, g.data_ptr(),
+        h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
+        _T_CODES[t.dtype], *pointers, m, t.shape[0], hidden, f,
         _round_flag(compute_dtype),
     )
-    LAUNCHES["nb_backward_dw"] += 1
+    LAUNCHES[f"{fam.prefix}_backward_dw"] += 1
     return tuple(out)
 
 
-def nb_backward(g, h, w_p, b_p, w_r, b_r, t, *, compute_dtype=None):
-    """(dh, dW_p, db_p, dW_r, db_r) for the row cotangents ``g`` (M,): the
-    two K3 kernels on CUDA, the plain version on the CPU."""
-    args = (g, h, w_p, b_p, w_r, b_r, t)
-    return (nb_backward_dh(*args, compute_dtype=compute_dtype),
-            *nb_backward_dw(*args, compute_dtype=compute_dtype))
+def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """(dh, dW_0, db_0, …) for the row cotangents ``g`` (M,): the two K3
+    kernels on CUDA, the plain version on the CPU."""
+    args = (name, g, h, weights, biases, t)
+    return (fused_backward_dh(*args, compute_dtype=compute_dtype),
+            *fused_backward_dw(*args, compute_dtype=compute_dtype))
 
 
-class FusedNBLogLikelihood(torch.autograd.Function):
-    """Row-summed NB log-likelihood with the fused backward; the twin of
-    ``_make_fused_from`` in the JAX package.  Saves h, W, b and t, and
-    recomputes the activations in the backward."""
+def cp_forward(h, w, b, t, n):
+    """(ll (M,), lse (M,)) of the constrained Poisson: K6 on CUDA, the plain
+    version on the CPU.  h is multiplied as given (float32 arithmetic)."""
+    if not h.is_cuda:
+        return reference_cp_forward(h, w, b, t, n)
+    h, (w,), (b,), t, n = _checked_cuda(h, [w], [b], t, n)
+    m, hidden = h.shape
+    ll = torch.empty((m,), dtype=torch.float32, device=h.device)
+    lse = torch.empty((m,), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return ll, lse
+    extension.call(
+        "scvae_cp_forward", h.device, h.data_ptr(), w.data_ptr(),
+        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], n.data_ptr(),
+        ll.data_ptr(), lse.data_ptr(), m, t.shape[0], hidden, t.shape[1],
+    )
+    LAUNCHES["cp_forward"] += 1
+    return ll, lse
+
+
+def _checked_cp_backward(g, h, w, b, t, lse):
+    h, (w,), (b,), t, g, lse = _checked_cuda(h, [w], [b], t, g, lse)
+    # Σ_f t per target row, a plain reduction outside the kernels as in the
+    # JAX package's backward
+    sx = t.float().sum(-1)
+    return g, h, w, b, t, lse, sx
+
+
+def cp_backward_dh(g, h, w, b, t, lse):
+    """dh (M, H) of the constrained Poisson: K7's first kernel on CUDA, the
+    plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_cp_dh(g, h, w, b, t, lse)
+    g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
+    m, hidden = h.shape
+    dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return dh
+    extension.call(
+        "scvae_cp_backward_dh", h.device, g.data_ptr(), h.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), sx.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden,
+        t.shape[1],
+    )
+    LAUNCHES["cp_backward_dh"] += 1
+    return dh
+
+
+def cp_backward_dw(g, h, w, b, t, lse):
+    """(dW, db) of the constrained Poisson: K7's second kernel on CUDA, the
+    plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_cp_dw(g, h, w, b, t, lse)
+    g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    dw = torch.empty((hidden, f), dtype=torch.float32, device=h.device)
+    db = torch.empty((f,), dtype=torch.float32, device=h.device)
+    if f == 0:
+        return dw, db
+    extension.call(
+        "scvae_cp_backward_dw", h.device, g.data_ptr(), h.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), sx.data_ptr(), dw.data_ptr(), db.data_ptr(), m,
+        t.shape[0], hidden, f,
+    )
+    LAUNCHES["cp_backward_dw"] += 1
+    return dw, db
+
+
+# --------------------------------------------------------------------------
+# autograd Functions and the public entry
+# --------------------------------------------------------------------------
+
+
+class FusedLogLikelihood(torch.autograd.Function):
+    """Row-summed log-likelihood of a base family with the fused backward;
+    the twin of ``_make_fused_from`` in the JAX package.  Saves h, the heads
+    and t, and recomputes the activations in the backward.  ``params`` are
+    W_0, b_0, W_1, b_1, … in the family's head order."""
 
     @staticmethod
-    def forward(ctx, h, w_p, b_p, w_r, b_r, t, compute_dtype,
-                include_lgamma_const):
-        ctx.save_for_backward(h, w_p, b_p, w_r, b_r, t)
+    def forward(ctx, name, compute_dtype, include_lgamma_const, h, t, *params):
+        ctx.save_for_backward(h, t, *params)
+        ctx.name = name
         ctx.compute_dtype = compute_dtype
-        return nb_forward(
-            h, w_p, b_p, w_r, b_r, t, compute_dtype=compute_dtype,
-            include_lgamma_const=include_lgamma_const,
-        )
+        return fused_forward(name, h, params[0::2], params[1::2], t,
+                             compute_dtype=compute_dtype,
+                             include_lgamma_const=include_lgamma_const)
 
     @staticmethod
     def backward(ctx, g):
-        h, w_p, b_p, w_r, b_r, t = ctx.saved_tensors
-        dh, dw_p, db_p, dw_r, db_r = nb_backward(
-            g, h, w_p, b_p, w_r, b_r, t, compute_dtype=ctx.compute_dtype
-        )
-        return dh.to(h.dtype), dw_p, db_p, dw_r, db_r, None, None, None
+        h, t, *params = ctx.saved_tensors
+        dh, *dparams = fused_backward(ctx.name, g, h, params[0::2],
+                                      params[1::2], t,
+                                      compute_dtype=ctx.compute_dtype)
+        return (None, None, None, dh.to(h.dtype), None, *dparams)
 
 
-def fused_log_likelihood(name, h, heads, t, compute_dtype=None,
+class FusedConstrainedPoisson(torch.autograd.Function):
+    """Row-summed constrained-Poisson log-likelihood with the fused backward
+    (``_fused_constrained_poisson`` in the JAX package).  ``round_h`` rounds
+    the values of h to bf16 for the product; the gradient of h is float32
+    and unrounded.  Saves lse from the forward as a residual; the count-sum
+    cotangent dn = g·(Σt/n − 1) is computed here, outside the kernels, when
+    asked for."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, t, n, round_h):
+        hv = _rounded(h, torch.bfloat16 if round_h else None)
+        ll, lse = cp_forward(hv, w, b, t, n)
+        ctx.save_for_backward(hv, w, b, t, n, lse)
+        ctx.h_dtype = h.dtype
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        hv, w, b, t, n, lse = ctx.saved_tensors
+        dh = cp_backward_dh(g, hv, w, b, t, lse).to(ctx.h_dtype)
+        dw, db = cp_backward_dw(g, hv, w, b, t, lse)
+        dn = None
+        if ctx.needs_input_grad[4]:
+            sx = _cycle_rows(t.float(), hv.shape[0]).sum(-1)
+            dn = (g * (sx / n - 1.0)).to(n.dtype)
+        return dh, dw, db, None, dn, None
+
+
+def fused_log_likelihood(name, h, heads, t, count_sum=None, compute_dtype=None,
                          include_lgamma_const=True) -> torch.Tensor:
     """Row-summed log p(t | heads(h)) on the fused path.
 
     ``h``: (..., H) decoder output; ``t``: (..., F) targets, or (M_t, F)
     shared by the leading sample axes of ``h`` (rows cycle instead of
-    broadcasting).  ``heads``: {param: {kernel, bias}}.  With
-    ``include_lgamma_const=False`` the −lgamma(1+t) constant is left out, for
-    callers that subtract its row sums themselves.  Returns (...,)."""
-    if name != "negative binomial":
-        raise NotImplementedError(
-            f"the fused {name!r} likelihood is not ported yet"
-        )
+    broadcasting, for the constrained Poisson too).  ``heads``: {param:
+    {kernel, bias}}; ``count_sum``: (..., 1) per-cell totals, required for
+    "constrained poisson".  ``compute_dtype``: bfloat16 matmul inputs with
+    float32 sums (for CP: the values of h only).  With
+    ``include_lgamma_const=False`` the base families leave out the
+    −lgamma(1+t) constant, for callers that subtract its row sums
+    themselves; CP always includes it.  Returns (...,)."""
     lead = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1])
     if not (t.dim() == 2 and h2.shape[0] % t.shape[0] == 0):
         t = torch.broadcast_to(t, lead + t.shape[-1:]).reshape(-1, t.shape[-1])
-    out = FusedNBLogLikelihood.apply(
-        h2, heads["p"]["kernel"], heads["p"]["bias"],
-        heads["log_r"]["kernel"], heads["log_r"]["bias"], t,
-        compute_dtype, include_lgamma_const,
-    )
+    if name == "constrained poisson":
+        if count_sum is None:
+            raise ValueError("constrained poisson requires count_sum")
+        _round_flag(compute_dtype)
+        n = torch.broadcast_to(count_sum, lead + (1,)).reshape(-1)
+        out = FusedConstrainedPoisson.apply(
+            h2, heads["lambda"]["kernel"], heads["lambda"]["bias"], t, n,
+            compute_dtype is not None,
+        )
+    elif name in FAMILIES:
+        params = [heads[p][k] for p in FAMILIES[name].heads
+                  for k in ("kernel", "bias")]
+        out = FusedLogLikelihood.apply(name, compute_dtype,
+                                       include_lgamma_const, h2, t, *params)
+    else:
+        raise ValueError(f"No fused likelihood for {name!r}")
     return out.reshape(lead)

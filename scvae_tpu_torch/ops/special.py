@@ -46,3 +46,13 @@ def digamma(x: torch.Tensor) -> torch.Tensor:
         -1.0 / 12.0 + inv2 * (1.0 / 120.0 + inv2 * (-1.0 / 252.0))
     )
     return torch.log(z) - 0.5 * inv + series - shift_sum
+
+
+def logaddexp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """log(eˣ + eʸ) as ``jnp.logaddexp`` computes it: NaNs or same-signed
+    infinities give x + y, otherwise max + log1p(exp(−|x − y|))."""
+    delta = x - y
+    return torch.where(
+        torch.isnan(delta), x + y,
+        torch.maximum(x, y) + torch.log1p(torch.exp(-delta.abs())),
+    )

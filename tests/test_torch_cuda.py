@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at small odd
 shapes the headline run does not reach (rows, hidden width and genes not
 multiples of the tiles, rows cycling over shared targets, float32 targets
-and sources).  CUDA kernels have no CPU mode: these tests are marked
-``cuda`` and skip without a GPU; on the GPU machine run
+and sources, decoder widths above one 256-unit hidden chunk).  CUDA kernels
+have no CPU mode: these tests are marked ``cuda`` and skip without a GPU; on
+the GPU machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -12,7 +13,7 @@ do not use).
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
 forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
-autograd).
+autograd; the constrained Poisson never rounds, so 2e-5 throughout).
 """
 
 import pytest
@@ -21,6 +22,11 @@ import torch
 from scvae_tpu_torch import ops
 
 pytestmark = pytest.mark.cuda
+
+FAMILIES = list(ops.FAMILIES)
+# (M, M_t, H, F)
+SHAPES = [(37, 37, 21, 301), (64, 32, 256, 100), (5, 5, 3, 40),
+          (26, 13, 3, 13)]
 
 
 @pytest.fixture
@@ -50,64 +56,165 @@ def test_gather_bit_exact(device, f, src_dtype):
         assert got.dtype == want.dtype == dtype and torch.equal(got, want)
 
 
-def _case(device, m, m_t, hidden, f, t_dtype, seed=0):
+def _case(device, n_heads, m, m_t, hidden, f, t_dtype, seed=0):
+    """h, n_heads (W, b) pairs, Poisson(2) targets (13% zeros) and row
+    cotangents."""
     gen = torch.Generator(device=device).manual_seed(seed)
     h = torch.relu(torch.randn(m, hidden, generator=gen, device=device))
     limit = 3 * (6.0 / (hidden + f)) ** 0.5
-    w_p, w_r = ((torch.rand(hidden, f, generator=gen, device=device) * 2 - 1) * limit
-                for _ in range(2))
-    b_p, b_r = (0.3 * torch.randn(f, generator=gen, device=device) for _ in range(2))
+    weights = [(torch.rand(hidden, f, generator=gen, device=device) * 2 - 1) * limit
+               for _ in range(n_heads)]
+    biases = [0.3 * torch.randn(f, generator=gen, device=device)
+              for _ in range(n_heads)]
     t = torch.poisson(torch.full((m_t, f), 2.0, device=device), generator=gen)
     g = torch.randn(m, generator=gen, device=device)
-    return (h, w_p, b_p, w_r, b_r), t.to(t_dtype), g
+    return h, weights, biases, t.to(t_dtype), g
 
 
-SHAPES = [(37, 37, 21, 301), (64, 32, 256, 100), (5, 5, 3, 40)]
+def _family_case(device, name, *shape, seed=0):
+    return _case(device, len(ops.FAMILIES[name].heads), *shape, seed=seed)
 
 
-@pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
-@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("compute", [None, torch.bfloat16])
-def test_nb_kernels_match_plain(device, m, m_t, hidden, f, t_dtype, compute):
-    heads, t, g = _case(device, m, m_t, hidden, f, t_dtype)
+def _check_family(name, h, weights, biases, t, g, compute):
     for const in (True, False):
-        _close(ops.nb_forward(*heads, t, compute_dtype=compute,
-                              include_lgamma_const=const),
-               ops.reference_nb_log_likelihood(
-                   *heads, t, compute_dtype=compute,
-                   include_lgamma_const=const), 2e-5)
-    got = ops.nb_backward(g, *heads, t, compute_dtype=compute)
-    want = ops.reference_nb_backward(g, *heads, t, compute_dtype=compute)
+        _close(ops.fused_forward(name, h, weights, biases, t,
+                                 compute_dtype=compute,
+                                 include_lgamma_const=const),
+               ops.reference_forward(name, h, weights, biases, t,
+                                     compute_dtype=compute,
+                                     include_lgamma_const=const), 2e-5)
+    got = ops.fused_backward(name, g, h, weights, biases, t,
+                             compute_dtype=compute)
+    want = ops.reference_backward(name, g, h, weights, biases, t,
+                                  compute_dtype=compute)
+    assert len(got) == len(want) == 1 + 2 * len(weights)
     for a, b in zip(got, want):
         assert a.shape == b.shape
         _close(a, b, 4e-4 if compute is not None else 2e-5)
 
 
+@pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
-def test_nb_backward_matches_autograd(device, m, m_t, hidden, f):
-    heads, t, g = _case(device, m, m_t, hidden, f, torch.float32, seed=1)
-    leaves = [x.clone().requires_grad_(True) for x in heads]
-    ll = ops.reference_nb_log_likelihood(*leaves, t)
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("compute", [None, torch.bfloat16])
+def test_count_kernels_match_plain(device, name, m, m_t, hidden, f, t_dtype,
+                                   compute):
+    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
+                                            t_dtype)
+    _check_family(name, h, weights, biases, t, g, compute)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
+def test_count_backward_matches_autograd(device, name, m, m_t, hidden, f):
+    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
+                                            torch.float32, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (h, *weights, *biases)]
+    k = len(weights)
+    ll = ops.reference_forward(name, leaves[0], leaves[1:1 + k],
+                               leaves[1 + k:], t)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
-    for a, b in zip(ops.nb_backward(g, *heads, t), want):
-        _close(a, b, 2e-5)
+    got = ops.fused_backward(name, g, h, weights, biases, t)
+    # got: dh, dW_0, db_0, dW_1, …; want: dh, dW_0, dW_1, …, db_0, db_1, …
+    order = [0] + [x for i in range(k) for x in (1 + i, 1 + k + i)]
+    for a, i in zip(got, order):
+        _close(a, want[i], 2e-5)
 
 
-def test_fused_function_and_counts(device):
-    heads, t, g = _case(device, 48, 16, 32, 70, torch.bfloat16, seed=2)
-    h = heads[0].reshape(3, 16, 32).clone().requires_grad_(True)
-    names = {"p": heads[1:3], "log_r": heads[3:5]}
+def _cp_case(device, m, m_t, hidden, f, t_dtype, round_h, seed=0):
+    h, (w,), (b,), t, g = _case(device, 1, m, m_t, hidden, f, t_dtype,
+                                seed=seed)
+    if round_h:
+        h = h.to(torch.bfloat16).float()
+    n = t.float().sum(-1).repeat(m // m_t) + 3.0
+    return h, w, b, t, n, g
+
+
+@pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("round_h", [False, True])
+def test_cp_kernels_match_plain(device, m, m_t, hidden, f, t_dtype, round_h):
+    h, w, b, t, n, g = _cp_case(device, m, m_t, hidden, f, t_dtype, round_h)
+    ll, lse = ops.cp_forward(h, w, b, t, n)
+    ll_ref, lse_ref = ops.reference_cp_forward(h, w, b, t, n)
+    _close(ll, ll_ref, 2e-5)
+    _close(lse, lse_ref, 2e-5)
+    _close(ops.cp_backward_dh(g, h, w, b, t, lse),
+           ops.reference_cp_dh(g, h, w, b, t, lse_ref), 2e-5)
+    for a, b_ in zip(ops.cp_backward_dw(g, h, w, b, t, lse),
+                     ops.reference_cp_dw(g, h, w, b, t, lse_ref)):
+        _close(a, b_, 2e-5)
+
+
+@pytest.mark.parametrize("m,m_t,hidden,f", SHAPES)
+def test_cp_backward_matches_autograd(device, m, m_t, hidden, f):
+    h, w, b, t, n, g = _cp_case(device, m, m_t, hidden, f, torch.float32,
+                                False, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (h, w, b)]
+    ll, _ = ops.reference_cp_forward(*leaves, t, n)
+    want = torch.autograd.grad(ll, leaves, grad_outputs=g)
+    _, lse = ops.cp_forward(h, w, b, t, n)
+    got = (ops.cp_backward_dh(g, h, w, b, t, lse),
+           *ops.cp_backward_dw(g, h, w, b, t, lse))
+    for a, b_ in zip(got, want):
+        _close(a, b_, 2e-5)
+
+
+@pytest.mark.parametrize("hidden", [580, 584, 1024])
+@pytest.mark.parametrize("name", ["negative binomial",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+@pytest.mark.parametrize("compute", [None, torch.bfloat16])
+def test_wide_decoder(device, name, hidden, compute):
+    """Decoder widths past one hidden chunk: the kernels' shared memory does
+    not grow with H (the first NB kernels were refused from H = 584)."""
+    if name == "constrained poisson":
+        h, w, b, t, n, g = _cp_case(device, 40, 40, hidden, 301,
+                                    torch.bfloat16, compute is not None,
+                                    seed=3)
+        ll, lse = ops.cp_forward(h, w, b, t, n)
+        ll_ref, lse_ref = ops.reference_cp_forward(h, w, b, t, n)
+        _close(ll, ll_ref, 2e-5)
+        got = (ops.cp_backward_dh(g, h, w, b, t, lse),
+               *ops.cp_backward_dw(g, h, w, b, t, lse))
+        want = (ops.reference_cp_dh(g, h, w, b, t, lse_ref),
+                *ops.reference_cp_dw(g, h, w, b, t, lse_ref))
+        for a, b_ in zip(got, want):
+            _close(a, b_, 2e-5)
+        return
+    h, weights, biases, t, g = _family_case(device, name, 40, 40, hidden, 301,
+                                            torch.bfloat16, seed=3)
+    _check_family(name, h, weights, biases, t, g, compute)
+
+
+@pytest.mark.parametrize("name", FAMILIES + ["constrained poisson"])
+def test_fused_function_and_counts(device, name):
+    heads_names = ("lambda",) if name == "constrained poisson" else (
+        ops.FAMILIES[name].heads)
+    h, weights, biases, t, g = _case(device, len(heads_names), 48, 16, 32, 70,
+                                     torch.bfloat16, seed=2)
+    h = h.reshape(3, 16, 32).clone().requires_grad_(True)
     params = {k: {"kernel": w.clone().requires_grad_(True),
                   "bias": b.clone().requires_grad_(True)}
-              for k, (w, b) in names.items()}
+              for k, w, b in zip(heads_names, weights, biases)}
+    count_sum = t.float().sum(-1, keepdim=True) + 1.0
     ops.reset_launch_counts()
-    out = ops.fused_log_likelihood("negative binomial", h, params, t,
+    out = ops.fused_log_likelihood(name, h, params, t, count_sum=count_sum,
                                    compute_dtype=torch.bfloat16)
     assert out.shape == (3, 16)
     out.backward(g.reshape(3, 16))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"gather_rows": 0, "nb_forward": 1,
-                                   "nb_backward_dh": 1, "nb_backward_dw": 1}
+    prefix = "cp" if name == "constrained poisson" else ops.FAMILIES[name].prefix
+    counts = ops.launch_counts()
+    launched = {k for k, v in counts.items() if v}
+    assert launched == {f"{prefix}_{kernel}" for kernel in
+                        ("forward", "backward_dh", "backward_dw")}
+    assert all(counts[k] == 1 for k in launched)
     assert torch.isfinite(h.grad).all()
-    with pytest.raises(ValueError):
-        ops.nb_forward(heads[0], *heads[1:], t[:5])  # 48 rows over 5 targets
+    h2 = h.detach().reshape(48, 32)
+    with pytest.raises(ValueError):  # 48 rows over 5 targets
+        if name == "constrained poisson":
+            ops.cp_forward(h2, weights[0], biases[0], t[:5],
+                           count_sum.repeat(3, 1)[:, 0])
+        else:
+            ops.fused_forward(name, h2, weights, biases, t[:5])

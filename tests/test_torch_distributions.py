@@ -1,8 +1,9 @@
 """The port's distributions against the JAX package's on the same inputs:
-support clipping (with its zero gradient outside the support), NB and
-Normal log_prob / mean / variance, the analytic Normal KL, and name
-parsing.  Both compute the same float32 formulas: rtol 1e-6 with an
-absolute floor of 1e-6 · max|reference| for values near zero."""
+support clipping (with its zero gradient outside the support), Poisson, NB,
+their zero-inflated forms, the constrained-Poisson composition and Normal
+log_prob / mean / variance, the analytic Normal KL, and name parsing.  Both
+compute the same float32 formulas: rtol 1e-6 with an absolute floor of
+1e-6 · max(1, max|reference|) for values near zero."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,10 @@ def assert_close(ours, ref, rtol=1e-6):
 @pytest.mark.parametrize(
     "dist,param",
     [("negative binomial", "p"), ("negative binomial", "log_r"),
-     ("gaussian", "log_sigma"), ("gaussian", "mu")],
+     ("gaussian", "log_sigma"), ("gaussian", "mu"),
+     ("poisson", "log_lambda"), ("zero-inflated poisson", "pi"),
+     ("zero-inflated negative binomial", "pi"),
+     ("constrained poisson", "lambda")],
 )
 def test_constrain_and_gradient(dist, param):
     raw = np.concatenate([
@@ -66,6 +70,86 @@ def test_negative_binomial_matches_jax():
     assert_close(ours.variance(), ref.variance())
 
 
+def _assert_same(ours, ref, x):
+    assert_close(ours.log_prob(torch.from_numpy(x)), ref.log_prob(jnp.asarray(x)))
+    assert_close(ours.mean(), ref.mean())
+    assert_close(ours.variance(), ref.variance())
+
+
+def test_poisson_matches_jax():
+    rng = np.random.RandomState(2)
+    log_rate = rng.uniform(-10, 10, (7, 40)).astype(np.float32)
+    x = rng.poisson(3.0, (7, 40)).astype(np.float32)  # zeros included
+    _assert_same(td.Poisson(torch.from_numpy(log_rate)),
+                 jd.Poisson(log_rate=jnp.asarray(log_rate)), x)
+
+
+def _clip_edges(values, lo, hi):
+    """The first columns at the clip edges of a support."""
+    values[:, 0], values[:, 1] = lo, hi
+    return values
+
+
+@pytest.mark.parametrize("base", ["poisson", "negative binomial"])
+def test_zero_inflated_matches_jax(base):
+    """t = 0 and t > 0 branches, with π, p and log r at their clip edges."""
+    from scvae_tpu.distributions.zero_inflated import ZeroInflated
+
+    tiny = float(np.finfo(np.float32).tiny)
+    p_hi = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    l_lo = float(np.nextafter(np.float32(-10.0), np.float32(np.inf)))
+    l_hi = float(np.nextafter(np.float32(10.0), np.float32(-np.inf)))
+    r, p, x = _nb_case(seed=3)
+    rng = np.random.RandomState(4)
+    pi = _clip_edges(rng.uniform(0.01, 0.99, r.shape).astype(np.float32),
+                     tiny, p_hi)
+    x[::2] = 0.0
+    if base == "poisson":
+        log_rate = _clip_edges(rng.uniform(-10, 10, r.shape).astype(np.float32),
+                               l_lo, l_hi)
+        ours = td.ZeroInflated(td.Poisson(torch.from_numpy(log_rate)),
+                               torch.from_numpy(pi))
+        ref = ZeroInflated(dist=jd.Poisson(log_rate=jnp.asarray(log_rate)),
+                           pi=jnp.asarray(pi))
+    else:
+        r = _clip_edges(r, float(np.exp(np.float32(l_lo))),
+                        float(np.exp(np.float32(l_hi))))
+        p = _clip_edges(p, tiny, p_hi)
+        ours = td.ZeroInflated(
+            td.NegativeBinomial(torch.from_numpy(r), torch.from_numpy(p)),
+            torch.from_numpy(pi))
+        ref = ZeroInflated(
+            dist=jd.NegativeBinomial(total_count=jnp.asarray(r),
+                                     probs=jnp.asarray(p)),
+            pi=jnp.asarray(pi))
+    _assert_same(ours, ref, x)
+
+
+@pytest.mark.parametrize("name", ["poisson", "zero-inflated poisson",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+def test_registry_build_matches_jax(name):
+    """Heads → constrain → build (with the count sum for the constrained
+    Poisson: Poisson(log(clip(softmax(a))·n))) → log_prob."""
+    rng = np.random.RandomState(6)
+    raw = {param: rng.uniform(-15, 15, (5, 30)).astype(np.float32)
+           for param in jd.DISTRIBUTIONS[name].parameters}
+    x = rng.poisson(2.0, (5, 30)).astype(np.float32)
+    count_sum = (x.sum(-1, keepdims=True) + 1.0).astype(np.float32)
+    j_spec, t_spec = jd.DISTRIBUTIONS[name], td.DISTRIBUTIONS[name]
+    assert t_spec.uses_count_sum == j_spec.uses_count_sum
+    assert list(t_spec.parameters) == list(j_spec.parameters)
+    ref = j_spec.build(
+        {k: j_spec.parameters[k].constrain(jnp.asarray(v)) for k, v in raw.items()},
+        count_sum=jnp.asarray(count_sum))
+    ours = t_spec.build(
+        {k: t_spec.parameters[k].constrain(torch.from_numpy(v))
+         for k, v in raw.items()},
+        count_sum=torch.from_numpy(count_sum))
+    assert_close(ours.log_prob(torch.from_numpy(x)),
+                 ref.log_prob(jnp.asarray(x)))
+
+
 def test_normal_matches_jax():
     rng = np.random.RandomState(1)
     loc = rng.randn(5, 3).astype(np.float32)
@@ -90,8 +174,11 @@ def test_parse_distribution():
     for alias in ("gaussian", "unit-variance gaussian"):
         assert td.parse_distribution(alias, "VAE") == jd.parse_distribution(
             alias, "VAE")
+    for alias in ("poisson", "Zero-Inflated Poisson", "constrained_poisson",
+                  "zero-inflated negative binomial"):
+        assert td.parse_distribution(alias) == jd.parse_distribution(alias)
     with pytest.raises(NotImplementedError):
-        td.parse_distribution("zero-inflated poisson")
+        td.parse_distribution("bernoulli")
     with pytest.raises(NotImplementedError):
         td.parse_distribution("gaussian mixture", "GMVAE")
     with pytest.raises(ValueError):

@@ -1,11 +1,13 @@
-"""The fused NB likelihood (kernels K2 / K3; the CPU runs their plain
-versions through ``FusedNBLogLikelihood``) against the JAX package's
+"""The fused likelihood of every base family — Poisson, NB, ZIP, ZINB
+(kernels K2 / K3; the CPU runs their plain versions through
+``FusedLogLikelihood``) — against the JAX package's
 ``fused_log_likelihood`` and its VJP, the Pallas kernels in interpret mode.
 
 Tolerances: float32 compute rtol 1e-5 (sums in another order); bf16 compute
 rtol 2e-3 (h, W and da rounded to bf16 on both sides, a few products land on
 a neighbouring bf16 value).  Absolute floors are the same fraction of the
-largest |reference| value, for gradient entries near zero."""
+largest |reference| value, for gradient entries near zero.  Elementwise
+pieces: rtol 1e-6 (the same float32 formulas)."""
 
 import jax
 import jax.numpy as jnp
@@ -18,21 +20,25 @@ from scvae_tpu.ops import fused_likelihood as jfl
 from scvae_tpu_torch import ops
 
 HIDDEN, F = 20, 600  # F not a multiple of the TPU kernel's 512-gene tile
+FAMILIES = list(ops.FAMILIES)
+JAX_GRADS = {"poisson": jfl._poisson_grad, "negative binomial": jfl._nb_grads,
+             "zero-inflated poisson": jfl._zip_grads,
+             "zero-inflated negative binomial": jfl._zinb_grads}
 
 
-def _case(m=40, m_t=None, seed=0):
+def _case(name, m=40, m_t=None, seed=0):
     rng = np.random.RandomState(seed)
     m_t = m if m_t is None else m_t
     h = np.maximum(rng.randn(m, HIDDEN), 0.0).astype(np.float32)
     limit = np.sqrt(6.0 / (HIDDEN + F))
     heads = {
-        name: {
+        head: {
             "kernel": rng.uniform(-limit, limit, (HIDDEN, F)).astype(np.float32) * 3,
             "bias": (0.3 * rng.randn(F)).astype(np.float32),
         }
-        for name in ("p", "log_r")
+        for head in ops.FAMILIES[name].heads
     }
-    t = rng.poisson(2.0, (m_t, F)).astype(np.float32)
+    t = rng.poisson(2.0, (m_t, F)).astype(np.float32)  # 13% zeros
     g = rng.randn(m).astype(np.float32)
     return h, heads, t, g
 
@@ -61,16 +67,17 @@ def assert_close(ours, ref, rtol):
     )
 
 
+@pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("compute", [None, "bf16"])
 @pytest.mark.parametrize("include_const", [True, False])
-def test_forward_and_vjp_match_jax_interpret(compute, include_const):
-    h, heads, t, g = _case()
+def test_forward_and_vjp_match_jax_interpret(name, compute, include_const):
+    h, heads, t, g = _case(name)
     jax_dtype = None if compute is None else jnp.bfloat16
     torch_dtype = None if compute is None else torch.bfloat16
 
     def jax_loss(h_, heads_):
         return jfl.fused_log_likelihood(
-            "negative binomial", h_, heads_, jnp.asarray(t),
+            name, h_, heads_, jnp.asarray(t),
             compute_dtype=jax_dtype, include_lgamma_const=include_const,
         )
 
@@ -81,68 +88,90 @@ def test_forward_and_vjp_match_jax_interpret(compute, include_const):
     h_t = torch.from_numpy(h).requires_grad_(True)
     heads_t = _torch_heads(heads, requires_grad=True)
     out = ops.fused_log_likelihood(
-        "negative binomial", h_t, heads_t, torch.from_numpy(t),
+        name, h_t, heads_t, torch.from_numpy(t),
         compute_dtype=torch_dtype, include_lgamma_const=include_const,
     )
     rtol = _tols(compute)
     assert_close(out, ref, rtol)
-    leaves = [h_t] + [heads_t[n][k] for n in ("p", "log_r") for k in ("kernel", "bias")]
+    names = ops.FAMILIES[name].heads
+    leaves = [h_t] + [heads_t[n][k] for n in names for k in ("kernel", "bias")]
     grads = torch.autograd.grad(out, leaves, grad_outputs=torch.from_numpy(g))
-    refs = [ref_dh] + [ref_dheads[n][k] for n in ("p", "log_r")
+    refs = [ref_dh] + [ref_dheads[n][k] for n in names
                        for k in ("kernel", "bias")]
     for ours, want in zip(grads, refs):
         assert_close(ours, want, rtol)
 
 
-def test_shared_targets_cycle_rows():
+@pytest.mark.parametrize("name", FAMILIES)
+def test_shared_targets_cycle_rows(name):
     """h with a leading sample axis (S, B, H) against t (B, F): rows cycle
     over the shared targets, as in the JAX package."""
-    h, heads, t, _ = _case(m=2 * 16, m_t=16, seed=3)
+    h, heads, t, _ = _case(name, m=2 * 16, m_t=16, seed=3)
     h3 = h.reshape(2, 16, HIDDEN)
     ref = jfl.reference_log_likelihood(
-        "negative binomial", jnp.asarray(h3), _jax_heads(heads),
-        jnp.asarray(t)[None],
+        name, jnp.asarray(h3), _jax_heads(heads), jnp.asarray(t)[None],
     )
     with pltpu.force_tpu_interpret_mode():
         fused = jfl.fused_log_likelihood(
-            "negative binomial", jnp.asarray(h3), _jax_heads(heads),
-            jnp.asarray(t),
+            name, jnp.asarray(h3), _jax_heads(heads), jnp.asarray(t),
         )
     out = ops.fused_log_likelihood(
-        "negative binomial", torch.from_numpy(h3), _torch_heads(heads),
-        torch.from_numpy(t),
+        name, torch.from_numpy(h3), _torch_heads(heads), torch.from_numpy(t),
     )
     assert out.shape == (2, 16)
     assert_close(out, ref, 1e-5)
     assert_close(out, fused, 1e-5)
+    unfused = ops.reference_log_likelihood(
+        name, torch.from_numpy(h3), _torch_heads(heads),
+        torch.from_numpy(t)[None],
+    )
+    assert_close(unfused, ref, 1e-5)
 
 
-def test_elementwise_grads_match_jax():
+@pytest.mark.parametrize("name", FAMILIES)
+def test_elementwise_grads_match_jax(name):
+    """ll and its gradients per element, across and beyond every clip
+    range, with a third of the targets zero (the zero-inflated branch)."""
     rng = np.random.RandomState(5)
-    a_p = rng.uniform(-30, 30, 500).astype(np.float32)
-    a_r = rng.uniform(-12, 12, 500).astype(np.float32)
-    t = rng.poisson(4.0, 500).astype(np.float32)
-    ours = ops.reference_nb_grads(*(torch.from_numpy(a) for a in (a_p, a_r, t)))
-    ref = jfl._nb_grads(jnp.asarray(a_p), jnp.asarray(a_r), jnp.asarray(t))
-    for o, r in zip(ours, ref):
+    n_heads = len(ops.FAMILIES[name].heads)
+    acts = [rng.uniform(-30, 30, 600).astype(np.float32)
+            for _ in range(n_heads)]
+    acts[-1] = rng.uniform(-12, 12, 600).astype(np.float32)  # log λ / log r
+    t = rng.poisson(4.0, 600).astype(np.float32)
+    t[::3] = 0.0
+    fam = ops.FAMILIES[name]
+    ours = fam.grads(*(torch.from_numpy(a) for a in acts), torch.from_numpy(t))
+    ref = JAX_GRADS[name](*(jnp.asarray(a) for a in acts), jnp.asarray(t))
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(ours, ref, strict=True):
         assert_close(o, r, 1e-6)
-    # zero outside the clip ranges
-    outside = (a_r <= -10) | (a_r >= 10)
-    assert np.all(ours[1].numpy()[outside] == 0.0)
+    packed = jfl._BASE_LL[name](tuple(jnp.asarray(a) for a in acts),
+                                jnp.asarray(t))
+    assert_close(fam.ll(*(torch.from_numpy(a) for a in acts),
+                        torch.from_numpy(t)), packed, 1e-6)
+    # zero outside the clip range of the last head (log λ or log r)
+    outside = (acts[-1] <= -10) | (acts[-1] >= 10)
+    assert np.all(ours[-1].numpy()[outside] == 0.0)
 
 
-def test_cpu_wrappers_are_the_plain_versions():
-    h, heads, t, g = _case(m=8)
-    args = [torch.from_numpy(x) for x in (
-        h, heads["p"]["kernel"], heads["p"]["bias"],
-        heads["log_r"]["kernel"], heads["log_r"]["bias"], t)]
+@pytest.mark.parametrize("name", FAMILIES)
+def test_cpu_wrappers_are_the_plain_versions(name):
+    h, heads, t, g = _case(name, m=8)
+    names = ops.FAMILIES[name].heads
+    h_, t_, g_ = (torch.from_numpy(x) for x in (h, t, g))
+    ws = [torch.from_numpy(heads[n]["kernel"]) for n in names]
+    bs = [torch.from_numpy(heads[n]["bias"]) for n in names]
     before = dict(ops.launch_counts())
-    fwd = ops.nb_forward(*args, compute_dtype=torch.bfloat16)
-    assert torch.equal(fwd, ops.reference_nb_log_likelihood(
-        *args, compute_dtype=torch.bfloat16))
-    back = ops.nb_backward(torch.from_numpy(g), *args)
-    for a, b in zip(back, ops.reference_nb_backward(torch.from_numpy(g), *args)):
+    fwd = ops.fused_forward(name, h_, ws, bs, t_, compute_dtype=torch.bfloat16)
+    assert torch.equal(fwd, ops.reference_forward(
+        name, h_, ws, bs, t_, compute_dtype=torch.bfloat16))
+    back = ops.fused_backward(name, g_, h_, ws, bs, t_)
+    want = ops.reference_backward(name, g_, h_, ws, bs, t_)
+    assert len(back) == len(want) == 1 + 2 * len(names)
+    for a, b in zip(back, want):
         assert torch.equal(a, b)
     assert ops.launch_counts() == before
-    with pytest.raises(NotImplementedError):
-        ops.fused_log_likelihood("poisson", args[0], {}, args[-1])
+    with pytest.raises(ValueError):
+        ops.fused_log_likelihood("bernoulli", h_, {}, t_)
+    with pytest.raises(ValueError):  # one head short
+        ops.fused_forward(name, h_, ws[:-1], bs[:-1], t_)

@@ -1,7 +1,9 @@
 """Device-resident staging in the port against the JAX package's decisions:
 the narrowest exact count dtype, which fields may come out of the gather as
-bf16, and the staged per-row Σ lgamma(1+t) constants (rtol 1e-6: the same
-float32 series on both sides, summed in another order)."""
+bf16, the model's fields (with the per-cell count sums of the constrained
+Poisson), and the staged per-row Σ lgamma(1+t) constants (rtol 1e-6: the
+same float32 series on both sides, summed in another order), which the
+constrained Poisson does not use."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,12 +11,13 @@ import pytest
 import scipy.sparse
 import torch
 
+from scvae_tpu.data import dataset as jdataset
 from scvae_tpu.data import pipeline as jpipeline
 from scvae_tpu.models import api as japi
 from scvae_tpu.models import vae as jvae
 from scvae_tpu.ops import force_pallas
 from scvae_tpu.ops.special import lgamma as jlgamma
-from scvae_tpu_torch.data import pipeline
+from scvae_tpu_torch.data import DataSet, pipeline
 from scvae_tpu_torch.models import api
 from scvae_tpu_torch.models import vae as tvae
 
@@ -56,7 +59,44 @@ def test_device_staging_and_row_constants():
     floats = pipeline.device_resident_data(
         {"x": CASES["non-integral"]}, device="cpu")["x"]
     assert floats.dtype == torch.float32
-    rowsum = api._append_lgamma_rowsum(data, chunk=16)["t_lgamma_rowsum"]
+    config = tvae.VAEConfig(feature_size=12,
+                            reconstruction_distribution="negative binomial")
+    rowsum = api._append_lgamma_rowsum(data, config, chunk=16)["t_lgamma_rowsum"]
     ref = jnp.sum(jlgamma(1.0 + jnp.asarray(values.toarray())), axis=-1)
     np.testing.assert_allclose(rowsum.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["poisson", "zero-inflated poisson",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+@pytest.mark.parametrize("case", ["small counts", "sparse counts"])
+def test_model_arrays_and_row_constants_match_jax(name, case):
+    """``build_model_arrays``: the count sums (N, 1) float32 only for the
+    constrained Poisson, equal to the JAX ``DataSet.count_sum``; and
+    ``_append_lgamma_rowsum`` stages its constants for every likelihood but
+    the constrained Poisson, as the JAX package does on its kernel path."""
+    values = CASES[case]
+    jconfig = jvae.VAEConfig(feature_size=12, reconstruction_distribution=name)
+    tconfig = tvae.VAEConfig(feature_size=12, reconstruction_distribution=name)
+    assert tconfig.use_count_sum_as_parameter == (
+        jconfig.use_count_sum_as_parameter)
+    ref = jpipeline.build_model_arrays(
+        jdataset.DataSet("test", values=values),
+        use_count_sum_as_parameter=jconfig.use_count_sum_as_parameter)
+    ours = pipeline.build_model_arrays(
+        DataSet(values), use_count_sum_as_parameter=(
+            tconfig.use_count_sum_as_parameter))
+    assert set(ours) == set(ref)
+    if "count_sum" in ref:
+        assert ours["count_sum"].dtype == ref["count_sum"].dtype == np.float32
+        np.testing.assert_array_equal(ours["count_sum"], ref["count_sum"])
+    data = pipeline.device_resident_data(ours, device="cpu")
+    staged = api._append_lgamma_rowsum(data, tconfig)
+    with force_pallas():
+        ref_staged = japi._append_lgamma_rowsum(
+            {k: jnp.asarray(np.asarray(v.todense() if hasattr(v, "todense")
+                                       else v)) for k, v in ref.items()},
+            jconfig)
+    assert ("t_lgamma_rowsum" in staged) == ("t_lgamma_rowsum" in ref_staged)
+    assert ("t_lgamma_rowsum" in staged) == (name != "constrained poisson")

@@ -37,3 +37,18 @@ def test_matches_torch_builtin(name):
     ours = getattr(special, name)(x)
     ref = getattr(torch, name)(x.double()).float()
     np.testing.assert_allclose(ours.numpy(), ref.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_logaddexp_matches_jax():
+    """Finite pairs over a wide range, and the infinities and NaN that the
+    zero-inflated likelihoods' t = 0 branch can meet."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-100, 100, 200).astype(np.float32)
+    y = rng.uniform(-100, 100, 200).astype(np.float32)
+    edges = np.array([-np.inf, np.inf, np.nan, 0.0, -np.inf, 3.0],
+                     np.float32)
+    x = np.concatenate([x, edges, edges[::-1]])
+    y = np.concatenate([y, edges[::-1], edges])
+    ours = special.logaddexp(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    ref = np.asarray(jnp.logaddexp(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)

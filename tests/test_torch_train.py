@@ -6,7 +6,7 @@
   path against JAX's unfused one);
 * ``epoch_permutation`` gives the JAX package's minibatch order;
 * ``VariationalAutoencoder(...).train(..., device="cpu")`` gives a finite,
-  rising ELBO;
+  rising ELBO with every ported likelihood;
 * the package imports with JAX blocked and imports neither JAX nor
   ``scvae_tpu``; entry points need CUDA unless ``device="cpu"``.
 """
@@ -125,11 +125,15 @@ def test_warm_up_weight_matches_jax():
                 jobjectives.warm_up_weight(epoch, warm_up))
 
 
-def test_train_on_cpu_rises():
+@pytest.mark.parametrize("name", ["negative binomial", "poisson",
+                                  "zero-inflated poisson",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+def test_train_on_cpu_rises(name):
     x = np.random.RandomState(0).poisson(2.0, (256, 40)).astype(np.float32)
     model = VariationalAutoencoder(
         feature_size=40, latent_size=4, hidden_sizes=[16, 16],
-        reconstruction_distribution="negative binomial", learning_rate=1e-3,
+        reconstruction_distribution=name, learning_rate=1e-3,
     )
     result = model.train(x, number_of_epochs=2, minibatch_size=64,
                          device="cpu", verbose=False)
@@ -155,8 +159,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(NotImplementedError):
         VariationalAutoencoder(feature_size=10, log_directory="models",
                                reconstruction_distribution="negative binomial")
-    with pytest.raises(NotImplementedError):  # the reference default, Poisson
-        VariationalAutoencoder(feature_size=10)
+    # the reference default, Poisson, is ported
+    assert VariationalAutoencoder(feature_size=10).config.reconstruction_distribution == "poisson"
+    with pytest.raises(NotImplementedError):
+        VariationalAutoencoder(feature_size=10,
+                               reconstruction_distribution="bernoulli")
 
 
 def _package_modules():

@@ -1,35 +1,57 @@
 """The port's VAE objective against the JAX package's, with the same
 parameters (moved with ``params_from_jax``) and the JAX model's own
-standard-normal draws injected as the port's z noise.
+standard-normal draws injected as the port's z noise, for every ported
+reconstruction likelihood.  The JAX side's training objective runs its
+fused Pallas kernels in interpret mode.
 
 Tolerances (PARITY.md §1): ELBO and reconstruction term rtol 2e-4, KL rtol
 2e-3; batch-norm running statistics and z rtol 1e-5."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from scvae_tpu.models import vae as jvae
+from scvae_tpu.ops import force_pallas
 from scvae_tpu_torch import params as tparams
 from scvae_tpu_torch.models import networks
 from scvae_tpu_torch.models import vae as tvae
 from scvae_tpu_torch.ops import special
 
 F, LATENT, HIDDEN, B = 30, 4, (16, 12), 24
+LIKELIHOODS = ("negative binomial", "poisson", "zero-inflated poisson",
+               "zero-inflated negative binomial", "constrained poisson")
 
 
-def _configs(**kwargs):
+@contextlib.contextmanager
+def _jax_kernels():
+    """The JAX package's Pallas kernels, in interpret mode on the CPU."""
+    with force_pallas(), pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _configs(name="negative binomial", **kwargs):
     common = dict(
         feature_size=F, latent_size=LATENT, hidden_sizes=HIDDEN,
-        reconstruction_distribution="negative binomial", **kwargs,
+        reconstruction_distribution=name, **kwargs,
     )
     return jvae.VAEConfig(**common), tvae.VAEConfig(**common)
 
 
-def _setup(seed=0, **kwargs):
-    jconfig, tconfig = _configs(**kwargs)
+def _batch(x, framework):
+    """x, t and the per-cell count sums (B, 1) as one framework's arrays."""
+    to = jnp.asarray if framework == "jax" else torch.from_numpy
+    return {"x": to(x), "t": to(x),
+            "count_sum": to(x.sum(-1, keepdims=True).astype(np.float32))}
+
+
+def _setup(seed=0, name="negative binomial", **kwargs):
+    jconfig, tconfig = _configs(name, **kwargs)
     rng = jax.random.PRNGKey(seed)
     params, state = jvae.init(jconfig, rng)
     # non-trivial batch-norm statistics and offsets
@@ -62,19 +84,22 @@ def _compare(jm, tm):
     )
 
 
+@pytest.mark.parametrize("name", LIKELIHOODS)
 @pytest.mark.parametrize("training", [True, False])
 @pytest.mark.parametrize("n_iw", [1, 2])
-def test_elbo_terms_match_jax(training, n_iw):
-    jconfig, tconfig, params, state, x = _setup()
+def test_elbo_terms_match_jax(name, training, n_iw):
+    """Training: the fused path on both sides (the port's plain kernel
+    versions, JAX's kernels in interpret mode); evaluation: the unfused
+    registry path."""
+    jconfig, tconfig, params, state, x = _setup(name=name)
     rng = jax.random.PRNGKey(7)
-    batch = {"x": jnp.asarray(x), "t": jnp.asarray(x)}
-    jm, jout = jvae.elbo_terms(jconfig, params, state, batch, rng,
-                               training=training, n_iw=n_iw,
-                               warm_up_weight=0.5)
+    with _jax_kernels() if training else contextlib.nullcontext():
+        jm, jout = jvae.elbo_terms(jconfig, params, state, _batch(x, "jax"),
+                                   rng, training=training, n_iw=n_iw,
+                                   warm_up_weight=0.5)
     tp, ts = _port(params, state)
-    xt = torch.from_numpy(x)
     tm, tout = tvae.elbo_terms(
-        tconfig, tp, ts, {"x": xt, "t": xt}, None, training=training,
+        tconfig, tp, ts, _batch(x, "torch"), None, training=training,
         n_iw=n_iw, warm_up_weight=0.5,
         noise=torch.from_numpy(_jax_noise(rng, n_iw)),
     )
@@ -126,29 +151,73 @@ def test_bf16_training_objective_and_gradients_match_jax(n_iw):
     assert err <= 5e-3, err
 
 
-def test_staged_row_constant_matches_in_kernel_constant():
+@pytest.mark.parametrize("name", LIKELIHOODS)
+def test_staged_row_constant_matches_in_kernel_constant(name):
     """The training path with Σ lgamma(1+t) staged per row gives the same
-    objective as the path that subtracts it inside the likelihood."""
-    _, tconfig, params, state, x = _setup(seed=2)
+    objective as the path that subtracts it inside the likelihood; the
+    constrained Poisson's kernel keeps its own constant, so the staged one
+    must not be applied to it a second time."""
+    _, tconfig, params, state, x = _setup(seed=2, name=name)
     tp, ts = _port(params, state)
-    xt = torch.from_numpy(x)
     noise = torch.from_numpy(np.random.RandomState(3).randn(1, B, LATENT)
                              .astype(np.float32))
-    plain, _ = tvae.elbo_terms(tconfig, tp, ts, {"x": xt, "t": xt}, None,
+    plain, _ = tvae.elbo_terms(tconfig, tp, ts, _batch(x, "torch"), None,
                                training=True, noise=noise)
-    staged, _ = tvae.elbo_terms(
-        tconfig, tp, ts,
-        {"x": xt, "t": xt,
-         "t_lgamma_rowsum": torch.sum(special.lgamma(1.0 + xt), dim=-1)},
-        None, training=True, noise=noise,
-    )
+    batch = _batch(x, "torch")
+    batch["t_lgamma_rowsum"] = torch.sum(special.lgamma(1.0 + batch["t"]),
+                                         dim=-1)
+    staged, _ = tvae.elbo_terms(tconfig, tp, ts, batch, None, training=True,
+                                noise=noise)
     for key in ("lower_bound", "reconstruction_error"):
         np.testing.assert_allclose(float(staged[key]), float(plain[key]),
                                    rtol=1e-6)
 
 
-def test_params_round_trip_and_keystr_names():
-    jconfig, _, params, state, _ = _setup()
+@pytest.mark.parametrize("n_iw", [1, 2])
+def test_constrained_poisson_bf16_objective_and_gradients_match_jax(n_iw):
+    """bf16 training with the constrained Poisson against JAX with its
+    kernels forced on (interpret mode), so that the JAX side runs
+    ``_cp_fused_forward`` / ``_cp_fused_backward`` on the bf16 decoder
+    output with float32 weights.  The port's batch also carries the staged
+    Σ lgamma(1+t), which the constrained Poisson must ignore.  Tolerances as
+    the bf16 test above."""
+    name = "constrained poisson"
+    jconfig, tconfig, params, state, x = _setup(seed=5, name=name,
+                                                precision="bfloat16")
+    rng = jax.random.PRNGKey(13)
+
+    def jax_loss(p):
+        return jvae.loss_fn(jconfig, p, state, _batch(x, "jax"), rng,
+                            n_iw=n_iw, warm_up_weight=0.5)
+
+    with _jax_kernels():
+        (_, (jm, _)), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+    tp, ts = _port(params, state)
+    named = tparams.flatten(tp)
+    leaves = [leaf.requires_grad_(True) for leaf in named.values()]
+    batch = _batch(x, "torch")
+    batch["t_lgamma_rowsum"] = torch.sum(special.lgamma(1.0 + batch["t"]),
+                                         dim=-1)
+    loss, (tm, _) = tvae.loss_fn(
+        tconfig, tp, ts, batch, None, n_iw=n_iw, warm_up_weight=0.5,
+        noise=torch.from_numpy(_jax_noise(rng, n_iw)),
+    )
+    _compare(jm, {k: v.detach() for k, v in tm.items()})
+    ref = tparams.flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    assert list(ref) == list(named)
+    want = np.concatenate([np.ravel(g) for g in ref.values()])
+    got = torch.cat([g.ravel() for g in torch.autograd.grad(loss, leaves)])
+    err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert err <= 5e-3, err
+
+
+@pytest.mark.parametrize("name", ["negative binomial",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+def test_params_round_trip_and_keystr_names(name):
+    jconfig, _, params, state, _ = _setup(name=name)
+    assert set(params["reconstruction"]) == set(
+        jconfig.reconstruction_spec.parameters)
     flat_jax = {
         jax.tree_util.keystr(path): np.asarray(leaf)
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
@@ -179,8 +248,14 @@ def test_unported_options_raise():
             tvae.VAEConfig(feature_size=F,
                            reconstruction_distribution="negative binomial",
                            **kwargs)
-    with pytest.raises(NotImplementedError):
-        tvae.VAEConfig(feature_size=F, reconstruction_distribution="poisson")
+    for name in ("poisson", "zero-inflated poisson",
+                 "zero-inflated negative binomial"):  # categorised heads
+        with pytest.raises(NotImplementedError):
+            tvae.VAEConfig(feature_size=F, reconstruction_distribution=name,
+                           number_of_reconstruction_classes=3)
+    for name in ("bernoulli", "lomax"):
+        with pytest.raises(NotImplementedError):
+            tvae.VAEConfig(feature_size=F, reconstruction_distribution=name)
     with pytest.raises(ValueError):  # as the JAX package's validation
         tvae.VAEConfig(feature_size=F, parameterise_latent_posterior=True)
 

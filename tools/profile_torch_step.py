@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of a training step goes in the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_step.py
+    python3 tools/profile_torch_step.py [LIKELIHOOD]
 
-Trains the headline VAE-NB of ``chip_smoke.py`` (68,579 × 2,048 synthetic
-counts, hidden (256, 256), latent 100, minibatch 2,048) for one warm-up
-epoch, then records the second epoch's 33 training steps with
+Trains the headline VAE of ``chip_smoke.py`` (68,579 × 2,048 synthetic
+counts, hidden (256, 256), latent 100, minibatch 2,048) with the
+reconstruction likelihood LIKELIHOOD (default "negative binomial"; any name
+the port trains, e.g. "zero-inflated negative binomial" or "constrained
+poisson") for one warm-up epoch, then records the second epoch's 33
+training steps with
 ``torch.profiler`` and prints, for that window: the wall time per step, the
 device time per step summed over kernels, the device-busy share, and the
 device time per step of the 15 largest kernels by name.  Needs one CUDA
@@ -14,6 +17,7 @@ device; prints the card's name and power limit with the numbers.
 
 from __future__ import annotations
 
+import argparse
 import pathlib
 import sys
 import time
@@ -29,6 +33,9 @@ from scvae_tpu_torch import VariationalAutoencoder  # noqa: E402
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("likelihood", nargs="?", default="negative binomial")
+    likelihood = parser.parse_args().likelihood
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 2
@@ -36,7 +43,7 @@ def main() -> int:
     model = VariationalAutoencoder(
         feature_size=chip_smoke.N_GENES, latent_size=chip_smoke.LATENT,
         hidden_sizes=[chip_smoke.HIDDEN] * 2,
-        reconstruction_distribution="negative binomial",
+        reconstruction_distribution=likelihood,
     )
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
@@ -59,13 +66,14 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in kernels)
     wall_ms = window["seconds"] * 1e3 / steps
-    print(f"card: {chip_smoke.card_line()}")
+    print(f"card: {chip_smoke.card_line()}; likelihood: {likelihood}")
     print(f"window: {steps} steps, wall {wall_ms:.4f} ms/step, device "
           f"{device_us / 1e3 / steps:.4f} ms/step, busy "
           f"{device_us / 1e3 / steps / wall_ms:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        name = e.key.replace("scvae::(anonymous namespace)::", "")
         print(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
-              f"{e.count / steps:6.1f}/step  {e.key[:90]}")
+              f"{e.count / steps:6.1f}/step  {name[:110]}")
     return 0
 
 
