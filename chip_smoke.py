@@ -10,15 +10,23 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 3. kernels — every kernel of the training paths against its plain PyTorch
              version on the same inputs at the headline shapes (68,579 cells ×
              2,048 genes, minibatch 2,048, decoder width 256) for every
-             likelihood family, and at decoder width 1,024; with its time, the
-             plain version's time and the least time the card could take;
-4. slice   — for each trained likelihood (Poisson, zero-inflated Poisson,
-             zero-inflated NB, constrained Poisson, NB): one training loss and
-             its gradients on the CPU (plain versions) and on the GPU (kernels)
-             from the same small input, then ``VariationalAutoencoder(...)
-             .train(...)`` at the headline width for two epochs: a finite,
-             rising ELBO, and each of the family's kernels launched once per
-             training step, the row gather at least once.
+             likelihood family, the categorised instances with 14 heads (ZINB,
+             K = 10) and with the cap of 32 (Poisson, K = 30), NB's K2/K3 over
+             the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
+             cycled target rows, and at decoder width 1,024; with its time,
+             the plain version's time and the least time the card could take;
+4. slice   — for each trained configuration, the headline VAE with each
+             likelihood (Poisson, zero-inflated Poisson, zero-inflated NB,
+             constrained Poisson, NB), VAE-ZINB-cat (K = 10 classes, 14 heads),
+             VAE-Poisson-cat (K = 30, 32 heads) and GMVAE-NB (10 clusters): one
+             training loss and its gradients on the CPU (plain versions) and
+             on the GPU (kernels) from the same small input, then
+             ``VariationalAutoencoder(...).train(...)`` or
+             ``GaussianMixtureVariationalAutoencoder(...).train(...)`` at the
+             headline width for two epochs: a finite, rising ELBO, and each of
+             the configuration's likelihood kernels launched exactly once per
+             training step (GMVAE-NB: once over all clusters, not K times),
+             no other likelihood kernel, the row gather at least once.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -38,8 +46,22 @@ import torch
 N_CELLS, N_GENES, HIDDEN, LATENT, BATCH = 68_579, 2_048, 256, 100, 2_048
 WIDE_HIDDEN = 1_024
 EPOCHS = 2
-TRAINED = ("poisson", "zero-inflated poisson", "zero-inflated negative binomial",
-           "constrained poisson", "negative binomial")
+CLUSTERS = 10  # GMVAE-NB: K·S·B = 20,480 decoder rows per step
+# The trained configurations: (label, model, reconstruction distribution,
+# reconstruction classes).
+TRAINED = (
+    ("poisson", "vae", "poisson", 0),
+    ("zero-inflated poisson", "vae", "zero-inflated poisson", 0),
+    ("zero-inflated negative binomial", "vae",
+     "zero-inflated negative binomial", 0),
+    ("constrained poisson", "vae", "constrained poisson", 0),
+    ("negative binomial", "vae", "negative binomial", 0),
+    ("VAE-ZINB-cat", "vae", "zero-inflated negative binomial", 10),
+    ("VAE-Poisson-cat", "vae", "poisson", 30),
+    ("GMVAE-NB", "gmvae", "negative binomial", 0),
+)
+# The categorised kernel checks: (base, K) with 14 and 32 heads.
+CATEGORISED = (("zero-inflated negative binomial", 10), ("poisson", 30))
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -63,6 +85,7 @@ AUTOGRAD_RTOL = 2e-5
 SOURCES = {
     "count": "scvae_tpu_torch/ops/csrc/count_likelihood.cu",
     "cp": "scvae_tpu_torch/ops/csrc/cp_likelihood.cu",
+    "cat": "scvae_tpu_torch/ops/csrc/categorised_likelihood.cu",
 }
 REPLACES = {
     "gather_rows": "scvae_tpu/ops/gather.py:223",
@@ -356,6 +379,164 @@ def check_cp(h, g, x, gen, flush):
     return results
 
 
+def check_categorised(name, k_max, h, g, x, gen, flush):
+    """The categorised K2 and both K3 passes over base ``name`` with K =
+    ``k_max``: the forward (row sums and the per-element lse; bf16 inputs
+    on the main path, ragged F, float32 inputs and targets), the bf16
+    backward against the plain backward with the same rounding (and ragged
+    F), and the float32 backward against autograd through the plain
+    forward; then their times."""
+    from scvae_tpu_torch import ops
+
+    bf16 = torch.bfloat16
+    fam = ops.FAMILIES[name]
+    n_base = len(fam.heads)
+    m, hidden = h.shape
+    f = x.shape[1]
+    ws, bs = head_weights(gen, n_base + k_max + 1, hidden, f, h.device)
+    cw, cb = torch.stack(ws[n_base:]), torch.stack(bs[n_base:])
+    ws, bs = ws[:n_base], bs[:n_base]
+    full = (ws, bs, cw, cb, x)
+    ragged = (_cut(ws, 2000), _cut(bs, 2000), cw[..., :2000].contiguous(),
+              cb[..., :2000].contiguous(), x[:, :2000].contiguous())
+    tag = f"cat_{fam.prefix}"
+    heads = f"{n_base + k_max + 1} heads"
+    for args, cdt in ((full, bf16), (ragged, bf16), (full, None),
+                      ((ws, bs, cw, cb, x.float()), bf16)):
+        ll, lse = ops.categorised_forward(name, h, *args, compute_dtype=cdt)
+        ll_ref, lse_ref = ops.reference_categorised_forward(
+            name, h, *args, compute_dtype=cdt)
+        label = (f"{tag}_forward {heads} F={args[-1].shape[1]} {cdt} "
+                 f"t={args[-1].dtype}")
+        err = check_close(label, ll, ll_ref, FORWARD_RTOL)
+        check_close(label + " lse", lse, lse_ref, FORWARD_RTOL)
+        if args is full and cdt is bf16:
+            fwd_err, lse_main = err, lse
+    parts = (["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
+             + ["dW_classes", "db_classes"])
+    # The backward on the same inputs, the forward's lse among them: an lse
+    # that differs in its last bit moves some da_c across a bf16 rounding
+    # boundary (one such flip read 5.5e-4 of the largest dW_classes).
+    for args in (full, ragged):
+        _, lse = ops.categorised_forward(name, h, *args, compute_dtype=bf16)
+        got = (ops.categorised_backward_dh(name, g, h, *args, lse,
+                                           compute_dtype=bf16),
+               *ops.categorised_backward_dw(name, g, h, *args, lse,
+                                            compute_dtype=bf16))
+        want = (ops.reference_categorised_dh(name, g, h, *args, lse,
+                                             compute_dtype=bf16),
+                *ops.reference_categorised_dw(name, g, h, *args, lse,
+                                              compute_dtype=bf16))
+        errs = [check_close(f"{tag}_backward {heads} {part} "
+                            f"F={args[-1].shape[1]}", a, b, BACKWARD_RTOL)
+                for part, a, b in zip(parts, got, want)]
+        if args is full:
+            dh_err, dw_err = errs[0], max(errs[1:])
+    leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs, cw, cb)]
+    ll, _ = ops.reference_categorised_forward(
+        name, leaves[0], leaves[1:1 + n_base], leaves[1 + n_base:1 + 2 * n_base],
+        leaves[-2], leaves[-1], x)
+    want = torch.autograd.grad(ll, leaves, grad_outputs=g)
+    _, lse = ops.categorised_forward(name, h, *full)
+    got = (ops.categorised_backward_dh(name, g, h, *full, lse),
+           *ops.categorised_backward_dw(name, g, h, *full, lse))
+    order = ([0] + [i for j in range(n_base) for i in (1 + j, 1 + n_base + j)]
+             + [1 + 2 * n_base, 2 + 2 * n_base])
+    for part, a, i in zip(parts, got, order):
+        check_close(f"{tag}_backward float32 {heads} {part} vs autograd", a,
+                    want[i], AUTOGRAD_RTOL)
+
+    n_heads = n_base + k_max + 1
+    fwd_flops = 2 * n_heads * m * hidden * f
+    head_bytes = n_heads * (hidden * f + f) * 4
+    in_bytes = m * hidden * 4 + head_bytes + m * f * 2
+    lse_bytes = m * f * 4
+    results = {}
+    t_bound, by = bound(in_bytes + m * 4 + lse_bytes, fwd_flops, BF16_FLOPS)
+    results[f"{tag}_forward"] = {
+        "max_abs_err": fwd_err,
+        "ms": time_ms(lambda: ops.categorised_forward(
+            name, h, *full, compute_dtype=bf16), flush=flush),
+        "plain_ms": time_ms(lambda: ops.reference_categorised_forward(
+            name, h, *full, compute_dtype=bf16), flush=flush),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+    }
+    bwd_in = in_bytes + m * 4 + lse_bytes  # and g, lse
+    for kernel, err, nbytes, fn, plain in (
+        ("backward_dh", dh_err, bwd_in + m * hidden * 4,
+         ops.categorised_backward_dh, ops.reference_categorised_dh),
+        ("backward_dw", dw_err, bwd_in + head_bytes,
+         ops.categorised_backward_dw, ops.reference_categorised_dw),
+    ):
+        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
+        results[f"{tag}_{kernel}"] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda fn=fn: fn(name, g, h, *full, lse_main,
+                                           compute_dtype=bf16), flush=flush),
+            "plain_ms": time_ms(lambda plain=plain: plain(
+                name, g, h, *full, lse_main, compute_dtype=bf16),
+                flush=flush),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
+    return results
+
+
+def check_cycled_rows(x, gen, flush):
+    """NB's K2 and both K3 passes as the GMVAE-NB step runs them: one launch
+    over its K·S·B = 20,480 decoder rows against the 2,048 target rows of
+    the minibatch, which cycle; bf16 inputs, the staged lgamma constant."""
+    from scvae_tpu_torch import ops
+
+    bf16 = torch.bfloat16
+    name = "negative binomial"
+    m_t, f = x.shape
+    m = CLUSTERS * m_t
+    h = torch.relu(torch.randn(m, HIDDEN, generator=gen, device=x.device))
+    g = torch.randn(m, generator=gen, device=x.device) / m_t
+    ws, bs = head_weights(gen, 2, HIDDEN, f, x.device)
+    kw = dict(compute_dtype=bf16)
+    fwd_err = check_close(
+        f"nb_forward M={m} over {m_t} target rows",
+        ops.fused_forward(name, h, ws, bs, x, include_lgamma_const=False, **kw),
+        ops.reference_forward(name, h, ws, bs, x, include_lgamma_const=False,
+                              **kw), FORWARD_RTOL)
+    got = ops.fused_backward(name, g, h, ws, bs, x, **kw)
+    want = ops.reference_backward(name, g, h, ws, bs, x, **kw)
+    errs = [check_close(f"nb_backward [{i}] M={m} over {m_t} target rows", a,
+                        b, BACKWARD_RTOL)
+            for i, (a, b) in enumerate(zip(got, want))]
+    fwd_flops = 2 * 2 * m * HIDDEN * f
+    head_bytes = 2 * (HIDDEN * f + f) * 4
+    fwd_bytes = m * HIDDEN * 4 + head_bytes + m_t * f * 2 + m * 4
+    t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+    results = {"nb_forward_cycled": {
+        "max_abs_err": fwd_err,
+        "ms": time_ms(lambda: ops.fused_forward(
+            name, h, ws, bs, x, include_lgamma_const=False, **kw),
+            flush=flush, reps=10),
+        "plain_ms": time_ms(lambda: ops.reference_forward(
+            name, h, ws, bs, x, include_lgamma_const=False, **kw),
+            flush=flush, reps=10),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+    }}
+    for kernel, err, nbytes, fn, plain in (
+        ("backward_dh", errs[0], fwd_bytes + m * HIDDEN * 4,
+         ops.fused_backward_dh, ops.reference_dh),
+        ("backward_dw", max(errs[1:]), fwd_bytes + head_bytes,
+         ops.fused_backward_dw, ops.reference_dw),
+    ):
+        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
+        results[f"nb_{kernel}_cycled"] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda fn=fn: fn(name, g, h, ws, bs, x, **kw),
+                          flush=flush, reps=10),
+            "plain_ms": time_ms(lambda plain=plain: plain(
+                name, g, h, ws, bs, x, **kw), flush=flush, reps=10),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
+    return results
+
+
 def check_wide(x, g, gen):
     """Decoder width 1,024 (four hidden chunks): NB, ZINB and the
     constrained Poisson against their plain versions.  The base families'
@@ -415,25 +596,34 @@ def phase_kernels(counts_dev):
     for name in ops.FAMILIES:
         results.update(check_family(name, h, g, x, gen, flush))
     results.update(check_cp(h, g, x, gen, flush))
+    for name, k_max in CATEGORISED:
+        results.update(check_categorised(name, k_max, h, g, x, gen, flush))
+    results.update(check_cycled_rows(x, gen, flush))
     check_wide(x, g, gen)
     torch.cuda.synchronize()
     return results
 
 
-def phase_small_step(name):
+def phase_small_step(label, model, name, k_max):
     """One training loss and its gradients from the same small input on the
     CPU (plain versions) and on the GPU (kernels), float32."""
-    from scvae_tpu_torch.models import step, vae
+    from scvae_tpu_torch.models import gmvae, step, vae
     from scvae_tpu_torch.ops import lgamma
 
-    config = vae.VAEConfig(
-        feature_size=300, latent_size=8, hidden_sizes=(32, 32),
-        reconstruction_distribution=name, precision="float32",
-    )
+    kwargs = dict(feature_size=300, latent_size=8, hidden_sizes=(32, 32),
+                  reconstruction_distribution=name,
+                  number_of_reconstruction_classes=k_max, precision="float32")
     rng = np.random.RandomState(0)
     x = rng.poisson(1.5, size=(64, 300)).astype(np.float32)
-    noise = rng.standard_normal((1, 64, 8)).astype(np.float32)
-    params, state = vae.init(config, torch.Generator().manual_seed(0))
+    if model == "gmvae":
+        module = gmvae
+        config = gmvae.GMVAEConfig(number_of_latent_clusters=4, **kwargs)
+        noise = rng.standard_normal((1, 4, 64, 8)).astype(np.float32)
+    else:
+        module = vae
+        config = vae.VAEConfig(**kwargs)
+        noise = rng.standard_normal((1, 64, 8)).astype(np.float32)
+    params, state = module.init(config, torch.Generator().manual_seed(0))
     results = []
     for device in ("cpu", "cuda"):
         p = step.tree_map(
@@ -443,51 +633,63 @@ def phase_small_step(name):
         batch = {"x": xt, "t": xt,
                  "t_lgamma_rowsum": torch.sum(lgamma(1.0 + xt), dim=-1),
                  "count_sum": xt.sum(-1, keepdim=True)}
-        loss, _ = vae.loss_fn(config, p, s, batch, None,
-                              noise=torch.from_numpy(noise).to(device))
+        loss, _ = module.loss_fn(config, p, s, batch, None,
+                                 noise=torch.from_numpy(noise).to(device))
         grads = torch.autograd.grad(loss, step.tree_leaves(p))
         results.append([loss.detach().cpu()] + [gr.cpu() for gr in grads])
     (cpu_loss, *cpu_grads), (gpu_loss, *gpu_grads) = results
-    check_close(f"small step loss ({name})", gpu_loss, cpu_loss, AUTOGRAD_RTOL)
+    check_close(f"small step loss ({label})", gpu_loss, cpu_loss,
+                AUTOGRAD_RTOL)
     largest = max(float(g.abs().max()) for g in cpu_grads)
     for i, (a, b) in enumerate(zip(gpu_grads, cpu_grads)):
-        check_close(f"small step gradient [{i}] ({name})", a, b,
+        check_close(f"small step gradient [{i}] ({label})", a, b,
                     AUTOGRAD_RTOL, scale=largest)
 
 
-def train_family(name, counts, card):
-    """The headline VAE with likelihood ``name`` for two epochs; returns the
-    kernel launches of the run."""
-    from scvae_tpu_torch import VariationalAutoencoder, ops
-
-    phase_small_step(name)
-    model = VariationalAutoencoder(
-        feature_size=N_GENES, latent_size=LATENT, hidden_sizes=[HIDDEN, HIDDEN],
-        reconstruction_distribution=name,
+def train_config(label, model, name, k_max, counts, card):
+    """One trained configuration at the headline width for two epochs;
+    returns the kernel launches of the run."""
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+        ops,
     )
+
+    phase_small_step(label, model, name, k_max)
+    kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
+                  hidden_sizes=[HIDDEN, HIDDEN],
+                  reconstruction_distribution=name,
+                  number_of_reconstruction_classes=k_max)
+    if model == "gmvae":
+        model_ = GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=CLUSTERS, **kwargs)
+    else:
+        model_ = VariationalAutoencoder(**kwargs)
     ops.reset_launch_counts()
-    result = model.train(counts, number_of_epochs=EPOCHS, minibatch_size=BATCH,
-                         seed=0, device="cuda", verbose=False)
+    result = model_.train(counts, number_of_epochs=EPOCHS,
+                          minibatch_size=BATCH, seed=0, device="cuda",
+                          verbose=False)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     steps = result.steps_per_epoch * EPOCHS
     prefix = ("cp" if name == "constrained poisson"
               else ops.FAMILIES[name].prefix)
+    prefix = f"cat_{prefix}" if k_max else prefix
     for kernel, count in launches.items():
         want = steps if kernel.startswith(prefix + "_") else 0
         if kernel != "gather_rows" and count != want:
-            raise AssertionError(f"{name}: {kernel} launched {count} times in "
-                                 f"{steps} training steps (want {want})")
+            raise AssertionError(f"{label}: {kernel} launched {count} times "
+                                 f"in {steps} training steps (want {want})")
     if launches["gather_rows"] < steps:
-        raise AssertionError(f"{name}: gather_rows launched "
+        raise AssertionError(f"{label}: gather_rows launched "
                              f"{launches['gather_rows']} times in {steps} "
                              "training steps")
     elbo = result.history["training"]["lower_bound"]
     if not (np.all(np.isfinite(elbo)) and elbo[-1] > elbo[0]):
-        raise AssertionError(f"{name}: training ELBO not finite and rising: "
+        raise AssertionError(f"{label}: training ELBO not finite and rising: "
                              f"{elbo}")
     seconds = result.epoch_seconds[-1]
-    print(f"slice {name}: ELBO {elbo}; epoch {EPOCHS}: "
+    print(f"slice {label}: ELBO {elbo}; epoch {EPOCHS}: "
           f"{result.steps_per_epoch / seconds:.6g} steps/s, "
           f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
           f"launches {({k: v for k, v in launches.items() if v})} "
@@ -525,18 +727,25 @@ def main() -> int:
         f"{v['bound_ms']:.4f}, err {v['max_abs_err']:.3g})"
         for k, v in kernels.items()), flush=True)
 
-    # 4. slice: every kernel's launches summed over the five training paths
+    # 4. slice: each kernel's launches in the training runs at the shapes of
+    # its entry (NB's kernels at 2,048 rows in the VAE runs, over the
+    # GMVAE's 20,480 rows in the GMVAE-NB run)
     launches = dict.fromkeys(kernels, 0)
-    for name in TRAINED:
-        for kernel, count in train_family(name, counts, card).items():
-            launches[kernel] += count
+    for label, model, name, k_max in TRAINED:
+        run = train_config(label, model, name, k_max, counts, card)
+        for kernel, count in run.items():
+            entry = kernel + "_cycled" if model == "gmvae" else kernel
+            if kernel == "gather_rows" or entry in kernels:
+                launches[kernel if kernel == "gather_rows" else entry] += count
 
     def source(name):
         if name == "gather_rows":
             return "scvae_tpu_torch/ops/csrc/gather.cu", REPLACES[name]
-        kind = "forward" if name.endswith("forward") else "backward"
+        kind = "forward" if "forward" in name else "backward"
         if name.startswith("cp_"):
             return SOURCES["cp"], REPLACES["cp_" + kind]
+        if name.startswith("cat_"):
+            return SOURCES["cat"], REPLACES[kind]
         return SOURCES["count"], REPLACES[kind]
 
     print(json.dumps({"kernels": [

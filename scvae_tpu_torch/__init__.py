@@ -2,20 +2,32 @@
 
 A port of the ``scvae_tpu`` engine to PyTorch with hand-written CUDA kernels
 for an NVIDIA H100 (``sm_90a``).  It imports neither JAX nor ``scvae_tpu``.
-So far it trains a VAE on a count matrix held on the device, with a
-Poisson, negative-binomial, zero-inflated Poisson, zero-inflated
-negative-binomial or constrained-Poisson likelihood:
+So far it trains a VAE or a Gaussian-mixture VAE (GMVAE) on a count matrix
+held on the device, with a Poisson, negative-binomial, zero-inflated
+Poisson, zero-inflated negative-binomial or constrained-Poisson likelihood,
+or the categorised form of the first four (``number_of_reconstruction_classes``
+> 0, up to 32 heads in all):
 
-    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch import (GaussianMixtureVariationalAutoencoder,
+                                 VariationalAutoencoder)
     model = VariationalAutoencoder(feature_size=2048, latent_size=100,
                                    hidden_sizes=[256, 256],
                                    reconstruction_distribution="negative binomial")
     model.train(counts, number_of_epochs=2, minibatch_size=2048)
+    GaussianMixtureVariationalAutoencoder(
+        feature_size=2048, latent_size=100, hidden_sizes=[256, 256],
+        reconstruction_distribution="negative binomial",
+        number_of_latent_clusters=10,
+    ).train(counts, number_of_epochs=2, minibatch_size=2048)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from scvae_tpu_torch.data import DataSet
-from scvae_tpu_torch.models import VariationalAutoencoder
+from scvae_tpu_torch.models import (
+    GaussianMixtureVariationalAutoencoder,
+    VariationalAutoencoder,
+)
 
-__all__ = ["DataSet", "VariationalAutoencoder"]
+__all__ = ["DataSet", "GaussianMixtureVariationalAutoencoder",
+           "VariationalAutoencoder"]

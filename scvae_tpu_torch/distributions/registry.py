@@ -4,14 +4,18 @@
 Maps a distribution name to per-parameter specs (support interval,
 activation, head-size function) and a constructor ``theta → Distribution``.
 The model builds one dense head per parameter from these specs.  Ported so
-far: the Gaussian (latent) and the count reconstruction likelihoods Poisson,
-constrained Poisson, negative binomial and their zero-inflated forms; the
-other names of the reference resolve but raise ``NotImplementedError``.
+far: the Gaussian and softplus Gaussian (latent; "modified gaussian" is a
+renamed copy of the latter), the categorical, the count reconstruction
+likelihoods Poisson, constrained Poisson, negative binomial and their
+zero-inflated forms, and the GMVAE latent registry without the
+full-covariance mixture; the other names of the reference resolve but raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Callable
 
@@ -19,9 +23,11 @@ import numpy as np
 import torch
 
 from scvae_tpu_torch.distributions.base import Distribution
+from scvae_tpu_torch.distributions.categorised import Categorical
 from scvae_tpu_torch.distributions.counts import NegativeBinomial, Poisson
 from scvae_tpu_torch.distributions.normal import Normal
 from scvae_tpu_torch.distributions.zero_inflated import ZeroInflated
+from scvae_tpu_torch.ops.special import logaddexp
 
 _F32 = np.finfo(np.float32)
 _HALF_MIN = float(_F32.min / 2)
@@ -79,6 +85,20 @@ def _make_gaussian(theta):
     return Normal(loc=theta["mu"], scale=torch.exp(theta["log_sigma"]))
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + eˣ) as logaddexp(x, 0)."""
+    return logaddexp(x, torch.zeros_like(x))
+
+
+def _make_softplus_gaussian(theta):
+    return Normal(loc=theta["mean"],
+                  scale=torch.sqrt(_softplus(theta["softplus_scale"])))
+
+
+def _make_categorical(theta):
+    return Categorical(logits=theta["logits"])
+
+
 def _make_poisson(theta):
     return Poisson(log_rate=theta["log_lambda"])
 
@@ -111,6 +131,19 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
             "log_sigma": ParameterSpec(support=(-3.0, 3.0)),
         },
         constructor=_make_gaussian,
+    ),
+    "softplus gaussian": DistributionSpec(
+        name="softplus gaussian",
+        parameters={
+            "mean": ParameterSpec(support=(_HALF_MIN, _HALF_MAX)),
+            "softplus_scale": ParameterSpec(support=(_HALF_MIN, _HALF_MAX)),
+        },
+        constructor=_make_softplus_gaussian,
+    ),
+    "categorical": DistributionSpec(
+        name="categorical",
+        parameters={"logits": ParameterSpec(support=(-math.inf, math.inf))},
+        constructor=_make_categorical,
     ),
     "poisson": DistributionSpec(
         name="poisson",
@@ -152,6 +185,10 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
     ),
 }
 
+DISTRIBUTIONS["modified gaussian"] = dataclasses.replace(
+    DISTRIBUTIONS["softplus gaussian"], name="modified gaussian"
+)
+
 # "parameters" pins a prior/posterior parameter to a constant instead of a
 # learned dense head.
 LATENT_DISTRIBUTIONS: dict[str, dict[str, Any]] = {
@@ -165,17 +202,25 @@ LATENT_DISTRIBUTIONS: dict[str, dict[str, Any]] = {
     },
 }
 
-# Names the reference registries define that this port does not have yet.
+GAUSSIAN_MIXTURE_DISTRIBUTIONS: dict[str, dict[str, str]] = {
+    "gaussian mixture": {
+        "z prior": "softplus gaussian",
+        "z posterior": "softplus gaussian",
+    },
+    "legacy gaussian mixture": {
+        "z prior": "modified gaussian",
+        "z posterior": "modified gaussian",
+    },
+}
+
+# Names the reference registries define that this port does not have yet
+# (the full-covariance mixture needs ``MultivariateNormalTriL``).
 _NOT_PORTED = {
     "reconstruction": (
-        "softplus gaussian", "modified gaussian", "multivariate gaussian",
-        "gaussian mixture", "log-normal", "exponentially_modified_gaussian",
-        "gamma", "categorical", "bernoulli", "lomax",
+        "multivariate gaussian", "gaussian mixture", "log-normal",
+        "exponentially_modified_gaussian", "gamma", "bernoulli", "lomax",
     ),
-    "GMVAE": (
-        "gaussian mixture", "full-covariance gaussian mixture",
-        "legacy gaussian mixture",
-    ),
+    "GMVAE": ("full-covariance gaussian mixture",),
 }
 
 
@@ -201,7 +246,8 @@ def parse_distribution(distribution: str, model_type: str | None = None) -> str:
     elif model_type == "VAE":
         kind, registry, missing = "latent", LATENT_DISTRIBUTIONS, ()
     elif model_type == "GMVAE":
-        kind, registry, missing = "latent", {}, _NOT_PORTED["GMVAE"]
+        kind, registry, missing = (
+            "latent", GAUSSIAN_MIXTURE_DISTRIBUTIONS, _NOT_PORTED["GMVAE"])
     else:
         raise ValueError("Model type not found.")
     for name in registry:

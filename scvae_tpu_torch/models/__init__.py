@@ -1,6 +1,9 @@
-"""VAE core, training steps and loop, and the model API."""
+"""VAE and GMVAE cores, training steps and loop, and the model APIs."""
 
 from scvae_tpu_torch.models.api import VariationalAutoencoder, resolve_device
+from scvae_tpu_torch.models.gmvae_api import (
+    GaussianMixtureVariationalAutoencoder,
+)
 from scvae_tpu_torch.models.step import (
     ClipAdam,
     TrainState,
@@ -12,6 +15,7 @@ from scvae_tpu_torch.models.step import (
 
 __all__ = [
     "ClipAdam",
+    "GaussianMixtureVariationalAutoencoder",
     "TrainState",
     "VariationalAutoencoder",
     "create_train_state",

@@ -1,5 +1,8 @@
 """High-level model API: ``VariationalAutoencoder`` with the reference's
-``train`` surface (the ported part of ``scvae_tpu/models/api.py``).
+``train`` surface (the ported part of ``scvae_tpu/models/api.py``).  The
+model-specific parts are the hooks ``_init_state``, ``_loss_fn`` and
+``_eval_fn``, which ``GaussianMixtureVariationalAutoencoder``
+(``models/gmvae_api.py``) overrides to train through the same ``train``.
 
 Training runs on the device-resident path: the count matrix is staged on the
 device once as row-major int16, each step gathers a shuffled minibatch with
@@ -50,17 +53,19 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return device
 
 
-def _append_lgamma_rowsum(data: dict[str, torch.Tensor],
-                          config: vae.VAEConfig,
+def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
                           chunk: int = 8192) -> dict[str, torch.Tensor]:
     """Stage the per-row Σ_f lgamma(1+t) constants once per dataset.
 
     The −lgamma(1+t) term is constant in the parameters and additive per
     row, so it is computed here as an (N,) vector, gathered per batch and
-    subtracted outside the forward kernel (``vae.elbo_terms``), which then
-    skips the lgamma chain.  Not for the constrained Poisson, whose kernel
-    keeps its own lgamma (as in the JAX package)."""
-    if config.reconstruction_distribution == "constrained poisson":
+    subtracted outside the forward kernel (``vae.elbo_terms``,
+    ``gmvae.elbo_terms``), which then skips the lgamma chain.  Not for the
+    constrained Poisson, whose kernel keeps its own lgamma, nor for the
+    categorised likelihoods (``k_max`` > 0), whose lgamma sits inside the
+    shifted branch and is not row-separable (as in the JAX package)."""
+    if (config.k_max
+            or config.reconstruction_distribution == "constrained poisson"):
         return data
     t = data["t"]
     rowsum = torch.cat([
@@ -70,14 +75,18 @@ def _append_lgamma_rowsum(data: dict[str, torch.Tensor],
     return {**data, "t_lgamma_rowsum": rowsum}
 
 
-def _bf16_batch_dtypes(arrays: dict[str, Any], config: vae.VAEConfig,
+def _bf16_batch_dtypes(arrays: dict[str, Any], config,
                        device: torch.device) -> dict[str, torch.dtype] | None:
     """Gather-output dtype overrides for mixed-precision training.
 
     When the trunk computes in bf16, the (B, F) count fields can come out of
     the row gather as bf16 directly, provided that is value-exact: integral
     data in [0, 256] (bf16 holds every integer up to 256).  The likelihood
-    math still runs in float32.  None when inapplicable."""
+    math still runs in float32: every kernel and plain version converts t
+    to float32 before any arithmetic, the categorised ones' shifted lgamma
+    included (the JAX package keeps float32 t for those, whose jnp code
+    would compute t − K and its lgamma in bf16).  None when
+    inapplicable."""
     if config.compute_dtype(True, device) is None:
         return None
     overrides: dict[str, torch.dtype] = {}
@@ -98,6 +107,15 @@ def _bf16_batch_dtypes(arrays: dict[str, Any], config: vae.VAEConfig,
         if checked[key]:
             overrides[field] = torch.bfloat16
     return overrides or None
+
+
+def _place(params, model_state, optimizer, device) -> step.TrainState:
+    to_device = lambda x: x.to(device)  # noqa: E731
+    return step.create_train_state(
+        step.tree_map(to_device, params),
+        step.tree_map(to_device, model_state),
+        optimizer,
+    )
 
 
 class VariationalAutoencoder:
@@ -181,7 +199,13 @@ class VariationalAutoencoder:
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
 
-    # -- internals ---------------------------------------------------------
+    # -- model hooks -------------------------------------------------------
+
+    def _init_state(self, generator: torch.Generator, optimizer,
+                    device: torch.device) -> step.TrainState:
+        """Parameters drawn from the CPU ``generator``, placed on
+        ``device``, with ``optimizer``'s state."""
+        return _place(*vae.init(self.config, generator), optimizer, device)
 
     def _loss_fn(self, n_iw: int, n_mc: int):
         config = self.config
@@ -193,6 +217,22 @@ class VariationalAutoencoder:
             )
 
         return loss
+
+    def _eval_fn(self, n_iw: int, n_mc: int):
+        """``evaluate(params, model_state, batch, generator) → metrics`` of
+        one batch on the unfused float32 path."""
+        config = self.config
+
+        def evaluate(params, model_state, batch, generator):
+            metrics, _ = vae.elbo_terms(
+                config, params, model_state, batch, generator,
+                training=False, n_iw=n_iw, n_mc=n_mc,
+            )
+            return metrics
+
+        return evaluate
+
+    # -- internals ---------------------------------------------------------
 
     def _scaled_minibatch_size(self, minibatch_size: int, scenario: str) -> int:
         """Keep the flattened sample×batch constant (reference :807-811)."""
@@ -206,19 +246,15 @@ class VariationalAutoencoder:
                           batch_size: int, n_iw: int, n_mc: int):
         """Full-pass evaluation (unfused, float32) over sequential batches
         plus one remainder batch, weighted by rows like the JAX package."""
-        config = self.config
         device = next(iter(data.values())).device
         idx = torch.from_numpy(step.sequential_batches(n, batch_size)).to(device)
         n_full = int(idx.numel())
         keys = step.EVAL_METRIC_KEYS
+        eval_fn = self._eval_fn(n_iw, n_mc)
 
         def batch_metrics(ts, batch, generator):
-            metrics, _ = vae.elbo_terms(
-                config, ts.params, ts.model_state,
-                step.cast_batch_to_f32(batch), generator,
-                training=False, n_iw=n_iw, n_mc=n_mc,
-            )
-            return metrics
+            return eval_fn(ts.params, ts.model_state,
+                           step.cast_batch_to_f32(batch), generator)
 
         def evaluate(ts: step.TrainState, generator: torch.Generator):
             with torch.no_grad():
@@ -328,15 +364,9 @@ class VariationalAutoencoder:
                 "training examples"
             )
 
-        params, model_state = vae.init(
-            self.config, torch.Generator().manual_seed(seed)
-        )
-        to_device = lambda x: x.to(device)  # noqa: E731
         optimizer = step.make_optimizer(learning_rate)
-        train_state = step.create_train_state(
-            step.tree_map(to_device, params),
-            step.tree_map(to_device, model_state),
-            optimizer,
+        train_state = self._init_state(
+            torch.Generator().manual_seed(seed), optimizer, device
         )
         generator = torch.Generator(device=device).manual_seed(seed)
 

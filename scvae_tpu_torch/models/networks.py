@@ -6,6 +6,12 @@ batch-norm → activation per layer, batch norm configured like TF1
 statistics).  Parameters and batch-norm statistics are plain nested dicts
 and lists of tensors with the JAX package's names and layout (kernel is
 (in, out)), so weights move between the two one to one.
+
+The GMVAE runs one network for every latent cluster.  The JAX package
+``vmap``s it over the cluster axis, so batch statistics are taken per
+cluster and the new running statistics are the mean over clusters; here the
+cluster axis is the leading axis of the input and ``clusters=True`` gives
+those semantics.
 """
 
 from __future__ import annotations
@@ -38,6 +44,32 @@ def init_dense(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
     }
 
 
+def init_categorised_head(generator: torch.Generator, in_dim: int,
+                          feature_size: int, k_max: int) -> Params:
+    """(K+1)-class logit heads of the piecewise-categorical likelihood: one
+    Glorot draw of width F·(K+1) (the reference's single wide head, so its
+    init scale), stored class-major as kernel (K+1, H, F) and bias
+    (K+1, F), so each class's weights are one contiguous (H, F) matrix."""
+    wide = glorot_uniform(generator, (in_dim, feature_size * (k_max + 1)))
+    kernel = wide.reshape(in_dim, feature_size, k_max + 1).permute(2, 0, 1)
+    return {
+        "kernel": kernel.contiguous(),
+        "bias": torch.zeros((k_max + 1, feature_size), dtype=torch.float32),
+    }
+
+
+def apply_categorised_logits(params: Params, h: torch.Tensor, *,
+                             compute_dtype=None) -> torch.Tensor:
+    """Class logits (..., F, K+1) from decoder output ``h`` (..., H),
+    rounded like :func:`apply_dense`."""
+    kernel = params["kernel"]  # (K+1, H, F)
+    if compute_dtype is not None and kernel.dtype != compute_dtype:
+        h = h.to(compute_dtype)
+        kernel = kernel.to(compute_dtype).float()
+    logits = torch.einsum("...h,khf->...fk", h.float(), kernel)
+    return logits + params["bias"].T
+
+
 def apply_dense(params: Params, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
     """Dense layer.  With ``compute_dtype`` (bfloat16) the matmul inputs are
     rounded to it and multiplied in float32: bfloat16 inputs, float32
@@ -63,16 +95,25 @@ def init_batch_norm(dim: int) -> tuple[Params, State]:
 
 
 def apply_batch_norm(
-    params: Params, state: State, x: torch.Tensor, *, training: bool
+    params: Params, state: State, x: torch.Tensor, *, training: bool,
+    clusters: bool = False,
 ) -> tuple[torch.Tensor, State]:
-    """Normalise over all leading axes; returns (output, new_state)."""
+    """Normalise over all leading axes, or with ``clusters`` over all but
+    the first (the cluster axis) for each cluster; returns (output,
+    new_state)."""
     if training:
-        axes = tuple(range(x.dim() - 1))
-        mean = torch.mean(x, dim=axes)
-        var = torch.var(x, dim=axes, unbiased=False)
+        axes = tuple(range(1 if clusters else 0, x.dim() - 1))
+        mean = torch.mean(x, dim=axes, keepdim=True)
+        var = torch.var(x, dim=axes, unbiased=False, keepdim=True)
+        batch_mean, batch_var = (
+            v.detach().reshape(-1, x.shape[-1]) for v in (mean, var))
+        if clusters:  # one update per cluster, averaged over clusters
+            batch_mean, batch_var = batch_mean.mean(0), batch_var.mean(0)
+        else:
+            batch_mean, batch_var = batch_mean[0], batch_var[0]
         new_state = {
-            "mean": BN_DECAY * state["mean"] + (1.0 - BN_DECAY) * mean.detach(),
-            "var": BN_DECAY * state["var"] + (1.0 - BN_DECAY) * var.detach(),
+            "mean": BN_DECAY * state["mean"] + (1.0 - BN_DECAY) * batch_mean,
+            "var": BN_DECAY * state["var"] + (1.0 - BN_DECAY) * batch_var,
         }
     else:
         mean, var = state["mean"], state["var"]
@@ -126,20 +167,63 @@ def apply_mlp(
     input_dropout_keep_prob: float = 1.0,
     hidden_dropout_keep_prob: float = 1.0,
     compute_dtype=None,
+    clusters: bool = False,
 ) -> tuple[torch.Tensor, State]:
-    """Dropout → dense → batch-norm → activation per layer."""
+    """Dropout → dense → batch-norm → activation per layer (batch norm per
+    cluster of the leading axis with ``clusters``)."""
+    return _finish_mlp(
+        params, state, x, 0, training=training, generator=generator,
+        activation=activation, input_dropout_keep_prob=input_dropout_keep_prob,
+        hidden_dropout_keep_prob=hidden_dropout_keep_prob,
+        compute_dtype=compute_dtype, clusters=clusters,
+    )
+
+
+def apply_mlp_from_first_preactivation(
+    params: Params,
+    state: State,
+    pre0: torch.Tensor,
+    *,
+    training: bool,
+    generator: torch.Generator | None = None,
+    activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+    hidden_dropout_keep_prob: float = 1.0,
+    compute_dtype=None,
+    clusters: bool = False,
+) -> tuple[torch.Tensor, State]:
+    """Finish an MLP from the first layer's pre-activation ``pre0``.
+
+    For inputs concat(x, c) where x is shared across clusters and only c
+    varies (the GMVAE's one-hot cluster codes), concat(x, c) W = x W[:F] +
+    c W[F:], so the caller computes the (B, F)·(F, H) product once and
+    passes ``pre0 = x W[:F] + b + W[F + k]`` per cluster.  Not for input
+    dropout, whose mask on x is drawn per cluster."""
+    return _finish_mlp(
+        params, state, pre0, 1, training=training, generator=generator,
+        activation=activation, input_dropout_keep_prob=1.0,
+        hidden_dropout_keep_prob=hidden_dropout_keep_prob,
+        compute_dtype=compute_dtype, clusters=clusters,
+    )
+
+
+def _finish_mlp(params, state, h, first, *, training, generator, activation,
+                input_dropout_keep_prob, hidden_dropout_keep_prob,
+                compute_dtype, clusters):
+    """Layers from ``first`` on, with ``h`` the input of layer ``first`` (or,
+    for ``first`` = 1, layer 0's pre-activation)."""
     use_bn = "batch_norm" in params
     new_bn_states = []
-    h = x
     for i, layer in enumerate(params["layers"]):
-        keep = input_dropout_keep_prob if i == 0 else hidden_dropout_keep_prob
-        if training and keep < 1.0:
-            h = dropout(h, keep, generator)
-        h = apply_dense(layer, h, compute_dtype=compute_dtype)
+        if i >= first:
+            keep = (input_dropout_keep_prob if i == 0
+                    else hidden_dropout_keep_prob)
+            if training and keep < 1.0:
+                h = dropout(h, keep, generator)
+            h = apply_dense(layer, h, compute_dtype=compute_dtype)
         if use_bn:
             h, bn_s = apply_batch_norm(
                 params["batch_norm"][i], state["batch_norm"][i], h,
-                training=training,
+                training=training, clusters=clusters,
             )
             new_bn_states.append(bn_s)
         h = activation(h)

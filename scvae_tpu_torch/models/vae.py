@@ -3,10 +3,13 @@ ELBO objective as functions on parameter dicts.
 
 Counterpart of ``scvae_tpu/models/vae.py``.  Latent samples keep an explicit
 leading sample axis (S = R·L, B, ·).  Training with every ported
-reconstruction likelihood (Poisson, NB, ZIP, ZINB, constrained Poisson)
-takes the fused path (:func:`scvae_tpu_torch.ops.fused_log_likelihood`:
-kernels K2/K3 or K6/K7 on CUDA, their plain versions on the CPU);
-evaluation keeps the unfused distribution path, as the JAX package does.
+reconstruction likelihood (Poisson, NB, ZIP, ZINB, constrained Poisson, and
+the categorised forms of the first four with up to 32 heads) takes the fused
+path (:func:`scvae_tpu_torch.ops.fused_log_likelihood` and
+:func:`~scvae_tpu_torch.ops.fused_categorised_log_likelihood`: kernels K2/K3,
+their categorised instances or K6/K7 on CUDA, their plain versions on the
+CPU); evaluation keeps the unfused distribution path, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from scvae_tpu_torch import ops
 from scvae_tpu_torch.distributions import (
     DISTRIBUTIONS,
     LATENT_DISTRIBUTIONS,
+    Categorical,
+    Categorised,
     kl_divergence,
     parse_distribution,
 )
@@ -33,10 +38,17 @@ Batch = dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """Hyperparameters.  Options of the JAX ``VAEConfig`` that this slice
-    has not ported raise ``NotImplementedError``.  Every ported
-    reconstruction likelihood has a fused path, so the JAX switch
-    ``fused_likelihood`` has no counterpart: training always takes it."""
+    """Hyperparameters.  Ported: the MLP architectures, the Gaussian and
+    unit-variance Gaussian latents, dropout, warm-up, batch norm, and the
+    reconstruction likelihoods with a fused path — Poisson, NB, ZIP, ZINB,
+    the constrained Poisson, and ``number_of_reconstruction_classes`` = K > 0
+    over the first four up to 32 heads in all (base heads + K + 1).  Options
+    of the JAX ``VAEConfig`` that are not ported raise
+    ``NotImplementedError``: batch correction, the count sum as a feature,
+    the LFM architectures, and every likelihood without a fused path (the
+    JAX package trains those unfused, which is not ported).  Training always
+    takes the fused path, so the JAX switch ``fused_likelihood`` has no
+    counterpart."""
 
     feature_size: int
     latent_size: int = 2
@@ -74,8 +86,8 @@ class VAEConfig:
             self, "dropout_keep_probabilities",
             tuple(self.dropout_keep_probabilities),
         )
+        check_fused_likelihood(self.reconstruction_distribution, self.k_max)
         unported = {
-            "number_of_reconstruction_classes": self.number_of_reconstruction_classes,
             "batch_correction": self.batch_correction,
             "count_sum": self.count_sum,
             "inference_architecture": self.inference_architecture != "MLP",
@@ -92,6 +104,10 @@ class VAEConfig:
                 f"{self.latent_distribution} distribution."
             )
         resolve_compute_dtype(self.precision, True, "cpu")  # validates the name
+
+    @property
+    def k_max(self) -> int:
+        return self.number_of_reconstruction_classes
 
     @property
     def use_count_sum_as_parameter(self) -> bool:
@@ -133,6 +149,18 @@ class VAEConfig:
     def compute_dtype(self, training: bool, device: torch.device | str):
         """Matmul input dtype for this pass (None → full precision)."""
         return resolve_compute_dtype(self.precision, training, device)
+
+
+def check_fused_likelihood(name: str, k_max: int) -> None:
+    """Raise ``NotImplementedError`` unless ``name`` with ``k_max`` classes
+    trains on a fused path (the unfused training path is not ported)."""
+    if not ops.supports_fused_likelihood(name, k_max):
+        raise NotImplementedError(
+            f"{name!r} with {k_max} reconstruction classes has no fused "
+            f"likelihood (at most {ops.MAX_FUSED_HEADS} heads over a "
+            "Poisson, NB, ZIP or ZINB base), and unfused training is not "
+            "ported yet"
+        )
 
 
 def resolve_compute_dtype(precision: str | None, training: bool,
@@ -189,6 +217,11 @@ def init(config: VAEConfig, generator: torch.Generator) -> tuple[Params, State]:
         )
         for name in config.reconstruction_spec.parameters
     }
+    if config.k_max:
+        params["categorised_logits"] = networks.init_categorised_head(
+            generator, config.hidden_sizes[0], config.feature_size,
+            config.k_max,
+        )
     return params, state
 
 
@@ -249,7 +282,14 @@ def _build_reconstruction(config: VAEConfig, params: Params,
     }
     count_sum = (batch["count_sum"] if config.use_count_sum_as_parameter
                  else None)  # (B, 1) raw per-cell total
-    return spec.build(theta, count_sum=count_sum)
+    p_x = spec.build(theta, count_sum=count_sum)
+    if config.k_max:
+        logits = networks.apply_categorised_logits(
+            params["categorised_logits"], decoder_h,
+            compute_dtype=compute_dtype,
+        )
+        p_x = Categorised(dist=p_x, cat=Categorical(logits=logits))
+    return p_x
 
 
 def forward(
@@ -343,25 +383,39 @@ def elbo_terms(
 
     if use_fused:
         name = config.reconstruction_distribution
-        count_sum = (batch["count_sum"] if config.use_count_sum_as_parameter
-                     else None)
-        # The −lgamma(1+t) term is constant in the parameters and additive
-        # per row: when the data pipeline staged its row sums once per
-        # dataset (models.api._append_lgamma_rowsum) the kernel skips it.
-        # The constrained Poisson's kernel always subtracts it itself.
-        row_const = (batch.get("t_lgamma_rowsum")
-                     if name != "constrained poisson" else None)
-        rows = ops.fused_log_likelihood(
-            name,
-            outputs.decoder_hidden,
-            params["reconstruction"],
-            t,
-            count_sum=count_sum,
-            compute_dtype=config.compute_dtype(training, t.device),
-            include_lgamma_const=row_const is None,
-        )
-        if row_const is not None:
-            rows = rows - row_const
+        compute_dtype = config.compute_dtype(training, t.device)
+        if config.k_max:
+            # lgamma sits inside the shifted branch: no row constant here
+            rows = ops.fused_categorised_log_likelihood(
+                name,
+                outputs.decoder_hidden,
+                params["reconstruction"],
+                params["categorised_logits"]["kernel"],
+                params["categorised_logits"]["bias"],
+                t,
+                compute_dtype=compute_dtype,
+            )
+        else:
+            count_sum = (batch["count_sum"]
+                         if config.use_count_sum_as_parameter else None)
+            # The −lgamma(1+t) term is constant in the parameters and
+            # additive per row: when the data pipeline staged its row sums
+            # once per dataset (models.api._append_lgamma_rowsum) the kernel
+            # skips it.  The constrained Poisson's kernel always subtracts
+            # it itself.
+            row_const = (batch.get("t_lgamma_rowsum")
+                         if name != "constrained poisson" else None)
+            rows = ops.fused_log_likelihood(
+                name,
+                outputs.decoder_hidden,
+                params["reconstruction"],
+                t,
+                count_sum=count_sum,
+                compute_dtype=compute_dtype,
+                include_lgamma_const=row_const is None,
+            )
+            if row_const is not None:
+                rows = rows - row_const
         log_p_x_given_z = rows.reshape(n_iw, n_mc, b)
     else:
         log_p_x_given_z = torch.sum(

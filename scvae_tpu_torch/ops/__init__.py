@@ -7,17 +7,27 @@ extension on first use) and runs its plain version on a CPU tensor.
 from scvae_tpu_torch.ops import fused_likelihood, gather
 from scvae_tpu_torch.ops.fused_likelihood import (
     FAMILIES,
+    MAX_FUSED_HEADS,
+    FusedCategorised,
     FusedConstrainedPoisson,
     FusedLogLikelihood,
+    categorised_backward_dh,
+    categorised_backward_dw,
+    categorised_forward,
     cp_backward_dh,
     cp_backward_dw,
     cp_forward,
     fused_backward,
     fused_backward_dh,
     fused_backward_dw,
+    fused_categorised_log_likelihood,
     fused_forward,
     fused_log_likelihood,
     reference_backward,
+    reference_categorised_dh,
+    reference_categorised_dw,
+    reference_categorised_forward,
+    reference_categorised_log_likelihood,
     reference_cp_dh,
     reference_cp_dw,
     reference_cp_forward,
@@ -25,6 +35,7 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     reference_dw,
     reference_forward,
     reference_log_likelihood,
+    supports_fused_likelihood,
 )
 from scvae_tpu_torch.ops.gather import gather_rows, reference_gather
 from scvae_tpu_torch.ops.special import digamma, lgamma
@@ -48,8 +59,13 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "FAMILIES",
+    "FusedCategorised",
     "FusedConstrainedPoisson",
     "FusedLogLikelihood",
+    "MAX_FUSED_HEADS",
+    "categorised_backward_dh",
+    "categorised_backward_dw",
+    "categorised_forward",
     "cp_backward_dh",
     "cp_backward_dw",
     "cp_forward",
@@ -57,12 +73,17 @@ __all__ = [
     "fused_backward",
     "fused_backward_dh",
     "fused_backward_dw",
+    "fused_categorised_log_likelihood",
     "fused_forward",
     "fused_log_likelihood",
     "gather_rows",
     "launch_counts",
     "lgamma",
     "reference_backward",
+    "reference_categorised_dh",
+    "reference_categorised_dw",
+    "reference_categorised_forward",
+    "reference_categorised_log_likelihood",
     "reference_cp_dh",
     "reference_cp_dw",
     "reference_cp_forward",
@@ -72,4 +93,5 @@ __all__ = [
     "reference_gather",
     "reference_log_likelihood",
     "reset_launch_counts",
+    "supports_fused_likelihood",
 ]

@@ -124,8 +124,9 @@ __device__ __forceinline__ void stage_h(float* sH, const float* __restrict__ h,
 // head's weights into sW[k][hh][gg] (row stride ws, head stride cw * ws),
 // zero beyond F.  Each thread keeps one gene column; the head index is a
 // compile-time constant, so the weight pointers stay in the parameter space.
-template <int NH, int GENES>
-__device__ __forceinline__ void stage_w(float* sW, const Heads& heads,
+// HS is Heads or any type whose w[k] gives head k's (H, F) weights.
+template <int NH, int GENES, class HS>
+__device__ __forceinline__ void stage_w(float* sW, const HS& heads,
                                         int gene0, int ws, int c0, int cw,
                                         int f, bool round_bf16) {
   static_assert(kThreads % GENES == 0, "a thread keeps one gene column");
@@ -179,12 +180,40 @@ __device__ __forceinline__ void head_products(const float* sH, const float* sW,
   }
 }
 
+// acc_h[r] += sum_gg sum_k da_k[gg][r] W_k[col][gg] for the thread's dh
+// column col = threadIdx.x of the staged chunk (cwy wide), with da_k in
+// sDa[k][gg][r] and the chunk's weights in sW[k][col][gg] (row stride ws).
+template <int NH>
+__device__ __forceinline__ void dh_products(const float* sDa, const float* sW,
+                                            int cwy, int ws,
+                                            float (&acc_h)[kRowTile]) {
+  const int tid = threadIdx.x;
+  if (tid >= cwy) return;
+  for (int gg = 0; gg < kGeneTile; ++gg) {
+    float w[NH];
+#pragma unroll
+    for (int k = 0; k < NH; ++k) w[k] = sW[(k * cwy + tid) * ws + gg];
+#pragma unroll
+    for (int q = 0; q < kRowTile / 4; ++q) {
+#pragma unroll
+      for (int k = 0; k < NH; ++k) {
+        const float4 d = reinterpret_cast<const float4*>(
+            sDa + (k * kGeneTile + gg) * kRowTile)[q];
+        acc_h[4 * q + 0] = fmaf(d.x, w[k], acc_h[4 * q + 0]);
+        acc_h[4 * q + 1] = fmaf(d.y, w[k], acc_h[4 * q + 1]);
+        acc_h[4 * q + 2] = fmaf(d.z, w[k], acc_h[4 * q + 2]);
+        acc_h[4 * q + 3] = fmaf(d.w, w[k], acc_h[4 * q + 3]);
+      }
+    }
+  }
+}
+
 // Activations of rows r0, r1 of the block's tile at gene column gc of the
 // gene tile starting at gene0, summed over every hidden chunk in order.
 // sH holds the whole (single-chunk) h tile already when n_chunks(hidden) == 1.
-template <int NH, int GENES>
+template <int NH, int GENES, class HS>
 __device__ __forceinline__ void tile_activations(
-    float* sH, float* sW, const float* __restrict__ h, const Heads& heads,
+    float* sH, float* sW, const float* __restrict__ h, const HS& heads,
     int row0, int rows, int r0, int r1, int gene0, int gc, int ws, int m,
     int hidden, int f, int hs, bool stage_weights_once, bool round_bf16,
     float acc[2][NH]) {
@@ -299,26 +328,7 @@ __global__ void __launch_bounds__(kThreads)
                                round_bf16);
       }
       __syncthreads();
-      // dh[r][col] += sum_gg sum_k da_k[gg][r] W_k[col][gg]
-      if (tid < cwy) {
-        for (int gg = 0; gg < kGeneTile; ++gg) {
-          float w[NH];
-#pragma unroll
-          for (int k = 0; k < NH; ++k) w[k] = sW[(k * cwy + tid) * ws + gg];
-#pragma unroll
-          for (int q = 0; q < kRowTile / 4; ++q) {
-#pragma unroll
-            for (int k = 0; k < NH; ++k) {
-              const float4 d = reinterpret_cast<const float4*>(
-                  sDa + (k * kGeneTile + gg) * kRowTile)[q];
-              acc_h[4 * q + 0] = fmaf(d.x, w[k], acc_h[4 * q + 0]);
-              acc_h[4 * q + 1] = fmaf(d.y, w[k], acc_h[4 * q + 1]);
-              acc_h[4 * q + 2] = fmaf(d.z, w[k], acc_h[4 * q + 2]);
-              acc_h[4 * q + 3] = fmaf(d.w, w[k], acc_h[4 * q + 3]);
-            }
-          }
-        }
-      }
+      dh_products<NH>(sDa, sW, cwy, ws, acc_h);
     }
   }
 

@@ -19,7 +19,8 @@ import torch
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
-SOURCES = ("gather.cu", "count_likelihood.cu", "cp_likelihood.cu")
+SOURCES = ("gather.cu", "count_likelihood.cu", "cp_likelihood.cu",
+           "categorised_likelihood.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -52,6 +53,18 @@ _SIGNATURES = {
     # g, h, w, b, t, t_dtype, lse, sx, dw, db, m, m_t, hidden, f, stream
     "scvae_cp_backward_dw": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
+    # family, h, heads, cw, cb, n_classes, t, t_dtype, out, lse, m, m_t,
+    # hidden, f, round, stream
+    "scvae_cat_forward": [_I, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P, _I, _I,
+                          _I, _I, _I, _P],
+    # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dh, m, m_t,
+    # hidden, f, round, stream
+    "scvae_cat_backward_dh": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P,
+                              _I, _I, _I, _I, _I, _P],
+    # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dw0, db0, dw1,
+    # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, round, stream
+    "scvae_cat_backward_dw": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P,
+                              *_HEADS, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

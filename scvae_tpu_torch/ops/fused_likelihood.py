@@ -17,17 +17,24 @@ recomputes them tile by tile.  Counterpart of
   (ll, grads) pair as ``_make_fused_from`` is;
 * the constrained Poisson (CP), whose gene-axis softmax couples every gene
   of a row, has its own forward K6 with an online logsumexp and the backward
-  K7 (``ops/csrc/cp_likelihood.cu``).
+  K7 (``ops/csrc/cp_likelihood.cu``);
+* the categorised instances of K2/K3 — a base family plus K + 1 class-logit
+  heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
+  — have their own forward, dh and dW kernels for up to
+  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``).
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
-plain versions beside them.  :class:`FusedLogLikelihood` and
-:class:`FusedConstrainedPoisson` wrap them as ``autograd.Function``\\ s and
-:func:`fused_log_likelihood` dispatches by name, with the JAX signature.
+plain versions beside them.  :class:`FusedLogLikelihood`,
+:class:`FusedConstrainedPoisson` and :class:`FusedCategorised` wrap them as
+``autograd.Function``\\ s; :func:`fused_log_likelihood` dispatches by name
+and :func:`fused_categorised_log_likelihood` takes the class heads, with the
+JAX signatures.
 
 Numerics follow the JAX package.  Base families: with a ``compute_dtype`` of
 bfloat16, h and W are rounded to bf16 and the products summed in float32,
 the elementwise math runs in float32, the backward rounds da_k to bf16
-before the dh and dW products, and db_k sums the unrounded da_k.  Support
+before the dh and dW products, and db_k sums the unrounded da_k (the
+categorised instances likewise, for every head).  Support
 clips use the nearest float32 strictly inside each support, with zero
 gradient outside the clip range.  CP takes no compute dtype in the JAX
 kernels: its caller hands them bf16 h, which multiplies float32 W in
@@ -189,13 +196,27 @@ FAMILIES = {
                                               zinb_ll, zinb_grads),
 }
 _MAX_HEADS = 3
+# Base heads plus class heads of the categorised instances: the JAX
+# package's cap (``_MAX_FUSED_HEADS``), beyond which it trains unfused.
+MAX_FUSED_HEADS = 32
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
 LAUNCHES = {
     f"{prefix}_{kernel}": 0
-    for prefix in [fam.prefix for fam in FAMILIES.values()] + ["cp"]
+    for prefix in ([fam.prefix for fam in FAMILIES.values()] + ["cp"]
+                   + [f"cat_{fam.prefix}" for fam in FAMILIES.values()])
     for kernel in ("forward", "backward_dh", "backward_dw")
 }
+
+
+def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
+    """Whether ``name`` with ``k_max`` class heads has a fused path (the JAX
+    package's test: every base family and CP; categorised only over a base
+    family and within :data:`MAX_FUSED_HEADS` heads)."""
+    if k_max == 0:
+        return name in FAMILIES or name == "constrained poisson"
+    return (name in FAMILIES
+            and k_max + 1 + len(FAMILIES[name].heads) <= MAX_FUSED_HEADS)
 
 
 # --------------------------------------------------------------------------
@@ -264,6 +285,150 @@ def reference_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
     args = (name, g, h, weights, biases, t)
     return (reference_dh(*args, compute_dtype=compute_dtype),
             *reference_dw(*args, compute_dtype=compute_dtype))
+
+
+# --------------------------------------------------------------------------
+# Categorised instances: elementwise pieces and plain versions
+#
+# The K + 1 class-logit heads join the base family's heads; per element
+#
+#   ll = a_c* − lse(a_0 … a_K) + [t ≥ K]·(base_ll(t − K) − lgamma(1 + t − K))
+#
+# with c* = min(t, K), dll/da_c = [c = c*] − softmax_c and the base heads'
+# gradients masked to t ≥ K.  No unconditional −lgamma(1+t): the constant
+# sits inside the shifted branch.
+# --------------------------------------------------------------------------
+
+
+def cat_select_and_lse(cat_acts, t):
+    """(logit at class min(t, K), logsumexp over the classes) per element,
+    as ``_cat_select_and_lse``: the max first, then the exponentials summed
+    in class order; the select steps up one class per threshold."""
+    m = cat_acts[0]
+    for a in cat_acts[1:]:
+        m = torch.maximum(m, a)
+    s = torch.exp(cat_acts[0] - m)
+    for a in cat_acts[1:]:
+        s = s + torch.exp(a - m)
+    a_sel = cat_acts[0]
+    for c in range(1, len(cat_acts)):
+        a_sel = torch.where(t >= c, cat_acts[c], a_sel)
+    return a_sel, m + torch.log(s)
+
+
+def _shifted_base_ll(name, k, base_acts, t):
+    """[t ≥ K]·(base_ll(t − K) − lgamma(1 + t − K))."""
+    shifted = torch.clamp(t - k, min=0.0)
+    base = FAMILIES[name].ll(*base_acts, shifted) - lgamma(1.0 + shifted)
+    return torch.where(t >= k, base, 0.0)
+
+
+def categorised_ll(name, k):
+    """Elementwise ``ll(activations, t)`` of the categorised instance over
+    base ``name`` with K = ``k`` (``_categorised_ll``); ``activations`` are
+    the base heads' then the K + 1 class heads'."""
+    n_base = len(FAMILIES[name].heads)
+
+    def ll(activations, t):
+        a_sel, lse = cat_select_and_lse(activations[n_base:], t)
+        return a_sel - lse + _shifted_base_ll(name, k, activations[:n_base], t)
+
+    return ll
+
+
+def categorised_grads(name, k):
+    """Elementwise ``grads(activations, t, lse)`` (``_categorised_grads``):
+    dll/da per head, base heads first, with the class softmax exp(a − lse)
+    from the per-element ``lse`` that the forward computed (the JAX package
+    recomputes it as exp(a − max)/Σ; the two agree to float32 rounding)."""
+    fam = FAMILIES[name]
+    n_base = len(fam.heads)
+
+    def grads(activations, t, lse):
+        pos = t >= k
+        shifted = torch.clamp(t - k, min=0.0)
+        base_gs = tuple(torch.where(pos, g_a, 0.0)
+                        for g_a in fam.grads(*activations[:n_base], shifted))
+        cat_gs = []
+        for c, a in enumerate(activations[n_base:]):
+            # t is integer-valued, so [min(t, K) = c] ⇔ c ≤ t < c+1 below K
+            ind = (t >= c) & (t < c + 1) if c < k else pos
+            cat_gs.append(torch.where(ind, 1.0, 0.0) - torch.exp(a - lse))
+        return base_gs + tuple(cat_gs)
+
+    return grads
+
+
+def _class_count(cat_w) -> int:
+    return cat_w.shape[0] - 1
+
+
+def reference_categorised_forward(name, h, weights, biases, cat_w, cat_b, t,
+                                  *, compute_dtype=None):
+    """Plain version of the categorised K2: (row sums (M,), per-element lse
+    (M, F)) for base ``weights`` / ``biases`` in the family's head order and
+    class heads ``cat_w`` (K+1, H, F), ``cat_b`` (K+1, F), rounded like the
+    kernel."""
+    n_base = len(FAMILIES[name].heads)
+    _, acts = _activations(h, [*weights, *cat_w], [*biases, *cat_b],
+                           compute_dtype)
+    tt = _cycle_rows(t.float(), h.shape[0])
+    a_sel, lse = cat_select_and_lse(acts[n_base:], tt)
+    ll = a_sel - lse + _shifted_base_ll(name, _class_count(cat_w),
+                                        acts[:n_base], tt)
+    return torch.sum(ll, dim=-1), lse
+
+
+def _categorised_weighted_grads(name, g, h, weights, biases, cat_w, cat_b, t,
+                                lse, compute_dtype):
+    """Rounded h and the row-weighted da of every head (base, then
+    classes), the class softmax from the forward's ``lse``."""
+    hc, acts = _activations(h, [*weights, *cat_w], [*biases, *cat_b],
+                            compute_dtype)
+    gs = categorised_grads(name, _class_count(cat_w))(
+        acts, _cycle_rows(t.float(), h.shape[0]), lse)
+    g = g.float()[:, None]
+    return hc, [g_a * g for g_a in gs]
+
+
+def reference_categorised_dh(name, g, h, weights, biases, cat_w, cat_b, t,
+                             lse, *, compute_dtype=None):
+    """Plain version of the categorised K3's first pass: dh = Σ bf16(da) Wᵀ
+    over every head."""
+    _, das = _categorised_weighted_grads(name, g, h, weights, biases, cat_w,
+                                         cat_b, t, lse, compute_dtype)
+    dh = 0.0
+    for da, w in zip(das, [*weights, *cat_w]):
+        dh = dh + _rounded(da, compute_dtype) @ _rounded(w, compute_dtype).T
+    return dh
+
+
+def reference_categorised_dw(name, g, h, weights, biases, cat_w, cat_b, t,
+                             lse, *, compute_dtype=None):
+    """Plain version of the categorised K3's second pass: (dW_0, db_0, …)
+    of the base heads, then the class heads' dW (K+1, H, F) and db
+    (K+1, F)."""
+    hc, das = _categorised_weighted_grads(name, g, h, weights, biases, cat_w,
+                                          cat_b, t, lse, compute_dtype)
+    grads = [(hc.T @ _rounded(da, compute_dtype), da.sum(0)) for da in das]
+    n_base = len(weights)
+    return (*(x for pair in grads[:n_base] for x in pair),
+            torch.stack([dw for dw, _ in grads[n_base:]]),
+            torch.stack([db for _, db in grads[n_base:]]))
+
+
+def reference_categorised_log_likelihood(name, h, heads, cat_kernel, cat_bias,
+                                         t, compute_dtype=None):
+    """Unfused computation of the categorised row sums (the JAX package's
+    ``reference_categorised_log_likelihood``): exact float32,
+    ``compute_dtype`` ignored."""
+    del compute_dtype
+    fam = FAMILIES[name]
+    ws = [heads[p]["kernel"] for p in fam.heads] + list(cat_kernel)
+    bs = [heads[p]["bias"] for p in fam.heads] + list(cat_bias)
+    acts = tuple(h @ w + b for w, b in zip(ws, bs))
+    ll = categorised_ll(name, _class_count(cat_kernel))(acts, t)
+    return torch.sum(ll, dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -542,6 +707,120 @@ def cp_backward_dw(g, h, w, b, t, lse):
     return dw, db
 
 
+def _checked_categorised(name, h, weights, biases, cat_w, cat_b, t, g=None,
+                         lse=None):
+    """Validate and normalise the categorised kernels' operands: those of
+    the base family (and the row cotangents ``g``), the class heads
+    (C, H, F) / (C, F) with 2 ≤ C and at most :data:`MAX_FUSED_HEADS` heads
+    in all, and the per-element ``lse`` (M, F)."""
+    fam = _family_heads(name, weights, biases)
+    m, hidden = h.shape
+    f = t.shape[-1]
+    n_classes = cat_w.shape[0]
+    if (cat_w.dim() != 3 or tuple(cat_w.shape[1:]) != (hidden, f)
+            or tuple(cat_b.shape) != (n_classes, f)):
+        raise ValueError(f"class heads {tuple(cat_w.shape)}, "
+                         f"{tuple(cat_b.shape)} do not match h "
+                         f"{tuple(h.shape)} and t {tuple(t.shape)}")
+    if n_classes < 2 or not supports_fused_likelihood(name, n_classes - 1):
+        raise ValueError(f"{name} takes 2 to "
+                         f"{MAX_FUSED_HEADS - len(fam.heads)} classes, got "
+                         f"{n_classes}")
+    if lse is not None and tuple(lse.shape) != (m, f):
+        raise ValueError(f"lse {tuple(lse.shape)} is not ({m}, {f})")
+    rows = [] if g is None else [g]
+    h, weights, biases, t, *rows = _checked_cuda(h, weights, biases, t, *rows)
+    more = [x.float().contiguous()
+            for x in (cat_w, cat_b, *([] if lse is None else [lse]))]
+    if not all(x.device == h.device for x in more):
+        raise ValueError("all operands must be CUDA tensors on one device")
+    return fam, h, weights, biases, t, (*rows, *more)
+
+
+def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
+                        compute_dtype=None):
+    """(row sums (M,), per-element lse (M, F)) of the categorised instance
+    over base ``name``: its K2 kernel on CUDA, the plain version on the
+    CPU."""
+    if not h.is_cuda:
+        return reference_categorised_forward(name, h, weights, biases, cat_w,
+                                             cat_b, t,
+                                             compute_dtype=compute_dtype)
+    fam, h, weights, biases, t, (cat_w, cat_b) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t)
+    m, hidden = h.shape
+    f = t.shape[1]
+    out = torch.empty((m,), dtype=torch.float32, device=h.device)
+    lse = torch.empty((m, f), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return out, lse
+    extension.call(
+        "scvae_cat_forward", h.device, fam.code, h.data_ptr(),
+        *_head_pointers(weights, biases), cat_w.data_ptr(), cat_b.data_ptr(),
+        cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype], out.data_ptr(),
+        lse.data_ptr(), m, t.shape[0], hidden, f, _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"cat_{fam.prefix}_forward"] += 1
+    return out, lse
+
+
+def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
+                            *, compute_dtype=None):
+    """dh (M, H) of the categorised instance: its first K3 kernel on CUDA,
+    the plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_categorised_dh(name, g, h, weights, biases, cat_w,
+                                        cat_b, t, lse,
+                                        compute_dtype=compute_dtype)
+    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t, g, lse)
+    m, hidden = h.shape
+    dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return dh
+    extension.call(
+        "scvae_cat_backward_dh", h.device, fam.code, g.data_ptr(),
+        h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
+        cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
+        _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"cat_{fam.prefix}_backward_dh"] += 1
+    return dh
+
+
+def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
+                            *, compute_dtype=None):
+    """(dW_0, db_0, …, dW_classes (K+1, H, F), db_classes (K+1, F)) of the
+    categorised instance: its second K3 kernel on CUDA, the plain version on
+    the CPU."""
+    if not h.is_cuda:
+        return reference_categorised_dw(name, g, h, weights, biases, cat_w,
+                                        cat_b, t, lse,
+                                        compute_dtype=compute_dtype)
+    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t, g, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    empty = lambda *shape: torch.empty(  # noqa: E731
+        shape, dtype=torch.float32, device=h.device)
+    out = [empty(*shape) for _ in fam.heads for shape in ((hidden, f), (f,))]
+    out += [empty(*cat_w.shape), empty(*cat_b.shape)]
+    if f == 0:
+        return tuple(out)
+    base = [x.data_ptr() for x in out[:-2]]
+    base += [None] * (2 * _MAX_HEADS - len(base))
+    extension.call(
+        "scvae_cat_backward_dw", h.device, fam.code, g.data_ptr(),
+        h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
+        cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), *base, out[-2].data_ptr(), out[-1].data_ptr(), m,
+        t.shape[0], hidden, f, _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"cat_{fam.prefix}_backward_dw"] += 1
+    return tuple(out)
+
+
 # --------------------------------------------------------------------------
 # autograd Functions and the public entry
 # --------------------------------------------------------------------------
@@ -599,6 +878,61 @@ class FusedConstrainedPoisson(torch.autograd.Function):
         return dh, dw, db, None, dn, None
 
 
+class FusedCategorised(torch.autograd.Function):
+    """Row-summed categorised log-likelihood with the fused backward
+    (``_make_fused_categorised`` in the JAX package).  Saves h, the heads,
+    t and the forward's per-element lse (M, F), which the backward reads
+    instead of sweeping the class heads twice.  ``params`` are the base
+    family's W_0, b_0, W_1, b_1, … in its head order."""
+
+    @staticmethod
+    def forward(ctx, name, compute_dtype, h, t, cat_w, cat_b, *params):
+        ll, lse = categorised_forward(name, h, params[0::2], params[1::2],
+                                      cat_w, cat_b, t,
+                                      compute_dtype=compute_dtype)
+        ctx.save_for_backward(h, t, lse, cat_w, cat_b, *params)
+        ctx.name = name
+        ctx.compute_dtype = compute_dtype
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        h, t, lse, cat_w, cat_b, *params = ctx.saved_tensors
+        args = (ctx.name, g, h, params[0::2], params[1::2], cat_w, cat_b, t,
+                lse)
+        dh = categorised_backward_dh(*args, compute_dtype=ctx.compute_dtype)
+        *dparams, dcat_w, dcat_b = categorised_backward_dw(
+            *args, compute_dtype=ctx.compute_dtype)
+        return (None, None, dh.to(h.dtype), None, dcat_w, dcat_b, *dparams)
+
+
+def _flat_rows(h, t):
+    """h as (M, H) and t as (M_t, F): a 2-D t whose rows tile M rides the
+    cycled rows, any other t is broadcast to h's leading axes."""
+    h2 = h.reshape(-1, h.shape[-1])
+    if not (t.dim() == 2 and h2.shape[0] % t.shape[0] == 0):
+        t = torch.broadcast_to(t, h.shape[:-1] + t.shape[-1:]).reshape(
+            -1, t.shape[-1])
+    return h2, t
+
+
+def fused_categorised_log_likelihood(name, h, heads, cat_kernel, cat_bias, t,
+                                     compute_dtype=None) -> torch.Tensor:
+    """Row-summed categorised log p(t | heads(h)) on the fused path: the
+    base family ``name``'s ``heads`` plus the class heads ``cat_kernel``
+    (K+1, H, F) and ``cat_bias`` (K+1, F).  ``h`` (..., H); ``t`` (..., F),
+    or (M_t, F) shared by the leading axes of ``h`` (rows cycle).
+    Returns (...,)."""
+    if name not in FAMILIES:
+        raise ValueError(f"No fused categorised likelihood for {name!r}")
+    h2, t = _flat_rows(h, t)
+    params = [heads[p][k] for p in FAMILIES[name].heads
+              for k in ("kernel", "bias")]
+    out = FusedCategorised.apply(name, compute_dtype, h2, t, cat_kernel,
+                                 cat_bias, *params)
+    return out.reshape(h.shape[:-1])
+
+
 def fused_log_likelihood(name, h, heads, t, count_sum=None, compute_dtype=None,
                          include_lgamma_const=True) -> torch.Tensor:
     """Row-summed log p(t | heads(h)) on the fused path.
@@ -613,9 +947,7 @@ def fused_log_likelihood(name, h, heads, t, count_sum=None, compute_dtype=None,
     −lgamma(1+t) constant, for callers that subtract its row sums
     themselves; CP always includes it.  Returns (...,)."""
     lead = h.shape[:-1]
-    h2 = h.reshape(-1, h.shape[-1])
-    if not (t.dim() == 2 and h2.shape[0] % t.shape[0] == 0):
-        t = torch.broadcast_to(t, lead + t.shape[-1:]).reshape(-1, t.shape[-1])
+    h2, t = _flat_rows(h, t)
     if name == "constrained poisson":
         if count_sum is None:
             raise ValueError("constrained poisson requires count_sum")

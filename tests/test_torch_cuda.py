@@ -13,7 +13,10 @@ do not use).
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
 forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
-autograd; the constrained Poisson never rounds, so 2e-5 throughout).
+autograd; the constrained Poisson never rounds, so 2e-5 throughout).  The
+categorised kernels are checked with 14 heads (ZINB, K = 10) and the
+largest case of 32 (Poisson, K = 30), at odd shapes, ragged F and decoder
+widths past one hidden chunk.
 """
 
 import pytest
@@ -218,3 +221,119 @@ def test_fused_function_and_counts(device, name):
                            count_sum.repeat(3, 1)[:, 0])
         else:
             ops.fused_forward(name, h2, weights, biases, t[:5])
+
+
+@pytest.mark.parametrize("m,m_t,hidden,f", [(160, 16, 32, 77), (96, 32, 21, 45)])
+def test_nb_cycled_rows(device, m, m_t, hidden, f):
+    """K2/K3 over K·S·B decoder rows against B shared target rows, as the
+    GMVAE's one launch over all clusters."""
+    h, weights, biases, t, g = _family_case(device, "negative binomial", m,
+                                            m_t, hidden, f, torch.bfloat16,
+                                            seed=4)
+    _check_family("negative binomial", h, weights, biases, t, g,
+                  torch.bfloat16)
+
+
+# (base, K, M, M_t, H, F): 14 heads; 32 heads with cycled rows; NB with two
+# classes at width 256; ZIP past one hidden chunk
+CAT_CASES = [
+    ("zero-inflated negative binomial", 10, 37, 37, 21, 301),
+    ("poisson", 30, 26, 13, 3, 45),
+    ("negative binomial", 1, 64, 32, 256, 100),
+    ("zero-inflated poisson", 4, 5, 5, 300, 40),
+]
+
+
+def _cat_case(device, name, k_max, m, m_t, hidden, f, t_dtype, seed=0):
+    """A family case plus class heads (K+1, H, F), (K+1, F) and targets
+    spread over the classes and past K."""
+    h, weights, biases, _, g = _family_case(device, name, m, m_t, hidden, f,
+                                            t_dtype, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    limit = 3 * (6.0 / (hidden + f)) ** 0.5
+    cat_w = (torch.rand(k_max + 1, hidden, f, generator=gen, device=device)
+             * 2 - 1) * limit
+    cat_b = 0.3 * torch.randn(k_max + 1, f, generator=gen, device=device)
+    t = torch.poisson(torch.full((m_t, f), float(k_max), device=device),
+                      generator=gen)
+    return h, weights, biases, cat_w, cat_b, t.to(t_dtype), g
+
+
+@pytest.mark.parametrize("name,k_max,m,m_t,hidden,f", CAT_CASES)
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("compute", [None, torch.bfloat16])
+def test_categorised_kernels_match_plain(device, name, k_max, m, m_t, hidden,
+                                         f, t_dtype, compute):
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, k_max, m, m_t, hidden,
+                                        f, t_dtype)
+    args = (h, ws, bs, cw, cb, t)
+    ll, lse = ops.categorised_forward(name, *args, compute_dtype=compute)
+    ll_ref, lse_ref = ops.reference_categorised_forward(
+        name, *args, compute_dtype=compute)
+    _close(ll, ll_ref, 2e-5)
+    _close(lse, lse_ref, 2e-5)
+    # the backward on the same inputs, the kernel forward's lse among them
+    rtol = 4e-4 if compute is not None else 2e-5
+    _close(ops.categorised_backward_dh(name, g, *args, lse,
+                                       compute_dtype=compute),
+           ops.reference_categorised_dh(name, g, *args, lse,
+                                        compute_dtype=compute), rtol)
+    got = ops.categorised_backward_dw(name, g, *args, lse,
+                                      compute_dtype=compute)
+    want = ops.reference_categorised_dw(name, g, *args, lse,
+                                        compute_dtype=compute)
+    assert len(got) == len(want) == 2 * len(ws) + 2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, rtol)
+
+
+@pytest.mark.parametrize("name,k_max,m,m_t,hidden,f", CAT_CASES)
+def test_categorised_backward_matches_autograd(device, name, k_max, m, m_t,
+                                               hidden, f):
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, k_max, m, m_t, hidden,
+                                        f, torch.float32, seed=1)
+    k = len(ws)
+    leaves = [x.clone().requires_grad_(True) for x in (h, *ws, *bs, cw, cb)]
+    ll, _ = ops.reference_categorised_forward(
+        name, leaves[0], leaves[1:1 + k], leaves[1 + k:1 + 2 * k],
+        leaves[-2], leaves[-1], t)
+    want = torch.autograd.grad(ll, leaves, grad_outputs=g)
+    _, lse = ops.categorised_forward(name, h, ws, bs, cw, cb, t)
+    got = (ops.categorised_backward_dh(name, g, h, ws, bs, cw, cb, t, lse),
+           *ops.categorised_backward_dw(name, g, h, ws, bs, cw, cb, t, lse))
+    # got: dh, dW_0, db_0, …, dW_classes, db_classes;
+    # want: dh, dW_0, …, db_0, …, dW_classes, db_classes
+    order = ([0] + [x for i in range(k) for x in (1 + i, 1 + k + i)]
+             + [1 + 2 * k, 2 + 2 * k])
+    for a, i in zip(got, order):
+        _close(a, want[i], 2e-5)
+
+
+def test_categorised_function_and_counts(device):
+    """The autograd Function launches each categorised kernel once per
+    forward and backward, over rows cycling on shared targets."""
+    name = "zero-inflated negative binomial"
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, 10, 48, 16, 32, 70,
+                                        torch.bfloat16, seed=2)
+    h = h.reshape(3, 16, 32).clone().requires_grad_(True)
+    heads = {p: {"kernel": w.clone().requires_grad_(True),
+                 "bias": b.clone().requires_grad_(True)}
+             for p, w, b in zip(ops.FAMILIES[name].heads, ws, bs)}
+    cw, cb = cw.clone().requires_grad_(True), cb.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    out = ops.fused_categorised_log_likelihood(name, h, heads, cw, cb, t,
+                                               compute_dtype=torch.bfloat16)
+    assert out.shape == (3, 16)
+    out.backward(g.reshape(3, 16))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k for k, v in counts.items() if v} == {
+        f"cat_zinb_{kernel}" for kernel in
+        ("forward", "backward_dh", "backward_dw")}
+    assert all(v in (0, 1) for v in counts.values())
+    assert all(torch.isfinite(x.grad).all() for x in (h, cw, cb))
+    with pytest.raises(ValueError):  # 3 + 30 = 33 heads
+        ops.categorised_forward(name, h.detach().reshape(48, 32), ws, bs,
+                                cw.detach().repeat(3, 1, 1)[:30],
+                                cb.detach().repeat(3, 1)[:30], t)

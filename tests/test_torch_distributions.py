@@ -179,7 +179,10 @@ def test_parse_distribution():
         assert td.parse_distribution(alias) == jd.parse_distribution(alias)
     with pytest.raises(NotImplementedError):
         td.parse_distribution("bernoulli")
+    for alias in ("gaussian mixture", "legacy gaussian mixture"):
+        assert td.parse_distribution(alias, "GMVAE") == jd.parse_distribution(
+            alias, "GMVAE")
     with pytest.raises(NotImplementedError):
-        td.parse_distribution("gaussian mixture", "GMVAE")
+        td.parse_distribution("full-covariance gaussian mixture", "GMVAE")
     with pytest.raises(ValueError):
         td.parse_distribution("no such distribution")

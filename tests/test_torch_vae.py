@@ -241,19 +241,22 @@ def test_params_round_trip_and_keystr_names(name):
 
 
 def test_unported_options_raise():
-    for kwargs in ({"number_of_reconstruction_classes": 3},
+    for kwargs in ({"number_of_reconstruction_classes": 30},  # 33 heads
                    {"batch_correction": True}, {"count_sum": True},
                    {"inference_architecture": "LFM"}):
         with pytest.raises(NotImplementedError):
             tvae.VAEConfig(feature_size=F,
                            reconstruction_distribution="negative binomial",
                            **kwargs)
-    for name in ("poisson", "zero-inflated poisson",
-                 "zero-inflated negative binomial"):  # categorised heads
+    # categorised heads past the 32-head cap, or over a base without a
+    # fused kernel, would train unfused, which is not ported
+    for name, k_max in (("poisson", 31), ("zero-inflated poisson", 30),
+                        ("zero-inflated negative binomial", 29),
+                        ("constrained poisson", 3)):
         with pytest.raises(NotImplementedError):
             tvae.VAEConfig(feature_size=F, reconstruction_distribution=name,
-                           number_of_reconstruction_classes=3)
-    for name in ("bernoulli", "lomax"):
+                           number_of_reconstruction_classes=k_max)
+    for name in ("bernoulli", "lomax", "categorical", "softplus gaussian"):
         with pytest.raises(NotImplementedError):
             tvae.VAEConfig(feature_size=F, reconstruction_distribution=name)
     with pytest.raises(ValueError):  # as the JAX package's validation

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of a training step goes in the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_step.py [LIKELIHOOD]
+    python3 tools/profile_torch_step.py [LIKELIHOOD] [--classes K]
+        [--model gmvae [--clusters C]]
 
 Trains the headline VAE of ``chip_smoke.py`` (68,579 × 2,048 synthetic
 counts, hidden (256, 256), latent 100, minibatch 2,048) with the
 reconstruction likelihood LIKELIHOOD (default "negative binomial"; any name
 the port trains, e.g. "zero-inflated negative binomial" or "constrained
-poisson") for one warm-up epoch, then records the second epoch's 33
-training steps with
+poisson"), with K reconstruction classes (the categorised likelihood;
+default 0), or the GMVAE with C latent clusters (default 10), for one
+warm-up epoch, then records the second epoch's 33 training steps with
 ``torch.profiler`` and prints, for that window: the wall time per step, the
 device time per step summed over kernels, the device-busy share, and the
 device time per step of the 15 largest kernels by name.  Needs one CUDA
@@ -29,22 +31,36 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
-from scvae_tpu_torch import VariationalAutoencoder  # noqa: E402
+from scvae_tpu_torch import (  # noqa: E402
+    GaussianMixtureVariationalAutoencoder,
+    VariationalAutoencoder,
+)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("likelihood", nargs="?", default="negative binomial")
-    likelihood = parser.parse_args().likelihood
+    parser.add_argument("--classes", type=int, default=0,
+                        help="reconstruction classes K (categorised)")
+    parser.add_argument("--model", choices=("vae", "gmvae"), default="vae")
+    parser.add_argument("--clusters", type=int, default=chip_smoke.CLUSTERS,
+                        help="latent clusters of the GMVAE")
+    args = parser.parse_args()
+    likelihood = args.likelihood
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 2
     counts = chip_smoke.make_counts(chip_smoke.N_CELLS, chip_smoke.N_GENES)
-    model = VariationalAutoencoder(
-        feature_size=chip_smoke.N_GENES, latent_size=chip_smoke.LATENT,
-        hidden_sizes=[chip_smoke.HIDDEN] * 2,
-        reconstruction_distribution=likelihood,
-    )
+    kwargs = dict(feature_size=chip_smoke.N_GENES,
+                  latent_size=chip_smoke.LATENT,
+                  hidden_sizes=[chip_smoke.HIDDEN] * 2,
+                  reconstruction_distribution=likelihood,
+                  number_of_reconstruction_classes=args.classes)
+    if args.model == "gmvae":
+        model = GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=args.clusters, **kwargs)
+    else:
+        model = VariationalAutoencoder(**kwargs)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -66,7 +82,9 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in kernels)
     wall_ms = window["seconds"] * 1e3 / steps
-    print(f"card: {chip_smoke.card_line()}; likelihood: {likelihood}")
+    print(f"card: {chip_smoke.card_line()}; {args.model}, likelihood: "
+          f"{likelihood}, classes: {args.classes}"
+          + (f", clusters: {args.clusters}" if args.model == "gmvae" else ""))
     print(f"window: {steps} steps, wall {wall_ms:.4f} ms/step, device "
           f"{device_us / 1e3 / steps:.4f} ms/step, busy "
           f"{device_us / 1e3 / steps / wall_ms:.3f}")
