@@ -11,14 +11,16 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              version on the same inputs at the headline shapes (68,579 cells ×
              2,048 genes, minibatch 2,048, decoder width 256) for every
              likelihood family, the categorised instances with 14 heads (ZINB,
-             K = 10) and with the cap of 32 (Poisson, K = 30), NB's K2/K3 over
+             K = 10) and with the cap of 32 (Poisson, K = 30) on targets of
+             which every other row is drawn as Poisson(K), NB's K2/K3 over
              the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
              cycled target rows, and at decoder width 1,024; with its time,
              the plain version's time and the least time the card could take;
 4. slice   — for each trained configuration, the headline VAE with each
              likelihood (Poisson, zero-inflated Poisson, zero-inflated NB,
              constrained Poisson, NB), VAE-ZINB-cat (K = 10 classes, 14 heads),
-             VAE-Poisson-cat (K = 30, 32 heads) and GMVAE-NB (10 clusters): one
+             VAE-Poisson-cat (K = 30, 32 heads, on counts of mean 31 that
+             reach K) and GMVAE-NB (10 clusters): one
              training loss and its gradients on the CPU (plain versions) and
              on the GPU (kernels) from the same small input, then
              ``VariationalAutoencoder(...).train(...)`` or
@@ -48,17 +50,20 @@ WIDE_HIDDEN = 1_024
 EPOCHS = 2
 CLUSTERS = 10  # GMVAE-NB: K·S·B = 20,480 decoder rows per step
 # The trained configurations: (label, model, reconstruction distribution,
-# reconstruction classes).
+# reconstruction classes, Poisson mean of the nonzero counts).  The headline
+# counts (Poisson(3) + 1) do not reach K = 30, so VAE-Poisson-cat trains on
+# Poisson(30) + 1 counts at the same places, about 0.6 of them at or above
+# K: otherwise its base head would never take a gradient.
 TRAINED = (
-    ("poisson", "vae", "poisson", 0),
-    ("zero-inflated poisson", "vae", "zero-inflated poisson", 0),
+    ("poisson", "vae", "poisson", 0, 3.0),
+    ("zero-inflated poisson", "vae", "zero-inflated poisson", 0, 3.0),
     ("zero-inflated negative binomial", "vae",
-     "zero-inflated negative binomial", 0),
-    ("constrained poisson", "vae", "constrained poisson", 0),
-    ("negative binomial", "vae", "negative binomial", 0),
-    ("VAE-ZINB-cat", "vae", "zero-inflated negative binomial", 10),
-    ("VAE-Poisson-cat", "vae", "poisson", 30),
-    ("GMVAE-NB", "gmvae", "negative binomial", 0),
+     "zero-inflated negative binomial", 0, 3.0),
+    ("constrained poisson", "vae", "constrained poisson", 0, 3.0),
+    ("negative binomial", "vae", "negative binomial", 0, 3.0),
+    ("VAE-ZINB-cat", "vae", "zero-inflated negative binomial", 10, 3.0),
+    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0),
+    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0),
 )
 # The categorised kernel checks: (base, K) with 14 and 32 heads.
 CATEGORISED = (("zero-inflated negative binomial", 10), ("poisson", 30))
@@ -108,16 +113,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_counts(n_cells: int, n_genes: int, density: float = 0.07):
+def make_counts(n_cells: int, n_genes: int, density: float = 0.07,
+                mean: float = 3.0):
     """Synthetic sparse counts with PBMC-like sparsity (~93% zeros), made as
-    ``bench.py`` makes them (seed 0)."""
+    ``bench.py`` makes them (seed 0): Poisson(``mean``) + 1 where nonzero."""
     import scipy.sparse
 
     rng_np = np.random.RandomState(0)
     n_nonzero_per_row = max(1, int(n_genes * density))
     rows = np.repeat(np.arange(n_cells), n_nonzero_per_row)
     cols = rng_np.randint(0, n_genes, size=rows.shape[0])
-    vals = rng_np.poisson(3.0, size=rows.shape[0]).astype(np.float32) + 1.0
+    vals = rng_np.poisson(mean, size=rows.shape[0]).astype(np.float32) + 1.0
     return scipy.sparse.csr_matrix(
         (vals, (rows, cols)), shape=(n_cells, n_genes)
     )
@@ -379,16 +385,31 @@ def check_cp(h, g, x, gen, flush):
     return results
 
 
+def categorised_targets(x, k_max, gen):
+    """The minibatch's counts with every other row drawn anew as Poisson(K),
+    so that about a quarter of the elements reach K and the base heads'
+    branch (t ≥ K) is checked with gradients that are not all zero."""
+    t = x.clone()
+    rate = torch.full(t[1::2].shape, float(k_max), device=t.device)
+    t[1::2] = torch.poisson(rate, generator=gen).to(t.dtype)
+    over = int((t >= k_max).sum())
+    if over < t.numel() // 100:
+        raise AssertionError(f"only {over} targets reach K = {k_max}")
+    return t
+
+
 def check_categorised(name, k_max, h, g, x, gen, flush):
     """The categorised K2 and both K3 passes over base ``name`` with K =
-    ``k_max``: the forward (row sums and the per-element lse; bf16 inputs
-    on the main path, ragged F, float32 inputs and targets), the bf16
-    backward against the plain backward with the same rounding (and ragged
-    F), and the float32 backward against autograd through the plain
-    forward; then their times."""
+    ``k_max``, on the targets of ``categorised_targets``: the forward (row
+    sums and the per-element lse; bf16 inputs on the main path, ragged F,
+    float32 inputs and targets), the bf16 backward against the plain
+    backward with the same rounding (and ragged F), and the float32
+    backward against autograd through the plain forward; then their times.
+    Every gradient part of the plain backward must be nonzero somewhere."""
     from scvae_tpu_torch import ops
 
     bf16 = torch.bfloat16
+    x = categorised_targets(x, k_max, gen)
     fam = ops.FAMILIES[name]
     n_base = len(fam.heads)
     m, hidden = h.shape
@@ -427,6 +448,9 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
                                              compute_dtype=bf16),
                 *ops.reference_categorised_dw(name, g, h, *args, lse,
                                               compute_dtype=bf16))
+        for part, b in zip(parts, want):
+            if not float(b.abs().max()) > 0:
+                raise AssertionError(f"{tag} {heads}: plain {part} is all 0")
         errs = [check_close(f"{tag}_backward {heads} {part} "
                             f"F={args[-1].shape[1]}", a, b, BACKWARD_RTOL)
                 for part, a, b in zip(parts, got, want)]
@@ -623,6 +647,8 @@ def phase_small_step(label, model, name, k_max):
         module = vae
         config = vae.VAEConfig(**kwargs)
         noise = rng.standard_normal((1, 64, 8)).astype(np.float32)
+    if k_max:  # every other row Poisson(K): the base branch (t ≥ K) runs
+        x[1::2] = rng.poisson(k_max, size=(32, 300))
     params, state = module.init(config, torch.Generator().manual_seed(0))
     results = []
     for device in ("cpu", "cuda"):
@@ -731,8 +757,11 @@ def main() -> int:
     # its entry (NB's kernels at 2,048 rows in the VAE runs, over the
     # GMVAE's 20,480 rows in the GMVAE-NB run)
     launches = dict.fromkeys(kernels, 0)
-    for label, model, name, k_max in TRAINED:
-        run = train_config(label, model, name, k_max, counts, card)
+    data = {3.0: counts}
+    for label, model, name, k_max, mean in TRAINED:
+        if mean not in data:
+            data[mean] = make_counts(N_CELLS, N_GENES, mean=mean)
+        run = train_config(label, model, name, k_max, data[mean], card)
         for kernel, count in run.items():
             entry = kernel + "_cycled" if model == "gmvae" else kernel
             if kernel == "gather_rows" or entry in kernels:

@@ -59,8 +59,8 @@ def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
 
     The −lgamma(1+t) term is constant in the parameters and additive per
     row, so it is computed here as an (N,) vector, gathered per batch and
-    subtracted outside the forward kernel (``vae.elbo_terms``,
-    ``gmvae.elbo_terms``), which then skips the lgamma chain.  Not for the
+    subtracted outside the forward kernel (``vae.fused_log_p_x``), which
+    then skips the lgamma chain.  Not for the
     constrained Poisson, whose kernel keeps its own lgamma, nor for the
     categorised likelihoods (``k_max`` > 0), whose lgamma sits inside the
     shifted branch and is not row-separable (as in the JAX package)."""

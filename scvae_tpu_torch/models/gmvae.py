@@ -48,9 +48,9 @@ from scvae_tpu_torch.models.vae import (
     Params,
     State,
     check_fused_likelihood,
+    fused_log_p_x,
     resolve_compute_dtype,
 )
-from scvae_tpu_torch.ops.special import lgamma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,42 +379,6 @@ def forward(
 # --------------------------------------------------------------------------
 
 
-def _lgamma_row_const(batch: Batch, t: torch.Tensor) -> torch.Tensor:
-    """Per-row Σ_f lgamma(1+t): the per-dataset sums when the pipeline
-    staged them (``models.api._append_lgamma_rowsum``), else computed here
-    once per step (K·S times cheaper than inside the kernel)."""
-    row_const = batch.get("t_lgamma_rowsum")
-    if row_const is not None:
-        return row_const
-    return torch.sum(lgamma(1.0 + t.float()), dim=-1)
-
-
-def _fused_log_p_x(config: GMVAEConfig, params: Params, batch: Batch,
-                   dec_h: torch.Tensor, t: torch.Tensor,
-                   compute_dtype) -> torch.Tensor:
-    """log p(x|z_k) (K, S, B): one fused launch over the K·S·B decoder rows,
-    the (B, F) targets shared (their rows cycle)."""
-    name = config.reconstruction_distribution
-    if config.k_max:
-        return ops.fused_categorised_log_likelihood(
-            name, dec_h, params["reconstruction"],
-            params["categorised_logits"]["kernel"],
-            params["categorised_logits"]["bias"], t,
-            compute_dtype=compute_dtype,
-        )
-    if config.use_count_sum_as_parameter:
-        return ops.fused_log_likelihood(
-            name, dec_h, params["reconstruction"], t,
-            count_sum=batch["count_sum"], compute_dtype=compute_dtype,
-        )
-    # the −lgamma(1+t) constant (no gradient) once, outside the kernel
-    rows = ops.fused_log_likelihood(
-        name, dec_h, params["reconstruction"], t,
-        compute_dtype=compute_dtype, include_lgamma_const=False,
-    )
-    return rows - _lgamma_row_const(batch, t)
-
-
 def elbo_terms(
     config: GMVAEConfig,
     params: Params,
@@ -472,8 +436,9 @@ def elbo_terms(
         torch.mean(kl_z_pointwise, dim=0) * y_probs_k, dim=0))
 
     if training:
-        log_p_x = _fused_log_p_x(config, params, batch, outputs.decoder_hidden,
-                                 t, config.compute_dtype(training, t.device))
+        # (K, S, B): one launch over the K·S·B decoder rows
+        log_p_x = fused_log_p_x(config, params, batch, outputs.decoder_hidden,
+                                t, config.compute_dtype(training, t.device))
     else:
         log_p_x = torch.sum(outputs.p_x.log_prob(t.float()), dim=-1)
     # (K, S, B) → per-cluster sample means weighted by q(y|x)

@@ -30,6 +30,7 @@ from scvae_tpu_torch.distributions import (
 )
 from scvae_tpu_torch.models import networks
 from scvae_tpu_torch.models.objectives import log_reduce_exp
+from scvae_tpu_torch.ops.special import lgamma
 
 Params = dict[str, Any]
 State = dict[str, Any]
@@ -348,6 +349,40 @@ def forward(
 # --------------------------------------------------------------------------
 
 
+def fused_log_p_x(config, params: Params, batch: Batch, h: torch.Tensor,
+                  t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """log p(x|z) of the fused training path in one launch: the decoder
+    output h (..., H) against the targets t (M_t, F), whose rows cycle.
+
+    The −lgamma(1+t) term is constant in the parameters and additive per
+    row, so the kernel skips it and it is subtracted here: the row sums the
+    data pipeline staged once per dataset
+    (``models.api._append_lgamma_rowsum``), else summed here once per
+    target row (not once per decoder row: a GMVAE has K·S of those per
+    target row).  The constrained Poisson's kernel and the categorised
+    likelihood (lgamma inside its shifted branch) keep their own."""
+    name = config.reconstruction_distribution
+    if config.k_max:
+        return ops.fused_categorised_log_likelihood(
+            name, h, params["reconstruction"],
+            params["categorised_logits"]["kernel"],
+            params["categorised_logits"]["bias"], t,
+            compute_dtype=compute_dtype,
+        )
+    if config.use_count_sum_as_parameter:
+        return ops.fused_log_likelihood(
+            name, h, params["reconstruction"], t,
+            count_sum=batch["count_sum"], compute_dtype=compute_dtype,
+        )
+    row_const = batch.get("t_lgamma_rowsum")
+    if row_const is None:
+        row_const = torch.sum(lgamma(1.0 + t.float()), dim=-1)
+    return ops.fused_log_likelihood(
+        name, h, params["reconstruction"], t, compute_dtype=compute_dtype,
+        include_lgamma_const=False,
+    ) - row_const
+
+
 def elbo_terms(
     config: VAEConfig,
     params: Params,
@@ -382,40 +417,8 @@ def elbo_terms(
         n_iw = n_mc = 1
 
     if use_fused:
-        name = config.reconstruction_distribution
-        compute_dtype = config.compute_dtype(training, t.device)
-        if config.k_max:
-            # lgamma sits inside the shifted branch: no row constant here
-            rows = ops.fused_categorised_log_likelihood(
-                name,
-                outputs.decoder_hidden,
-                params["reconstruction"],
-                params["categorised_logits"]["kernel"],
-                params["categorised_logits"]["bias"],
-                t,
-                compute_dtype=compute_dtype,
-            )
-        else:
-            count_sum = (batch["count_sum"]
-                         if config.use_count_sum_as_parameter else None)
-            # The −lgamma(1+t) term is constant in the parameters and
-            # additive per row: when the data pipeline staged its row sums
-            # once per dataset (models.api._append_lgamma_rowsum) the kernel
-            # skips it.  The constrained Poisson's kernel always subtracts
-            # it itself.
-            row_const = (batch.get("t_lgamma_rowsum")
-                         if name != "constrained poisson" else None)
-            rows = ops.fused_log_likelihood(
-                name,
-                outputs.decoder_hidden,
-                params["reconstruction"],
-                t,
-                count_sum=count_sum,
-                compute_dtype=compute_dtype,
-                include_lgamma_const=row_const is None,
-            )
-            if row_const is not None:
-                rows = rows - row_const
+        rows = fused_log_p_x(config, params, batch, outputs.decoder_hidden, t,
+                             config.compute_dtype(training, t.device))
         log_p_x_given_z = rows.reshape(n_iw, n_mc, b)
     else:
         log_p_x_given_z = torch.sum(

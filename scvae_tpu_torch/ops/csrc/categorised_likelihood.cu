@@ -191,16 +191,19 @@ __global__ void __launch_bounds__(kThreads)
       lse_out[(long long)row * f + gene] = lse;
     }
   }
-  // The 32 lanes of a warp hold partial sums of the same two rows.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      row_ll[i] += __shfl_xor_sync(0xffffffffu, row_ll[i], off);
-    const int row = row0 + rl[i];
-    if (gl == 0 && row < m) out[row] = row_ll[i];
-  }
+  write_row_sums(row_ll, rl, row0, gl, m, out);
 }
+
+// dll/da of the base heads: the base family's gradients at the shifted
+// count t - K, zero below K.
+template <class Fam>
+struct ShiftedBaseGrads {
+  int k;
+  __device__ __forceinline__ void operator()(int, int, float t,
+                                             const float* a, float* da) const {
+    if (t >= (float)k) Fam::grads(a, t - (float)k, nullptr, da);
+  }
+};
 
 // Backward pass 1: one block per 16-row tile (blockIdx.x) and 256-wide dh
 // column chunk (blockIdx.y), looping over all genes; for each gene tile the
@@ -267,26 +270,17 @@ __global__ void __launch_bounds__(kThreads)
       float da[NB];
 #pragma unroll
       for (int j = 0; j < NB; ++j) da[j] = 0.0f;
-      if (valid[i] && tv[i] >= (float)k) {
+      if (valid[i]) {
         float a[NB];
 #pragma unroll
         for (int j = 0; j < NB; ++j) a[j] = acc[i][j] + base.b[j][gene];
-        Fam::grads(a, tv[i] - (float)k, nullptr, da);
+        ShiftedBaseGrads<Fam>{k}(row0 + rl[i], gene, tv[i], a, da);
 #pragma unroll
         for (int j = 0; j < NB; ++j) da[j] *= grow[i];
       }
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        sDa[(j * kGeneTile + gl) * kRowTile + rl[i]] =
-            round_bf16 ? to_bf16(da[j]) : da[j];
+      store_da<NB>(sDa, gl, rl[i], da, round_bf16);
     }
-    if (restage) {
-      __syncthreads();  // the last chunk's head products are done
-      stage_w<NB, kGeneTile>(sW, base, f0, ws, cy * kChunk, cwy, f,
-                             round_bf16);
-    }
-    __syncthreads();
-    dh_products<NB>(sDa, sW, cwy, ws, acc_h);
+    dh_tile<NB>(sDa, sW, base, f0, ws, cy, cwy, f, restage, round_bf16, acc_h);
 
     // class heads, a group at a time
     for (int c0 = 0; c0 < n_classes; c0 += kClassGroup) {
@@ -300,167 +294,41 @@ __global__ void __launch_bounds__(kThreads)
           hidden, f, hs, false, round_bf16, ca);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
+        float da[kClassGroup];
 #pragma unroll
         for (int j = 0; j < kClassGroup; ++j) {
-          float da = 0.0f;
+          da[j] = 0.0f;
           if (valid[i] && j < grp.n) {
             const float a = ca[i][j] + grp.b[j][gene];
-            da = grow[i] * (class_indicator(tv[i], c0 + j, k) -
-                            expf(a - lv[i]));
+            da[j] = grow[i] * (class_indicator(tv[i], c0 + j, k) -
+                               expf(a - lv[i]));
           }
-          sDa[(j * kGeneTile + gl) * kRowTile + rl[i]] =
-              round_bf16 ? to_bf16(da) : da;
         }
+        store_da<kClassGroup>(sDa, gl, rl[i], da, round_bf16);
       }
-      if (restage) {
-        __syncthreads();
-        stage_w<kClassGroup, kGeneTile>(sW, grp, f0, ws, cy * kChunk, cwy, f,
-                                        round_bf16);
-      }
-      __syncthreads();
-      dh_products<kClassGroup>(sDa, sW, cwy, ws, acc_h);
+      dh_tile<kClassGroup>(sDa, sW, grp, f0, ws, cy, cwy, f, restage,
+                           round_bf16, acc_h);
     }
   }
-
-  if (tid < cwy) {
-#pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      const int row = row0 + r;
-      if (row < m) dh[(long long)row * hidden + cy * kChunk + tid] = acc_h[r];
-    }
-  }
+  write_dh(acc_h, row0, cy, cwy, m, hidden, dh);
 }
 
-// Backward pass 2 for one head group of NH heads (the dw_kernel of
-// fused_heads.cuh with the categorised gradients): the block's 16 genes and
-// 256-wide dW chunk, looping over all rows in tiles of 32.  CLASSES: the
-// heads are classes c0 ... c0 + n - 1 and need the elements' lse; otherwise
-// they are the base family's heads.  Only the first n slots are written.
-template <int NH, bool CLASSES, class Fam, typename TT, class HS, class Out>
-__device__ __forceinline__ void cat_dw_group(
-    const float* __restrict__ g, const float* __restrict__ h,
-    const HS& heads, int n, int c0, int k, const TT* __restrict__ t,
-    const float* __restrict__ lse, const Out& out, int m, int m_t, int hidden,
-    int f, int round_bf16) {
-  constexpr int TG = kDwGeneTile, TR = kDwRowTile;
-  constexpr int kJ = kChunk / TG;  // hidden units of the chunk per thread
-  extern __shared__ __align__(16) float smem[];
-  const int kc = chunk_width(hidden), nc = n_chunks(hidden);
-  const int hs = round_up4(kc) + 4;
-  float* sH = smem;                           // [32][hs]
-  float* sW = sH + TR * hs;                   // [NH][kc][16]
-  float* sDa = sW + round_up4(NH * kc * TG);  // [NH][32][16]
-  float* sDb = sDa + NH * TR * TG;            // [NH][16][16]
-
-  const int tid = threadIdx.x;
-  const int gene0 = blockIdx.x * TG;
-  const int gl = tid % TG;
-  const int ry = tid / TG;  // 0..15
-  const int gene = gene0 + gl;
-  const int cy = blockIdx.y;
-  const int cwy = min(kChunk, hidden - cy * kChunk);
-
-  float bias[NH];
+// dll/da_c of the group's classes c0 ... c0 + n - 1 from the element's lse.
+struct ClassGroupGrads {
+  const float* lse;
+  int f, c0, n, k;
+  __device__ __forceinline__ void operator()(int row, int gene, float t,
+                                             const float* a, float* da) const {
+    const float lv = lse[(long long)row * f + gene];
 #pragma unroll
-  for (int j = 0; j < NH; ++j) bias[j] = gene < f ? heads.b[j][gene] : 0.0f;
-  float acc_w[kJ][NH];
-  float db_acc[NH];
-#pragma unroll
-  for (int j = 0; j < NH; ++j) {
-    db_acc[j] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kJ; ++q) acc_w[q][j] = 0.0f;
+    for (int j = 0; j < kClassGroup; ++j)
+      if (j < n) da[j] = class_indicator(t, c0 + j, k) - expf(a[j] - lv);
   }
+};
 
-  if (nc == 1) stage_w<NH, TG>(sW, heads, gene0, TG, 0, kc, f, round_bf16);
-  for (int row0 = 0; row0 < m; row0 += TR) {
-    float acc[2][NH];
-#pragma unroll
-    for (int j = 0; j < NH; ++j) acc[0][j] = acc[1][j] = 0.0f;
-    if (nc == 1) {
-      __syncthreads();  // the previous row tile's readers of sH / sDa are done
-      stage_h(sH, h, row0, TR, m, hidden, 0, kc, hs, round_bf16);
-    }
-    tile_activations<NH, TG>(sH, sW, h, heads, row0, TR, ry, ry + TR / 2,
-                             gene0, gl, TG, m, hidden, f, hs, true, round_bf16,
-                             acc);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rloc = ry + i * (TR / 2);
-      const int row = row0 + rloc;
-      float da[NH];
-#pragma unroll
-      for (int j = 0; j < NH; ++j) da[j] = 0.0f;
-      if (row < m && gene < f) {
-        const float tv = load_f(t + (long long)(row % m_t) * f + gene);
-        float a[NH];
-#pragma unroll
-        for (int j = 0; j < NH; ++j) a[j] = acc[i][j] + bias[j];
-        if constexpr (CLASSES) {
-          const float lv = lse[(long long)row * f + gene];
-#pragma unroll
-          for (int j = 0; j < NH; ++j)
-            if (j < n) da[j] = class_indicator(tv, c0 + j, k) - expf(a[j] - lv);
-        } else if (tv >= (float)k) {
-          Fam::grads(a, tv - (float)k, nullptr, da);
-        }
-        const float gv = g[row];
-#pragma unroll
-        for (int j = 0; j < NH; ++j) da[j] *= gv;
-      }
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        db_acc[j] += da[j];
-        sDa[(j * TR + rloc) * TG + gl] = round_bf16 ? to_bf16(da[j]) : da[j];
-      }
-    }
-    if (nc > 1 && cy != nc - 1) {
-      __syncthreads();  // the last chunk's head products are done
-      stage_h(sH, h, row0, TR, m, hidden, cy * kChunk, cwy, hs, round_bf16);
-    }
-    __syncthreads();
-    // dW_j[hh][gl] += sum_r h[r][hh] da_j[r][gl]
-    for (int r = 0; r < TR; ++r) {
-      float d[NH];
-#pragma unroll
-      for (int j = 0; j < NH; ++j) d[j] = sDa[(j * TR + r) * TG + gl];
-#pragma unroll
-      for (int q = 0; q < kJ; ++q) {
-        const int hh = ry + TG * q;
-        const float hv = hh < cwy ? sH[r * hs + hh] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < NH; ++j) acc_w[q][j] = fmaf(hv, d[j], acc_w[q][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < kJ; ++q) {
-    const int hh = ry + TG * q;
-    if (hh < cwy && gene < f) {
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-        if (j < n) out.dw[j][(long long)(cy * kChunk + hh) * f + gene] =
-            acc_w[q][j];
-    }
-  }
-  if (cy != 0) return;
-#pragma unroll
-  for (int j = 0; j < NH; ++j) sDb[(j * TG + ry) * TG + gl] = db_acc[j];
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NH; ++j) {
-    if (tid / TG == j && j < n) {
-      const int gg = tid - j * TG;
-      float s = 0.0f;
-      for (int q = 0; q < TG; ++q) s += sDb[(j * TG + q) * TG + gg];
-      if (gene0 + gg < f) out.db[j][gene0 + gg] = s;
-    }
-  }
-}
-
-// Backward pass 2: blockIdx.z = 0 for the base heads, z >= 1 for the class
-// group starting at class 4 (z - 1).
+// Backward pass 2 (dw_body of fused_heads.cuh over one head group):
+// blockIdx.z = 0 for the base heads, z >= 1 for the class group starting at
+// class 4 (z - 1).  Each group block recomputes its own heads' activations.
 template <class Fam, typename TT>
 __global__ void __launch_bounds__(kThreads)
     cat_dw_kernel(const float* __restrict__ g, const float* __restrict__ h,
@@ -472,9 +340,8 @@ __global__ void __launch_bounds__(kThreads)
                   int round_bf16) {
   const int k = n_classes - 1;
   if (blockIdx.z == 0) {
-    cat_dw_group<Fam::kHeads, false, Fam, TT>(g, h, base, Fam::kHeads, 0, k,
-                                              t, lse, base_out, m, m_t, hidden,
-                                              f, round_bf16);
+    dw_body<Fam::kHeads>(g, h, base, t, base_out, Fam::kHeads, m, m_t, hidden,
+                         f, round_bf16, ShiftedBaseGrads<Fam>{k});
     return;
   }
   const int c0 = (blockIdx.z - 1) * kClassGroup;
@@ -482,8 +349,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long hf = (long long)hidden * f;
   const ClassGrads out{{dcw + c0 * hf, hf, grp.n - 1},
                        {dcb + (long long)c0 * f, f, grp.n - 1}};
-  cat_dw_group<kClassGroup, true, Fam, TT>(g, h, grp, grp.n, c0, k, t, lse,
-                                           out, m, m_t, hidden, f, round_bf16);
+  dw_body<kClassGroup>(g, h, grp, t, out, grp.n, m, m_t, hidden, f,
+                       round_bf16, ClassGroupGrads{lse, f, c0, grp.n, k});
 }
 
 // Dynamic shared memory of each kernel, bounded for any H: at most 160,000

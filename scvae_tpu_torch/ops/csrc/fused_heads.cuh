@@ -208,6 +208,63 @@ __device__ __forceinline__ void dh_products(const float* sDa, const float* sW,
   }
 }
 
+// da_k of one (row, gene) into sDa[k][gl][r], rounded to bf16 when asked.
+template <int NH>
+__device__ __forceinline__ void store_da(float* sDa, int gl, int r,
+                                         const float (&da)[NH],
+                                         bool round_bf16) {
+#pragma unroll
+  for (int k = 0; k < NH; ++k)
+    sDa[(k * kGeneTile + gl) * kRowTile + r] =
+        round_bf16 ? to_bf16(da[k]) : da[k];
+}
+
+// The dh products of one gene tile's staged da (sDa) with the block's dh
+// chunk [cy * kChunk, cy * kChunk + cwy) of the heads' weights, which are
+// staged again first when the last staged hidden chunk is another one.
+template <int NH, class HS>
+__device__ __forceinline__ void dh_tile(const float* sDa, float* sW,
+                                        const HS& heads, int f0, int ws,
+                                        int cy, int cwy, int f, bool restage,
+                                        bool round_bf16,
+                                        float (&acc_h)[kRowTile]) {
+  if (restage) {
+    __syncthreads();  // the last chunk's head products are done
+    stage_w<NH, kGeneTile>(sW, heads, f0, ws, cy * kChunk, cwy, f, round_bf16);
+  }
+  __syncthreads();
+  dh_products<NH>(sDa, sW, cwy, ws, acc_h);
+}
+
+// Row sums of a row tile: the 32 lanes of a warp hold partial sums of the
+// same two rows rl[0], rl[1].
+__device__ __forceinline__ void write_row_sums(float (&row_ll)[2],
+                                               const int (&rl)[2], int row0,
+                                               int gl, int m,
+                                               float* __restrict__ out) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      row_ll[i] += __shfl_xor_sync(0xffffffffu, row_ll[i], off);
+    const int row = row0 + rl[i];
+    if (gl == 0 && row < m) out[row] = row_ll[i];
+  }
+}
+
+// The block's dh chunk, column cy * kChunk + threadIdx.x of each row.
+__device__ __forceinline__ void write_dh(const float (&acc_h)[kRowTile],
+                                         int row0, int cy, int cwy, int m,
+                                         int hidden, float* __restrict__ dh) {
+  const int tid = threadIdx.x;
+  if (tid >= cwy) return;
+#pragma unroll
+  for (int r = 0; r < kRowTile; ++r) {
+    const int row = row0 + r;
+    if (row < m) dh[(long long)row * hidden + cy * kChunk + tid] = acc_h[r];
+  }
+}
+
 // Activations of rows r0, r1 of the block's tile at gene column gc of the
 // gene tile starting at gene0, summed over every hidden chunk in order.
 // sH holds the whole (single-chunk) h tile already when n_chunks(hidden) == 1.
@@ -253,10 +310,9 @@ __global__ void __launch_bounds__(kThreads)
   float* sW = sH + kRowTile * hs;                 // [NH][kc][33]
   float* sDa = sW + round_up4(NH * kc * ws);      // [NH][32][16]
 
-  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRowTile;
-  const int gl = tid % kGeneTile;
-  const int ty = tid / kGeneTile;
+  const int gl = threadIdx.x % kGeneTile;
+  const int ty = threadIdx.x / kGeneTile;
   const int rl[2] = {ty, ty + kRowTile / 2};
   // dh pass: the block's columns are [cy * kChunk, cy * kChunk + cwy), and
   // thread tid owns column cy * kChunk + tid.
@@ -315,55 +371,38 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int k = 0; k < NH; ++k) da[k] *= grow[i];
         }
-#pragma unroll
-        for (int k = 0; k < NH; ++k)
-          sDa[(k * kGeneTile + gl) * kRowTile + rl[i]] =
-              round_bf16 ? to_bf16(da[k]) : da[k];
+        store_da<NH>(sDa, gl, rl[i], da, round_bf16);
       }
     }
-    if constexpr (DH) {
-      if (nc > 1 && cy != nc - 1) {
-        __syncthreads();  // the last chunk's head products are done
-        stage_w<NH, kGeneTile>(sW, heads, f0, ws, cy * kChunk, cwy, f,
-                               round_bf16);
-      }
-      __syncthreads();
-      dh_products<NH>(sDa, sW, cwy, ws, acc_h);
-    }
+    if constexpr (DH)
+      dh_tile<NH>(sDa, sW, heads, f0, ws, cy, cwy, f, nc > 1 && cy != nc - 1,
+                  round_bf16, acc_h);
   }
 
-  if constexpr (!DH) {
-    // The 32 lanes of a warp hold partial sums of the same two rows.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        row_ll[i] += __shfl_xor_sync(0xffffffffu, row_ll[i], off);
-      const int row = row0 + rl[i];
-      if (gl == 0 && row < m) out[row] = row_ll[i];
-    }
-  } else if (tid < cwy) {
-#pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      const int row = row0 + r;
-      if (row < m) out[(long long)row * hidden + cy * kChunk + tid] = acc_h[r];
-    }
-  }
+  if constexpr (!DH)
+    write_row_sums(row_ll, rl, row0, gl, m, out);
+  else
+    write_dh(acc_h, row0, cy, cwy, m, hidden, out);
 }
 
-// Backward pass 2: one block per tile of kDwGeneTile genes (blockIdx.x) and
-// one kChunk-wide row chunk of dW (blockIdx.y), looping over all rows in
-// tiles of kDwRowTile.  dW_k[chunk, genes] = h^T bf16(da_k) in registers and
-// db_k[genes] = sum_rows da_k (unrounded; written by the chunk-0 blocks), in
-// a fixed order.  Thread layout: gene tid % 16; rows tid / 16 and that + 16
-// for the activations; hidden units tid / 16 + 16 j of the chunk for dW.
-template <class Fam, typename TT>
-__global__ void __launch_bounds__(kThreads)
-    dw_kernel(const float* __restrict__ g, const float* __restrict__ h,
-              Heads heads, RowExtras extras, const TT* __restrict__ t,
-              HeadGrads out, int m, int m_t, int hidden, int f,
-              int round_bf16) {
-  constexpr int NH = Fam::kHeads;
+// Backward pass 2 over the NH heads of a head source HS (whose w[k], b[k]
+// give head k's weights and bias; Out's dw[k], db[k] its gradients): one
+// block per tile of kDwGeneTile genes (blockIdx.x) and one kChunk-wide row
+// chunk of dW (blockIdx.y), looping over all rows in tiles of kDwRowTile.
+// dW_k[chunk, genes] = h^T bf16(da_k) in registers and db_k[genes] =
+// sum_rows da_k (unrounded; written by the chunk-0 blocks), in a fixed
+// order, for the first n heads.  da_k = g dll/da_k, where
+// grads(row, gene, t, a, da) writes dll/da_k into da (zero on entry).
+// Thread layout: gene tid % 16; rows tid / 16 and that + 16 for the
+// activations; hidden units tid / 16 + 16 j of the chunk for dW.
+template <int NH, typename TT, class HS, class Out, class Grads>
+__device__ __forceinline__ void dw_body(const float* __restrict__ g,
+                                        const float* __restrict__ h,
+                                        const HS& heads,
+                                        const TT* __restrict__ t,
+                                        const Out& out, int n, int m, int m_t,
+                                        int hidden, int f, int round_bf16,
+                                        const Grads& grads) {
   constexpr int TG = kDwGeneTile, TR = kDwRowTile;
   constexpr int kJ = kChunk / TG;  // hidden units of the chunk per thread
   extern __shared__ __align__(16) float smem[];
@@ -415,11 +454,10 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < NH; ++k) da[k] = 0.0f;
       if (row < m && gene < f) {
         const float tv = load_f(t + (long long)(row % m_t) * f + gene);
-        float a[NH], extra[2];
+        float a[NH];
 #pragma unroll
         for (int k = 0; k < NH; ++k) a[k] = acc[i][k] + bias[k];
-        load_extras(extras, row, m_t, extra);
-        Fam::grads(a, tv, extra, da);
+        grads(row, gene, tv, a, da);
         const float gv = g[row];
 #pragma unroll
         for (int k = 0; k < NH; ++k) da[k] *= gv;
@@ -456,7 +494,8 @@ __global__ void __launch_bounds__(kThreads)
     if (hh < cwy && gene < f) {
 #pragma unroll
       for (int k = 0; k < NH; ++k)
-        out.dw[k][(long long)(cy * kChunk + hh) * f + gene] = acc_w[j][k];
+        if (k < n) out.dw[k][(long long)(cy * kChunk + hh) * f + gene] =
+            acc_w[j][k];
     }
   }
   if (cy != 0) return;
@@ -465,13 +504,36 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < NH; ++k) {
-    if (tid / TG == k) {
+    if (tid / TG == k && k < n) {
       const int gg = tid - k * TG;
       float s = 0.0f;
       for (int j = 0; j < TG; ++j) s += sDb[(k * TG + j) * TG + gg];
       if (gene0 + gg < f) out.db[k][gene0 + gg] = s;
     }
   }
+}
+
+// A count family's dll/da at one (row, gene), with the row's extras.
+template <class Fam>
+struct FamilyGrads {
+  RowExtras extras;
+  int m_t;
+  __device__ __forceinline__ void operator()(int row, int, float t,
+                                             const float* a, float* da) const {
+    float extra[2];
+    load_extras(extras, row, m_t, extra);
+    Fam::grads(a, t, extra, da);
+  }
+};
+
+template <class Fam, typename TT>
+__global__ void __launch_bounds__(kThreads)
+    dw_kernel(const float* __restrict__ g, const float* __restrict__ h,
+              Heads heads, RowExtras extras, const TT* __restrict__ t,
+              HeadGrads out, int m, int m_t, int hidden, int f,
+              int round_bf16) {
+  dw_body<Fam::kHeads>(g, h, heads, t, out, Fam::kHeads, m, m_t, hidden, f,
+                       round_bf16, FamilyGrads<Fam>{extras, m_t});
 }
 
 // Dynamic shared memory of each kernel, bounded for any H: at most

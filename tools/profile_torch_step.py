@@ -2,14 +2,14 @@
 """Where the time of a training step goes in the PyTorch/CUDA port.
 
     python3 tools/profile_torch_step.py [LIKELIHOOD] [--classes K]
-        [--model gmvae [--clusters C]]
+        [--model gmvae]
 
 Trains the headline VAE of ``chip_smoke.py`` (68,579 × 2,048 synthetic
 counts, hidden (256, 256), latent 100, minibatch 2,048) with the
 reconstruction likelihood LIKELIHOOD (default "negative binomial"; any name
 the port trains, e.g. "zero-inflated negative binomial" or "constrained
 poisson"), with K reconstruction classes (the categorised likelihood;
-default 0), or the GMVAE with C latent clusters (default 10), for one
+default 0), or the GMVAE of ``chip_smoke.py`` (10 latent clusters), for one
 warm-up epoch, then records the second epoch's 33 training steps with
 ``torch.profiler`` and prints, for that window: the wall time per step, the
 device time per step summed over kernels, the device-busy share, and the
@@ -43,8 +43,6 @@ def main() -> int:
     parser.add_argument("--classes", type=int, default=0,
                         help="reconstruction classes K (categorised)")
     parser.add_argument("--model", choices=("vae", "gmvae"), default="vae")
-    parser.add_argument("--clusters", type=int, default=chip_smoke.CLUSTERS,
-                        help="latent clusters of the GMVAE")
     args = parser.parse_args()
     likelihood = args.likelihood
     if not torch.cuda.is_available():
@@ -58,7 +56,7 @@ def main() -> int:
                   number_of_reconstruction_classes=args.classes)
     if args.model == "gmvae":
         model = GaussianMixtureVariationalAutoencoder(
-            number_of_latent_clusters=args.clusters, **kwargs)
+            number_of_latent_clusters=chip_smoke.CLUSTERS, **kwargs)
     else:
         model = VariationalAutoencoder(**kwargs)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -84,7 +82,8 @@ def main() -> int:
     wall_ms = window["seconds"] * 1e3 / steps
     print(f"card: {chip_smoke.card_line()}; {args.model}, likelihood: "
           f"{likelihood}, classes: {args.classes}"
-          + (f", clusters: {args.clusters}" if args.model == "gmvae" else ""))
+          + (f", clusters: {chip_smoke.CLUSTERS}" if args.model == "gmvae"
+             else ""))
     print(f"window: {steps} steps, wall {wall_ms:.4f} ms/step, device "
           f"{device_us / 1e3 / steps:.4f} ms/step, busy "
           f"{device_us / 1e3 / steps / wall_ms:.3f}")
