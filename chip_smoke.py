@@ -28,7 +28,24 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              headline width for two epochs: a finite, rising ELBO, and each of
              the configuration's likelihood kernels launched exactly once per
              training step (GMVAE-NB: once over all clusters, not K times),
-             no other likelihood kernel, the row gather at least once.
+             no other likelihood kernel, the row gather at least once;
+5. after   — the life of a model after training: the counts split 90/10
+             into training and validation rows; VAE-NB and a GMVAE (10
+             clusters) for each base family trained at the headline width
+             for three epochs with the validation set and a log directory
+             under ``build/``; the run's files, ``best/`` restored equal to
+             the parameters of the best epoch bit for bit, ``evaluate`` on
+             the validation set and ``sample`` of 2,048 cells; and on each
+             restored GMVAE, for each validation minibatch, log p(x|z,y) over
+             the K·S = 10 decoder groups and its gradients for h and the
+             heads, weighted by q(y|x), through the grouped kernels (one
+             launch of K4 and of each K5 pass per batch) against the flat
+             kernels over the same rows with cycled targets.
+
+Phase 3 also holds the grouped kernels K4/K5 of every base family against
+their plain versions at the GMVAE's shapes (G = 10 groups of 2,048 rows,
+decoder width 256; NB also at the cap G = 16), and NB's against the flat
+kernels over the same 20,480 rows with cycled targets.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -38,6 +55,8 @@ package is missing.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -67,6 +86,16 @@ TRAINED = (
 )
 # The categorised kernel checks: (base, K) with 14 and 32 heads.
 CATEGORISED = (("zero-inflated negative binomial", 10), ("poisson", 30))
+# The base families, which the grouped kernels take, and their cap on groups.
+BASE_FAMILIES = ("poisson", "negative binomial", "zero-inflated poisson",
+                 "zero-inflated negative binomial")
+GROUP_CAP = 16
+# Phase 5: epochs, validation share, cells sampled, the runs' directory.
+AFTER_EPOCHS = 3
+VALIDATION_SHARE = 0.1
+SAMPLES = 2_048
+AFTER_DIRECTORY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "after_training")
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -91,6 +120,7 @@ SOURCES = {
     "count": "scvae_tpu_torch/ops/csrc/count_likelihood.cu",
     "cp": "scvae_tpu_torch/ops/csrc/cp_likelihood.cu",
     "cat": "scvae_tpu_torch/ops/csrc/categorised_likelihood.cu",
+    "grouped": "scvae_tpu_torch/ops/csrc/grouped_likelihood.cu",
 }
 REPLACES = {
     "gather_rows": "scvae_tpu/ops/gather.py:223",
@@ -98,6 +128,8 @@ REPLACES = {
     "backward": "scvae_tpu/ops/fused_likelihood.py:714",
     "cp_forward": "scvae_tpu/ops/fused_likelihood.py:1356",
     "cp_backward": "scvae_tpu/ops/fused_likelihood.py:1417",
+    "grouped_forward": "scvae_tpu/ops/fused_likelihood.py:964",
+    "grouped_backward": "scvae_tpu/ops/fused_likelihood.py:1041",
 }
 
 
@@ -561,6 +593,85 @@ def check_cycled_rows(x, gen, flush):
     return results
 
 
+def check_grouped(name, x, gen, flush, n_groups):
+    """K4 and both K5 passes of base family ``name`` at the GMVAE's shapes:
+    h (G, M, H) against the minibatch's targets (M, F), bf16 inputs, row
+    weights as uneven as q(y|x) (a softmax over the groups); against the
+    plain versions with the same rounding, and NB's against the flat K2/K3
+    over the G·M group-major rows with cycled targets (the lgamma constant
+    included, as K4 always subtracts it); then, at G = 10, their times."""
+    from scvae_tpu_torch import ops
+
+    fam = ops.FAMILIES[name]
+    k = len(fam.heads)
+    m, f = x.shape
+    dev = x.device
+    h = torch.relu(torch.randn(n_groups, m, HIDDEN, generator=gen, device=dev))
+    g = torch.softmax(2 * torch.randn(n_groups, m, generator=gen, device=dev),
+                      dim=0) / m
+    ws, bs = head_weights(gen, k, HIDDEN, f, dev)
+    args = (h, ws, bs, x)
+    kw = dict(compute_dtype=torch.bfloat16)
+    tag = f"{fam.prefix}_grouped G={n_groups}"
+    out = ops.grouped_forward(name, *args, **kw)
+    fwd_err = check_close(f"{tag} forward", out,
+                          ops.reference_grouped_forward(name, *args, **kw),
+                          FORWARD_RTOL)
+    dh = ops.grouped_backward_dh(name, g, *args, **kw)
+    dh_err = check_close(f"{tag} dh", dh,
+                         ops.reference_grouped_dh(name, g, *args, **kw),
+                         BACKWARD_RTOL)
+    dws = ops.grouped_backward_dw(name, g, *args, **kw)
+    parts = [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
+    dw_err = max(check_close(f"{tag} {part}", a, b, BACKWARD_RTOL)
+                 for part, a, b in zip(
+                     parts, dws, ops.reference_grouped_dw(name, g, *args, **kw)))
+    if name == "negative binomial":
+        h2, g2 = h.reshape(-1, HIDDEN), g.reshape(-1)
+        flat = f"flat over {h2.shape[0]} cycled rows"
+        check_close(f"{tag} forward vs {flat}", out.reshape(-1),
+                    ops.fused_forward(name, h2, ws, bs, x, **kw), FORWARD_RTOL)
+        check_close(f"{tag} dh vs {flat}", dh.reshape(-1, HIDDEN),
+                    ops.fused_backward_dh(name, g2, h2, ws, bs, x, **kw),
+                    BACKWARD_RTOL)
+        for part, a, b in zip(parts, dws, ops.fused_backward_dw(
+                name, g2, h2, ws, bs, x, **kw)):
+            check_close(f"{tag} {part} vs {flat}", a, b, BACKWARD_RTOL)
+    if n_groups != CLUSTERS:
+        return {}
+
+    # the work of the flat kernels over the same G·M rows: equal bounds
+    rows = n_groups * m
+    fwd_flops = 2 * k * rows * HIDDEN * f
+    head_bytes = k * (HIDDEN * f + f) * 4
+    fwd_bytes = rows * HIDDEN * 4 + head_bytes + m * f * 2 + rows * 4
+    t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+    results = {f"{fam.prefix}_grouped_forward": {
+        "max_abs_err": fwd_err,
+        "ms": time_ms(lambda: ops.grouped_forward(name, *args, **kw),
+                      flush=flush, reps=10),
+        "plain_ms": time_ms(lambda: ops.reference_grouped_forward(
+            name, *args, **kw), flush=flush, reps=10),
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+    }}
+    for kernel, err, nbytes, fn, plain in (
+        ("backward_dh", dh_err, fwd_bytes + rows * HIDDEN * 4,
+         ops.grouped_backward_dh, ops.reference_grouped_dh),
+        ("backward_dw", dw_err, fwd_bytes + head_bytes,
+         ops.grouped_backward_dw, ops.reference_grouped_dw),
+    ):
+        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
+        results[f"{fam.prefix}_grouped_{kernel}"] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda fn=fn: fn(name, g, *args, **kw),
+                          flush=flush, reps=10),
+            "plain_ms": time_ms(lambda plain=plain: plain(
+                name, g, *args, **kw), flush=flush, reps=10),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
+    return results
+
+
 def check_wide(x, g, gen):
     """Decoder width 1,024 (four hidden chunks): NB, ZINB and the
     constrained Poisson against their plain versions.  The base families'
@@ -623,6 +734,9 @@ def phase_kernels(counts_dev):
     for name, k_max in CATEGORISED:
         results.update(check_categorised(name, k_max, h, g, x, gen, flush))
     results.update(check_cycled_rows(x, gen, flush))
+    for name in BASE_FAMILIES:
+        results.update(check_grouped(name, x, gen, flush, CLUSTERS))
+    check_grouped("negative binomial", x, gen, flush, GROUP_CAP)
     check_wide(x, g, gen)
     torch.cuda.synchronize()
     return results
@@ -701,8 +815,10 @@ def train_config(label, model, name, k_max, counts, card):
     prefix = ("cp" if name == "constrained poisson"
               else ops.FAMILIES[name].prefix)
     prefix = f"cat_{prefix}" if k_max else prefix
+    ours = {f"{prefix}_{kernel}"
+            for kernel in ("forward", "backward_dh", "backward_dw")}
     for kernel, count in launches.items():
-        want = steps if kernel.startswith(prefix + "_") else 0
+        want = steps if kernel in ours else 0
         if kernel != "gather_rows" and count != want:
             raise AssertionError(f"{label}: {kernel} launched {count} times "
                                  f"in {steps} training steps (want {want})")
@@ -720,6 +836,178 @@ def train_config(label, model, name, k_max, counts, card):
           f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
           f"launches {({k: v for k, v in launches.items() if v})} "
           f"({card})", flush=True)
+    return launches
+
+
+def _grouped_batch(name, config, state, x, t):
+    """One validation minibatch through the grouped kernels and through the
+    flat kernels: log p(x|z,y) of the restored GMVAE's decoder states (K·S
+    groups) against the batch's targets, and its gradients for the decoder
+    states and the heads with the rows weighted by q(y|x) / (S·B), as the
+    ELBO weights them.  Fails unless the grouped run launched K4 and each K5
+    pass exactly once and no other likelihood kernel, and unless both agree.
+    Returns the grouped run's launches."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.models import gmvae
+
+    bf16 = torch.bfloat16
+    z_draws = torch.Generator(device=x.device).manual_seed(0)
+    with torch.no_grad():
+        outputs = gmvae.forward(config, state.params, state.model_state,
+                                {"x": x, "t": x}, z_draws, training=False,
+                                build_reconstruction=False)
+    dec_h = outputs.decoder_hidden  # (K, S, B, H)
+    n_clusters, n_samples, b = dec_h.shape[:3]
+    weights = (outputs.q_y.probs.T[:, None, :] / (n_samples * b)).detach()
+    results = []
+    for grouped in (True, False):
+        h = dec_h.detach().clone().requires_grad_(True)
+        heads = {p: {k: v.detach().clone().requires_grad_(True)
+                     for k, v in head.items()}
+                 for p, head in state.params["reconstruction"].items()}
+        leaves = [h] + [heads[p][k] for p in ops.FAMILIES[name].heads
+                        for k in ("kernel", "bias")]
+        ops.reset_launch_counts()
+        if grouped:
+            ll = ops.fused_grouped_log_likelihood(name, h, heads, t,
+                                                  compute_dtype=bf16)
+        else:
+            ll = ops.fused_log_likelihood(name, h, heads, t,
+                                          compute_dtype=bf16)
+        grads = torch.autograd.grad((weights * ll).sum(), leaves)
+        torch.cuda.synchronize()
+        results.append((ll.detach(), grads, ops.launch_counts()))
+    (ll, grads, launches), (ll_flat, grads_flat, _) = results
+    prefix = ops.FAMILIES[name].prefix
+    want = {f"{prefix}_grouped_{kernel}": 1
+            for kernel in ("forward", "backward_dh", "backward_dw")}
+    launches = {k: v for k, v in launches.items() if v}
+    if launches != want:
+        raise AssertionError(f"grouped path launched {launches}")
+    tag = f"{prefix} grouped vs flat, {n_clusters}x{n_samples}x{b} rows"
+    check_close(f"{tag} log p(x|z,y)", ll, ll_flat, FORWARD_RTOL)
+    for i, (a, b_) in enumerate(zip(grads, grads_flat)):
+        check_close(f"{tag} gradient [{i}]", a, b_, BACKWARD_RTOL)
+    return launches
+
+
+def after_training(label, model_kind, name, train, valid, card):
+    """One configuration's life after training (phase 5); returns the
+    grouped kernels' launches on its validation minibatches."""
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+        ops,
+        params,
+    )
+    from scvae_tpu_torch.models import checkpoints
+
+    kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
+                  hidden_sizes=[HIDDEN, HIDDEN],
+                  reconstruction_distribution=name,
+                  log_directory=os.path.join(AFTER_DIRECTORY, label))
+    if model_kind == "gmvae":
+        model = GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=CLUSTERS, **kwargs)
+    else:
+        model = VariationalAutoencoder(**kwargs)
+    snapshots = []
+
+    def keep(epoch, train_state, epoch_metrics):
+        snapshots.append({
+            part: {key: leaf.detach().cpu().clone()
+                   for key, leaf in params.flatten(tree).items()}
+            for part, tree in (("params", train_state.params),
+                               ("model_state", train_state.model_state))})
+
+    ops.reset_launch_counts()
+    result = model.train(train, valid, number_of_epochs=AFTER_EPOCHS,
+                         minibatch_size=BATCH, seed=0, device="cuda",
+                         verbose=False, epoch_callback=keep)
+    torch.cuda.synchronize()
+    if any(v for k, v in ops.launch_counts().items() if "_grouped_" in k):
+        raise AssertionError(f"{label}: training launched a grouped kernel")
+    curves = result.history
+    directory = model.log_directory()
+    best = model.log_directory(best_model=True)
+    for path in (os.path.join(directory, checkpoints.CHECKPOINT_FILE),
+                 os.path.join(directory, checkpoints.METADATA_FILE),
+                 os.path.join(directory, checkpoints.LEARNING_CURVES_FILE),
+                 os.path.join(best, checkpoints.CHECKPOINT_FILE)):
+        if not os.path.exists(path):
+            raise AssertionError(f"{label}: {path} is missing")
+    if len(curves["validation"]["lower_bound"]) != AFTER_EPOCHS:
+        raise AssertionError(f"{label}: validation curve {curves}")
+    if model_kind == "gmvae":
+        centroids = checkpoints.load_centroids(directory)
+        if centroids["means"].shape[0] != AFTER_EPOCHS:
+            raise AssertionError(f"{label}: centroids of "
+                                 f"{centroids['means'].shape[0]} epochs")
+    restored, metadata = checkpoints.restore_checkpoint(best,
+                                                        result.train_state)
+    kept = snapshots[result.best_epoch]
+    for part, tree in (("params", restored.params),
+                       ("model_state", restored.model_state)):
+        for key, leaf in params.flatten(tree).items():
+            if not torch.equal(leaf.cpu(), kept[part][key]):
+                raise AssertionError(f"{label}: best/ {part}{key} differs "
+                                     f"from epoch {result.best_epoch + 1}")
+    if metadata["epoch"] != result.best_epoch + 1:
+        raise AssertionError(f"{label}: best/ holds epoch {metadata['epoch']}")
+
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    _, reconstructed, _ = model.evaluate(valid, use_best_model=True,
+                                         device="cuda", verbose=False)
+    evaluate_s = time.perf_counter() - start
+    metrics = model._last_evaluation_metrics
+    values = reconstructed.values
+    if ops.launch_counts()["gather_rows"] == 0:
+        raise AssertionError(f"{label}: evaluate gathered no batch with K1")
+    if not (all(np.isfinite(v) for v in metrics.values())
+            and values.shape == valid.shape and np.all(np.isfinite(values))
+            and np.all(values >= 0)):
+        raise AssertionError(f"{label}: evaluation {metrics}, "
+                             f"reconstruction {values.shape}")
+    samples = model.sample(SAMPLES, use_best_model=True, device="cuda").values
+    if not (samples.shape == (SAMPLES, N_GENES) and np.all(np.isfinite(samples))
+            and np.all(samples >= 0)):
+        raise AssertionError(f"{label}: samples {samples.shape}")
+
+    launches = {}
+    if model_kind == "gmvae":
+        dev = torch.device("cuda")
+        valid_dev = torch.from_numpy(valid.toarray().astype(np.int16)).to(dev)
+        for start_row in range(0, valid.shape[0], BATCH):
+            idx = torch.arange(start_row, min(start_row + BATCH,
+                                              valid.shape[0]),
+                               dtype=torch.int32, device=dev)
+            x = ops.gather_rows(valid_dev, idx, torch.float32)
+            t = ops.gather_rows(valid_dev, idx, torch.bfloat16)
+            for kernel, count in _grouped_batch(name, model.config, restored,
+                                                x, t).items():
+                launches[kernel] = launches.get(kernel, 0) + count
+    print(f"after {label}: ELBO(valid) {curves['validation']['lower_bound']},"
+          f" best epoch {result.best_epoch + 1}; evaluation {metrics} in "
+          f"{evaluate_s:.3f} s; {SAMPLES} samples, mean "
+          f"{float(samples.mean()):.6g}; grouped launches {launches} "
+          f"({card})", flush=True)
+    return launches
+
+
+def phase_after(counts, card):
+    """Phase 5 for VAE-NB and a GMVAE of each base family."""
+    shutil.rmtree(AFTER_DIRECTORY, ignore_errors=True)
+    order = np.random.RandomState(1).permutation(counts.shape[0])
+    n_valid = int(counts.shape[0] * VALIDATION_SHARE)
+    valid, train = counts[order[:n_valid]], counts[order[n_valid:]]
+    launches = {}
+    runs = [("VAE-NB", "vae", "negative binomial")] + [
+        (f"GMVAE-{name}", "gmvae", name) for name in BASE_FAMILIES]
+    for label, model_kind, name in runs:
+        for kernel, count in after_training(label, model_kind, name, train,
+                                            valid, card).items():
+            launches[kernel] = launches.get(kernel, 0) + count
     return launches
 
 
@@ -767,6 +1055,12 @@ def main() -> int:
             if kernel == "gather_rows" or entry in kernels:
                 launches[kernel if kernel == "gather_rows" else entry] += count
 
+    # 5. after training: the grouped kernels' launches come from this path
+    launches.update(phase_after(counts, card))
+    for name in kernels:
+        if "_grouped_" in name and not launches.get(name):
+            raise AssertionError(f"{name} was not launched after training")
+
     def source(name):
         if name == "gather_rows":
             return "scvae_tpu_torch/ops/csrc/gather.cu", REPLACES[name]
@@ -775,6 +1069,8 @@ def main() -> int:
             return SOURCES["cp"], REPLACES["cp_" + kind]
         if name.startswith("cat_"):
             return SOURCES["cat"], REPLACES[kind]
+        if "_grouped_" in name:
+            return SOURCES["grouped"], REPLACES["grouped_" + kind]
         return SOURCES["count"], REPLACES[kind]
 
     print(json.dumps({"kernels": [

@@ -1,34 +1,45 @@
 """High-level model API: ``VariationalAutoencoder`` with the reference's
-``train`` surface (the ported part of ``scvae_tpu/models/api.py``).  The
-model-specific parts are the hooks ``_init_state``, ``_loss_fn`` and
-``_eval_fn``, which ``GaussianMixtureVariationalAutoencoder``
-(``models/gmvae_api.py``) overrides to train through the same ``train``.
+``train``, ``evaluate`` and ``sample`` (the ported part of
+``scvae_tpu/models/api.py``).  The model-specific parts are the hooks
+``_init_state``, ``_loss_fn``, ``_eval_fn``, ``_evaluation_outputs`` and
+``_prior_draws``, which ``GaussianMixtureVariationalAutoencoder``
+(``models/gmvae_api.py``) overrides to run through the same methods.
 
-Training runs on the device-resident path: the count matrix is staged on the
-device once as row-major int16, each step gathers a shuffled minibatch with
-the row-gather kernel and trains through the fused likelihood kernels.
-Entry points run on CUDA unless the caller passes ``device="cpu"``; without
-a GPU they raise.  Arguments that need parts not ported yet (validation and
-early stopping, checkpoints, resume, streaming, meshes, deferred metric
-fetch, analyses) raise ``NotImplementedError``.
+Training runs on the device-resident path: the count matrix (and a
+validation set) is staged on the device once as row-major int16, each step
+gathers a shuffled minibatch with the row-gather kernel and trains through
+the fused likelihood kernels.  With a log directory a run keeps its
+checkpoints (in the JAX package's format, with the ``best/`` and
+``early_stopping/`` versions), learning curves and per-epoch vectors under
+``<log_directory>/<name>[/run_<id>]``, resumes from them, and ``evaluate``
+and ``sample`` restore them; ``evaluate`` gathers its batches from the
+device-resident evaluation set with the same kernel.  Entry points run on
+CUDA unless the caller passes ``device="cpu"``; without a GPU they raise.
+Without a log directory nothing is written (the JAX package writes under
+``models/`` by default) and there is nothing to evaluate or sample from.
+Arguments that need parts not ported yet (streaming, meshes, deferred metric
+fetch, intermediate analyses, a caches directory) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Any
 
 import numpy as np
 import scipy.sparse
 import torch
 
-from scvae_tpu_torch.data.dataset import DataSet
+from scvae_tpu_torch.data.dataset import DataSet, indices_for_evaluation_subset
 from scvae_tpu_torch.data.pipeline import (
     build_model_arrays,
     device_resident_data,
     narrowest_count_dtype,
 )
 from scvae_tpu_torch.defaults import get_default
-from scvae_tpu_torch.models import step, training, vae
+from scvae_tpu_torch.models import checkpoints, naming, step, training, vae
 from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
 from scvae_tpu_torch.ops.special import lgamma
 
@@ -109,6 +120,13 @@ def _bf16_batch_dtypes(arrays: dict[str, Any], config,
     return overrides or None
 
 
+def _unported_mesh(mesh, devices, number_of_devices, model_parallelism):
+    if any(v is not None
+           for v in (mesh, devices, number_of_devices, model_parallelism)):
+        raise NotImplementedError("meshes and several devices are not "
+                                  "ported yet")
+
+
 def _place(params, model_state, optimizer, device) -> step.TrainState:
     to_device = lambda x: x.to(device)  # noqa: E731
     return step.create_train_state(
@@ -118,11 +136,19 @@ def _place(params, model_state, optimizer, device) -> step.TrainState:
     )
 
 
+def _output_versions(output_versions) -> list[str]:
+    if output_versions == "all":
+        return ["transformed", "reconstructed", "latent"]
+    if isinstance(output_versions, str):
+        return [output_versions]
+    return list(output_versions)
+
+
 class VariationalAutoencoder:
-    """VAE with the reference's ``train`` (the evaluate and sample surfaces
-    are not ported yet)."""
+    """VAE with the reference's ``train``, ``evaluate`` and ``sample``."""
 
     type = "VAE"
+    early_stopping_rounds = training.EARLY_STOPPING_ROUNDS
     # Datasets whose dense device form fits under this budget are staged on
     # the device once (the only data path ported so far).
     DEVICE_DATA_BUDGET_BYTES = 8 << 30
@@ -146,8 +172,6 @@ class VariationalAutoencoder:
         unknown = set(kwargs) - set(_CONFIG_KWARGS) - set(_SAMPLE_KWARGS) - {"mesh"}
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
-        if log_directory is not None:
-            raise NotImplementedError("checkpoints and log directories are not ported yet")
         if kwargs.get("mesh") is not None:
             raise NotImplementedError("device meshes are not ported yet")
 
@@ -198,6 +222,66 @@ class VariationalAutoencoder:
         self.feature_size = feature_size
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
+        self.base_log_directory = log_directory
+        self.stopped_early = None
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def number_of_latent_clusters(self) -> int:
+        return 1
+
+    @property
+    def dropout_parts(self) -> list[str]:
+        return [str(p) for p in self.config.dropout_keep_probabilities
+                if p and p != 1]
+
+    def _name_parts(self) -> dict[str, Any]:
+        """The arguments of ``naming.model_name`` that depend on the model
+        type."""
+        return dict(
+            parameterise_latent_posterior=(
+                self.config.parameterise_latent_posterior),
+            inference_architecture=self.config.inference_architecture,
+            generative_architecture=self.config.generative_architecture,
+            analytical_kl_term=self.config.analytical_kl,
+        )
+
+    @property
+    def name(self) -> str:
+        """The hyperparameter-addressed name, the JAX package's string."""
+        config = self.config
+        return naming.model_name(
+            self.type,
+            latent_distribution=config.latent_distribution,
+            number_of_latent_clusters=self.number_of_latent_clusters,
+            reconstruction_distribution=config.reconstruction_distribution,
+            k_max=config.k_max,
+            use_count_sum_as_feature=config.count_sum,
+            latent_size=config.latent_size,
+            hidden_sizes=config.hidden_sizes,
+            number_of_monte_carlo_samples=(
+                self.number_of_monte_carlo_samples["training"]),
+            number_of_importance_samples=(
+                self.number_of_importance_samples["training"]),
+            minibatch_normalisation=config.minibatch_normalisation,
+            batch_correction=config.batch_correction,
+            dropout_parts=self.dropout_parts,
+            kl_weight=config.kl_weight,
+            number_of_warm_up_epochs=config.number_of_warm_up_epochs,
+            **self._name_parts(),
+        )
+
+    def log_directory(self, base: str | None = None, run_id: str | None = None,
+                      early_stopping: bool = False,
+                      best_model: bool = False) -> str:
+        base = base or self.base_log_directory
+        if base is None:
+            raise ValueError("the model has no log directory: pass "
+                             "log_directory to the constructor")
+        return naming.log_directory(base, self.name, run_id=run_id,
+                                    early_stopping=early_stopping,
+                                    best_model=best_model)
 
     # -- model hooks -------------------------------------------------------
 
@@ -232,7 +316,34 @@ class VariationalAutoencoder:
 
         return evaluate
 
+    def _evaluation_outputs(self, params, model_state, batch, generator,
+                            n_iw: int, n_mc: int) -> dict[str, torch.Tensor]:
+        return vae.evaluation_outputs(self.config, params, model_state, batch,
+                                      generator, n_iw=n_iw, n_mc=n_mc)
+
+    def _prior_draws(self, params, sample_size: int,
+                     generator: torch.Generator, device: torch.device):
+        """(z (N, D) drawn from the prior, the draws' clusters or None)."""
+        like = torch.zeros((), device=device)
+        p_z = vae._build_prior(self.config, like)
+        return p_z.sample(generator, (sample_size, self.config.latent_size)), None
+
     # -- internals ---------------------------------------------------------
+
+    def _data_set(self, data) -> DataSet:
+        """``data`` as a :class:`DataSet` with the model's features."""
+        if not isinstance(data, DataSet):
+            data = DataSet(data)
+        if data.number_of_features != self.config.feature_size:
+            raise ValueError(
+                f"data has {data.number_of_features} features, the model "
+                f"{self.config.feature_size}"
+            )
+        return data
+
+    def _stage(self, arrays, device) -> dict[str, torch.Tensor]:
+        return device_resident_data(arrays, device=device,
+                                    count_dtype=self.DEVICE_COUNT_DTYPES)
 
     def _scaled_minibatch_size(self, minibatch_size: int, scenario: str) -> int:
         """Keep the flattened sample×batch constant (reference :807-811)."""
@@ -305,38 +416,30 @@ class VariationalAutoencoder:
         device: torch.device | str | None = None,
     ) -> training.TrainingResult:
         """Train on ``training_set`` (a :class:`DataSet`, or a dense or CSR
-        count matrix with cells as rows) on ``device`` (CUDA by default)."""
+        count matrix with cells as rows) on ``device`` (CUDA by default),
+        evaluating ``validation_set`` each epoch for early stopping.  With a
+        log directory the run resumes from its checkpoint unless
+        ``reset_training``; ``new_run`` gives it a new run id."""
         unported = {
-            "validation_set (early stopping)": validation_set is not None,
-            "run_id / new_run / reset_training (checkpoints)": (
-                run_id is not None or new_run or reset_training
-            ),
             "streaming data placement": data_placement == "streaming",
             "deferred metrics fetch": metrics_fetch == "deferred",
             "intermediate analyses": (
                 intermediate_analyser is not None or analyses_directory is not None
             ),
             "caches_directory": caches_directory is not None,
-            "meshes and several devices": any(
-                v is not None
-                for v in (mesh, devices, number_of_devices, model_parallelism)
-            ),
         }
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"{what} is not ported yet")
+        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
         if data_placement not in ("auto", "device", "streaming"):
             raise ValueError("data_placement must be auto, device, or streaming")
         if metrics_fetch not in ("sync", "deferred"):
             raise ValueError("metrics_fetch must be 'sync' or 'deferred'")
         device = resolve_device(device)
-        if not isinstance(training_set, DataSet):
-            training_set = DataSet(training_set)
-        if training_set.number_of_features != self.config.feature_size:
-            raise ValueError(
-                f"data has {training_set.number_of_features} features, the "
-                f"model {self.config.feature_size}"
-            )
+        training_set = self._data_set(training_set)
+        if validation_set is not None:
+            validation_set = self._data_set(validation_set)
         if number_of_epochs is None:
             number_of_epochs = get_default("models", "number_of_epochs")
         if minibatch_size is None:
@@ -364,20 +467,38 @@ class VariationalAutoencoder:
                 "training examples"
             )
 
+        if new_run and not run_id:
+            run_id = naming.generate_run_id()
+        log_dir = (self.log_directory(run_id=run_id)
+                   if self.base_log_directory is not None or run_id else None)
+        self._active_log_directory = log_dir
+        if reset_training and log_dir and os.path.exists(log_dir):
+            shutil.rmtree(log_dir)
+
         optimizer = step.make_optimizer(learning_rate)
         train_state = self._init_state(
             torch.Generator().manual_seed(seed), optimizer, device
         )
         generator = torch.Generator(device=device).manual_seed(seed)
+        start_epoch = training.resume_start_epoch(log_dir) if log_dir else 0
+        if start_epoch:
+            train_state, metadata = checkpoints.restore_checkpoint(
+                log_dir, train_state)
+            # a checkpoint that the JAX package wrote has no generator state
+            if "generator_state" in metadata:
+                training.set_generator_state(generator,
+                                             metadata["generator_state"])
+            checkpoints.truncate_learning_curves(log_dir, start_epoch)
+            checkpoints.truncate_centroids(log_dir, start_epoch)
+            checkpoints.truncate_array_series(log_dir, start_epoch)
+            if verbose:
+                print(f"Resuming training from epoch {start_epoch}.")
 
         arrays = build_model_arrays(
             training_set,
             use_count_sum_as_parameter=self.config.use_count_sum_as_parameter,
         )
-        data = device_resident_data(
-            arrays, device=device, count_dtype=self.DEVICE_COUNT_DTYPES
-        )
-        data = _append_lgamma_rowsum(data, self.config)
+        data = _append_lgamma_rowsum(self._stage(arrays, device), self.config)
         train_epoch = step.make_train_epoch(
             self._loss_fn(n_iw, n_mc), optimizer,
             batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
@@ -389,14 +510,218 @@ class VariationalAutoencoder:
             self._device_evaluator(data, n_train, batch_size, n_iw, n_mc)
             if full_train_evaluation else None
         )
-        return training.run_training_loop(
+        evaluate_validation = None
+        if validation_set is not None:
+            validation_data = self._stage(build_model_arrays(
+                validation_set,
+                use_count_sum_as_parameter=(
+                    self.config.use_count_sum_as_parameter),
+            ), device)
+            evaluate_validation = self._device_evaluator(
+                validation_data, validation_set.number_of_examples,
+                batch_size, n_iw, n_mc)
+        result = training.run_training_loop(
             train_state=train_state,
             run_epoch=run_epoch,
             evaluate_training=evaluate_training,
+            evaluate_validation=evaluate_validation,
             number_of_epochs=number_of_epochs,
             generator=generator,
             steps_per_epoch=n_train // batch_size,
             number_of_warm_up_epochs=self.config.number_of_warm_up_epochs,
+            log_directory=log_dir,
+            early_stopping_rounds=self.early_stopping_rounds,
+            start_epoch=start_epoch,
             verbose=verbose,
             epoch_callback=epoch_callback,
         )
+        self.stopped_early = result.stopped_early
+        return result
+
+    # -- evaluate ----------------------------------------------------------
+
+    def _restore(self, run_id: str | None, use_early_stopping_model: bool,
+                 use_best_model: bool,
+                 device: torch.device) -> tuple[step.TrainState, str]:
+        """The stored train state of a version of a run, on ``device``."""
+        directory = self.log_directory(
+            run_id=run_id, early_stopping=use_early_stopping_model,
+            best_model=use_best_model)
+        if not checkpoints.checkpoint_exists(directory):
+            raise FileNotFoundError(
+                f"No checkpoint found in {directory}; train the model first."
+            )
+        template = self._init_state(
+            torch.Generator().manual_seed(0),
+            step.make_optimizer(self.config.learning_rate), device)
+        train_state, _ = checkpoints.restore_checkpoint(directory, template)
+        return train_state, directory
+
+    def _evaluation_pass(self, evaluation_set: DataSet, minibatch_size,
+                         run_id, use_early_stopping_model, use_best_model,
+                         evaluation_subset_indices, seed, device,
+                         metric_keys, row_keys):
+        """``_evaluation_outputs`` over the set in sequential batches
+        gathered from its device-resident copy: the per-row outputs
+        ``row_keys`` as (N, …) arrays, the reconstruction's standard
+        deviations for the evaluation subset only (sparse rows, as the
+        reference keeps them for large sets), and the row-weighted
+        ``metric_keys``."""
+        if minibatch_size is None:
+            minibatch_size = get_default("models", "minibatch_size")
+        n_iw = self.number_of_importance_samples["evaluation"]
+        n_mc = self.number_of_monte_carlo_samples["evaluation"]
+        batch_size = self._scaled_minibatch_size(minibatch_size, "evaluation")
+        train_state, _ = self._restore(run_id, use_early_stopping_model,
+                                       use_best_model, device)
+        if evaluation_subset_indices is None:
+            evaluation_subset_indices = indices_for_evaluation_subset(
+                evaluation_set)
+        data = self._stage(build_model_arrays(
+            evaluation_set,
+            use_count_sum_as_parameter=self.config.use_count_sum_as_parameter,
+        ), device)
+        n, f = evaluation_set.number_of_examples, self.config.feature_size
+        rows: dict[str, np.ndarray | None] = dict.fromkeys(row_keys)
+        p_x_stddev = scipy.sparse.lil_matrix((n, f), dtype=np.float32)
+        stddev_of_mean = scipy.sparse.lil_matrix((n, f), dtype=np.float32)
+        subset = np.zeros(n, bool)
+        subset[np.asarray(evaluation_subset_indices, np.int64)] = True
+        totals = dict.fromkeys(metric_keys, 0.0)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            for start in range(0, n, batch_size):
+                stop = min(start + batch_size, n)
+                idx = torch.arange(start, stop, dtype=torch.int32,
+                                   device=device)
+                batch = step.cast_batch_to_f32(step.gather_batch(data, idx))
+                out = self._evaluation_outputs(
+                    train_state.params, train_state.model_state, batch,
+                    generator, n_iw, n_mc)
+                for key in row_keys:
+                    value = out[key].cpu().numpy()
+                    if rows[key] is None:
+                        rows[key] = np.empty((n,) + value.shape[1:],
+                                             value.dtype)
+                    rows[key][start:stop] = value
+                picked = np.nonzero(subset[start:stop])[0]
+                if picked.size:
+                    p_x_stddev[start + picked] = (
+                        out["p_x_stddev"].cpu().numpy()[picked])
+                    stddev_of_mean[start + picked] = (
+                        out["stddev_of_p_x_given_z_mean"].cpu().numpy()[picked])
+                for key in metric_keys:
+                    totals[key] += float(out[key]) * (stop - start)
+        metrics = {key: value / max(n, 1) for key, value in totals.items()}
+        return rows, (p_x_stddev, stddev_of_mean), metrics
+
+    def _reconstructed_set(self, evaluation_set: DataSet, values, stddevs):
+        total, explained = stddevs
+        return DataSet(values, evaluation_set.name,
+                       total_standard_deviations=total,
+                       explained_standard_deviations=explained,
+                       example_names=evaluation_set.example_names,
+                       feature_names=evaluation_set.feature_names,
+                       kind=evaluation_set.kind, version="reconstructed")
+
+    def _latent_set(self, evaluation_set: DataSet, values, version: str,
+                    feature_names):
+        return DataSet(values, evaluation_set.name,
+                       example_names=evaluation_set.example_names,
+                       feature_names=np.asarray(feature_names),
+                       kind=evaluation_set.kind, version=version)
+
+    def evaluate(
+        self,
+        evaluation_set,
+        minibatch_size: int | None = None,
+        run_id: str | None = None,
+        use_early_stopping_model: bool = False,
+        use_best_model: bool = False,
+        output_versions: str | list[str] = "all",
+        evaluation_subset_indices=None,
+        seed: int = 0,
+        verbose: bool = True,
+        mesh=None,
+        devices=None,
+        number_of_devices: int | None = None,
+        model_parallelism: int | None = None,
+        device: torch.device | str | None = None,
+    ):
+        """Evaluate a stored version of the model on ``evaluation_set``;
+        returns the (transformed, reconstructed, latent) data sets that
+        ``output_versions`` asks for (one set alone when it names one) and
+        keeps the metrics in ``_last_evaluation_metrics``."""
+        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
+        output_versions = _output_versions(output_versions)
+        device = resolve_device(device)
+        evaluation_set = self._data_set(evaluation_set)
+        rows, stddevs, metrics = self._evaluation_pass(
+            evaluation_set, minibatch_size, run_id, use_early_stopping_model,
+            use_best_model, evaluation_subset_indices, seed, device,
+            ("lower_bound", "reconstruction_error", "kl_divergence"),
+            ("p_x_mean", "q_z_mean"))
+        if verbose:
+            print("Evaluation: ELBO {lower_bound:.6g}  ENRE "
+                  "{reconstruction_error:.6g}  KL {kl_divergence:.6g}"
+                  .format(**metrics))
+        self._last_evaluation_metrics = metrics
+        output_sets = []
+        if "transformed" in output_versions:
+            output_sets.append(evaluation_set)
+        if "reconstructed" in output_versions:
+            output_sets.append(self._reconstructed_set(
+                evaluation_set, rows["p_x_mean"], stddevs))
+        if "latent" in output_versions:
+            output_sets.append(self._latent_set(
+                evaluation_set, rows["q_z_mean"], "z",
+                [f"latent variable {i + 1}"
+                 for i in range(self.config.latent_size)]))
+        return output_sets[0] if len(output_sets) == 1 else tuple(output_sets)
+
+    # -- sample ------------------------------------------------------------
+
+    def sample(
+        self,
+        sample_size: int | None = None,
+        minibatch_size: int | None = None,
+        run_id: str | None = None,
+        use_early_stopping_model: bool = False,
+        use_best_model: bool = False,
+        seed: int = 0,
+        device: torch.device | str | None = None,
+    ) -> DataSet:
+        """Ancestral sampling from a stored version of the model: z from
+        the prior (a GMVAE's: y ~ p(y), then z ~ p(z|y)), then E[x|z]."""
+        if self.config.use_count_sum_as_parameter:
+            raise NotImplementedError(
+                "Sampling is not implemented with count-sum models (the "
+                "reference's restriction)."
+            )
+        if sample_size is None:
+            sample_size = get_default("models", "sample_size") or 100
+        if minibatch_size is None:
+            minibatch_size = get_default("models", "minibatch_size")
+        device = resolve_device(device)
+        train_state, _ = self._restore(run_id, use_early_stopping_model,
+                                       use_best_model, device)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            z, clusters = self._prior_draws(train_state.params, sample_size,
+                                            generator, device)
+            values = np.concatenate([
+                vae.decode_means(self.config, train_state.params,
+                                 train_state.model_state,
+                                 z[i:i + minibatch_size]).cpu().numpy()
+                for i in range(0, sample_size, minibatch_size)
+            ])
+        samples = DataSet(
+            values, "samples",
+            example_names=np.array([f"sample {i + 1}"
+                                    for i in range(sample_size)]),
+            feature_names=np.array([f"feature {j + 1}"
+                                    for j in range(self.config.feature_size)]),
+            kind="sample", version="original")
+        if clusters is not None:  # a GMVAE's draws (JAX's sample labels)
+            samples.update_predictions(clusters.cpu().numpy())
+        return samples

@@ -485,20 +485,90 @@ def loss_fn(
     return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
 
 
+def z_prior(config: GMVAEConfig, params: Params):
+    """p(z|y=k) of every cluster: a distribution over (K, D)."""
+    heads = params["p_z"]["heads"]
+    device = heads[next(iter(heads))]["kernel"].device
+    eye = torch.eye(config.n_clusters, dtype=torch.float32, device=device)
+    prior_spec = DISTRIBUTIONS[config.z_prior_name]
+    return prior_spec.build(_build_theta(prior_spec, heads, eye))
+
+
+def evaluation_outputs(
+    config: GMVAEConfig,
+    params: Params,
+    state: State,
+    batch: Batch,
+    generator: torch.Generator | None,
+    *,
+    n_iw: int = 1,
+    n_mc: int = 1,
+    noise: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The metrics of one batch in evaluation mode and its outputs
+    marginalised over y with q(y|x): the reconstruction ``p_x_mean`` (B, F)
+    with ``p_x_stddev`` and ``stddev_of_p_x_given_z_mean``, the latent
+    means ``q_z_mean`` (B, D), the responsibilities ``y_probs`` (B, K) and
+    their mean ``q_y_probabilities`` (K,), the ``cluster_ids`` (B,) and the
+    samples ``z`` (S, K, B, D) (reference evaluate loop ``:2336-2786``)."""
+    metrics, outputs = elbo_terms(
+        config, params, state, batch, generator, training=False,
+        n_iw=n_iw, n_mc=n_mc, noise=noise,
+    )
+    b = batch["t"].shape[0]
+    y_probs = outputs.q_y.probs  # (B, K)
+    shape = (config.n_clusters, n_iw, n_mc, b, config.feature_size)
+    p_mean = outputs.p_x.mean().reshape(shape)
+    p_var = outputs.p_x.variance().reshape(shape)
+    weights = y_probs.T[..., None]  # (K, B, 1)
+    per_cluster = lambda x: torch.mean(torch.mean(x, dim=2), dim=1)  # noqa: E731
+    p_x_mean = torch.sum(per_cluster(p_mean) * weights, dim=0)
+    variance_of_means = torch.sum(
+        per_cluster(torch.square(p_mean - p_x_mean)) * weights, dim=0)
+    mean_of_variances = torch.sum(per_cluster(p_var) * weights, dim=0)
+    return {
+        **metrics,
+        "p_x_mean": p_x_mean,
+        "p_x_stddev": torch.sqrt(variance_of_means + mean_of_variances),
+        "stddev_of_p_x_given_z_mean": torch.sqrt(variance_of_means),
+        "q_z_mean": torch.sum(outputs.q_z.mean() * weights, dim=0),
+        "q_y_probabilities": torch.mean(y_probs, dim=0),
+        "y_probs": y_probs,
+        "cluster_ids": torch.argmax(y_probs, dim=-1),
+        "z": outputs.z,
+    }
+
+
+def sample_prior(config: GMVAEConfig, params: Params, sample_size: int,
+                 generator: torch.Generator | None, *,
+                 y_uniforms: torch.Tensor | None = None,
+                 noise: torch.Tensor | None = None):
+    """Ancestral draws y ~ p(y), z ~ p(z|y): (ys (N,), z (N, D)).
+    ``y_uniforms`` (N,) in [0, 1) and ``noise`` (N, K, D) replace the
+    generator's draws (tests hand both packages the same draws)."""
+    p_z = z_prior(config, params)
+    loc = p_z.mean()
+    probabilities = torch.softmax(_p_y_logits(config, params, loc.device), -1)
+    if y_uniforms is None:
+        y_uniforms = torch.rand(sample_size, generator=generator,
+                                device=loc.device)
+    # the inverse of the cumulative probabilities at the uniform draws
+    cumulative = torch.cumsum(probabilities, dim=0)
+    ys = torch.searchsorted(cumulative, y_uniforms.to(loc.device),
+                            right=True).clamp(max=config.n_clusters - 1)
+    z_all = p_z.sample(generator, (sample_size,), noise=noise)  # (N, K, D)
+    return ys, z_all[torch.arange(sample_size, device=loc.device), ys]
+
+
 def prior_centroids(config: GMVAEConfig,
                     params: Params) -> dict[str, np.ndarray]:
     """Mixture probabilities and each cluster's prior z mean and (diagonal)
     covariance from the current parameters — the centroid summaries the
     reference logs per epoch."""
     with torch.no_grad():
-        device = params["p_z"]["heads"][
-            next(iter(params["p_z"]["heads"]))]["kernel"].device
-        eye = torch.eye(config.n_clusters, dtype=torch.float32, device=device)
-        prior_spec = DISTRIBUTIONS[config.z_prior_name]
-        p_z = prior_spec.build(_build_theta(prior_spec,
-                                            params["p_z"]["heads"], eye))
-        probabilities = torch.softmax(_p_y_logits(config, params, device),
-                                      dim=-1)
+        p_z = z_prior(config, params)
+        probabilities = torch.softmax(
+            _p_y_logits(config, params, p_z.mean().device), dim=-1)
         var = p_z.variance().cpu().numpy()
         return {
             "probabilities": probabilities.cpu().numpy(),

@@ -1,27 +1,34 @@
 """High-level GMVAE API: ``GaussianMixtureVariationalAutoencoder`` with the
-reference's ``train`` surface (the ported part of
+reference's ``train``, ``evaluate`` and ``sample`` (the ported part of
 ``scvae_tpu/models/gmvae_api.py``).
 
 It overrides the VAE API's model hooks (``_init_state``, ``_loss_fn``,
-``_eval_fn``) and trains through the same ``train``.  Not ported yet, each
-raising ``NotImplementedError`` when asked for: the per-epoch cluster
-accuracy (it needs labelled data sets), centroid logging (it needs a log
-directory), ``evaluate`` and ``sample``.
+``_eval_fn``, ``_evaluation_outputs``, ``_prior_draws``) and runs through the
+same methods.  With a log directory, training appends the prior centroids
+to the run's ``centroids.json`` each epoch.  ``evaluate`` adds the y latent
+set and attaches the predicted cluster ids to every output set.  Not ported
+yet, each raising ``NotImplementedError`` when asked for: the per-epoch
+cluster accuracy and the mapping of clusters to labels (they need labelled
+data sets).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from scvae_tpu_torch.defaults import get_default
-from scvae_tpu_torch.models import gmvae, step
+from scvae_tpu_torch.models import checkpoints, gmvae, step
 from scvae_tpu_torch.models.api import (
     _CONFIG_KWARGS,
     _SAMPLE_KWARGS,
     VariationalAutoencoder,
+    _output_versions,
     _place,
+    _unported_mesh,
+    resolve_device,
 )
 from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
 
@@ -32,8 +39,7 @@ _GMVAE_CONFIG_KWARGS = ("count_sum", "dropout_keep_probabilities",
 
 
 class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
-    """GMVAE with the reference's ``train`` (the evaluate and sample
-    surfaces are not ported yet)."""
+    """GMVAE with the reference's ``train``, ``evaluate`` and ``sample``."""
 
     type = "GMVAE"
 
@@ -60,10 +66,6 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                    - {"mesh"})
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
-        if log_directory is not None:
-            raise NotImplementedError(
-                "checkpoints, log directories and centroid logging are not "
-                "ported yet")
         if kwargs.get("mesh") is not None:
             raise NotImplementedError("device meshes are not ported yet")
 
@@ -121,10 +123,18 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         self.feature_size = feature_size
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
+        self.base_log_directory = log_directory
+        self.stopped_early = None
 
     @property
     def number_of_latent_clusters(self) -> int:
         return self.config.number_of_latent_clusters
+
+    def _name_parts(self) -> dict[str, Any]:
+        return dict(
+            prior_probabilities_method=self.config.prior_probabilities_method,
+            analytical_kl_term=False,
+        )
 
     # -- model hooks -------------------------------------------------------
 
@@ -155,24 +165,108 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
 
         return evaluate
 
+    def _evaluation_outputs(self, params, model_state, batch, generator,
+                            n_iw: int, n_mc: int) -> dict[str, torch.Tensor]:
+        return gmvae.evaluation_outputs(self.config, params, model_state,
+                                        batch, generator, n_iw=n_iw,
+                                        n_mc=n_mc)
+
+    def _prior_draws(self, params, sample_size: int,
+                     generator: torch.Generator, device: torch.device):
+        ys, z = gmvae.sample_prior(self.config, params, sample_size,
+                                   generator)
+        return z, ys
+
     # -- train -------------------------------------------------------------
 
     def train(self, training_set, validation_set=None, *,
-              track_accuracy: bool = True, **kwargs):
-        """Train through the VAE API's ``train``.  The reference also tracks
-        the per-epoch cluster accuracy against the labels of a labelled data
-        set; that callback is not ported, so labelled data with
-        ``track_accuracy`` raises."""
+              track_accuracy: bool = True, epoch_callback=None, **kwargs):
+        """Train through the VAE API's ``train``, appending the prior
+        centroids to the run's files each epoch when there is a log
+        directory.  The reference also tracks the per-epoch cluster accuracy
+        against the labels of a labelled data set; that callback is not
+        ported, so labelled data with ``track_accuracy`` raises."""
         labelled = any(getattr(data, "has_labels", False)
                        for data in (training_set, validation_set))
         if track_accuracy and labelled:
             raise NotImplementedError(
                 "the per-epoch cluster accuracy is not ported yet; pass "
                 "track_accuracy=False")
-        return super().train(training_set, validation_set, **kwargs)
+        user_callback = epoch_callback
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError("GMVAE evaluation is not ported yet")
+        def log_centroids(epoch, train_state, epoch_metrics):
+            if self._active_log_directory:
+                checkpoints.append_centroids(
+                    self._active_log_directory,
+                    gmvae.prior_centroids(self.config, train_state.params))
+            if user_callback is not None:
+                user_callback(epoch, train_state, epoch_metrics)
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError("GMVAE sampling is not ported yet")
+        return super().train(training_set, validation_set,
+                             epoch_callback=log_centroids, **kwargs)
+
+    # -- evaluate ----------------------------------------------------------
+
+    def evaluate(
+        self,
+        evaluation_set,
+        minibatch_size: int | None = None,
+        run_id: str | None = None,
+        use_early_stopping_model: bool = False,
+        use_best_model: bool = False,
+        output_versions: str | list[str] = "all",
+        evaluation_subset_indices=None,
+        seed: int = 0,
+        verbose: bool = True,
+        mesh=None,
+        devices=None,
+        number_of_devices: int | None = None,
+        model_parallelism: int | None = None,
+        device: torch.device | str | None = None,
+    ):
+        """As the VAE's ``evaluate``; ``latent`` gives a {"z": …, "y": …}
+        pair of sets (the latent means marginalised over y, and q(y|x)),
+        and every output set carries the predicted cluster ids.  A labelled
+        evaluation set raises: mapping clusters to labels is not ported."""
+        if getattr(evaluation_set, "has_labels", False):
+            raise NotImplementedError(
+                "mapping clusters to labels is not ported yet")
+        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
+        output_versions = _output_versions(output_versions)
+        device = resolve_device(device)
+        evaluation_set = self._data_set(evaluation_set)
+        rows, stddevs, metrics = self._evaluation_pass(
+            evaluation_set, minibatch_size, run_id, use_early_stopping_model,
+            use_best_model, evaluation_subset_indices, seed, device,
+            ("lower_bound", "reconstruction_error", "kl_divergence",
+             "kl_divergence_z", "kl_divergence_y"),
+            ("p_x_mean", "q_z_mean", "y_probs", "cluster_ids"))
+        if verbose:
+            print("Evaluation: ELBO {lower_bound:.6g}  ENRE "
+                  "{reconstruction_error:.6g}  KL_z {kl_divergence_z:.6g}  "
+                  "KL_y {kl_divergence_y:.6g}".format(**metrics))
+        self._last_evaluation_metrics = metrics
+        cluster_ids = rows["cluster_ids"].astype(np.int32)
+
+        def with_clusters(data_set):
+            data_set.update_predictions(predicted_cluster_ids=cluster_ids)
+            return data_set
+
+        output_sets: list[Any] = []
+        if "transformed" in output_versions:
+            output_sets.append(with_clusters(evaluation_set))
+        if "reconstructed" in output_versions:
+            output_sets.append(with_clusters(self._reconstructed_set(
+                evaluation_set, rows["p_x_mean"], stddevs)))
+        if "latent" in output_versions:
+            output_sets.append({
+                "z": with_clusters(self._latent_set(
+                    evaluation_set, rows["q_z_mean"], "z",
+                    [f"latent variable {i + 1}"
+                     for i in range(self.config.latent_size)])),
+                "y": with_clusters(self._latent_set(
+                    evaluation_set, rows["y_probs"], "y",
+                    [f"cluster {k + 1}"
+                     for k in range(self.config.n_clusters)])),
+            })
+        return output_sets[0] if len(output_sets) == 1 else tuple(output_sets)

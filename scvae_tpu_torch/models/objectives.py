@@ -1,7 +1,11 @@
-"""Objective helpers: stable log-mean-exp and the KL warm-up schedule
-(counterparts in ``scvae_tpu/models/objectives.py``)."""
+"""Objective helpers: stable log-mean-exp, the KL warm-up schedule and the
+early-stopping state machine (counterparts in
+``scvae_tpu/models/objectives.py``)."""
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -19,3 +23,37 @@ def warm_up_weight(epoch: int, number_of_warm_up_epochs: int) -> float:
     if number_of_warm_up_epochs:
         return float(min(epoch / number_of_warm_up_epochs, 1.0))
     return 1.0
+
+
+@dataclasses.dataclass
+class EarlyStopping:
+    """Validation-ELBO early stopping with ``rounds`` degradation rounds:
+    training stops after ``rounds`` consecutive epochs without improvement
+    over the best validation lower bound seen so far; the snapshot to keep
+    is that of the epoch before degradation began."""
+
+    rounds: int = 10
+    best: float = -math.inf
+    epochs_without_improvement: int = 0
+    stopped: bool = False
+    best_epoch: int | None = None
+
+    def update(self, metric: float, epoch: int) -> dict[str, bool]:
+        """Returns {'improved': …, 'stop': …, 'start_degrading': …}."""
+        improved = metric > self.best
+        start_degrading = False
+        if improved:
+            self.best = metric
+            self.best_epoch = epoch
+            self.epochs_without_improvement = 0
+        else:
+            start_degrading = self.epochs_without_improvement == 0
+            self.epochs_without_improvement += 1
+        stop = self.epochs_without_improvement >= self.rounds
+        if stop:
+            self.stopped = True
+        return {
+            "improved": improved,
+            "stop": stop,
+            "start_degrading": start_degrading,
+        }

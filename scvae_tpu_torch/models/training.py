@@ -1,23 +1,36 @@
-"""The training loop (the ported part of ``scvae_tpu/models/training.py``).
+"""The training loop (the port of ``scvae_tpu/models/training.py`` without
+the deferred metric fetch).
 
-``run_training_loop`` runs epochs synchronously: KL warm-up weight, one
-epoch through the runner, NaN abort, the per-epoch training ``lower_bound``
-(a full evaluation pass when an evaluator is given), an optional callback.
-Checkpoints, learning-curve files, early stopping, resume and the deferred
-metric fetch are not ported yet.
+``run_training_loop`` runs epochs synchronously: the KL warm-up weight, one
+epoch through the runner, the NaN abort, the training metrics (a full
+evaluation pass when an evaluator is given) and the validation metrics, an
+optional callback, and with a log directory the learning curves, the
+per-epoch vectors, a checkpoint each epoch and its ``best/`` and
+``early_stopping/`` versions.  Early stopping follows the validation lower
+bound (``EARLY_STOPPING_ROUNDS`` epochs without improvement).  One
+generator serves the whole run; each checkpoint stores its state after the
+epoch (``generator_state`` in ``checkpoint.json``).  A run resumed at epoch e
+rebuilds the early-stopping state from the stored validation curve and sets
+the generator to the stored state, so it draws what an uninterrupted run
+would draw from epoch e on: the counterpart of the JAX package's replay of
+its key splits (``_fast_forward_rng``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from scvae_tpu_torch.models.objectives import warm_up_weight
+from scvae_tpu_torch.models import checkpoints
+from scvae_tpu_torch.models.objectives import EarlyStopping, warm_up_weight
 from scvae_tpu_torch.models.step import TrainState, epoch_permutation, tree_finite
+
+EARLY_STOPPING_ROUNDS = 10
 
 EpochRunner = Callable[[TrainState, int, float, torch.Generator], tuple[TrainState, dict]]
 Evaluator = Callable[[TrainState, torch.Generator], dict[str, Any]]
@@ -27,11 +40,23 @@ Evaluator = Callable[[TrainState, torch.Generator], dict[str, Any]]
 class TrainingResult:
     train_state: TrainState
     number_of_epochs_trained: int
+    stopped_early: bool
+    best_epoch: int | None
     history: dict[str, dict[str, list[float]]]
     # wall seconds of each epoch's training pass (evaluation excluded),
     # ending with the host fetch of the epoch's metrics
     epoch_seconds: list[float]
     steps_per_epoch: int
+
+
+def generator_state(generator: torch.Generator) -> str:
+    """The generator's state as a hex string for ``checkpoint.json``."""
+    return generator.get_state().numpy().tobytes().hex()
+
+
+def set_generator_state(generator: torch.Generator, state: str) -> None:
+    generator.set_state(torch.frombuffer(bytearray.fromhex(state),
+                                         dtype=torch.uint8))
 
 
 def device_epoch_runner(train_epoch: Callable, data: dict[str, torch.Tensor],
@@ -55,24 +80,72 @@ def device_epoch_runner(train_epoch: Callable, data: dict[str, torch.Tensor],
     return run_epoch
 
 
+def _record(epoch_metrics, history, log_directory) -> dict[str, dict[str, float]]:
+    """Scalars into the history (returned for the learning curves); vectors
+    (the per-neuron KL) into the run's array series."""
+    scalars: dict[str, dict[str, float]] = {}
+    for kind, metrics in epoch_metrics.items():
+        kind_history = history.setdefault(kind, {})
+        kind_scalars = scalars.setdefault(kind, {})
+        for name, value in metrics.items():
+            if np.ndim(value) > 0:
+                if log_directory:
+                    checkpoints.append_array_series(log_directory,
+                                                    f"{name}-{kind}", value)
+                continue
+            kind_history.setdefault(name, []).append(float(value))
+            kind_scalars[name] = float(value)
+    return scalars
+
+
+def _keep_versions(log_directory, status) -> None:
+    """``early_stopping/`` snapshots the last epoch before degradation;
+    ``best/`` follows each improvement and invalidates that snapshot."""
+    if status["start_degrading"]:
+        checkpoints.copy_checkpoint_version(
+            log_directory, os.path.join(log_directory, "early_stopping"))
+    if status["improved"]:
+        checkpoints.copy_checkpoint_version(
+            log_directory, os.path.join(log_directory, "best"))
+        checkpoints.remove_checkpoint(
+            os.path.join(log_directory, "early_stopping"))
+
+
 def run_training_loop(
     *,
     train_state: TrainState,
     run_epoch: EpochRunner,
     evaluate_training: Evaluator | None,
+    evaluate_validation: Evaluator | None = None,
     number_of_epochs: int,
     generator: torch.Generator,
     steps_per_epoch: int,
     number_of_warm_up_epochs: int = 0,
+    log_directory: str | None = None,
+    early_stopping_rounds: int = EARLY_STOPPING_ROUNDS,
+    start_epoch: int = 0,
     verbose: bool = True,
     epoch_callback: Callable[[int, TrainState, dict], None] | None = None,
 ) -> TrainingResult:
+    """Run epochs ``start_epoch`` to ``number_of_epochs`` (see the module
+    docstring)."""
+    early = EarlyStopping(rounds=early_stopping_rounds)
     history: dict[str, dict[str, list[float]]] = {}
+    if log_directory:
+        curves = checkpoints.load_learning_curves(log_directory)
+        validation_curve = curves.get("validation", {}).get("lower_bound", [])
+        for epoch, value in enumerate(validation_curve[:start_epoch]):
+            early.update(value, epoch)
+        history = {kind: dict(values) for kind, values in curves.items()}
+
     epoch_seconds: list[float] = []
-    for epoch in range(number_of_epochs):
+    stopped_early = False
+    epoch = start_epoch
+    for epoch in range(start_epoch, number_of_epochs):
         wuw = warm_up_weight(epoch, number_of_warm_up_epochs)
         start = time.perf_counter()
-        train_state, train_metrics = run_epoch(train_state, epoch, wuw, generator)
+        train_state, train_metrics = run_epoch(train_state, epoch, wuw,
+                                               generator)
         epoch_seconds.append(time.perf_counter() - start)
         if not np.isfinite(train_metrics["lower_bound"]):
             raise ArithmeticError(
@@ -84,25 +157,61 @@ def run_training_loop(
                 if evaluate_training is not None else train_metrics
             )
         }
+        if evaluate_validation is not None:
+            epoch_metrics["validation"] = evaluate_validation(train_state,
+                                                              generator)
+        # before the records, so that the callback may add metrics
         if epoch_callback is not None:
             epoch_callback(epoch, train_state, epoch_metrics)
-        for kind, metrics in epoch_metrics.items():
-            kind_history = history.setdefault(kind, {})
-            for name, value in metrics.items():
-                if np.ndim(value) == 0:
-                    kind_history.setdefault(name, []).append(float(value))
+        scalars = _record(epoch_metrics, history, log_directory)
+        if log_directory:
+            checkpoints.append_learning_curves(log_directory, scalars)
+            checkpoints.save_checkpoint(
+                log_directory, train_state, epoch=epoch + 1,
+                extra_metadata={"generator_state": generator_state(generator)})
         if verbose:
-            print(
-                f"Epoch {epoch + 1}/{number_of_epochs} "
-                f"({epoch_seconds[-1]:.3g} s)  ELBO(train): "
-                f"{epoch_metrics['training']['lower_bound']:.6g}"
-            )
+            pieces = [f"Epoch {epoch + 1}/{number_of_epochs} "
+                      f"({epoch_seconds[-1]:.3g} s)",
+                      f"ELBO(train): "
+                      f"{epoch_metrics['training']['lower_bound']:.6g}"]
+            if "validation" in epoch_metrics:
+                pieces.append(f"ELBO(valid): "
+                              f"{epoch_metrics['validation']['lower_bound']:.6g}")
+            print("  ".join(pieces))
+
+        if "validation" in epoch_metrics:
+            status = early.update(epoch_metrics["validation"]["lower_bound"],
+                                  epoch)
+            if log_directory:
+                _keep_versions(log_directory, status)
+            if status["stop"]:
+                stopped_early = True
+                if verbose:
+                    print(f"Stopping early: no validation improvement for "
+                          f"{early_stopping_rounds} epochs.")
+                epoch += 1
+                break
+        elif log_directory:  # no validation set: the best is the latest
+            checkpoints.copy_checkpoint_version(
+                log_directory, os.path.join(log_directory, "best"))
+    else:
+        epoch = number_of_epochs
+
     if not tree_finite(train_state.params):
         raise ArithmeticError("Model parameters became non-finite.")
     return TrainingResult(
         train_state=train_state,
-        number_of_epochs_trained=number_of_epochs,
+        number_of_epochs_trained=epoch,
+        stopped_early=stopped_early,
+        best_epoch=early.best_epoch,
         history=history,
         epoch_seconds=epoch_seconds,
         steps_per_epoch=steps_per_epoch,
     )
+
+
+def resume_start_epoch(log_directory: str) -> int:
+    """The epoch to resume from: the stored checkpoint's epoch, else 0."""
+    if checkpoints.checkpoint_exists(log_directory):
+        return int(checkpoints.load_metadata(log_directory)["epoch"])
+    return 0

@@ -1,5 +1,6 @@
-"""Model-layer helpers (the ported part of
-``scvae_tpu/models/utilities.py``)."""
+"""Model-layer helpers (the port's copy of
+``scvae_tpu/models/utilities.py``: sample counts, the cross-parameter
+validation and the early-stopping status of a validation curve)."""
 
 from __future__ import annotations
 
@@ -44,3 +45,66 @@ def parse_numbers_of_samples(proposed) -> dict[str, int]:
     raise TypeError(
         f"Expected an `int`, `list`, or `dict`; got `{type(proposed)}`."
     )
+
+
+def _enumerate(strings: list[str], conjunction: str) -> str:
+    if len(strings) == 1:
+        return strings[0]
+    if len(strings) == 2:
+        return f"{strings[0]} {conjunction} {strings[1]}"
+    return f"{', '.join(strings[:-1])}, {conjunction} {strings[-1]}"
+
+
+def validate_model_parameters(
+    reconstruction_distribution=None,
+    number_of_reconstruction_classes=None,
+    model_type=None,
+    latent_distribution=None,
+    parameterise_latent_posterior=None,
+):
+    """The reference's cross-parameter validation: no piecewise-categorical
+    Bernoulli, zero-inflated or constrained likelihood, and a parameterised
+    latent posterior only for a VAE with a Gaussian-mixture latent."""
+    if reconstruction_distribution and number_of_reconstruction_classes:
+        if number_of_reconstruction_classes > 0:
+            errors = []
+            if reconstruction_distribution == "bernoulli":
+                errors.append("the Bernoulli distribution")
+            if "zero-inflated" in reconstruction_distribution:
+                errors.append("zero-inflated distributions")
+            if "constrained" in reconstruction_distribution:
+                errors.append("constrained distributions")
+            if errors:
+                message = _enumerate(errors, "or")
+                raise ValueError(f"{message[0].upper()}{message[1:]} cannot "
+                                 "be piecewise categorical.")
+
+    if model_type and latent_distribution and parameterise_latent_posterior:
+        if "VAE" in model_type:
+            if not (
+                model_type == "VAE"
+                and latent_distribution == "gaussian mixture"
+            ):
+                raise ValueError(
+                    "Cannot parameterise latent posterior parameters for "
+                    f"{model_type} or {latent_distribution} distribution."
+                )
+
+
+def early_stopping_status(
+    validation_metrics: list[float], early_stopping_rounds: int
+) -> tuple[bool, int]:
+    """(stopped_early, epochs_without_improvement) rebuilt from a validation
+    curve."""
+    stopped_early = False
+    epochs_without_improvement = 0
+    if validation_metrics:
+        best = -float("inf")
+        for metric in validation_metrics:
+            if metric > best:
+                best = metric
+                epochs_without_improvement = 0
+            else:
+                epochs_without_improvement += 1
+        stopped_early = epochs_without_improvement >= early_stopping_rounds
+    return stopped_early, epochs_without_improvement

@@ -9,7 +9,10 @@ path (:func:`scvae_tpu_torch.ops.fused_log_likelihood` and
 :func:`~scvae_tpu_torch.ops.fused_categorised_log_likelihood`: kernels K2/K3,
 their categorised instances or K6/K7 on CUDA, their plain versions on the
 CPU); evaluation keeps the unfused distribution path, as the JAX package
-does.
+does: ``evaluation_outputs`` gives a batch's metrics, the posterior-
+predictive reconstruction with its standard deviations and the latent
+means, and ``decode_means`` the reconstruction means of given z (ancestral
+sampling).
 """
 
 from __future__ import annotations
@@ -454,6 +457,57 @@ def elbo_terms(
         "kl_divergence_neurons": kl_divergence_neurons,
     }
     return metrics, outputs
+
+
+def evaluation_outputs(
+    config: VAEConfig,
+    params: Params,
+    state: State,
+    batch: Batch,
+    generator: torch.Generator | None,
+    *,
+    n_iw: int = 1,
+    n_mc: int = 1,
+    deterministic_z: bool = False,
+    noise: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The ELBO metrics of one batch in evaluation mode, and the posterior-
+    predictive reconstruction: ``p_x_mean`` Ê[x] (B, F), the mean over the
+    samples of E[x|z]; ``stddev_of_p_x_given_z_mean`` the standard deviation
+    of E[x|z] over the samples; ``p_x_stddev`` from V[x] ≈ that variance +
+    Ê[V[x|z]]; the latent means ``q_z_mean`` (B, D) and the samples ``z``
+    (S, B, D) (reference ``variational_autoencoder.py:2658-2713``)."""
+    metrics, outputs = elbo_terms(
+        config, params, state, batch, generator, training=False,
+        n_iw=n_iw, n_mc=n_mc, deterministic_z=deterministic_z, noise=noise,
+    )
+    if deterministic_z:
+        n_iw = n_mc = 1
+    shape = (n_iw, n_mc, batch["t"].shape[0], config.feature_size)
+    p_mean = outputs.p_x.mean().reshape(shape)
+    p_var = outputs.p_x.variance().reshape(shape)
+    p_x_mean = torch.mean(torch.mean(p_mean, dim=1), dim=0)
+    variance_of_means = torch.mean(
+        torch.mean(torch.square(p_mean - p_x_mean), dim=1), dim=0)
+    mean_of_variances = torch.mean(torch.mean(p_var, dim=1), dim=0)
+    return {
+        **metrics,
+        "p_x_mean": p_x_mean,
+        "p_x_stddev": torch.sqrt(variance_of_means + mean_of_variances),
+        "stddev_of_p_x_given_z_mean": torch.sqrt(variance_of_means),
+        "q_z_mean": outputs.q_z.mean(),
+        "z": outputs.z,
+    }
+
+
+def decode_means(config, params: Params, state: State,
+                 z: torch.Tensor) -> torch.Tensor:
+    """E[x|z] (N, F) of latent values ``z`` (N, D) through the decoder in
+    evaluation mode (a VAE's or a GMVAE's; not for likelihoods that take
+    the count sum, which sampling has no value of)."""
+    dec_h, _ = networks.apply_mlp(params["decoder"], state.get("decoder", {}),
+                                  z[None], training=False)
+    return _build_reconstruction(config, params, dec_h, {}).mean()[0]
 
 
 def loss_fn(

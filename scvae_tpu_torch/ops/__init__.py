@@ -7,9 +7,11 @@ extension on first use) and runs its plain version on a CPU tensor.
 from scvae_tpu_torch.ops import fused_likelihood, gather
 from scvae_tpu_torch.ops.fused_likelihood import (
     FAMILIES,
+    MAX_FUSED_GROUPS,
     MAX_FUSED_HEADS,
     FusedCategorised,
     FusedConstrainedPoisson,
+    FusedGroupedLogLikelihood,
     FusedLogLikelihood,
     categorised_backward_dh,
     categorised_backward_dw,
@@ -22,7 +24,11 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     fused_backward_dw,
     fused_categorised_log_likelihood,
     fused_forward,
+    fused_grouped_log_likelihood,
     fused_log_likelihood,
+    grouped_backward_dh,
+    grouped_backward_dw,
+    grouped_forward,
     reference_backward,
     reference_categorised_dh,
     reference_categorised_dw,
@@ -34,8 +40,12 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     reference_dh,
     reference_dw,
     reference_forward,
+    reference_grouped_dh,
+    reference_grouped_dw,
+    reference_grouped_forward,
     reference_log_likelihood,
     supports_fused_likelihood,
+    supports_grouped_likelihood,
 )
 from scvae_tpu_torch.ops.gather import gather_rows, reference_gather
 from scvae_tpu_torch.ops.special import digamma, lgamma
@@ -61,7 +71,9 @@ __all__ = [
     "FAMILIES",
     "FusedCategorised",
     "FusedConstrainedPoisson",
+    "FusedGroupedLogLikelihood",
     "FusedLogLikelihood",
+    "MAX_FUSED_GROUPS",
     "MAX_FUSED_HEADS",
     "categorised_backward_dh",
     "categorised_backward_dw",
@@ -75,8 +87,12 @@ __all__ = [
     "fused_backward_dw",
     "fused_categorised_log_likelihood",
     "fused_forward",
+    "fused_grouped_log_likelihood",
     "fused_log_likelihood",
     "gather_rows",
+    "grouped_backward_dh",
+    "grouped_backward_dw",
+    "grouped_forward",
     "launch_counts",
     "lgamma",
     "reference_backward",
@@ -91,7 +107,11 @@ __all__ = [
     "reference_dw",
     "reference_forward",
     "reference_gather",
+    "reference_grouped_dh",
+    "reference_grouped_dw",
+    "reference_grouped_forward",
     "reference_log_likelihood",
     "reset_launch_counts",
     "supports_fused_likelihood",
+    "supports_grouped_likelihood",
 ]

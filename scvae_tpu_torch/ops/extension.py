@@ -20,7 +20,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood.cu", "cp_likelihood.cu",
-           "categorised_likelihood.cu")
+           "categorised_likelihood.cu", "grouped_likelihood.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -65,6 +65,18 @@ _SIGNATURES = {
     # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, round, stream
     "scvae_cat_backward_dw": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P,
                               *_HEADS, _P, _P, _I, _I, _I, _I, _I, _P],
+    # family, h, heads, t, t_dtype, out, n_groups, m, hidden, f, round,
+    # stream
+    "scvae_grouped_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _P],
+    # family, g, h, heads, t, t_dtype, dh, n_groups, m, hidden, f, round,
+    # stream
+    "scvae_grouped_backward_dh": [_I, _P, _P, *_HEADS, _P, _I, _P, _I, _I, _I,
+                                  _I, _I, _P],
+    # family, g, h, heads, t, t_dtype, dw0, db0, dw1, db1, dw2, db2,
+    # n_groups, m, hidden, f, round, stream
+    "scvae_grouped_backward_dw": [_I, _P, _P, *_HEADS, _P, _I, *_HEADS, _I,
+                                  _I, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Fused decoder heads + count log-likelihoods (kernels K2, K3, K6, K7).
+"""Fused decoder heads + count log-likelihoods (kernels K2–K7).
 
 The training loss ends with one dense head per likelihood parameter on the
 decoder output, the elementwise log-probability and a sum over genes.  The
@@ -21,14 +21,20 @@ recomputes them tile by tile.  Counterpart of
 * the categorised instances of K2/K3 — a base family plus K + 1 class-logit
   heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
   — have their own forward, dh and dW kernels for up to
-  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``).
+  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``);
+* the grouped kernels K4/K5 take h (G, M, H) against targets t (M, F) shared
+  by the G groups, with the group loop inside the kernel and lgamma(1 + t)
+  always subtracted (``ops/csrc/grouped_likelihood.cu``), for the base
+  families and 2 ≤ G ≤ :data:`MAX_FUSED_GROUPS` (``_make_fused_grouped``).
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
 plain versions beside them.  :class:`FusedLogLikelihood`,
-:class:`FusedConstrainedPoisson` and :class:`FusedCategorised` wrap them as
-``autograd.Function``\\ s; :func:`fused_log_likelihood` dispatches by name
-and :func:`fused_categorised_log_likelihood` takes the class heads, with the
-JAX signatures.
+:class:`FusedConstrainedPoisson`, :class:`FusedCategorised` and
+:class:`FusedGroupedLogLikelihood` wrap them as ``autograd.Function``\\ s;
+:func:`fused_log_likelihood` dispatches by name,
+:func:`fused_categorised_log_likelihood` takes the class heads and
+:func:`fused_grouped_log_likelihood` the group axis, with the JAX
+signatures.
 
 Numerics follow the JAX package.  Base families: with a ``compute_dtype`` of
 bfloat16, h and W are rounded to bf16 and the products summed in float32,
@@ -45,6 +51,7 @@ float32, and dh comes back in float32 (unrounded, as JAX returns it).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -200,11 +207,16 @@ _MAX_HEADS = 3
 # package's cap (``_MAX_FUSED_HEADS``), beyond which it trains unfused.
 MAX_FUSED_HEADS = 32
 
+# Groups of the grouped kernels: the JAX package's cap
+# (``_MAX_FUSED_GROUPS``), beyond which it takes the flat kernels.
+MAX_FUSED_GROUPS = 16
+
 # Kernel launches, counted where each kernel is launched and nowhere else.
 LAUNCHES = {
     f"{prefix}_{kernel}": 0
     for prefix in ([fam.prefix for fam in FAMILIES.values()] + ["cp"]
-                   + [f"cat_{fam.prefix}" for fam in FAMILIES.values()])
+                   + [f"cat_{fam.prefix}" for fam in FAMILIES.values()]
+                   + [f"{fam.prefix}_grouped" for fam in FAMILIES.values()])
     for kernel in ("forward", "backward_dh", "backward_dw")
 }
 
@@ -217,6 +229,13 @@ def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
         return name in FAMILIES or name == "constrained poisson"
     return (name in FAMILIES
             and k_max + 1 + len(FAMILIES[name].heads) <= MAX_FUSED_HEADS)
+
+
+def supports_grouped_likelihood(name: str, g: int, k_max: int = 0) -> bool:
+    """Whether ``g`` groups of family ``name`` with ``k_max`` class heads
+    have a grouped path (the JAX package's test: base families only, no
+    class heads, 1 < g ≤ :data:`MAX_FUSED_GROUPS`)."""
+    return k_max == 0 and name in FAMILIES and 1 < g <= MAX_FUSED_GROUPS
 
 
 # --------------------------------------------------------------------------
@@ -285,6 +304,47 @@ def reference_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
     args = (name, g, h, weights, biases, t)
     return (reference_dh(*args, compute_dtype=compute_dtype),
             *reference_dw(*args, compute_dtype=compute_dtype))
+
+
+# --------------------------------------------------------------------------
+# Plain versions of K4 / K5 (grouped): K2 / K3 per group, lgamma(1 + t)
+# always subtracted
+# --------------------------------------------------------------------------
+
+
+def reference_grouped_forward(name, h, weights, biases, t, *,
+                              compute_dtype=None):
+    """Plain version of K4: the row sums (G, M) of h (G, M, H) against the
+    shared targets t (M, F), each group as :func:`reference_forward`."""
+    return torch.stack([
+        reference_forward(name, h_g, weights, biases, t,
+                          compute_dtype=compute_dtype)
+        for h_g in h
+    ]).reshape(h.shape[:2])
+
+
+def reference_grouped_dh(name, g, h, weights, biases, t, *,
+                         compute_dtype=None):
+    """Plain version of K5's first pass: dh (G, M, H), each group as
+    :func:`reference_dh` with its row cotangents g (G, M)."""
+    return torch.stack([
+        reference_dh(name, g_g, h_g, weights, biases, t,
+                     compute_dtype=compute_dtype)
+        for g_g, h_g in zip(g, h)
+    ]).reshape(h.shape)
+
+
+def reference_grouped_dw(name, g, h, weights, biases, t, *,
+                         compute_dtype=None):
+    """Plain version of K5's second pass: (dW_0, db_0, dW_1, db_1, …)
+    summed over the groups in order, each group as :func:`reference_dw`."""
+    total = reference_dw(name, g[0], h[0], weights, biases, t,
+                         compute_dtype=compute_dtype)
+    for g_g, h_g in zip(g[1:], h[1:]):
+        parts = reference_dw(name, g_g, h_g, weights, biases, t,
+                             compute_dtype=compute_dtype)
+        total = tuple(a + b for a, b in zip(total, parts))
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -821,6 +881,96 @@ def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
     return tuple(out)
 
 
+def _checked_grouped(name, h, weights, biases, t, g=None):
+    """Validate and normalise the grouped kernels' operands: h (G, M, H),
+    the shared targets t (M, F), the family's heads and the row cotangents
+    g (G, M); h and g flattened group-major to the flat kernels' checks."""
+    fam = _family_heads(name, weights, biases)
+    if h.dim() != 3:
+        raise ValueError(f"h {tuple(h.shape)} is not (groups, rows, hidden)")
+    n_groups, m, hidden = h.shape
+    if t.dim() != 2 or t.shape[0] != m:
+        raise ValueError(f"t {tuple(t.shape)} does not have h's {m} rows")
+    if g is not None and tuple(g.shape) != (n_groups, m):
+        raise ValueError(f"g {tuple(g.shape)} is not ({n_groups}, {m})")
+    if n_groups * m >= 2 ** 31:
+        raise ValueError(f"{n_groups} groups of {m} rows exceed int32")
+    rows = [] if g is None else [g.reshape(-1)]
+    h2, weights, biases, t, *rows = _checked_cuda(
+        h.reshape(-1, hidden), weights, biases, t, *rows)
+    return fam, h2, weights, biases, t, rows, (n_groups, m, hidden)
+
+
+def grouped_forward(name, h, weights, biases, t, *, compute_dtype=None):
+    """Row sums (G, M) of h (G, M, H) against the shared targets t (M, F),
+    lgamma(1 + t) subtracted: K4 on CUDA, the plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_grouped_forward(name, h, weights, biases, t,
+                                         compute_dtype=compute_dtype)
+    fam, h2, weights, biases, t, _, (n_groups, m, hidden) = _checked_grouped(
+        name, h, weights, biases, t)
+    f = t.shape[1]
+    if n_groups == 0 or m == 0 or f == 0:
+        return torch.zeros((n_groups, m), dtype=torch.float32, device=h.device)
+    out = torch.empty((n_groups, m), dtype=torch.float32, device=h.device)
+    extension.call(
+        "scvae_grouped_forward", h.device, fam.code, h2.data_ptr(),
+        *_head_pointers(weights, biases), t.data_ptr(), _T_CODES[t.dtype],
+        out.data_ptr(), n_groups, m, hidden, f, _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_forward"] += 1
+    return out
+
+
+def grouped_backward_dh(name, g, h, weights, biases, t, *,
+                        compute_dtype=None):
+    """dh (G, M, H) for the row cotangents g (G, M): K5's first kernel on
+    CUDA, the plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_grouped_dh(name, g, h, weights, biases, t,
+                                    compute_dtype=compute_dtype)
+    fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
+        _checked_grouped(name, h, weights, biases, t, g))
+    dh = torch.empty((n_groups, m, hidden), dtype=torch.float32,
+                     device=h.device)
+    if n_groups == 0 or m == 0:
+        return dh
+    extension.call(
+        "scvae_grouped_backward_dh", h.device, fam.code, g.data_ptr(),
+        h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
+        _T_CODES[t.dtype], dh.data_ptr(), n_groups, m, hidden, t.shape[1],
+        _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_backward_dh"] += 1
+    return dh
+
+
+def grouped_backward_dw(name, g, h, weights, biases, t, *,
+                        compute_dtype=None):
+    """(dW_0, db_0, dW_1, db_1, …) summed over groups and rows: K5's second
+    kernel on CUDA, the plain version on the CPU."""
+    if not h.is_cuda:
+        return reference_grouped_dw(name, g, h, weights, biases, t,
+                                    compute_dtype=compute_dtype)
+    fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
+        _checked_grouped(name, h, weights, biases, t, g))
+    f = t.shape[1]
+    out = [torch.empty(shape, dtype=torch.float32, device=h.device)
+           for _ in fam.heads for shape in ((hidden, f), (f,))]
+    if f == 0:
+        return tuple(out)
+    pointers = [x.data_ptr() for x in out]
+    pointers += [None] * (2 * _MAX_HEADS - len(pointers))
+    extension.call(
+        "scvae_grouped_backward_dw", h.device, fam.code, g.data_ptr(),
+        h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
+        _T_CODES[t.dtype], *pointers, n_groups, m, hidden, f,
+        _round_flag(compute_dtype),
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_backward_dw"] += 1
+    return tuple(out)
+
+
 # --------------------------------------------------------------------------
 # autograd Functions and the public entry
 # --------------------------------------------------------------------------
@@ -904,6 +1054,49 @@ class FusedCategorised(torch.autograd.Function):
         *dparams, dcat_w, dcat_b = categorised_backward_dw(
             *args, compute_dtype=ctx.compute_dtype)
         return (None, None, dh.to(h.dtype), None, dcat_w, dcat_b, *dparams)
+
+
+class FusedGroupedLogLikelihood(torch.autograd.Function):
+    """Row sums (G, M) of a base family over G groups of h against shared
+    targets, with the grouped backward (``_make_fused_grouped`` in the JAX
+    package).  Saves h, the heads and t; the gradient of t is zero, as JAX's
+    ``bwd`` returns it.  ``params`` are W_0, b_0, W_1, b_1, … in the
+    family's head order."""
+
+    @staticmethod
+    def forward(ctx, name, compute_dtype, h, t, *params):
+        ctx.save_for_backward(h, t, *params)
+        ctx.name = name
+        ctx.compute_dtype = compute_dtype
+        return grouped_forward(name, h, params[0::2], params[1::2], t,
+                               compute_dtype=compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, t, *params = ctx.saved_tensors
+        args = (ctx.name, g, h, params[0::2], params[1::2], t)
+        dh = grouped_backward_dh(*args, compute_dtype=ctx.compute_dtype)
+        dparams = grouped_backward_dw(*args, compute_dtype=ctx.compute_dtype)
+        dt = torch.zeros_like(t) if ctx.needs_input_grad[3] else None
+        return (None, None, dh.to(h.dtype), dt, *dparams)
+
+
+def fused_grouped_log_likelihood(name, h, heads, t,
+                                 compute_dtype=None) -> torch.Tensor:
+    """Row-summed log p(t | heads(h_g)) per group on the grouped path
+    (K4/K5): ``h`` (..., G, M, H) against targets ``t`` (M, F) shared by
+    every group; the leading axes are flattened into the group axis.
+    lgamma(1 + t) is always subtracted.  Returns (..., G, M)."""
+    if name not in FAMILIES:
+        raise ValueError(f"No fused grouped likelihood for {name!r}")
+    lead = h.shape[:-2]
+    m, hidden = h.shape[-2:]
+    params = [heads[p][k] for p in FAMILIES[name].heads
+              for k in ("kernel", "bias")]
+    out = FusedGroupedLogLikelihood.apply(
+        name, compute_dtype, h.reshape(math.prod(lead), m, hidden), t,
+        *params)
+    return out.reshape(lead + (m,))
 
 
 def _flat_rows(h, t):

@@ -1,19 +1,23 @@
-"""Moving parameters and batch-norm state between the JAX package and the
-port.
+"""Moving parameters, batch-norm state and whole train states between the
+JAX package and the port.
 
 Both keep parameters as nested dicts and lists with the same names and the
 same layout (a dense kernel is (in, out)), so conversion is leaf by leaf.
 Leaves are named by their ``jax.tree_util.keystr`` path, e.g.
 ``['encoder']['layers'][0]['kernel']`` — the names of the JAX package's
 ``.npz`` checkpoints — so a flat mapping of such names loads as well as a
-nested tree.  Nothing here imports JAX: the JAX side hands over numpy
-arrays.
+nested tree.  A whole ``TrainState`` is named as JAX names its
+``TrainState`` dataclass: ``.params[…]``, ``.model_state[…]``, the Adam
+moments and count of ``optax.chain(optax.clip(1.0), optax.adam(lr))`` as
+``.opt_state[1][0].mu[…]``, ``.nu[…]`` and ``.count`` (int32; the clip
+holds no state), and ``.step`` (int32).  Nothing here imports JAX: the JAX
+side hands over numpy arrays.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -102,3 +106,66 @@ def params_to_jax(tree: Any) -> Any:
     """The port's tree of tensors → a nested tree of numpy arrays with the
     same names and layout (``jax.tree.map(jnp.asarray, ...)`` places it)."""
     return _map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+# The optimiser state's name in JAX's TrainState: the Adam state, the first
+# element of the second link of the chain.
+_ADAM = ".opt_state[1][0]"
+
+
+def _map_named(fn: Callable[[str, Any], Any], tree: Any, path: tuple = ()):
+    """``tree`` with each leaf replaced by ``fn(keystr name, leaf)``; dicts
+    and lists keep their structure, empty ones included."""
+    if isinstance(tree, Mapping):
+        return {k: _map_named(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_named(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(keystr(path), tree)
+
+
+def _parts(params, model_state, opt_state):
+    return ((".params", params), (".model_state", model_state),
+            (f"{_ADAM}.mu", opt_state["mu"]), (f"{_ADAM}.nu", opt_state["nu"]))
+
+
+def train_state_to_jax(params, model_state, opt_state, step) -> dict[str, np.ndarray]:
+    """{JAX keystr name: numpy array} of a whole train state, the leaves of
+    the JAX package's checkpoints."""
+    flat = {
+        prefix + name: leaf.detach().cpu().numpy()
+        for prefix, tree in _parts(params, model_state, opt_state)
+        for name, leaf in flatten(tree).items()
+    }
+    flat[f"{_ADAM}.count"] = np.asarray(opt_state["count"], np.int32)
+    flat[".step"] = np.asarray(step, np.int32)
+    return flat
+
+
+def train_state_from_jax(flat: Mapping[str, Any], params, model_state,
+                         opt_state):
+    """(params, model_state, opt_state, step) from the leaves ``flat`` of a
+    JAX-named train state, in the structure, dtypes and devices of the
+    templates ``params``, ``model_state`` and ``opt_state``.  Raises on a
+    missing leaf or a shape that differs."""
+
+    def load(prefix):
+        def leaf(name, like):
+            key = prefix + name
+            if key not in flat:
+                raise KeyError(f"Checkpoint missing leaf {key}")
+            stored = np.asarray(flat[key])
+            if stored.shape != tuple(like.shape):
+                raise ValueError(f"Shape mismatch for {key}: checkpoint "
+                                 f"{stored.shape} vs model {tuple(like.shape)}")
+            return torch.tensor(stored, dtype=like.dtype, device=like.device)
+        return leaf
+
+    trees = [_map_named(load(prefix), tree)
+             for prefix, tree in _parts(params, model_state, opt_state)]
+    scalars = []
+    for key in (f"{_ADAM}.count", ".step"):
+        if key not in flat:
+            raise KeyError(f"Checkpoint missing leaf {key}")
+        scalars.append(int(np.asarray(flat[key])))
+    params, model_state, mu, nu = trees
+    return params, model_state, {"mu": mu, "nu": nu, "count": scalars[0]}, scalars[1]

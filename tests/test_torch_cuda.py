@@ -16,7 +16,11 @@ forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
 autograd; the constrained Poisson never rounds, so 2e-5 throughout).  The
 categorised kernels are checked with 14 heads (ZINB, K = 10) and the
 largest case of 32 (Poisson, K = 30), at odd shapes, ragged F and decoder
-widths past one hidden chunk.
+widths past one hidden chunk.  The grouped kernels (K4/K5) are checked at
+group counts of 1, 3 and 17 (past the 16 of ``supports_grouped_likelihood``
+and past four dh block groups), rows and genes off the tiles and decoder
+widths of 584 and 1,024, against their plain versions and against the flat
+kernels over the same group-major rows with cycled targets.
 """
 
 import pytest
@@ -337,3 +341,72 @@ def test_categorised_function_and_counts(device):
         ops.categorised_forward(name, h.detach().reshape(48, 32), ws, bs,
                                 cw.detach().repeat(3, 1, 1)[:30],
                                 cb.detach().repeat(3, 1)[:30], t)
+
+
+# (G, M, H, F) of the grouped kernels
+GROUPED_SHAPES = [(1, 37, 21, 301), (3, 20, 584, 45), (17, 9, 1024, 70),
+                  (3, 64, 256, 100)]
+
+
+def _grouped_case(device, name, n_groups, m, hidden, f, t_dtype, seed=0):
+    h, weights, biases, t, g = _family_case(device, name, n_groups * m, m,
+                                            hidden, f, t_dtype, seed=seed)
+    return (h.reshape(n_groups, m, hidden), weights, biases, t,
+            g.reshape(n_groups, m))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("n_groups,m,hidden,f", GROUPED_SHAPES)
+@pytest.mark.parametrize("compute", [None, torch.bfloat16])
+def test_grouped_kernels_match_plain_and_flat(device, name, n_groups, m,
+                                              hidden, f, compute):
+    t_dtype = torch.float32 if compute is None else torch.bfloat16
+    h, ws, bs, t, g = _grouped_case(device, name, n_groups, m, hidden, f,
+                                    t_dtype)
+    rtol = 2e-5 if compute is None else 4e-4
+    kw = dict(compute_dtype=compute)
+    out = ops.grouped_forward(name, h, ws, bs, t, **kw)
+    _close(out, ops.reference_grouped_forward(name, h, ws, bs, t, **kw), 2e-5)
+    dh = ops.grouped_backward_dh(name, g, h, ws, bs, t, **kw)
+    _close(dh, ops.reference_grouped_dh(name, g, h, ws, bs, t, **kw), rtol)
+    dws = ops.grouped_backward_dw(name, g, h, ws, bs, t, **kw)
+    want = ops.reference_grouped_dw(name, g, h, ws, bs, t, **kw)
+    assert len(dws) == len(want) == 2 * len(ws)
+    for a, b in zip(dws, want):
+        assert a.shape == b.shape
+        _close(a, b, rtol)
+    # the flat kernels over the G·M group-major rows, targets cycling
+    h2, g2 = h.reshape(-1, hidden), g.reshape(-1)
+    _close(out.reshape(-1), ops.fused_forward(name, h2, ws, bs, t, **kw),
+           2e-5)
+    _close(dh.reshape(-1, hidden),
+           ops.fused_backward_dh(name, g2, h2, ws, bs, t, **kw), rtol)
+    for a, b in zip(dws, ops.fused_backward_dw(name, g2, h2, ws, bs, t, **kw)):
+        _close(a, b, rtol)
+
+
+def test_grouped_function_and_counts(device):
+    """The autograd Function launches K4 and each K5 pass once, with the
+    leading axes folded into the groups; the t gradient is zero."""
+    name = "negative binomial"
+    h, ws, bs, t, g = _grouped_case(device, name, 6, 16, 32, 70,
+                                    torch.float32, seed=2)
+    h = h.reshape(2, 3, 16, 32).clone().requires_grad_(True)
+    t = t.clone().requires_grad_(True)
+    heads = {p: {"kernel": w.clone().requires_grad_(True),
+                 "bias": b.clone().requires_grad_(True)}
+             for p, w, b in zip(ops.FAMILIES[name].heads, ws, bs)}
+    ops.reset_launch_counts()
+    out = ops.fused_grouped_log_likelihood(name, h, heads, t,
+                                           compute_dtype=torch.bfloat16)
+    assert out.shape == (2, 3, 16)
+    out.backward(g.reshape(2, 3, 16))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        f"nb_grouped_{kernel}": 1
+        for kernel in ("forward", "backward_dh", "backward_dw")}
+    assert torch.isfinite(h.grad).all() and not t.grad.any()
+    with pytest.raises(ValueError):  # t rows must equal h's rows
+        ops.grouped_forward(name, h.detach().reshape(6, 16, 32), ws, bs,
+                            t.detach()[:8])

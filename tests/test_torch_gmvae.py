@@ -337,8 +337,7 @@ def test_unported_options_raise(monkeypatch):
     assert model().config.latent_distribution == "gaussian mixture"
     for kwargs in ({"latent_distribution": "full-covariance gaussian mixture"},
                    {"number_of_reconstruction_classes": 30},  # 33 heads
-                   {"batch_correction": True}, {"count_sum": True},
-                   {"log_directory": "models"}):
+                   {"batch_correction": True}, {"count_sum": True}):
         with pytest.raises(NotImplementedError):
             model(**kwargs)
     with pytest.raises(NotImplementedError):
@@ -347,15 +346,17 @@ def test_unported_options_raise(monkeypatch):
     gmvae = model(number_of_latent_clusters=2)
     x = np.ones((32, 10), np.float32)
     with pytest.raises(NotImplementedError):
-        gmvae.evaluate(x)
-    with pytest.raises(NotImplementedError):
-        gmvae.sample()
+        gmvae.train(x, device="cpu", caches_directory="caches")
 
     class Labelled:
         has_labels = True
 
     with pytest.raises(NotImplementedError):
         gmvae.train(Labelled(), device="cpu")
+    with pytest.raises(NotImplementedError):  # clusters mapped to labels
+        gmvae.evaluate(Labelled(), device="cpu")
+    with pytest.raises(ValueError, match="no log directory"):
+        gmvae.sample(device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gmvae.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)

@@ -152,13 +152,15 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     x = np.ones((32, 10), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.evaluate(x)
+    for unported in ({"metrics_fetch": "deferred"},
+                     {"data_placement": "streaming"},
+                     {"caches_directory": "caches"}):
+        with pytest.raises(NotImplementedError):
+            model.train(x, number_of_epochs=1, device="cpu", **unported)
     with pytest.raises(NotImplementedError):
-        model.train(x, x, number_of_epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.train(x, number_of_epochs=1, device="cpu", metrics_fetch="deferred")
-    with pytest.raises(NotImplementedError):
-        VariationalAutoencoder(feature_size=10, log_directory="models",
-                               reconstruction_distribution="negative binomial")
+        model.evaluate(x, device="cpu", number_of_devices=2)
     # the reference default, Poisson, is ported
     assert VariationalAutoencoder(feature_size=10).config.reconstruction_distribution == "poisson"
     with pytest.raises(NotImplementedError):
