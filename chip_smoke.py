@@ -25,10 +25,15 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              on the GPU (kernels) from the same small input, then
              ``VariationalAutoencoder(...).train(...)`` or
              ``GaussianMixtureVariationalAutoencoder(...).train(...)`` at the
-             headline width for two epochs: a finite, rising ELBO, and each of
-             the configuration's likelihood kernels launched exactly once per
-             training step (GMVAE-NB: once over all clusters, not K times),
-             no other likelihood kernel, the row gather at least once;
+             headline width for two epochs, each into an emptied directory
+             under ``build/`` (VAE-ZINB-cat, which the API refuses as the JAX
+             API does, through the config-level functions as the JAX
+             package's ``bench.py`` config 3): a finite, rising ELBO, and
+             each of the configuration's likelihood kernels launched exactly
+             once per training step (GMVAE-NB: once over all clusters, not K
+             times), no other likelihood kernel (no float32 K2 either: the
+             evaluation passes take the unfused path), the row gather at
+             least once;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
@@ -80,7 +85,7 @@ TRAINED = (
      "zero-inflated negative binomial", 0, 3.0),
     ("constrained poisson", "vae", "constrained poisson", 0, 3.0),
     ("negative binomial", "vae", "negative binomial", 0, 3.0),
-    ("VAE-ZINB-cat", "vae", "zero-inflated negative binomial", 10, 3.0),
+    ("VAE-ZINB-cat", "config", "zero-inflated negative binomial", 10, 3.0),
     ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0),
     ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0),
 )
@@ -94,8 +99,9 @@ GROUP_CAP = 16
 AFTER_EPOCHS = 3
 VALIDATION_SHARE = 0.1
 SAMPLES = 2_048
-AFTER_DIRECTORY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "build", "after_training")
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+SLICE_DIRECTORY = os.path.join(BUILD, "slice_training")
+AFTER_DIRECTORY = os.path.join(BUILD, "after_training")
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -117,7 +123,7 @@ BACKWARD_RTOL = 4e-4
 AUTOGRAD_RTOL = 2e-5
 
 SOURCES = {
-    "count": "scvae_tpu_torch/ops/csrc/count_likelihood.cu",
+    "count": "scvae_tpu_torch/ops/csrc/count_likelihood_tc.cu",
     "cp": "scvae_tpu_torch/ops/csrc/cp_likelihood.cu",
     "cat": "scvae_tpu_torch/ops/csrc/categorised_likelihood.cu",
     "grouped": "scvae_tpu_torch/ops/csrc/grouped_likelihood.cu",
@@ -161,15 +167,24 @@ def make_counts(n_cells: int, n_genes: int, density: float = 0.07,
     )
 
 
+# Cycles of the spin that holds the device before each timed launch, so
+# that the host has queued the whole call when the device reaches it (about
+# 6 ms at the H100's boost clock; a call's host dispatch takes far less).
+HOLD_CYCLES = 10_000_000
+
+
 def time_ms(fn, reps=25, flush=None) -> float:
     """Median device time of ``fn`` over ``reps`` launches (CUDA events),
-    with the L2 cache flushed before each launch when ``flush`` is given."""
+    with the L2 cache flushed before each launch when ``flush`` is given.
+    A spin kernel holds the device while the host queues the call, so the
+    events time the device's work and not the gaps of host dispatch."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -304,37 +319,95 @@ def check_family(name, h, g, x, gen, flush):
         check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
                     want[i], AUTOGRAD_RTOL)
 
+    return count_kernel_times(name, h, g, ws, bs, x, flush, errs=(
+        fwd_err, dh_err, dw_err), tag=fam.prefix)
+
+
+def count_kernel_times(name, h, g, ws, bs, x, flush, errs, tag, reps=25):
+    """The bf16 K2 and both K3 passes of base family ``name`` timed on the
+    main path's tensor-core kernels: the forward; the dh pass (the gradient
+    kernel, which also writes bf16(da), and the dh product); the dW/db pass
+    (the dW product and the sums, reading the gradient kernel's outputs),
+    so that the two passes add up to the backward.  Also prints the
+    yardstick (a bf16 ``torch.matmul`` of the same head products alone) and
+    a timing sweep over the heads kernels' row tiles and the products'
+    target block counts."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    bf16 = torch.bfloat16
+    k = len(ws)
+    (m, hidden), (m_t, f) = h.shape, x.shape
     fwd_flops = 2 * k * m * hidden * f
     head_bytes = k * (hidden * f + f) * 4
-    fwd_bytes = m * hidden * 4 + head_bytes + m * f * 2 + m * 4
+    fwd_bytes = m * hidden * 4 + head_bytes + m_t * f * 2 + m * 4
+    fwd_err, dh_err, dw_err = errs
+    timed = dict(flush=flush, reps=reps)
+
+    def forward():
+        ops.fused_forward(name, h, ws, bs, x, compute_dtype=bf16,
+                          include_lgamma_const=False)
+
+    def gradient():
+        fl.tc_gradient(name, g, h, ws, bs, x)
+
+    grad = fl.tc_gradient(name, g, h, ws, bs, x)
     results = {}
     t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-    results[f"{fam.prefix}_forward"] = {
+    results[f"{tag}_forward"] = {
         "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.fused_forward(
-            name, h, ws, bs, x, compute_dtype=bf16,
-            include_lgamma_const=False), flush=flush),
+        "ms": time_ms(forward, **timed),
         "plain_ms": time_ms(lambda: ops.reference_forward(
             name, h, ws, bs, x, compute_dtype=bf16,
-            include_lgamma_const=False), flush=flush),
+            include_lgamma_const=False), **timed),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
     }
-    bwd_flops = 2 * fwd_flops  # recompute + one gradient product
+    bwd_flops = 2 * fwd_flops  # the heads' products + one gradient product
     for kernel, err, nbytes, fn, plain in (
         ("backward_dh", dh_err, fwd_bytes + m * hidden * 4,
-         ops.fused_backward_dh, ops.reference_dh),
+         lambda: ops.fused_backward_dh(name, g, h, ws, bs, x,
+                                       compute_dtype=bf16),
+         ops.reference_dh),
         ("backward_dw", dw_err, fwd_bytes + head_bytes,
-         ops.fused_backward_dw, ops.reference_dw),
+         lambda: fl.tc_dw(grad), ops.reference_dw),
     ):
         t_bound, by = bound(nbytes, bwd_flops, BF16_FLOPS)
-        results[f"{fam.prefix}_{kernel}"] = {
+        results[f"{tag}_{kernel}"] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda fn=fn: fn(
-                name, g, h, ws, bs, x, compute_dtype=bf16), flush=flush),
+            "ms": time_ms(fn, **timed),
             "plain_ms": time_ms(lambda plain=plain: plain(
-                name, g, h, ws, bs, x, compute_dtype=bf16), flush=flush),
+                name, g, h, ws, bs, x, compute_dtype=bf16), **timed),
             "bound_ms": t_bound, "bound_by": by, "library_ms": None,
         }
+
+    hb, w, _ = fl._tc_operands(h, ws, bs)
+    w2 = w.reshape(w.shape[0], -1)
+    products = {"forward h W": lambda: hb @ w2,
+                "dh da W^T": lambda: grad.da @ w2.T,
+                "dW h^T da": lambda: hb.T @ grad.da}
+    print(f"yardstick {tag} M={m}: bf16 torch.matmul of the head products "
+          "alone, " + ", ".join(f"{label} {time_ms(fn, **timed):.4f} ms"
+                                for label, fn in products.items()),
+          flush=True)
+    sweep = []
+    tile, target = fl.TC_ROW_TILE, fl.TC_TARGET_BLOCKS
+    try:
+        for fl.TC_ROW_TILE in fl.TC_ROW_TILES:
+            sweep.append(f"row tile {fl.TC_ROW_TILE}: forward "
+                         f"{time_ms(forward, **timed):.4f}, gradient "
+                         f"{time_ms(gradient, **timed):.4f}")
+        fl.TC_ROW_TILE = tile
+        for fl.TC_TARGET_BLOCKS in (132, 264, 528):
+            swept = fl.tc_gradient(name, g, h, ws, bs, x)
+            sweep.append(
+                f"target {fl.TC_TARGET_BLOCKS} blocks (splits dh "
+                f"{swept.plan['dh_splits'][0]}, dW "
+                f"{swept.plan['dw_splits'][0]}): dh product "
+                f"{time_ms(lambda: fl.tc_dh(swept), **timed):.4f}, dW "
+                f"{time_ms(lambda: fl.tc_dw(swept), **timed):.4f}")
+    finally:
+        fl.TC_ROW_TILE, fl.TC_TARGET_BLOCKS = tile, target
+    print(f"sweep {tag} M={m} (ms): " + "; ".join(sweep), flush=True)
     return results
 
 
@@ -561,36 +634,10 @@ def check_cycled_rows(x, gen, flush):
     errs = [check_close(f"nb_backward [{i}] M={m} over {m_t} target rows", a,
                         b, BACKWARD_RTOL)
             for i, (a, b) in enumerate(zip(got, want))]
-    fwd_flops = 2 * 2 * m * HIDDEN * f
-    head_bytes = 2 * (HIDDEN * f + f) * 4
-    fwd_bytes = m * HIDDEN * 4 + head_bytes + m_t * f * 2 + m * 4
-    t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-    results = {"nb_forward_cycled": {
-        "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.fused_forward(
-            name, h, ws, bs, x, include_lgamma_const=False, **kw),
-            flush=flush, reps=10),
-        "plain_ms": time_ms(lambda: ops.reference_forward(
-            name, h, ws, bs, x, include_lgamma_const=False, **kw),
-            flush=flush, reps=10),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-    }}
-    for kernel, err, nbytes, fn, plain in (
-        ("backward_dh", errs[0], fwd_bytes + m * HIDDEN * 4,
-         ops.fused_backward_dh, ops.reference_dh),
-        ("backward_dw", max(errs[1:]), fwd_bytes + head_bytes,
-         ops.fused_backward_dw, ops.reference_dw),
-    ):
-        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
-        results[f"nb_{kernel}_cycled"] = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda fn=fn: fn(name, g, h, ws, bs, x, **kw),
-                          flush=flush, reps=10),
-            "plain_ms": time_ms(lambda plain=plain: plain(
-                name, g, h, ws, bs, x, **kw), flush=flush, reps=10),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-        }
-    return results
+    results = count_kernel_times(name, h, g, ws, bs, x, flush, reps=10,
+                                 errs=(fwd_err, errs[0], max(errs[1:])),
+                                 tag="nb")
+    return {f"{kernel}_cycled": values for kernel, values in results.items()}
 
 
 def check_grouped(name, x, gen, flush, n_groups):
@@ -786,6 +833,47 @@ def phase_small_step(label, model, name, k_max):
                     AUTOGRAD_RTOL, scale=largest)
 
 
+def train_config_level(config, counts, epoch_callback=None, device="cuda"):
+    """Train a VAE or GMVAE ``config`` on ``device`` through the config-level
+    functions (``models/step.py`` and the training loop on the API's staged
+    data, writing no files), as the JAX package's ``bench.py`` config 3
+    trains VAE-ZINB-cat, which both packages' VAE API refuses; the epoch's
+    ELBO is the mean of its training minibatches'."""
+    from scvae_tpu_torch.data.dataset import DataSet
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+    from scvae_tpu_torch.models import api, gmvae, step, training, vae
+
+    module = gmvae if isinstance(config, gmvae.GMVAEConfig) else vae
+    dev = torch.device(device)
+    n_cells = counts.shape[0]
+    arrays = build_model_arrays(DataSet(counts))
+    data = api._append_lgamma_rowsum(device_resident_data(arrays, device=dev),
+                                     config)
+    optimizer = step.make_optimizer(config.learning_rate)
+    params, state = (step.tree_map(lambda a: a.to(dev), tree) for tree in
+                     module.init(config, torch.Generator().manual_seed(0)))
+
+    def loss(params, model_state, batch, generator, warm_up_weight):
+        return module.loss_fn(config, params, model_state, batch, generator,
+                              warm_up_weight=warm_up_weight)
+
+    train_epoch = step.make_train_epoch(
+        loss, optimizer,
+        batch_dtypes=api._bf16_batch_dtypes(arrays, config, dev))
+    return training.run_training_loop(
+        train_state=step.create_train_state(params, state, optimizer),
+        run_epoch=training.device_epoch_runner(train_epoch, data, n_cells,
+                                               BATCH, seed=0),
+        evaluate_training=None, number_of_epochs=EPOCHS,
+        generator=torch.Generator(device=dev).manual_seed(0),
+        steps_per_epoch=n_cells // BATCH,
+        number_of_warm_up_epochs=config.number_of_warm_up_epochs,
+        verbose=False, epoch_callback=epoch_callback)
+
+
 def train_config(label, model, name, k_max, counts, card):
     """One trained configuration at the headline width for two epochs;
     returns the kernel launches of the run."""
@@ -795,20 +883,30 @@ def train_config(label, model, name, k_max, counts, card):
         ops,
     )
 
-    phase_small_step(label, model, name, k_max)
+    phase_small_step(label, "vae" if model == "config" else model, name,
+                     k_max)
     kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
                   hidden_sizes=[HIDDEN, HIDDEN],
                   reconstruction_distribution=name,
-                  number_of_reconstruction_classes=k_max)
-    if model == "gmvae":
-        model_ = GaussianMixtureVariationalAutoencoder(
-            number_of_latent_clusters=CLUSTERS, **kwargs)
-    else:
-        model_ = VariationalAutoencoder(**kwargs)
+                  number_of_reconstruction_classes=k_max,
+                  log_directory=os.path.join(SLICE_DIRECTORY, label))
     ops.reset_launch_counts()
-    result = model_.train(counts, number_of_epochs=EPOCHS,
-                          minibatch_size=BATCH, seed=0, device="cuda",
-                          verbose=False)
+    if model == "config":
+        from scvae_tpu_torch.models import vae
+
+        result = train_config_level(vae.VAEConfig(
+            feature_size=N_GENES, latent_size=LATENT,
+            hidden_sizes=(HIDDEN, HIDDEN), reconstruction_distribution=name,
+            number_of_reconstruction_classes=k_max), counts)
+    else:
+        if model == "gmvae":
+            model_ = GaussianMixtureVariationalAutoencoder(
+                number_of_latent_clusters=CLUSTERS, **kwargs)
+        else:
+            model_ = VariationalAutoencoder(**kwargs)
+        result = model_.train(counts, number_of_epochs=EPOCHS,
+                              minibatch_size=BATCH, seed=0, device="cuda",
+                              verbose=False)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     steps = result.steps_per_epoch * EPOCHS
@@ -831,11 +929,13 @@ def train_config(label, model, name, k_max, counts, card):
         raise AssertionError(f"{label}: training ELBO not finite and rising: "
                              f"{elbo}")
     seconds = result.epoch_seconds[-1]
+    float32_k2 = sum(v for k, v in launches.items()
+                     if k.endswith("_forward_float32"))
     print(f"slice {label}: ELBO {elbo}; epoch {EPOCHS}: "
           f"{result.steps_per_epoch / seconds:.6g} steps/s, "
           f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
-          f"launches {({k: v for k, v in launches.items() if v})} "
-          f"({card})", flush=True)
+          f"launches {({k: v for k, v in launches.items() if v})}; "
+          f"float32 K2 launches {float32_k2} ({card})", flush=True)
     return launches
 
 
@@ -1045,6 +1145,7 @@ def main() -> int:
     # its entry (NB's kernels at 2,048 rows in the VAE runs, over the
     # GMVAE's 20,480 rows in the GMVAE-NB run)
     launches = dict.fromkeys(kernels, 0)
+    shutil.rmtree(SLICE_DIRECTORY, ignore_errors=True)
     data = {3.0: counts}
     for label, model, name, k_max, mean in TRAINED:
         if mean not in data:

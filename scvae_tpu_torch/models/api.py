@@ -15,8 +15,8 @@ checkpoints (in the JAX package's format, with the ``best/`` and
 and ``sample`` restore them; ``evaluate`` gathers its batches from the
 device-resident evaluation set with the same kernel.  Entry points run on
 CUDA unless the caller passes ``device="cpu"``; without a GPU they raise.
-Without a log directory nothing is written (the JAX package writes under
-``models/`` by default) and there is nothing to evaluate or sample from.
+Without a log directory the run goes under the default ``models/``
+directory, as in the JAX package.
 Arguments that need parts not ported yet (streaming, meshes, deferred metric
 fetch, intermediate analyses, a caches directory) raise
 ``NotImplementedError``.
@@ -40,7 +40,10 @@ from scvae_tpu_torch.data.pipeline import (
 )
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import checkpoints, naming, step, training, vae
-from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
+from scvae_tpu_torch.models.utilities import (
+    parse_numbers_of_samples,
+    validate_model_parameters,
+)
 from scvae_tpu_torch.ops.special import lgamma
 
 _CONFIG_KWARGS = (
@@ -194,21 +197,30 @@ class VariationalAutoencoder:
             config_kwargs["dropout_keep_probabilities"] = tuple(
                 config_kwargs["dropout_keep_probabilities"] or ()
             )
+        reconstruction_distribution = default(
+            reconstruction_distribution, "models", "reconstruction_distribution")
+        number_of_reconstruction_classes = default(
+            number_of_reconstruction_classes, "models",
+            "number_of_reconstruction_classes")
+        latent_distribution = (
+            latent_distribution
+            or get_default("models", "latent_distribution")[self.type])
+        validate_model_parameters(
+            reconstruction_distribution=reconstruction_distribution,
+            number_of_reconstruction_classes=number_of_reconstruction_classes,
+            model_type=self.type,
+            latent_distribution=latent_distribution,
+            parameterise_latent_posterior=config_kwargs.get(
+                "parameterise_latent_posterior",
+                get_default("models", "parameterise_latent_posterior")),
+        )
         self.config = vae.VAEConfig(
             feature_size=feature_size,
             latent_size=default(latent_size, "models", "latent_size"),
             hidden_sizes=tuple(default(hidden_sizes, "models", "hidden_sizes")),
-            reconstruction_distribution=default(
-                reconstruction_distribution, "models", "reconstruction_distribution"
-            ),
-            number_of_reconstruction_classes=default(
-                number_of_reconstruction_classes, "models",
-                "number_of_reconstruction_classes",
-            ),
-            latent_distribution=(
-                latent_distribution
-                or get_default("models", "latent_distribution")[self.type]
-            ),
+            reconstruction_distribution=reconstruction_distribution,
+            number_of_reconstruction_classes=number_of_reconstruction_classes,
+            latent_distribution=latent_distribution,
             minibatch_normalisation=default(
                 minibatch_normalisation, "models", "minibatch_normalisation"
             ),
@@ -222,7 +234,7 @@ class VariationalAutoencoder:
         self.feature_size = feature_size
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
-        self.base_log_directory = log_directory
+        self.base_log_directory = default(log_directory, "models", "directory")
         self.stopped_early = None
 
     # -- identity ----------------------------------------------------------
@@ -276,9 +288,6 @@ class VariationalAutoencoder:
                       early_stopping: bool = False,
                       best_model: bool = False) -> str:
         base = base or self.base_log_directory
-        if base is None:
-            raise ValueError("the model has no log directory: pass "
-                             "log_directory to the constructor")
         return naming.log_directory(base, self.name, run_id=run_id,
                                     early_stopping=early_stopping,
                                     best_model=best_model)
@@ -469,10 +478,9 @@ class VariationalAutoencoder:
 
         if new_run and not run_id:
             run_id = naming.generate_run_id()
-        log_dir = (self.log_directory(run_id=run_id)
-                   if self.base_log_directory is not None or run_id else None)
+        log_dir = self.log_directory(run_id=run_id)
         self._active_log_directory = log_dir
-        if reset_training and log_dir and os.path.exists(log_dir):
+        if reset_training and os.path.exists(log_dir):
             shutil.rmtree(log_dir)
 
         optimizer = step.make_optimizer(learning_rate)
@@ -480,7 +488,7 @@ class VariationalAutoencoder:
             torch.Generator().manual_seed(seed), optimizer, device
         )
         generator = torch.Generator(device=device).manual_seed(seed)
-        start_epoch = training.resume_start_epoch(log_dir) if log_dir else 0
+        start_epoch = training.resume_start_epoch(log_dir)
         if start_epoch:
             train_state, metadata = checkpoints.restore_checkpoint(
                 log_dir, train_state)

@@ -4,12 +4,13 @@ reference's ``train``, ``evaluate`` and ``sample`` (the ported part of
 
 It overrides the VAE API's model hooks (``_init_state``, ``_loss_fn``,
 ``_eval_fn``, ``_evaluation_outputs``, ``_prior_draws``) and runs through the
-same methods.  With a log directory, training appends the prior centroids
-to the run's ``centroids.json`` each epoch.  ``evaluate`` adds the y latent
-set and attaches the predicted cluster ids to every output set.  Not ported
-yet, each raising ``NotImplementedError`` when asked for: the per-epoch
-cluster accuracy and the mapping of clusters to labels (they need labelled
-data sets).
+same methods.  Training appends the prior centroids to the run's
+``centroids.json`` each epoch.  ``evaluate`` adds the y latent set and
+attaches the predicted cluster ids to every output set.  Not ported yet,
+each raising ``NotImplementedError`` when asked for: the per-epoch cluster
+accuracy and the mapping of clusters to labels (they need labelled data
+sets).  Like the JAX package's, this constructor does not call
+``validate_model_parameters``: a zero-inflated base with classes trains.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         self.feature_size = feature_size
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
-        self.base_log_directory = log_directory
+        self.base_log_directory = default(log_directory, "models", "directory")
         self.stopped_early = None
 
     @property
@@ -182,10 +183,10 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
     def train(self, training_set, validation_set=None, *,
               track_accuracy: bool = True, epoch_callback=None, **kwargs):
         """Train through the VAE API's ``train``, appending the prior
-        centroids to the run's files each epoch when there is a log
-        directory.  The reference also tracks the per-epoch cluster accuracy
-        against the labels of a labelled data set; that callback is not
-        ported, so labelled data with ``track_accuracy`` raises."""
+        centroids to the run's files each epoch.  The reference also tracks
+        the per-epoch cluster accuracy against the labels of a labelled data
+        set; that callback is not ported, so labelled data with
+        ``track_accuracy`` raises."""
         labelled = any(getattr(data, "has_labels", False)
                        for data in (training_set, validation_set))
         if track_accuracy and labelled:
@@ -195,10 +196,9 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         user_callback = epoch_callback
 
         def log_centroids(epoch, train_state, epoch_metrics):
-            if self._active_log_directory:
-                checkpoints.append_centroids(
-                    self._active_log_directory,
-                    gmvae.prior_centroids(self.config, train_state.params))
+            checkpoints.append_centroids(
+                self._active_log_directory,
+                gmvae.prior_centroids(self.config, train_state.params))
             if user_callback is not None:
                 user_callback(epoch, train_state, epoch_metrics)
 

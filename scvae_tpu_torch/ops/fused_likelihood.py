@@ -212,12 +212,17 @@ MAX_FUSED_HEADS = 32
 MAX_FUSED_GROUPS = 16
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
+# The base families' bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>",
+# their float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
 LAUNCHES = {
-    f"{prefix}_{kernel}": 0
-    for prefix in ([fam.prefix for fam in FAMILIES.values()] + ["cp"]
-                   + [f"cat_{fam.prefix}" for fam in FAMILIES.values()]
-                   + [f"{fam.prefix}_grouped" for fam in FAMILIES.values()])
+    f"{prefix}_{kernel}{suffix}": 0
+    for prefix, suffixes in (
+        [(fam.prefix, ("", "_float32")) for fam in FAMILIES.values()]
+        + [("cp", ("",))]
+        + [(f"cat_{fam.prefix}", ("",)) for fam in FAMILIES.values()]
+        + [(f"{fam.prefix}_grouped", ("",)) for fam in FAMILIES.values()])
     for kernel in ("forward", "backward_dh", "backward_dw")
+    for suffix in suffixes
 }
 
 
@@ -569,10 +574,10 @@ def _round_flag(compute_dtype) -> int:
     raise ValueError(f"unsupported compute dtype {compute_dtype}")
 
 
-def _checked_cuda(h, weights, biases, t, *rows):
-    """Validate and normalise the kernels' operands: contiguous float32
-    tensors on one CUDA device (t may stay bfloat16).  ``rows`` are (M,)
-    per-row operands."""
+def _validated(h, weights, biases, t, *rows):
+    """Check the kernels' operands: tensors on one CUDA device, t tiling
+    h's rows, heads of shape (H, F) and (F,), and (M,) per-row operands
+    ``rows``; returns t as a contiguous float32 or bfloat16 tensor."""
     tensors = (h, *weights, *biases, t, *rows)
     if not all(x.is_cuda and x.device == h.device for x in tensors):
         raise ValueError("all operands must be CUDA tensors on one device")
@@ -591,11 +596,16 @@ def _checked_cuda(h, weights, biases, t, *rows):
         if tuple(x.shape) != (m,):
             raise ValueError(f"row operand {tuple(x.shape)} does not match "
                              f"{m} rows")
-    if t.dtype not in _T_CODES:
-        t = t.float()
+    return (t if t.dtype in _T_CODES else t.float()).contiguous()
+
+
+def _checked_cuda(h, weights, biases, t, *rows):
+    """Validate and normalise the kernels' operands: contiguous float32
+    tensors on one CUDA device (t may stay bfloat16).  ``rows`` are (M,)
+    per-row operands."""
+    t = _validated(h, weights, biases, t, *rows)
     f32 = lambda xs: [x.float().contiguous() for x in xs]  # noqa: E731
-    return (f32([h])[0], f32(weights), f32(biases), t.contiguous(),
-            *f32(rows))
+    return (f32([h])[0], f32(weights), f32(biases), t, *f32(rows))
 
 
 def _head_pointers(weights, biases):
@@ -613,15 +623,196 @@ def _family_heads(name, weights, biases):
     return fam
 
 
+# --------------------------------------------------------------------------
+# bf16 K2 / K3 on the tensor cores (ops/csrc/count_likelihood_tc.cu)
+#
+# h and the heads' weights go over in bf16, zero-padded to widths that are
+# multiples of 8 (16-byte rows): h (M, Hp) and W (Hp, NH, Fp), the heads side
+# by side.  The forward writes row sums per gene tile; the backward's first
+# kernel writes bf16(da) (M, NH·Fp) and per-row-tile column sums of da, which
+# dh = da Wᵀ and dW = hᵀ da then read; the products split their depth over
+# partial arrays.  Every partial array is summed in order by a second pass.
+# --------------------------------------------------------------------------
+
+TC_DEPTH = 32          # depth of one ring stage
+TC_GENE_TILE = 64      # genes per block (each head), columns per product block
+TC_PRODUCT_ROWS = 128  # rows (dh) or hidden units (dW) per product block
+TC_ROW_TILES = (64, 128)  # the compiled row tiles of the heads kernels
+# Rows per heads block, and the blocks a product aims for (two per SM on
+# 132 SMs); module state so that a timing sweep can set them.
+TC_ROW_TILE = 64
+TC_TARGET_BLOCKS = 264
+TC_MIN_SPLIT_DEPTH = 8  # depth tiles per split at least
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tc_padded(n: int) -> int:
+    """Width rounded up to a multiple of 8 (16 bytes of bf16)."""
+    return _cdiv(n, 8) * 8
+
+
+def tc_splits(out_tiles: int, depth: int) -> tuple[int, int]:
+    """(splits, depth tiles per split) of a product with ``out_tiles``
+    output blocks over ``depth``: enough splits to reach about
+    :data:`TC_TARGET_BLOCKS` blocks, none shorter than
+    :data:`TC_MIN_SPLIT_DEPTH` tiles, none empty."""
+    k_tiles = max(1, _cdiv(depth, TC_DEPTH))
+    want = max(1, min(_cdiv(TC_TARGET_BLOCKS, max(out_tiles, 1)),
+                      k_tiles // TC_MIN_SPLIT_DEPTH))
+    per = _cdiv(k_tiles, want)
+    return _cdiv(k_tiles, per), per
+
+
+def tc_plan(m: int, hidden: int, f: int, n_heads: int,
+            row_tile: int | None = None) -> dict:
+    """Padded widths, grids and scratch shapes of the tensor-core K2/K3 for
+    M = ``m`` rows, H = ``hidden``, F = ``f`` and ``n_heads`` heads."""
+    row_tile = TC_ROW_TILE if row_tile is None else row_tile
+    if row_tile not in TC_ROW_TILES:
+        raise ValueError(f"row tile {row_tile} is not one of {TC_ROW_TILES}")
+    hp, fp = tc_padded(hidden), tc_padded(f)
+    width = n_heads * fp
+    dh_splits = tc_splits(
+        _cdiv(m, TC_PRODUCT_ROWS) * _cdiv(hp, TC_GENE_TILE), width)
+    dw_splits = tc_splits(
+        _cdiv(hp, TC_PRODUCT_ROWS) * _cdiv(width, TC_GENE_TILE), m)
+    return {
+        "row_tile": row_tile, "hp": hp, "fp": fp,
+        "row_sums": (_cdiv(f, TC_GENE_TILE), m),
+        "da": (m, width),
+        "db_parts": (_cdiv(m, row_tile), width),
+        "dh_splits": dh_splits, "dh_parts": (dh_splits[0], m, hp),
+        "dw_splits": dw_splits, "dw_parts": (dw_splits[0], hp, width),
+    }
+
+
+def _tc_operands(h, weights, biases):
+    """h (M, Hp) and W (Hp, NH, Fp) rounded to bf16 and zero-padded, and
+    the float32 biases (NH, F)."""
+    m, hidden = h.shape
+    f = weights[0].shape[1]
+    hp, fp = tc_padded(hidden), tc_padded(f)
+    bf16 = torch.bfloat16
+    if hp == hidden:
+        hb = h.to(bf16).contiguous()
+    else:
+        hb = torch.zeros((m, hp), dtype=bf16, device=h.device)
+        hb[:, :hidden] = h
+    padded = (hp, fp) != (hidden, f)
+    w = (torch.zeros if padded else torch.empty)(
+        (hp, len(weights), fp), dtype=bf16, device=h.device)
+    for k, w_k in enumerate(weights):
+        w[:hidden, k, :f] = w_k
+    b = torch.stack([b_k.float() for b_k in biases]).contiguous()
+    return hb, w, b
+
+
+def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
+    t = _validated(h, weights, biases, t)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = tc_plan(m, hidden, f, len(weights))
+    hb, w, b = _tc_operands(h, weights, biases)
+    out = torch.empty((m,), dtype=torch.float32, device=h.device)
+    part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
+    extension.call(
+        "scvae_tc_forward", h.device, fam.code, plan["row_tile"],
+        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], part.data_ptr(), out.data_ptr(), m, t.shape[0],
+        plan["hp"], f, int(include_lgamma_const),
+    )
+    LAUNCHES[f"{fam.prefix}_forward"] += 1
+    return out
+
+
+@dataclasses.dataclass
+class TcGradient:
+    """The backward's first kernel's outputs: bf16 h and W as the products
+    read them, bf16(da) (M, NH·Fp) and da's column sums per row tile."""
+
+    plan: dict
+    hidden: int
+    f: int
+    h: torch.Tensor
+    w: torch.Tensor
+    da: torch.Tensor
+    db_parts: torch.Tensor
+
+
+def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Launch the backward's first kernel (the heads' products and da) of
+    family ``name`` for row cotangents ``g``; uncounted, as the dh and dW
+    passes count their launches."""
+    fam = _family_heads(name, weights, biases)
+    t = _validated(h, weights, biases, t, g)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = tc_plan(m, hidden, f, len(weights))
+    hb, w, b = _tc_operands(h, weights, biases)
+    dev = h.device
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    g = g.float().contiguous()
+    extension.call(
+        "scvae_tc_gradient", dev, fam.code, plan["row_tile"], g.data_ptr(),
+        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], da.data_ptr(), db_parts.data_ptr(), m, t.shape[0],
+        plan["hp"], f,
+    )
+    return TcGradient(plan, hidden, f, hb, w, da, db_parts)
+
+
+def tc_dh(grad: TcGradient) -> torch.Tensor:
+    """dh (M, H) = Σ_k bf16(da_k) W_kᵀ from the first kernel's outputs."""
+    plan, (m, width) = grad.plan, grad.da.shape
+    dev = grad.da.device
+    splits, per = plan["dh_splits"]
+    part = torch.empty(plan["dh_parts"], dtype=torch.float32, device=dev)
+    dh = torch.empty((m, grad.hidden), dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_tc_dh", dev, grad.da.data_ptr(), grad.w.data_ptr(),
+        part.data_ptr(), dh.data_ptr(), m, grad.hidden, plan["hp"], width,
+        splits, per,
+    )
+    return dh
+
+
+def tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
+    """(dW_0, db_0, dW_1, db_1, …) with dW_k = hᵀ bf16(da_k) and db_k =
+    Σ_rows da_k, from the first kernel's outputs."""
+    plan, m = grad.plan, grad.da.shape[0]
+    n_heads = grad.w.shape[1]
+    dev = grad.da.device
+    splits, per = plan["dw_splits"]
+    part = torch.empty(plan["dw_parts"], dtype=torch.float32, device=dev)
+    dw = torch.empty((n_heads, grad.hidden, grad.f), dtype=torch.float32,
+                     device=dev)
+    db = torch.empty((n_heads, grad.f), dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_tc_dw", dev, grad.h.data_ptr(), grad.da.data_ptr(),
+        grad.db_parts.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), n_heads, m, grad.hidden, plan["hp"], grad.f, splits,
+        per, plan["db_parts"][0],
+    )
+    return tuple(x for k in range(n_heads) for x in (dw[k], db[k]))
+
+
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
                   include_lgamma_const=True) -> torch.Tensor:
-    """Row-summed log-likelihood (M,) of family ``name``: K2 on CUDA, the
-    plain version on the CPU."""
+    """Row-summed log-likelihood (M,) of family ``name``: K2 on CUDA (bf16:
+    the tensor-core kernel; float32: the CUDA-core one), the plain version
+    on the CPU."""
     fam = _family_heads(name, weights, biases)
+    round_flag = _round_flag(compute_dtype)
     if not h.is_cuda:
         return reference_forward(name, h, weights, biases, t,
                                  compute_dtype=compute_dtype,
                                  include_lgamma_const=include_lgamma_const)
+    if round_flag:
+        return _tc_forward(fam, h, weights, biases, t, include_lgamma_const)
     h, weights, biases, t = _checked_cuda(h, weights, biases, t)
     m, hidden = h.shape
     out = torch.empty((m,), dtype=torch.float32, device=h.device)
@@ -630,10 +821,10 @@ def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
     extension.call(
         "scvae_fused_forward", h.device, fam.code, h.data_ptr(),
         *_head_pointers(weights, biases), t.data_ptr(), _T_CODES[t.dtype],
-        out.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-        _round_flag(compute_dtype), int(include_lgamma_const),
+        out.data_ptr(), m, t.shape[0], hidden, t.shape[1], round_flag,
+        int(include_lgamma_const),
     )
-    LAUNCHES[f"{fam.prefix}_forward"] += 1
+    LAUNCHES[f"{fam.prefix}_forward_float32"] += 1
     return out
 
 
@@ -642,12 +833,7 @@ def _checked_backward(g, h, weights, biases, t):
     return g, h, weights, biases, t
 
 
-def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """dh (M, H): K3's first kernel on CUDA, the plain version on the CPU."""
-    fam = _family_heads(name, weights, biases)
-    if not h.is_cuda:
-        return reference_dh(name, g, h, weights, biases, t,
-                            compute_dtype=compute_dtype)
+def _fused_backward_dh_f32(fam, g, h, weights, biases, t):
     g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
     m, hidden = h.shape
     dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
@@ -657,19 +843,13 @@ def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
         "scvae_fused_backward_dh", h.device, fam.code, g.data_ptr(),
         h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
         _T_CODES[t.dtype], dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-        _round_flag(compute_dtype),
+        0,
     )
-    LAUNCHES[f"{fam.prefix}_backward_dh"] += 1
+    LAUNCHES[f"{fam.prefix}_backward_dh_float32"] += 1
     return dh
 
 
-def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """(dW_0, db_0, dW_1, db_1, …): K3's second kernel on CUDA, the plain
-    version on the CPU."""
-    fam = _family_heads(name, weights, biases)
-    if not h.is_cuda:
-        return reference_dw(name, g, h, weights, biases, t,
-                            compute_dtype=compute_dtype)
+def _fused_backward_dw_f32(fam, g, h, weights, biases, t):
     g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
     m, hidden = h.shape
     f = t.shape[1]
@@ -682,19 +862,58 @@ def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
     extension.call(
         "scvae_fused_backward_dw", h.device, fam.code, g.data_ptr(),
         h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], *pointers, m, t.shape[0], hidden, f,
-        _round_flag(compute_dtype),
+        _T_CODES[t.dtype], *pointers, m, t.shape[0], hidden, f, 0,
     )
-    LAUNCHES[f"{fam.prefix}_backward_dw"] += 1
+    LAUNCHES[f"{fam.prefix}_backward_dw_float32"] += 1
     return tuple(out)
+
+
+def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """dh (M, H): K3's dh pass on CUDA (bf16: the tensor-core gradient
+    kernel and dh product), the plain version on the CPU."""
+    fam = _family_heads(name, weights, biases)
+    round_flag = _round_flag(compute_dtype)
+    if not h.is_cuda:
+        return reference_dh(name, g, h, weights, biases, t,
+                            compute_dtype=compute_dtype)
+    if not round_flag:
+        return _fused_backward_dh_f32(fam, g, h, weights, biases, t)
+    dh = tc_dh(tc_gradient(name, g, h, weights, biases, t))
+    LAUNCHES[f"{fam.prefix}_backward_dh"] += 1
+    return dh
+
+
+def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """(dW_0, db_0, dW_1, db_1, …): K3's dW/db pass on CUDA (bf16: the
+    tensor-core gradient kernel and dW product), the plain version on the
+    CPU."""
+    fam = _family_heads(name, weights, biases)
+    round_flag = _round_flag(compute_dtype)
+    if not h.is_cuda:
+        return reference_dw(name, g, h, weights, biases, t,
+                            compute_dtype=compute_dtype)
+    if not round_flag:
+        return _fused_backward_dw_f32(fam, g, h, weights, biases, t)
+    dws = tc_dw(tc_gradient(name, g, h, weights, biases, t))
+    LAUNCHES[f"{fam.prefix}_backward_dw"] += 1
+    return dws
 
 
 def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
     """(dh, dW_0, db_0, …) for the row cotangents ``g`` (M,): the two K3
-    kernels on CUDA, the plain version on the CPU."""
+    passes on CUDA, the plain version on the CPU.  With bf16 on CUDA both
+    passes share one launch of the gradient kernel."""
     args = (name, g, h, weights, biases, t)
-    return (fused_backward_dh(*args, compute_dtype=compute_dtype),
-            *fused_backward_dw(*args, compute_dtype=compute_dtype))
+    if not (h.is_cuda and _round_flag(compute_dtype)):
+        return (fused_backward_dh(*args, compute_dtype=compute_dtype),
+                *fused_backward_dw(*args, compute_dtype=compute_dtype))
+    prefix = _family_heads(name, weights, biases).prefix
+    grad = tc_gradient(*args)
+    dh = tc_dh(grad)
+    LAUNCHES[f"{prefix}_backward_dh"] += 1
+    dws = tc_dw(grad)
+    LAUNCHES[f"{prefix}_backward_dw"] += 1
+    return (dh, *dws)
 
 
 def cp_forward(h, w, b, t, n):

@@ -444,17 +444,39 @@ def test_vae_over_the_head_cap_raises():
 
 
 def test_vae_categorised_trains_on_cpu():
-    from scvae_tpu_torch import VariationalAutoencoder
+    """VAE-ZINB-cat trains through the config-level functions, as the JAX
+    package's ``bench.py`` config 3 does: the API refuses a zero-inflated
+    base with classes (``validate_model_parameters``)."""
+    from scvae_tpu_torch.data.dataset import DataSet
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+    from scvae_tpu_torch.models import step, training
 
     x = np.random.RandomState(0).poisson(3.0, (256, 40)).astype(np.float32)
-    model = VariationalAutoencoder(
-        feature_size=40, latent_size=4, hidden_sizes=[16, 16],
+    config = tvae.VAEConfig(
+        feature_size=40, latent_size=4, hidden_sizes=(16, 16),
         reconstruction_distribution="zero-inflated negative binomial",
         number_of_reconstruction_classes=3, learning_rate=1e-3,
     )
-    result = model.train(x, number_of_epochs=2, minibatch_size=64,
-                         device="cpu", verbose=False)
-    curve = result.history["training"]["lower_bound"]
+    optimizer = step.make_optimizer(config.learning_rate)
+    ts = step.create_train_state(
+        *tvae.init(config, torch.Generator().manual_seed(0)), optimizer)
+    data = device_resident_data(build_model_arrays(DataSet(x)), device="cpu")
+
+    def loss(params, model_state, batch, generator, warm_up_weight):
+        return tvae.loss_fn(config, params, model_state, batch, generator,
+                            warm_up_weight=warm_up_weight)
+
+    run_epoch = training.device_epoch_runner(
+        step.make_train_epoch(loss, optimizer), data, 256, 64, seed=0)
+    generator = torch.Generator().manual_seed(0)
+    curve = []
+    for epoch in range(2):
+        ts, metrics = run_epoch(ts, epoch, 1.0, generator)
+        curve.append(metrics["lower_bound"])
     assert np.all(np.isfinite(curve)) and curve[1] > curve[0]
-    head = result.train_state.params["categorised_logits"]
+    assert ts.step == 8
+    head = ts.params["categorised_logits"]
     assert tuple(head["kernel"].shape) == (4, 16, 40)

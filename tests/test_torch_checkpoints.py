@@ -325,3 +325,35 @@ def test_resume_equals_uninterrupted(tmp_path):
         assert checkpoints.load_metadata(directory)["epoch"] == 4
     assert (checkpoints.load_learning_curves(model_resumed.log_directory())
             == checkpoints.load_learning_curves(model_whole.log_directory()))
+
+
+@pytest.mark.parametrize("kind", ["vae", "gmvae"])
+def test_default_log_directory_matches_jax(kind, tmp_path, monkeypatch):
+    """Given no log directory, both packages write the run under
+    ``models/<name>`` of the working directory and evaluate from it (each
+    in a working directory of its own, or the second would resume the
+    first's run)."""
+    from scvae_tpu.data.dataset import DataSet as JaxDataSet
+
+    port_cls, jax_cls, _, _, kwargs = MODELS[kind]
+    common = dict(feature_size=F, latent_size=LATENT, hidden_sizes=HIDDEN,
+                  learning_rate=1e-3, **kwargs)
+    x = _counts(64)
+    for label, cls in (("jax", jax_cls), ("port", port_cls)):
+        (tmp_path / label).mkdir()
+        monkeypatch.chdir(tmp_path / label)
+        model = cls(**common)
+        assert model.log_directory() == os.path.join("models", model.name)
+        if label == "jax":
+            data, options = JaxDataSet("counts", values=x), {}
+        else:
+            data, options = x, {"device": "cpu"}
+        model.train(data, number_of_epochs=1, minibatch_size=B,
+                    verbose=False, **options)
+        assert os.listdir(".") == ["models"]
+        assert os.path.exists(os.path.join(
+            model.log_directory(), checkpoints.CHECKPOINT_FILE))
+        _, reconstructed, _ = model.evaluate(data, minibatch_size=B,
+                                             verbose=False, **options)
+        values = np.asarray(reconstructed.values)
+        assert values.shape == (64, F) and np.all(np.isfinite(values))

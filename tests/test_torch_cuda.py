@@ -10,6 +10,12 @@ the GPU machine run
 (``--noconftest``: ``tests/conftest.py`` sets up JAX, which these tests
 do not use).
 
+The bf16 instances of the base families' K2/K3 run on the tensor cores
+(``count_likelihood_tc.cu``), the float32 ones on the CUDA cores
+(``count_likelihood.cu``); both are held at the odd shapes, and the
+tensor-core kernels also at the main path's width with full and ragged
+tiles.
+
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
 forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
@@ -236,6 +242,65 @@ def test_nb_cycled_rows(device, m, m_t, hidden, f):
                                             seed=4)
     _check_family("negative binomial", h, weights, biases, t, g,
                   torch.bfloat16)
+
+
+# (M, M_t, H, F) of the bf16 tensor-core K2/K3 at the main path's width: a
+# full tile of rows and genes, a ragged gene edge, rows off the row tile
+# cycling over a tenth as many targets
+TC_SHAPES = [(2048, 2048, 256, 2048), (2048, 2048, 256, 2000),
+             (300, 30, 256, 2048), (300, 30, 256, 2000)]
+
+
+def _exact_case(device, name, m, m_t, hidden, f, seed=5):
+    """``_family_case`` with h on a grid of 1/8 up to 4, the weights and
+    biases on a grid of 1/256: every product and partial sum of the
+    activations is a float32 value, so any order of summation gives the
+    same activations and the same bf16 rounding of da.  The comparison then
+    checks the tiles' arithmetic alone; with real-valued inputs, the
+    tensor-core sums and the plain version's float32 product differ in the
+    last bits, and a da that lies on a bf16 rounding boundary rounds apart
+    (PERF.md §6)."""
+    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
+                                            torch.bfloat16, seed=seed)
+
+    def grid(x, step, bound):
+        return torch.clamp(torch.round(x / step) * step, -bound, bound)
+
+    return (grid(h, 1 / 8, 4.0), [grid(w, 1 / 256, 0.5) for w in weights],
+            [grid(b, 1 / 256, 2.0) for b in biases], t, g)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("m,m_t,hidden,f", TC_SHAPES)
+def test_tensor_core_kernels_full_and_ragged_tiles(device, name, m, m_t,
+                                                   hidden, f):
+    h, weights, biases, t, g = _exact_case(device, name, m, m_t, hidden, f)
+    _check_family(name, h, weights, biases, t, g, torch.bfloat16)
+    # the passes alone give the shared backward's values bit for bit
+    got = ops.fused_backward(name, g, h, weights, biases, t,
+                             compute_dtype=torch.bfloat16)
+    alone = (ops.fused_backward_dh(name, g, h, weights, biases, t,
+                                   compute_dtype=torch.bfloat16),
+             *ops.fused_backward_dw(name, g, h, weights, biases, t,
+                                    compute_dtype=torch.bfloat16))
+    for a, b in zip(alone, got):
+        assert torch.equal(a, b)
+
+
+def test_float32_and_bf16_launches_count_apart(device):
+    """bf16 calls launch the tensor-core kernels, float32 calls the
+    CUDA-core ones, each under its own counter."""
+    name = "negative binomial"
+    h, ws, bs, t, g = _family_case(device, name, 48, 16, 32, 70,
+                                   torch.float32, seed=2)
+    for compute, suffix in ((None, "_float32"), (torch.bfloat16, "")):
+        ops.reset_launch_counts()
+        ops.fused_forward(name, h, ws, bs, t, compute_dtype=compute)
+        ops.fused_backward(name, g, h, ws, bs, t, compute_dtype=compute)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {
+            f"nb_{kernel}{suffix}": 1
+            for kernel in ("forward", "backward_dh", "backward_dw")}
 
 
 # (base, K, M, M_t, H, F): 14 heads; 32 heads with cycled rows; NB with two

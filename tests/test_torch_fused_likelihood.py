@@ -175,3 +175,60 @@ def test_cpu_wrappers_are_the_plain_versions(name):
         ops.fused_log_likelihood("bernoulli", h_, {}, t_)
     with pytest.raises(ValueError):  # one head short
         ops.fused_forward(name, h_, ws[:-1], bs[:-1], t_)
+
+
+@pytest.mark.parametrize("m,hidden,f,n_heads,row_tile,want", [
+    # headline NB: 32 row tiles of 64; 16 x 4 dh blocks over 128 depth
+    # tiles -> 5 splits of 26; 2 x 64 dW blocks over 64 row tiles -> 3
+    # splits of 22
+    (2048, 256, 2048, 2, 64,
+     dict(hp=256, fp=2048, row_sums=(32, 2048),
+          da=(2048, 4096), db_parts=(32, 4096), dh_splits=(5, 26),
+          dh_parts=(5, 2048, 256), dw_splits=(3, 22),
+          dw_parts=(3, 256, 4096))),
+    # GMVAE-NB's 20,480 rows: 640 dh blocks need no split
+    (20480, 256, 2048, 2, 64,
+     dict(row_sums=(32, 20480), db_parts=(320, 4096),
+          dh_splits=(1, 128), dw_splits=(3, 214))),
+    # ragged ZINB at the other row tile: H and F padded to multiples of 8
+    (37, 21, 301, 3, 128,
+     dict(hp=24, fp=304, row_sums=(5, 37), da=(37, 912),
+          db_parts=(1, 912), dh_splits=(3, 10), dh_parts=(3, 37, 24),
+          dw_splits=(1, 2), dw_parts=(1, 24, 912))),
+])
+def test_tensor_core_plan(m, hidden, f, n_heads, row_tile, want):
+    """Padded widths, grids, scratch shapes and depth splits of the bf16
+    tensor-core K2/K3, which the kernels take from the wrapper."""
+    from scvae_tpu_torch.ops import fused_likelihood as tfl
+
+    plan = tfl.tc_plan(m, hidden, f, n_heads, row_tile=row_tile)
+    assert {k: plan[k] for k in want} == want
+
+
+def test_tensor_core_splits_and_operands():
+    """Every split of a product has depth to cover and the splits cover
+    all of it; the operands are bf16 copies, zero-padded to 16-byte rows."""
+    from scvae_tpu_torch.ops import fused_likelihood as tfl
+
+    for blocks in range(1, 700, 37):
+        for depth in (0, 8, 300, 2048, 6144, 20480):
+            splits, per = tfl.tc_splits(blocks, depth)
+            k_tiles = max(1, -(-depth // tfl.TC_DEPTH))
+            assert (splits - 1) * per < k_tiles <= splits * per
+            assert splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
+    with pytest.raises(ValueError):
+        tfl.tc_plan(8, 8, 8, 1, row_tile=32)
+    rng = np.random.RandomState(0)
+    h = torch.from_numpy(rng.randn(5, 21).astype(np.float32))
+    ws = [torch.from_numpy(rng.randn(21, 13).astype(np.float32))
+          for _ in range(2)]
+    bs = [torch.from_numpy(rng.randn(13).astype(np.float32))
+          for _ in range(2)]
+    hb, w, b = tfl._tc_operands(h, ws, bs)
+    assert hb.dtype == w.dtype == torch.bfloat16 and b.dtype == torch.float32
+    assert hb.shape == (5, 24) and w.shape == (24, 2, 16) and b.shape == (2, 13)
+    assert torch.equal(hb[:, :21], h.to(torch.bfloat16))
+    assert not hb[:, 21:].any() and not w[21:].any() and not w[:, :, 13:].any()
+    for k in range(2):
+        assert torch.equal(w[:21, k, :13], ws[k].to(torch.bfloat16))
+        assert torch.equal(b[k], bs[k])

@@ -303,6 +303,14 @@ def test_params_round_trip(case):
             jconfig.k_max + 1, HIDDEN[0], F)
 
 
+@pytest.fixture
+def in_tmp_path(tmp_path, monkeypatch):
+    """Run in a fresh working directory: a model given no log directory
+    writes its run under ``./models``, and would resume another test's."""
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(reconstruction_distribution="negative binomial"),
     dict(reconstruction_distribution="zero-inflated negative binomial",
@@ -310,7 +318,7 @@ def test_params_round_trip(case):
          prior_probabilities_method="learn",
          proportion_of_free_nats_for_y_kl_divergence=0.5),
 ])
-def test_train_on_cpu_rises(kwargs):
+def test_train_on_cpu_rises(kwargs, in_tmp_path):
     """A few GMVAE steps through the VAE API's ``train`` (the model hooks):
     a finite, rising ELBO."""
     x = np.random.RandomState(0).poisson(2.0, (256, 40)).astype(np.float32)
@@ -327,7 +335,7 @@ def test_train_on_cpu_rises(kwargs):
                                               "reconstruction"}
 
 
-def test_unported_options_raise(monkeypatch):
+def test_unported_options_raise(monkeypatch, in_tmp_path):
     def model(**kwargs):
         return GaussianMixtureVariationalAutoencoder(
             feature_size=10, latent_size=2, hidden_sizes=[8],
@@ -355,8 +363,8 @@ def test_unported_options_raise(monkeypatch):
         gmvae.train(Labelled(), device="cpu")
     with pytest.raises(NotImplementedError):  # clusters mapped to labels
         gmvae.evaluate(Labelled(), device="cpu")
-    with pytest.raises(ValueError, match="no log directory"):
-        gmvae.sample(device="cpu")
+    with pytest.raises(FileNotFoundError, match="train the model first"):
+        gmvae.sample(device="cpu")  # nothing under the default directory
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gmvae.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)

@@ -125,11 +125,19 @@ def test_warm_up_weight_matches_jax():
                 jobjectives.warm_up_weight(epoch, warm_up))
 
 
+@pytest.fixture
+def in_tmp_path(tmp_path, monkeypatch):
+    """Run in a fresh working directory: a model given no log directory
+    writes its run under ``./models``, and would resume another test's."""
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
 @pytest.mark.parametrize("name", ["negative binomial", "poisson",
                                   "zero-inflated poisson",
                                   "zero-inflated negative binomial",
                                   "constrained poisson"])
-def test_train_on_cpu_rises(name):
+def test_train_on_cpu_rises(name, in_tmp_path):
     x = np.random.RandomState(0).poisson(2.0, (256, 40)).astype(np.float32)
     model = VariationalAutoencoder(
         feature_size=40, latent_size=4, hidden_sizes=[16, 16],
@@ -143,7 +151,7 @@ def test_train_on_cpu_rises(name):
     assert result.steps_per_epoch == 4 and result.train_state.step == 8
 
 
-def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, in_tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = VariationalAutoencoder(
         feature_size=10, latent_size=2, hidden_sizes=[8],
@@ -166,6 +174,33 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(NotImplementedError):
         VariationalAutoencoder(feature_size=10,
                                reconstruction_distribution="bernoulli")
+
+
+@pytest.mark.parametrize("name", ["zero-inflated poisson",
+                                  "zero-inflated negative binomial",
+                                  "constrained poisson"])
+def test_api_refuses_what_jax_refuses(name):
+    """The VAE API refuses a zero-inflated or constrained base with classes
+    with the JAX API's error (``validate_model_parameters``); the GMVAE
+    constructors of both packages do not validate, so both take ZINB with
+    classes."""
+    from scvae_tpu.models.api import VariationalAutoencoder as JaxVAE
+    from scvae_tpu.models.gmvae_api import (
+        GaussianMixtureVariationalAutoencoder as JaxGMVAE,
+    )
+    from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder
+
+    kwargs = dict(feature_size=10, reconstruction_distribution=name,
+                  number_of_reconstruction_classes=3)
+    with pytest.raises(ValueError) as jax_error:
+        JaxVAE(**kwargs)
+    with pytest.raises(ValueError) as port_error:
+        VariationalAutoencoder(**kwargs)
+    assert str(port_error.value) == str(jax_error.value)
+    assert "cannot be piecewise categorical" in str(port_error.value)
+    if name == "zero-inflated negative binomial":
+        for cls in (JaxGMVAE, GaussianMixtureVariationalAutoencoder):
+            assert cls(**kwargs).config.k_max == 3
 
 
 def _package_modules():

@@ -4,8 +4,10 @@
     python3 tools/profile_torch_step.py [LIKELIHOOD] [--classes K]
         [--model gmvae]
 
-Trains the headline VAE of ``chip_smoke.py`` (68,579 × 2,048 synthetic
-counts, hidden (256, 256), latent 100, minibatch 2,048) with the
+Trains, through ``chip_smoke.train_config_level`` (the config-level
+functions, no files written, no full-pass evaluation), the headline VAE of
+``chip_smoke.py`` (68,579 × 2,048 synthetic counts, hidden (256, 256),
+latent 100, minibatch 2,048) with the
 reconstruction likelihood LIKELIHOOD (default "negative binomial"; any name
 the port trains, e.g. "zero-inflated negative binomial" or "constrained
 poisson"), with K reconstruction classes (the categorised likelihood;
@@ -31,10 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
-from scvae_tpu_torch import (  # noqa: E402
-    GaussianMixtureVariationalAutoencoder,
-    VariationalAutoencoder,
-)
+from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder  # noqa: E402
+from scvae_tpu_torch.models import vae  # noqa: E402
 
 
 def main() -> int:
@@ -51,14 +51,14 @@ def main() -> int:
     counts = chip_smoke.make_counts(chip_smoke.N_CELLS, chip_smoke.N_GENES)
     kwargs = dict(feature_size=chip_smoke.N_GENES,
                   latent_size=chip_smoke.LATENT,
-                  hidden_sizes=[chip_smoke.HIDDEN] * 2,
+                  hidden_sizes=(chip_smoke.HIDDEN,) * 2,
                   reconstruction_distribution=likelihood,
                   number_of_reconstruction_classes=args.classes)
-    if args.model == "gmvae":
-        model = GaussianMixtureVariationalAutoencoder(
-            number_of_latent_clusters=chip_smoke.CLUSTERS, **kwargs)
+    if args.model == "gmvae":  # the API's configuration, which it writes
+        config = GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=chip_smoke.CLUSTERS, **kwargs).config
     else:
-        model = VariationalAutoencoder(**kwargs)
+        config = vae.VAEConfig(**kwargs)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -71,10 +71,8 @@ def main() -> int:
             window["seconds"] = time.perf_counter() - window["start"]
             prof.stop()
 
-    result = model.train(counts, number_of_epochs=2,
-                         minibatch_size=chip_smoke.BATCH,
-                         full_train_evaluation=False, verbose=False,
-                         epoch_callback=callback, device="cuda")
+    result = chip_smoke.train_config_level(config, counts,
+                                           epoch_callback=callback)
     steps = result.steps_per_epoch
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
