@@ -59,6 +59,7 @@ package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -121,6 +122,14 @@ F32_FLOPS = 67e12
 FORWARD_RTOL = 2e-5
 BACKWARD_RTOL = 4e-4
 AUTOGRAD_RTOL = 2e-5
+# The bf16 backward's three tensor-core kernels, each on its own: the dh and
+# dW products against the plain products of the kernel's own da (summation
+# order alone), and the gradient kernel's bf16(da) within one bf16 step of
+# the plain bf16(da) or within PRODUCT_RTOL of its largest |value|, with at
+# most MAX_FLIP_SHARE of the values flipped to the neighbouring bf16 value
+# (a kernel that rounds otherwise, or not at all, flips about half).
+PRODUCT_RTOL = 2e-5
+MAX_FLIP_SHARE = 1e-3
 
 SOURCES = {
     "count": "scvae_tpu_torch/ops/csrc/count_likelihood_tc.cu",
@@ -215,6 +224,26 @@ def check_close(name, got, want, rtol, scale=None) -> float:
     return err
 
 
+def check_bf16_steps(name, got, want) -> float:
+    """Max abs error of bf16 ``got`` against bf16 ``want``; fails where a
+    value is more than one bf16 step and PRODUCT_RTOL of the largest |want|
+    away, or where more than MAX_FLIP_SHARE of the values differ."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    _, exponent = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    step = torch.ldexp(torch.ones_like(diff), exponent - 8)
+    floor = PRODUCT_RTOL * float(want.abs().max())
+    beyond = int((diff > torch.clamp(step, min=floor)).sum())
+    flips = int((diff > 0).sum())
+    log(f"check {name}: {flips} of {diff.numel()} values one bf16 step "
+        f"away ({flips / diff.numel():.3g}, limit {MAX_FLIP_SHARE:g}), "
+        f"{beyond} further")
+    if beyond or flips > MAX_FLIP_SHARE * diff.numel():
+        raise AssertionError(f"{name}: {flips} flips, {beyond} values further "
+                             "than one bf16 step")
+    return float(diff.max())
+
+
 def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -304,11 +333,9 @@ def check_family(name, h, g, x, gen, flush):
         got = ops.fused_backward(name, g, h, w_, b_, t, compute_dtype=bf16)
         want = ops.reference_backward(name, g, h, w_, b_, t,
                                       compute_dtype=bf16)
-        errs = [check_close(f"{fam.prefix}_backward {part} F={t.shape[1]}",
-                            a, b, BACKWARD_RTOL)
-                for part, a, b in zip(parts, got, want)]
-        if t is x:
-            dh_err, dw_err = errs[0], max(errs[1:])
+        for part, a, b in zip(parts, got, want):
+            check_close(f"{fam.prefix}_backward {part} F={t.shape[1]}", a, b,
+                        BACKWARD_RTOL)
     leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs)]
     ll = ops.reference_forward(name, leaves[0], leaves[1:1 + k],
                                leaves[1 + k:], x, include_lgamma_const=False)
@@ -319,69 +346,96 @@ def check_family(name, h, g, x, gen, flush):
         check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
                     want[i], AUTOGRAD_RTOL)
 
-    return count_kernel_times(name, h, g, ws, bs, x, flush, errs=(
-        fwd_err, dh_err, dw_err), tag=fam.prefix)
+    return count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
+                              tag=fam.prefix)
 
 
-def count_kernel_times(name, h, g, ws, bs, x, flush, errs, tag, reps=25):
-    """The bf16 K2 and both K3 passes of base family ``name`` timed on the
-    main path's tensor-core kernels: the forward; the dh pass (the gradient
-    kernel, which also writes bf16(da), and the dh product); the dW/db pass
-    (the dW product and the sums, reading the gradient kernel's outputs),
-    so that the two passes add up to the backward.  Also prints the
-    yardstick (a bf16 ``torch.matmul`` of the same head products alone) and
-    a timing sweep over the heads kernels' row tiles and the products'
-    target block counts."""
+def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
+    """The bf16 K2 and K3 kernels of base family ``name`` on the main path's
+    tensor-core kernels: the backward's three kernels (the gradient kernel,
+    which writes bf16(da) and its column sums per row tile; the dh product
+    and the dW/db pass, which read them) each held against its plain
+    version on the same inputs, then each kernel timed with its own bound,
+    and the backward as a whole.  Also prints the yardstick (a bf16
+    ``torch.matmul`` of the same head products alone) and a timing sweep
+    over the products' target block counts."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
     bf16 = torch.bfloat16
     k = len(ws)
     (m, hidden), (m_t, f) = h.shape, x.shape
-    fwd_flops = 2 * k * m * hidden * f
-    head_bytes = k * (hidden * f + f) * 4
-    fwd_bytes = m * hidden * 4 + head_bytes + m_t * f * 2 + m * 4
-    fwd_err, dh_err, dw_err = errs
     timed = dict(flush=flush, reps=reps)
 
-    def forward():
-        ops.fused_forward(name, h, ws, bs, x, compute_dtype=bf16,
-                          include_lgamma_const=False)
-
-    def gradient():
-        fl.tc_gradient(name, g, h, ws, bs, x)
-
     grad = fl.tc_gradient(name, g, h, ws, bs, x)
-    results = {}
-    t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-    results[f"{tag}_forward"] = {
-        "max_abs_err": fwd_err,
-        "ms": time_ms(forward, **timed),
-        "plain_ms": time_ms(lambda: ops.reference_forward(
-            name, h, ws, bs, x, compute_dtype=bf16,
-            include_lgamma_const=False), **timed),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-    }
-    bwd_flops = 2 * fwd_flops  # the heads' products + one gradient product
-    for kernel, err, nbytes, fn, plain in (
-        ("backward_dh", dh_err, fwd_bytes + m * hidden * 4,
-         lambda: ops.fused_backward_dh(name, g, h, ws, bs, x,
-                                       compute_dtype=bf16),
-         ops.reference_dh),
-        ("backward_dw", dw_err, fwd_bytes + head_bytes,
-         lambda: fl.tc_dw(grad), ops.reference_dw),
-    ):
-        t_bound, by = bound(nbytes, bwd_flops, BF16_FLOPS)
-        results[f"{tag}_{kernel}"] = {
-            "max_abs_err": err,
-            "ms": time_ms(fn, **timed),
-            "plain_ms": time_ms(lambda plain=plain: plain(
-                name, g, h, ws, bs, x, compute_dtype=bf16), **timed),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-        }
+    plain = fl.reference_tc_gradient(name, g, h, ws, bs, x)
+    grad_err = check_bf16_steps(f"{tag}_backward_gradient bf16(da) M={m}",
+                                grad.da, plain.da)
+    check_close(f"{tag}_backward_gradient db row-tile sums M={m}",
+                grad.db_parts, plain.db_parts, PRODUCT_RTOL)
+    dh_err = check_close(f"{tag}_backward_dh of the kernel's da M={m}",
+                         fl.tc_dh(grad), fl.reference_tc_dh(grad),
+                         PRODUCT_RTOL)
+    dw_err = max(check_close(f"{tag}_backward_dw [{i}] of the kernel's da "
+                             f"M={m}", a, b, PRODUCT_RTOL)
+                 for i, (a, b) in enumerate(zip(
+                     fl.tc_dw(grad), fl.reference_tc_dw(grad), strict=True)))
 
+    # One product of the heads: 2·NH·M·H·F operations.  Bytes: h and the
+    # heads arrive in float32, t in bf16; da is bf16, its row-tile sums and
+    # every output float32.
+    product = 2 * k * m * hidden * f
+    in_bytes = m * hidden * 4 + k * (hidden * f + f) * 4 + m_t * f * 2
+    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
+    dw_out = k * (hidden * f + f) * 4
     hb, w, _ = fl._tc_operands(h, ws, bs)
     w2 = w.reshape(w.shape[0], -1)
+    kernels = {
+        "forward": (
+            lambda: ops.fused_forward(name, h, ws, bs, x, compute_dtype=bf16,
+                                      include_lgamma_const=False),
+            lambda: ops.reference_forward(name, h, ws, bs, x,
+                                          compute_dtype=bf16,
+                                          include_lgamma_const=False),
+            None, fwd_err, in_bytes + m * 4, product),
+        "backward_gradient": (
+            lambda: fl.tc_gradient(name, g, h, ws, bs, x),
+            lambda: fl.reference_tc_gradient(name, g, h, ws, bs, x),
+            None, grad_err, in_bytes + m * 4 + da_bytes, product),
+        "backward_dh": (
+            lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
+            lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32),
+            dh_err, grad.da.numel() * 2 + w.numel() * 2 + m * hidden * 4,
+            product),
+        "backward_dw": (
+            lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad), None,
+            dw_err, grad.h.numel() * 2 + da_bytes + dw_out, product),
+    }
+    results = {}
+    for kernel, (fn, plain_fn, library, err, nbytes, flops) in kernels.items():
+        t_bound, by = bound(nbytes, flops, BF16_FLOPS)
+        library_ms = None
+        if library is not None:
+            try:  # torch.mm with a float32 output from bf16 operands
+                library_ms = time_ms(library, **timed)
+            except (RuntimeError, TypeError) as err_:
+                log(f"library call for {tag}_{kernel} unavailable: {err_}")
+        results[f"{tag}_{kernel}"] = {
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": library_ms,
+        }
+    parts = sum(results[f"{tag}_{kernel}"]["ms"]
+                for kernel in ("backward_gradient", "backward_dh",
+                               "backward_dw"))
+    whole_bound, whole_by = bound(in_bytes + m * 4 + m * hidden * 4 + dw_out,
+                                  3 * product, BF16_FLOPS)
+    whole = time_ms(lambda: ops.fused_backward(name, g, h, ws, bs, x,
+                                               compute_dtype=bf16), **timed)
+    print(f"backward {tag} M={m}: gradient + dh + dW kernels {parts:.4f} ms; "
+          f"fused_backward with its operand copies {whole:.4f} ms; bound "
+          f"{whole_bound:.5f} ms ({whole_by})", flush=True)
+
     products = {"forward h W": lambda: hb @ w2,
                 "dh da W^T": lambda: grad.da @ w2.T,
                 "dW h^T da": lambda: hb.T @ grad.da}
@@ -390,23 +444,15 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, errs, tag, reps=25):
                                 for label, fn in products.items()),
           flush=True)
     sweep = []
-    tile, target = fl.TC_ROW_TILE, fl.TC_TARGET_BLOCKS
-    try:
-        for fl.TC_ROW_TILE in fl.TC_ROW_TILES:
-            sweep.append(f"row tile {fl.TC_ROW_TILE}: forward "
-                         f"{time_ms(forward, **timed):.4f}, gradient "
-                         f"{time_ms(gradient, **timed):.4f}")
-        fl.TC_ROW_TILE = tile
-        for fl.TC_TARGET_BLOCKS in (132, 264, 528):
-            swept = fl.tc_gradient(name, g, h, ws, bs, x)
-            sweep.append(
-                f"target {fl.TC_TARGET_BLOCKS} blocks (splits dh "
-                f"{swept.plan['dh_splits'][0]}, dW "
-                f"{swept.plan['dw_splits'][0]}): dh product "
-                f"{time_ms(lambda: fl.tc_dh(swept), **timed):.4f}, dW "
-                f"{time_ms(lambda: fl.tc_dw(swept), **timed):.4f}")
-    finally:
-        fl.TC_ROW_TILE, fl.TC_TARGET_BLOCKS = tile, target
+    for target in (132, fl.TC_TARGET_BLOCKS, 528):
+        swept = dataclasses.replace(grad, plan=fl.tc_plan(
+            m, hidden, f, k, target_blocks=target))
+        sweep.append(
+            f"target {target} blocks (splits dh "
+            f"{swept.plan['dh_splits'][0]}, dW "
+            f"{swept.plan['dw_splits'][0]}): dh product "
+            f"{time_ms(lambda: fl.tc_dh(swept), **timed):.4f}, dW "
+            f"{time_ms(lambda: fl.tc_dw(swept), **timed):.4f}")
     print(f"sweep {tag} M={m} (ms): " + "; ".join(sweep), flush=True)
     return results
 
@@ -631,12 +677,11 @@ def check_cycled_rows(x, gen, flush):
                               **kw), FORWARD_RTOL)
     got = ops.fused_backward(name, g, h, ws, bs, x, **kw)
     want = ops.reference_backward(name, g, h, ws, bs, x, **kw)
-    errs = [check_close(f"nb_backward [{i}] M={m} over {m_t} target rows", a,
-                        b, BACKWARD_RTOL)
-            for i, (a, b) in enumerate(zip(got, want))]
-    results = count_kernel_times(name, h, g, ws, bs, x, flush, reps=10,
-                                 errs=(fwd_err, errs[0], max(errs[1:])),
-                                 tag="nb")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check_close(f"nb_backward [{i}] M={m} over {m_t} target rows", a, b,
+                    BACKWARD_RTOL)
+    results = count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
+                                 tag="nb", reps=10)
     return {f"{kernel}_cycled": values for kernel, values in results.items()}
 
 
@@ -913,8 +958,10 @@ def train_config(label, model, name, k_max, counts, card):
     prefix = ("cp" if name == "constrained poisson"
               else ops.FAMILIES[name].prefix)
     prefix = f"cat_{prefix}" if k_max else prefix
-    ours = {f"{prefix}_{kernel}"
-            for kernel in ("forward", "backward_dh", "backward_dw")}
+    kernels = ["forward", "backward_dh", "backward_dw"]
+    if name in ops.FAMILIES and not k_max:  # the bf16 backward's first kernel
+        kernels.append("backward_gradient")
+    ours = {f"{prefix}_{kernel}" for kernel in kernels}
     for kernel, count in launches.items():
         want = steps if kernel in ours else 0
         if kernel != "gather_rows" and count != want:

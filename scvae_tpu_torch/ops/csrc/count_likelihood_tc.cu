@@ -18,10 +18,10 @@
 // weights side by side, W (Hp, NH, Fp), zero-padded to Hp, Fp = multiples
 // of 8 so that every row starts on 16 bytes.  Four kernels:
 //
-//   tc_heads_kernel<Fam, BM, false>  forward: one block per BM rows x 64
+//   tc_heads_kernel<Fam, false>  forward: one block per 64 rows x 64
 //       genes, all NH heads; writes the block's row sums of ll to a
 //       (gene tiles, M) partial array.
-//   tc_heads_kernel<Fam, BM, true>   the same products, then da_k: rounded
+//   tc_heads_kernel<Fam, true>   the same products, then da_k: rounded
 //       to bf16 into a (M, NH * Fp) scratch, and the unrounded column sums
 //       of the block's rows into a (row tiles, NH * Fp) partial array.
 //   tc_gemm_kernel<false, true>      dh = da W^T over K = NH * Fp, and
@@ -57,8 +57,6 @@
 
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "count_families.cuh"
 
 namespace scvae {
@@ -71,6 +69,7 @@ constexpr int kTcStages = 4;   // stages of the ring
 constexpr int kTcTileN = 64;   // columns of a block: two warps of 32
 constexpr int kTcWarpsN = 2;
 constexpr int kTcPad = 8;      // bf16 padding per shared row (no bank conflicts)
+constexpr int kTcHeadsRows = 64;     // rows of a heads block
 constexpr int kTcProductRows = 128;  // rows of a dh / dW product block
 constexpr int kTcReduceThreads = 256;
 
@@ -323,7 +322,7 @@ struct TcHeadsSmem {
   static constexpr size_t kBytes = kRing > kActs ? kRing : kActs;
 };
 
-// The heads' products of a block of BM rows x 64 genes, then its epilogue.
+// The heads' products of a block of 64 rows x 64 genes, then its epilogue.
 // The accumulators are staged in shared memory as act[hd][row][col]; then
 // each warp takes rows in turn, its lanes the columns lane and lane + 32, so
 // that the targets load and the da scratch stores coalesce and the
@@ -334,16 +333,17 @@ struct TcHeadsSmem {
 // part[blockIdx.x][hd * fp + gene] = the block's sum over its rows of the
 // unrounded values.  Targets t (m_t, f) are float32 or (t_bf16) bf16; row
 // m reads target row m % m_t.
-template <class Fam, int BM, bool GRAD>
-__global__ void __launch_bounds__(TcShape<BM, kTcHeadsMI>::kThreads,
-                                  tc_heads_min_blocks<BM, Fam::kHeads>())
+template <class Fam, bool GRAD>
+__global__ void __launch_bounds__(TcShape<kTcHeadsRows, kTcHeadsMI>::kThreads,
+                                  tc_heads_min_blocks<kTcHeadsRows,
+                                                      Fam::kHeads>())
     tc_heads_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                     const float* __restrict__ bias, const void* __restrict__ t,
                     int t_bf16, const float* __restrict__ g,
                     float* __restrict__ part, bf16* __restrict__ da, int m,
                     int m_t, int hp, int f, int fp, int subtract_const) {
   constexpr int NH = Fam::kHeads;
-  constexpr int MI = kTcHeadsMI;
+  constexpr int BM = kTcHeadsRows, MI = kTcHeadsMI;
   constexpr int NT = TcShape<BM, MI>::kThreads;
   constexpr int kWarps = NT / 32;
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
@@ -551,23 +551,16 @@ int launch_reduce(const float* part, int n_slices, int rows, int cols,
   return (int)cudaGetLastError();
 }
 
-// Calls fn(std::integral_constant<int, BM>{}) for the compiled row tiles.
-template <typename Fn>
-int with_row_tile(int row_tile, Fn&& fn) {
-  if (row_tile == 64) return fn(std::integral_constant<int, 64>{});
-  if (row_tile == 128) return fn(std::integral_constant<int, 128>{});
-  return (int)cudaErrorInvalidValue;
-}
-
-template <class Fam, int BM, bool GRAD>
+template <class Fam, bool GRAD>
 int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
                  int t_bf16, const float* g, float* part, bf16* da, int m,
                  int m_t, int hp, int f, int subtract_const,
                  cudaStream_t stream) {
+  constexpr int BM = kTcHeadsRows;
   const dim3 grid((m + BM - 1) / BM, (f + kTcTileN - 1) / kTcTileN);
   if (grid.x == 0 || grid.y == 0) return 0;
   const size_t bytes = TcHeadsSmem<BM, Fam::kHeads>::kBytes;
-  auto kernel = tc_heads_kernel<Fam, BM, GRAD>;
+  auto kernel = tc_heads_kernel<Fam, GRAD>;
   if (int err = set_smem(kernel, bytes)) return err;
   const int fp = (f + 7) / 8 * 8;
   kernel<<<grid, TcShape<BM, kTcHeadsMI>::kThreads, bytes, stream>>>(
@@ -602,21 +595,19 @@ extern "C" {
 // 2 = ZIP, 3 = ZINB (NH = 1, 2, 2, 3 heads).  h: bf16 (m, hp); w: bf16
 // (hp, NH, fp); b: float32 (NH, f); t: (m_t, f), t_dtype 0 = float32,
 // 1 = bfloat16; hp and fp are h's and w's padded widths (multiples of 8 at
-// least hidden and f).  row_tile: 64 or 128 rows per heads block.
+// least hidden and f).
 
 // K2: part (ceil(f / 64), m) scratch, out (m,).
-int scvae_tc_forward(int family, int row_tile, const void* h, const void* w,
+int scvae_tc_forward(int family, const void* h, const void* w,
                      const float* b, const void* t, int t_dtype, float* part,
                      float* out, int m, int m_t, int hp, int f,
                      int subtract_const, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    return with_row_tile(row_tile, [&](auto bm) {
-      return launch_heads<Fam, decltype(bm)::value, false>(
-          static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
-          t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
-    });
+    return launch_heads<Fam, false>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
   });
   if (err) return err;
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, 1, m, m, 1, m,
@@ -624,19 +615,17 @@ int scvae_tc_forward(int family, int row_tile, const void* h, const void* w,
 }
 
 // K3, first half: da (m, NH * fp) bf16 scratch and db_part
-// (ceil(m / row_tile), NH * fp) float32 scratch, for row cotangents g (m,).
-int scvae_tc_gradient(int family, int row_tile, const float* g,
-                      const void* h, const void* w, const float* b,
-                      const void* t, int t_dtype, void* da, float* db_part,
-                      int m, int m_t, int hp, int f, void* stream) {
+// (ceil(m / 64), NH * fp) float32 scratch, for row cotangents g (m,).
+int scvae_tc_gradient(int family, const float* g, const void* h,
+                      const void* w, const float* b, const void* t,
+                      int t_dtype, void* da, float* db_part, int m, int m_t,
+                      int hp, int f, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    return with_row_tile(row_tile, [&](auto bm) {
-      return launch_heads<Fam, decltype(bm)::value, true>(
-          static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
-          t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
-    });
+    return launch_heads<Fam, true>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
   });
 }
 

@@ -46,14 +46,12 @@ _SIGNATURES = {
     # hidden, f, round, stream
     "scvae_fused_backward_dw": [_I, _P, _P, *_HEADS, _P, _I, *_HEADS, _I, _I,
                                 _I, _I, _I, _P],
-    # family, row_tile, h, w, b, t, t_dtype, part, out, m, m_t, hp, f,
-    # subtract, stream
-    "scvae_tc_forward": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                         _I, _P],
-    # family, row_tile, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f,
-    # stream
-    "scvae_tc_gradient": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                          _I, _P],
+    # family, h, w, b, t, t_dtype, part, out, m, m_t, hp, f, subtract, stream
+    "scvae_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
+    # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
+    "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                          _P],
     # da, w, part, dh, m, hidden, hp, k, splits, tiles_per_split, stream
     "scvae_tc_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # h, da, db_part, part, dw, db, n_heads, m, hidden, hp, f, splits,

@@ -213,7 +213,8 @@ MAX_FUSED_GROUPS = 16
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
 # The base families' bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>",
-# their float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
+# their backward's first kernel as "<prefix>_backward_gradient", and their
+# float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
 LAUNCHES = {
     f"{prefix}_{kernel}{suffix}": 0
     for prefix, suffixes in (
@@ -224,6 +225,8 @@ LAUNCHES = {
     for kernel in ("forward", "backward_dh", "backward_dw")
     for suffix in suffixes
 }
+LAUNCHES.update({f"{fam.prefix}_backward_gradient": 0
+                 for fam in FAMILIES.values()})
 
 
 def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
@@ -636,12 +639,9 @@ def _family_heads(name, weights, biases):
 
 TC_DEPTH = 32          # depth of one ring stage
 TC_GENE_TILE = 64      # genes per block (each head), columns per product block
+TC_ROW_TILE = 64       # rows per heads block
 TC_PRODUCT_ROWS = 128  # rows (dh) or hidden units (dW) per product block
-TC_ROW_TILES = (64, 128)  # the compiled row tiles of the heads kernels
-# Rows per heads block, and the blocks a product aims for (two per SM on
-# 132 SMs); module state so that a timing sweep can set them.
-TC_ROW_TILE = 64
-TC_TARGET_BLOCKS = 264
+TC_TARGET_BLOCKS = 264  # blocks a product aims for: two per SM on 132 SMs
 TC_MIN_SPLIT_DEPTH = 8  # depth tiles per split at least
 
 
@@ -654,36 +654,37 @@ def tc_padded(n: int) -> int:
     return _cdiv(n, 8) * 8
 
 
-def tc_splits(out_tiles: int, depth: int) -> tuple[int, int]:
+def tc_splits(out_tiles: int, depth: int,
+              target_blocks: int = TC_TARGET_BLOCKS) -> tuple[int, int]:
     """(splits, depth tiles per split) of a product with ``out_tiles``
     output blocks over ``depth``: enough splits to reach about
-    :data:`TC_TARGET_BLOCKS` blocks, none shorter than
-    :data:`TC_MIN_SPLIT_DEPTH` tiles, none empty."""
+    ``target_blocks`` blocks, none shorter than :data:`TC_MIN_SPLIT_DEPTH`
+    tiles, none empty."""
     k_tiles = max(1, _cdiv(depth, TC_DEPTH))
-    want = max(1, min(_cdiv(TC_TARGET_BLOCKS, max(out_tiles, 1)),
+    want = max(1, min(_cdiv(target_blocks, max(out_tiles, 1)),
                       k_tiles // TC_MIN_SPLIT_DEPTH))
     per = _cdiv(k_tiles, want)
     return _cdiv(k_tiles, per), per
 
 
 def tc_plan(m: int, hidden: int, f: int, n_heads: int,
-            row_tile: int | None = None) -> dict:
+            target_blocks: int = TC_TARGET_BLOCKS) -> dict:
     """Padded widths, grids and scratch shapes of the tensor-core K2/K3 for
-    M = ``m`` rows, H = ``hidden``, F = ``f`` and ``n_heads`` heads."""
-    row_tile = TC_ROW_TILE if row_tile is None else row_tile
-    if row_tile not in TC_ROW_TILES:
-        raise ValueError(f"row tile {row_tile} is not one of {TC_ROW_TILES}")
+    M = ``m`` rows, H = ``hidden``, F = ``f`` and ``n_heads`` heads; the
+    products split their depth to reach about ``target_blocks`` blocks."""
     hp, fp = tc_padded(hidden), tc_padded(f)
     width = n_heads * fp
     dh_splits = tc_splits(
-        _cdiv(m, TC_PRODUCT_ROWS) * _cdiv(hp, TC_GENE_TILE), width)
+        _cdiv(m, TC_PRODUCT_ROWS) * _cdiv(hp, TC_GENE_TILE), width,
+        target_blocks)
     dw_splits = tc_splits(
-        _cdiv(hp, TC_PRODUCT_ROWS) * _cdiv(width, TC_GENE_TILE), m)
+        _cdiv(hp, TC_PRODUCT_ROWS) * _cdiv(width, TC_GENE_TILE), m,
+        target_blocks)
     return {
-        "row_tile": row_tile, "hp": hp, "fp": fp,
+        "hp": hp, "fp": fp,
         "row_sums": (_cdiv(f, TC_GENE_TILE), m),
         "da": (m, width),
-        "db_parts": (_cdiv(m, row_tile), width),
+        "db_parts": (_cdiv(m, TC_ROW_TILE), width),
         "dh_splits": dh_splits, "dh_parts": (dh_splits[0], m, hp),
         "dw_splits": dw_splits, "dw_parts": (dw_splits[0], hp, width),
     }
@@ -719,10 +720,10 @@ def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
     out = torch.empty((m,), dtype=torch.float32, device=h.device)
     part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
     extension.call(
-        "scvae_tc_forward", h.device, fam.code, plan["row_tile"],
-        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
-        _T_CODES[t.dtype], part.data_ptr(), out.data_ptr(), m, t.shape[0],
-        plan["hp"], f, int(include_lgamma_const),
+        "scvae_tc_forward", h.device, fam.code, hb.data_ptr(), w.data_ptr(),
+        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], part.data_ptr(),
+        out.data_ptr(), m, t.shape[0], plan["hp"], f,
+        int(include_lgamma_const),
     )
     LAUNCHES[f"{fam.prefix}_forward"] += 1
     return out
@@ -731,8 +732,10 @@ def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
 @dataclasses.dataclass
 class TcGradient:
     """The backward's first kernel's outputs: bf16 h and W as the products
-    read them, bf16(da) (M, NH·Fp) and da's column sums per row tile."""
+    read them, bf16(da) (M, NH·Fp) and da's column sums per row tile; and
+    the family's launch-count prefix."""
 
+    prefix: str
     plan: dict
     hidden: int
     f: int
@@ -744,8 +747,7 @@ class TcGradient:
 
 def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     """Launch the backward's first kernel (the heads' products and da) of
-    family ``name`` for row cotangents ``g``; uncounted, as the dh and dW
-    passes count their launches."""
+    family ``name`` for row cotangents ``g``."""
     fam = _family_heads(name, weights, biases)
     t = _validated(h, weights, biases, t, g)
     m, hidden = h.shape
@@ -757,12 +759,12 @@ def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
     g = g.float().contiguous()
     extension.call(
-        "scvae_tc_gradient", dev, fam.code, plan["row_tile"], g.data_ptr(),
-        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
-        _T_CODES[t.dtype], da.data_ptr(), db_parts.data_ptr(), m, t.shape[0],
-        plan["hp"], f,
+        "scvae_tc_gradient", dev, fam.code, g.data_ptr(), hb.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        da.data_ptr(), db_parts.data_ptr(), m, t.shape[0], plan["hp"], f,
     )
-    return TcGradient(plan, hidden, f, hb, w, da, db_parts)
+    LAUNCHES[f"{fam.prefix}_backward_gradient"] += 1
+    return TcGradient(fam.prefix, plan, hidden, f, hb, w, da, db_parts)
 
 
 def tc_dh(grad: TcGradient) -> torch.Tensor:
@@ -777,6 +779,7 @@ def tc_dh(grad: TcGradient) -> torch.Tensor:
         part.data_ptr(), dh.data_ptr(), m, grad.hidden, plan["hp"], width,
         splits, per,
     )
+    LAUNCHES[f"{grad.prefix}_backward_dh"] += 1
     return dh
 
 
@@ -797,7 +800,47 @@ def tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
         db.data_ptr(), n_heads, m, grad.hidden, plan["hp"], grad.f, splits,
         per, plan["db_parts"][0],
     )
+    LAUNCHES[f"{grad.prefix}_backward_dw"] += 1
     return tuple(x for k in range(n_heads) for x in (dw[k], db[k]))
+
+
+def reference_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Plain version of :func:`tc_gradient`, with the same layout: bf16(da)
+    (M, NH·Fp), zero past F, and da's column sums per row tile."""
+    fam = _family_heads(name, weights, biases)
+    m, hidden = h.shape
+    f = t.shape[-1]
+    plan = tc_plan(m, hidden, f, len(weights))
+    hb, w, _ = _tc_operands(h, weights, biases)
+    _, das = _weighted_grads(name, g, h, weights, biases, t, torch.bfloat16)
+    da = torch.zeros((m, len(das), plan["fp"]), dtype=torch.float32,
+                     device=h.device)
+    da[:, :, :f] = torch.stack(das, 1)
+    da = da.reshape(plan["da"])
+    tiles = plan["db_parts"][0]
+    rows = torch.zeros((tiles * TC_ROW_TILE, da.shape[1]),
+                       dtype=torch.float32, device=h.device)
+    rows[:m] = da
+    db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
+    return TcGradient(fam.prefix, plan, hidden, f, hb, w,
+                      da.to(torch.bfloat16), db_parts)
+
+
+def reference_tc_dh(grad: TcGradient) -> torch.Tensor:
+    """Plain version of :func:`tc_dh`: the float32 product of the same
+    bf16 operands."""
+    w = grad.w.float().reshape(grad.w.shape[0], -1)
+    return (grad.da.float() @ w.T)[:, :grad.hidden]
+
+
+def reference_tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`tc_dw`: the float32 product of the same
+    bf16 operands and the sum of the row tiles' column sums."""
+    n_heads, fp = grad.w.shape[1:]
+    dw = (grad.h.float().T @ grad.da.float()).reshape(-1, n_heads, fp)
+    db = grad.db_parts.sum(0).reshape(n_heads, fp)
+    return tuple(x for k in range(n_heads)
+                 for x in (dw[:grad.hidden, k, :grad.f], db[k, :grad.f]))
 
 
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
@@ -869,51 +912,44 @@ def _fused_backward_dw_f32(fam, g, h, weights, biases, t):
 
 
 def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """dh (M, H): K3's dh pass on CUDA (bf16: the tensor-core gradient
-    kernel and dh product), the plain version on the CPU."""
+    """dh (M, H): K3's dh pass on CUDA, the plain version on the CPU.  With
+    bf16 on CUDA it is the first output of :func:`fused_backward`, whose
+    gradient kernel feeds the dh and dW products alike."""
     fam = _family_heads(name, weights, biases)
-    round_flag = _round_flag(compute_dtype)
     if not h.is_cuda:
         return reference_dh(name, g, h, weights, biases, t,
                             compute_dtype=compute_dtype)
-    if not round_flag:
-        return _fused_backward_dh_f32(fam, g, h, weights, biases, t)
-    dh = tc_dh(tc_gradient(name, g, h, weights, biases, t))
-    LAUNCHES[f"{fam.prefix}_backward_dh"] += 1
-    return dh
+    if _round_flag(compute_dtype):
+        return fused_backward(name, g, h, weights, biases, t,
+                              compute_dtype=compute_dtype)[0]
+    return _fused_backward_dh_f32(fam, g, h, weights, biases, t)
 
 
 def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """(dW_0, db_0, dW_1, db_1, …): K3's dW/db pass on CUDA (bf16: the
-    tensor-core gradient kernel and dW product), the plain version on the
-    CPU."""
+    """(dW_0, db_0, dW_1, db_1, …): K3's dW/db pass on CUDA, the plain
+    version on the CPU.  With bf16 on CUDA they are the other outputs of
+    :func:`fused_backward`."""
     fam = _family_heads(name, weights, biases)
-    round_flag = _round_flag(compute_dtype)
     if not h.is_cuda:
         return reference_dw(name, g, h, weights, biases, t,
                             compute_dtype=compute_dtype)
-    if not round_flag:
-        return _fused_backward_dw_f32(fam, g, h, weights, biases, t)
-    dws = tc_dw(tc_gradient(name, g, h, weights, biases, t))
-    LAUNCHES[f"{fam.prefix}_backward_dw"] += 1
-    return dws
+    if _round_flag(compute_dtype):
+        return fused_backward(name, g, h, weights, biases, t,
+                              compute_dtype=compute_dtype)[1:]
+    return _fused_backward_dw_f32(fam, g, h, weights, biases, t)
 
 
 def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
     """(dh, dW_0, db_0, …) for the row cotangents ``g`` (M,): the two K3
-    passes on CUDA, the plain version on the CPU.  With bf16 on CUDA both
-    passes share one launch of the gradient kernel."""
+    passes on CUDA, the plain version on the CPU.  With bf16 on CUDA: the
+    tensor-core gradient kernel once, then the dh and the dW product of its
+    da."""
     args = (name, g, h, weights, biases, t)
     if not (h.is_cuda and _round_flag(compute_dtype)):
         return (fused_backward_dh(*args, compute_dtype=compute_dtype),
                 *fused_backward_dw(*args, compute_dtype=compute_dtype))
-    prefix = _family_heads(name, weights, biases).prefix
     grad = tc_gradient(*args)
-    dh = tc_dh(grad)
-    LAUNCHES[f"{prefix}_backward_dh"] += 1
-    dws = tc_dw(grad)
-    LAUNCHES[f"{prefix}_backward_dw"] += 1
-    return (dh, *dws)
+    return (tc_dh(grad), *tc_dw(grad))
 
 
 def cp_forward(h, w, b, t, n):

@@ -177,31 +177,31 @@ def test_cpu_wrappers_are_the_plain_versions(name):
         ops.fused_forward(name, h_, ws[:-1], bs[:-1], t_)
 
 
-@pytest.mark.parametrize("m,hidden,f,n_heads,row_tile,want", [
+@pytest.mark.parametrize("m,hidden,f,n_heads,target_blocks,want", [
     # headline NB: 32 row tiles of 64; 16 x 4 dh blocks over 128 depth
     # tiles -> 5 splits of 26; 2 x 64 dW blocks over 64 row tiles -> 3
     # splits of 22
-    (2048, 256, 2048, 2, 64,
+    (2048, 256, 2048, 2, 264,
      dict(hp=256, fp=2048, row_sums=(32, 2048),
           da=(2048, 4096), db_parts=(32, 4096), dh_splits=(5, 26),
           dh_parts=(5, 2048, 256), dw_splits=(3, 22),
           dw_parts=(3, 256, 4096))),
     # GMVAE-NB's 20,480 rows: 640 dh blocks need no split
-    (20480, 256, 2048, 2, 64,
+    (20480, 256, 2048, 2, 264,
      dict(row_sums=(32, 20480), db_parts=(320, 4096),
           dh_splits=(1, 128), dw_splits=(3, 214))),
-    # ragged ZINB at the other row tile: H and F padded to multiples of 8
-    (37, 21, 301, 3, 128,
+    # ragged ZINB: H and F padded to multiples of 8
+    (37, 21, 301, 3, 264,
      dict(hp=24, fp=304, row_sums=(5, 37), da=(37, 912),
           db_parts=(1, 912), dh_splits=(3, 10), dh_parts=(3, 37, 24),
           dw_splits=(1, 2), dw_parts=(1, 24, 912))),
 ])
-def test_tensor_core_plan(m, hidden, f, n_heads, row_tile, want):
+def test_tensor_core_plan(m, hidden, f, n_heads, target_blocks, want):
     """Padded widths, grids, scratch shapes and depth splits of the bf16
     tensor-core K2/K3, which the kernels take from the wrapper."""
     from scvae_tpu_torch.ops import fused_likelihood as tfl
 
-    plan = tfl.tc_plan(m, hidden, f, n_heads, row_tile=row_tile)
+    plan = tfl.tc_plan(m, hidden, f, n_heads, target_blocks=target_blocks)
     assert {k: plan[k] for k in want} == want
 
 
@@ -216,8 +216,9 @@ def test_tensor_core_splits_and_operands():
             k_tiles = max(1, -(-depth // tfl.TC_DEPTH))
             assert (splits - 1) * per < k_tiles <= splits * per
             assert splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
-    with pytest.raises(ValueError):
-        tfl.tc_plan(8, 8, 8, 1, row_tile=32)
+    # a target of one block per SM: fewer, deeper splits
+    assert tfl.tc_plan(2048, 256, 2048, 2, target_blocks=132)[
+        "dh_splits"] == (3, 43)
     rng = np.random.RandomState(0)
     h = torch.from_numpy(rng.randn(5, 21).astype(np.float32))
     ws = [torch.from_numpy(rng.randn(21, 13).astype(np.float32))
@@ -232,3 +233,33 @@ def test_tensor_core_splits_and_operands():
     for k in range(2):
         assert torch.equal(w[:21, k, :13], ws[k].to(torch.bfloat16))
         assert torch.equal(b[k], bs[k])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("m,m_t", [(40, 40), (150, 30)])
+def test_tensor_core_plain_pieces_compose_to_the_backward(name, m, m_t):
+    """The plain versions of the three bf16 backward kernels, in the
+    kernels' padded layout (H = 20 and F = 597 padded to 24 and 600, rows
+    off the 64-row tile, targets cycling), give the plain bf16 backward:
+    bf16(da) zero past F, row-tile sums that add up to db, and the dh and
+    dW products of the same bf16 operands."""
+    from scvae_tpu_torch.ops import fused_likelihood as tfl
+
+    h, heads, t, g = _case(name, m=m, m_t=m_t, seed=3)
+    names = ops.FAMILIES[name].heads
+    h_, t_, g_ = (torch.from_numpy(x) for x in (h, t[:, :597], g))
+    ws = [torch.from_numpy(heads[n]["kernel"][:, :597]) for n in names]
+    bs = [torch.from_numpy(heads[n]["bias"][:597]) for n in names]
+    grad = tfl.reference_tc_gradient(name, g_, h_, ws, bs, t_)
+    assert grad.da.dtype == torch.bfloat16
+    assert grad.da.shape == (m, len(names) * 600)
+    assert not grad.da.reshape(m, len(names), 600)[:, :, 597:].any()
+    assert grad.h.shape == (m, 24) and grad.db_parts.shape == (
+        -(-m // tfl.TC_ROW_TILE), len(names) * 600)
+    got = (tfl.reference_tc_dh(grad), *tfl.reference_tc_dw(grad))
+    want = ops.reference_backward(name, g_, h_, ws, bs, t_,
+                                  compute_dtype=torch.bfloat16)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert_close(a, b.numpy(), 1e-5)

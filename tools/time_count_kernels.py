@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Time NB's bf16 K2 and K3 of a checkout of the port on one GPU.
+
+    python3 tools/time_count_kernels.py [ROOT]
+
+Imports ``scvae_tpu_torch`` from ROOT (default: this checkout), builds its
+kernels there, and times with ``chip_smoke.time_ms`` of this checkout (the
+device held while the host queues each call, the L2 cache flushed before
+each) the public calls of NB's bf16 fused likelihood at the headline VAE's
+shapes (2,048 rows, decoder width 256, 2,048 genes) and over GMVAE-NB's
+20,480 decoder rows against 2,048 cycled target rows: ``fused_forward``,
+``fused_backward_dh``, ``fused_backward_dw`` and ``fused_backward``.  The
+inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints the
+card's name and power limit and one JSON line of times in ms.
+
+To compare two checkouts, run it on each in one call, in the order parent,
+change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("root", nargs="?", default=REPO)
+    root = os.path.abspath(parser.parse_args().root)
+    if not torch.cuda.is_available():
+        print("time_count_kernels: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    # this checkout's timing and inputs, the other checkout's package
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sys.path.insert(0, root)
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import extension
+
+    if not ops.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {ops.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extension.load_kernels()
+
+    name, bf16 = "negative binomial", torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    x = torch.from_numpy(cs.make_counts(cs.BATCH, cs.N_GENES).toarray()).to(
+        dev, bf16)
+    times = {}
+    for rows, reps in ((cs.BATCH, 25), (cs.CLUSTERS * cs.BATCH, 10)):
+        h = torch.relu(torch.randn(rows, cs.HIDDEN, generator=gen, device=dev))
+        g = torch.randn(rows, generator=gen, device=dev) / cs.BATCH
+        ws, bs = cs.head_weights(gen, 2, cs.HIDDEN, cs.N_GENES, dev)
+        args = (name, h, ws, bs, x)
+        bwd = (name, g, h, ws, bs, x)
+        calls = {
+            "fused_forward": lambda: ops.fused_forward(
+                *args, compute_dtype=bf16, include_lgamma_const=False),
+            "fused_backward_dh": lambda: ops.fused_backward_dh(
+                *bwd, compute_dtype=bf16),
+            "fused_backward_dw": lambda: ops.fused_backward_dw(
+                *bwd, compute_dtype=bf16),
+            "fused_backward": lambda: ops.fused_backward(
+                *bwd, compute_dtype=bf16),
+        }
+        times[rows] = {label: cs.time_ms(fn, reps=reps, flush=flush)
+                       for label, fn in calls.items()}
+    print(cs.card_line(), flush=True)
+    print(json.dumps({"root": root, "ms": times}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
