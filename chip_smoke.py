@@ -7,10 +7,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training paths against its plain PyTorch
-             version on the same inputs at the headline shapes (68,579 cells ×
-             2,048 genes, minibatch 2,048, decoder width 256) for every
-             likelihood family, the categorised instances with 14 heads (ZINB,
+3. kernels — every kernel of the training paths (and the float32 K2/K3,
+             which no training path launches) against its plain PyTorch
+             version on the same inputs at the headline shapes (68,579
+             cells × 2,048 genes, minibatch 2,048, decoder width 256) for
+             every likelihood family, the categorised instances with 14 heads (ZINB,
              K = 10) and with the cap of 32 (Poisson, K = 30) on targets of
              which every other row is drawn as Poisson(K), NB's K2/K3 over
              the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
@@ -131,11 +132,16 @@ AUTOGRAD_RTOL = 2e-5
 PRODUCT_RTOL = 2e-5
 MAX_FLIP_SHARE = 1e-3
 
+CSRC = "scvae_tpu_torch/ops/csrc/"
 SOURCES = {
-    "count": "scvae_tpu_torch/ops/csrc/count_likelihood_tc.cu",
-    "cp": "scvae_tpu_torch/ops/csrc/cp_likelihood.cu",
-    "cat": "scvae_tpu_torch/ops/csrc/categorised_likelihood.cu",
-    "grouped": "scvae_tpu_torch/ops/csrc/grouped_likelihood.cu",
+    "gather": CSRC + "gather.cu",
+    "count": CSRC + "count_likelihood_tc.cu",
+    "count_float32": CSRC + "count_likelihood.cu",
+    "product": CSRC + "tc_product.cu",
+    "cp": CSRC + "cp_likelihood.cu",
+    "cat": CSRC + "categorised_likelihood.cu",
+    "cat_tc": CSRC + "categorised_likelihood_tc.cu",
+    "grouped": CSRC + "grouped_likelihood.cu",
 }
 REPLACES = {
     "gather_rows": "scvae_tpu/ops/gather.py:223",
@@ -327,6 +333,8 @@ def check_family(name, h, g, x, gen, flush):
                           FORWARD_RTOL)
         if i == 0:  # the main path's case
             fwd_err = err
+        elif i == 2:  # float32, timed below
+            f32_errs = {"forward": err}
 
     parts = ["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
     for w_, b_, t in (full, ragged):
@@ -342,12 +350,65 @@ def check_family(name, h, g, x, gen, flush):
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)  # dh, dWs, dbs
     got = ops.fused_backward(name, g, h, ws, bs, x)  # dh, dW_0, db_0, …
     order = [0] + [i for j in range(k) for i in (1 + j, 1 + k + j)]
-    for part, a, i in zip(parts, got, order):
-        check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
-                    want[i], AUTOGRAD_RTOL)
+    errs = [check_close(f"{fam.prefix}_backward float32 {part} vs autograd",
+                        a, want[i], AUTOGRAD_RTOL)
+            for part, a, i in zip(parts, got, order)]
+    f32_errs.update(backward_dh=errs[0], backward_dw=max(errs[1:]))
 
-    return count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
-                              tag=fam.prefix)
+    results = count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
+                                 tag=fam.prefix)
+    # The float32 K2/K3 (CUDA cores, no training launch): one product of
+    # the heads forward, two per backward pass (the activations again),
+    # float32 FMAs; h and the heads in float32, t in bf16.
+    product = 2 * k * m * hidden * f
+    in_bytes = m * hidden * 4 + k * (hidden * f + f) * 4 + m * f * 2
+    fwd_args = (name, h, ws, bs, x)
+    bwd_args = (name, g, h, ws, bs, x)
+    for kernel, fn, plain, nbytes, flops in (
+        ("forward", lambda: ops.fused_forward(*fwd_args),
+         lambda: ops.reference_forward(*fwd_args), in_bytes + m * 4, product),
+        ("backward_dh", lambda: ops.fused_backward_dh(*bwd_args),
+         lambda: ops.reference_dh(*bwd_args),
+         in_bytes + m * 4 + m * hidden * 4, 2 * product),
+        ("backward_dw", lambda: ops.fused_backward_dw(*bwd_args),
+         lambda: ops.reference_dw(*bwd_args),
+         in_bytes + m * 4 + k * (hidden * f + f) * 4, 2 * product),
+    ):
+        t_bound, by = bound(nbytes, flops, F32_FLOPS)
+        results[f"{fam.prefix}_{kernel}_float32"] = {
+            "max_abs_err": f32_errs[kernel], "ms": time_ms(fn, flush=flush),
+            "plain_ms": time_ms(plain, flush=flush), "bound_ms": t_bound,
+            "bound_by": by, "library_ms": None,
+        }
+    return results
+
+
+def forced_splits(grad, splits):
+    """``grad`` with both products split ``splits`` ways, sums unpromoted
+    (for a timing sweep: a deep split may read above the checks' limits)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    plan = dict(grad.plan)
+    for key, depth in (("dh_splits", grad.da.shape[1]),
+                       ("dw_splits", grad.da.shape[0])):
+        k_tiles = max(1, -(-depth // fl.TC_PRODUCT_DEPTH))
+        per = -(-k_tiles // splits)
+        plan[key] = (-(-k_tiles // per), per, False)
+    return dataclasses.replace(grad, plan=plan)
+
+
+def check_cluster_capacity():
+    """The clusters of S product blocks that this card holds at once, which
+    the planner takes for CUDA tensors, beside its H100 table (which plans
+    the plain versions)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    card = fl.card_cluster_capacity(torch.device("cuda", 0))
+    print(f"cluster capacity, S = 1..{fl.TC_MAX_SPLITS}: table "
+          f"{list(fl.TC_CLUSTER_CAPACITY.values())}; card "
+          f"{list(card.values())}", flush=True)
+    if min(card.values()) < 1:
+        raise AssertionError(f"a product's cluster does not fit: {card}")
 
 
 def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
@@ -358,7 +419,7 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
     version on the same inputs, then each kernel timed with its own bound,
     and the backward as a whole.  Also prints the yardstick (a bf16
     ``torch.matmul`` of the same head products alone) and a timing sweep
-    over the products' target block counts."""
+    over the products' depth splits."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
@@ -444,16 +505,15 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
                                 for label, fn in products.items()),
           flush=True)
     sweep = []
-    for target in (132, fl.TC_TARGET_BLOCKS, 528):
-        swept = dataclasses.replace(grad, plan=fl.tc_plan(
-            m, hidden, f, k, target_blocks=target))
+    for splits in (1, 2, 3, 4, 6, 8):
+        swept = forced_splits(grad, splits)
         sweep.append(
-            f"target {target} blocks (splits dh "
-            f"{swept.plan['dh_splits'][0]}, dW "
-            f"{swept.plan['dw_splits'][0]}): dh product "
+            f"{splits} splits (dh {swept.plan['dh_splits'][:2]}, dW "
+            f"{swept.plan['dw_splits'][:2]}): dh product "
             f"{time_ms(lambda: fl.tc_dh(swept), **timed):.4f}, dW "
             f"{time_ms(lambda: fl.tc_dw(swept), **timed):.4f}")
-    print(f"sweep {tag} M={m} (ms): " + "; ".join(sweep), flush=True)
+    print(f"sweep {tag} M={m} (ms; planned dh {grad.plan['dh_splits']}, dW "
+          f"{grad.plan['dw_splits']}): " + "; ".join(sweep), flush=True)
     return results
 
 
@@ -550,14 +610,17 @@ def categorised_targets(x, k_max, gen):
 
 
 def check_categorised(name, k_max, h, g, x, gen, flush):
-    """The categorised K2 and both K3 passes over base ``name`` with K =
-    ``k_max``, on the targets of ``categorised_targets``: the forward (row
-    sums and the per-element lse; bf16 inputs on the main path, ragged F,
-    float32 inputs and targets), the bf16 backward against the plain
-    backward with the same rounding (and ragged F), and the float32
-    backward against autograd through the plain forward; then their times.
-    Every gradient part of the plain backward must be nonzero somewhere."""
+    """The categorised K2 and K3 over base ``name`` with K = ``k_max``, on
+    the targets of ``categorised_targets``: the forward (row sums and the
+    per-element lse; bf16 inputs on the main path, ragged F, float32 inputs
+    and targets); the bf16 backward (the tensor-core gradient kernel, then
+    the dh and dW products) against the plain backward with the same
+    rounding (and ragged F), and each of its three kernels against its
+    plain version; the float32 backward (the CUDA-core passes) against
+    autograd through the plain forward; then their times.  Every gradient
+    part of the plain backward must be nonzero somewhere."""
     from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
 
     bf16 = torch.bfloat16
     x = categorised_targets(x, k_max, gen)
@@ -586,15 +649,14 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
             fwd_err, lse_main = err, lse
     parts = (["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
              + ["dW_classes", "db_classes"])
-    # The backward on the same inputs, the forward's lse among them: an lse
-    # that differs in its last bit moves some da_c across a bf16 rounding
-    # boundary (one such flip read 5.5e-4 of the largest dW_classes).
+    # The bf16 backward on the same inputs, the forward's lse among them: an
+    # lse that differs in its last bit moves some da_c across a bf16
+    # rounding boundary (one such flip read 5.5e-4 of the largest
+    # dW_classes).
     for args in (full, ragged):
         _, lse = ops.categorised_forward(name, h, *args, compute_dtype=bf16)
-        got = (ops.categorised_backward_dh(name, g, h, *args, lse,
-                                           compute_dtype=bf16),
-               *ops.categorised_backward_dw(name, g, h, *args, lse,
-                                            compute_dtype=bf16))
+        got = ops.categorised_backward(name, g, h, *args, lse,
+                                       compute_dtype=bf16)
         want = (ops.reference_categorised_dh(name, g, h, *args, lse,
                                              compute_dtype=bf16),
                 *ops.reference_categorised_dw(name, g, h, *args, lse,
@@ -602,57 +664,125 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
         for part, b in zip(parts, want):
             if not float(b.abs().max()) > 0:
                 raise AssertionError(f"{tag} {heads}: plain {part} is all 0")
-        errs = [check_close(f"{tag}_backward {heads} {part} "
-                            f"F={args[-1].shape[1]}", a, b, BACKWARD_RTOL)
-                for part, a, b in zip(parts, got, want)]
-        if args is full:
-            dh_err, dw_err = errs[0], max(errs[1:])
+        for part, a, b in zip(parts, got, want, strict=True):
+            check_close(f"{tag}_backward {heads} {part} "
+                        f"F={args[-1].shape[1]}", a, b, BACKWARD_RTOL)
+    # the float32 backward (CUDA-core passes) against autograd
     leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs, cw, cb)]
     ll, _ = ops.reference_categorised_forward(
         name, leaves[0], leaves[1:1 + n_base], leaves[1 + n_base:1 + 2 * n_base],
         leaves[-2], leaves[-1], x)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
     _, lse = ops.categorised_forward(name, h, *full)
-    got = (ops.categorised_backward_dh(name, g, h, *full, lse),
-           *ops.categorised_backward_dw(name, g, h, *full, lse))
+    got = ops.categorised_backward(name, g, h, *full, lse)
     order = ([0] + [i for j in range(n_base) for i in (1 + j, 1 + n_base + j)]
              + [1 + 2 * n_base, 2 + 2 * n_base])
-    for part, a, i in zip(parts, got, order):
-        check_close(f"{tag}_backward float32 {heads} {part} vs autograd", a,
-                    want[i], AUTOGRAD_RTOL)
+    errs = [check_close(f"{tag}_backward float32 {heads} {part} vs autograd",
+                        a, want[i], AUTOGRAD_RTOL)
+            for part, a, i in zip(parts, got, order)]
+    f32_errs = {"backward_dh": errs[0], "backward_dw": max(errs[1:])}
+
+    # The bf16 backward kernel by kernel on the main path's inputs: the
+    # gradient kernel's bf16(da) within one bf16 step of the plain bf16(da)
+    # from the same lse, its row-tile sums, and the dh and dW products of
+    # its own da against the plain products.
+    plain = fl.reference_cat_tc_gradient(name, g, h, *full, lse_main)
+    grad = fl.cat_tc_gradient(name, g, h, *full, lse_main)
+    grad_err = check_bf16_steps(f"{tag}_backward_gradient {heads} bf16(da)",
+                                grad.da, plain.da)
+    check_close(f"{tag}_backward_gradient {heads} db row-tile sums",
+                grad.db_parts, plain.db_parts, PRODUCT_RTOL)
+    dh_err = check_close(f"{tag}_backward_dh {heads} of the kernel's da",
+                         fl.tc_dh(grad), fl.reference_tc_dh(grad),
+                         PRODUCT_RTOL)
+    dw_err = max(check_close(f"{tag}_backward_dw {heads} [{i}] of the "
+                             "kernel's da", a, b, PRODUCT_RTOL)
+                 for i, (a, b) in enumerate(zip(
+                     fl.tc_dw_stacked(grad), fl.reference_tc_dw_stacked(grad),
+                     strict=True)))
+    # Why the planner promotes deep sums: the dh product in 3 splits, its
+    # sums inside the tensor cores and promoted, against the plain product
+    deep = forced_splits(grad, 3)
+    promoted = dataclasses.replace(deep, plan={
+        **deep.plan, "dh_splits": (*deep.plan["dh_splits"][:2], True)})
+    want = fl.reference_tc_dh(grad)
+    scale = float(want.abs().max())
+    print(f"precision {tag} {heads} dh product over 3 splits of "
+          f"{deep.plan['dh_splits'][1] * fl.TC_PRODUCT_DEPTH} deep: "
+          f"unpromoted {max_err(fl.tc_dh(deep), want) / scale:.3g}, "
+          f"promoted {max_err(fl.tc_dh(promoted), want) / scale:.3g} of the "
+          f"largest value; as planned {grad.plan['dh_splits']} "
+          f"{dh_err / scale:.3g}", flush=True)
 
     n_heads = n_base + k_max + 1
-    fwd_flops = 2 * n_heads * m * hidden * f
+    product = 2 * n_heads * m * hidden * f
     head_bytes = n_heads * (hidden * f + f) * 4
     in_bytes = m * hidden * 4 + head_bytes + m * f * 2
     lse_bytes = m * f * 4
+    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
+    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    timed = dict(flush=flush)
     results = {}
-    t_bound, by = bound(in_bytes + m * 4 + lse_bytes, fwd_flops, BF16_FLOPS)
+    t_bound, by = bound(in_bytes + m * 4 + lse_bytes, product, BF16_FLOPS)
     results[f"{tag}_forward"] = {
         "max_abs_err": fwd_err,
         "ms": time_ms(lambda: ops.categorised_forward(
-            name, h, *full, compute_dtype=bf16), flush=flush),
+            name, h, *full, compute_dtype=bf16), **timed),
         "plain_ms": time_ms(lambda: ops.reference_categorised_forward(
-            name, h, *full, compute_dtype=bf16), flush=flush),
+            name, h, *full, compute_dtype=bf16), **timed),
         "bound_ms": t_bound, "bound_by": by, "library_ms": None,
     }
-    bwd_in = in_bytes + m * 4 + lse_bytes  # and g, lse
-    for kernel, err, nbytes, fn, plain in (
-        ("backward_dh", dh_err, bwd_in + m * hidden * 4,
-         ops.categorised_backward_dh, ops.reference_categorised_dh),
-        ("backward_dw", dw_err, bwd_in + head_bytes,
-         ops.categorised_backward_dw, ops.reference_categorised_dw),
-    ):
-        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
+    bwd = (name, g, h, *full, lse_main)
+    kernels = {  # fn, plain, library, err, bytes, operations, peak
+        "backward_gradient": (
+            lambda: fl.cat_tc_gradient(*bwd),
+            lambda: fl.reference_cat_tc_gradient(*bwd), None, grad_err,
+            in_bytes + m * 4 + lse_bytes + da_bytes, product, BF16_FLOPS),
+        "backward_dh": (
+            lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
+            lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32),
+            dh_err, grad.da.numel() * 2 + grad.w.numel() * 2 + m * hidden * 4,
+            product, BF16_FLOPS),
+        "backward_dw": (
+            lambda: fl.tc_dw_stacked(grad),
+            lambda: fl.reference_tc_dw_stacked(grad), None, dw_err,
+            grad.h.numel() * 2 + da_bytes + head_bytes, product, BF16_FLOPS),
+        # the float32 passes (CUDA cores, no training launch): two products
+        # each, the activations again
+        "backward_dh_float32": (
+            lambda: ops.categorised_backward_dh(*bwd),
+            lambda: ops.reference_categorised_dh(*bwd), None,
+            f32_errs["backward_dh"],
+            in_bytes + m * 4 + lse_bytes + m * hidden * 4, 2 * product,
+            F32_FLOPS),
+        "backward_dw_float32": (
+            lambda: ops.categorised_backward_dw(*bwd),
+            lambda: ops.reference_categorised_dw(*bwd), None,
+            f32_errs["backward_dw"],
+            in_bytes + m * 4 + lse_bytes + head_bytes, 2 * product,
+            F32_FLOPS),
+    }
+    for kernel, (fn, plain_fn, library, err, nbytes, flops,
+                 peak) in kernels.items():
+        t_bound, by = bound(nbytes, flops, peak)
         results[f"{tag}_{kernel}"] = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda fn=fn: fn(name, g, h, *full, lse_main,
-                                           compute_dtype=bf16), flush=flush),
-            "plain_ms": time_ms(lambda plain=plain: plain(
-                name, g, h, *full, lse_main, compute_dtype=bf16),
-                flush=flush),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": None if library is None else time_ms(library,
+                                                               **timed),
         }
+    parts_ms = sum(results[f"{tag}_{kernel}"]["ms"] for kernel in
+                   ("backward_gradient", "backward_dh", "backward_dw"))
+    whole_bound, whole_by = bound(
+        in_bytes + m * 4 + lse_bytes + m * hidden * 4 + head_bytes,
+        3 * product, BF16_FLOPS)
+    whole = time_ms(lambda: ops.categorised_backward(*bwd, compute_dtype=bf16),
+                    **timed)
+    print(f"backward {tag} {heads}: gradient + dh + dW kernels "
+          f"{parts_ms:.4f} ms; categorised_backward with its operand copies "
+          f"{whole:.4f} ms; bound {whole_bound:.5f} ms ({whole_by})",
+          flush=True)
     return results
 
 
@@ -815,6 +945,7 @@ def phase_kernels(counts_dev):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     n = counts_dev.shape[0]
     idx = torch.randperm(n, generator=gen, device=dev)[:BATCH].to(torch.int32)
+    check_cluster_capacity()
     x, results = check_gather(counts_dev, idx, flush)
     results = {"gather_rows": results}
     # decoder output and row cotangents shared by every family
@@ -959,7 +1090,7 @@ def train_config(label, model, name, k_max, counts, card):
               else ops.FAMILIES[name].prefix)
     prefix = f"cat_{prefix}" if k_max else prefix
     kernels = ["forward", "backward_dh", "backward_dw"]
-    if name in ops.FAMILIES and not k_max:  # the bf16 backward's first kernel
+    if name in ops.FAMILIES:  # the bf16 backward's first kernel
         kernels.append("backward_gradient")
     ours = {f"{prefix}_{kernel}" for kernel in kernels}
     for kernel, count in launches.items():
@@ -1211,15 +1342,22 @@ def main() -> int:
 
     def source(name):
         if name == "gather_rows":
-            return "scvae_tpu_torch/ops/csrc/gather.cu", REPLACES[name]
+            return SOURCES["gather"], REPLACES[name]
         kind = "forward" if "forward" in name else "backward"
         if name.startswith("cp_"):
             return SOURCES["cp"], REPLACES["cp_" + kind]
-        if name.startswith("cat_"):
-            return SOURCES["cat"], REPLACES[kind]
         if "_grouped_" in name:
             return SOURCES["grouped"], REPLACES["grouped_" + kind]
-        return SOURCES["count"], REPLACES[kind]
+        cat = name.startswith("cat_")
+        if "_float32" in name:
+            file = "cat" if cat else "count_float32"
+        elif "backward_dh" in name or "backward_dw" in name:
+            file = "product"
+        elif cat:
+            file = "cat_tc" if "backward_gradient" in name else "cat"
+        else:
+            file = "count"
+        return SOURCES[file], REPLACES[kind]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source(name)[0],

@@ -13,6 +13,7 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     FusedConstrainedPoisson,
     FusedGroupedLogLikelihood,
     FusedLogLikelihood,
+    categorised_backward,
     categorised_backward_dh,
     categorised_backward_dw,
     categorised_forward,
@@ -75,6 +76,7 @@ __all__ = [
     "FusedLogLikelihood",
     "MAX_FUSED_GROUPS",
     "MAX_FUSED_HEADS",
+    "categorised_backward",
     "categorised_backward_dh",
     "categorised_backward_dw",
     "categorised_forward",

@@ -1,0 +1,294 @@
+// The tensor-core ring of the bf16 heads kernels: the forward and gradient
+// kernels of the base families (count_likelihood_tc.cu) and the gradient
+// kernel of the categorised instances (categorised_likelihood_tc.cu).
+//
+// A block of 64 rows x 64 genes computes the products h W_k of NB heads at
+// once: mma.sync m16n8k16 bf16 with float32 accumulators, fed by ldmatrix
+// from shared memory that a ring of four stages of 32 hidden units fills
+// with cp.async, so the copies of the next stages overlap the products of
+// this one and shared memory is bounded by the ring for any H.  The heads
+// kernels' float32 epilogue (the transcendentals), not these products, sets
+// their time.  The dh and dW products of the backward run on wgmma
+// (tc_product.cu).
+#pragma once
+
+#include <stdint.h>
+
+#include "count_families.cuh"
+
+namespace scvae {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcDepth = 32;   // depth (hidden units) of one ring stage
+constexpr int kTcStages = 4;   // stages of the ring
+constexpr int kTcTileN = 64;   // genes of a block: two warps of 32
+constexpr int kTcWarpsN = 2;
+constexpr int kTcPad = 8;      // bf16 padding per shared row (no bank conflicts)
+constexpr int kTcRows = 64;    // rows of a block
+constexpr int kTcMI = 2;       // m16 tiles of a warp: 32 x 32 warp tiles
+constexpr int kTcWarps = kTcRows / (16 * kTcMI) * kTcWarpsN;
+constexpr int kTcThreads = 32 * kTcWarps;
+
+// Shared memory of the ring: per stage the h tile [64][32] and NB weight
+// tiles [32][64], each row padded by kTcPad.
+template <int NB>
+struct TcSmem {
+  static constexpr int kA = kTcRows * (kTcDepth + kTcPad);
+  static constexpr int kB = kTcDepth * (kTcTileN + kTcPad);
+  static constexpr int kStage = kA + NB * kB;  // bf16 elements
+  static constexpr size_t kBytes = sizeof(bf16) * kStage * kTcStages;
+};
+
+// Shared row stride of the staged activations: 64 columns and a pad that
+// keeps the accumulators' float2 stores free of bank conflicts.
+constexpr int kTcActStride = kTcTileN + 8;
+
+// Dynamic shared memory of a heads kernel whose groups hold at most NB
+// heads: the ring, then (reusing it) the staged activations act[NB][64][72].
+template <int NB>
+constexpr size_t tc_heads_smem() {
+  constexpr size_t ring = TcSmem<NB>::kBytes;
+  constexpr size_t acts = sizeof(float) * NB * kTcRows * kTcActStride;
+  return ring > acts ? ring : acts;
+}
+
+// The operands of the heads' products: h (M, Hp) row-major, and NB weight
+// tiles of w (Hp rows, row stride ldw) at columns n0 + hd * head_stride;
+// columns from n_max on read as zero (n_max and the strides are multiples
+// of 8, so a 16-byte chunk is wholly valid or wholly not).
+struct TcOperands {
+  const bf16* h;
+  int m;
+  int hp;
+  const bf16* w;
+  long long ldw;
+  int head_stride;
+  int n_max;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, zero-filled when !valid.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b for one m16n8k16 tile, bf16 inputs, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An R x C tile (C a multiple of 8) at (r0, c0) of a row-major bf16 array
+// with row stride ld into shared memory (row stride C + kTcPad), one
+// 16-byte chunk per copy; chunks outside (r_max, c_max) are zero.
+template <int R, int C>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
+                                          int r0, int c0, int r_max,
+                                          int c_max) {
+  constexpr int kRowChunks = C / 8;
+  constexpr int kChunks = R * kRowChunks;
+  static_assert(kChunks % kTcThreads == 0, "every thread copies whole chunks");
+#pragma unroll
+  for (int i = 0; i < kChunks / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / kRowChunks, c = (idx % kRowChunks) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    const bool valid = gr < r_max && gc < c_max;
+    const bf16* src = valid ? g + (long long)gr * ld + gc : g;
+    cp_async_16(smem_u32(s + r * (C + kTcPad) + c), src, valid);
+  }
+}
+
+// acc[hd] = h[m0 : m0 + 64, :] W_hd[:, n0 : n0 + 64] through the ring.
+// Warp (wm, wn) owns rows wm * 32 + [0, 32) and columns wn * 32 + [0, 32):
+// acc[hd][mi][ni] is the m16n8 tile at rows + 16 mi, columns + 8 ni.
+// Shared memory is free again on return.  Each mma sums its 16 products
+// into zeros and the result is added to acc by a float32 add: an mma aligns
+// its products to the largest term, the running sum included, and drops
+// the bits below, so a large running sum inside the mma would truncate
+// every later product the same way; outside, the sums round to nearest
+// like the plain version's float32 product.
+template <int NB>
+__device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
+                                            int m0, int n0,
+                                            float (&acc)[NB][kTcMI][4][4]) {
+  using S = TcSmem<NB>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+#pragma unroll
+  for (int hd = 0; hd < NB; ++hd)
+#pragma unroll
+    for (int mi = 0; mi < kTcMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[hd][mi][ni][e] = 0.0f;
+
+  auto load = [&](int stage, int kt) {
+    bf16* sa = smem + stage * S::kStage;
+    bf16* sb = sa + S::kA;
+    const int k0 = kt * kTcDepth;
+    load_tile<kTcRows, kTcDepth>(sa, op.h, op.hp, m0, k0, op.m, op.hp);
+#pragma unroll
+    for (int hd = 0; hd < NB; ++hd)
+      load_tile<kTcDepth, kTcTileN>(sb + hd * S::kB, op.w, op.ldw, k0,
+                                    n0 + hd * op.head_stride, op.hp,
+                                    op.n_max);
+  };
+
+  auto compute = [&](int stage) {
+    const bf16* sa = smem + stage * S::kStage;
+    const bf16* sb = sa + S::kA;
+#pragma unroll
+    for (int kk = 0; kk < kTcDepth; kk += 16) {
+      uint32_t af[kTcMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kTcMI; ++mi) {
+        const int m = wm * 16 * kTcMI + mi * 16 + (lane & 15);
+        const int k = kk + ((lane >> 4) << 3);
+        ldsm_x4(af[mi], smem_u32(sa + m * (kTcDepth + kTcPad) + k));
+      }
+#pragma unroll
+      for (int hd = 0; hd < NB; ++hd) {
+        const bf16* sbh = sb + hd * S::kB;
+        uint32_t bfr[4][2];
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const int k = kk + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int n = wn * 32 + nj * 16 + ((lane >> 4) << 3);
+          uint32_t r[4];
+          ldsm_x4_t(r, smem_u32(sbh + k * (kTcTileN + kTcPad) + n));
+          bfr[2 * nj][0] = r[0];
+          bfr[2 * nj][1] = r[1];
+          bfr[2 * nj + 1][0] = r[2];
+          bfr[2 * nj + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < kTcMI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(part, af[mi], bfr[ni][0], bfr[ni][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[hd][mi][ni][e] += part[e];
+          }
+      }
+    }
+  };
+
+  const int n_k = (op.hp + kTcDepth - 1) / kTcDepth;
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < n_k) load(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_k; ++i) {
+    cp_async_wait<kTcStages - 2>();  // stage i has landed
+    __syncthreads();                 // and stage i - 1 is read by all
+    const int next = i + kTcStages - 1;
+    if (next < n_k) load(next % kTcStages, next);
+    cp_async_commit();
+    compute(i % kTcStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The accumulators into shared memory as act[hd][row][col] (row stride
+// kTcActStride), for the epilogue's row-per-warp loop.
+template <int NB>
+__device__ __forceinline__ void tc_stage_acts(
+    float* act, const float (&acc)[NB][kTcMI][4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+#pragma unroll
+  for (int hd = 0; hd < NB; ++hd)
+#pragma unroll
+    for (int mi = 0; mi < kTcMI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm * 16 * kTcMI + mi * 16 + (lane >> 2) + half * 8;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = wn * 32 + ni * 8 + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(act + (hd * kTcRows + r) * kTcActStride +
+                                     c) =
+              make_float2(acc[hd][mi][ni][half * 2],
+                          acc[hd][mi][ni][half * 2 + 1]);
+        }
+      }
+}
+
+// The block's column sums of da, out[hd * fp + n0 + col] for hd < n_heads
+// and genes below fp: each warp's sums col_acc[hd][j] (columns lane + 32 j
+// of its rows) through shared memory red[warp][hd][64], then the warps in
+// order.  Starts and ends with __syncthreads, so red may overlap act.
+template <int NB>
+__device__ __forceinline__ void tc_store_col_sums(
+    float* red, const float (&col_acc)[NB][2], float* out, int n0, int fp,
+    int n_heads) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // every warp is done reading act
+#pragma unroll
+  for (int hd = 0; hd < NB; ++hd)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      red[(warp * NB + hd) * kTcTileN + lane + 32 * j] = col_acc[hd][j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < NB * kTcTileN; c += kTcThreads) {
+    const int hd = c / kTcTileN, cl = c % kTcTileN;
+    const int gene = n0 + cl;
+    if (hd < n_heads && gene < fp) {
+      float s = 0.0f;
+      for (int j = 0; j < kTcWarps; ++j) s += red[(j * NB + hd) * kTcTileN + cl];
+      out[hd * fp + gene] = s;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float load_t(const void* t, int t_bf16,
+                                        long long i) {
+  return t_bf16 ? __bfloat162float(static_cast<const bf16*>(t)[i])
+                : static_cast<const float*>(t)[i];
+}
+
+}  // namespace
+}  // namespace scvae

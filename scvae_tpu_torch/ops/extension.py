@@ -20,8 +20,8 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood.cu", "count_likelihood_tc.cu",
-           "cp_likelihood.cu", "categorised_likelihood.cu",
-           "grouped_likelihood.cu")
+           "tc_product.cu", "cp_likelihood.cu", "categorised_likelihood.cu",
+           "categorised_likelihood_tc.cu", "grouped_likelihood.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -52,11 +52,17 @@ _SIGNATURES = {
     # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
     "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _P],
-    # da, w, part, dh, m, hidden, hp, k, splits, tiles_per_split, stream
-    "scvae_tc_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # h, da, db_part, part, dw, db, n_heads, m, hidden, hp, f, splits,
-    # tiles_per_split, row_tiles, stream
-    "scvae_tc_dw": [_P] * 6 + [_I] * 8 + [_P],
+    # family, g, h, w, b, t, t_dtype, lse, da, db_part, m, m_t, hp, f,
+    # n_classes, stream
+    "scvae_cat_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _P],
+    # splits, clusters (int *), stream (not used)
+    "scvae_tc_cluster_capacity": [_I, _P, _P],
+    # da, w, dh, m, hidden, hp, k, splits, tiles_per_split, promote, stream
+    "scvae_tc_dh": [_P, _P, _P] + [_I] * 7 + [_P],
+    # h, da, db_part, dw, db, n_heads, m, hidden, hp, f, splits,
+    # tiles_per_split, row_tiles, promote, stream
+    "scvae_tc_dw": [_P] * 5 + [_I] * 9 + [_P],
     # h, w, b, t, t_dtype, n, ll, lse, m, m_t, hidden, f, stream
     "scvae_cp_forward": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # g, h, w, b, t, t_dtype, lse, sx, dh, m, m_t, hidden, f, stream

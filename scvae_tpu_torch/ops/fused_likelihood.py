@@ -21,7 +21,10 @@ recomputes them tile by tile.  Counterpart of
 * the categorised instances of K2/K3 — a base family plus K + 1 class-logit
   heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
   — have their own forward, dh and dW kernels for up to
-  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``);
+  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``),
+  and with bf16 a tensor-core backward
+  (``ops/csrc/categorised_likelihood_tc.cu``, then the products of
+  ``ops/csrc/tc_product.cu``);
 * the grouped kernels K4/K5 take h (G, M, H) against targets t (M, F) shared
   by the G groups, with the group loop inside the kernel and lgamma(1 + t)
   always subtracted (``ops/csrc/grouped_likelihood.cu``), for the base
@@ -50,7 +53,9 @@ float32, and dh comes back in float32 (unrounded, as JAX returns it).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -212,21 +217,27 @@ MAX_FUSED_HEADS = 32
 MAX_FUSED_GROUPS = 16
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
-# The base families' bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>",
-# their backward's first kernel as "<prefix>_backward_gradient", and their
-# float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
+# The bf16 K2/K3 of the base families and the bf16 backward of the
+# categorised instances (tensor cores) count as "<prefix>_<kernel>" (prefix
+# "cat_<family>" for the categorised), their backward's first kernel as
+# "<prefix>_backward_gradient" and its products as "<prefix>_backward_dh" /
+# "_dw"; the float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
+# The categorised forward, one CUDA-core kernel for both, counts as
+# "cat_<family>_forward".
+_KERNELS = ("forward", "backward_dh", "backward_dw")
 LAUNCHES = {
-    f"{prefix}_{kernel}{suffix}": 0
-    for prefix, suffixes in (
-        [(fam.prefix, ("", "_float32")) for fam in FAMILIES.values()]
-        + [("cp", ("",))]
-        + [(f"cat_{fam.prefix}", ("",)) for fam in FAMILIES.values()]
-        + [(f"{fam.prefix}_grouped", ("",)) for fam in FAMILIES.values()])
-    for kernel in ("forward", "backward_dh", "backward_dw")
-    for suffix in suffixes
+    name: 0
+    for fam in FAMILIES.values()
+    for name in (
+        [f"{fam.prefix}_{kernel}{suffix}" for kernel in _KERNELS
+         for suffix in ("", "_float32")]
+        + [f"cat_{fam.prefix}_{kernel}{suffix}" for kernel in _KERNELS[1:]
+           for suffix in ("", "_float32")]
+        + [f"{fam.prefix}_backward_gradient", f"cat_{fam.prefix}_forward",
+           f"cat_{fam.prefix}_backward_gradient"]
+        + [f"{fam.prefix}_grouped_{kernel}" for kernel in _KERNELS])
 }
-LAUNCHES.update({f"{fam.prefix}_backward_gradient": 0
-                 for fam in FAMILIES.values()})
+LAUNCHES.update({f"cp_{kernel}": 0 for kernel in _KERNELS})
 
 
 def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
@@ -627,22 +638,38 @@ def _family_heads(name, weights, biases):
 
 
 # --------------------------------------------------------------------------
-# bf16 K2 / K3 on the tensor cores (ops/csrc/count_likelihood_tc.cu)
+# bf16 K2 / K3 on the tensor cores (ops/csrc/count_likelihood_tc.cu,
+# categorised_likelihood_tc.cu and tc_product.cu)
 #
 # h and the heads' weights go over in bf16, zero-padded to widths that are
 # multiples of 8 (16-byte rows): h (M, Hp) and W (Hp, NH, Fp), the heads side
-# by side.  The forward writes row sums per gene tile; the backward's first
-# kernel writes bf16(da) (M, NH·Fp) and per-row-tile column sums of da, which
-# dh = da Wᵀ and dW = hᵀ da then read; the products split their depth over
-# partial arrays.  Every partial array is summed in order by a second pass.
+# by side (for the categorised instances the base heads, then the classes).
+# The forward writes row sums per gene tile, which a second pass sums in
+# order.  The backward's gradient kernel writes bf16(da) (M, NH·Fp) and
+# per-row-tile column sums of da, which the products dh = da Wᵀ and dW = hᵀ da
+# (with db) then read.  A product splits its depth over the blocks of a
+# thread-block cluster, which sum their tiles in rank order.
 # --------------------------------------------------------------------------
 
-TC_DEPTH = 32          # depth of one ring stage
-TC_GENE_TILE = 64      # genes per block (each head), columns per product block
-TC_ROW_TILE = 64       # rows per heads block
-TC_PRODUCT_ROWS = 128  # rows (dh) or hidden units (dW) per product block
-TC_TARGET_BLOCKS = 264  # blocks a product aims for: two per SM on 132 SMs
-TC_MIN_SPLIT_DEPTH = 8  # depth tiles per split at least
+TC_GENE_TILE = 64       # genes per heads block (each head)
+TC_ROW_TILE = 64        # rows per heads block
+TC_PRODUCT_DEPTH = 64   # depth of a product stage (one 128-byte bf16 row)
+TC_PRODUCT_ROWS = 128   # rows (dh) or hidden units (dW) per product block
+TC_PRODUCT_COLS = 256   # columns per product block; half with promoted sums
+TC_MAX_SPLITS = 8       # blocks of a cluster (the portable cap)
+TC_MIN_SPLIT_DEPTH = 4  # depth stages per split at least
+# Clusters of S product blocks (one block per SM) that an H100 holds at
+# once, by S, as cudaOccupancyMaxActiveClusters reports them: the plans of
+# the plain versions, which do not split; CUDA tensors plan with the card's
+# own answer (``card_cluster_capacity``).
+TC_CLUSTER_CAPACITY = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                       8: 15}
+# Depth of one split above which a product promotes its sums (adds each
+# stage's products, summed in zeroed registers, in float32): running sums
+# kept inside the tensor cores truncate later products, by more the deeper
+# the sum (chip_smoke.py prints the reading at Poisson-cat's 65,536 deep in
+# 3 splits; its checks allow 2e-5 of the largest value).
+TC_PROMOTE_DEPTH = 8192
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -655,47 +682,87 @@ def tc_padded(n: int) -> int:
 
 
 def tc_splits(out_tiles: int, depth: int,
-              target_blocks: int = TC_TARGET_BLOCKS) -> tuple[int, int]:
-    """(splits, depth tiles per split) of a product with ``out_tiles``
-    output blocks over ``depth``: enough splits to reach about
-    ``target_blocks`` blocks, none shorter than :data:`TC_MIN_SPLIT_DEPTH`
-    tiles, none empty."""
-    k_tiles = max(1, _cdiv(depth, TC_DEPTH))
-    want = max(1, min(_cdiv(target_blocks, max(out_tiles, 1)),
-                      k_tiles // TC_MIN_SPLIT_DEPTH))
+              capacity: dict = TC_CLUSTER_CAPACITY,
+              promote: bool = False) -> tuple[int, int]:
+    """(splits, depth stages per split) of a product with ``out_tiles``
+    output blocks over ``depth``: without a split if the tiles fill the
+    card, else the most splits (the blocks of a cluster, at most
+    :data:`TC_MAX_SPLITS`, none shorter than :data:`TC_MIN_SPLIT_DEPTH`
+    stages) whose clusters the card holds at once (``capacity``); then,
+    unless the sums are promoted, more splits up to the cap while one split
+    would be deeper than :data:`TC_PROMOTE_DEPTH`."""
+    k_tiles = max(1, _cdiv(depth, TC_PRODUCT_DEPTH))
+    limit = max(1, min(TC_MAX_SPLITS, k_tiles // TC_MIN_SPLIT_DEPTH))
+    want = 1
+    while want < limit and out_tiles <= capacity[want + 1]:
+        want += 1
+    while (not promote and want < TC_MAX_SPLITS and want < k_tiles
+           and _cdiv(k_tiles, want) * TC_PRODUCT_DEPTH > TC_PROMOTE_DEPTH):
+        want += 1
     per = _cdiv(k_tiles, want)
     return _cdiv(k_tiles, per), per
 
 
+def _product_plan(rows: int, cols: int, depth: int,
+                  capacity: dict) -> tuple[int, int, bool]:
+    """(splits, stages per split, promote) of a rows x cols product over
+    ``depth``: promoted sums (and half-width tiles) where even
+    :data:`TC_MAX_SPLITS` splits of full-width tiles would each sum more
+    than :data:`TC_PROMOTE_DEPTH`."""
+    for promote in (False, True):
+        cols_per_tile = TC_PRODUCT_COLS // 2 if promote else TC_PRODUCT_COLS
+        tiles = _cdiv(rows, TC_PRODUCT_ROWS) * _cdiv(cols, cols_per_tile)
+        splits, per = tc_splits(tiles, depth, capacity, promote)
+        if promote or per * TC_PRODUCT_DEPTH <= TC_PROMOTE_DEPTH:
+            return splits, per, promote
+    raise AssertionError("unreachable")
+
+
+def tc_cluster_capacity(device, splits: int) -> int:
+    """Clusters of ``splits`` product blocks that the card of ``device``
+    holds at once."""
+    clusters = ctypes.c_int(0)
+    extension.call("scvae_tc_cluster_capacity", device, splits,
+                   ctypes.addressof(clusters))
+    return clusters.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_cluster_capacity(device: torch.device) -> dict:
+    """{S: clusters of S product blocks that the card of the CUDA
+    ``device`` holds at once}, asked once per process and device."""
+    return {s: tc_cluster_capacity(device, s)
+            for s in range(1, TC_MAX_SPLITS + 1)}
+
+
 def tc_plan(m: int, hidden: int, f: int, n_heads: int,
-            target_blocks: int = TC_TARGET_BLOCKS) -> dict:
-    """Padded widths, grids and scratch shapes of the tensor-core K2/K3 for
-    M = ``m`` rows, H = ``hidden``, F = ``f`` and ``n_heads`` heads; the
-    products split their depth to reach about ``target_blocks`` blocks."""
+            capacity: dict = TC_CLUSTER_CAPACITY) -> dict:
+    """Padded widths, grids, scratch shapes and product splits of the
+    tensor-core K2/K3 for M = ``m`` rows, H = ``hidden``, F = ``f`` and
+    ``n_heads`` heads, on a card that holds ``capacity[S]`` clusters of S
+    product blocks at once.  ``dh_splits`` / ``dw_splits``: (splits, depth
+    stages per split, promote)."""
     hp, fp = tc_padded(hidden), tc_padded(f)
     width = n_heads * fp
-    dh_splits = tc_splits(
-        _cdiv(m, TC_PRODUCT_ROWS) * _cdiv(hp, TC_GENE_TILE), width,
-        target_blocks)
-    dw_splits = tc_splits(
-        _cdiv(hp, TC_PRODUCT_ROWS) * _cdiv(width, TC_GENE_TILE), m,
-        target_blocks)
     return {
         "hp": hp, "fp": fp,
         "row_sums": (_cdiv(f, TC_GENE_TILE), m),
         "da": (m, width),
         "db_parts": (_cdiv(m, TC_ROW_TILE), width),
-        "dh_splits": dh_splits, "dh_parts": (dh_splits[0], m, hp),
-        "dw_splits": dw_splits, "dw_parts": (dw_splits[0], hp, width),
+        "dh_splits": _product_plan(m, hp, width, capacity),
+        "dw_splits": _product_plan(hp, width, m, capacity),
     }
 
 
-def _tc_operands(h, weights, biases):
+def _tc_operands(h, weights, biases, cat_w=None, cat_b=None):
     """h (M, Hp) and W (Hp, NH, Fp) rounded to bf16 and zero-padded, and
-    the float32 biases (NH, F)."""
+    the float32 biases (NH, F): the base heads, then the class heads
+    ``cat_w`` (C, H, F) / ``cat_b`` (C, F) if given."""
     m, hidden = h.shape
     f = weights[0].shape[1]
     hp, fp = tc_padded(hidden), tc_padded(f)
+    n_base = len(weights)
+    n_heads = n_base + (0 if cat_w is None else cat_w.shape[0])
     bf16 = torch.bfloat16
     if hp == hidden:
         hb = h.to(bf16).contiguous()
@@ -704,11 +771,14 @@ def _tc_operands(h, weights, biases):
         hb[:, :hidden] = h
     padded = (hp, fp) != (hidden, f)
     w = (torch.zeros if padded else torch.empty)(
-        (hp, len(weights), fp), dtype=bf16, device=h.device)
+        (hp, n_heads, fp), dtype=bf16, device=h.device)
     for k, w_k in enumerate(weights):
         w[:hidden, k, :f] = w_k
-    b = torch.stack([b_k.float() for b_k in biases]).contiguous()
-    return hb, w, b
+    b = torch.stack([b_k.float() for b_k in biases])
+    if cat_w is not None:
+        w[:hidden, n_base:, :f] = cat_w.permute(1, 0, 2)
+        b = torch.cat([b, cat_b.float()])
+    return hb, w, b.contiguous()
 
 
 def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
@@ -733,7 +803,7 @@ def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
 class TcGradient:
     """The backward's first kernel's outputs: bf16 h and W as the products
     read them, bf16(da) (M, NH·Fp) and da's column sums per row tile; and
-    the family's launch-count prefix."""
+    the launch-count prefix of its products."""
 
     prefix: str
     plan: dict
@@ -752,7 +822,8 @@ def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     t = _validated(h, weights, biases, t, g)
     m, hidden = h.shape
     f = t.shape[1]
-    plan = tc_plan(m, hidden, f, len(weights))
+    plan = tc_plan(m, hidden, f, len(weights),
+                   card_cluster_capacity(h.device))
     hb, w, b = _tc_operands(h, weights, biases)
     dev = h.device
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
@@ -767,41 +838,91 @@ def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     return TcGradient(fam.prefix, plan, hidden, f, hb, w, da, db_parts)
 
 
+def cat_tc_gradient(name, g, h, weights, biases, cat_w, cat_b, t,
+                    lse) -> TcGradient:
+    """Launch the categorised backward's first kernel over base ``name``:
+    every head's products and da (the classes' softmax from the forward's
+    ``lse``) for row cotangents ``g``."""
+    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t, g, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    n_classes = cat_w.shape[0]
+    plan = tc_plan(m, hidden, f, len(weights) + n_classes,
+                   card_cluster_capacity(h.device))
+    hb, w, b = _tc_operands(h, weights, biases, cat_w, cat_b)
+    dev = h.device
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cat_tc_gradient", dev, fam.code, g.data_ptr(),
+        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], lse.data_ptr(), da.data_ptr(), db_parts.data_ptr(),
+        m, t.shape[0], plan["hp"], f, n_classes,
+    )
+    LAUNCHES[f"cat_{fam.prefix}_backward_gradient"] += 1
+    return TcGradient(f"cat_{fam.prefix}", plan, hidden, f, hb, w, da,
+                      db_parts)
+
+
 def tc_dh(grad: TcGradient) -> torch.Tensor:
     """dh (M, H) = Σ_k bf16(da_k) W_kᵀ from the first kernel's outputs."""
     plan, (m, width) = grad.plan, grad.da.shape
     dev = grad.da.device
-    splits, per = plan["dh_splits"]
-    part = torch.empty(plan["dh_parts"], dtype=torch.float32, device=dev)
+    splits, per, promote = plan["dh_splits"]
     dh = torch.empty((m, grad.hidden), dtype=torch.float32, device=dev)
     extension.call(
         "scvae_tc_dh", dev, grad.da.data_ptr(), grad.w.data_ptr(),
-        part.data_ptr(), dh.data_ptr(), m, grad.hidden, plan["hp"], width,
-        splits, per,
+        dh.data_ptr(), m, grad.hidden, plan["hp"], width, splits, per,
+        int(promote),
     )
     LAUNCHES[f"{grad.prefix}_backward_dh"] += 1
     return dh
 
 
-def tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
-    """(dW_0, db_0, dW_1, db_1, …) with dW_k = hᵀ bf16(da_k) and db_k =
+def tc_dw_stacked(grad: TcGradient) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dW (NH, H, F), db (NH, F)) with dW_k = hᵀ bf16(da_k) and db_k =
     Σ_rows da_k, from the first kernel's outputs."""
     plan, m = grad.plan, grad.da.shape[0]
     n_heads = grad.w.shape[1]
     dev = grad.da.device
-    splits, per = plan["dw_splits"]
-    part = torch.empty(plan["dw_parts"], dtype=torch.float32, device=dev)
-    dw = torch.empty((n_heads, grad.hidden, grad.f), dtype=torch.float32,
-                     device=dev)
-    db = torch.empty((n_heads, grad.f), dtype=torch.float32, device=dev)
+    shapes = ((n_heads, grad.hidden, grad.f), (n_heads, grad.f))
+    if m == 0:
+        return tuple(torch.zeros(s, dtype=torch.float32, device=dev)
+                     for s in shapes)
+    dw, db = (torch.empty(s, dtype=torch.float32, device=dev) for s in shapes)
+    splits, per, promote = plan["dw_splits"]
     extension.call(
         "scvae_tc_dw", dev, grad.h.data_ptr(), grad.da.data_ptr(),
-        grad.db_parts.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), n_heads, m, grad.hidden, plan["hp"], grad.f, splits,
-        per, plan["db_parts"][0],
+        grad.db_parts.data_ptr(), dw.data_ptr(), db.data_ptr(), n_heads, m,
+        grad.hidden, plan["hp"], grad.f, splits, per, plan["db_parts"][0],
+        int(promote),
     )
     LAUNCHES[f"{grad.prefix}_backward_dw"] += 1
-    return tuple(x for k in range(n_heads) for x in (dw[k], db[k]))
+    return dw, db
+
+
+def tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
+    """(dW_0, db_0, dW_1, db_1, …) of :func:`tc_dw_stacked`."""
+    dw, db = tc_dw_stacked(grad)
+    return tuple(x for k in range(dw.shape[0]) for x in (dw[k], db[k]))
+
+
+def _reference_scratch(prefix, plan, hidden, f, hb, w, das) -> TcGradient:
+    """The gradient kernels' outputs from the float32 da of every head:
+    bf16(da) (M, NH·Fp), zero past F, and da's column sums per row tile."""
+    m = hb.shape[0]
+    da = torch.zeros((m, len(das), plan["fp"]), dtype=torch.float32,
+                     device=hb.device)
+    da[:, :, :f] = torch.stack(das, 1)
+    da = da.reshape(plan["da"])
+    tiles = plan["db_parts"][0]
+    rows = torch.zeros((tiles * TC_ROW_TILE, da.shape[1]),
+                       dtype=torch.float32, device=hb.device)
+    rows[:m] = da
+    db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
+    return TcGradient(prefix, plan, hidden, f, hb, w, da.to(torch.bfloat16),
+                      db_parts)
 
 
 def reference_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
@@ -813,17 +934,23 @@ def reference_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     plan = tc_plan(m, hidden, f, len(weights))
     hb, w, _ = _tc_operands(h, weights, biases)
     _, das = _weighted_grads(name, g, h, weights, biases, t, torch.bfloat16)
-    da = torch.zeros((m, len(das), plan["fp"]), dtype=torch.float32,
-                     device=h.device)
-    da[:, :, :f] = torch.stack(das, 1)
-    da = da.reshape(plan["da"])
-    tiles = plan["db_parts"][0]
-    rows = torch.zeros((tiles * TC_ROW_TILE, da.shape[1]),
-                       dtype=torch.float32, device=h.device)
-    rows[:m] = da
-    db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
-    return TcGradient(fam.prefix, plan, hidden, f, hb, w,
-                      da.to(torch.bfloat16), db_parts)
+    return _reference_scratch(fam.prefix, plan, hidden, f, hb, w, das)
+
+
+def reference_cat_tc_gradient(name, g, h, weights, biases, cat_w, cat_b, t,
+                              lse) -> TcGradient:
+    """Plain version of :func:`cat_tc_gradient`, with the same layout: the
+    base heads' and then the classes' bf16(da) (M, NH·Fp), zero past F, and
+    da's column sums per row tile."""
+    fam = _family_heads(name, weights, biases)
+    m, hidden = h.shape
+    f = t.shape[-1]
+    plan = tc_plan(m, hidden, f, len(weights) + cat_w.shape[0])
+    hb, w, _ = _tc_operands(h, weights, biases, cat_w, cat_b)
+    _, das = _categorised_weighted_grads(name, g, h, weights, biases, cat_w,
+                                         cat_b, t, lse, torch.bfloat16)
+    return _reference_scratch(f"cat_{fam.prefix}", plan, hidden, f, hb, w,
+                              das)
 
 
 def reference_tc_dh(grad: TcGradient) -> torch.Tensor:
@@ -833,14 +960,20 @@ def reference_tc_dh(grad: TcGradient) -> torch.Tensor:
     return (grad.da.float() @ w.T)[:, :grad.hidden]
 
 
-def reference_tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`tc_dw`: the float32 product of the same
-    bf16 operands and the sum of the row tiles' column sums."""
+def reference_tc_dw_stacked(grad: TcGradient):
+    """Plain version of :func:`tc_dw_stacked`: the float32 product of the
+    same bf16 operands and the sum of the row tiles' column sums."""
     n_heads, fp = grad.w.shape[1:]
     dw = (grad.h.float().T @ grad.da.float()).reshape(-1, n_heads, fp)
     db = grad.db_parts.sum(0).reshape(n_heads, fp)
-    return tuple(x for k in range(n_heads)
-                 for x in (dw[:grad.hidden, k, :grad.f], db[k, :grad.f]))
+    return (dw[:grad.hidden, :, :grad.f].permute(1, 0, 2),
+            db[:, :grad.f])
+
+
+def reference_tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
+    """Plain version of :func:`tc_dw`."""
+    dw, db = reference_tc_dw_stacked(grad)
+    return tuple(x for k in range(dw.shape[0]) for x in (dw[k], db[k]))
 
 
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
@@ -1081,12 +1214,16 @@ def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
 
 def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
                             *, compute_dtype=None):
-    """dh (M, H) of the categorised instance: its first K3 kernel on CUDA,
-    the plain version on the CPU."""
+    """dh (M, H) of the categorised instance: its float32 dh kernel on
+    CUDA, the plain version on the CPU.  With bf16 on CUDA it is the first
+    output of :func:`categorised_backward`."""
     if not h.is_cuda:
         return reference_categorised_dh(name, g, h, weights, biases, cat_w,
                                         cat_b, t, lse,
                                         compute_dtype=compute_dtype)
+    if _round_flag(compute_dtype):
+        return categorised_backward(name, g, h, weights, biases, cat_w, cat_b,
+                                    t, lse, compute_dtype=compute_dtype)[0]
     fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
         name, h, weights, biases, cat_w, cat_b, t, g, lse)
     m, hidden = h.shape
@@ -1097,22 +1234,25 @@ def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
         "scvae_cat_backward_dh", h.device, fam.code, g.data_ptr(),
         h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
         cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-        _round_flag(compute_dtype),
+        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1], 0,
     )
-    LAUNCHES[f"cat_{fam.prefix}_backward_dh"] += 1
+    LAUNCHES[f"cat_{fam.prefix}_backward_dh_float32"] += 1
     return dh
 
 
 def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
                             *, compute_dtype=None):
     """(dW_0, db_0, …, dW_classes (K+1, H, F), db_classes (K+1, F)) of the
-    categorised instance: its second K3 kernel on CUDA, the plain version on
-    the CPU."""
+    categorised instance: its float32 dW kernel on CUDA, the plain version
+    on the CPU.  With bf16 on CUDA they are the other outputs of
+    :func:`categorised_backward`."""
     if not h.is_cuda:
         return reference_categorised_dw(name, g, h, weights, biases, cat_w,
                                         cat_b, t, lse,
                                         compute_dtype=compute_dtype)
+    if _round_flag(compute_dtype):
+        return categorised_backward(name, g, h, weights, biases, cat_w, cat_b,
+                                    t, lse, compute_dtype=compute_dtype)[1:]
     fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
         name, h, weights, biases, cat_w, cat_b, t, g, lse)
     m, hidden = h.shape
@@ -1130,10 +1270,28 @@ def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
         h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
         cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
         lse.data_ptr(), *base, out[-2].data_ptr(), out[-1].data_ptr(), m,
-        t.shape[0], hidden, f, _round_flag(compute_dtype),
+        t.shape[0], hidden, f, 0,
     )
-    LAUNCHES[f"cat_{fam.prefix}_backward_dw"] += 1
+    LAUNCHES[f"cat_{fam.prefix}_backward_dw_float32"] += 1
     return tuple(out)
+
+
+def categorised_backward(name, g, h, weights, biases, cat_w, cat_b, t, lse, *,
+                         compute_dtype=None):
+    """(dh, dW_0, db_0, …, dW_classes, db_classes) of the categorised
+    instance for the row cotangents ``g`` (M,) and the forward's per-element
+    ``lse``: with bf16 on CUDA the tensor-core gradient kernel once, then
+    the dh and dW products of its da; with float32 on CUDA the two
+    CUDA-core passes; the plain versions on the CPU."""
+    args = (name, g, h, weights, biases, cat_w, cat_b, t, lse)
+    if not (h.is_cuda and _round_flag(compute_dtype)):
+        return (categorised_backward_dh(*args, compute_dtype=compute_dtype),
+                *categorised_backward_dw(*args, compute_dtype=compute_dtype))
+    grad = cat_tc_gradient(*args)
+    dw, db = tc_dw_stacked(grad)
+    n_base = len(weights)
+    return (tc_dh(grad), *(x for k in range(n_base) for x in (dw[k], db[k])),
+            dw[n_base:], db[n_base:])
 
 
 def _checked_grouped(name, h, weights, biases, t, g=None):
@@ -1303,11 +1461,9 @@ class FusedCategorised(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, t, lse, cat_w, cat_b, *params = ctx.saved_tensors
-        args = (ctx.name, g, h, params[0::2], params[1::2], cat_w, cat_b, t,
-                lse)
-        dh = categorised_backward_dh(*args, compute_dtype=ctx.compute_dtype)
-        *dparams, dcat_w, dcat_b = categorised_backward_dw(
-            *args, compute_dtype=ctx.compute_dtype)
+        dh, *dparams, dcat_w, dcat_b = categorised_backward(
+            ctx.name, g, h, params[0::2], params[1::2], cat_w, cat_b, t, lse,
+            compute_dtype=ctx.compute_dtype)
         return (None, None, dh.to(h.dtype), None, dcat_w, dcat_b, *dparams)
 
 

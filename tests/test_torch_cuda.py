@@ -11,14 +11,18 @@ the GPU machine run
 do not use).
 
 The bf16 instances of the base families' K2/K3 run on the tensor cores
-(``count_likelihood_tc.cu``), the float32 ones on the CUDA cores
-(``count_likelihood.cu``); both are held at the odd shapes, and the
-tensor-core kernels also at the main path's width with full and ragged
-tiles.  There each of the backward's three kernels is held on its own: the
-gradient kernel's bf16(da) within one bf16 step of the plain bf16(da) (a
-float32 sum in another order puts a value on the other side of a rounding
-boundary now and then), with few such flips; the dh and dW products
-against the plain products of the kernel's own da at 2e-5.
+(``count_likelihood_tc.cu``, then the products of ``tc_product.cu``), the
+float32 ones on the CUDA cores (``count_likelihood.cu``); both are held at
+the odd shapes, and the tensor-core kernels also at the main path's width
+with full and ragged tiles.  There each of the backward's three kernels is
+held on its own: the gradient kernel's bf16(da) within one bf16 step of the
+plain bf16(da) (a float32 sum in another order puts a value on the other
+side of a rounding boundary now and then), with few such flips; the dh and
+dW products against the plain products of the kernel's own da at 2e-5.
+The categorised bf16 backward (``categorised_likelihood_tc.cu`` and the
+same products) is held the same way at 14 and 32 heads for every base, and
+the product kernel alone at full and ragged tiles in both layouts, with and
+without promoted sums, and bit for bit over two runs.
 
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
@@ -420,13 +424,105 @@ def test_categorised_function_and_counts(device):
     counts = ops.launch_counts()
     assert {k for k, v in counts.items() if v} == {
         f"cat_zinb_{kernel}" for kernel in
-        ("forward", "backward_dh", "backward_dw")}
+        ("forward", "backward_gradient", "backward_dh", "backward_dw")}
     assert all(v in (0, 1) for v in counts.values())
     assert all(torch.isfinite(x.grad).all() for x in (h, cw, cb))
     with pytest.raises(ValueError):  # 3 + 30 = 33 heads
         ops.categorised_forward(name, h.detach().reshape(48, 32), ws, bs,
                                 cw.detach().repeat(3, 1, 1)[:30],
                                 cb.detach().repeat(3, 1)[:30], t)
+
+
+def _product_case(device, m, hidden, f, n_heads, promote, seed):
+    """The products' operands of a tensor-core gradient in its layout (bf16
+    h (M, Hp), W (Hp, NH, Fp) and da (M, NH·Fp), zero in the padding, and
+    float32 row-tile sums), real-valued, with the plan's splits and the
+    given promotion."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    plan = fl.tc_plan(m, hidden, f, n_heads)
+    for key in ("dh_splits", "dw_splits"):
+        plan[key] = (*plan[key][:2], promote)
+    hp, fp = plan["hp"], plan["fp"]
+    bf16 = torch.bfloat16
+    hb = torch.zeros(m, hp, dtype=bf16, device=device)
+    hb[:, :hidden] = torch.randn(m, hidden, generator=gen, device=device)
+    w = torch.zeros(hp, n_heads, fp, dtype=bf16, device=device)
+    w[:hidden, :, :f] = torch.randn(hidden, n_heads, f, generator=gen,
+                                    device=device)
+    da = torch.zeros(m, n_heads, fp, dtype=bf16, device=device)
+    da[:, :, :f] = torch.randn(m, n_heads, f, generator=gen, device=device)
+    db_parts = torch.randn(plan["db_parts"], generator=gen, device=device)
+    return fl.TcGradient("nb", plan, hidden, f, hb, w, da.reshape(m, -1),
+                         db_parts)
+
+
+# (M, H, F, heads) of the products: full tiles and cluster splits at the
+# main path's width; H, F and the rows off every tile; a width past one
+# 256-column tile with one head; 14 heads of a short depth for dW
+PRODUCT_SHAPES = [(2048, 256, 2048, 2), (300, 21, 301, 3), (37, 584, 45, 1),
+                  (130, 200, 100, 14)]
+
+
+@pytest.mark.parametrize("m,hidden,f,n_heads", PRODUCT_SHAPES)
+@pytest.mark.parametrize("promote", [False, True])
+def test_product_kernel_repeats_and_matches_plain(device, m, hidden, f,
+                                                  n_heads, promote):
+    """The wgmma product kernel in both layouts (dh: K-major operands; dW:
+    both transposed), with and without promoted sums: bit-identical over
+    two runs (the cluster's splits add in rank order), and within 2e-5 of
+    the largest value of the float32 product of the same bf16 operands."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    grad = _product_case(device, m, hidden, f, n_heads, promote, seed=m)
+    dh = fl.tc_dh(grad)
+    assert torch.equal(dh, fl.tc_dh(grad))
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw_stacked(grad)
+    again = fl.tc_dw_stacked(grad)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    want = fl.reference_tc_dw_stacked(grad)
+    assert dw.shape == want[0].shape and db.shape == want[1].shape
+    _close(dw, want[0], 2e-5)
+    _close(db, want[1], 2e-5)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("n_heads", [14, 32])
+def test_categorised_tensor_core_kernels(device, name, n_heads):
+    """The bf16 categorised backward kernel by kernel on real-valued inputs
+    (300 rows over 30 cycled targets, width 256, a ragged F of 2,000): the
+    gradient kernel's bf16(da) within one bf16 step of the plain bf16(da)
+    from the same lse, with few flips; its row-tile sums; the dh and dW
+    products of its own da against the plain products at 2e-5; and the
+    public backward is these three kernels."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    k_max = n_heads - len(ops.FAMILIES[name].heads) - 1
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, k_max, 300, 30, 256,
+                                        2000, torch.bfloat16, seed=7)
+    _, lse = ops.categorised_forward(name, h, ws, bs, cw, cb, t,
+                                     compute_dtype=torch.bfloat16)
+    args = (name, g, h, ws, bs, cw, cb, t, lse)
+    plain = fl.reference_cat_tc_gradient(*args)
+    grad = fl.cat_tc_gradient(*args)
+    assert grad.da.shape == plain.da.shape == (300, n_heads * 2000)
+    _within_one_bf16_step(grad.da, plain.da)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    dh = fl.tc_dh(grad)
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw_stacked(grad)
+    want = fl.reference_tc_dw_stacked(grad)
+    _close(dw, want[0], 2e-5)
+    _close(db, want[1], 2e-5)
+    n_base = len(ws)
+    got = ops.categorised_backward(*args, compute_dtype=torch.bfloat16)
+    assert len(got) == 2 * n_base + 3
+    for a, b in zip(got, (dh, *(x for k in range(n_base)
+                                for x in (dw[k], db[k])),
+                          dw[n_base:], db[n_base:]), strict=True):
+        assert torch.equal(a, b)
 
 
 # (G, M, H, F) of the grouped kernels

@@ -177,31 +177,33 @@ def test_cpu_wrappers_are_the_plain_versions(name):
         ops.fused_forward(name, h_, ws[:-1], bs[:-1], t_)
 
 
-@pytest.mark.parametrize("m,hidden,f,n_heads,target_blocks,want", [
-    # headline NB: 32 row tiles of 64; 16 x 4 dh blocks over 128 depth
-    # tiles -> 5 splits of 26; 2 x 64 dW blocks over 64 row tiles -> 3
-    # splits of 22
-    (2048, 256, 2048, 2, 264,
+@pytest.mark.parametrize("m,hidden,f,n_heads,want", [
+    # headline NB: 32 row tiles of 64; dh: 16 x 1 blocks of 128 x 256 over
+    # 64 depth stages -> clusters of 6 splits of 11 (17 clusters of 6 fit
+    # the H100 at once, of 7 only 15); dW: 2 x 16 blocks over 32 stages ->
+    # 3 splits of 11 (39 clusters of 3 fit, of 4 only 30)
+    (2048, 256, 2048, 2,
      dict(hp=256, fp=2048, row_sums=(32, 2048),
-          da=(2048, 4096), db_parts=(32, 4096), dh_splits=(5, 26),
-          dh_parts=(5, 2048, 256), dw_splits=(3, 22),
-          dw_parts=(3, 256, 4096))),
-    # GMVAE-NB's 20,480 rows: 640 dh blocks need no split
-    (20480, 256, 2048, 2, 264,
+          da=(2048, 4096), db_parts=(32, 4096), dh_splits=(6, 11, False),
+          dw_splits=(3, 11, False))),
+    # GMVAE-NB's 20,480 rows: 160 dh blocks fill the card without a split
+    (20480, 256, 2048, 2,
      dict(row_sums=(32, 20480), db_parts=(320, 4096),
-          dh_splits=(1, 128), dw_splits=(3, 214))),
-    # ragged ZINB: H and F padded to multiples of 8
-    (37, 21, 301, 3, 264,
+          dh_splits=(1, 64, False), dw_splits=(3, 107, False))),
+    # ragged ZINB: H and F padded to multiples of 8; 15 dh stages -> 3
+    # splits of 5 (at least 4 stages each); dW's 37 rows are one stage
+    (37, 21, 301, 3,
      dict(hp=24, fp=304, row_sums=(5, 37), da=(37, 912),
-          db_parts=(1, 912), dh_splits=(3, 10), dh_parts=(3, 37, 24),
-          dw_splits=(1, 2), dw_parts=(1, 24, 912))),
+          db_parts=(1, 912), dh_splits=(3, 5, False),
+          dw_splits=(1, 1, False))),
 ])
-def test_tensor_core_plan(m, hidden, f, n_heads, target_blocks, want):
+def test_tensor_core_plan(m, hidden, f, n_heads, want):
     """Padded widths, grids, scratch shapes and depth splits of the bf16
-    tensor-core K2/K3, which the kernels take from the wrapper."""
+    tensor-core K2/K3, which the kernels take from the wrapper, on the
+    H100's cluster capacity."""
     from scvae_tpu_torch.ops import fused_likelihood as tfl
 
-    plan = tfl.tc_plan(m, hidden, f, n_heads, target_blocks=target_blocks)
+    plan = tfl.tc_plan(m, hidden, f, n_heads)
     assert {k: plan[k] for k in want} == want
 
 
@@ -213,12 +215,15 @@ def test_tensor_core_splits_and_operands():
     for blocks in range(1, 700, 37):
         for depth in (0, 8, 300, 2048, 6144, 20480):
             splits, per = tfl.tc_splits(blocks, depth)
-            k_tiles = max(1, -(-depth // tfl.TC_DEPTH))
+            k_tiles = max(1, -(-depth // tfl.TC_PRODUCT_DEPTH))
             assert (splits - 1) * per < k_tiles <= splits * per
-            assert splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
-    # a target of one block per SM: fewer, deeper splits
-    assert tfl.tc_plan(2048, 256, 2048, 2, target_blocks=132)[
-        "dh_splits"] == (3, 43)
+            assert splits <= tfl.TC_MAX_SPLITS
+            assert (splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
+                    or per * tfl.TC_PRODUCT_DEPTH <= tfl.TC_PROMOTE_DEPTH)
+    # a card that holds fewer clusters: fewer splits
+    small = {s: 132 // (2 * s) for s in range(1, tfl.TC_MAX_SPLITS + 1)}
+    assert tfl.tc_plan(2048, 256, 2048, 2, small)["dh_splits"] == (
+        4, 16, False)
     rng = np.random.RandomState(0)
     h = torch.from_numpy(rng.randn(5, 21).astype(np.float32))
     ws = [torch.from_numpy(rng.randn(21, 13).astype(np.float32))

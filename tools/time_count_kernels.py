@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Time NB's bf16 K2 and K3 of a checkout of the port on one GPU.
+"""Time the bf16 likelihood kernels of a checkout of the port on one GPU.
 
     python3 tools/time_count_kernels.py [ROOT]
 
 Imports ``scvae_tpu_torch`` from ROOT (default: this checkout), builds its
 kernels there, and times with ``chip_smoke.time_ms`` of this checkout (the
 device held while the host queues each call, the L2 cache flushed before
-each) the public calls of NB's bf16 fused likelihood at the headline VAE's
-shapes (2,048 rows, decoder width 256, 2,048 genes) and over GMVAE-NB's
-20,480 decoder rows against 2,048 cycled target rows: ``fused_forward``,
-``fused_backward_dh``, ``fused_backward_dw`` and ``fused_backward``.  The
-inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints the
-card's name and power limit and one JSON line of times in ms.
+each):
+
+- the public calls of NB's bf16 fused likelihood at the headline VAE's
+  shapes (2,048 rows, decoder width 256, 2,048 genes) and over GMVAE-NB's
+  20,480 decoder rows against 2,048 cycled target rows: ``fused_forward``,
+  ``fused_backward_dh``, ``fused_backward_dw`` and ``fused_backward``, and
+  the backward's bare products ``tc_dh`` / ``tc_dw`` of one gradient;
+- the bf16 categorised backward at the headline shapes for VAE-ZINB-cat
+  (K = 10, 14 heads) and VAE-Poisson-cat (K = 30, 32 heads) from the
+  forward's lse: ``categorised_backward`` where the checkout has it, else
+  its two passes ``categorised_backward_dh`` and ``categorised_backward_dw``
+  in one call.
+
+The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
+the card's name and power limit and one JSON line of times in ms.
 
 To compare two checkouts, run it on each in one call, in the order parent,
 change, change, parent.
@@ -46,6 +55,7 @@ def main() -> int:
     sys.path.insert(0, root)
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import extension
+    from scvae_tpu_torch.ops import fused_likelihood as fl
 
     if not ops.__file__.startswith(root + os.sep):
         raise RuntimeError(f"imported {ops.__file__}, not from {root}")
@@ -75,10 +85,38 @@ def main() -> int:
             "fused_backward": lambda: ops.fused_backward(
                 *bwd, compute_dtype=bf16),
         }
+        grad = fl.tc_gradient(*bwd)
+        calls["tc_dh"] = lambda: fl.tc_dh(grad)
+        calls["tc_dw"] = lambda: fl.tc_dw(grad)
         times[rows] = {label: cs.time_ms(fn, reps=reps, flush=flush)
                        for label, fn in calls.items()}
+
+    h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
+                               device=dev))
+    g = torch.randn(cs.BATCH, generator=gen, device=dev) / cs.BATCH
+    categorised = {}
+    for name, k_max in cs.CATEGORISED:
+        t = cs.categorised_targets(x, k_max, gen)
+        n_base = len(ops.FAMILIES[name].heads)
+        ws, bs = cs.head_weights(gen, n_base + k_max + 1, cs.HIDDEN,
+                                 cs.N_GENES, dev)
+        heads = (ws[:n_base], bs[:n_base], torch.stack(ws[n_base:]),
+                 torch.stack(bs[n_base:]), t)
+        _, lse = ops.categorised_forward(name, h, *heads, compute_dtype=bf16)
+        args = (name, g, h, *heads, lse)
+        if hasattr(ops, "categorised_backward"):
+            def backward(args=args):
+                return ops.categorised_backward(*args, compute_dtype=bf16)
+        else:
+            def backward(args=args):
+                return (ops.categorised_backward_dh(*args, compute_dtype=bf16),
+                        *ops.categorised_backward_dw(*args,
+                                                     compute_dtype=bf16))
+        categorised[f"{name} K={k_max}"] = cs.time_ms(backward, reps=10,
+                                                      flush=flush)
     print(cs.card_line(), flush=True)
-    print(json.dumps({"root": root, "ms": times}), flush=True)
+    print(json.dumps({"root": root, "ms": times,
+                      "categorised_backward_ms": categorised}), flush=True)
     return 0
 
 
