@@ -383,32 +383,20 @@ def check_family(name, h, g, x, gen, flush):
     return results
 
 
-def forced_splits(grad, splits):
-    """``grad`` with both products split ``splits`` ways, sums unpromoted
-    (for a timing sweep: a deep split may read above the checks' limits)."""
+def forced_splits(grad, splits, promote=False):
+    """``grad`` with both products planned by ``fl.tc_splits`` on a card
+    that holds any number of clusters of up to ``splits`` blocks and none
+    larger, sums promoted or not as asked (for a sweep: a deep unpromoted
+    split may read above the checks' limits)."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
+    admits = {s: (1 << 30 if s <= splits else 0)
+              for s in range(1, fl.TC_MAX_SPLITS + 1)}
     plan = dict(grad.plan)
     for key, depth in (("dh_splits", grad.da.shape[1]),
                        ("dw_splits", grad.da.shape[0])):
-        k_tiles = max(1, -(-depth // fl.TC_PRODUCT_DEPTH))
-        per = -(-k_tiles // splits)
-        plan[key] = (-(-k_tiles // per), per, False)
+        plan[key] = (*fl.tc_splits(1, depth, admits), promote)
     return dataclasses.replace(grad, plan=plan)
-
-
-def check_cluster_capacity():
-    """The clusters of S product blocks that this card holds at once, which
-    the planner takes for CUDA tensors, beside its H100 table (which plans
-    the plain versions)."""
-    from scvae_tpu_torch.ops import fused_likelihood as fl
-
-    card = fl.card_cluster_capacity(torch.device("cuda", 0))
-    print(f"cluster capacity, S = 1..{fl.TC_MAX_SPLITS}: table "
-          f"{list(fl.TC_CLUSTER_CAPACITY.values())}; card "
-          f"{list(card.values())}", flush=True)
-    if min(card.values()) < 1:
-        raise AssertionError(f"a product's cluster does not fit: {card}")
 
 
 def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
@@ -702,9 +690,8 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
                      strict=True)))
     # Why the planner promotes deep sums: the dh product in 3 splits, its
     # sums inside the tensor cores and promoted, against the plain product
-    deep = forced_splits(grad, 3)
-    promoted = dataclasses.replace(deep, plan={
-        **deep.plan, "dh_splits": (*deep.plan["dh_splits"][:2], True)})
+    deep, promoted = (forced_splits(grad, 3, promote) for promote in
+                      (False, True))
     want = fl.reference_tc_dh(grad)
     scale = float(want.abs().max())
     print(f"precision {tag} {heads} dh product over 3 splits of "
@@ -945,7 +932,6 @@ def phase_kernels(counts_dev):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     n = counts_dev.shape[0]
     idx = torch.randperm(n, generator=gen, device=dev)[:BATCH].to(torch.int32)
-    check_cluster_capacity()
     x, results = check_gather(counts_dev, idx, flush)
     results = {"gather_rows": results}
     # decoder output and row cotangents shared by every family

@@ -205,6 +205,7 @@ struct ShiftedBaseGrads {
   }
 };
 
+// The float32 backward (the bf16 one runs on the tensor cores).
 // Backward pass 1: one block per 16-row tile (blockIdx.x) and 256-wide dh
 // column chunk (blockIdx.y), looping over all genes; for each gene tile the
 // base heads, then each class group: activations, da into sDa, and the dh
@@ -215,8 +216,8 @@ __global__ void __launch_bounds__(kThreads)
                   Heads base, const float* __restrict__ cw,
                   const float* __restrict__ cb, int n_classes,
                   const TT* __restrict__ t, const float* __restrict__ lse,
-                  float* __restrict__ dh, int m, int m_t, int hidden, int f,
-                  int round_bf16) {
+                  float* __restrict__ dh, int m, int m_t, int hidden, int f) {
+  constexpr bool round_bf16 = false;  // bf16: categorised_likelihood_tc.cu
   constexpr int NB = Fam::kHeads;
   constexpr int NS = max_int(NB, kClassGroup);
   extern __shared__ __align__(16) float smem[];
@@ -329,15 +330,18 @@ struct ClassGroupGrads {
 // Backward pass 2 (dw_body of fused_heads.cuh over one head group):
 // blockIdx.z = 0 for the base heads, z >= 1 for the class group starting at
 // class 4 (z - 1).  Each group block recomputes its own heads' activations.
+// Two blocks per SM below three base heads: left to itself ptxas gives
+// those instances 176 registers and one block, and Poisson-cat's pass then
+// ran 1.3x slower on the H100 than at 128 registers with a few spills.
 template <class Fam, typename TT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Fam::kHeads < 3 ? 2 : 1)
     cat_dw_kernel(const float* __restrict__ g, const float* __restrict__ h,
                   Heads base, const float* __restrict__ cw,
                   const float* __restrict__ cb, int n_classes,
                   const TT* __restrict__ t, const float* __restrict__ lse,
                   HeadGrads base_out, float* __restrict__ dcw,
-                  float* __restrict__ dcb, int m, int m_t, int hidden, int f,
-                  int round_bf16) {
+                  float* __restrict__ dcb, int m, int m_t, int hidden, int f) {
+  constexpr bool round_bf16 = false;  // bf16: categorised_likelihood_tc.cu
   const int k = n_classes - 1;
   if (blockIdx.z == 0) {
     dw_body<Fam::kHeads>(g, h, base, t, base_out, Fam::kHeads, m, m_t, hidden,
@@ -422,7 +426,7 @@ int scvae_cat_backward_dh(int family, const float* g, const float* h,
                           const float* cw, const float* cb, int n_classes,
                           const void* t, int t_dtype, const float* lse,
                           float* dh, int m, int m_t, int hidden, int f,
-                          int round_bf16, void* stream) {
+                          void* stream) {
   if (m == 0) return 0;
   if (n_classes < 2) return (int)cudaErrorInvalidValue;
   const Heads base{{w0, w1, w2}, {b0, b1, b2}};
@@ -437,7 +441,7 @@ int scvae_cat_backward_dh(int family, const float* g, const float* h,
       const dim3 grid((m + kRowTile - 1) / kRowTile, n_chunks(hidden));
       kernel<<<grid, kThreads, bytes, s>>>(
           g, h, base, cw, cb, n_classes, static_cast<const TT*>(t), lse, dh,
-          m, m_t, hidden, f, round_bf16);
+          m, m_t, hidden, f);
       return (int)cudaGetLastError();
     });
   });
@@ -450,8 +454,7 @@ int scvae_cat_backward_dw(int family, const float* g, const float* h,
                           const void* t, int t_dtype, const float* lse,
                           float* dw0, float* db0, float* dw1, float* db1,
                           float* dw2, float* db2, float* dcw, float* dcb,
-                          int m, int m_t, int hidden, int f, int round_bf16,
-                          void* stream) {
+                          int m, int m_t, int hidden, int f, void* stream) {
   if (f == 0) return 0;
   if (n_classes < 2) return (int)cudaErrorInvalidValue;
   const Heads base{{w0, w1, w2}, {b0, b1, b2}};
@@ -469,7 +472,7 @@ int scvae_cat_backward_dw(int family, const float* g, const float* h,
                       groups);
       kernel<<<grid, kThreads, bytes, s>>>(
           g, h, base, cw, cb, n_classes, static_cast<const TT*>(t), lse,
-          base_out, dcw, dcb, m, m_t, hidden, f, round_bf16);
+          base_out, dcw, dcb, m, m_t, hidden, f);
       return (int)cudaGetLastError();
     });
   });

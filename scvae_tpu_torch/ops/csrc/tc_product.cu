@@ -41,12 +41,13 @@
 //   bit.  Without a split the accumulators go straight to the output.
 // - dW's blocks of the first row tile also sum db's row-tile partials, in
 //   order, each rank every S-th column of the tile.
-// - Promoted sums (PROMOTE): each stage's four k-steps go into zeroed
-//   registers and are added to the running sums in float32, so a large
-//   running sum inside the tensor cores does not truncate later products
-//   (chip_smoke.py prints the reading of both at Poisson-cat's depth).
-//   The planner asks for it where even eight splits would each sum more
-//   than 8,192 deep.
+// - Promoted sums (PROMOTE): every 16 stages (1,024 deep) the products,
+//   summed inside the tensor cores from zeroed registers, are added to the
+//   running sums in float32, so a large running sum inside the tensor
+//   cores does not truncate later products (tools/product_precision.py
+//   reads both against the depth they sum).  The second set of
+//   accumulators halves the tile to 128 x 128.  The planner asks for it
+//   where one split would sum more than TC_PROMOTE_DEPTH.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,6 +63,8 @@ constexpr int kPConsumers = 256;  // two consumer warpgroups
 constexpr int kPThreads = kPConsumers + 32;  // and the producer warp
 constexpr int kPBox = 64 * 64 * 2;  // bytes of one 64 x 64 bf16 TMA box
 constexpr int kPMaxSplits = 8;      // blocks of a cluster (the portable cap)
+constexpr int kPromoteStages = 16;  // stages summed inside the tensor cores
+                                    // between promotions (1,024 deep)
 
 // Shared memory of a block with tiles 128 x BN: the ring (per stage the A
 // tile, 16 KB, then the B tile), reused after the mainloop for the staged
@@ -402,25 +405,29 @@ __global__ void __launch_bounds__(kPThreads, 1)
       const uint32_t sb = ring + s * S::kStage + S::kStageA;
       wgmma_fence();
       if constexpr (PROMOTE) {
+        // a chunk's first stage overwrites the partial sums
+        const int keep = i % kPromoteStages != 0;
 #pragma unroll
         for (int kk = 0; kk < kPDepth / 16; ++kk)
           wgmma_tile<BN, MN>(part, tile_desc<MN>(sa, kk),
-                             tile_desc<MN>(sb, kk), kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(part);
-        mbar_arrive(empty0 + 8 * s);
-#pragma unroll
-        for (int j = 0; j < kAcc; ++j) acc[j] += part[j];
+                             tile_desc<MN>(sb, kk), kk > 0 || keep);
       } else {
 #pragma unroll
         for (int kk = 0; kk < kPDepth / 16; ++kk)
           wgmma_tile<BN, MN>(acc, tile_desc<MN>(sa, kk),
                              tile_desc<MN>(sb, kk), 1);
-        wgmma_commit();
-        if (i > 0) {  // the previous stage's products are done with it
-          wgmma_wait<1>();
-          mbar_arrive(empty0 + 8 * ((i - 1) % S::kStages));
+      }
+      wgmma_commit();
+      if (i > 0) {  // the previous stage's products are done with it
+        wgmma_wait<1>();
+        mbar_arrive(empty0 + 8 * ((i - 1) % S::kStages));
+      }
+      if constexpr (PROMOTE) {
+        if ((i + 1) % kPromoteStages == 0 || i + 1 == n_k) {
+          wgmma_wait<0>();
+          fence_regs(part);
+#pragma unroll
+          for (int j = 0; j < kAcc; ++j) acc[j] += part[j];
         }
       }
     }
@@ -610,43 +617,12 @@ int launch_product(const void* a, int a_inner, int a_outer, const void* b,
                                             stream);
 }
 
-// Clusters of `splits` product blocks that the card runs at once (every
-// instance has the same block size and, to 1 KB, the same shared memory).
-int cluster_capacity(int splits, int* clusters) {
-  auto kernel = tc_product_kernel<false, 256, false>;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(1, 1, splits);
-  config.blockDim = dim3(kPThreads);
-  config.dynamicSmemBytes = ProductShape<256>::kSmem;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = splits;
-  config.attrs = cluster;
-  config.numAttrs = 1;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)config.dynamicSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
-  if (err != cudaSuccess) cudaGetLastError();
-  return (int)err;
-}
-
 }  // namespace
 }  // namespace scvae
 
 using namespace scvae;
 
 extern "C" {
-
-// The number of clusters of `splits` product blocks that the card holds at
-// once, into *clusters (the stream is not used).
-int scvae_tc_cluster_capacity(int splits, int* clusters, void*) {
-  if (splits < 1 || splits > kPMaxSplits) return (int)cudaErrorInvalidValue;
-  return cluster_capacity(splits, clusters);
-}
 
 // Both return a cudaError_t (0 on success).  splits: blocks of a cluster
 // (1 to 8), each taking tiles_per_split depth stages of 64; promote: 1 for

@@ -56,8 +56,6 @@ _SIGNATURES = {
     # n_classes, stream
     "scvae_cat_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P],
-    # splits, clusters (int *), stream (not used)
-    "scvae_tc_cluster_capacity": [_I, _P, _P],
     # da, w, dh, m, hidden, hp, k, splits, tiles_per_split, promote, stream
     "scvae_tc_dh": [_P, _P, _P] + [_I] * 7 + [_P],
     # h, da, db_part, dw, db, n_heads, m, hidden, hp, f, splits,
@@ -76,13 +74,13 @@ _SIGNATURES = {
     "scvae_cat_forward": [_I, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P, _I, _I,
                           _I, _I, _I, _P],
     # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dh, m, m_t,
-    # hidden, f, round, stream
+    # hidden, f, stream (float32 only)
     "scvae_cat_backward_dh": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P,
-                              _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _P],
     # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dw0, db0, dw1,
-    # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, round, stream
+    # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, stream (float32 only)
     "scvae_cat_backward_dw": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P,
-                              *_HEADS, _P, _P, _I, _I, _I, _I, _I, _P],
+                              *_HEADS, _P, _P, _I, _I, _I, _I, _P],
     # family, h, heads, t, t_dtype, out, n_groups, m, hidden, f, round,
     # stream
     "scvae_grouped_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,

@@ -53,9 +53,7 @@ float32, and dh comes back in float32 (unrounded, as JAX returns it).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 import math
 from typing import Callable
 
@@ -658,18 +656,18 @@ TC_PRODUCT_ROWS = 128   # rows (dh) or hidden units (dW) per product block
 TC_PRODUCT_COLS = 256   # columns per product block; half with promoted sums
 TC_MAX_SPLITS = 8       # blocks of a cluster (the portable cap)
 TC_MIN_SPLIT_DEPTH = 4  # depth stages per split at least
-# Clusters of S product blocks (one block per SM) that an H100 holds at
-# once, by S, as cudaOccupancyMaxActiveClusters reports them: the plans of
-# the plain versions, which do not split; CUDA tensors plan with the card's
-# own answer (``card_cluster_capacity``).
+# Clusters of S product blocks (one block per SM) that the H100 holds at
+# once, by S, as cudaOccupancyMaxActiveClusters reported them on an H100
+# 80GB HBM3 (a cluster of 7 or 8 is portable, but only 15 fit at once).
 TC_CLUSTER_CAPACITY = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
                        8: 15}
-# Depth of one split above which a product promotes its sums (adds each
-# stage's products, summed in zeroed registers, in float32): running sums
-# kept inside the tensor cores truncate later products, by more the deeper
-# the sum (chip_smoke.py prints the reading at Poisson-cat's 65,536 deep in
-# 3 splits; its checks allow 2e-5 of the largest value).
-TC_PROMOTE_DEPTH = 8192
+# Depth of one split above which a product promotes its sums (adds the
+# products, summed inside the tensor cores from zeroed registers, to the
+# running sums in float32 every 1,024 deep): a running sum kept inside the
+# tensor cores truncates later products, by more the deeper the sum
+# (tools/product_precision.py reads it against the depth; the checks allow
+# 2e-5 of the largest value).
+TC_PROMOTE_DEPTH = 4096
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -682,22 +680,16 @@ def tc_padded(n: int) -> int:
 
 
 def tc_splits(out_tiles: int, depth: int,
-              capacity: dict = TC_CLUSTER_CAPACITY,
-              promote: bool = False) -> tuple[int, int]:
+              capacity: dict = TC_CLUSTER_CAPACITY) -> tuple[int, int]:
     """(splits, depth stages per split) of a product with ``out_tiles``
     output blocks over ``depth``: without a split if the tiles fill the
     card, else the most splits (the blocks of a cluster, at most
     :data:`TC_MAX_SPLITS`, none shorter than :data:`TC_MIN_SPLIT_DEPTH`
-    stages) whose clusters the card holds at once (``capacity``); then,
-    unless the sums are promoted, more splits up to the cap while one split
-    would be deeper than :data:`TC_PROMOTE_DEPTH`."""
+    stages) whose clusters the card holds at once (``capacity``)."""
     k_tiles = max(1, _cdiv(depth, TC_PRODUCT_DEPTH))
     limit = max(1, min(TC_MAX_SPLITS, k_tiles // TC_MIN_SPLIT_DEPTH))
     want = 1
     while want < limit and out_tiles <= capacity[want + 1]:
-        want += 1
-    while (not promote and want < TC_MAX_SPLITS and want < k_tiles
-           and _cdiv(k_tiles, want) * TC_PRODUCT_DEPTH > TC_PROMOTE_DEPTH):
         want += 1
     per = _cdiv(k_tiles, want)
     return _cdiv(k_tiles, per), per
@@ -706,33 +698,15 @@ def tc_splits(out_tiles: int, depth: int,
 def _product_plan(rows: int, cols: int, depth: int,
                   capacity: dict) -> tuple[int, int, bool]:
     """(splits, stages per split, promote) of a rows x cols product over
-    ``depth``: promoted sums (and half-width tiles) where even
-    :data:`TC_MAX_SPLITS` splits of full-width tiles would each sum more
-    than :data:`TC_PROMOTE_DEPTH`."""
+    ``depth``: promoted sums (and half-width tiles) where one split of
+    full-width tiles would sum more than :data:`TC_PROMOTE_DEPTH`."""
     for promote in (False, True):
         cols_per_tile = TC_PRODUCT_COLS // 2 if promote else TC_PRODUCT_COLS
         tiles = _cdiv(rows, TC_PRODUCT_ROWS) * _cdiv(cols, cols_per_tile)
-        splits, per = tc_splits(tiles, depth, capacity, promote)
+        splits, per = tc_splits(tiles, depth, capacity)
         if promote or per * TC_PRODUCT_DEPTH <= TC_PROMOTE_DEPTH:
             return splits, per, promote
     raise AssertionError("unreachable")
-
-
-def tc_cluster_capacity(device, splits: int) -> int:
-    """Clusters of ``splits`` product blocks that the card of ``device``
-    holds at once."""
-    clusters = ctypes.c_int(0)
-    extension.call("scvae_tc_cluster_capacity", device, splits,
-                   ctypes.addressof(clusters))
-    return clusters.value
-
-
-@functools.lru_cache(maxsize=None)
-def card_cluster_capacity(device: torch.device) -> dict:
-    """{S: clusters of S product blocks that the card of the CUDA
-    ``device`` holds at once}, asked once per process and device."""
-    return {s: tc_cluster_capacity(device, s)
-            for s in range(1, TC_MAX_SPLITS + 1)}
 
 
 def tc_plan(m: int, hidden: int, f: int, n_heads: int,
@@ -822,8 +796,7 @@ def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     t = _validated(h, weights, biases, t, g)
     m, hidden = h.shape
     f = t.shape[1]
-    plan = tc_plan(m, hidden, f, len(weights),
-                   card_cluster_capacity(h.device))
+    plan = tc_plan(m, hidden, f, len(weights))
     hb, w, b = _tc_operands(h, weights, biases)
     dev = h.device
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
@@ -848,8 +821,7 @@ def cat_tc_gradient(name, g, h, weights, biases, cat_w, cat_b, t,
     m, hidden = h.shape
     f = t.shape[1]
     n_classes = cat_w.shape[0]
-    plan = tc_plan(m, hidden, f, len(weights) + n_classes,
-                   card_cluster_capacity(h.device))
+    plan = tc_plan(m, hidden, f, len(weights) + n_classes)
     hb, w, b = _tc_operands(h, weights, biases, cat_w, cat_b)
     dev = h.device
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
@@ -1212,18 +1184,22 @@ def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
     return out, lse
 
 
+def _float32_only(compute_dtype):
+    if _round_flag(compute_dtype):
+        raise ValueError("the categorised bf16 backward on CUDA computes dh "
+                         "and dW together: call categorised_backward")
+
+
 def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
                             *, compute_dtype=None):
     """dh (M, H) of the categorised instance: its float32 dh kernel on
-    CUDA, the plain version on the CPU.  With bf16 on CUDA it is the first
-    output of :func:`categorised_backward`."""
+    CUDA, the plain version on the CPU.  The bf16 backward on CUDA is
+    :func:`categorised_backward`'s, whose kernels give dh and dW together."""
     if not h.is_cuda:
         return reference_categorised_dh(name, g, h, weights, biases, cat_w,
                                         cat_b, t, lse,
                                         compute_dtype=compute_dtype)
-    if _round_flag(compute_dtype):
-        return categorised_backward(name, g, h, weights, biases, cat_w, cat_b,
-                                    t, lse, compute_dtype=compute_dtype)[0]
+    _float32_only(compute_dtype)
     fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
         name, h, weights, biases, cat_w, cat_b, t, g, lse)
     m, hidden = h.shape
@@ -1234,7 +1210,7 @@ def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
         "scvae_cat_backward_dh", h.device, fam.code, g.data_ptr(),
         h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
         cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1], 0,
+        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
     )
     LAUNCHES[f"cat_{fam.prefix}_backward_dh_float32"] += 1
     return dh
@@ -1244,15 +1220,12 @@ def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
                             *, compute_dtype=None):
     """(dW_0, db_0, …, dW_classes (K+1, H, F), db_classes (K+1, F)) of the
     categorised instance: its float32 dW kernel on CUDA, the plain version
-    on the CPU.  With bf16 on CUDA they are the other outputs of
-    :func:`categorised_backward`."""
+    on the CPU.  The bf16 backward on CUDA is :func:`categorised_backward`'s."""
     if not h.is_cuda:
         return reference_categorised_dw(name, g, h, weights, biases, cat_w,
                                         cat_b, t, lse,
                                         compute_dtype=compute_dtype)
-    if _round_flag(compute_dtype):
-        return categorised_backward(name, g, h, weights, biases, cat_w, cat_b,
-                                    t, lse, compute_dtype=compute_dtype)[1:]
+    _float32_only(compute_dtype)
     fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
         name, h, weights, biases, cat_w, cat_b, t, g, lse)
     m, hidden = h.shape
@@ -1270,7 +1243,7 @@ def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
         h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
         cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
         lse.data_ptr(), *base, out[-2].data_ptr(), out[-1].data_ptr(), m,
-        t.shape[0], hidden, f, 0,
+        t.shape[0], hidden, f,
     )
     LAUNCHES[f"cat_{fam.prefix}_backward_dw_float32"] += 1
     return tuple(out)

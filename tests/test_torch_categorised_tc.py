@@ -110,17 +110,17 @@ def test_tensor_core_backward_matches_jax_interpret(name, m_t):
 
 
 @pytest.mark.parametrize("m,hidden,f,n_heads,want", [
-    # ZINB-cat, K = 10 (14 heads): dh 16 blocks over 448 stages -> clusters
-    # of 6 splits of 75 (17 clusters of 6 fit the H100 at once); dW 2 x 112
-    # blocks fill the card without a split
+    # ZINB-cat, K = 10 (14 heads): dh 16 blocks over 448 stages in 6 splits
+    # (17 clusters of 6 fit the H100 at once) would each sum 4,800 deep, so
+    # the sums are promoted, on 32 blocks of 128 x 128 in clusters of 3 (39
+    # fit, of 4 only 30); dW 2 x 112 blocks fill the card without a split
     (2048, 256, 2048, 14,
-     dict(da=(2048, 28672), db_parts=(32, 28672), dh_splits=(6, 75, False),
+     dict(da=(2048, 28672), db_parts=(32, 28672), dh_splits=(3, 150, True),
           dw_splits=(1, 32, False))),
-    # Poisson-cat, K = 30 (32 heads, the cap): depth 65,536; 6 splits would
-    # each sum 10,944 deep inside the tensor cores, so 8 splits of 128
-    # stages (8,192 deep each); dW 2 x 256 blocks
+    # Poisson-cat, K = 30 (32 heads, the cap): depth 65,536; promoted as
+    # ZINB-cat's, 3 splits of 342 stages; dW 2 x 256 blocks
     (2048, 256, 2048, 32,
-     dict(da=(2048, 65536), db_parts=(32, 65536), dh_splits=(8, 128, False),
+     dict(da=(2048, 65536), db_parts=(32, 65536), dh_splits=(3, 342, True),
           dw_splits=(1, 32, False))),
     # a depth that is not a multiple of a stage: 5 heads of 2,000 genes =
     # 10,000 = 156.25 stages -> 157, in 8 splits of 20 (the last 17); dW's
@@ -128,8 +128,8 @@ def test_tensor_core_backward_matches_jax_interpret(name, m_t):
     (300, 256, 2000, 5,
      dict(fp=2000, da=(300, 10000), db_parts=(5, 10000),
           dh_splits=(8, 20, False), dw_splits=(1, 5, False))),
-    # 32 heads of 4,096 genes: even 8 splits would sum 16,384 deep, so the
-    # sums are promoted, on 128 x 128 tiles: 32 of them, clusters of 3
+    # 32 heads of 4,096 genes: promoted, 32 tiles of 128 x 128 in clusters
+    # of 3, each split 43,712 deep
     (2048, 256, 4096, 32,
      dict(dh_splits=(3, 683, True), dw_splits=(1, 32, False))),
 ])

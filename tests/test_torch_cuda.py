@@ -368,15 +368,17 @@ def test_categorised_kernels_match_plain(device, name, k_max, m, m_t, hidden,
     _close(lse, lse_ref, 2e-5)
     # the backward on the same inputs, the kernel forward's lse among them
     rtol = 4e-4 if compute is not None else 2e-5
-    _close(ops.categorised_backward_dh(name, g, *args, lse,
-                                       compute_dtype=compute),
-           ops.reference_categorised_dh(name, g, *args, lse,
-                                        compute_dtype=compute), rtol)
-    got = ops.categorised_backward_dw(name, g, *args, lse,
-                                      compute_dtype=compute)
-    want = ops.reference_categorised_dw(name, g, *args, lse,
-                                        compute_dtype=compute)
-    assert len(got) == len(want) == 2 * len(ws) + 2
+    got = ops.categorised_backward(name, g, *args, lse, compute_dtype=compute)
+    want = (ops.reference_categorised_dh(name, g, *args, lse,
+                                         compute_dtype=compute),
+            *ops.reference_categorised_dw(name, g, *args, lse,
+                                          compute_dtype=compute))
+    assert len(got) == len(want) == 2 * len(ws) + 3
+    if compute is not None:  # bf16 dh and dW come from one backward only
+        for part in (ops.categorised_backward_dh,
+                     ops.categorised_backward_dw):
+            with pytest.raises(ValueError, match="categorised_backward"):
+                part(name, g, *args, lse, compute_dtype=compute)
     for a, b in zip(got, want):
         assert a.shape == b.shape
         _close(a, b, rtol)

@@ -186,10 +186,13 @@ def test_cpu_wrappers_are_the_plain_versions(name):
      dict(hp=256, fp=2048, row_sums=(32, 2048),
           da=(2048, 4096), db_parts=(32, 4096), dh_splits=(6, 11, False),
           dw_splits=(3, 11, False))),
-    # GMVAE-NB's 20,480 rows: 160 dh blocks fill the card without a split
+    # GMVAE-NB's 20,480 rows: 160 dh blocks fill the card without a split;
+    # dW's 32 blocks in 3 splits would each sum 6,848 deep, so its sums are
+    # promoted, on 2 x 32 blocks of 128 x 128 in 2 splits (66 clusters of 2
+    # fit, of 3 only 39)
     (20480, 256, 2048, 2,
      dict(row_sums=(32, 20480), db_parts=(320, 4096),
-          dh_splits=(1, 64, False), dw_splits=(3, 107, False))),
+          dh_splits=(1, 64, False), dw_splits=(2, 160, True))),
     # ragged ZINB: H and F padded to multiples of 8; 15 dh stages -> 3
     # splits of 5 (at least 4 stages each); dW's 37 rows are one stage
     (37, 21, 301, 3,
@@ -218,8 +221,18 @@ def test_tensor_core_splits_and_operands():
             k_tiles = max(1, -(-depth // tfl.TC_PRODUCT_DEPTH))
             assert (splits - 1) * per < k_tiles <= splits * per
             assert splits <= tfl.TC_MAX_SPLITS
-            assert (splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
-                    or per * tfl.TC_PRODUCT_DEPTH <= tfl.TC_PROMOTE_DEPTH)
+            assert splits == 1 or per >= tfl.TC_MIN_SPLIT_DEPTH
+            # the clusters of a split plan fit the card at once
+            assert splits == 1 or blocks <= tfl.TC_CLUSTER_CAPACITY[splits]
+            # promoted exactly where a full-width split would sum deeper
+            # than TC_PROMOTE_DEPTH
+            rows, cols = 128 * blocks, 256
+            s_, p_, promote = tfl._product_plan(rows, cols, depth,
+                                                tfl.TC_CLUSTER_CAPACITY)
+            unpromoted = p_ if not promote else tfl.tc_splits(blocks, depth)[1]
+            assert promote == (unpromoted * tfl.TC_PRODUCT_DEPTH
+                               > tfl.TC_PROMOTE_DEPTH)
+            assert promote or (s_, p_) == (splits, per)
     # a card that holds fewer clusters: fewer splits
     small = {s: 132 // (2 * s) for s in range(1, tfl.TC_MAX_SPLITS + 1)}
     assert tfl.tc_plan(2048, 256, 2048, 2, small)["dh_splits"] == (
