@@ -600,13 +600,15 @@ def categorised_targets(x, k_max, gen):
 def check_categorised(name, k_max, h, g, x, gen, flush):
     """The categorised K2 and K3 over base ``name`` with K = ``k_max``, on
     the targets of ``categorised_targets``: the forward (row sums and the
-    per-element lse; bf16 inputs on the main path, ragged F, float32 inputs
-    and targets); the bf16 backward (the tensor-core gradient kernel, then
-    the dh and dW products) against the plain backward with the same
-    rounding (and ragged F), and each of its three kernels against its
-    plain version; the float32 backward (the CUDA-core passes) against
-    autograd through the plain forward; then their times.  Every gradient
-    part of the plain backward must be nonzero somewhere."""
+    per-element lse; bf16 inputs on the main path's tensor-core kernel, also
+    its row-sum partials and the same lse over two runs; ragged F, float32
+    inputs on the CUDA-core kernel, float32 targets); the bf16 backward (the
+    tensor-core gradient kernel, then the dh and dW products) against the
+    plain backward with the same rounding (and ragged F), and each of its
+    three kernels against its plain version; the float32 backward (the
+    CUDA-core passes) against autograd through the plain forward; then
+    their times.  Every gradient part of the plain backward must be nonzero
+    somewhere."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
@@ -624,6 +626,9 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
               cb[..., :2000].contiguous(), x[:, :2000].contiguous())
     tag = f"cat_{fam.prefix}"
     heads = f"{n_base + k_max + 1} heads"
+    # The forward: bf16 on the tensor-core kernel (also its row-sum
+    # partials per gene tile against the plain version's), float32 on the
+    # CUDA-core kernel.
     for args, cdt in ((full, bf16), (ragged, bf16), (full, None),
                       ((ws, bs, cw, cb, x.float()), bf16)):
         ll, lse = ops.categorised_forward(name, h, *args, compute_dtype=cdt)
@@ -633,8 +638,20 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
                  f"t={args[-1].dtype}")
         err = check_close(label, ll, ll_ref, FORWARD_RTOL)
         check_close(label + " lse", lse, lse_ref, FORWARD_RTOL)
-        if args is full and cdt is bf16:
-            fwd_err, lse_main = err, lse
+        if cdt is bf16:
+            part = fl.cat_tc_forward(name, h, *args)[2]
+            check_close(label + " row-sum partials", part,
+                        fl.reference_cat_tc_forward(name, h, *args)[0],
+                        FORWARD_RTOL)
+        if args is full:
+            if cdt is bf16:
+                fwd_err, lse_main = err, lse
+            else:
+                f32_fwd_err = err
+    again = ops.categorised_forward(name, h, *full, compute_dtype=bf16)[1]
+    if not torch.equal(again, lse_main):
+        raise AssertionError(f"{tag}_forward {heads}: lse differs between "
+                             "two runs")
     parts = (["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
              + ["dW_classes", "db_classes"])
     # The bf16 backward on the same inputs, the forward's lse among them: an
@@ -710,15 +727,22 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
     w2 = grad.w.reshape(grad.w.shape[0], -1)
     timed = dict(flush=flush)
     results = {}
-    t_bound, by = bound(in_bytes + m * 4 + lse_bytes, product, BF16_FLOPS)
-    results[f"{tag}_forward"] = {
-        "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.categorised_forward(
-            name, h, *full, compute_dtype=bf16), **timed),
-        "plain_ms": time_ms(lambda: ops.reference_categorised_forward(
-            name, h, *full, compute_dtype=bf16), **timed),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-    }
+    # the forwards: bf16 (tensor cores) and float32 (CUDA cores, no
+    # training launch), each against the peak of its arithmetic
+    for kernel, cdt, err, peak in (("forward", bf16, fwd_err, BF16_FLOPS),
+                                   ("forward_float32", None, f32_fwd_err,
+                                    F32_FLOPS)):
+        t_bound, by = bound(in_bytes + m * 4 + lse_bytes, product, peak)
+        results[f"{tag}_{kernel}"] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda cdt=cdt: ops.categorised_forward(
+                name, h, *full, compute_dtype=cdt), **timed),
+            "plain_ms": time_ms(lambda cdt=cdt: (
+                ops.reference_categorised_forward(name, h, *full,
+                                                  compute_dtype=cdt)),
+                **timed),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
     bwd = (name, g, h, *full, lse_main)
     kernels = {  # fn, plain, library, err, bytes, operations, peak
         "backward_gradient": (
@@ -1340,7 +1364,7 @@ def main() -> int:
         elif "backward_dh" in name or "backward_dw" in name:
             file = "product"
         elif cat:
-            file = "cat_tc" if "backward_gradient" in name else "cat"
+            file = "cat_tc"
         else:
             file = "count"
         return SOURCES[file], REPLACES[kind]

@@ -1,36 +1,65 @@
-// The categorised K3 with bf16 operands on the tensor cores: the backward's
-// gradient kernel over a Poisson, NB, ZIP or ZINB base plus C = K + 1
-// class-logit heads (up to 32 heads in all), for compute_dtype=bfloat16
-// (the training path).  Its dh and dW are then two plain products of the
-// scratch it writes (tc_product.cu).
+// The categorised K2 and K3 with bf16 operands on the tensor cores, over a
+// Poisson, NB, ZIP or ZINB base plus C = K + 1 class-logit heads (up to 32
+// heads in all), for compute_dtype=bfloat16 (the training path): the
+// forward kernel, and the backward's gradient kernel, whose dh and dW are
+// then two plain products of the scratch it writes (tc_product.cu).
 //
-// Replaces, for bf16 inputs, the Pallas kernel of
-// scvae_tpu/ops/fused_likelihood.py that _fused_backward drives (K3) for
-// the categorised instances _make_fused_categorised builds (the grads of
-// _categorised_grads).  The float32 instances keep the CUDA-core kernels of
-// categorised_likelihood.cu.  With the per-element lse (M, F) that the
-// forward wrote:
+// Replaces, for bf16 inputs, the Pallas kernels of
+// scvae_tpu/ops/fused_likelihood.py that _fused_forward (K2) and
+// _fused_backward (K3) drive for the categorised instances
+// _make_fused_categorised builds (_categorised_ll with _cat_select_and_lse,
+// and the grads of _categorised_grads).  The float32 instances keep the
+// CUDA-core kernels of categorised_likelihood.cu.  Per element:
 //
 //   a     = bf16(h) bf16(W) + b for every head   (float32 sums, b unrounded)
+//   lse   = logsumexp_c a_c,  sel = a_c at c = min(t, K)
+//   ll    = sel - lse + [t >= K] (base_ll(a_base, t - K) - lgamma(1 + t - K))
 //   da_c  = g ([min(t, K) = c] - exp(a_c - lse))          class c
 //   da_k  = g [t >= K] dbase_ll/da_k (t - K)               base head k
 //
 // Operands arrive in bf16 from the wrapper: h (M, Hp) and every head's
 // weights side by side, W (Hp, NH, Fp) with the base heads first, zero-
-// padded to Hp, Fp = multiples of 8.  One block per 64 rows x 64 genes walks
-// the base heads, then the class heads four at a time: each group's products
-// run through the ring of tc_common.cuh with W offset by the group's first
-// head, and its epilogue writes bf16(da) into the scratch (M, NH * Fp),
-// zero past F, and the unrounded column sums of the block's rows into a
-// (row tiles, NH * Fp) partial array for db.  Since the forward's lse is
-// given, each class's gradient needs only its own activation: no online
-// softmax, and the groups are independent.
+// padded to Hp, Fp = multiples of 8.  Both kernels give one block to 64 rows
+// x 64 genes and walk the base heads, then the class heads a group at a
+// time: each group's products run through the ring of tc_common.cuh with W
+// offset by the group's first head.  A head's products do not depend on the
+// group it is in, so both kernels compute every activation from the same
+// products in the same summation order, and add the same unrounded bias.
+// That is deliberate: the backward's exp(a_c - lse) takes the very a_c
+// whose exponentials the forward summed into lse.
 //
-// Bound on the H100 at Poisson-cat's shape (32 heads, M = F = 2,048, H =
-// 256): 68.7 GFLOP of head products (0.069 ms at 989 TFLOP/s) against h,
-// W (33.5 MB), t and lse (16.8 MB) in and the bf16 da (268 MB) out (0.095 ms
-// at 3.35 TB/s): bytes.  The design writes da once, coalesced (a warp per
-// row, its lanes along the genes), and never rereads the activations.
+// cat_tc_forward_kernel, classes two at a time: the base group's epilogue
+// reads the staged activations a warp per row, its lanes along the genes,
+// as the gradient kernel's does: the shifted base log-likelihood where t >=
+// K into the row sums, each element's selected class (a byte) into shared
+// memory; each thread then keeps its elements' classes in registers.  The
+// class groups' epilogue works on the accumulators in place (no staging and
+// no barrier): each element's online softmax state (running max, sum of
+// exp(a - max)) and the selected class's logit into the thread's row sums.
+// The state of a thread's 32 elements stays in registers through every
+// group's products.  After the last group the kernel stages lse (M, F) and
+// the row sums less lse in shared memory, writes lse a warp per row,
+// coalesced, and the block's row sums into a (gene tiles, M) partial array
+// that reduce_kernel sums in order: no atomics, results repeat bit for bit.
+// The (M, F, C) logits never reach device memory.  Four classes a group
+// (accumulators of 128 registers) spill the state; groups of two, with the
+// state in registers, were the fastest option that ptxas fits in 255
+// registers (SCVAE_CAT_FORWARD_GROUP, _SMEM_STATE and _MIN_BLOCKS select the
+// others, which tools/cat_forward_options.py builds, reads and times).
+//
+// cat_tc_gradient_kernel: given the forward's lse, each class's gradient
+// needs only its own activation, so the groups are independent.  Its
+// epilogue writes bf16(da) into the scratch (M, NH * Fp), zero past F, and
+// the unrounded column sums of the block's rows into a (row tiles, NH * Fp)
+// partial array for db.
+//
+// Bounds on the H100 at Poisson-cat's shape (32 heads, M = F = 2,048, H =
+// 256): 68.7 GFLOP of head products (0.069 ms at 989 TFLOP/s) per kernel.
+// The forward moves about 95 MB (h and W in float32 as the caller holds
+// them, bf16 t, the row sums and lse; 0.028 ms at 3.35 TB/s): operations
+// bound it.  The gradient kernel also reads lse and writes the bf16 da (268
+// MB; 0.095 ms): bytes.  It writes da once, coalesced, and never rereads the
+// activations.
 
 #include "tc_common.cuh"
 
@@ -178,6 +207,317 @@ int launch_cat_tc(const CatGrad& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The forward
+
+#ifndef SCVAE_CAT_FORWARD_GROUP
+#define SCVAE_CAT_FORWARD_GROUP 2
+#endif
+#ifndef SCVAE_CAT_FORWARD_SMEM_STATE
+#define SCVAE_CAT_FORWARD_SMEM_STATE 0
+#endif
+#ifndef SCVAE_CAT_FORWARD_MIN_BLOCKS
+#define SCVAE_CAT_FORWARD_MIN_BLOCKS 0
+#endif
+// Class heads per group of the forward; whether the softmax state lives in
+// shared memory rather than in registers; the blocks per SM it asks ptxas to
+// fit (0: two where their shared memory fits, else one).
+constexpr int kCatFwdGroup = SCVAE_CAT_FORWARD_GROUP;
+constexpr bool kCatFwdSmemState = SCVAE_CAT_FORWARD_SMEM_STATE != 0;
+constexpr int kCatFwdMinBlocks = SCVAE_CAT_FORWARD_MIN_BLOCKS;
+static_assert(kCatFwdGroup >= 1 && kCatFwdGroup <= 4,
+              "1 to 4 classes a group");
+
+// A thread's elements of the block's tile, in the accumulators' layout of
+// tc_mainloop: rows wm * 32 + 16 mi + lane / 4 + 8 half (row q = 2 mi +
+// half of the thread) and genes wn * 32 + 8 ni + 2 (lane % 4) + e2, element
+// e = (4 q + ni) * 2 + e2 at acc[.][mi][ni][2 half + e2].
+constexpr int kCatRowsQ = 2 * kTcMI;
+constexpr int kCatElems = kCatRowsQ * 4 * 2;
+// A selected class that no class matches (an element outside M x F).
+constexpr uint32_t kNoClass = 0xff;
+
+// The operands of the forward.
+struct CatFwd {
+  const bf16* h;
+  const bf16* w;
+  const float* bias;  // (NH, f)
+  const void* t;
+  int t_bf16;
+  float* part;        // (gene tiles, m)
+  float* lse;         // (m, f)
+  int m, m_t, hp, f, fp, n_heads, k;
+};
+
+// Each element's online softmax state (running max, sum of exp(a - max)):
+// in registers, or (SMEM) in the thread's own slots of shared memory at p.
+template <bool SMEM>
+struct SoftmaxState {
+  float2 v[SMEM ? 1 : kCatElems];
+  float2* s;
+  __device__ __forceinline__ explicit SoftmaxState(unsigned char* p)
+      : s(reinterpret_cast<float2*>(p) + threadIdx.x) {}
+  __device__ __forceinline__ float2 get(int e) const {
+    if constexpr (SMEM) return s[e * kTcThreads];
+    else return v[e];
+  }
+  __device__ __forceinline__ void set(int e, float2 x) {
+    if constexpr (SMEM) s[e * kTcThreads] = x;
+    else v[e] = x;
+  }
+};
+
+constexpr size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
+
+// Shared memory of the base group's epilogue past its staged activations:
+// each element's selected class, a byte, and each row's base sum.
+constexpr size_t kCatBaseExtra = kTcRows * kTcTileN + sizeof(float) * kTcRows;
+
+// Dynamic shared memory of the forward: the ring of its largest group, or
+// the base group's staged activations and classes, or the last pass's
+// staged lse and row sums, whichever is largest; then the softmax state if
+// it lives there.
+template <class Fam>
+constexpr size_t kCatFwdRingSmem = max_size(
+    max_size(TcSmem<Fam::kHeads>::kBytes, TcSmem<kCatFwdGroup>::kBytes),
+    max_size(tc_heads_smem<Fam::kHeads>() + kCatBaseExtra,
+             sizeof(float) * (kTcRows * kTcActStride + kTcWarpsN * kTcRows)));
+
+template <class Fam>
+constexpr size_t cat_fwd_smem() {
+  return kCatFwdRingSmem<Fam> +
+         (kCatFwdSmemState ? sizeof(float2) * kCatElems * kTcThreads : 0);
+}
+
+// kCatFwdMinBlocks, or two blocks per SM where their shared memory fits
+// (228 KB an SM, 1 KB of it reserved per block), else one.
+template <class Fam>
+constexpr int cat_fwd_min_blocks() {
+  if (kCatFwdMinBlocks > 0) return kCatFwdMinBlocks;
+  return 2 * (cat_fwd_smem<Fam>() + 1024) <= 228 * 1024 ? 2 : 1;
+}
+
+// The base family's heads: the products, staged in shared memory, then an
+// epilogue a warp per row, its lanes along the genes, as the gradient
+// kernel's (a loop, not unrolled: the base log-likelihoods are long, and a
+// warp whose row holds no t >= K skips them).  The shifted base
+// log-likelihood where t >= K is summed per row into rb[64], and each
+// element's selected class min(t, K) goes into cls[64][64], a byte each (the
+// select of _cat_select_and_lse: the last class c <= K with t >= c, else
+// class 0; kNoClass outside M x F).  Then each thread gathers its elements'
+// classes into sel and its rows' sums into row_ll (one thread per row: lane
+// % 4 = 0 of the warps wn = 0).
+template <class Fam>
+__device__ __forceinline__ void cat_fwd_base(bf16* smem, const CatFwd& p,
+                                             int m0, int n0,
+                                             float (&row_ll)[kCatRowsQ],
+                                             uint32_t (&sel)[kCatElems / 4]) {
+  constexpr int NB = Fam::kHeads;
+  float* act = reinterpret_cast<float*>(smem);  // after the mainloop
+  uint8_t* cls =
+      reinterpret_cast<uint8_t*>(act + NB * kTcRows * kTcActStride);
+  float* rb = reinterpret_cast<float*>(cls + kTcRows * kTcTileN);
+  {
+    const int ldd = p.n_heads * p.fp;
+    float acc[NB][kTcMI][4][4];
+    tc_mainloop<NB>(smem, TcOperands{p.h, p.m, p.hp, p.w, ldd, p.fp, ldd},
+                    m0, n0, acc);
+    tc_stage_acts<NB>(act, acc);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float b_l[NB][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int gene = n0 + lane + 32 * j;
+#pragma unroll
+    for (int hd = 0; hd < NB; ++hd)
+      b_l[hd][j] = gene < p.f ? p.bias[hd * p.f + gene] : 0.0f;
+  }
+#pragma unroll 1
+  for (int r = warp; r < kTcRows; r += kTcWarps) {
+    const int row = m0 + r;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = lane + 32 * j, gene = n0 + c;
+      uint32_t cl = kNoClass;
+      if (row < p.m && gene < p.f) {
+        const float tv =
+            load_t(p.t, p.t_bf16, (long long)(row % p.m_t) * p.f + gene);
+        cl = tv >= (float)p.k ? (uint32_t)p.k
+                              : (tv >= 1.0f ? (uint32_t)tv : 0u);
+        if (tv >= (float)p.k) {
+          float a[NB];
+#pragma unroll
+          for (int hd = 0; hd < NB; ++hd)
+            a[hd] = act[(hd * kTcRows + r) * kTcActStride + c] + b_l[hd][j];
+          const float shifted = tv - (float)p.k;
+          sum += Fam::ll(a, shifted) - series_lgamma(1.0f + shifted);
+        }
+      }
+      cls[r * kTcTileN + c] = (uint8_t)cl;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) rb[r] = sum;
+  }
+  __syncthreads();
+
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+#pragma unroll
+  for (int i = 0; i < kCatElems / 4; ++i) sel[i] = 0u;
+#pragma unroll
+  for (int q = 0; q < kCatRowsQ; ++q) {
+    const int r = wm * 32 + 16 * (q / 2) + (lane >> 2) + 8 * (q % 2);
+    row_ll[q] = wn == 0 && (lane & 3) == 0 ? rb[r] : 0.0f;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = wn * 32 + ni * 8 + 2 * (lane & 3) + e2;
+        const int e = (4 * q + ni) * 2 + e2;
+        sel[e / 4] |= (uint32_t)cls[r * kTcTileN + c] << (8 * (e % 4));
+      }
+  }
+  __syncthreads();  // every gather is done before the ring refills
+}
+
+// The classes c = head0 - n_base + hd for hd < n (NB slots; slots past n
+// read zeros and are not used): the products, then an epilogue straight
+// from the accumulators (it reads no shared memory, so the next group's
+// loads may start at once): each element's online softmax state, and the
+// selected class's logit into row_ll.
+template <class Fam, int NB, bool SMEM>
+__device__ __forceinline__ void cat_fwd_classes(
+    bf16* smem, const CatFwd& p, int m0, int n0, int head0, int n,
+    float (&row_ll)[kCatRowsQ], const uint32_t (&sel)[kCatElems / 4],
+    SoftmaxState<SMEM>& st) {
+  const int ldd = p.n_heads * p.fp;
+  float acc[NB][kTcMI][4][4];
+  const long long w0 = (long long)head0 * p.fp;
+  tc_mainloop<NB>(smem,
+                  TcOperands{p.h, p.m, p.hp, p.w + w0, ldd, p.fp,
+                             (int)(ldd - w0)},
+                  m0, n0, acc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wn = warp % kTcWarpsN;
+  const int c0 = head0 - Fam::kHeads;  // the group's first class
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int gene = n0 + wn * 32 + ni * 8 + 2 * (lane & 3) + e2;
+      float b[NB];
+#pragma unroll
+      for (int hd = 0; hd < NB; ++hd)
+        b[hd] = gene < p.f && hd < n ? p.bias[(head0 + hd) * p.f + gene]
+                                     : 0.0f;
+#pragma unroll
+      for (int q = 0; q < kCatRowsQ; ++q) {
+        const int e = (4 * q + ni) * 2 + e2;
+        const uint32_t cls = (sel[e / 4] >> (8 * (e % 4))) & 0xffu;
+        float2 s = st.get(e);
+#pragma unroll
+        for (int hd = 0; hd < NB; ++hd) {
+          if (hd < n) {
+            const float a = acc[hd][q / 2][ni][2 * (q % 2) + e2] + b[hd];
+            // one exponential a class: the smaller of exp(a - max) and
+            // exp(max - a), the latter rescaling the sum to a new max
+            const float d = a - s.x;
+            const float ex = expf(-fabsf(d));
+            s.y = d > 0.0f ? fmaf(s.y, ex, 1.0f) : s.y + ex;
+            s.x = fmaxf(s.x, a);
+            if (cls == (uint32_t)(c0 + hd)) row_ll[q] += a;
+          }
+        }
+        st.set(e, s);
+      }
+    }
+  }
+}
+
+// One block per 64 rows (blockIdx.x) x 64 genes (blockIdx.y): the base
+// heads, then the classes kCatFwdGroup at a time; then lse and the row sums
+// less lse, staged in shared memory and written a warp per row.
+template <class Fam>
+__global__ void __launch_bounds__(kTcThreads, cat_fwd_min_blocks<Fam>())
+    cat_tc_forward_kernel(const CatFwd p) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(tc_smem_raw);
+  const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
+  float row_ll[kCatRowsQ];
+  uint32_t sel[kCatElems / 4];
+  cat_fwd_base<Fam>(smem, p, m0, n0, row_ll, sel);
+  SoftmaxState<kCatFwdSmemState> st(tc_smem_raw + kCatFwdRingSmem<Fam>);
+#pragma unroll
+  for (int e = 0; e < kCatElems; ++e) st.set(e, make_float2(-INFINITY, 0.0f));
+  const int n_classes = p.n_heads - Fam::kHeads;
+  for (int c0 = 0; c0 < n_classes; c0 += kCatFwdGroup)
+    cat_fwd_classes<Fam, kCatFwdGroup>(
+        smem, p, m0, n0, Fam::kHeads + c0, min(kCatFwdGroup, n_classes - c0),
+        row_ll, sel, st);
+
+  // lse into stage[64][kTcActStride]; each row's sum over the warp's genes
+  // less lse into red[wn][64] (the ring is free: the last mainloop ended
+  // with a barrier, and the epilogue reads no shared memory)
+  float* stage = reinterpret_cast<float*>(tc_smem_raw);
+  float* red = stage + kTcRows * kTcActStride;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+#pragma unroll
+  for (int q = 0; q < kCatRowsQ; ++q) {
+    const int r = wm * 32 + 16 * (q / 2) + (lane >> 2) + 8 * (q % 2);
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = wn * 32 + ni * 8 + 2 * (lane & 3) + e2;
+        const float2 s = st.get((4 * q + ni) * 2 + e2);
+        const float lse = s.x + logf(s.y);
+        stage[r * kTcActStride + c] = lse;
+        if (m0 + r < p.m && n0 + c < p.f) row_ll[q] -= lse;
+      }
+    }
+    float sum = row_ll[q];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if ((lane & 3) == 0) red[wn * kTcRows + r] = sum;
+  }
+  __syncthreads();
+  for (int r = warp; r < kTcRows && m0 + r < p.m; r += kTcWarps) {
+    const int row = m0 + r;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gene = n0 + lane + 32 * j;
+      if (gene < p.f)
+        p.lse[(long long)row * p.f + gene] =
+            stage[r * kTcActStride + lane + 32 * j];
+    }
+    if (lane == 0) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kTcWarpsN; ++w) sum += red[w * kTcRows + r];
+      p.part[(long long)blockIdx.y * p.m + row] = sum;
+    }
+  }
+}
+
+template <class Fam>
+int launch_cat_tc_forward(const CatFwd& p, cudaStream_t stream) {
+  const dim3 grid((p.m + kTcRows - 1) / kTcRows,
+                  (p.f + kTcTileN - 1) / kTcTileN);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  constexpr size_t bytes = cat_fwd_smem<Fam>();
+  auto kernel = cat_tc_forward_kernel<Fam>;
+  if (int err = set_smem(kernel, bytes)) return err;
+  kernel<<<grid, kTcThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace scvae
 
@@ -185,13 +525,45 @@ using namespace scvae;
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success).  family: 0 = Poisson, 1 = NB, 2 =
-// ZIP, 3 = ZINB (the base, NB = 1, 2, 2, 3 heads); n_classes = K + 1 class
-// heads after them, NH = NB + n_classes <= 32.  h: bf16 (m, hp); w: bf16
-// (hp, NH, fp); b: float32 (NH, f); t:
-// (m_t, f), t_dtype 0 = float32, 1 = bfloat16; lse: float32 (m, f); g:
-// float32 (m,).  Writes da (m, NH * fp) bf16 and db_part (ceil(m / 64),
-// NH * fp) float32.
+// Both return a cudaError_t (0 on success).  family: 0 = Poisson, 1 = NB,
+// 2 = ZIP, 3 = ZINB (the base, NB = 1, 2, 2, 3 heads); n_classes = K + 1
+// class heads after them, NH = NB + n_classes <= 32.  h: bf16 (m, hp); w:
+// bf16 (hp, NH, fp); b: float32 (NH, f); t: (m_t, f), t_dtype 0 = float32,
+// 1 = bfloat16, row m reading target row m % m_t.
+
+// K2: part (ceil(f / 64), m) float32 scratch; writes out (m,) and lse
+// (m, f), float32.
+int scvae_cat_tc_forward(int family, const void* h, const void* w,
+                         const float* b, const void* t, int t_dtype,
+                         float* part, float* out, float* lse, int m, int m_t,
+                         int hp, int f, int n_classes, void* stream) {
+  if (n_classes < 2 || t_dtype < 0 || t_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = with_family(family, [&](auto fam) {
+    using Fam = typename decltype(fam)::type;
+    const CatFwd p{static_cast<const bf16*>(h),
+                   static_cast<const bf16*>(w),
+                   b,
+                   t,
+                   t_dtype,
+                   part,
+                   lse,
+                   m,
+                   m_t,
+                   hp,
+                   f,
+                   (f + 7) / 8 * 8,
+                   Fam::kHeads + n_classes,
+                   n_classes - 1};
+    return launch_cat_tc_forward<Fam>(p, s);
+  });
+  if (err) return err;
+  return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
+}
+
+// K3, first half: lse float32 (m, f) from the forward, g float32 (m,);
+// writes da (m, NH * fp) bf16 and db_part (ceil(m / 64), NH * fp) float32.
 int scvae_cat_tc_gradient(int family, const float* g, const void* h,
                           const void* w, const float* b,
                           const void* t, int t_dtype, const float* lse,

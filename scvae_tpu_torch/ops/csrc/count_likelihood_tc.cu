@@ -48,8 +48,6 @@
 namespace scvae {
 namespace {
 
-constexpr int kTcReduceThreads = 256;
-
 // Blocks per SM that the heads kernels ask the compiler to fit: 16 warps,
 // or 12 for three heads, whose accumulators take more registers.
 template <int NH>
@@ -155,19 +153,6 @@ __global__ void __launch_bounds__(kTcThreads,
                           n0, fp, NH);
 }
 
-// out[c] = sum over s < n_slices, in order, of part[s][c] (an n_slices x n
-// array).
-__global__ void __launch_bounds__(kTcReduceThreads)
-    reduce_kernel(const float* __restrict__ part, int n_slices, int n,
-                  float* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int j = 0; j < n_slices; ++j) s += part[j * (long long)n + i];
-    out[i] = s;
-  }
-}
-
 template <class Fam, bool GRAD>
 int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
                  int t_bf16, const float* g, float* part, bf16* da, int m,
@@ -209,11 +194,8 @@ int scvae_tc_forward(int family, const void* h, const void* w,
         static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
         t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
   });
-  if (err || m == 0) return err;
-  const int blocks = (m + kTcReduceThreads - 1) / kTcReduceThreads;
-  reduce_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kTcReduceThreads, 0,
-                  s>>>(part, (f + kTcTileN - 1) / kTcTileN, m, out);
-  return (int)cudaGetLastError();
+  if (err) return err;
+  return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
 }
 
 // K3, first half: da (m, NH * fp) bf16 scratch and db_part

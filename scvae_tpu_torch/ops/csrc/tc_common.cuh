@@ -1,6 +1,7 @@
 // The tensor-core ring of the bf16 heads kernels: the forward and gradient
-// kernels of the base families (count_likelihood_tc.cu) and the gradient
-// kernel of the categorised instances (categorised_likelihood_tc.cu).
+// kernels of the base families (count_likelihood_tc.cu) and of the
+// categorised instances (categorised_likelihood_tc.cu), and the pass that
+// sums the forwards' row-sum partials in a fixed order.
 //
 // A block of 64 rows x 64 genes computes the products h W_k of NB heads at
 // once: mma.sync m16n8k16 bf16 with float32 accumulators, fed by ldmatrix
@@ -288,6 +289,32 @@ __device__ __forceinline__ float load_t(const void* t, int t_bf16,
                                         long long i) {
   return t_bf16 ? __bfloat162float(static_cast<const bf16*>(t)[i])
                 : static_cast<const float*>(t)[i];
+}
+
+constexpr int kTcReduceThreads = 256;
+
+// out[c] = sum over s < n_slices, in order, of part[s][c] (an n_slices x n
+// array).
+__global__ void __launch_bounds__(kTcReduceThreads)
+    reduce_kernel(const float* __restrict__ part, int n_slices, int n,
+                  float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int j = 0; j < n_slices; ++j) s += part[j * (long long)n + i];
+    out[i] = s;
+  }
+}
+
+// The heads forwards' second pass: out (n,) from their (gene tiles, n)
+// row-sum partials, at most 16 blocks per SM.
+int launch_reduce(const float* part, int n_slices, int n, float* out,
+                  cudaStream_t stream) {
+  if (n == 0) return 0;
+  const int blocks = (n + kTcReduceThreads - 1) / kTcReduceThreads;
+  reduce_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kTcReduceThreads, 0,
+                  stream>>>(part, n_slices, n, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

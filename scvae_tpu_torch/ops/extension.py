@@ -52,6 +52,10 @@ _SIGNATURES = {
     # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
     "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _P],
+    # family, h, w, b, t, t_dtype, part, out, lse, m, m_t, hp, f, n_classes,
+    # stream
+    "scvae_cat_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _P],
     # family, g, h, w, b, t, t_dtype, lse, da, db_part, m, m_t, hp, f,
     # n_classes, stream
     "scvae_cat_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

@@ -215,25 +215,23 @@ MAX_FUSED_HEADS = 32
 MAX_FUSED_GROUPS = 16
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
-# The bf16 K2/K3 of the base families and the bf16 backward of the
-# categorised instances (tensor cores) count as "<prefix>_<kernel>" (prefix
-# "cat_<family>" for the categorised), their backward's first kernel as
-# "<prefix>_backward_gradient" and its products as "<prefix>_backward_dh" /
-# "_dw"; the float32 instances (CUDA cores) as "<prefix>_<kernel>_float32".
-# The categorised forward, one CUDA-core kernel for both, counts as
-# "cat_<family>_forward".
+# The bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>" (prefix
+# "cat_<family>" for the categorised instances), their backward's first
+# kernel as "<prefix>_backward_gradient" and its products as
+# "<prefix>_backward_dh" / "_dw"; the float32 instances (CUDA cores) as
+# "<prefix>_<kernel>_float32".
 _KERNELS = ("forward", "backward_dh", "backward_dw")
 LAUNCHES = {
     name: 0
     for fam in FAMILIES.values()
+    for prefix in (fam.prefix, f"cat_{fam.prefix}")
     for name in (
-        [f"{fam.prefix}_{kernel}{suffix}" for kernel in _KERNELS
+        [f"{prefix}_{kernel}{suffix}" for kernel in _KERNELS
          for suffix in ("", "_float32")]
-        + [f"cat_{fam.prefix}_{kernel}{suffix}" for kernel in _KERNELS[1:]
-           for suffix in ("", "_float32")]
-        + [f"{fam.prefix}_backward_gradient", f"cat_{fam.prefix}_forward",
-           f"cat_{fam.prefix}_backward_gradient"]
-        + [f"{fam.prefix}_grouped_{kernel}" for kernel in _KERNELS])
+        + [f"{prefix}_backward_gradient"])
+} | {
+    f"{fam.prefix}_grouped_{kernel}": 0
+    for fam in FAMILIES.values() for kernel in _KERNELS
 }
 LAUNCHES.update({f"cp_{kernel}": 0 for kernel in _KERNELS})
 
@@ -440,12 +438,10 @@ def _class_count(cat_w) -> int:
     return cat_w.shape[0] - 1
 
 
-def reference_categorised_forward(name, h, weights, biases, cat_w, cat_b, t,
-                                  *, compute_dtype=None):
-    """Plain version of the categorised K2: (row sums (M,), per-element lse
-    (M, F)) for base ``weights`` / ``biases`` in the family's head order and
-    class heads ``cat_w`` (K+1, H, F), ``cat_b`` (K+1, F), rounded like the
-    kernel."""
+def _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
+                          compute_dtype):
+    """Per-element log-likelihood and lse (M, F) of the categorised
+    instance, rounded like the kernels."""
     n_base = len(FAMILIES[name].heads)
     _, acts = _activations(h, [*weights, *cat_w], [*biases, *cat_b],
                            compute_dtype)
@@ -453,6 +449,17 @@ def reference_categorised_forward(name, h, weights, biases, cat_w, cat_b, t,
     a_sel, lse = cat_select_and_lse(acts[n_base:], tt)
     ll = a_sel - lse + _shifted_base_ll(name, _class_count(cat_w),
                                         acts[:n_base], tt)
+    return ll, lse
+
+
+def reference_categorised_forward(name, h, weights, biases, cat_w, cat_b, t,
+                                  *, compute_dtype=None):
+    """Plain version of the categorised K2: (row sums (M,), per-element lse
+    (M, F)) for base ``weights`` / ``biases`` in the family's head order and
+    class heads ``cat_w`` (K+1, H, F), ``cat_b`` (K+1, F), rounded like the
+    kernel."""
+    ll, lse = _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
+                                    compute_dtype)
     return torch.sum(ll, dim=-1), lse
 
 
@@ -642,11 +649,12 @@ def _family_heads(name, weights, biases):
 # h and the heads' weights go over in bf16, zero-padded to widths that are
 # multiples of 8 (16-byte rows): h (M, Hp) and W (Hp, NH, Fp), the heads side
 # by side (for the categorised instances the base heads, then the classes).
-# The forward writes row sums per gene tile, which a second pass sums in
-# order.  The backward's gradient kernel writes bf16(da) (M, NH·Fp) and
-# per-row-tile column sums of da, which the products dh = da Wᵀ and dW = hᵀ da
-# (with db) then read.  A product splits its depth over the blocks of a
-# thread-block cluster, which sum their tiles in rank order.
+# The forwards write row sums per gene tile, which a second pass sums in
+# order (the categorised forward also each element's lse).  The backward's
+# gradient kernel writes bf16(da) (M, NH·Fp) and per-row-tile column sums of
+# da, which the products dh = da Wᵀ and dW = hᵀ da (with db) then read.  A
+# product splits its depth over the blocks of a thread-block cluster, which
+# sum their tiles in rank order.
 # --------------------------------------------------------------------------
 
 TC_GENE_TILE = 64       # genes per heads block (each head)
@@ -714,15 +722,20 @@ def tc_plan(m: int, hidden: int, f: int, n_heads: int,
     """Padded widths, grids, scratch shapes and product splits of the
     tensor-core K2/K3 for M = ``m`` rows, H = ``hidden``, F = ``f`` and
     ``n_heads`` heads, on a card that holds ``capacity[S]`` clusters of S
-    product blocks at once.  ``dh_splits`` / ``dw_splits``: (splits, depth
-    stages per split, promote)."""
+    product blocks at once.  ``heads_grid``: (row tiles, gene tiles) of the
+    heads kernels, whose forwards write ``row_sums`` partials per gene tile
+    and whose gradient kernels write ``db_parts`` per row tile;
+    ``dh_splits`` / ``dw_splits``: (splits, depth stages per split,
+    promote)."""
     hp, fp = tc_padded(hidden), tc_padded(f)
     width = n_heads * fp
+    row_tiles, gene_tiles = _cdiv(m, TC_ROW_TILE), _cdiv(f, TC_GENE_TILE)
     return {
         "hp": hp, "fp": fp,
-        "row_sums": (_cdiv(f, TC_GENE_TILE), m),
+        "heads_grid": (row_tiles, gene_tiles),
+        "row_sums": (gene_tiles, m),
         "da": (m, width),
-        "db_parts": (_cdiv(m, TC_ROW_TILE), width),
+        "db_parts": (row_tiles, width),
         "dh_splits": _product_plan(m, hp, width, capacity),
         "dw_splits": _product_plan(hp, width, m, capacity),
     }
@@ -771,6 +784,46 @@ def _tc_forward(fam, h, weights, biases, t, include_lgamma_const):
     )
     LAUNCHES[f"{fam.prefix}_forward"] += 1
     return out
+
+
+def cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
+    """Launch the categorised bf16 K2 over base ``name`` (the base heads,
+    then the class heads ``cat_w`` (C, H, F) / ``cat_b`` (C, F)): (row sums
+    (M,), lse (M, F), the row-sum partials per gene tile (F tiles, M) that
+    the row sums add up in order)."""
+    fam, h, weights, biases, t, (cat_w, cat_b) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t)
+    m, hidden = h.shape
+    f = t.shape[1]
+    n_classes = cat_w.shape[0]
+    plan = tc_plan(m, hidden, f, len(weights) + n_classes)
+    hb, w, b = _tc_operands(h, weights, biases, cat_w, cat_b)
+    dev = h.device
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    lse = torch.empty((m, f), dtype=torch.float32, device=dev)
+    part = torch.empty(plan["row_sums"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cat_tc_forward", dev, fam.code, hb.data_ptr(), w.data_ptr(),
+        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], part.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), m, t.shape[0], plan["hp"], f,
+        n_classes,
+    )
+    LAUNCHES[f"cat_{fam.prefix}_forward"] += 1
+    return out, lse, part
+
+
+def reference_cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
+    """Plain version of :func:`cat_tc_forward` in its layout: (the row sums
+    per gene tile (F tiles, M), lse (M, F)), bf16 operands."""
+    _family_heads(name, weights, biases)
+    ll, lse = _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
+                                    torch.bfloat16)
+    m, f = ll.shape
+    tiles = _cdiv(f, TC_GENE_TILE)
+    padded = torch.zeros((m, tiles * TC_GENE_TILE), dtype=torch.float32,
+                         device=ll.device)
+    padded[:, :f] = ll
+    return padded.reshape(m, tiles, TC_GENE_TILE).sum(-1).T, lse
 
 
 @dataclasses.dataclass
@@ -1160,12 +1213,14 @@ def _checked_categorised(name, h, weights, biases, cat_w, cat_b, t, g=None,
 def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
                         compute_dtype=None):
     """(row sums (M,), per-element lse (M, F)) of the categorised instance
-    over base ``name``: its K2 kernel on CUDA, the plain version on the
-    CPU."""
+    over base ``name``: its K2 kernel on CUDA (bf16: the tensor-core kernel;
+    float32: the CUDA-core one), the plain version on the CPU."""
     if not h.is_cuda:
         return reference_categorised_forward(name, h, weights, biases, cat_w,
                                              cat_b, t,
                                              compute_dtype=compute_dtype)
+    if _round_flag(compute_dtype):
+        return cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t)[:2]
     fam, h, weights, biases, t, (cat_w, cat_b) = _checked_categorised(
         name, h, weights, biases, cat_w, cat_b, t)
     m, hidden = h.shape
@@ -1178,9 +1233,9 @@ def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
         "scvae_cat_forward", h.device, fam.code, h.data_ptr(),
         *_head_pointers(weights, biases), cat_w.data_ptr(), cat_b.data_ptr(),
         cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype], out.data_ptr(),
-        lse.data_ptr(), m, t.shape[0], hidden, f, _round_flag(compute_dtype),
+        lse.data_ptr(), m, t.shape[0], hidden, f, 0,
     )
-    LAUNCHES[f"cat_{fam.prefix}_forward"] += 1
+    LAUNCHES[f"cat_{fam.prefix}_forward_float32"] += 1
     return out, lse
 
 

@@ -1,11 +1,13 @@
-"""The bf16 categorised backward of the port in the tensor-core kernels'
-layout, on the CPU: the plain version of the gradient kernel
-(``reference_cat_tc_gradient``: bf16(da) of every head, base heads first,
-in the (M, NH·Fp) scratch, and its column sums per 64-row tile) and the
-plain products ``reference_tc_dh`` / ``reference_tc_dw_stacked`` applied to
-it, against the JAX package's ``fused_categorised_log_likelihood`` in
-interpret mode; the planner's splits and scratch shapes at the categorised
-widths; the CPU path of ``categorised_backward``.
+"""The bf16 categorised forward and backward of the port in the
+tensor-core kernels' layout, on the CPU: the plain version of the forward
+kernel (``reference_cat_tc_forward``: the row sums per 64-gene tile and the
+per-element lse), of the gradient kernel (``reference_cat_tc_gradient``:
+bf16(da) of every head, base heads first, in the (M, NH·Fp) scratch, and
+its column sums per 64-row tile) and the plain products ``reference_tc_dh``
+/ ``reference_tc_dw_stacked`` applied to it, against the JAX package's
+``fused_categorised_log_likelihood`` in interpret mode; the planner's grid,
+splits and scratch shapes at the categorised widths; the CPU paths of
+``categorised_forward`` and ``categorised_backward``.
 
 Tolerance against JAX: rtol 2e-3 of the largest |reference| value, as the
 other bf16 comparisons (``tests/test_torch_categorised.py``): h, W and da
@@ -73,6 +75,84 @@ def _plain_tc_backward(name, g, h, ws, bs, cw, cb, t):
     grad = tfl.reference_cat_tc_gradient(name, g, h, ws, bs, cw, cb, t, lse)
     dw, db = tfl.reference_tc_dw_stacked(grad)
     return grad, tfl.reference_tc_dh(grad), dw, db
+
+
+@pytest.mark.parametrize("name", BASES)
+@pytest.mark.parametrize("m_t", [M, 14])
+def test_tensor_core_forward_matches_jax_interpret(name, m_t):
+    """The plain forward kernel's outputs, its row-sum partials summed over
+    the gene tiles and its lse, against JAX's fused categorised likelihood
+    (bf16, interpret mode) and JAX's own select-and-lse of the same rounded
+    activations; K = 5, six classes (not a multiple of the kernel's class
+    group), F = 150 over three gene tiles, targets below, at and past K."""
+    k_max, f = 5, 150
+    h, heads, cat_w, cat_b, t, _ = _case(name, k_max=k_max, m_t=m_t, f=f)
+    t[:, :4] = [0.0, k_max - 1.0, float(k_max), k_max + 2.0]
+    t_full = np.tile(t, (M // m_t, 1))
+    bf16 = jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        ref_rows = jfl.fused_categorised_log_likelihood(
+            name, jnp.asarray(h), jax.tree_util.tree_map(jnp.asarray, heads),
+            jnp.asarray(cat_w), jnp.asarray(cat_b), jnp.asarray(t_full),
+            compute_dtype=bf16)
+    hb = jnp.asarray(h).astype(bf16)
+    cat_acts = [jnp.dot(hb, jnp.asarray(w).astype(bf16),
+                        preferred_element_type=jnp.float32) + b
+                for w, b in zip(cat_w, cat_b)]
+    _, ref_lse = jfl._cat_select_and_lse(cat_acts, jnp.asarray(t_full))
+
+    args = _torch_args(name, h, heads, cat_w, cat_b, t)
+    partials, lse = tfl.reference_cat_tc_forward(name, *args)
+    assert partials.shape == tfl.tc_plan(M, HIDDEN, f, 1)["row_sums"] == (
+        3, M)
+    assert lse.shape == (M, f)
+    assert_close(partials.sum(0), ref_rows, 2e-3)
+    assert_close(lse, ref_lse, 2e-3)
+
+
+@pytest.mark.parametrize("m,f,n_heads,want", [
+    # ZINB-cat (14 heads) and Poisson-cat (32) at the headline shape: 32 x
+    # 32 blocks, partials per gene tile
+    (2048, 2048, 14, dict(heads_grid=(32, 32), row_sums=(32, 2048))),
+    (2048, 2048, 32, dict(heads_grid=(32, 32), row_sums=(32, 2048))),
+    # a ragged F (the last gene tile 16 wide) and rows off the row tile
+    (300, 2000, 32, dict(fp=2000, heads_grid=(5, 32), row_sums=(32, 300))),
+    (70, 29, 14, dict(fp=32, heads_grid=(2, 1), row_sums=(1, 70))),
+])
+def test_tensor_core_forward_plan(m, f, n_heads, want):
+    """The forward's grid and its partial array: one block per 64 rows x 64
+    genes, one row of partials per gene tile, whatever the head count."""
+    plan = tfl.tc_plan(m, 256, f, n_heads)
+    assert {k: plan[k] for k in want} == want
+    row_tiles, gene_tiles = plan["heads_grid"]
+    assert (row_tiles - 1) * tfl.TC_ROW_TILE < m <= row_tiles * tfl.TC_ROW_TILE
+    assert ((gene_tiles - 1) * tfl.TC_GENE_TILE < f
+            <= gene_tiles * tfl.TC_GENE_TILE)
+    assert plan["db_parts"][0] == row_tiles
+
+
+@pytest.mark.parametrize("name", BASES)
+def test_categorised_forward_on_the_cpu_is_plain(name):
+    """``categorised_forward`` on CPU tensors is the plain forward, bit for
+    bit, in float32 and in bf16, and launches nothing; the plain forward
+    kernel's partials add up to its row sums and its lse is the plain
+    bf16 lse."""
+    h, heads, cat_w, cat_b, t, _ = _case(name, k_max=6, m_t=14, f=140,
+                                         seed=4)
+    args = _torch_args(name, h, heads, cat_w, cat_b, t)
+    before = dict(ops.launch_counts())
+    for compute in (None, torch.bfloat16):
+        got = ops.categorised_forward(name, *args, compute_dtype=compute)
+        want = ops.reference_categorised_forward(name, *args,
+                                                 compute_dtype=compute)
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    partials, lse = tfl.reference_cat_tc_forward(name, *args)
+    assert torch.equal(lse, want[1])
+    assert_close(partials.sum(0), want[0].numpy(), 1e-6)
+    assert ops.launch_counts() == before
+    prefix = ops.FAMILIES[name].prefix
+    assert {f"cat_{prefix}_forward", f"cat_{prefix}_forward_float32"} <= set(
+        before)
 
 
 @pytest.mark.parametrize("name", BASES)

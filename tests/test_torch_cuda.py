@@ -22,7 +22,9 @@ dW products against the plain products of the kernel's own da at 2e-5.
 The categorised bf16 backward (``categorised_likelihood_tc.cu`` and the
 same products) is held the same way at 14 and 32 heads for every base, and
 the product kernel alone at full and ragged tiles in both layouts, with and
-without promoted sums, and bit for bit over two runs.
+without promoted sums, and bit for bit over two runs; the categorised bf16
+forward (``categorised_likelihood_tc.cu``) at 32 heads for every base, its
+row sums, lse and row-sum partials, and bit for bit over two runs.
 
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
@@ -408,31 +410,77 @@ def test_categorised_backward_matches_autograd(device, name, k_max, m, m_t,
 
 def test_categorised_function_and_counts(device):
     """The autograd Function launches each categorised kernel once per
-    forward and backward, over rows cycling on shared targets."""
+    forward and backward, over rows cycling on shared targets: in bf16 the
+    tensor-core forward, gradient kernel and products; in float32 the
+    CUDA-core forward and passes, under their own counters."""
     name = "zero-inflated negative binomial"
-    h, ws, bs, cw, cb, t, g = _cat_case(device, name, 10, 48, 16, 32, 70,
-                                        torch.bfloat16, seed=2)
-    h = h.reshape(3, 16, 32).clone().requires_grad_(True)
-    heads = {p: {"kernel": w.clone().requires_grad_(True),
-                 "bias": b.clone().requires_grad_(True)}
-             for p, w, b in zip(ops.FAMILIES[name].heads, ws, bs)}
-    cw, cb = cw.clone().requires_grad_(True), cb.clone().requires_grad_(True)
-    ops.reset_launch_counts()
-    out = ops.fused_categorised_log_likelihood(name, h, heads, cw, cb, t,
-                                               compute_dtype=torch.bfloat16)
-    assert out.shape == (3, 16)
-    out.backward(g.reshape(3, 16))
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    assert {k for k, v in counts.items() if v} == {
-        f"cat_zinb_{kernel}" for kernel in
-        ("forward", "backward_gradient", "backward_dh", "backward_dw")}
-    assert all(v in (0, 1) for v in counts.values())
-    assert all(torch.isfinite(x.grad).all() for x in (h, cw, cb))
-    with pytest.raises(ValueError):  # 3 + 30 = 33 heads
-        ops.categorised_forward(name, h.detach().reshape(48, 32), ws, bs,
-                                cw.detach().repeat(3, 1, 1)[:30],
-                                cb.detach().repeat(3, 1)[:30], t)
+    h0, ws, bs, cw0, cb0, t, g = _cat_case(device, name, 10, 48, 16, 32, 70,
+                                           torch.bfloat16, seed=2)
+    for compute, kernels in (
+            (torch.bfloat16, ("forward", "backward_gradient", "backward_dh",
+                              "backward_dw")),
+            (None, ("forward_float32", "backward_dh_float32",
+                    "backward_dw_float32"))):
+        h = h0.reshape(3, 16, 32).clone().requires_grad_(True)
+        heads = {p: {"kernel": w.clone().requires_grad_(True),
+                     "bias": b.clone().requires_grad_(True)}
+                 for p, w, b in zip(ops.FAMILIES[name].heads, ws, bs)}
+        cw = cw0.clone().requires_grad_(True)
+        cb = cb0.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        out = ops.fused_categorised_log_likelihood(name, h, heads, cw, cb, t,
+                                                   compute_dtype=compute)
+        assert out.shape == (3, 16)
+        out.backward(g.reshape(3, 16))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert {k for k, v in counts.items() if v} == {
+            f"cat_zinb_{kernel}" for kernel in kernels}
+        assert all(v in (0, 1) for v in counts.values())
+        assert all(torch.isfinite(x.grad).all() for x in (h, cw, cb))
+    for compute in (None, torch.bfloat16):
+        with pytest.raises(ValueError):  # 3 + 30 = 33 heads
+            ops.categorised_forward(name, h0, ws, bs, cw0.repeat(3, 1, 1)[:30],
+                                    cb0.repeat(3, 1)[:30], t,
+                                    compute_dtype=compute)
+
+
+# (M, M_t, H, F) of the tensor-core categorised forward: M, H and F off
+# the tiles and the 8-wide padding, rows cycling over shared targets; the
+# main path's width with a ragged F; a width past one hidden chunk
+CAT_FORWARD_SHAPES = [(37, 37, 21, 301), (26, 13, 3, 45),
+                      (300, 30, 256, 2000), (130, 65, 584, 100)]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("m,m_t,hidden,f", CAT_FORWARD_SHAPES)
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+def test_categorised_tensor_core_forward(device, name, m, m_t, hidden, f,
+                                         t_dtype):
+    """The bf16 categorised forward kernel at 32 heads: its row sums, lse
+    and row-sum partials per gene tile within 2e-5 of the largest value of
+    the plain versions', on targets spread over the classes and past K; bit
+    for bit over two runs; and the public forward is this kernel."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    k_max = 32 - len(ops.FAMILIES[name].heads) - 1
+    h, ws, bs, cw, cb, t, _ = _cat_case(device, name, k_max, m, m_t, hidden,
+                                        f, t_dtype, seed=8)
+    t[1::2] = torch.floor(t[1::2] / 3)  # below K as well
+    args = (name, h, ws, bs, cw, cb, t)
+    out, lse, part = fl.cat_tc_forward(*args)
+    want_part, want_lse = fl.reference_cat_tc_forward(*args)
+    want_out, _ = ops.reference_categorised_forward(
+        *args, compute_dtype=torch.bfloat16)
+    assert part.shape == want_part.shape == fl.tc_plan(m, hidden, f,
+                                                       32)["row_sums"]
+    _close(out, want_out, 2e-5)
+    _close(lse, want_lse, 2e-5)
+    _close(part, want_part, 2e-5)
+    for a, b in zip((out, lse, part), fl.cat_tc_forward(*args), strict=True):
+        assert torch.equal(a, b)
+    got = ops.categorised_forward(*args, compute_dtype=torch.bfloat16)
+    assert torch.equal(got[0], out) and torch.equal(got[1], lse)
 
 
 def _product_case(device, m, hidden, f, n_heads, promote, seed):

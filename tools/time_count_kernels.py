@@ -13,11 +13,11 @@ each):
   20,480 decoder rows against 2,048 cycled target rows: ``fused_forward``,
   ``fused_backward_dh``, ``fused_backward_dw`` and ``fused_backward``, and
   the backward's bare products ``tc_dh`` / ``tc_dw`` of one gradient;
-- the bf16 categorised backward at the headline shapes for VAE-ZINB-cat
-  (K = 10, 14 heads) and VAE-Poisson-cat (K = 30, 32 heads) from the
-  forward's lse: ``categorised_backward`` where the checkout has it, else
-  its two passes ``categorised_backward_dh`` and ``categorised_backward_dw``
-  in one call.
+- the bf16 categorised forward ``categorised_forward`` and backward at the
+  headline shapes for VAE-ZINB-cat (K = 10, 14 heads) and VAE-Poisson-cat
+  (K = 30, 32 heads), the backward from the forward's lse:
+  ``categorised_backward`` where the checkout has it, else its two passes
+  ``categorised_backward_dh`` and ``categorised_backward_dw`` in one call.
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -94,7 +94,7 @@ def main() -> int:
     h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
                                device=dev))
     g = torch.randn(cs.BATCH, generator=gen, device=dev) / cs.BATCH
-    categorised = {}
+    categorised, categorised_forward = {}, {}
     for name, k_max in cs.CATEGORISED:
         t = cs.categorised_targets(x, k_max, gen)
         n_base = len(ops.FAMILIES[name].heads)
@@ -102,7 +102,14 @@ def main() -> int:
                                  cs.N_GENES, dev)
         heads = (ws[:n_base], bs[:n_base], torch.stack(ws[n_base:]),
                  torch.stack(bs[n_base:]), t)
-        _, lse = ops.categorised_forward(name, h, *heads, compute_dtype=bf16)
+
+        def forward(name=name, heads=heads):
+            return ops.categorised_forward(name, h, *heads,
+                                           compute_dtype=bf16)
+
+        categorised_forward[f"{name} K={k_max}"] = cs.time_ms(
+            forward, reps=10, flush=flush)
+        _, lse = forward()
         args = (name, g, h, *heads, lse)
         if hasattr(ops, "categorised_backward"):
             def backward(args=args):
@@ -116,6 +123,7 @@ def main() -> int:
                                                       flush=flush)
     print(cs.card_line(), flush=True)
     print(json.dumps({"root": root, "ms": times,
+                      "categorised_forward_ms": categorised_forward,
                       "categorised_backward_ms": categorised}), flush=True)
     return 0
 
