@@ -43,9 +43,8 @@
 // that reduce_kernel sums in order: no atomics, results repeat bit for bit.
 // The (M, F, C) logits never reach device memory.  Four classes a group
 // (accumulators of 128 registers) spill the state; groups of two, with the
-// state in registers, were the fastest option that ptxas fits in 255
-// registers (SCVAE_CAT_FORWARD_GROUP, _SMEM_STATE and _MIN_BLOCKS select the
-// others, which tools/cat_forward_options.py builds, reads and times).
+// state in registers and two blocks an SM, were the fastest layout that
+// ptxas fits in 255 registers.
 //
 // cat_tc_gradient_kernel: given the forward's lse, each class's gradient
 // needs only its own activation, so the groups are independent.  Its
@@ -210,23 +209,9 @@ int launch_cat_tc(const CatGrad& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // The forward
 
-#ifndef SCVAE_CAT_FORWARD_GROUP
-#define SCVAE_CAT_FORWARD_GROUP 2
-#endif
-#ifndef SCVAE_CAT_FORWARD_SMEM_STATE
-#define SCVAE_CAT_FORWARD_SMEM_STATE 0
-#endif
-#ifndef SCVAE_CAT_FORWARD_MIN_BLOCKS
-#define SCVAE_CAT_FORWARD_MIN_BLOCKS 0
-#endif
-// Class heads per group of the forward; whether the softmax state lives in
-// shared memory rather than in registers; the blocks per SM it asks ptxas to
-// fit (0: two where their shared memory fits, else one).
-constexpr int kCatFwdGroup = SCVAE_CAT_FORWARD_GROUP;
-constexpr bool kCatFwdSmemState = SCVAE_CAT_FORWARD_SMEM_STATE != 0;
-constexpr int kCatFwdMinBlocks = SCVAE_CAT_FORWARD_MIN_BLOCKS;
-static_assert(kCatFwdGroup >= 1 && kCatFwdGroup <= 4,
-              "1 to 4 classes a group");
+// Class heads per group of the forward: two keep the softmax state in
+// registers beside the accumulators.
+constexpr int kCatFwdGroup = 2;
 
 // A thread's elements of the block's tile, in the accumulators' layout of
 // tc_mainloop: rows wm * 32 + 16 mi + lane / 4 + 8 half (row q = 2 mi +
@@ -249,52 +234,21 @@ struct CatFwd {
   int m, m_t, hp, f, fp, n_heads, k;
 };
 
-// Each element's online softmax state (running max, sum of exp(a - max)):
-// in registers, or (SMEM) in the thread's own slots of shared memory at p.
-template <bool SMEM>
-struct SoftmaxState {
-  float2 v[SMEM ? 1 : kCatElems];
-  float2* s;
-  __device__ __forceinline__ explicit SoftmaxState(unsigned char* p)
-      : s(reinterpret_cast<float2*>(p) + threadIdx.x) {}
-  __device__ __forceinline__ float2 get(int e) const {
-    if constexpr (SMEM) return s[e * kTcThreads];
-    else return v[e];
-  }
-  __device__ __forceinline__ void set(int e, float2 x) {
-    if constexpr (SMEM) s[e * kTcThreads] = x;
-    else v[e] = x;
-  }
-};
-
-constexpr size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
-
 // Shared memory of the base group's epilogue past its staged activations:
 // each element's selected class, a byte, and each row's base sum.
 constexpr size_t kCatBaseExtra = kTcRows * kTcTileN + sizeof(float) * kTcRows;
 
-// Dynamic shared memory of the forward: the ring of its largest group, or
-// the base group's staged activations and classes, or the last pass's
-// staged lse and row sums, whichever is largest; then the softmax state if
-// it lives there.
-template <class Fam>
-constexpr size_t kCatFwdRingSmem = max_size(
-    max_size(TcSmem<Fam::kHeads>::kBytes, TcSmem<kCatFwdGroup>::kBytes),
-    max_size(tc_heads_smem<Fam::kHeads>() + kCatBaseExtra,
-             sizeof(float) * (kTcRows * kTcActStride + kTcWarpsN * kTcRows)));
-
+// Dynamic shared memory of the forward: the ring of a class group, or the
+// base group's staged activations and classes, whichever is larger; the
+// last pass's staged lse and row sums fit in the latter.
 template <class Fam>
 constexpr size_t cat_fwd_smem() {
-  return kCatFwdRingSmem<Fam> +
-         (kCatFwdSmemState ? sizeof(float2) * kCatElems * kTcThreads : 0);
-}
-
-// kCatFwdMinBlocks, or two blocks per SM where their shared memory fits
-// (228 KB an SM, 1 KB of it reserved per block), else one.
-template <class Fam>
-constexpr int cat_fwd_min_blocks() {
-  if (kCatFwdMinBlocks > 0) return kCatFwdMinBlocks;
-  return 2 * (cat_fwd_smem<Fam>() + 1024) <= 228 * 1024 ? 2 : 1;
+  constexpr size_t base = tc_heads_smem<Fam::kHeads>() + kCatBaseExtra;
+  constexpr size_t ring = TcSmem<kCatFwdGroup>::kBytes;
+  static_assert(sizeof(float) * (kTcRows * kTcActStride + kTcWarpsN * kTcRows)
+                    <= base,
+                "the staged lse fits");
+  return base > ring ? base : ring;
 }
 
 // The base family's heads: the products, staged in shared memory, then an
@@ -389,12 +343,13 @@ __device__ __forceinline__ void cat_fwd_base(bf16* smem, const CatFwd& p,
 // read zeros and are not used): the products, then an epilogue straight
 // from the accumulators (it reads no shared memory, so the next group's
 // loads may start at once): each element's online softmax state, and the
-// selected class's logit into row_ll.
-template <class Fam, int NB, bool SMEM>
+// selected class's logit into row_ll.  st: each element's (running max,
+// sum of exp(a - max)).
+template <class Fam, int NB>
 __device__ __forceinline__ void cat_fwd_classes(
     bf16* smem, const CatFwd& p, int m0, int n0, int head0, int n,
     float (&row_ll)[kCatRowsQ], const uint32_t (&sel)[kCatElems / 4],
-    SoftmaxState<SMEM>& st) {
+    float2 (&st)[kCatElems]) {
   const int ldd = p.n_heads * p.fp;
   float acc[NB][kTcMI][4][4];
   const long long w0 = (long long)head0 * p.fp;
@@ -420,7 +375,7 @@ __device__ __forceinline__ void cat_fwd_classes(
       for (int q = 0; q < kCatRowsQ; ++q) {
         const int e = (4 * q + ni) * 2 + e2;
         const uint32_t cls = (sel[e / 4] >> (8 * (e % 4))) & 0xffu;
-        float2 s = st.get(e);
+        float2 s = st[e];
 #pragma unroll
         for (int hd = 0; hd < NB; ++hd) {
           if (hd < n) {
@@ -434,7 +389,7 @@ __device__ __forceinline__ void cat_fwd_classes(
             if (cls == (uint32_t)(c0 + hd)) row_ll[q] += a;
           }
         }
-        st.set(e, s);
+        st[e] = s;
       }
     }
   }
@@ -444,7 +399,7 @@ __device__ __forceinline__ void cat_fwd_classes(
 // heads, then the classes kCatFwdGroup at a time; then lse and the row sums
 // less lse, staged in shared memory and written a warp per row.
 template <class Fam>
-__global__ void __launch_bounds__(kTcThreads, cat_fwd_min_blocks<Fam>())
+__global__ void __launch_bounds__(kTcThreads, 2)
     cat_tc_forward_kernel(const CatFwd p) {
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(tc_smem_raw);
@@ -452,9 +407,9 @@ __global__ void __launch_bounds__(kTcThreads, cat_fwd_min_blocks<Fam>())
   float row_ll[kCatRowsQ];
   uint32_t sel[kCatElems / 4];
   cat_fwd_base<Fam>(smem, p, m0, n0, row_ll, sel);
-  SoftmaxState<kCatFwdSmemState> st(tc_smem_raw + kCatFwdRingSmem<Fam>);
+  float2 st[kCatElems];
 #pragma unroll
-  for (int e = 0; e < kCatElems; ++e) st.set(e, make_float2(-INFINITY, 0.0f));
+  for (int e = 0; e < kCatElems; ++e) st[e] = make_float2(-INFINITY, 0.0f);
   const int n_classes = p.n_heads - Fam::kHeads;
   for (int c0 = 0; c0 < n_classes; c0 += kCatFwdGroup)
     cat_fwd_classes<Fam, kCatFwdGroup>(
@@ -476,7 +431,7 @@ __global__ void __launch_bounds__(kTcThreads, cat_fwd_min_blocks<Fam>())
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
         const int c = wn * 32 + ni * 8 + 2 * (lane & 3) + e2;
-        const float2 s = st.get((4 * q + ni) * 2 + e2);
+        const float2 s = st[(4 * q + ni) * 2 + e2];
         const float lse = s.x + logf(s.y);
         stage[r * kTcActStride + c] = lse;
         if (m0 + r < p.m && n0 + c < p.f) row_ll[q] -= lse;

@@ -722,20 +722,17 @@ def tc_plan(m: int, hidden: int, f: int, n_heads: int,
     """Padded widths, grids, scratch shapes and product splits of the
     tensor-core K2/K3 for M = ``m`` rows, H = ``hidden``, F = ``f`` and
     ``n_heads`` heads, on a card that holds ``capacity[S]`` clusters of S
-    product blocks at once.  ``heads_grid``: (row tiles, gene tiles) of the
-    heads kernels, whose forwards write ``row_sums`` partials per gene tile
-    and whose gradient kernels write ``db_parts`` per row tile;
-    ``dh_splits`` / ``dw_splits``: (splits, depth stages per split,
+    product blocks at once.  The heads kernels' forwards write ``row_sums``
+    partials per gene tile, their gradient kernels ``db_parts`` per row
+    tile; ``dh_splits`` / ``dw_splits``: (splits, depth stages per split,
     promote)."""
     hp, fp = tc_padded(hidden), tc_padded(f)
     width = n_heads * fp
-    row_tiles, gene_tiles = _cdiv(m, TC_ROW_TILE), _cdiv(f, TC_GENE_TILE)
     return {
         "hp": hp, "fp": fp,
-        "heads_grid": (row_tiles, gene_tiles),
-        "row_sums": (gene_tiles, m),
+        "row_sums": (_cdiv(f, TC_GENE_TILE), m),
         "da": (m, width),
-        "db_parts": (row_tiles, width),
+        "db_parts": (_cdiv(m, TC_ROW_TILE), width),
         "dh_splits": _product_plan(m, hp, width, capacity),
         "dw_splits": _product_plan(hp, width, m, capacity),
     }

@@ -111,24 +111,27 @@ def test_tensor_core_forward_matches_jax_interpret(name, m_t):
 
 
 @pytest.mark.parametrize("m,f,n_heads,want", [
-    # ZINB-cat (14 heads) and Poisson-cat (32) at the headline shape: 32 x
-    # 32 blocks, partials per gene tile
-    (2048, 2048, 14, dict(heads_grid=(32, 32), row_sums=(32, 2048))),
-    (2048, 2048, 32, dict(heads_grid=(32, 32), row_sums=(32, 2048))),
+    # ZINB-cat (14 heads) and Poisson-cat (32) at the headline shape: 32
+    # gene tiles of forward partials, 32 row tiles of gradient column sums
+    (2048, 2048, 14, dict(row_sums=(32, 2048), db_parts=(32, 14 * 2048))),
+    (2048, 2048, 32, dict(row_sums=(32, 2048), db_parts=(32, 32 * 2048))),
     # a ragged F (the last gene tile 16 wide) and rows off the row tile
-    (300, 2000, 32, dict(fp=2000, heads_grid=(5, 32), row_sums=(32, 300))),
-    (70, 29, 14, dict(fp=32, heads_grid=(2, 1), row_sums=(1, 70))),
+    (300, 2000, 32, dict(fp=2000, row_sums=(32, 300),
+                         db_parts=(5, 32 * 2000))),
+    (70, 29, 14, dict(fp=32, row_sums=(1, 70), db_parts=(2, 14 * 32))),
 ])
 def test_tensor_core_forward_plan(m, f, n_heads, want):
-    """The forward's grid and its partial array: one block per 64 rows x 64
-    genes, one row of partials per gene tile, whatever the head count."""
+    """The heads kernels' partial arrays, which the wrappers allocate from
+    the plan: the forward's one row per 64-gene tile, the gradient
+    kernel's one row per 64-row tile, whatever the head count."""
     plan = tfl.tc_plan(m, 256, f, n_heads)
     assert {k: plan[k] for k in want} == want
-    row_tiles, gene_tiles = plan["heads_grid"]
-    assert (row_tiles - 1) * tfl.TC_ROW_TILE < m <= row_tiles * tfl.TC_ROW_TILE
+    gene_tiles, rows = plan["row_sums"]
+    assert rows == m
     assert ((gene_tiles - 1) * tfl.TC_GENE_TILE < f
             <= gene_tiles * tfl.TC_GENE_TILE)
-    assert plan["db_parts"][0] == row_tiles
+    row_tiles = plan["db_parts"][0]
+    assert (row_tiles - 1) * tfl.TC_ROW_TILE < m <= row_tiles * tfl.TC_ROW_TILE
 
 
 @pytest.mark.parametrize("name", BASES)
