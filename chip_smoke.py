@@ -7,8 +7,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training paths (and the float32 K2/K3,
-             which no training path launches) against its plain PyTorch
+3. kernels — every kernel of the training paths (and the float32 K2/K3, K6
+             and K7, which no training path launches) against its plain PyTorch
              version on the same inputs at the headline shapes (68,579
              cells × 2,048 genes, minibatch 2,048, decoder width 256) for
              every likelihood family, the categorised instances with 14 heads (ZINB,
@@ -117,9 +117,12 @@ F32_FLOPS = 67e12
 # values that the other order rounds to a neighbouring bf16 value (NB's dW
 # reads ~1.3e-4; a kernel that leaves da or h unrounded reads 1.1e-3 to
 # 2.6e-3).  Float32 backward against autograd, the constrained Poisson's
-# backward (which never rounds) and the small step on the GPU against the CPU
-# (gradients over the largest gradient of the model): summation order alone
-# (reads up to 2e-6).
+# backward (which never rounds) and the small step on the GPU against the
+# CPU (gradients over the largest gradient of the model): summation order
+# alone (reads up to 2e-6).  The constrained Poisson's bf16 kernels split W
+# and da into two bf16 terms each, which leave at most 2^-16 of each value:
+# the plain versions of that design read up to 4.4e-6 of the largest dh or
+# dW against the float32 plain versions (tools/cp_split_precision.py).
 FORWARD_RTOL = 2e-5
 BACKWARD_RTOL = 4e-4
 AUTOGRAD_RTOL = 2e-5
@@ -138,7 +141,8 @@ SOURCES = {
     "count": CSRC + "count_likelihood_tc.cu",
     "count_float32": CSRC + "count_likelihood.cu",
     "product": CSRC + "tc_product.cu",
-    "cp": CSRC + "cp_likelihood.cu",
+    "cp": CSRC + "cp_likelihood_tc.cu",
+    "cp_float32": CSRC + "cp_likelihood.cu",
     "cat": CSRC + "categorised_likelihood.cu",
     "cat_tc": CSRC + "categorised_likelihood_tc.cu",
     "grouped": CSRC + "grouped_likelihood.cu",
@@ -506,80 +510,186 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
 
 
 def check_cp(h, g, x, gen, flush):
-    """K6 and both K7 passes in their own precision (h with bf16 values, as
-    training in bf16 hands it over, against float32 W; nothing else rounds):
-    forward ll and lse, ragged F and float32 targets; the backward against
-    the plain backward, and in float32 against autograd; then their times."""
+    """K6 and K7 of the constrained Poisson.  The training path's bf16
+    instance (h a bf16 tensor against float32 W, split into bf16 terms on
+    the tensor cores): the forward's ll, lse and partials per gene tile
+    (ragged F, float32 targets) against its plain version and within
+    FORWARD_RTOL of the float32 plain version, lse bit for bit over two
+    runs; the backward kernel by kernel (the gradient kernel's da terms and
+    row-tile sums, the dh and dW products of its scratch, bit for bit over
+    two runs) and as a whole within AUTOGRAD_RTOL of the float32 plain
+    backward.  The float32 instance (float32 h, CUDA cores, no training
+    launch) against its plain version and autograd.  Then their times."""
     from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
 
     m, hidden = h.shape
     f = x.shape[1]
     (w,), (b,) = head_weights(gen, 1, hidden, f, h.device)
-    hv = h.to(torch.bfloat16).float()
+    hb = h.to(torch.bfloat16)
+    hv = hb.float()
     n = x.float().sum(-1)  # the batch rows' count sums
     xr = x[:, :2000].contiguous()
-    full = (hv, w, b, x, n)
-    ragged = (hv, w[:, :2000].contiguous(), b[:2000].contiguous(), xr,
+    full = (hb, w, b, x, n)
+    ragged = (hb, w[:, :2000].contiguous(), b[:2000].contiguous(), xr,
               xr.float().sum(-1))
-    for args in (full, ragged, (hv, w, b, x.float(), n)):
-        ll, lse = ops.cp_forward(*args)
-        ll_ref, lse_ref = ops.reference_cp_forward(*args)
+    for args in (full, ragged, (hb, w, b, x.float(), n)):
+        ll, lse, part = fl.cp_tc_forward(*args)
+        ll_p, lse_p, part_p = fl.reference_cp_tc_forward(*args)
+        ll32, lse32 = ops.reference_cp_forward(hv, *args[1:])
         label = f"F={args[3].shape[1]} t={args[3].dtype}"
-        err = check_close(f"cp_forward ll {label}", ll, ll_ref, FORWARD_RTOL)
-        check_close(f"cp_forward lse {label}", lse, lse_ref, FORWARD_RTOL)
+        err = check_close(f"cp_forward ll {label}", ll, ll_p, FORWARD_RTOL)
+        check_close(f"cp_forward lse {label}", lse, lse_p, FORWARD_RTOL)
+        for q, part_name in enumerate(("max", "sumexp", "ll", "sum t")):
+            check_close(f"cp_forward partials {part_name} {label}", part[q],
+                        part_p[q], FORWARD_RTOL)
+        check_close(f"cp_forward ll {label} vs float32 plain", ll, ll32,
+                    FORWARD_RTOL)
+        check_close(f"cp_forward lse {label} vs float32 plain", lse, lse32,
+                    FORWARD_RTOL)
         if args is full:
-            fwd_err, lse_full = err, lse
+            fwd_err, lse_main = err, lse
+    if not torch.equal(fl.cp_tc_forward(*full)[1], lse_main):
+        raise AssertionError("cp_forward: lse differs between two runs")
+    # the whole bf16 backward against the float32 plain backward, which
+    # multiplies the unrounded W and da
     for args in (full, ragged):
         hh, w_, b_, t, n_ = args
         _, lse = ops.cp_forward(*args)
-        _, lse_ref = ops.reference_cp_forward(*args)
-        got = (ops.cp_backward_dh(g, hh, w_, b_, t, lse),
-               *ops.cp_backward_dw(g, hh, w_, b_, t, lse))
-        want = (ops.reference_cp_dh(g, hh, w_, b_, t, lse_ref),
-                *ops.reference_cp_dw(g, hh, w_, b_, t, lse_ref))
-        errs = [check_close(f"cp_backward {part} F={t.shape[1]}", a, b_ref,
-                            AUTOGRAD_RTOL)
-                for part, a, b_ref in zip(("dh", "dW", "db"), got, want)]
-        if args is full:
-            dh_err, dw_err = errs[0], max(errs[1:])
+        _, lse32 = ops.reference_cp_forward(hv, w_, b_, t, n_)
+        got = ops.cp_backward(g, hh, w_, b_, t, lse)
+        want = (ops.reference_cp_dh(g, hv, w_, b_, t, lse32),
+                *ops.reference_cp_dw(g, hv, w_, b_, t, lse32))
+        for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want,
+                                       strict=True):
+            check_close(f"cp_backward {part_name} F={t.shape[1]} vs float32 "
+                        "plain", a, b_ref, AUTOGRAD_RTOL)
+    # kernel by kernel on the main path's inputs: the gradient kernel's da_0
+    # within one bf16 step of the plain da_0 from the same lse, da_0 + da_1
+    # and the row-tile sums; the products of its own scratch
+    grad = fl.cp_tc_gradient(g, hb, w, b, x, lse_main)
+    plain = fl.reference_cp_tc_gradient(g, hb, w, b, x, lse_main)
+    got, want = (z.da.reshape(m, len(fl.cp_term_pairs()), -1)
+                 for z in (grad, plain))
+    if not torch.equal(got[:, 0], got[:, 1]):
+        raise AssertionError("cp_backward_gradient: the copies of da_0 differ")
+    check_bf16_steps("cp_backward_gradient da_0", got[:, 0], want[:, 0])
+    grad_err = check_close("cp_backward_gradient da_0 + da_1",
+                           got[:, 0].float() + got[:, 2].float(),
+                           want[:, 0].float() + want[:, 2].float(),
+                           PRODUCT_RTOL)
+    check_close("cp_backward_gradient db row-tile sums", grad.db_parts,
+                plain.db_parts, PRODUCT_RTOL)
+    dh = fl.tc_dh(grad)
+    dh_err = check_close("cp_backward_dh of the kernel's da terms", dh,
+                         fl.reference_tc_dh(grad), PRODUCT_RTOL)
+    dw = fl.tc_dw(grad)
+    dw_err = max(check_close(f"cp_backward_dw [{i}] of the kernel's da terms",
+                             a, b_ref, PRODUCT_RTOL)
+                 for i, (a, b_ref) in enumerate(zip(
+                     dw, fl.reference_tc_dw(grad), strict=True)))
+    again = (fl.tc_dh(grad), *fl.tc_dw(grad))
+    if not all(torch.equal(a, b_) for a, b_ in zip((dh, *dw), again)):
+        raise AssertionError("cp_backward products differ between two runs")
+
+    # the float32 instance (CUDA cores): against its plain version, and
+    # against autograd through the plain forward
+    f32_full = (hv, w, b, x, n)
+    ll, lse = ops.cp_forward(*f32_full)
+    ll_ref, lse_ref = ops.reference_cp_forward(*f32_full)
+    f32_errs = {"forward": check_close("cp_forward float32 ll", ll, ll_ref,
+                                       FORWARD_RTOL)}
+    check_close("cp_forward float32 lse", lse, lse_ref, FORWARD_RTOL)
+    lse_f32 = lse
+    got = ops.cp_backward(g, hv, w, b, x, lse)
+    want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
+            *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
+    errs = [check_close(f"cp_backward float32 {part_name}", a, b_ref,
+                        AUTOGRAD_RTOL)
+            for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want)]
+    f32_errs.update(backward_dh=errs[0], backward_dw=max(errs[1:]))
     leaves = [a.clone().requires_grad_(True) for a in (h, w, b)]
     ll, _ = ops.reference_cp_forward(*leaves, x, n)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
     _, lse = ops.cp_forward(h, w, b, x, n)
-    got = (ops.cp_backward_dh(g, h, w, b, x, lse),
-           *ops.cp_backward_dw(g, h, w, b, x, lse))
-    for part, a, b_ref in zip(("dh", "dW", "db"), got, want):
-        check_close(f"cp_backward float32 {part} vs autograd", a, b_ref,
+    got = ops.cp_backward(g, h, w, b, x, lse)
+    for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want):
+        check_close(f"cp_backward float32 {part_name} vs autograd", a, b_ref,
                     AUTOGRAD_RTOL)
 
-    # The head product multiplies float32 weights: the float32 rate bounds it.
-    fwd_flops = 2 * m * hidden * f
+    # Bounds: the bf16 instance by the larger of its bytes and the
+    # function's product, 2·M·H·F counted once however many terms the
+    # design splits it into, at the bf16 tensor-core rate; the float32
+    # instance by the float32 rate outside the tensor cores.
+    product = 2 * m * hidden * f
     head_bytes = (hidden * f + f) * 4
-    in_bytes = m * hidden * 4 + head_bytes + m * f * 2 + m * 4
+    t_bytes = m * f * x.element_size()
+    in_bytes = m * hidden * 2 + head_bytes + t_bytes + m * 4
+    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
+    timed = dict(flush=flush)
+    w2 = grad.w.reshape(grad.w.shape[0], -1)
     results = {}
-    t_bound, by = bound(in_bytes + 2 * m * 4, fwd_flops, F32_FLOPS)
-    results["cp_forward"] = {
-        "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.cp_forward(*full), flush=flush),
-        "plain_ms": time_ms(lambda: ops.reference_cp_forward(*full),
-                            flush=flush),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-    }
-    bwd_in = in_bytes + 2 * m * 4  # and lse, Σt
-    for kernel, err, nbytes, fn, plain in (
-        ("cp_backward_dh", dh_err, bwd_in + m * hidden * 4,
-         ops.cp_backward_dh, ops.reference_cp_dh),
-        ("cp_backward_dw", dw_err, bwd_in + head_bytes,
-         ops.cp_backward_dw, ops.reference_cp_dw),
+    for kernel, fn, plain_fn, library, err, nbytes in (
+        ("cp_forward", lambda: ops.cp_forward(*full),
+         lambda: fl.reference_cp_tc_forward(*full), None, fwd_err,
+         in_bytes + 2 * m * 4),
+        ("cp_backward_gradient",
+         lambda: fl.cp_tc_gradient(g, hb, w, b, x, lse_main),
+         lambda: fl.reference_cp_tc_gradient(g, hb, w, b, x, lse_main), None,
+         grad_err, in_bytes + 2 * m * 4 + da_bytes),
+        ("cp_backward_dh", lambda: fl.tc_dh(grad),
+         lambda: fl.reference_tc_dh(grad),
+         lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
+         grad.da.numel() * 2 + grad.w.numel() * 2 + m * hidden * 4),
+        ("cp_backward_dw", lambda: fl.tc_dw(grad),
+         lambda: fl.reference_tc_dw(grad), None, dw_err,
+         grad.h.numel() * 2 + da_bytes + head_bytes),
     ):
-        t_bound, by = bound(nbytes, 2 * fwd_flops, F32_FLOPS)
+        t_bound, by = bound(nbytes, product, BF16_FLOPS)
+        library_ms = None
+        if library is not None:
+            try:  # torch.mm with a float32 output from bf16 operands
+                library_ms = time_ms(library, **timed)
+            except (RuntimeError, TypeError) as err_:
+                log(f"library call for {kernel} unavailable: {err_}")
         results[kernel] = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda fn=fn: fn(g, hv, w, b, x, lse_full),
-                          flush=flush),
-            "plain_ms": time_ms(lambda plain=plain: plain(
-                g, hv, w, b, x, lse_full), flush=flush),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed), "bound_ms": t_bound,
+            "bound_by": by, "library_ms": library_ms,
+        }
+    # the public calls against the float32 plain versions of the function
+    plain32 = {
+        "forward": (lambda: ops.cp_forward(*full),
+                    lambda: ops.reference_cp_forward(*f32_full)),
+        "backward": (lambda: ops.cp_backward(g, hb, w, b, x, lse_main),
+                     lambda: (ops.reference_cp_dh(g, hv, w, b, x, lse_main),
+                              *ops.reference_cp_dw(g, hv, w, b, x,
+                                                   lse_main))),
+    }
+    print("cp bf16 public calls against the float32 plain versions: "
+          + "; ".join(f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
+                      f"{time_ms(plain_fn, **timed):.4f} ms)"
+                      for label, (fn, plain_fn) in plain32.items()),
+          flush=True)
+
+    f32_in = m * hidden * 4 + head_bytes + t_bytes + m * 4
+    bwd_in = f32_in + 2 * m * 4  # and lse, Σt
+    for kernel, err, nbytes, flops, fn, plain_fn in (
+        ("forward", f32_errs["forward"], f32_in + 2 * m * 4, product,
+         lambda: ops.cp_forward(*f32_full),
+         lambda: ops.reference_cp_forward(*f32_full)),
+        ("backward_dh", f32_errs["backward_dh"], bwd_in + m * hidden * 4,
+         2 * product, lambda: ops.cp_backward_dh(g, hv, w, b, x, lse_f32),
+         lambda: ops.reference_cp_dh(g, hv, w, b, x, lse_f32)),
+        ("backward_dw", f32_errs["backward_dw"], bwd_in + head_bytes,
+         2 * product, lambda: ops.cp_backward_dw(g, hv, w, b, x, lse_f32),
+         lambda: ops.reference_cp_dw(g, hv, w, b, x, lse_f32)),
+    ):
+        t_bound, by = bound(nbytes, flops, F32_FLOPS)
+        results[f"cp_{kernel}_float32"] = {
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed), "bound_ms": t_bound,
+            "bound_by": by, "library_ms": None,
         }
     return results
 
@@ -907,7 +1017,7 @@ def check_grouped(name, x, gen, flush, n_groups):
 
 def check_wide(x, g, gen):
     """Decoder width 1,024 (four hidden chunks): NB, ZINB and the
-    constrained Poisson against their plain versions.  The base families'
+    constrained Poisson (both instances) against their plain versions.  The base families'
     backward is checked in float32, where nothing rounds: with bf16 da the
     roundings that a different summation order flips grow with the
     activations and with the steepness of the gradient (ZINB's dW_p read
@@ -933,18 +1043,21 @@ def check_wide(x, g, gen):
         for i, (a, b) in enumerate(zip(got, want)):
             check_close(f"{name} backward float32 [{i}] H={WIDE_HIDDEN}", a,
                         b, AUTOGRAD_RTOL)
+    # the constrained Poisson, float32 h (CUDA cores) and bf16 h (tensor
+    # cores), each against the float32 plain versions
     (w,), (b,) = head_weights(gen, 1, WIDE_HIDDEN, f, x.device)
     hv, n = h.to(bf16).float(), x.float().sum(-1)
-    ll, lse = ops.cp_forward(hv, w, b, x, n)
     ll_ref, lse_ref = ops.reference_cp_forward(hv, w, b, x, n)
-    check_close(f"cp_forward H={WIDE_HIDDEN}", ll, ll_ref, FORWARD_RTOL)
-    got = (ops.cp_backward_dh(g, hv, w, b, x, lse),
-           *ops.cp_backward_dw(g, hv, w, b, x, lse))
     want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
             *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
-    for i, (a, b_ref) in enumerate(zip(got, want)):
-        check_close(f"cp_backward [{i}] H={WIDE_HIDDEN}", a, b_ref,
-                    AUTOGRAD_RTOL)
+    for hh in (hv, hv.to(bf16)):
+        ll, lse = ops.cp_forward(hh, w, b, x, n)
+        check_close(f"cp_forward H={WIDE_HIDDEN} h={hh.dtype}", ll, ll_ref,
+                    FORWARD_RTOL)
+        got = ops.cp_backward(g, hh, w, b, x, lse)
+        for i, (a, b_ref) in enumerate(zip(got, want, strict=True)):
+            check_close(f"cp_backward [{i}] H={WIDE_HIDDEN} h={hh.dtype}", a,
+                        b_ref, AUTOGRAD_RTOL)
 
 
 def phase_kernels(counts_dev):
@@ -1035,7 +1148,9 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda"):
     module = gmvae if isinstance(config, gmvae.GMVAEConfig) else vae
     dev = torch.device(device)
     n_cells = counts.shape[0]
-    arrays = build_model_arrays(DataSet(counts))
+    arrays = build_model_arrays(
+        DataSet(counts),
+        use_count_sum_as_parameter=config.use_count_sum_as_parameter)
     data = api._append_lgamma_rowsum(device_resident_data(arrays, device=dev),
                                      config)
     optimizer = step.make_optimizer(config.learning_rate)
@@ -1099,9 +1214,8 @@ def train_config(label, model, name, k_max, counts, card):
     prefix = ("cp" if name == "constrained poisson"
               else ops.FAMILIES[name].prefix)
     prefix = f"cat_{prefix}" if k_max else prefix
-    kernels = ["forward", "backward_dh", "backward_dw"]
-    if name in ops.FAMILIES:  # the bf16 backward's first kernel
-        kernels.append("backward_gradient")
+    # the bf16 backward: its gradient kernel, then the dh and dW products
+    kernels = ["forward", "backward_gradient", "backward_dh", "backward_dw"]
     ours = {f"{prefix}_{kernel}" for kernel in kernels}
     for kernel, count in launches.items():
         want = steps if kernel in ours else 0
@@ -1355,7 +1469,13 @@ def main() -> int:
             return SOURCES["gather"], REPLACES[name]
         kind = "forward" if "forward" in name else "backward"
         if name.startswith("cp_"):
-            return SOURCES["cp"], REPLACES["cp_" + kind]
+            if "_float32" in name:
+                file = "cp_float32"
+            elif "backward_dh" in name or "backward_dw" in name:
+                file = "product"
+            else:
+                file = "cp"
+            return SOURCES[file], REPLACES["cp_" + kind]
         if "_grouped_" in name:
             return SOURCES["grouped"], REPLACES["grouped_" + kind]
         cat = name.startswith("cat_")

@@ -17,6 +17,7 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     categorised_backward_dh,
     categorised_backward_dw,
     categorised_forward,
+    cp_backward,
     cp_backward_dh,
     cp_backward_dw,
     cp_forward,
@@ -80,6 +81,7 @@ __all__ = [
     "categorised_backward_dh",
     "categorised_backward_dw",
     "categorised_forward",
+    "cp_backward",
     "cp_backward_dh",
     "cp_backward_dw",
     "cp_forward",

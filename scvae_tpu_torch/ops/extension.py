@@ -20,8 +20,9 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood.cu", "count_likelihood_tc.cu",
-           "tc_product.cu", "cp_likelihood.cu", "categorised_likelihood.cu",
-           "categorised_likelihood_tc.cu", "grouped_likelihood.cu")
+           "tc_product.cu", "cp_likelihood.cu", "cp_likelihood_tc.cu",
+           "categorised_likelihood.cu", "categorised_likelihood_tc.cu",
+           "grouped_likelihood.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -72,6 +73,12 @@ _SIGNATURES = {
                              _I, _P],
     # g, h, w, b, t, t_dtype, lse, sx, dw, db, m, m_t, hidden, f, stream
     "scvae_cp_backward_dw": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
+    # h, w, b, t, t_dtype, n, part, ll, lse, m, m_t, hp, f, stream
+    "scvae_cp_tc_forward": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P],
+    # g, h, w, b, t, t_dtype, lse, sx, da, db_part, m, m_t, hp, f, stream
+    "scvae_cp_tc_gradient": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
     # family, h, heads, cw, cb, n_classes, t, t_dtype, out, lse, m, m_t,
     # hidden, f, round, stream

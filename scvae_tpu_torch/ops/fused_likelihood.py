@@ -233,7 +233,9 @@ LAUNCHES = {
     f"{fam.prefix}_grouped_{kernel}": 0
     for fam in FAMILIES.values() for kernel in _KERNELS
 }
-LAUNCHES.update({f"cp_{kernel}": 0 for kernel in _KERNELS})
+LAUNCHES.update({f"cp_{kernel}{suffix}": 0 for kernel in _KERNELS
+                 for suffix in ("", "_float32")})
+LAUNCHES["cp_backward_gradient"] = 0
 
 
 def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
@@ -904,9 +906,11 @@ def tc_dh(grad: TcGradient) -> torch.Tensor:
 
 def tc_dw_stacked(grad: TcGradient) -> tuple[torch.Tensor, torch.Tensor]:
     """(dW (NH, H, F), db (NH, F)) with dW_k = hᵀ bf16(da_k) and db_k =
-    Σ_rows da_k, from the first kernel's outputs."""
-    plan, m = grad.plan, grad.da.shape[0]
-    n_heads = grad.w.shape[1]
+    Σ_rows da_k, from the first kernel's outputs.  The product's depth is
+    the rows of ``grad.h``, over which ``grad.da`` lies as rows of NH·Fp
+    (the constrained Poisson's: NH = 1 over its pairs of terms)."""
+    plan, m = grad.plan, grad.h.shape[0]
+    n_heads = grad.db_parts.shape[1] // plan["fp"]
     dev = grad.da.device
     shapes = ((n_heads, grad.hidden, grad.f), (n_heads, grad.f))
     if m == 0:
@@ -985,8 +989,10 @@ def reference_tc_dh(grad: TcGradient) -> torch.Tensor:
 def reference_tc_dw_stacked(grad: TcGradient):
     """Plain version of :func:`tc_dw_stacked`: the float32 product of the
     same bf16 operands and the sum of the row tiles' column sums."""
-    n_heads, fp = grad.w.shape[1:]
-    dw = (grad.h.float().T @ grad.da.float()).reshape(-1, n_heads, fp)
+    fp = grad.plan["fp"]
+    n_heads = grad.db_parts.shape[1] // fp
+    da = grad.da.float().reshape(grad.h.shape[0], -1)
+    dw = (grad.h.float().T @ da).reshape(-1, n_heads, fp)
     db = grad.db_parts.sum(0).reshape(n_heads, fp)
     return (dw[:grad.hidden, :, :grad.f].permute(1, 0, 2),
             db[:, :grad.f])
@@ -996,6 +1002,225 @@ def reference_tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
     """Plain version of :func:`tc_dw`."""
     dw, db = reference_tc_dw_stacked(grad)
     return tuple(x for k in range(dw.shape[0]) for x in (dw[k], db[k]))
+
+
+# --------------------------------------------------------------------------
+# bf16 K6 / K7 on the tensor cores (ops/csrc/cp_likelihood_tc.cu, then the
+# products of tc_product.cu)
+#
+# The JAX kernels multiply h, which holds bf16 values when training in bf16,
+# by the unrounded float32 W, and the backward multiplies the float32 da.  So
+# W and da go to the tensor cores as sums of bf16 terms: x_0 = bf16(x),
+# x_1 = bf16(x − x_0), …, each term the bf16 rounding of what the terms
+# before it leave (an exact float32 difference), so that two terms leave at
+# most 2⁻¹⁶|x| and three 2⁻²⁴|x| (bf16 keeps 8 significant bits).  The
+# products multiply the pairs of terms (da_i, W_j) with i + j < CP_TERMS,
+# laid along the depth of one product; with two terms
+#
+#   a  = h W_0 + h W_1 + b                     (float32 sums, term order)
+#   dh = [da_0 | da_0 | da_1] [W_0 | W_1 | W_0]ᵀ
+#   dW = hᵀ da_0 + hᵀ da_1,  db = Σ_rows da    (da unrounded for db)
+#
+# W's terms sit in _tc_operands' heads layout W (Hp, P, Fp), one head per
+# pair holding its W_j: the first CP_TERMS heads are W_0, W_1, …, which the
+# forward reads.  The gradient kernel recomputes a exactly as the forward
+# did, so exp(a − lse) uses the very a that the forward summed, and writes
+# each pair's da_i into a (M, P·Fp) scratch, which dh reads as it lies and
+# dW as P·M rows of Fp against h repeated once per pair, zero where the
+# pair's j > 0 (each da_i counted once).  tools/cp_split_precision.py reads
+# the errors against the number of terms.
+# --------------------------------------------------------------------------
+
+CP_TERMS = 2  # bf16 terms of W and of da
+CP_PARTIALS = 4  # per row and gene tile: max a, Σ exp(a − max), Σ ll, Σ t
+
+
+def cp_term_pairs(terms: int = CP_TERMS) -> list[tuple[int, int]]:
+    """The (da term, W term) pairs (i, j) with i + j < ``terms`` that the
+    products multiply, by i, then j."""
+    return [(i, j) for i in range(terms) for j in range(terms - i)]
+
+
+def split_bf16(x: torch.Tensor, terms: int = CP_TERMS) -> list[torch.Tensor]:
+    """``terms`` bf16 tensors whose float32 sum approximates x: x_0 =
+    bf16(x), x_k = bf16(x − x_0 − … − x_(k−1))."""
+    rest = x.float()
+    out = [rest.to(torch.bfloat16)]
+    for _ in range(terms - 1):
+        rest = rest - out[-1]  # exact: float32 less its own bf16 rounding
+        out.append(rest.to(torch.bfloat16))
+    return out
+
+
+def cp_tc_plan(m: int, hidden: int, f: int, terms: int = CP_TERMS,
+               capacity: dict = TC_CLUSTER_CAPACITY) -> dict:
+    """:func:`tc_plan` of the bf16 CP kernels: the forward's ``partials``
+    (CP_PARTIALS, F tiles, M), the da scratch (M, P·Fp) of the P pairs of
+    terms, db's ``db_parts`` (row tiles, Fp), and the products' splits (dh
+    over depth P·Fp, dW over P·M rows)."""
+    pairs = len(cp_term_pairs(terms))
+    plan = tc_plan(m, hidden, f, pairs, capacity)
+    del plan["row_sums"]
+    plan.update(
+        partials=(CP_PARTIALS, _cdiv(f, TC_GENE_TILE), m),
+        db_parts=(_cdiv(m, TC_ROW_TILE), plan["fp"]),
+        dw_splits=_product_plan(plan["hp"], plan["fp"], pairs * m, capacity),
+    )
+    return plan
+
+
+def _cp_tc_operands(h, w, b, terms):
+    """bf16 h (M, Hp) and W's terms per pair (Hp, P, Fp), zero-padded, and
+    b (1, F) in float32."""
+    hidden, f = w.shape
+    hp, fp = tc_padded(hidden), tc_padded(f)
+    hb = h.to(torch.bfloat16)
+    if hp != hidden:
+        hb = torch.nn.functional.pad(hb, (0, hp - hidden))
+    w_terms = split_bf16(w, terms)
+    w_pairs = torch.stack([w_terms[j] for _, j in cp_term_pairs(terms)], 1)
+    if (hp, fp) != (hidden, f):
+        w_pairs = torch.nn.functional.pad(w_pairs,
+                                          (0, fp - f, 0, 0, 0, hp - hidden))
+    return hb.contiguous(), w_pairs, b.float().reshape(1, f).contiguous()
+
+
+def _cp_dw_rows(hb: torch.Tensor, terms: int) -> torch.Tensor:
+    """The dW product's rows (M·P, Hp): h once per pair, zero where the
+    pair's W term is not the first."""
+    zeros = torch.zeros_like(hb)
+    rows = [hb if j == 0 else zeros for _, j in cp_term_pairs(terms)]
+    return torch.stack(rows, 1).reshape(-1, hb.shape[1])
+
+
+def _cp_tc_activations(h, w, b, terms):
+    """a (M, F): h's bf16 values times each W term, summed in float32 in
+    term order, then b."""
+    hf = h.to(torch.bfloat16).float()
+    a = 0.0
+    for w_j in split_bf16(w, terms):
+        a = a + hf @ w_j.float()
+    return a + b.float()
+
+
+def _cp_merge(partials, n):
+    """(ll, lse) per row from the partials (CP_PARTIALS, F tiles, M), merged
+    tile by tile in order: (m, s) + (m', s') = (M, s e^(m − M) +
+    s' e^(m' − M))."""
+    mx, se, acc, sx = (p[0] for p in partials)
+    for k in range(1, partials.shape[1]):
+        m_k, s_k, acc_k, sx_k = (p[k] for p in partials)
+        mm = torch.maximum(mx, m_k)
+        se = se * torch.exp(mx - mm) + s_k * torch.exp(m_k - mm)
+        mx, acc, sx = mm, acc + acc_k, sx + sx_k
+    lse = mx + torch.log(se)
+    n = n.float()
+    return acc - sx * (lse - torch.log(n)) - n, lse
+
+
+def reference_cp_tc_forward(h, w, b, t, n, terms=CP_TERMS):
+    """Plain version of :func:`cp_tc_forward`, with its layout: (ll (M,),
+    lse (M,), partials (CP_PARTIALS, F tiles, M)), the partials per gene
+    tile of each row being the max of a, Σ exp(a − max), Σ (t·a −
+    lgamma(1 + t)) and Σ t over the tile's genes."""
+    a = _cp_tc_activations(h, w, b, terms)
+    m, f = a.shape
+    tiles = _cdiv(f, TC_GENE_TILE)
+    tt = _cycle_rows(t.float(), m)
+
+    def tiled(x, fill):
+        out = torch.full((m, tiles * TC_GENE_TILE), fill, dtype=torch.float32,
+                         device=a.device)
+        out[:, :f] = x
+        return out.reshape(m, tiles, TC_GENE_TILE)
+
+    at = tiled(a, -math.inf)
+    tile_max = at.amax(-1)
+    partials = torch.stack([
+        tile_max,
+        torch.exp(at - tile_max[..., None]).sum(-1),
+        tiled(tt * a - lgamma(1.0 + tt), 0.0).sum(-1),
+        tiled(tt, 0.0).sum(-1),
+    ]).transpose(1, 2).contiguous()
+    return (*_cp_merge(partials, n), partials)
+
+
+def reference_cp_tc_gradient(g, h, w, b, t, lse,
+                             terms=CP_TERMS) -> TcGradient:
+    """Plain version of :func:`cp_tc_gradient`, with its layout: da =
+    g·(t − (Σt)·exp(a − lse)) split into bf16 terms, da_i per pair
+    (M, P·Fp), zero past F, and the column sums of the unrounded da per row
+    tile (row tiles, Fp); h as the dW product reads it."""
+    m, hidden = h.shape
+    f = t.shape[-1]
+    plan = cp_tc_plan(m, hidden, f, terms)
+    hb, w_pairs, _ = _cp_tc_operands(h, w, b, terms)
+    tt = _cycle_rows(t.float(), m)
+    a = _cp_tc_activations(h, w, b, terms)
+    padded = torch.zeros((m, plan["fp"]), dtype=torch.float32, device=a.device)
+    padded[:, :f] = g.float()[:, None] * (
+        tt - tt.sum(-1, keepdim=True) * torch.exp(a - lse.float()[:, None]))
+    da_terms = split_bf16(padded, terms)
+    da = torch.stack([da_terms[i] for i, _ in cp_term_pairs(terms)], 1)
+    tiles = plan["db_parts"][0]
+    rows = torch.zeros((tiles * TC_ROW_TILE, plan["fp"]), dtype=torch.float32,
+                       device=a.device)
+    rows[:m] = padded
+    db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
+    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb, terms), w_pairs,
+                      da.reshape(plan["da"]), db_parts)
+
+
+def cp_tc_forward(h, w, b, t, n):
+    """Launch the bf16 K6 (``h`` a bf16 tensor, W float32): (ll (M,), lse
+    (M,), the partials per gene tile (CP_PARTIALS, F tiles, M) that a
+    second kernel merges in order)."""
+    t = _validated(h, [w], [b], t, n)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = cp_tc_plan(m, hidden, f)
+    hb, w_pairs, b2 = _cp_tc_operands(h, w, b, CP_TERMS)
+    dev = h.device
+    n = n.float().contiguous()
+    ll, lse = (torch.empty((m,), dtype=torch.float32, device=dev)
+               for _ in range(2))
+    partials = torch.empty(plan["partials"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cp_tc_forward", dev, hb.data_ptr(), w_pairs.data_ptr(),
+        b2.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], n.data_ptr(),
+        partials.data_ptr(), ll.data_ptr(), lse.data_ptr(), m, t.shape[0],
+        plan["hp"], f,
+    )
+    LAUNCHES["cp_forward"] += 1
+    return ll, lse, partials
+
+
+def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
+    """Launch the bf16 K7's first kernel for row cotangents ``g`` and the
+    forward's ``lse``: the activations again, the da terms per pair and the
+    column sums of da per row tile, for the products :func:`tc_dh` and
+    :func:`tc_dw`."""
+    t = _validated(h, [w], [b], t, g, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = cp_tc_plan(m, hidden, f)
+    hb, w_pairs, b2 = _cp_tc_operands(h, w, b, CP_TERMS)
+    dev = h.device
+    g, lse = g.float().contiguous(), lse.float().contiguous()
+    # Σ_f t per target row, a plain reduction outside the kernels as in the
+    # JAX package's backward
+    sx = t.sum(-1, dtype=torch.float32)
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cp_tc_gradient", dev, g.data_ptr(), hb.data_ptr(),
+        w_pairs.data_ptr(), b2.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), sx.data_ptr(), da.data_ptr(), db_parts.data_ptr(), m,
+        t.shape[0], plan["hp"], f,
+    )
+    LAUNCHES["cp_backward_gradient"] += 1
+    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb, CP_TERMS),
+                      w_pairs, da, db_parts)
 
 
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
@@ -1108,8 +1333,14 @@ def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
 
 
 def cp_forward(h, w, b, t, n):
-    """(ll (M,), lse (M,)) of the constrained Poisson: K6 on CUDA, the plain
-    version on the CPU.  h is multiplied as given (float32 arithmetic)."""
+    """(ll (M,), lse (M,)) of the constrained Poisson, by h's dtype: bf16 h
+    (training in bf16) on the tensor-core K6 (:func:`cp_tc_forward`), any
+    other h in float32 on the CUDA-core K6; on the CPU their plain
+    versions.  W stays float32 either way."""
+    if h.dtype == torch.bfloat16:
+        if not h.is_cuda:
+            return reference_cp_tc_forward(h, w, b, t, n)[:2]
+        return cp_tc_forward(h, w, b, t, n)[:2]
     if not h.is_cuda:
         return reference_cp_forward(h, w, b, t, n)
     h, (w,), (b,), t, n = _checked_cuda(h, [w], [b], t, n)
@@ -1123,7 +1354,7 @@ def cp_forward(h, w, b, t, n):
         b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], n.data_ptr(),
         ll.data_ptr(), lse.data_ptr(), m, t.shape[0], hidden, t.shape[1],
     )
-    LAUNCHES["cp_forward"] += 1
+    LAUNCHES["cp_forward_float32"] += 1
     return ll, lse
 
 
@@ -1135,9 +1366,29 @@ def _checked_cp_backward(g, h, w, b, t, lse):
     return g, h, w, b, t, lse, sx
 
 
+def cp_backward(g, h, w, b, t, lse):
+    """(dh, dW, db) of the constrained Poisson for row cotangents ``g``
+    (M,) and the forward's ``lse``, by h's dtype: bf16 h on CUDA the
+    tensor-core gradient kernel once, then the dh and dW products of its da
+    terms; any other h the two float32 CUDA-core passes; on the CPU their
+    plain versions."""
+    if h.dtype != torch.bfloat16:
+        return (cp_backward_dh(g, h, w, b, t, lse),
+                *cp_backward_dw(g, h, w, b, t, lse))
+    if not h.is_cuda:
+        grad = reference_cp_tc_gradient(g, h, w, b, t, lse)
+        return (reference_tc_dh(grad), *reference_tc_dw(grad))
+    grad = cp_tc_gradient(g, h, w, b, t, lse)
+    return (tc_dh(grad), *tc_dw(grad))
+
+
 def cp_backward_dh(g, h, w, b, t, lse):
-    """dh (M, H) of the constrained Poisson: K7's first kernel on CUDA, the
-    plain version on the CPU."""
+    """dh (M, H) of the constrained Poisson: K7's first CUDA-core pass for
+    float32 h, the plain version on the CPU.  For bf16 h it is the first
+    output of :func:`cp_backward`, whose gradient kernel feeds the dh and dW
+    products alike."""
+    if h.dtype == torch.bfloat16:
+        return cp_backward(g, h, w, b, t, lse)[0]
     if not h.is_cuda:
         return reference_cp_dh(g, h, w, b, t, lse)
     g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
@@ -1151,13 +1402,16 @@ def cp_backward_dh(g, h, w, b, t, lse):
         lse.data_ptr(), sx.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden,
         t.shape[1],
     )
-    LAUNCHES["cp_backward_dh"] += 1
+    LAUNCHES["cp_backward_dh_float32"] += 1
     return dh
 
 
 def cp_backward_dw(g, h, w, b, t, lse):
-    """(dW, db) of the constrained Poisson: K7's second kernel on CUDA, the
-    plain version on the CPU."""
+    """(dW, db) of the constrained Poisson: K7's second CUDA-core pass for
+    float32 h, the plain version on the CPU.  For bf16 h they are the other
+    outputs of :func:`cp_backward`."""
+    if h.dtype == torch.bfloat16:
+        return cp_backward(g, h, w, b, t, lse)[1:]
     if not h.is_cuda:
         return reference_cp_dw(g, h, w, b, t, lse)
     g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
@@ -1173,7 +1427,7 @@ def cp_backward_dw(g, h, w, b, t, lse):
         lse.data_ptr(), sx.data_ptr(), dw.data_ptr(), db.data_ptr(), m,
         t.shape[0], hidden, f,
     )
-    LAUNCHES["cp_backward_dw"] += 1
+    LAUNCHES["cp_backward_dw_float32"] += 1
     return dw, db
 
 
@@ -1440,15 +1694,15 @@ class FusedLogLikelihood(torch.autograd.Function):
 
 class FusedConstrainedPoisson(torch.autograd.Function):
     """Row-summed constrained-Poisson log-likelihood with the fused backward
-    (``_fused_constrained_poisson`` in the JAX package).  ``round_h`` rounds
-    the values of h to bf16 for the product; the gradient of h is float32
-    and unrounded.  Saves lse from the forward as a residual; the count-sum
-    cotangent dn = g·(Σt/n − 1) is computed here, outside the kernels, when
-    asked for."""
+    (``_fused_constrained_poisson`` in the JAX package).  ``round_h`` hands
+    h over as a bf16 tensor (the tensor-core kernels), else as float32 (the
+    CUDA-core kernels); the gradient of h is float32 and unrounded.  Saves
+    lse from the forward as a residual; the count-sum cotangent dn =
+    g·(Σt/n − 1) is computed here, outside the kernels, when asked for."""
 
     @staticmethod
     def forward(ctx, h, w, b, t, n, round_h):
-        hv = _rounded(h, torch.bfloat16 if round_h else None)
+        hv = h.to(torch.bfloat16) if round_h else h.float()
         ll, lse = cp_forward(hv, w, b, t, n)
         ctx.save_for_backward(hv, w, b, t, n, lse)
         ctx.h_dtype = h.dtype
@@ -1457,8 +1711,8 @@ class FusedConstrainedPoisson(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hv, w, b, t, n, lse = ctx.saved_tensors
-        dh = cp_backward_dh(g, hv, w, b, t, lse).to(ctx.h_dtype)
-        dw, db = cp_backward_dw(g, hv, w, b, t, lse)
+        dh, dw, db = cp_backward(g, hv, w, b, t, lse)
+        dh = dh.to(ctx.h_dtype)
         dn = None
         if ctx.needs_input_grad[4]:
             sx = _cycle_rows(t.float(), hv.shape[0]).sum(-1)

@@ -24,7 +24,12 @@ same products) is held the same way at 14 and 32 heads for every base, and
 the product kernel alone at full and ragged tiles in both layouts, with and
 without promoted sums, and bit for bit over two runs; the categorised bf16
 forward (``categorised_likelihood_tc.cu``) at 32 heads for every base, its
-row sums, lse and row-sum partials, and bit for bit over two runs.
+row sums, lse and row-sum partials, and bit for bit over two runs.  The
+constrained Poisson's bf16 kernels (``cp_likelihood_tc.cu``, h as a bf16
+tensor, W and da split into bf16 terms) are held kernel by kernel the same
+way, and against the float32 plain versions, at the main path's width, odd
+shapes, ragged F, cycled rows and decoder widths of 580, 584 and 1,024;
+float32 h keeps the CUDA-core kernels (``cp_likelihood.cu``).
 
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
@@ -183,6 +188,103 @@ def test_cp_backward_matches_autograd(device, m, m_t, hidden, f):
         _close(a, b_, 2e-5)
 
 
+# (M, M_t, H, F) of the constrained Poisson's bf16 kernels: the main path's
+# width with full and ragged gene tiles, rows off the row tile cycling over
+# a tenth as many targets, and odd small shapes
+CP_TC_SHAPES = [(2048, 2048, 256, 2048), (2048, 2048, 256, 2000),
+                (300, 30, 256, 2048), (300, 30, 256, 2000), (37, 37, 21, 301),
+                (64, 32, 256, 100)]
+
+
+def _check_cp_tensor_cores(h, w, b, t, n, g):
+    """The constrained Poisson's bf16 kernels (h a bf16 tensor) one by one
+    against their plain versions: the forward's ll, lse and partials per
+    gene tile, bit for bit over two runs; the gradient kernel's da terms
+    (da_0 within one bf16 step of the plain da_0, few flips; da_0 + da_1
+    and the row-tile sums within 2e-5); the dh and dW products of its own
+    scratch at 2e-5, bit for bit over two runs; the public calls are these
+    kernels; and all of it within 2e-5 of the float32 plain versions, which
+    multiply the unrounded W and da."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    assert h.dtype == torch.bfloat16
+    ll, lse, part = fl.cp_tc_forward(h, w, b, t, n)
+    ll_p, lse_p, part_p = fl.reference_cp_tc_forward(h, w, b, t, n)
+    _close(ll, ll_p, 2e-5)
+    _close(lse, lse_p, 2e-5)
+    for q in range(part.shape[0]):
+        _close(part[q], part_p[q], 2e-5)
+    again = fl.cp_tc_forward(h, w, b, t, n)
+    assert torch.equal(ll, again[0]) and torch.equal(lse, again[1])
+    public = ops.cp_forward(h, w, b, t, n)
+    assert torch.equal(public[0], ll) and torch.equal(public[1], lse)
+    ll32, lse32 = ops.reference_cp_forward(h.float(), w, b, t, n)
+    _close(ll, ll32, 2e-5)
+    _close(lse, lse32, 2e-5)
+
+    grad = fl.cp_tc_gradient(g, h, w, b, t, lse)
+    plain = fl.reference_cp_tc_gradient(g, h, w, b, t, lse)
+    m = h.shape[0]
+    got, want = (x.da.reshape(m, 3, -1) for x in (grad, plain))
+    assert torch.equal(got[:, 0], got[:, 1])
+    _within_one_bf16_step(got[:, 0], want[:, 0])
+    _close(got[:, 0].float() + got[:, 2].float(),
+           want[:, 0].float() + want[:, 2].float(), 2e-5)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    assert torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)
+    dh = fl.tc_dh(grad)
+    assert torch.equal(dh, fl.tc_dh(grad))
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw(grad)
+    dw2, db2 = fl.tc_dw(grad)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    for a, b_ in zip((dw, db), fl.reference_tc_dw(grad), strict=True):
+        _close(a, b_, 2e-5)
+    for a, b_ in zip(ops.cp_backward(g, h, w, b, t, lse), (dh, dw, db),
+                     strict=True):
+        assert torch.equal(a, b_)
+    hf = h.float()
+    want32 = (ops.reference_cp_dh(g, hf, w, b, t, lse32),
+              *ops.reference_cp_dw(g, hf, w, b, t, lse32))
+    for a, b_ in zip((dh, dw, db), want32, strict=True):
+        assert a.shape == b_.shape
+        _close(a, b_, 2e-5)
+
+
+@pytest.mark.parametrize("m,m_t,hidden,f", CP_TC_SHAPES)
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+def test_cp_tensor_core_kernels(device, m, m_t, hidden, f, t_dtype):
+    h, w, b, t, n, g = _cp_case(device, m, m_t, hidden, f, t_dtype, True,
+                                seed=6)
+    _check_cp_tensor_cores(h.to(torch.bfloat16), w, b, t, n, g)
+
+
+@pytest.mark.parametrize("hidden", [580, 584, 1024])
+def test_cp_tensor_core_wide_decoder(device, hidden):
+    """The constrained Poisson's bf16 kernels past one ring of hidden units
+    (the widths of the float32 kernels' width test)."""
+    h, w, b, t, n, g = _cp_case(device, 40, 40, hidden, 301, torch.bfloat16,
+                                True, seed=3)
+    _check_cp_tensor_cores(h.to(torch.bfloat16), w, b, t, n, g)
+
+
+def test_cp_float32_and_bf16_launches_count_apart(device):
+    """bf16 h launches the constrained Poisson's tensor-core kernels, float32
+    h its CUDA-core ones, each under its own counter."""
+    h, w, b, t, n, g = _cp_case(device, 48, 16, 32, 70, torch.bfloat16, True,
+                                seed=2)
+    for hv, suffix in ((h, "_float32"), (h.to(torch.bfloat16), "")):
+        ops.reset_launch_counts()
+        _, lse = ops.cp_forward(hv, w, b, t, n)
+        ops.cp_backward(g, hv, w, b, t, lse)
+        torch.cuda.synchronize()
+        kernels = ["forward", "backward_dh", "backward_dw"]
+        if not suffix:
+            kernels.append("backward_gradient")
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {
+            f"cp_{kernel}{suffix}": 1 for kernel in kernels}
+
+
 @pytest.mark.parametrize("hidden", [580, 584, 1024])
 @pytest.mark.parametrize("name", ["negative binomial",
                                   "zero-inflated negative binomial",
@@ -230,9 +332,8 @@ def test_fused_function_and_counts(device, name):
     prefix = "cp" if name == "constrained poisson" else ops.FAMILIES[name].prefix
     counts = ops.launch_counts()
     launched = {k for k, v in counts.items() if v}
-    kernels = ["forward", "backward_dh", "backward_dw"]
-    if name in ops.FAMILIES:  # the bf16 backward's first kernel
-        kernels.append("backward_gradient")
+    # the bf16 backward: a gradient kernel, then the dh and dW products
+    kernels = ["forward", "backward_gradient", "backward_dh", "backward_dw"]
     assert launched == {f"{prefix}_{kernel}" for kernel in kernels}
     assert all(counts[k] == 1 for k in launched)
     assert torch.isfinite(h.grad).all()

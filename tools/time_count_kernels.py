@@ -17,7 +17,13 @@ each):
   headline shapes for VAE-ZINB-cat (K = 10, 14 heads) and VAE-Poisson-cat
   (K = 30, 32 heads), the backward from the forward's lse:
   ``categorised_backward`` where the checkout has it, else its two passes
-  ``categorised_backward_dh`` and ``categorised_backward_dw`` in one call.
+  ``categorised_backward_dh`` and ``categorised_backward_dw`` in one call;
+- the constrained Poisson's K6 and K7 as the VAE-CP training step calls
+  them, at the headline shapes: ``cp_forward`` of h with bf16 values (a
+  bf16 tensor, which a checkout without the bf16 kernels multiplies in
+  float32 on its CUDA-core kernels) against float32 W, and the backward
+  from the forward's lse: ``cp_backward`` where the checkout has it, else
+  ``cp_backward_dh`` and ``cp_backward_dw`` in one call.
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -121,10 +127,26 @@ def main() -> int:
                                                      compute_dtype=bf16))
         categorised[f"{name} K={k_max}"] = cs.time_ms(backward, reps=10,
                                                       flush=flush)
+    (w,), (b,) = cs.head_weights(gen, 1, cs.HIDDEN, cs.N_GENES, dev)
+    hb, n = h.to(bf16), x.float().sum(-1)
+    _, lse = ops.cp_forward(hb, w, b, x, n)
+    if hasattr(ops, "cp_backward"):
+        def cp_backward():
+            return ops.cp_backward(g, hb, w, b, x, lse)
+    else:
+        def cp_backward():
+            return (ops.cp_backward_dh(g, hb, w, b, x, lse),
+                    *ops.cp_backward_dw(g, hb, w, b, x, lse))
+    constrained = {
+        "cp_forward": cs.time_ms(lambda: ops.cp_forward(hb, w, b, x, n),
+                                 flush=flush),
+        "cp_backward": cs.time_ms(cp_backward, flush=flush),
+    }
     print(cs.card_line(), flush=True)
     print(json.dumps({"root": root, "ms": times,
                       "categorised_forward_ms": categorised_forward,
-                      "categorised_backward_ms": categorised}), flush=True)
+                      "categorised_backward_ms": categorised,
+                      "constrained_poisson_ms": constrained}), flush=True)
     return 0
 
 
