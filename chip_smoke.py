@@ -569,7 +569,7 @@ def check_cp(h, g, x, gen, flush):
     # and the row-tile sums; the products of its own scratch
     grad = fl.cp_tc_gradient(g, hb, w, b, x, lse_main)
     plain = fl.reference_cp_tc_gradient(g, hb, w, b, x, lse_main)
-    got, want = (z.da.reshape(m, len(fl.cp_term_pairs()), -1)
+    got, want = (z.da.reshape(m, len(fl.CP_TERM_PAIRS), -1)
                  for z in (grad, plain))
     if not torch.equal(got[:, 0], got[:, 1]):
         raise AssertionError("cp_backward_gradient: the copies of da_0 differ")
@@ -620,12 +620,16 @@ def check_cp(h, g, x, gen, flush):
     # Bounds: the bf16 instance by the larger of its bytes and the
     # function's product, 2·M·H·F counted once however many terms the
     # design splits it into, at the bf16 tensor-core rate; the float32
-    # instance by the float32 rate outside the tensor cores.
+    # instance by the float32 rate outside the tensor cores.  The bytes are
+    # what each function needs: da as its CP_TERMS bf16 terms once (not the
+    # scratch's copy of da_0 per pair), h once (not once per pair), W and
+    # dW in float32.
     product = 2 * m * hidden * f
     head_bytes = (hidden * f + f) * 4
     t_bytes = m * f * x.element_size()
     in_bytes = m * hidden * 2 + head_bytes + t_bytes + m * 4
-    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
+    da_terms = m * f * 2 * fl.CP_TERMS
+    db_bytes = grad.db_parts.numel() * 4
     timed = dict(flush=flush)
     w2 = grad.w.reshape(grad.w.shape[0], -1)
     results = {}
@@ -636,14 +640,14 @@ def check_cp(h, g, x, gen, flush):
         ("cp_backward_gradient",
          lambda: fl.cp_tc_gradient(g, hb, w, b, x, lse_main),
          lambda: fl.reference_cp_tc_gradient(g, hb, w, b, x, lse_main), None,
-         grad_err, in_bytes + 2 * m * 4 + da_bytes),
+         grad_err, in_bytes + 2 * m * 4 + da_terms + db_bytes),
         ("cp_backward_dh", lambda: fl.tc_dh(grad),
          lambda: fl.reference_tc_dh(grad),
          lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
-         grad.da.numel() * 2 + grad.w.numel() * 2 + m * hidden * 4),
+         da_terms + hidden * f * 4 + m * hidden * 4),
         ("cp_backward_dw", lambda: fl.tc_dw(grad),
          lambda: fl.reference_tc_dw(grad), None, dw_err,
-         grad.h.numel() * 2 + da_bytes + head_bytes),
+         m * hidden * 2 + da_terms + db_bytes + head_bytes),
     ):
         t_bound, by = bound(nbytes, product, BF16_FLOPS)
         library_ms = None

@@ -1028,37 +1028,35 @@ def reference_tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
 # each pair's da_i into a (M, P·Fp) scratch, which dh reads as it lies and
 # dW as P·M rows of Fp against h repeated once per pair, zero where the
 # pair's j > 0 (each da_i counted once).  tools/cp_split_precision.py reads
-# the errors against the number of terms.
+# the errors against the number of terms (PERF.md); the kernels fix two.
 # --------------------------------------------------------------------------
 
-CP_TERMS = 2  # bf16 terms of W and of da
+CP_TERMS = 2  # bf16 terms of W and of da (kCpTerms in the kernels)
+# the (da term, W term) pairs (i, j) with i + j < CP_TERMS that the products
+# multiply, by i, then j
+CP_TERM_PAIRS = tuple((i, j) for i in range(CP_TERMS)
+                      for j in range(CP_TERMS - i))
 CP_PARTIALS = 4  # per row and gene tile: max a, Σ exp(a − max), Σ ll, Σ t
 
 
-def cp_term_pairs(terms: int = CP_TERMS) -> list[tuple[int, int]]:
-    """The (da term, W term) pairs (i, j) with i + j < ``terms`` that the
-    products multiply, by i, then j."""
-    return [(i, j) for i in range(terms) for j in range(terms - i)]
-
-
-def split_bf16(x: torch.Tensor, terms: int = CP_TERMS) -> list[torch.Tensor]:
-    """``terms`` bf16 tensors whose float32 sum approximates x: x_0 =
+def split_bf16(x: torch.Tensor) -> list[torch.Tensor]:
+    """CP_TERMS bf16 tensors whose float32 sum approximates x: x_0 =
     bf16(x), x_k = bf16(x − x_0 − … − x_(k−1))."""
     rest = x.float()
     out = [rest.to(torch.bfloat16)]
-    for _ in range(terms - 1):
+    for _ in range(CP_TERMS - 1):
         rest = rest - out[-1]  # exact: float32 less its own bf16 rounding
         out.append(rest.to(torch.bfloat16))
     return out
 
 
-def cp_tc_plan(m: int, hidden: int, f: int, terms: int = CP_TERMS,
+def cp_tc_plan(m: int, hidden: int, f: int,
                capacity: dict = TC_CLUSTER_CAPACITY) -> dict:
     """:func:`tc_plan` of the bf16 CP kernels: the forward's ``partials``
     (CP_PARTIALS, F tiles, M), the da scratch (M, P·Fp) of the P pairs of
     terms, db's ``db_parts`` (row tiles, Fp), and the products' splits (dh
     over depth P·Fp, dW over P·M rows)."""
-    pairs = len(cp_term_pairs(terms))
+    pairs = len(CP_TERM_PAIRS)
     plan = tc_plan(m, hidden, f, pairs, capacity)
     del plan["row_sums"]
     plan.update(
@@ -1069,7 +1067,7 @@ def cp_tc_plan(m: int, hidden: int, f: int, terms: int = CP_TERMS,
     return plan
 
 
-def _cp_tc_operands(h, w, b, terms):
+def _cp_tc_operands(h, w, b):
     """bf16 h (M, Hp) and W's terms per pair (Hp, P, Fp), zero-padded, and
     b (1, F) in float32."""
     hidden, f = w.shape
@@ -1077,28 +1075,28 @@ def _cp_tc_operands(h, w, b, terms):
     hb = h.to(torch.bfloat16)
     if hp != hidden:
         hb = torch.nn.functional.pad(hb, (0, hp - hidden))
-    w_terms = split_bf16(w, terms)
-    w_pairs = torch.stack([w_terms[j] for _, j in cp_term_pairs(terms)], 1)
+    w_terms = split_bf16(w)
+    w_pairs = torch.stack([w_terms[j] for _, j in CP_TERM_PAIRS], 1)
     if (hp, fp) != (hidden, f):
         w_pairs = torch.nn.functional.pad(w_pairs,
                                           (0, fp - f, 0, 0, 0, hp - hidden))
     return hb.contiguous(), w_pairs, b.float().reshape(1, f).contiguous()
 
 
-def _cp_dw_rows(hb: torch.Tensor, terms: int) -> torch.Tensor:
+def _cp_dw_rows(hb: torch.Tensor) -> torch.Tensor:
     """The dW product's rows (M·P, Hp): h once per pair, zero where the
     pair's W term is not the first."""
     zeros = torch.zeros_like(hb)
-    rows = [hb if j == 0 else zeros for _, j in cp_term_pairs(terms)]
+    rows = [hb if j == 0 else zeros for _, j in CP_TERM_PAIRS]
     return torch.stack(rows, 1).reshape(-1, hb.shape[1])
 
 
-def _cp_tc_activations(h, w, b, terms):
+def _cp_tc_activations(h, w, b):
     """a (M, F): h's bf16 values times each W term, summed in float32 in
     term order, then b."""
     hf = h.to(torch.bfloat16).float()
     a = 0.0
-    for w_j in split_bf16(w, terms):
+    for w_j in split_bf16(w):
         a = a + hf @ w_j.float()
     return a + b.float()
 
@@ -1118,12 +1116,12 @@ def _cp_merge(partials, n):
     return acc - sx * (lse - torch.log(n)) - n, lse
 
 
-def reference_cp_tc_forward(h, w, b, t, n, terms=CP_TERMS):
+def reference_cp_tc_forward(h, w, b, t, n):
     """Plain version of :func:`cp_tc_forward`, with its layout: (ll (M,),
     lse (M,), partials (CP_PARTIALS, F tiles, M)), the partials per gene
     tile of each row being the max of a, Σ exp(a − max), Σ (t·a −
     lgamma(1 + t)) and Σ t over the tile's genes."""
-    a = _cp_tc_activations(h, w, b, terms)
+    a = _cp_tc_activations(h, w, b)
     m, f = a.shape
     tiles = _cdiv(f, TC_GENE_TILE)
     tt = _cycle_rows(t.float(), m)
@@ -1145,29 +1143,28 @@ def reference_cp_tc_forward(h, w, b, t, n, terms=CP_TERMS):
     return (*_cp_merge(partials, n), partials)
 
 
-def reference_cp_tc_gradient(g, h, w, b, t, lse,
-                             terms=CP_TERMS) -> TcGradient:
+def reference_cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
     """Plain version of :func:`cp_tc_gradient`, with its layout: da =
     g·(t − (Σt)·exp(a − lse)) split into bf16 terms, da_i per pair
     (M, P·Fp), zero past F, and the column sums of the unrounded da per row
     tile (row tiles, Fp); h as the dW product reads it."""
     m, hidden = h.shape
     f = t.shape[-1]
-    plan = cp_tc_plan(m, hidden, f, terms)
-    hb, w_pairs, _ = _cp_tc_operands(h, w, b, terms)
+    plan = cp_tc_plan(m, hidden, f)
+    hb, w_pairs, _ = _cp_tc_operands(h, w, b)
     tt = _cycle_rows(t.float(), m)
-    a = _cp_tc_activations(h, w, b, terms)
+    a = _cp_tc_activations(h, w, b)
     padded = torch.zeros((m, plan["fp"]), dtype=torch.float32, device=a.device)
     padded[:, :f] = g.float()[:, None] * (
         tt - tt.sum(-1, keepdim=True) * torch.exp(a - lse.float()[:, None]))
-    da_terms = split_bf16(padded, terms)
-    da = torch.stack([da_terms[i] for i, _ in cp_term_pairs(terms)], 1)
+    da_terms = split_bf16(padded)
+    da = torch.stack([da_terms[i] for i, _ in CP_TERM_PAIRS], 1)
     tiles = plan["db_parts"][0]
     rows = torch.zeros((tiles * TC_ROW_TILE, plan["fp"]), dtype=torch.float32,
                        device=a.device)
     rows[:m] = padded
     db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
-    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb, terms), w_pairs,
+    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb), w_pairs,
                       da.reshape(plan["da"]), db_parts)
 
 
@@ -1179,7 +1176,7 @@ def cp_tc_forward(h, w, b, t, n):
     m, hidden = h.shape
     f = t.shape[1]
     plan = cp_tc_plan(m, hidden, f)
-    hb, w_pairs, b2 = _cp_tc_operands(h, w, b, CP_TERMS)
+    hb, w_pairs, b2 = _cp_tc_operands(h, w, b)
     dev = h.device
     n = n.float().contiguous()
     ll, lse = (torch.empty((m,), dtype=torch.float32, device=dev)
@@ -1204,7 +1201,7 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
     m, hidden = h.shape
     f = t.shape[1]
     plan = cp_tc_plan(m, hidden, f)
-    hb, w_pairs, b2 = _cp_tc_operands(h, w, b, CP_TERMS)
+    hb, w_pairs, b2 = _cp_tc_operands(h, w, b)
     dev = h.device
     g, lse = g.float().contiguous(), lse.float().contiguous()
     # Σ_f t per target row, a plain reduction outside the kernels as in the
@@ -1219,8 +1216,8 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
         t.shape[0], plan["hp"], f,
     )
     LAUNCHES["cp_backward_gradient"] += 1
-    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb, CP_TERMS),
-                      w_pairs, da, db_parts)
+    return TcGradient("cp", plan, hidden, f, _cp_dw_rows(hb), w_pairs, da,
+                      db_parts)
 
 
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
@@ -1382,13 +1379,20 @@ def cp_backward(g, h, w, b, t, lse):
     return (tc_dh(grad), *tc_dw(grad))
 
 
-def cp_backward_dh(g, h, w, b, t, lse):
-    """dh (M, H) of the constrained Poisson: K7's first CUDA-core pass for
-    float32 h, the plain version on the CPU.  For bf16 h it is the first
-    output of :func:`cp_backward`, whose gradient kernel feeds the dh and dW
-    products alike."""
+def _float32_cp_pass(h):
+    """The float32 passes take no bf16 h: its backward is one gradient
+    kernel whose scratch feeds the dh and dW products alike."""
     if h.dtype == torch.bfloat16:
-        return cp_backward(g, h, w, b, t, lse)[0]
+        raise TypeError("the constrained Poisson's backward of bf16 h is "
+                        "cp_backward (the gradient kernel, then the dh and "
+                        "dW products); cp_backward_dh / cp_backward_dw are "
+                        "the float32 passes")
+
+
+def cp_backward_dh(g, h, w, b, t, lse):
+    """dh (M, H) of the constrained Poisson for float32 h: K7's first
+    CUDA-core pass, the plain version on the CPU."""
+    _float32_cp_pass(h)
     if not h.is_cuda:
         return reference_cp_dh(g, h, w, b, t, lse)
     g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
@@ -1407,11 +1411,9 @@ def cp_backward_dh(g, h, w, b, t, lse):
 
 
 def cp_backward_dw(g, h, w, b, t, lse):
-    """(dW, db) of the constrained Poisson: K7's second CUDA-core pass for
-    float32 h, the plain version on the CPU.  For bf16 h they are the other
-    outputs of :func:`cp_backward`."""
-    if h.dtype == torch.bfloat16:
-        return cp_backward(g, h, w, b, t, lse)[1:]
+    """(dW, db) of the constrained Poisson for float32 h: K7's second
+    CUDA-core pass, the plain version on the CPU."""
+    _float32_cp_pass(h)
     if not h.is_cuda:
         return reference_cp_dw(g, h, w, b, t, lse)
     g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)

@@ -14,6 +14,9 @@ leave at most 2⁻¹⁶ of each value (``tools/cp_split_precision.py`` reads
 4.4e-6 of the largest value at the headline shape), the rest is float32
 summation order."""
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,10 @@ from jax.experimental.pallas import tpu as pltpu
 from scvae_tpu.ops import fused_likelihood as jfl
 from scvae_tpu_torch import ops
 from scvae_tpu_torch.ops import fused_likelihood as fl
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+import cp_split_precision  # noqa: E402
 
 NAME = "constrained poisson"
 HIDDEN = 256
@@ -61,15 +68,20 @@ def assert_close(ours, ref, rtol=1e-5):
                                          (3, 2.0 ** -24)])
 def test_split_bf16_terms(terms, bound):
     """bf16 terms whose float32 sum leaves at most 2^(−8·terms) of x
-    (bf16 keeps 8 significant bits)."""
+    (bf16 keeps 8 significant bits): the precision tool's split for each
+    term count it reads, and the package's ``split_bf16`` is that split at
+    CP_TERMS."""
     rng = np.random.RandomState(terms)
     x = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
         -6, 6, 4096)).astype(np.float32))
-    parts = fl.split_bf16(x, terms)
+    parts = cp_split_precision.split(x, terms)
     assert len(parts) == terms
     assert all(p.dtype == torch.bfloat16 for p in parts)
     total = sum(p.double() for p in parts)
     assert bool(((total - x.double()).abs() <= bound * x.double().abs()).all())
+    if terms == fl.CP_TERMS:
+        for a, b in zip(fl.split_bf16(x), parts, strict=True):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m,m_t,f", CASES)
@@ -132,7 +144,7 @@ def test_plain_pieces_layout():
     plan = fl.cp_tc_plan(m, HIDDEN, f)
     assert partials.shape == plan["partials"] == (4, 3, m)
     tiles = [slice(0, 64), slice(64, 128), slice(128, f)]
-    a = fl._cp_tc_activations(hb, w, b, fl.CP_TERMS)
+    a = fl._cp_tc_activations(hb, w, b)
     for k, cols in enumerate(tiles):
         assert torch.equal(partials[0, k], a[:, cols].amax(-1))
     assert torch.equal((ll, lse)[1], fl._cp_merge(partials, n)[1])
@@ -187,12 +199,13 @@ def test_cp_tc_plan_deeper_products():
     deep = fl.cp_tc_plan(20480, 256, 2048)
     splits, per, promote = deep["dw_splits"]
     assert promote and splits * per * fl.TC_PRODUCT_DEPTH >= 3 * 20480
-    assert fl.cp_tc_plan(64, 256, 100, terms=3)["da"] == (64, 6 * 104)
 
 
 def test_cpu_wrappers_are_the_plain_versions():
     """On the CPU, bf16 h runs the split design's plain versions and float32
-    h the float32 plain versions; no kernel is launched."""
+    h the float32 plain versions; no kernel is launched.  The float32 passes
+    refuse bf16 h, whose backward is ``cp_backward``'s one gradient
+    kernel."""
     h, w, b, t, n, g = (torch.from_numpy(x) for x in _case(16, 8, 100, 9))
     hb, n = h.to(torch.bfloat16), n[:, 0]
     before = dict(ops.launch_counts())
@@ -204,10 +217,9 @@ def test_cpu_wrappers_are_the_plain_versions():
     got = ops.cp_backward(g, hb, w, b, t, lse)
     for a, b_ in zip(got, want, strict=True):
         assert torch.equal(a, b_)
-    assert torch.equal(ops.cp_backward_dh(g, hb, w, b, t, lse), want[0])
-    for a, b_ in zip(ops.cp_backward_dw(g, hb, w, b, t, lse), want[1:],
-                     strict=True):
-        assert torch.equal(a, b_)
+    for float32_pass in (ops.cp_backward_dh, ops.cp_backward_dw):
+        with pytest.raises(TypeError, match="cp_backward "):
+            float32_pass(g, hb, w, b, t, lse)
     hf = hb.float()
     ll32, lse32 = ops.cp_forward(hf, w, b, t, n)
     assert torch.equal(ll32, ops.reference_cp_forward(hf, w, b, t, n)[0])

@@ -7,9 +7,12 @@ the number of bf16 terms, from their plain versions.
 
 The bf16 kernels of the constrained Poisson (``ops/csrc/cp_likelihood_tc.cu``
 and the products of ``tc_product.cu``) multiply float32 W and da as sums of
-bf16 terms (``fused_likelihood.split_bf16``).  For each seed and term count
-this runs the plain versions of that design (``reference_cp_tc_forward``,
-``reference_cp_tc_gradient``, then the plain products) at the headline
+``fused_likelihood.CP_TERMS`` bf16 terms (``fused_likelihood.split_bf16``).
+For each seed and term count this computes that design with its own split
+of any number of terms (:func:`split`, ``split_bf16``'s loop): a as h times
+each W term summed in term order, then b; ll and lse from a; da from a and
+lse, split; dh over the pairs (da_i, W_j) with i + j < terms, dW over
+each da_i once, db from the unrounded da.  It runs at the headline
 shape of ``chip_smoke.py`` (2,048 rows, decoder width 256, 2,048 genes;
 h with bf16 values, Glorot-uniform W, biases 0.1·N(0, 1), counts of ~7%
 density, Poisson(3) + 1 where nonzero, row cotangents N(0, 1) / 2,048,
@@ -55,6 +58,41 @@ def inputs(seed: int, device: torch.device):
     hb = torch.from_numpy(h).to(torch.bfloat16)
     tensors = [torch.from_numpy(x) for x in (w, b, t, g)]
     return [hb.to(device)] + [x.to(device) for x in tensors]
+
+
+def split(x, terms: int) -> list[torch.Tensor]:
+    """``terms`` bf16 tensors whose float32 sum approximates x, as
+    ``fused_likelihood.split_bf16`` makes CP_TERMS of them."""
+    rest = x.float()
+    out = [rest.to(torch.bfloat16)]
+    for _ in range(terms - 1):
+        rest = rest - out[-1]  # exact: float32 less its own bf16 rounding
+        out.append(rest.to(torch.bfloat16))
+    return out
+
+
+def split_design(hb, w, b, t, g, n, terms: int) -> dict:
+    """ll, lse, dh, dW and db of the split design with ``terms`` bf16 terms
+    of W and of da, every product summed in float32."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    hf = hb.float()
+    w_terms = [x.float() for x in split(w, terms)]
+    a = 0.0
+    for w_j in w_terms:
+        a = a + hf @ w_j
+    a = a + b
+    lse = torch.logsumexp(a, dim=-1)
+    da = g[:, None] * (t - t.sum(-1, keepdim=True)
+                       * torch.exp(a - lse[:, None]))
+    da_terms = [x.float() for x in split(da, terms)]
+    dh = 0.0
+    for i in range(terms):
+        for j in range(terms - i):
+            dh = dh + da_terms[i] @ w_terms[j].T
+    return {"ll": fl._constrained_poisson_ll_rows(a, t, n[:, None]),
+            "lse": lse, "dh": dh, "dW": hf.T @ sum(da_terms),
+            "db": da.sum(0)}
 
 
 def float64_versions(h, w, b, t, g, n) -> dict:
@@ -104,15 +142,11 @@ def main() -> int:
               + ", ".join(f"{p} {v:.3g}" for p, v in floor.items()),
               flush=True)
         for terms in args.terms:
-            ll_s, lse_s, _ = fl.reference_cp_tc_forward(hb, w, b, t, n, terms)
-            grad = fl.reference_cp_tc_gradient(g, hb, w, b, t, lse_s, terms)
-            split = {"ll": ll_s, "lse": lse_s,
-                     "dh": fl.reference_tc_dh(grad)}
-            split["dW"], split["db"] = fl.reference_tc_dw(grad)
-            errs = {p: relative(split[p], plain[p]) for p in PARTS}
+            design = split_design(hb, w, b, t, g, n, terms)
+            errs = {p: relative(design[p], plain[p]) for p in PARTS}
             worst = max(errs.values())
             readings.append({"seed": seed, "terms": terms,
-                             "pairs": len(fl.cp_term_pairs(terms)),
+                             "pairs": terms * (terms + 1) // 2,
                              "error": errs, "float32_floor": floor,
                              "within_limit": worst <= LIMIT})
             print(f"seed {seed}, {terms} terms: "
