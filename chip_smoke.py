@@ -45,13 +45,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              restored GMVAE, for each validation minibatch, log p(x|z,y) over
              the K·S = 10 decoder groups and its gradients for h and the
              heads, weighted by q(y|x), through the grouped kernels (one
-             launch of K4 and of each K5 pass per batch) against the flat
-             kernels over the same rows with cycled targets.
+             launch of K4 and of each of the bf16 K5's three kernels per
+             batch: the grouped gradient kernel, the dh and dW products)
+             against the flat kernels over the same rows with cycled
+             targets.
 
 Phase 3 also holds the grouped kernels K4/K5 of every base family against
 their plain versions at the GMVAE's shapes (G = 10 groups of 2,048 rows,
-decoder width 256; NB also at the cap G = 16), and NB's against the flat
-kernels over the same 20,480 rows with cycled targets.
+decoder width 256; NB also at the cap G = 16), the bf16 K5 kernel by
+kernel, and NB's against the flat kernels over the same 20,480 rows with
+cycled targets; it times each family's grouped backward beside the flat
+tensor-core kernels over the same rows, and the row gather K1 on both of
+its designs for whole 16-byte rows.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -146,6 +151,7 @@ SOURCES = {
     "cat": CSRC + "categorised_likelihood.cu",
     "cat_tc": CSRC + "categorised_likelihood_tc.cu",
     "grouped": CSRC + "grouped_likelihood.cu",
+    "grouped_tc": CSRC + "grouped_likelihood_tc.cu",
 }
 REPLACES = {
     "gather_rows": "scvae_tpu/ops/gather.py:223",
@@ -275,37 +281,57 @@ def _cut(tensors, cols):
 
 
 def check_gather(counts_dev, idx, flush):
-    """K1 — row gather: bit-exact with index_select + cast, at the headline
-    shapes, a ragged F and a float32 source, to bf16 and to float32."""
+    """K1 — row gather: bit-exact with index_select + cast, on both designs
+    of whole 16-byte rows (the bulk ring the plan takes and its vector
+    control) at the headline shapes, a ragged F, a float32 source and
+    repeated indices, to bf16 and to float32, and on the element path for
+    the (N, 1) count sums that VAE-CP's step gathers; then the time of each
+    design against ``index_select`` + ``.to``."""
     from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import gather
 
     bf16 = torch.bfloat16
     m, f = idx.shape[0], counts_dev.shape[1]
     x = ops.gather_rows(counts_dev, idx, bf16)
     x_ref = ops.reference_gather(counts_dev, idx, bf16)
     f32_src = counts_dev[:4096].float()
+    sums = counts_dev.float().sum(1, keepdim=True)
+    repeated = idx[:m // 2].repeat(2)
     cases = [(x, x_ref)] + [
-        (ops.gather_rows(src, rows, dtype), ops.reference_gather(src, rows, dtype))
-        for src, rows in ((counts_dev, idx),
+        (ops.gather_rows(src, rows, dtype, design=design),
+         ops.reference_gather(src, rows, dtype))
+        for src, rows in ((counts_dev, idx), (counts_dev, repeated),
                           (counts_dev[:, :2000].contiguous(), idx),
-                          (f32_src, idx % 4096))
+                          (f32_src, idx % 4096), (sums, idx))
         for dtype in (bf16, torch.float32)
+        for design in ("bulk", "vector")
     ]
     for got, want in cases:
         if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError("gather_rows is not bit-exact")
+    log(f"check gather_rows: {len(cases)} cases bit-exact")
     gather_bytes = m * f * (counts_dev.element_size() + 2) + m * 4
     t_bound, by = bound(gather_bytes, 0.0, BF16_FLOPS)
-    return x, {
+    designs = {design: time_ms(lambda design=design: ops.gather_rows(
+        counts_dev, idx, bf16, design=design), flush=flush, reps=50)
+        for design in ("bulk", "vector")}
+    result = {
         "max_abs_err": max_err(x, x_ref),
-        "ms": time_ms(lambda: ops.gather_rows(counts_dev, idx, bf16),
-                      flush=flush),
+        "ms": designs[gather.GATHER_DESIGN],
         "plain_ms": time_ms(lambda: ops.reference_gather(
             counts_dev, idx, bf16), flush=flush),
         "bound_ms": t_bound, "bound_by": by,
         "library_ms": time_ms(lambda: torch.index_select(
             counts_dev, 0, idx).to(bf16), flush=flush),
     }
+    print(f"gather B={m} F={f} int16 -> bf16 (ms): " + ", ".join(
+        f"{design} {ms:.5f}" for design, ms in designs.items())
+        + f" (kept: {gather.GATHER_DESIGN}); index_select + .to "
+        f"{result['library_ms']:.5f}; bound {t_bound:.5f} ({by}); count sums "
+        f"(F=1, element path) "
+        f"{time_ms(lambda: ops.gather_rows(sums, idx), flush=flush):.5f}",
+        flush=True)
+    return x, result
 
 
 def check_family(name, h, g, x, gen, flush):
@@ -941,14 +967,23 @@ def check_cycled_rows(x, gen, flush):
 
 
 def check_grouped(name, x, gen, flush, n_groups):
-    """K4 and both K5 passes of base family ``name`` at the GMVAE's shapes:
-    h (G, M, H) against the minibatch's targets (M, F), bf16 inputs, row
-    weights as uneven as q(y|x) (a softmax over the groups); against the
-    plain versions with the same rounding, and NB's against the flat K2/K3
-    over the G·M group-major rows with cycled targets (the lgamma constant
-    included, as K4 always subtracts it); then, at G = 10, their times."""
+    """K4 and K5 of base family ``name`` at the GMVAE's shapes: h (G, M, H)
+    against the minibatch's targets (M, F), row weights as uneven as q(y|x)
+    (a softmax over the groups).  K4 with bf16 inputs against its plain
+    version; the bf16 K5 kernel by kernel (the grouped gradient kernel's
+    bf16(da) within one bf16 step of the plain bf16(da), its column sums per
+    64 target rows over every group; the dh and dW products of its own da
+    against the plain products, bit for bit over two runs) and as a whole
+    against the per-group plain versions with the same rounding; the
+    float32 K5 passes (CUDA cores, no main path) against theirs; NB's
+    against the flat kernels over the G·M group-major rows with cycled
+    targets (the lgamma constant included, as K4 always subtracts it).
+    Then, at G = 10, their times, beside the flat tensor-core backward over
+    the same rows."""
     from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
 
+    bf16 = torch.bfloat16
     fam = ops.FAMILIES[name]
     k = len(fam.heads)
     m, f = x.shape
@@ -958,64 +993,116 @@ def check_grouped(name, x, gen, flush, n_groups):
                       dim=0) / m
     ws, bs = head_weights(gen, k, HIDDEN, f, dev)
     args = (h, ws, bs, x)
-    kw = dict(compute_dtype=torch.bfloat16)
+    bargs = (name, g, *args)
+    kw = dict(compute_dtype=bf16)
     tag = f"{fam.prefix}_grouped G={n_groups}"
     out = ops.grouped_forward(name, *args, **kw)
     fwd_err = check_close(f"{tag} forward", out,
                           ops.reference_grouped_forward(name, *args, **kw),
                           FORWARD_RTOL)
-    dh = ops.grouped_backward_dh(name, g, *args, **kw)
-    dh_err = check_close(f"{tag} dh", dh,
-                         ops.reference_grouped_dh(name, g, *args, **kw),
-                         BACKWARD_RTOL)
-    dws = ops.grouped_backward_dw(name, g, *args, **kw)
-    parts = [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
-    dw_err = max(check_close(f"{tag} {part}", a, b, BACKWARD_RTOL)
-                 for part, a, b in zip(
-                     parts, dws, ops.reference_grouped_dw(name, g, *args, **kw)))
+    grad = fl.grouped_tc_gradient(*bargs)
+    plain = fl.reference_grouped_tc_gradient(*bargs)
+    grad_err = check_bf16_steps(f"{tag} backward_gradient bf16(da)", grad.da,
+                                plain.da)
+    check_close(f"{tag} backward_gradient db sums per 64 target rows",
+                grad.db_parts, plain.db_parts, PRODUCT_RTOL)
+    dh = fl.tc_dh(grad)
+    dh_err = check_close(f"{tag} backward_dh of the kernel's da", dh,
+                         fl.reference_tc_dh(grad), PRODUCT_RTOL)
+    dw, db = fl.tc_dw_stacked(grad)
+    dw_err = max(check_close(f"{tag} backward_dw {part} of the kernel's da",
+                             a, b, PRODUCT_RTOL)
+                 for part, a, b in zip(("dW", "db"), (dw, db),
+                                       fl.reference_tc_dw_stacked(grad)))
+    again = (fl.tc_dh(grad), *fl.tc_dw_stacked(grad))
+    if not all(torch.equal(a, b) for a, b in zip((dh, dw, db), again)):
+        raise AssertionError(f"{tag}: the products differ between two runs")
+    parts = ["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
+    got = ops.grouped_backward(*bargs, **kw)
+    for part, a, b in zip(parts, got, (
+            ops.reference_grouped_dh(*bargs, **kw),
+            *ops.reference_grouped_dw(*bargs, **kw)), strict=True):
+        check_close(f"{tag} backward {part}", a, b, BACKWARD_RTOL)
+    got32 = ops.grouped_backward(*bargs)
+    errs32 = [check_close(f"{tag} backward float32 {part}", a, b,
+                          AUTOGRAD_RTOL)
+              for part, a, b in zip(parts, got32, (
+                  ops.reference_grouped_dh(*bargs),
+                  *ops.reference_grouped_dw(*bargs)), strict=True)]
+    rows = n_groups * m
+    h2, g2 = h.reshape(rows, HIDDEN), g.reshape(rows)
+    flat_args = (name, g2, h2, ws, bs, x)
     if name == "negative binomial":
-        h2, g2 = h.reshape(-1, HIDDEN), g.reshape(-1)
-        flat = f"flat over {h2.shape[0]} cycled rows"
+        flat = f"flat over {rows} cycled rows"
         check_close(f"{tag} forward vs {flat}", out.reshape(-1),
                     ops.fused_forward(name, h2, ws, bs, x, **kw), FORWARD_RTOL)
-        check_close(f"{tag} dh vs {flat}", dh.reshape(-1, HIDDEN),
-                    ops.fused_backward_dh(name, g2, h2, ws, bs, x, **kw),
-                    BACKWARD_RTOL)
-        for part, a, b in zip(parts, dws, ops.fused_backward_dw(
-                name, g2, h2, ws, bs, x, **kw)):
-            check_close(f"{tag} {part} vs {flat}", a, b, BACKWARD_RTOL)
+        for part, a, b in zip(parts, got, ops.fused_backward(*flat_args,
+                                                             **kw)):
+            check_close(f"{tag} {part} vs {flat}", a.reshape(b.shape), b,
+                        BACKWARD_RTOL)
     if n_groups != CLUSTERS:
         return {}
 
-    # the work of the flat kernels over the same G·M rows: equal bounds
-    rows = n_groups * m
-    fwd_flops = 2 * k * rows * HIDDEN * f
+    # Bounds: the function's bytes, each input read once and each output
+    # written once (h and the heads in float32 as the caller holds them, t
+    # as (M, F) once for every group, bf16(da) once), against the heads'
+    # products, 2·NH·G·M·H·F, at the bf16 tensor-core rate (the float32
+    # passes: both of a pass's products at the float32 rate).
+    product = 2 * k * rows * HIDDEN * f
     head_bytes = k * (HIDDEN * f + f) * 4
-    fwd_bytes = rows * HIDDEN * 4 + head_bytes + m * f * 2 + rows * 4
-    t_bound, by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
-    results = {f"{fam.prefix}_grouped_forward": {
-        "max_abs_err": fwd_err,
-        "ms": time_ms(lambda: ops.grouped_forward(name, *args, **kw),
-                      flush=flush, reps=10),
-        "plain_ms": time_ms(lambda: ops.reference_grouped_forward(
-            name, *args, **kw), flush=flush, reps=10),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-    }}
-    for kernel, err, nbytes, fn, plain in (
-        ("backward_dh", dh_err, fwd_bytes + rows * HIDDEN * 4,
-         ops.grouped_backward_dh, ops.reference_grouped_dh),
-        ("backward_dw", dw_err, fwd_bytes + head_bytes,
-         ops.grouped_backward_dw, ops.reference_grouped_dw),
+    in_bytes = rows * HIDDEN * 4 + head_bytes + m * f * x.element_size()
+    da_bytes = rows * k * f * 2
+    timed = dict(flush=flush, reps=10)
+    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    results = {}
+    for kernel, fn, plain_fn, library, err, nbytes, flops, peak in (
+        ("forward", lambda: ops.grouped_forward(name, *args, **kw),
+         lambda: ops.reference_grouped_forward(name, *args, **kw), None,
+         fwd_err, in_bytes + rows * 4, product, BF16_FLOPS),
+        ("backward_gradient", lambda: fl.grouped_tc_gradient(*bargs),
+         lambda: fl.reference_grouped_tc_gradient(*bargs), None, grad_err,
+         in_bytes + rows * 4 + da_bytes, product, BF16_FLOPS),
+        ("backward_dh", lambda: fl.tc_dh(grad),
+         lambda: fl.reference_tc_dh(grad),
+         lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
+         da_bytes + k * HIDDEN * f * 4 + rows * HIDDEN * 4, product,
+         BF16_FLOPS),
+        ("backward_dw", lambda: fl.tc_dw(grad),
+         lambda: fl.reference_tc_dw(grad), None, dw_err,
+         rows * HIDDEN * 2 + da_bytes + head_bytes, product, BF16_FLOPS),
+        ("backward_dh_float32", lambda: ops.grouped_backward_dh(*bargs),
+         lambda: ops.reference_grouped_dh(*bargs), None, errs32[0],
+         in_bytes + rows * 4 + rows * HIDDEN * 4, 2 * product, F32_FLOPS),
+        ("backward_dw_float32", lambda: ops.grouped_backward_dw(*bargs),
+         lambda: ops.reference_grouped_dw(*bargs), None, max(errs32[1:]),
+         in_bytes + rows * 4 + head_bytes, 2 * product, F32_FLOPS),
     ):
-        t_bound, by = bound(nbytes, 2 * fwd_flops, BF16_FLOPS)
+        t_bound, by = bound(nbytes, flops, peak)
+        library_ms = None
+        if library is not None:
+            try:  # torch.mm with a float32 output from bf16 operands
+                library_ms = time_ms(library, **timed)
+            except (RuntimeError, TypeError) as err_:
+                log(f"library call for {tag} {kernel} unavailable: {err_}")
         results[f"{fam.prefix}_grouped_{kernel}"] = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda fn=fn: fn(name, g, *args, **kw),
-                          flush=flush, reps=10),
-            "plain_ms": time_ms(lambda plain=plain: plain(
-                name, g, *args, **kw), flush=flush, reps=10),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed), "bound_ms": t_bound,
+            "bound_by": by, "library_ms": library_ms,
         }
+    # the flat tensor-core kernels over the same G·M rows, targets cycling
+    flat_grad = fl.tc_gradient(*flat_args)
+    pairs = {
+        "gradient": (lambda: fl.grouped_tc_gradient(*bargs),
+                     lambda: fl.tc_gradient(*flat_args)),
+        "dh": (lambda: fl.tc_dh(grad), lambda: fl.tc_dh(flat_grad)),
+        "dW": (lambda: fl.tc_dw(grad), lambda: fl.tc_dw(flat_grad)),
+        "public backward": (lambda: ops.grouped_backward(*bargs, **kw),
+                            lambda: ops.fused_backward(*flat_args, **kw)),
+    }
+    print(f"grouped {fam.prefix} G={n_groups} against the flat kernels over "
+          f"{rows} cycled rows (ms): " + "; ".join(
+              f"{label} {time_ms(a, **timed):.4f} vs {time_ms(b, **timed):.4f}"
+              for label, (a, b) in pairs.items()), flush=True)
     return results
 
 
@@ -1250,8 +1337,10 @@ def _grouped_batch(name, config, state, x, t):
     flat kernels: log p(x|z,y) of the restored GMVAE's decoder states (K·S
     groups) against the batch's targets, and its gradients for the decoder
     states and the heads with the rows weighted by q(y|x) / (S·B), as the
-    ELBO weights them.  Fails unless the grouped run launched K4 and each K5
-    pass exactly once and no other likelihood kernel, and unless both agree.
+    ELBO weights them.  Fails unless the grouped run launched K4 and each of
+    the bf16 K5's three kernels (the grouped gradient kernel, the dh and dW
+    products) exactly once and no other likelihood kernel, and unless both
+    agree.
     Returns the grouped run's launches."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.models import gmvae
@@ -1286,7 +1375,8 @@ def _grouped_batch(name, config, state, x, t):
     (ll, grads, launches), (ll_flat, grads_flat, _) = results
     prefix = ops.FAMILIES[name].prefix
     want = {f"{prefix}_grouped_{kernel}": 1
-            for kernel in ("forward", "backward_dh", "backward_dw")}
+            for kernel in ("forward", "backward_gradient", "backward_dh",
+                           "backward_dw")}
     launches = {k: v for k, v in launches.items() if v}
     if launches != want:
         raise AssertionError(f"grouped path launched {launches}")
@@ -1464,8 +1554,9 @@ def main() -> int:
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))
-    for name in kernels:
-        if "_grouped_" in name and not launches.get(name):
+    for name in kernels:  # the float32 K5 passes have no main path
+        if ("_grouped_" in name and "_float32" not in name
+                and not launches.get(name)):
             raise AssertionError(f"{name} was not launched after training")
 
     def source(name):
@@ -1481,7 +1572,13 @@ def main() -> int:
                 file = "cp"
             return SOURCES[file], REPLACES["cp_" + kind]
         if "_grouped_" in name:
-            return SOURCES["grouped"], REPLACES["grouped_" + kind]
+            if "_float32" in name or kind == "forward":
+                file = "grouped"
+            elif "backward_gradient" in name:
+                file = "grouped_tc"
+            else:
+                file = "product"
+            return SOURCES[file], REPLACES["grouped_" + kind]
         cat = name.startswith("cat_")
         if "_float32" in name:
             file = "cat" if cat else "count_float32"

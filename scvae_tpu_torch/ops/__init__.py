@@ -28,6 +28,7 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     fused_forward,
     fused_grouped_log_likelihood,
     fused_log_likelihood,
+    grouped_backward,
     grouped_backward_dh,
     grouped_backward_dw,
     grouped_forward,
@@ -94,6 +95,7 @@ __all__ = [
     "fused_grouped_log_likelihood",
     "fused_log_likelihood",
     "gather_rows",
+    "grouped_backward",
     "grouped_backward_dh",
     "grouped_backward_dw",
     "grouped_forward",

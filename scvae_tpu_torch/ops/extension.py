@@ -22,7 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood.cu", "count_likelihood_tc.cu",
            "tc_product.cu", "cp_likelihood.cu", "cp_likelihood_tc.cu",
            "categorised_likelihood.cu", "categorised_likelihood_tc.cu",
-           "grouped_likelihood.cu")
+           "grouped_likelihood.cu", "grouped_likelihood_tc.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -33,9 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _HEADS = [_P] * 6  # w0, b0, w1, b1, w2, b2
 _SIGNATURES = {
-    # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, vec, stream
+    # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, path, grid,
+    # chunk, stages, stage_bytes, smem_bytes, unroll, stream
     "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _I,
-                          _P],
+                          _I, _I, _I, _I, _I, _I, _P],
     # family, h, heads, t, t_dtype, out, m, m_t, hidden, f, round, subtract,
     # stream
     "scvae_fused_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -92,6 +93,10 @@ _SIGNATURES = {
     # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, stream (float32 only)
     "scvae_cat_backward_dw": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P,
                               *_HEADS, _P, _P, _I, _I, _I, _I, _P],
+    # family, g, h, w, b, t, t_dtype, da, db_part, n_groups, m, hp, f,
+    # w_chunk, stream
+    "scvae_grouped_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                                  _I, _I, _I, _P],
     # family, h, heads, t, t_dtype, out, n_groups, m, hidden, f, round,
     # stream
     "scvae_grouped_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,

@@ -28,7 +28,10 @@ recomputes them tile by tile.  Counterpart of
 * the grouped kernels K4/K5 take h (G, M, H) against targets t (M, F) shared
   by the G groups, with the group loop inside the kernel and lgamma(1 + t)
   always subtracted (``ops/csrc/grouped_likelihood.cu``), for the base
-  families and 2 ≤ G ≤ :data:`MAX_FUSED_GROUPS` (``_make_fused_grouped``).
+  families and 2 ≤ G ≤ :data:`MAX_FUSED_GROUPS` (``_make_fused_grouped``);
+  with bf16 the backward is a grouped gradient kernel on the tensor cores
+  (``ops/csrc/grouped_likelihood_tc.cu``), then the products of
+  ``ops/csrc/tc_product.cu`` over the G·M rows.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
 plain versions beside them.  :class:`FusedLogLikelihood`,
@@ -219,7 +222,10 @@ MAX_FUSED_GROUPS = 16
 # "cat_<family>" for the categorised instances), their backward's first
 # kernel as "<prefix>_backward_gradient" and its products as
 # "<prefix>_backward_dh" / "_dw"; the float32 instances (CUDA cores) as
-# "<prefix>_<kernel>_float32".
+# "<prefix>_<kernel>_float32".  The grouped kernels count under the prefix
+# "<family>_grouped": K4 as "_forward" (either dtype), the bf16 K5 as
+# "_backward_gradient", "_backward_dh", "_backward_dw", its float32 passes
+# with the "_float32" suffix.
 _KERNELS = ("forward", "backward_dh", "backward_dw")
 LAUNCHES = {
     name: 0
@@ -231,7 +237,10 @@ LAUNCHES = {
         + [f"{prefix}_backward_gradient"])
 } | {
     f"{fam.prefix}_grouped_{kernel}": 0
-    for fam in FAMILIES.values() for kernel in _KERNELS
+    for fam in FAMILIES.values()
+    for kernel in ("forward", "backward_gradient", "backward_dh",
+                   "backward_dw", "backward_dh_float32",
+                   "backward_dw_float32")
 }
 LAUNCHES.update({f"cp_{kernel}{suffix}": 0 for kernel in _KERNELS
                  for suffix in ("", "_float32")})
@@ -934,9 +943,12 @@ def tc_dw(grad: TcGradient) -> tuple[torch.Tensor, ...]:
     return tuple(x for k in range(dw.shape[0]) for x in (dw[k], db[k]))
 
 
-def _reference_scratch(prefix, plan, hidden, f, hb, w, das) -> TcGradient:
+def _reference_scratch(prefix, plan, hidden, f, hb, w, das,
+                       groups=1) -> TcGradient:
     """The gradient kernels' outputs from the float32 da of every head:
-    bf16(da) (M, NH·Fp), zero past F, and da's column sums per row tile."""
+    bf16(da) (M, NH·Fp), zero past F, and da's column sums per row tile;
+    over ``groups`` group-major blocks of rows, the sums of every group per
+    row tile of a block."""
     m = hb.shape[0]
     da = torch.zeros((m, len(das), plan["fp"]), dtype=torch.float32,
                      device=hb.device)
@@ -945,7 +957,7 @@ def _reference_scratch(prefix, plan, hidden, f, hb, w, das) -> TcGradient:
     tiles = plan["db_parts"][0]
     rows = torch.zeros((tiles * TC_ROW_TILE, da.shape[1]),
                        dtype=torch.float32, device=hb.device)
-    rows[:m] = da
+    rows[:m // groups] = da.reshape(groups, m // groups, da.shape[1]).sum(0)
     db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
     return TcGradient(prefix, plan, hidden, f, hb, w, da.to(torch.bfloat16),
                       db_parts)
@@ -1575,11 +1587,9 @@ def categorised_backward(name, g, h, weights, biases, cat_w, cat_b, t, lse, *,
             dw[n_base:], db[n_base:])
 
 
-def _checked_grouped(name, h, weights, biases, t, g=None):
-    """Validate and normalise the grouped kernels' operands: h (G, M, H),
-    the shared targets t (M, F), the family's heads and the row cotangents
-    g (G, M); h and g flattened group-major to the flat kernels' checks."""
-    fam = _family_heads(name, weights, biases)
+def _grouped_shapes(h, t, g=None):
+    """(G, M, H) of the grouped kernels' operands: h (G, M, H), the shared
+    targets t (M, F) and the row cotangents g (G, M)."""
     if h.dim() != 3:
         raise ValueError(f"h {tuple(h.shape)} is not (groups, rows, hidden)")
     n_groups, m, hidden = h.shape
@@ -1589,6 +1599,15 @@ def _checked_grouped(name, h, weights, biases, t, g=None):
         raise ValueError(f"g {tuple(g.shape)} is not ({n_groups}, {m})")
     if n_groups * m >= 2 ** 31:
         raise ValueError(f"{n_groups} groups of {m} rows exceed int32")
+    return n_groups, m, hidden
+
+
+def _checked_grouped(name, h, weights, biases, t, g=None):
+    """Validate and normalise the grouped kernels' operands: h (G, M, H),
+    the shared targets t (M, F), the family's heads and the row cotangents
+    g (G, M); h and g flattened group-major to the flat kernels' checks."""
+    fam = _family_heads(name, weights, biases)
+    n_groups, m, hidden = _grouped_shapes(h, t, g)
     rows = [] if g is None else [g.reshape(-1)]
     h2, weights, biases, t, *rows = _checked_cuda(
         h.reshape(-1, hidden), weights, biases, t, *rows)
@@ -1616,13 +1635,124 @@ def grouped_forward(name, h, weights, biases, t, *, compute_dtype=None):
     return out
 
 
+# The grouped bf16 backward's gradient kernel (grouped_likelihood_tc.cu):
+# blocks of 128 target rows for every group, each head's W resident in
+# shared memory in chunks of at most this many rows (kGtRows, kGtSmemMax
+# and the layout of gt_smem_bytes).
+GROUPED_TC_ROWS = 128
+GROUPED_TC_SMEM = 232448
+_GT_RING_BYTES = 2 * 4 * GROUPED_TC_ROWS * 40  # bf16 [4][128][40]
+_GT_T_BYTES = 4 * GROUPED_TC_ROWS * 72          # float [128][72]
+_GT_W_ROW_BYTES = 2 * 72                        # bf16 [72] per head and row
+
+
+def grouped_tc_plan(n_groups: int, m: int, hidden: int, f: int,
+                    n_heads: int) -> dict:
+    """:func:`tc_plan` of the G·M group-major rows (the scratch da (G·M,
+    NH·Fp) and the products over them), with the grouped gradient kernel's
+    column sums per 64 target rows over every group, ``db_parts``
+    (ceil(M / 64), NH·Fp), its grid, the rows of W it keeps resident at
+    once (``w_chunk``, a multiple of 32: all of Hp where it fits) and its
+    shared memory."""
+    plan = tc_plan(n_groups * m, hidden, f, n_heads)
+    fixed = _GT_RING_BYTES + _GT_T_BYTES + 4 * n_heads * TC_GENE_TILE
+    row_bytes = _GT_W_ROW_BYTES * n_heads
+    most = (GROUPED_TC_SMEM - fixed) // row_bytes // 32 * 32
+    w_chunk = min(_cdiv(plan["hp"], 32) * 32, most)
+    plan.update(
+        db_parts=(_cdiv(m, TC_ROW_TILE), plan["da"][1]),
+        grid=(_cdiv(m, GROUPED_TC_ROWS), _cdiv(f, TC_GENE_TILE)),
+        w_chunk=w_chunk, smem_bytes=fixed + row_bytes * w_chunk)
+    return plan
+
+
+def grouped_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Launch the grouped bf16 backward's gradient kernel of family
+    ``name`` for h (G, M, H), the shared targets t (M, F) and the row
+    cotangents g (G, M): bf16(da) over the G·M group-major rows and its
+    column sums per 64 target rows over every group, for :func:`tc_dh` and
+    :func:`tc_dw_stacked` (counted as "<family>_grouped_backward_…")."""
+    fam = _family_heads(name, weights, biases)
+    n_groups, m, hidden = _grouped_shapes(h, t, g)
+    h2 = h.reshape(-1, hidden)
+    t = _validated(h2, weights, biases, t, g.reshape(-1))
+    f = t.shape[1]
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights))
+    hb, w, b = _tc_operands(h2, weights, biases)
+    dev = h.device
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    g = g.reshape(-1).float().contiguous()
+    extension.call(
+        "scvae_grouped_tc_gradient", dev, fam.code, g.data_ptr(),
+        hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], da.data_ptr(), db_parts.data_ptr(), n_groups, m,
+        plan["hp"], f, plan["w_chunk"],
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_backward_gradient"] += 1
+    return TcGradient(f"{fam.prefix}_grouped", plan, hidden, f, hb, w, da,
+                      db_parts)
+
+
+def reference_grouped_tc_gradient(name, g, h, weights, biases,
+                                  t) -> TcGradient:
+    """Plain version of :func:`grouped_tc_gradient`, with the same layout:
+    bf16(da) (G·M, NH·Fp), zero past F, and da's column sums per 64 target
+    rows over every group."""
+    fam = _family_heads(name, weights, biases)
+    n_groups, m, hidden = h.shape
+    f = t.shape[-1]
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights))
+    h2 = h.reshape(-1, hidden)
+    hb, w, _ = _tc_operands(h2, weights, biases)
+    _, das = _weighted_grads(name, g.reshape(-1), h2, weights, biases, t,
+                             torch.bfloat16)
+    return _reference_scratch(f"{fam.prefix}_grouped", plan, hidden, f, hb,
+                              w, das, groups=n_groups)
+
+
+def grouped_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
+    """(dh (G, M, H), dW_0, db_0, dW_1, db_1, …) for the row cotangents g
+    (G, M), dW/db summed over the groups and rows.  With bf16: the grouped
+    gradient kernel once, then the dh and dW products of its da (on the CPU
+    their plain versions); float32: K5's two CUDA-core passes
+    (:func:`grouped_backward_dh`, :func:`grouped_backward_dw`)."""
+    args = (name, g, h, weights, biases, t)
+    if not _round_flag(compute_dtype):
+        return (grouped_backward_dh(*args), *grouped_backward_dw(*args))
+    fam = _family_heads(name, weights, biases)
+    n_groups, m, hidden = h.shape
+    f = t.shape[-1]
+    if n_groups * m == 0 or f == 0:
+        dev = h.device
+        return (torch.zeros((n_groups, m, hidden), device=dev),
+                *(torch.zeros(shape, device=dev)
+                  for _ in fam.heads for shape in ((hidden, f), (f,))))
+    if not h.is_cuda:
+        grad = reference_grouped_tc_gradient(*args)
+        return (reference_tc_dh(grad).reshape(h.shape),
+                *reference_tc_dw(grad))
+    grad = grouped_tc_gradient(*args)
+    return (tc_dh(grad).reshape(h.shape), *tc_dw(grad))
+
+
+def _float32_grouped_pass(compute_dtype):
+    """The float32 passes take no bf16: its backward is one gradient kernel
+    whose scratch feeds the dh and dW products alike."""
+    if _round_flag(compute_dtype):
+        raise TypeError("the grouped backward with bf16 is grouped_backward "
+                        "(the gradient kernel, then the dh and dW products); "
+                        "grouped_backward_dh / grouped_backward_dw are the "
+                        "float32 passes")
+
+
 def grouped_backward_dh(name, g, h, weights, biases, t, *,
                         compute_dtype=None):
-    """dh (G, M, H) for the row cotangents g (G, M): K5's first kernel on
-    CUDA, the plain version on the CPU."""
+    """dh (G, M, H) in float32 for the row cotangents g (G, M): K5's first
+    CUDA-core pass, the plain version on the CPU."""
+    _float32_grouped_pass(compute_dtype)
     if not h.is_cuda:
-        return reference_grouped_dh(name, g, h, weights, biases, t,
-                                    compute_dtype=compute_dtype)
+        return reference_grouped_dh(name, g, h, weights, biases, t)
     fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
         _checked_grouped(name, h, weights, biases, t, g))
     dh = torch.empty((n_groups, m, hidden), dtype=torch.float32,
@@ -1632,20 +1762,19 @@ def grouped_backward_dh(name, g, h, weights, biases, t, *,
     extension.call(
         "scvae_grouped_backward_dh", h.device, fam.code, g.data_ptr(),
         h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], dh.data_ptr(), n_groups, m, hidden, t.shape[1],
-        _round_flag(compute_dtype),
+        _T_CODES[t.dtype], dh.data_ptr(), n_groups, m, hidden, t.shape[1], 0,
     )
-    LAUNCHES[f"{fam.prefix}_grouped_backward_dh"] += 1
+    LAUNCHES[f"{fam.prefix}_grouped_backward_dh_float32"] += 1
     return dh
 
 
 def grouped_backward_dw(name, g, h, weights, biases, t, *,
                         compute_dtype=None):
-    """(dW_0, db_0, dW_1, db_1, …) summed over groups and rows: K5's second
-    kernel on CUDA, the plain version on the CPU."""
+    """(dW_0, db_0, dW_1, db_1, …) in float32 summed over groups and rows:
+    K5's second CUDA-core pass, the plain version on the CPU."""
+    _float32_grouped_pass(compute_dtype)
     if not h.is_cuda:
-        return reference_grouped_dw(name, g, h, weights, biases, t,
-                                    compute_dtype=compute_dtype)
+        return reference_grouped_dw(name, g, h, weights, biases, t)
     fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
         _checked_grouped(name, h, weights, biases, t, g))
     f = t.shape[1]
@@ -1658,10 +1787,9 @@ def grouped_backward_dw(name, g, h, weights, biases, t, *,
     extension.call(
         "scvae_grouped_backward_dw", h.device, fam.code, g.data_ptr(),
         h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], *pointers, n_groups, m, hidden, f,
-        _round_flag(compute_dtype),
+        _T_CODES[t.dtype], *pointers, n_groups, m, hidden, f, 0,
     )
-    LAUNCHES[f"{fam.prefix}_grouped_backward_dw"] += 1
+    LAUNCHES[f"{fam.prefix}_grouped_backward_dw_float32"] += 1
     return tuple(out)
 
 
@@ -1766,9 +1894,9 @@ class FusedGroupedLogLikelihood(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, t, *params = ctx.saved_tensors
-        args = (ctx.name, g, h, params[0::2], params[1::2], t)
-        dh = grouped_backward_dh(*args, compute_dtype=ctx.compute_dtype)
-        dparams = grouped_backward_dw(*args, compute_dtype=ctx.compute_dtype)
+        dh, *dparams = grouped_backward(ctx.name, g, h, params[0::2],
+                                        params[1::2], t,
+                                        compute_dtype=ctx.compute_dtype)
         dt = torch.zeros_like(t) if ctx.needs_input_grad[3] else None
         return (None, None, dh.to(h.dtype), dt, *dparams)
 

@@ -72,16 +72,52 @@ def _close(got, want, rtol):
     assert err <= rtol * scale, (err, scale)
 
 
-@pytest.mark.parametrize("f", [13, 16, 2000])
+@pytest.mark.parametrize("f", [1, 8, 13, 16, 2000, 2048, 4100, 4104])
 @pytest.mark.parametrize("src_dtype", [torch.int16, torch.int32, torch.float32])
 def test_gather_bit_exact(device, f, src_dtype):
+    """Every path of K1 (the bulk ring and its vector control for rows of
+    whole 16-byte units, the element path for the rest), one row, a permuted
+    batch and 2,049 indices with repeats; at F = 4,104 a row takes two
+    pieces of the bulk ring (int16) or three (four-byte sources)."""
     gen = torch.Generator(device=device).manual_seed(f)
-    src = torch.randint(0, 300, (97, f), generator=gen, device=device).to(src_dtype)
-    idx = torch.randperm(97, generator=gen, device=device)[:41].to(torch.int32)
-    for dtype in (torch.bfloat16, torch.float32):
-        got = ops.gather_rows(src, idx, dtype)
-        want = ops.reference_gather(src, idx, dtype)
-        assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+    src = torch.randint(0, 300, (3000, f), generator=gen,
+                        device=device).to(src_dtype)
+    batches = [
+        torch.tensor([2999], dtype=torch.int32, device=device),
+        torch.randperm(3000, generator=gen, device=device)[:41].to(torch.int32),
+        torch.randint(0, 3000, (2049,), generator=gen, device=device,
+                      dtype=torch.int32),
+    ]
+    for idx in batches:
+        for dtype in (torch.bfloat16, torch.float32):
+            want = ops.reference_gather(src, idx, dtype)
+            for design in ("bulk", "vector"):
+                got = ops.gather_rows(src, idx, dtype, design=design)
+                assert got.dtype == want.dtype == dtype
+                assert torch.equal(got, want), (idx.shape[0], dtype, design)
+
+
+def test_gather_out_of_range_index_traps(device):
+    """An index outside the matrix stops the kernel (in a child process:
+    a trap leaves the CUDA context unusable)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for bad, f in (("[3, 10]", 2048), ("[-1]", 2048), ("[0, 10]", 1)):
+        code = (
+            "import torch\n"
+            "from scvae_tpu_torch import ops\n"
+            f"src = torch.zeros((10, {f}), dtype=torch.int16, device='cuda')\n"
+            f"idx = torch.tensor({bad}, dtype=torch.int32, device='cuda')\n"
+            "ops.gather_rows(src, idx, torch.bfloat16)\n"
+            "torch.cuda.synchronize()\n"
+            "print('no trap')\n")
+        run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        assert run.returncode != 0 and "no trap" not in run.stdout, (
+            bad, f, run.stdout, run.stderr[-2000:])
 
 
 def _case(device, n_heads, m, m_t, hidden, f, t_dtype, seed=0):
@@ -700,9 +736,9 @@ def test_grouped_kernels_match_plain_and_flat(device, name, n_groups, m,
     kw = dict(compute_dtype=compute)
     out = ops.grouped_forward(name, h, ws, bs, t, **kw)
     _close(out, ops.reference_grouped_forward(name, h, ws, bs, t, **kw), 2e-5)
-    dh = ops.grouped_backward_dh(name, g, h, ws, bs, t, **kw)
+    # bf16: the gradient kernel and the products; float32: the two passes
+    dh, *dws = ops.grouped_backward(name, g, h, ws, bs, t, **kw)
     _close(dh, ops.reference_grouped_dh(name, g, h, ws, bs, t, **kw), rtol)
-    dws = ops.grouped_backward_dw(name, g, h, ws, bs, t, **kw)
     want = ops.reference_grouped_dw(name, g, h, ws, bs, t, **kw)
     assert len(dws) == len(want) == 2 * len(ws)
     for a, b in zip(dws, want):
@@ -719,8 +755,9 @@ def test_grouped_kernels_match_plain_and_flat(device, name, n_groups, m,
 
 
 def test_grouped_function_and_counts(device):
-    """The autograd Function launches K4 and each K5 pass once, with the
-    leading axes folded into the groups; the t gradient is zero."""
+    """The autograd Function launches K4 and each of the bf16 K5's three
+    kernels once, with the leading axes folded into the groups; the t
+    gradient is zero."""
     name = "negative binomial"
     h, ws, bs, t, g = _grouped_case(device, name, 6, 16, 32, 70,
                                     torch.float32, seed=2)
@@ -738,8 +775,83 @@ def test_grouped_function_and_counts(device):
     counts = ops.launch_counts()
     assert {k: v for k, v in counts.items() if v} == {
         f"nb_grouped_{kernel}": 1
-        for kernel in ("forward", "backward_dh", "backward_dw")}
+        for kernel in ("forward", "backward_gradient", "backward_dh",
+                       "backward_dw")}
     assert torch.isfinite(h.grad).all() and not t.grad.any()
     with pytest.raises(ValueError):  # t rows must equal h's rows
         ops.grouped_forward(name, h.detach().reshape(6, 16, 32), ws, bs,
                             t.detach()[:8])
+
+
+def test_grouped_float32_and_bf16_launches_count_apart(device):
+    """float32 launches K5's CUDA-core passes under the "_float32" counters,
+    bf16 the gradient kernel and the products; the float32 passes refuse
+    bf16."""
+    name = "zero-inflated poisson"
+    h, ws, bs, t, g = _grouped_case(device, name, 4, 24, 40, 77,
+                                    torch.bfloat16, seed=4)
+    for compute, kernels in (
+            (None, ("backward_dh_float32", "backward_dw_float32")),
+            (torch.bfloat16, ("backward_gradient", "backward_dh",
+                              "backward_dw"))):
+        ops.reset_launch_counts()
+        ops.grouped_backward(name, g, h, ws, bs, t, compute_dtype=compute)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == {
+            f"zip_grouped_{kernel}": 1 for kernel in kernels}
+    for fn in (ops.grouped_backward_dh, ops.grouped_backward_dw):
+        with pytest.raises(TypeError):
+            fn(name, g, h, ws, bs, t, compute_dtype=torch.bfloat16)
+
+
+# (G, M, H, F) of the grouped bf16 gradient kernel: one group, rows off the
+# 128-row block and past one block, a ragged F, decoder widths that take W
+# in several resident chunks (ZINB from 352 rows, NB from 512), and G = 17
+# past the JAX cap
+GROUPED_TC_SHAPES = [(1, 37, 21, 301), (3, 300, 256, 2000), (17, 9, 584, 70),
+                     (3, 130, 1024, 100), (10, 256, 256, 512)]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("n_groups,m,hidden,f", GROUPED_TC_SHAPES)
+def test_grouped_tensor_core_kernels(device, name, n_groups, m, hidden, f):
+    """The bf16 grouped backward kernel by kernel: the gradient kernel's
+    bf16(da) within one bf16 step of the plain bf16(da), with few flips,
+    bit for bit over two runs; its column sums per 64 target rows over
+    every group; the dh and dW products of its own da against the plain
+    products at 2e-5, bit for bit over two runs; the public backward is
+    these three kernels.  Each kernel is held alone, as the flat kernels
+    are: at these activations one legitimate flip of a bf16(da) moves a dW
+    entry by more than the end-to-end bound (4.4e-4 of the largest at
+    300 rows, ZIP), which test_grouped_kernels_match_plain_and_flat and
+    chip_smoke.py hold at their shapes."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    h, ws, bs, t, g = _grouped_case(device, name, n_groups, m, hidden, f,
+                                    torch.bfloat16, seed=5)
+    args = (name, g, h, ws, bs, t)
+    grad = fl.grouped_tc_gradient(*args)
+    plain = fl.reference_grouped_tc_gradient(*args)
+    width = len(ws) * fl.tc_padded(f)
+    assert grad.da.shape == plain.da.shape == (n_groups * m, width)
+    assert grad.db_parts.shape == plain.db_parts.shape == (-(-m // 64), width)
+    _within_one_bf16_step(grad.da, plain.da)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    again = fl.grouped_tc_gradient(*args)
+    assert torch.equal(grad.da, again.da)
+    assert torch.equal(grad.db_parts, again.db_parts)
+    dh = fl.tc_dh(grad)
+    assert torch.equal(dh, fl.tc_dh(grad))
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw_stacked(grad)
+    dw2, db2 = fl.tc_dw_stacked(grad)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    want = fl.reference_tc_dw_stacked(grad)
+    _close(dw, want[0], 2e-5)
+    _close(db, want[1], 2e-5)
+    got = ops.grouped_backward(*args, compute_dtype=torch.bfloat16)
+    assert len(got) == 1 + 2 * len(ws)
+    assert torch.equal(got[0], dh.reshape(h.shape))
+    for k in range(len(ws)):
+        assert torch.equal(got[1 + 2 * k], dw[k])
+        assert torch.equal(got[2 + 2 * k], db[k])

@@ -23,7 +23,13 @@ each):
   bf16 tensor, which a checkout without the bf16 kernels multiplies in
   float32 on its CUDA-core kernels) against float32 W, and the backward
   from the forward's lse: ``cp_backward`` where the checkout has it, else
-  ``cp_backward_dh`` and ``cp_backward_dw`` in one call.
+  ``cp_backward_dh`` and ``cp_backward_dw`` in one call;
+- K1, ``gather_rows`` of 2,048 rows of the headline int16 count matrix
+  (68,579 x 2,048) to bf16, as every training step calls it;
+- NB's bf16 grouped backward K5 at the GMVAE's shapes (G = 10 groups of
+  2,048 rows, decoder width 256) from row weights as uneven as q(y|x):
+  ``grouped_backward`` where the checkout has it, else
+  ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call.
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -142,11 +148,37 @@ def main() -> int:
                                  flush=flush),
         "cp_backward": cs.time_ms(cp_backward, flush=flush),
     }
+
+    counts = torch.from_numpy(cs.make_counts(cs.N_CELLS, cs.N_GENES)
+                              .toarray().astype("int16")).to(dev)
+    idx = torch.randperm(cs.N_CELLS, generator=gen, device=dev)[
+        :cs.BATCH].to(torch.int32)
+    gather_ms = cs.time_ms(lambda: ops.gather_rows(counts, idx, bf16),
+                           flush=flush, reps=50)
+    del counts
+    name = "negative binomial"
+    hg = torch.relu(torch.randn(cs.CLUSTERS, cs.BATCH, cs.HIDDEN,
+                                generator=gen, device=dev))
+    gg = torch.softmax(2 * torch.randn(cs.CLUSTERS, cs.BATCH, generator=gen,
+                                       device=dev), dim=0) / cs.BATCH
+    ws, bs = cs.head_weights(gen, 2, cs.HIDDEN, cs.N_GENES, dev)
+    grouped_args = (name, gg, hg, ws, bs, x)
+    if hasattr(ops, "grouped_backward"):
+        def grouped_backward():
+            return ops.grouped_backward(*grouped_args, compute_dtype=bf16)
+    else:
+        def grouped_backward():
+            return (ops.grouped_backward_dh(*grouped_args, compute_dtype=bf16),
+                    *ops.grouped_backward_dw(*grouped_args,
+                                             compute_dtype=bf16))
+    grouped_ms = cs.time_ms(grouped_backward, flush=flush, reps=10)
     print(cs.card_line(), flush=True)
     print(json.dumps({"root": root, "ms": times,
                       "categorised_forward_ms": categorised_forward,
                       "categorised_backward_ms": categorised,
-                      "constrained_poisson_ms": constrained}), flush=True)
+                      "constrained_poisson_ms": constrained,
+                      "gather_rows_ms": gather_ms,
+                      "nb_grouped_backward_ms": grouped_ms}), flush=True)
     return 0
 
 
