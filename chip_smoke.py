@@ -55,8 +55,7 @@ their plain versions at the GMVAE's shapes (G = 10 groups of 2,048 rows,
 decoder width 256; NB also at the cap G = 16), the bf16 K5 kernel by
 kernel, and NB's against the flat kernels over the same 20,480 rows with
 cycled targets; it times each family's grouped backward beside the flat
-tensor-core kernels over the same rows, and the row gather K1 on both of
-its designs for whole 16-byte rows.
+tensor-core kernels over the same rows.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -281,14 +280,12 @@ def _cut(tensors, cols):
 
 
 def check_gather(counts_dev, idx, flush):
-    """K1 — row gather: bit-exact with index_select + cast, on both designs
-    of whole 16-byte rows (the bulk ring the plan takes and its vector
-    control) at the headline shapes, a ragged F, a float32 source and
-    repeated indices, to bf16 and to float32, and on the element path for
-    the (N, 1) count sums that VAE-CP's step gathers; then the time of each
-    design against ``index_select`` + ``.to``."""
+    """K1 — row gather: bit-exact with index_select + cast at the headline
+    shapes, a ragged F, a float32 source and repeated indices, to bf16 and
+    to float32 (the plan's 16-byte units), and for the (N, 1) count sums
+    that VAE-CP's step gathers (its element path); then its time against
+    ``index_select`` + ``.to``."""
     from scvae_tpu_torch import ops
-    from scvae_tpu_torch.ops import gather
 
     bf16 = torch.bfloat16
     m, f = idx.shape[0], counts_dev.shape[1]
@@ -298,13 +295,12 @@ def check_gather(counts_dev, idx, flush):
     sums = counts_dev.float().sum(1, keepdim=True)
     repeated = idx[:m // 2].repeat(2)
     cases = [(x, x_ref)] + [
-        (ops.gather_rows(src, rows, dtype, design=design),
-         ops.reference_gather(src, rows, dtype))
+        (ops.gather_rows(src, rows, dtype), ops.reference_gather(src, rows,
+                                                                 dtype))
         for src, rows in ((counts_dev, idx), (counts_dev, repeated),
                           (counts_dev[:, :2000].contiguous(), idx),
                           (f32_src, idx % 4096), (sums, idx))
         for dtype in (bf16, torch.float32)
-        for design in ("bulk", "vector")
     ]
     for got, want in cases:
         if got.dtype != want.dtype or not torch.equal(got, want):
@@ -312,25 +308,21 @@ def check_gather(counts_dev, idx, flush):
     log(f"check gather_rows: {len(cases)} cases bit-exact")
     gather_bytes = m * f * (counts_dev.element_size() + 2) + m * 4
     t_bound, by = bound(gather_bytes, 0.0, BF16_FLOPS)
-    designs = {design: time_ms(lambda design=design: ops.gather_rows(
-        counts_dev, idx, bf16, design=design), flush=flush, reps=50)
-        for design in ("bulk", "vector")}
     result = {
         "max_abs_err": max_err(x, x_ref),
-        "ms": designs[gather.GATHER_DESIGN],
+        "ms": time_ms(lambda: ops.gather_rows(counts_dev, idx, bf16),
+                      flush=flush, reps=50),
         "plain_ms": time_ms(lambda: ops.reference_gather(
             counts_dev, idx, bf16), flush=flush),
         "bound_ms": t_bound, "bound_by": by,
         "library_ms": time_ms(lambda: torch.index_select(
             counts_dev, 0, idx).to(bf16), flush=flush),
     }
-    print(f"gather B={m} F={f} int16 -> bf16 (ms): " + ", ".join(
-        f"{design} {ms:.5f}" for design, ms in designs.items())
-        + f" (kept: {gather.GATHER_DESIGN}); index_select + .to "
-        f"{result['library_ms']:.5f}; bound {t_bound:.5f} ({by}); count sums "
-        f"(F=1, element path) "
-        f"{time_ms(lambda: ops.gather_rows(sums, idx), flush=flush):.5f}",
-        flush=True)
+    print(f"gather B={m} F={f} int16 -> bf16: {result['ms']:.5f} ms; "
+          f"index_select + .to {result['library_ms']:.5f}; bound "
+          f"{t_bound:.5f} ({by}); count sums (F=1, element path) "
+          f"{time_ms(lambda: ops.gather_rows(sums, idx), flush=flush):.5f}",
+          flush=True)
     return x, result
 
 

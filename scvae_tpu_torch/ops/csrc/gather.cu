@@ -11,26 +11,27 @@
 // Bound on the H100: bytes.  Each output row reads F source elements once
 // and writes F output elements; there is no arithmetic beyond the cast.  At
 // the headline shape (B = F = 2048, int16 -> bf16) that is 16.8 MB, 5.0 us
-// at 3.35 TB/s: the time goes to keeping enough rows in flight, since
-// every row's load depends on its index.  The host's plan
-// (ops/gather.py gather_plan) picks one of three paths:
+// at 3.35 TB/s.  What holds a gather of that size back is latency: every
+// row's load waits on its index, and the whole call is one wave.  So the
+// host's plan (ops/gather.py gather_plan) spreads the work over every
+// thread at once, on one of two paths:
 //
-//   bulk     rows of whole 16-byte chunks (F % 8 == 0, 16-byte aligned
-//            pointers): a persistent grid of a few blocks per SM.  Each
-//            block loads the indices of its rows up front, then one thread
-//            keeps a ring of row pieces in shared memory filled with
-//            Hopper's bulk asynchronous copies (cp.async.bulk, one
-//            instruction per piece, completing on an mbarrier per stage), so
-//            every stage of every block is in flight at once; all threads
-//            convert a landed piece with 16-byte shared reads and 16-byte
-//            global stores.
-//   vector   the same rows without the copy engine: a grid in which each
-//            thread keeps 4 or 8 units of 16-byte loads in flight (their
-//            indices read first, the rows with the streaming cache hint),
-//            then converts and stores them; the control of the bulk path.
+//   vector   rows of whole 16-byte units (F % 8 == 0, 16-byte aligned
+//            pointers): each thread reads the indices of kUnroll units
+//            first, then keeps their kUnroll 16-byte row loads in flight
+//            at once, then converts and stores them with 16-byte stores.
+//            The rows are read with the streaming (evict-first) cache
+//            hint: a gathered row is read once an epoch, so its misses
+//            should evict its own lines, not dirty lines that would have
+//            to be written back first.
 //   element  any other shape (F = 1 for the constrained Poisson's count
 //            sums, a ragged F, unaligned pointers): the flattened (B, F)
 //            output spread over the threads, one element each.
+//
+// A design with Hopper's bulk asynchronous copies (a persistent grid, a
+// ring of row pieces in shared memory filled by cp.async.bulk on an
+// mbarrier per stage) measured slower than the vector path at every launch
+// shape tried, so it is not kept (PERF.md records both designs' times).
 //
 // The casts go through float (int16 and small int32 counts are exact) and
 // then round to nearest even for bf16, which is what Tensor.to does, so the
@@ -44,12 +45,11 @@
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1, kI16 = 2, kI32 = 3 };
-enum Path { kElement = 0, kBulk = 1, kVector = 2 };
+enum Path { kElement = 0, kVector = 1 };
 
 constexpr int kThreads = 256;
-constexpr int kVec = 8;      // elements per conversion unit
-constexpr int kMaxStages = 8;
-constexpr int kBarBytes = 128;  // the mbarriers, ahead of the ring
+constexpr int kVec = 8;     // elements per unit
+constexpr int kUnroll = 4;  // units in flight per thread on the vector path
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v) {
@@ -74,9 +74,7 @@ struct alignas(16) Unit {
   T v[kVec];
 };
 
-// A unit of source row, read with the streaming (evict-first) hint: a
-// gathered row is read once an epoch, so its lines are the first the L2
-// gives up, not lines that others wrote and would have to write back.
+// A unit of a source row, read with the streaming cache hint.
 template <typename S>
 __device__ __forceinline__ Unit<S> load_unit(const S* p) {
   Unit<S> u;
@@ -103,121 +101,23 @@ __device__ __forceinline__ int checked_row(const int* idx, long long b,
   return r;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned global src into shared
-// dst; they complete on barrier bar, which expects them.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Work item k of this block: piece p of output row b, whose source row is
-// rows[k] (the block's indices, loaded up front).  Pieces are `chunk`
-// elements (a multiple of kVec) of a row; the block takes items
-// blockIdx.x + k * gridDim.x.
+// Units are the (B, F / kVec) output chunks in row-major order; a thread
+// takes kUnroll of them, kThreads apart, per step of the grid.
 template <typename S, typename O>
-__global__ void __launch_bounds__(kThreads)
-    gather_bulk_kernel(const S* __restrict__ src, const int* __restrict__ idx,
-                       int n_idx, long long n_rows, int n_cols,
-                       O* __restrict__ out, int chunk, int stages,
-                       int stage_bytes) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t bar0 = smem_addr(smem);
-  unsigned char* ring = smem + kBarBytes;
-  int* rows = reinterpret_cast<int*>(ring + stages * stage_bytes);
-
-  const int pieces = (n_cols + chunk - 1) / chunk;
-  const long long items = (long long)n_idx * pieces;
-  const int n_items =
-      (int)((items - blockIdx.x + gridDim.x - 1) / gridDim.x);
-  const int tid = threadIdx.x;
-  for (int k = tid; k < n_items; k += kThreads)
-    rows[k] = checked_row(idx, (blockIdx.x + (long long)k * gridDim.x) /
-                                   pieces, n_rows);
-  if (tid == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  auto issue = [&](int k) {
-    const int s = k % stages;
-    const int p = (int)((blockIdx.x + (long long)k * gridDim.x) % pieces);
-    const int c0 = p * chunk;
-    const int len = min(chunk, n_cols - c0);
-    bulk_load(smem_addr(ring + s * stage_bytes),
-              src + (long long)rows[k] * n_cols + c0, len * (int)sizeof(S),
-              bar0 + 8 * s);
-  };
-  if (tid == 0)
-    for (int k = 0; k < stages && k < n_items; ++k) issue(k);
-
-  for (int k = 0; k < n_items; ++k) {
-    const int s = k % stages;
-    const long long item = blockIdx.x + (long long)k * gridDim.x;
-    const long long b = item / pieces;
-    const int c0 = (int)(item % pieces) * chunk;
-    const int units = min(chunk, n_cols - c0) / kVec;
-    mbar_wait(bar0 + 8 * s, (k / stages) & 1);
-    const Unit<S>* in = reinterpret_cast<const Unit<S>*>(ring + s * stage_bytes);
-    Unit<O>* o = reinterpret_cast<Unit<O>*>(out + b * n_cols + c0);
-    for (int u = tid; u < units; u += kThreads) o[u] = convert<S, O>(in[u]);
-    __syncthreads();  // stage s is read by all: refill it
-    if (tid == 0 && k + stages < n_items) issue(k + stages);
-  }
-}
-
-// The control: U units in flight per thread, their indices read first;
-// units are the (B, F / kVec) output chunks in row-major order.
-template <typename S, typename O, int U>
 __global__ void __launch_bounds__(kThreads)
     gather_vector_kernel(const S* __restrict__ src,
                          const int* __restrict__ idx, int n_idx,
                          long long n_rows, int n_cols, O* __restrict__ out) {
   const int per_row = n_cols / kVec;
   const long long units = (long long)n_idx * per_row;
-  const long long stride = (long long)gridDim.x * kThreads * U;
-  for (long long base = (long long)blockIdx.x * kThreads * U + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads * kUnroll;
+  for (long long base = (long long)blockIdx.x * kThreads * kUnroll +
+                        threadIdx.x;
        base < units; base += stride) {
-    Unit<S> s[U];
-    long long at[U];
+    Unit<S> s[kUnroll];
 #pragma unroll
-    for (int j = 0; j < U; ++j) {
+    for (int j = 0; j < kUnroll; ++j) {
       const long long u = base + j * kThreads;
-      at[j] = u;
       if (u < units) {
         const long long b = u / per_row;
         const int c = (int)(u - b * per_row);
@@ -226,9 +126,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 #pragma unroll
-    for (int j = 0; j < U; ++j)
-      if (at[j] < units)
-        reinterpret_cast<Unit<O>*>(out)[at[j]] = convert<S, O>(s[j]);
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long u = base + j * kThreads;
+      if (u < units) reinterpret_cast<Unit<O>*>(out)[u] = convert<S, O>(s[j]);
+    }
   }
 }
 
@@ -248,41 +149,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Plan {
-  int path, grid, chunk, stages, stage_bytes, smem_bytes, unroll;
-};
-
 template <typename S, typename O>
 int launch(const void* src_, const int* idx, int n_idx, long long n_rows,
-           int n_cols, void* out_, const Plan& p, cudaStream_t stream) {
+           int n_cols, void* out_, int path, int grid, cudaStream_t stream) {
   const S* src = static_cast<const S*>(src_);
   O* out = static_cast<O*>(out_);
-  if (p.path == kBulk) {
-    if (p.stages < 1 || p.stages > kMaxStages || p.stage_bytes % 128 ||
-        p.chunk % kVec || p.chunk * (int)sizeof(S) > p.stage_bytes)
-      return (int)cudaErrorInvalidValue;
-    auto kernel = gather_bulk_kernel<S, O>;
-    static int allowed = 48 << 10;  // shared memory the kernel may take
-    if (p.smem_bytes > allowed) {
-      if (cudaError_t err = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-              p.smem_bytes)) {
-        cudaGetLastError();  // clear the refusal from the last-error state
-        return (int)err;
-      }
-      allowed = p.smem_bytes;
-    }
-    kernel<<<p.grid, kThreads, p.smem_bytes, stream>>>(
-        src, idx, n_idx, n_rows, n_cols, out, p.chunk, p.stages,
-        p.stage_bytes);
-  } else if (p.path == kVector && n_cols % kVec == 0 && p.unroll == 4) {
-    gather_vector_kernel<S, O, 4><<<p.grid, kThreads, 0, stream>>>(
+  if (path == kVector && n_cols % kVec == 0) {
+    gather_vector_kernel<S, O><<<grid, kThreads, 0, stream>>>(
         src, idx, n_idx, n_rows, n_cols, out);
-  } else if (p.path == kVector && n_cols % kVec == 0 && p.unroll == 8) {
-    gather_vector_kernel<S, O, 8><<<p.grid, kThreads, 0, stream>>>(
-        src, idx, n_idx, n_rows, n_cols, out);
-  } else if (p.path == kElement) {
-    gather_element_kernel<S, O><<<p.grid, kThreads, 0, stream>>>(
+  } else if (path == kElement) {
+    gather_element_kernel<S, O><<<grid, kThreads, 0, stream>>>(
         src, idx, n_idx, n_rows, n_cols, out);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -293,12 +169,13 @@ int launch(const void* src_, const int* idx, int n_idx, long long n_rows,
 template <typename S>
 int dispatch_output(const void* src, const int* idx, int n_idx,
                     long long n_rows, int n_cols, void* out, int out_dtype,
-                    const Plan& p, cudaStream_t stream) {
+                    int path, int grid, cudaStream_t stream) {
   if (out_dtype == kF32)
-    return launch<S, float>(src, idx, n_idx, n_rows, n_cols, out, p, stream);
+    return launch<S, float>(src, idx, n_idx, n_rows, n_cols, out, path, grid,
+                            stream);
   if (out_dtype == kBF16)
-    return launch<S, __nv_bfloat16>(src, idx, n_idx, n_rows, n_cols, out, p,
-                                    stream);
+    return launch<S, __nv_bfloat16>(src, idx, n_idx, n_rows, n_cols, out,
+                                    path, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -308,29 +185,24 @@ extern "C" {
 
 // Returns a cudaError_t (0 on success).  Output dtype codes: 0 = float32,
 // 1 = bfloat16; source codes: 0 = float32, 2 = int16, 3 = int32.  path:
-// 0 = element, 1 = bulk, 2 = vector; grid blocks of 256 threads; the bulk
-// path's pieces of `chunk` elements in `stages` stages of `stage_bytes`,
-// with smem_bytes of dynamic shared memory; the vector path's `unroll`
-// units in flight per thread, 4 or 8 (ops/gather.py gather_plan).
+// 0 = element, 1 = vector (16-byte aligned pointers, n_cols % 8 == 0);
+// grid blocks of 256 threads (ops/gather.py gather_plan).
 int scvae_gather_rows(const void* src, int src_dtype, const int* idx,
                       int n_idx, long long n_rows, int n_cols, void* out,
-                      int out_dtype, int path, int grid, int chunk,
-                      int stages, int stage_bytes, int smem_bytes, int unroll,
-                      void* stream) {
+                      int out_dtype, int path, int grid, void* stream) {
   if (n_idx == 0 || n_cols == 0) return 0;
   if (grid < 1) return (int)cudaErrorInvalidValue;
-  const Plan p{path, grid, chunk, stages, stage_bytes, smem_bytes, unroll};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (src_dtype) {
     case kF32:
       return dispatch_output<float>(src, idx, n_idx, n_rows, n_cols, out,
-                                    out_dtype, p, s);
+                                    out_dtype, path, grid, s);
     case kI16:
       return dispatch_output<int16_t>(src, idx, n_idx, n_rows, n_cols, out,
-                                      out_dtype, p, s);
+                                      out_dtype, path, grid, s);
     case kI32:
       return dispatch_output<int32_t>(src, idx, n_idx, n_rows, n_cols, out,
-                                      out_dtype, p, s);
+                                      out_dtype, path, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _HEADS = [_P] * 6  # w0, b0, w1, b1, w2, b2
 _SIGNATURES = {
     # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, path, grid,
-    # chunk, stages, stage_bytes, smem_bytes, unroll, stream
+    # stream
     "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P],
+                          _I, _P],
     # family, h, heads, t, t_dtype, out, m, m_t, hidden, f, round, subtract,
     # stream
     "scvae_fused_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,

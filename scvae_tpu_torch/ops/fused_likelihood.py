@@ -1636,9 +1636,9 @@ def grouped_forward(name, h, weights, biases, t, *, compute_dtype=None):
 
 
 # The grouped bf16 backward's gradient kernel (grouped_likelihood_tc.cu):
-# blocks of 128 target rows for every group, each head's W resident in
-# shared memory in chunks of at most this many rows (kGtRows, kGtSmemMax
-# and the layout of gt_smem_bytes).
+# the target rows of a block (kGtRows), a block's shared memory
+# (kGtSmemMax), and the parts of it that gt_smem_bytes lays out: the h ring,
+# the t tile, and one row of every head's resident W.
 GROUPED_TC_ROWS = 128
 GROUPED_TC_SMEM = 232448
 _GT_RING_BYTES = 2 * 4 * GROUPED_TC_ROWS * 40  # bf16 [4][128][40]

@@ -21,67 +21,38 @@ LAUNCHES = {"gather_rows": 0}
 
 _SOURCE_CODES = {torch.float32: 0, torch.int16: 2, torch.int32: 3}
 _OUTPUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PATH_CODES = {"element": 0, "bulk": 1, "vector": 2}
+_PATH_CODES = {"element": 0, "vector": 1}
 
-# The kernel's shape on the H100: SMs, threads of a block, elements of a
-# conversion unit (16-byte words of int16 / bf16), the vector path's units
-# in flight per thread (4 or 8).
+# The kernel's shape on the H100 (gather.cu): SMs, threads of a block,
+# elements of a unit (a 16-byte word of int16 / bf16), units in flight per
+# thread on the vector path, and the blocks of a launch at most on each
+# path (a few waves of resident blocks; each thread loops over the rest).
 GATHER_SMS = 132
 GATHER_THREADS = 256
 GATHER_UNIT = 8
 GATHER_UNROLL = 4
-# The bulk path: blocks per SM, the most stages of a block's ring, the
-# bytes its ring may take, the longest piece of a row one stage holds, the
-# indices a block loads up front.
-GATHER_BLOCKS_PER_SM = 2
-GATHER_MAX_STAGES = 8
-GATHER_RING_BYTES = 64 << 10
-GATHER_PIECE_BYTES = 8 << 10
-GATHER_MAX_ITEMS = 4096
-_BAR_BYTES = 128  # the bulk ring's mbarriers (kBarBytes)
-# The design of aligned rows: "bulk" (the copy engine's ring) or "vector"
-# (the 16-byte loads of every thread).
-GATHER_DESIGN = "vector"
+GATHER_MAX_BLOCKS = {"vector": GATHER_SMS * 8, "element": GATHER_SMS * 16}
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def gather_plan(b: int, f: int, src_bytes: int, aligned: bool,
-                design: str = GATHER_DESIGN) -> dict:
-    """The launch of K1 for ``b`` rows of ``f`` elements of ``src_bytes``
-    each, pointers 16-byte ``aligned`` or not: the path, the grid and, on
-    the bulk path, the row pieces and the ring.  Rows of whole 16-byte
-    units (F a multiple of :data:`GATHER_UNIT`, aligned pointers) take
-    ``design``; every other shape the element path."""
-    if design not in ("bulk", "vector"):
-        raise ValueError(f"unknown gather design {design!r}")
-    plan = {"path": "element", "grid": 1, "chunk": 0, "stages": 0,
-            "stage_bytes": 0, "smem_bytes": 0, "unroll": 0}
-    if b == 0 or f == 0:
-        return plan
+def gather_plan(b: int, f: int, aligned: bool) -> dict:
+    """The launch of K1 for ``b`` rows of ``f`` elements, the source and
+    output pointers 16-byte ``aligned`` or not: the vector path for rows of
+    whole 16-byte units (F a multiple of :data:`GATHER_UNIT`, aligned
+    pointers), every thread with :data:`GATHER_UNROLL` units in flight, and
+    the element path for every other shape; the grid covers the work in
+    one step of every thread where the card holds it."""
     if f % GATHER_UNIT or not aligned:
-        plan["grid"] = min(_cdiv(b * f, GATHER_THREADS), GATHER_SMS * 16)
-        return plan
-    if design == "vector":
-        units = b * f // GATHER_UNIT
-        plan.update(path="vector", unroll=GATHER_UNROLL, grid=min(
-            _cdiv(units, GATHER_THREADS * GATHER_UNROLL), GATHER_SMS * 8))
-        return plan
-    chunk = min(f, GATHER_PIECE_BYTES // src_bytes)
-    chunk -= chunk % GATHER_UNIT
-    items = b * _cdiv(f, chunk)
-    grid = max(min(items, GATHER_SMS * GATHER_BLOCKS_PER_SM),
-               _cdiv(items, GATHER_MAX_ITEMS))
-    stage_bytes = _cdiv(chunk * src_bytes, 128) * 128
-    stages = max(1, min(GATHER_MAX_STAGES, GATHER_RING_BYTES // stage_bytes,
-                        _cdiv(items, grid)))
-    plan.update(path="bulk", grid=grid, chunk=chunk, stages=stages,
-                stage_bytes=stage_bytes,
-                smem_bytes=(_BAR_BYTES + stages * stage_bytes
-                            + 4 * _cdiv(items, grid)))
-    return plan
+        path, per_block = "element", GATHER_THREADS
+        work = b * f
+    else:
+        path, per_block = "vector", GATHER_THREADS * GATHER_UNROLL
+        work = b * f // GATHER_UNIT
+    return {"path": path, "grid": max(1, min(_cdiv(work, per_block),
+                                             GATHER_MAX_BLOCKS[path]))}
 
 
 def reference_gather(src: torch.Tensor, idx: torch.Tensor,
@@ -91,10 +62,8 @@ def reference_gather(src: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor,
-                dtype: torch.dtype = torch.float32, *,
-                design: str = GATHER_DESIGN) -> torch.Tensor:
-    """Rows ``idx`` (B,) of ``src`` (N, F) as a (B, F) tensor of ``dtype``;
-    ``design`` is the path of aligned rows (:func:`gather_plan`)."""
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Rows ``idx`` (B,) of ``src`` (N, F) as a (B, F) tensor of ``dtype``."""
     if not src.is_cuda:
         return reference_gather(src, idx, dtype)
     if src.dim() != 2 or idx.dim() != 1:
@@ -113,9 +82,8 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((b, f), dtype=dtype, device=src.device)
     if b == 0 or f == 0:
         return out
-    plan = gather_plan(b, f, src.element_size(),
-                       src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
-                       design)
+    plan = gather_plan(b, f, src.data_ptr() % 16 == 0
+                       and out.data_ptr() % 16 == 0)
     launch(src, idx, out, plan)
     LAUNCHES["gather_rows"] += 1
     return out
@@ -130,7 +98,5 @@ def launch(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
         "scvae_gather_rows", src.device,
         src.data_ptr(), _SOURCE_CODES[src.dtype], idx.data_ptr(),
         idx.shape[0], n, f, out.data_ptr(), _OUTPUT_CODES[out.dtype],
-        _PATH_CODES[plan["path"]], plan["grid"], plan["chunk"],
-        plan["stages"], plan["stage_bytes"], plan["smem_bytes"],
-        plan["unroll"],
+        _PATH_CODES[plan["path"]], plan["grid"],
     )

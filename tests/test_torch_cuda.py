@@ -75,10 +75,9 @@ def _close(got, want, rtol):
 @pytest.mark.parametrize("f", [1, 8, 13, 16, 2000, 2048, 4100, 4104])
 @pytest.mark.parametrize("src_dtype", [torch.int16, torch.int32, torch.float32])
 def test_gather_bit_exact(device, f, src_dtype):
-    """Every path of K1 (the bulk ring and its vector control for rows of
-    whole 16-byte units, the element path for the rest), one row, a permuted
-    batch and 2,049 indices with repeats; at F = 4,104 a row takes two
-    pieces of the bulk ring (int16) or three (four-byte sources)."""
+    """Both paths of K1 (16-byte units for rows of whole units, F = 8,
+    16, 2,000, 2,048 and 4,104; the element path for F = 1, 13 and 4,100),
+    one row, a permuted batch and 2,049 indices with repeats."""
     gen = torch.Generator(device=device).manual_seed(f)
     src = torch.randint(0, 300, (3000, f), generator=gen,
                         device=device).to(src_dtype)
@@ -91,10 +90,9 @@ def test_gather_bit_exact(device, f, src_dtype):
     for idx in batches:
         for dtype in (torch.bfloat16, torch.float32):
             want = ops.reference_gather(src, idx, dtype)
-            for design in ("bulk", "vector"):
-                got = ops.gather_rows(src, idx, dtype, design=design)
-                assert got.dtype == want.dtype == dtype
-                assert torch.equal(got, want), (idx.shape[0], dtype, design)
+            got = ops.gather_rows(src, idx, dtype)
+            assert got.dtype == want.dtype == dtype
+            assert torch.equal(got, want), (idx.shape[0], dtype)
 
 
 def test_gather_out_of_range_index_traps(device):

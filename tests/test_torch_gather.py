@@ -111,62 +111,40 @@ def test_cpu_wrapper_is_the_plain_version():
     assert ops.launch_counts()["gather_rows"] == before  # no kernel launched
 
 
-@pytest.mark.parametrize("b,f,src_bytes,aligned,path", [
-    (2048, 2048, 2, True, "bulk"),      # the headline: int16 rows of 4,096 B
-    (2048, 2000, 2, True, "bulk"),      # 4,000 B rows: whole 16-byte units
-    (2048, 2048, 4, True, "bulk"),
-    (1, 8, 4, True, "bulk"),
-    (2048, 2048, 2, False, "element"),  # a pointer off 16 bytes
-    (2048, 1, 4, True, "element"),      # the constrained Poisson's count sums
-    (2048, 2001, 2, True, "element"),
-    (2048, 2004, 2, True, "element"),   # 4,008 B rows
-    (2049, 4100, 4, True, "element"),
+@pytest.mark.parametrize("b,f,aligned,path", [
+    (2048, 2048, True, "vector"),    # the headline: int16 rows of 4,096 B
+    (2048, 2000, True, "vector"),    # int16 rows of 4,000 B: whole units
+    (1, 8, True, "vector"),
+    (68579, 2048, True, "vector"),   # more units than one step of the grid
+    (2048, 2048, False, "element"),  # a pointer off 16 bytes
+    (2048, 1, True, "element"),      # the constrained Poisson's count sums
+    (2048, 2001, True, "element"),
+    (2048, 2004, True, "element"),   # int16 rows of 4,008 B
+    (2049, 4100, True, "element"),
 ])
-def test_plan_takes_the_bulk_path_only_for_aligned_rows(b, f, src_bytes,
-                                                        aligned, path):
-    """K1's plan: the copy engine's ring (or its vector control) only for
-    rows of whole 16-byte units at 16-byte aligned pointers; every other
-    shape the element path, whose grid covers the B·F elements."""
-    plan = gather.gather_plan(b, f, src_bytes, aligned, design="bulk")
+def test_plan_takes_the_vector_path_only_for_aligned_rows(b, f, aligned,
+                                                          path):
+    """K1's plan: 16-byte units in flight only for rows of whole 16-byte
+    units at 16-byte aligned pointers; every other shape the element path.
+    The grid covers the work in one step of every thread up to the path's
+    most blocks, and no block is left without work."""
+    plan = gather.gather_plan(b, f, aligned)
     assert plan["path"] == path
-    control = gather.gather_plan(b, f, src_bytes, aligned, design="vector")
-    assert control["path"] == ("vector" if path == "bulk" else "element")
-    if path == "element":
-        assert plan["grid"] * gather.GATHER_THREADS >= min(
-            b * f, gather.GATHER_SMS * 16 * gather.GATHER_THREADS)
-        return
-    assert f % gather.GATHER_UNIT == 0 and aligned
-    chunk, stages = plan["chunk"], plan["stages"]
-    assert 0 < chunk <= f and chunk % gather.GATHER_UNIT == 0
-    items = b * -(-f // chunk)
-    assert 1 <= plan["grid"] <= items
-    assert 1 <= stages <= gather.GATHER_MAX_STAGES
-    assert plan["stage_bytes"] % 128 == 0
-    assert chunk * src_bytes <= plan["stage_bytes"]
-    assert plan["smem_bytes"] == (128 + stages * plan["stage_bytes"]
-                                  + 4 * -(-items // plan["grid"]))
-    assert plan["smem_bytes"] <= 227 * 1024
+    if path == "vector":
+        work, per_block = b * f // gather.GATHER_UNIT, (
+            gather.GATHER_THREADS * gather.GATHER_UNROLL)
+    else:
+        work, per_block = b * f, gather.GATHER_THREADS
+    most = gather.GATHER_MAX_BLOCKS[path]
+    assert 1 <= plan["grid"] <= most
+    assert plan["grid"] * per_block >= min(work, most * per_block)
+    assert (plan["grid"] - 1) * per_block < work
 
 
-def test_plan_keeps_every_row_of_the_headline_in_flight():
-    """B = F = 2,048 int16: two blocks per SM, each with a ring as deep as
-    its rows, so the first copies of every row are issued at once; a long
-    row is cut into pieces of at most 8 KB."""
-    plan = gather.gather_plan(2048, 2048, 2, True, design="bulk")
-    assert plan["grid"] == 2 * gather.GATHER_SMS
-    assert plan["stages"] == -(-2048 // plan["grid"]) == 8
-    assert plan["chunk"] == 2048
-    wide = gather.gather_plan(2048, 30000, 4, True, design="bulk")
-    assert wide["chunk"] * 4 == gather.GATHER_PIECE_BYTES
-    assert gather.gather_plan(0, 2048, 2, True)["path"] == "element"
-
-
-def test_cpu_wrapper_is_the_plain_version_for_either_design():
-    src = torch.from_numpy(_source(30, 16, np.int16))
-    idx = torch.from_numpy(_idx(30, 5))
-    before = ops.launch_counts()["gather_rows"]
-    want = ops.reference_gather(src, idx, torch.bfloat16)
-    for design in ("bulk", "vector"):
-        got = ops.gather_rows(src, idx, torch.bfloat16, design=design)
-        assert torch.equal(got, want)
-    assert ops.launch_counts()["gather_rows"] == before
+def test_plan_covers_the_headline_in_one_step():
+    """B = F = 2,048: 524,288 units, four a thread, 512 blocks of 256
+    threads, all resident at once on the H100 (132 SMs x 8 blocks)."""
+    assert gather.gather_plan(2048, 2048, True) == {"path": "vector",
+                                                    "grid": 512}
+    assert gather.GATHER_MAX_BLOCKS["vector"] == gather.GATHER_SMS * 8
+    assert gather.gather_plan(0, 2048, True)["grid"] == 1

@@ -6,10 +6,10 @@ states of the L2 cache.
 
 B = 2,048 rows of a 68,579 x 2,048 int16 count matrix (random counts,
 seed 0) to bf16, as every training step gathers them.  Each launch shape of
-``ops/csrc/gather.cu`` below (its path, grid, ring and units in flight;
-every result checked bit for bit against ``index_select`` + ``.to``) and
-two PyTorch yardsticks: ``index_select`` + ``.to``, and the contiguous cast
-``.to(bf16)`` of 2,048 rows, the same bytes without the gather.  States of
+``ops/csrc/gather.cu`` below (its path and grid; every result checked bit
+for bit against ``index_select`` + ``.to``) and two PyTorch yardsticks:
+``index_select`` + ``.to``, and the contiguous cast ``.to(bf16)`` of 2,048
+rows, the same bytes without the gather.  States of
 the L2 cache before each launch: "dirty" (96 MB written, as
 ``chip_smoke.time_ms`` flushes, so the launch's misses also write back
 dirty lines), "clean" (96 MB read) and "none" (what the last launch left).
@@ -69,23 +69,12 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
-    shapes = {}
-    for design in ("bulk", "vector"):
-        planned = gather.gather_plan(b, f, 2, True, design)
-        shapes[f"{design} as planned (grid {planned['grid']})"] = planned
-        if design == "bulk":
-            for grid in (132, 528, 1056):
-                stages = min(gather.GATHER_MAX_STAGES, -(-b // grid))
-                shapes[f"bulk grid {grid}, {stages} stages"] = dict(
-                    planned, grid=grid, stages=stages,
-                    smem_bytes=128 + stages * planned["stage_bytes"]
-                    + 4 * -(-b // grid))
-        else:
-            for unroll, grid in ((4, 132), (4, 264), (8, 256)):
-                shapes[f"vector grid {grid}, {unroll} units"] = dict(
-                    planned, grid=grid, unroll=unroll)
-    shapes["element (grid 2,112)"] = dict(
-        gather.gather_plan(b, f, 2, False), grid=2112)
+    planned = gather.gather_plan(b, f, True)
+    shapes = {f"vector as planned (grid {planned['grid']})": planned}
+    for grid in (132, 264, 1056):
+        shapes[f"vector grid {grid}"] = dict(planned, grid=grid)
+    shapes["element (grid 2,112)"] = dict(gather.gather_plan(b, f, False),
+                                          grid=2112)
     calls = {}
     for label, plan in shapes.items():
         out.zero_()
