@@ -41,7 +41,11 @@ widths past one hidden chunk.  The grouped kernels (K4/K5) are checked at
 group counts of 1, 3 and 17 (past the 16 of ``supports_grouped_likelihood``
 and past four dh block groups), rows and genes off the tiles and decoder
 widths of 584 and 1,024, against their plain versions and against the flat
-kernels over the same group-major rows with cycled targets.
+kernels over the same group-major rows with cycled targets; the bf16 K5
+(``grouped_likelihood_tc.cu``, then the same products) also kernel by
+kernel, past one block of target rows and with W resident in several
+chunks.  The row gather is bit-exact on both of its paths (16-byte units,
+single elements), and an index outside the matrix traps.
 """
 
 import pytest
