@@ -7,9 +7,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training paths (and the float32 K2/K3, K6
-             and K7, which no training path launches) against its plain PyTorch
-             version on the same inputs at the headline shapes (68,579
+3. kernels — every kernel of the training paths (and the float32
+             categorised K2/K3, K6 and K7, which no training path launches)
+             against its plain PyTorch version on the same inputs at the
+             headline shapes (68,579
              cells × 2,048 genes, minibatch 2,048, decoder width 256) for
              every likelihood family, the categorised instances with 14 heads (ZINB,
              K = 10) and with the cap of 32 (Poisson, K = 30) on targets of
@@ -19,7 +20,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              the plain version's time and the least time the card could take;
 4. slice   — for each trained configuration, the headline VAE with each
              likelihood (Poisson, zero-inflated Poisson, zero-inflated NB,
-             constrained Poisson, NB), VAE-ZINB-cat (K = 10 classes, 14 heads),
+             constrained Poisson, NB), VAE-NB-f32 (NB with
+             precision="float32": the float32 K2/K3, h, W and da as bf16
+             terms on the tensor cores), VAE-ZINB-cat (K = 10 classes, 14 heads),
              VAE-Poisson-cat (K = 30, 32 heads, on counts of mean 31 that
              reach K) and GMVAE-NB (10 clusters): one
              training loss and its gradients on the CPU (plain versions) and
@@ -32,9 +35,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              package's ``bench.py`` config 3): a finite, rising ELBO, and
              each of the configuration's likelihood kernels launched exactly
              once per training step (GMVAE-NB: once over all clusters, not K
-             times), no other likelihood kernel (no float32 K2 either: the
-             evaluation passes take the unfused path), the row gather at
-             least once;
+             times), no other likelihood kernel (the evaluation passes take
+             the unfused path), the row gather at least once;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
@@ -80,20 +82,25 @@ WIDE_HIDDEN = 1_024
 EPOCHS = 2
 CLUSTERS = 10  # GMVAE-NB: K·S·B = 20,480 decoder rows per step
 # The trained configurations: (label, model, reconstruction distribution,
-# reconstruction classes, Poisson mean of the nonzero counts).  The headline
+# reconstruction classes, Poisson mean of the nonzero counts, precision:
+# None for the default, bf16 matmul inputs on the GPU).  The headline
 # counts (Poisson(3) + 1) do not reach K = 30, so VAE-Poisson-cat trains on
 # Poisson(30) + 1 counts at the same places, about 0.6 of them at or above
-# K: otherwise its base head would never take a gradient.
+# K: otherwise its base head would never take a gradient.  VAE-NB-f32 is
+# the headline VAE-NB with precision="float32", the JAX package's own
+# choice on any backend but a TPU: the float32 K2/K3.
 TRAINED = (
-    ("poisson", "vae", "poisson", 0, 3.0),
-    ("zero-inflated poisson", "vae", "zero-inflated poisson", 0, 3.0),
+    ("poisson", "vae", "poisson", 0, 3.0, None),
+    ("zero-inflated poisson", "vae", "zero-inflated poisson", 0, 3.0, None),
     ("zero-inflated negative binomial", "vae",
-     "zero-inflated negative binomial", 0, 3.0),
-    ("constrained poisson", "vae", "constrained poisson", 0, 3.0),
-    ("negative binomial", "vae", "negative binomial", 0, 3.0),
-    ("VAE-ZINB-cat", "config", "zero-inflated negative binomial", 10, 3.0),
-    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0),
-    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0),
+     "zero-inflated negative binomial", 0, 3.0, None),
+    ("constrained poisson", "vae", "constrained poisson", 0, 3.0, None),
+    ("negative binomial", "vae", "negative binomial", 0, 3.0, None),
+    ("VAE-NB-f32", "vae", "negative binomial", 0, 3.0, "float32"),
+    ("VAE-ZINB-cat", "config", "zero-inflated negative binomial", 10, 3.0,
+     None),
+    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None),
+    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0, None),
 )
 # The categorised kernel checks: (base, K) with 14 and 32 heads.
 CATEGORISED = (("zero-inflated negative binomial", 10), ("poisson", 30))
@@ -143,7 +150,6 @@ CSRC = "scvae_tpu_torch/ops/csrc/"
 SOURCES = {
     "gather": CSRC + "gather.cu",
     "count": CSRC + "count_likelihood_tc.cu",
-    "count_float32": CSRC + "count_likelihood.cu",
     "product": CSRC + "tc_product.cu",
     "cp": CSRC + "cp_likelihood_tc.cu",
     "cp_float32": CSRC + "cp_likelihood.cu",
@@ -344,7 +350,8 @@ def check_family(name, h, g, x, gen, flush):
     full = (ws, bs, x)
 
     fwd_cases = [(full, bf16, False), (ragged, bf16, False),
-                 ((ws, bs, x), None, True), ((ws, bs, x.float()), bf16, True)]
+                 ((ws, bs, x), None, True), ((ws, bs, x.float()), bf16, True),
+                 (ragged, None, False)]
     for i, ((w_, b_, t), cdt, const) in enumerate(fwd_cases):
         got = ops.fused_forward(name, h, w_, b_, t, compute_dtype=cdt,
                                 include_lgamma_const=const)
@@ -355,8 +362,6 @@ def check_family(name, h, g, x, gen, flush):
                           FORWARD_RTOL)
         if i == 0:  # the main path's case
             fwd_err = err
-        elif i == 2:  # float32, timed below
-            f32_errs = {"forward": err}
 
     parts = ["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
     for w_, b_, t in (full, ragged):
@@ -372,36 +377,137 @@ def check_family(name, h, g, x, gen, flush):
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)  # dh, dWs, dbs
     got = ops.fused_backward(name, g, h, ws, bs, x)  # dh, dW_0, db_0, …
     order = [0] + [i for j in range(k) for i in (1 + j, 1 + k + j)]
-    errs = [check_close(f"{fam.prefix}_backward float32 {part} vs autograd",
-                        a, want[i], AUTOGRAD_RTOL)
-            for part, a, i in zip(parts, got, order)]
-    f32_errs.update(backward_dh=errs[0], backward_dw=max(errs[1:]))
+    for part, a, i in zip(parts, got, order):
+        check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
+                    want[i], AUTOGRAD_RTOL)
 
     results = count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
                                  tag=fam.prefix)
-    # The float32 K2/K3 (CUDA cores, no training launch): one product of
-    # the heads forward, two per backward pass (the activations again),
-    # float32 FMAs; h and the heads in float32, t in bf16.
-    product = 2 * k * m * hidden * f
-    in_bytes = m * hidden * 4 + k * (hidden * f + f) * 4 + m * f * 2
+    results.update(f32_kernel_times(name, h, g, ws, bs, x, flush,
+                                    tag=fam.prefix))
+    return results
+
+
+def f32_kernel_times(name, h, g, ws, bs, x, flush, tag, reps=25):
+    """The float32 K2 and K3 kernels of base family ``name`` on the tensor
+    cores, h, W and da as ``SPLIT_TERMS`` bf16 terms: the forward against
+    its plain version in the split layout and against the float32 plain
+    version; the backward's three kernels each against its plain version
+    (the gradient kernel's copies of each term of da equal, its first term
+    within one bf16 step of the plain one, the sum of its terms and its
+    row-tile sums within PRODUCT_RTOL; the dh and dW products against the
+    plain products of the kernel's own scratch, bit for bit over two runs);
+    then each kernel timed with its bound, and the public calls beside the
+    float32 plain versions of the function and the wrapper's operand work
+    (the split of h and W into their layouts)."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    k = len(ws)
+    (m, hidden), (m_t, f) = h.shape, x.shape
+    timed = dict(flush=flush, reps=reps)
     fwd_args = (name, h, ws, bs, x)
     bwd_args = (name, g, h, ws, bs, x)
-    for kernel, fn, plain, nbytes, flops in (
-        ("forward", lambda: ops.fused_forward(*fwd_args),
-         lambda: ops.reference_forward(*fwd_args), in_bytes + m * 4, product),
-        ("backward_dh", lambda: ops.fused_backward_dh(*bwd_args),
-         lambda: ops.reference_dh(*bwd_args),
-         in_bytes + m * 4 + m * hidden * 4, 2 * product),
-        ("backward_dw", lambda: ops.fused_backward_dw(*bwd_args),
-         lambda: ops.reference_dw(*bwd_args),
-         in_bytes + m * 4 + k * (hidden * f + f) * 4, 2 * product),
-    ):
-        t_bound, by = bound(nbytes, flops, F32_FLOPS)
-        results[f"{fam.prefix}_{kernel}_float32"] = {
-            "max_abs_err": f32_errs[kernel], "ms": time_ms(fn, flush=flush),
-            "plain_ms": time_ms(plain, flush=flush), "bound_ms": t_bound,
-            "bound_by": by, "library_ms": None,
+    out = fl.f32_tc_forward(*fwd_args, include_lgamma_const=False)
+    fwd_err = check_close(
+        f"{tag}_forward_float32 M={m}", out, fl.reference_f32_tc_forward(
+            *fwd_args, include_lgamma_const=False), FORWARD_RTOL)
+    check_close(f"{tag}_forward_float32 M={m} vs float32 plain", out,
+                ops.reference_forward(*fwd_args, include_lgamma_const=False),
+                FORWARD_RTOL)
+    grad = fl.f32_tc_gradient(*bwd_args)
+    plain = fl.reference_f32_tc_gradient(*bwd_args)
+    got, want = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
+                 for z in (grad, plain))
+    # slot p holds da's term i of pair p; the first pair of term i is (i, 0)
+    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
+        if not torch.equal(got[:, p], got[:, first[i]]):
+            raise AssertionError(f"{tag}_backward_gradient_float32: the "
+                                 f"copies of da's term {i} differ")
+    check_bf16_steps(f"{tag}_backward_gradient_float32 da_0 M={m}",
+                     got[:, 0], want[:, 0])
+    grad_err = check_close(
+        f"{tag}_backward_gradient_float32 sum of da's terms M={m}",
+        sum(got[:, p].float() for p in first),
+        sum(want[:, p].float() for p in first), PRODUCT_RTOL)
+    check_close(f"{tag}_backward_gradient_float32 db row-tile sums M={m}",
+                grad.db_parts, plain.db_parts, PRODUCT_RTOL)
+    dh = fl.tc_dh(grad)
+    dh_err = check_close(f"{tag}_backward_dh_float32 of the kernel's da "
+                         f"M={m}", dh, fl.reference_tc_dh(grad), PRODUCT_RTOL)
+    dws = fl.tc_dw(grad)
+    dw_err = max(check_close(f"{tag}_backward_dw_float32 [{i}] of the "
+                             f"kernel's da M={m}", a, b, PRODUCT_RTOL)
+                 for i, (a, b) in enumerate(zip(
+                     dws, fl.reference_tc_dw(grad), strict=True)))
+    again = (fl.tc_dh(grad), *fl.tc_dw(grad))
+    if not all(torch.equal(a, b) for a, b in zip((dh, *dws), again)):
+        raise AssertionError(f"{tag} float32 products differ between two "
+                             "runs")
+
+    # Bounds: the function's product, 2·NH·M·H·F counted once however many
+    # pairs of terms the design multiplies, at the bf16 tensor-core rate,
+    # or its bytes: h and the heads in float32 as the caller holds them, t
+    # as it arrives, da as its SPLIT_TERMS bf16 terms once (not the
+    # scratch's copies per pair), every output in float32.
+    product = 2 * k * m * hidden * f
+    head_bytes = k * (hidden * f + f) * 4
+    in_bytes = m * hidden * 4 + head_bytes + m_t * f * x.element_size()
+    da_terms = m * k * f * 2 * fl.SPLIT_TERMS
+    db_bytes = grad.db_parts.numel() * 4
+    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    kernels = {  # fn, plain, library, err, bytes
+        "forward_float32": (
+            lambda: fl.f32_tc_forward(*fwd_args, include_lgamma_const=False),
+            lambda: fl.reference_f32_tc_forward(*fwd_args,
+                                                include_lgamma_const=False),
+            None, fwd_err, in_bytes + m * 4),
+        "backward_gradient_float32": (
+            lambda: fl.f32_tc_gradient(*bwd_args),
+            lambda: fl.reference_f32_tc_gradient(*bwd_args), None, grad_err,
+            in_bytes + m * 4 + da_terms + db_bytes),
+        "backward_dh_float32": (
+            lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
+            lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
+            da_terms + k * hidden * f * 4 + m * hidden * 4),
+        "backward_dw_float32": (
+            lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad), None,
+            dw_err, m * hidden * 4 + da_terms + db_bytes + head_bytes),
+    }
+    results = {}
+    for kernel, (fn, plain_fn, library, err, nbytes) in kernels.items():
+        t_bound, by = bound(nbytes, product, BF16_FLOPS)
+        library_ms = None
+        if library is not None:
+            try:  # torch.mm with a float32 output from bf16 operands
+                library_ms = time_ms(library, **timed)
+            except (RuntimeError, TypeError) as err_:
+                log(f"library call for {tag}_{kernel} unavailable: {err_}")
+        results[f"{tag}_{kernel}"] = {
+            "max_abs_err": err, "ms": time_ms(fn, **timed),
+            "plain_ms": time_ms(plain_fn, **timed),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": library_ms,
         }
+    parts = sum(results[f"{tag}_{kernel}"]["ms"] for kernel in
+                ("backward_gradient_float32", "backward_dh_float32",
+                 "backward_dw_float32"))
+    public = {
+        "fused_forward": (
+            lambda: ops.fused_forward(*fwd_args, include_lgamma_const=False),
+            lambda: ops.reference_forward(*fwd_args,
+                                          include_lgamma_const=False)),
+        "fused_backward": (lambda: ops.fused_backward(*bwd_args),
+                           lambda: ops.reference_backward(*bwd_args)),
+    }
+    print(f"float32 {tag} M={m}: backward kernels {parts:.4f} ms; public "
+          "calls against the float32 plain versions: " + "; ".join(
+              f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
+              f"{time_ms(plain_fn, **timed):.4f} ms)"
+              for label, (fn, plain_fn) in public.items())
+          + f"; operand work (h and W split into their layouts) "
+          f"{time_ms(lambda: fl._f32_tc_operands(h, ws, bs), **timed):.4f} "
+          "ms", flush=True)
     return results
 
 
@@ -1258,9 +1364,10 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda"):
         verbose=False, epoch_callback=epoch_callback)
 
 
-def train_config(label, model, name, k_max, counts, card):
-    """One trained configuration at the headline width for two epochs;
-    returns the kernel launches of the run."""
+def train_config(label, model, name, k_max, counts, card, precision=None):
+    """One trained configuration at the headline width for two epochs
+    (``precision`` None: the API's default); returns the kernel launches
+    of the run."""
     from scvae_tpu_torch import (
         GaussianMixtureVariationalAutoencoder,
         VariationalAutoencoder,
@@ -1274,6 +1381,8 @@ def train_config(label, model, name, k_max, counts, card):
                   reconstruction_distribution=name,
                   number_of_reconstruction_classes=k_max,
                   log_directory=os.path.join(SLICE_DIRECTORY, label))
+    if precision is not None:
+        kwargs["precision"] = precision
     ops.reset_launch_counts()
     if model == "config":
         from scvae_tpu_torch.models import vae
@@ -1297,9 +1406,11 @@ def train_config(label, model, name, k_max, counts, card):
     prefix = ("cp" if name == "constrained poisson"
               else ops.FAMILIES[name].prefix)
     prefix = f"cat_{prefix}" if k_max else prefix
-    # the bf16 backward: its gradient kernel, then the dh and dW products
+    # the backward: its gradient kernel, then the dh and dW products; the
+    # float32 kernels count with the "_float32" suffix
     kernels = ["forward", "backward_gradient", "backward_dh", "backward_dw"]
-    ours = {f"{prefix}_{kernel}" for kernel in kernels}
+    suffix = "_float32" if precision == "float32" else ""
+    ours = {f"{prefix}_{kernel}{suffix}" for kernel in kernels}
     for kernel, count in launches.items():
         want = steps if kernel in ours else 0
         if kernel != "gather_rows" and count != want:
@@ -1314,13 +1425,11 @@ def train_config(label, model, name, k_max, counts, card):
         raise AssertionError(f"{label}: training ELBO not finite and rising: "
                              f"{elbo}")
     seconds = result.epoch_seconds[-1]
-    float32_k2 = sum(v for k, v in launches.items()
-                     if k.endswith("_forward_float32"))
     print(f"slice {label}: ELBO {elbo}; epoch {EPOCHS}: "
           f"{result.steps_per_epoch / seconds:.6g} steps/s, "
           f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
-          f"launches {({k: v for k, v in launches.items() if v})}; "
-          f"float32 K2 launches {float32_k2} ({card})", flush=True)
+          f"launches {({k: v for k, v in launches.items() if v})} ({card})",
+          flush=True)
     return launches
 
 
@@ -1535,10 +1644,11 @@ def main() -> int:
     launches = dict.fromkeys(kernels, 0)
     shutil.rmtree(SLICE_DIRECTORY, ignore_errors=True)
     data = {3.0: counts}
-    for label, model, name, k_max, mean in TRAINED:
+    for label, model, name, k_max, mean, precision in TRAINED:
         if mean not in data:
             data[mean] = make_counts(N_CELLS, N_GENES, mean=mean)
-        run = train_config(label, model, name, k_max, data[mean], card)
+        run = train_config(label, model, name, k_max, data[mean], card,
+                           precision)
         for kernel, count in run.items():
             entry = kernel + "_cycled" if model == "gmvae" else kernel
             if kernel == "gather_rows" or entry in kernels:
@@ -1550,6 +1660,11 @@ def main() -> int:
         if ("_grouped_" in name and "_float32" not in name
                 and not launches.get(name)):
             raise AssertionError(f"{name} was not launched after training")
+    for kernel in ("forward", "backward_gradient", "backward_dh",
+                   "backward_dw"):  # VAE-NB-f32's
+        if not launches.get(f"nb_{kernel}_float32"):
+            raise AssertionError(f"nb_{kernel}_float32 was not launched in "
+                                 "training")
 
     def source(name):
         if name == "gather_rows":
@@ -1572,8 +1687,8 @@ def main() -> int:
                 file = "product"
             return SOURCES[file], REPLACES["grouped_" + kind]
         cat = name.startswith("cat_")
-        if "_float32" in name:
-            file = "cat" if cat else "count_float32"
+        if cat and "_float32" in name:
+            file = "cat"
         elif "backward_dh" in name or "backward_dw" in name:
             file = "product"
         elif cat:

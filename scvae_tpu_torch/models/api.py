@@ -53,6 +53,26 @@ _CONFIG_KWARGS = (
     "precision",
 )
 _SAMPLE_KWARGS = ("number_of_monte_carlo_samples", "number_of_importance_samples")
+# Arguments that the constructors check and keep out of the configuration.
+_CHECKED_KWARGS = ("fused_likelihood", "mesh")
+
+
+def check_constructor_kwargs(kwargs: dict, config_kwargs) -> None:
+    """Raise ``TypeError`` for an argument neither model takes, and
+    ``NotImplementedError`` for what the port does not run yet: a device
+    mesh, and ``fused_likelihood=False`` (the unfused training path).
+    ``fused_likelihood`` None and True both train on the fused path, which
+    the port always takes (JAX's None picks it where a kernel exists)."""
+    unknown = (set(kwargs) - set(config_kwargs) - set(_SAMPLE_KWARGS)
+               - set(_CHECKED_KWARGS))
+    if unknown:
+        raise TypeError(f"unexpected arguments {sorted(unknown)}")
+    if kwargs.get("mesh") is not None:
+        raise NotImplementedError("device meshes are not ported yet")
+    if kwargs.get("fused_likelihood") is False:
+        raise NotImplementedError(
+            "fused_likelihood=False: the unfused training path is not "
+            "ported yet")
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -172,11 +192,7 @@ class VariationalAutoencoder:
         log_directory: str | None = None,
         **kwargs: Any,
     ):
-        unknown = set(kwargs) - set(_CONFIG_KWARGS) - set(_SAMPLE_KWARGS) - {"mesh"}
-        if unknown:
-            raise TypeError(f"unexpected arguments {sorted(unknown)}")
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError("device meshes are not ported yet")
+        check_constructor_kwargs(kwargs, _CONFIG_KWARGS)
 
         def default(value, *path):
             return get_default(*path) if value is None else value

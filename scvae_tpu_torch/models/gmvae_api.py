@@ -29,6 +29,7 @@ from scvae_tpu_torch.models.api import (
     _output_versions,
     _place,
     _unported_mesh,
+    check_constructor_kwargs,
     resolve_device,
 )
 from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
@@ -63,12 +64,7 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         log_directory: str | None = None,
         **kwargs: Any,
     ):
-        unknown = (set(kwargs) - set(_CONFIG_KWARGS) - set(_SAMPLE_KWARGS)
-                   - {"mesh"})
-        if unknown:
-            raise TypeError(f"unexpected arguments {sorted(unknown)}")
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError("device meshes are not ported yet")
+        check_constructor_kwargs(kwargs, _CONFIG_KWARGS)
 
         def default(value, *path):
             return get_default(*path) if value is None else value

@@ -1,8 +1,9 @@
 // The base count families of the fused likelihood kernels: the CUDA twins
 // of the (ll, grads) pairs _BASE_LL / _BASE_GRADS of
 // scvae_tpu/ops/fused_likelihood.py, shared by the base kernels K2/K3
-// (count_likelihood.cu) and their categorised instances
-// (categorised_likelihood.cu).
+// (count_likelihood_tc.cu), their grouped instances K4/K5
+// (grouped_likelihood.cu, grouped_likelihood_tc.cu) and their categorised
+// instances (categorised_likelihood.cu, categorised_likelihood_tc.cu).
 //
 // Transcendentals use the shift-3 series of special.cuh and the clip
 // constants of the reference (_TINY, _P_HI, _L_LO, _L_HI).  Clips propagate

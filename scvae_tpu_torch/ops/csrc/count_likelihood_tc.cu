@@ -1,13 +1,13 @@
-// K2 / K3 with bf16 operands on the tensor cores: the fused decoder heads
-// and count log-likelihood of the Poisson, NB, ZIP and ZINB families,
-// forward and backward, for compute_dtype=bfloat16 (the training path).
+// K2 / K3 on the tensor cores: the fused decoder heads and count
+// log-likelihood of the Poisson, NB, ZIP and ZINB families, forward and
+// backward, for compute_dtype=bfloat16 (the bf16 training path) and for
+// float32 (precision="float32", and the JAX package's own choice on any
+// backend but a TPU).
 //
-// Replaces, for bf16 inputs, the Pallas kernels of
-// scvae_tpu/ops/fused_likelihood.py: _make_forward_kernel driven by
-// _fused_forward (K2) and _make_backward_kernel driven by _fused_backward
-// (K3).  The float32 instances keep the CUDA-core kernels of
-// count_likelihood.cu.  For M rows of h (M, H) and the family's heads
-// W_k (H, F), b_k (F,):
+// Replaces the Pallas kernels of scvae_tpu/ops/fused_likelihood.py:
+// _make_forward_kernel driven by _fused_forward (K2) and
+// _make_backward_kernel driven by _fused_backward (K3).  For M rows of
+// h (M, H) and the family's heads W_k (H, F), b_k (F,), with bf16:
 //
 //   a_k  = bf16(h) bf16(W_k) + b_k     (float32 sums, b_k unrounded)
 //   ll   = sum_f log p(t | a)          (support clips; -lgamma(1 + t) if asked)
@@ -25,6 +25,31 @@
 //       to bf16 into a (M, NH * Fp) scratch, and the unrounded column sums
 //       of the block's rows into a (row tiles, NH * Fp) partial array.
 //
+// Float32 (SEG = kSplitPairs, tc_common.cuh): JAX multiplies float32 h and
+// W, and the backward float32 da.  So each goes to the tensor cores as
+// kSplitTerms = 3 bf16 terms, x_0 = bf16(x), x_k = bf16(x - x_0 - ... -
+// x_(k-1)), which leave at most 2^-24 |x|, and every product takes the
+// pairs of terms (i, j) with i + j < 3, by i then j (P = 6 pairs):
+//
+//   a_k  = sum over the pairs of h_j W_k,i + b_k      (float32, pair order)
+//   da_k = g * dll/da_k                               (float32), in 3 terms
+//   dh   = sum over the pairs of da_i W_j^T          (every head)
+//   dW_k = sum over the pairs of h_j^T da_k,i,  db_k = sum_rows da_k
+//
+// The wrapper splits h and W (fused_likelihood.split_bf16) into the pair
+// layouts: h's terms per pair H (M, P, Hp), h_j of pair p in slot p, and
+// the heads' W terms per pair W (Hp, P, NH, Fp), W_j of pair p in block p
+// (so W_i in block i < 3).  The heads kernel runs its depth over the P
+// slots of H, slot p against W's block i of pair p, so the forward and the
+// gradient kernel sum the very same a; the gradient kernel writes da's
+// term i of pair p into slot p of a (M, P * NH * Fp) scratch.  Then dh is
+// the scratch times W^T over the depth P * NH * Fp, and dW is H^T times
+// the scratch read as P * M rows of NH * Fp (tc_product.cu).
+// tools/f32_split_precision.py reads this design's error against the
+// number of terms: two terms of each read up to 2.1e-5 of the largest
+// value where the activations reach the exponentials' clip (the checks
+// allow 2e-5), three read at most 4.3e-6.
+
 // The backward's dh = da W^T and dW = h^T da (with db from the column sums)
 // are plain products of that scratch (tc_product.cu).  So the backward
 // computes the activations and the transcendentals once, and every
@@ -41,7 +66,11 @@
 // rows) asks for 16 warps per SM (12 for three heads).  The epilogue's
 // float32 transcendentals, not the products, set the kernels' time.  The
 // bf16 da scratch (8 MB per head at 2,048 rows) costs little next to
-// recomputing the activations a second time.
+// recomputing the activations a second time.  Float32: the function moves
+// the same bytes with h and W in float32, and its product is counted once
+// (the split's six pairs are the design's cost, not the function's); the
+// pairs take the ring's products six times, and the scratch holds six bf16
+// terms of da per head (da_0 three times, da_1 twice, da_2 once).
 
 #include "tc_common.cuh"
 
@@ -66,8 +95,10 @@ constexpr int tc_heads_min_blocks() {
 // da[row][hd * fp + gene] = bf16(g[row] dll/da_hd), zero past F, and
 // part[blockIdx.x][hd * fp + gene] = the block's sum over its rows of the
 // unrounded values.  Targets t (m_t, f) are float32 or (t_bf16) bf16; row
-// m reads target row m % m_t.
-template <class Fam, bool GRAD>
+// m reads target row m % m_t.  SEG = kSplitPairs: the float32 instance, h
+// (M, P Hp) and w (Hp, P, NH, Fp) the terms per pair, and da[row][(p NH +
+// hd) fp + gene] the term split_first(p) of the value, for each pair p.
+template <class Fam, bool GRAD, int SEG = 1>
 __global__ void __launch_bounds__(kTcThreads,
                                   tc_heads_min_blocks<Fam::kHeads>())
     tc_heads_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
@@ -81,9 +112,11 @@ __global__ void __launch_bounds__(kTcThreads,
   float* act = reinterpret_cast<float*>(tc_smem_raw);  // after the mainloop
 
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
-  const int ldd = NH * fp;
+  const int width = NH * fp;   // one pair's columns of w and of da
+  const int ldd = SEG * width;
   float acc[NH][kTcMI][4][4];
-  tc_mainloop<NH>(smem, TcOperands{h, m, hp, w, ldd, fp, ldd}, m0, n0, acc);
+  tc_mainloop<NH, SEG>(smem, TcOperands{h, m, hp, w, ldd, fp, width, width},
+                       m0, n0, acc);
   tc_stage_acts<NH>(act, acc);
   __syncthreads();
 
@@ -133,8 +166,21 @@ __global__ void __launch_bounds__(kTcThreads,
         if (gene < fp) {
 #pragma unroll
           for (int hd = 0; hd < NH; ++hd) {
-            da[(long long)row * ldd + hd * fp + gene] =
-                __float2bfloat16_rn(gr[hd]);
+            bf16* out = da + (long long)row * ldd + hd * fp + gene;
+            if constexpr (SEG == 1) {
+              *out = __float2bfloat16_rn(gr[hd]);
+            } else {
+              bf16 term[kSplitTerms];
+              float rest = gr[hd];
+#pragma unroll
+              for (int k = 0; k < kSplitTerms; ++k) {
+                term[k] = __float2bfloat16_rn(rest);
+                rest -= __bfloat162float(term[k]);
+              }
+#pragma unroll
+              for (int p = 0; p < SEG; ++p)
+                out[p * width] = term[split_first(p)];
+            }
             col_acc[hd][j] += gr[hd];
           }
         }
@@ -149,11 +195,11 @@ __global__ void __launch_bounds__(kTcThreads,
   }
 
   if constexpr (GRAD)
-    tc_store_col_sums<NH>(act, col_acc, part + (long long)blockIdx.x * ldd,
+    tc_store_col_sums<NH>(act, col_acc, part + (long long)blockIdx.x * width,
                           n0, fp, NH);
 }
 
-template <class Fam, bool GRAD>
+template <class Fam, bool GRAD, int SEG = 1>
 int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
                  int t_bf16, const float* g, float* part, bf16* da, int m,
                  int m_t, int hp, int f, int subtract_const,
@@ -161,7 +207,7 @@ int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
   const dim3 grid((m + kTcRows - 1) / kTcRows, (f + kTcTileN - 1) / kTcTileN);
   if (grid.x == 0 || grid.y == 0) return 0;
   const size_t bytes = tc_heads_smem<Fam::kHeads>();
-  auto kernel = tc_heads_kernel<Fam, GRAD>;
+  auto kernel = tc_heads_kernel<Fam, GRAD, SEG>;
   if (int err = set_smem(kernel, bytes)) return err;
   const int fp = (f + 7) / 8 * 8;
   kernel<<<grid, kTcThreads, bytes, stream>>>(
@@ -180,7 +226,9 @@ extern "C" {
 // 2 = ZIP, 3 = ZINB (NH = 1, 2, 2, 3 heads).  h: bf16 (m, hp); w: bf16
 // (hp, NH, fp); b: float32 (NH, f); t: (m_t, f), t_dtype 0 = float32,
 // 1 = bfloat16; hp and fp are h's and w's padded widths (multiples of 8 at
-// least hidden and f).
+// least hidden and f).  The float32 entries (scvae_tc_f32_*) take h's and
+// W's bf16 terms per pair instead, h (m, P, hp) and w (hp, P, NH, fp) with
+// P = kSplitPairs.
 
 // K2: part (ceil(f / 64), m) scratch, out (m,).
 int scvae_tc_forward(int family, const void* h, const void* w,
@@ -208,6 +256,37 @@ int scvae_tc_gradient(int family, const float* g, const void* h,
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
     return launch_heads<Fam, true>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
+  });
+}
+
+// The float32 K2: as scvae_tc_forward, on the terms per pair.
+int scvae_tc_f32_forward(int family, const void* h, const void* w,
+                         const float* b, const void* t, int t_dtype,
+                         float* part, float* out, int m, int m_t, int hp,
+                         int f, int subtract_const, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = with_family(family, [&](auto fam) {
+    using Fam = typename decltype(fam)::type;
+    return launch_heads<Fam, false, kSplitPairs>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
+  });
+  if (err) return err;
+  return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
+}
+
+// The float32 K3, first half: da (m, P * NH * fp) bf16 scratch of da's
+// terms per pair and db_part (ceil(m / 64), NH * fp) float32 scratch.
+int scvae_tc_f32_gradient(int family, const float* g, const void* h,
+                          const void* w, const float* b, const void* t,
+                          int t_dtype, void* da, float* db_part, int m,
+                          int m_t, int hp, int f, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_family(family, [&](auto fam) {
+    using Fam = typename decltype(fam)::type;
+    return launch_heads<Fam, true, kSplitPairs>(
         static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
         t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
   });

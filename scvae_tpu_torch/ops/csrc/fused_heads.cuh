@@ -1,6 +1,8 @@
-// Shared machinery of the fused decoder-head likelihood kernels (K2/K3 in
-// count_likelihood.cu, K6/K7 in cp_likelihood.cu): staging of h and the head
-// weights in shared memory, the head products, and the two backward passes,
+// Shared machinery of the fused decoder-head likelihood kernels on the CUDA
+// cores (K6/K7 of float32 h in cp_likelihood.cu; the grouped K4/K5 and the
+// categorised kernels of grouped_likelihood.cu and categorised_likelihood.cu
+// take its pieces): staging of h and the head weights in shared memory, the
+// head products, and the two backward passes,
 // templated on a likelihood family the way _make_fused_from in
 // scvae_tpu/ops/fused_likelihood.py takes an (ll, grads) pair.
 //

@@ -15,10 +15,10 @@
 //   dh_g = sum_k bf16(da_k) W_k^T,  dW_k = sum_g h_g^T bf16(da_k),
 //   db_k = sum_g sum_rows da_k           (unrounded)
 //
-// What a group loop buys: the flat kernels (count_likelihood.cu) give each
-// block 16 rows and stream every head's (H x 32) weight tile through shared
-// memory for each of its gene tiles, so K·S·B decoder rows stage the weights
-// K·S times per target row tile.  Here a block owns 16 target rows; for each
+// What a group loop buys: the flat CUDA-core kernels (row_tile_kernel of
+// fused_heads.cuh) give each block 16 rows and stream every head's (H x 32)
+// weight tile through shared memory for each of its gene tiles, so K·S·B
+// decoder rows stage the weights K·S times per target row tile.  Here a block owns 16 target rows; for each
 // gene tile it stages the weights (and reads t, and computes lgamma(1 + t))
 // once and runs the groups against them, staging one group's (16 x H) h tile
 // at a time, 256 hidden units per chunk.  Shared memory never depends on G:

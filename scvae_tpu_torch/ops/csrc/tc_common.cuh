@@ -58,7 +58,9 @@ constexpr size_t tc_heads_smem() {
 // The operands of the heads' products: h (M, Hp) row-major, and NB weight
 // tiles of w (Hp rows, row stride ldw) at columns n0 + hd * head_stride;
 // columns from n_max on read as zero (n_max and the strides are multiples
-// of 8, so a 16-byte chunk is wholly valid or wholly not).
+// of 8, so a 16-byte chunk is wholly valid or wholly not).  With depth
+// segments (tc_mainloop's SEG > 1), h is (M, SEG Hp) and each segment
+// reads its weight tiles from w + w_block times split_first(segment).
 struct TcOperands {
   const bf16* h;
   int m;
@@ -67,7 +69,27 @@ struct TcOperands {
   long long ldw;
   int head_stride;
   int n_max;
+  long long w_block = 0;
 };
+
+// The split-bf16 products of float32 operands (the base families' float32
+// K2/K3 in count_likelihood_tc.cu): each float32 operand x as kSplitTerms
+// bf16 terms, x_0 = bf16(x), x_k = bf16(x - x_0 - ... - x_(k-1)), and a
+// product x y as the pairs of terms (x_i, y_j) with i + j < kSplitTerms, by
+// i then j (fused_likelihood.SPLIT_TERMS and SPLIT_PAIRS).  The first
+// kSplitTerms pairs are (0, j), so pair j < kSplitTerms has second term j.
+constexpr int kSplitTerms = 3;
+constexpr int kSplitPairs = kSplitTerms * (kSplitTerms + 1) / 2;
+
+// The first term i of pair p.
+__host__ __device__ constexpr int split_first(int p) {
+  int i = 0;
+  while (p >= kSplitTerms - i) {
+    p -= kSplitTerms - i;
+    ++i;
+  }
+  return i;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -146,7 +168,14 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
 // the bits below, so a large running sum inside the mma would truncate
 // every later product the same way; outside, the sums round to nearest
 // like the plain version's float32 product.
-template <int NB>
+//
+// SEG > 1 runs the depth over SEG segments of Hp, in order: segment s
+// multiplies h's columns [s Hp, (s + 1) Hp) by the weight tiles at
+// w + op.w_block * split_first(s).  The split-bf16 float32 kernels lay h's
+// terms per pair along h's rows, h_(second term of pair s) in segment s,
+// and W's terms per pair in blocks, W_j in block j < kSplitTerms: so acc
+// sums h_j W_i over the pairs (i, j), every product of the split.
+template <int NB, int SEG = 1>
 __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
                                             int m0, int n0,
                                             float (&acc)[NB][kTcMI][4][4]) {
@@ -162,14 +191,24 @@ __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[hd][mi][ni][e] = 0.0f;
 
+  const int n_seg = (op.hp + kTcDepth - 1) / kTcDepth;  // stages a segment
   auto load = [&](int stage, int kt) {
     bf16* sa = smem + stage * S::kStage;
     bf16* sb = sa + S::kA;
-    const int k0 = kt * kTcDepth;
-    load_tile<kTcRows, kTcDepth>(sa, op.h, op.hp, m0, k0, op.m, op.hp);
+    const bf16* h = op.h;
+    const bf16* w = op.w;
+    int k0 = kt * kTcDepth;
+    if constexpr (SEG > 1) {
+      const int seg = kt / n_seg;
+      h += (long long)seg * op.hp;
+      w += op.w_block * split_first(seg);
+      k0 = (kt - seg * n_seg) * kTcDepth;
+    }
+    load_tile<kTcRows, kTcDepth>(sa, h, (long long)SEG * op.hp, m0, k0, op.m,
+                                 op.hp);
 #pragma unroll
     for (int hd = 0; hd < NB; ++hd)
-      load_tile<kTcDepth, kTcTileN>(sb + hd * S::kB, op.w, op.ldw, k0,
+      load_tile<kTcDepth, kTcTileN>(sb + hd * S::kB, w, op.ldw, k0,
                                     n0 + hd * op.head_stride, op.hp,
                                     op.n_max);
   };
@@ -214,7 +253,7 @@ __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
     }
   };
 
-  const int n_k = (op.hp + kTcDepth - 1) / kTcDepth;
+  const int n_k = SEG * n_seg;
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
     if (s < n_k) load(s, s);

@@ -19,8 +19,7 @@ import torch
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
-SOURCES = ("gather.cu", "count_likelihood.cu", "count_likelihood_tc.cu",
-           "tc_product.cu", "cp_likelihood.cu", "cp_likelihood_tc.cu",
+SOURCES = ("gather.cu", "count_likelihood_tc.cu", "tc_product.cu", "cp_likelihood.cu", "cp_likelihood_tc.cu",
            "categorised_likelihood.cu", "categorised_likelihood_tc.cu",
            "grouped_likelihood.cu", "grouped_likelihood_tc.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
@@ -37,23 +36,18 @@ _SIGNATURES = {
     # stream
     "scvae_gather_rows": [_P, _I, _P, _I, ctypes.c_longlong, _I, _P, _I, _I,
                           _I, _P],
-    # family, h, heads, t, t_dtype, out, m, m_t, hidden, f, round, subtract,
-    # stream
-    "scvae_fused_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,
-                            _I, _P],
-    # family, g, h, heads, t, t_dtype, dh, m, m_t, hidden, f, round, stream
-    "scvae_fused_backward_dh": [_I, _P, _P, *_HEADS, _P, _I, _P, _I, _I, _I,
-                                _I, _I, _P],
-    # family, g, h, heads, t, t_dtype, dw0, db0, dw1, db1, dw2, db2, m, m_t,
-    # hidden, f, round, stream
-    "scvae_fused_backward_dw": [_I, _P, _P, *_HEADS, _P, _I, *_HEADS, _I, _I,
-                                _I, _I, _I, _P],
     # family, h, w, b, t, t_dtype, part, out, m, m_t, hp, f, subtract, stream
     "scvae_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                          _P],
     # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
     "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _P],
+    # the float32 K2 / K3's first kernel on h's and W's bf16 terms per pair:
+    # the same arguments as scvae_tc_forward / scvae_tc_gradient
+    "scvae_tc_f32_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _I, _P],
+    "scvae_tc_f32_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                              _I, _P],
     # family, h, w, b, t, t_dtype, part, out, lse, m, m_t, hp, f, n_classes,
     # stream
     "scvae_cat_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,

@@ -12,12 +12,15 @@ recomputes them tile by tile.  Counterpart of
 
 * the base families — Poisson, negative binomial (NB), zero-inflated
   Poisson (ZIP) and zero-inflated NB (ZINB), :data:`FAMILIES` — share one
-  forward kernel K2 and one backward K3 of two passes
-  (``ops/csrc/count_likelihood.cu``), templated on the family's elementwise
-  (ll, grads) pair as ``_make_fused_from`` is;
+  forward kernel K2 and one backward K3, a gradient kernel then the dh and
+  dW products, on the tensor cores (``ops/csrc/count_likelihood_tc.cu``,
+  then ``ops/csrc/tc_product.cu``), templated on the family's elementwise
+  (ll, grads) pair as ``_make_fused_from`` is; in float32 h and W go over
+  as three bf16 terms each;
 * the constrained Poisson (CP), whose gene-axis softmax couples every gene
   of a row, has its own forward K6 with an online logsumexp and the backward
-  K7 (``ops/csrc/cp_likelihood.cu``);
+  K7 (``ops/csrc/cp_likelihood.cu``, with bf16 h
+  ``ops/csrc/cp_likelihood_tc.cu``);
 * the categorised instances of K2/K3 — a base family plus K + 1 class-logit
   heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
   — have their own forward, dh and dW kernels for up to
@@ -46,7 +49,9 @@ Numerics follow the JAX package.  Base families: with a ``compute_dtype`` of
 bfloat16, h and W are rounded to bf16 and the products summed in float32,
 the elementwise math runs in float32, the backward rounds da_k to bf16
 before the dh and dW products, and db_k sums the unrounded da_k (the
-categorised instances likewise, for every head).  Support
+categorised instances likewise, for every head).  In float32 the CUDA
+kernels multiply h, W and da as three bf16 terms each, which keeps float32
+accuracy (see the split-bf16 section below).  Support
 clips use the nearest float32 strictly inside each support, with zero
 gradient outside the clip range.  CP takes no compute dtype in the JAX
 kernels: its caller hands them bf16 h, which multiplies float32 W in
@@ -189,7 +194,7 @@ def zinb_grads(a_pi, a_p, a_r, t):
 
 @dataclasses.dataclass(frozen=True)
 class Family:
-    """A base likelihood of K2/K3: its code in ``count_likelihood.cu``, the
+    """A base likelihood of K2/K3: its code in ``count_likelihood_tc.cu``, the
     prefix of its launch counters, its head names in kernel order and its
     elementwise ``ll(*a, t)`` / ``grads(*a, t)``."""
 
@@ -221,8 +226,10 @@ MAX_FUSED_GROUPS = 16
 # The bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>" (prefix
 # "cat_<family>" for the categorised instances), their backward's first
 # kernel as "<prefix>_backward_gradient" and its products as
-# "<prefix>_backward_dh" / "_dw"; the float32 instances (CUDA cores) as
-# "<prefix>_<kernel>_float32".  The grouped kernels count under the prefix
+# "<prefix>_backward_dh" / "_dw"; the float32 instances as
+# "<prefix>_<kernel>_float32" (the base families' also
+# "<prefix>_backward_gradient_float32": their float32 backward is a
+# gradient kernel and the products too).  The grouped kernels count under the prefix
 # "<family>_grouped": K4 as "_forward" (either dtype), the bf16 K5 as
 # "_backward_gradient", "_backward_dh", "_backward_dw", its float32 passes
 # with the "_float32" suffix.
@@ -242,6 +249,8 @@ LAUNCHES = {
                    "backward_dw", "backward_dh_float32",
                    "backward_dw_float32")
 }
+LAUNCHES.update({f"{fam.prefix}_backward_gradient_float32": 0
+                 for fam in FAMILIES.values()})
 LAUNCHES.update({f"cp_{kernel}{suffix}": 0 for kernel in _KERNELS
                  for suffix in ("", "_float32")})
 LAUNCHES["cp_backward_gradient"] = 0
@@ -838,7 +847,7 @@ def reference_cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
 class TcGradient:
     """The backward's first kernel's outputs: bf16 h and W as the products
     read them, bf16(da) (M, NH·Fp) and da's column sums per row tile; and
-    the launch-count prefix of its products."""
+    the launch-count prefix and suffix of its products."""
 
     prefix: str
     plan: dict
@@ -848,6 +857,7 @@ class TcGradient:
     w: torch.Tensor
     da: torch.Tensor
     db_parts: torch.Tensor
+    suffix: str = ""
 
 
 def tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
@@ -909,7 +919,7 @@ def tc_dh(grad: TcGradient) -> torch.Tensor:
         dh.data_ptr(), m, grad.hidden, plan["hp"], width, splits, per,
         int(promote),
     )
-    LAUNCHES[f"{grad.prefix}_backward_dh"] += 1
+    LAUNCHES[f"{grad.prefix}_backward_dh{grad.suffix}"] += 1
     return dh
 
 
@@ -933,7 +943,7 @@ def tc_dw_stacked(grad: TcGradient) -> tuple[torch.Tensor, torch.Tensor]:
         grad.hidden, plan["hp"], grad.f, splits, per, plan["db_parts"][0],
         int(promote),
     )
-    LAUNCHES[f"{grad.prefix}_backward_dw"] += 1
+    LAUNCHES[f"{grad.prefix}_backward_dw{grad.suffix}"] += 1
     return dw, db
 
 
@@ -1051,12 +1061,12 @@ CP_TERM_PAIRS = tuple((i, j) for i in range(CP_TERMS)
 CP_PARTIALS = 4  # per row and gene tile: max a, Σ exp(a − max), Σ ll, Σ t
 
 
-def split_bf16(x: torch.Tensor) -> list[torch.Tensor]:
-    """CP_TERMS bf16 tensors whose float32 sum approximates x: x_0 =
+def split_bf16(x: torch.Tensor, terms: int = CP_TERMS) -> list[torch.Tensor]:
+    """``terms`` bf16 tensors whose float32 sum approximates x: x_0 =
     bf16(x), x_k = bf16(x − x_0 − … − x_(k−1))."""
     rest = x.float()
     out = [rest.to(torch.bfloat16)]
-    for _ in range(CP_TERMS - 1):
+    for _ in range(terms - 1):
         rest = rest - out[-1]  # exact: float32 less its own bf16 rounding
         out.append(rest.to(torch.bfloat16))
     return out
@@ -1232,11 +1242,187 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
                       db_parts)
 
 
+# --------------------------------------------------------------------------
+# float32 K2 / K3 of the base families on the tensor cores
+# (ops/csrc/count_likelihood_tc.cu's heads kernels over depth segments, then
+# the products of tc_product.cu)
+#
+# JAX multiplies float32 h and W, and the backward the float32 da.  So each
+# goes to the tensor cores as SPLIT_TERMS = 3 bf16 terms (split_bf16), and
+# a product x y as the pairs of terms (x_i, y_j) with i + j < SPLIT_TERMS
+# (P = 6 pairs, by i then j).  One operand of the three (h, W, da) must be
+# laid out twice, since each product pairs two of them and every pair takes
+# one term of each; h is the smallest.  Slot p of each layout holds:
+#
+#   H  (M, P, Hp)        h_j of pair p (i, j)
+#   W  (Hp, P, NH, Fp)   every head's W_j of pair p; so W_i in block i < T,
+#                        as the first T pairs are (0, j)
+#   da (M, P, NH, Fp)    da_i of pair p
+#
+#   a_k = Σ_p H_p W_k,(i of p) + b_k   the heads kernel's depth runs over
+#                                    the slots of H, slot p against W's
+#                                    block i of p: Σ over the pairs h_j W_i,
+#                                    summed in float32 in pair order
+#   dh  = da Wᵀ                      over the depth P·NH·Fp: Σ da_i W_jᵀ
+#   dW  = Hᵀ da                      H and da read as P·M rows: Σ h_jᵀ da_i
+#   db  = Σ_rows da                  from the unrounded da
+#
+# The gradient kernel recomputes a exactly as the forward summed it.
+# tools/f32_split_precision.py reads the errors against the number of terms
+# (PERF.md): two terms of each miss the 2e-5 checks where the activations
+# reach the exponentials' clip; the kernels fix three (kSplitTerms in
+# tc_common.cuh).
+# --------------------------------------------------------------------------
+
+SPLIT_TERMS = 3  # bf16 terms of h, W and da (kSplitTerms in the kernels)
+# the pairs of terms (i, j) with i + j < SPLIT_TERMS, by i then j
+SPLIT_PAIRS = tuple((i, j) for i in range(SPLIT_TERMS)
+                    for j in range(SPLIT_TERMS - i))
+
+
+def f32_tc_plan(m: int, hidden: int, f: int, n_heads: int,
+                capacity: dict = TC_CLUSTER_CAPACITY) -> dict:
+    """:func:`tc_plan` of the float32 K2/K3: the forward's ``row_sums``
+    (F tiles, M), the da scratch (M, P·NH·Fp) of the P pairs, db's
+    ``db_parts`` (row tiles, NH·Fp), and the products' splits (dh over
+    depth P·NH·Fp, dW over P·M rows of NH·Fp)."""
+    pairs = len(SPLIT_PAIRS)
+    plan = tc_plan(m, hidden, f, pairs * n_heads, capacity)
+    width = n_heads * plan["fp"]
+    plan.update(
+        db_parts=(_cdiv(m, TC_ROW_TILE), width),
+        dw_splits=_product_plan(plan["hp"], width, pairs * m, capacity),
+    )
+    return plan
+
+
+def _f32_tc_operands(h, weights, biases):
+    """h's bf16 terms per pair (M, P, Hp), the heads' W terms per pair
+    (Hp, P, NH, Fp), zero-padded, and the float32 biases (NH, F)."""
+    m, hidden = h.shape
+    f = weights[0].shape[1]
+    hp, fp = tc_padded(hidden), tc_padded(f)
+    h_terms = split_bf16(h, SPLIT_TERMS)
+    hh = torch.stack([h_terms[j] for _, j in SPLIT_PAIRS], 1)
+    w_terms = split_bf16(torch.stack(list(weights), 1), SPLIT_TERMS)
+    w = torch.stack([w_terms[j] for _, j in SPLIT_PAIRS], 1)
+    if hp != hidden:
+        hh = torch.nn.functional.pad(hh, (0, hp - hidden))
+    if (hp, fp) != (hidden, f):
+        w = torch.nn.functional.pad(w, (0, fp - f, 0, 0, 0, 0, 0, hp - hidden))
+    b = torch.stack([b_k.float() for b_k in biases])
+    return hh.contiguous(), w.contiguous(), b.contiguous()
+
+
+def _f32_tc_activations(h, weights, biases):
+    """a_k (M, F) of the split design: Σ over the pairs (i, j) of h_j W_k,i
+    in the kernels' order, float32 sums, then b_k."""
+    h_terms = [x.float() for x in split_bf16(h, SPLIT_TERMS)]
+    acts = []
+    for w, b in zip(weights, biases):
+        w_terms = [x.float() for x in split_bf16(w, SPLIT_TERMS)]
+        a = 0.0
+        for i, j in SPLIT_PAIRS:
+            a = a + h_terms[j] @ w_terms[i]
+        acts.append(a + b.float())
+    return acts
+
+
+def reference_f32_tc_forward(name, h, weights, biases, t, *,
+                             include_lgamma_const=True):
+    """Plain version of :func:`f32_tc_forward`: the row sums (M,) of the
+    split design's activations."""
+    fam = _family_heads(name, weights, biases)
+    acts = _f32_tc_activations(h, weights, biases)
+    tt = _cycle_rows(t.float(), h.shape[0])
+    ll = fam.ll(*acts, tt)
+    if include_lgamma_const:
+        ll = ll - lgamma(1.0 + tt)
+    return torch.sum(ll, dim=-1)
+
+
+def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Plain version of :func:`f32_tc_gradient`, with its layout: da_k =
+    g·∂ll/∂a_k from the split design's activations, split into bf16 terms,
+    da_(i of pair p) in slot p (M, P·NH·Fp), zero past F; the column sums
+    of the unrounded da per row tile (row tiles, NH·Fp); h's terms per pair
+    as the dW product reads them (P·M, Hp), and W's (Hp, P, NH, Fp)."""
+    fam = _family_heads(name, weights, biases)
+    m, hidden = h.shape
+    f = t.shape[-1]
+    n_heads = len(weights)
+    plan = f32_tc_plan(m, hidden, f, n_heads)
+    hh, w, _ = _f32_tc_operands(h, weights, biases)
+    acts = _f32_tc_activations(h, weights, biases)
+    gs = fam.grads(*acts, _cycle_rows(t.float(), m))
+    fp = plan["fp"]
+    padded = torch.zeros((m, n_heads, fp), dtype=torch.float32,
+                         device=h.device)
+    padded[:, :, :f] = torch.stack(gs, 1) * g.float()[:, None, None]
+    da_terms = split_bf16(padded, SPLIT_TERMS)
+    da = torch.stack([da_terms[i] for i, _ in SPLIT_PAIRS], 1)
+    tiles = plan["db_parts"][0]
+    rows = torch.zeros((tiles * TC_ROW_TILE, n_heads * fp),
+                       dtype=torch.float32, device=h.device)
+    rows[:m] = padded.reshape(m, -1)
+    db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
+    return TcGradient(fam.prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
+                      w, da.reshape(plan["da"]), db_parts, "_float32")
+
+
+def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
+    """Launch the float32 K2 of family ``name`` on the tensor cores: the
+    row sums (M,) of h's and W's bf16 terms multiplied pair by pair."""
+    fam = _family_heads(name, weights, biases)
+    t = _validated(h, weights, biases, t)
+    m, hidden = h.shape
+    f = t.shape[1]
+    out = torch.empty((m,), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return out
+    plan = f32_tc_plan(m, hidden, f, len(weights))
+    hh, w, b = _f32_tc_operands(h, weights, biases)
+    part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
+    extension.call(
+        "scvae_tc_f32_forward", h.device, fam.code, hh.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        part.data_ptr(), out.data_ptr(), m, t.shape[0], plan["hp"], f,
+        int(include_lgamma_const),
+    )
+    LAUNCHES[f"{fam.prefix}_forward_float32"] += 1
+    return out
+
+
+def f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Launch the float32 K3's first kernel of family ``name`` for row
+    cotangents ``g``: the activations as the forward summed them, da's bf16
+    terms per pair and da's column sums per row tile, for :func:`tc_dh` and
+    :func:`tc_dw` (counted with the "_float32" suffix)."""
+    fam = _family_heads(name, weights, biases)
+    t = _validated(h, weights, biases, t, g)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = f32_tc_plan(m, hidden, f, len(weights))
+    hh, w, b = _f32_tc_operands(h, weights, biases)
+    dev = h.device
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    g = g.float().contiguous()
+    extension.call(
+        "scvae_tc_f32_gradient", dev, fam.code, g.data_ptr(), hh.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        da.data_ptr(), db_parts.data_ptr(), m, t.shape[0], plan["hp"], f,
+    )
+    LAUNCHES[f"{fam.prefix}_backward_gradient_float32"] += 1
+    return TcGradient(fam.prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
+                      w, da, db_parts, "_float32")
+
+
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
                   include_lgamma_const=True) -> torch.Tensor:
     """Row-summed log-likelihood (M,) of family ``name``: K2 on CUDA (bf16:
-    the tensor-core kernel; float32: the CUDA-core one), the plain version
-    on the CPU."""
+    the tensor-core kernel on bf16 operands; float32: the same kernel on
+    their bf16 terms), the plain version on the CPU."""
     fam = _family_heads(name, weights, biases)
     round_flag = _round_flag(compute_dtype)
     if not h.is_cuda:
@@ -1245,99 +1431,53 @@ def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
                                  include_lgamma_const=include_lgamma_const)
     if round_flag:
         return _tc_forward(fam, h, weights, biases, t, include_lgamma_const)
-    h, weights, biases, t = _checked_cuda(h, weights, biases, t)
-    m, hidden = h.shape
-    out = torch.empty((m,), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return out
-    extension.call(
-        "scvae_fused_forward", h.device, fam.code, h.data_ptr(),
-        *_head_pointers(weights, biases), t.data_ptr(), _T_CODES[t.dtype],
-        out.data_ptr(), m, t.shape[0], hidden, t.shape[1], round_flag,
-        int(include_lgamma_const),
-    )
-    LAUNCHES[f"{fam.prefix}_forward_float32"] += 1
-    return out
-
-
-def _checked_backward(g, h, weights, biases, t):
-    h, weights, biases, t, g = _checked_cuda(h, weights, biases, t, g)
-    return g, h, weights, biases, t
-
-
-def _fused_backward_dh_f32(fam, g, h, weights, biases, t):
-    g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
-    m, hidden = h.shape
-    dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return dh
-    extension.call(
-        "scvae_fused_backward_dh", h.device, fam.code, g.data_ptr(),
-        h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-        0,
-    )
-    LAUNCHES[f"{fam.prefix}_backward_dh_float32"] += 1
-    return dh
-
-
-def _fused_backward_dw_f32(fam, g, h, weights, biases, t):
-    g, h, weights, biases, t = _checked_backward(g, h, weights, biases, t)
-    m, hidden = h.shape
-    f = t.shape[1]
-    out = [torch.empty(shape, dtype=torch.float32, device=h.device)
-           for _ in fam.heads for shape in ((hidden, f), (f,))]
-    if f == 0:
-        return tuple(out)
-    pointers = [x.data_ptr() for x in out]
-    pointers += [None] * (2 * _MAX_HEADS - len(pointers))
-    extension.call(
-        "scvae_fused_backward_dw", h.device, fam.code, g.data_ptr(),
-        h.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], *pointers, m, t.shape[0], hidden, f, 0,
-    )
-    LAUNCHES[f"{fam.prefix}_backward_dw_float32"] += 1
-    return tuple(out)
+    return f32_tc_forward(name, h, weights, biases, t, include_lgamma_const)
 
 
 def fused_backward_dh(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """dh (M, H): K3's dh pass on CUDA, the plain version on the CPU.  With
-    bf16 on CUDA it is the first output of :func:`fused_backward`, whose
-    gradient kernel feeds the dh and dW products alike."""
-    fam = _family_heads(name, weights, biases)
+    """dh (M, H): the first output of :func:`fused_backward` on CUDA, whose
+    gradient kernel feeds the dh and dW products alike; the plain version on
+    the CPU."""
+    _family_heads(name, weights, biases)
     if not h.is_cuda:
         return reference_dh(name, g, h, weights, biases, t,
                             compute_dtype=compute_dtype)
-    if _round_flag(compute_dtype):
-        return fused_backward(name, g, h, weights, biases, t,
-                              compute_dtype=compute_dtype)[0]
-    return _fused_backward_dh_f32(fam, g, h, weights, biases, t)
+    return fused_backward(name, g, h, weights, biases, t,
+                          compute_dtype=compute_dtype)[0]
 
 
 def fused_backward_dw(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """(dW_0, db_0, dW_1, db_1, …): K3's dW/db pass on CUDA, the plain
-    version on the CPU.  With bf16 on CUDA they are the other outputs of
-    :func:`fused_backward`."""
-    fam = _family_heads(name, weights, biases)
+    """(dW_0, db_0, dW_1, db_1, …): the other outputs of
+    :func:`fused_backward` on CUDA, the plain version on the CPU."""
+    _family_heads(name, weights, biases)
     if not h.is_cuda:
         return reference_dw(name, g, h, weights, biases, t,
                             compute_dtype=compute_dtype)
-    if _round_flag(compute_dtype):
-        return fused_backward(name, g, h, weights, biases, t,
-                              compute_dtype=compute_dtype)[1:]
-    return _fused_backward_dw_f32(fam, g, h, weights, biases, t)
+    return fused_backward(name, g, h, weights, biases, t,
+                          compute_dtype=compute_dtype)[1:]
 
 
 def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
-    """(dh, dW_0, db_0, …) for the row cotangents ``g`` (M,): the two K3
-    passes on CUDA, the plain version on the CPU.  With bf16 on CUDA: the
-    tensor-core gradient kernel once, then the dh and the dW product of its
-    da."""
+    """(dh, dW_0, db_0, …) for the row cotangents ``g`` (M,): on CUDA the
+    tensor-core gradient kernel once (bf16 operands, or in float32 their
+    bf16 terms), then the dh and the dW product of its da; the plain
+    version on the CPU."""
     args = (name, g, h, weights, biases, t)
-    if not (h.is_cuda and _round_flag(compute_dtype)):
-        return (fused_backward_dh(*args, compute_dtype=compute_dtype),
-                *fused_backward_dw(*args, compute_dtype=compute_dtype))
-    grad = tc_gradient(*args)
+    if not h.is_cuda:
+        return (reference_dh(*args, compute_dtype=compute_dtype),
+                *reference_dw(*args, compute_dtype=compute_dtype))
+    if _round_flag(compute_dtype):
+        grad = tc_gradient(*args)
+    else:
+        fam = _family_heads(name, weights, biases)
+        m, hidden = h.shape
+        f = t.shape[-1]
+        if m == 0 or f == 0:
+            _validated(h, weights, biases, t, g)
+            return (torch.zeros((m, hidden), device=h.device),
+                    *(torch.zeros(shape, device=h.device)
+                      for _ in fam.heads for shape in ((hidden, f), (f,))))
+        grad = f32_tc_gradient(*args)
     return (tc_dh(grad), *tc_dw(grad))
 
 

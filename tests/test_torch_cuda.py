@@ -10,16 +10,19 @@ the GPU machine run
 (``--noconftest``: ``tests/conftest.py`` sets up JAX, which these tests
 do not use).
 
-The bf16 instances of the base families' K2/K3 run on the tensor cores
-(``count_likelihood_tc.cu``, then the products of ``tc_product.cu``), the
-float32 ones on the CUDA cores (``count_likelihood.cu``); both are held at
-the odd shapes, and the tensor-core kernels also at the main path's width
-with full and ragged tiles.  There each of the backward's three kernels is
+The base families' K2/K3 run on the tensor cores
+(``count_likelihood_tc.cu``, then the products of ``tc_product.cu``), bf16
+on bf16 operands and float32 on three bf16 terms of each operand; both are
+held at the odd shapes, and also at the main path's width with full and
+ragged tiles.  There each of the backward's three kernels is
 held on its own: the gradient kernel's bf16(da) within one bf16 step of the
 plain bf16(da) (a float32 sum in another order puts a value on the other
 side of a rounding boundary now and then), with few such flips; the dh and
 dW products against the plain products of the kernel's own da at 2e-5.
-The categorised bf16 backward (``categorised_likelihood_tc.cu`` and the
+The float32 instance is held the same way against its plain version in the
+split layout (``reference_f32_tc_gradient``): da's first term within one
+bf16 step, the sum of its terms at 2e-5, and every output against the
+float32 plain versions at 2e-5.  The categorised bf16 backward (``categorised_likelihood_tc.cu`` and the
 same products) is held the same way at 14 and 32 heads for every base, and
 the product kernel alone at full and ragged tiles in both layouts, with and
 without promoted sums, and bit for bit over two runs; the categorised bf16
@@ -452,8 +455,9 @@ def test_tensor_core_kernels_full_and_ragged_tiles(device, name, m, m_t,
 
 
 def test_float32_and_bf16_launches_count_apart(device):
-    """bf16 calls launch the tensor-core kernels, float32 calls the
-    CUDA-core ones, each under its own counter."""
+    """bf16 calls and float32 calls launch the tensor-core kernels (the
+    forward, the gradient kernel, the dh and dW products) each under its
+    own counter, float32 with the "_float32" suffix."""
     name = "negative binomial"
     h, ws, bs, t, g = _family_case(device, name, 48, 16, 32, 70,
                                    torch.float32, seed=2)
@@ -462,11 +466,61 @@ def test_float32_and_bf16_launches_count_apart(device):
         ops.fused_forward(name, h, ws, bs, t, compute_dtype=compute)
         ops.fused_backward(name, g, h, ws, bs, t, compute_dtype=compute)
         torch.cuda.synchronize()
-        kernels = ["forward", "backward_dh", "backward_dw"]
-        if compute is not None:
-            kernels.append("backward_gradient")
+        kernels = ["forward", "backward_gradient", "backward_dh",
+                   "backward_dw"]
         assert {k: v for k, v in ops.launch_counts().items() if v} == {
             f"nb_{kernel}{suffix}": 1 for kernel in kernels}
+
+
+# (M, M_t, H, F) of the float32 K2/K3: the main path's width with full and
+# ragged tiles, rows cycling, and odd shapes off every tile
+F32_TC_SHAPES = TC_SHAPES + [(37, 37, 21, 301), (26, 13, 3, 13),
+                             (64, 32, 584, 100)]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("m,m_t,hidden,f", F32_TC_SHAPES)
+def test_float32_tensor_core_kernels(device, name, m, m_t, hidden, f):
+    """The float32 K2 and the backward's three kernels, each against its
+    plain version in the split layout, and against the float32 plain
+    versions; the public calls are these kernels."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
+                                            torch.bfloat16, seed=6)
+    args = (name, h, weights, biases, t)
+    for const in (True, False):
+        got = fl.f32_tc_forward(*args, include_lgamma_const=const)
+        _close(got, fl.reference_f32_tc_forward(
+            *args, include_lgamma_const=const), 2e-5)
+        _close(got, ops.reference_forward(*args, include_lgamma_const=const),
+               2e-5)
+        assert torch.equal(got, ops.fused_forward(
+            *args, include_lgamma_const=const))
+    bargs = (name, g, h, weights, biases, t)
+    grad = fl.f32_tc_gradient(*bargs)
+    plain = fl.reference_f32_tc_gradient(*bargs)
+    got_da, want_da = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
+                       for z in (grad, plain))
+    # slot p holds da's term i of pair p; the first pair of term i is
+    # (i, 0)
+    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
+        assert torch.equal(got_da[:, p], got_da[:, first[i]])
+    _within_one_bf16_step(got_da[:, 0], want_da[:, 0])
+    _close(sum(got_da[:, p].float() for p in first),
+           sum(want_da[:, p].float() for p in first), 2e-5)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    dh = fl.tc_dh(grad)
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dws = fl.tc_dw(grad)
+    for a, b in zip(dws, fl.reference_tc_dw(grad), strict=True):
+        _close(a, b, 2e-5)
+    public = ops.fused_backward(*bargs)
+    for a, b in zip(public, (dh, *dws), strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(public, ops.reference_backward(*bargs), strict=True):
+        _close(a, b, 2e-5)
 
 
 # (base, K, M, M_t, H, F): 14 heads; 32 heads with cycled rows; NB with two

@@ -8,7 +8,9 @@
 * ``VariationalAutoencoder(...).train(..., device="cpu")`` gives a finite,
   rising ELBO with every ported likelihood;
 * the package imports with JAX blocked and imports neither JAX nor
-  ``scvae_tpu``; entry points need CUDA unless ``device="cpu"``.
+  ``scvae_tpu``; entry points need CUDA unless ``device="cpu"``;
+* both packages' constructors take ``fused_likelihood`` (the port refuses
+  False until its unfused training path is ported).
 """
 
 import ast
@@ -201,6 +203,33 @@ def test_api_refuses_what_jax_refuses(name):
     if name == "zero-inflated negative binomial":
         for cls in (JaxGMVAE, GaussianMixtureVariationalAutoencoder):
             assert cls(**kwargs).config.k_max == 3
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_fused_likelihood_switch(fused):
+    """Both packages' VAE and GMVAE constructors take ``fused_likelihood``.
+    JAX keeps every value; the port, which always trains on the fused path,
+    takes None and True and refuses False until the unfused path is
+    ported."""
+    from scvae_tpu.models.api import VariationalAutoencoder as JaxVAE
+    from scvae_tpu.models.gmvae_api import (
+        GaussianMixtureVariationalAutoencoder as JaxGMVAE,
+    )
+    from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder
+
+    kwargs = dict(feature_size=10, reconstruction_distribution="negative binomial",
+                  fused_likelihood=fused)
+    for jax_cls, port_cls in ((JaxVAE, VariationalAutoencoder),
+                              (JaxGMVAE, GaussianMixtureVariationalAutoencoder)):
+        assert jax_cls(**kwargs).config.fused_likelihood is fused
+        if fused is False:
+            with pytest.raises(NotImplementedError, match="unfused"):
+                port_cls(**kwargs)
+        else:
+            model = port_cls(**kwargs)
+            assert model.config.reconstruction_distribution == "negative binomial"
+    with pytest.raises(TypeError, match="unexpected arguments"):
+        VariationalAutoencoder(feature_size=10, fused_likelihoods=True)
 
 
 def _package_modules():

@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Read the error of the base families' float32 K2/K3 on split-bf16
+products against the number of bf16 terms, from plain versions.
+
+    python3 tools/f32_split_precision.py [--seeds 0 1 2]
+        [--designs 1/1/1 2/2/2 3/3/2 3/3/3] [--families ...]
+        [--device cpu|cuda] [--out PATH]
+
+The float32 K2/K3 (``ops/csrc/count_likelihood_tc.cu`` and the products of
+``tc_product.cu``) multiply float32 h, W and da as sums of bf16 terms
+(``fused_likelihood.split_bf16``).  A design "A/B/C" here splits h into A
+terms and W into B for the activations, and da into C terms for the dh and
+dW products (whose h and W take min(A, C) and min(B, C) terms); a product
+of an x in X terms by a y in Y terms takes the pairs (i, j) with i < X,
+j < Y and i + j < max(X, Y), summed in float32.  For each seed, family and
+design this computes the row sums of ll, dh, dW and db of the design and
+reads them as the kernel checks do: the max abs error over the largest
+|value| of the float32 plain versions (``reference_forward``,
+``reference_backward``), whose limit there is 2e-5.  The float32 plain
+versions' own error against float64 is read beside them.
+
+Two cases, made with numpy from the seed: "headline", the shape of
+``chip_smoke.py`` (2,048 rows, decoder width 256, 2,048 genes, h ReLU of
+N(0, 1), Glorot-uniform heads, biases 0.1·N(0, 1), counts of ~7% density,
+Poisson(3) + 1 where nonzero, row cotangents N(0, 1) / 2,048); and
+"steep", the odd shapes of ``tests/test_torch_cuda.py`` (64 rows over 32
+target rows, width 256, 100 genes; heads three times Glorot, biases
+0.3·N(0, 1), Poisson(2) counts, cotangents N(0, 1)), where the activations
+reach the exponentials' clip and every error in a grows by the
+exponential.  The products here sum in float32, not in the tensor cores:
+the kernels' own summation is held by the card's checks.  Prints one line
+per case, seed, family and design, and writes every reading as JSON to
+``--out`` (default ``build/f32_split_precision.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LIMIT = 2e-5
+CASES = {  # rows, target rows, width, genes, head scale, bias scale
+    "headline": (2_048, 2_048, 256, 2_048, 1.0, 0.1),
+    "steep": (64, 32, 256, 100, 3.0, 0.3),
+}
+
+
+def inputs(case: str, name: str, seed: int, device: torch.device):
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    m, m_t, hidden, f, scale, bias = CASES[case]
+    rng = np.random.RandomState(seed)
+    h = np.maximum(rng.standard_normal((m, hidden)), 0.0)
+    limit = scale * (6.0 / (hidden + f)) ** 0.5
+    k = len(fl.FAMILIES[name].heads)
+    ws = [rng.uniform(-limit, limit, (hidden, f)) for _ in range(k)]
+    bs = [bias * rng.standard_normal(f) for _ in range(k)]
+    if case == "headline":
+        t = np.zeros((m_t, f))
+        per_row = int(f * 0.07)
+        rows = np.repeat(np.arange(m_t), per_row)
+        cols = rng.randint(0, f, size=rows.shape[0])
+        t[rows, cols] = rng.poisson(3.0, size=rows.shape[0]) + 1.0
+        g = rng.standard_normal(m) / m
+    else:
+        t = rng.poisson(2.0, (m_t, f))
+        g = rng.standard_normal(m)
+
+    def tensor(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    return (tensor(h), [tensor(w) for w in ws], [tensor(b) for b in bs],
+            tensor(t), tensor(g))
+
+
+def split(x, terms: int) -> list[torch.Tensor]:
+    """``terms`` bf16 terms of x as float32 tensors (``split_bf16``)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    return [y.float() for y in fl.split_bf16(x, terms)]
+
+
+def product(x_terms, y_terms, mm):
+    """Σ mm(x_i, y_j) over the pairs i + j < max(X, Y), by i then j."""
+    n = max(len(x_terms), len(y_terms))
+    out = 0.0
+    for i, x in enumerate(x_terms):
+        for j, y in enumerate(y_terms):
+            if i + j < n:
+                out = out + mm(x, y)
+    return out
+
+
+def design_outputs(name, h, ws, bs, t, g, h_terms, w_terms, da_terms):
+    """ll row sums, dh, dW and db of one design, every product in float32."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    fam = fl.FAMILIES[name]
+    tt = fl._cycle_rows(t, h.shape[0])
+    hs = split(h, h_terms)
+    acts = [product(hs, split(w, w_terms), lambda x, y: x @ y) + b
+            for w, b in zip(ws, bs)]
+    ll = (fam.ll(*acts, tt) - fl.lgamma(1.0 + tt)).sum(-1)
+    das = [gr * g[:, None] for gr in fam.grads(*acts, tt)]
+    hp = hs[:min(h_terms, da_terms)]
+    dh, grads = 0.0, []
+    for w, da in zip(ws, das):
+        d_terms = split(da, da_terms)
+        wp = split(w, min(w_terms, da_terms))
+        dh = dh + product(d_terms, wp, lambda x, y: x @ y.T)
+        grads += [product(hp, d_terms, lambda x, y: x.T @ y), da.sum(0)]
+    return [ll, dh, *grads]
+
+
+def relative(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    parser.add_argument("--designs", nargs="+",
+                        default=["1/1/1", "2/2/2", "3/3/2", "3/3/3"])
+    parser.add_argument("--families", nargs="+", default=None)
+    parser.add_argument("--cases", nargs="+", default=list(CASES))
+    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--out", default=os.path.join(
+        REPO, "build", "f32_split_precision.json"))
+    args = parser.parse_args()
+    sys.path.insert(0, REPO)
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    device = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    families = args.families or list(fl.FAMILIES)
+    readings = []
+    for case in args.cases:
+        for seed in args.seeds:
+            for name in families:
+                h, ws, bs, t, g = inputs(case, name, seed, device)
+                plain = [fl.reference_forward(name, h, ws, bs, t),
+                         *fl.reference_backward(name, g, h, ws, bs, t)]
+                exact = [fl.reference_forward(
+                    name, h.double(), [w.double() for w in ws],
+                    [b.double() for b in bs], t.double()).double()]
+                floor = relative(plain[0], exact[0])
+                parts = ["ll", "dh"] + [f"{p}_{head}"
+                                        for head in fl.FAMILIES[name].heads
+                                        for p in ("dW", "db")]
+                for design in args.designs:
+                    terms = [int(x) for x in design.split("/")]
+                    got = design_outputs(name, h, ws, bs, t, g, *terms)
+                    errs = {p: relative(a, b)
+                            for p, a, b in zip(parts, got, plain)}
+                    worst = max(errs.values())
+                    readings.append({
+                        "case": case, "seed": seed, "family": name,
+                        "design": design, "error": errs,
+                        "ll_float32_floor": floor,
+                        "within_limit": worst <= LIMIT})
+                    print(f"{case} seed {seed} {name} {design}: worst "
+                          f"{worst:.3g} ("
+                          + ", ".join(f"{p} {v:.3g}" for p, v in errs.items())
+                          + f"; float32 ll against float64 {floor:.3g}); "
+                          + ("within" if worst <= LIMIT else "beyond")
+                          + f" {LIMIT:g}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as out:
+        json.dump({"device": str(device), "cases": CASES, "limit": LIMIT,
+                   "readings": readings}, out, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the bf16 likelihood kernels of a checkout of the port on one GPU.
+"""Time the likelihood kernels of a checkout of the port on one GPU.
 
     python3 tools/time_count_kernels.py [ROOT]
 
@@ -29,7 +29,10 @@ each):
 - NB's bf16 grouped backward K5 at the GMVAE's shapes (G = 10 groups of
   2,048 rows, decoder width 256) from row weights as uneven as q(y|x):
   ``grouped_backward`` where the checkout has it, else
-  ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call.
+  ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call;
+- the float32 K2/K3 of every base family at the headline shapes, as a
+  VAE trained with ``precision="float32"`` calls them: ``fused_forward``
+  and ``fused_backward`` with no compute dtype.
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -172,13 +175,26 @@ def main() -> int:
                     *ops.grouped_backward_dw(*grouped_args,
                                              compute_dtype=bf16))
     grouped_ms = cs.time_ms(grouped_backward, flush=flush, reps=10)
+    float32 = {}
+    for name in ops.FAMILIES:
+        ws, bs = cs.head_weights(gen, len(ops.FAMILIES[name].heads),
+                                 cs.HIDDEN, cs.N_GENES, dev)
+        args = (name, h, ws, bs, x)
+        float32[name] = {
+            "fused_forward": cs.time_ms(lambda args=args: ops.fused_forward(
+                *args, include_lgamma_const=False), flush=flush),
+            "fused_backward": cs.time_ms(
+                lambda args=args: ops.fused_backward(args[0], g, *args[1:]),
+                flush=flush),
+        }
     print(cs.card_line(), flush=True)
     print(json.dumps({"root": root, "ms": times,
                       "categorised_forward_ms": categorised_forward,
                       "categorised_backward_ms": categorised,
                       "constrained_poisson_ms": constrained,
                       "gather_rows_ms": gather_ms,
-                      "nb_grouped_backward_ms": grouped_ms}), flush=True)
+                      "nb_grouped_backward_ms": grouped_ms,
+                      "float32_ms": float32}), flush=True)
     return 0
 
 
