@@ -393,13 +393,14 @@ def f32_kernel_times(name, h, g, ws, bs, x, flush, tag, reps=25):
     cores, h, W and da as ``SPLIT_TERMS`` bf16 terms: the forward against
     its plain version in the split layout and against the float32 plain
     version; the backward's three kernels each against its plain version
-    (the gradient kernel's copies of each term of da equal, its first term
+    (the entries' split of h and W bit for bit against its plain version;
+    the gradient kernel's copies of each term of da equal, its first term
     within one bf16 step of the plain one, the sum of its terms and its
     row-tile sums within PRODUCT_RTOL; the dh and dW products against the
     plain products of the kernel's own scratch, bit for bit over two runs);
     then each kernel timed with its bound, and the public calls beside the
-    float32 plain versions of the function and the wrapper's operand work
-    (the split of h and W into their layouts)."""
+    float32 plain versions of the function and the split of h and W in
+    torch ops (the plain version of the entries' split kernel)."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
@@ -417,6 +418,9 @@ def f32_kernel_times(name, h, g, ws, bs, x, flush, tag, reps=25):
                 FORWARD_RTOL)
     grad = fl.f32_tc_gradient(*bwd_args)
     plain = fl.reference_f32_tc_gradient(*bwd_args)
+    if not (torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)):
+        raise AssertionError(f"{tag} float32: the split of h and W differs "
+                             "from its plain version")
     got, want = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
                  for z in (grad, plain))
     # slot p holds da's term i of pair p; the first pair of term i is (i, 0)
@@ -505,8 +509,9 @@ def f32_kernel_times(name, h, g, ws, bs, x, flush, tag, reps=25):
               f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
               f"{time_ms(plain_fn, **timed):.4f} ms)"
               for label, (fn, plain_fn) in public.items())
-          + f"; operand work (h and W split into their layouts) "
-          f"{time_ms(lambda: fl._f32_tc_operands(h, ws, bs), **timed):.4f} "
+          + "; the split of h and W in torch ops (the plain version of the "
+          "entries' split_pack_kernel) "
+          f"{time_ms(lambda: fl._f32_tc_operands(h, ws), **timed):.4f} "
           "ms", flush=True)
     return results
 

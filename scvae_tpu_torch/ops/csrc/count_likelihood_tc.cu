@@ -36,10 +36,12 @@
 //   dh   = sum over the pairs of da_i W_j^T          (every head)
 //   dW_k = sum over the pairs of h_j^T da_k,i,  db_k = sum_rows da_k
 //
-// The wrapper splits h and W (fused_likelihood.split_bf16) into the pair
-// layouts: h's terms per pair H (M, P, Hp), h_j of pair p in slot p, and
-// the heads' W terms per pair W (Hp, P, NH, Fp), W_j of pair p in block p
-// (so W_i in block i < 3).  The heads kernel runs its depth over the P
+// The float32 entries first split h and W (split_pack_kernel; its plain
+// version is fused_likelihood.split_bf16) into the pair layouts, in scratch
+// that the wrapper allocates: h's terms per pair H (M, P, Hp), h_j of pair
+// p in slot p, and the heads' W terms per pair W (Hp, P, NH, Fp), W_j of
+// pair p in block p (so W_i in block i < 3).  The heads kernel runs its
+// depth over the P
 // slots of H, slot p against W's block i of pair p, so the forward and the
 // gradient kernel sum the very same a; the gradient kernel writes da's
 // term i of pair p into slot p of a (M, P * NH * Fp) scratch.  Then dh is
@@ -171,12 +173,7 @@ __global__ void __launch_bounds__(kTcThreads,
               *out = __float2bfloat16_rn(gr[hd]);
             } else {
               bf16 term[kSplitTerms];
-              float rest = gr[hd];
-#pragma unroll
-              for (int k = 0; k < kSplitTerms; ++k) {
-                term[k] = __float2bfloat16_rn(rest);
-                rest -= __bfloat162float(term[k]);
-              }
+              split_terms(gr[hd], term);
 #pragma unroll
               for (int p = 0; p < SEG; ++p)
                 out[p * width] = term[split_first(p)];
@@ -215,6 +212,83 @@ int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
   return (int)cudaGetLastError();
 }
 
+constexpr int kPackThreads = 256;
+constexpr int kPackCols = 8;  // columns of a thread: one 16-byte store a pair
+
+// The float32 kernels' operands in their pair layouts: for each of the
+// n_src float32 matrices src_k (rows x cols, row-major),
+//   dst[r ld_row + p ld_pair + k ld_src + c] = term j of src_k[r][c]
+// for each pair p = (i, j), zero where r >= rows or c >= cols, over
+// rows_p x cols_p (the padded widths, cols_p and the strides multiples of
+// 8).  A thread per 8 columns of a row: its float32 reads coalesce along
+// the row, and it stores each pair's 8 terms as one 16-byte write.  Its
+// plain version is fused_likelihood._f32_tc_operands.
+__global__ void __launch_bounds__(kPackThreads)
+    split_pack_kernel(const float* __restrict__ s0,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ s2, int n_src, int rows,
+                      int cols, int rows_p, int cols_p,
+                      bf16* __restrict__ dst, long long ld_row,
+                      long long ld_pair, long long ld_src) {
+  const int chunks = cols_p / kPackCols;
+  const long long per = (long long)rows_p * chunks;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < per * n_src; e += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(e / per);
+    const long long rc = e - k * per;
+    const int r = (int)(rc / chunks);
+    const int c0 = (int)(rc - (long long)r * chunks) * kPackCols;
+    const float* src =
+        (k == 0 ? s0 : (k == 1 ? s1 : s2)) + (long long)r * cols;
+    uint32_t words[kSplitPairs][kPackCols / 2];  // two bf16 terms each
+#pragma unroll
+    for (int q = 0; q < kPackCols; ++q) {
+      const int c = c0 + q;
+      bf16 term[kSplitTerms];
+      split_terms(r < rows && c < cols ? src[c] : 0.0f, term);
+#pragma unroll
+      for (int p = 0; p < kSplitPairs; ++p) {
+        const uint32_t bits = __bfloat16_as_ushort(term[split_second(p)]);
+        if (q % 2 == 0)
+          words[p][q / 2] = bits;
+        else
+          words[p][q / 2] |= bits << 16;
+      }
+    }
+    bf16* base = dst + r * ld_row + k * ld_src + c0;
+#pragma unroll
+    for (int p = 0; p < kSplitPairs; ++p)
+      *reinterpret_cast<uint4*>(base + p * ld_pair) =
+          make_uint4(words[p][0], words[p][1], words[p][2], words[p][3]);
+  }
+}
+
+// h (m, hidden) into its terms per pair (m, P, hp), and the NH heads' W_k
+// (hidden, f) into theirs (hp, P, NH, fp).
+int launch_split_operands(int n_heads, const float* h, const float* w0,
+                          const float* w1, const float* w2, bf16* hh,
+                          bf16* wp, int m, int hidden, int hp, int f, int fp,
+                          cudaStream_t stream) {
+  auto launch = [&](const float* s0, const float* s1, const float* s2,
+                    int n_src, int rows, int cols, int rows_p, int cols_p,
+                    bf16* dst, long long ld_row, long long ld_pair,
+                    long long ld_src) {
+    const long long n = (long long)rows_p * (cols_p / kPackCols) * n_src;
+    if (n == 0) return 0;
+    const long long blocks = (n + kPackThreads - 1) / kPackThreads;
+    split_pack_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kPackThreads,
+                        0, stream>>>(s0, s1, s2, n_src, rows, cols, rows_p,
+                                     cols_p, dst, ld_row, ld_pair, ld_src);
+    return (int)cudaGetLastError();
+  };
+  if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
+                       (long long)kSplitPairs * hp, hp, 0))
+    return err;
+  const long long width = (long long)n_heads * fp;
+  return launch(w0, w1, w2, n_heads, hidden, f, hp, fp, wp,
+                kSplitPairs * width, width, fp);
+}
+
 }  // namespace
 }  // namespace scvae
 
@@ -226,9 +300,11 @@ extern "C" {
 // 2 = ZIP, 3 = ZINB (NH = 1, 2, 2, 3 heads).  h: bf16 (m, hp); w: bf16
 // (hp, NH, fp); b: float32 (NH, f); t: (m_t, f), t_dtype 0 = float32,
 // 1 = bfloat16; hp and fp are h's and w's padded widths (multiples of 8 at
-// least hidden and f).  The float32 entries (scvae_tc_f32_*) take h's and
-// W's bf16 terms per pair instead, h (m, P, hp) and w (hp, P, NH, fp) with
-// P = kSplitPairs.
+// least hidden and f).  The float32 entries (scvae_tc_f32_*) take float32
+// h (m, hidden) and the heads' W_k (hidden, f) as w0, w1, w2 (null past the
+// family's heads), split them into their terms per pair in the scratch hh
+// (m, P, hp) and wp (hp, P, NH, fp), P = kSplitPairs, and run the kernels
+// on those (the products of the backward read them too).
 
 // K2: part (ceil(f / 64), m) scratch, out (m,).
 int scvae_tc_forward(int family, const void* h, const void* w,
@@ -261,33 +337,48 @@ int scvae_tc_gradient(int family, const float* g, const void* h,
   });
 }
 
-// The float32 K2: as scvae_tc_forward, on the terms per pair.
-int scvae_tc_f32_forward(int family, const void* h, const void* w,
-                         const float* b, const void* t, int t_dtype,
-                         float* part, float* out, int m, int m_t, int hp,
+// The float32 K2: the operands' split, then as scvae_tc_forward.
+int scvae_tc_f32_forward(int family, const float* h, const float* w0,
+                         const float* w1, const float* w2, const float* b,
+                         const void* t, int t_dtype, void* hh, void* wp,
+                         float* part, float* out, int m, int m_t, int hidden,
                          int f, int subtract_const, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
+                                      static_cast<bf16*>(hh),
+                                      static_cast<bf16*>(wp), m, hidden, hp,
+                                      f, fp, s))
+      return e;
     return launch_heads<Fam, false, kSplitPairs>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        static_cast<const bf16*>(hh), static_cast<const bf16*>(wp), b, t,
         t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
   });
   if (err) return err;
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
 }
 
-// The float32 K3, first half: da (m, P * NH * fp) bf16 scratch of da's
+// The float32 K3, first half: the operands' split into hh and wp, which the
+// products read after it, then da (m, P * NH * fp) bf16 scratch of da's
 // terms per pair and db_part (ceil(m / 64), NH * fp) float32 scratch.
-int scvae_tc_f32_gradient(int family, const float* g, const void* h,
-                          const void* w, const float* b, const void* t,
-                          int t_dtype, void* da, float* db_part, int m,
-                          int m_t, int hp, int f, void* stream) {
+int scvae_tc_f32_gradient(int family, const float* g, const float* h,
+                          const float* w0, const float* w1, const float* w2,
+                          const float* b, const void* t, int t_dtype,
+                          void* hh, void* wp, void* da, float* db_part, int m,
+                          int m_t, int hidden, int f, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
+                                      static_cast<bf16*>(hh),
+                                      static_cast<bf16*>(wp), m, hidden, hp,
+                                      f, fp, s))
+      return e;
     return launch_heads<Fam, true, kSplitPairs>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        static_cast<const bf16*>(hh), static_cast<const bf16*>(wp), b, t,
         t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
   });
 }

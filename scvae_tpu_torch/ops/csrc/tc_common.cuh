@@ -91,6 +91,22 @@ __host__ __device__ constexpr int split_first(int p) {
   return i;
 }
 
+// The second term j of pair p.
+__host__ __device__ constexpr int split_second(int p) {
+  return p - (split_first(p) * (2 * kSplitTerms + 1 - split_first(p))) / 2;
+}
+
+// x as kSplitTerms bf16 terms: term[k] the bf16 rounding of what the terms
+// before it leave, each difference exact in float32.
+__device__ __forceinline__ void split_terms(float x,
+                                            bf16 (&term)[kSplitTerms]) {
+#pragma unroll
+  for (int k = 0; k < kSplitTerms; ++k) {
+    term[k] = __float2bfloat16_rn(x);
+    x -= __bfloat162float(term[k]);
+  }
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

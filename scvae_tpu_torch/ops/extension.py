@@ -42,12 +42,14 @@ _SIGNATURES = {
     # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
     "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _P],
-    # the float32 K2 / K3's first kernel on h's and W's bf16 terms per pair:
-    # the same arguments as scvae_tc_forward / scvae_tc_gradient
-    "scvae_tc_f32_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _I, _P],
-    "scvae_tc_f32_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                              _I, _P],
+    # family, h, w0, w1, w2, b, t, t_dtype, hh, wp, part, out, m, m_t,
+    # hidden, f, subtract, stream
+    "scvae_tc_f32_forward": [_I] + [_P] * 6 + [_I] + [_P] * 4 + [_I] * 5
+                            + [_P],
+    # family, g, h, w0, w1, w2, b, t, t_dtype, hh, wp, da, db_part, m, m_t,
+    # hidden, f, stream
+    "scvae_tc_f32_gradient": [_I] + [_P] * 7 + [_I] + [_P] * 4 + [_I] * 4
+                             + [_P],
     # family, h, w, b, t, t_dtype, part, out, lse, m, m_t, hp, f, n_classes,
     # stream
     "scvae_cat_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,

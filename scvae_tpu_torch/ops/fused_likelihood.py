@@ -1248,9 +1248,10 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
 # the products of tc_product.cu)
 #
 # JAX multiplies float32 h and W, and the backward the float32 da.  So each
-# goes to the tensor cores as SPLIT_TERMS = 3 bf16 terms (split_bf16), and
-# a product x y as the pairs of terms (x_i, y_j) with i + j < SPLIT_TERMS
-# (P = 6 pairs, by i then j).  One operand of the three (h, W, da) must be
+# goes to the tensor cores as SPLIT_TERMS = 3 bf16 terms (split_bf16; the
+# float32 entries split h and W on the card, split_pack_kernel, and the
+# gradient kernel splits da), and a product x y as the pairs of terms
+# (x_i, y_j) with i + j < SPLIT_TERMS (P = 6 pairs, by i then j).  One operand of the three (h, W, da) must be
 # laid out twice, since each product pairs two of them and every pair takes
 # one term of each; h is the smallest.  Slot p of each layout holds:
 #
@@ -1296,9 +1297,10 @@ def f32_tc_plan(m: int, hidden: int, f: int, n_heads: int,
     return plan
 
 
-def _f32_tc_operands(h, weights, biases):
-    """h's bf16 terms per pair (M, P, Hp), the heads' W terms per pair
-    (Hp, P, NH, Fp), zero-padded, and the float32 biases (NH, F)."""
+def _f32_tc_operands(h, weights):
+    """h's bf16 terms per pair (M, P, Hp) and the heads' W terms per pair
+    (Hp, P, NH, Fp), zero-padded: the plain version of the split that the
+    float32 kernels' entries make (``split_pack_kernel``)."""
     m, hidden = h.shape
     f = weights[0].shape[1]
     hp, fp = tc_padded(hidden), tc_padded(f)
@@ -1310,8 +1312,7 @@ def _f32_tc_operands(h, weights, biases):
         hh = torch.nn.functional.pad(hh, (0, hp - hidden))
     if (hp, fp) != (hidden, f):
         w = torch.nn.functional.pad(w, (0, fp - f, 0, 0, 0, 0, 0, hp - hidden))
-    b = torch.stack([b_k.float() for b_k in biases])
-    return hh.contiguous(), w.contiguous(), b.contiguous()
+    return hh.contiguous(), w.contiguous()
 
 
 def _f32_tc_activations(h, weights, biases):
@@ -1352,7 +1353,7 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     f = t.shape[-1]
     n_heads = len(weights)
     plan = f32_tc_plan(m, hidden, f, n_heads)
-    hh, w, _ = _f32_tc_operands(h, weights, biases)
+    hh, w = _f32_tc_operands(h, weights)
     acts = _f32_tc_activations(h, weights, biases)
     gs = fam.grads(*acts, _cycle_rows(t.float(), m))
     fp = plan["fp"]
@@ -1370,24 +1371,41 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
                       w, da.reshape(plan["da"]), db_parts, "_float32")
 
 
+def _f32_tc_scratch(plan, m, n_heads, device):
+    """The float32 entries' split of h (M, P, Hp) and of the heads' W
+    (Hp, P, NH, Fp), which the kernels write and the products read."""
+    pairs, hp, fp = len(SPLIT_PAIRS), plan["hp"], plan["fp"]
+    return (torch.empty((m, pairs, hp), dtype=torch.bfloat16, device=device),
+            torch.empty((hp, pairs, n_heads, fp), dtype=torch.bfloat16,
+                        device=device))
+
+
+def _weight_pointers(weights):
+    """w0, w1, w2 pointers; null past the family's heads."""
+    pointers = [w.data_ptr() for w in weights]
+    return pointers + [None] * (_MAX_HEADS - len(pointers))
+
+
 def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
-    """Launch the float32 K2 of family ``name`` on the tensor cores: the
-    row sums (M,) of h's and W's bf16 terms multiplied pair by pair."""
+    """Launch the float32 K2 of family ``name`` on the tensor cores: h and
+    W split into their bf16 terms per pair, then the row sums (M,) of the
+    terms multiplied pair by pair."""
     fam = _family_heads(name, weights, biases)
-    t = _validated(h, weights, biases, t)
+    h, weights, biases, t = _checked_cuda(h, weights, biases, t)
     m, hidden = h.shape
     f = t.shape[1]
     out = torch.empty((m,), dtype=torch.float32, device=h.device)
     if m == 0:
         return out
     plan = f32_tc_plan(m, hidden, f, len(weights))
-    hh, w, b = _f32_tc_operands(h, weights, biases)
+    hh, w = _f32_tc_scratch(plan, m, len(weights), h.device)
+    b = torch.stack(biases)
     part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
     extension.call(
-        "scvae_tc_f32_forward", h.device, fam.code, hh.data_ptr(),
-        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        part.data_ptr(), out.data_ptr(), m, t.shape[0], plan["hp"], f,
-        int(include_lgamma_const),
+        "scvae_tc_f32_forward", h.device, fam.code, h.data_ptr(),
+        *_weight_pointers(weights), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(), part.data_ptr(),
+        out.data_ptr(), m, t.shape[0], hidden, f, int(include_lgamma_const),
     )
     LAUNCHES[f"{fam.prefix}_forward_float32"] += 1
     return out
@@ -1395,23 +1413,25 @@ def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
 
 def f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     """Launch the float32 K3's first kernel of family ``name`` for row
-    cotangents ``g``: the activations as the forward summed them, da's bf16
-    terms per pair and da's column sums per row tile, for :func:`tc_dh` and
-    :func:`tc_dw` (counted with the "_float32" suffix)."""
+    cotangents ``g``: h and W split into their bf16 terms per pair, the
+    activations as the forward summed them, da's bf16 terms per pair and
+    da's column sums per row tile, for :func:`tc_dh` and :func:`tc_dw`
+    (counted with the "_float32" suffix)."""
     fam = _family_heads(name, weights, biases)
-    t = _validated(h, weights, biases, t, g)
+    h, weights, biases, t, g = _checked_cuda(h, weights, biases, t, g)
     m, hidden = h.shape
     f = t.shape[1]
     plan = f32_tc_plan(m, hidden, f, len(weights))
-    hh, w, b = _f32_tc_operands(h, weights, biases)
     dev = h.device
+    hh, w = _f32_tc_scratch(plan, m, len(weights), dev)
+    b = torch.stack(biases)
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
     db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
-    g = g.float().contiguous()
     extension.call(
-        "scvae_tc_f32_gradient", dev, fam.code, g.data_ptr(), hh.data_ptr(),
-        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        da.data_ptr(), db_parts.data_ptr(), m, t.shape[0], plan["hp"], f,
+        "scvae_tc_f32_gradient", dev, fam.code, g.data_ptr(), h.data_ptr(),
+        *_weight_pointers(weights), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(), da.data_ptr(),
+        db_parts.data_ptr(), m, t.shape[0], hidden, f,
     )
     LAUNCHES[f"{fam.prefix}_backward_gradient_float32"] += 1
     return TcGradient(fam.prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),

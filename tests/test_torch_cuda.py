@@ -500,6 +500,8 @@ def test_float32_tensor_core_kernels(device, name, m, m_t, hidden, f):
     bargs = (name, g, h, weights, biases, t)
     grad = fl.f32_tc_gradient(*bargs)
     plain = fl.reference_f32_tc_gradient(*bargs)
+    # the entries' split of h and W, bit for bit
+    assert torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)
     got_da, want_da = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
                        for z in (grad, plain))
     # slot p holds da's term i of pair p; the first pair of term i is

@@ -184,12 +184,11 @@ def test_operands_layout():
     of pair (i, j) in slot p, zero-padded; so W's block i < SPLIT_TERMS
     holds W_i, which the forward's slot p reads for pair (i, j)."""
     name = "zero-inflated negative binomial"
-    h, ws, bs, _, _ = _torch(*_case(name, seed=6, hidden=37, f=301))
-    hh, w, b = fl._f32_tc_operands(h, ws, bs)
+    h, ws, _, _, _ = _torch(*_case(name, seed=6, hidden=37, f=301))
+    hh, w = fl._f32_tc_operands(h, ws)
     pairs = len(fl.SPLIT_PAIRS)
     assert hh.shape == (M, pairs, 40) and hh.dtype == torch.bfloat16
     assert w.shape == (40, pairs, 3, 304) and w.dtype == torch.bfloat16
-    assert b.shape == (3, 301) and b.dtype == torch.float32
     h_terms = fl.split_bf16(h, fl.SPLIT_TERMS)
     for p, (_, j) in enumerate(fl.SPLIT_PAIRS):
         assert torch.equal(hh[:, p, :37], h_terms[j])
