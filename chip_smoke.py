@@ -335,10 +335,13 @@ def check_gather(counts_dev, idx, flush):
 def check_family(name, h, g, x, gen, flush):
     """K2 and both K3 passes of one base family: the forward (main path with
     bf16 inputs and the staged lgamma constant, ragged F, float32 inputs with
-    the in-kernel constant, float32 targets), the bf16 backward against the
-    plain backward with the same rounding (and ragged F), and the float32
-    backward against autograd through the plain forward; then their times."""
+    the in-kernel constant, float32 targets; float32 on the main path's
+    inputs against its split design's plain version too), the bf16 backward
+    against the plain backward with the same rounding (and ragged F), and
+    the float32 backward against autograd through the plain forward; then
+    the bf16 and the float32 kernels one by one (count_kernel_times)."""
     from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
 
     bf16 = torch.bfloat16
     fam = ops.FAMILIES[name]
@@ -381,138 +384,23 @@ def check_family(name, h, g, x, gen, flush):
         check_close(f"{fam.prefix}_backward float32 {part} vs autograd", a,
                     want[i], AUTOGRAD_RTOL)
 
-    results = count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
-                                 tag=fam.prefix)
-    results.update(f32_kernel_times(name, h, g, ws, bs, x, flush,
-                                    tag=fam.prefix))
-    return results
-
-
-def f32_kernel_times(name, h, g, ws, bs, x, flush, tag, reps=25):
-    """The float32 K2 and K3 kernels of base family ``name`` on the tensor
-    cores, h, W and da as ``SPLIT_TERMS`` bf16 terms: the forward against
-    its plain version in the split layout and against the float32 plain
-    version; the backward's three kernels each against its plain version
-    (the entries' split of h and W bit for bit against its plain version;
-    the gradient kernel's copies of each term of da equal, its first term
-    within one bf16 step of the plain one, the sum of its terms and its
-    row-tile sums within PRODUCT_RTOL; the dh and dW products against the
-    plain products of the kernel's own scratch, bit for bit over two runs);
-    then each kernel timed with its bound, and the public calls beside the
-    float32 plain versions of the function and the split of h and W in
-    torch ops (the plain version of the entries' split kernel)."""
-    from scvae_tpu_torch import ops
-    from scvae_tpu_torch.ops import fused_likelihood as fl
-
-    k = len(ws)
-    (m, hidden), (m_t, f) = h.shape, x.shape
-    timed = dict(flush=flush, reps=reps)
+    # the float32 forward on the main path's inputs, against the plain
+    # version of its split design and the float32 plain version
     fwd_args = (name, h, ws, bs, x)
-    bwd_args = (name, g, h, ws, bs, x)
-    out = fl.f32_tc_forward(*fwd_args, include_lgamma_const=False)
-    fwd_err = check_close(
-        f"{tag}_forward_float32 M={m}", out, fl.reference_f32_tc_forward(
-            *fwd_args, include_lgamma_const=False), FORWARD_RTOL)
-    check_close(f"{tag}_forward_float32 M={m} vs float32 plain", out,
+    out = ops.fused_forward(*fwd_args, include_lgamma_const=False)
+    f32_fwd_err = check_close(
+        f"{fam.prefix}_forward_float32 M={m}", out,
+        fl.reference_f32_tc_forward(*fwd_args, include_lgamma_const=False),
+        FORWARD_RTOL)
+    check_close(f"{fam.prefix}_forward_float32 M={m} vs float32 plain", out,
                 ops.reference_forward(*fwd_args, include_lgamma_const=False),
                 FORWARD_RTOL)
-    grad = fl.f32_tc_gradient(*bwd_args)
-    plain = fl.reference_f32_tc_gradient(*bwd_args)
-    if not (torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)):
-        raise AssertionError(f"{tag} float32: the split of h and W differs "
-                             "from its plain version")
-    got, want = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
-                 for z in (grad, plain))
-    # slot p holds da's term i of pair p; the first pair of term i is (i, 0)
-    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
-    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
-        if not torch.equal(got[:, p], got[:, first[i]]):
-            raise AssertionError(f"{tag}_backward_gradient_float32: the "
-                                 f"copies of da's term {i} differ")
-    check_bf16_steps(f"{tag}_backward_gradient_float32 da_0 M={m}",
-                     got[:, 0], want[:, 0])
-    grad_err = check_close(
-        f"{tag}_backward_gradient_float32 sum of da's terms M={m}",
-        sum(got[:, p].float() for p in first),
-        sum(want[:, p].float() for p in first), PRODUCT_RTOL)
-    check_close(f"{tag}_backward_gradient_float32 db row-tile sums M={m}",
-                grad.db_parts, plain.db_parts, PRODUCT_RTOL)
-    dh = fl.tc_dh(grad)
-    dh_err = check_close(f"{tag}_backward_dh_float32 of the kernel's da "
-                         f"M={m}", dh, fl.reference_tc_dh(grad), PRODUCT_RTOL)
-    dws = fl.tc_dw(grad)
-    dw_err = max(check_close(f"{tag}_backward_dw_float32 [{i}] of the "
-                             f"kernel's da M={m}", a, b, PRODUCT_RTOL)
-                 for i, (a, b) in enumerate(zip(
-                     dws, fl.reference_tc_dw(grad), strict=True)))
-    again = (fl.tc_dh(grad), *fl.tc_dw(grad))
-    if not all(torch.equal(a, b) for a, b in zip((dh, *dws), again)):
-        raise AssertionError(f"{tag} float32 products differ between two "
-                             "runs")
 
-    # Bounds: the function's product, 2·NH·M·H·F counted once however many
-    # pairs of terms the design multiplies, at the bf16 tensor-core rate,
-    # or its bytes: h and the heads in float32 as the caller holds them, t
-    # as it arrives, da as its SPLIT_TERMS bf16 terms once (not the
-    # scratch's copies per pair), every output in float32.
-    product = 2 * k * m * hidden * f
-    head_bytes = k * (hidden * f + f) * 4
-    in_bytes = m * hidden * 4 + head_bytes + m_t * f * x.element_size()
-    da_terms = m * k * f * 2 * fl.SPLIT_TERMS
-    db_bytes = grad.db_parts.numel() * 4
-    w2 = grad.w.reshape(grad.w.shape[0], -1)
-    kernels = {  # fn, plain, library, err, bytes
-        "forward_float32": (
-            lambda: fl.f32_tc_forward(*fwd_args, include_lgamma_const=False),
-            lambda: fl.reference_f32_tc_forward(*fwd_args,
-                                                include_lgamma_const=False),
-            None, fwd_err, in_bytes + m * 4),
-        "backward_gradient_float32": (
-            lambda: fl.f32_tc_gradient(*bwd_args),
-            lambda: fl.reference_f32_tc_gradient(*bwd_args), None, grad_err,
-            in_bytes + m * 4 + da_terms + db_bytes),
-        "backward_dh_float32": (
-            lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
-            lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
-            da_terms + k * hidden * f * 4 + m * hidden * 4),
-        "backward_dw_float32": (
-            lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad), None,
-            dw_err, m * hidden * 4 + da_terms + db_bytes + head_bytes),
-    }
-    results = {}
-    for kernel, (fn, plain_fn, library, err, nbytes) in kernels.items():
-        t_bound, by = bound(nbytes, product, BF16_FLOPS)
-        library_ms = None
-        if library is not None:
-            try:  # torch.mm with a float32 output from bf16 operands
-                library_ms = time_ms(library, **timed)
-            except (RuntimeError, TypeError) as err_:
-                log(f"library call for {tag}_{kernel} unavailable: {err_}")
-        results[f"{tag}_{kernel}"] = {
-            "max_abs_err": err, "ms": time_ms(fn, **timed),
-            "plain_ms": time_ms(plain_fn, **timed),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": library_ms,
-        }
-    parts = sum(results[f"{tag}_{kernel}"]["ms"] for kernel in
-                ("backward_gradient_float32", "backward_dh_float32",
-                 "backward_dw_float32"))
-    public = {
-        "fused_forward": (
-            lambda: ops.fused_forward(*fwd_args, include_lgamma_const=False),
-            lambda: ops.reference_forward(*fwd_args,
-                                          include_lgamma_const=False)),
-        "fused_backward": (lambda: ops.fused_backward(*bwd_args),
-                           lambda: ops.reference_backward(*bwd_args)),
-    }
-    print(f"float32 {tag} M={m}: backward kernels {parts:.4f} ms; public "
-          "calls against the float32 plain versions: " + "; ".join(
-              f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
-              f"{time_ms(plain_fn, **timed):.4f} ms)"
-              for label, (fn, plain_fn) in public.items())
-          + "; the split of h and W in torch ops (the plain version of the "
-          "entries' split_pack_kernel) "
-          f"{time_ms(lambda: fl._f32_tc_operands(h, ws), **timed):.4f} "
-          "ms", flush=True)
+    results = count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
+                                 tag=fam.prefix)
+    results.update(count_kernel_times(name, h, g, ws, bs, x, flush,
+                                      f32_fwd_err, tag=fam.prefix,
+                                      float32=True))
     return results
 
 
@@ -532,15 +420,47 @@ def forced_splits(grad, splits, promote=False):
     return dataclasses.replace(grad, plan=plan)
 
 
-def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
-    """The bf16 K2 and K3 kernels of base family ``name`` on the main path's
-    tensor-core kernels: the backward's three kernels (the gradient kernel,
-    which writes bf16(da) and its column sums per row tile; the dh product
-    and the dW/db pass, which read them) each held against its plain
-    version on the same inputs, then each kernel timed with its own bound,
-    and the backward as a whole.  Also prints the yardstick (a bf16
+def check_split_da(tag, grad, plain) -> float:
+    """The float32 gradient kernel's scratch against its plain version: the
+    entries' split of h and W bit for bit, the copies of each term of da
+    equal, its first term within one bf16 step of the plain one, the sum of
+    its terms within PRODUCT_RTOL (returns that error)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    m = grad.da.shape[0]
+    if not (torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)):
+        raise AssertionError(f"{tag} float32: the split of h and W differs "
+                             "from its plain version")
+    got, want = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
+                 for z in (grad, plain))
+    # slot p holds da's term i of pair p; the first pair of term i is (i, 0)
+    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
+        if not torch.equal(got[:, p], got[:, first[i]]):
+            raise AssertionError(f"{tag}_backward_gradient_float32: the "
+                                 f"copies of da's term {i} differ")
+    check_bf16_steps(f"{tag}_backward_gradient_float32 da_0 M={m}",
+                     got[:, 0], want[:, 0])
+    return check_close(
+        f"{tag}_backward_gradient_float32 sum of da's terms M={m}",
+        sum(got[:, p].float() for p in first),
+        sum(want[:, p].float() for p in first), PRODUCT_RTOL)
+
+
+def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25,
+                       float32=False):
+    """The K2 and K3 kernels of base family ``name`` on the main path's
+    tensor-core kernels, bf16, or with ``float32`` h, W and da as
+    ``fl.SPLIT_TERMS`` bf16 terms (counters with the "_float32" suffix):
+    the backward's three kernels (the gradient kernel, which writes da's
+    bf16 terms and their column sums per row tile; the dh product and the
+    dW/db pass, which read them) each held against its plain version on the
+    same inputs, the products bit for bit over two runs; then each kernel,
+    the forward with ``fwd_err`` from its check, timed with its own bound.
+    bf16 also prints the backward as a whole, the yardstick (a bf16
     ``torch.matmul`` of the same head products alone) and a timing sweep
-    over the products' depth splits."""
+    over the products' depth splits; float32 the public calls beside the
+    float32 plain versions and the split of h and W in torch ops."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
@@ -548,79 +468,131 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25):
     k = len(ws)
     (m, hidden), (m_t, f) = h.shape, x.shape
     timed = dict(flush=flush, reps=reps)
+    cdt, sfx = (None, "_float32") if float32 else (bf16, "")
+    fwd_args = (name, h, ws, bs, x)
+    bwd_args = (name, g, h, ws, bs, x)
+    if float32:
+        gradient = fl.f32_tc_gradient
+        plain_gradient = fl.reference_f32_tc_gradient
 
-    grad = fl.tc_gradient(name, g, h, ws, bs, x)
-    plain = fl.reference_tc_gradient(name, g, h, ws, bs, x)
-    grad_err = check_bf16_steps(f"{tag}_backward_gradient bf16(da) M={m}",
-                                grad.da, plain.da)
-    check_close(f"{tag}_backward_gradient db row-tile sums M={m}",
+        def plain_forward():
+            return fl.reference_f32_tc_forward(*fwd_args,
+                                               include_lgamma_const=False)
+    else:
+        gradient, plain_gradient = fl.tc_gradient, fl.reference_tc_gradient
+
+        def plain_forward():
+            return ops.reference_forward(*fwd_args, compute_dtype=bf16,
+                                         include_lgamma_const=False)
+
+    grad = gradient(*bwd_args)
+    plain = plain_gradient(*bwd_args)
+    if float32:
+        grad_err = check_split_da(tag, grad, plain)
+    else:
+        grad_err = check_bf16_steps(f"{tag}_backward_gradient bf16(da) M={m}",
+                                    grad.da, plain.da)
+    check_close(f"{tag}_backward_gradient{sfx} db row-tile sums M={m}",
                 grad.db_parts, plain.db_parts, PRODUCT_RTOL)
-    dh_err = check_close(f"{tag}_backward_dh of the kernel's da M={m}",
-                         fl.tc_dh(grad), fl.reference_tc_dh(grad),
-                         PRODUCT_RTOL)
-    dw_err = max(check_close(f"{tag}_backward_dw [{i}] of the kernel's da "
-                             f"M={m}", a, b, PRODUCT_RTOL)
+    dh = fl.tc_dh(grad)
+    dh_err = check_close(f"{tag}_backward_dh{sfx} of the kernel's da M={m}",
+                         dh, fl.reference_tc_dh(grad), PRODUCT_RTOL)
+    dws = fl.tc_dw(grad)
+    dw_err = max(check_close(f"{tag}_backward_dw{sfx} [{i}] of the kernel's "
+                             f"da M={m}", a, b, PRODUCT_RTOL)
                  for i, (a, b) in enumerate(zip(
-                     fl.tc_dw(grad), fl.reference_tc_dw(grad), strict=True)))
+                     dws, fl.reference_tc_dw(grad), strict=True)))
+    again = (fl.tc_dh(grad), *fl.tc_dw(grad))
+    if not all(torch.equal(a, b) for a, b in zip((dh, *dws), again)):
+        raise AssertionError(f"{tag}{sfx} products differ between two runs")
 
-    # One product of the heads: 2·NH·M·H·F operations.  Bytes: h and the
-    # heads arrive in float32, t in bf16; da is bf16, its row-tile sums and
-    # every output float32.
+    # One product of the heads: 2·NH·M·H·F operations, counted once however
+    # many pairs of terms the float32 design multiplies.  Bytes: h and the
+    # heads arrive in float32, t as it arrives (bf16), and every output is
+    # float32.  bf16: da is bf16 as the kernels pass it, and the products
+    # read bf16 h and W.  float32: the function's da is float32, counted
+    # once at 4 B an element (not as its bf16 terms, nor the scratch's
+    # copies per pair), and the products' h and W are the float32 ones.
     product = 2 * k * m * hidden * f
-    in_bytes = m * hidden * 4 + k * (hidden * f + f) * 4 + m_t * f * 2
-    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
-    dw_out = k * (hidden * f + f) * 4
-    hb, w, _ = fl._tc_operands(h, ws, bs)
-    w2 = w.reshape(w.shape[0], -1)
-    kernels = {
+    head_bytes = k * (hidden * f + f) * 4
+    in_bytes = m * hidden * 4 + head_bytes + m_t * f * x.element_size()
+    db_bytes = grad.db_parts.numel() * 4
+    if float32:
+        da_bytes, h_bytes, w_bytes = m * k * f * 4, m * hidden * 4, (
+            k * hidden * f * 4)
+    else:
+        da_bytes, h_bytes, w_bytes = (grad.da.numel() * 2,
+                                      grad.h.numel() * 2, grad.w.numel() * 2)
+    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    kernels = {  # fn, plain, library, err, bytes
         "forward": (
-            lambda: ops.fused_forward(name, h, ws, bs, x, compute_dtype=bf16,
+            lambda: ops.fused_forward(*fwd_args, compute_dtype=cdt,
                                       include_lgamma_const=False),
-            lambda: ops.reference_forward(name, h, ws, bs, x,
-                                          compute_dtype=bf16,
-                                          include_lgamma_const=False),
-            None, fwd_err, in_bytes + m * 4, product),
+            plain_forward, None, fwd_err, in_bytes + m * 4),
         "backward_gradient": (
-            lambda: fl.tc_gradient(name, g, h, ws, bs, x),
-            lambda: fl.reference_tc_gradient(name, g, h, ws, bs, x),
-            None, grad_err, in_bytes + m * 4 + da_bytes, product),
+            lambda: gradient(*bwd_args), lambda: plain_gradient(*bwd_args),
+            None, grad_err, in_bytes + m * 4 + da_bytes + db_bytes),
         "backward_dh": (
             lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
             lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32),
-            dh_err, grad.da.numel() * 2 + w.numel() * 2 + m * hidden * 4,
-            product),
+            dh_err, da_bytes + w_bytes + m * hidden * 4),
         "backward_dw": (
             lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad), None,
-            dw_err, grad.h.numel() * 2 + da_bytes + dw_out, product),
+            dw_err, h_bytes + da_bytes + db_bytes + head_bytes),
     }
     results = {}
-    for kernel, (fn, plain_fn, library, err, nbytes, flops) in kernels.items():
-        t_bound, by = bound(nbytes, flops, BF16_FLOPS)
+    for kernel, (fn, plain_fn, library, err, nbytes) in kernels.items():
+        t_bound, by = bound(nbytes, product, BF16_FLOPS)
         library_ms = None
         if library is not None:
             try:  # torch.mm with a float32 output from bf16 operands
                 library_ms = time_ms(library, **timed)
             except (RuntimeError, TypeError) as err_:
-                log(f"library call for {tag}_{kernel} unavailable: {err_}")
-        results[f"{tag}_{kernel}"] = {
+                log(f"library call for {tag}_{kernel}{sfx} unavailable: "
+                    f"{err_}")
+        results[f"{tag}_{kernel}{sfx}"] = {
             "max_abs_err": err, "ms": time_ms(fn, **timed),
             "plain_ms": time_ms(plain_fn, **timed),
             "bound_ms": t_bound, "bound_by": by, "library_ms": library_ms,
         }
-    parts = sum(results[f"{tag}_{kernel}"]["ms"]
+    parts = sum(results[f"{tag}_{kernel}{sfx}"]["ms"]
                 for kernel in ("backward_gradient", "backward_dh",
                                "backward_dw"))
-    whole_bound, whole_by = bound(in_bytes + m * 4 + m * hidden * 4 + dw_out,
-                                  3 * product, BF16_FLOPS)
+    if float32:
+        public = {
+            "fused_forward": (
+                lambda: ops.fused_forward(*fwd_args,
+                                          include_lgamma_const=False),
+                lambda: ops.reference_forward(*fwd_args,
+                                              include_lgamma_const=False)),
+            "fused_backward": (lambda: ops.fused_backward(*bwd_args),
+                               lambda: ops.reference_backward(*bwd_args)),
+        }
+        splits = {label: time_ms(lambda slots=slots: fl._f32_tc_operands(
+                      h, ws, slots), **timed)
+                  for label, slots in (("forward", fl.SPLIT_TERMS),
+                                       ("gradient", len(fl.SPLIT_PAIRS)))}
+        print(f"float32 {tag} M={m}: backward kernels {parts:.4f} ms; public "
+              "calls against the float32 plain versions: " + "; ".join(
+                  f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
+                  f"{time_ms(plain_fn, **timed):.4f} ms)"
+                  for label, (fn, plain_fn) in public.items())
+              + "; the split of h and W in torch ops (the plain version of "
+              "the entries' split_pack_kernel): " + ", ".join(
+                  f"{label} {ms:.4f} ms" for label, ms in splits.items()),
+              flush=True)
+        return results
+    whole_bound, whole_by = bound(in_bytes + m * 4 + m * hidden * 4
+                                  + head_bytes, 3 * product, BF16_FLOPS)
     whole = time_ms(lambda: ops.fused_backward(name, g, h, ws, bs, x,
                                                compute_dtype=bf16), **timed)
     print(f"backward {tag} M={m}: gradient + dh + dW kernels {parts:.4f} ms; "
           f"fused_backward with its operand copies {whole:.4f} ms; bound "
           f"{whole_bound:.5f} ms ({whole_by})", flush=True)
 
-    products = {"forward h W": lambda: hb @ w2,
+    products = {"forward h W": lambda: grad.h @ w2,
                 "dh da W^T": lambda: grad.da @ w2.T,
-                "dW h^T da": lambda: hb.T @ grad.da}
+                "dW h^T da": lambda: grad.h.T @ grad.da}
     print(f"yardstick {tag} M={m}: bf16 torch.matmul of the head products "
           "alone, " + ", ".join(f"{label} {time_ms(fn, **timed):.4f} ms"
                                 for label, fn in products.items()),

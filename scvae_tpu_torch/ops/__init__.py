@@ -22,8 +22,6 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     cp_backward_dw,
     cp_forward,
     fused_backward,
-    fused_backward_dh,
-    fused_backward_dw,
     fused_categorised_log_likelihood,
     fused_forward,
     fused_grouped_log_likelihood,
@@ -88,8 +86,6 @@ __all__ = [
     "cp_forward",
     "digamma",
     "fused_backward",
-    "fused_backward_dh",
-    "fused_backward_dw",
     "fused_categorised_log_likelihood",
     "fused_forward",
     "fused_grouped_log_likelihood",

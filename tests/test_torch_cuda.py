@@ -424,34 +424,76 @@ def _within_one_bf16_step(got, want, rtol=2e-5):
     assert flips <= MAX_FLIP_SHARE * diff.numel(), (flips, diff.numel())
 
 
+def _check_split_scratch(grad, plain):
+    """The float32 gradient kernel's scratch: the entries' split of h and W
+    bit for bit, the copies of each term of da equal, its first term within
+    one bf16 step of the plain one, the sum of its terms within 2e-5."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    assert torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)
+    m = grad.da.shape[0]
+    got_da, want_da = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
+                       for z in (grad, plain))
+    # slot p holds da's term i of pair p; the first pair of term i is
+    # (i, 0)
+    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
+        assert torch.equal(got_da[:, p], got_da[:, first[i]])
+    _within_one_bf16_step(got_da[:, 0], want_da[:, 0])
+    _close(sum(got_da[:, p].float() for p in first),
+           sum(want_da[:, p].float() for p in first), 2e-5)
+
+
+def _check_tensor_core_kernels(name, h, weights, biases, t, g, float32):
+    """The tensor-core K2 and the backward's three kernels of family
+    ``name``, bf16 or (``float32``) h, W and da as bf16 terms, each against
+    its plain version; the public backward is these kernels.  float32 also
+    holds the split design's scratch (``_check_split_scratch``) and the
+    public calls against the float32 plain versions."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    args = (name, h, weights, biases, t)
+    bargs = (name, g, h, weights, biases, t)
+    cdt = None if float32 else torch.bfloat16
+    for const in (True, False):
+        got = ops.fused_forward(*args, compute_dtype=cdt,
+                                include_lgamma_const=const)
+        _close(got, ops.reference_forward(*args, compute_dtype=cdt,
+                                          include_lgamma_const=const), 2e-5)
+        if float32:
+            _close(got, fl.reference_f32_tc_forward(
+                *args, include_lgamma_const=const), 2e-5)
+            assert torch.equal(got, fl.f32_tc_forward(
+                *args, include_lgamma_const=const))
+    if float32:
+        grad = fl.f32_tc_gradient(*bargs)
+        plain = fl.reference_f32_tc_gradient(*bargs)
+        _check_split_scratch(grad, plain)
+    else:
+        grad = fl.tc_gradient(*bargs)
+        plain = fl.reference_tc_gradient(*bargs)
+        _within_one_bf16_step(grad.da, plain.da)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    dh = fl.tc_dh(grad)
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dws = fl.tc_dw(grad)
+    for a, b in zip(dws, fl.reference_tc_dw(grad), strict=True):
+        _close(a, b, 2e-5)
+    public = ops.fused_backward(*bargs, compute_dtype=cdt)
+    for a, b in zip(public, (dh, *dws), strict=True):
+        assert torch.equal(a, b)
+    if float32:
+        for a, b in zip(public, ops.reference_backward(*bargs), strict=True):
+            _close(a, b, 2e-5)
+
+
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("m,m_t,hidden,f", TC_SHAPES)
 def test_tensor_core_kernels_full_and_ragged_tiles(device, name, m, m_t,
                                                    hidden, f):
-    from scvae_tpu_torch.ops import fused_likelihood as fl
-
-    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
-                                            torch.bfloat16, seed=5)
-    for const in (True, False):
-        _close(ops.fused_forward(name, h, weights, biases, t,
-                                 compute_dtype=torch.bfloat16,
-                                 include_lgamma_const=const),
-               ops.reference_forward(name, h, weights, biases, t,
-                                     compute_dtype=torch.bfloat16,
-                                     include_lgamma_const=const), 2e-5)
-    grad = fl.tc_gradient(name, g, h, weights, biases, t)
-    plain = fl.reference_tc_gradient(name, g, h, weights, biases, t)
-    _within_one_bf16_step(grad.da, plain.da)
-    _close(grad.db_parts, plain.db_parts, 2e-5)
-    _close(fl.tc_dh(grad), fl.reference_tc_dh(grad), 2e-5)
-    dws = fl.tc_dw(grad)
-    for a, b in zip(dws, fl.reference_tc_dw(grad), strict=True):
-        _close(a, b, 2e-5)
-    # the public backward is these three kernels
-    for a, b in zip(ops.fused_backward(name, g, h, weights, biases, t,
-                                       compute_dtype=torch.bfloat16),
-                    (fl.tc_dh(grad), *dws), strict=True):
-        assert torch.equal(a, b)
+    _check_tensor_core_kernels(name, *_family_case(
+        device, name, m, m_t, hidden, f, torch.bfloat16, seed=5),
+        float32=False)
 
 
 def test_float32_and_bf16_launches_count_apart(device):
@@ -484,45 +526,9 @@ def test_float32_tensor_core_kernels(device, name, m, m_t, hidden, f):
     """The float32 K2 and the backward's three kernels, each against its
     plain version in the split layout, and against the float32 plain
     versions; the public calls are these kernels."""
-    from scvae_tpu_torch.ops import fused_likelihood as fl
-
-    h, weights, biases, t, g = _family_case(device, name, m, m_t, hidden, f,
-                                            torch.bfloat16, seed=6)
-    args = (name, h, weights, biases, t)
-    for const in (True, False):
-        got = fl.f32_tc_forward(*args, include_lgamma_const=const)
-        _close(got, fl.reference_f32_tc_forward(
-            *args, include_lgamma_const=const), 2e-5)
-        _close(got, ops.reference_forward(*args, include_lgamma_const=const),
-               2e-5)
-        assert torch.equal(got, ops.fused_forward(
-            *args, include_lgamma_const=const))
-    bargs = (name, g, h, weights, biases, t)
-    grad = fl.f32_tc_gradient(*bargs)
-    plain = fl.reference_f32_tc_gradient(*bargs)
-    # the entries' split of h and W, bit for bit
-    assert torch.equal(grad.h, plain.h) and torch.equal(grad.w, plain.w)
-    got_da, want_da = (z.da.reshape(m, len(fl.SPLIT_PAIRS), -1)
-                       for z in (grad, plain))
-    # slot p holds da's term i of pair p; the first pair of term i is
-    # (i, 0)
-    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
-    for p, (i, _) in enumerate(fl.SPLIT_PAIRS):
-        assert torch.equal(got_da[:, p], got_da[:, first[i]])
-    _within_one_bf16_step(got_da[:, 0], want_da[:, 0])
-    _close(sum(got_da[:, p].float() for p in first),
-           sum(want_da[:, p].float() for p in first), 2e-5)
-    _close(grad.db_parts, plain.db_parts, 2e-5)
-    dh = fl.tc_dh(grad)
-    _close(dh, fl.reference_tc_dh(grad), 2e-5)
-    dws = fl.tc_dw(grad)
-    for a, b in zip(dws, fl.reference_tc_dw(grad), strict=True):
-        _close(a, b, 2e-5)
-    public = ops.fused_backward(*bargs)
-    for a, b in zip(public, (dh, *dws), strict=True):
-        assert torch.equal(a, b)
-    for a, b in zip(public, ops.reference_backward(*bargs), strict=True):
-        _close(a, b, 2e-5)
+    _check_tensor_core_kernels(name, *_family_case(
+        device, name, m, m_t, hidden, f, torch.bfloat16, seed=6),
+        float32=True)
 
 
 # (base, K, M, M_t, H, F): 14 heads; 32 heads with cycled rows; NB with two
@@ -806,9 +812,9 @@ def test_grouped_kernels_match_plain_and_flat(device, name, n_groups, m,
     h2, g2 = h.reshape(-1, hidden), g.reshape(-1)
     _close(out.reshape(-1), ops.fused_forward(name, h2, ws, bs, t, **kw),
            2e-5)
-    _close(dh.reshape(-1, hidden),
-           ops.fused_backward_dh(name, g2, h2, ws, bs, t, **kw), rtol)
-    for a, b in zip(dws, ops.fused_backward_dw(name, g2, h2, ws, bs, t, **kw)):
+    flat = ops.fused_backward(name, g2, h2, ws, bs, t, **kw)
+    _close(dh.reshape(-1, hidden), flat[0], rtol)
+    for a, b in zip(dws, flat[1:], strict=True):
         _close(a, b, rtol)
 
 

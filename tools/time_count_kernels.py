@@ -11,8 +11,8 @@ each):
 - the public calls of NB's bf16 fused likelihood at the headline VAE's
   shapes (2,048 rows, decoder width 256, 2,048 genes) and over GMVAE-NB's
   20,480 decoder rows against 2,048 cycled target rows: ``fused_forward``,
-  ``fused_backward_dh``, ``fused_backward_dw`` and ``fused_backward``, and
-  the backward's bare products ``tc_dh`` / ``tc_dw`` of one gradient;
+  and ``fused_backward``, and the backward's bare products ``tc_dh`` /
+  ``tc_dw`` of one gradient;
 - the bf16 categorised forward ``categorised_forward`` and backward at the
   headline shapes for VAE-ZINB-cat (K = 10, 14 heads) and VAE-Poisson-cat
   (K = 30, 32 heads), the backward from the forward's lse:
@@ -32,7 +32,7 @@ each):
   ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call;
 - the float32 K2/K3 of every base family at the headline shapes, as a
   VAE trained with ``precision="float32"`` calls them: ``fused_forward``
-  and ``fused_backward`` with no compute dtype.
+  and ``fused_backward`` with no compute dtype (alone with ``--float32``).
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -54,35 +54,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("root", nargs="?", default=REPO)
-    root = os.path.abspath(parser.parse_args().root)
-    if not torch.cuda.is_available():
-        print("time_count_kernels: no CUDA device is available",
-              file=sys.stderr)
-        return 2
-    # this checkout's timing and inputs, the other checkout's package
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_timing", os.path.join(REPO, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    sys.path.insert(0, root)
-    from scvae_tpu_torch import ops
-    from scvae_tpu_torch.ops import extension
-    from scvae_tpu_torch.ops import fused_likelihood as fl
-
-    if not ops.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {ops.__file__}, not from {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    extension.load_kernels()
-
-    name, bf16 = "negative binomial", torch.bfloat16
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    x = torch.from_numpy(cs.make_counts(cs.BATCH, cs.N_GENES).toarray()).to(
-        dev, bf16)
+def time_bf16(cs, ops, fl, x, gen, flush) -> dict:
+    """The bf16 calls, K1 and CP's (see the module docstring)."""
+    name, bf16, dev = "negative binomial", torch.bfloat16, x.device
     times = {}
     for rows, reps in ((cs.BATCH, 25), (cs.CLUSTERS * cs.BATCH, 10)):
         h = torch.relu(torch.randn(rows, cs.HIDDEN, generator=gen, device=dev))
@@ -93,10 +67,6 @@ def main() -> int:
         calls = {
             "fused_forward": lambda: ops.fused_forward(
                 *args, compute_dtype=bf16, include_lgamma_const=False),
-            "fused_backward_dh": lambda: ops.fused_backward_dh(
-                *bwd, compute_dtype=bf16),
-            "fused_backward_dw": lambda: ops.fused_backward_dw(
-                *bwd, compute_dtype=bf16),
             "fused_backward": lambda: ops.fused_backward(
                 *bwd, compute_dtype=bf16),
         }
@@ -175,6 +145,19 @@ def main() -> int:
                     *ops.grouped_backward_dw(*grouped_args,
                                              compute_dtype=bf16))
     grouped_ms = cs.time_ms(grouped_backward, flush=flush, reps=10)
+    return {"ms": times, "categorised_forward_ms": categorised_forward,
+            "categorised_backward_ms": categorised,
+            "constrained_poisson_ms": constrained,
+            "gather_rows_ms": gather_ms, "nb_grouped_backward_ms": grouped_ms}
+
+
+def time_float32(cs, ops, x, gen, flush) -> dict:
+    """Every base family's float32 ``fused_forward`` and ``fused_backward``
+    at the headline shapes."""
+    dev = x.device
+    h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
+                               device=dev))
+    g = torch.randn(cs.BATCH, generator=gen, device=dev) / cs.BATCH
     float32 = {}
     for name in ops.FAMILIES:
         ws, bs = cs.head_weights(gen, len(ops.FAMILIES[name].heads),
@@ -187,14 +170,45 @@ def main() -> int:
                 lambda args=args: ops.fused_backward(args[0], g, *args[1:]),
                 flush=flush),
         }
+    return float32
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("root", nargs="?", default=REPO)
+    parser.add_argument("--float32", action="store_true",
+                        help="time only the base families' float32 calls")
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    if not torch.cuda.is_available():
+        print("time_count_kernels: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    # this checkout's timing and inputs, the other checkout's package
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sys.path.insert(0, root)
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import extension
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    if not ops.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {ops.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extension.load_kernels()
+
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    x = torch.from_numpy(cs.make_counts(cs.BATCH, cs.N_GENES).toarray()).to(
+        dev, bf16)
+    times = {} if args.float32 else time_bf16(cs, ops, fl, x, gen, flush)
+    times["float32_ms"] = time_float32(cs, ops, x, gen, flush)
     print(cs.card_line(), flush=True)
-    print(json.dumps({"root": root, "ms": times,
-                      "categorised_forward_ms": categorised_forward,
-                      "categorised_backward_ms": categorised,
-                      "constrained_poisson_ms": constrained,
-                      "gather_rows_ms": gather_ms,
-                      "nb_grouped_backward_ms": grouped_ms,
-                      "float32_ms": float32}), flush=True)
+    print(json.dumps({"root": root, **times}), flush=True)
     return 0
 
 
