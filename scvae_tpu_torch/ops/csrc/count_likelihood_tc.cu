@@ -107,12 +107,11 @@ constexpr int tc_heads_min_blocks() {
 template <class Fam, bool GRAD, int SEG = 1>
 __global__ void __launch_bounds__(kTcThreads,
                                   tc_heads_min_blocks<Fam::kHeads>())
-    tc_heads_kernel(const void* __restrict__ h, const bf16* __restrict__ w,
+    tc_heads_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                     const float* __restrict__ bias, const void* __restrict__ t,
                     int t_bf16, const float* __restrict__ g,
                     float* __restrict__ part, bf16* __restrict__ da, int m,
-                    int m_t, int hidden, int hp, int f, int fp,
-                    int subtract_const) {
+                    int m_t, int hp, int f, int fp, int subtract_const) {
   constexpr int NH = Fam::kHeads;
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(tc_smem_raw);
@@ -121,16 +120,12 @@ __global__ void __launch_bounds__(kTcThreads,
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
   const int width = NH * fp;   // one slot's columns of w and of da
   const int ldd = SEG * width;
-  // the float32 forward splits float32 h as it stages it and reads W's
-  // terms once; the gradient kernel reads a slot per pair of each
-  constexpr bool kH32 = SEG > 1 && !GRAD;
-  const int slots = kH32 ? kSplitTerms : SEG;
+  // the forward reads each term once, the gradient kernel a slot per pair
+  const int slots = SEG > 1 && !GRAD ? kSplitTerms : SEG;
   float acc[NH][kTcMI][4][4];
-  tc_mainloop<NH, SEG, kH32>(
-      smem,
-      TcOperands{static_cast<const bf16*>(h), m, hp, w,
-                 (long long)slots * width, fp, width, width, SEG,
-                 static_cast<const float*>(h), hidden},
+  tc_mainloop<NH, SEG>(
+      smem, TcOperands{h, m, hp, w, (long long)slots * width, fp, width,
+                       width, slots},
       m0, n0, acc);
   tc_stage_acts<NH>(act, acc);
   __syncthreads();
@@ -210,9 +205,9 @@ __global__ void __launch_bounds__(kTcThreads,
 }
 
 template <class Fam, bool GRAD, int SEG = 1>
-int launch_heads(const void* h, const bf16* w, const float* b, const void* t,
+int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
                  int t_bf16, const float* g, float* part, bf16* da, int m,
-                 int m_t, int hidden, int hp, int f, int subtract_const,
+                 int m_t, int hp, int f, int subtract_const,
                  cudaStream_t stream) {
   const dim3 grid((m + kTcRows - 1) / kTcRows, (f + kTcTileN - 1) / kTcTileN);
   if (grid.x == 0 || grid.y == 0) return 0;
@@ -221,8 +216,7 @@ int launch_heads(const void* h, const bf16* w, const float* b, const void* t,
   if (int err = set_smem(kernel, bytes)) return err;
   const int fp = (f + 7) / 8 * 8;
   kernel<<<grid, kTcThreads, bytes, stream>>>(
-      h, w, b, t, t_bf16, g, part, da, m, m_t, hidden, hp, f, fp,
-      subtract_const);
+      h, w, b, t, t_bf16, g, part, da, m, m_t, hp, f, fp, subtract_const);
   return (int)cudaGetLastError();
 }
 
@@ -300,10 +294,9 @@ int launch_split_operands(int n_heads, int n_slots, const float* h,
                                      ld_src);
     return (int)cudaGetLastError();
   };
-  if (h != nullptr)
-    if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
-                         (long long)n_slots * hp, hp, 0))
-      return err;
+  if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
+                       (long long)n_slots * hp, hp, 0))
+    return err;
   const long long width = (long long)n_heads * fp;
   return launch(w0, w1, w2, n_heads, hidden, f, hp, fp, wp, n_slots * width,
                 width, fp);
@@ -336,8 +329,8 @@ int scvae_tc_forward(int family, const void* h, const void* w,
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
     return launch_heads<Fam, false>(
-        h, static_cast<const bf16*>(w), b, t, t_dtype, nullptr, part,
-        nullptr, m, m_t, hp, hp, f, subtract_const, s);
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
   });
   if (err) return err;
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
@@ -353,28 +346,29 @@ int scvae_tc_gradient(int family, const float* g, const void* h,
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
     return launch_heads<Fam, true>(
-        h, static_cast<const bf16*>(w), b, t, t_dtype, g, db_part,
-        static_cast<bf16*>(da), m, m_t, hp, hp, f, 0, s);
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), b, t,
+        t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
   });
 }
 
 // The float32 K2: the operands' terms, then as scvae_tc_forward.
 int scvae_tc_f32_forward(int family, const float* h, const float* w0,
                          const float* w1, const float* w2, const float* b,
-                         const void* t, int t_dtype, void* wp,
+                         const void* t, int t_dtype, void* hh, void* wp,
                          float* part, float* out, int m, int m_t, int hidden,
                          int f, int subtract_const, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, kSplitTerms, nullptr, w0,
-                                      w1, w2, nullptr, static_cast<bf16*>(wp),
-                                      m, hidden, hp, f, fp, s))
+    if (int e = launch_split_operands(Fam::kHeads, kSplitTerms, h, w0, w1,
+                                      w2, static_cast<bf16*>(hh),
+                                      static_cast<bf16*>(wp), m, hidden, hp,
+                                      f, fp, s))
       return e;
     return launch_heads<Fam, false, kSplitPairs>(
-        h, static_cast<const bf16*>(wp), b, t, t_dtype, nullptr, part,
-        nullptr, m, m_t, hidden, hp, f, subtract_const, s);
+        static_cast<const bf16*>(hh), static_cast<const bf16*>(wp), b, t,
+        t_dtype, nullptr, part, nullptr, m, m_t, hp, f, subtract_const, s);
   });
   if (err) return err;
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
@@ -399,8 +393,8 @@ int scvae_tc_f32_gradient(int family, const float* g, const float* h,
                                       f, fp, s))
       return e;
     return launch_heads<Fam, true, kSplitPairs>(
-        hh, static_cast<const bf16*>(wp), b, t, t_dtype, g, db_part,
-        static_cast<bf16*>(da), m, m_t, hidden, hp, f, 0, s);
+        static_cast<const bf16*>(hh), static_cast<const bf16*>(wp), b, t,
+        t_dtype, g, db_part, static_cast<bf16*>(da), m, m_t, hp, f, 0, s);
   });
 }
 

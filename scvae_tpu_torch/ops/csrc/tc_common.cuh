@@ -71,10 +71,6 @@ struct TcOperands {
   int n_max;
   long long w_block = 0;
   int h_slots = 1;
-  // tc_mainloop's H32: h as float32 (M, hidden), each stage's tile split
-  // into the segment's term as it is staged
-  const float* h32 = nullptr;
-  int hidden = 0;
 };
 
 // The split-bf16 products of float32 operands (the base families' float32
@@ -198,12 +194,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
 // segment p of pair (i, j) reads, and W's terms in blocks, W_i in block
 // i < kSplitTerms: so acc sums h_j W_i over the pairs (i, j), every product
 // of the split.
-//
-// H32 (with SEG > 1): h is float32, op.h32 (M, op.hidden), and each stage's
-// h tile is read into registers before the stage in flight is multiplied,
-// then split into the segment's term split_second(s) and stored to shared
-// memory after it, so the loads overlap the products.
-template <int NB, int SEG = 1, bool H32 = false>
+template <int NB, int SEG = 1>
 __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
                                             int m0, int n0,
                                             float (&acc)[NB][kTcMI][4][4]) {
@@ -232,9 +223,8 @@ __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
       w += op.w_block * split_first(seg);
       k0 = (kt - seg * n_seg) * kTcDepth;
     }
-    if constexpr (!H32)
-      load_tile<kTcRows, kTcDepth>(sa, h, (long long)op.h_slots * op.hp, m0,
-                                   k0, op.m, op.hp);
+    load_tile<kTcRows, kTcDepth>(sa, h, (long long)op.h_slots * op.hp, m0, k0,
+                                 op.m, op.hp);
 #pragma unroll
     for (int hd = 0; hd < NB; ++hd)
       load_tile<kTcDepth, kTcTileN>(sb + hd * S::kB, w, op.ldw, k0,
@@ -282,60 +272,19 @@ __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
     }
   };
 
-  // H32: a thread's column of the stage's h tile and its rows, every
-  // kTcThreads / kTcDepth-th from its first
-  constexpr int kHStep = kTcThreads / kTcDepth;
-  constexpr int kHRegs = H32 ? kTcRows / kHStep : 1;
-  const int h_col = threadIdx.x % kTcDepth, h_row = threadIdx.x / kTcDepth;
-  float h_reg[kHRegs];
-  auto fetch_h = [&](int kt) {
-    const int seg = kt / n_seg;
-    const int col = (kt - seg * n_seg) * kTcDepth + h_col;
-#pragma unroll
-    for (int q = 0; q < kHRegs; ++q) {
-      const int row = m0 + h_row + q * kHStep;
-      h_reg[q] = row < op.m && col < op.hidden
-                     ? op.h32[(long long)row * op.hidden + col]
-                     : 0.0f;
-    }
-  };
-  auto store_h = [&](int stage, int kt) {
-    bf16* sa = smem + stage * S::kStage;
-    const int term = split_second(kt / n_seg);
-#pragma unroll
-    for (int q = 0; q < kHRegs; ++q) {
-      bf16 parts[kSplitTerms];
-      split_terms(h_reg[q], parts);
-      sa[(h_row + q * kHStep) * (kTcDepth + kTcPad) + h_col] = parts[term];
-    }
-  };
-
   const int n_k = SEG * n_seg;
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
-    if (s < n_k) {
-      load(s, s);
-      if constexpr (H32) {
-        fetch_h(s);
-        store_h(s, s);
-      }
-    }
+    if (s < n_k) load(s, s);
     cp_async_commit();
   }
   for (int i = 0; i < n_k; ++i) {
     cp_async_wait<kTcStages - 2>();  // stage i has landed
     __syncthreads();                 // and stage i - 1 is read by all
     const int next = i + kTcStages - 1;
-    if (next < n_k) {
-      load(next % kTcStages, next);
-      if constexpr (H32) fetch_h(next);
-    }
+    if (next < n_k) load(next % kTcStages, next);
     cp_async_commit();
     compute(i % kTcStages);
-    // visible to all after the next __syncthreads, before stage next is
-    // multiplied; its buffer's last reader, compute(i - 1), is done
-    if constexpr (H32)
-      if (next < n_k) store_h(next % kTcStages, next);
   }
   cp_async_wait<0>();
   __syncthreads();

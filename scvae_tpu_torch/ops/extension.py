@@ -42,9 +42,9 @@ _SIGNATURES = {
     # family, g, h, w, b, t, t_dtype, da, db_part, m, m_t, hp, f, stream
     "scvae_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _P],
-    # family, h, w0, w1, w2, b, t, t_dtype, wp, part, out, m, m_t, hidden,
-    # f, subtract, stream
-    "scvae_tc_f32_forward": [_I] + [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
+    # family, h, w0, w1, w2, b, t, t_dtype, hh, wp, part, out, m, m_t,
+    # hidden, f, subtract, stream
+    "scvae_tc_f32_forward": [_I] + [_P] * 6 + [_I] + [_P] * 4 + [_I] * 5
                             + [_P],
     # family, g, h, w0, w1, w2, b, t, t_dtype, hh, wp, da, db_part, m, m_t,
     # hidden, f, stream

@@ -1403,13 +1403,13 @@ def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
     if m == 0:
         return out
     plan = f32_tc_plan(m, hidden, f, len(weights))
-    _, w = _f32_tc_scratch(plan, 0, len(weights), h.device, SPLIT_TERMS)
+    hh, w = _f32_tc_scratch(plan, m, len(weights), h.device, SPLIT_TERMS)
     b = torch.stack(biases)
     part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
     extension.call(
         "scvae_tc_f32_forward", h.device, fam.code, h.data_ptr(),
         *_weight_pointers(weights), b.data_ptr(), t.data_ptr(),
-        _T_CODES[t.dtype], w.data_ptr(), part.data_ptr(),
+        _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(), part.data_ptr(),
         out.data_ptr(), m, t.shape[0], hidden, f, int(include_lgamma_const),
     )
     LAUNCHES[f"{fam.prefix}_forward_float32"] += 1
