@@ -32,7 +32,8 @@ each):
   ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call;
 - the float32 K2/K3 of every base family at the headline shapes, as a
   VAE trained with ``precision="float32"`` calls them: ``fused_forward``
-  and ``fused_backward`` with no compute dtype (alone with ``--float32``).
+  and ``fused_backward`` with no compute dtype, and each call's device
+  time by kernel from ``torch.profiler`` (alone with ``--float32``).
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -151,9 +152,35 @@ def time_bf16(cs, ops, fl, x, gen, flush) -> dict:
             "gather_rows_ms": gather_ms, "nb_grouped_backward_ms": grouped_ms}
 
 
+def kernel_ms(fn, flush, calls=10) -> dict:
+    """Device time per call (ms) of each kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls with the L2 cache flushed before
+    each (the flush's own kernel left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0
+                or "FillFunctor" in e.key):
+            continue
+        name = e.key.replace("scvae::(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        times[name] = times.get(name, 0.0) + (
+            e.self_device_time_total / 1e3 / calls)
+    return times
+
+
 def time_float32(cs, ops, x, gen, flush) -> dict:
     """Every base family's float32 ``fused_forward`` and ``fused_backward``
-    at the headline shapes."""
+    at the headline shapes, and each call's device time by kernel."""
     dev = x.device
     h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
                                device=dev))
@@ -163,13 +190,16 @@ def time_float32(cs, ops, x, gen, flush) -> dict:
         ws, bs = cs.head_weights(gen, len(ops.FAMILIES[name].heads),
                                  cs.HIDDEN, cs.N_GENES, dev)
         args = (name, h, ws, bs, x)
-        float32[name] = {
-            "fused_forward": cs.time_ms(lambda args=args: ops.fused_forward(
-                *args, include_lgamma_const=False), flush=flush),
-            "fused_backward": cs.time_ms(
-                lambda args=args: ops.fused_backward(args[0], g, *args[1:]),
-                flush=flush),
+        calls = {
+            "fused_forward": lambda args=args: ops.fused_forward(
+                *args, include_lgamma_const=False),
+            "fused_backward": lambda args=args: ops.fused_backward(
+                args[0], g, *args[1:]),
         }
+        float32[name] = {label: cs.time_ms(fn, flush=flush)
+                         for label, fn in calls.items()}
+        float32[name]["kernels"] = {label: kernel_ms(fn, flush)
+                                    for label, fn in calls.items()}
     return float32
 
 
