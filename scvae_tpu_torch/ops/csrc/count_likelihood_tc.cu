@@ -120,12 +120,12 @@ __global__ void __launch_bounds__(kTcThreads,
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
   const int width = NH * fp;   // one slot's columns of w and of da
   const int ldd = SEG * width;
-  // the forward reads each term once, the gradient kernel a slot per pair
-  const int slots = SEG > 1 && !GRAD ? kSplitTerms : SEG;
+  // the forward reads W's terms once, the gradient kernel a block per pair
+  const int w_slots = SEG > 1 && !GRAD ? kSplitTerms : SEG;
   float acc[NH][kTcMI][4][4];
   tc_mainloop<NH, SEG>(
-      smem, TcOperands{h, m, hp, w, (long long)slots * width, fp, width,
-                       width, slots},
+      smem, TcOperands{h, m, hp, w, (long long)w_slots * width, fp, width,
+                       width, SEG},
       m0, n0, acc);
   tc_stage_acts<NH>(act, acc);
   __syncthreads();
@@ -277,29 +277,30 @@ __global__ void __launch_bounds__(kPackThreads)
 // h (m, hidden) into n_slots slots of its terms (m, S, hp), and the NH
 // heads' W_k (hidden, f) into theirs (hp, S, NH, fp): S = kSplitTerms for
 // the forward, kSplitPairs for the gradient kernel and the products.
-int launch_split_operands(int n_heads, int n_slots, const float* h,
-                          const float* w0, const float* w1, const float* w2,
-                          bf16* hh, bf16* wp, int m, int hidden, int hp, int f,
-                          int fp, cudaStream_t stream) {
+int launch_split_operands(int n_heads, int n_slots, int w_slots,
+                          const float* h, const float* w0, const float* w1,
+                          const float* w2, bf16* hh, bf16* wp, int m,
+                          int hidden, int hp, int f, int fp,
+                          cudaStream_t stream) {
   auto launch = [&](const float* s0, const float* s1, const float* s2,
-                    int n_src, int rows, int cols, int rows_p, int cols_p,
-                    bf16* dst, long long ld_row, long long ld_pair,
-                    long long ld_src) {
+                    int n_src, int slots, int rows, int cols, int rows_p,
+                    int cols_p, bf16* dst, long long ld_row,
+                    long long ld_pair, long long ld_src) {
     const long long n = (long long)rows_p * (cols_p / kPackCols) * n_src;
     if (n == 0) return 0;
     const long long blocks = (n + kPackThreads - 1) / kPackThreads;
     split_pack_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kPackThreads,
-                        0, stream>>>(s0, s1, s2, n_src, n_slots, rows, cols,
+                        0, stream>>>(s0, s1, s2, n_src, slots, rows, cols,
                                      rows_p, cols_p, dst, ld_row, ld_pair,
                                      ld_src);
     return (int)cudaGetLastError();
   };
-  if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
+  if (int err = launch(h, h, h, 1, n_slots, m, hidden, m, hp, hh,
                        (long long)n_slots * hp, hp, 0))
     return err;
   const long long width = (long long)n_heads * fp;
-  return launch(w0, w1, w2, n_heads, hidden, f, hp, fp, wp, n_slots * width,
-                width, fp);
+  return launch(w0, w1, w2, n_heads, w_slots, hidden, f, hp, fp, wp,
+                w_slots * width, width, fp);
 }
 
 }  // namespace
@@ -361,8 +362,8 @@ int scvae_tc_f32_forward(int family, const float* h, const float* w0,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, kSplitTerms, h, w0, w1,
-                                      w2, static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, kSplitPairs, kSplitTerms,
+                                      h, w0, w1, w2, static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;
@@ -387,8 +388,8 @@ int scvae_tc_f32_gradient(int family, const float* g, const float* h,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, kSplitPairs, h, w0, w1,
-                                      w2, static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, kSplitPairs, kSplitPairs,
+                                      h, w0, w1, w2, static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;

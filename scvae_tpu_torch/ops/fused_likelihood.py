@@ -1375,13 +1375,14 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
                       w, da.reshape(plan["da"]), db_parts, "_float32")
 
 
-def _f32_tc_scratch(plan, m, n_heads, device, slots):
-    """The float32 entries' split of h (M, S, Hp) and of the heads' W
-    (Hp, S, NH, Fp) in ``slots`` slots (:func:`_f32_tc_operands`), which
+def _f32_tc_scratch(plan, m, n_heads, device, w_slots):
+    """The float32 entries' split of h (M, P, Hp) and of the heads' W
+    (Hp, S, NH, Fp) in ``w_slots`` slots (:func:`_f32_tc_operands`), which
     the kernels write and read (and the products, the gradient's)."""
     hp, fp = plan["hp"], plan["fp"]
-    return (torch.empty((m, slots, hp), dtype=torch.bfloat16, device=device),
-            torch.empty((hp, slots, n_heads, fp), dtype=torch.bfloat16,
+    return (torch.empty((m, len(SPLIT_PAIRS), hp), dtype=torch.bfloat16,
+                        device=device),
+            torch.empty((hp, w_slots, n_heads, fp), dtype=torch.bfloat16,
                         device=device))
 
 
