@@ -568,19 +568,15 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25,
             "fused_backward": (lambda: ops.fused_backward(*bwd_args),
                                lambda: ops.reference_backward(*bwd_args)),
         }
-        splits = {label: time_ms(lambda slots=slots: fl._f32_tc_operands(
-                      h, ws, slots), **timed)
-                  for label, slots in (("forward", fl.SPLIT_TERMS),
-                                       ("gradient", len(fl.SPLIT_PAIRS)))}
         print(f"float32 {tag} M={m}: backward kernels {parts:.4f} ms; public "
               "calls against the float32 plain versions: " + "; ".join(
                   f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
                   f"{time_ms(plain_fn, **timed):.4f} ms)"
                   for label, (fn, plain_fn) in public.items())
               + "; the split of h and W in torch ops (the plain version of "
-              "the entries' split_pack_kernel): " + ", ".join(
-                  f"{label} {ms:.4f} ms" for label, ms in splits.items()),
-              flush=True)
+              "the entries' split_pack_kernel) "
+              f"{time_ms(lambda: fl._f32_tc_operands(h, ws), **timed):.4f} "
+              "ms", flush=True)
         return results
     whole_bound, whole_by = bound(in_bytes + m * 4 + m * hidden * 4
                                   + head_bytes, 3 * product, BF16_FLOPS)

@@ -37,18 +37,21 @@
 //   dW_k = sum over the pairs of h_j^T da_k,i,  db_k = sum_rows da_k
 //
 // The float32 entries first split h and W (split_pack_kernel; its plain
-// version is fused_likelihood.split_bf16) into slot layouts, in scratch
-// that the wrapper allocates.  The forward's hold each term once: h (M, T,
-// Hp), W (Hp, T, NH, Fp), T = 3.  The gradient kernel's hold a term per
-// pair, as the products need them: h's H (M, P, Hp), h_j of pair p in slot
-// p, and the heads' W (Hp, P, NH, Fp), W_j of pair p in block p (so W_i in
-// block i < 3).  The heads kernel runs its depth over the P pairs, pair
-// p = (i, j) as h_j against W's block i, in the same order in both
-// kernels, so the forward and the gradient kernel sum the very same a; the
-// gradient kernel writes da's term i of pair p into slot p of a
-// (M, P * NH * Fp) scratch.  Then dh is the scratch times W^T over the
-// depth P * NH * Fp, and dW is H^T times the scratch read as P * M rows of
-// NH * Fp (tc_product.cu).
+// version is fused_likelihood.split_bf16) into the pair layouts, in scratch
+// that the wrapper allocates: h's terms per pair H (M, P, Hp), h_j of pair
+// p in slot p, and the heads' W terms per pair W (Hp, P, NH, Fp), W_j of
+// pair p in block p (so W_i in block i < 3).  The heads kernel runs its
+// depth over the P
+// slots of H, slot p against W's block i of pair p, so the forward and the
+// gradient kernel sum the very same a; the gradient kernel writes da's
+// term i of pair p into slot p of a (M, P * NH * Fp) scratch.  Then dh is
+// the scratch times W^T over the depth P * NH * Fp, and dW is H^T times
+// the scratch read as P * M rows of NH * Fp (tc_product.cu).  The forward
+// reads W's blocks 0-2 only, but takes the same layouts as the gradient
+// kernel: one slot per term (h (M, 3, Hp), W (Hp, 3, NH, Fp)) saves the
+// pack 0.003-0.005 ms and costs the heads kernel 0.003-0.03 ms more on the
+// H100 (its W rows half as far apart), and splitting h in the ring as it
+// is staged doubled the forward (PERF.md §6).
 // tools/f32_split_precision.py reads this design's error against the
 // number of terms: two terms of each read up to 2.1e-5 of the largest
 // value where the activations reach the exponentials' clip (the checks
@@ -99,11 +102,9 @@ constexpr int tc_heads_min_blocks() {
 // da[row][hd * fp + gene] = bf16(g[row] dll/da_hd), zero past F, and
 // part[blockIdx.x][hd * fp + gene] = the block's sum over its rows of the
 // unrounded values.  Targets t (m_t, f) are float32 or (t_bf16) bf16; row
-// m reads target row m % m_t.  SEG = kSplitPairs: the float32 instance;
-// the forward reads h (M, T Hp) and w (Hp, T, NH, Fp) as the T =
-// kSplitTerms terms, the gradient kernel h (M, P Hp) and w (Hp, P, NH, Fp)
-// as the terms per pair, and writes da[row][(p NH + hd) fp + gene] the term
-// split_first(p) of the value, for each pair p.
+// m reads target row m % m_t.  SEG = kSplitPairs: the float32 instance, h
+// (M, P Hp) and w (Hp, P, NH, Fp) the terms per pair, and da[row][(p NH +
+// hd) fp + gene] the term split_first(p) of the value, for each pair p.
 template <class Fam, bool GRAD, int SEG = 1>
 __global__ void __launch_bounds__(kTcThreads,
                                   tc_heads_min_blocks<Fam::kHeads>())
@@ -118,15 +119,11 @@ __global__ void __launch_bounds__(kTcThreads,
   float* act = reinterpret_cast<float*>(tc_smem_raw);  // after the mainloop
 
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
-  const int width = NH * fp;   // one slot's columns of w and of da
+  const int width = NH * fp;   // one pair's columns of w and of da
   const int ldd = SEG * width;
-  // the forward reads W's terms once, the gradient kernel a block per pair
-  const int w_slots = SEG > 1 && !GRAD ? kSplitTerms : SEG;
   float acc[NH][kTcMI][4][4];
-  tc_mainloop<NH, SEG>(
-      smem, TcOperands{h, m, hp, w, (long long)w_slots * width, fp, width,
-                       width, SEG},
-      m0, n0, acc);
+  tc_mainloop<NH, SEG>(smem, TcOperands{h, m, hp, w, ldd, fp, width, width},
+                       m0, n0, acc);
   tc_stage_acts<NH>(act, acc);
   __syncthreads();
 
@@ -223,21 +220,19 @@ int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
 constexpr int kPackThreads = 256;
 constexpr int kPackCols = 8;  // columns of a thread: one 16-byte store a pair
 
-// The float32 kernels' operands in their slot layouts: for each of the
+// The float32 kernels' operands in their pair layouts: for each of the
 // n_src float32 matrices src_k (rows x cols, row-major),
 //   dst[r ld_row + p ld_pair + k ld_src + c] = term j of src_k[r][c]
-// for each slot p < n_slots, pair p = (i, j), zero where r >= rows or
-// c >= cols, over rows_p x cols_p (the padded widths, cols_p and the
-// strides multiples of 8).  With n_slots = kSplitTerms the slots hold the
-// terms 0, 1, 2 (the first pairs are (0, j)), with kSplitPairs a term per
-// pair.  A thread per 8 columns of a row: its float32 reads coalesce along
-// the row, and it stores each slot's 8 terms as one 16-byte write.  Its
+// for each pair p = (i, j), zero where r >= rows or c >= cols, over
+// rows_p x cols_p (the padded widths, cols_p and the strides multiples of
+// 8).  A thread per 8 columns of a row: its float32 reads coalesce along
+// the row, and it stores each pair's 8 terms as one 16-byte write.  Its
 // plain version is fused_likelihood._f32_tc_operands.
 __global__ void __launch_bounds__(kPackThreads)
     split_pack_kernel(const float* __restrict__ s0,
                       const float* __restrict__ s1,
-                      const float* __restrict__ s2, int n_src,
-                      int n_slots, int rows, int cols, int rows_p, int cols_p,
+                      const float* __restrict__ s2, int n_src, int rows,
+                      int cols, int rows_p, int cols_p,
                       bf16* __restrict__ dst, long long ld_row,
                       long long ld_pair, long long ld_src) {
   const int chunks = cols_p / kPackCols;
@@ -268,39 +263,35 @@ __global__ void __launch_bounds__(kPackThreads)
     bf16* base = dst + r * ld_row + k * ld_src + c0;
 #pragma unroll
     for (int p = 0; p < kSplitPairs; ++p)
-      if (p < n_slots)
-        *reinterpret_cast<uint4*>(base + p * ld_pair) =
-            make_uint4(words[p][0], words[p][1], words[p][2], words[p][3]);
+      *reinterpret_cast<uint4*>(base + p * ld_pair) =
+          make_uint4(words[p][0], words[p][1], words[p][2], words[p][3]);
   }
 }
 
-// h (m, hidden) into n_slots slots of its terms (m, S, hp), and the NH
-// heads' W_k (hidden, f) into theirs (hp, S, NH, fp): S = kSplitTerms for
-// the forward, kSplitPairs for the gradient kernel and the products.
-int launch_split_operands(int n_heads, int n_slots, int w_slots,
-                          const float* h, const float* w0, const float* w1,
-                          const float* w2, bf16* hh, bf16* wp, int m,
-                          int hidden, int hp, int f, int fp,
+// h (m, hidden) into its terms per pair (m, P, hp), and the NH heads' W_k
+// (hidden, f) into theirs (hp, P, NH, fp).
+int launch_split_operands(int n_heads, const float* h, const float* w0,
+                          const float* w1, const float* w2, bf16* hh,
+                          bf16* wp, int m, int hidden, int hp, int f, int fp,
                           cudaStream_t stream) {
   auto launch = [&](const float* s0, const float* s1, const float* s2,
-                    int n_src, int slots, int rows, int cols, int rows_p,
-                    int cols_p, bf16* dst, long long ld_row,
-                    long long ld_pair, long long ld_src) {
+                    int n_src, int rows, int cols, int rows_p, int cols_p,
+                    bf16* dst, long long ld_row, long long ld_pair,
+                    long long ld_src) {
     const long long n = (long long)rows_p * (cols_p / kPackCols) * n_src;
     if (n == 0) return 0;
     const long long blocks = (n + kPackThreads - 1) / kPackThreads;
     split_pack_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kPackThreads,
-                        0, stream>>>(s0, s1, s2, n_src, slots, rows, cols,
-                                     rows_p, cols_p, dst, ld_row, ld_pair,
-                                     ld_src);
+                        0, stream>>>(s0, s1, s2, n_src, rows, cols, rows_p,
+                                     cols_p, dst, ld_row, ld_pair, ld_src);
     return (int)cudaGetLastError();
   };
-  if (int err = launch(h, h, h, 1, n_slots, m, hidden, m, hp, hh,
-                       (long long)n_slots * hp, hp, 0))
+  if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
+                       (long long)kSplitPairs * hp, hp, 0))
     return err;
   const long long width = (long long)n_heads * fp;
-  return launch(w0, w1, w2, n_heads, w_slots, hidden, f, hp, fp, wp,
-                w_slots * width, width, fp);
+  return launch(w0, w1, w2, n_heads, hidden, f, hp, fp, wp,
+                kSplitPairs * width, width, fp);
 }
 
 }  // namespace
@@ -316,10 +307,9 @@ extern "C" {
 // 1 = bfloat16; hp and fp are h's and w's padded widths (multiples of 8 at
 // least hidden and f).  The float32 entries (scvae_tc_f32_*) take float32
 // h (m, hidden) and the heads' W_k (hidden, f) as w0, w1, w2 (null past the
-// family's heads), split them into their terms in the scratch hh (m, S, hp)
-// and wp (hp, S, NH, fp), and run the kernels on those: the forward's S =
-// kSplitTerms slots hold each term once, the gradient's S = kSplitPairs a
-// term per pair (which the products of the backward read too).
+// family's heads), split them into their terms per pair in the scratch hh
+// (m, P, hp) and wp (hp, P, NH, fp), P = kSplitPairs, and run the kernels
+// on those (the products of the backward read them too).
 
 // K2: part (ceil(f / 64), m) scratch, out (m,).
 int scvae_tc_forward(int family, const void* h, const void* w,
@@ -352,7 +342,7 @@ int scvae_tc_gradient(int family, const float* g, const void* h,
   });
 }
 
-// The float32 K2: the operands' terms, then as scvae_tc_forward.
+// The float32 K2: the operands' split, then as scvae_tc_forward.
 int scvae_tc_f32_forward(int family, const float* h, const float* w0,
                          const float* w1, const float* w2, const float* b,
                          const void* t, int t_dtype, void* hh, void* wp,
@@ -362,8 +352,8 @@ int scvae_tc_f32_forward(int family, const float* h, const float* w0,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, kSplitPairs, kSplitTerms,
-                                      h, w0, w1, w2, static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
+                                      static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;
@@ -375,10 +365,9 @@ int scvae_tc_f32_forward(int family, const float* h, const float* w0,
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
 }
 
-// The float32 K3, first half: the operands' terms per pair into hh and wp,
-// which the products read after it, then da (m, P * NH * fp) bf16 scratch
-// of da's terms per pair and db_part (ceil(m / 64), NH * fp) float32
-// scratch.
+// The float32 K3, first half: the operands' split into hh and wp, which the
+// products read after it, then da (m, P * NH * fp) bf16 scratch of da's
+// terms per pair and db_part (ceil(m / 64), NH * fp) float32 scratch.
 int scvae_tc_f32_gradient(int family, const float* g, const float* h,
                           const float* w0, const float* w1, const float* w2,
                           const float* b, const void* t, int t_dtype,
@@ -388,8 +377,8 @@ int scvae_tc_f32_gradient(int family, const float* g, const float* h,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, kSplitPairs, kSplitPairs,
-                                      h, w0, w1, w2, static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
+                                      static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;

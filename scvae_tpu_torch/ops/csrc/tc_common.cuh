@@ -59,7 +59,7 @@ constexpr size_t tc_heads_smem() {
 // tiles of w (Hp rows, row stride ldw) at columns n0 + hd * head_stride;
 // columns from n_max on read as zero (n_max and the strides are multiples
 // of 8, so a 16-byte chunk is wholly valid or wholly not).  With depth
-// segments (tc_mainloop's SEG > 1), h is (M, h_slots Hp) and each segment
+// segments (tc_mainloop's SEG > 1), h is (M, SEG Hp) and each segment
 // reads its weight tiles from w + w_block times split_first(segment).
 struct TcOperands {
   const bf16* h;
@@ -70,7 +70,6 @@ struct TcOperands {
   int head_stride;
   int n_max;
   long long w_block = 0;
-  int h_slots = 1;
 };
 
 // The split-bf16 products of float32 operands (the base families' float32
@@ -187,13 +186,11 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
 // like the plain version's float32 product.
 //
 // SEG > 1 runs the depth over SEG segments of Hp, in order: segment s
-// multiplies h's slot of Hp columns, s (op.h_slots == SEG: a slot per
-// pair) or split_second(s) (op.h_slots == kSplitTerms: a slot per term), by
-// the weight tiles at w + op.w_block * split_first(s).  The split-bf16
-// float32 kernels lay h's terms along h's rows, h_j in the slot that
-// segment p of pair (i, j) reads, and W's terms in blocks, W_i in block
-// i < kSplitTerms: so acc sums h_j W_i over the pairs (i, j), every product
-// of the split.
+// multiplies h's columns [s Hp, (s + 1) Hp) by the weight tiles at
+// w + op.w_block * split_first(s).  The split-bf16 float32 kernels lay h's
+// terms per pair along h's rows, h_(second term of pair s) in segment s,
+// and W's terms per pair in blocks, W_j in block j < kSplitTerms: so acc
+// sums h_j W_i over the pairs (i, j), every product of the split.
 template <int NB, int SEG = 1>
 __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
                                             int m0, int n0,
@@ -219,12 +216,12 @@ __device__ __forceinline__ void tc_mainloop(bf16* smem, const TcOperands& op,
     int k0 = kt * kTcDepth;
     if constexpr (SEG > 1) {
       const int seg = kt / n_seg;
-      h += (long long)(op.h_slots == SEG ? seg : split_second(seg)) * op.hp;
+      h += (long long)seg * op.hp;
       w += op.w_block * split_first(seg);
       k0 = (kt - seg * n_seg) * kTcDepth;
     }
-    load_tile<kTcRows, kTcDepth>(sa, h, (long long)op.h_slots * op.hp, m0, k0,
-                                 op.m, op.hp);
+    load_tile<kTcRows, kTcDepth>(sa, h, (long long)SEG * op.hp, m0, k0, op.m,
+                                 op.hp);
 #pragma unroll
     for (int hd = 0; hd < NB; ++hd)
       load_tile<kTcDepth, kTcTileN>(sb + hd * S::kB, w, op.ldw, k0,

@@ -1297,21 +1297,17 @@ def f32_tc_plan(m: int, hidden: int, f: int, n_heads: int,
     return plan
 
 
-def _f32_tc_operands(h, weights, slots=len(SPLIT_PAIRS)):
-    """h's bf16 terms (M, S, Hp) and the heads' W terms (Hp, S, NH, Fp),
-    zero-padded, slot p < S holding the second term j of pair p = (i, j):
-    each term once for S = SPLIT_TERMS (the forward's), a term per pair for
-    S = P (the gradient kernel's and the products').  The plain version of
-    the split that the float32 kernels' entries make
-    (``split_pack_kernel``)."""
+def _f32_tc_operands(h, weights):
+    """h's bf16 terms per pair (M, P, Hp) and the heads' W terms per pair
+    (Hp, P, NH, Fp), zero-padded: the plain version of the split that the
+    float32 kernels' entries make (``split_pack_kernel``)."""
     m, hidden = h.shape
     f = weights[0].shape[1]
     hp, fp = tc_padded(hidden), tc_padded(f)
-    seconds = [j for _, j in SPLIT_PAIRS[:slots]]
     h_terms = split_bf16(h, SPLIT_TERMS)
-    hh = torch.stack([h_terms[j] for j in seconds], 1)
+    hh = torch.stack([h_terms[j] for _, j in SPLIT_PAIRS], 1)
     w_terms = split_bf16(torch.stack(list(weights), 1), SPLIT_TERMS)
-    w = torch.stack([w_terms[j] for j in seconds], 1)
+    w = torch.stack([w_terms[j] for _, j in SPLIT_PAIRS], 1)
     if hp != hidden:
         hh = torch.nn.functional.pad(hh, (0, hp - hidden))
     if (hp, fp) != (hidden, f):
@@ -1375,14 +1371,12 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
                       w, da.reshape(plan["da"]), db_parts, "_float32")
 
 
-def _f32_tc_scratch(plan, m, n_heads, device, w_slots):
+def _f32_tc_scratch(plan, m, n_heads, device):
     """The float32 entries' split of h (M, P, Hp) and of the heads' W
-    (Hp, S, NH, Fp) in ``w_slots`` slots (:func:`_f32_tc_operands`), which
-    the kernels write and read (and the products, the gradient's)."""
-    hp, fp = plan["hp"], plan["fp"]
-    return (torch.empty((m, len(SPLIT_PAIRS), hp), dtype=torch.bfloat16,
-                        device=device),
-            torch.empty((hp, w_slots, n_heads, fp), dtype=torch.bfloat16,
+    (Hp, P, NH, Fp), which the kernels write and the products read."""
+    pairs, hp, fp = len(SPLIT_PAIRS), plan["hp"], plan["fp"]
+    return (torch.empty((m, pairs, hp), dtype=torch.bfloat16, device=device),
+            torch.empty((hp, pairs, n_heads, fp), dtype=torch.bfloat16,
                         device=device))
 
 
@@ -1394,8 +1388,8 @@ def _weight_pointers(weights):
 
 def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
     """Launch the float32 K2 of family ``name`` on the tensor cores: h and
-    W split into their bf16 terms, then the row sums (M,) of the terms
-    multiplied pair by pair."""
+    W split into their bf16 terms per pair, then the row sums (M,) of the
+    terms multiplied pair by pair."""
     fam = _family_heads(name, weights, biases)
     h, weights, biases, t = _checked_cuda(h, weights, biases, t)
     m, hidden = h.shape
@@ -1404,7 +1398,7 @@ def f32_tc_forward(name, h, weights, biases, t, include_lgamma_const=True):
     if m == 0:
         return out
     plan = f32_tc_plan(m, hidden, f, len(weights))
-    hh, w = _f32_tc_scratch(plan, m, len(weights), h.device, SPLIT_TERMS)
+    hh, w = _f32_tc_scratch(plan, m, len(weights), h.device)
     b = torch.stack(biases)
     part = torch.empty(plan["row_sums"], dtype=torch.float32, device=h.device)
     extension.call(
@@ -1429,7 +1423,7 @@ def f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     f = t.shape[1]
     plan = f32_tc_plan(m, hidden, f, len(weights))
     dev = h.device
-    hh, w = _f32_tc_scratch(plan, m, len(weights), dev, len(SPLIT_PAIRS))
+    hh, w = _f32_tc_scratch(plan, m, len(weights), dev)
     b = torch.stack(biases)
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
     db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)

@@ -219,18 +219,3 @@ def test_cpu_wrappers_run_the_plain_versions(name):
     assert_close(fl.reference_f32_tc_forward(name, h, ws, bs, t),
                  ops.reference_forward(name, h, ws, bs, t))
 
-
-def test_forward_operands_hold_each_term_once():
-    """The forward's operands (M, T, Hp) and (Hp, T, NH, Fp), T =
-    SPLIT_TERMS: h_j and W_j in slot j, zero-padded, the first T slots of
-    the per-pair layout."""
-    name = "negative binomial"
-    h, ws, _, _, _ = _torch(*_case(name, seed=8, hidden=37, f=301))
-    hh, w = fl._f32_tc_operands(h, ws, fl.SPLIT_TERMS)
-    assert hh.shape == (M, fl.SPLIT_TERMS, 40)
-    assert w.shape == (40, fl.SPLIT_TERMS, 2, 304)
-    pair_hh, pair_w = fl._f32_tc_operands(h, ws)
-    assert torch.equal(hh, pair_hh[:, :fl.SPLIT_TERMS])
-    assert torch.equal(w, pair_w[:, :fl.SPLIT_TERMS])
-    for j, h_j in enumerate(fl.split_bf16(h, fl.SPLIT_TERMS)):
-        assert torch.equal(hh[:, j, :37], h_j)
