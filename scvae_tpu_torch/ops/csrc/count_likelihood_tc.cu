@@ -49,9 +49,9 @@
 // the scratch read as P * M rows of NH * Fp (tc_product.cu).  The forward
 // reads W's blocks 0-2 only, but takes the same layouts as the gradient
 // kernel: one slot per term (h (M, 3, Hp), W (Hp, 3, NH, Fp)) saves the
-// pack 0.003-0.005 ms and costs the heads kernel 0.003-0.03 ms more on the
-// H100 (its W rows half as far apart), and splitting h in the ring as it
-// is staged doubled the forward (PERF.md §6).
+// pack 0.002-0.005 ms and costs the heads kernel 0.003-0.033 ms more on
+// the H100 (its W rows half as far apart), and splitting h in the ring as
+// it is staged doubled the forward (PERF.md §6).
 // tools/f32_split_precision.py reads this design's error against the
 // number of terms: two terms of each read up to 2.1e-5 of the largest
 // value where the activations reach the exponentials' clip (the checks
