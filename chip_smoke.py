@@ -7,8 +7,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training paths (and the float32
-             categorised K2/K3, K6 and K7, which no training path launches)
+3. kernels — every kernel of the training paths (and the float32 K6
+             and K7, which no training path launches)
              against its plain PyTorch version on the same inputs at the
              headline shapes (68,579
              cells × 2,048 genes, minibatch 2,048, decoder width 256) for
@@ -24,7 +24,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              precision="float32": the float32 K2/K3, h, W and da as bf16
              terms on the tensor cores), VAE-ZINB-cat (K = 10 classes, 14 heads),
              VAE-Poisson-cat (K = 30, 32 heads, on counts of mean 31 that
-             reach K) and GMVAE-NB (10 clusters): one
+             reach K), VAE-Poisson-cat-f32 (the same with
+             precision="float32": the categorised float32 K2/K3) and
+             GMVAE-NB (10 clusters): one
              training loss and its gradients on the CPU (plain versions) and
              on the GPU (kernels) from the same small input, then
              ``VariationalAutoencoder(...).train(...)`` or
@@ -88,7 +90,8 @@ CLUSTERS = 10  # GMVAE-NB: K·S·B = 20,480 decoder rows per step
 # Poisson(30) + 1 counts at the same places, about 0.6 of them at or above
 # K: otherwise its base head would never take a gradient.  VAE-NB-f32 is
 # the headline VAE-NB with precision="float32", the JAX package's own
-# choice on any backend but a TPU: the float32 K2/K3.
+# choice on any backend but a TPU: the float32 K2/K3; VAE-Poisson-cat-f32
+# is VAE-Poisson-cat likewise: the categorised float32 K2/K3 at 32 heads.
 TRAINED = (
     ("poisson", "vae", "poisson", 0, 3.0, None),
     ("zero-inflated poisson", "vae", "zero-inflated poisson", 0, 3.0, None),
@@ -100,6 +103,7 @@ TRAINED = (
     ("VAE-ZINB-cat", "config", "zero-inflated negative binomial", 10, 3.0,
      None),
     ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None),
+    ("VAE-Poisson-cat-f32", "vae", "poisson", 30, 30.0, "float32"),
     ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0, None),
 )
 # The categorised kernel checks: (base, K) with 14 and 32 heads.
@@ -153,7 +157,6 @@ SOURCES = {
     "product": CSRC + "tc_product.cu",
     "cp": CSRC + "cp_likelihood_tc.cu",
     "cp_float32": CSRC + "cp_likelihood.cu",
-    "cat": CSRC + "categorised_likelihood.cu",
     "cat_tc": CSRC + "categorised_likelihood_tc.cu",
     "grouped": CSRC + "grouped_likelihood.cu",
     "grouped_tc": CSRC + "grouped_likelihood_tc.cu",
@@ -811,14 +814,18 @@ def categorised_targets(x, k_max, gen):
 def check_categorised(name, k_max, h, g, x, gen, flush):
     """The categorised K2 and K3 over base ``name`` with K = ``k_max``, on
     the targets of ``categorised_targets``: the forward (row sums and the
-    per-element lse; bf16 inputs on the main path's tensor-core kernel, also
-    its row-sum partials and the same lse over two runs; ragged F, float32
-    inputs on the CUDA-core kernel, float32 targets); the bf16 backward (the
-    tensor-core gradient kernel, then the dh and dW products) against the
-    plain backward with the same rounding (and ragged F), and each of its
-    three kernels against its plain version; the float32 backward (the
-    CUDA-core passes) against autograd through the plain forward; then
-    their times.  Every gradient part of the plain backward must be nonzero
+    per-element lse, and the row-sum partials per gene tile against the
+    plain version in the kernel's layout; bf16 inputs on the main path's
+    tensor-core kernel, the same lse over two runs; float32 inputs, h and
+    every W as three bf16 terms on the same kernel, also against the
+    float32 plain version; ragged F, float32 targets); the bf16 backward
+    (the tensor-core gradient kernel, then the dh and dW products) against
+    the plain backward with the same rounding (and ragged F); the float32
+    backward (the same kernels on bf16 terms of h, W and da) against
+    autograd through the float32 plain forward; each of the backward's
+    three kernels, bf16 and float32, against its plain version (float32:
+    the split of h and W bit for bit, ``check_split_da``); then their
+    times.  Every gradient part of the plain backward must be nonzero
     somewhere."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
@@ -837,11 +844,13 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
               cb[..., :2000].contiguous(), x[:, :2000].contiguous())
     tag = f"cat_{fam.prefix}"
     heads = f"{n_base + k_max + 1} heads"
-    # The forward: bf16 on the tensor-core kernel (also its row-sum
-    # partials per gene tile against the plain version's), float32 on the
-    # CUDA-core kernel.
+    # The forward, bf16 and float32, on the tensor-core kernel: against the
+    # plain version with the same rounding (float32: the float32 plain
+    # version), and its row-sum partials per gene tile against the plain
+    # version in the kernel's layout (float32: of the split design, whose
+    # row sums and lse it is also held against).
     for args, cdt in ((full, bf16), (ragged, bf16), (full, None),
-                      ((ws, bs, cw, cb, x.float()), bf16)):
+                      (ragged, None), ((ws, bs, cw, cb, x.float()), bf16)):
         ll, lse = ops.categorised_forward(name, h, *args, compute_dtype=cdt)
         ll_ref, lse_ref = ops.reference_categorised_forward(
             name, h, *args, compute_dtype=cdt)
@@ -854,15 +863,26 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
             check_close(label + " row-sum partials", part,
                         fl.reference_cat_tc_forward(name, h, *args)[0],
                         FORWARD_RTOL)
+        else:
+            split = fl.reference_cat_f32_tc_forward(name, h, *args)
+            for part_name, a, b in zip(
+                    ("row sums", "lse", "row-sum partials"),
+                    fl.cat_f32_tc_forward(name, h, *args), split,
+                    strict=True):
+                err_ = check_close(f"{label} {part_name} vs split plain", a,
+                                   b, FORWARD_RTOL)
+                if args is full and part_name == "row sums":
+                    f32_fwd_err = err_
         if args is full:
             if cdt is bf16:
                 fwd_err, lse_main = err, lse
             else:
-                f32_fwd_err = err
-    again = ops.categorised_forward(name, h, *full, compute_dtype=bf16)[1]
-    if not torch.equal(again, lse_main):
-        raise AssertionError(f"{tag}_forward {heads}: lse differs between "
-                             "two runs")
+                lse32 = lse
+    for cdt, want in ((bf16, lse_main), (None, lse32)):
+        again = ops.categorised_forward(name, h, *full, compute_dtype=cdt)[1]
+        if not torch.equal(again, want):
+            raise AssertionError(f"{tag}_forward {heads} {cdt}: lse differs "
+                                 "between two runs")
     parts = (["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
              + ["dW_classes", "db_classes"])
     # The bf16 backward on the same inputs, the forward's lse among them: an
@@ -883,7 +903,8 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
         for part, a, b in zip(parts, got, want, strict=True):
             check_close(f"{tag}_backward {heads} {part} "
                         f"F={args[-1].shape[1]}", a, b, BACKWARD_RTOL)
-    # the float32 backward (CUDA-core passes) against autograd
+    # the float32 backward (the tensor-core kernels on bf16 terms) against
+    # autograd through the float32 plain forward
     leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs, cw, cb)]
     ll, _ = ops.reference_categorised_forward(
         name, leaves[0], leaves[1:1 + n_base], leaves[1 + n_base:1 + 2 * n_base],
@@ -893,17 +914,17 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
     got = ops.categorised_backward(name, g, h, *full, lse)
     order = ([0] + [i for j in range(n_base) for i in (1 + j, 1 + n_base + j)]
              + [1 + 2 * n_base, 2 + 2 * n_base])
-    errs = [check_close(f"{tag}_backward float32 {heads} {part} vs autograd",
-                        a, want[i], AUTOGRAD_RTOL)
-            for part, a, i in zip(parts, got, order)]
-    f32_errs = {"backward_dh": errs[0], "backward_dw": max(errs[1:])}
+    for part, a, i in zip(parts, got, order):
+        check_close(f"{tag}_backward float32 {heads} {part} vs autograd", a,
+                    want[i], AUTOGRAD_RTOL)
 
     # The bf16 backward kernel by kernel on the main path's inputs: the
     # gradient kernel's bf16(da) within one bf16 step of the plain bf16(da)
     # from the same lse, its row-tile sums, and the dh and dW products of
     # its own da against the plain products.
-    plain = fl.reference_cat_tc_gradient(name, g, h, *full, lse_main)
-    grad = fl.cat_tc_gradient(name, g, h, *full, lse_main)
+    bwd = (name, g, h, *full, lse_main)
+    plain = fl.reference_cat_tc_gradient(*bwd)
+    grad = fl.cat_tc_gradient(*bwd)
     grad_err = check_bf16_steps(f"{tag}_backward_gradient {heads} bf16(da)",
                                 grad.da, plain.da)
     check_close(f"{tag}_backward_gradient {heads} db row-tile sums",
@@ -916,6 +937,26 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
                  for i, (a, b) in enumerate(zip(
                      fl.tc_dw_stacked(grad), fl.reference_tc_dw_stacked(grad),
                      strict=True)))
+    # The float32 backward kernel by kernel on the main path's inputs: the
+    # split of h and W, da's terms and row-tile sums against the plain
+    # version of the split design from the same lse, and the dh and dW
+    # products of the kernel's own scratch against the plain products.
+    bwd32 = (name, g, h, *full, lse32)
+    grad32 = fl.cat_f32_tc_gradient(*bwd32)
+    plain32 = fl.reference_cat_f32_tc_gradient(*bwd32)
+    grad32_err = check_split_da(tag, grad32, plain32)
+    check_close(f"{tag}_backward_gradient_float32 {heads} db row-tile sums",
+                grad32.db_parts, plain32.db_parts, PRODUCT_RTOL)
+    del plain32
+    dh32_err = check_close(f"{tag}_backward_dh_float32 {heads} of the "
+                           "kernel's da", fl.tc_dh(grad32),
+                           fl.reference_tc_dh(grad32), PRODUCT_RTOL)
+    dw32_err = max(check_close(f"{tag}_backward_dw_float32 {heads} [{i}] of "
+                               "the kernel's da", a, b, PRODUCT_RTOL)
+                   for i, (a, b) in enumerate(zip(
+                       fl.tc_dw_stacked(grad32),
+                       fl.reference_tc_dw_stacked(grad32), strict=True)))
+
     # Why the planner promotes deep sums: the dh product in 3 splits, its
     # sums inside the tensor cores and promoted, against the plain product
     deep, promoted = (forced_splits(grad, 3, promote) for promote in
@@ -929,71 +970,69 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
           f"largest value; as planned {grad.plan['dh_splits']} "
           f"{dh_err / scale:.3g}", flush=True)
 
+    # Bounds: the function's product 2·NH·M·H·F, counted once however many
+    # pairs of terms the float32 design multiplies, at the bf16 tensor-core
+    # rate, or its bytes: h and the heads in float32 as the caller holds
+    # them, t in bf16, lse in float32; da as the kernels pass it in bf16,
+    # the float32 function's da once at 4 B an element (not its bf16 terms,
+    # nor the scratch's copies per pair).
     n_heads = n_base + k_max + 1
     product = 2 * n_heads * m * hidden * f
     head_bytes = n_heads * (hidden * f + f) * 4
     in_bytes = m * hidden * 4 + head_bytes + m * f * 2
     lse_bytes = m * f * 4
-    da_bytes = grad.da.numel() * 2 + grad.db_parts.numel() * 4
-    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    db_bytes = grad.db_parts.numel() * 4
     timed = dict(flush=flush)
     results = {}
-    # the forwards: bf16 (tensor cores) and float32 (CUDA cores, no
-    # training launch), each against the peak of its arithmetic
-    for kernel, cdt, err, peak in (("forward", bf16, fwd_err, BF16_FLOPS),
-                                   ("forward_float32", None, f32_fwd_err,
-                                    F32_FLOPS)):
-        t_bound, by = bound(in_bytes + m * 4 + lse_bytes, product, peak)
-        results[f"{tag}_{kernel}"] = {
-            "max_abs_err": err,
-            "ms": time_ms(lambda cdt=cdt: ops.categorised_forward(
-                name, h, *full, compute_dtype=cdt), **timed),
-            "plain_ms": time_ms(lambda cdt=cdt: (
-                ops.reference_categorised_forward(name, h, *full,
-                                                  compute_dtype=cdt)),
-                **timed),
-            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+    for sfx, cdt, grd, gradient, plain_gradient, plain_forward, errs in (
+        ("", bf16, grad, fl.cat_tc_gradient, fl.reference_cat_tc_gradient,
+         lambda: ops.reference_categorised_forward(name, h, *full,
+                                                   compute_dtype=bf16),
+         (fwd_err, grad_err, dh_err, dw_err)),
+        ("_float32", None, grad32, fl.cat_f32_tc_gradient,
+         fl.reference_cat_f32_tc_gradient,
+         lambda: fl.reference_cat_f32_tc_forward(name, h, *full),
+         (f32_fwd_err, grad32_err, dh32_err, dw32_err)),
+    ):
+        bwd_args = bwd if cdt is bf16 else bwd32
+        if cdt is bf16:
+            da_bytes, h_bytes, w_bytes = (grd.da.numel() * 2,
+                                          grd.h.numel() * 2,
+                                          grd.w.numel() * 2)
+        else:
+            da_bytes, h_bytes, w_bytes = (m * n_heads * f * 4,
+                                          m * hidden * 4,
+                                          n_heads * hidden * f * 4)
+        w2 = grd.w.reshape(grd.w.shape[0], -1)
+        kernels = {  # fn, plain, library, err, bytes
+            "forward": (
+                lambda cdt=cdt: ops.categorised_forward(
+                    name, h, *full, compute_dtype=cdt),
+                plain_forward, None, errs[0], in_bytes + m * 4 + lse_bytes),
+            "backward_gradient": (
+                lambda gradient=gradient, a=bwd_args: gradient(*a),
+                lambda plain=plain_gradient, a=bwd_args: plain(*a), None,
+                errs[1], in_bytes + m * 4 + lse_bytes + da_bytes + db_bytes),
+            "backward_dh": (
+                lambda grd=grd: fl.tc_dh(grd),
+                lambda grd=grd: fl.reference_tc_dh(grd),
+                lambda grd=grd, w2=w2: torch.mm(grd.da, w2.T,
+                                                out_dtype=torch.float32),
+                errs[2], da_bytes + w_bytes + m * hidden * 4),
+            "backward_dw": (
+                lambda grd=grd: fl.tc_dw_stacked(grd),
+                lambda grd=grd: fl.reference_tc_dw_stacked(grd), None,
+                errs[3], h_bytes + da_bytes + db_bytes + head_bytes),
         }
-    bwd = (name, g, h, *full, lse_main)
-    kernels = {  # fn, plain, library, err, bytes, operations, peak
-        "backward_gradient": (
-            lambda: fl.cat_tc_gradient(*bwd),
-            lambda: fl.reference_cat_tc_gradient(*bwd), None, grad_err,
-            in_bytes + m * 4 + lse_bytes + da_bytes, product, BF16_FLOPS),
-        "backward_dh": (
-            lambda: fl.tc_dh(grad), lambda: fl.reference_tc_dh(grad),
-            lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32),
-            dh_err, grad.da.numel() * 2 + grad.w.numel() * 2 + m * hidden * 4,
-            product, BF16_FLOPS),
-        "backward_dw": (
-            lambda: fl.tc_dw_stacked(grad),
-            lambda: fl.reference_tc_dw_stacked(grad), None, dw_err,
-            grad.h.numel() * 2 + da_bytes + head_bytes, product, BF16_FLOPS),
-        # the float32 passes (CUDA cores, no training launch): two products
-        # each, the activations again
-        "backward_dh_float32": (
-            lambda: ops.categorised_backward_dh(*bwd),
-            lambda: ops.reference_categorised_dh(*bwd), None,
-            f32_errs["backward_dh"],
-            in_bytes + m * 4 + lse_bytes + m * hidden * 4, 2 * product,
-            F32_FLOPS),
-        "backward_dw_float32": (
-            lambda: ops.categorised_backward_dw(*bwd),
-            lambda: ops.reference_categorised_dw(*bwd), None,
-            f32_errs["backward_dw"],
-            in_bytes + m * 4 + lse_bytes + head_bytes, 2 * product,
-            F32_FLOPS),
-    }
-    for kernel, (fn, plain_fn, library, err, nbytes, flops,
-                 peak) in kernels.items():
-        t_bound, by = bound(nbytes, flops, peak)
-        results[f"{tag}_{kernel}"] = {
-            "max_abs_err": err, "ms": time_ms(fn, **timed),
-            "plain_ms": time_ms(plain_fn, **timed),
-            "bound_ms": t_bound, "bound_by": by,
-            "library_ms": None if library is None else time_ms(library,
-                                                               **timed),
-        }
+        for kernel, (fn, plain_fn, library, err, nbytes) in kernels.items():
+            t_bound, by = bound(nbytes, product, BF16_FLOPS)
+            results[f"{tag}_{kernel}{sfx}"] = {
+                "max_abs_err": err, "ms": time_ms(fn, **timed),
+                "plain_ms": time_ms(plain_fn, **timed),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": None if library is None else time_ms(library,
+                                                                   **timed),
+            }
     parts_ms = sum(results[f"{tag}_{kernel}"]["ms"] for kernel in
                    ("backward_gradient", "backward_dh", "backward_dw"))
     whole_bound, whole_by = bound(
@@ -1005,6 +1044,26 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
           f"{parts_ms:.4f} ms; categorised_backward with its operand copies "
           f"{whole:.4f} ms; bound {whole_bound:.5f} ms ({whole_by})",
           flush=True)
+    parts32 = sum(results[f"{tag}_{kernel}_float32"]["ms"] for kernel in
+                  ("backward_gradient", "backward_dh", "backward_dw"))
+    public = {
+        "categorised_forward": (
+            lambda: ops.categorised_forward(name, h, *full),
+            lambda: ops.reference_categorised_forward(name, h, *full)),
+        "categorised_backward": (
+            lambda: ops.categorised_backward(*bwd32),
+            lambda: (ops.reference_categorised_dh(*bwd32),
+                     *ops.reference_categorised_dw(*bwd32))),
+    }
+    print(f"float32 {tag} {heads}: backward kernels {parts32:.4f} ms; public "
+          "calls against the float32 plain versions: " + "; ".join(
+              f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
+              f"{time_ms(plain_fn, **timed):.4f} ms)"
+              for label, (fn, plain_fn) in public.items())
+          + "; the split of h and every W in torch ops (the plain version "
+          "of the entries' split_pack_kernel) "
+          f"{time_ms(lambda: fl._f32_tc_operands(h, ws, cw), **timed):.4f} "
+          "ms", flush=True)
     return results
 
 
@@ -1633,11 +1692,12 @@ def main() -> int:
         if ("_grouped_" in name and "_float32" not in name
                 and not launches.get(name)):
             raise AssertionError(f"{name} was not launched after training")
-    for kernel in ("forward", "backward_gradient", "backward_dh",
-                   "backward_dw"):  # VAE-NB-f32's
-        if not launches.get(f"nb_{kernel}_float32"):
-            raise AssertionError(f"nb_{kernel}_float32 was not launched in "
-                                 "training")
+    for prefix in ("nb", "cat_poisson"):  # VAE-NB-f32's, VAE-Poisson-cat-f32's
+        for kernel in ("forward", "backward_gradient", "backward_dh",
+                       "backward_dw"):
+            if not launches.get(f"{prefix}_{kernel}_float32"):
+                raise AssertionError(f"{prefix}_{kernel}_float32 was not "
+                                     "launched in training")
 
     def source(name):
         if name == "gather_rows":
@@ -1659,12 +1719,9 @@ def main() -> int:
             else:
                 file = "product"
             return SOURCES[file], REPLACES["grouped_" + kind]
-        cat = name.startswith("cat_")
-        if cat and "_float32" in name:
-            file = "cat"
-        elif "backward_dh" in name or "backward_dw" in name:
+        if "backward_dh" in name or "backward_dw" in name:
             file = "product"
-        elif cat:
+        elif name.startswith("cat_"):
             file = "cat_tc"
         else:
             file = "count"

@@ -14,8 +14,6 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     FusedGroupedLogLikelihood,
     FusedLogLikelihood,
     categorised_backward,
-    categorised_backward_dh,
-    categorised_backward_dw,
     categorised_forward,
     cp_backward,
     cp_backward_dh,
@@ -77,8 +75,6 @@ __all__ = [
     "MAX_FUSED_GROUPS",
     "MAX_FUSED_HEADS",
     "categorised_backward",
-    "categorised_backward_dh",
-    "categorised_backward_dw",
     "categorised_forward",
     "cp_backward",
     "cp_backward_dh",

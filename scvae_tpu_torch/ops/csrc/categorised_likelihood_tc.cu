@@ -1,15 +1,16 @@
-// The categorised K2 and K3 with bf16 operands on the tensor cores, over a
-// Poisson, NB, ZIP or ZINB base plus C = K + 1 class-logit heads (up to 32
-// heads in all), for compute_dtype=bfloat16 (the training path): the
-// forward kernel, and the backward's gradient kernel, whose dh and dW are
-// then two plain products of the scratch it writes (tc_product.cu).
+// The categorised K2 and K3 on the tensor cores, over a Poisson, NB, ZIP or
+// ZINB base plus C = K + 1 class-logit heads (up to 32 heads in all), for
+// compute_dtype=bfloat16 (the bf16 training path) and for float32
+// (precision="float32", the JAX package's choice on any backend but a
+// TPU): the forward kernel, and the backward's gradient kernel, whose dh
+// and dW are then two plain products of the scratch it writes
+// (tc_product.cu).
 //
-// Replaces, for bf16 inputs, the Pallas kernels of
-// scvae_tpu/ops/fused_likelihood.py that _fused_forward (K2) and
-// _fused_backward (K3) drive for the categorised instances
-// _make_fused_categorised builds (_categorised_ll with _cat_select_and_lse,
-// and the grads of _categorised_grads).  The float32 instances keep the
-// CUDA-core kernels of categorised_likelihood.cu.  Per element:
+// Replaces the Pallas kernels of scvae_tpu/ops/fused_likelihood.py that
+// _fused_forward (K2) and _fused_backward (K3) drive for the categorised
+// instances _make_fused_categorised builds (_categorised_ll with
+// _cat_select_and_lse, and the grads of _categorised_grads).  Per element,
+// with bf16:
 //
 //   a     = bf16(h) bf16(W) + b for every head   (float32 sums, b unrounded)
 //   lse   = logsumexp_c a_c,  sel = a_c at c = min(t, K)
@@ -52,13 +53,35 @@
 // the unrounded column sums of the block's rows into a (row tiles, NH * Fp)
 // partial array for db.
 //
+// Float32 (SEG = kSplitPairs): the split-bf16 design of the base families'
+// float32 K2/K3 (count_likelihood_tc.cu, tc_common.cuh).  The entries
+// first split h and every head's W into three bf16 terms laid per pair
+// (split_pack_kernel: h (M, P, Hp), W (Hp, P, NH, Fp), the base heads from
+// their own pointers, then the classes from the class-major (C, H, F)
+// weights at a stride); both kernels run each group's ring over the P = 6
+// pairs (i, j), i + j < 3, as depth segments, so a head's activation is
+// the same sum in both, whatever group it is in.  The forward's softmax
+// state and selected classes stay in registers as in bf16: only each
+// group's depth grows.  The gradient kernel splits each da into its three
+// terms and writes term i of pair q into slot q of the scratch (M, P * NH
+// * Fp), whose dh product runs over the depth P * NH * Fp and dW product
+// over P * M rows of NH * Fp against h's terms per pair; db sums the
+// unrounded da.  The scratch is large: P * NH * Fp bf16 a row, 805,306,368
+// elements (1.6 GB) at Poisson-cat's M = 2,048, and 8.05e9 over a
+// categorised GMVAE's 20,480 rows.  So every offset into it, into the
+// packed W and into the products' operands is 64-bit (the products' TMA
+// maps take 64-bit extents; their coordinates, rows and widths, each fit
+// 32 bits), and the wrapper runs it whole, without row chunks.
+//
 // Bounds on the H100 at Poisson-cat's shape (32 heads, M = F = 2,048, H =
-// 256): 68.7 GFLOP of head products (0.069 ms at 989 TFLOP/s) per kernel.
-// The forward moves about 95 MB (h and W in float32 as the caller holds
-// them, bf16 t, the row sums and lse; 0.028 ms at 3.35 TB/s): operations
-// bound it.  The gradient kernel also reads lse and writes the bf16 da (268
-// MB; 0.095 ms): bytes.  It writes da once, coalesced, and never rereads the
-// activations.
+// 256): 68.7 GFLOP of head products (0.069 ms at 989 TFLOP/s) per kernel,
+// counted once in float32 too (the six pairs are the design's cost, not
+// the function's).  The forward moves about 95 MB (h and W in float32 as
+// the caller holds them, bf16 t, the row sums and lse; 0.028 ms at 3.35
+// TB/s): operations bound it.  The gradient kernel also reads lse and
+// writes the bf16 da (268 MB; 0.095 ms): bytes; in float32 the function's
+// da is float32 (537 MB; 0.18 ms).  It writes da once, coalesced, and
+// never rereads the activations.
 
 #include "tc_common.cuh"
 
@@ -94,26 +117,30 @@ struct CatGrad {
   const float* lse;    // (m, f)
   const float* g;      // (m,)
   float* part;         // (row tiles, NH * fp)
-  bf16* da;            // (m, NH * fp)
+  bf16* da;            // (m, SEG * NH * fp)
   int m, m_t, hp, f, fp, n_heads, k;
 };
 
 // Heads head0 ... head0 + n - 1 (NB slots; slots past n read zeros and are
 // not written): the products, then da and its column sums.  BASE: the base
 // family's heads (n = NB); otherwise the classes c = head0 - n_base + j.
-template <class Fam, int NB, bool BASE>
+// SEG = kSplitPairs: the float32 instance, h (M, P Hp) and w (Hp, P, NH,
+// Fp) the terms per pair, and da[row][(q NH + hd) fp + gene] the term
+// split_first(q) of the value, for each pair q.
+template <class Fam, int NB, bool BASE, int SEG>
 __device__ __forceinline__ void cat_tc_group(bf16* smem, const CatGrad& p,
                                              int m0, int n0, int head0,
                                              int n) {
   float* act = reinterpret_cast<float*>(smem);  // after the mainloop
-  const int ldd = p.n_heads * p.fp;
+  const int width = p.n_heads * p.fp;  // one pair's columns of w and of da
+  const long long ldd = (long long)SEG * width;
   {
     float acc[NB][kTcMI][4][4];
-    const long long w0 = (long long)head0 * p.fp;
-    tc_mainloop<NB>(smem,
-                    TcOperands{p.h, p.m, p.hp, p.w + w0, ldd, p.fp,
-                               (int)(ldd - w0)},
-                    m0, n0, acc);
+    const int w0 = head0 * p.fp;
+    tc_mainloop<NB, SEG>(smem,
+                         TcOperands{p.h, p.m, p.hp, p.w + w0, ldd, p.fp,
+                                    width - w0, width},
+                         m0, n0, acc);
     tc_stage_acts<NB>(act, acc);
   }
   __syncthreads();
@@ -166,8 +193,16 @@ __device__ __forceinline__ void cat_tc_group(bf16* smem, const CatGrad& p,
 #pragma unroll
         for (int hd = 0; hd < NB; ++hd) {
           if (hd < n) {
-            p.da[(long long)row * ldd + (head0 + hd) * p.fp + gene] =
-                __float2bfloat16_rn(gr[hd]);
+            bf16* out = p.da + row * ldd + (head0 + hd) * p.fp + gene;
+            if constexpr (SEG == 1) {
+              *out = __float2bfloat16_rn(gr[hd]);
+            } else {
+              bf16 term[kSplitTerms];
+              split_terms(gr[hd], term);
+#pragma unroll
+              for (int q = 0; q < SEG; ++q)
+                out[q * width] = term[split_first(q)];
+            }
             col_acc[hd][j] += gr[hd];
           }
         }
@@ -175,32 +210,33 @@ __device__ __forceinline__ void cat_tc_group(bf16* smem, const CatGrad& p,
     }
   }
   tc_store_col_sums<NB>(act, col_acc,
-                        p.part + (long long)blockIdx.x * ldd + head0 * p.fp,
+                        p.part + (long long)blockIdx.x * width + head0 * p.fp,
                         n0, p.fp, n);
 }
 
 // One block per 64 rows (blockIdx.x) x 64 genes (blockIdx.y): the base
 // heads, then the classes kCatGroup at a time.
-template <class Fam>
+template <class Fam, int SEG>
 __global__ void __launch_bounds__(kTcThreads, 2)
     cat_tc_gradient_kernel(const CatGrad p) {
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(tc_smem_raw);
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
-  cat_tc_group<Fam, Fam::kHeads, true>(smem, p, m0, n0, 0, Fam::kHeads);
+  cat_tc_group<Fam, Fam::kHeads, true, SEG>(smem, p, m0, n0, 0,
+                                            Fam::kHeads);
   const int n_classes = p.n_heads - Fam::kHeads;
   for (int c0 = 0; c0 < n_classes; c0 += kCatGroup)
-    cat_tc_group<Fam, kCatGroup, false>(smem, p, m0, n0, Fam::kHeads + c0,
-                                        min(kCatGroup, n_classes - c0));
+    cat_tc_group<Fam, kCatGroup, false, SEG>(
+        smem, p, m0, n0, Fam::kHeads + c0, min(kCatGroup, n_classes - c0));
 }
 
-template <class Fam>
+template <class Fam, int SEG>
 int launch_cat_tc(const CatGrad& p, cudaStream_t stream) {
   const dim3 grid((p.m + kTcRows - 1) / kTcRows,
                   (p.f + kTcTileN - 1) / kTcTileN);
   if (grid.x == 0 || grid.y == 0) return 0;
   constexpr size_t bytes = cat_tc_smem<Fam>();
-  auto kernel = cat_tc_gradient_kernel<Fam>;
+  auto kernel = cat_tc_gradient_kernel<Fam, SEG>;
   if (int err = set_smem(kernel, bytes)) return err;
   kernel<<<grid, kTcThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
@@ -261,7 +297,7 @@ constexpr size_t cat_fwd_smem() {
 // class 0; kNoClass outside M x F).  Then each thread gathers its elements'
 // classes into sel and its rows' sums into row_ll (one thread per row: lane
 // % 4 = 0 of the warps wn = 0).
-template <class Fam>
+template <class Fam, int SEG>
 __device__ __forceinline__ void cat_fwd_base(bf16* smem, const CatFwd& p,
                                              int m0, int n0,
                                              float (&row_ll)[kCatRowsQ],
@@ -272,10 +308,13 @@ __device__ __forceinline__ void cat_fwd_base(bf16* smem, const CatFwd& p,
       reinterpret_cast<uint8_t*>(act + NB * kTcRows * kTcActStride);
   float* rb = reinterpret_cast<float*>(cls + kTcRows * kTcTileN);
   {
-    const int ldd = p.n_heads * p.fp;
+    const int width = p.n_heads * p.fp;
     float acc[NB][kTcMI][4][4];
-    tc_mainloop<NB>(smem, TcOperands{p.h, p.m, p.hp, p.w, ldd, p.fp, ldd},
-                    m0, n0, acc);
+    tc_mainloop<NB, SEG>(smem,
+                         TcOperands{p.h, p.m, p.hp, p.w,
+                                    (long long)SEG * width, p.fp, width,
+                                    width},
+                         m0, n0, acc);
     tc_stage_acts<NB>(act, acc);
   }
   __syncthreads();
@@ -345,18 +384,19 @@ __device__ __forceinline__ void cat_fwd_base(bf16* smem, const CatFwd& p,
 // loads may start at once): each element's online softmax state, and the
 // selected class's logit into row_ll.  st: each element's (running max,
 // sum of exp(a - max)).
-template <class Fam, int NB>
+template <class Fam, int NB, int SEG>
 __device__ __forceinline__ void cat_fwd_classes(
     bf16* smem, const CatFwd& p, int m0, int n0, int head0, int n,
     float (&row_ll)[kCatRowsQ], const uint32_t (&sel)[kCatElems / 4],
     float2 (&st)[kCatElems]) {
-  const int ldd = p.n_heads * p.fp;
+  const int width = p.n_heads * p.fp;
   float acc[NB][kTcMI][4][4];
-  const long long w0 = (long long)head0 * p.fp;
-  tc_mainloop<NB>(smem,
-                  TcOperands{p.h, p.m, p.hp, p.w + w0, ldd, p.fp,
-                             (int)(ldd - w0)},
-                  m0, n0, acc);
+  const int w0 = head0 * p.fp;
+  tc_mainloop<NB, SEG>(smem,
+                       TcOperands{p.h, p.m, p.hp, p.w + w0,
+                                  (long long)SEG * width, p.fp, width - w0,
+                                  width},
+                       m0, n0, acc);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wn = warp % kTcWarpsN;
@@ -398,7 +438,7 @@ __device__ __forceinline__ void cat_fwd_classes(
 // One block per 64 rows (blockIdx.x) x 64 genes (blockIdx.y): the base
 // heads, then the classes kCatFwdGroup at a time; then lse and the row sums
 // less lse, staged in shared memory and written a warp per row.
-template <class Fam>
+template <class Fam, int SEG>
 __global__ void __launch_bounds__(kTcThreads, 2)
     cat_tc_forward_kernel(const CatFwd p) {
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
@@ -406,13 +446,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int m0 = blockIdx.x * kTcRows, n0 = blockIdx.y * kTcTileN;
   float row_ll[kCatRowsQ];
   uint32_t sel[kCatElems / 4];
-  cat_fwd_base<Fam>(smem, p, m0, n0, row_ll, sel);
+  cat_fwd_base<Fam, SEG>(smem, p, m0, n0, row_ll, sel);
   float2 st[kCatElems];
 #pragma unroll
   for (int e = 0; e < kCatElems; ++e) st[e] = make_float2(-INFINITY, 0.0f);
   const int n_classes = p.n_heads - Fam::kHeads;
   for (int c0 = 0; c0 < n_classes; c0 += kCatFwdGroup)
-    cat_fwd_classes<Fam, kCatFwdGroup>(
+    cat_fwd_classes<Fam, kCatFwdGroup, SEG>(
         smem, p, m0, n0, Fam::kHeads + c0, min(kCatFwdGroup, n_classes - c0),
         row_ll, sel, st);
 
@@ -461,13 +501,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
-template <class Fam>
+template <class Fam, int SEG>
 int launch_cat_tc_forward(const CatFwd& p, cudaStream_t stream) {
   const dim3 grid((p.m + kTcRows - 1) / kTcRows,
                   (p.f + kTcTileN - 1) / kTcTileN);
   if (grid.x == 0 || grid.y == 0) return 0;
   constexpr size_t bytes = cat_fwd_smem<Fam>();
-  auto kernel = cat_tc_forward_kernel<Fam>;
+  auto kernel = cat_tc_forward_kernel<Fam, SEG>;
   if (int err = set_smem(kernel, bytes)) return err;
   kernel<<<grid, kTcThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
@@ -480,11 +520,13 @@ using namespace scvae;
 
 extern "C" {
 
-// Both return a cudaError_t (0 on success).  family: 0 = Poisson, 1 = NB,
+// All return a cudaError_t (0 on success).  family: 0 = Poisson, 1 = NB,
 // 2 = ZIP, 3 = ZINB (the base, NB = 1, 2, 2, 3 heads); n_classes = K + 1
 // class heads after them, NH = NB + n_classes <= 32.  h: bf16 (m, hp); w:
 // bf16 (hp, NH, fp); b: float32 (NH, f); t: (m_t, f), t_dtype 0 = float32,
-// 1 = bfloat16, row m reading target row m % m_t.
+// 1 = bfloat16, row m reading target row m % m_t.  The float32 entries
+// (scvae_cat_tc_f32_*) take float32 h and W instead and split them first
+// (below); the forward's outputs are the bf16 one's.
 
 // K2: part (ceil(f / 64), m) float32 scratch; writes out (m,) and lse
 // (m, f), float32.
@@ -511,7 +553,7 @@ int scvae_cat_tc_forward(int family, const void* h, const void* w,
                    (f + 7) / 8 * 8,
                    Fam::kHeads + n_classes,
                    n_classes - 1};
-    return launch_cat_tc_forward<Fam>(p, s);
+    return launch_cat_tc_forward<Fam, 1>(p, s);
   });
   if (err) return err;
   return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
@@ -545,7 +587,91 @@ int scvae_cat_tc_gradient(int family, const float* g, const void* h,
                     (f + 7) / 8 * 8,
                     Fam::kHeads + n_classes,
                     n_classes - 1};
-    return launch_cat_tc<Fam>(p, s);
+    return launch_cat_tc<Fam, 1>(p, s);
+  });
+}
+
+// The float32 K2: h (m, hidden) and every head's W in float32 (the base
+// heads w0, w1, w2, null past the family's, then the class-major cat_w
+// (n_classes, hidden, f)) split into their terms per pair in the scratch hh
+// (m, P, hp) and wp (hp, P, NH, fp), P = kSplitPairs; then as
+// scvae_cat_tc_forward on those.
+int scvae_cat_tc_f32_forward(int family, const float* h, const float* w0,
+                             const float* w1, const float* w2,
+                             const float* cat_w, const float* b,
+                             const void* t, int t_dtype, void* hh, void* wp,
+                             float* part, float* out, float* lse, int m,
+                             int m_t, int hidden, int f, int n_classes,
+                             void* stream) {
+  if (n_classes < 2 || t_dtype < 0 || t_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
+  const int err = with_family(family, [&](auto fam) {
+    using Fam = typename decltype(fam)::type;
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2, cat_w,
+                                      n_classes, static_cast<bf16*>(hh),
+                                      static_cast<bf16*>(wp), m, hidden, hp,
+                                      f, fp, s))
+      return e;
+    const CatFwd p{static_cast<const bf16*>(hh),
+                   static_cast<const bf16*>(wp),
+                   b,
+                   t,
+                   t_dtype,
+                   part,
+                   lse,
+                   m,
+                   m_t,
+                   hp,
+                   f,
+                   fp,
+                   Fam::kHeads + n_classes,
+                   n_classes - 1};
+    return launch_cat_tc_forward<Fam, kSplitPairs>(p, s);
+  });
+  if (err) return err;
+  return launch_reduce(part, (f + kTcTileN - 1) / kTcTileN, m, out, s);
+}
+
+// The float32 K3, first half: the operands' split into hh and wp, which the
+// products read after it, then da (m, P * NH * fp) bf16 scratch of da's
+// terms per pair and db_part (ceil(m / 64), NH * fp) float32 scratch.
+int scvae_cat_tc_f32_gradient(int family, const float* g, const float* h,
+                              const float* w0, const float* w1,
+                              const float* w2, const float* cat_w,
+                              const float* b, const void* t, int t_dtype,
+                              const float* lse, void* hh, void* wp, void* da,
+                              float* db_part, int m, int m_t, int hidden,
+                              int f, int n_classes, void* stream) {
+  if (n_classes < 2 || t_dtype < 0 || t_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
+  return with_family(family, [&](auto fam) {
+    using Fam = typename decltype(fam)::type;
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2, cat_w,
+                                      n_classes, static_cast<bf16*>(hh),
+                                      static_cast<bf16*>(wp), m, hidden, hp,
+                                      f, fp, s))
+      return e;
+    const CatGrad p{static_cast<const bf16*>(hh),
+                    static_cast<const bf16*>(wp),
+                    b,
+                    t,
+                    t_dtype,
+                    lse,
+                    g,
+                    db_part,
+                    static_cast<bf16*>(da),
+                    m,
+                    m_t,
+                    hp,
+                    f,
+                    fp,
+                    Fam::kHeads + n_classes,
+                    n_classes - 1};
+    return launch_cat_tc<Fam, kSplitPairs>(p, s);
   });
 }
 

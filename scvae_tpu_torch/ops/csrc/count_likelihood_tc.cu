@@ -217,83 +217,6 @@ int launch_heads(const bf16* h, const bf16* w, const float* b, const void* t,
   return (int)cudaGetLastError();
 }
 
-constexpr int kPackThreads = 256;
-constexpr int kPackCols = 8;  // columns of a thread: one 16-byte store a pair
-
-// The float32 kernels' operands in their pair layouts: for each of the
-// n_src float32 matrices src_k (rows x cols, row-major),
-//   dst[r ld_row + p ld_pair + k ld_src + c] = term j of src_k[r][c]
-// for each pair p = (i, j), zero where r >= rows or c >= cols, over
-// rows_p x cols_p (the padded widths, cols_p and the strides multiples of
-// 8).  A thread per 8 columns of a row: its float32 reads coalesce along
-// the row, and it stores each pair's 8 terms as one 16-byte write.  Its
-// plain version is fused_likelihood._f32_tc_operands.
-__global__ void __launch_bounds__(kPackThreads)
-    split_pack_kernel(const float* __restrict__ s0,
-                      const float* __restrict__ s1,
-                      const float* __restrict__ s2, int n_src, int rows,
-                      int cols, int rows_p, int cols_p,
-                      bf16* __restrict__ dst, long long ld_row,
-                      long long ld_pair, long long ld_src) {
-  const int chunks = cols_p / kPackCols;
-  const long long per = (long long)rows_p * chunks;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < per * n_src; e += (long long)gridDim.x * blockDim.x) {
-    const int k = (int)(e / per);
-    const long long rc = e - k * per;
-    const int r = (int)(rc / chunks);
-    const int c0 = (int)(rc - (long long)r * chunks) * kPackCols;
-    const float* src =
-        (k == 0 ? s0 : (k == 1 ? s1 : s2)) + (long long)r * cols;
-    uint32_t words[kSplitPairs][kPackCols / 2];  // two bf16 terms each
-#pragma unroll
-    for (int q = 0; q < kPackCols; ++q) {
-      const int c = c0 + q;
-      bf16 term[kSplitTerms];
-      split_terms(r < rows && c < cols ? src[c] : 0.0f, term);
-#pragma unroll
-      for (int p = 0; p < kSplitPairs; ++p) {
-        const uint32_t bits = __bfloat16_as_ushort(term[split_second(p)]);
-        if (q % 2 == 0)
-          words[p][q / 2] = bits;
-        else
-          words[p][q / 2] |= bits << 16;
-      }
-    }
-    bf16* base = dst + r * ld_row + k * ld_src + c0;
-#pragma unroll
-    for (int p = 0; p < kSplitPairs; ++p)
-      *reinterpret_cast<uint4*>(base + p * ld_pair) =
-          make_uint4(words[p][0], words[p][1], words[p][2], words[p][3]);
-  }
-}
-
-// h (m, hidden) into its terms per pair (m, P, hp), and the NH heads' W_k
-// (hidden, f) into theirs (hp, P, NH, fp).
-int launch_split_operands(int n_heads, const float* h, const float* w0,
-                          const float* w1, const float* w2, bf16* hh,
-                          bf16* wp, int m, int hidden, int hp, int f, int fp,
-                          cudaStream_t stream) {
-  auto launch = [&](const float* s0, const float* s1, const float* s2,
-                    int n_src, int rows, int cols, int rows_p, int cols_p,
-                    bf16* dst, long long ld_row, long long ld_pair,
-                    long long ld_src) {
-    const long long n = (long long)rows_p * (cols_p / kPackCols) * n_src;
-    if (n == 0) return 0;
-    const long long blocks = (n + kPackThreads - 1) / kPackThreads;
-    split_pack_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kPackThreads,
-                        0, stream>>>(s0, s1, s2, n_src, rows, cols, rows_p,
-                                     cols_p, dst, ld_row, ld_pair, ld_src);
-    return (int)cudaGetLastError();
-  };
-  if (int err = launch(h, h, h, 1, m, hidden, m, hp, hh,
-                       (long long)kSplitPairs * hp, hp, 0))
-    return err;
-  const long long width = (long long)n_heads * fp;
-  return launch(w0, w1, w2, n_heads, hidden, f, hp, fp, wp,
-                kSplitPairs * width, width, fp);
-}
-
 }  // namespace
 }  // namespace scvae
 
@@ -352,8 +275,8 @@ int scvae_tc_f32_forward(int family, const float* h, const float* w0,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   const int err = with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
-                                      static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2, nullptr,
+                                      0, static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;
@@ -377,8 +300,8 @@ int scvae_tc_f32_gradient(int family, const float* g, const float* h,
   const int hp = (hidden + 7) / 8 * 8, fp = (f + 7) / 8 * 8;
   return with_family(family, [&](auto fam) {
     using Fam = typename decltype(fam)::type;
-    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2,
-                                      static_cast<bf16*>(hh),
+    if (int e = launch_split_operands(Fam::kHeads, h, w0, w1, w2, nullptr,
+                                      0, static_cast<bf16*>(hh),
                                       static_cast<bf16*>(wp), m, hidden, hp,
                                       f, fp, s))
       return e;

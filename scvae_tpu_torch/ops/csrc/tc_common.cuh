@@ -1,6 +1,7 @@
-// The tensor-core ring of the bf16 heads kernels: the forward and gradient
+// The tensor-core ring of the heads kernels: the forward and gradient
 // kernels of the base families (count_likelihood_tc.cu) and of the
-// categorised instances (categorised_likelihood_tc.cu), and the pass that
+// categorised instances (categorised_likelihood_tc.cu), bf16 and float32
+// (split into bf16 terms by split_pack_kernel, below), and the pass that
 // sums the forwards' row-sum partials in a fixed order.
 //
 // A block of 64 rows x 64 genes computes the products h W_k of NB heads at
@@ -72,12 +73,13 @@ struct TcOperands {
   long long w_block = 0;
 };
 
-// The split-bf16 products of float32 operands (the base families' float32
-// K2/K3 in count_likelihood_tc.cu): each float32 operand x as kSplitTerms
-// bf16 terms, x_0 = bf16(x), x_k = bf16(x - x_0 - ... - x_(k-1)), and a
-// product x y as the pairs of terms (x_i, y_j) with i + j < kSplitTerms, by
-// i then j (fused_likelihood.SPLIT_TERMS and SPLIT_PAIRS).  The first
-// kSplitTerms pairs are (0, j), so pair j < kSplitTerms has second term j.
+// The split-bf16 products of float32 operands (the float32 K2/K3 of
+// count_likelihood_tc.cu and categorised_likelihood_tc.cu): each float32
+// operand x as kSplitTerms bf16 terms, x_0 = bf16(x), x_k = bf16(x - x_0 -
+// ... - x_(k-1)), and a product x y as the pairs of terms (x_i, y_j) with
+// i + j < kSplitTerms, by i then j (fused_likelihood.SPLIT_TERMS and
+// SPLIT_PAIRS).  The first kSplitTerms pairs are (0, j), so pair j <
+// kSplitTerms has second term j.
 constexpr int kSplitTerms = 3;
 constexpr int kSplitPairs = kSplitTerms * (kSplitTerms + 1) / 2;
 
@@ -370,6 +372,93 @@ int launch_reduce(const float* part, int n_slices, int n, float* out,
   reduce_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kTcReduceThreads, 0,
                   stream>>>(part, n_slices, n, out);
   return (int)cudaGetLastError();
+}
+
+constexpr int kPackThreads = 256;
+constexpr int kPackCols = 8;  // columns of a thread: one 16-byte store a pair
+
+// The float32 kernels' operands in their pair layouts: for each of the
+// n_src float32 matrices src_k (rows x cols, row-major; src_k = s0 + k
+// stride for a stride > 0, else s0, s1, s2),
+//   dst[r ld_row + p ld_pair + k ld_src + c] = term j of src_k[r][c]
+// for each pair p = (i, j), zero where r >= rows or c >= cols, over
+// rows_p x cols_p (the padded widths, cols_p and the strides multiples of
+// 8).  A thread per 8 columns of a row: its float32 reads coalesce along
+// the row, and it stores each pair's 8 terms as one 16-byte write.  Its
+// plain version is fused_likelihood._f32_tc_operands.
+__global__ void __launch_bounds__(kPackThreads)
+    split_pack_kernel(const float* __restrict__ s0,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ s2, long long stride,
+                      int n_src, int rows, int cols, int rows_p, int cols_p,
+                      bf16* __restrict__ dst, long long ld_row,
+                      long long ld_pair, long long ld_src) {
+  const int chunks = cols_p / kPackCols;
+  const long long per = (long long)rows_p * chunks;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < per * n_src; e += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(e / per);
+    const long long rc = e - k * per;
+    const int r = (int)(rc / chunks);
+    const int c0 = (int)(rc - (long long)r * chunks) * kPackCols;
+    const float* src =
+        (stride > 0 ? s0 + k * stride : (k == 0 ? s0 : (k == 1 ? s1 : s2)))
+        + (long long)r * cols;
+    uint32_t words[kSplitPairs][kPackCols / 2];  // two bf16 terms each
+#pragma unroll
+    for (int q = 0; q < kPackCols; ++q) {
+      const int c = c0 + q;
+      bf16 term[kSplitTerms];
+      split_terms(r < rows && c < cols ? src[c] : 0.0f, term);
+#pragma unroll
+      for (int p = 0; p < kSplitPairs; ++p) {
+        const uint32_t bits = __bfloat16_as_ushort(term[split_second(p)]);
+        if (q % 2 == 0)
+          words[p][q / 2] = bits;
+        else
+          words[p][q / 2] |= bits << 16;
+      }
+    }
+    bf16* base = dst + r * ld_row + k * ld_src + c0;
+#pragma unroll
+    for (int p = 0; p < kSplitPairs; ++p)
+      *reinterpret_cast<uint4*>(base + p * ld_pair) =
+          make_uint4(words[p][0], words[p][1], words[p][2], words[p][3]);
+  }
+}
+
+// h (m, hidden) into its terms per pair (m, P, hp), and the heads' W
+// (hidden, f) into theirs (hp, P, NH, fp), NH = n_base + n_classes: the
+// n_base base heads w0, w1, w2 (null past n_base), then the classes of
+// the class-major cat_w (n_classes, hidden, f).
+int launch_split_operands(int n_base, const float* h, const float* w0,
+                          const float* w1, const float* w2,
+                          const float* cat_w, int n_classes, bf16* hh,
+                          bf16* wp, int m, int hidden, int hp, int f, int fp,
+                          cudaStream_t stream) {
+  auto launch = [&](const float* s0, const float* s1, const float* s2,
+                    long long stride, int n_src, int rows, int cols,
+                    int rows_p, int cols_p, bf16* dst, long long ld_row,
+                    long long ld_pair, long long ld_src) {
+    const long long n = (long long)rows_p * (cols_p / kPackCols) * n_src;
+    if (n == 0) return 0;
+    const long long blocks = (n + kPackThreads - 1) / kPackThreads;
+    split_pack_kernel<<<blocks < 132 * 16 ? blocks : 132 * 16, kPackThreads,
+                        0, stream>>>(s0, s1, s2, stride, n_src, rows, cols,
+                                     rows_p, cols_p, dst, ld_row, ld_pair,
+                                     ld_src);
+    return (int)cudaGetLastError();
+  };
+  if (int err = launch(h, h, h, 0, 1, m, hidden, m, hp, hh,
+                       (long long)kSplitPairs * hp, hp, 0))
+    return err;
+  const long long width = (long long)(n_base + n_classes) * fp;
+  if (int err = launch(w0, w1, w2, 0, n_base, hidden, f, hp, fp, wp,
+                       kSplitPairs * width, width, fp))
+    return err;
+  return launch(cat_w, cat_w, cat_w, (long long)hidden * f, n_classes,
+                hidden, f, hp, fp, wp + (long long)n_base * fp,
+                kSplitPairs * width, width, fp);
 }
 
 }  // namespace

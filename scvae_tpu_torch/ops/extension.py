@@ -19,9 +19,10 @@ import torch
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
-SOURCES = ("gather.cu", "count_likelihood_tc.cu", "tc_product.cu", "cp_likelihood.cu", "cp_likelihood_tc.cu",
-           "categorised_likelihood.cu", "categorised_likelihood_tc.cu",
-           "grouped_likelihood.cu", "grouped_likelihood_tc.cu")
+SOURCES = ("gather.cu", "count_likelihood_tc.cu", "tc_product.cu",
+           "cp_likelihood.cu", "cp_likelihood_tc.cu",
+           "categorised_likelihood_tc.cu", "grouped_likelihood.cu",
+           "grouped_likelihood_tc.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
 
@@ -58,6 +59,14 @@ _SIGNATURES = {
     # n_classes, stream
     "scvae_cat_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                               _I, _I, _I, _P],
+    # family, h, w0, w1, w2, cat_w, b, t, t_dtype, hh, wp, part, out, lse, m,
+    # m_t, hidden, f, n_classes, stream
+    "scvae_cat_tc_f32_forward": [_I] + [_P] * 7 + [_I] + [_P] * 5 + [_I] * 5
+                                + [_P],
+    # family, g, h, w0, w1, w2, cat_w, b, t, t_dtype, lse, hh, wp, da,
+    # db_part, m, m_t, hidden, f, n_classes, stream
+    "scvae_cat_tc_f32_gradient": [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_I] * 5
+                                 + [_P],
     # da, w, dh, m, hidden, hp, k, splits, tiles_per_split, promote, stream
     "scvae_tc_dh": [_P, _P, _P] + [_I] * 7 + [_P],
     # h, da, db_part, dw, db, n_heads, m, hidden, hp, f, splits,
@@ -77,18 +86,6 @@ _SIGNATURES = {
     # g, h, w, b, t, t_dtype, lse, sx, da, db_part, m, m_t, hp, f, stream
     "scvae_cp_tc_gradient": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
-    # family, h, heads, cw, cb, n_classes, t, t_dtype, out, lse, m, m_t,
-    # hidden, f, round, stream
-    "scvae_cat_forward": [_I, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P, _I, _I,
-                          _I, _I, _I, _P],
-    # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dh, m, m_t,
-    # hidden, f, stream (float32 only)
-    "scvae_cat_backward_dh": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P, _P,
-                              _I, _I, _I, _I, _P],
-    # family, g, h, heads, cw, cb, n_classes, t, t_dtype, lse, dw0, db0, dw1,
-    # db1, dw2, db2, dcw, dcb, m, m_t, hidden, f, stream (float32 only)
-    "scvae_cat_backward_dw": [_I, _P, _P, *_HEADS, _P, _P, _I, _P, _I, _P,
-                              *_HEADS, _P, _P, _I, _I, _I, _I, _P],
     # family, g, h, w, b, t, t_dtype, da, db_part, n_groups, m, hp, f,
     # w_chunk, stream
     "scvae_grouped_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,

@@ -23,11 +23,10 @@ recomputes them tile by tile.  Counterpart of
   ``ops/csrc/cp_likelihood_tc.cu``);
 * the categorised instances of K2/K3 — a base family plus K + 1 class-logit
   heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
-  — have their own forward, dh and dW kernels for up to
-  :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood.cu``),
-  and with bf16 a tensor-core backward
-  (``ops/csrc/categorised_likelihood_tc.cu``, then the products of
-  ``ops/csrc/tc_product.cu``);
+  — have their own forward and gradient kernel on the tensor cores for up
+  to :data:`MAX_FUSED_HEADS` heads (``ops/csrc/categorised_likelihood_tc.cu``,
+  then the products of ``ops/csrc/tc_product.cu``), in float32 on three
+  bf16 terms of h, W and da as the base families';
 * the grouped kernels K4/K5 take h (G, M, H) against targets t (M, F) shared
   by the G groups, with the group loop inside the kernel and lgamma(1 + t)
   always subtracted (``ops/csrc/grouped_likelihood.cu``), for the base
@@ -223,25 +222,22 @@ MAX_FUSED_HEADS = 32
 MAX_FUSED_GROUPS = 16
 
 # Kernel launches, counted where each kernel is launched and nowhere else.
-# The bf16 K2/K3 (tensor cores) count as "<prefix>_<kernel>" (prefix
-# "cat_<family>" for the categorised instances), their backward's first
-# kernel as "<prefix>_backward_gradient" and its products as
-# "<prefix>_backward_dh" / "_dw"; the float32 instances as
-# "<prefix>_<kernel>_float32" (the base families' also
-# "<prefix>_backward_gradient_float32": their float32 backward is a
-# gradient kernel and the products too).  The grouped kernels count under the prefix
+# K2/K3 (tensor cores) count as "<prefix>_<kernel>" (prefix "cat_<family>"
+# for the categorised instances): the forward as "_forward", the backward's
+# gradient kernel as "_backward_gradient" and its products as
+# "_backward_dh" / "_backward_dw"; the float32 instances with the
+# "_float32" suffix.  The grouped kernels count under the prefix
 # "<family>_grouped": K4 as "_forward" (either dtype), the bf16 K5 as
 # "_backward_gradient", "_backward_dh", "_backward_dw", its float32 passes
-# with the "_float32" suffix.
+# with the "_float32" suffix.  CP's as "cp_<kernel>" (float32 h: the
+# forward, dh and dW passes with the "_float32" suffix).
 _KERNELS = ("forward", "backward_dh", "backward_dw")
 LAUNCHES = {
-    name: 0
+    f"{prefix}_{kernel}{suffix}": 0
     for fam in FAMILIES.values()
     for prefix in (fam.prefix, f"cat_{fam.prefix}")
-    for name in (
-        [f"{prefix}_{kernel}{suffix}" for kernel in _KERNELS
-         for suffix in ("", "_float32")]
-        + [f"{prefix}_backward_gradient"])
+    for kernel in (*_KERNELS, "backward_gradient")
+    for suffix in ("", "_float32")
 } | {
     f"{fam.prefix}_grouped_{kernel}": 0
     for fam in FAMILIES.values()
@@ -249,8 +245,6 @@ LAUNCHES = {
                    "backward_dw", "backward_dh_float32",
                    "backward_dw_float32")
 }
-LAUNCHES.update({f"{fam.prefix}_backward_gradient_float32": 0
-                 for fam in FAMILIES.values()})
 LAUNCHES.update({f"cp_{kernel}{suffix}": 0 for kernel in _KERNELS
                  for suffix in ("", "_float32")})
 LAUNCHES["cp_backward_gradient"] = 0
@@ -458,6 +452,14 @@ def _class_count(cat_w) -> int:
     return cat_w.shape[0] - 1
 
 
+def _categorised_ll_lse(name, base_acts, cat_acts, t):
+    """Per-element log-likelihood and lse of the categorised instance from
+    its base heads' and classes' activations."""
+    a_sel, lse = cat_select_and_lse(cat_acts, t)
+    ll = a_sel - lse + _shifted_base_ll(name, len(cat_acts) - 1, base_acts, t)
+    return ll, lse
+
+
 def _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
                           compute_dtype):
     """Per-element log-likelihood and lse (M, F) of the categorised
@@ -465,11 +467,8 @@ def _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
     n_base = len(FAMILIES[name].heads)
     _, acts = _activations(h, [*weights, *cat_w], [*biases, *cat_b],
                            compute_dtype)
-    tt = _cycle_rows(t.float(), h.shape[0])
-    a_sel, lse = cat_select_and_lse(acts[n_base:], tt)
-    ll = a_sel - lse + _shifted_base_ll(name, _class_count(cat_w),
-                                        acts[:n_base], tt)
-    return ll, lse
+    return _categorised_ll_lse(name, acts[:n_base], acts[n_base:],
+                               _cycle_rows(t.float(), h.shape[0]))
 
 
 def reference_categorised_forward(name, h, weights, biases, cat_w, cat_b, t,
@@ -835,12 +834,17 @@ def reference_cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
     _family_heads(name, weights, biases)
     ll, lse = _categorised_elements(name, h, weights, biases, cat_w, cat_b, t,
                                     torch.bfloat16)
+    return _gene_tile_sums(ll), lse
+
+
+def _gene_tile_sums(ll):
+    """The forwards' row-sum partials (F tiles, M) of elements ``ll``."""
     m, f = ll.shape
     tiles = _cdiv(f, TC_GENE_TILE)
     padded = torch.zeros((m, tiles * TC_GENE_TILE), dtype=torch.float32,
                          device=ll.device)
     padded[:, :f] = ll
-    return padded.reshape(m, tiles, TC_GENE_TILE).sum(-1).T, lse
+    return padded.reshape(m, tiles, TC_GENE_TILE).sum(-1).T
 
 
 @dataclasses.dataclass
@@ -1243,9 +1247,11 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
 
 
 # --------------------------------------------------------------------------
-# float32 K2 / K3 of the base families on the tensor cores
-# (ops/csrc/count_likelihood_tc.cu's heads kernels over depth segments, then
-# the products of tc_product.cu)
+# float32 K2 / K3 on the tensor cores: the base families'
+# (ops/csrc/count_likelihood_tc.cu's heads kernels over depth segments) and
+# the categorised instances' (categorised_likelihood_tc.cu's forward and
+# gradient kernel over the same segments, the base heads then the classes,
+# NH = base heads + K + 1), then the products of tc_product.cu
 #
 # JAX multiplies float32 h and W, and the backward the float32 da.  So each
 # goes to the tensor cores as SPLIT_TERMS = 3 bf16 terms (split_bf16; the
@@ -1297,16 +1303,20 @@ def f32_tc_plan(m: int, hidden: int, f: int, n_heads: int,
     return plan
 
 
-def _f32_tc_operands(h, weights):
+def _f32_tc_operands(h, weights, cat_w=None):
     """h's bf16 terms per pair (M, P, Hp) and the heads' W terms per pair
-    (Hp, P, NH, Fp), zero-padded: the plain version of the split that the
+    (Hp, P, NH, Fp), zero-padded, the base heads, then the class heads
+    ``cat_w`` (C, H, F) if given: the plain version of the split that the
     float32 kernels' entries make (``split_pack_kernel``)."""
     m, hidden = h.shape
     f = weights[0].shape[1]
     hp, fp = tc_padded(hidden), tc_padded(f)
     h_terms = split_bf16(h, SPLIT_TERMS)
     hh = torch.stack([h_terms[j] for _, j in SPLIT_PAIRS], 1)
-    w_terms = split_bf16(torch.stack(list(weights), 1), SPLIT_TERMS)
+    w = torch.stack(list(weights), 1)
+    if cat_w is not None:
+        w = torch.cat([w, cat_w.permute(1, 0, 2)], 1)
+    w_terms = split_bf16(w, SPLIT_TERMS)
     w = torch.stack([w_terms[j] for _, j in SPLIT_PAIRS], 1)
     if hp != hidden:
         hh = torch.nn.functional.pad(hh, (0, hp - hidden))
@@ -1349,13 +1359,20 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     of the unrounded da per row tile (row tiles, NH·Fp); h's terms per pair
     as the dW product reads them (P·M, Hp), and W's (Hp, P, NH, Fp)."""
     fam = _family_heads(name, weights, biases)
-    m, hidden = h.shape
-    f = t.shape[-1]
-    n_heads = len(weights)
-    plan = f32_tc_plan(m, hidden, f, n_heads)
-    hh, w = _f32_tc_operands(h, weights)
     acts = _f32_tc_activations(h, weights, biases)
-    gs = fam.grads(*acts, _cycle_rows(t.float(), m))
+    gs = fam.grads(*acts, _cycle_rows(t.float(), h.shape[0]))
+    return _f32_tc_reference_scratch(fam.prefix, g, h, weights, gs,
+                                     t.shape[-1])
+
+
+def _f32_tc_reference_scratch(prefix, g, h, weights, gs, f,
+                              cat_w=None) -> TcGradient:
+    """The float32 gradient kernels' outputs in their layout from the
+    per-head ∂ll/∂a ``gs`` (base heads, then the classes of ``cat_w``)."""
+    m, hidden = h.shape
+    n_heads = len(gs)
+    plan = f32_tc_plan(m, hidden, f, n_heads)
+    hh, w = _f32_tc_operands(h, weights, cat_w)
     fp = plan["fp"]
     padded = torch.zeros((m, n_heads, fp), dtype=torch.float32,
                          device=h.device)
@@ -1367,8 +1384,32 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
                        dtype=torch.float32, device=h.device)
     rows[:m] = padded.reshape(m, -1)
     db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
-    return TcGradient(fam.prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
+    return TcGradient(prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
                       w, da.reshape(plan["da"]), db_parts, "_float32")
+
+
+def reference_cat_f32_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
+    """Plain version of :func:`cat_f32_tc_forward`: (row sums (M,), lse
+    (M, F), the row sums per gene tile (F tiles, M)) from the split
+    design's activations, the base heads' then the classes'."""
+    n_base = len(_family_heads(name, weights, biases).heads)
+    acts = _f32_tc_activations(h, [*weights, *cat_w], [*biases, *cat_b])
+    ll, lse = _categorised_ll_lse(name, acts[:n_base], acts[n_base:],
+                                  _cycle_rows(t.float(), h.shape[0]))
+    return ll.sum(-1), lse, _gene_tile_sums(ll)
+
+
+def reference_cat_f32_tc_gradient(name, g, h, weights, biases, cat_w, cat_b,
+                                  t, lse) -> TcGradient:
+    """Plain version of :func:`cat_f32_tc_gradient`, with its layout (see
+    :func:`reference_f32_tc_gradient`): every head's da, the base heads'
+    then the classes' (their softmax from the forward's ``lse``)."""
+    fam = _family_heads(name, weights, biases)
+    acts = _f32_tc_activations(h, [*weights, *cat_w], [*biases, *cat_b])
+    gs = categorised_grads(name, _class_count(cat_w))(
+        acts, _cycle_rows(t.float(), h.shape[0]), lse)
+    return _f32_tc_reference_scratch(f"cat_{fam.prefix}", g, h, weights, gs,
+                                     t.shape[-1], cat_w)
 
 
 def _f32_tc_scratch(plan, m, n_heads, device):
@@ -1436,6 +1477,67 @@ def f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     LAUNCHES[f"{fam.prefix}_backward_gradient_float32"] += 1
     return TcGradient(fam.prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
                       w, da, db_parts, "_float32")
+
+
+def cat_f32_tc_forward(name, h, weights, biases, cat_w, cat_b, t):
+    """Launch the categorised float32 K2 over base ``name`` on the tensor
+    cores: h and every head's W (the base heads, then the classes of
+    ``cat_w`` (C, H, F)) split into their bf16 terms per pair, then (row
+    sums (M,), lse (M, F), the row-sum partials per gene tile (F tiles,
+    M)) of the terms multiplied pair by pair."""
+    fam, h, weights, biases, t, (cat_w, cat_b) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t)
+    m, hidden = h.shape
+    f = t.shape[1]
+    n_heads = len(weights) + cat_w.shape[0]
+    plan = f32_tc_plan(m, hidden, f, n_heads)
+    dev = h.device
+    hh, w = _f32_tc_scratch(plan, m, n_heads, dev)
+    b = torch.cat([torch.stack(biases), cat_b])
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    lse = torch.empty((m, f), dtype=torch.float32, device=dev)
+    part = torch.empty(plan["row_sums"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cat_tc_f32_forward", dev, fam.code, h.data_ptr(),
+        *_weight_pointers(weights), cat_w.data_ptr(), b.data_ptr(),
+        t.data_ptr(), _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(),
+        part.data_ptr(), out.data_ptr(), lse.data_ptr(), m, t.shape[0],
+        hidden, f, cat_w.shape[0],
+    )
+    LAUNCHES[f"cat_{fam.prefix}_forward_float32"] += 1
+    return out, lse, part
+
+
+def cat_f32_tc_gradient(name, g, h, weights, biases, cat_w, cat_b, t,
+                        lse) -> TcGradient:
+    """Launch the categorised float32 K3's first kernel over base ``name``
+    for row cotangents ``g``: h and every head's W split into their bf16
+    terms per pair, the activations as the forward summed them, every
+    head's da (the classes' softmax from the forward's ``lse``) as bf16
+    terms per pair and its column sums per row tile, for :func:`tc_dh` and
+    :func:`tc_dw_stacked` (counted with the "_float32" suffix)."""
+    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
+        name, h, weights, biases, cat_w, cat_b, t, g, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    n_heads = len(weights) + cat_w.shape[0]
+    plan = f32_tc_plan(m, hidden, f, n_heads)
+    dev = h.device
+    hh, w = _f32_tc_scratch(plan, m, n_heads, dev)
+    b = torch.cat([torch.stack(biases), cat_b])
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cat_tc_f32_gradient", dev, fam.code, g.data_ptr(),
+        h.data_ptr(), *_weight_pointers(weights), cat_w.data_ptr(),
+        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], lse.data_ptr(),
+        hh.data_ptr(), w.data_ptr(), da.data_ptr(), db_parts.data_ptr(), m,
+        t.shape[0], hidden, f, cat_w.shape[0],
+    )
+    LAUNCHES[f"cat_{fam.prefix}_backward_gradient_float32"] += 1
+    return TcGradient(f"cat_{fam.prefix}", plan, hidden, f,
+                      hh.reshape(-1, plan["hp"]), w, da, db_parts,
+                      "_float32")
 
 
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
@@ -1615,109 +1717,32 @@ def _checked_categorised(name, h, weights, biases, cat_w, cat_b, t, g=None,
 def categorised_forward(name, h, weights, biases, cat_w, cat_b, t, *,
                         compute_dtype=None):
     """(row sums (M,), per-element lse (M, F)) of the categorised instance
-    over base ``name``: its K2 kernel on CUDA (bf16: the tensor-core kernel;
-    float32: the CUDA-core one), the plain version on the CPU."""
+    over base ``name``: its K2 kernel on CUDA (bf16: on bf16 operands;
+    float32: on their bf16 terms), the plain version on the CPU."""
     if not h.is_cuda:
         return reference_categorised_forward(name, h, weights, biases, cat_w,
                                              cat_b, t,
                                              compute_dtype=compute_dtype)
-    if _round_flag(compute_dtype):
-        return cat_tc_forward(name, h, weights, biases, cat_w, cat_b, t)[:2]
-    fam, h, weights, biases, t, (cat_w, cat_b) = _checked_categorised(
-        name, h, weights, biases, cat_w, cat_b, t)
-    m, hidden = h.shape
-    f = t.shape[1]
-    out = torch.empty((m,), dtype=torch.float32, device=h.device)
-    lse = torch.empty((m, f), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return out, lse
-    extension.call(
-        "scvae_cat_forward", h.device, fam.code, h.data_ptr(),
-        *_head_pointers(weights, biases), cat_w.data_ptr(), cat_b.data_ptr(),
-        cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype], out.data_ptr(),
-        lse.data_ptr(), m, t.shape[0], hidden, f, 0,
-    )
-    LAUNCHES[f"cat_{fam.prefix}_forward_float32"] += 1
-    return out, lse
-
-
-def _float32_only(compute_dtype):
-    if _round_flag(compute_dtype):
-        raise ValueError("the categorised bf16 backward on CUDA computes dh "
-                         "and dW together: call categorised_backward")
-
-
-def categorised_backward_dh(name, g, h, weights, biases, cat_w, cat_b, t, lse,
-                            *, compute_dtype=None):
-    """dh (M, H) of the categorised instance: its float32 dh kernel on
-    CUDA, the plain version on the CPU.  The bf16 backward on CUDA is
-    :func:`categorised_backward`'s, whose kernels give dh and dW together."""
-    if not h.is_cuda:
-        return reference_categorised_dh(name, g, h, weights, biases, cat_w,
-                                        cat_b, t, lse,
-                                        compute_dtype=compute_dtype)
-    _float32_only(compute_dtype)
-    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
-        name, h, weights, biases, cat_w, cat_b, t, g, lse)
-    m, hidden = h.shape
-    dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return dh
-    extension.call(
-        "scvae_cat_backward_dh", h.device, fam.code, g.data_ptr(),
-        h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
-        cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-    )
-    LAUNCHES[f"cat_{fam.prefix}_backward_dh_float32"] += 1
-    return dh
-
-
-def categorised_backward_dw(name, g, h, weights, biases, cat_w, cat_b, t, lse,
-                            *, compute_dtype=None):
-    """(dW_0, db_0, …, dW_classes (K+1, H, F), db_classes (K+1, F)) of the
-    categorised instance: its float32 dW kernel on CUDA, the plain version
-    on the CPU.  The bf16 backward on CUDA is :func:`categorised_backward`'s."""
-    if not h.is_cuda:
-        return reference_categorised_dw(name, g, h, weights, biases, cat_w,
-                                        cat_b, t, lse,
-                                        compute_dtype=compute_dtype)
-    _float32_only(compute_dtype)
-    fam, h, weights, biases, t, (g, cat_w, cat_b, lse) = _checked_categorised(
-        name, h, weights, biases, cat_w, cat_b, t, g, lse)
-    m, hidden = h.shape
-    f = t.shape[1]
-    empty = lambda *shape: torch.empty(  # noqa: E731
-        shape, dtype=torch.float32, device=h.device)
-    out = [empty(*shape) for _ in fam.heads for shape in ((hidden, f), (f,))]
-    out += [empty(*cat_w.shape), empty(*cat_b.shape)]
-    if f == 0:
-        return tuple(out)
-    base = [x.data_ptr() for x in out[:-2]]
-    base += [None] * (2 * _MAX_HEADS - len(base))
-    extension.call(
-        "scvae_cat_backward_dw", h.device, fam.code, g.data_ptr(),
-        h.data_ptr(), *_head_pointers(weights, biases), cat_w.data_ptr(),
-        cat_b.data_ptr(), cat_w.shape[0], t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), *base, out[-2].data_ptr(), out[-1].data_ptr(), m,
-        t.shape[0], hidden, f,
-    )
-    LAUNCHES[f"cat_{fam.prefix}_backward_dw_float32"] += 1
-    return tuple(out)
+    forward = cat_tc_forward if _round_flag(compute_dtype) else (
+        cat_f32_tc_forward)
+    return forward(name, h, weights, biases, cat_w, cat_b, t)[:2]
 
 
 def categorised_backward(name, g, h, weights, biases, cat_w, cat_b, t, lse, *,
                          compute_dtype=None):
-    """(dh, dW_0, db_0, …, dW_classes, db_classes) of the categorised
-    instance for the row cotangents ``g`` (M,) and the forward's per-element
-    ``lse``: with bf16 on CUDA the tensor-core gradient kernel once, then
-    the dh and dW products of its da; with float32 on CUDA the two
-    CUDA-core passes; the plain versions on the CPU."""
+    """(dh, dW_0, db_0, …, dW_classes (K+1, H, F), db_classes (K+1, F)) of
+    the categorised instance for the row cotangents ``g`` (M,) and the
+    forward's per-element ``lse``: on CUDA the tensor-core gradient kernel
+    once (bf16 operands, or in float32 their bf16 terms), then the dh and
+    dW products of its da; the plain versions on the CPU."""
     args = (name, g, h, weights, biases, cat_w, cat_b, t, lse)
-    if not (h.is_cuda and _round_flag(compute_dtype)):
-        return (categorised_backward_dh(*args, compute_dtype=compute_dtype),
-                *categorised_backward_dw(*args, compute_dtype=compute_dtype))
-    grad = cat_tc_gradient(*args)
+    if not h.is_cuda:
+        return (reference_categorised_dh(*args, compute_dtype=compute_dtype),
+                *reference_categorised_dw(*args,
+                                          compute_dtype=compute_dtype))
+    gradient = cat_tc_gradient if _round_flag(compute_dtype) else (
+        cat_f32_tc_gradient)
+    grad = gradient(*args)
     dw, db = tc_dw_stacked(grad)
     n_base = len(weights)
     return (tc_dh(grad), *(x for k in range(n_base) for x in (dw[k], db[k])),

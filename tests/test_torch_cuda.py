@@ -22,8 +22,12 @@ dW products against the plain products of the kernel's own da at 2e-5.
 The float32 instance is held the same way against its plain version in the
 split layout (``reference_f32_tc_gradient``): da's first term within one
 bf16 step, the sum of its terms at 2e-5, and every output against the
-float32 plain versions at 2e-5.  The categorised bf16 backward (``categorised_likelihood_tc.cu`` and the
-same products) is held the same way at 14 and 32 heads for every base, and
+float32 plain versions at 2e-5.  The categorised bf16 backward
+(``categorised_likelihood_tc.cu`` and the same products) is held the same
+way at 14 and 32 heads for every base, and its float32 forward and backward
+(the same kernels on three bf16 terms of h, W and da) kernel by kernel
+against their split plain versions, also with a scratch past 32-bit
+offsets, and
 the product kernel alone at full and ragged tiles in both layouts, with and
 without promoted sums, and bit for bit over two runs; the categorised bf16
 forward (``categorised_likelihood_tc.cu``) at 32 heads for every base, its
@@ -577,11 +581,6 @@ def test_categorised_kernels_match_plain(device, name, k_max, m, m_t, hidden,
             *ops.reference_categorised_dw(name, g, *args, lse,
                                           compute_dtype=compute))
     assert len(got) == len(want) == 2 * len(ws) + 3
-    if compute is not None:  # bf16 dh and dW come from one backward only
-        for part in (ops.categorised_backward_dh,
-                     ops.categorised_backward_dw):
-            with pytest.raises(ValueError, match="categorised_backward"):
-                part(name, g, *args, lse, compute_dtype=compute)
     for a, b in zip(got, want):
         assert a.shape == b.shape
         _close(a, b, rtol)
@@ -599,8 +598,7 @@ def test_categorised_backward_matches_autograd(device, name, k_max, m, m_t,
         leaves[-2], leaves[-1], t)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
     _, lse = ops.categorised_forward(name, h, ws, bs, cw, cb, t)
-    got = (ops.categorised_backward_dh(name, g, h, ws, bs, cw, cb, t, lse),
-           *ops.categorised_backward_dw(name, g, h, ws, bs, cw, cb, t, lse))
+    got = ops.categorised_backward(name, g, h, ws, bs, cw, cb, t, lse)
     # got: dh, dW_0, db_0, …, dW_classes, db_classes;
     # want: dh, dW_0, …, db_0, …, dW_classes, db_classes
     order = ([0] + [x for i in range(k) for x in (1 + i, 1 + k + i)]
@@ -611,17 +609,15 @@ def test_categorised_backward_matches_autograd(device, name, k_max, m, m_t,
 
 def test_categorised_function_and_counts(device):
     """The autograd Function launches each categorised kernel once per
-    forward and backward, over rows cycling on shared targets: in bf16 the
-    tensor-core forward, gradient kernel and products; in float32 the
-    CUDA-core forward and passes, under their own counters."""
+    forward and backward, over rows cycling on shared targets: the
+    tensor-core forward, gradient kernel and products, in float32 under
+    their own counters with the "_float32" suffix."""
     name = "zero-inflated negative binomial"
     h0, ws, bs, cw0, cb0, t, g = _cat_case(device, name, 10, 48, 16, 32, 70,
                                            torch.bfloat16, seed=2)
-    for compute, kernels in (
-            (torch.bfloat16, ("forward", "backward_gradient", "backward_dh",
-                              "backward_dw")),
-            (None, ("forward_float32", "backward_dh_float32",
-                    "backward_dw_float32"))):
+    for compute, suffix in ((torch.bfloat16, ""), (None, "_float32")):
+        kernels = [f"{kernel}{suffix}" for kernel in (
+            "forward", "backward_gradient", "backward_dh", "backward_dw")]
         h = h0.reshape(3, 16, 32).clone().requires_grad_(True)
         heads = {p: {"kernel": w.clone().requires_grad_(True),
                      "bias": b.clone().requires_grad_(True)}
@@ -774,6 +770,104 @@ def test_categorised_tensor_core_kernels(device, name, n_heads):
                                 for x in (dw[k], db[k])),
                           dw[n_base:], db[n_base:]), strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("n_heads", [14, 32])
+@pytest.mark.parametrize("m,m_t,hidden,f", [(300, 30, 256, 2000),
+                                            (37, 37, 21, 301)])
+def test_categorised_float32_tensor_core_kernels(device, name, n_heads, m,
+                                                 m_t, hidden, f):
+    """The categorised float32 design kernel by kernel against its plain
+    versions in the split layout, on targets spread over the classes and
+    past K: the forward's row sums, lse and row-sum partials at 2e-5, bit
+    for bit over two runs; the pack of h and of every head's W (the
+    class-major weights at a stride) bit for bit; the gradient kernel's
+    scratch (``_check_split_scratch``) and row-tile sums; the dh and dW
+    products of its own scratch at 2e-5; the public calls are these kernels,
+    and lie within 2e-5 of the float32 plain versions."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    k_max = n_heads - len(ops.FAMILIES[name].heads) - 1
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, k_max, m, m_t, hidden,
+                                        f, torch.bfloat16, seed=9)
+    t[1::2] = torch.floor(t[1::2] / 3)  # below K as well
+    args = (name, h, ws, bs, cw, cb, t)
+    out, lse, part = fl.cat_f32_tc_forward(*args)
+    want_out, want_lse, want_part = fl.reference_cat_f32_tc_forward(*args)
+    assert part.shape == want_part.shape == fl.f32_tc_plan(
+        m, hidden, f, n_heads)["row_sums"]
+    for a, b in ((out, want_out), (lse, want_lse), (part, want_part)):
+        _close(a, b, 2e-5)
+    for a, b in zip((out, lse, part), fl.cat_f32_tc_forward(*args),
+                    strict=True):
+        assert torch.equal(a, b)
+    got = ops.categorised_forward(*args)
+    assert torch.equal(got[0], out) and torch.equal(got[1], lse)
+    ref_out, ref_lse = ops.reference_categorised_forward(*args)
+    _close(out, ref_out, 2e-5)
+    _close(lse, ref_lse, 2e-5)
+
+    bargs = (name, g, h, ws, bs, cw, cb, t, lse)
+    grad = fl.cat_f32_tc_gradient(*bargs)
+    plain = fl.reference_cat_f32_tc_gradient(*bargs)
+    assert grad.da.shape == plain.da.shape
+    _check_split_scratch(grad, plain)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    dh = fl.tc_dh(grad)
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw_stacked(grad)
+    want = fl.reference_tc_dw_stacked(grad)
+    _close(dw, want[0], 2e-5)
+    _close(db, want[1], 2e-5)
+    n_base = len(ws)
+    public = ops.categorised_backward(*bargs)
+    for a, b in zip(public, (dh, *(x for k in range(n_base)
+                                   for x in (dw[k], db[k])),
+                             dw[n_base:], db[n_base:]), strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(public, (ops.reference_categorised_dh(*bargs),
+                             *ops.reference_categorised_dw(*bargs)),
+                    strict=True):
+        _close(a, b, 2e-5)
+
+
+def test_categorised_float32_scratch_past_32_bit(device):
+    """Poisson-cat (32 heads) over 6,144 rows: the float32 gradient's
+    scratch holds 6 x 32 x 2,048 bf16 a row, 2.4e9 elements in all, past
+    32-bit offsets.  The public float32 forward and backward against the
+    float32 plain versions at 2e-5, and the scratch's last row, which lies
+    past 2^31, against the plain scratch's (da's first term within one bf16
+    step, the sum of its terms at 2e-5)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    name, m = "poisson", 6144
+    h, ws, bs, cw, cb, t, g = _cat_case(device, name, 30, m, 2048, 256, 2048,
+                                        torch.bfloat16, seed=10)
+    g = g / m
+    args = (name, h, ws, bs, cw, cb, t)
+    out, lse = ops.categorised_forward(*args)
+    ref_out, ref_lse = ops.reference_categorised_forward(*args)
+    _close(out, ref_out, 2e-5)
+    _close(lse, ref_lse, 2e-5)
+    bargs = (name, g, h, ws, bs, cw, cb, t, lse)
+    grad = fl.cat_f32_tc_gradient(*bargs)
+    assert grad.da.numel() > 2 ** 31
+    last = fl.reference_cat_f32_tc_gradient(
+        name, g[-64:], h[-64:], ws, bs, cw, cb, t[-64:], lse[-64:])
+    # slot p holds da's term i of pair p; the first pair of term i is (i, 0)
+    got, want = (z.da[-1].reshape(len(fl.SPLIT_PAIRS), -1)
+                 for z in (grad, last))
+    first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+    _within_one_bf16_step(got[0], want[0])
+    _close(sum(got[p].float() for p in first),
+           sum(want[p].float() for p in first), 2e-5)
+    del grad, last, got, want
+    got = ops.categorised_backward(*bargs)
+    want = (ops.reference_categorised_dh(*bargs),
+            *ops.reference_categorised_dw(*bargs))
+    for a, b in zip(got, want, strict=True):
+        _close(a, b, 2e-5)
 
 
 # (G, M, H, F) of the grouped kernels

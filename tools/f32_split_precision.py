@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Read the error of the base families' float32 K2/K3 on split-bf16
-products against the number of bf16 terms, from plain versions.
+"""Read the error of the float32 K2/K3 on split-bf16 products against the
+number of bf16 terms, from plain versions.
 
     python3 tools/f32_split_precision.py [--seeds 0 1 2]
         [--designs 1/1/1 2/2/2 3/3/2 3/3/3] [--families ...]
         [--device cpu|cuda] [--out PATH]
 
-The float32 K2/K3 (``ops/csrc/count_likelihood_tc.cu`` and the products of
-``tc_product.cu``) multiply float32 h, W and da as sums of bf16 terms
+``--families`` takes base families by name or counter prefix ("nb") and
+categorised instances as "cat_<prefix>:K" (``cat_zinb:10``: ZINB with K =
+10, 14 heads; ``cat_poisson:30``: 32 heads); by default the four bases.
+
+The float32 K2/K3 (``ops/csrc/count_likelihood_tc.cu`` and
+``categorised_likelihood_tc.cu``, then the products of ``tc_product.cu``)
+multiply float32 h, W and da as sums of bf16 terms
 (``fused_likelihood.split_bf16``).  A design "A/B/C" here splits h into A
 terms and W into B for the activations, and da into C terms for the dh and
 dW products (whose h and W take min(A, C) and min(B, C) terms); a product
@@ -16,8 +21,11 @@ j < Y and i + j < max(X, Y), summed in float32.  For each seed, family and
 design this computes the row sums of ll, dh, dW and db of the design and
 reads them as the kernel checks do: the max abs error over the largest
 |value| of the float32 plain versions (``reference_forward``,
-``reference_backward``), whose limit there is 2e-5.  The float32 plain
-versions' own error against float64 is read beside them.
+``reference_backward``; categorised: ``reference_categorised_forward``,
+``_dh`` and ``_dw``, the classes' dW and db stacked, the class softmax of
+both from the float32 plain forward's lse), whose limit there is 2e-5.
+The float32 plain versions' own error against float64 is read beside
+them.
 
 Two cases, made with numpy from the seed: "headline", the shape of
 ``chip_smoke.py`` (2,048 rows, decoder width 256, 2,048 genes, h ReLU of
@@ -27,7 +35,11 @@ Poisson(3) + 1 where nonzero, row cotangents N(0, 1) / 2,048); and
 target rows, width 256, 100 genes; heads three times Glorot, biases
 0.3·N(0, 1), Poisson(2) counts, cotangents N(0, 1)), where the activations
 reach the exponentials' clip and every error in a grows by the
-exponential.  The products here sum in float32, not in the tensor cores:
+exponential.  A categorised instance adds K + 1 class heads (the same
+scales) and targets as ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+make them: headline, every other row drawn as Poisson(K); steep,
+Poisson(K) with every other row a third of that.  The products here sum
+in float32, not in the tensor cores:
 the kernels' own summation is held by the card's checks.  Prints one line
 per case, seed, family and design, and writes every reading as JSON to
 ``--out`` (default ``build/f32_split_precision.json``).
@@ -51,14 +63,28 @@ CASES = {  # rows, target rows, width, genes, head scale, bias scale
 }
 
 
-def inputs(case: str, name: str, seed: int, device: torch.device):
+def parse_family(spec: str) -> tuple[str, int]:
+    """(base family name, K) of a ``--families`` entry; K = 0 for a base."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    prefixes = {fam.prefix: name for name, fam in fl.FAMILIES.items()}
+    if spec.startswith("cat_"):
+        prefix, k = spec[len("cat_"):].split(":")
+        return prefixes[prefix], int(k)
+    return prefixes.get(spec, spec), 0
+
+
+def inputs(case: str, name: str, k_max: int, seed: int,
+           device: torch.device):
+    """h, every head's W and b (the base heads, then K + 1 class heads),
+    targets and row cotangents."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
     m, m_t, hidden, f, scale, bias = CASES[case]
     rng = np.random.RandomState(seed)
     h = np.maximum(rng.standard_normal((m, hidden)), 0.0)
     limit = scale * (6.0 / (hidden + f)) ** 0.5
-    k = len(fl.FAMILIES[name].heads)
+    k = len(fl.FAMILIES[name].heads) + (k_max + 1 if k_max else 0)
     ws = [rng.uniform(-limit, limit, (hidden, f)) for _ in range(k)]
     bs = [bias * rng.standard_normal(f) for _ in range(k)]
     if case == "headline":
@@ -67,9 +93,13 @@ def inputs(case: str, name: str, seed: int, device: torch.device):
         rows = np.repeat(np.arange(m_t), per_row)
         cols = rng.randint(0, f, size=rows.shape[0])
         t[rows, cols] = rng.poisson(3.0, size=rows.shape[0]) + 1.0
+        if k_max:
+            t[1::2] = rng.poisson(float(k_max), t[1::2].shape)
         g = rng.standard_normal(m) / m
     else:
-        t = rng.poisson(2.0, (m_t, f))
+        t = rng.poisson(float(k_max) if k_max else 2.0, (m_t, f))
+        if k_max:
+            t[1::2] = np.floor(t[1::2] / 3)
         g = rng.standard_normal(m)
 
     def tensor(x):
@@ -97,25 +127,61 @@ def product(x_terms, y_terms, mm):
     return out
 
 
-def design_outputs(name, h, ws, bs, t, g, h_terms, w_terms, da_terms):
-    """ll row sums, dh, dW and db of one design, every product in float32."""
+def plain_outputs(name, k_max, h, ws, bs, t, g):
+    """The float32 plain versions' ll row sums, dh, dW and db (categorised:
+    the classes' dW and db stacked), and the row sums in float64."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    if not k_max:
+        exact = fl.reference_forward(
+            name, h.double(), [w.double() for w in ws],
+            [b.double() for b in bs], t.double())
+        return [fl.reference_forward(name, h, ws, bs, t),
+                *fl.reference_backward(name, g, h, ws, bs, t)], exact
+    n_base = len(fl.FAMILIES[name].heads)
+    heads = (ws[:n_base], bs[:n_base], torch.stack(ws[n_base:]),
+             torch.stack(bs[n_base:]), t)
+    ll, lse = fl.reference_categorised_forward(name, h, *heads)
+    exact, _ = fl.reference_categorised_forward(
+        name, h.double(), *([x.double() for x in part] for part in heads[:2]),
+        *(x.double() for x in heads[2:]))
+    return [ll, fl.reference_categorised_dh(name, g, h, *heads, lse),
+            *fl.reference_categorised_dw(name, g, h, *heads, lse)], exact
+
+
+def design_outputs(name, k_max, h, ws, bs, t, g, h_terms, w_terms,
+                   da_terms):
+    """ll row sums, dh, dW and db of one design, every product in float32
+    (categorised: the classes' dW and db stacked, their softmax from the
+    design's own lse)."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
     fam = fl.FAMILIES[name]
+    n_base = len(fam.heads)
     tt = fl._cycle_rows(t, h.shape[0])
     hs = split(h, h_terms)
     acts = [product(hs, split(w, w_terms), lambda x, y: x @ y) + b
             for w, b in zip(ws, bs)]
-    ll = (fam.ll(*acts, tt) - fl.lgamma(1.0 + tt)).sum(-1)
-    das = [gr * g[:, None] for gr in fam.grads(*acts, tt)]
+    if k_max:
+        ll, lse = fl._categorised_ll_lse(name, acts[:n_base], acts[n_base:],
+                                         tt)
+        gs = fl.categorised_grads(name, k_max)(acts, tt, lse)
+    else:
+        ll = fam.ll(*acts, tt) - fl.lgamma(1.0 + tt)
+        gs = fam.grads(*acts, tt)
+    das = [gr * g[:, None] for gr in gs]
     hp = hs[:min(h_terms, da_terms)]
     dh, grads = 0.0, []
     for w, da in zip(ws, das):
         d_terms = split(da, da_terms)
         wp = split(w, min(w_terms, da_terms))
         dh = dh + product(d_terms, wp, lambda x, y: x @ y.T)
-        grads += [product(hp, d_terms, lambda x, y: x.T @ y), da.sum(0)]
-    return [ll, dh, *grads]
+        grads.append((product(hp, d_terms, lambda x, y: x.T @ y), da.sum(0)))
+    base = [x for pair in grads[:n_base] for x in pair]
+    classes = ([torch.stack([dw for dw, _ in grads[n_base:]]),
+                torch.stack([db for _, db in grads[n_base:]])]
+               if k_max else [])
+    return [ll.sum(-1), dh, *base, *classes]
 
 
 def relative(got, want) -> float:
@@ -143,29 +209,31 @@ def main() -> int:
     readings = []
     for case in args.cases:
         for seed in args.seeds:
-            for name in families:
-                h, ws, bs, t, g = inputs(case, name, seed, device)
-                plain = [fl.reference_forward(name, h, ws, bs, t),
-                         *fl.reference_backward(name, g, h, ws, bs, t)]
-                exact = [fl.reference_forward(
-                    name, h.double(), [w.double() for w in ws],
-                    [b.double() for b in bs], t.double()).double()]
-                floor = relative(plain[0], exact[0])
+            for spec in families:
+                name, k_max = parse_family(spec)
+                h, ws, bs, t, g = inputs(case, name, k_max, seed, device)
+                plain, exact = plain_outputs(name, k_max, h, ws, bs, t, g)
+                floor = relative(plain[0], exact)
                 parts = ["ll", "dh"] + [f"{p}_{head}"
                                         for head in fl.FAMILIES[name].heads
                                         for p in ("dW", "db")]
+                if k_max:
+                    parts += ["dW_classes", "db_classes"]
+                label = f"{name} K={k_max}" if k_max else name
                 for design in args.designs:
                     terms = [int(x) for x in design.split("/")]
-                    got = design_outputs(name, h, ws, bs, t, g, *terms)
+                    got = design_outputs(name, k_max, h, ws, bs, t, g,
+                                         *terms)
                     errs = {p: relative(a, b)
-                            for p, a, b in zip(parts, got, plain)}
+                            for p, a, b in zip(parts, got, plain,
+                                               strict=True)}
                     worst = max(errs.values())
                     readings.append({
-                        "case": case, "seed": seed, "family": name,
+                        "case": case, "seed": seed, "family": label,
                         "design": design, "error": errs,
                         "ll_float32_floor": floor,
                         "within_limit": worst <= LIMIT})
-                    print(f"{case} seed {seed} {name} {design}: worst "
+                    print(f"{case} seed {seed} {label} {design}: worst "
                           f"{worst:.3g} ("
                           + ", ".join(f"{p} {v:.3g}" for p, v in errs.items())
                           + f"; float32 ll against float64 {floor:.3g}); "

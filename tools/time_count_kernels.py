@@ -32,8 +32,11 @@ each):
   ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call;
 - the float32 K2/K3 of every base family at the headline shapes, as a
   VAE trained with ``precision="float32"`` calls them: ``fused_forward``
-  and ``fused_backward`` with no compute dtype, and each call's device
-  time by kernel from ``torch.profiler`` (alone with ``--float32``).
+  and ``fused_backward`` with no compute dtype; and of the categorised
+  instances of VAE-ZINB-cat and VAE-Poisson-cat likewise:
+  ``categorised_forward`` and ``categorised_backward`` (from the forward's
+  lse) with no compute dtype; each call's device time by kernel from
+  ``torch.profiler`` (alone with ``--float32``).
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -180,7 +183,9 @@ def kernel_ms(fn, flush, calls=10) -> dict:
 
 def time_float32(cs, ops, x, gen, flush) -> dict:
     """Every base family's float32 ``fused_forward`` and ``fused_backward``
-    at the headline shapes, and each call's device time by kernel."""
+    at the headline shapes, the categorised instances' float32
+    ``categorised_forward`` and ``categorised_backward``, and each call's
+    device time by kernel."""
     dev = x.device
     h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
                                device=dev))
@@ -200,6 +205,25 @@ def time_float32(cs, ops, x, gen, flush) -> dict:
                          for label, fn in calls.items()}
         float32[name]["kernels"] = {label: kernel_ms(fn, flush)
                                     for label, fn in calls.items()}
+    for name, k_max in cs.CATEGORISED:
+        t = cs.categorised_targets(x, k_max, gen)
+        n_base = len(ops.FAMILIES[name].heads)
+        ws, bs = cs.head_weights(gen, n_base + k_max + 1, cs.HIDDEN,
+                                 cs.N_GENES, dev)
+        heads = (ws[:n_base], bs[:n_base], torch.stack(ws[n_base:]),
+                 torch.stack(bs[n_base:]), t)
+        _, lse = ops.categorised_forward(name, h, *heads)
+        calls = {
+            "categorised_forward": lambda heads=heads, name=name: (
+                ops.categorised_forward(name, h, *heads)),
+            "categorised_backward": lambda heads=heads, name=name, lse=lse: (
+                ops.categorised_backward(name, g, h, *heads, lse)),
+        }
+        label = f"{name} K={k_max}"
+        float32[label] = {label_: cs.time_ms(fn, reps=10, flush=flush)
+                          for label_, fn in calls.items()}
+        float32[label]["kernels"] = {label_: kernel_ms(fn, flush)
+                                     for label_, fn in calls.items()}
     return float32
 
 
@@ -207,7 +231,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("root", nargs="?", default=REPO)
     parser.add_argument("--float32", action="store_true",
-                        help="time only the base families' float32 calls")
+                        help="time only the float32 calls")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     if not torch.cuda.is_available():
