@@ -7,8 +7,7 @@ Phases, each of which must pass (a failure raises and exits non-zero):
 
 1. card    — the GPU's name and power limit, torch and CUDA versions;
 2. build   — compile the kernels of ``scvae_tpu_torch/ops/csrc`` for sm_90a;
-3. kernels — every kernel of the training paths (and the float32 K6
-             and K7, which no training path launches)
+3. kernels — every kernel of the training paths
              against its plain PyTorch version on the same inputs at the
              headline shapes (68,579
              cells × 2,048 genes, minibatch 2,048, decoder width 256) for
@@ -22,7 +21,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              likelihood (Poisson, zero-inflated Poisson, zero-inflated NB,
              constrained Poisson, NB), VAE-NB-f32 (NB with
              precision="float32": the float32 K2/K3, h, W and da as bf16
-             terms on the tensor cores), VAE-ZINB-cat (K = 10 classes, 14 heads),
+             terms on the tensor cores), VAE-CP-f32 (the constrained
+             Poisson likewise: its float32 K6/K7), VAE-ZINB-cat (K = 10
+             classes, 14 heads),
              VAE-Poisson-cat (K = 30, 32 heads, on counts of mean 31 that
              reach K), VAE-Poisson-cat-f32 (the same with
              precision="float32": the categorised float32 K2/K3) and
@@ -90,8 +91,9 @@ CLUSTERS = 10  # GMVAE-NB: K·S·B = 20,480 decoder rows per step
 # Poisson(30) + 1 counts at the same places, about 0.6 of them at or above
 # K: otherwise its base head would never take a gradient.  VAE-NB-f32 is
 # the headline VAE-NB with precision="float32", the JAX package's own
-# choice on any backend but a TPU: the float32 K2/K3; VAE-Poisson-cat-f32
-# is VAE-Poisson-cat likewise: the categorised float32 K2/K3 at 32 heads.
+# choice on any backend but a TPU: the float32 K2/K3; VAE-CP-f32 is the
+# headline VAE-CP likewise: the float32 K6/K7; VAE-Poisson-cat-f32 is
+# VAE-Poisson-cat likewise: the categorised float32 K2/K3 at 32 heads.
 TRAINED = (
     ("poisson", "vae", "poisson", 0, 3.0, None),
     ("zero-inflated poisson", "vae", "zero-inflated poisson", 0, 3.0, None),
@@ -100,6 +102,7 @@ TRAINED = (
     ("constrained poisson", "vae", "constrained poisson", 0, 3.0, None),
     ("negative binomial", "vae", "negative binomial", 0, 3.0, None),
     ("VAE-NB-f32", "vae", "negative binomial", 0, 3.0, "float32"),
+    ("VAE-CP-f32", "vae", "constrained poisson", 0, 3.0, "float32"),
     ("VAE-ZINB-cat", "config", "zero-inflated negative binomial", 10, 3.0,
      None),
     ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None),
@@ -137,7 +140,9 @@ F32_FLOPS = 67e12
 # alone (reads up to 2e-6).  The constrained Poisson's bf16 kernels split W
 # and da into two bf16 terms each, which leave at most 2^-16 of each value:
 # the plain versions of that design read up to 4.4e-6 of the largest dh or
-# dW against the float32 plain versions (tools/cp_split_precision.py).
+# dW against the float32 plain versions (tools/cp_split_precision.py); its
+# float32 kernels split h, W and da into three, read up to 2.6e-6
+# (tools/f32_split_precision.py --families cp).
 FORWARD_RTOL = 2e-5
 BACKWARD_RTOL = 4e-4
 AUTOGRAD_RTOL = 2e-5
@@ -156,7 +161,6 @@ SOURCES = {
     "count": CSRC + "count_likelihood_tc.cu",
     "product": CSRC + "tc_product.cu",
     "cp": CSRC + "cp_likelihood_tc.cu",
-    "cp_float32": CSRC + "cp_likelihood.cu",
     "cat_tc": CSRC + "categorised_likelihood_tc.cu",
     "grouped": CSRC + "grouped_likelihood.cu",
     "grouped_tc": CSRC + "grouped_likelihood_tc.cu",
@@ -618,8 +622,11 @@ def check_cp(h, g, x, gen, flush):
     runs; the backward kernel by kernel (the gradient kernel's da terms and
     row-tile sums, the dh and dW products of its scratch, bit for bit over
     two runs) and as a whole within AUTOGRAD_RTOL of the float32 plain
-    backward.  The float32 instance (float32 h, CUDA cores, no training
-    launch) against its plain version and autograd.  Then their times."""
+    backward.  The float32 instance (VAE-CP-f32's: float32 h, and h, W and
+    da as three bf16 terms on the same kernels) likewise against its split
+    plain versions, and within FORWARD_RTOL / AUTOGRAD_RTOL of the float32
+    plain versions and autograd.  Then their times, the float32 dh product
+    beside torch.mm of the same float32 da and W^T."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
@@ -692,38 +699,87 @@ def check_cp(h, g, x, gen, flush):
     if not all(torch.equal(a, b_) for a, b_ in zip((dh, *dw), again)):
         raise AssertionError("cp_backward products differ between two runs")
 
-    # the float32 instance (CUDA cores): against its plain version, and
-    # against autograd through the plain forward
-    f32_full = (hv, w, b, x, n)
-    ll, lse = ops.cp_forward(*f32_full)
-    ll_ref, lse_ref = ops.reference_cp_forward(*f32_full)
-    f32_errs = {"forward": check_close("cp_forward float32 ll", ll, ll_ref,
-                                       FORWARD_RTOL)}
-    check_close("cp_forward float32 lse", lse, lse_ref, FORWARD_RTOL)
-    lse_f32 = lse
-    got = ops.cp_backward(g, hv, w, b, x, lse)
-    want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
-            *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
-    errs = [check_close(f"cp_backward float32 {part_name}", a, b_ref,
-                        AUTOGRAD_RTOL)
-            for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want)]
-    f32_errs.update(backward_dh=errs[0], backward_dw=max(errs[1:]))
+    # the float32 instance: float32 h (not bf16 values, so that h's later
+    # terms are not zero), h, W and da as three bf16 terms each on the same
+    # kernels.  The forward against its split plain version (ll, lse,
+    # partials; ragged F, float32 targets) and within FORWARD_RTOL of the
+    # float32 plain version, lse bit for bit over two runs; the public
+    # backward within AUTOGRAD_RTOL of the float32 plain backward and of
+    # autograd through the float32 plain forward; then kernel by kernel on
+    # the main path's inputs: the entries' split of h and W bit for bit,
+    # da's terms (check_split_da) and row-tile sums against the split plain
+    # version from the same lse, the dh and dW products of the kernel's own
+    # scratch against the plain products, bit for bit over two runs.
+    f32_full = (h, w, b, x, n)
+    f32_ragged = (h, *ragged[1:])
+    for args in (f32_full, f32_ragged, (h, w, b, x.float(), n)):
+        ll, lse, part = fl.cp_f32_tc_forward(*args)
+        ll_p, lse_p, part_p = fl.reference_cp_f32_tc_forward(*args)
+        ll32, lse32 = ops.reference_cp_forward(*args)
+        label = f"F={args[3].shape[1]} t={args[3].dtype}"
+        err = check_close(f"cp_forward_float32 ll {label}", ll, ll_p,
+                          FORWARD_RTOL)
+        check_close(f"cp_forward_float32 lse {label}", lse, lse_p,
+                    FORWARD_RTOL)
+        for q, part_name in enumerate(("max", "sumexp", "ll", "sum t")):
+            check_close(f"cp_forward_float32 partials {part_name} {label}",
+                        part[q], part_p[q], FORWARD_RTOL)
+        check_close(f"cp_forward_float32 ll {label} vs float32 plain", ll,
+                    ll32, FORWARD_RTOL)
+        check_close(f"cp_forward_float32 lse {label} vs float32 plain", lse,
+                    lse32, FORWARD_RTOL)
+        if args is f32_full:
+            f32_fwd_err, lse_f32 = err, lse
+    if not torch.equal(fl.cp_f32_tc_forward(*f32_full)[1], lse_f32):
+        raise AssertionError("cp_forward_float32: lse differs between two "
+                             "runs")
+    for args in (f32_full, f32_ragged):
+        hh, w_, b_, t, n_ = args
+        _, lse = ops.cp_forward(*args)
+        _, lse32 = ops.reference_cp_forward(*args)
+        got = ops.cp_backward(g, hh, w_, b_, t, lse)
+        want = (ops.reference_cp_dh(g, hh, w_, b_, t, lse32),
+                *ops.reference_cp_dw(g, hh, w_, b_, t, lse32))
+        for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want,
+                                       strict=True):
+            check_close(f"cp_backward float32 {part_name} F={t.shape[1]} vs "
+                        "float32 plain", a, b_ref, AUTOGRAD_RTOL)
     leaves = [a.clone().requires_grad_(True) for a in (h, w, b)]
     ll, _ = ops.reference_cp_forward(*leaves, x, n)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
-    _, lse = ops.cp_forward(h, w, b, x, n)
-    got = ops.cp_backward(g, h, w, b, x, lse)
-    for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want):
+    got = ops.cp_backward(g, h, w, b, x, lse_f32)
+    for part_name, a, b_ref in zip(("dh", "dW", "db"), got, want,
+                                   strict=True):
         check_close(f"cp_backward float32 {part_name} vs autograd", a, b_ref,
                     AUTOGRAD_RTOL)
+    bwd32 = (g, h, w, b, x, lse_f32)
+    grad32 = fl.cp_f32_tc_gradient(*bwd32)
+    plain32 = fl.reference_cp_f32_tc_gradient(*bwd32)
+    grad32_err = check_split_da("cp", grad32, plain32)
+    check_close("cp_backward_gradient_float32 db row-tile sums",
+                grad32.db_parts, plain32.db_parts, PRODUCT_RTOL)
+    del plain32
+    dh32 = fl.tc_dh(grad32)
+    dh32_err = check_close("cp_backward_dh_float32 of the kernel's da", dh32,
+                           fl.reference_tc_dh(grad32), PRODUCT_RTOL)
+    dw32 = fl.tc_dw(grad32)
+    dw32_err = max(check_close(f"cp_backward_dw_float32 [{i}] of the "
+                               "kernel's da", a, b_ref, PRODUCT_RTOL)
+                   for i, (a, b_ref) in enumerate(zip(
+                       dw32, fl.reference_tc_dw(grad32), strict=True)))
+    again = (fl.tc_dh(grad32), *fl.tc_dw(grad32))
+    if not all(torch.equal(a, b_) for a, b_ in zip((dh32, *dw32), again)):
+        raise AssertionError("cp_backward float32 products differ between "
+                             "two runs")
 
-    # Bounds: the bf16 instance by the larger of its bytes and the
-    # function's product, 2·M·H·F counted once however many terms the
-    # design splits it into, at the bf16 tensor-core rate; the float32
-    # instance by the float32 rate outside the tensor cores.  The bytes are
-    # what each function needs: da as its CP_TERMS bf16 terms once (not the
-    # scratch's copy of da_0 per pair), h once (not once per pair), W and
-    # dW in float32.
+    # Bounds: the larger of each function's bytes and its product, 2·M·H·F
+    # counted once however many pairs of terms the design multiplies, at
+    # the bf16 tensor-core rate.  The bytes are what each function needs:
+    # with bf16 h, da as its CP_TERMS bf16 terms once (not the scratch's
+    # copy of da_0 per pair), h once (not once per pair), W and dW in
+    # float32; with float32 h, h in float32 and the function's da once at
+    # 4 B an element (not its bf16 terms, nor the scratch's copies per
+    # pair).
     product = 2 * m * hidden * f
     head_bytes = (hidden * f + f) * 4
     t_bytes = m * f * x.element_size()
@@ -764,7 +820,7 @@ def check_cp(h, g, x, gen, flush):
     # the public calls against the float32 plain versions of the function
     plain32 = {
         "forward": (lambda: ops.cp_forward(*full),
-                    lambda: ops.reference_cp_forward(*f32_full)),
+                    lambda: ops.reference_cp_forward(hv, *full[1:])),
         "backward": (lambda: ops.cp_backward(g, hb, w, b, x, lse_main),
                      lambda: (ops.reference_cp_dh(g, hv, w, b, x, lse_main),
                               *ops.reference_cp_dw(g, hv, w, b, x,
@@ -777,24 +833,50 @@ def check_cp(h, g, x, gen, flush):
           flush=True)
 
     f32_in = m * hidden * 4 + head_bytes + t_bytes + m * 4
-    bwd_in = f32_in + 2 * m * 4  # and lse, Σt
-    for kernel, err, nbytes, flops, fn, plain_fn in (
-        ("forward", f32_errs["forward"], f32_in + 2 * m * 4, product,
-         lambda: ops.cp_forward(*f32_full),
-         lambda: ops.reference_cp_forward(*f32_full)),
-        ("backward_dh", f32_errs["backward_dh"], bwd_in + m * hidden * 4,
-         2 * product, lambda: ops.cp_backward_dh(g, hv, w, b, x, lse_f32),
-         lambda: ops.reference_cp_dh(g, hv, w, b, x, lse_f32)),
-        ("backward_dw", f32_errs["backward_dw"], bwd_in + head_bytes,
-         2 * product, lambda: ops.cp_backward_dw(g, hv, w, b, x, lse_f32),
-         lambda: ops.reference_cp_dw(g, hv, w, b, x, lse_f32)),
+    db32_bytes = grad32.db_parts.numel() * 4
+    da32_bytes = m * f * 4
+    # the float32 da of the plain version, for the library's dh product
+    da32 = fl._cp_da(g, h, w, b, x, lse_f32)[1]
+    for kernel, fn, plain_fn, library, err, nbytes in (
+        ("forward", lambda: ops.cp_forward(*f32_full),
+         lambda: fl.reference_cp_f32_tc_forward(*f32_full), None,
+         f32_fwd_err, f32_in + 2 * m * 4),
+        ("backward_gradient", lambda: fl.cp_f32_tc_gradient(*bwd32),
+         lambda: fl.reference_cp_f32_tc_gradient(*bwd32), None, grad32_err,
+         f32_in + 2 * m * 4 + da32_bytes + db32_bytes),
+        ("backward_dh", lambda: fl.tc_dh(grad32),
+         lambda: fl.reference_tc_dh(grad32), lambda: torch.mm(da32, w.T),
+         dh32_err, da32_bytes + hidden * f * 4 + m * hidden * 4),
+        ("backward_dw", lambda: fl.tc_dw(grad32),
+         lambda: fl.reference_tc_dw(grad32), None, dw32_err,
+         m * hidden * 4 + da32_bytes + db32_bytes + head_bytes),
     ):
-        t_bound, by = bound(nbytes, flops, F32_FLOPS)
+        t_bound, by = bound(nbytes, product, BF16_FLOPS)
         results[f"cp_{kernel}_float32"] = {
             "max_abs_err": err, "ms": time_ms(fn, **timed),
             "plain_ms": time_ms(plain_fn, **timed), "bound_ms": t_bound,
-            "bound_by": by, "library_ms": None,
+            "bound_by": by,
+            "library_ms": None if library is None else time_ms(library,
+                                                               **timed),
         }
+    parts32 = sum(results[f"cp_{kernel}_float32"]["ms"] for kernel in
+                  ("backward_gradient", "backward_dh", "backward_dw"))
+    public = {
+        "cp_forward": (lambda: ops.cp_forward(*f32_full),
+                       lambda: ops.reference_cp_forward(*f32_full)),
+        "cp_backward": (lambda: ops.cp_backward(*bwd32),
+                        lambda: (ops.reference_cp_dh(*bwd32),
+                                 *ops.reference_cp_dw(*bwd32))),
+    }
+    print(f"float32 cp M={m}: backward kernels {parts32:.4f} ms; public "
+          "calls against the float32 plain versions: " + "; ".join(
+              f"{label} {time_ms(fn, **timed):.4f} ms (float32 plain "
+              f"{time_ms(plain_fn, **timed):.4f} ms)"
+              for label, (fn, plain_fn) in public.items())
+          + "; the split of h and W in torch ops (the plain version of the "
+          "entries' split_pack_kernel) "
+          f"{time_ms(lambda: fl._f32_tc_operands(h, [w]), **timed):.4f} ms",
+          flush=True)
     return results
 
 
@@ -1238,7 +1320,8 @@ def check_grouped(name, x, gen, flush, n_groups):
 
 def check_wide(x, g, gen):
     """Decoder width 1,024 (four hidden chunks): NB, ZINB and the
-    constrained Poisson (both instances) against their plain versions.  The base families'
+    constrained Poisson (bf16 h and float32 h) against their plain
+    versions.  The base families'
     backward is checked in float32, where nothing rounds: with bf16 da the
     roundings that a different summation order flips grow with the
     activations and with the steepness of the gradient (ZINB's dW_p read
@@ -1264,14 +1347,15 @@ def check_wide(x, g, gen):
         for i, (a, b) in enumerate(zip(got, want)):
             check_close(f"{name} backward float32 [{i}] H={WIDE_HIDDEN}", a,
                         b, AUTOGRAD_RTOL)
-    # the constrained Poisson, float32 h (CUDA cores) and bf16 h (tensor
-    # cores), each against the float32 plain versions
+    # the constrained Poisson, float32 h (three bf16 terms of h, W and da)
+    # and bf16 h (two of W and da), each against the float32 plain versions
     (w,), (b,) = head_weights(gen, 1, WIDE_HIDDEN, f, x.device)
-    hv, n = h.to(bf16).float(), x.float().sum(-1)
-    ll_ref, lse_ref = ops.reference_cp_forward(hv, w, b, x, n)
-    want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
-            *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
-    for hh in (hv, hv.to(bf16)):
+    n = x.float().sum(-1)
+    for hh in (h, h.to(bf16)):
+        hv = hh.float()
+        ll_ref, lse_ref = ops.reference_cp_forward(hv, w, b, x, n)
+        want = (ops.reference_cp_dh(g, hv, w, b, x, lse_ref),
+                *ops.reference_cp_dw(g, hv, w, b, x, lse_ref))
         ll, lse = ops.cp_forward(hh, w, b, x, n)
         check_close(f"cp_forward H={WIDE_HIDDEN} h={hh.dtype}", ll, ll_ref,
                     FORWARD_RTOL)
@@ -1692,7 +1776,8 @@ def main() -> int:
         if ("_grouped_" in name and "_float32" not in name
                 and not launches.get(name)):
             raise AssertionError(f"{name} was not launched after training")
-    for prefix in ("nb", "cat_poisson"):  # VAE-NB-f32's, VAE-Poisson-cat-f32's
+    # VAE-NB-f32's, VAE-CP-f32's, VAE-Poisson-cat-f32's
+    for prefix in ("nb", "cp", "cat_poisson"):
         for kernel in ("forward", "backward_gradient", "backward_dh",
                        "backward_dw"):
             if not launches.get(f"{prefix}_{kernel}_float32"):
@@ -1704,12 +1789,8 @@ def main() -> int:
             return SOURCES["gather"], REPLACES[name]
         kind = "forward" if "forward" in name else "backward"
         if name.startswith("cp_"):
-            if "_float32" in name:
-                file = "cp_float32"
-            elif "backward_dh" in name or "backward_dw" in name:
-                file = "product"
-            else:
-                file = "cp"
+            file = ("product" if "backward_dh" in name or "backward_dw" in name
+                    else "cp")
             return SOURCES[file], REPLACES["cp_" + kind]
         if "_grouped_" in name:
             if "_float32" in name or kind == "forward":

@@ -16,8 +16,6 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     categorised_backward,
     categorised_forward,
     cp_backward,
-    cp_backward_dh,
-    cp_backward_dw,
     cp_forward,
     fused_backward,
     fused_categorised_log_likelihood,
@@ -77,8 +75,6 @@ __all__ = [
     "categorised_backward",
     "categorised_forward",
     "cp_backward",
-    "cp_backward_dh",
-    "cp_backward_dw",
     "cp_forward",
     "digamma",
     "fused_backward",

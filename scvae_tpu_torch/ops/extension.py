@@ -20,7 +20,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood_tc.cu", "tc_product.cu",
-           "cp_likelihood.cu", "cp_likelihood_tc.cu",
+           "cp_likelihood_tc.cu",
            "categorised_likelihood_tc.cu", "grouped_likelihood.cu",
            "grouped_likelihood_tc.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
@@ -72,20 +72,19 @@ _SIGNATURES = {
     # h, da, db_part, dw, db, n_heads, m, hidden, hp, f, splits,
     # tiles_per_split, row_tiles, promote, stream
     "scvae_tc_dw": [_P] * 5 + [_I] * 9 + [_P],
-    # h, w, b, t, t_dtype, n, ll, lse, m, m_t, hidden, f, stream
-    "scvae_cp_forward": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # g, h, w, b, t, t_dtype, lse, sx, dh, m, m_t, hidden, f, stream
-    "scvae_cp_backward_dh": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                             _I, _P],
-    # g, h, w, b, t, t_dtype, lse, sx, dw, db, m, m_t, hidden, f, stream
-    "scvae_cp_backward_dw": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _P],
     # h, w, b, t, t_dtype, n, part, ll, lse, m, m_t, hp, f, stream
     "scvae_cp_tc_forward": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                             _I, _P],
     # g, h, w, b, t, t_dtype, lse, sx, da, db_part, m, m_t, hp, f, stream
     "scvae_cp_tc_gradient": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
+    # h, w, b, t, t_dtype, n, hh, wp, part, ll, lse, m, m_t, hidden, f,
+    # stream
+    "scvae_cp_tc_f32_forward": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # g, h, w, b, t, t_dtype, lse, sx, hh, wp, da, db_part, m, m_t, hidden,
+    # f, stream
+    "scvae_cp_tc_f32_gradient": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
+                                + [_P],
     # family, g, h, w, b, t, t_dtype, da, db_part, n_groups, m, hp, f,
     # w_chunk, stream
     "scvae_grouped_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,

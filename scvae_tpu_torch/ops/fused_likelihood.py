@@ -18,9 +18,11 @@ recomputes them tile by tile.  Counterpart of
   (ll, grads) pair as ``_make_fused_from`` is; in float32 h and W go over
   as three bf16 terms each;
 * the constrained Poisson (CP), whose gene-axis softmax couples every gene
-  of a row, has its own forward K6 with an online logsumexp and the backward
-  K7 (``ops/csrc/cp_likelihood.cu``, with bf16 h
-  ``ops/csrc/cp_likelihood_tc.cu``);
+  of a row, has its own forward K6 with an online logsumexp across gene
+  tiles and the backward K7's gradient kernel on the tensor cores
+  (``ops/csrc/cp_likelihood_tc.cu``, then the products of
+  ``ops/csrc/tc_product.cu``), with bf16 h on two bf16 terms of W and da,
+  with float32 h on three bf16 terms of h, W and da as the base families';
 * the categorised instances of K2/K3 — a base family plus K + 1 class-logit
   heads, the piecewise-categorical likelihood of ``_make_fused_categorised``
   — have their own forward and gradient kernel on the tensor cores for up
@@ -55,7 +57,8 @@ clips use the nearest float32 strictly inside each support, with zero
 gradient outside the clip range.  CP takes no compute dtype in the JAX
 kernels: its caller hands them bf16 h, which multiplies float32 W in
 float32.  So here bfloat16 rounds the values of h only, W and da stay
-float32, and dh comes back in float32 (unrounded, as JAX returns it).
+float32 (as bf16 terms on the tensor cores), and dh comes back in float32
+(unrounded, as JAX returns it).
 """
 
 from __future__ import annotations
@@ -229,8 +232,9 @@ MAX_FUSED_GROUPS = 16
 # "_float32" suffix.  The grouped kernels count under the prefix
 # "<family>_grouped": K4 as "_forward" (either dtype), the bf16 K5 as
 # "_backward_gradient", "_backward_dh", "_backward_dw", its float32 passes
-# with the "_float32" suffix.  CP's as "cp_<kernel>" (float32 h: the
-# forward, dh and dW passes with the "_float32" suffix).
+# with the "_float32" suffix.  CP's as "cp_<kernel>" (the forward, the
+# backward's gradient kernel and its products; float32 h with the
+# "_float32" suffix).
 _KERNELS = ("forward", "backward_dh", "backward_dw")
 LAUNCHES = {
     f"{prefix}_{kernel}{suffix}": 0
@@ -245,9 +249,9 @@ LAUNCHES = {
                    "backward_dw", "backward_dh_float32",
                    "backward_dw_float32")
 }
-LAUNCHES.update({f"cp_{kernel}{suffix}": 0 for kernel in _KERNELS
+LAUNCHES.update({f"cp_{kernel}{suffix}": 0
+                 for kernel in (*_KERNELS, "backward_gradient")
                  for suffix in ("", "_float32")})
-LAUNCHES["cp_backward_gradient"] = 0
 
 
 def supports_fused_likelihood(name: str, k_max: int = 0) -> bool:
@@ -1147,7 +1151,12 @@ def reference_cp_tc_forward(h, w, b, t, n):
     lse (M,), partials (CP_PARTIALS, F tiles, M)), the partials per gene
     tile of each row being the max of a, Σ exp(a − max), Σ (t·a −
     lgamma(1 + t)) and Σ t over the tile's genes."""
-    a = _cp_tc_activations(h, w, b)
+    return _cp_forward_partials(_cp_tc_activations(h, w, b), t, n)
+
+
+def _cp_forward_partials(a, t, n):
+    """(ll, lse, partials per gene tile) of the CP forwards from the
+    activations ``a`` (M, F)."""
     m, f = a.shape
     tiles = _cdiv(f, TC_GENE_TILE)
     tt = _cycle_rows(t.float(), m)
@@ -1251,15 +1260,18 @@ def cp_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
 # (ops/csrc/count_likelihood_tc.cu's heads kernels over depth segments) and
 # the categorised instances' (categorised_likelihood_tc.cu's forward and
 # gradient kernel over the same segments, the base heads then the classes,
-# NH = base heads + K + 1), then the products of tc_product.cu
+# NH = base heads + K + 1), then the products of tc_product.cu; and the
+# constrained Poisson's float32 K6 / K7 likewise (cp_likelihood_tc.cu's
+# forward, merge and gradient kernel over the same segments, NH = 1)
 #
 # JAX multiplies float32 h and W, and the backward the float32 da.  So each
 # goes to the tensor cores as SPLIT_TERMS = 3 bf16 terms (split_bf16; the
 # float32 entries split h and W on the card, split_pack_kernel, and the
 # gradient kernel splits da), and a product x y as the pairs of terms
-# (x_i, y_j) with i + j < SPLIT_TERMS (P = 6 pairs, by i then j).  One operand of the three (h, W, da) must be
-# laid out twice, since each product pairs two of them and every pair takes
-# one term of each; h is the smallest.  Slot p of each layout holds:
+# (x_i, y_j) with i + j < SPLIT_TERMS (P = 6 pairs, by i then j).  One
+# operand of the three (h, W, da) must be laid out twice, since each
+# product pairs two of them and every pair takes one term of each; h is the
+# smallest.  Slot p of each layout holds:
 #
 #   H  (M, P, Hp)        h_j of pair p (i, j)
 #   W  (Hp, P, NH, Fp)   every head's W_j of pair p; so W_i in block i < T,
@@ -1540,6 +1552,81 @@ def cat_f32_tc_gradient(name, g, h, weights, biases, cat_w, cat_b, t,
                       "_float32")
 
 
+def reference_cp_f32_tc_forward(h, w, b, t, n):
+    """Plain version of :func:`cp_f32_tc_forward`, with its layout: (ll
+    (M,), lse (M,), partials (CP_PARTIALS, F tiles, M)) of the split
+    design's activations (see :func:`reference_cp_tc_forward`)."""
+    return _cp_forward_partials(_f32_tc_activations(h, [w], [b])[0], t, n)
+
+
+def reference_cp_f32_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
+    """Plain version of :func:`cp_f32_tc_gradient`, with its layout (see
+    :func:`reference_f32_tc_gradient`): da = g·(t − (Σt)·exp(a − lse))
+    of the split design's activations, its terms per pair (M, P·Fp), zero
+    past F, and the column sums of the unrounded da per row tile (row
+    tiles, Fp); h's terms per pair as the dW product reads them (P·M, Hp),
+    and W's (Hp, P, 1, Fp)."""
+    a = _f32_tc_activations(h, [w], [b])[0]
+    tt = _cycle_rows(t.float(), h.shape[0])
+    dll = tt - tt.sum(-1, keepdim=True) * torch.exp(a - lse.float()[:, None])
+    return _f32_tc_reference_scratch("cp", g, h, [w], [dll], t.shape[-1])
+
+
+def cp_f32_tc_forward(h, w, b, t, n):
+    """Launch the float32 K6 on the tensor cores: h and W split into their
+    bf16 terms per pair, then (ll (M,), lse (M,), the partials per gene
+    tile (CP_PARTIALS, F tiles, M) that a second kernel merges in order) of
+    the terms multiplied pair by pair."""
+    h, (w,), (b,), t, n = _checked_cuda(h, [w], [b], t, n)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = f32_tc_plan(m, hidden, f, 1)
+    dev = h.device
+    ll, lse = (torch.empty((m,), dtype=torch.float32, device=dev)
+               for _ in range(2))
+    partials = torch.empty((CP_PARTIALS, *plan["row_sums"]),
+                           dtype=torch.float32, device=dev)
+    if m == 0:
+        return ll, lse, partials
+    hh, wp = _f32_tc_scratch(plan, m, 1, dev)
+    extension.call(
+        "scvae_cp_tc_f32_forward", dev, h.data_ptr(), w.data_ptr(),
+        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], n.data_ptr(),
+        hh.data_ptr(), wp.data_ptr(), partials.data_ptr(), ll.data_ptr(),
+        lse.data_ptr(), m, t.shape[0], hidden, f,
+    )
+    LAUNCHES["cp_forward_float32"] += 1
+    return ll, lse, partials
+
+
+def cp_f32_tc_gradient(g, h, w, b, t, lse) -> TcGradient:
+    """Launch the float32 K7's first kernel for row cotangents ``g`` and the
+    forward's ``lse``: h and W split into their bf16 terms per pair, the
+    activations as the forward summed them, da's bf16 terms per pair and
+    da's column sums per row tile, for :func:`tc_dh` and :func:`tc_dw`
+    (counted with the "_float32" suffix)."""
+    h, (w,), (b,), t, g, lse = _checked_cuda(h, [w], [b], t, g, lse)
+    m, hidden = h.shape
+    f = t.shape[1]
+    plan = f32_tc_plan(m, hidden, f, 1)
+    dev = h.device
+    hh, wp = _f32_tc_scratch(plan, m, 1, dev)
+    # Σ_f t per target row, a plain reduction outside the kernels as in the
+    # JAX package's backward
+    sx = t.sum(-1, dtype=torch.float32)
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_cp_tc_f32_gradient", dev, g.data_ptr(), h.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        lse.data_ptr(), sx.data_ptr(), hh.data_ptr(), wp.data_ptr(),
+        da.data_ptr(), db_parts.data_ptr(), m, t.shape[0], hidden, f,
+    )
+    LAUNCHES["cp_backward_gradient_float32"] += 1
+    return TcGradient("cp", plan, hidden, f, hh.reshape(-1, plan["hp"]), wp,
+                      da, db_parts, "_float32")
+
+
 def fused_forward(name, h, weights, biases, t, *, compute_dtype=None,
                   include_lgamma_const=True) -> torch.Tensor:
     """Row-summed log-likelihood (M,) of family ``name``: K2 on CUDA (bf16:
@@ -1582,106 +1669,43 @@ def fused_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
 
 def cp_forward(h, w, b, t, n):
     """(ll (M,), lse (M,)) of the constrained Poisson, by h's dtype: bf16 h
-    (training in bf16) on the tensor-core K6 (:func:`cp_tc_forward`), any
-    other h in float32 on the CUDA-core K6; on the CPU their plain
-    versions.  W stays float32 either way."""
+    (training in bf16) on the tensor-core K6 with W in two bf16 terms
+    (:func:`cp_tc_forward`), any other h in float32 on the same kernel with
+    h and W in three (:func:`cp_f32_tc_forward`); on the CPU the plain
+    versions (the float32 one for float32 h).  W stays float32 either way."""
     if h.dtype == torch.bfloat16:
         if not h.is_cuda:
             return reference_cp_tc_forward(h, w, b, t, n)[:2]
         return cp_tc_forward(h, w, b, t, n)[:2]
     if not h.is_cuda:
         return reference_cp_forward(h, w, b, t, n)
-    h, (w,), (b,), t, n = _checked_cuda(h, [w], [b], t, n)
-    m, hidden = h.shape
-    ll = torch.empty((m,), dtype=torch.float32, device=h.device)
-    lse = torch.empty((m,), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return ll, lse
-    extension.call(
-        "scvae_cp_forward", h.device, h.data_ptr(), w.data_ptr(),
-        b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype], n.data_ptr(),
-        ll.data_ptr(), lse.data_ptr(), m, t.shape[0], hidden, t.shape[1],
-    )
-    LAUNCHES["cp_forward_float32"] += 1
-    return ll, lse
-
-
-def _checked_cp_backward(g, h, w, b, t, lse):
-    h, (w,), (b,), t, g, lse = _checked_cuda(h, [w], [b], t, g, lse)
-    # Σ_f t per target row, a plain reduction outside the kernels as in the
-    # JAX package's backward
-    sx = t.float().sum(-1)
-    return g, h, w, b, t, lse, sx
+    return cp_f32_tc_forward(h, w, b, t, n)[:2]
 
 
 def cp_backward(g, h, w, b, t, lse):
     """(dh, dW, db) of the constrained Poisson for row cotangents ``g``
-    (M,) and the forward's ``lse``, by h's dtype: bf16 h on CUDA the
-    tensor-core gradient kernel once, then the dh and dW products of its da
-    terms; any other h the two float32 CUDA-core passes; on the CPU their
-    plain versions."""
-    if h.dtype != torch.bfloat16:
-        return (cp_backward_dh(g, h, w, b, t, lse),
-                *cp_backward_dw(g, h, w, b, t, lse))
-    if not h.is_cuda:
-        grad = reference_cp_tc_gradient(g, h, w, b, t, lse)
-        return (reference_tc_dh(grad), *reference_tc_dw(grad))
-    grad = cp_tc_gradient(g, h, w, b, t, lse)
-    return (tc_dh(grad), *tc_dw(grad))
-
-
-def _float32_cp_pass(h):
-    """The float32 passes take no bf16 h: its backward is one gradient
-    kernel whose scratch feeds the dh and dW products alike."""
+    (M,) and the forward's ``lse``: on CUDA the tensor-core gradient kernel
+    once (bf16 h: W and da in two bf16 terms; any other h in float32: h, W
+    and da in three), then the dh and dW products of its da terms; on the
+    CPU the plain versions (the float32 ones for float32 h)."""
     if h.dtype == torch.bfloat16:
-        raise TypeError("the constrained Poisson's backward of bf16 h is "
-                        "cp_backward (the gradient kernel, then the dh and "
-                        "dW products); cp_backward_dh / cp_backward_dw are "
-                        "the float32 passes")
-
-
-def cp_backward_dh(g, h, w, b, t, lse):
-    """dh (M, H) of the constrained Poisson for float32 h: K7's first
-    CUDA-core pass, the plain version on the CPU."""
-    _float32_cp_pass(h)
+        if not h.is_cuda:
+            grad = reference_cp_tc_gradient(g, h, w, b, t, lse)
+            return (reference_tc_dh(grad), *reference_tc_dw(grad))
+        grad = cp_tc_gradient(g, h, w, b, t, lse)
+        return (tc_dh(grad), *tc_dw(grad))
     if not h.is_cuda:
-        return reference_cp_dh(g, h, w, b, t, lse)
-    g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
+        return (reference_cp_dh(g, h, w, b, t, lse),
+                *reference_cp_dw(g, h, w, b, t, lse))
     m, hidden = h.shape
-    dh = torch.empty((m, hidden), dtype=torch.float32, device=h.device)
-    if m == 0:
-        return dh
-    extension.call(
-        "scvae_cp_backward_dh", h.device, g.data_ptr(), h.data_ptr(),
-        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), sx.data_ptr(), dh.data_ptr(), m, t.shape[0], hidden,
-        t.shape[1],
-    )
-    LAUNCHES["cp_backward_dh_float32"] += 1
-    return dh
-
-
-def cp_backward_dw(g, h, w, b, t, lse):
-    """(dW, db) of the constrained Poisson for float32 h: K7's second
-    CUDA-core pass, the plain version on the CPU."""
-    _float32_cp_pass(h)
-    if not h.is_cuda:
-        return reference_cp_dw(g, h, w, b, t, lse)
-    g, h, w, b, t, lse, sx = _checked_cp_backward(g, h, w, b, t, lse)
-    m, hidden = h.shape
-    f = t.shape[1]
-    dw = torch.empty((hidden, f), dtype=torch.float32, device=h.device)
-    db = torch.empty((f,), dtype=torch.float32, device=h.device)
-    if f == 0:
-        return dw, db
-    extension.call(
-        "scvae_cp_backward_dw", h.device, g.data_ptr(), h.data_ptr(),
-        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
-        lse.data_ptr(), sx.data_ptr(), dw.data_ptr(), db.data_ptr(), m,
-        t.shape[0], hidden, f,
-    )
-    LAUNCHES["cp_backward_dw_float32"] += 1
-    return dw, db
+    f = t.shape[-1]
+    if m == 0 or f == 0:
+        _validated(h, [w], [b], t, g, lse)
+        return (torch.zeros((m, hidden), device=h.device),
+                torch.zeros((hidden, f), device=h.device),
+                torch.zeros((f,), device=h.device))
+    grad = cp_f32_tc_gradient(g, h, w, b, t, lse)
+    return (tc_dh(grad), *tc_dw(grad))
 
 
 def _checked_categorised(name, h, weights, biases, cat_w, cat_b, t, g=None,
@@ -1987,8 +2011,8 @@ class FusedLogLikelihood(torch.autograd.Function):
 class FusedConstrainedPoisson(torch.autograd.Function):
     """Row-summed constrained-Poisson log-likelihood with the fused backward
     (``_fused_constrained_poisson`` in the JAX package).  ``round_h`` hands
-    h over as a bf16 tensor (the tensor-core kernels), else as float32 (the
-    CUDA-core kernels); the gradient of h is float32 and unrounded.  Saves
+    h over as a bf16 tensor (W and da in two bf16 terms), else as float32
+    (h, W and da in three); the gradient of h is float32 and unrounded.  Saves
     lse from the forward as a residual; the count-sum cotangent dn =
     g·(Σt/n − 1) is computed here, outside the kernels, when asked for."""
 

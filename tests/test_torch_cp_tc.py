@@ -203,9 +203,8 @@ def test_cp_tc_plan_deeper_products():
 
 def test_cpu_wrappers_are_the_plain_versions():
     """On the CPU, bf16 h runs the split design's plain versions and float32
-    h the float32 plain versions; no kernel is launched.  The float32 passes
-    refuse bf16 h, whose backward is ``cp_backward``'s one gradient
-    kernel."""
+    h the float32 plain versions; no kernel is launched.  Both backwards are
+    ``cp_backward``, and every CP kernel has its counter."""
     h, w, b, t, n, g = (torch.from_numpy(x) for x in _case(16, 8, 100, 9))
     hb, n = h.to(torch.bfloat16), n[:, 0]
     before = dict(ops.launch_counts())
@@ -217,9 +216,6 @@ def test_cpu_wrappers_are_the_plain_versions():
     got = ops.cp_backward(g, hb, w, b, t, lse)
     for a, b_ in zip(got, want, strict=True):
         assert torch.equal(a, b_)
-    for float32_pass in (ops.cp_backward_dh, ops.cp_backward_dw):
-        with pytest.raises(TypeError, match="cp_backward "):
-            float32_pass(g, hb, w, b, t, lse)
     hf = hb.float()
     ll32, lse32 = ops.cp_forward(hf, w, b, t, n)
     assert torch.equal(ll32, ops.reference_cp_forward(hf, w, b, t, n)[0])
@@ -230,5 +226,6 @@ def test_cpu_wrappers_are_the_plain_versions():
         assert torch.equal(a, b_)
     assert ops.launch_counts() == before
     assert {"cp_forward", "cp_backward_gradient", "cp_backward_dh",
-            "cp_backward_dw", "cp_forward_float32", "cp_backward_dh_float32",
+            "cp_backward_dw", "cp_forward_float32",
+            "cp_backward_gradient_float32", "cp_backward_dh_float32",
             "cp_backward_dw_float32"} <= set(ops.launch_counts())

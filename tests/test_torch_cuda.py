@@ -35,8 +35,10 @@ row sums, lse and row-sum partials, and bit for bit over two runs.  The
 constrained Poisson's bf16 kernels (``cp_likelihood_tc.cu``, h as a bf16
 tensor, W and da split into bf16 terms) are held kernel by kernel the same
 way, and against the float32 plain versions, at the main path's width, odd
-shapes, ragged F, cycled rows and decoder widths of 580, 584 and 1,024;
-float32 h keeps the CUDA-core kernels (``cp_likelihood.cu``).
+shapes, ragged F, cycled rows and decoder widths of 580, 584 and 1,024; its
+float32 kernels (the same kernels on three bf16 terms of h, W and da) kernel
+by kernel against their split plain versions, at the main path's width
+with full and ragged tiles, cycled rows and a decoder width of 584.
 
 Tolerances: the gather is bit-exact; the likelihood kernels are held to the
 same bounds as ``chip_smoke.py`` (max abs error over max |plain| of 2e-5
@@ -212,10 +214,10 @@ def test_cp_kernels_match_plain(device, m, m_t, hidden, f, t_dtype, round_h):
     ll_ref, lse_ref = ops.reference_cp_forward(h, w, b, t, n)
     _close(ll, ll_ref, 2e-5)
     _close(lse, lse_ref, 2e-5)
-    _close(ops.cp_backward_dh(g, h, w, b, t, lse),
-           ops.reference_cp_dh(g, h, w, b, t, lse_ref), 2e-5)
-    for a, b_ in zip(ops.cp_backward_dw(g, h, w, b, t, lse),
-                     ops.reference_cp_dw(g, h, w, b, t, lse_ref)):
+    for a, b_ in zip(ops.cp_backward(g, h, w, b, t, lse),
+                     (ops.reference_cp_dh(g, h, w, b, t, lse_ref),
+                      *ops.reference_cp_dw(g, h, w, b, t, lse_ref)),
+                     strict=True):
         _close(a, b_, 2e-5)
 
 
@@ -227,8 +229,7 @@ def test_cp_backward_matches_autograd(device, m, m_t, hidden, f):
     ll, _ = ops.reference_cp_forward(*leaves, t, n)
     want = torch.autograd.grad(ll, leaves, grad_outputs=g)
     _, lse = ops.cp_forward(h, w, b, t, n)
-    got = (ops.cp_backward_dh(g, h, w, b, t, lse),
-           *ops.cp_backward_dw(g, h, w, b, t, lse))
+    got = ops.cp_backward(g, h, w, b, t, lse)
     for a, b_ in zip(got, want):
         _close(a, b_, 2e-5)
 
@@ -314,8 +315,9 @@ def test_cp_tensor_core_wide_decoder(device, hidden):
 
 
 def test_cp_float32_and_bf16_launches_count_apart(device):
-    """bf16 h launches the constrained Poisson's tensor-core kernels, float32
-    h its CUDA-core ones, each under its own counter."""
+    """bf16 h and float32 h launch the constrained Poisson's tensor-core
+    kernels (the forward, the gradient kernel, the dh and dW products) each
+    under its own counter, float32 with the "_float32" suffix."""
     h, w, b, t, n, g = _cp_case(device, 48, 16, 32, 70, torch.bfloat16, True,
                                 seed=2)
     for hv, suffix in ((h, "_float32"), (h.to(torch.bfloat16), "")):
@@ -323,11 +325,66 @@ def test_cp_float32_and_bf16_launches_count_apart(device):
         _, lse = ops.cp_forward(hv, w, b, t, n)
         ops.cp_backward(g, hv, w, b, t, lse)
         torch.cuda.synchronize()
-        kernels = ["forward", "backward_dh", "backward_dw"]
-        if not suffix:
-            kernels.append("backward_gradient")
+        kernels = ["forward", "backward_gradient", "backward_dh",
+                   "backward_dw"]
         assert {k: v for k, v in ops.launch_counts().items() if v} == {
             f"cp_{kernel}{suffix}": 1 for kernel in kernels}
+
+
+# (M, M_t, H, F) of the constrained Poisson's float32 kernels: the main
+# path's width with full and ragged gene tiles, rows off the row tile
+# cycling over a tenth as many targets, odd small shapes and a decoder
+# width past two rings of hidden units
+CP_F32_TC_SHAPES = CP_TC_SHAPES + [(64, 32, 584, 100)]
+
+
+@pytest.mark.parametrize("m,m_t,hidden,f", CP_F32_TC_SHAPES)
+def test_cp_float32_tensor_core_kernels(device, m, m_t, hidden, f):
+    """The constrained Poisson's float32 kernels one by one against their
+    split plain versions: the forward's ll, lse and partials per gene tile,
+    bit for bit over two runs; the entries' split of h and W bit for bit,
+    da's terms (``_check_split_scratch``) and the row-tile sums at 2e-5;
+    the dh and dW products of the kernel's own scratch at 2e-5, bit for bit
+    over two runs; the public calls are these kernels, and within 2e-5 of
+    the float32 plain versions."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    h, w, b, t, n, g = _cp_case(device, m, m_t, hidden, f, torch.bfloat16,
+                                False, seed=7)
+    ll, lse, part = fl.cp_f32_tc_forward(h, w, b, t, n)
+    ll_p, lse_p, part_p = fl.reference_cp_f32_tc_forward(h, w, b, t, n)
+    _close(ll, ll_p, 2e-5)
+    _close(lse, lse_p, 2e-5)
+    for q in range(part.shape[0]):
+        _close(part[q], part_p[q], 2e-5)
+    again = fl.cp_f32_tc_forward(h, w, b, t, n)
+    assert torch.equal(ll, again[0]) and torch.equal(lse, again[1])
+    public = ops.cp_forward(h, w, b, t, n)
+    assert torch.equal(public[0], ll) and torch.equal(public[1], lse)
+    ll32, lse32 = ops.reference_cp_forward(h, w, b, t, n)
+    _close(ll, ll32, 2e-5)
+    _close(lse, lse32, 2e-5)
+
+    grad = fl.cp_f32_tc_gradient(g, h, w, b, t, lse)
+    plain = fl.reference_cp_f32_tc_gradient(g, h, w, b, t, lse)
+    _check_split_scratch(grad, plain)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    dh = fl.tc_dh(grad)
+    assert torch.equal(dh, fl.tc_dh(grad))
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dw, db = fl.tc_dw(grad)
+    dw2, db2 = fl.tc_dw(grad)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    for a, b_ in zip((dw, db), fl.reference_tc_dw(grad), strict=True):
+        _close(a, b_, 2e-5)
+    for a, b_ in zip(ops.cp_backward(g, h, w, b, t, lse), (dh, dw, db),
+                     strict=True):
+        assert torch.equal(a, b_)
+    want32 = (ops.reference_cp_dh(g, h, w, b, t, lse32),
+              *ops.reference_cp_dw(g, h, w, b, t, lse32))
+    for a, b_ in zip((dh, dw, db), want32, strict=True):
+        assert a.shape == b_.shape
+        _close(a, b_, 2e-5)
 
 
 @pytest.mark.parametrize("hidden", [580, 584, 1024])
@@ -345,8 +402,7 @@ def test_wide_decoder(device, name, hidden, compute):
         ll, lse = ops.cp_forward(h, w, b, t, n)
         ll_ref, lse_ref = ops.reference_cp_forward(h, w, b, t, n)
         _close(ll, ll_ref, 2e-5)
-        got = (ops.cp_backward_dh(g, h, w, b, t, lse),
-               *ops.cp_backward_dw(g, h, w, b, t, lse))
+        got = ops.cp_backward(g, h, w, b, t, lse)
         want = (ops.reference_cp_dh(g, h, w, b, t, lse_ref),
                 *ops.reference_cp_dw(g, h, w, b, t, lse_ref))
         for a, b_ in zip(got, want):

@@ -6,12 +6,14 @@ number of bf16 terms, from plain versions.
         [--designs 1/1/1 2/2/2 3/3/2 3/3/3] [--families ...]
         [--device cpu|cuda] [--out PATH]
 
-``--families`` takes base families by name or counter prefix ("nb") and
+``--families`` takes base families by name or counter prefix ("nb"),
 categorised instances as "cat_<prefix>:K" (``cat_zinb:10``: ZINB with K =
-10, 14 heads; ``cat_poisson:30``: 32 heads); by default the four bases.
+10, 14 heads; ``cat_poisson:30``: 32 heads) and the constrained Poisson as
+"cp"; by default the four bases.
 
 The float32 K2/K3 (``ops/csrc/count_likelihood_tc.cu`` and
-``categorised_likelihood_tc.cu``, then the products of ``tc_product.cu``)
+``categorised_likelihood_tc.cu``) and the constrained Poisson's float32
+K6/K7 (``cp_likelihood_tc.cu``), then the products of ``tc_product.cu``,
 multiply float32 h, W and da as sums of bf16 terms
 (``fused_likelihood.split_bf16``).  A design "A/B/C" here splits h into A
 terms and W into B for the activations, and da into C terms for the dh and
@@ -23,7 +25,9 @@ reads them as the kernel checks do: the max abs error over the largest
 |value| of the float32 plain versions (``reference_forward``,
 ``reference_backward``; categorised: ``reference_categorised_forward``,
 ``_dh`` and ``_dw``, the classes' dW and db stacked, the class softmax of
-both from the float32 plain forward's lse), whose limit there is 2e-5.
+both from the float32 plain forward's lse; the constrained Poisson:
+``reference_cp_forward``'s ll and lse, ``reference_cp_dh`` and ``_dw``,
+each side's backward from its own lse), whose limit there is 2e-5.
 The float32 plain versions' own error against float64 is read beside
 them.
 
@@ -35,7 +39,12 @@ Poisson(3) + 1 where nonzero, row cotangents N(0, 1) / 2,048); and
 target rows, width 256, 100 genes; heads three times Glorot, biases
 0.3·N(0, 1), Poisson(2) counts, cotangents N(0, 1)), where the activations
 reach the exponentials' clip and every error in a grows by the
-exponential.  A categorised instance adds K + 1 class heads (the same
+exponential; for the constrained Poisson, whose softmax over the genes has
+no clip, "steep" is a wide spread of a across each row's genes (a of
+standard deviation about 2.5: the largest gene of a row sits some 8 above
+its mean, and exp(a − lse) spans many binades).  The constrained Poisson
+takes one head and count sums n = Σt of each row's targets.  A
+categorised instance adds K + 1 class heads (the same
 scales) and targets as ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
 make them: headline, every other row drawn as Poisson(K); steep,
 Poisson(K) with every other row a third of that.  The products here sum
@@ -63,11 +72,16 @@ CASES = {  # rows, target rows, width, genes, head scale, bias scale
 }
 
 
+CP = "constrained poisson"
+
+
 def parse_family(spec: str) -> tuple[str, int]:
-    """(base family name, K) of a ``--families`` entry; K = 0 for a base."""
+    """(family name, K) of a ``--families`` entry; K = 0 for a base or the
+    constrained Poisson."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
     prefixes = {fam.prefix: name for name, fam in fl.FAMILIES.items()}
+    prefixes["cp"] = CP
     if spec.startswith("cat_"):
         prefix, k = spec[len("cat_"):].split(":")
         return prefixes[prefix], int(k)
@@ -84,7 +98,8 @@ def inputs(case: str, name: str, k_max: int, seed: int,
     rng = np.random.RandomState(seed)
     h = np.maximum(rng.standard_normal((m, hidden)), 0.0)
     limit = scale * (6.0 / (hidden + f)) ** 0.5
-    k = len(fl.FAMILIES[name].heads) + (k_max + 1 if k_max else 0)
+    k = (1 if name == CP else len(fl.FAMILIES[name].heads)) + (
+        k_max + 1 if k_max else 0)
     ws = [rng.uniform(-limit, limit, (hidden, f)) for _ in range(k)]
     bs = [bias * rng.standard_normal(f) for _ in range(k)]
     if case == "headline":
@@ -127,10 +142,29 @@ def product(x_terms, y_terms, mm):
     return out
 
 
+def count_sums(h, t):
+    """The constrained Poisson's n: Σt of each row's (cycled) targets."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    return fl._cycle_rows(t, h.shape[0]).sum(-1)
+
+
 def plain_outputs(name, k_max, h, ws, bs, t, g):
     """The float32 plain versions' ll row sums, dh, dW and db (categorised:
-    the classes' dW and db stacked), and the row sums in float64."""
+    the classes' dW and db stacked; the constrained Poisson: lse after ll),
+    and the row sums in float64."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    if name == CP:
+        args = (ws[0], bs[0], t)
+        n = count_sums(h, t)
+        ll, lse = fl.reference_cp_forward(h, *args, n)
+        a = h.double() @ ws[0].double() + bs[0].double()  # the plain
+        # version computes in float32 whatever it is given
+        exact = fl._constrained_poisson_ll_rows(
+            a, fl._cycle_rows(t.double(), h.shape[0]), n.double()[:, None])
+        return [ll, lse, fl.reference_cp_dh(g, h, *args, lse),
+                *fl.reference_cp_dw(g, h, *args, lse)], exact
 
     if not k_max:
         exact = fl.reference_forward(
@@ -156,12 +190,24 @@ def design_outputs(name, k_max, h, ws, bs, t, g, h_terms, w_terms,
     design's own lse)."""
     from scvae_tpu_torch.ops import fused_likelihood as fl
 
-    fam = fl.FAMILIES[name]
-    n_base = len(fam.heads)
     tt = fl._cycle_rows(t, h.shape[0])
     hs = split(h, h_terms)
     acts = [product(hs, split(w, w_terms), lambda x, y: x @ y) + b
             for w, b in zip(ws, bs)]
+    hp = hs[:min(h_terms, da_terms)]
+    if name == CP:
+        (a,), (w,) = acts, ws
+        n = count_sums(h, t)
+        lse = torch.logsumexp(a, -1)
+        ll = fl._constrained_poisson_ll_rows(a, tt, n[:, None])
+        da = g[:, None] * (tt - tt.sum(-1, keepdim=True)
+                           * torch.exp(a - lse[:, None]))
+        d_terms = split(da, da_terms)
+        wp = split(w, min(w_terms, da_terms))
+        return [ll, lse, product(d_terms, wp, lambda x, y: x @ y.T),
+                product(hp, d_terms, lambda x, y: x.T @ y), da.sum(0)]
+    fam = fl.FAMILIES[name]
+    n_base = len(fam.heads)
     if k_max:
         ll, lse = fl._categorised_ll_lse(name, acts[:n_base], acts[n_base:],
                                          tt)
@@ -170,7 +216,6 @@ def design_outputs(name, k_max, h, ws, bs, t, g, h_terms, w_terms,
         ll = fam.ll(*acts, tt) - fl.lgamma(1.0 + tt)
         gs = fam.grads(*acts, tt)
     das = [gr * g[:, None] for gr in gs]
-    hp = hs[:min(h_terms, da_terms)]
     dh, grads = 0.0, []
     for w, da in zip(ws, das):
         d_terms = split(da, da_terms)
@@ -214,9 +259,12 @@ def main() -> int:
                 h, ws, bs, t, g = inputs(case, name, k_max, seed, device)
                 plain, exact = plain_outputs(name, k_max, h, ws, bs, t, g)
                 floor = relative(plain[0], exact)
-                parts = ["ll", "dh"] + [f"{p}_{head}"
-                                        for head in fl.FAMILIES[name].heads
-                                        for p in ("dW", "db")]
+                if name == CP:
+                    parts = ["ll", "lse", "dh", "dW", "db"]
+                else:
+                    parts = ["ll", "dh"] + [
+                        f"{p}_{head}" for head in fl.FAMILIES[name].heads
+                        for p in ("dW", "db")]
                 if k_max:
                     parts += ["dW_classes", "db_classes"]
                 label = f"{name} K={k_max}" if k_max else name

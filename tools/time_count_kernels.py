@@ -35,8 +35,10 @@ each):
   and ``fused_backward`` with no compute dtype; and of the categorised
   instances of VAE-ZINB-cat and VAE-Poisson-cat likewise:
   ``categorised_forward`` and ``categorised_backward`` (from the forward's
-  lse) with no compute dtype; each call's device time by kernel from
-  ``torch.profiler`` (alone with ``--float32``).
+  lse) with no compute dtype; and the constrained Poisson's as a VAE-CP
+  trained with ``precision="float32"`` calls them: ``cp_forward`` of
+  float32 h and ``cp_backward`` from its lse; each call's device time by
+  kernel from ``torch.profiler`` (alone with ``--float32``).
 
 The inputs are made as ``chip_smoke.py`` makes them, from seed 0.  Prints
 the card's name and power limit and one JSON line of times in ms.
@@ -184,7 +186,8 @@ def kernel_ms(fn, flush, calls=10) -> dict:
 def time_float32(cs, ops, x, gen, flush) -> dict:
     """Every base family's float32 ``fused_forward`` and ``fused_backward``
     at the headline shapes, the categorised instances' float32
-    ``categorised_forward`` and ``categorised_backward``, and each call's
+    ``categorised_forward`` and ``categorised_backward``, the constrained
+    Poisson's float32 ``cp_forward`` and ``cp_backward``, and each call's
     device time by kernel."""
     dev = x.device
     h = torch.relu(torch.randn(cs.BATCH, cs.HIDDEN, generator=gen,
@@ -224,6 +227,16 @@ def time_float32(cs, ops, x, gen, flush) -> dict:
                           for label_, fn in calls.items()}
         float32[label]["kernels"] = {label_: kernel_ms(fn, flush)
                                      for label_, fn in calls.items()}
+    (w,), (b,) = cs.head_weights(gen, 1, cs.HIDDEN, cs.N_GENES, dev)
+    n = x.float().sum(-1)
+    _, lse = ops.cp_forward(h, w, b, x, n)
+    calls = {"cp_forward": lambda: ops.cp_forward(h, w, b, x, n),
+             "cp_backward": lambda: ops.cp_backward(g, h, w, b, x, lse)}
+    label = "constrained poisson"
+    float32[label] = {label_: cs.time_ms(fn, flush=flush)
+                      for label_, fn in calls.items()}
+    float32[label]["kernels"] = {label_: kernel_ms(fn, flush)
+                                 for label_, fn in calls.items()}
     return float32
 
 
