@@ -49,18 +49,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              the validation set and ``sample`` of 2,048 cells; and on each
              restored GMVAE, for each validation minibatch, log p(x|z,y) over
              the K·S = 10 decoder groups and its gradients for h and the
-             heads, weighted by q(y|x), through the grouped kernels (one
-             launch of K4 and of each of the bf16 K5's three kernels per
-             batch: the grouped gradient kernel, the dh and dW products)
-             against the flat kernels over the same rows with cycled
-             targets.
+             heads, weighted by q(y|x), through the grouped kernels with
+             bf16 operands and in float32 (one launch of K4 and of each of
+             K5's three kernels per batch and dtype: the grouped gradient
+             kernel, the dh and dW products) against the flat kernels of
+             the same dtype over the same rows with cycled targets.
 
-Phase 3 also holds the grouped kernels K4/K5 of every base family against
-their plain versions at the GMVAE's shapes (G = 10 groups of 2,048 rows,
-decoder width 256; NB also at the cap G = 16), the bf16 K5 kernel by
-kernel, and NB's against the flat kernels over the same 20,480 rows with
-cycled targets; it times each family's grouped backward beside the flat
-tensor-core kernels over the same rows.
+Phase 3 also holds the grouped kernels K4/K5 of every base family, bf16
+and float32 (h, W and da as three bf16 terms), against their plain
+versions at the GMVAE's shapes (G = 10 groups of 2,048 rows, decoder width
+256, and the cap G = 16), kernel by kernel, and NB's against the flat
+kernels over the same 20,480 rows with cycled targets; it times each
+grouped kernel beside the flat tensor-core kernels over the same rows.
 
 Prints the kernels JSON line, the card line and, last, the ok JSON line.
 Exits non-zero without a result when no CUDA device is present or the
@@ -69,6 +69,7 @@ package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -162,7 +163,6 @@ SOURCES = {
     "product": CSRC + "tc_product.cu",
     "cp": CSRC + "cp_likelihood_tc.cu",
     "cat_tc": CSRC + "categorised_likelihood_tc.cu",
-    "grouped": CSRC + "grouped_likelihood.cu",
     "grouped_tc": CSRC + "grouped_likelihood_tc.cu",
 }
 REPLACES = {
@@ -1178,143 +1178,242 @@ def check_cycled_rows(x, gen, flush):
     return {f"{kernel}_cycled": values for kernel, values in results.items()}
 
 
+@contextlib.contextmanager
+def replaced(module, name, value):
+    """``module.name`` set to ``value`` for the block (a measurement's
+    variant of a plan or a launch setting)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
 def check_grouped(name, x, gen, flush, n_groups):
     """K4 and K5 of base family ``name`` at the GMVAE's shapes: h (G, M, H)
     against the minibatch's targets (M, F), row weights as uneven as q(y|x)
-    (a softmax over the groups).  K4 with bf16 inputs against its plain
-    version; the bf16 K5 kernel by kernel (the grouped gradient kernel's
-    bf16(da) within one bf16 step of the plain bf16(da), its column sums per
-    64 target rows over every group; the dh and dW products of its own da
-    against the plain products, bit for bit over two runs) and as a whole
-    against the per-group plain versions with the same rounding; the
-    float32 K5 passes (CUDA cores, no main path) against theirs; NB's
-    against the flat kernels over the G·M group-major rows with cycled
-    targets (the lgamma constant included, as K4 always subtracts it).
-    Then, at G = 10, their times, beside the flat tensor-core backward over
-    the same rows."""
+    (a softmax over the groups), bf16 and float32 (check_grouped_dtype).
+    Returns, at G = 10, each kernel's times."""
     from scvae_tpu_torch import ops
-    from scvae_tpu_torch.ops import fused_likelihood as fl
 
-    bf16 = torch.bfloat16
-    fam = ops.FAMILIES[name]
-    k = len(fam.heads)
     m, f = x.shape
     dev = x.device
     h = torch.relu(torch.randn(n_groups, m, HIDDEN, generator=gen, device=dev))
     g = torch.softmax(2 * torch.randn(n_groups, m, generator=gen, device=dev),
                       dim=0) / m
-    ws, bs = head_weights(gen, k, HIDDEN, f, dev)
-    args = (h, ws, bs, x)
-    bargs = (name, g, *args)
-    kw = dict(compute_dtype=bf16)
+    ws, bs = head_weights(gen, len(ops.FAMILIES[name].heads), HIDDEN, f, dev)
+    results = {}
+    for float32 in (False, True):
+        results.update(check_grouped_dtype(name, h, g, ws, bs, x, flush,
+                                           float32))
+    return results
+
+
+def check_grouped_dtype(name, h, g, ws, bs, x, flush, float32):
+    """The grouped K4 and K5 of family ``name`` with bf16 operands, or with
+    ``float32`` h, W and da as ``fl.SPLIT_TERMS`` bf16 terms (counters with
+    the "_float32" suffix).  K4 against its plain version (float32: the
+    split design's and the float32 plain version), bit for bit over two
+    runs; K5 kernel by kernel (the grouped gradient kernel's bf16(da) within
+    one bf16 step of the plain bf16(da), float32 as check_split_da holds the
+    flat float32 scratch; its column sums per 64 target rows over every
+    group; the dh and dW products of its own da against the plain products,
+    bit for bit over two runs) and as a whole against the per-group plain
+    versions (float32: and autograd through the float32 plain forward);
+    NB's against the flat kernels over the G·M group-major rows with cycled
+    targets (the lgamma constant included, as K4 always subtracts it).
+    Then, at G = 10, their times, beside the flat tensor-core kernels over
+    the same rows, and the float32 gradient kernel's with fewer W slots."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    fam = ops.FAMILIES[name]
+    k = len(fam.heads)
+    n_groups, m, _ = h.shape
+    f = x.shape[1]
+    rows = n_groups * m
+    cdt, sfx = (None, "_float32") if float32 else (torch.bfloat16, "")
+    kw = dict(compute_dtype=cdt)
+    args = (name, h, ws, bs, x)
+    bargs = (name, g, h, ws, bs, x)
     tag = f"{fam.prefix}_grouped G={n_groups}"
-    out = ops.grouped_forward(name, *args, **kw)
-    fwd_err = check_close(f"{tag} forward", out,
-                          ops.reference_grouped_forward(name, *args, **kw),
+    out = ops.grouped_forward(*args, **kw)
+    if float32:
+        gradient = fl.grouped_f32_tc_gradient
+        plain_gradient = fl.reference_grouped_f32_tc_gradient
+
+        def plain_forward():
+            return fl.reference_grouped_f32_tc_forward(*args)
+        check_close(f"{tag} forward_float32 vs float32 plain", out,
+                    ops.reference_grouped_forward(*args), FORWARD_RTOL)
+    else:
+        gradient, plain_gradient = (fl.grouped_tc_gradient,
+                                    fl.reference_grouped_tc_gradient)
+
+        def plain_forward():
+            return ops.reference_grouped_forward(*args, **kw)
+    fwd_err = check_close(f"{tag} forward{sfx}", out, plain_forward(),
                           FORWARD_RTOL)
-    grad = fl.grouped_tc_gradient(*bargs)
-    plain = fl.reference_grouped_tc_gradient(*bargs)
-    grad_err = check_bf16_steps(f"{tag} backward_gradient bf16(da)", grad.da,
-                                plain.da)
-    check_close(f"{tag} backward_gradient db sums per 64 target rows",
+    if not torch.equal(out, ops.grouped_forward(*args, **kw)):
+        raise AssertionError(f"{tag} forward{sfx} differs between two runs")
+    grad = gradient(*bargs)
+    plain = plain_gradient(*bargs)
+    if float32:
+        grad_err = check_split_da(tag, grad, plain)
+    else:
+        grad_err = check_bf16_steps(f"{tag} backward_gradient bf16(da)",
+                                    grad.da, plain.da)
+    check_close(f"{tag} backward_gradient{sfx} db sums per 64 target rows",
                 grad.db_parts, plain.db_parts, PRODUCT_RTOL)
     dh = fl.tc_dh(grad)
-    dh_err = check_close(f"{tag} backward_dh of the kernel's da", dh,
+    dh_err = check_close(f"{tag} backward_dh{sfx} of the kernel's da", dh,
                          fl.reference_tc_dh(grad), PRODUCT_RTOL)
-    dw, db = fl.tc_dw_stacked(grad)
-    dw_err = max(check_close(f"{tag} backward_dw {part} of the kernel's da",
-                             a, b, PRODUCT_RTOL)
-                 for part, a, b in zip(("dW", "db"), (dw, db),
-                                       fl.reference_tc_dw_stacked(grad)))
-    again = (fl.tc_dh(grad), *fl.tc_dw_stacked(grad))
-    if not all(torch.equal(a, b) for a, b in zip((dh, dw, db), again)):
-        raise AssertionError(f"{tag}: the products differ between two runs")
+    dws = fl.tc_dw(grad)
+    dw_err = max(check_close(f"{tag} backward_dw{sfx} [{i}] of the kernel's "
+                             "da", a, b, PRODUCT_RTOL)
+                 for i, (a, b) in enumerate(zip(
+                     dws, fl.reference_tc_dw(grad), strict=True)))
+    again = (fl.tc_dh(grad), *fl.tc_dw(grad))
+    if not all(torch.equal(a, b) for a, b in zip((dh, *dws), again)):
+        raise AssertionError(f"{tag}{sfx}: the products differ between two "
+                             "runs")
     parts = ["dh"] + [f"{p}_{head}" for head in fam.heads for p in ("dW", "db")]
     got = ops.grouped_backward(*bargs, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, (dh.reshape(h.shape), *dws), strict=True)):
+        raise AssertionError(f"{tag}{sfx}: the public backward is not the "
+                             "three kernels")
+    rtol = AUTOGRAD_RTOL if float32 else BACKWARD_RTOL
     for part, a, b in zip(parts, got, (
             ops.reference_grouped_dh(*bargs, **kw),
             *ops.reference_grouped_dw(*bargs, **kw)), strict=True):
-        check_close(f"{tag} backward {part}", a, b, BACKWARD_RTOL)
-    got32 = ops.grouped_backward(*bargs)
-    errs32 = [check_close(f"{tag} backward float32 {part}", a, b,
-                          AUTOGRAD_RTOL)
-              for part, a, b in zip(parts, got32, (
-                  ops.reference_grouped_dh(*bargs),
-                  *ops.reference_grouped_dw(*bargs)), strict=True)]
-    rows = n_groups * m
-    h2, g2 = h.reshape(rows, HIDDEN), g.reshape(rows)
+        check_close(f"{tag} backward{sfx} {part}", a, b, rtol)
+    if float32:
+        leaves = [a.clone().requires_grad_(True) for a in (h, *ws, *bs)]
+        ll = ops.reference_grouped_forward(name, leaves[0], leaves[1:1 + k],
+                                           leaves[1 + k:], x)
+        want = torch.autograd.grad(ll, leaves, grad_outputs=g)
+        order = [0] + [i for j in range(k) for i in (1 + j, 1 + k + j)]
+        for part, a, i in zip(parts, got, order):
+            check_close(f"{tag} backward float32 {part} vs autograd", a,
+                        want[i], AUTOGRAD_RTOL)
+        del leaves, ll, want
+    h2, g2 = h.reshape(rows, -1), g.reshape(rows)
     flat_args = (name, g2, h2, ws, bs, x)
     if name == "negative binomial":
         flat = f"flat over {rows} cycled rows"
-        check_close(f"{tag} forward vs {flat}", out.reshape(-1),
+        check_close(f"{tag} forward{sfx} vs {flat}", out.reshape(-1),
                     ops.fused_forward(name, h2, ws, bs, x, **kw), FORWARD_RTOL)
         for part, a, b in zip(parts, got, ops.fused_backward(*flat_args,
                                                              **kw)):
-            check_close(f"{tag} {part} vs {flat}", a.reshape(b.shape), b,
-                        BACKWARD_RTOL)
+            check_close(f"{tag} {part}{sfx} vs {flat}", a.reshape(b.shape), b,
+                        rtol)
+    del got, again, plain
     if n_groups != CLUSTERS:
         return {}
 
     # Bounds: the function's bytes, each input read once and each output
     # written once (h and the heads in float32 as the caller holds them, t
-    # as (M, F) once for every group, bf16(da) once), against the heads'
-    # products, 2·NH·G·M·H·F, at the bf16 tensor-core rate (the float32
-    # passes: both of a pass's products at the float32 rate).
+    # as (M, F) once for every group; bf16: bf16(da) once, the products'
+    # bf16 h; float32: the function's float32 da once at 4 B an element, not
+    # its bf16 terms, and the float32 h and W), against the heads' products,
+    # 2·NH·G·M·H·F, counted once however many pairs of terms, at the bf16
+    # tensor-core rate.
     product = 2 * k * rows * HIDDEN * f
     head_bytes = k * (HIDDEN * f + f) * 4
     in_bytes = rows * HIDDEN * 4 + head_bytes + m * f * x.element_size()
-    da_bytes = rows * k * f * 2
     timed = dict(flush=flush, reps=10)
-    w2 = grad.w.reshape(grad.w.shape[0], -1)
+    fp = fl.tc_padded(f)
+    if float32:
+        da_bytes, db_bytes = rows * k * f * 4, grad.db_parts.numel() * 4
+        gradient_bytes = in_bytes + rows * 4 + da_bytes + db_bytes
+        dw_bytes = rows * HIDDEN * 4 + da_bytes + db_bytes + head_bytes
+        # the float32 da (G·M, NH·Fp), the sum of its terms, and Wᵀ
+        first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+        terms = grad.da.reshape(rows, len(fl.SPLIT_PAIRS), -1)
+        da32 = sum(terms[:, p].float() for p in first)
+        w32 = torch.zeros((k, fp, HIDDEN), device=x.device)
+        w32[:, :f] = torch.stack(ws).transpose(1, 2)
+        w32 = w32.reshape(k * fp, HIDDEN)
+        library = lambda: torch.mm(da32, w32)  # noqa: E731
+    else:
+        da_bytes = rows * k * f * 2
+        gradient_bytes = in_bytes + rows * 4 + da_bytes
+        dw_bytes = rows * HIDDEN * 2 + da_bytes + head_bytes
+        w2 = grad.w.reshape(grad.w.shape[0], -1)
+        library = lambda: torch.mm(grad.da, w2.T,  # noqa: E731
+                                   out_dtype=torch.float32)
     results = {}
-    for kernel, fn, plain_fn, library, err, nbytes, flops, peak in (
-        ("forward", lambda: ops.grouped_forward(name, *args, **kw),
-         lambda: ops.reference_grouped_forward(name, *args, **kw), None,
-         fwd_err, in_bytes + rows * 4, product, BF16_FLOPS),
-        ("backward_gradient", lambda: fl.grouped_tc_gradient(*bargs),
-         lambda: fl.reference_grouped_tc_gradient(*bargs), None, grad_err,
-         in_bytes + rows * 4 + da_bytes, product, BF16_FLOPS),
+    for kernel, fn, plain_fn, library_fn, err, nbytes in (
+        ("forward", lambda: ops.grouped_forward(*args, **kw), plain_forward,
+         None, fwd_err, in_bytes + rows * 4),
+        ("backward_gradient", lambda: gradient(*bargs),
+         lambda: plain_gradient(*bargs), None, grad_err, gradient_bytes),
         ("backward_dh", lambda: fl.tc_dh(grad),
-         lambda: fl.reference_tc_dh(grad),
-         lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
-         da_bytes + k * HIDDEN * f * 4 + rows * HIDDEN * 4, product,
-         BF16_FLOPS),
+         lambda: fl.reference_tc_dh(grad), library, dh_err,
+         da_bytes + k * HIDDEN * f * 4 + rows * HIDDEN * 4),
         ("backward_dw", lambda: fl.tc_dw(grad),
-         lambda: fl.reference_tc_dw(grad), None, dw_err,
-         rows * HIDDEN * 2 + da_bytes + head_bytes, product, BF16_FLOPS),
-        ("backward_dh_float32", lambda: ops.grouped_backward_dh(*bargs),
-         lambda: ops.reference_grouped_dh(*bargs), None, errs32[0],
-         in_bytes + rows * 4 + rows * HIDDEN * 4, 2 * product, F32_FLOPS),
-        ("backward_dw_float32", lambda: ops.grouped_backward_dw(*bargs),
-         lambda: ops.reference_grouped_dw(*bargs), None, max(errs32[1:]),
-         in_bytes + rows * 4 + head_bytes, 2 * product, F32_FLOPS),
+         lambda: fl.reference_tc_dw(grad), None, dw_err, dw_bytes),
     ):
-        t_bound, by = bound(nbytes, flops, peak)
+        t_bound, by = bound(nbytes, product, BF16_FLOPS)
         library_ms = None
-        if library is not None:
-            try:  # torch.mm with a float32 output from bf16 operands
-                library_ms = time_ms(library, **timed)
+        if library_fn is not None:
+            try:  # bf16: torch.mm with a float32 output from bf16 operands
+                library_ms = time_ms(library_fn, **timed)
             except (RuntimeError, TypeError) as err_:
-                log(f"library call for {tag} {kernel} unavailable: {err_}")
-        results[f"{fam.prefix}_grouped_{kernel}"] = {
+                log(f"library call for {tag} {kernel}{sfx} unavailable: "
+                    f"{err_}")
+        results[f"{fam.prefix}_grouped_{kernel}{sfx}"] = {
             "max_abs_err": err, "ms": time_ms(fn, **timed),
             "plain_ms": time_ms(plain_fn, **timed), "bound_ms": t_bound,
             "bound_by": by, "library_ms": library_ms,
         }
     # the flat tensor-core kernels over the same G·M rows, targets cycling
-    flat_grad = fl.tc_gradient(*flat_args)
+    flat_gradient = fl.f32_tc_gradient if float32 else fl.tc_gradient
+    flat_grad = flat_gradient(*flat_args)
     pairs = {
-        "gradient": (lambda: fl.grouped_tc_gradient(*bargs),
-                     lambda: fl.tc_gradient(*flat_args)),
+        "forward": (lambda: ops.grouped_forward(*args, **kw),
+                    lambda: ops.fused_forward(name, h2, ws, bs, x, **kw)),
+        "gradient": (lambda: gradient(*bargs),
+                     lambda: flat_gradient(*flat_args)),
         "dh": (lambda: fl.tc_dh(grad), lambda: fl.tc_dh(flat_grad)),
         "dW": (lambda: fl.tc_dw(grad), lambda: fl.tc_dw(flat_grad)),
         "public backward": (lambda: ops.grouped_backward(*bargs, **kw),
                             lambda: ops.fused_backward(*flat_args, **kw)),
     }
-    print(f"grouped {fam.prefix} G={n_groups} against the flat kernels over "
-          f"{rows} cycled rows (ms): " + "; ".join(
-              f"{label} {time_ms(a, **timed):.4f} vs {time_ms(b, **timed):.4f}"
-              for label, (a, b) in pairs.items()), flush=True)
+    line = (f"grouped {fam.prefix}{sfx} G={n_groups} against the flat "
+            f"kernels over {rows} cycled rows (ms): " + "; ".join(
+                f"{label} {time_ms(a, **timed):.4f} vs "
+                f"{time_ms(b, **timed):.4f}"
+                for label, (a, b) in pairs.items()))
+    if float32:
+        line += ("; the float32 plain versions: forward "
+                 f"{time_ms(lambda: ops.reference_grouped_forward(*args), **timed):.4f}"  # noqa: E501
+                 ", backward "
+                 f"{time_ms(lambda: (ops.reference_grouped_dh(*bargs), *ops.reference_grouped_dw(*bargs)), **timed):.4f}")  # noqa: E501
+    print(line, flush=True)
+    del flat_grad
+
+    # the float32 gradient kernel with fewer W slots than planned
+    # (restaged more often)
+    if float32 and grad.plan["w_slots"] > 1:
+        sweep = ["the planned slots "
+                 f"{results[f'{fam.prefix}_grouped_backward_gradient{sfx}']['ms']:.4f}"]  # noqa: E501
+        plan_fn = fl.grouped_tc_plan
+        for slots in range(1, grad.plan["w_slots"]):
+            def capped(*a, slots=slots, **kw_):
+                plan = plan_fn(*a, **kw_)
+                return dict(plan, w_slots=min(plan["w_slots"], slots))
+            with replaced(fl, "grouped_tc_plan", capped):
+                if not torch.equal(gradient(*bargs).da, grad.da):
+                    raise AssertionError(f"{tag} float32 with {slots} W "
+                                         "slots differs")
+                sweep.append(f"{slots} W slots "
+                             f"{time_ms(lambda: gradient(*bargs), **timed):.4f}")  # noqa: E501
+        print(f"sweep {fam.prefix}_grouped{sfx} G={n_groups}, the gradient "
+              f"kernel's W slots of {grad.plan['w_chunk']} rows (ms): "
+              + "; ".join(sweep), flush=True)
     return results
 
 
@@ -1387,7 +1486,7 @@ def phase_kernels(counts_dev):
     results.update(check_cycled_rows(x, gen, flush))
     for name in BASE_FAMILIES:
         results.update(check_grouped(name, x, gen, flush, CLUSTERS))
-    check_grouped("negative binomial", x, gen, flush, GROUP_CAP)
+        check_grouped(name, x, gen, flush, GROUP_CAP)
     check_wide(x, g, gen)
     torch.cuda.synchronize()
     return results
@@ -1551,18 +1650,17 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
 
 def _grouped_batch(name, config, state, x, t):
     """One validation minibatch through the grouped kernels and through the
-    flat kernels: log p(x|z,y) of the restored GMVAE's decoder states (K·S
-    groups) against the batch's targets, and its gradients for the decoder
-    states and the heads with the rows weighted by q(y|x) / (S·B), as the
-    ELBO weights them.  Fails unless the grouped run launched K4 and each of
-    the bf16 K5's three kernels (the grouped gradient kernel, the dh and dW
-    products) exactly once and no other likelihood kernel, and unless both
-    agree.
-    Returns the grouped run's launches."""
+    flat kernels, with bf16 operands and in float32: log p(x|z,y) of the
+    restored GMVAE's decoder states (K·S groups) against the batch's
+    targets, and its gradients for the decoder states and the heads with
+    the rows weighted by q(y|x) / (S·B), as the ELBO weights them.  Fails
+    unless each grouped run launched K4 and each of K5's three kernels (the
+    grouped gradient kernel, the dh and dW products) of its dtype exactly
+    once and no other likelihood kernel, and unless it agrees with the flat
+    run of its dtype.  Returns the grouped runs' launches."""
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.models import gmvae
 
-    bf16 = torch.bfloat16
     z_draws = torch.Generator(device=x.device).manual_seed(0)
     with torch.no_grad():
         outputs = gmvae.forward(config, state.params, state.model_state,
@@ -1571,37 +1669,42 @@ def _grouped_batch(name, config, state, x, t):
     dec_h = outputs.decoder_hidden  # (K, S, B, H)
     n_clusters, n_samples, b = dec_h.shape[:3]
     weights = (outputs.q_y.probs.T[:, None, :] / (n_samples * b)).detach()
-    results = []
-    for grouped in (True, False):
-        h = dec_h.detach().clone().requires_grad_(True)
-        heads = {p: {k: v.detach().clone().requires_grad_(True)
-                     for k, v in head.items()}
-                 for p, head in state.params["reconstruction"].items()}
-        leaves = [h] + [heads[p][k] for p in ops.FAMILIES[name].heads
-                        for k in ("kernel", "bias")]
-        ops.reset_launch_counts()
-        if grouped:
-            ll = ops.fused_grouped_log_likelihood(name, h, heads, t,
-                                                  compute_dtype=bf16)
-        else:
-            ll = ops.fused_log_likelihood(name, h, heads, t,
-                                          compute_dtype=bf16)
-        grads = torch.autograd.grad((weights * ll).sum(), leaves)
-        torch.cuda.synchronize()
-        results.append((ll.detach(), grads, ops.launch_counts()))
-    (ll, grads, launches), (ll_flat, grads_flat, _) = results
     prefix = ops.FAMILIES[name].prefix
-    want = {f"{prefix}_grouped_{kernel}": 1
-            for kernel in ("forward", "backward_gradient", "backward_dh",
-                           "backward_dw")}
-    launches = {k: v for k, v in launches.items() if v}
-    if launches != want:
-        raise AssertionError(f"grouped path launched {launches}")
-    tag = f"{prefix} grouped vs flat, {n_clusters}x{n_samples}x{b} rows"
-    check_close(f"{tag} log p(x|z,y)", ll, ll_flat, FORWARD_RTOL)
-    for i, (a, b_) in enumerate(zip(grads, grads_flat)):
-        check_close(f"{tag} gradient [{i}]", a, b_, BACKWARD_RTOL)
-    return launches
+    launched = {}
+    for cdt, sfx, rtol in ((torch.bfloat16, "", BACKWARD_RTOL),
+                           (None, "_float32", AUTOGRAD_RTOL)):
+        results = []
+        for grouped in (True, False):
+            h = dec_h.detach().clone().requires_grad_(True)
+            heads = {p: {k: v.detach().clone().requires_grad_(True)
+                         for k, v in head.items()}
+                     for p, head in state.params["reconstruction"].items()}
+            leaves = [h] + [heads[p][k] for p in ops.FAMILIES[name].heads
+                            for k in ("kernel", "bias")]
+            ops.reset_launch_counts()
+            if grouped:
+                ll = ops.fused_grouped_log_likelihood(name, h, heads, t,
+                                                      compute_dtype=cdt)
+            else:
+                ll = ops.fused_log_likelihood(name, h, heads, t,
+                                              compute_dtype=cdt)
+            grads = torch.autograd.grad((weights * ll).sum(), leaves)
+            torch.cuda.synchronize()
+            results.append((ll.detach(), grads, ops.launch_counts()))
+        (ll, grads, launches), (ll_flat, grads_flat, _) = results
+        want = {f"{prefix}_grouped_{kernel}{sfx}": 1
+                for kernel in ("forward", "backward_gradient", "backward_dh",
+                               "backward_dw")}
+        launches = {k: v for k, v in launches.items() if v}
+        if launches != want:
+            raise AssertionError(f"grouped path{sfx} launched {launches}")
+        tag = (f"{prefix} grouped{sfx} vs flat, {n_clusters}x{n_samples}x{b} "
+               "rows")
+        check_close(f"{tag} log p(x|z,y)", ll, ll_flat, FORWARD_RTOL)
+        for i, (a, b_) in enumerate(zip(grads, grads_flat)):
+            check_close(f"{tag} gradient [{i}]", a, b_, rtol)
+        launched.update(launches)
+    return launched
 
 
 def after_training(label, model_kind, name, train, valid, card):
@@ -1772,9 +1875,8 @@ def main() -> int:
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))
-    for name in kernels:  # the float32 K5 passes have no main path
-        if ("_grouped_" in name and "_float32" not in name
-                and not launches.get(name)):
+    for name in kernels:
+        if "_grouped_" in name and not launches.get(name):
             raise AssertionError(f"{name} was not launched after training")
     # VAE-NB-f32's, VAE-CP-f32's, VAE-Poisson-cat-f32's
     for prefix in ("nb", "cp", "cat_poisson"):
@@ -1793,12 +1895,8 @@ def main() -> int:
                     else "cp")
             return SOURCES[file], REPLACES["cp_" + kind]
         if "_grouped_" in name:
-            if "_float32" in name or kind == "forward":
-                file = "grouped"
-            elif "backward_gradient" in name:
-                file = "grouped_tc"
-            else:
-                file = "product"
+            file = ("product" if "backward_dh" in name or "backward_dw" in name
+                    else "grouped_tc")
             return SOURCES[file], REPLACES["grouped_" + kind]
         if "backward_dh" in name or "backward_dw" in name:
             file = "product"

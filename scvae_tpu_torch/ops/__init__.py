@@ -23,8 +23,6 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     fused_grouped_log_likelihood,
     fused_log_likelihood,
     grouped_backward,
-    grouped_backward_dh,
-    grouped_backward_dw,
     grouped_forward,
     reference_backward,
     reference_categorised_dh,
@@ -84,8 +82,6 @@ __all__ = [
     "fused_log_likelihood",
     "gather_rows",
     "grouped_backward",
-    "grouped_backward_dh",
-    "grouped_backward_dw",
     "grouped_forward",
     "launch_counts",
     "lgamma",

@@ -2,8 +2,15 @@
 // of the (ll, grads) pairs _BASE_LL / _BASE_GRADS of
 // scvae_tpu/ops/fused_likelihood.py, shared by the base kernels K2/K3
 // (count_likelihood_tc.cu), their grouped instances K4/K5
-// (grouped_likelihood.cu, grouped_likelihood_tc.cu) and their categorised
-// instances (categorised_likelihood.cu, categorised_likelihood_tc.cu).
+// (grouped_likelihood_tc.cu) and their categorised instances
+// (categorised_likelihood_tc.cu).
+//
+// A family is a struct with
+//   static constexpr int kHeads;                       // dense heads, <= 3
+//   static float ll(const float* a, float t);          // log p(t | a)
+//   static void grads(const float* a, float t, const float*, float* g);
+// where a holds the kHeads activations a_k = h W_k + b_k of one (row,
+// gene) and g receives d ll / d a_k (zero outside each clip range).
 //
 // Transcendentals use the shift-3 series of special.cuh and the clip
 // constants of the reference (_TINY, _P_HI, _L_LO, _L_HI).  Clips propagate
@@ -12,10 +19,31 @@
 // taken never reaches the result.
 #pragma once
 
-#include "fused_heads.cuh"
+#include <cuda_runtime.h>
+
+#include "special.cuh"
 
 namespace scvae {
 namespace {
+
+constexpr float kTiny = 0x1p-126f;      // np.finfo(np.float32).tiny
+constexpr float kPHi = 0x1.fffffep-1f;  // nextafter(1, 0)
+constexpr float kLLo = -0x1.3ffffep+3f;  // nextafter(-10, +inf)
+constexpr float kLHi = 0x1.3ffffep+3f;  // nextafter(10, -inf)
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);  // NaN passes through, as jnp.clip
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// jnp.logaddexp: NaN or same-signed infinities give x + y.
+__device__ __forceinline__ float logaddexp(float x, float y) {
+  const float delta = x - y;
+  return isnan(delta) ? x + y : fmaxf(x, y) + log1pf(expf(-fabsf(delta)));
+}
 
 // _poisson_ll / _poisson_grad; head: log_lambda.
 struct Poisson {

@@ -14,6 +14,7 @@
 // (tc_product.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "count_families.cuh"
@@ -107,6 +108,16 @@ __device__ __forceinline__ void split_terms(float x,
     term[k] = __float2bfloat16_rn(x);
     x -= __bfloat162float(term[k]);
   }
+}
+
+// Allow `bytes` of dynamic shared memory; a refusal is returned and cleared
+// from CUDA's last-error state, so it does not surface in a later launch.
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -20,8 +20,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 SOURCES = ("gather.cu", "count_likelihood_tc.cu", "tc_product.cu",
-           "cp_likelihood_tc.cu",
-           "categorised_likelihood_tc.cu", "grouped_likelihood.cu",
+           "cp_likelihood_tc.cu", "categorised_likelihood_tc.cu",
            "grouped_likelihood_tc.cu")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "scvae_tpu_torch_kernels"
@@ -31,7 +30,6 @@ _library: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_HEADS = [_P] * 6  # w0, b0, w1, b1, w2, b2
 _SIGNATURES = {
     # src, src_dtype, idx, n_idx, n_rows, n_cols, out, out_dtype, path, grid,
     # stream
@@ -85,22 +83,22 @@ _SIGNATURES = {
     # f, stream
     "scvae_cp_tc_f32_gradient": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
                                 + [_P],
+    # family, h, w, b, t, t_dtype, part, out, n_groups, m, hp, f, w_rows,
+    # slots, stream
+    "scvae_grouped_tc_forward": [_I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 6
+                                + [_P],
     # family, g, h, w, b, t, t_dtype, da, db_part, n_groups, m, hp, f,
-    # w_chunk, stream
-    "scvae_grouped_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                                  _I, _I, _I, _P],
-    # family, h, heads, t, t_dtype, out, n_groups, m, hidden, f, round,
-    # stream
-    "scvae_grouped_forward": [_I, _P, *_HEADS, _P, _I, _P, _I, _I, _I, _I, _I,
-                              _P],
-    # family, g, h, heads, t, t_dtype, dh, n_groups, m, hidden, f, round,
-    # stream
-    "scvae_grouped_backward_dh": [_I, _P, _P, *_HEADS, _P, _I, _P, _I, _I, _I,
-                                  _I, _I, _P],
-    # family, g, h, heads, t, t_dtype, dw0, db0, dw1, db1, dw2, db2,
-    # n_groups, m, hidden, f, round, stream
-    "scvae_grouped_backward_dw": [_I, _P, _P, *_HEADS, _P, _I, *_HEADS, _I,
-                                  _I, _I, _I, _I, _P],
+    # w_rows, slots, stream
+    "scvae_grouped_tc_gradient": [_I, _P, _P, _P, _P, _P, _I, _P, _P]
+                                 + [_I] * 6 + [_P],
+    # family, h, w0, w1, w2, b, t, t_dtype, hh, wp, part, out, n_groups, m,
+    # hidden, f, w_rows, slots, stream
+    "scvae_grouped_tc_f32_forward": [_I] + [_P] * 6 + [_I] + [_P] * 4
+                                    + [_I] * 6 + [_P],
+    # family, g, h, w0, w1, w2, b, t, t_dtype, hh, wp, da, db_part, n_groups,
+    # m, hidden, f, w_rows, slots, stream
+    "scvae_grouped_tc_f32_gradient": [_I] + [_P] * 7 + [_I] + [_P] * 4
+                                     + [_I] * 6 + [_P],
 }
 
 

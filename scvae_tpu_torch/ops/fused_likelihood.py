@@ -31,11 +31,12 @@ recomputes them tile by tile.  Counterpart of
   bf16 terms of h, W and da as the base families';
 * the grouped kernels K4/K5 take h (G, M, H) against targets t (M, F) shared
   by the G groups, with the group loop inside the kernel and lgamma(1 + t)
-  always subtracted (``ops/csrc/grouped_likelihood.cu``), for the base
-  families and 2 ≤ G ≤ :data:`MAX_FUSED_GROUPS` (``_make_fused_grouped``);
-  with bf16 the backward is a grouped gradient kernel on the tensor cores
+  always subtracted, for the base families and 2 ≤ G ≤
+  :data:`MAX_FUSED_GROUPS` (``_make_fused_grouped``): one grouped forward
+  and gradient kernel on the tensor cores
   (``ops/csrc/grouped_likelihood_tc.cu``), then the products of
-  ``ops/csrc/tc_product.cu`` over the G·M rows.
+  ``ops/csrc/tc_product.cu`` over the G·M rows; in float32 on three bf16
+  terms of h, W and da as the base families'.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
 plain versions beside them.  :class:`FusedLogLikelihood`,
@@ -230,9 +231,9 @@ MAX_FUSED_GROUPS = 16
 # gradient kernel as "_backward_gradient" and its products as
 # "_backward_dh" / "_backward_dw"; the float32 instances with the
 # "_float32" suffix.  The grouped kernels count under the prefix
-# "<family>_grouped": K4 as "_forward" (either dtype), the bf16 K5 as
-# "_backward_gradient", "_backward_dh", "_backward_dw", its float32 passes
-# with the "_float32" suffix.  CP's as "cp_<kernel>" (the forward, the
+# "<family>_grouped": K4 as "_forward", K5 as "_backward_gradient",
+# "_backward_dh", "_backward_dw"; the float32 instances with the "_float32"
+# suffix.  CP's as "cp_<kernel>" (the forward, the
 # backward's gradient kernel and its products; float32 h with the
 # "_float32" suffix).
 _KERNELS = ("forward", "backward_dh", "backward_dw")
@@ -243,11 +244,10 @@ LAUNCHES = {
     for kernel in (*_KERNELS, "backward_gradient")
     for suffix in ("", "_float32")
 } | {
-    f"{fam.prefix}_grouped_{kernel}": 0
+    f"{fam.prefix}_grouped_{kernel}{suffix}": 0
     for fam in FAMILIES.values()
-    for kernel in ("forward", "backward_gradient", "backward_dh",
-                   "backward_dw", "backward_dh_float32",
-                   "backward_dw_float32")
+    for kernel in (*_KERNELS, "backward_gradient")
+    for suffix in ("", "_float32")
 }
 LAUNCHES.update({f"cp_{kernel}{suffix}": 0
                  for kernel in (*_KERNELS, "backward_gradient")
@@ -648,13 +648,6 @@ def _checked_cuda(h, weights, biases, t, *rows):
     t = _validated(h, weights, biases, t, *rows)
     f32 = lambda xs: [x.float().contiguous() for x in xs]  # noqa: E731
     return (f32([h])[0], f32(weights), f32(biases), t, *f32(rows))
-
-
-def _head_pointers(weights, biases):
-    """w0, b0, w1, b1, w2, b2 pointers; null past the family's heads."""
-    pointers = [p for w, b in zip(weights, biases)
-                for p in (w.data_ptr(), b.data_ptr())]
-    return pointers + [None] * (2 * _MAX_HEADS - len(pointers))
 
 
 def _family_heads(name, weights, biases):
@@ -1377,13 +1370,16 @@ def reference_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
                                      t.shape[-1])
 
 
-def _f32_tc_reference_scratch(prefix, g, h, weights, gs, f,
-                              cat_w=None) -> TcGradient:
+def _f32_tc_reference_scratch(prefix, g, h, weights, gs, f, cat_w=None,
+                              plan=None, groups=1) -> TcGradient:
     """The float32 gradient kernels' outputs in their layout from the
-    per-head ∂ll/∂a ``gs`` (base heads, then the classes of ``cat_w``)."""
+    per-head ∂ll/∂a ``gs`` (base heads, then the classes of ``cat_w``);
+    over ``groups`` group-major blocks of rows (``plan`` the grouped one),
+    da's column sums of every group per row tile of a block."""
     m, hidden = h.shape
     n_heads = len(gs)
-    plan = f32_tc_plan(m, hidden, f, n_heads)
+    if plan is None:
+        plan = f32_tc_plan(m, hidden, f, n_heads)
     hh, w = _f32_tc_operands(h, weights, cat_w)
     fp = plan["fp"]
     padded = torch.zeros((m, n_heads, fp), dtype=torch.float32,
@@ -1394,7 +1390,7 @@ def _f32_tc_reference_scratch(prefix, g, h, weights, gs, f,
     tiles = plan["db_parts"][0]
     rows = torch.zeros((tiles * TC_ROW_TILE, n_heads * fp),
                        dtype=torch.float32, device=h.device)
-    rows[:m] = padded.reshape(m, -1)
+    rows[:m // groups] = padded.reshape(groups, m // groups, -1).sum(0)
     db_parts = rows.reshape(tiles, TC_ROW_TILE, -1).sum(1)
     return TcGradient(prefix, plan, hidden, f, hh.reshape(-1, plan["hp"]),
                       w, da.reshape(plan["da"]), db_parts, "_float32")
@@ -1788,68 +1784,147 @@ def _grouped_shapes(h, t, g=None):
     return n_groups, m, hidden
 
 
-def _checked_grouped(name, h, weights, biases, t, g=None):
-    """Validate and normalise the grouped kernels' operands: h (G, M, H),
-    the shared targets t (M, F), the family's heads and the row cotangents
-    g (G, M); h and g flattened group-major to the flat kernels' checks."""
-    fam = _family_heads(name, weights, biases)
+# K4 / K5 on the tensor cores (ops/csrc/grouped_likelihood_tc.cu): one heads
+# kernel, forward and gradient, bf16 on the flat kernels' bf16 operands and
+# float32 on the flat float32 kernels' split (h, W and da as three bf16
+# terms, the ring's depth over the six pairs).  A block keeps every head's
+# W resident in shared memory over the group loop, in slots of ``w_chunk``
+# rows (``w_slots`` of them, one term of W each where a term fits); the
+# forward's row sums per gene tile go through reduce_kernel, the gradient
+# kernel's scratch through the flat kernels' products.  GROUPED_TC_ROWS is
+# kGtRows, GROUPED_TC_SMEM kGtSmemMax, and the bytes below the parts that
+# gt_smem_bytes lays out: the t tile, one row of every head's resident W,
+# the sums (the gradient kernel's column sums of each warp's rows, or the
+# forward's row sums), and the h ring of four slices of GROUPED_TC_DEPTH
+# hidden units.
+GROUPED_TC_ROWS = 128
+GROUPED_TC_SMEM = 232448
+GROUPED_TC_DEPTH = 64
+_GT_T_BYTES = 4 * GROUPED_TC_ROWS * 72          # float [128][72]
+_GT_SUM_BYTES = 4 * 8 * TC_GENE_TILE            # float [8][64] per head
+_GT_W_ROW_BYTES = 2 * 72                        # bf16 [72] per head and row
+
+
+def grouped_tc_plan(n_groups: int, m: int, hidden: int, f: int,
+                    n_heads: int, float32: bool = False) -> dict:
+    """:func:`tc_plan` (``float32``: :func:`f32_tc_plan`) of the G·M
+    group-major rows (the scratch da and the products over them), with the
+    grouped gradient kernel's column sums per 64 target rows over every
+    group, ``db_parts`` (ceil(M / 64), NH·Fp), the grouped kernels' grid,
+    and W's resident slots (``w_slots`` of ``w_chunk`` rows, a multiple of
+    the ring's depth: a slot per term of W while the terms fit, else all
+    of Hp in one slot where it fits, else the most rows that do) with their
+    shared memory."""
+    rows = n_groups * m
+    plan = (f32_tc_plan if float32 else tc_plan)(rows, hidden, f, n_heads)
+    depth = GROUPED_TC_DEPTH
+    ring = 2 * 4 * GROUPED_TC_ROWS * (depth + 8)  # bf16 [4][128][depth + 8]
+    fixed = ring + _GT_T_BYTES + (4 * TC_GENE_TILE + _GT_SUM_BYTES) * n_heads
+    row_bytes = _GT_W_ROW_BYTES * n_heads
+    most = (GROUPED_TC_SMEM - fixed) // row_bytes // depth * depth
+    term_rows = _cdiv(plan["hp"], depth) * depth
+    terms = SPLIT_TERMS if float32 else 1
+    slots = max(1, min(terms, most // term_rows))
+    w_chunk = min(term_rows, most)
+    plan.update(
+        db_parts=(_cdiv(m, TC_ROW_TILE), n_heads * plan["fp"]),
+        grid=(_cdiv(m, GROUPED_TC_ROWS), _cdiv(f, TC_GENE_TILE)),
+        w_chunk=w_chunk, w_slots=slots,
+        smem_bytes=fixed + row_bytes * w_chunk * slots)
+    return plan
+
+
+def _grouped_rows(h, t, g=None, float32=False):
+    """h (G, M, H) flattened group-major to (G·M, H) (float32 and
+    contiguous for ``float32``), the row cotangents g (G, M) as float32
+    (G·M,), and (G, M, H), checked against the shared targets t (M, F)."""
     n_groups, m, hidden = _grouped_shapes(h, t, g)
-    rows = [] if g is None else [g.reshape(-1)]
-    h2, weights, biases, t, *rows = _checked_cuda(
-        h.reshape(-1, hidden), weights, biases, t, *rows)
-    return fam, h2, weights, biases, t, rows, (n_groups, m, hidden)
+    h2 = h.reshape(-1, hidden)
+    if float32:
+        h2 = h2.float().contiguous()
+    if g is not None:
+        g = g.reshape(-1).float().contiguous()
+    return h2, g, (n_groups, m, hidden)
 
 
-def grouped_forward(name, h, weights, biases, t, *, compute_dtype=None):
-    """Row sums (G, M) of h (G, M, H) against the shared targets t (M, F),
-    lgamma(1 + t) subtracted: K4 on CUDA, the plain version on the CPU."""
-    if not h.is_cuda:
-        return reference_grouped_forward(name, h, weights, biases, t,
-                                         compute_dtype=compute_dtype)
-    fam, h2, weights, biases, t, _, (n_groups, m, hidden) = _checked_grouped(
-        name, h, weights, biases, t)
+def _grouped_forward_buffers(plan, n_groups, m, device):
+    """The grouped forwards' row sums (G, M) and their partials per gene
+    tile (F tiles, G·M)."""
+    return (torch.empty((n_groups, m), dtype=torch.float32, device=device),
+            torch.empty((plan["grid"][1], n_groups * m), dtype=torch.float32,
+                        device=device))
+
+
+def grouped_tc_forward(name, h, weights, biases, t) -> torch.Tensor:
+    """Launch the grouped bf16 K4 of family ``name``: the row sums (G, M)
+    of h (G, M, H) against the shared targets t (M, F), bf16 operands,
+    lgamma(1 + t) subtracted."""
+    fam = _family_heads(name, weights, biases)
+    h2, _, (n_groups, m, hidden) = _grouped_rows(h, t)
+    t = _validated(h2, weights, biases, t)
     f = t.shape[1]
-    if n_groups == 0 or m == 0 or f == 0:
-        return torch.zeros((n_groups, m), dtype=torch.float32, device=h.device)
-    out = torch.empty((n_groups, m), dtype=torch.float32, device=h.device)
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights))
+    hb, w, b = _tc_operands(h2, weights, biases)
+    out, part = _grouped_forward_buffers(plan, n_groups, m, h.device)
     extension.call(
-        "scvae_grouped_forward", h.device, fam.code, h2.data_ptr(),
-        *_head_pointers(weights, biases), t.data_ptr(), _T_CODES[t.dtype],
-        out.data_ptr(), n_groups, m, hidden, f, _round_flag(compute_dtype),
+        "scvae_grouped_tc_forward", h.device, fam.code, hb.data_ptr(),
+        w.data_ptr(), b.data_ptr(), t.data_ptr(), _T_CODES[t.dtype],
+        part.data_ptr(), out.data_ptr(), n_groups, m, plan["hp"], f,
+        plan["w_chunk"], plan["w_slots"],
     )
     LAUNCHES[f"{fam.prefix}_grouped_forward"] += 1
     return out
 
 
-# The grouped bf16 backward's gradient kernel (grouped_likelihood_tc.cu):
-# the target rows of a block (kGtRows), a block's shared memory
-# (kGtSmemMax), and the parts of it that gt_smem_bytes lays out: the h ring,
-# the t tile, and one row of every head's resident W.
-GROUPED_TC_ROWS = 128
-GROUPED_TC_SMEM = 232448
-_GT_RING_BYTES = 2 * 4 * GROUPED_TC_ROWS * 40  # bf16 [4][128][40]
-_GT_T_BYTES = 4 * GROUPED_TC_ROWS * 72          # float [128][72]
-_GT_W_ROW_BYTES = 2 * 72                        # bf16 [72] per head and row
+def grouped_f32_tc_forward(name, h, weights, biases, t) -> torch.Tensor:
+    """Launch the grouped float32 K4 of family ``name``: h and W split into
+    their bf16 terms per pair (as for :func:`f32_tc_forward`), then the row
+    sums (G, M) of the terms multiplied pair by pair, lgamma(1 + t)
+    subtracted."""
+    fam = _family_heads(name, weights, biases)
+    h2, _, (n_groups, m, hidden) = _grouped_rows(h, t, float32=True)
+    h2, weights, biases, t = _checked_cuda(h2, weights, biases, t)
+    f = t.shape[1]
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights), float32=True)
+    hh, w = _f32_tc_scratch(plan, n_groups * m, len(weights), h.device)
+    b = torch.stack(biases)
+    out, part = _grouped_forward_buffers(plan, n_groups, m, h.device)
+    extension.call(
+        "scvae_grouped_tc_f32_forward", h.device, fam.code, h2.data_ptr(),
+        *_weight_pointers(weights), b.data_ptr(), t.data_ptr(),
+        _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(), part.data_ptr(),
+        out.data_ptr(), n_groups, m, hidden, f, plan["w_chunk"],
+        plan["w_slots"],
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_forward_float32"] += 1
+    return out
 
 
-def grouped_tc_plan(n_groups: int, m: int, hidden: int, f: int,
-                    n_heads: int) -> dict:
-    """:func:`tc_plan` of the G·M group-major rows (the scratch da (G·M,
-    NH·Fp) and the products over them), with the grouped gradient kernel's
-    column sums per 64 target rows over every group, ``db_parts``
-    (ceil(M / 64), NH·Fp), its grid, the rows of W it keeps resident at
-    once (``w_chunk``, a multiple of 32: all of Hp where it fits) and its
-    shared memory."""
-    plan = tc_plan(n_groups * m, hidden, f, n_heads)
-    fixed = _GT_RING_BYTES + _GT_T_BYTES + 4 * n_heads * TC_GENE_TILE
-    row_bytes = _GT_W_ROW_BYTES * n_heads
-    most = (GROUPED_TC_SMEM - fixed) // row_bytes // 32 * 32
-    w_chunk = min(_cdiv(plan["hp"], 32) * 32, most)
-    plan.update(
-        db_parts=(_cdiv(m, TC_ROW_TILE), plan["da"][1]),
-        grid=(_cdiv(m, GROUPED_TC_ROWS), _cdiv(f, TC_GENE_TILE)),
-        w_chunk=w_chunk, smem_bytes=fixed + row_bytes * w_chunk)
-    return plan
+def reference_grouped_f32_tc_forward(name, h, weights, biases, t):
+    """Plain version of :func:`grouped_f32_tc_forward`: the row sums (G, M)
+    of the split design's activations over the G·M group-major rows."""
+    n_groups, m, hidden = h.shape
+    return reference_f32_tc_forward(name, h.reshape(-1, hidden), weights,
+                                    biases, t).reshape(n_groups, m)
+
+
+def grouped_forward(name, h, weights, biases, t, *, compute_dtype=None):
+    """Row sums (G, M) of h (G, M, H) against the shared targets t (M, F),
+    lgamma(1 + t) subtracted: K4 on CUDA (bf16: the grouped tensor-core
+    forward on bf16 operands; float32: the same kernel on their bf16
+    terms), the plain version on the CPU."""
+    _family_heads(name, weights, biases)
+    round_flag = _round_flag(compute_dtype)
+    if not h.is_cuda:
+        return reference_grouped_forward(name, h, weights, biases, t,
+                                         compute_dtype=compute_dtype)
+    n_groups, m, hidden = _grouped_shapes(h, t)
+    if n_groups * m == 0 or t.shape[-1] == 0:
+        _validated(h.reshape(-1, hidden), weights, biases, t)
+        return torch.zeros((n_groups, m), dtype=torch.float32, device=h.device)
+    if round_flag:
+        return grouped_tc_forward(name, h, weights, biases, t)
+    return grouped_f32_tc_forward(name, h, weights, biases, t)
 
 
 def grouped_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
@@ -1859,25 +1934,53 @@ def grouped_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
     column sums per 64 target rows over every group, for :func:`tc_dh` and
     :func:`tc_dw_stacked` (counted as "<family>_grouped_backward_…")."""
     fam = _family_heads(name, weights, biases)
-    n_groups, m, hidden = _grouped_shapes(h, t, g)
-    h2 = h.reshape(-1, hidden)
-    t = _validated(h2, weights, biases, t, g.reshape(-1))
+    h2, g, (n_groups, m, hidden) = _grouped_rows(h, t, g)
+    t = _validated(h2, weights, biases, t, g)
     f = t.shape[1]
     plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights))
     hb, w, b = _tc_operands(h2, weights, biases)
     dev = h.device
     da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
     db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
-    g = g.reshape(-1).float().contiguous()
     extension.call(
         "scvae_grouped_tc_gradient", dev, fam.code, g.data_ptr(),
         hb.data_ptr(), w.data_ptr(), b.data_ptr(), t.data_ptr(),
         _T_CODES[t.dtype], da.data_ptr(), db_parts.data_ptr(), n_groups, m,
-        plan["hp"], f, plan["w_chunk"],
+        plan["hp"], f, plan["w_chunk"], plan["w_slots"],
     )
     LAUNCHES[f"{fam.prefix}_grouped_backward_gradient"] += 1
     return TcGradient(f"{fam.prefix}_grouped", plan, hidden, f, hb, w, da,
                       db_parts)
+
+
+def grouped_f32_tc_gradient(name, g, h, weights, biases, t) -> TcGradient:
+    """Launch the grouped float32 backward's gradient kernel of family
+    ``name``: h and W split into their bf16 terms per pair, the activations
+    as the grouped float32 forward summed them, da's bf16 terms per pair
+    over the G·M group-major rows (G·M, P·NH·Fp) and da's column sums per
+    64 target rows over every group, for :func:`tc_dh` and :func:`tc_dw`
+    (counted as "<family>_grouped_backward_…_float32")."""
+    fam = _family_heads(name, weights, biases)
+    h2, g, (n_groups, m, hidden) = _grouped_rows(h, t, g, float32=True)
+    h2, weights, biases, t, g = _checked_cuda(h2, weights, biases, t, g)
+    f = t.shape[1]
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights), float32=True)
+    dev = h.device
+    hh, w = _f32_tc_scratch(plan, n_groups * m, len(weights), dev)
+    b = torch.stack(biases)
+    da = torch.empty(plan["da"], dtype=torch.bfloat16, device=dev)
+    db_parts = torch.empty(plan["db_parts"], dtype=torch.float32, device=dev)
+    extension.call(
+        "scvae_grouped_tc_f32_gradient", dev, fam.code, g.data_ptr(),
+        h2.data_ptr(), *_weight_pointers(weights), b.data_ptr(),
+        t.data_ptr(), _T_CODES[t.dtype], hh.data_ptr(), w.data_ptr(),
+        da.data_ptr(), db_parts.data_ptr(), n_groups, m, hidden, f,
+        plan["w_chunk"], plan["w_slots"],
+    )
+    LAUNCHES[f"{fam.prefix}_grouped_backward_gradient_float32"] += 1
+    return TcGradient(f"{fam.prefix}_grouped", plan, hidden, f,
+                      hh.reshape(-1, plan["hp"]), w, da, db_parts,
+                      "_float32")
 
 
 def reference_grouped_tc_gradient(name, g, h, weights, biases,
@@ -1897,15 +2000,31 @@ def reference_grouped_tc_gradient(name, g, h, weights, biases,
                               w, das, groups=n_groups)
 
 
+def reference_grouped_f32_tc_gradient(name, g, h, weights, biases,
+                                      t) -> TcGradient:
+    """Plain version of :func:`grouped_f32_tc_gradient`, with its layout
+    (see :func:`reference_f32_tc_gradient`) over the G·M group-major rows:
+    da's column sums per 64 target rows over every group."""
+    fam = _family_heads(name, weights, biases)
+    n_groups, m, hidden = h.shape
+    f = t.shape[-1]
+    h2 = h.reshape(-1, hidden)
+    acts = _f32_tc_activations(h2, weights, biases)
+    gs = fam.grads(*acts, _cycle_rows(t.float(), h2.shape[0]))
+    plan = grouped_tc_plan(n_groups, m, hidden, f, len(weights), float32=True)
+    return _f32_tc_reference_scratch(f"{fam.prefix}_grouped", g.reshape(-1),
+                                     h2, weights, gs, f, plan=plan,
+                                     groups=n_groups)
+
+
 def grouped_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
     """(dh (G, M, H), dW_0, db_0, dW_1, db_1, …) for the row cotangents g
-    (G, M), dW/db summed over the groups and rows.  With bf16: the grouped
-    gradient kernel once, then the dh and dW products of its da (on the CPU
-    their plain versions); float32: K5's two CUDA-core passes
-    (:func:`grouped_backward_dh`, :func:`grouped_backward_dw`)."""
+    (G, M), dW/db summed over the groups and rows.  On CUDA the grouped
+    gradient kernel once (bf16 operands, or in float32 their bf16 terms),
+    then the dh and dW products of its da; on the CPU with bf16 the plain
+    versions of that design, in float32 the per-group plain versions."""
     args = (name, g, h, weights, biases, t)
-    if not _round_flag(compute_dtype):
-        return (grouped_backward_dh(*args), *grouped_backward_dw(*args))
+    round_flag = _round_flag(compute_dtype)
     fam = _family_heads(name, weights, biases)
     n_groups, m, hidden = h.shape
     f = t.shape[-1]
@@ -1915,68 +2034,15 @@ def grouped_backward(name, g, h, weights, biases, t, *, compute_dtype=None):
                 *(torch.zeros(shape, device=dev)
                   for _ in fam.heads for shape in ((hidden, f), (f,))))
     if not h.is_cuda:
+        if not round_flag:
+            return (reference_grouped_dh(*args),
+                    *reference_grouped_dw(*args))
         grad = reference_grouped_tc_gradient(*args)
         return (reference_tc_dh(grad).reshape(h.shape),
                 *reference_tc_dw(grad))
-    grad = grouped_tc_gradient(*args)
+    grad = (grouped_tc_gradient if round_flag else grouped_f32_tc_gradient)(
+        *args)
     return (tc_dh(grad).reshape(h.shape), *tc_dw(grad))
-
-
-def _float32_grouped_pass(compute_dtype):
-    """The float32 passes take no bf16: its backward is one gradient kernel
-    whose scratch feeds the dh and dW products alike."""
-    if _round_flag(compute_dtype):
-        raise TypeError("the grouped backward with bf16 is grouped_backward "
-                        "(the gradient kernel, then the dh and dW products); "
-                        "grouped_backward_dh / grouped_backward_dw are the "
-                        "float32 passes")
-
-
-def grouped_backward_dh(name, g, h, weights, biases, t, *,
-                        compute_dtype=None):
-    """dh (G, M, H) in float32 for the row cotangents g (G, M): K5's first
-    CUDA-core pass, the plain version on the CPU."""
-    _float32_grouped_pass(compute_dtype)
-    if not h.is_cuda:
-        return reference_grouped_dh(name, g, h, weights, biases, t)
-    fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
-        _checked_grouped(name, h, weights, biases, t, g))
-    dh = torch.empty((n_groups, m, hidden), dtype=torch.float32,
-                     device=h.device)
-    if n_groups == 0 or m == 0:
-        return dh
-    extension.call(
-        "scvae_grouped_backward_dh", h.device, fam.code, g.data_ptr(),
-        h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], dh.data_ptr(), n_groups, m, hidden, t.shape[1], 0,
-    )
-    LAUNCHES[f"{fam.prefix}_grouped_backward_dh_float32"] += 1
-    return dh
-
-
-def grouped_backward_dw(name, g, h, weights, biases, t, *,
-                        compute_dtype=None):
-    """(dW_0, db_0, dW_1, db_1, …) in float32 summed over groups and rows:
-    K5's second CUDA-core pass, the plain version on the CPU."""
-    _float32_grouped_pass(compute_dtype)
-    if not h.is_cuda:
-        return reference_grouped_dw(name, g, h, weights, biases, t)
-    fam, h2, weights, biases, t, (g,), (n_groups, m, hidden) = (
-        _checked_grouped(name, h, weights, biases, t, g))
-    f = t.shape[1]
-    out = [torch.empty(shape, dtype=torch.float32, device=h.device)
-           for _ in fam.heads for shape in ((hidden, f), (f,))]
-    if f == 0:
-        return tuple(out)
-    pointers = [x.data_ptr() for x in out]
-    pointers += [None] * (2 * _MAX_HEADS - len(pointers))
-    extension.call(
-        "scvae_grouped_backward_dw", h.device, fam.code, g.data_ptr(),
-        h2.data_ptr(), *_head_pointers(weights, biases), t.data_ptr(),
-        _T_CODES[t.dtype], *pointers, n_groups, m, hidden, f, 0,
-    )
-    LAUNCHES[f"{fam.prefix}_grouped_backward_dw_float32"] += 1
-    return tuple(out)
 
 
 # --------------------------------------------------------------------------

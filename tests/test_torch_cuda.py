@@ -46,14 +46,14 @@ forward, 4e-4 backward with bf16 rounding, 2e-5 in float32 and against
 autograd; the constrained Poisson never rounds, so 2e-5 throughout).  The
 categorised kernels are checked with 14 heads (ZINB, K = 10) and the
 largest case of 32 (Poisson, K = 30), at odd shapes, ragged F and decoder
-widths past one hidden chunk.  The grouped kernels (K4/K5) are checked at
-group counts of 1, 3 and 17 (past the 16 of ``supports_grouped_likelihood``
-and past four dh block groups), rows and genes off the tiles and decoder
+widths past one hidden chunk.  The grouped kernels (K4/K5, bf16 and
+float32: ``grouped_likelihood_tc.cu``, then the same products) are checked
+at group counts of 1, 3 and 17 (past the 16 of
+``supports_grouped_likelihood``), rows and genes off the tiles and decoder
 widths of 584 and 1,024, against their plain versions and against the flat
-kernels over the same group-major rows with cycled targets; the bf16 K5
-(``grouped_likelihood_tc.cu``, then the same products) also kernel by
-kernel, past one block of target rows and with W resident in several
-chunks.  The row gather is bit-exact on both of its paths (16-byte units,
+kernels over the same group-major rows with cycled targets; and kernel by
+kernel, past one block of target rows, with W resident in several chunks
+and (float32) restaged term by term.  The row gather is bit-exact on both of its paths (16-byte units,
 single elements), and an index outside the matrix traps.
 """
 
@@ -950,7 +950,7 @@ def test_grouped_kernels_match_plain_and_flat(device, name, n_groups, m,
     kw = dict(compute_dtype=compute)
     out = ops.grouped_forward(name, h, ws, bs, t, **kw)
     _close(out, ops.reference_grouped_forward(name, h, ws, bs, t, **kw), 2e-5)
-    # bf16: the gradient kernel and the products; float32: the two passes
+    # the gradient kernel and the products, bf16 or on bf16 terms
     dh, *dws = ops.grouped_backward(name, g, h, ws, bs, t, **kw)
     _close(dh, ops.reference_grouped_dh(name, g, h, ws, bs, t, **kw), rtol)
     want = ops.reference_grouped_dw(name, g, h, ws, bs, t, **kw)
@@ -998,30 +998,28 @@ def test_grouped_function_and_counts(device):
 
 
 def test_grouped_float32_and_bf16_launches_count_apart(device):
-    """float32 launches K5's CUDA-core passes under the "_float32" counters,
-    bf16 the gradient kernel and the products; the float32 passes refuse
-    bf16."""
+    """bf16 and float32 calls launch the grouped tensor-core kernels (K4,
+    the gradient kernel, the dh and dW products) each under its own
+    counter, float32 with the "_float32" suffix."""
     name = "zero-inflated poisson"
     h, ws, bs, t, g = _grouped_case(device, name, 4, 24, 40, 77,
                                     torch.bfloat16, seed=4)
-    for compute, kernels in (
-            (None, ("backward_dh_float32", "backward_dw_float32")),
-            (torch.bfloat16, ("backward_gradient", "backward_dh",
-                              "backward_dw"))):
+    for compute, suffix in ((None, "_float32"), (torch.bfloat16, "")):
         ops.reset_launch_counts()
+        ops.grouped_forward(name, h, ws, bs, t, compute_dtype=compute)
         ops.grouped_backward(name, g, h, ws, bs, t, compute_dtype=compute)
         torch.cuda.synchronize()
         assert {k: v for k, v in ops.launch_counts().items() if v} == {
-            f"zip_grouped_{kernel}": 1 for kernel in kernels}
-    for fn in (ops.grouped_backward_dh, ops.grouped_backward_dw):
-        with pytest.raises(TypeError):
-            fn(name, g, h, ws, bs, t, compute_dtype=torch.bfloat16)
+            f"zip_grouped_{kernel}{suffix}": 1
+            for kernel in ("forward", "backward_gradient", "backward_dh",
+                           "backward_dw")}
 
 
-# (G, M, H, F) of the grouped bf16 gradient kernel: one group, rows off the
-# 128-row block and past one block, a ragged F, decoder widths that take W
-# in several resident chunks (ZINB from 352 rows, NB from 512), and G = 17
-# past the JAX cap
+# (G, M, H, F) of the grouped kernels kernel by kernel: one group, rows off
+# the 128-row block and past one block, a ragged F, decoder widths that take
+# W in several resident chunks (bf16 ZINB past 256 rows, NB past 384;
+# float32 restages W term by term for every family but Poisson at H = 256),
+# and G = 17 past the JAX cap
 GROUPED_TC_SHAPES = [(1, 37, 21, 301), (3, 300, 256, 2000), (17, 9, 584, 70),
                      (3, 130, 1024, 100), (10, 256, 256, 512)]
 
@@ -1069,3 +1067,55 @@ def test_grouped_tensor_core_kernels(device, name, n_groups, m, hidden, f):
     for k in range(len(ws)):
         assert torch.equal(got[1 + 2 * k], dw[k])
         assert torch.equal(got[2 + 2 * k], db[k])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("n_groups,m,hidden,f", GROUPED_TC_SHAPES)
+def test_grouped_float32_tensor_core_kernels(device, name, n_groups, m,
+                                             hidden, f):
+    """The float32 grouped K4 and K5 kernel by kernel, at the bf16 kernels'
+    shapes (one group, rows off the tiles, H = 584, ZINB's W restaged term
+    by term and, at H = 1,024, chunk by chunk): the forward against the
+    split design's plain version and the float32 plain version at 2e-5,
+    bit for bit over two runs; the gradient kernel's scratch
+    (``_check_split_scratch``) and column sums per 64 target rows; the dh
+    and dW products of its own scratch at 2e-5, bit for bit over two runs;
+    the public backward is these three kernels, within 2e-5 of the float32
+    plain versions."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    h, ws, bs, t, g = _grouped_case(device, name, n_groups, m, hidden, f,
+                                    torch.bfloat16, seed=7)
+    fargs = (name, h, ws, bs, t)
+    out = fl.grouped_f32_tc_forward(*fargs)
+    _close(out, fl.reference_grouped_f32_tc_forward(*fargs), 2e-5)
+    _close(out, ops.reference_grouped_forward(*fargs), 2e-5)
+    assert torch.equal(out, fl.grouped_f32_tc_forward(*fargs))
+    assert torch.equal(out, ops.grouped_forward(*fargs))
+    args = (name, g, h, ws, bs, t)
+    grad = fl.grouped_f32_tc_gradient(*args)
+    plain = fl.reference_grouped_f32_tc_gradient(*args)
+    assert grad.da.shape == plain.da.shape == (
+        n_groups * m, len(fl.SPLIT_PAIRS) * len(ws) * fl.tc_padded(f))
+    assert grad.db_parts.shape == plain.db_parts.shape == (
+        -(-m // 64), len(ws) * fl.tc_padded(f))
+    _check_split_scratch(grad, plain)
+    _close(grad.db_parts, plain.db_parts, 2e-5)
+    again = fl.grouped_f32_tc_gradient(*args)
+    assert torch.equal(grad.da, again.da)
+    assert torch.equal(grad.db_parts, again.db_parts)
+    dh = fl.tc_dh(grad)
+    assert torch.equal(dh, fl.tc_dh(grad))
+    _close(dh, fl.reference_tc_dh(grad), 2e-5)
+    dws = fl.tc_dw(grad)
+    assert all(torch.equal(a, b) for a, b in zip(dws, fl.tc_dw(grad)))
+    for a, b in zip(dws, fl.reference_tc_dw(grad), strict=True):
+        _close(a, b, 2e-5)
+    got = ops.grouped_backward(*args)
+    assert torch.equal(got[0], dh.reshape(h.shape))
+    for a, b in zip(got[1:], dws, strict=True):
+        assert torch.equal(a, b)
+    want = (ops.reference_grouped_dh(*args),
+            *ops.reference_grouped_dw(*args))
+    for a, b in zip(got, want, strict=True):
+        _close(a, b, 2e-5)

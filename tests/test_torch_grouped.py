@@ -132,12 +132,11 @@ def test_plain_versions_and_errors():
     ws = [torch.from_numpy(heads[p]["kernel"]) for p in heads]
     bs = [torch.from_numpy(heads[p]["bias"]) for p in heads]
     ops.reset_launch_counts()
-    dws = ops.grouped_backward_dw(name, tg, th, ws, bs, tt)
+    dh, *dws = ops.grouped_backward(name, tg, th, ws, bs, tt)
     flat = ops.reference_dw(name, tg.reshape(-1), th.reshape(-1, HIDDEN), ws,
                             bs, tt)
-    for a, b in zip(dws, flat):
+    for a, b in zip(dws, flat, strict=True):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    dh = ops.grouped_backward_dh(name, tg, th, ws, bs, tt)
     assert tuple(dh.shape) == (G, M, HIDDEN)
     assert not any(ops.launch_counts().values())
     with pytest.raises(ValueError):

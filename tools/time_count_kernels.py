@@ -30,6 +30,10 @@ each):
   2,048 rows, decoder width 256) from row weights as uneven as q(y|x):
   ``grouped_backward`` where the checkout has it, else
   ``grouped_backward_dh`` and ``grouped_backward_dw`` in one call;
+- every base family's grouped K4 and K5 at those shapes, bf16 and float32
+  (no compute dtype): ``grouped_forward`` and ``grouped_backward``, each
+  call's device time by kernel from ``torch.profiler`` (float32 alone
+  with ``--float32``);
 - the float32 K2/K3 of every base family at the headline shapes, as a
   VAE trained with ``precision="float32"`` calls them: ``fused_forward``
   and ``fused_backward`` with no compute dtype; and of the categorised
@@ -240,6 +244,35 @@ def time_float32(cs, ops, x, gen, flush) -> dict:
     return float32
 
 
+def time_grouped(cs, ops, x, gen, flush, dtypes) -> dict:
+    """Every base family's ``grouped_forward`` and ``grouped_backward`` at
+    the GMVAE's shapes for each compute dtype of ``dtypes``, and each
+    call's device time by kernel."""
+    dev = x.device
+    h = torch.relu(torch.randn(cs.CLUSTERS, cs.BATCH, cs.HIDDEN,
+                               generator=gen, device=dev))
+    g = torch.softmax(2 * torch.randn(cs.CLUSTERS, cs.BATCH, generator=gen,
+                                      device=dev), dim=0) / cs.BATCH
+    grouped = {}
+    for name in cs.BASE_FAMILIES:
+        ws, bs = cs.head_weights(gen, len(ops.FAMILIES[name].heads),
+                                 cs.HIDDEN, cs.N_GENES, dev)
+        for cdt in dtypes:
+            kw = dict(compute_dtype=cdt)
+            calls = {
+                "grouped_forward": lambda ws=ws, bs=bs, kw=kw, name=name: (
+                    ops.grouped_forward(name, h, ws, bs, x, **kw)),
+                "grouped_backward": lambda ws=ws, bs=bs, kw=kw, name=name: (
+                    ops.grouped_backward(name, g, h, ws, bs, x, **kw)),
+            }
+            label = f"{name} {'float32' if cdt is None else 'bf16'}"
+            grouped[label] = {label_: cs.time_ms(fn, reps=10, flush=flush)
+                              for label_, fn in calls.items()}
+            grouped[label]["kernels"] = {label_: kernel_ms(fn, flush)
+                                         for label_, fn in calls.items()}
+    return grouped
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("root", nargs="?", default=REPO)
@@ -274,6 +307,8 @@ def main() -> int:
         dev, bf16)
     times = {} if args.float32 else time_bf16(cs, ops, fl, x, gen, flush)
     times["float32_ms"] = time_float32(cs, ops, x, gen, flush)
+    times["grouped_ms"] = time_grouped(
+        cs, ops, x, gen, flush, (None,) if args.float32 else (bf16, None))
     print(cs.card_line(), flush=True)
     print(json.dumps({"root": root, **times}), flush=True)
     return 0
