@@ -16,7 +16,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              which every other row is drawn as Poisson(K), NB's K2/K3 over
              the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
              cycled target rows, and at decoder width 1,024; with its time,
-             the plain version's time and the least time the card could take;
+             the plain version's time, the least time the card could take
+             and, for the products, one ``torch.mm`` of the same product
+             (dW: the product alone, db not included);
 4. slice   — for each trained configuration, the headline VAE with each
              likelihood (Poisson, zero-inflated Poisson, zero-inflated NB,
              constrained Poisson, NB), VAE-NB-f32 (NB with
@@ -39,7 +41,20 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              each of the configuration's likelihood kernels launched exactly
              once per training step (GMVAE-NB: once over all clusters, not K
              times), no other likelihood kernel (the evaluation passes take
-             the unfused path), the row gather at least once;
+             the unfused path), the row gather at least once.  Training and
+             the full-batch evaluation steps run as CUDA graph replays (the
+             entry points' default on CUDA), and the counters count each
+             replay's launches;
+4b. graph  — VAE-NB, VAE-CP-f32, VAE-Poisson-cat and GMVAE-NB (one
+             configuration per kernel family on a training path) trained
+             for two epochs through ``train_config_level`` from the same
+             seed, eagerly and through the graphs: the same launches, the
+             parameters within 2e-5 of the largest |parameter|, the curves
+             within 1e-6 relative, and both runs' steps/s;
+4c. deferred — VAE-NB on phase 5's split with validation for three epochs
+             with ``metrics_fetch="sync"`` and "deferred": the same curves
+             (1e-6 relative), epochs trained, best epoch and epochs in the
+             files of the run, ``best/`` and ``early_stopping/``;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
@@ -116,6 +131,20 @@ CATEGORISED = (("zero-inflated negative binomial", 10), ("poisson", 30))
 BASE_FAMILIES = ("poisson", "negative binomial", "zero-inflated poisson",
                  "zero-inflated negative binomial")
 GROUP_CAP = 16
+# Phase 4b: one configuration per kernel family on a training path (as
+# TRAINED), trained eagerly and through the CUDA graphs from the same seed.
+# A graph replays the eager step's kernels on the same inputs, so the two
+# runs may differ only where a kernel's result depends on when it runs; the
+# parameters are held to 2e-5 of the largest |parameter| (the small
+# step's bound) and the curves to 1e-6 relative.
+GRAPHED = (
+    ("VAE-NB", "vae", "negative binomial", 0, 3.0, None),
+    ("VAE-CP-f32", "vae", "constrained poisson", 0, 3.0, "float32"),
+    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None),
+    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0, None),
+)
+GRAPH_PARAM_RTOL = 2e-5
+GRAPH_CURVE_RTOL = 1e-6
 # Phase 5: epochs, validation share, cells sampled, the runs' directory.
 AFTER_EPOCHS = 3
 VALIDATION_SHARE = 0.1
@@ -123,6 +152,7 @@ SAMPLES = 2_048
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SLICE_DIRECTORY = os.path.join(BUILD, "slice_training")
 AFTER_DIRECTORY = os.path.join(BUILD, "after_training")
+DEFERRED_DIRECTORY = os.path.join(BUILD, "deferred_training")
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -454,6 +484,24 @@ def check_split_da(tag, grad, plain) -> float:
         sum(want[:, p].float() for p in first), PRODUCT_RTOL)
 
 
+def dw_yardstick(grad, h32=None, da32=None):
+    """The library yardstick of a dW product: one ``torch.mm`` of the
+    product alone (dW only, db not included).  bf16: hᵀ·da on the kernel's
+    own bf16 operands (the product's depth and width, pairs of terms
+    included) into float32.  float32: the float32 h's transpose times the
+    function's float32 da (``da32``, else the sum of the scratch's terms)."""
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    if h32 is None:
+        da = grad.da.reshape(grad.h.shape[0], -1)
+        return lambda: torch.mm(grad.h.T, da, out_dtype=torch.float32)
+    if da32 is None:
+        first = [fl.SPLIT_PAIRS.index((i, 0)) for i in range(fl.SPLIT_TERMS)]
+        terms = grad.da.reshape(h32.shape[0], len(fl.SPLIT_PAIRS), -1)
+        da32 = sum(terms[:, p].float() for p in first)
+    return lambda: torch.mm(h32.T, da32)
+
+
 def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25,
                        float32=False):
     """The K2 and K3 kernels of base family ``name`` on the main path's
@@ -544,7 +592,8 @@ def count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err, tag, reps=25,
             lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32),
             dh_err, da_bytes + w_bytes + m * hidden * 4),
         "backward_dw": (
-            lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad), None,
+            lambda: fl.tc_dw(grad), lambda: fl.reference_tc_dw(grad),
+            dw_yardstick(grad, h if float32 else None),
             dw_err, h_bytes + da_bytes + db_bytes + head_bytes),
     }
     results = {}
@@ -802,7 +851,7 @@ def check_cp(h, g, x, gen, flush):
          lambda: torch.mm(grad.da, w2.T, out_dtype=torch.float32), dh_err,
          da_terms + hidden * f * 4 + m * hidden * 4),
         ("cp_backward_dw", lambda: fl.tc_dw(grad),
-         lambda: fl.reference_tc_dw(grad), None, dw_err,
+         lambda: fl.reference_tc_dw(grad), dw_yardstick(grad), dw_err,
          m * hidden * 2 + da_terms + db_bytes + head_bytes),
     ):
         t_bound, by = bound(nbytes, product, BF16_FLOPS)
@@ -848,7 +897,8 @@ def check_cp(h, g, x, gen, flush):
          lambda: fl.reference_tc_dh(grad32), lambda: torch.mm(da32, w.T),
          dh32_err, da32_bytes + hidden * f * 4 + m * hidden * 4),
         ("backward_dw", lambda: fl.tc_dw(grad32),
-         lambda: fl.reference_tc_dw(grad32), None, dw32_err,
+         lambda: fl.reference_tc_dw(grad32), dw_yardstick(grad32, h, da32),
+         dw32_err,
          m * hidden * 4 + da32_bytes + db32_bytes + head_bytes),
     ):
         t_bound, by = bound(nbytes, product, BF16_FLOPS)
@@ -1103,7 +1153,8 @@ def check_categorised(name, k_max, h, g, x, gen, flush):
                 errs[2], da_bytes + w_bytes + m * hidden * 4),
             "backward_dw": (
                 lambda grd=grd: fl.tc_dw_stacked(grd),
-                lambda grd=grd: fl.reference_tc_dw_stacked(grd), None,
+                lambda grd=grd: fl.reference_tc_dw_stacked(grd),
+                dw_yardstick(grd, None if cdt is bf16 else h),
                 errs[3], h_bytes + da_bytes + db_bytes + head_bytes),
         }
         for kernel, (fn, plain_fn, library, err, nbytes) in kernels.items():
@@ -1337,6 +1388,7 @@ def check_grouped_dtype(name, h, g, ws, bs, x, flush, float32):
         w32[:, :f] = torch.stack(ws).transpose(1, 2)
         w32 = w32.reshape(k * fp, HIDDEN)
         library = lambda: torch.mm(da32, w32)  # noqa: E731
+        dw_library = dw_yardstick(grad, h.reshape(rows, -1), da32)
     else:
         da_bytes = rows * k * f * 2
         gradient_bytes = in_bytes + rows * 4 + da_bytes
@@ -1344,6 +1396,7 @@ def check_grouped_dtype(name, h, g, ws, bs, x, flush, float32):
         w2 = grad.w.reshape(grad.w.shape[0], -1)
         library = lambda: torch.mm(grad.da, w2.T,  # noqa: E731
                                    out_dtype=torch.float32)
+        dw_library = dw_yardstick(grad)
     results = {}
     for kernel, fn, plain_fn, library_fn, err, nbytes in (
         ("forward", lambda: ops.grouped_forward(*args, **kw), plain_forward,
@@ -1354,7 +1407,7 @@ def check_grouped_dtype(name, h, g, ws, bs, x, flush, float32):
          lambda: fl.reference_tc_dh(grad), library, dh_err,
          da_bytes + k * HIDDEN * f * 4 + rows * HIDDEN * 4),
         ("backward_dw", lambda: fl.tc_dw(grad),
-         lambda: fl.reference_tc_dw(grad), None, dw_err, dw_bytes),
+         lambda: fl.reference_tc_dw(grad), dw_library, dw_err, dw_bytes),
     ):
         t_bound, by = bound(nbytes, product, BF16_FLOPS)
         library_ms = None
@@ -1536,12 +1589,14 @@ def phase_small_step(label, model, name, k_max):
                     AUTOGRAD_RTOL, scale=largest)
 
 
-def train_config_level(config, counts, epoch_callback=None, device="cuda"):
+def train_config_level(config, counts, epoch_callback=None, device="cuda",
+                       capture=True, epochs=EPOCHS):
     """Train a VAE or GMVAE ``config`` on ``device`` through the config-level
     functions (``models/step.py`` and the training loop on the API's staged
     data, writing no files), as the JAX package's ``bench.py`` config 3
     trains VAE-ZINB-cat, which both packages' VAE API refuses; the epoch's
-    ELBO is the mean of its training minibatches'."""
+    ELBO is the mean of its training minibatches'.  ``capture=False`` runs
+    the steps eagerly on CUDA too (phase 4b's comparison)."""
     from scvae_tpu_torch.data.dataset import DataSet
     from scvae_tpu_torch.data.pipeline import (
         build_model_arrays,
@@ -1567,12 +1622,13 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda"):
 
     train_epoch = step.make_train_epoch(
         loss, optimizer,
-        batch_dtypes=api._bf16_batch_dtypes(arrays, config, dev))
+        batch_dtypes=api._bf16_batch_dtypes(arrays, config, dev),
+        capture=capture)
     return training.run_training_loop(
         train_state=step.create_train_state(params, state, optimizer),
         run_epoch=training.device_epoch_runner(train_epoch, data, n_cells,
                                                BATCH, seed=0),
-        evaluate_training=None, number_of_epochs=EPOCHS,
+        evaluate_training=None, number_of_epochs=epochs,
         generator=torch.Generator(device=dev).manual_seed(0),
         steps_per_epoch=n_cells // BATCH,
         number_of_warm_up_epochs=config.number_of_warm_up_epochs,
@@ -1600,12 +1656,8 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
         kwargs["precision"] = precision
     ops.reset_launch_counts()
     if model == "config":
-        from scvae_tpu_torch.models import vae
-
-        result = train_config_level(vae.VAEConfig(
-            feature_size=N_GENES, latent_size=LATENT,
-            hidden_sizes=(HIDDEN, HIDDEN), reconstruction_distribution=name,
-            number_of_reconstruction_classes=k_max), counts)
+        result = train_config_level(
+            trained_config(model, name, k_max, precision), counts)
     else:
         if model == "gmvae":
             model_ = GaussianMixtureVariationalAutoencoder(
@@ -1646,6 +1698,143 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
           f"launches {({k: v for k, v in launches.items() if v})} ({card})",
           flush=True)
     return launches
+
+
+def trained_config(model, name, k_max, precision):
+    """The configuration of a phase 4 or 4b run: the headline VAE, or the
+    GMVAE API's configuration (10 clusters)."""
+    from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder
+    from scvae_tpu_torch.models import vae
+
+    kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
+                  hidden_sizes=(HIDDEN, HIDDEN),
+                  reconstruction_distribution=name,
+                  number_of_reconstruction_classes=k_max)
+    if precision is not None:
+        kwargs["precision"] = precision
+    if model == "gmvae":
+        return GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=CLUSTERS, **kwargs).config
+    return vae.VAEConfig(**kwargs)
+
+
+def phase_graph_vs_eager(data, card):
+    """Phase 4b: each GRAPHED configuration trained for two epochs from the
+    same seed through ``train_config_level``, eagerly and then through the
+    CUDA graphs, in this process: the same kernel launches, the parameters
+    within GRAPH_PARAM_RTOL of the largest |parameter| and the curves
+    within GRAPH_CURVE_RTOL; both runs' steps/s of epoch 2."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.models import step
+
+    for label, model, name, k_max, mean, precision in GRAPHED:
+        config = trained_config(model, name, k_max, precision)
+        runs = {}
+        for capture in (False, True):
+            ops.reset_launch_counts()
+            result = train_config_level(config, data[mean], capture=capture)
+            torch.cuda.synchronize()
+            runs[capture] = (result, ops.launch_counts())
+        (eager, eager_launches), (graphed, graphed_launches) = (
+            runs[False], runs[True])
+        if graphed_launches != eager_launches:
+            raise AssertionError(f"graph {label}: launches "
+                                 f"{graphed_launches}, eagerly "
+                                 f"{eager_launches}")
+        pairs = [(a, b) for part in ("params", "model_state")
+                 for a, b in zip(
+                     step.tree_leaves(getattr(eager.train_state, part)),
+                     step.tree_leaves(getattr(graphed.train_state, part)))]
+        pairs.append((eager.train_state.opt_state["count"],
+                      graphed.train_state.opt_state["count"]))
+        largest = max(float(a.abs().max()) for a, _ in pairs)
+        diff = max(float((a.double() - b.double()).abs().max())
+                   for a, b in pairs)
+        curve_e = np.asarray(eager.history["training"]["lower_bound"])
+        curve_g = np.asarray(graphed.history["training"]["lower_bound"])
+        curve_rel = float(np.max(np.abs(curve_g - curve_e) / np.abs(curve_e)))
+        exact = diff == 0 and np.array_equal(curve_e, curve_g)
+        rates = [result.steps_per_epoch / result.epoch_seconds[-1]
+                 for result in (eager, graphed)]
+        print(f"graph {label}: epoch 2 {rates[0]:.6g} steps/s eager, "
+              f"{rates[1]:.6g} graphed ({rates[1] / rates[0]:.3g}x); curve "
+              f"eager {curve_e.tolist()}, graphed {curve_g.tolist()}; "
+              f"largest parameter difference {diff:.3g} over largest "
+              f"|parameter| {largest:.6g} = {diff / largest:.3g}, curves "
+              f"{curve_rel:.3g} relative; "
+              f"{'bit for bit' if exact else 'not bit for bit'} ({card})",
+              flush=True)
+        if diff > GRAPH_PARAM_RTOL * largest or curve_rel > GRAPH_CURVE_RTOL:
+            raise AssertionError(f"graph {label}: parameters "
+                                 f"{diff / largest:.3g}, curves "
+                                 f"{curve_rel:.3g} from the eager run")
+
+
+def split_counts(counts):
+    """Phase 5's split: (training rows, validation rows), 90/10."""
+    order = np.random.RandomState(1).permutation(counts.shape[0])
+    n_valid = int(counts.shape[0] * VALIDATION_SHARE)
+    return counts[order[n_valid:]], counts[order[:n_valid]]
+
+
+def phase_deferred(counts, card):
+    """Phase 4c: VAE-NB on phase 5's split with validation for three
+    epochs, once with ``metrics_fetch="sync"`` and once "deferred": the
+    same curves (1e-6 relative), the same epochs trained and best epoch,
+    and the same epochs in the files of the run, ``best/`` and
+    ``early_stopping/``."""
+    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch.models import checkpoints
+
+    shutil.rmtree(DEFERRED_DIRECTORY, ignore_errors=True)
+    train, valid = split_counts(counts)
+    runs = {}
+    for mode in ("sync", "deferred"):
+        model = VariationalAutoencoder(
+            feature_size=N_GENES, latent_size=LATENT,
+            hidden_sizes=[HIDDEN, HIDDEN],
+            reconstruction_distribution="negative binomial",
+            log_directory=os.path.join(DEFERRED_DIRECTORY, mode))
+        result = model.train(train, valid, number_of_epochs=AFTER_EPOCHS,
+                             minibatch_size=BATCH, seed=0, device="cuda",
+                             verbose=False, metrics_fetch=mode)
+        directory = model.log_directory()
+        epochs = {
+            version: checkpoints.load_metadata(path)["epoch"]
+            for version in ("run", "best", "early_stopping")
+            for path in [directory if version == "run"
+                         else os.path.join(directory, version)]
+            if checkpoints.checkpoint_exists(path)}
+        runs[mode] = (result, epochs)
+    (sync, sync_epochs), (deferred, deferred_epochs) = (runs["sync"],
+                                                        runs["deferred"])
+    worst = 0.0
+    for kind in ("training", "validation"):
+        for name, want in sync.history[kind].items():
+            got = np.asarray(deferred.history[kind][name])
+            want = np.asarray(want)
+            if got.shape != want.shape:
+                raise AssertionError(f"deferred {kind} {name}: {got} vs {want}")
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                            / np.abs(want))))
+    print(f"deferred VAE-NB: ELBO(valid) sync "
+          f"{sync.history['validation']['lower_bound']}, deferred "
+          f"{deferred.history['validation']['lower_bound']}; curves "
+          f"{worst:.3g} relative; epochs in the files {deferred_epochs} "
+          f"(sync {sync_epochs}); epoch seconds sync "
+          f"{[round(t, 4) for t in sync.epoch_seconds]}, deferred "
+          f"{[round(t, 4) for t in deferred.epoch_seconds]} ({card})",
+          flush=True)
+    if worst > GRAPH_CURVE_RTOL:
+        raise AssertionError(f"deferred curves {worst:.3g} from sync")
+    if ((deferred.number_of_epochs_trained, deferred.best_epoch,
+         deferred_epochs) != (sync.number_of_epochs_trained, sync.best_epoch,
+                              sync_epochs)):
+        raise AssertionError(
+            f"deferred run: {deferred.number_of_epochs_trained} epochs, best "
+            f"{deferred.best_epoch}, files {deferred_epochs}; sync "
+            f"{sync.number_of_epochs_trained}, {sync.best_epoch}, "
+            f"{sync_epochs}")
 
 
 def _grouped_batch(name, config, state, x, t):
@@ -1814,9 +2003,7 @@ def after_training(label, model_kind, name, train, valid, card):
 def phase_after(counts, card):
     """Phase 5 for VAE-NB and a GMVAE of each base family."""
     shutil.rmtree(AFTER_DIRECTORY, ignore_errors=True)
-    order = np.random.RandomState(1).permutation(counts.shape[0])
-    n_valid = int(counts.shape[0] * VALIDATION_SHARE)
-    valid, train = counts[order[:n_valid]], counts[order[n_valid:]]
+    train, valid = split_counts(counts)
     launches = {}
     runs = [("VAE-NB", "vae", "negative binomial")] + [
         (f"GMVAE-{name}", "gmvae", name) for name in BASE_FAMILIES]
@@ -1872,6 +2059,10 @@ def main() -> int:
             entry = kernel + "_cycled" if model == "gmvae" else kernel
             if kernel == "gather_rows" or entry in kernels:
                 launches[kernel if kernel == "gather_rows" else entry] += count
+
+    # 4b. eager against graph; 4c. deferred against sync
+    phase_graph_vs_eager(data, card)
+    phase_deferred(counts, card)
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))

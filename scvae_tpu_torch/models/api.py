@@ -15,11 +15,14 @@ checkpoints (in the JAX package's format, with the ``best/`` and
 and ``sample`` restore them; ``evaluate`` gathers its batches from the
 device-resident evaluation set with the same kernel.  Entry points run on
 CUDA unless the caller passes ``device="cpu"``; without a GPU they raise.
-Without a log directory the run goes under the default ``models/``
-directory, as in the JAX package.
-Arguments that need parts not ported yet (streaming, meshes, deferred metric
-fetch, intermediate analyses, a caches directory) raise
-``NotImplementedError``.
+On CUDA each training step and each full-batch step of the per-epoch
+evaluation passes is a replay of a CUDA graph captured once per ``train``
+call (``models/step.py``); on the CPU they run eagerly.
+``metrics_fetch="deferred"`` fetches each epoch's metrics one epoch late,
+as in the JAX package (``models/training.py``).  Without a log directory
+the run goes under the default ``models/`` directory, as in the JAX
+package.  Arguments that need parts not ported yet (streaming, meshes,
+intermediate analyses, a caches directory) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -380,32 +383,30 @@ class VariationalAutoencoder:
 
     def _device_evaluator(self, data: dict[str, torch.Tensor], n: int,
                           batch_size: int, n_iw: int, n_mc: int):
-        """Full-pass evaluation (unfused, float32) over sequential batches
-        plus one remainder batch, weighted by rows like the JAX package."""
+        """Full-pass evaluation (unfused, float32): the sequential full
+        batches through ``step.make_eval_epoch`` (graph replays on CUDA),
+        then one remainder batch, weighted by rows like the JAX package."""
         device = next(iter(data.values())).device
         idx = torch.from_numpy(step.sequential_batches(n, batch_size)).to(device)
         n_full = int(idx.numel())
         keys = step.EVAL_METRIC_KEYS
         eval_fn = self._eval_fn(n_iw, n_mc)
-
-        def batch_metrics(ts, batch, generator):
-            return eval_fn(ts.params, ts.model_state,
-                           step.cast_batch_to_f32(batch), generator)
+        eval_epoch = step.make_eval_epoch(eval_fn, keys)
 
         def evaluate(ts: step.TrainState, generator: torch.Generator):
-            with torch.no_grad():
-                sums = {k: 0.0 for k in keys}
-                for batch_idx in idx:
-                    batch = step.gather_batch(data, batch_idx)
-                    metrics = batch_metrics(ts, batch, generator)
-                    sums = {k: sums[k] + metrics[k] for k in keys}
-                out = {k: sums[k] * (batch_size / n) for k in keys}
-                if n > n_full:
-                    tail = {k: v[n_full:n] for k, v in data.items()}
-                    metrics = batch_metrics(ts, tail, generator)
-                    out = {
-                        k: out[k] + metrics[k] * ((n - n_full) / n) for k in keys
-                    }
+            out = {k: 0.0 for k in keys}
+            if n_full:
+                means = eval_epoch(ts.params, ts.model_state, data, idx,
+                                   generator)
+                out = {k: means[k] * (n_full / n) for k in keys}
+            if n > n_full:
+                tail = {k: v[n_full:n] for k, v in data.items()}
+                with torch.no_grad():
+                    metrics = eval_fn(ts.params, ts.model_state,
+                                      step.cast_batch_to_f32(tail), generator)
+                out = {
+                    k: out[k] + metrics[k] * ((n - n_full) / n) for k in keys
+                }
             return {
                 k: float(v) if v.dim() == 0 else v.cpu().numpy()
                 for k, v in out.items()
@@ -444,10 +445,11 @@ class VariationalAutoencoder:
         count matrix with cells as rows) on ``device`` (CUDA by default),
         evaluating ``validation_set`` each epoch for early stopping.  With a
         log directory the run resumes from its checkpoint unless
-        ``reset_training``; ``new_run`` gives it a new run id."""
+        ``reset_training``; ``new_run`` gives it a new run id.
+        ``metrics_fetch``: "sync", or "deferred" to process each epoch's
+        results while the next epoch trains (the same curves and files)."""
         unported = {
             "streaming data placement": data_placement == "streaming",
-            "deferred metrics fetch": metrics_fetch == "deferred",
             "intermediate analyses": (
                 intermediate_analyser is not None or analyses_directory is not None
             ),
@@ -528,7 +530,8 @@ class VariationalAutoencoder:
             batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
         )
         run_epoch = training.device_epoch_runner(
-            train_epoch, data, n_train, batch_size, seed
+            train_epoch, data, n_train, batch_size, seed,
+            lazy=metrics_fetch == "deferred",
         )
         evaluate_training = (
             self._device_evaluator(data, n_train, batch_size, n_iw, n_mc)
@@ -558,6 +561,7 @@ class VariationalAutoencoder:
             start_epoch=start_epoch,
             verbose=verbose,
             epoch_callback=epoch_callback,
+            fetch_mode=metrics_fetch,
         )
         self.stopped_early = result.stopped_early
         return result

@@ -8,16 +8,23 @@ package writes restores in the other.  A run keeps three versions: its
 directory (end of training), ``best/`` (the best validation lower bound)
 and ``early_stopping/`` (the epoch before degradation began).  Learning
 curves, the GMVAE's per-epoch prior centroids and per-epoch vectors (the
-per-neuron KL) are JSON files beside them.  Writes are synchronous and
-atomic (a temporary file, then a rename); the JAX package's background
-writer is not needed here.
+per-neuron KL) are JSON files beside them.  Every write is atomic (a
+temporary file, then a rename).  With ``async_write`` the checkpoint
+writers (``save_checkpoint``, ``copy_checkpoint_version``,
+``remove_checkpoint``) queue their file work on one background worker, as
+the JAX package's do: the operations run in the order they were queued,
+and ``save_checkpoint`` copies the tensors to the host before it queues
+the write, so training may go on updating them.  ``wait_for_pending_writes``
+blocks until the queue is empty and raises the first failed write.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
+import threading
 from typing import Any
 
 import numpy as np
@@ -31,6 +38,38 @@ METADATA_FILE = "checkpoint.json"
 LEARNING_CURVES_FILE = "learning_curves.json"
 CENTROIDS_FILE = "centroids.json"
 ARRAY_SERIES_FILE = "array_series.json"
+
+
+# One worker: queued writes run in order, relative to each other and to the
+# version copies and removals queued the same way.  Made on first use.
+_executor: concurrent.futures.ThreadPoolExecutor | None = None
+_executor_lock = threading.Lock()
+_pending: list[concurrent.futures.Future] = []
+
+
+def _submit(fn, *args) -> None:
+    global _executor
+    with _executor_lock:
+        if _executor is None:
+            _executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="checkpoints")
+        _pending.append(_executor.submit(fn, *args))
+        done = [future for future in _pending if future.done()]
+        for future in done:
+            _pending.remove(future)
+    for future in done:  # surface a failed write
+        future.result()
+
+
+def wait_for_pending_writes() -> None:
+    """Block until every queued checkpoint operation has finished; raise
+    the error of one that failed."""
+    while True:
+        with _executor_lock:
+            if not _pending:
+                return
+            future = _pending.pop(0)
+        future.result()
 
 
 def _numpy(value: Any) -> np.ndarray:
@@ -53,24 +92,34 @@ def _read_json(path: str, default: Any) -> Any:
         return json.load(f)
 
 
-def save_checkpoint(directory: str, train_state: TrainState, *, epoch: int,
-                    extra_metadata: dict[str, Any] | None = None) -> None:
-    """Persist ``train_state`` and its metadata (the epoch and the step)
-    into ``directory``."""
+def _write_checkpoint(directory: str, flat: dict[str, np.ndarray],
+                      metadata: dict[str, Any]) -> None:
     os.makedirs(directory, exist_ok=True)
-    flat = tparams.train_state_to_jax(train_state.params,
-                                      train_state.model_state,
-                                      train_state.opt_state, train_state.step)
     tmp = os.path.join(directory, CHECKPOINT_FILE + ".tmp")
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, os.path.join(directory, CHECKPOINT_FILE))
-    metadata = {"epoch": int(epoch), "step": int(train_state.step),
-                **(extra_metadata or {})}
     tmp = os.path.join(directory, METADATA_FILE + ".tmp")
     with open(tmp, "w") as f:
         json.dump(metadata, f, indent=2)
     os.replace(tmp, os.path.join(directory, METADATA_FILE))
+
+
+def save_checkpoint(directory: str, train_state: TrainState, *, epoch: int,
+                    extra_metadata: dict[str, Any] | None = None,
+                    async_write: bool = False) -> None:
+    """Persist ``train_state`` and its metadata (the epoch and the step)
+    into ``directory``; with ``async_write`` the host copy is made here and
+    the files are written by the background worker."""
+    flat = tparams.train_state_to_jax(train_state.params,
+                                      train_state.model_state,
+                                      train_state.opt_state, train_state.step)
+    metadata = {"epoch": int(epoch), "step": int(train_state.step),
+                **(extra_metadata or {})}
+    if async_write:
+        _submit(_write_checkpoint, directory, flat, metadata)
+    else:
+        _write_checkpoint(directory, flat, metadata)
 
 
 def checkpoint_exists(directory: str) -> bool:
@@ -95,10 +144,7 @@ def restore_checkpoint(directory: str,
             load_metadata(directory))
 
 
-def copy_checkpoint_version(source_directory: str,
-                            target_directory: str) -> None:
-    """Snapshot the checkpoint of ``source_directory`` into a version
-    directory (``best/`` or ``early_stopping/``)."""
+def _copy_version(source_directory: str, target_directory: str) -> None:
     os.makedirs(target_directory, exist_ok=True)
     for filename in (CHECKPOINT_FILE, METADATA_FILE):
         source = os.path.join(source_directory, filename)
@@ -106,11 +152,28 @@ def copy_checkpoint_version(source_directory: str,
             shutil.copyfile(source, os.path.join(target_directory, filename))
 
 
-def remove_checkpoint(directory: str) -> None:
+def copy_checkpoint_version(source_directory: str, target_directory: str, *,
+                            async_write: bool = False) -> None:
+    """Snapshot the checkpoint of ``source_directory`` into a version
+    directory (``best/`` or ``early_stopping/``)."""
+    if async_write:
+        _submit(_copy_version, source_directory, target_directory)
+    else:
+        _copy_version(source_directory, target_directory)
+
+
+def _remove(directory: str) -> None:
     for filename in (CHECKPOINT_FILE, METADATA_FILE):
         path = os.path.join(directory, filename)
         if os.path.exists(path):
             os.remove(path)
+
+
+def remove_checkpoint(directory: str, *, async_write: bool = False) -> None:
+    if async_write:
+        _submit(_remove, directory)
+    else:
+        _remove(directory)
 
 
 # --------------------------------------------------------------------------

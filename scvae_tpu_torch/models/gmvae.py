@@ -29,6 +29,7 @@ as a feature and the full-covariance mixture are not ported and raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -232,11 +233,21 @@ def init(config: GMVAEConfig, generator: torch.Generator) -> tuple[Params, State
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=16)
+def _custom_prior_logits(probabilities: tuple[float, ...],
+                         device: torch.device) -> torch.Tensor:
+    """log p(y) of a custom prior, copied to ``device`` once (a training
+    step's CUDA graph reads it, and a capture refuses host copies).  Built
+    from the immutable configuration, so every caller may share it."""
+    return torch.log(torch.tensor(probabilities, dtype=torch.float32,
+                                  device=device))
+
+
 def _p_y_logits(config: GMVAEConfig, params: Params,
                 device: torch.device | str = "cpu") -> torch.Tensor:
     if config.prior_probabilities_method == "custom":
-        return torch.log(torch.tensor(config.prior_probabilities,
-                                      dtype=torch.float32, device=device))
+        return _custom_prior_logits(config.prior_probabilities,
+                                    torch.device(device))
     if config.prior_probabilities_method == "learn":
         return params["p_y_logits"]
     return torch.zeros((config.n_clusters,), dtype=torch.float32,
@@ -389,7 +400,7 @@ def elbo_terms(
     training: bool,
     n_iw: int = 1,
     n_mc: int = 1,
-    warm_up_weight: float = 1.0,
+    warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], GMVAEOutputs]:
     """The y-marginalised ELBO (reference ``gaussian_mixture_variational_
@@ -419,10 +430,10 @@ def elbo_terms(
         p_y_entropy = -torch.sum(outputs.p_y.probs * log_p)
     kl_divergence_y = torch.mean(kl_y_per_example)
     free_nats = config.proportion_of_free_nats_for_y_kl_divergence
+    # the floor added to zeros on the device: a capture refuses host copies
     kl_divergence_y_modified = (
-        torch.maximum(kl_divergence_y,
-                      torch.as_tensor(free_nats * p_y_entropy,
-                                      device=kl_divergence_y.device))
+        torch.maximum(kl_divergence_y, torch.zeros_like(kl_divergence_y)
+                      + free_nats * p_y_entropy)
         if free_nats else kl_divergence_y
     )
 
@@ -474,7 +485,7 @@ def loss_fn(
     *,
     n_iw: int = 1,
     n_mc: int = 1,
-    warm_up_weight: float = 1.0,
+    warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
     """Training objective: −lower_bound_weighted."""

@@ -1,11 +1,21 @@
-"""Training steps, the optimiser and the train state.
+"""Training steps, the optimiser, the train state, and whole epochs.
 
 Counterpart of ``scvae_tpu/models/step.py``.  The optimiser is the
 reference's: element-wise gradient clipping to [−1, 1], then Adam with the
-optax defaults (b1 0.9, b2 0.999, eps 1e-8).  PyTorch runs eagerly, so a
-step is a plain function and an epoch a Python loop over the rows of a
-(n_batches, B) index array; parameters and optimiser moments are updated in
-place under ``no_grad``.
+optax defaults (b1 0.9, b2 0.999, eps 1e-8).  Parameters, batch-norm
+statistics and the optimiser's moments and count are updated in place
+under ``no_grad``, so a train state keeps its tensors for its whole life.
+
+An epoch is the counterpart of JAX's ``lax.scan`` over the rows of an
+(n_batches, B) index array (``make_train_epoch``, ``make_eval_epoch``).  On
+the CPU it is a Python loop of eager steps.  On a CUDA device the first step
+of the object's life runs eagerly: it builds the kernels and fixes every
+allocation's shape.  The next one is captured once in a CUDA graph, and it
+and every later step are replays of that graph: one launch a step instead
+of hundreds of operations dispatched from Python.  A replay reads fixed
+buffers: the data, the epoch's index rows (copied into a static buffer once
+per epoch), the train state, the warm-up weight and a 0-d step index that
+the graph itself advances, and writes each step's metrics at that index.
 """
 
 from __future__ import annotations
@@ -38,6 +48,18 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
     return [tree_map(fn, v) for v in tree]
 
 
+def matching_leaves(tree: Any, like: Any) -> list[torch.Tensor]:
+    """The tensors of ``tree`` in the order of ``like``'s leaves, found by
+    the keys and positions of ``like`` (``tree`` may hold more)."""
+    if isinstance(like, torch.Tensor):
+        return [tree]
+    if isinstance(like, dict):
+        return [leaf for key, value in like.items()
+                for leaf in matching_leaves(tree[key], value)]
+    return [leaf for i, value in enumerate(like)
+            for leaf in matching_leaves(tree[i], value)]
+
+
 @dataclasses.dataclass
 class TrainState:
     params: Any
@@ -46,9 +68,23 @@ class TrainState:
     step: int = 0
 
 
+def snapshot_state(ts: TrainState) -> TrainState:
+    """A copy of ``ts`` whose tensors are device-to-device clones (the
+    optimiser's count too), for reading one epoch's state while the next
+    epoch updates ``ts`` in place."""
+    copy = lambda tree: tree_map(lambda t: t.detach().clone(), tree)  # noqa: E731
+    return TrainState(params=copy(ts.params),
+                      model_state=copy(ts.model_state),
+                      opt_state=copy(ts.opt_state), step=ts.step)
+
+
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
-    """``optax.chain(optax.clip(1.0), optax.adam(learning_rate))``."""
+    """``optax.chain(optax.clip(1.0), optax.adam(learning_rate))``.  The
+    step count is a 0-d int32 tensor on the parameters' device and the
+    bias corrections ``1 − b**count`` are computed there in float32, as
+    optax computes them, so a captured step reads the count of the step it
+    replays."""
 
     learning_rate: float
     b1: float = 0.9
@@ -58,8 +94,10 @@ class ClipAdam:
 
     def init(self, params: Any) -> dict[str, Any]:
         zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-                "count": 0}
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def update_(self, params: Any, grads: list[torch.Tensor],
@@ -75,10 +113,11 @@ class ClipAdam:
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        opt_state["count"] += 1
         count = opt_state["count"]
-        mu_hat = torch._foreach_div(mu, 1.0 - self.b1 ** count)
-        denom = torch._foreach_div(nu, 1.0 - self.b2 ** count)
+        count.add_(1)
+        exponent = count.float()
+        mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(self.b1, exponent))
+        denom = torch._foreach_div(nu, 1.0 - torch.pow(self.b2, exponent))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mu_hat, denom)
@@ -128,13 +167,12 @@ def cast_batch_to_f32(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
     }
 
 
-def make_train_step(loss_fn: LossFn, optimizer: ClipAdam):
-    """``train_step(ts, batch, generator, warm_up_weight) → (ts, metrics)``.
+def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
+    """``apply(ts, batch, generator, warm_up_weight) → metrics``: one
+    training step on ``ts`` in place (parameters, batch-norm statistics,
+    optimiser state), the host step count untouched."""
 
-    ``loss_fn(params, model_state, batch, generator, warm_up_weight)`` returns
-    ``(loss, (metrics, new_model_state))``.  Metrics stay on the device."""
-
-    def train_step(ts: TrainState, batch, generator, warm_up_weight):
+    def apply(ts: TrainState, batch, generator, warm_up_weight):
         leaves = tree_leaves(ts.params)
         for leaf in leaves:
             leaf.requires_grad_(True)
@@ -146,38 +184,169 @@ def make_train_step(loss_fn: LossFn, optimizer: ClipAdam):
         for leaf in leaves:
             leaf.requires_grad_(False)
         optimizer.update_(ts.params, list(grads), ts.opt_state)
-        ts.model_state = new_model_state
-        ts.step += 1
+        state = tree_leaves(ts.model_state)
+        if state:
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    state, matching_leaves(new_model_state, ts.model_state))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        return metrics
+
+    return apply
+
+
+def make_train_step(loss_fn: LossFn, optimizer: ClipAdam):
+    """``train_step(ts, batch, generator, warm_up_weight) → (ts, metrics)``.
+
+    ``loss_fn(params, model_state, batch, generator, warm_up_weight)`` returns
+    ``(loss, (metrics, new_model_state))``.  Metrics stay on the device."""
+    apply = _apply_step(loss_fn, optimizer)
+
+    def train_step(ts: TrainState, batch, generator, warm_up_weight):
+        metrics = apply(ts, batch, generator, warm_up_weight)
+        ts.step += 1
         return ts, metrics
 
     return train_step
 
 
-def make_train_epoch(loss_fn: LossFn, optimizer: ClipAdam, *,
-                     batch_dtypes: dict[str, torch.dtype] | None = None):
+class _GraphedBody:
+    """``body`` (a step that reads and writes only fixed tensors) run
+    eagerly on the first call, captured in a CUDA graph on the second and
+    replayed from then on.  ``generator``, the only generator the body
+    draws from, is registered with the graph, so a replay draws what the
+    body would draw eagerly from the generator's state at that moment.  The
+    kernel launches counted while capturing were recorded, not run: they
+    are taken off the counters and added once per replay.  A capture or
+    replay that fails raises."""
+
+    def __init__(self, body: Callable[[], None], generator: torch.Generator):
+        self._body = body
+        self._generator = generator
+        self._warm = False
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._launches: dict[str, int] = {}
+
+    def __call__(self) -> None:
+        if not self._warm:
+            self._body()
+            self._warm = True
+            return
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        ops.add_launch_counts(self._launches)
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph):
+            self._body()
+        after = ops.launch_counts()
+        self._launches = {name: count - before.get(name, 0)
+                          for name, count in after.items()
+                          if count != before.get(name, 0)}
+        ops.add_launch_counts(self._launches, times=-1)
+        self._graph = graph
+
+
+def _bound_to(tensors: list[torch.Tensor], bound: list[torch.Tensor],
+              what: str) -> None:
+    """Raise unless ``tensors`` are the very tensors of ``bound``: a
+    captured graph reads the buffers it was captured on."""
+    if len(tensors) != len(bound) or any(
+            a is not b for a, b in zip(tensors, bound)):
+        raise ValueError(f"this epoch runs on the {what} it was first "
+                         f"called with; build another for other {what}")
+
+
+class TrainEpoch:
     """``train_epoch(ts, data, perm, generator, warm_up_weight) → (ts,
     metrics)`` over device-resident ``data`` and an (n_batches, B) int32
-    index tensor ``perm`` on the same device.  Metrics are device scalars;
-    the caller decides when to fetch them."""
-    train_step = make_train_step(loss_fn, optimizer)
+    index tensor ``perm`` on the same device (see the module docstring).
+    ``ts`` is updated in place; ``ts.step`` is a host int, advanced once a
+    step.  Metrics are device scalars (the mean and last minibatch lower
+    bound, the mean loss); the caller decides when to fetch them.  An
+    object serves one train state, one data set and one number of batches:
+    on CUDA its graph reads their tensors.  The generator's state is copied
+    into the graph's own generator before the epoch and back after it."""
 
-    def train_epoch(ts: TrainState, data, perm, generator, warm_up_weight):
-        bounds, losses = [], []
-        for idx in perm:
-            batch = gather_batch(data, idx, dtype_overrides=batch_dtypes)
-            ts, metrics = train_step(ts, batch, generator, warm_up_weight)
-            bounds.append(metrics["lower_bound"])
-            losses.append(metrics["loss"])
-        bounds = torch.stack(bounds)
+    def __init__(self, loss_fn: LossFn, optimizer: ClipAdam, *,
+                 batch_dtypes: dict[str, torch.dtype] | None = None,
+                 capture: bool = True):
+        self._apply = _apply_step(loss_fn, optimizer)
+        self._batch_dtypes = batch_dtypes
+        self._capture = capture
+        self._bound: list[torch.Tensor] | None = None
+        self._run: Callable[[], None] | None = None
+
+    def _bind(self, ts: TrainState, data, perm: torch.Tensor) -> None:
+        device = perm.device
+        self._ts, self._data = ts, data
+        self._bound = (tree_leaves(ts.params) + tree_leaves(ts.model_state)
+                       + tree_leaves(data))
+        self._perm = torch.empty_like(perm)
+        self._index = torch.zeros((), dtype=torch.int64, device=device)
+        self._warm_up_weight = torch.zeros((), device=device)
+        self._bounds = torch.zeros(perm.shape[0], device=device)
+        self._losses = torch.zeros(perm.shape[0], device=device)
+        self._generator = None
+        if self._capture and device.type == "cuda":
+            self._generator = torch.Generator(device=device)
+            self._run = _GraphedBody(self._body, self._generator)
+        else:
+            self._run = self._body
+
+    def _body(self) -> None:
+        row = self._perm.index_select(0, self._index).reshape(-1)
+        batch = gather_batch(self._data, row,
+                             dtype_overrides=self._batch_dtypes)
+        metrics = self._apply(self._ts, batch, self._draws,
+                              self._warm_up_weight)
+        at = self._index.reshape(1)
+        self._bounds.index_copy_(0, at, metrics["lower_bound"].reshape(1))
+        self._losses.index_copy_(0, at, metrics["loss"].reshape(1))
+        self._index.add_(1)
+
+    def __call__(self, ts: TrainState, data, perm: torch.Tensor,
+                 generator: torch.Generator, warm_up_weight: float):
+        if self._bound is None:
+            self._bind(ts, data, perm)
+        _bound_to(tree_leaves(ts.params) + tree_leaves(ts.model_state)
+                  + tree_leaves(data), self._bound, "train state and data")
+        if perm.shape != self._perm.shape:
+            raise ValueError(f"{tuple(perm.shape)} index rows, not the "
+                             f"{tuple(self._perm.shape)} of the first epoch")
+        self._ts = ts
+        self._perm.copy_(perm)
+        self._index.zero_()
+        self._warm_up_weight.fill_(warm_up_weight)
+        self._draws = generator
+        if self._generator is not None:
+            self._generator.set_state(generator.get_state())
+            self._draws = self._generator
+        for _ in range(perm.shape[0]):
+            self._run()
+            ts.step += 1
+        if self._generator is not None:
+            generator.set_state(self._generator.get_state())
         return ts, {
-            "lower_bound": torch.mean(bounds),
-            "loss": torch.mean(torch.stack(losses)),
-            "last_lower_bound": bounds[-1],
+            "lower_bound": torch.mean(self._bounds),
+            "loss": torch.mean(self._losses),
+            "last_lower_bound": self._bounds[-1].clone(),
         }
 
-    return train_epoch
+
+def make_train_epoch(loss_fn: LossFn, optimizer: ClipAdam, *,
+                     batch_dtypes: dict[str, torch.dtype] | None = None,
+                     capture: bool = True) -> TrainEpoch:
+    """The counterpart of JAX's ``make_train_epoch``; ``capture`` (JAX's
+    ``jit``) runs the steps on CUDA as graph replays, and ``capture=False``
+    eagerly (on the CPU every step runs eagerly)."""
+    return TrainEpoch(loss_fn, optimizer, batch_dtypes=batch_dtypes,
+                      capture=capture)
 
 
 # Metrics collected by full-pass evaluators.
@@ -187,6 +356,92 @@ EVAL_METRIC_KEYS = (
     "kl_divergence",
     "kl_divergence_neurons",
 )
+
+
+class EvalEpoch:
+    """``eval_epoch(params, model_state, data, idx, generator) → {key:
+    mean}`` over the (n_batches, B) row indices ``idx`` of
+    device-resident ``data``, without gradients: each batch's
+    ``eval_fn(params, model_state, batch, generator)`` metrics
+    ``scalar_keys`` summed on the device, then divided by the number of
+    batches (the batches are equal-sized; the caller evaluates a remainder
+    on its own, as JAX's host wrapper does).  On CUDA the batches are graph
+    replays after one eager batch, as in :class:`TrainEpoch`; the graph
+    reads its own copies of the parameters and batch-norm state, which
+    each call fills from the ones it is given."""
+
+    def __init__(self, eval_fn: Callable[..., dict[str, torch.Tensor]],
+                 scalar_keys: tuple[str, ...] = EVAL_METRIC_KEYS, *,
+                 capture: bool = True):
+        self._eval_fn = eval_fn
+        self._keys = scalar_keys
+        self._capture = capture
+        self._bound: list[torch.Tensor] | None = None
+        self._sums: list[torch.Tensor] | None = None
+
+    def _bind(self, params, model_state, data, idx: torch.Tensor) -> None:
+        device = idx.device
+        self._data = data
+        self._bound = tree_leaves(data)
+        self._idx = torch.empty_like(idx)
+        self._index = torch.zeros((), dtype=torch.int64, device=device)
+        self._generator = None
+        self._run: Callable[[], None] = self._body
+        if self._capture and device.type == "cuda":
+            self._params = tree_map(torch.clone, params)
+            self._model_state = tree_map(torch.clone, model_state)
+            self._generator = torch.Generator(device=device)
+            self._run = _GraphedBody(self._body, self._generator)
+
+    def _body(self) -> None:
+        row = self._idx.index_select(0, self._index).reshape(-1)
+        batch = cast_batch_to_f32(gather_batch(self._data, row))
+        metrics = self._eval_fn(self._params, self._model_state, batch,
+                                self._draws)
+        values = [metrics[k] for k in self._keys]
+        if self._sums is None:
+            self._sums = [torch.zeros_like(v) for v in values]
+        torch._foreach_add_(self._sums, values)
+        self._index.add_(1)
+
+    @torch.no_grad()
+    def __call__(self, params, model_state, data, idx: torch.Tensor,
+                 generator: torch.Generator) -> dict[str, torch.Tensor]:
+        if self._bound is None:
+            self._bind(params, model_state, data, idx)
+        _bound_to(tree_leaves(data), self._bound, "data")
+        if idx.shape != self._idx.shape:
+            raise ValueError(f"{tuple(idx.shape)} index rows, not the "
+                             f"{tuple(self._idx.shape)} of the first call")
+        self._idx.copy_(idx)
+        self._index.zero_()
+        if self._sums is not None:
+            torch._foreach_zero_(self._sums)
+        self._draws = generator
+        if self._generator is None:
+            self._params, self._model_state = params, model_state
+        else:
+            for mine, given in ((self._params, params),
+                                (self._model_state, model_state)):
+                leaves = tree_leaves(mine)
+                if leaves:
+                    torch._foreach_copy_(leaves,
+                                         matching_leaves(given, mine))
+            self._generator.set_state(generator.get_state())
+            self._draws = self._generator
+        for _ in range(idx.shape[0]):
+            self._run()
+        if self._generator is not None:
+            generator.set_state(self._generator.get_state())
+        return {k: s / idx.shape[0] for k, s in zip(self._keys, self._sums)}
+
+
+def make_eval_epoch(eval_fn: Callable[..., dict[str, torch.Tensor]],
+                    scalar_keys: tuple[str, ...] = EVAL_METRIC_KEYS, *,
+                    capture: bool = True) -> EvalEpoch:
+    """The counterpart of JAX's ``make_eval_epoch`` (``capture`` for its
+    ``jit``)."""
+    return EvalEpoch(eval_fn, scalar_keys, capture=capture)
 
 
 def sequential_batches(n: int, batch_size: int) -> np.ndarray:

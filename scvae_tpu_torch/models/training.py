@@ -1,19 +1,39 @@
-"""The training loop (the port of ``scvae_tpu/models/training.py`` without
-the deferred metric fetch).
+"""The training loop (the port of ``scvae_tpu/models/training.py``).
 
-``run_training_loop`` runs epochs synchronously: the KL warm-up weight, one
-epoch through the runner, the NaN abort, the training metrics (a full
-evaluation pass when an evaluator is given) and the validation metrics, an
-optional callback, and with a log directory the learning curves, the
-per-epoch vectors, a checkpoint each epoch and its ``best/`` and
-``early_stopping/`` versions.  Early stopping follows the validation lower
-bound (``EARLY_STOPPING_ROUNDS`` epochs without improvement).  One
-generator serves the whole run; each checkpoint stores its state after the
-epoch (``generator_state`` in ``checkpoint.json``).  A run resumed at epoch e
-rebuilds the early-stopping state from the stored validation curve and sets
-the generator to the stored state, so it draws what an uninterrupted run
-would draw from epoch e on: the counterpart of the JAX package's replay of
-its key splits (``_fast_forward_rng``).
+``run_training_loop`` runs epochs: the KL warm-up weight, one epoch through
+the runner, the NaN abort, the training metrics (a full evaluation pass
+when an evaluator is given) and the validation metrics, an optional
+callback, and with a log directory the learning curves, the per-epoch
+vectors, a checkpoint each epoch and its ``best/`` and ``early_stopping/``
+versions.  Early stopping follows the validation lower bound
+(``EARLY_STOPPING_ROUNDS`` epochs without improvement).  Checkpoint files
+are written by the checkpoints module's background worker unless
+``async_checkpoints`` is off; the loop waits for them before it returns.
+
+``fetch_mode="deferred"`` pipelines the host one epoch behind the device,
+as the JAX package's does: epoch e + 1 is dispatched before epoch e's
+metrics are fetched and processed, so the fetch and the evaluation's
+dispatch overlap the next epoch's compute.  The port updates parameters
+and optimiser state in place, so before epoch e + 1 is dispatched the
+loop takes a device-to-device snapshot of epoch e's whole train state and
+the training generator's state; epoch e's evaluations, callback,
+checkpoint and stored generator state read the snapshot.  Curves,
+checkpoints and early-stopping decisions are those of the sync mode; each
+happens one epoch later, and a run that stops early has dispatched one
+epoch more than it records (the returned train state is that epoch's, as
+in the JAX package).
+
+Random numbers: the run's generator draws the training steps' numbers
+only.  Each epoch's training and validation evaluators draw from
+generators of their own, seeded from the run generator's initial seed,
+the epoch and the evaluator (the counterpart of the JAX package's split
+of ``epoch_rng``, ``sub_t`` and ``sub_v``), so both fetch modes draw the
+same numbers.  Each checkpoint stores the run generator's state after its
+epoch (``generator_state`` in ``checkpoint.json``).  A run resumed at
+epoch e rebuilds the early-stopping state from the stored validation curve
+and sets the generator to the stored state, so it draws what an
+uninterrupted run would draw from epoch e on: the counterpart of the JAX
+package's replay of its key splits (``_fast_forward_rng``).
 """
 
 from __future__ import annotations
@@ -28,7 +48,12 @@ import torch
 
 from scvae_tpu_torch.models import checkpoints
 from scvae_tpu_torch.models.objectives import EarlyStopping, warm_up_weight
-from scvae_tpu_torch.models.step import TrainState, epoch_permutation, tree_finite
+from scvae_tpu_torch.models.step import (
+    TrainState,
+    epoch_permutation,
+    snapshot_state,
+    tree_finite,
+)
 
 EARLY_STOPPING_ROUNDS = 10
 
@@ -43,8 +68,10 @@ class TrainingResult:
     stopped_early: bool
     best_epoch: int | None
     history: dict[str, dict[str, list[float]]]
-    # wall seconds of each epoch's training pass (evaluation excluded),
-    # ending with the host fetch of the epoch's metrics
+    # Wall seconds of each epoch's training pass (evaluation excluded).
+    # Sync: from its dispatch to the host fetch of its lower bound.
+    # Deferred: from its dispatch to the same fetch, which follows the
+    # dispatch of the next epoch, so it includes that dispatch's host time.
     epoch_seconds: list[float]
     steps_per_epoch: int
 
@@ -59,12 +86,25 @@ def set_generator_state(generator: torch.Generator, state: str) -> None:
                                          dtype=torch.uint8))
 
 
+def evaluation_generator(generator: torch.Generator, epoch: int,
+                         evaluator: int) -> torch.Generator:
+    """The generator of an epoch's evaluator (0: training, 1: validation),
+    on the run generator's device, seeded from the run generator's initial
+    seed, the epoch and the evaluator."""
+    seed = np.random.SeedSequence(
+        (generator.initial_seed(), epoch, evaluator)).generate_state(
+            1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(seed))
+
+
 def device_epoch_runner(train_epoch: Callable, data: dict[str, torch.Tensor],
-                        n_examples: int, batch_size: int,
-                        seed: int) -> EpochRunner:
+                        n_examples: int, batch_size: int, seed: int, *,
+                        lazy: bool = False) -> EpochRunner:
     """Runner for device-resident data: the epoch's shuffled (n_batches, B)
     permutation is made on the host from ``seed + epoch`` (as in the JAX
-    package) and copied to the device once."""
+    package) and copied to the device once.  The epoch's lower bound comes
+    back as a float, or with ``lazy`` as the device scalar, unfetched (what
+    ``fetch_mode="deferred"`` needs)."""
     device = next(iter(data.values())).device
 
     def run_epoch(train_state, epoch, wuw, generator):
@@ -75,6 +115,8 @@ def device_epoch_runner(train_epoch: Callable, data: dict[str, torch.Tensor],
         train_state, metrics = train_epoch(
             train_state, data, perm, generator, wuw
         )
+        if lazy:
+            return train_state, {"lower_bound": metrics["lower_bound"]}
         return train_state, {"lower_bound": float(metrics["lower_bound"])}
 
     return run_epoch
@@ -98,17 +140,20 @@ def _record(epoch_metrics, history, log_directory) -> dict[str, dict[str, float]
     return scalars
 
 
-def _keep_versions(log_directory, status) -> None:
+def _keep_versions(log_directory, status, async_write) -> None:
     """``early_stopping/`` snapshots the last epoch before degradation;
     ``best/`` follows each improvement and invalidates that snapshot."""
     if status["start_degrading"]:
         checkpoints.copy_checkpoint_version(
-            log_directory, os.path.join(log_directory, "early_stopping"))
+            log_directory, os.path.join(log_directory, "early_stopping"),
+            async_write=async_write)
     if status["improved"]:
         checkpoints.copy_checkpoint_version(
-            log_directory, os.path.join(log_directory, "best"))
+            log_directory, os.path.join(log_directory, "best"),
+            async_write=async_write)
         checkpoints.remove_checkpoint(
-            os.path.join(log_directory, "early_stopping"))
+            os.path.join(log_directory, "early_stopping"),
+            async_write=async_write)
 
 
 def run_training_loop(
@@ -126,9 +171,16 @@ def run_training_loop(
     start_epoch: int = 0,
     verbose: bool = True,
     epoch_callback: Callable[[int, TrainState, dict], None] | None = None,
+    async_checkpoints: bool = True,
+    fetch_mode: str = "sync",
 ) -> TrainingResult:
     """Run epochs ``start_epoch`` to ``number_of_epochs`` (see the module
-    docstring)."""
+    docstring).  ``fetch_mode="deferred"`` needs a runner whose lower bound
+    comes back unfetched (``device_epoch_runner(..., lazy=True)``) to
+    overlap anything; with a float it runs the same pipeline without
+    gain."""
+    if fetch_mode not in ("sync", "deferred"):
+        raise ValueError(f"Unknown fetch_mode {fetch_mode!r}")
     early = EarlyStopping(rounds=early_stopping_rounds)
     history: dict[str, dict[str, list[float]]] = {}
     if log_directory:
@@ -139,36 +191,38 @@ def run_training_loop(
         history = {kind: dict(values) for kind, values in curves.items()}
 
     epoch_seconds: list[float] = []
-    stopped_early = False
-    epoch = start_epoch
-    for epoch in range(start_epoch, number_of_epochs):
-        wuw = warm_up_weight(epoch, number_of_warm_up_epochs)
-        start = time.perf_counter()
-        train_state, train_metrics = run_epoch(train_state, epoch, wuw,
-                                               generator)
-        epoch_seconds.append(time.perf_counter() - start)
-        if not np.isfinite(train_metrics["lower_bound"]):
+    outcome = {"stopped_early": False, "epochs": start_epoch}
+
+    def process(epoch: int, state: TrainState, train_metrics: dict,
+                stored_generator: str, started: float) -> bool:
+        """Fetch and record one epoch's results; True: stop training."""
+        lower_bound = float(train_metrics["lower_bound"])
+        epoch_seconds.append(time.perf_counter() - started)
+        if not np.isfinite(lower_bound):
             raise ArithmeticError(
                 f"The lower bound became NaN/inf at epoch {epoch + 1}."
             )
         epoch_metrics = {
             "training": (
-                evaluate_training(train_state, generator)
-                if evaluate_training is not None else train_metrics
+                evaluate_training(state,
+                                  evaluation_generator(generator, epoch, 0))
+                if evaluate_training is not None
+                else {k: float(v) for k, v in train_metrics.items()}
             )
         }
         if evaluate_validation is not None:
-            epoch_metrics["validation"] = evaluate_validation(train_state,
-                                                              generator)
+            epoch_metrics["validation"] = evaluate_validation(
+                state, evaluation_generator(generator, epoch, 1))
         # before the records, so that the callback may add metrics
         if epoch_callback is not None:
-            epoch_callback(epoch, train_state, epoch_metrics)
+            epoch_callback(epoch, state, epoch_metrics)
         scalars = _record(epoch_metrics, history, log_directory)
         if log_directory:
             checkpoints.append_learning_curves(log_directory, scalars)
             checkpoints.save_checkpoint(
-                log_directory, train_state, epoch=epoch + 1,
-                extra_metadata={"generator_state": generator_state(generator)})
+                log_directory, state, epoch=epoch + 1,
+                extra_metadata={"generator_state": stored_generator},
+                async_write=async_checkpoints)
         if verbose:
             pieces = [f"Epoch {epoch + 1}/{number_of_epochs} "
                       f"({epoch_seconds[-1]:.3g} s)",
@@ -178,31 +232,54 @@ def run_training_loop(
                 pieces.append(f"ELBO(valid): "
                               f"{epoch_metrics['validation']['lower_bound']:.6g}")
             print("  ".join(pieces))
+        outcome["epochs"] = epoch + 1
 
         if "validation" in epoch_metrics:
             status = early.update(epoch_metrics["validation"]["lower_bound"],
                                   epoch)
             if log_directory:
-                _keep_versions(log_directory, status)
+                _keep_versions(log_directory, status, async_checkpoints)
             if status["stop"]:
-                stopped_early = True
+                outcome["stopped_early"] = True
                 if verbose:
                     print(f"Stopping early: no validation improvement for "
                           f"{early_stopping_rounds} epochs.")
-                epoch += 1
-                break
+                return True
         elif log_directory:  # no validation set: the best is the latest
             checkpoints.copy_checkpoint_version(
-                log_directory, os.path.join(log_directory, "best"))
-    else:
-        epoch = number_of_epochs
+                log_directory, os.path.join(log_directory, "best"),
+                async_write=async_checkpoints)
+        return False
 
+    pending = None  # deferred: (epoch, snapshot, metrics, generator, start)
+    for epoch in range(start_epoch, number_of_epochs):
+        wuw = warm_up_weight(epoch, number_of_warm_up_epochs)
+        started = time.perf_counter()
+        train_state, train_metrics = run_epoch(train_state, epoch, wuw,
+                                               generator)
+        if fetch_mode == "sync":
+            if process(epoch, train_state, train_metrics,
+                       generator_state(generator), started):
+                break
+            continue
+        dispatched = (epoch, snapshot_state(train_state), train_metrics,
+                      generator_state(generator), started)
+        if pending is not None and process(*pending):
+            pending = None
+            break
+        pending = dispatched
+    if pending is not None:
+        process(*pending)
+    if fetch_mode == "sync" and not outcome["stopped_early"]:
+        outcome["epochs"] = number_of_epochs  # as JAX's, on any resume
+
+    checkpoints.wait_for_pending_writes()
     if not tree_finite(train_state.params):
         raise ArithmeticError("Model parameters became non-finite.")
     return TrainingResult(
         train_state=train_state,
-        number_of_epochs_trained=epoch,
-        stopped_early=stopped_early,
+        number_of_epochs_trained=outcome["epochs"],
+        stopped_early=outcome["stopped_early"],
         best_epoch=early.best_epoch,
         history=history,
         epoch_seconds=epoch_seconds,
@@ -212,6 +289,7 @@ def run_training_loop(
 
 def resume_start_epoch(log_directory: str) -> int:
     """The epoch to resume from: the stored checkpoint's epoch, else 0."""
+    checkpoints.wait_for_pending_writes()
     if checkpoints.checkpoint_exists(log_directory):
         return int(checkpoints.load_metadata(log_directory)["epoch"])
     return 0

@@ -245,7 +245,9 @@ class VAEOutputs:
 
 
 def _constant(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    """A float32 scalar on ``like``'s device, filled there: no host copy,
+    which a CUDA graph's capture refuses."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def _build_posterior(config: VAEConfig, params: Params, h: torch.Tensor,
@@ -396,7 +398,7 @@ def elbo_terms(
     training: bool,
     n_iw: int = 1,
     n_mc: int = 1,
-    warm_up_weight: float = 1.0,
+    warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     deterministic_z: bool = False,
     noise: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
@@ -519,7 +521,7 @@ def loss_fn(
     *,
     n_iw: int = 1,
     n_mc: int = 1,
-    warm_up_weight: float = 1.0,
+    warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
     """Training objective: −lower_bound_weighted (reference ``:2755``)."""

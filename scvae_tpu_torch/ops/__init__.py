@@ -62,6 +62,15 @@ def reset_launch_counts() -> None:
             counter[name] = 0
 
 
+def add_launch_counts(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``counts`` to the counters: a CUDA graph's replay
+    launches the kernels its capture recorded, and the wrappers, which
+    count where they launch, do not run again."""
+    for counter in _COUNTERS:
+        for name in counter.keys() & counts.keys():
+            counter[name] += times * counts[name]
+
+
 __all__ = [
     "FAMILIES",
     "FusedCategorised",
@@ -70,6 +79,7 @@ __all__ = [
     "FusedLogLikelihood",
     "MAX_FUSED_GROUPS",
     "MAX_FUSED_HEADS",
+    "add_launch_counts",
     "categorised_backward",
     "categorised_forward",
     "cp_backward",

@@ -225,7 +225,8 @@ MAX_FUSED_HEADS = 32
 # (``_MAX_FUSED_GROUPS``), beyond which it takes the flat kernels.
 MAX_FUSED_GROUPS = 16
 
-# Kernel launches, counted where each kernel is launched and nowhere else.
+# Kernel launches, counted where each kernel is launched and nowhere else (a
+# CUDA graph's replay adds what its capture recorded: ops.add_launch_counts).
 # K2/K3 (tensor cores) count as "<prefix>_<kernel>" (prefix "cat_<family>"
 # for the categorised instances): the forward as "_forward", the backward's
 # gradient kernel as "_backward_gradient" and its products as

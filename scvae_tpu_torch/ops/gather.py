@@ -16,7 +16,8 @@ import torch
 
 from scvae_tpu_torch.ops import extension
 
-# Kernel launches, counted where the kernel is launched and nowhere else.
+# Kernel launches, counted where the kernel is launched and nowhere else; a
+# CUDA graph's replay adds what its capture recorded (ops.add_launch_counts).
 LAUNCHES = {"gather_rows": 0}
 
 _SOURCE_CODES = {torch.float32: 0, torch.int16: 2, torch.int32: 3}

@@ -9,8 +9,9 @@ Leaves are named by their ``jax.tree_util.keystr`` path, e.g.
 nested tree.  A whole ``TrainState`` is named as JAX names its
 ``TrainState`` dataclass: ``.params[…]``, ``.model_state[…]``, the Adam
 moments and count of ``optax.chain(optax.clip(1.0), optax.adam(lr))`` as
-``.opt_state[1][0].mu[…]``, ``.nu[…]`` and ``.count`` (int32; the clip
-holds no state), and ``.step`` (int32).  Nothing here imports JAX: the JAX
+``.opt_state[1][0].mu[…]``, ``.nu[…]`` and ``.count`` (int32; the port
+keeps it as a 0-d int32 tensor on the parameters' device; the clip holds
+no state), and ``.step`` (int32).  Nothing here imports JAX: the JAX
 side hands over numpy arrays.
 """
 
@@ -131,12 +132,13 @@ def _parts(params, model_state, opt_state):
 def train_state_to_jax(params, model_state, opt_state, step) -> dict[str, np.ndarray]:
     """{JAX keystr name: numpy array} of a whole train state, the leaves of
     the JAX package's checkpoints."""
-    flat = {
-        prefix + name: leaf.detach().cpu().numpy()
+    flat = {  # copies, also of CPU tensors: training goes on in place
+        prefix + name: leaf.detach().to("cpu", copy=True).numpy()
         for prefix, tree in _parts(params, model_state, opt_state)
         for name, leaf in flatten(tree).items()
     }
-    flat[f"{_ADAM}.count"] = np.asarray(opt_state["count"], np.int32)
+    # the Adam count: a 0-d device tensor in training, an int in tests
+    flat[f"{_ADAM}.count"] = np.asarray(int(opt_state["count"]), np.int32)
     flat[".step"] = np.asarray(step, np.int32)
     return flat
 
@@ -168,4 +170,10 @@ def train_state_from_jax(flat: Mapping[str, Any], params, model_state,
             raise KeyError(f"Checkpoint missing leaf {key}")
         scalars.append(int(np.asarray(flat[key])))
     params, model_state, mu, nu = trees
-    return params, model_state, {"mu": mu, "nu": nu, "count": scalars[0]}, scalars[1]
+    count = opt_state["count"]
+    if isinstance(count, torch.Tensor):
+        count = torch.tensor(scalars[0], dtype=count.dtype,
+                             device=count.device)
+    else:
+        count = scalars[0]
+    return params, model_state, {"mu": mu, "nu": nu, "count": count}, scalars[1]

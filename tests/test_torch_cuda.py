@@ -55,6 +55,15 @@ kernels over the same group-major rows with cycled targets; and kernel by
 kernel, past one block of target rows, with W resident in several chunks
 and (float32) restaged term by term.  The row gather is bit-exact on both of its paths (16-byte units,
 single elements), and an index outside the matrix traps.
+
+The compiled epoch (``models/step.py``): a small NB VAE and GMVAE trained
+for two epochs as CUDA graph replays against the same steps run eagerly
+from the same state and generator (parameters within 2e-5 of the largest,
+metrics and generator state equal), also with the second epoch's
+permutation one the capture never saw; the full-batch evaluation epoch
+likewise, also on parameters other than those it was captured with; the
+launch counters count each replay's launches; a step that a capture
+refuses raises.
 """
 
 import pytest
@@ -1119,3 +1128,179 @@ def test_grouped_float32_tensor_core_kernels(device, name, n_groups, m,
             *ops.reference_grouped_dw(*args))
     for a, b in zip(got, want, strict=True):
         _close(a, b, 2e-5)
+
+
+# --------------------------------------------------------------------------
+# The compiled epoch: training and evaluation steps as CUDA graph replays
+# (models/step.py), against the same steps run eagerly
+# --------------------------------------------------------------------------
+
+GRAPH_CELLS, GRAPH_BATCH = 256, 64
+
+
+def _graph_case(device, kind):
+    """A small NB VAE or GMVAE on the card: the staged data, the bf16
+    batch dtypes, the optimiser, the loss and evaluation functions, and a
+    fresh train state from one seed on every call."""
+    import numpy as np
+
+    from scvae_tpu_torch.data.dataset import DataSet
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+    from scvae_tpu_torch.models import api, gmvae, step, vae
+
+    x = np.random.RandomState(0).poisson(
+        2.0, (GRAPH_CELLS, 300)).astype(np.float32)
+    kwargs = dict(feature_size=300, latent_size=8, hidden_sizes=(32, 32),
+                  reconstruction_distribution="negative binomial")
+    if kind == "gmvae":
+        module = gmvae
+        config = gmvae.GMVAEConfig(number_of_latent_clusters=4, **kwargs)
+    else:
+        module, config = vae, vae.VAEConfig(**kwargs)
+    arrays = build_model_arrays(DataSet(x))
+    data = api._append_lgamma_rowsum(
+        device_resident_data(arrays, device=device), config)
+    optimizer = step.make_optimizer(1e-3)
+    params, state = module.init(config, torch.Generator().manual_seed(0))
+
+    def loss(params, model_state, batch, generator, warm_up_weight):
+        return module.loss_fn(config, params, model_state, batch, generator,
+                              warm_up_weight=warm_up_weight)
+
+    def evaluate(params, model_state, batch, generator):
+        return module.elbo_terms(config, params, model_state, batch,
+                                 generator, training=False)[0]
+
+    def fresh():
+        return step.create_train_state(
+            step.tree_map(lambda a: a.to(device), params),
+            step.tree_map(lambda a: a.to(device), state), optimizer)
+
+    return (data, api._bf16_batch_dtypes(arrays, config, device), optimizer,
+            loss, evaluate, fresh)
+
+
+def _perm(device, seed):
+    import numpy as np
+
+    from scvae_tpu_torch.models import step
+
+    return torch.from_numpy(step.epoch_permutation(
+        GRAPH_CELLS, GRAPH_BATCH, np.random.RandomState(seed))).to(device)
+
+
+def _train(device, kind, capture, perms):
+    """Epochs over ``perms`` from the case's seed: (train state, each
+    epoch's metrics as floats, the generator's state, the launches)."""
+    from scvae_tpu_torch.models import step
+
+    data, dtypes, optimizer, loss, _, fresh = _graph_case(device, kind)
+    ts = fresh()
+    train_epoch = step.make_train_epoch(loss, optimizer, batch_dtypes=dtypes,
+                                        capture=capture)
+    generator = torch.Generator(device=device).manual_seed(0)
+    ops.reset_launch_counts()
+    curves = []
+    for epoch, perm in enumerate(perms):
+        ts, metrics = train_epoch(ts, data, perm, generator, 0.5 + epoch / 4)
+        curves.append({k: float(v) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    return ts, curves, generator.get_state(), ops.launch_counts()
+
+
+def _assert_same_training(got, want):
+    """Parameters and batch-norm state within 2e-5 of the largest
+    |parameter| (the small step's bound: only a kernel whose result
+    depends on when it runs may differ), metrics and generator equal."""
+    from scvae_tpu_torch.models import step
+
+    (ts, curves, gen_state, _), (ts_e, curves_e, gen_state_e, _) = got, want
+    pairs = [(a, b) for part in ("params", "model_state")
+             for a, b in zip(step.tree_leaves(getattr(ts, part)),
+                             step.tree_leaves(getattr(ts_e, part)))]
+    largest = max(float(b.abs().max()) for _, b in pairs)
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    assert diff <= 2e-5 * largest, (diff, largest)
+    assert curves == curves_e
+    assert torch.equal(gen_state, gen_state_e)
+    assert int(ts.opt_state["count"]) == int(ts_e.opt_state["count"]) == ts.step
+
+
+@pytest.mark.parametrize("kind", ["vae", "gmvae"])
+def test_graphed_epochs_match_eager(device, kind):
+    perms = [_perm(device, seed) for seed in (0, 1)]
+    _assert_same_training(_train(device, kind, True, perms),
+                          _train(device, kind, False, perms))
+
+
+@pytest.mark.parametrize("kind", ["vae", "gmvae"])
+def test_replay_on_new_permutation_matches_eager(device, kind):
+    """The graph is captured in the first epoch; the second runs replays
+    only, on a permutation (and warm-up weight) the capture never saw: a
+    launch that escaped the capture, or an input it froze, would leave the
+    replay's result stale."""
+    first = _perm(device, 0)
+    perms = [first, first.flip(0).flip(1).contiguous()]
+    _assert_same_training(_train(device, kind, True, perms),
+                          _train(device, kind, False, perms))
+
+
+def test_graphed_eval_epoch_matches_eager(device):
+    from scvae_tpu_torch.models import step
+
+    data, _, _, _, evaluate, fresh = _graph_case(device, "gmvae")
+    ts = fresh()
+    # other parameters, which the graph reads through its own copies
+    scaled = step.tree_map(lambda a: a * 1.01, ts.params)
+    idx = torch.from_numpy(step.sequential_batches(GRAPH_CELLS, 32)).to(device)
+    results = {}
+    for capture in (False, True):
+        eval_epoch = step.make_eval_epoch(evaluate, capture=capture)
+        generator = torch.Generator(device=device).manual_seed(3)
+        results[capture] = [eval_epoch(params, ts.model_state, data, idx,
+                                       generator)
+                            for params in (ts.params, ts.params, scaled)]
+    for got, want in zip(results[True], results[False]):
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    assert not torch.equal(results[True][0]["lower_bound"],
+                           results[True][2]["lower_bound"])
+
+
+def test_launch_counters_count_replays(device):
+    perms = [_perm(device, seed) for seed in (0, 1)]
+    graphed = _train(device, "vae", True, perms)[3]
+    eager = _train(device, "vae", False, perms)[3]
+    steps = GRAPH_CELLS // GRAPH_BATCH * len(perms)
+    assert graphed == eager
+    for kernel in ("forward", "backward_gradient", "backward_dh",
+                   "backward_dw"):
+        assert graphed[f"nb_{kernel}"] == steps, kernel
+    assert graphed["gather_rows"] == steps
+
+
+def test_failed_capture_raises(device):
+    """A step that a capture refuses (here a host read of the loss) raises
+    at the capture, the second step of the epoch's life; nothing retries
+    it eagerly."""
+    from scvae_tpu_torch.models import step
+
+    data, dtypes, optimizer, loss, _, fresh = _graph_case(device, "vae")
+    calls = []
+
+    def reads_the_loss(*args):
+        value, aux = loss(*args)
+        calls.append(float(value.detach()))  # a device-to-host copy
+        return value, aux
+
+    train_epoch = step.make_train_epoch(reads_the_loss, optimizer,
+                                        batch_dtypes=dtypes)
+    ts = fresh()
+    generator = torch.Generator(device=device).manual_seed(0)
+    with pytest.raises(RuntimeError):
+        train_epoch(ts, data, _perm(device, 0), generator, 1.0)
+    torch.cuda.synchronize()
+    assert len(calls) == 1 and ts.step == 1

@@ -164,8 +164,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, in_tmp_path):
         model.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.evaluate(x)
-    for unported in ({"metrics_fetch": "deferred"},
-                     {"data_placement": "streaming"},
+    for unported in ({"data_placement": "streaming"},
                      {"caches_directory": "caches"}):
         with pytest.raises(NotImplementedError):
             model.train(x, number_of_epochs=1, device="cpu", **unported)
