@@ -68,7 +68,31 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              bf16 operands and in float32 (one launch of K4 and of each of
              K5's three kernels per batch and dtype: the grouped gradient
              kernel, the dh and dW products) against the flat kernels of
-             the same dtype over the same rows with cycled targets.
+             the same dtype over the same rows with cycled targets;
+5b. data   — the data engine: (a) the development set of the JAX
+             package's golden tests, 1,000 rows kept at random and split
+             0.9 at random, built in memory from
+             ``create_development_data_set()`` (no HDF5 cache: the card's
+             machine has no ``h5py``); its rows, values and labels against
+             the reference's seeds on the host and staged on the card; K1
+             and NB's K2/K3 at the golden runs' shapes (100 rows of 25
+             genes, under one tile; decoder width 32; 300 cycled GMVAE
+             rows) against their plain versions; the two golden
+             configurations of ``tests/test_golden.py`` (VAE-NB, GMVAE-NB
+             with 3 clusters) trained on the card: finite curves, NB's K2
+             and K3's three kernels once per training step, K1 at least
+             once, accuracies in [0, 1] and the last validation accuracy
+             equal to a majority vote recomputed on the host; (b) the
+             headline counts labelled with 10
+             class names drawn from ``RandomState(2)``, one excluded, split
+             0.9 at random (55,548 / 6,173 / 6,858 rows); GMVAE-NB (10
+             clusters) trained for three epochs with the validation set and
+             its per-epoch accuracy: accuracies finite in [0, 1], the last
+             validation accuracy equal to q(y|x)'s argmax on the card
+             with the majority vote recomputed on the host, ``evaluate``'s
+             predicted labels equal to that vote's labels, NB's K2 and K3's
+             three kernels once per training step, K1 at least once; the
+             accuracy callback's seconds per epoch and the steps/s.
 
 Phase 3 also holds the grouped kernels K4/K5 of every base family, bf16
 and float32 (h, W and da as three bf16 terms), against their plain
@@ -84,6 +108,7 @@ package is missing.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1608,7 +1633,7 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda",
     dev = torch.device(device)
     n_cells = counts.shape[0]
     arrays = build_model_arrays(
-        DataSet(counts),
+        DataSet("in-memory", values=counts),
         use_count_sum_as_parameter=config.use_count_sum_as_parameter)
     data = api._append_lgamma_rowsum(device_resident_data(arrays, device=dev),
                                      config)
@@ -2014,6 +2039,356 @@ def phase_after(counts, card):
     return launches
 
 
+# Phase 5b: the development set (the golden runs of tests/test_golden.py)
+# and the headline width with labels.
+DATA_DIRECTORY = os.path.join(BUILD, "data")
+DATA_RUNS_DIRECTORY = os.path.join(BUILD, "data_training")
+DEVELOPMENT_FILTER = ["random", 1000]
+DEVELOPMENT_MINIBATCH = 100
+DEVELOPMENT_HIDDEN = 32
+GOLDEN_CLUSTERS = 3
+GOLDEN = (
+    ("VAE-NB", "vae", dict(number_of_warm_up_epochs=5), 10),
+    ("GMVAE-NB", "gmvae", dict(number_of_latent_clusters=GOLDEN_CLUSTERS),
+     3),
+)
+LABELLED_CLASSES = 10
+LABELLED_EPOCHS = 3
+
+
+def development_split():
+    """Phase 5b (a)'s set: the development set, 1,000 rows kept at random
+    (the reference's seed 90) and split 0.9 at random (seed 42), built in
+    memory from ``create_development_data_set()`` with the same filter as
+    ``DataSet("development", example_filter=...)`` applies (whose HDF5
+    cache needs ``h5py``, which the card's machine lacks)."""
+    import scipy.sparse
+
+    from scvae_tpu_torch.data import DataSet, create_development_data_set
+    from scvae_tpu_torch.data import processing
+    from scvae_tpu_torch.data.parsing import DATA_SET_CATALOGUE
+    from scvae_tpu_torch.data.sparse import SparseRowMatrix
+
+    raw = create_development_data_set()
+    values, names, labels, _ = processing.filter_examples(
+        {"original": raw["values"]}, raw["example names"],
+        DEVELOPMENT_FILTER[0], DEVELOPMENT_FILTER[1:], labels=raw["labels"])
+    data_set = DataSet(
+        "development", specifications=DATA_SET_CATALOGUE["development"],
+        values=SparseRowMatrix(scipy.sparse.csr_matrix(values["original"])),
+        labels=labels, example_names=names,
+        feature_names=raw["feature names"],
+        example_filter=DEVELOPMENT_FILTER)
+    return data_set.split(method="random", fraction=0.9)
+
+
+def check_development_split(splits):
+    """The split's values, labels and names against the reference's seeds
+    applied here by hand, and each set's staged device copy against its
+    host values, bit for bit."""
+    from scvae_tpu_torch.data import create_development_data_set
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+
+    raw = create_development_data_set()
+    kept = np.random.RandomState(90).permutation(raw["values"].shape[0])[
+        :DEVELOPMENT_FILTER[1]]
+    order = kept[np.random.RandomState(42).permutation(kept.size)]
+    n_training_validation = int(0.9 * kept.size)
+    n_training = int(0.9 * n_training_validation)
+    rows = (order[:n_training], order[n_training:n_training_validation],
+            order[n_training_validation:])
+    for data_set, want in zip(splits, rows):
+        staged = device_resident_data(build_model_arrays(data_set),
+                                      device="cuda")["x"].cpu().numpy()
+        if not (np.array_equal(data_set.values.toarray(),
+                               raw["values"][want])
+                and np.array_equal(data_set.labels, raw["labels"][want])
+                and np.array_equal(data_set.example_names,
+                                   raw["example names"][want])
+                and np.array_equal(staged, data_set.values.toarray())):
+            raise AssertionError(f"development {data_set.kind} set differs "
+                                 "from the reference's rows")
+
+
+def check_development_kernels(training_set, config):
+    """K1 and NB's K2 and K3 at the golden runs' shapes, against their plain
+    versions at phase 3's tolerances: K1 gathers a minibatch of 100 rows of
+    the staged development counts (F = 25, under one 64-gene tile, on its
+    element path) to the dtype training gathers them to; K2 and K3 take
+    decoder rows of width 32 against those targets, bf16 inputs and the
+    staged lgamma constant, 100 rows for the VAE and 300 cycled rows for
+    the GMVAE with 3 clusters."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+    from scvae_tpu_torch.models.api import _bf16_batch_dtypes
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    arrays = build_model_arrays(training_set)
+    staged = device_resident_data(arrays, device="cuda")["x"]
+    dtype = (_bf16_batch_dtypes(arrays, config, torch.device("cuda"))
+             or {}).get("x", torch.float32)
+    idx = torch.randperm(staged.shape[0], generator=gen, device="cuda")[
+        :DEVELOPMENT_MINIBATCH].int()
+    t = ops.gather_rows(staged, idx, dtype)
+    if t.dtype != dtype or not torch.equal(
+            t, ops.reference_gather(staged, idx, dtype)):
+        raise AssertionError("gather_rows is not bit-exact on the "
+                             "development set")
+    log(f"check gather_rows development {tuple(t.shape)} "
+        f"{staged.dtype} -> {dtype}: bit-exact")
+    name, bf16 = "negative binomial", torch.bfloat16
+    hidden, f = DEVELOPMENT_HIDDEN, t.shape[1]
+    ws, bs = head_weights(gen, 2, hidden, f, t.device)
+    for clusters in (1, GOLDEN_CLUSTERS):
+        m = clusters * t.shape[0]
+        h = torch.relu(torch.randn(m, hidden, generator=gen, device="cuda"))
+        g = torch.randn(m, generator=gen, device="cuda") / t.shape[0]
+        tag = f"development M={m} over {t.shape[0]} target rows"
+        check_close(
+            f"nb_forward {tag}",
+            ops.fused_forward(name, h, ws, bs, t, compute_dtype=bf16,
+                              include_lgamma_const=False),
+            ops.reference_forward(name, h, ws, bs, t, compute_dtype=bf16,
+                                  include_lgamma_const=False),
+            FORWARD_RTOL)
+        got = ops.fused_backward(name, g, h, ws, bs, t, compute_dtype=bf16)
+        want = ops.reference_backward(name, g, h, ws, bs, t,
+                                      compute_dtype=bf16)
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_close(f"nb_backward [{i}] {tag}", a, b, BACKWARD_RTOL)
+
+
+def majority_vote(labels, cluster_ids, excluded):
+    """The cluster-to-label majority vote recomputed on the names, apart
+    from the package's: each cluster takes its most frequent label among
+    the rows whose label is not ``excluded``, the first name in sorted
+    order on a tie (the smallest class id, as the package's vote gives it).
+    Returns ({cluster: name}, the accuracy over those rows)."""
+    keep = ~np.isin(labels, list(excluded))
+    votes = collections.Counter(zip(cluster_ids[keep].tolist(),
+                                    labels[keep].tolist()))
+    best = {}
+    for (cluster, label), count in sorted(votes.items()):
+        if cluster not in best or count > best[cluster][1]:
+            best[cluster] = (label, count)
+    accuracy = sum(count for _, count in best.values()) / int(keep.sum())
+    return {cluster: label for cluster, (label, _) in best.items()}, accuracy
+
+
+def check_accuracy(label, data_set, result, device="cuda"):
+    """The last epoch's validation accuracy against q(y|x)'s argmax from
+    the trained parameters on the card, with the vote recomputed on the
+    host (:func:`majority_vote`); returns the vote's mapping and accuracy."""
+    from scvae_tpu_torch.models import gmvae
+
+    x = torch.from_numpy(
+        np.ascontiguousarray(data_set.values.toarray(), np.float32)).to(device)
+    ids = gmvae.cluster_ids(result.train_state.params,
+                            result.train_state.model_state, x).cpu().numpy()
+    mapping, accuracy = majority_vote(data_set.labels, ids,
+                                      data_set.excluded_classes or [])
+    trained = result.history["validation"]["accuracy"][-1]
+    if accuracy != trained:
+        raise AssertionError(f"{label}: validation accuracy {accuracy} "
+                             f"recomputed, {trained} in training")
+    return mapping, accuracy
+
+
+def check_step_launches(label, launches, steps):
+    """NB's K2 and K3's three kernels once per training step, K1 at least
+    once."""
+    for kernel in ("forward", "backward_gradient", "backward_dh",
+                   "backward_dw"):
+        if launches[f"nb_{kernel}"] != steps:
+            raise AssertionError(f"{label}: nb_{kernel} launched "
+                                 f"{launches[f'nb_{kernel}']} times in "
+                                 f"{steps} training steps")
+    if launches["gather_rows"] < 1:
+        raise AssertionError(f"{label}: K1 was not launched")
+
+
+def phase_development(card):
+    """Phase 5b (a): the development set, K1 and NB's K2/K3 at its shapes,
+    then the golden configurations of tests/test_golden.py trained on the
+    card on the port's own draws; returns the golden runs' launches by
+    kernel entry (the GMVAE's NB kernels under their cycled entries)."""
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+        ops,
+    )
+
+    start = time.perf_counter()
+    splits = development_split()
+    seconds = time.perf_counter() - start
+    check_development_split(splits)
+    training_set, validation_set, _ = splits
+    print(f"data development: built in memory in {seconds:.3f} s; "
+          f"{[s.number_of_examples for s in splits]} rows, values, labels "
+          "and rows equal to the reference's seeds on the host and on the "
+          "card", flush=True)
+    launches = {}
+    for label, kind, options, epochs in GOLDEN:
+        model_class = (GaussianMixtureVariationalAutoencoder
+                       if kind == "gmvae" else VariationalAutoencoder)
+        model = model_class(
+            feature_size=25, latent_size=2, hidden_sizes=[DEVELOPMENT_HIDDEN],
+            reconstruction_distribution="negative binomial",
+            log_directory=os.path.join(DATA_RUNS_DIRECTORY, label),
+            **options)
+        if kind == "vae":
+            check_development_kernels(training_set, model.config)
+        ops.reset_launch_counts()
+        result = model.train(
+            training_set, validation_set, number_of_epochs=epochs,
+            minibatch_size=DEVELOPMENT_MINIBATCH, learning_rate=1e-3, seed=0,
+            device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        run = ops.launch_counts()
+        check_step_launches(f"golden {label}", run,
+                            result.steps_per_epoch * epochs)
+        for kernel, count in run.items():
+            entry = kernel + "_cycled" if kind == "gmvae" else kernel
+            entry = kernel if kernel == "gather_rows" else entry
+            launches[entry] = launches.get(entry, 0) + count
+        history = result.history
+        for set_kind in ("training", "validation"):
+            curve = history[set_kind]["lower_bound"]
+            if len(curve) != epochs or not np.all(np.isfinite(curve)):
+                raise AssertionError(f"golden {label} {set_kind}: {curve}")
+            accuracy = history[set_kind].get("accuracy")
+            if kind == "gmvae" and not (
+                    accuracy is not None and len(accuracy) == epochs
+                    and all(0.0 <= a <= 1.0 for a in accuracy)):
+                raise AssertionError(f"golden {label} {set_kind} accuracy "
+                                     f"{accuracy}")
+        recomputed = ""
+        if kind == "gmvae":
+            _, accuracy = check_accuracy(f"golden {label}", validation_set,
+                                         result)
+            recomputed = f" (recomputed {accuracy})"
+        print(f"data golden {label}: ELBO(valid) "
+              f"{history['validation']['lower_bound']}, KL(valid) "
+              f"{history['validation']['kl_divergence']}"
+              + (f", accuracy(valid) {history['validation']['accuracy']}"
+                 f"{recomputed}" if kind == "gmvae" else "")
+              + f"; launches {({k: v for k, v in run.items() if v})} "
+              f"({card})", flush=True)
+    return launches
+
+
+def labelled_headline(counts):
+    """Phase 5b (b)'s set: the headline counts with 10 class names drawn
+    from ``RandomState(2)``, one of them excluded, split 0.9 at random."""
+    from scvae_tpu_torch.data import DataSet
+    from scvae_tpu_torch.data.sparse import SparseRowMatrix
+
+    names = np.array([f"type {chr(ord('A') + i)}"
+                      for i in range(LABELLED_CLASSES)])
+    labels = names[np.random.RandomState(2).randint(0, LABELLED_CLASSES,
+                                                    counts.shape[0])]
+    data_set = DataSet(
+        "headline", specifications={"excluded classes": [str(names[-1])]},
+        values=SparseRowMatrix(counts), labels=labels,
+        example_names=np.array([f"cell {i + 1}"
+                                for i in range(counts.shape[0])]),
+        feature_names=np.array([f"gene {j + 1}"
+                                for j in range(counts.shape[1])]))
+    return data_set.split(method="random", fraction=0.9)
+
+
+def phase_labelled(counts, card):
+    """Phase 5b (b): GMVAE-NB with 10 clusters at the headline width on
+    the labelled split, three epochs with the validation set and the
+    accuracy; returns the training's kernel launches."""
+    from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder, ops
+
+    training_set, validation_set, test_set = labelled_headline(counts)
+    sizes = [s.number_of_examples for s in (training_set, validation_set,
+                                            test_set)]
+    if sizes != [55_548, 6_173, 6_858]:
+        raise AssertionError(f"labelled split of {sizes} rows")
+    model = GaussianMixtureVariationalAutoencoder(
+        feature_size=N_GENES, latent_size=LATENT,
+        hidden_sizes=[HIDDEN, HIDDEN],
+        reconstruction_distribution="negative binomial",
+        number_of_latent_clusters=CLUSTERS,
+        log_directory=os.path.join(DATA_RUNS_DIRECTORY, "labelled"))
+    callback_seconds = []
+    make_callback = model._make_accuracy_callback
+
+    def timed_accuracy_callback(*args):
+        callback = make_callback(*args)
+
+        def timed(*callback_args):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            callback(*callback_args)
+            callback_seconds.append(time.perf_counter() - start)
+
+        return timed
+
+    model._make_accuracy_callback = timed_accuracy_callback
+    ops.reset_launch_counts()
+    result = model.train(training_set, validation_set,
+                         number_of_epochs=LABELLED_EPOCHS,
+                         minibatch_size=BATCH, seed=0, device="cuda",
+                         verbose=False, track_accuracy=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_step_launches("labelled GMVAE",
+                        launches, result.steps_per_epoch * LABELLED_EPOCHS)
+    history = result.history
+    for kind in ("training", "validation"):
+        accuracy = history[kind]["accuracy"]
+        if not (len(accuracy) == LABELLED_EPOCHS
+                and all(np.isfinite(a) and 0.0 <= a <= 1.0
+                        for a in accuracy)):
+            raise AssertionError(f"labelled GMVAE {kind} accuracy {accuracy}")
+    _, accuracy = check_accuracy("labelled GMVAE", validation_set, result)
+
+    evaluated = model.evaluate(validation_set, device="cuda", verbose=False,
+                               output_versions="transformed")
+    # a cluster whose rows all carry an excluded label maps to class id 0
+    ids = evaluated.predicted_cluster_ids
+    evaluated_mapping, _ = majority_vote(validation_set.labels, ids,
+                                         validation_set.excluded_classes)
+    names = np.array([evaluated_mapping.get(i, validation_set.class_names[0])
+                      for i in ids.tolist()])
+    if not np.array_equal(evaluated.predicted_labels, names):
+        raise AssertionError("evaluate's predicted labels differ from the "
+                             "majority vote of its cluster ids")
+    seconds = result.epoch_seconds[-1]
+    print(f"data labelled GMVAE-NB: {sizes} rows; accuracy(train) "
+          f"{history['training']['accuracy']}, accuracy(valid) "
+          f"{history['validation']['accuracy']} (recomputed {accuracy}); "
+          f"ELBO(valid) {history['validation']['lower_bound']}; "
+          f"accuracy callback {[round(t, 4) for t in callback_seconds]} s "
+          f"per epoch; epoch {LABELLED_EPOCHS}: "
+          f"{result.steps_per_epoch / seconds:.6g} steps/s; launches "
+          f"{({k: v for k, v in launches.items() if v})} ({card})",
+          flush=True)
+    return launches
+
+
+def phase_data(counts, card):
+    """Phase 5b: the data engine on the card; returns the launches of (a)'s
+    and (b)'s training runs by kernel entry (the GMVAEs' NB kernels under
+    their cycled entries)."""
+    shutil.rmtree(DATA_RUNS_DIRECTORY, ignore_errors=True)
+    launches = phase_development(card)
+    for kernel, count in phase_labelled(counts, card).items():
+        entry = kernel if kernel == "gather_rows" else kernel + "_cycled"
+        launches[entry] = launches.get(entry, 0) + count
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -2066,6 +2441,12 @@ def main() -> int:
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))
+    # 5b. the data engine: NB's kernels over the golden VAE's 100 rows, the
+    # golden GMVAE's 300 and the labelled GMVAE's 20,480 decoder rows, K1
+    # on their batches
+    for entry, count in phase_data(counts, card).items():
+        if entry in launches:
+            launches[entry] += count
     for name in kernels:
         if "_grouped_" in name and not launches.get(name):
             raise AssertionError(f"{name} was not launched after training")

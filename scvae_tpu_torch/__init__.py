@@ -20,6 +20,13 @@ or the categorised form of the first four (``number_of_reconstruction_classes``
         number_of_latent_clusters=10,
     ).train(counts, number_of_epochs=2, minibatch_size=2048)
 
+Data sets load, filter, preprocess, cache and split as in the JAX package
+(``scvae_tpu_torch.data``), and labels carry through training (a GMVAE's
+per-epoch cluster accuracy) and evaluation (predicted labels):
+
+    from scvae_tpu_torch import DataSet
+    training, validation, test = DataSet("development").split()
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

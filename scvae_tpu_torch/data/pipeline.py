@@ -3,8 +3,9 @@
 
 A dataset that fits in device memory is densified once and held there as a
 plain row-major (N, F) tensor at the narrowest exact integer width (int16 for
-typical transcript counts); every training step gathers its rows with the
-row-gather kernel.  The TPU's packed layout is not needed on the GPU.
+typical transcript counts; float32 for values that are not integral, such as
+preprocessed ones); every training step gathers its rows with the row-gather
+kernel.  The TPU's packed layout is not needed on the GPU.
 """
 
 from __future__ import annotations
@@ -78,10 +79,15 @@ def build_model_arrays(data_set, *,
                        ) -> dict[str, Any]:
     """The fields a model batch needs from a
     :class:`~scvae_tpu_torch.data.DataSet` (the ported part of the JAX
-    package's ``build_model_arrays``): inputs ``x`` and targets ``t`` are
-    the values (preprocessing and binarisation are not ported yet), plus the
-    per-cell ``count_sum`` (N, 1) float32 when the likelihood takes it."""
-    arrays: dict[str, Any] = {"x": data_set.values, "t": data_set.values}
+    package's ``build_model_arrays``, ``scvae_tpu/data/pipeline.py:
+    624-664``): inputs ``x`` and targets ``t`` are the preprocessed values
+    when the set has them, else the values (a float matrix is then staged
+    as float32), plus the per-cell ``count_sum`` (N, 1) float32 of the
+    original values when the likelihood takes it.  The binarised targets
+    of a Bernoulli likelihood are not ported (its model raises)."""
+    x = (data_set.values if data_set.preprocessed_values is None
+         else data_set.preprocessed_values)
+    arrays: dict[str, Any] = {"x": x, "t": x}
     if use_count_sum_as_parameter:
         arrays["count_sum"] = data_set.count_sum.astype(np.float32)
     return arrays

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 from typing import Any, Callable
 
 import numpy as np
@@ -28,6 +27,7 @@ from scvae_tpu_torch.distributions.counts import NegativeBinomial, Poisson
 from scvae_tpu_torch.distributions.normal import Normal
 from scvae_tpu_torch.distributions.zero_inflated import ZeroInflated
 from scvae_tpu_torch.ops.special import logaddexp
+from scvae_tpu_torch.utils.strings import normalise_string
 
 _F32 = np.finfo(np.float32)
 _HALF_MIN = float(_F32.min / 2)
@@ -222,20 +222,6 @@ _NOT_PORTED = {
     ),
     "GMVAE": ("full-covariance gaussian mixture",),
 }
-
-
-def normalise_string(s: str) -> str:
-    """Lower-case and squash separators/punctuation to underscores/nothing
-    (the reference's name normalisation)."""
-    s = s.lower()
-    replacements = {
-        "_": [" ", "-", "/"],
-        "": ["(", ")", ",", "$", "<", ">", ":", '"', "/", "\\", "|", "?", "*"],
-    }
-    for replacement, characters in replacements.items():
-        pattern = "[" + re.escape("".join(characters)) + "]"
-        s = re.sub(pattern, replacement, s)
-    return s
 
 
 def parse_distribution(distribution: str, model_type: str | None = None) -> str:

@@ -6,14 +6,17 @@
 (``models/gmvae_api.py``) overrides to run through the same methods.
 
 Training runs on the device-resident path: the count matrix (and a
-validation set) is staged on the device once as row-major int16, each step
+validation set) is staged on the device once as row-major int16 (a
+data set's preprocessed values as float32), each step
 gathers a shuffled minibatch with the row-gather kernel and trains through
 the fused likelihood kernels.  With a log directory a run keeps its
 checkpoints (in the JAX package's format, with the ``best/`` and
 ``early_stopping/`` versions), learning curves and per-epoch vectors under
 ``<log_directory>/<name>[/run_<id>]``, resumes from them, and ``evaluate``
 and ``sample`` restore them; ``evaluate`` gathers its batches from the
-device-resident evaluation set with the same kernel.  Entry points run on
+device-resident evaluation set with the same kernel, and its output sets
+carry the evaluation set's labels, batch indices, title, specifications
+and directory, as the JAX package's do.  Entry points run on
 CUDA unless the caller passes ``device="cpu"``; without a GPU they raise.
 On CUDA each training step and each full-batch step of the per-epoch
 evaluation passes is a replay of a CUDA graph captured once per ``train``
@@ -35,12 +38,13 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from scvae_tpu_torch.data.dataset import DataSet, indices_for_evaluation_subset
+from scvae_tpu_torch.data.dataset import DataSet
 from scvae_tpu_torch.data.pipeline import (
     build_model_arrays,
     device_resident_data,
     narrowest_count_dtype,
 )
+from scvae_tpu_torch.data.utilities import indices_for_evaluation_subset
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import checkpoints, naming, step, training, vae
 from scvae_tpu_torch.models.utilities import (
@@ -359,9 +363,10 @@ class VariationalAutoencoder:
     # -- internals ---------------------------------------------------------
 
     def _data_set(self, data) -> DataSet:
-        """``data`` as a :class:`DataSet` with the model's features."""
+        """``data`` as a :class:`DataSet` with the model's features (a raw
+        matrix becomes ``DataSet("in-memory", values=data)``)."""
         if not isinstance(data, DataSet):
-            data = DataSet(data)
+            data = DataSet("in-memory", values=data)
         if data.number_of_features != self.config.feature_size:
             raise ValueError(
                 f"data has {data.number_of_features} features, the model "
@@ -454,6 +459,8 @@ class VariationalAutoencoder:
                 intermediate_analyser is not None or analyses_directory is not None
             ),
             "caches_directory": caches_directory is not None,
+            "noisy preprocessing": bool(getattr(
+                training_set, "noisy_preprocessing_methods", None)),
         }
         for what, asked in unported.items():
             if asked:
@@ -645,19 +652,36 @@ class VariationalAutoencoder:
 
     def _reconstructed_set(self, evaluation_set: DataSet, values, stddevs):
         total, explained = stddevs
-        return DataSet(values, evaluation_set.name,
-                       total_standard_deviations=total,
-                       explained_standard_deviations=explained,
-                       example_names=evaluation_set.example_names,
-                       feature_names=evaluation_set.feature_names,
-                       kind=evaluation_set.kind, version="reconstructed")
+        return DataSet(
+            evaluation_set.name,
+            title=evaluation_set.title,
+            specifications=evaluation_set.specifications,
+            values=values,
+            total_standard_deviations=total,
+            explained_standard_deviations=explained,
+            labels=evaluation_set.labels,
+            example_names=evaluation_set.example_names,
+            feature_names=evaluation_set.feature_names,
+            batch_indices=evaluation_set.batch_indices,
+            kind=evaluation_set.kind,
+            version="reconstructed",
+            directory=evaluation_set.directory,
+        )
 
     def _latent_set(self, evaluation_set: DataSet, values, version: str,
                     feature_names):
-        return DataSet(values, evaluation_set.name,
-                       example_names=evaluation_set.example_names,
-                       feature_names=np.asarray(feature_names),
-                       kind=evaluation_set.kind, version=version)
+        return DataSet(
+            evaluation_set.name,
+            title=evaluation_set.title,
+            specifications={},
+            values=values,
+            labels=evaluation_set.labels,
+            example_names=evaluation_set.example_names,
+            feature_names=np.asarray(feature_names),
+            kind=evaluation_set.kind,
+            version=version,
+            directory=evaluation_set.directory,
+        )
 
     def evaluate(
         self,
@@ -743,13 +767,14 @@ class VariationalAutoencoder:
                                  z[i:i + minibatch_size]).cpu().numpy()
                 for i in range(0, sample_size, minibatch_size)
             ])
-        samples = DataSet(
-            values, "samples",
+        # a GMVAE's draws are labelled with their clusters, as in JAX
+        labels = (None if clusters is None
+                  else clusters.cpu().numpy().astype(str))
+        return DataSet(
+            "samples", title="Model samples", specifications={},
+            values=values, labels=labels,
             example_names=np.array([f"sample {i + 1}"
                                     for i in range(sample_size)]),
             feature_names=np.array([f"feature {j + 1}"
                                     for j in range(self.config.feature_size)]),
             kind="sample", version="original")
-        if clusters is not None:  # a GMVAE's draws (JAX's sample labels)
-            samples.update_predictions(clusters.cpu().numpy())
-        return samples

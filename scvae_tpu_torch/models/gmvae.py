@@ -588,6 +588,19 @@ def prior_centroids(config: GMVAEConfig,
         }
 
 
+def cluster_ids(params: Params, state: State,
+                x: torch.Tensor) -> torch.Tensor:
+    """argmax q(y|x) (B,) from the q(y|x) network alone, batch norm in
+    inference mode, in float32 (what the JAX package's per-epoch accuracy
+    computes, ``scvae_tpu/models/gmvae_api.py:250-260``).  Draws no random
+    numbers."""
+    with torch.no_grad():
+        h_y, _ = networks.apply_mlp(params["q_y"]["encoder"],
+                                    state.get("q_y", {}), x, training=False)
+        logits = networks.apply_dense(params["q_y"]["logits"], h_y)
+        return torch.argmax(logits, dim=-1)
+
+
 def latent_means(config: GMVAEConfig, params: Params, state: State,
                  x: torch.Tensor) -> torch.Tensor:
     """y-marginalised E[z|x] (B, D) in evaluation mode, without the

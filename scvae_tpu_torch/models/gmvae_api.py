@@ -5,12 +5,13 @@ reference's ``train``, ``evaluate`` and ``sample`` (the ported part of
 It overrides the VAE API's model hooks (``_init_state``, ``_loss_fn``,
 ``_eval_fn``, ``_evaluation_outputs``, ``_prior_draws``) and runs through the
 same methods.  Training appends the prior centroids to the run's
-``centroids.json`` each epoch.  ``evaluate`` adds the y latent set and
-attaches the predicted cluster ids to every output set.  Not ported yet,
-each raising ``NotImplementedError`` when asked for: the per-epoch cluster
-accuracy and the mapping of clusters to labels (they need labelled data
-sets).  Like the JAX package's, this constructor does not call
-``validate_model_parameters``: a zero-inflated base with classes trains.
+``centroids.json`` each epoch and, for labelled data sets, the cluster
+accuracy of each set to its learning curves (``accuracy``).  ``evaluate``
+adds the y latent set and attaches the predicted cluster ids to every
+output set, and for a labelled set the labels (and superset labels) that
+the clusters map to by majority vote.  Like the JAX package's, this
+constructor does not call ``validate_model_parameters``: a zero-inflated
+base with classes trains.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import scipy.sparse
 import torch
 
+from scvae_tpu_torch.analyses.prediction import map_cluster_ids_to_label_ids
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import checkpoints, gmvae, step
 from scvae_tpu_torch.models.api import (
@@ -174,24 +177,70 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                                    generator)
         return z, ys
 
+    # -- per-epoch cluster accuracy ---------------------------------------
+
+    def _make_accuracy_callback(self, data_sets: dict[str, Any],
+                                device: torch.device):
+        """An epoch callback that writes each labelled set's ``accuracy``
+        into its epoch metrics (JAX ``gmvae_api.py:234-302``): argmax
+        q(y|x) over the whole set, clusters mapped to labels by majority
+        vote, excluded classes left out.  Each set is staged on ``device``
+        once, here (JAX uploads it every epoch; the values are the same).
+        The callback runs eagerly between epochs, on the train state the
+        loop hands it (the epoch's snapshot with the deferred fetch), and
+        draws no random numbers."""
+        prepared = {}
+        for kind, data_set in data_sets.items():
+            if not getattr(data_set, "has_labels", False):
+                continue
+            values = data_set.preprocessed_values
+            if values is None:
+                values = data_set.values
+            if scipy.sparse.issparse(values):
+                values = values.toarray()
+            label_ids, excluded = _label_ids(
+                data_set.labels, data_set.class_name_to_class_id,
+                data_set.excluded_classes)
+            x = torch.from_numpy(
+                np.ascontiguousarray(values, np.float32)).to(device)
+            prepared[kind] = (x, label_ids, excluded)
+
+        def callback(epoch, train_state, epoch_metrics):
+            for kind, (x, label_ids, excluded) in prepared.items():
+                ids = gmvae.cluster_ids(train_state.params,
+                                        train_state.model_state,
+                                        x).cpu().numpy()
+                predicted = map_cluster_ids_to_label_ids(
+                    label_ids, ids, excluded)
+                keep = ~np.isin(label_ids, excluded)
+                accuracy = (
+                    float((predicted[keep] == label_ids[keep]).mean())
+                    if keep.any()
+                    else float("nan")
+                )
+                epoch_metrics.setdefault(kind, {})["accuracy"] = accuracy
+
+        return callback
+
     # -- train -------------------------------------------------------------
 
     def train(self, training_set, validation_set=None, *,
               track_accuracy: bool = True, epoch_callback=None, **kwargs):
         """Train through the VAE API's ``train``, appending the prior
-        centroids to the run's files each epoch.  The reference also tracks
-        the per-epoch cluster accuracy against the labels of a labelled data
-        set; that callback is not ported, so labelled data with
-        ``track_accuracy`` raises."""
-        labelled = any(getattr(data, "has_labels", False)
-                       for data in (training_set, validation_set))
-        if track_accuracy and labelled:
-            raise NotImplementedError(
-                "the per-epoch cluster accuracy is not ported yet; pass "
-                "track_accuracy=False")
+        centroids to the run's files each epoch and, with
+        ``track_accuracy``, the cluster accuracy of each labelled set
+        (reference ``:1299-1333``)."""
+        accuracy_callback = None
+        if track_accuracy and any(getattr(data, "has_labels", False)
+                                  for data in (training_set, validation_set)):
+            accuracy_callback = self._make_accuracy_callback(
+                {"training": training_set, "validation": validation_set},
+                resolve_device(kwargs.get("device")))
         user_callback = epoch_callback
 
-        def log_centroids(epoch, train_state, epoch_metrics):
+        def callback(epoch, train_state, epoch_metrics):
+            if accuracy_callback is not None:
+                accuracy_callback(epoch, train_state, epoch_metrics)
             checkpoints.append_centroids(
                 self._active_log_directory,
                 gmvae.prior_centroids(self.config, train_state.params))
@@ -199,7 +248,7 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                 user_callback(epoch, train_state, epoch_metrics)
 
         return super().train(training_set, validation_set,
-                             epoch_callback=log_centroids, **kwargs)
+                             epoch_callback=callback, **kwargs)
 
     # -- evaluate ----------------------------------------------------------
 
@@ -222,11 +271,9 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
     ):
         """As the VAE's ``evaluate``; ``latent`` gives a {"z": …, "y": …}
         pair of sets (the latent means marginalised over y, and q(y|x)),
-        and every output set carries the predicted cluster ids.  A labelled
-        evaluation set raises: mapping clusters to labels is not ported."""
-        if getattr(evaluation_set, "has_labels", False):
-            raise NotImplementedError(
-                "mapping clusters to labels is not ported yet")
+        and every output set carries the predicted cluster ids and, for a
+        labelled set, the labels and superset labels its clusters map to
+        by majority vote (JAX ``gmvae_api.py:485-520``)."""
         _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
         output_versions = _output_versions(output_versions)
         device = resolve_device(device)
@@ -243,9 +290,26 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                   "KL_y {kl_divergence_y:.6g}".format(**metrics))
         self._last_evaluation_metrics = metrics
         cluster_ids = rows["cluster_ids"].astype(np.int32)
+        predicted_labels = None
+        if evaluation_set.has_labels:
+            predicted_labels = _predicted_labels(
+                evaluation_set.labels, evaluation_set.class_name_to_class_id,
+                evaluation_set.class_id_to_class_name,
+                evaluation_set.excluded_classes, cluster_ids)
+        predicted_superset_labels = None
+        if evaluation_set.has_superset_labels:
+            predicted_superset_labels = _predicted_labels(
+                evaluation_set.superset_labels,
+                evaluation_set.superset_class_name_to_superset_class_id,
+                evaluation_set.superset_class_id_to_superset_class_name,
+                evaluation_set.excluded_superset_classes, cluster_ids)
 
         def with_clusters(data_set):
-            data_set.update_predictions(predicted_cluster_ids=cluster_ids)
+            data_set.update_predictions(
+                predicted_cluster_ids=cluster_ids,
+                predicted_labels=predicted_labels,
+                predicted_superset_labels=predicted_superset_labels,
+            )
             return data_set
 
         output_sets: list[Any] = []
@@ -266,3 +330,22 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                      for k in range(self.config.n_clusters)])),
             })
         return output_sets[0] if len(output_sets) == 1 else tuple(output_sets)
+
+
+def _label_ids(labels, to_id, excluded_names):
+    """``labels`` as class ids, and the ids of those ``excluded_names``
+    that are classes of the set."""
+    label_ids = np.array([to_id[name] for name in labels])
+    excluded = [to_id[name] for name in (excluded_names or [])
+                if name in to_id]
+    return label_ids, excluded
+
+
+def _predicted_labels(labels, to_id, to_name, excluded_names,
+                      cluster_ids) -> np.ndarray:
+    """The class name each example's cluster maps to by majority vote over
+    ``labels``, excluded classes left out of the vote."""
+    label_ids, excluded = _label_ids(labels, to_id, excluded_names)
+    predicted_ids = map_cluster_ids_to_label_ids(label_ids, cluster_ids,
+                                                 excluded)
+    return np.array([to_name[i] for i in predicted_ids])

@@ -13,7 +13,7 @@ import re
 import string
 import time
 
-from scvae_tpu_torch.distributions.registry import normalise_string
+from scvae_tpu_torch.utils.strings import normalise_string
 
 MODEL_VERSIONS = ["end_of_training", "best_model", "early_stopping"]
 

@@ -462,7 +462,8 @@ def test_vae_categorised_trains_on_cpu():
     optimizer = step.make_optimizer(config.learning_rate)
     ts = step.create_train_state(
         *tvae.init(config, torch.Generator().manual_seed(0)), optimizer)
-    data = device_resident_data(build_model_arrays(DataSet(x)), device="cpu")
+    data = device_resident_data(
+        build_model_arrays(DataSet("in-memory", values=x)), device="cpu")
 
     def loss(params, model_state, batch, generator, warm_up_weight):
         return tvae.loss_fn(config, params, model_state, batch, generator,

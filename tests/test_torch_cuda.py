@@ -56,6 +56,12 @@ kernel, past one block of target rows, with W resident in several chunks
 and (float32) restaged term by term.  The row gather is bit-exact on both of its paths (16-byte units,
 single elements), and an index outside the matrix traps.
 
+The data engine on the card: the GMVAE's per-epoch accuracy callback
+against the same callback on the CPU from the same parameters and set
+(equal cluster ids, apart from ties within 1e-5 of the q(y|x) logits), and
+a training step on log-preprocessed values, which the model stages as
+float32 and K1 gathers from a float32 source.
+
 The compiled epoch (``models/step.py``): a small NB VAE and GMVAE trained
 for two epochs as CUDA graph replays against the same steps run eagerly
 from the same state and generator (parameters within 2e-5 of the largest,
@@ -1160,7 +1166,7 @@ def _graph_case(device, kind):
         config = gmvae.GMVAEConfig(number_of_latent_clusters=4, **kwargs)
     else:
         module, config = vae, vae.VAEConfig(**kwargs)
-    arrays = build_model_arrays(DataSet(x))
+    arrays = build_model_arrays(DataSet("in-memory", values=x))
     data = api._append_lgamma_rowsum(
         device_resident_data(arrays, device=device), config)
     optimizer = step.make_optimizer(1e-3)
@@ -1304,3 +1310,101 @@ def test_failed_capture_raises(device):
         train_epoch(ts, data, _perm(device, 0), generator, 1.0)
     torch.cuda.synchronize()
     assert len(calls) == 1 and ts.step == 1
+
+
+def _labelled_case():
+    """A small labelled set (4 classes, one excluded) and a GMVAE whose
+    batch-norm statistics are not the initial ones."""
+    import numpy as np
+
+    from scvae_tpu_torch import DataSet, GaussianMixtureVariationalAutoencoder
+    from scvae_tpu_torch.models import gmvae
+
+    rng = np.random.RandomState(5)
+    x = rng.poisson(2.0, (700, 300)).astype(np.float32)
+    labels = np.array(["A", "B", "C", "No class"])[rng.randint(0, 4, 700)]
+    data_set = DataSet("in-memory", values=x, labels=labels)
+    model = GaussianMixtureVariationalAutoencoder(
+        feature_size=300, latent_size=8, hidden_sizes=[64, 32],
+        reconstruction_distribution="negative binomial",
+        number_of_latent_clusters=5)
+    params, state = gmvae.init(model.config,
+                               torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    for layer in state["q_y"]["batch_norm"]:
+        layer["mean"] = torch.randn(layer["mean"].shape, generator=gen)
+        layer["var"] = 1.0 + torch.rand(layer["var"].shape, generator=gen)
+    return data_set, model, params, state
+
+
+def test_accuracy_callback_matches_cpu(device):
+    """The callback's cluster ids and accuracy on the card against the CPU
+    from the same parameters and set: equal ids, apart from rows whose two
+    largest q(y|x) logits lie within 1e-5 of each other."""
+    import numpy as np
+
+    from scvae_tpu_torch.models import gmvae, networks, step
+
+    data_set, model, params, state = _labelled_case()
+    results = []
+    for where in (torch.device("cpu"), device):
+        moved = step.TrainState(
+            params=step.tree_map(lambda a: a.to(where), params),
+            model_state=step.tree_map(lambda a: a.to(where), state),
+            opt_state={}, step=0)
+        metrics = {}
+        model._make_accuracy_callback({"training": data_set}, where)(
+            0, moved, metrics)
+        x = torch.from_numpy(data_set.values).to(where)
+        ids = gmvae.cluster_ids(moved.params, moved.model_state, x)
+        h_y, _ = networks.apply_mlp(moved.params["q_y"]["encoder"],
+                                    moved.model_state["q_y"], x,
+                                    training=False)
+        logits = networks.apply_dense(moved.params["q_y"]["logits"], h_y)
+        results.append((metrics["training"]["accuracy"], ids.cpu().numpy(),
+                        logits.cpu().numpy()))
+    (accuracy_cpu, ids_cpu, logits), (accuracy, ids, _) = results
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    ties = top2[:, 1] - top2[:, 0] <= 1e-5
+    assert np.array_equal(ids[~ties], ids_cpu[~ties])
+    if not ties.any():
+        assert accuracy == accuracy_cpu
+    assert 0.0 <= accuracy <= 1.0
+
+
+def test_training_on_float32_values(device, tmp_path, monkeypatch):
+    """Log-preprocessed values are staged as float32, and the training step
+    gathers them with K1 from that float32 source."""
+    import numpy as np
+
+    from scvae_tpu_torch import DataSet, VariationalAutoencoder
+    from scvae_tpu_torch.data import processing
+    from scvae_tpu_torch.data.pipeline import (
+        build_model_arrays,
+        device_resident_data,
+    )
+
+    monkeypatch.chdir(tmp_path)
+    counts = np.random.RandomState(6).poisson(2.0, (640, 300)).astype(
+        np.float32)
+    data_set = DataSet("in-memory", values=counts)
+    data_set.update(preprocessed_values=processing.build_preprocessor(
+        ["log"])(counts))
+    staged = device_resident_data(build_model_arrays(data_set),
+                                  device=device)
+    assert staged["x"].dtype == torch.float32 and staged["x"] is staged["t"]
+    idx = torch.arange(0, 640, 5, dtype=torch.int32, device=device)
+    assert torch.equal(ops.gather_rows(staged["x"], idx, torch.float32),
+                       ops.reference_gather(staged["x"], idx, torch.float32))
+    model = VariationalAutoencoder(
+        feature_size=300, latent_size=8, hidden_sizes=[32],
+        reconstruction_distribution="negative binomial")
+    ops.reset_launch_counts()
+    result = model.train(data_set, number_of_epochs=1, minibatch_size=64,
+                         device=device, verbose=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = result.steps_per_epoch
+    assert steps == 10 and launches["nb_forward"] == steps
+    assert launches["gather_rows"] >= steps
+    assert np.all(np.isfinite(result.history["training"]["lower_bound"]))

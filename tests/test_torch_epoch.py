@@ -208,8 +208,10 @@ def _model(kind):
     module, config = MODELS[kind]
     x = np.random.RandomState(0).poisson(2.0, (64, 20)).astype(np.float32)
     data = api._append_lgamma_rowsum(device_resident_data(
-        build_model_arrays(DataSet(x), use_count_sum_as_parameter=(
-            config.use_count_sum_as_parameter)), device="cpu"), config)
+        build_model_arrays(DataSet("in-memory", values=x),
+                           use_count_sum_as_parameter=(
+                               config.use_count_sum_as_parameter)),
+        device="cpu"), config)
     optimizer = step.make_optimizer(1e-3)
     ts = step.create_train_state(
         *module.init(config, torch.Generator().manual_seed(0)), optimizer)

@@ -356,15 +356,21 @@ def test_unported_options_raise(monkeypatch, in_tmp_path):
     with pytest.raises(NotImplementedError):
         gmvae.train(x, device="cpu", caches_directory="caches")
 
-    class Labelled:
-        has_labels = True
-
-    with pytest.raises(NotImplementedError):
-        gmvae.train(Labelled(), device="cpu")
-    with pytest.raises(NotImplementedError):  # clusters mapped to labels
-        gmvae.evaluate(Labelled(), device="cpu")
     with pytest.raises(FileNotFoundError, match="train the model first"):
         gmvae.sample(device="cpu")  # nothing under the default directory
+    # labels are ported: a labelled set trains with its accuracy and
+    # evaluates with the labels its clusters map to
+    from scvae_tpu_torch import DataSet
+
+    labelled = DataSet("in-memory", values=x,
+                       labels=np.array(["a", "b", "No class", "b"] * 8))
+    history = gmvae.train(labelled, number_of_epochs=1, minibatch_size=16,
+                          device="cpu", verbose=False).history
+    assert 0.0 <= history["training"]["accuracy"][0] <= 1.0
+    evaluated = gmvae.evaluate(labelled, output_versions="transformed",
+                               device="cpu", verbose=False)
+    assert evaluated.predicted_labels.shape == (32,)
+    assert set(evaluated.predicted_labels) <= {"a", "b"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gmvae.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)

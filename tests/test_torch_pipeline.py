@@ -85,7 +85,7 @@ def test_model_arrays_and_row_constants_match_jax(name, case):
         jdataset.DataSet("test", values=values),
         use_count_sum_as_parameter=jconfig.use_count_sum_as_parameter)
     ours = pipeline.build_model_arrays(
-        DataSet(values), use_count_sum_as_parameter=(
+        DataSet("test", values=values), use_count_sum_as_parameter=(
             tconfig.use_count_sum_as_parameter))
     assert set(ours) == set(ref)
     if "count_sum" in ref:

@@ -283,3 +283,55 @@ def test_package_files_are_tracked():
     if out.returncode == 128:
         pytest.skip(f"not a git checkout: {out.stderr.strip()}")
     assert out.stdout.strip() == ""
+
+
+def test_chip_smoke_config_level_training_on_cpu(monkeypatch):
+    """``chip_smoke.train_config_level`` (phases 4 and 4b on the card, and
+    ``tools/profile_torch_step.py``) runs its data and training path on the
+    CPU: one epoch of a small VAE on a count matrix."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    counts = chip_smoke.make_counts(chip_smoke.BATCH * 2, 16)
+    config = tvae.VAEConfig(feature_size=16, latent_size=2, hidden_sizes=(8,),
+                            reconstruction_distribution="negative binomial")
+    result = chip_smoke.train_config_level(config, counts, device="cpu",
+                                           epochs=1)
+    assert result.steps_per_epoch == 2 and result.train_state.step == 2
+    assert np.isfinite(result.history["training"]["lower_bound"][0])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chip_smoke_majority_vote_matches_the_package(seed, monkeypatch):
+    """``chip_smoke.majority_vote`` (phase 5b's host recomputation of the
+    GMVAE's accuracy) gives the package's cluster-to-label mapping and
+    accuracy: ties to the first name, excluded classes left out, a cluster
+    of excluded rows only left unmapped."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    from scvae_tpu_torch.analyses.prediction import (
+        map_cluster_ids_to_label_ids,
+    )
+    from scvae_tpu_torch.models import gmvae_api
+
+    rng = np.random.RandomState(seed)
+    names = np.array(["alpha", "beta", "delta", "gamma"])
+    labels = names[rng.randint(0, 4, 60)]
+    clusters = rng.randint(0, 5, 60)
+    # cluster 5: a tie of beta and gamma; cluster 6: excluded rows only
+    labels = np.concatenate([labels, ["gamma", "beta", "gamma", "beta"],
+                             ["delta", "delta"]])
+    clusters = np.concatenate([clusters, [5, 5, 5, 5], [6, 6]])
+    excluded = ["delta"]
+    to_id = {name: i for i, name in enumerate(names)}
+    mapping, accuracy = chip_smoke.majority_vote(labels, clusters, excluded)
+    assert mapping[5] == "beta" and 6 not in mapping
+    predicted = gmvae_api._predicted_labels(
+        labels, to_id, dict(enumerate(names)), excluded, clusters)
+    np.testing.assert_array_equal(
+        predicted, [mapping.get(c, names[0]) for c in clusters.tolist()])
+    label_ids = np.array([to_id[name] for name in labels])
+    predicted_ids = map_cluster_ids_to_label_ids(label_ids, clusters,
+                                                 [to_id["delta"]])
+    keep = labels != "delta"
+    assert accuracy == float((predicted_ids[keep] == label_ids[keep]).mean())
