@@ -15,7 +15,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              K = 10) and with the cap of 32 (Poisson, K = 30) on targets of
              which every other row is drawn as Poisson(K), NB's K2/K3 over
              the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
-             cycled target rows, and at decoder width 1,024; with its time,
+             cycled target rows, at decoder width 1,024, and NB's K2 and
+             K3's three kernels at the LFM decoder's widths 100, 101 and
+             105 (padded to 104, 104 and 112); with its time,
              the plain version's time, the least time the card could take
              and, for the products, one ``torch.mm`` of the same product
              (dW: the product alone, db not included);
@@ -45,8 +47,28 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              the full-batch evaluation steps run as CUDA graph replays (the
              entry points' default on CUDA), and the counters count each
              replay's launches;
+4d. options — one training loss of the headline VAE-NB and its
+             gradients, fused against unfused on the same inputs (the loss
+             within 4e-4 relative; the gradients within 4e-4 of the
+             largest in float32, within 5e-3 in norm with bf16 inputs);
+             then each OPTIONS configuration (VAE-NB unfused; VAE-NB with
+             4 batch indices from RandomState(3), batch correction and the
+             count sum; VAE-NB-LFM, both architectures LFM with the same
+             inputs; GMVAE-NB-full, the full-covariance mixture with 10
+             clusters; VAE-Poisson-cat-40, 42 heads, unfused; a VAE per
+             other reconstruction distribution: Bernoulli on the counts
+             binarised, gaussian, log-normal, lomax, EMG and gaussian
+             mixture on the counts, gamma on the counts + 1, multivariate
+             gaussian on the first 128 genes): phase 4's small step, then
+             two epochs through the API at the headline width: a finite,
+             rising ELBO, K1 at least once a step, NB's K2 and K3's three
+             kernels once a step on the fused configurations and no
+             likelihood kernel on the unfused ones, GMVAE-NB-full's prior
+             covariance matrices in ``centroids.json`` symmetric positive
+             definite, and each configuration's steps/s;
 4b. graph  — VAE-NB, VAE-CP-f32, VAE-Poisson-cat and GMVAE-NB (one
-             configuration per kernel family on a training path) trained
+             configuration per kernel family on a training path), and
+             VAE-NB-unfused and GMVAE-NB-full, trained
              for two epochs through ``train_config_level`` from the same
              seed, eagerly and through the graphs: the same launches, the
              parameters within 2e-5 of the largest |parameter|, the curves
@@ -163,13 +185,70 @@ GROUP_CAP = 16
 # parameters are held to 2e-5 of the largest |parameter| (the small
 # step's bound) and the curves to 1e-6 relative.
 GRAPHED = (
-    ("VAE-NB", "vae", "negative binomial", 0, 3.0, None),
-    ("VAE-CP-f32", "vae", "constrained poisson", 0, 3.0, "float32"),
-    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None),
-    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0, None),
+    ("VAE-NB", "vae", "negative binomial", 0, 3.0, None, {}),
+    ("VAE-CP-f32", "vae", "constrained poisson", 0, 3.0, "float32", {}),
+    ("VAE-Poisson-cat", "vae", "poisson", 30, 30.0, None, {}),
+    ("GMVAE-NB", "gmvae", "negative binomial", 0, 3.0, None, {}),
+    # phase 4d's unfused path and full-covariance latent
+    ("VAE-NB-unfused", "vae", "negative binomial", 0, 3.0, None,
+     {"fused_likelihood": False}),
+    ("GMVAE-NB-full", "gmvae", "negative binomial", 0, 3.0, None,
+     {"latent_distribution": "full-covariance gaussian mixture"}),
 )
 GRAPH_PARAM_RTOL = 2e-5
 GRAPH_CURVE_RTOL = 1e-6
+# Phase 4d: the model options and the rest of the distribution library,
+# each trained through the API at the headline width for two epochs:
+# (label, model, reconstruction distribution, classes, the data (see
+# options_data), the constructor's other arguments, whether it trains on
+# NB's fused kernels).  The batch indices are 4 batches drawn from
+# RandomState(3); the LFM's decoder input is z, 4 one-hots and the count
+# sum: width 105, which the heads kernels pad to 112.  VAE-Poisson-cat-40
+# has 42 heads, over the fused cap of 32, and trains unfused on phase 4's
+# Poisson(30) + 1 counts (about 6% of the nonzero ones reach K = 40).
+N_BATCHES = 4
+MVG_GENES = 128
+OPTIONS = (
+    ("VAE-NB-unfused", "vae", "negative binomial", 0, "counts",
+     {"fused_likelihood": False}, False),
+    ("VAE-NB-batch", "vae", "negative binomial", 0, "batches",
+     {"batch_correction": True, "number_of_batches": N_BATCHES,
+      "count_sum": True}, True),
+    ("VAE-NB-LFM", "vae", "negative binomial", 0, "batches",
+     {"inference_architecture": "LFM", "generative_architecture": "LFM",
+      "batch_correction": True, "number_of_batches": N_BATCHES,
+      "count_sum": True}, True),
+    ("GMVAE-NB-full", "gmvae", "negative binomial", 0, "counts",
+     {"latent_distribution": "full-covariance gaussian mixture"}, True),
+    ("VAE-Poisson-cat-40", "vae", "poisson", 40, "counts30", {}, False),
+    ("VAE-Bernoulli", "vae", "bernoulli", 0, "binarised", {}, False),
+    ("VAE-Gaussian", "vae", "gaussian", 0, "counts", {}, False),
+    ("VAE-LogNormal", "vae", "log-normal", 0, "counts", {}, False),
+    ("VAE-Lomax", "vae", "lomax", 0, "counts", {}, False),
+    ("VAE-EMG", "vae", "exponentially_modified_gaussian", 0, "counts", {},
+     False),
+    ("VAE-Gamma", "vae", "gamma", 0, "counts_plus_one", {}, False),
+    ("VAE-GaussianMixture", "vae", "gaussian mixture", 0, "counts", {},
+     False),
+    ("VAE-MVG-128", "vae", "multivariate gaussian", 0, "first_genes", {},
+     False),
+)
+# Decoder widths of NB's K2/K3 on the LFM's path: z alone, z and the count
+# sum, z, 4 batch one-hots and the count sum.
+LFM_WIDTHS = (LATENT, LATENT + 1, LATENT + N_BATCHES + 1)
+# One training loss and its gradients at the headline shapes, fused against
+# unfused on the card: the loss within phase 3's bf16 backward tolerance,
+# relative; in float32 every gradient within it too, of the largest
+# |gradient|.  With bf16 matmul inputs a dense kernel's gradient passes
+# back through the cast to bf16 (JAX's rounding) and is a bf16 number, so
+# where the two paths' float32 sums differ a gradient value v moves by a
+# whole bf16 step, v·2^-8 (run 1: 0.0625 of a largest 69, 9.1e-4): there
+# the whole gradient is held in norm, ‖Δ‖/‖g‖, to the bound of the CPU
+# bf16 tests against JAX (tests/test_torch_vae.py).
+FUSED_UNFUSED_RTOL = 4e-4
+BF16_GRADIENT_NORM_RTOL = 5e-3
+# steps/s of epoch 2 by configuration label (phase 4 and 4d)
+RATES: dict[str, float] = {}
 # Phase 5: epochs, validation share, cells sampled, the runs' directory.
 AFTER_EPOCHS = 3
 VALIDATION_SHARE = 0.1
@@ -178,6 +257,7 @@ BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SLICE_DIRECTORY = os.path.join(BUILD, "slice_training")
 AFTER_DIRECTORY = os.path.join(BUILD, "after_training")
 DEFERRED_DIRECTORY = os.path.join(BUILD, "deferred_training")
+OPTIONS_DIRECTORY = os.path.join(BUILD, "options_training")
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -1566,21 +1646,25 @@ def phase_kernels(counts_dev):
         results.update(check_grouped(name, x, gen, flush, CLUSTERS))
         check_grouped(name, x, gen, flush, GROUP_CAP)
     check_wide(x, g, gen)
+    check_lfm_widths(x, flush)
     torch.cuda.synchronize()
     return results
 
 
-def phase_small_step(label, model, name, k_max):
+def phase_small_step(label, model, name, k_max, options=None):
     """One training loss and its gradients from the same small input on the
-    CPU (plain versions) and on the GPU (kernels), float32."""
+    CPU (plain versions) and on the GPU (kernels, or the unfused path, with
+    ``options`` of the configuration), float32."""
     from scvae_tpu_torch.models import gmvae, step, vae
     from scvae_tpu_torch.ops import lgamma
 
     kwargs = dict(feature_size=300, latent_size=8, hidden_sizes=(32, 32),
                   reconstruction_distribution=name,
-                  number_of_reconstruction_classes=k_max, precision="float32")
+                  number_of_reconstruction_classes=k_max, precision="float32",
+                  **(options or {}))
     rng = np.random.RandomState(0)
     x = rng.poisson(1.5, size=(64, 300)).astype(np.float32)
+    batch_indices = rng.randint(0, N_BATCHES, size=(64, 1)).astype(np.float32)
     if model == "gmvae":
         module = gmvae
         config = gmvae.GMVAEConfig(number_of_latent_clusters=4, **kwargs)
@@ -1598,9 +1682,12 @@ def phase_small_step(label, model, name, k_max):
             lambda a: a.detach().to(device).requires_grad_(True), params)
         s = step.tree_map(lambda a: a.to(device), state)
         xt = torch.from_numpy(x).to(device)
-        batch = {"x": xt, "t": xt,
+        count_sum = xt.sum(-1, keepdim=True)
+        batch = {"x": xt, "t": option_targets(name, xt),
                  "t_lgamma_rowsum": torch.sum(lgamma(1.0 + xt), dim=-1),
-                 "count_sum": xt.sum(-1, keepdim=True)}
+                 "count_sum": count_sum,
+                 "count_sum_feature": count_sum / count_sum.max(),
+                 "batch_indices": torch.from_numpy(batch_indices).to(device)}
         loss, _ = module.loss_fn(config, p, s, batch, None,
                                  noise=torch.from_numpy(noise).to(device))
         grads = torch.autograd.grad(loss, step.tree_leaves(p))
@@ -1717,6 +1804,7 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
         raise AssertionError(f"{label}: training ELBO not finite and rising: "
                              f"{elbo}")
     seconds = result.epoch_seconds[-1]
+    RATES[label] = result.steps_per_epoch / seconds
     print(f"slice {label}: ELBO {elbo}; epoch {EPOCHS}: "
           f"{result.steps_per_epoch / seconds:.6g} steps/s, "
           f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
@@ -1725,16 +1813,16 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
     return launches
 
 
-def trained_config(model, name, k_max, precision):
+def trained_config(model, name, k_max, precision, options=None):
     """The configuration of a phase 4 or 4b run: the headline VAE, or the
-    GMVAE API's configuration (10 clusters)."""
+    GMVAE API's configuration (10 clusters), with ``options``."""
     from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder
     from scvae_tpu_torch.models import vae
 
     kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
                   hidden_sizes=(HIDDEN, HIDDEN),
                   reconstruction_distribution=name,
-                  number_of_reconstruction_classes=k_max)
+                  number_of_reconstruction_classes=k_max, **(options or {}))
     if precision is not None:
         kwargs["precision"] = precision
     if model == "gmvae":
@@ -1752,8 +1840,8 @@ def phase_graph_vs_eager(data, card):
     from scvae_tpu_torch import ops
     from scvae_tpu_torch.models import step
 
-    for label, model, name, k_max, mean, precision in GRAPHED:
-        config = trained_config(model, name, k_max, precision)
+    for label, model, name, k_max, mean, precision, options in GRAPHED:
+        config = trained_config(model, name, k_max, precision, options)
         runs = {}
         for capture in (False, True):
             ops.reset_launch_counts()
@@ -1793,6 +1881,251 @@ def phase_graph_vs_eager(data, card):
             raise AssertionError(f"graph {label}: parameters "
                                  f"{diff / largest:.3g}, curves "
                                  f"{curve_rel:.3g} from the eager run")
+
+
+def option_targets(name, x):
+    """The targets a likelihood trains on, from counts ``x``: gamma's are
+    x + 1 (zero is outside its support), Bernoulli's x binarised."""
+    if name == "gamma":
+        return x + 1.0
+    if name == "bernoulli":
+        return (x > 0).to(x.dtype)
+    return x
+
+
+def options_data(kind, data):
+    """Phase 4d's training set of ``kind`` from phase 4's counts ``data``
+    (by Poisson mean): the headline counts; Poisson(30) + 1 counts; the
+    headline counts with N_BATCHES batch indices from RandomState(3); a
+    data set of them binarised (a Bernoulli model's targets); the counts +
+    1 (dense); their first MVG_GENES genes."""
+    from scvae_tpu_torch import DataSet
+
+    counts = data[3.0]
+    if kind == "counts":
+        return counts
+    if kind == "counts30":
+        return data[30.0]
+    if kind == "batches":
+        indices = np.random.RandomState(3).randint(0, N_BATCHES,
+                                                   counts.shape[0])
+        return DataSet("in-memory", values=counts, batch_indices=indices)
+    if kind == "binarised":
+        data_set = DataSet("in-memory", values=counts)
+        data_set.binarise()
+        return data_set
+    if kind == "counts_plus_one":
+        return counts.toarray() + np.float32(1.0)
+    if kind == "first_genes":
+        return counts[:, :MVG_GENES]
+    raise ValueError(kind)
+
+
+def check_lfm_widths(x, flush):
+    """NB's K2 and K3's three kernels (bf16) at the LFM decoder's widths
+    LFM_WIDTHS, which the heads kernels pad to a multiple of 8, against
+    their plain versions at phase 3's tolerances: the forward; the gradient
+    kernel's bf16(da) and db row-tile sums; the dh and dW products of the
+    kernel's da; the public backward as a whole, bf16 and float32.  h is
+    the LFM's decoder input, not a ReLU's output: standard normal.  The
+    draws come from a generator of their own."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.ops import fused_likelihood as fl
+
+    name, bf16 = "negative binomial", torch.bfloat16
+    m, f = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(17)
+    g = torch.randn(m, generator=gen, device=x.device) / m
+    for width in LFM_WIDTHS:
+        h = torch.randn(m, width, generator=gen, device=x.device)
+        ws, bs = head_weights(gen, 2, width, f, x.device)
+        tag = f"nb H={width} (LFM)"
+        fwd_args = (name, h, ws, bs, x)
+        bwd_args = (name, g, h, ws, bs, x)
+
+        def forward():
+            return ops.fused_forward(*fwd_args, compute_dtype=bf16,
+                                     include_lgamma_const=False)
+
+        check_close(f"{tag} forward", forward(),
+                    ops.reference_forward(*fwd_args, compute_dtype=bf16,
+                                          include_lgamma_const=False),
+                    FORWARD_RTOL)
+        grad = fl.tc_gradient(*bwd_args)
+        plain = fl.reference_tc_gradient(*bwd_args)
+        check_bf16_steps(f"{tag} backward_gradient bf16(da)", grad.da,
+                         plain.da)
+        check_close(f"{tag} backward_gradient db row-tile sums",
+                    grad.db_parts, plain.db_parts, PRODUCT_RTOL)
+        check_close(f"{tag} backward_dh of the kernel's da", fl.tc_dh(grad),
+                    fl.reference_tc_dh(grad), PRODUCT_RTOL)
+        for i, (a, b) in enumerate(zip(fl.tc_dw(grad),
+                                       fl.reference_tc_dw(grad),
+                                       strict=True)):
+            check_close(f"{tag} backward_dw [{i}] of the kernel's da", a, b,
+                        PRODUCT_RTOL)
+        for cdt, rtol in ((bf16, BACKWARD_RTOL), (None, AUTOGRAD_RTOL)):
+            got = ops.fused_backward(*bwd_args, compute_dtype=cdt)
+            want = ops.reference_backward(*bwd_args, compute_dtype=cdt)
+            for i, (a, b) in enumerate(zip(got, want)):
+                check_close(f"{tag} backward {cdt} [{i}]", a, b, rtol)
+
+        def backward():
+            return ops.fused_backward(*bwd_args, compute_dtype=bf16)
+
+        print(f"lfm width {width} (padded {fl.tc_padded(width)}): forward "
+              f"{time_ms(forward, flush=flush):.4f} ms, backward "
+              f"{time_ms(backward, flush=flush):.4f} ms", flush=True)
+
+
+def check_fused_unfused(counts):
+    """One training loss of the headline VAE-NB and its gradients on the
+    same parameters, rows and z noise, on the fused kernels and on the
+    unfused path, with bf16 matmul inputs (the default on the card) and in
+    float32: the loss within FUSED_UNFUSED_RTOL relative; the gradients
+    within FUSED_UNFUSED_RTOL of the largest |gradient| in float32, and
+    within BF16_GRADIENT_NORM_RTOL in norm with bf16 inputs."""
+    from scvae_tpu_torch.models import step, vae
+
+    rows = np.random.RandomState(4).choice(counts.shape[0], BATCH,
+                                           replace=False)
+    x = torch.from_numpy(counts[np.sort(rows)].toarray()).cuda()
+    generator = torch.Generator(device="cuda").manual_seed(2)
+    noise = torch.randn((1, BATCH, LATENT), device="cuda",
+                        generator=generator)
+    for precision in ("bfloat16", "float32"):
+        configs = [vae.VAEConfig(
+            feature_size=N_GENES, latent_size=LATENT,
+            hidden_sizes=(HIDDEN, HIDDEN),
+            reconstruction_distribution="negative binomial",
+            fused_likelihood=fused, precision=precision)
+            for fused in (None, False)]
+        params, state = vae.init(configs[0],
+                                 torch.Generator().manual_seed(1))
+        results = []
+        for config in configs:
+            p = step.tree_map(lambda a: a.cuda().requires_grad_(True), params)
+            s = step.tree_map(lambda a: a.cuda(), state)
+            loss, _ = vae.loss_fn(config, p, s, {"x": x, "t": x}, None,
+                                  noise=noise)
+            grads = torch.autograd.grad(loss, step.tree_leaves(p))
+            results.append((loss.detach(), torch.cat(
+                [gr.reshape(-1) for gr in grads])))
+        (fused_loss, fused_grads), (loss, grads) = results
+        tag = f"VAE-NB {precision}"
+        check_close(f"{tag} loss fused against unfused", fused_loss, loss,
+                    FUSED_UNFUSED_RTOL)
+        largest = float(grads.abs().max())
+        worst = max_err(fused_grads, grads)
+        norm = float(torch.linalg.vector_norm(fused_grads - grads)
+                     / torch.linalg.vector_norm(grads))
+        print(f"fused against unfused {tag}: loss {float(fused_loss):.8g} / "
+              f"{float(loss):.8g}; gradients: largest difference "
+              f"{worst:.3g} = {worst / largest:.3g} of the largest "
+              f"|gradient| {largest:.4g}, ‖Δ‖/‖g‖ {norm:.3g}",
+              flush=True)
+        if precision == "float32":
+            check_close(f"{tag} gradients fused against unfused", fused_grads,
+                        grads, FUSED_UNFUSED_RTOL)
+        elif not norm <= BF16_GRADIENT_NORM_RTOL:
+            raise AssertionError(f"{tag}: gradients fused against unfused "
+                                 f"{norm} in norm (limit "
+                                 f"{BF16_GRADIENT_NORM_RTOL})")
+
+
+def check_covariances(label, directory):
+    """Every epoch's prior covariance matrices in ``centroids.json``:
+    symmetric and positive definite."""
+    from scvae_tpu_torch.models import checkpoints
+
+    covariances = checkpoints.load_centroids(directory)["covariance_matrices"]
+    covariances = np.asarray(covariances, np.float64)  # (E, K, D, D)
+    asymmetry = float(np.abs(covariances - np.swapaxes(covariances, -1, -2))
+                      .max())
+    smallest = float(np.linalg.eigvalsh(covariances).min())
+    print(f"options {label}: centroids.json covariance matrices "
+          f"{covariances.shape}, asymmetry {asymmetry:.3g}, smallest "
+          f"eigenvalue {smallest:.4g}", flush=True)
+    if asymmetry > 1e-6 * float(np.abs(covariances).max()) or smallest <= 0:
+        raise AssertionError(f"{label}: covariance matrices are not "
+                             "symmetric positive definite")
+
+
+def phase_options(data, card):
+    """Phase 4d: fused against unfused on one headline step, then each
+    OPTIONS configuration trained through the API at the headline width
+    for two epochs into an emptied directory under ``build/``: one small
+    step on the CPU and the card first (phase 4's), then a finite ELBO
+    that rises from epoch 1 to 2, K1 at least once a step, NB's K2 and
+    K3's three kernels once a step on the fused configurations and no
+    likelihood kernel on the unfused ones; GMVAE-NB-full's prior
+    covariances symmetric positive definite.  Returns the launches, by
+    the kernels line's entries (a GMVAE's NB kernels are the cycled
+    ones)."""
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+        ops,
+    )
+
+    check_fused_unfused(data[3.0])
+    shutil.rmtree(OPTIONS_DIRECTORY, ignore_errors=True)
+    nb = {f"nb_{kernel}" for kernel in ("forward", "backward_gradient",
+                                        "backward_dh", "backward_dw")}
+    total = collections.Counter()
+    for label, model, name, k_max, kind, options, fused in OPTIONS:
+        phase_small_step(label, model, name, k_max, options)
+        training_set = options_data(kind, data)
+        features = MVG_GENES if kind == "first_genes" else N_GENES
+        kwargs = dict(feature_size=features, latent_size=LATENT,
+                      hidden_sizes=[HIDDEN, HIDDEN],
+                      reconstruction_distribution=name,
+                      number_of_reconstruction_classes=k_max,
+                      log_directory=os.path.join(OPTIONS_DIRECTORY, label),
+                      **options)
+        if model == "gmvae":
+            model_ = GaussianMixtureVariationalAutoencoder(
+                number_of_latent_clusters=CLUSTERS, **kwargs)
+        else:
+            model_ = VariationalAutoencoder(**kwargs)
+        ops.reset_launch_counts()
+        result = model_.train(training_set, number_of_epochs=EPOCHS,
+                              minibatch_size=BATCH, seed=0, device="cuda",
+                              verbose=False)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        steps = result.steps_per_epoch * EPOCHS
+        for kernel, count in launches.items():
+            want = steps if fused and kernel in nb else 0
+            if kernel != "gather_rows" and count != want:
+                raise AssertionError(f"{label}: {kernel} launched {count} "
+                                     f"times in {steps} training steps "
+                                     f"(want {want})")
+        if launches["gather_rows"] < steps:
+            raise AssertionError(f"{label}: gather_rows launched "
+                                 f"{launches['gather_rows']} times in "
+                                 f"{steps} training steps")
+        elbo = result.history["training"]["lower_bound"]
+        if not (np.all(np.isfinite(elbo)) and elbo[-1] > elbo[0]):
+            raise AssertionError(f"{label}: training ELBO not finite and "
+                                 f"rising: {elbo}")
+        seconds = result.epoch_seconds[-1]
+        RATES[label] = result.steps_per_epoch / seconds
+        print(f"options {label}: ELBO {elbo}; epoch {EPOCHS}: "
+              f"{RATES[label]:.6g} steps/s, "
+              f"{result.steps_per_epoch * BATCH / seconds:.6g} cells/s; "
+              f"{'fused' if fused else 'unfused'}; launches "
+              f"{({k: v for k, v in launches.items() if v})} ({card})",
+              flush=True)
+        if "latent_distribution" in options:
+            check_covariances(label, model_.log_directory())
+        for kernel, count in launches.items():
+            total[kernel + "_cycled" if model == "gmvae" and kernel != (
+                "gather_rows") else kernel] += count
+    print(f"options: epoch {EPOCHS} VAE-NB-unfused "
+          f"{RATES['VAE-NB-unfused']:.6g} steps/s, VAE-NB (phase 4) "
+          f"{RATES['negative binomial']:.6g} steps/s ({card})", flush=True)
+    return total
 
 
 def split_counts(counts):
@@ -2434,6 +2767,11 @@ def main() -> int:
             entry = kernel + "_cycled" if model == "gmvae" else kernel
             if kernel == "gather_rows" or entry in kernels:
                 launches[kernel if kernel == "gather_rows" else entry] += count
+
+    # 4d. the model options and the rest of the distributions
+    for entry, count in phase_options(data, card).items():
+        if entry in launches:
+            launches[entry] += count
 
     # 4b. eager against graph; 4c. deferred against sync
     phase_graph_vs_eager(data, card)

@@ -54,7 +54,8 @@ def device_resident_data(
 
     The count fields ``x`` and ``t`` are stored at the narrowest of the
     ``count_dtype`` candidates that holds them exactly (float32 when they
-    are not integral).  Fields that are the same host array (x and t
+    are not integral), other integer fields as int32, the rest as
+    float32.  Fields that are the same host array (x and t
     usually are) become the same device tensor, so a step gathers them
     once."""
     placed_by_id: dict[int, torch.Tensor] = {}
@@ -66,6 +67,8 @@ def device_resident_data(
             dtype = None
             if name in ("x", "t"):
                 dtype = narrowest_count_dtype(arr, tuple(count_dtype))
+            elif np.issubdtype(dense.dtype, np.integer):
+                dtype = np.int32  # the batch indices
             dense = dense.astype(dtype or np.float32, copy=False)
             placed_by_id[key] = torch.from_numpy(
                 np.ascontiguousarray(dense)
@@ -74,20 +77,32 @@ def device_resident_data(
     return out
 
 
-def build_model_arrays(data_set, *,
-                       use_count_sum_as_parameter: bool = False
+def build_model_arrays(data_set, *, use_binarised: bool = False,
+                       use_count_sum_as_parameter: bool = False,
+                       use_count_sum_as_feature: bool = False,
+                       include_batch_indices: bool = False
                        ) -> dict[str, Any]:
     """The fields a model batch needs from a
-    :class:`~scvae_tpu_torch.data.DataSet` (the ported part of the JAX
-    package's ``build_model_arrays``, ``scvae_tpu/data/pipeline.py:
-    624-664``): inputs ``x`` and targets ``t`` are the preprocessed values
-    when the set has them, else the values (a float matrix is then staged
-    as float32), plus the per-cell ``count_sum`` (N, 1) float32 of the
-    original values when the likelihood takes it.  The binarised targets
-    of a Bernoulli likelihood are not ported (its model raises)."""
+    :class:`~scvae_tpu_torch.data.DataSet` (the JAX package's
+    ``build_model_arrays``, ``scvae_tpu/data/pipeline.py:624-664``, without
+    its noisy preprocessing): inputs ``x`` are the preprocessed values when
+    the set has them, else the values (a float matrix is then staged as
+    float32); targets ``t`` are the binarised values when a Bernoulli
+    likelihood asks for them and the set has them, else ``x``.  With them
+    the per-cell ``count_sum`` (N, 1) float32 of the original values when
+    the likelihood takes it, the ``count_sum_feature`` (N, 1) float32
+    (normalised) when the decoder takes it, and the ``batch_indices``
+    (N, 1) int32 for batch correction when the set has them."""
     x = (data_set.values if data_set.preprocessed_values is None
          else data_set.preprocessed_values)
-    arrays: dict[str, Any] = {"x": x, "t": x}
+    t = (data_set.binarised_values
+         if use_binarised and data_set.binarised_values is not None else x)
+    arrays: dict[str, Any] = {"x": x, "t": t}
     if use_count_sum_as_parameter:
         arrays["count_sum"] = data_set.count_sum.astype(np.float32)
+    if use_count_sum_as_feature:
+        arrays["count_sum_feature"] = data_set.normalised_count_sum.astype(
+            np.float32)
+    if include_batch_indices and data_set.batch_indices is not None:
+        arrays["batch_indices"] = data_set.batch_indices.astype(np.int32)
     return arrays

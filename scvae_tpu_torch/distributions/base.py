@@ -22,11 +22,17 @@ class Distribution:
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def prob(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(self.log_prob(x))
+
     def mean(self) -> torch.Tensor:
         raise NotImplementedError
 
     def variance(self) -> torch.Tensor:
         raise NotImplementedError
+
+    def stddev(self) -> torch.Tensor:
+        return torch.sqrt(self.variance())
 
     def batch_shape(self) -> torch.Size:
         """Broadcast shape of the parameter tensors."""

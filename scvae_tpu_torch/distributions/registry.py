@@ -1,15 +1,12 @@
-"""Declarative distribution registry (the ported part of
+"""Declarative distribution registry (counterpart of
 ``scvae_tpu/distributions/registry.py``).
 
 Maps a distribution name to per-parameter specs (support interval,
 activation, head-size function) and a constructor ``theta → Distribution``.
-The model builds one dense head per parameter from these specs.  Ported so
-far: the Gaussian and softplus Gaussian (latent; "modified gaussian" is a
-renamed copy of the latter), the categorical, the count reconstruction
-likelihoods Poisson, constrained Poisson, negative binomial and their
-zero-inflated forms, and the GMVAE latent registry without the
-full-covariance mixture; the other names of the reference resolve but raise
-``NotImplementedError``.
+The model builds one dense head per parameter from these specs: every name
+of the JAX registry, the reconstruction likelihoods, the VAE latents and
+the GMVAE's mixtures (the full-covariance one included).  The JAX
+``ParameterSpec.initial_value`` is left out: no model reads it.
 """
 
 from __future__ import annotations
@@ -23,10 +20,25 @@ import torch
 
 from scvae_tpu_torch.distributions.base import Distribution
 from scvae_tpu_torch.distributions.categorised import Categorical
-from scvae_tpu_torch.distributions.counts import NegativeBinomial, Poisson
-from scvae_tpu_torch.distributions.normal import Normal
+from scvae_tpu_torch.distributions.counts import (
+    Bernoulli,
+    Gamma,
+    NegativeBinomial,
+    Poisson,
+)
+from scvae_tpu_torch.distributions.exponentially_modified_normal import (
+    ExponentiallyModifiedNormal,
+)
+from scvae_tpu_torch.distributions.lomax import Lomax
+from scvae_tpu_torch.distributions.mixture import GaussianMixture
+from scvae_tpu_torch.distributions.normal import (
+    LogNormal,
+    MultivariateNormalTriL,
+    Normal,
+    fill_triangular,
+)
 from scvae_tpu_torch.distributions.zero_inflated import ZeroInflated
-from scvae_tpu_torch.ops.special import logaddexp
+from scvae_tpu_torch.ops.special import softplus
 from scvae_tpu_torch.utils.strings import normalise_string
 
 _F32 = np.finfo(np.float32)
@@ -73,6 +85,9 @@ class DistributionSpec:
     parameters: dict[str, ParameterSpec]
     constructor: Callable[..., Distribution]
     uses_count_sum: bool = False  # the constrained classes take N
+    # log_prob of a (..., F) target is one value per example (the event is
+    # the feature axis), not one per feature
+    event: bool = False
 
     def build(self, theta: dict[str, torch.Tensor],
               count_sum: torch.Tensor | None = None) -> Distribution:
@@ -85,14 +100,42 @@ def _make_gaussian(theta):
     return Normal(loc=theta["mu"], scale=torch.exp(theta["log_sigma"]))
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + eˣ) as logaddexp(x, 0)."""
-    return logaddexp(x, torch.zeros_like(x))
-
-
 def _make_softplus_gaussian(theta):
     return Normal(loc=theta["mean"],
-                  scale=torch.sqrt(_softplus(theta["softplus_scale"])))
+                  scale=torch.sqrt(softplus(theta["softplus_scale"])))
+
+
+def _make_multivariate_gaussian(theta):
+    loc = theta["locations"]
+    return MultivariateNormalTriL(
+        loc=loc, scale_tril=fill_triangular(theta["scales"], loc.shape[-1]))
+
+
+def _make_gaussian_mixture(theta):
+    return GaussianMixture(logits=theta["logits"], means=theta["mus"],
+                           scale_diags=torch.exp(theta["log_sigmas"]))
+
+
+def _make_log_normal(theta):
+    return LogNormal(loc=theta["mean"], scale=torch.sqrt(theta["variance"]))
+
+
+def _make_emg(theta):
+    return ExponentiallyModifiedNormal(
+        loc=theta["location"], scale=theta["scale"], rate=theta["rate"])
+
+
+def _make_gamma(theta):
+    return Gamma(concentration=theta["concentration"], rate=theta["rate"])
+
+
+def _make_bernoulli(theta):
+    return Bernoulli(logits=theta["logits"])
+
+
+def _make_lomax(theta):
+    return Lomax(concentration=torch.exp(theta["log_concentration"]),
+                 scale=torch.exp(theta["log_scale"]))
 
 
 def _make_categorical(theta):
@@ -140,10 +183,67 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
         },
         constructor=_make_softplus_gaussian,
     ),
+    "multivariate gaussian": DistributionSpec(
+        name="multivariate gaussian",
+        parameters={
+            "locations": ParameterSpec(support=(-math.inf, math.inf)),
+            "scales": ParameterSpec(
+                support=(0.0, math.inf), activation=softplus,
+                size_fn=lambda m: m * (m + 1) // 2,
+            ),
+        },
+        constructor=_make_multivariate_gaussian,
+        event=True,
+    ),
+    "gaussian mixture": DistributionSpec(
+        name="gaussian mixture",
+        parameters={
+            "logits": ParameterSpec(support=(-math.inf, math.inf)),
+            "mus": ParameterSpec(support=(-math.inf, math.inf)),
+            "log_sigmas": ParameterSpec(support=(-3.0, 3.0)),
+        },
+        constructor=_make_gaussian_mixture,
+        event=True,
+    ),
+    "log-normal": DistributionSpec(
+        name="log-normal",
+        parameters={
+            "mean": ParameterSpec(support=(-math.inf, math.inf)),
+            "variance": ParameterSpec(support=(0.0, math.inf),
+                                      activation=softplus),
+        },
+        constructor=_make_log_normal,
+    ),
+    "exponentially_modified_gaussian": DistributionSpec(
+        name="exponentially_modified_gaussian",
+        parameters={
+            "location": ParameterSpec(support=(-math.inf, math.inf)),
+            "scale": ParameterSpec(support=(0.0, math.inf),
+                                   activation=softplus),
+            "rate": ParameterSpec(support=(0.0, math.inf),
+                                  activation=softplus),
+        },
+        constructor=_make_emg,
+    ),
+    "gamma": DistributionSpec(
+        name="gamma",
+        parameters={
+            "concentration": ParameterSpec(support=(0.0, math.inf),
+                                           activation=softplus),
+            "rate": ParameterSpec(support=(0.0, math.inf),
+                                  activation=softplus),
+        },
+        constructor=_make_gamma,
+    ),
     "categorical": DistributionSpec(
         name="categorical",
         parameters={"logits": ParameterSpec(support=(-math.inf, math.inf))},
         constructor=_make_categorical,
+    ),
+    "bernoulli": DistributionSpec(
+        name="bernoulli",
+        parameters={"logits": ParameterSpec(support=(-math.inf, math.inf))},
+        constructor=_make_bernoulli,
     ),
     "poisson": DistributionSpec(
         name="poisson",
@@ -157,6 +257,14 @@ DISTRIBUTIONS: dict[str, DistributionSpec] = {
         },
         constructor=_make_constrained_poisson,
         uses_count_sum=True,
+    ),
+    "lomax": DistributionSpec(
+        name="lomax",
+        parameters={
+            "log_concentration": ParameterSpec(support=(-10.0, 10.0)),
+            "log_scale": ParameterSpec(support=(-10.0, 10.0)),
+        },
+        constructor=_make_lomax,
     ),
     "zero-inflated poisson": DistributionSpec(
         name="zero-inflated poisson",
@@ -207,43 +315,30 @@ GAUSSIAN_MIXTURE_DISTRIBUTIONS: dict[str, dict[str, str]] = {
         "z prior": "softplus gaussian",
         "z posterior": "softplus gaussian",
     },
+    "full-covariance gaussian mixture": {
+        "z prior": "multivariate gaussian",
+        "z posterior": "multivariate gaussian",
+    },
     "legacy gaussian mixture": {
         "z prior": "modified gaussian",
         "z posterior": "modified gaussian",
     },
 }
 
-# Names the reference registries define that this port does not have yet
-# (the full-covariance mixture needs ``MultivariateNormalTriL``).
-_NOT_PORTED = {
-    "reconstruction": (
-        "multivariate gaussian", "gaussian mixture", "log-normal",
-        "exponentially_modified_gaussian", "gamma", "bernoulli", "lomax",
-    ),
-    "GMVAE": ("full-covariance gaussian mixture",),
-}
-
-
 def parse_distribution(distribution: str, model_type: str | None = None) -> str:
     """Resolve a (possibly alias-formatted) name against the right registry."""
     distribution = normalise_string(distribution)
     if model_type is None:
-        kind, registry, missing = "reconstruction", DISTRIBUTIONS, _NOT_PORTED["reconstruction"]
+        kind, registry = "reconstruction", DISTRIBUTIONS
     elif model_type == "VAE":
-        kind, registry, missing = "latent", LATENT_DISTRIBUTIONS, ()
+        kind, registry = "latent", LATENT_DISTRIBUTIONS
     elif model_type == "GMVAE":
-        kind, registry, missing = (
-            "latent", GAUSSIAN_MIXTURE_DISTRIBUTIONS, _NOT_PORTED["GMVAE"])
+        kind, registry = "latent", GAUSSIAN_MIXTURE_DISTRIBUTIONS
     else:
         raise ValueError("Model type not found.")
     for name in registry:
         if normalise_string(name) == distribution:
             return name
-    for name in missing:
-        if normalise_string(name) == distribution:
-            raise NotImplementedError(
-                f"The {name} {kind} distribution is not ported yet."
-            )
     raise ValueError(
         "{} distribution `{}` not supported{}.".format(
             kind.capitalize(),

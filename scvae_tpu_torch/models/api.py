@@ -9,7 +9,9 @@ Training runs on the device-resident path: the count matrix (and a
 validation set) is staged on the device once as row-major int16 (a
 data set's preprocessed values as float32), each step
 gathers a shuffled minibatch with the row-gather kernel and trains through
-the fused likelihood kernels.  With a log directory a run keeps its
+the fused likelihood kernels where the likelihood has them (the unfused
+path elsewhere, or with ``fused_likelihood=False``).  With a log directory
+a run keeps its
 checkpoints (in the JAX package's format, with the ``best/`` and
 ``early_stopping/`` versions), learning curves and per-epoch vectors under
 ``<log_directory>/<name>[/run_<id>]``, resumes from them, and ``evaluate``
@@ -57,29 +59,25 @@ _CONFIG_KWARGS = (
     "parameterise_latent_posterior", "analytical_kl_term",
     "inference_architecture", "generative_architecture", "count_sum",
     "dropout_keep_probabilities", "kl_weight", "learning_rate",
-    "precision",
+    "fused_likelihood", "precision",
 )
 _SAMPLE_KWARGS = ("number_of_monte_carlo_samples", "number_of_importance_samples")
 # Arguments that the constructors check and keep out of the configuration.
-_CHECKED_KWARGS = ("fused_likelihood", "mesh")
+_CHECKED_KWARGS = ("mesh",)
 
 
 def check_constructor_kwargs(kwargs: dict, config_kwargs) -> None:
     """Raise ``TypeError`` for an argument neither model takes, and
-    ``NotImplementedError`` for what the port does not run yet: a device
-    mesh, and ``fused_likelihood=False`` (the unfused training path).
-    ``fused_likelihood`` None and True both train on the fused path, which
-    the port always takes (JAX's None picks it where a kernel exists)."""
+    ``NotImplementedError`` for a device mesh, which the port does not run
+    yet.  ``fused_likelihood`` goes to the configuration (True: the fused
+    kernels, False: the unfused path, None: the kernels where they
+    exist)."""
     unknown = (set(kwargs) - set(config_kwargs) - set(_SAMPLE_KWARGS)
                - set(_CHECKED_KWARGS))
     if unknown:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     if kwargs.get("mesh") is not None:
         raise NotImplementedError("device meshes are not ported yet")
-    if kwargs.get("fused_likelihood") is False:
-        raise NotImplementedError(
-            "fused_likelihood=False: the unfused training path is not "
-            "ported yet")
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -101,11 +99,11 @@ def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
     The −lgamma(1+t) term is constant in the parameters and additive per
     row, so it is computed here as an (N,) vector, gathered per batch and
     subtracted outside the forward kernel (``vae.fused_log_p_x``), which
-    then skips the lgamma chain.  Not for the
+    then skips the lgamma chain.  Only for the fused path, and not for the
     constrained Poisson, whose kernel keeps its own lgamma, nor for the
     categorised likelihoods (``k_max`` > 0), whose lgamma sits inside the
     shifted branch and is not row-separable (as in the JAX package)."""
-    if (config.k_max
+    if (not vae.fused_path_enabled(config) or config.k_max
             or config.reconstruction_distribution == "constrained poisson"):
         return data
     t = data["t"]
@@ -378,6 +376,20 @@ class VariationalAutoencoder:
         return device_resident_data(arrays, device=device,
                                     count_dtype=self.DEVICE_COUNT_DTYPES)
 
+    def _model_arrays(self, data_set: DataSet) -> dict[str, Any]:
+        """The fields the model's batches need (JAX ``_model_arrays``): the
+        binarised targets of a Bernoulli likelihood, the count sums it
+        takes as a parameter or a feature, the batch indices of batch
+        correction."""
+        config = self.config
+        return build_model_arrays(
+            data_set,
+            use_binarised=config.reconstruction_distribution == "bernoulli",
+            use_count_sum_as_parameter=config.use_count_sum_as_parameter,
+            use_count_sum_as_feature=config.use_count_sum_as_feature,
+            include_batch_indices=config.batch_correction,
+        )
+
     def _scaled_minibatch_size(self, minibatch_size: int, scenario: str) -> int:
         """Keep the flattened sample×batch constant (reference :807-811)."""
         scale = (
@@ -527,10 +539,7 @@ class VariationalAutoencoder:
             if verbose:
                 print(f"Resuming training from epoch {start_epoch}.")
 
-        arrays = build_model_arrays(
-            training_set,
-            use_count_sum_as_parameter=self.config.use_count_sum_as_parameter,
-        )
+        arrays = self._model_arrays(training_set)
         data = _append_lgamma_rowsum(self._stage(arrays, device), self.config)
         train_epoch = step.make_train_epoch(
             self._loss_fn(n_iw, n_mc), optimizer,
@@ -546,11 +555,8 @@ class VariationalAutoencoder:
         )
         evaluate_validation = None
         if validation_set is not None:
-            validation_data = self._stage(build_model_arrays(
-                validation_set,
-                use_count_sum_as_parameter=(
-                    self.config.use_count_sum_as_parameter),
-            ), device)
+            validation_data = self._stage(
+                self._model_arrays(validation_set), device)
             evaluate_validation = self._device_evaluator(
                 validation_data, validation_set.number_of_examples,
                 batch_size, n_iw, n_mc)
@@ -612,10 +618,7 @@ class VariationalAutoencoder:
         if evaluation_subset_indices is None:
             evaluation_subset_indices = indices_for_evaluation_subset(
                 evaluation_set)
-        data = self._stage(build_model_arrays(
-            evaluation_set,
-            use_count_sum_as_parameter=self.config.use_count_sum_as_parameter,
-        ), device)
+        data = self._stage(self._model_arrays(evaluation_set), device)
         n, f = evaluation_set.number_of_examples, self.config.feature_size
         rows: dict[str, np.ndarray | None] = dict.fromkeys(row_keys)
         p_x_stddev = scipy.sparse.lil_matrix((n, f), dtype=np.float32)
@@ -745,10 +748,12 @@ class VariationalAutoencoder:
     ) -> DataSet:
         """Ancestral sampling from a stored version of the model: z from
         the prior (a GMVAE's: y ~ p(y), then z ~ p(z|y)), then E[x|z]."""
-        if self.config.use_count_sum_as_parameter:
+        if (self.config.use_count_sum_as_parameter
+                or self.config.use_count_sum_as_feature
+                or self.config.batch_correction):
             raise NotImplementedError(
-                "Sampling is not implemented with count-sum models (the "
-                "reference's restriction)."
+                "Sampling is not implemented with batch correction or count-"
+                "sum models (the reference's restriction)."
             )
         if sample_size is None:
             sample_size = get_default("models", "sample_size") or 100

@@ -18,12 +18,15 @@ tensor axis:
   KL_z,k] − KL_y with a free-nats floor on KL_y (plain means over the
   sample axes, no importance-weighted bound, as the reference).
 
-Training takes the fused likelihood once per step over all clusters: the
-flat K2/K3 (or their categorised instances) on (K·S·B, H) decoder rows
-against the shared (B, F) targets, whose rows cycle.  Evaluation keeps the
-unfused distribution path.  Device meshes, batch correction, the count sum
-as a feature and the full-covariance mixture are not ported and raise
-``NotImplementedError``.
+The decoder's input is z with the one-hot batch indices (batch correction)
+and the normalised count sum when asked for.  With the "full-covariance
+gaussian mixture" latent, q(z|x,y_k) and p(z|y_k) are full-covariance
+Gaussians (``MultivariateNormalTriL``) and the z terms are per-event
+log-probabilities.  Training takes the fused likelihood once per step over
+all clusters where ``vae.fused_path_enabled``: the flat K2/K3 (or their
+categorised instances) on (K·S·B, H) decoder rows against the shared (B, F)
+targets, whose rows cycle; the unfused distribution path otherwise.
+Evaluation keeps the unfused path.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from scvae_tpu_torch import ops
 from scvae_tpu_torch.distributions import (
     DISTRIBUTIONS,
     GAUSSIAN_MIXTURE_DISTRIBUTIONS,
@@ -48,18 +50,21 @@ from scvae_tpu_torch.models.vae import (
     Batch,
     Params,
     State,
-    check_fused_likelihood,
+    check_config,
+    decoder_extras,
+    decoder_input_size,
     fused_log_p_x,
+    fused_path_enabled,
+    init_reconstruction,
+    reconstruction_log_prob,
     resolve_compute_dtype,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class GMVAEConfig:
-    """Hyperparameters (the JAX ``GMVAEConfig``).  As for the port's
-    ``VAEConfig``, training always takes the fused likelihood, so there is no
-    ``fused_likelihood`` switch, and likelihoods without a fused path raise
-    ``NotImplementedError``."""
+    """Hyperparameters (the JAX ``GMVAEConfig``); ``fused_likelihood`` as
+    the port's ``VAEConfig`` reads it."""
 
     feature_size: int
     latent_size: int = 2
@@ -79,22 +84,15 @@ class GMVAEConfig:
     number_of_warm_up_epochs: int = 0
     kl_weight: float = 1.0
     learning_rate: float = 1e-4
+    fused_likelihood: bool | None = None
     # Matmul input dtype for TRAINING (see ``VAEConfig.precision``).
     precision: str | None = None
 
     def __post_init__(self):
-        object.__setattr__(
-            self, "reconstruction_distribution",
-            parse_distribution(self.reconstruction_distribution),
-        )
+        check_config(self)
         object.__setattr__(
             self, "latent_distribution",
             parse_distribution(self.latent_distribution, model_type="GMVAE"),
-        )
-        object.__setattr__(self, "hidden_sizes", tuple(self.hidden_sizes))
-        object.__setattr__(
-            self, "dropout_keep_probabilities",
-            tuple(self.dropout_keep_probabilities),
         )
         if self.prior_probabilities_method == "custom":
             if self.prior_probabilities is None:
@@ -105,12 +103,6 @@ class GMVAEConfig:
                 self, "prior_probabilities",
                 tuple(float(p) for p in self.prior_probabilities),
             )
-        check_fused_likelihood(self.reconstruction_distribution, self.k_max)
-        for name, asked in (("batch_correction", self.batch_correction),
-                            ("count_sum", self.count_sum)):
-            if asked:
-                raise NotImplementedError(f"{name} is not ported yet")
-        resolve_compute_dtype(self.precision, True, "cpu")  # validates the name
 
     # -- derived -----------------------------------------------------------
 
@@ -128,6 +120,13 @@ class GMVAEConfig:
             "constrained" in self.reconstruction_distribution
             or "multinomial" in self.reconstruction_distribution
         )
+
+    @property
+    def use_count_sum_as_feature(self) -> bool:
+        return self.count_sum
+
+    def decoder_input_size(self) -> int:
+        return decoder_input_size(self)
 
     @property
     def z_posterior_name(self) -> str:
@@ -213,14 +212,12 @@ def init(config: GMVAEConfig, generator: torch.Generator) -> tuple[Params, State
     if config.prior_probabilities_method == "learn":
         params["p_y_logits"] = torch.zeros((k,), dtype=torch.float32)
     params["decoder"], state["decoder"] = networks.init_mlp(
-        generator, config.latent_size, tuple(reversed(config.hidden_sizes)),
+        generator, config.decoder_input_size(),
+        tuple(reversed(config.hidden_sizes)),
         batch_norm=config.minibatch_normalisation,
     )
     dec_out = config.hidden_sizes[0]
-    params["reconstruction"] = {
-        name: networks.init_dense(generator, dec_out, config.feature_size)
-        for name in config.reconstruction_spec.parameters
-    }
+    params["reconstruction"] = init_reconstruction(config, generator, dec_out)
     if config.k_max:
         params["categorised_logits"] = networks.init_categorised_head(
             generator, dec_out, config.feature_size, config.k_max
@@ -355,9 +352,14 @@ def forward(
 
     z = q_z.sample(generator, (s,), noise=noise)  # (S, K, B, D)
 
-    # the decoder per cluster: (K, S, B, D) → (K, S, B, H)
+    # the decoder per cluster: (K, S, B, D [+ extras]) → (K, S, B, H)
+    dec_in = z.transpose(0, 1)
+    extras = decoder_extras(config, batch, s, z.dtype)
+    if extras:
+        dec_in = torch.cat(
+            [dec_in] + [e.expand((k,) + e.shape) for e in extras], dim=-1)
     dec_h, new_state["decoder"] = networks.apply_mlp(
-        params["decoder"], state.get("decoder", {}), z.transpose(0, 1),
+        params["decoder"], state.get("decoder", {}), dec_in,
         training=training, generator=generator,
         input_dropout_keep_prob=config.dropout_keep_probability_z,
         hidden_dropout_keep_prob=config.dropout_keep_probability_h,
@@ -408,10 +410,13 @@ def elbo_terms(
     (the training objective: warm-up·kl_weight on the KL terms and the
     free-nats floor on KL_y), ``reconstruction_error``, ``kl_divergence``,
     ``kl_divergence_z``, ``kl_divergence_y`` and ``kl_divergence_neurons``
-    (D,).  The fused likelihood is training-only."""
+    (D,; (1,) for the full-covariance latent, whose z terms are
+    per-event).  The fused likelihood is training-only."""
+    use_fused = training and fused_path_enabled(config)
     outputs = forward(
         config, params, state, batch, generator, training=training,
-        n_iw=n_iw, n_mc=n_mc, build_reconstruction=not training, noise=noise,
+        n_iw=n_iw, n_mc=n_mc, build_reconstruction=not use_fused,
+        noise=noise,
     )
     t = batch["t"]
     k = config.n_clusters
@@ -437,21 +442,26 @@ def elbo_terms(
         if free_nats else kl_divergence_y
     )
 
-    # z terms on samples (S, K, B, D): posterior (K, B, D), prior (K, 1, D)
+    # z terms on samples (S, K, B, D): posterior (K, B, D), prior (K, 1, D);
+    # the Gaussians give per-dimension log-probabilities, (S, K, B, D), and
+    # the full-covariance ones per-event values, (S, K, B): a sampled KL
     log_q_z_raw = outputs.q_z.log_prob(outputs.z)
     log_p_z_raw = outputs.p_z.log_prob(outputs.z)
-    kl_z_raw = log_q_z_raw - log_p_z_raw  # (S, K, B, D)
-    kl_z_pointwise = torch.sum(log_q_z_raw, dim=-1) - torch.sum(
-        log_p_z_raw, dim=-1)  # (S, K, B)
+    per_dimension = log_q_z_raw.dim() == 4
+    if per_dimension:
+        kl_z_pointwise = torch.sum(log_q_z_raw, dim=-1) - torch.sum(
+            log_p_z_raw, dim=-1)  # (S, K, B)
+    else:
+        kl_z_pointwise = log_q_z_raw - log_p_z_raw
     kl_divergence_z = torch.mean(torch.sum(
         torch.mean(kl_z_pointwise, dim=0) * y_probs_k, dim=0))
 
-    if training:
+    if use_fused:
         # (K, S, B): one launch over the K·S·B decoder rows
         log_p_x = fused_log_p_x(config, params, batch, outputs.decoder_hidden,
                                 t, config.compute_dtype(training, t.device))
     else:
-        log_p_x = torch.sum(outputs.p_x.log_prob(t.float()), dim=-1)
+        log_p_x = reconstruction_log_prob(config, outputs.p_x, t)
     # (K, S, B) → per-cluster sample means weighted by q(y|x)
     reconstruction_error = torch.mean(torch.sum(
         torch.mean(log_p_x, dim=1) * y_probs_k, dim=0))
@@ -462,8 +472,12 @@ def elbo_terms(
         warm_up_weight * config.kl_weight
         * (kl_divergence_z + kl_divergence_y_modified)
     )
-    kl_divergence_neurons = torch.mean(torch.sum(
-        torch.mean(kl_z_raw, dim=0) * y_probs_k[..., None], dim=0), dim=0)
+    if per_dimension:
+        kl_divergence_neurons = torch.mean(torch.sum(
+            torch.mean(log_q_z_raw - log_p_z_raw, dim=0)
+            * y_probs_k[..., None], dim=0), dim=0)
+    else:
+        kl_divergence_neurons = kl_divergence_z[None]
     metrics = {
         "lower_bound": lower_bound,
         "lower_bound_weighted": lower_bound_weighted,
@@ -573,18 +587,23 @@ def sample_prior(config: GMVAEConfig, params: Params, sample_size: int,
 
 def prior_centroids(config: GMVAEConfig,
                     params: Params) -> dict[str, np.ndarray]:
-    """Mixture probabilities and each cluster's prior z mean and (diagonal)
-    covariance from the current parameters — the centroid summaries the
+    """Mixture probabilities and each cluster's prior z mean and
+    covariance matrix (the full one of a full-covariance latent, else the
+    diagonal) from the current parameters — the centroid summaries the
     reference logs per epoch."""
     with torch.no_grad():
         p_z = z_prior(config, params)
         probabilities = torch.softmax(
             _p_y_logits(config, params, p_z.mean().device), dim=-1)
-        var = p_z.variance().cpu().numpy()
+        if hasattr(p_z, "covariance"):
+            covariances = p_z.covariance().cpu().numpy()
+        else:
+            var = p_z.variance().cpu().numpy()
+            covariances = var[..., :, None] * np.eye(var.shape[-1])
         return {
             "probabilities": probabilities.cpu().numpy(),
             "means": p_z.mean().cpu().numpy(),  # (K, D)
-            "covariance_matrices": var[..., :, None] * np.eye(var.shape[-1]),
+            "covariance_matrices": covariances,
         }
 
 

@@ -40,7 +40,8 @@ from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
 # The VAE's configuration arguments that the GMVAE takes too; it ignores the
 # others, as the JAX package does.
 _GMVAE_CONFIG_KWARGS = ("count_sum", "dropout_keep_probabilities",
-                        "kl_weight", "learning_rate", "precision")
+                        "kl_weight", "learning_rate", "fused_likelihood",
+                        "precision")
 
 
 class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):

@@ -21,6 +21,7 @@ the graph itself advances, and writes each step's metrics at that index.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable
 
 import numpy as np
@@ -242,8 +243,19 @@ class _GraphedBody:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
         before = ops.launch_counts()
-        with torch.cuda.graph(graph):
-            self._body()
+        # A graph destroyed during a capture invalidates the capture (CUDA
+        # refuses cudaGraphDestroy then), and the graphs of earlier epochs
+        # and ``train`` calls die with the reference cycles around them:
+        # collect those first, and keep the collector off while capturing.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._body()
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         self._launches = {name: count - before.get(name, 0)
                           for name, count in after.items()

@@ -2,17 +2,20 @@
 ELBO objective as functions on parameter dicts.
 
 Counterpart of ``scvae_tpu/models/vae.py``.  Latent samples keep an explicit
-leading sample axis (S = R·L, B, ·).  Training with every ported
-reconstruction likelihood (Poisson, NB, ZIP, ZINB, constrained Poisson, and
-the categorised forms of the first four with up to 32 heads) takes the fused
-path (:func:`scvae_tpu_torch.ops.fused_log_likelihood` and
+leading sample axis (S = R·L, B, ·).  The encoder and the decoder are MLPs or
+linear factor models ("LFM": the encoder's output is x itself, the decoder's
+its input); the decoder's input is z, with the one-hot batch indices (batch
+correction) and the normalised count sum when asked for.  Training takes the
+fused likelihood where a kernel exists and ``fused_likelihood`` does not say
+False (:func:`scvae_tpu_torch.ops.fused_log_likelihood` and
 :func:`~scvae_tpu_torch.ops.fused_categorised_log_likelihood`: kernels K2/K3,
 their categorised instances or K6/K7 on CUDA, their plain versions on the
-CPU); evaluation keeps the unfused distribution path, as the JAX package
-does: ``evaluation_outputs`` gives a batch's metrics, the posterior-
-predictive reconstruction with its standard deviations and the latent
-means, and ``decode_means`` the reconstruction means of given z (ancestral
-sampling).
+CPU), and the unfused distribution path otherwise: every other likelihood of
+the registry, and categorised ones over 32 heads.  Evaluation keeps the
+unfused path, as the JAX package does: ``evaluation_outputs`` gives a
+batch's metrics, the posterior-predictive reconstruction with its standard
+deviations and the latent means, and ``decode_means`` the reconstruction
+means of given z (ancestral sampling).
 """
 
 from __future__ import annotations
@@ -42,17 +45,11 @@ Batch = dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """Hyperparameters.  Ported: the MLP architectures, the Gaussian and
-    unit-variance Gaussian latents, dropout, warm-up, batch norm, and the
-    reconstruction likelihoods with a fused path — Poisson, NB, ZIP, ZINB,
-    the constrained Poisson, and ``number_of_reconstruction_classes`` = K > 0
-    over the first four up to 32 heads in all (base heads + K + 1).  Options
-    of the JAX ``VAEConfig`` that are not ported raise
-    ``NotImplementedError``: batch correction, the count sum as a feature,
-    the LFM architectures, and every likelihood without a fused path (the
-    JAX package trains those unfused, which is not ported).  Training always
-    takes the fused path, so the JAX switch ``fused_likelihood`` has no
-    counterpart."""
+    """Hyperparameters (the JAX ``VAEConfig``).  ``fused_likelihood``:
+    True trains on the fused kernels and raises ``ValueError`` where the
+    likelihood has none, False trains unfused, None takes the kernels where
+    they exist and the unfused path elsewhere (JAX's None also turns the
+    kernels off off the TPU; the port has them on every device)."""
 
     feature_size: int
     latent_size: int = 2
@@ -72,34 +69,22 @@ class VAEConfig:
     number_of_warm_up_epochs: int = 0
     kl_weight: float = 1.0
     learning_rate: float = 1e-4
+    fused_likelihood: bool | None = None
     # Matmul input dtype for TRAINING: None → "bfloat16" on CUDA and
     # "float32" on the CPU; evaluation always runs float32.
     precision: str | None = None
 
     def __post_init__(self):
-        object.__setattr__(
-            self, "reconstruction_distribution",
-            parse_distribution(self.reconstruction_distribution),
-        )
+        check_config(self)
         object.__setattr__(
             self, "latent_distribution",
             parse_distribution(self.latent_distribution, model_type="VAE"),
         )
-        object.__setattr__(self, "hidden_sizes", tuple(self.hidden_sizes))
-        object.__setattr__(
-            self, "dropout_keep_probabilities",
-            tuple(self.dropout_keep_probabilities),
-        )
-        check_fused_likelihood(self.reconstruction_distribution, self.k_max)
-        unported = {
-            "batch_correction": self.batch_correction,
-            "count_sum": self.count_sum,
-            "inference_architecture": self.inference_architecture != "MLP",
-            "generative_architecture": self.generative_architecture != "MLP",
-        }
-        for name, value in unported.items():
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet")
+        for name in ("inference_architecture", "generative_architecture"):
+            if getattr(self, name) not in ("MLP", "LFM"):
+                raise ValueError(
+                    f"The {name.split('_')[0]} architecture can only be MLP "
+                    "or LFM.")
         if self.parameterise_latent_posterior:
             # the reference's cross-parameter validation: only a GMVAE's
             # mixture posterior may be parameterised by its prior
@@ -107,7 +92,6 @@ class VAEConfig:
                 "Cannot parameterise latent posterior parameters for VAE or "
                 f"{self.latent_distribution} distribution."
             )
-        resolve_compute_dtype(self.precision, True, "cpu")  # validates the name
 
     @property
     def k_max(self) -> int:
@@ -119,6 +103,14 @@ class VAEConfig:
             "constrained" in self.reconstruction_distribution
             or "multinomial" in self.reconstruction_distribution
         )
+
+    @property
+    def use_count_sum_as_feature(self) -> bool:
+        return self.count_sum
+
+    def decoder_input_size(self) -> int:
+        """z, plus the batch one-hots and the count sum when asked for."""
+        return decoder_input_size(self)
 
     @property
     def analytical_kl(self) -> bool:
@@ -155,16 +147,54 @@ class VAEConfig:
         return resolve_compute_dtype(self.precision, training, device)
 
 
-def check_fused_likelihood(name: str, k_max: int) -> None:
-    """Raise ``NotImplementedError`` unless ``name`` with ``k_max`` classes
-    trains on a fused path (the unfused training path is not ported)."""
-    if not ops.supports_fused_likelihood(name, k_max):
-        raise NotImplementedError(
-            f"{name!r} with {k_max} reconstruction classes has no fused "
-            f"likelihood (at most {ops.MAX_FUSED_HEADS} heads over a "
-            "Poisson, NB, ZIP or ZINB base), and unfused training is not "
-            "ported yet"
-        )
+def check_config(config) -> None:
+    """What a VAE's and a GMVAE's configurations check alike: the names,
+    the tuples, the precision and the ``fused_likelihood`` switch."""
+    object.__setattr__(
+        config, "reconstruction_distribution",
+        parse_distribution(config.reconstruction_distribution),
+    )
+    object.__setattr__(config, "hidden_sizes", tuple(config.hidden_sizes))
+    object.__setattr__(
+        config, "dropout_keep_probabilities",
+        tuple(config.dropout_keep_probabilities),
+    )
+    if config.reconstruction_distribution == "categorical":
+        # its logits span the features, which the targets' per-feature
+        # values do not index (the JAX package's VAE fails on the shapes)
+        raise ValueError("The categorical distribution is not a "
+                         "reconstruction distribution.")
+    fused_path_enabled(config)  # validates the switch
+    resolve_compute_dtype(config.precision, True, "cpu")  # validates the name
+
+
+def decoder_input_size(config) -> int:
+    size = config.latent_size
+    if config.batch_correction:
+        size += config.number_of_batches
+    if config.count_sum:
+        size += 1
+    return size
+
+
+def fused_path_enabled(config) -> bool:
+    """Whether training takes the fused likelihood (JAX
+    ``_fused_path_enabled``): never with ``fused_likelihood=False``; where
+    the likelihood has no kernel (neither a base family nor the constrained
+    Poisson, or categorised over :data:`~scvae_tpu_torch.ops.MAX_FUSED_HEADS`
+    heads), True raises ``ValueError`` and None trains unfused; otherwise
+    True and None both take the kernels."""
+    if config.fused_likelihood is False:
+        return False
+    if not ops.supports_fused_likelihood(config.reconstruction_distribution,
+                                         config.k_max):
+        if config.fused_likelihood:
+            raise ValueError(
+                "fused_likelihood=True but "
+                f"{config.reconstruction_distribution!r} (k_max="
+                f"{config.k_max}) has no fused kernel")
+        return False
+    return True
 
 
 def resolve_compute_dtype(precision: str | None, training: bool,
@@ -185,46 +215,60 @@ def resolve_compute_dtype(precision: str | None, training: bool,
 # --------------------------------------------------------------------------
 
 
+def init_reconstruction(config, generator: torch.Generator,
+                        dec_out: int) -> Params:
+    """The reconstruction heads on a decoder output of width ``dec_out``,
+    each ``size_fn(F)`` wide: F, and F(F+1)/2 for the multivariate
+    Gaussian's triangular scales (the JAX package's init makes every head F
+    wide, which that likelihood's ``fill_triangular`` refuses)."""
+    return {
+        name: networks.init_dense(generator, dec_out,
+                                  spec.size_fn(config.feature_size))
+        for name, spec in config.reconstruction_spec.parameters.items()
+    }
+
+
 def init(config: VAEConfig, generator: torch.Generator) -> tuple[Params, State]:
     """Parameter and batch-norm-state dicts on the CPU, drawn from the CPU
-    ``generator`` (the same seed gives the same weights on every device)."""
+    ``generator`` (the same seed gives the same weights on every device).
+    An LFM encoder or decoder has no parameters and no ``encoder`` or
+    ``decoder`` subtree."""
     params: Params = {}
     state: State = {}
-    enc_params, enc_state = networks.init_mlp(
-        generator, config.feature_size, config.hidden_sizes,
-        batch_norm=config.minibatch_normalisation,
-    )
-    params["encoder"] = enc_params
-    state["encoder"] = enc_state
+    if config.inference_architecture == "MLP":
+        params["encoder"], state["encoder"] = networks.init_mlp(
+            generator, config.feature_size, config.hidden_sizes,
+            batch_norm=config.minibatch_normalisation,
+        )
+        enc_out = config.hidden_sizes[-1]
+    else:
+        enc_out = config.feature_size
 
     posterior_spec = config.latent_spec["posterior"]
     post_dist = DISTRIBUTIONS[posterior_spec["name"]]
     params["posterior"] = {
         name: networks.init_dense(
-            generator, config.hidden_sizes[-1], spec.size_fn(config.latent_size)
+            generator, enc_out, spec.size_fn(config.latent_size)
         )
         for name, spec in post_dist.parameters.items()
         if name not in posterior_spec["parameters"]
     }
     params["prior"] = {}
 
-    dec_params, dec_state = networks.init_mlp(
-        generator, config.latent_size, tuple(reversed(config.hidden_sizes)),
-        batch_norm=config.minibatch_normalisation,
-    )
-    params["decoder"] = dec_params
-    state["decoder"] = dec_state
-
-    params["reconstruction"] = {
-        name: networks.init_dense(
-            generator, config.hidden_sizes[0], config.feature_size
+    if config.generative_architecture == "MLP":
+        params["decoder"], state["decoder"] = networks.init_mlp(
+            generator, config.decoder_input_size(),
+            tuple(reversed(config.hidden_sizes)),
+            batch_norm=config.minibatch_normalisation,
         )
-        for name in config.reconstruction_spec.parameters
-    }
+        dec_out = config.hidden_sizes[0]
+    else:
+        dec_out = config.decoder_input_size()
+
+    params["reconstruction"] = init_reconstruction(config, generator, dec_out)
     if config.k_max:
         params["categorised_logits"] = networks.init_categorised_head(
-            generator, config.hidden_sizes[0], config.feature_size,
-            config.k_max,
+            generator, dec_out, config.feature_size, config.k_max,
         )
     return params, state
 
@@ -274,6 +318,44 @@ def _build_prior(config: VAEConfig, like: torch.Tensor):
     })
 
 
+def one_hot(indices: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot`` of integer-valued ``indices`` of any dtype (the
+    staged batch indices come out of the row gather as float32, which
+    ``F.one_hot`` does not take): a row of zeros where an index is outside
+    [0, n)."""
+    classes = torch.arange(n, device=indices.device, dtype=indices.dtype)
+    return (indices[..., None] == classes).to(dtype)
+
+
+def decoder_extras(config, batch: Batch, s: int,
+                   dtype) -> list[torch.Tensor]:
+    """The decoder's inputs beside z, broadcast over ``s`` samples (JAX
+    ``_decoder_inputs``): the one-hot batch indices (S, B, n_batches) with
+    batch correction, the normalised count sum (S, B, 1) with the count
+    sum feature."""
+    extras = []
+    if config.batch_correction:
+        onehot = one_hot(batch["batch_indices"][..., 0],
+                         config.number_of_batches, dtype)
+        extras.append(onehot.expand((s,) + onehot.shape))
+    if config.count_sum:
+        feature = batch["count_sum_feature"].to(dtype)  # (B, 1), normalised
+        extras.append(feature.expand((s,) + feature.shape))
+    return extras
+
+
+def reconstruction_log_prob(config, p_x, t: torch.Tensor) -> torch.Tensor:
+    """log p(x|z) per example: the log-probabilities of the targets summed
+    over the features, or, for a distribution whose event is the feature
+    axis (the multivariate Gaussian, the Gaussian mixture), its
+    log-probability as it is (the JAX package sums those over the batch
+    axis as well, which its reshape then refuses)."""
+    log_prob = p_x.log_prob(t.float())
+    if config.reconstruction_spec.event:
+        return log_prob
+    return torch.sum(log_prob, dim=-1)
+
+
 def _build_reconstruction(config: VAEConfig, params: Params,
                           decoder_h: torch.Tensor, batch: Batch,
                           compute_dtype=None):
@@ -319,13 +401,16 @@ def forward(
     compute_dtype = config.compute_dtype(training, x.device)
     new_state: State = {}
 
-    h, new_state["encoder"] = networks.apply_mlp(
-        params["encoder"], state.get("encoder", {}), x,
-        training=training, generator=generator,
-        input_dropout_keep_prob=config.dropout_keep_probability_x,
-        hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-        compute_dtype=compute_dtype,
-    )
+    if config.inference_architecture == "MLP":
+        h, new_state["encoder"] = networks.apply_mlp(
+            params["encoder"], state.get("encoder", {}), x,
+            training=training, generator=generator,
+            input_dropout_keep_prob=config.dropout_keep_probability_x,
+            hidden_dropout_keep_prob=config.dropout_keep_probability_h,
+            compute_dtype=compute_dtype,
+        )
+    else:  # LFM: the linear factor model reads x itself
+        h = x
     q_z = _build_posterior(config, params, h, compute_dtype)
     p_z = _build_prior(config, h)
 
@@ -334,13 +419,18 @@ def forward(
     else:
         z = q_z.sample(generator, (n_iw * n_mc,), noise=noise)
 
-    dec_h, new_state["decoder"] = networks.apply_mlp(
-        params["decoder"], state.get("decoder", {}), z,
-        training=training, generator=generator,
-        input_dropout_keep_prob=config.dropout_keep_probability_z,
-        hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-        compute_dtype=compute_dtype,
-    )
+    extras = decoder_extras(config, batch, z.shape[0], z.dtype)
+    dec_in = torch.cat([z] + extras, dim=-1) if extras else z
+    if config.generative_architecture == "MLP":
+        dec_h, new_state["decoder"] = networks.apply_mlp(
+            params["decoder"], state.get("decoder", {}), dec_in,
+            training=training, generator=generator,
+            input_dropout_keep_prob=config.dropout_keep_probability_z,
+            hidden_dropout_keep_prob=config.dropout_keep_probability_h,
+            compute_dtype=compute_dtype,
+        )
+    else:
+        dec_h = dec_in
     p_x = (
         _build_reconstruction(config, params, dec_h, batch, compute_dtype)
         if build_reconstruction else None
@@ -403,13 +493,15 @@ def elbo_terms(
     noise: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
     """The ELBO decomposition (reference ``variational_autoencoder.py:
-    2560-2734``).  The fused path is training-only; evaluation keeps the
-    unfused distribution path and the full ``p_x`` outputs.
+    2560-2734``).  The fused path is training-only (and taken only where
+    :func:`fused_path_enabled`); evaluation keeps the unfused distribution
+    path and the full ``p_x`` outputs.
 
     Returns ``lower_bound`` (IW bound), ``lower_bound_weighted`` (training
     objective with warm-up·kl_weight), ``reconstruction_error``,
     ``kl_divergence`` and ``kl_divergence_neurons`` (D,)."""
-    use_fused = training and not deterministic_z
+    use_fused = (training and not deterministic_z
+                 and fused_path_enabled(config))
     outputs = forward(
         config, params, state, batch, generator,
         training=training, n_iw=n_iw, n_mc=n_mc,
@@ -426,9 +518,8 @@ def elbo_terms(
                              config.compute_dtype(training, t.device))
         log_p_x_given_z = rows.reshape(n_iw, n_mc, b)
     else:
-        log_p_x_given_z = torch.sum(
-            outputs.p_x.log_prob(t.float()), dim=-1
-        ).reshape(n_iw, n_mc, b)
+        log_p_x_given_z = reconstruction_log_prob(
+            config, outputs.p_x, t).reshape(n_iw, n_mc, b)
     reconstruction_error = torch.mean(log_p_x_given_z)
 
     if config.analytical_kl and not deterministic_z:
@@ -505,10 +596,14 @@ def evaluation_outputs(
 def decode_means(config, params: Params, state: State,
                  z: torch.Tensor) -> torch.Tensor:
     """E[x|z] (N, F) of latent values ``z`` (N, D) through the decoder in
-    evaluation mode (a VAE's or a GMVAE's; not for likelihoods that take
-    the count sum, which sampling has no value of)."""
-    dec_h, _ = networks.apply_mlp(params["decoder"], state.get("decoder", {}),
-                                  z[None], training=False)
+    evaluation mode (a VAE's or a GMVAE's; not for models that take the
+    count sum or the batch indices, which sampling has no value of)."""
+    if getattr(config, "generative_architecture", "MLP") == "LFM":
+        dec_h = z[None]
+    else:
+        dec_h, _ = networks.apply_mlp(params["decoder"],
+                                      state.get("decoder", {}), z[None],
+                                      training=False)
     return _build_reconstruction(config, params, dec_h, {}).mean()[0]
 
 

@@ -56,3 +56,8 @@ def logaddexp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         torch.isnan(delta), x + y,
         torch.maximum(x, y) + torch.log1p(torch.exp(-delta.abs())),
     )
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + eˣ) as logaddexp(x, 0)."""
+    return logaddexp(x, torch.zeros_like(x))

@@ -432,14 +432,25 @@ def test_staged_row_constant_is_off_for_categorised():
 
 
 def test_vae_over_the_head_cap_raises():
-    """Past 32 heads the JAX package trains unfused, which is not ported."""
-    tvae.VAEConfig(feature_size=10, reconstruction_distribution="poisson",
-                   number_of_reconstruction_classes=30)
+    """Past 32 heads, or over the constrained Poisson, the categorised
+    likelihood has no fused kernel: it trains unfused, as in the JAX
+    package, and ``fused_likelihood=True`` raises ``ValueError`` in both."""
+    assert tvae.fused_path_enabled(tvae.VAEConfig(
+        feature_size=10, reconstruction_distribution="poisson",
+        number_of_reconstruction_classes=30))
     for name, k_max in (("poisson", 31), ("zero-inflated negative binomial",
                                           29), ("constrained poisson", 2)):
-        with pytest.raises(NotImplementedError):
-            tvae.VAEConfig(feature_size=10, reconstruction_distribution=name,
-                           number_of_reconstruction_classes=k_max)
+        config = tvae.VAEConfig(feature_size=10,
+                                reconstruction_distribution=name,
+                                number_of_reconstruction_classes=k_max)
+        assert not tvae.fused_path_enabled(config)
+        kwargs = dict(feature_size=10, reconstruction_distribution=name,
+                      number_of_reconstruction_classes=k_max,
+                      fused_likelihood=True)
+        with pytest.raises(ValueError, match="no fused kernel"):
+            tvae.VAEConfig(**kwargs)
+        with pytest.raises(ValueError, match="no fused kernel"):
+            jvae._fused_path_enabled(jvae.VAEConfig(**kwargs))
 
 
 def test_vae_categorised_trains_on_cpu():

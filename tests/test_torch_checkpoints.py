@@ -3,9 +3,11 @@ JAX package.
 
 * model names and log directories are the JAX package's strings;
 * a checkpoint that the JAX package writes (a small VAE and GMVAE after two
-  clip + Adam steps) restores in the port leaf for leaf, optimiser moments
-  and step included, and gives JAX's evaluation outputs; a checkpoint that
-  the port writes after two CPU training epochs restores in JAX likewise;
+  clip + Adam steps; an LFM VAE, a VAE with batch correction and the count
+  sum feature, a batch-corrected GMVAE with the full-covariance latent)
+  restores in the port leaf for leaf, optimiser moments and step included,
+  and gives JAX's evaluation outputs; a checkpoint that the port writes
+  after two CPU training epochs restores in JAX likewise;
 * on a fixed validation curve the port's loop makes JAX's early-stopping
   decisions and leaves the same ``best/`` and ``early_stopping/`` files, and
   its learning curves load with JAX's ``load_learning_curves``;
@@ -41,6 +43,7 @@ from scvae_tpu.models.gmvae_api import (
     GaussianMixtureVariationalAutoencoder as JaxGMVAE,
 )
 from scvae_tpu_torch import (
+    DataSet,
     GaussianMixtureVariationalAutoencoder,
     VariationalAutoencoder,
 )
@@ -57,6 +60,24 @@ MODELS = {
               dict(reconstruction_distribution="zero-inflated negative "
                    "binomial", number_of_latent_clusters=K,
                    prior_probabilities_method="learn")),
+    # no encoder or decoder subtree
+    "vae-lfm": (VariationalAutoencoder, JaxVAE, tvae, jvae,
+                dict(reconstruction_distribution="negative binomial",
+                     inference_architecture="LFM",
+                     generative_architecture="LFM")),
+    # a wider first decoder layer
+    "vae-batch": (VariationalAutoencoder, JaxVAE, tvae, jvae,
+                  dict(reconstruction_distribution="negative binomial",
+                       batch_correction=True, number_of_batches=3,
+                       count_sum=True)),
+    # the full-covariance heads: locations and triangular scales
+    "gmvae-full": (GaussianMixtureVariationalAutoencoder, JaxGMVAE, tgmvae,
+                   jgmvae,
+                   dict(reconstruction_distribution="negative binomial",
+                        number_of_latent_clusters=K, batch_correction=True,
+                        number_of_batches=3,
+                        latent_distribution="full-covariance gaussian "
+                        "mixture")),
 }
 
 
@@ -71,10 +92,37 @@ def _counts(n, seed=0):
     return np.random.RandomState(seed).poisson(2.0, (n, F)).astype(np.float32)
 
 
+def _batch_indices(n, seed=0):
+    return np.random.RandomState(seed + 1).randint(0, 3, (n, 1)).astype(
+        np.int32)
+
+
+def _batch(kind, x, seed, to):
+    """x, t and, where the model takes them, the batch indices and the
+    normalised count sum, as ``to`` makes arrays."""
+    kwargs = MODELS[kind][4]
+    batch = {"x": to(x), "t": to(x)}
+    if kwargs.get("batch_correction"):
+        batch["batch_indices"] = to(_batch_indices(len(x), seed))
+    if kwargs.get("count_sum"):
+        count_sum = x.sum(-1, keepdims=True)
+        batch["count_sum_feature"] = to(count_sum / count_sum.max())
+    return batch
+
+
+def _training_set(kind, n):
+    """``n`` counts, as a data set with batch indices where the model
+    corrects for them."""
+    x = _counts(n)
+    if not MODELS[kind][4].get("batch_correction"):
+        return x
+    return DataSet("in-memory", values=x, batch_indices=_batch_indices(n))
+
+
 def _jax_noise(kind, rng):
     """The z draws of JAX's forward in evaluation mode: the VAE splits its
     key in three, the GMVAE in four, and samples with the third."""
-    if kind == "vae":
+    if MODELS[kind][2] is tvae:
         return np.array(jax.random.normal(jax.random.split(rng, 3)[2],
                                           (1, B, LATENT)))
     return np.array(jax.random.normal(jax.random.split(rng, 4)[2],
@@ -87,11 +135,10 @@ def _assert_same_evaluation(kind, port_model, jax_model, tstate, jstate):
     rng = jax.random.PRNGKey(11)
     want = jmodule.evaluation_outputs(
         jax_model.config, jstate.params, jstate.model_state,
-        {"x": jnp.asarray(x), "t": jnp.asarray(x)}, rng)
-    xt = torch.from_numpy(x)
+        _batch(kind, x, 3, jnp.asarray), rng)
     got = tmodule.evaluation_outputs(
         port_model.config, tstate.params, tstate.model_state,
-        {"x": xt, "t": xt}, None,
+        _batch(kind, x, 3, torch.from_numpy), None,
         noise=torch.from_numpy(_jax_noise(kind, rng)))
     for key, rtol in (("p_x_mean", 1e-4), ("p_x_stddev", 1e-4),
                       ("stddev_of_p_x_given_z_mean", 1e-4), ("q_z_mean", 1e-5),
@@ -162,10 +209,9 @@ def _jax_trained_state(kind, jax_model):
                                warm_up_weight=wuw)
 
     train_step = jstep.make_train_step(loss, optimizer, donate=False)
-    x = jnp.asarray(_counts(B))
+    batch = _batch(kind, _counts(B), 0, jnp.asarray)
     for i in range(2):
-        ts, _ = train_step(ts, {"x": x, "t": x}, jax.random.PRNGKey(20 + i),
-                           1.0)
+        ts, _ = train_step(ts, batch, jax.random.PRNGKey(20 + i), 1.0)
     return ts
 
 
@@ -191,7 +237,7 @@ def test_jax_checkpoint_restores_in_port(kind, tmp_path):
 @pytest.mark.parametrize("kind", list(MODELS))
 def test_port_checkpoint_restores_in_jax(kind, tmp_path):
     port_model, jax_model = _models(kind, tmp_path)
-    result = port_model.train(_counts(64), number_of_epochs=2,
+    result = port_model.train(_training_set(kind, 64), number_of_epochs=2,
                               minibatch_size=B, device="cpu", verbose=False)
     directory = port_model.log_directory()
     assert directory == jax_model.log_directory()

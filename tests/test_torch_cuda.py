@@ -1312,6 +1312,42 @@ def test_failed_capture_raises(device):
     assert len(calls) == 1 and ts.step == 1
 
 
+def test_capture_survives_garbage_graphs(device):
+    """A graph that only a reference cycle keeps (an earlier ``train``
+    call's) is not destroyed while another is captured, which would
+    invalidate the capture: the capture collects such garbage first and
+    keeps the collector off meanwhile.  Here the cycle becomes garbage
+    inside the captured body, which then collects as the interpreter does
+    on its own whenever collection is on."""
+    import gc
+
+    from scvae_tpu_torch.models import step
+
+    x = torch.zeros(8, device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    old = step._GraphedBody(lambda: x.add_(1.0), generator)
+    for _ in range(3):  # eager, captured, replayed
+        old()
+    keep = []
+
+    def body():
+        keep.clear()  # the old graph's cycle is garbage from here on
+        if gc.isenabled():
+            gc.collect()
+        x.mul_(2.0)
+
+    new = step._GraphedBody(body, generator)
+    new()  # eager
+    cycle = [old]
+    cycle.append(cycle)
+    keep.append(cycle)
+    del old, cycle
+    new()  # captured, replayed
+    new()
+    torch.cuda.synchronize()
+    assert torch.all(x == 24.0)  # (3 + 0) · 2 · 2 · 2
+
+
 def _labelled_case():
     """A small labelled set (4 classes, one excluded) and a GMVAE whose
     batch-norm statistics are not the initial ones."""
@@ -1408,3 +1444,99 @@ def test_training_on_float32_values(device, tmp_path, monkeypatch):
     assert steps == 10 and launches["nb_forward"] == steps
     assert launches["gather_rows"] >= steps
     assert np.all(np.isfinite(result.history["training"]["lower_bound"]))
+
+
+@pytest.mark.parametrize("hidden", [100, 101, 105])
+@pytest.mark.parametrize("float32", [False, True])
+def test_tensor_core_kernels_at_lfm_widths(device, hidden, float32):
+    """NB's K2/K3 at the LFM decoder's widths (latent 100, with the count
+    sum and with 4 batch one-hots as well), which the kernels pad to a
+    multiple of 8; h is not a ReLU's output there."""
+    name = "negative binomial"
+    h, weights, biases, t, g = _family_case(device, name, 160, 160, hidden,
+                                            300, torch.bfloat16, seed=7)
+    h = h - h.mean()
+    _check_tensor_core_kernels(name, h, weights, biases, t, g,
+                               float32=float32)
+
+
+def _options_step(name, model, options, device, precision):
+    """One training loss and its gradients of a small configuration with
+    ``options`` on ``device``: the same parameters, batch and z noise on
+    every device."""
+    import numpy as np
+
+    from scvae_tpu_torch.models import gmvae, step, vae
+
+    kwargs = dict(feature_size=24, latent_size=5, hidden_sizes=(16, 12),
+                  reconstruction_distribution=name, precision=precision,
+                  **options)
+    rng = np.random.RandomState(0)
+    x = rng.poisson(2.0, (40, 24)).astype(np.float32)
+    if model == "gmvae":
+        module = gmvae
+        config = gmvae.GMVAEConfig(number_of_latent_clusters=3, **kwargs)
+        noise = rng.standard_normal((1, 3, 40, 5)).astype(np.float32)
+    else:
+        module, config = vae, vae.VAEConfig(**kwargs)
+        noise = rng.standard_normal((1, 40, 5)).astype(np.float32)
+    indices = rng.randint(0, 3, (40, 1)).astype(np.float32)
+    params, state = module.init(config, torch.Generator().manual_seed(0))
+    p = step.tree_map(lambda a: a.to(device).requires_grad_(True), params)
+    s = step.tree_map(lambda a: a.to(device), state)
+    xt = torch.from_numpy(x).to(device)
+    count_sum = xt.sum(-1, keepdim=True)
+    batch = {"x": xt, "t": xt, "count_sum_feature": count_sum / count_sum.max(),
+             "batch_indices": torch.from_numpy(indices).to(device)}
+    loss, _ = module.loss_fn(config, p, s, batch, None,
+                             noise=torch.from_numpy(noise).to(device))
+    grads = torch.autograd.grad(loss, step.tree_leaves(p))
+    return [loss.detach().cpu()] + [gr.cpu() for gr in grads]
+
+
+def test_fused_step_matches_unfused(device):
+    """VAE-NB's training loss and gradients on the fused kernels against the
+    unfused path on the card: float32, the loss and every gradient within
+    2e-5 of the largest; bf16 matmul inputs, the loss within 4e-4 and the
+    gradient in norm within 5e-3 (a dense kernel's gradient is a bf16
+    number there, as in JAX, so a float32 sum taken in another order moves
+    a value by a whole bf16 step: the bound of the CPU bf16 tests against
+    JAX)."""
+    for precision in ("float32", "bfloat16"):
+        fused = _options_step("negative binomial", "vae", {}, device,
+                              precision)
+        unfused = _options_step("negative binomial", "vae",
+                                {"fused_likelihood": False}, device, precision)
+        got, want = torch.cat([g.ravel() for g in fused[1:]]), torch.cat(
+            [g.ravel() for g in unfused[1:]])
+        if precision == "float32":
+            _close(fused[0], unfused[0], 2e-5)
+            _close(got, want, 2e-5)
+        else:
+            _close(fused[0], unfused[0], 4e-4)
+            assert float(torch.linalg.vector_norm(got - want)
+                         / torch.linalg.vector_norm(want)) <= 5e-3
+
+
+@pytest.mark.parametrize("name,model,options", [
+    ("negative binomial", "vae", {"inference_architecture": "LFM",
+                                  "generative_architecture": "LFM",
+                                  "batch_correction": True,
+                                  "number_of_batches": 3, "count_sum": True}),
+    ("negative binomial", "gmvae", {
+        "latent_distribution": "full-covariance gaussian mixture"}),
+    ("multivariate gaussian", "vae", {}),
+    ("gaussian mixture", "vae", {}),
+    ("exponentially_modified_gaussian", "vae", {}),
+])
+def test_options_step_matches_cpu(device, name, model, options):
+    """A configuration of the options on the card (the fused kernels or the
+    unfused path, the triangular solves of the full-covariance Gaussians)
+    against the same step on the CPU, float32: 2e-5 of the largest
+    gradient."""
+    got = _options_step(name, model, options, device, "float32")
+    want = _options_step(name, model, options, "cpu", "float32")
+    _close(got[0], want[0], 2e-5)
+    largest = max(float(gr.abs().max()) for gr in want[1:])
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 2e-5 * largest

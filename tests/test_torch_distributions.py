@@ -177,12 +177,16 @@ def test_parse_distribution():
     for alias in ("poisson", "Zero-Inflated Poisson", "constrained_poisson",
                   "zero-inflated negative binomial"):
         assert td.parse_distribution(alias) == jd.parse_distribution(alias)
-    with pytest.raises(NotImplementedError):
-        td.parse_distribution("bernoulli")
-    for alias in ("gaussian mixture", "legacy gaussian mixture"):
+    for alias in ("bernoulli", "Multivariate Gaussian", "gaussian_mixture",
+                  "log-normal", "exponentially modified gaussian", "gamma",
+                  "lomax"):
+        assert td.parse_distribution(alias) == jd.parse_distribution(alias)
+    assert list(td.DISTRIBUTIONS) == list(jd.DISTRIBUTIONS)
+    for alias in ("gaussian mixture", "legacy gaussian mixture",
+                  "full-covariance gaussian mixture"):
         assert td.parse_distribution(alias, "GMVAE") == jd.parse_distribution(
             alias, "GMVAE")
-    with pytest.raises(NotImplementedError):
-        td.parse_distribution("full-covariance gaussian mixture", "GMVAE")
+    assert list(td.GAUSSIAN_MIXTURE_DISTRIBUTIONS) == list(
+        jd.GAUSSIAN_MIXTURE_DISTRIBUTIONS)
     with pytest.raises(ValueError):
         td.parse_distribution("no such distribution")

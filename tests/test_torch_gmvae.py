@@ -251,8 +251,11 @@ def test_softplus_gaussian_and_gmvae_names_match_jax():
         assert (td.GAUSSIAN_MIXTURE_DISTRIBUTIONS[name]
                 == jd.GAUSSIAN_MIXTURE_DISTRIBUTIONS[name])
     assert td.parse_distribution("categorical") == "categorical"
-    with pytest.raises(NotImplementedError):
-        td.parse_distribution("full-covariance gaussian mixture", "GMVAE")
+    name = td.parse_distribution("Full-Covariance Gaussian Mixture", "GMVAE")
+    assert name == jd.parse_distribution("Full-Covariance Gaussian Mixture",
+                                         "GMVAE")
+    assert (td.GAUSSIAN_MIXTURE_DISTRIBUTIONS[name]
+            == jd.GAUSSIAN_MIXTURE_DISTRIBUTIONS[name])
 
 
 def test_prior_centroids_and_latent_means_match_jax():
@@ -343,14 +346,15 @@ def test_unported_options_raise(monkeypatch, in_tmp_path):
 
     assert model().number_of_latent_clusters == 1  # the reference default
     assert model().config.latent_distribution == "gaussian mixture"
-    for kwargs in ({"latent_distribution": "full-covariance gaussian mixture"},
-                   {"number_of_reconstruction_classes": 30},  # 33 heads
-                   {"batch_correction": True}, {"count_sum": True}):
-        with pytest.raises(NotImplementedError):
-            model(**kwargs)
-    with pytest.raises(NotImplementedError):
-        GaussianMixtureVariationalAutoencoder(
-            feature_size=10, reconstruction_distribution="bernoulli")
+    # ported in this slice: each constructs; the last two train unfused
+    for kwargs, fused in (
+            ({"latent_distribution": "full-covariance gaussian mixture"}, True),
+            ({"batch_correction": True}, True), ({"count_sum": True}, True),
+            ({"number_of_reconstruction_classes": 30}, False),  # 33 heads
+            ({"fused_likelihood": False}, False)):
+        assert tgmvae.fused_path_enabled(model(**kwargs).config) is fused
+    assert not tgmvae.fused_path_enabled(GaussianMixtureVariationalAutoencoder(
+        feature_size=10, reconstruction_distribution="bernoulli").config)
     gmvae = model(number_of_latent_clusters=2)
     x = np.ones((32, 10), np.float32)
     with pytest.raises(NotImplementedError):

@@ -170,11 +170,12 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, in_tmp_path):
             model.train(x, number_of_epochs=1, device="cpu", **unported)
     with pytest.raises(NotImplementedError):
         model.evaluate(x, device="cpu", number_of_devices=2)
-    # the reference default, Poisson, is ported
+    # the reference default, Poisson, is ported, and so is every other
+    # reconstruction distribution (Bernoulli trains unfused)
     assert VariationalAutoencoder(feature_size=10).config.reconstruction_distribution == "poisson"
-    with pytest.raises(NotImplementedError):
-        VariationalAutoencoder(feature_size=10,
-                               reconstruction_distribution="bernoulli")
+    bernoulli = VariationalAutoencoder(feature_size=10,
+                                       reconstruction_distribution="bernoulli")
+    assert not tvae.fused_path_enabled(bernoulli.config)
 
 
 @pytest.mark.parametrize("name", ["zero-inflated poisson",
@@ -206,10 +207,11 @@ def test_api_refuses_what_jax_refuses(name):
 
 @pytest.mark.parametrize("fused", [None, True, False])
 def test_fused_likelihood_switch(fused):
-    """Both packages' VAE and GMVAE constructors take ``fused_likelihood``.
-    JAX keeps every value; the port, which always trains on the fused path,
-    takes None and True and refuses False until the unfused path is
-    ported."""
+    """Both packages' VAE and GMVAE constructors take ``fused_likelihood``
+    and keep it in the configuration; False trains the unfused path, None
+    and True the fused kernels where the likelihood has them (JAX's None
+    also turns its kernels off off the TPU).  True with a likelihood that
+    has no kernel raises ``ValueError`` in both packages."""
     from scvae_tpu.models.api import VariationalAutoencoder as JaxVAE
     from scvae_tpu.models.gmvae_api import (
         GaussianMixtureVariationalAutoencoder as JaxGMVAE,
@@ -221,12 +223,20 @@ def test_fused_likelihood_switch(fused):
     for jax_cls, port_cls in ((JaxVAE, VariationalAutoencoder),
                               (JaxGMVAE, GaussianMixtureVariationalAutoencoder)):
         assert jax_cls(**kwargs).config.fused_likelihood is fused
-        if fused is False:
-            with pytest.raises(NotImplementedError, match="unfused"):
-                port_cls(**kwargs)
-        else:
-            model = port_cls(**kwargs)
-            assert model.config.reconstruction_distribution == "negative binomial"
+        model = port_cls(**kwargs)
+        assert model.config.fused_likelihood is fused
+        assert model.config.reconstruction_distribution == "negative binomial"
+        assert tvae.fused_path_enabled(model.config) is (fused is not False)
+    lomax = dict(feature_size=10, reconstruction_distribution="lomax",
+                 fused_likelihood=fused)
+    if fused:
+        with pytest.raises(ValueError, match="no fused kernel"):
+            jvae._fused_path_enabled(JaxVAE(**lomax).config)
+        with pytest.raises(ValueError, match="no fused kernel"):
+            VariationalAutoencoder(**lomax)
+    else:
+        assert not tvae.fused_path_enabled(
+            VariationalAutoencoder(**lomax).config)
     with pytest.raises(TypeError, match="unexpected arguments"):
         VariationalAutoencoder(feature_size=10, fused_likelihoods=True)
 

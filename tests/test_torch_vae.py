@@ -241,24 +241,43 @@ def test_params_round_trip_and_keystr_names(name):
 
 
 def test_unported_options_raise():
+    """What earlier slices refused now constructs: batch correction, the
+    count sum feature, the LFM architectures, categorised heads over the
+    32-head cap or a base without a kernel, and every reconstruction
+    distribution (all of them train unfused).  What stays refused, as in
+    the JAX package: ``fused_likelihood=True`` without a kernel, an unknown
+    architecture, a parameterised VAE posterior; and the categorical as a
+    reconstruction, on whose shapes the JAX VAE fails."""
     for kwargs in ({"number_of_reconstruction_classes": 30},  # 33 heads
-                   {"batch_correction": True}, {"count_sum": True},
-                   {"inference_architecture": "LFM"}):
-        with pytest.raises(NotImplementedError):
-            tvae.VAEConfig(feature_size=F,
-                           reconstruction_distribution="negative binomial",
-                           **kwargs)
-    # categorised heads past the 32-head cap, or over a base without a
-    # fused kernel, would train unfused, which is not ported
+                   {"batch_correction": True, "number_of_batches": 3},
+                   {"count_sum": True}, {"inference_architecture": "LFM"},
+                   {"generative_architecture": "LFM"}):
+        config = tvae.VAEConfig(feature_size=F,
+                                reconstruction_distribution="negative binomial",
+                                **kwargs)
+        jconfig = jvae.VAEConfig(feature_size=F,
+                                 reconstruction_distribution="negative binomial",
+                                 **kwargs)
+        assert config.decoder_input_size() == jconfig.decoder_input_size()
+        assert tvae.fused_path_enabled(config) == (
+            "number_of_reconstruction_classes" not in kwargs)
     for name, k_max in (("poisson", 31), ("zero-inflated poisson", 30),
                         ("zero-inflated negative binomial", 29),
                         ("constrained poisson", 3)):
-        with pytest.raises(NotImplementedError):
+        config = tvae.VAEConfig(feature_size=F, reconstruction_distribution=name,
+                                number_of_reconstruction_classes=k_max)
+        assert not tvae.fused_path_enabled(config)
+        with pytest.raises(ValueError, match="no fused kernel"):
             tvae.VAEConfig(feature_size=F, reconstruction_distribution=name,
-                           number_of_reconstruction_classes=k_max)
-    for name in ("bernoulli", "lomax", "categorical", "softplus gaussian"):
-        with pytest.raises(NotImplementedError):
-            tvae.VAEConfig(feature_size=F, reconstruction_distribution=name)
+                           number_of_reconstruction_classes=k_max,
+                           fused_likelihood=True)
+    for name in ("bernoulli", "lomax", "softplus gaussian"):
+        assert not tvae.fused_path_enabled(
+            tvae.VAEConfig(feature_size=F, reconstruction_distribution=name))
+    with pytest.raises(ValueError, match="not a reconstruction"):
+        tvae.VAEConfig(feature_size=F, reconstruction_distribution="categorical")
+    with pytest.raises(ValueError, match="can only be MLP or LFM"):
+        tvae.VAEConfig(feature_size=F, inference_architecture="CNN")
     with pytest.raises(ValueError):  # as the JAX package's validation
         tvae.VAEConfig(feature_size=F, parameterise_latent_posterior=True)
 
