@@ -15,9 +15,10 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              K = 10) and with the cap of 32 (Poisson, K = 30) on targets of
              which every other row is drawn as Poisson(K), NB's K2/K3 over
              the GMVAE's 20,480 decoder rows (K = 10 clusters) against 2,048
-             cycled target rows, at decoder width 1,024, and NB's K2 and
+             cycled target rows, at decoder width 1,024, NB's K2 and
              K3's three kernels at the LFM decoder's widths 100, 101 and
-             105 (padded to 104, 104 and 112); with its time,
+             105 (padded to 104, 104 and 112), and at the over-budget set's
+             4,096 genes (entries "nb_4096_…"); with its time,
              the plain version's time, the least time the card could take
              and, for the products, one ``torch.mm`` of the same product
              (dW: the product alone, db not included);
@@ -67,8 +68,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              covariance matrices in ``centroids.json`` symmetric positive
              definite, and each configuration's steps/s;
 4b. graph  — VAE-NB, VAE-CP-f32, VAE-Poisson-cat and GMVAE-NB (one
-             configuration per kernel family on a training path), and
-             VAE-NB-unfused and GMVAE-NB-full, trained
+             configuration per kernel family on a training path),
+             VAE-NB-unfused, GMVAE-NB-full and VAE-NB-stream (streamed
+             from the host, one graph per batch signature), trained
              for two epochs through ``train_config_level`` from the same
              seed, eagerly and through the graphs: the same launches, the
              parameters within 2e-5 of the largest |parameter|, the curves
@@ -77,13 +79,38 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              with ``metrics_fetch="sync"`` and "deferred": the same curves
              (1e-6 relative), epochs trained, best epoch and epochs in the
              files of the run, ``best/`` and ``early_stopping/``;
+4e. stream — the streaming path, each run into an emptied directory
+             under ``build/``: (1) the headline counts through
+             ``BatchPipeline`` (which must pick the CSR wire): the first
+             three batches of epoch 0 materialized on the card equal, bit
+             for bit, to K1's gather of the same rows from the staged
+             int16 counts, and one training loss and its gradients on each
+             within 1e-6 on both routes; the wire's capacity and bytes
+             against dense int16, a copy of each from pinned memory, the
+             overflow batches of an epoch; (2) VAE-NB-stream, the headline
+             VAE-NB with ``data_placement="streaming"`` on phase 5's split
+             for two epochs, ``metrics_fetch="deferred"`` run as sync;
+             (3) GMVAE-NB-stream (10 clusters) likewise; both with a
+             finite, rising ELBO, NB's K2 and K3's three kernels once a
+             step and no K1; (4) VAE-Bernoulli-noisy,
+             ``noisy_preprocessing_methods=["normalise", "binarise"]``
+             under ``data_placement="auto"`` (which streams), two epochs:
+             a finite ELBO, the epochs' values drawn anew, no likelihood
+             kernel; (5) VAE-NB-over-budget: 1,306,127 cells × 4,096 genes
+             (10.70 GB as int16) for one epoch under "auto", which must
+             stream, with peak device memory under the 8 GiB budget, then
+             ``evaluate`` of its first 20,480 rows; for each run the
+             steps/s and cells/s, the host's ms a batch to build and to
+             place it, a replay's device ms and the device's busy share of
+             the last epoch;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
              for three epochs with the validation set and a log directory
              under ``build/``; the run's files, ``best/`` restored equal to
              the parameters of the best epoch bit for bit, ``evaluate`` on
-             the validation set and ``sample`` of 2,048 cells; and on each
+             the validation set (through the pipeline: no K1) and
+             ``sample`` of 2,048 cells; and on each
              restored GMVAE, for each validation minibatch, log p(x|z,y) over
              the K·S = 10 decoder groups and its gradients for h and the
              heads, weighted by q(y|x), through the grouped kernels with
@@ -194,6 +221,9 @@ GRAPHED = (
      {"fused_likelihood": False}),
     ("GMVAE-NB-full", "gmvae", "negative binomial", 0, 3.0, None,
      {"latent_distribution": "full-covariance gaussian mixture"}),
+    # phase 4e's path: streamed from the host, one graph per batch
+    # signature (the "-stream" label selects it)
+    ("VAE-NB-stream", "vae", "negative binomial", 0, 3.0, None, {}),
 )
 GRAPH_PARAM_RTOL = 2e-5
 GRAPH_CURVE_RTOL = 1e-6
@@ -258,6 +288,19 @@ SLICE_DIRECTORY = os.path.join(BUILD, "slice_training")
 AFTER_DIRECTORY = os.path.join(BUILD, "after_training")
 DEFERRED_DIRECTORY = os.path.join(BUILD, "deferred_training")
 OPTIONS_DIRECTORY = os.path.join(BUILD, "options_training")
+# Phase 4e: streaming.  The over-budget set: the cell count of the 10x
+# Genomics 1.3M-cell mouse-brain set at twice the headline's genes, counts
+# Poisson(3) + 1 at density 0.07 (286 stored entries a row); its dense int16
+# form, 10.70 GB, is over the port's 8 GiB device budget.
+STREAM_DIRECTORY = os.path.join(BUILD, "stream_training")
+OVER_CELLS, OVER_GENES = 1_306_127, 4_096
+STREAM_CHECKED_BATCHES = 3
+OVER_EVALUATED = 20_480
+# One streamed loss against the device route's on the same batch: the
+# device route's NB row constants are staged once, the streamed route's
+# summed in the step (the same float32 sums, maybe in another order).
+STREAM_LOSS_RTOL = 1e-6
+STREAM_GRADIENT_RTOL = 1e-6
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores.
@@ -1334,6 +1377,36 @@ def check_cycled_rows(x, gen, flush):
     return {f"{kernel}_cycled": values for kernel, values in results.items()}
 
 
+def check_over_budget_genes(g, gen, flush):
+    """NB's K2 and K3's three kernels as the over-budget run (phase 4e)
+    calls them: a 2,048-row minibatch of 4,096 genes, Poisson(3) + 1 at
+    density 0.07, bf16 inputs, decoder width 256; against their plain
+    versions, then kernel by kernel and timed (entries "nb_4096_…")."""
+    from scvae_tpu_torch import ops
+
+    bf16 = torch.bfloat16
+    name = "negative binomial"
+    m, dev = g.shape[0], g.device
+    counts = torch.poisson(torch.full((m, OVER_GENES), 3.0, device=dev),
+                           generator=gen) + 1.0
+    kept = torch.rand(m, OVER_GENES, generator=gen, device=dev) < 0.07
+    x = torch.where(kept, counts, 0.0).to(bf16)
+    h = torch.relu(torch.randn(m, HIDDEN, generator=gen, device=dev))
+    ws, bs = head_weights(gen, 2, HIDDEN, OVER_GENES, dev)
+    kw = dict(compute_dtype=bf16)
+    fwd_err = check_close(
+        f"nb_forward F={OVER_GENES}",
+        ops.fused_forward(name, h, ws, bs, x, include_lgamma_const=False, **kw),
+        ops.reference_forward(name, h, ws, bs, x, include_lgamma_const=False,
+                              **kw), FORWARD_RTOL)
+    got = ops.fused_backward(name, g, h, ws, bs, x, **kw)
+    want = ops.reference_backward(name, g, h, ws, bs, x, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        check_close(f"nb_backward [{i}] F={OVER_GENES}", a, b, BACKWARD_RTOL)
+    return count_kernel_times(name, h, g, ws, bs, x, flush, fwd_err,
+                              tag="nb_4096", reps=10)
+
+
 @contextlib.contextmanager
 def replaced(module, name, value):
     """``module.name`` set to ``value`` for the block (a measurement's
@@ -1645,6 +1718,7 @@ def phase_kernels(counts_dev):
     for name in BASE_FAMILIES:
         results.update(check_grouped(name, x, gen, flush, CLUSTERS))
         check_grouped(name, x, gen, flush, GROUP_CAP)
+    results.update(check_over_budget_genes(g, gen, flush))
     check_wide(x, g, gen)
     check_lfm_widths(x, flush)
     torch.cuda.synchronize()
@@ -1702,15 +1776,19 @@ def phase_small_step(label, model, name, k_max, options=None):
 
 
 def train_config_level(config, counts, epoch_callback=None, device="cuda",
-                       capture=True, epochs=EPOCHS):
+                       capture=True, epochs=EPOCHS, streamed=False):
     """Train a VAE or GMVAE ``config`` on ``device`` through the config-level
     functions (``models/step.py`` and the training loop on the API's staged
     data, writing no files), as the JAX package's ``bench.py`` config 3
     trains VAE-ZINB-cat, which both packages' VAE API refuses; the epoch's
     ELBO is the mean of its training minibatches'.  ``capture=False`` runs
-    the steps eagerly on CUDA too (phase 4b's comparison)."""
+    the steps eagerly on CUDA too (phase 4b's comparison).  ``streamed``
+    feeds the steps from the host through the API's streaming pieces
+    (``BatchPipeline`` with the narrow count dtypes and the CSR wire, the
+    per-batch ``make_train_step``, ``streaming_epoch_runner``) instead."""
     from scvae_tpu_torch.data.dataset import DataSet
     from scvae_tpu_torch.data.pipeline import (
+        BatchPipeline,
         build_model_arrays,
         device_resident_data,
     )
@@ -1722,8 +1800,6 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda",
     arrays = build_model_arrays(
         DataSet("in-memory", values=counts),
         use_count_sum_as_parameter=config.use_count_sum_as_parameter)
-    data = api._append_lgamma_rowsum(device_resident_data(arrays, device=dev),
-                                     config)
     optimizer = step.make_optimizer(config.learning_rate)
     params, state = (step.tree_map(lambda a: a.to(dev), tree) for tree in
                      module.init(config, torch.Generator().manual_seed(0)))
@@ -1732,17 +1808,31 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda",
         return module.loss_fn(config, params, model_state, batch, generator,
                               warm_up_weight=warm_up_weight)
 
-    train_epoch = step.make_train_epoch(
-        loss, optimizer,
-        batch_dtypes=api._bf16_batch_dtypes(arrays, config, dev),
-        capture=capture)
+    if streamed:
+        def pipeline(epoch):
+            return BatchPipeline(arrays, BATCH, seed=epoch,
+                                 count_dtype=api.VariationalAutoencoder
+                                 .DEVICE_COUNT_DTYPES, device=dev)
+
+        run_epoch = training.streaming_epoch_runner(
+            step.make_train_step(loss, optimizer, capture=capture), pipeline)
+        steps = -(-n_cells // BATCH)
+    else:
+        data = api._append_lgamma_rowsum(
+            device_resident_data(arrays, device=dev), config)
+        train_epoch = step.make_train_epoch(
+            loss, optimizer,
+            batch_dtypes=api._bf16_batch_dtypes(arrays, config, dev),
+            capture=capture)
+        run_epoch = training.device_epoch_runner(train_epoch, data, n_cells,
+                                                 BATCH, seed=0)
+        steps = n_cells // BATCH
     return training.run_training_loop(
         train_state=step.create_train_state(params, state, optimizer),
-        run_epoch=training.device_epoch_runner(train_epoch, data, n_cells,
-                                               BATCH, seed=0),
+        run_epoch=run_epoch,
         evaluate_training=None, number_of_epochs=epochs,
         generator=torch.Generator(device=dev).manual_seed(0),
-        steps_per_epoch=n_cells // BATCH,
+        steps_per_epoch=steps,
         number_of_warm_up_epochs=config.number_of_warm_up_epochs,
         verbose=False, epoch_callback=epoch_callback)
 
@@ -1845,7 +1935,8 @@ def phase_graph_vs_eager(data, card):
         runs = {}
         for capture in (False, True):
             ops.reset_launch_counts()
-            result = train_config_level(config, data[mean], capture=capture)
+            result = train_config_level(config, data[mean], capture=capture,
+                                        streamed=label.endswith("-stream"))
             torch.cuda.synchronize()
             runs[capture] = (result, ops.launch_counts())
         (eager, eager_launches), (graphed, graphed_launches) = (
@@ -2195,6 +2286,430 @@ def phase_deferred(counts, card):
             f"{sync_epochs}")
 
 
+def host_free_bytes() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as meminfo:
+        for line in meminfo:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def over_budget_counts():
+    """The over-budget set, built in O(nnz) without a sort: each row's 286
+    columns are the start column plus multiples of 17 (coprime with 4,096,
+    so unique), unsorted; values Poisson(3) + 1, float32 (a float32 /
+    int32 CSR matrix, which the native densify reads without copies)."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(0)
+    nnz = int(OVER_GENES * 0.07)
+    offsets = (np.arange(nnz, dtype=np.int32) * 17) % OVER_GENES
+    cols = rng.integers(0, OVER_GENES, size=(OVER_CELLS, 1), dtype=np.int32)
+    cols = (cols + offsets[None, :]) % OVER_GENES
+    values = rng.poisson(3.0, size=cols.size).astype(np.float32)
+    values += 1.0
+    indptr = np.arange(OVER_CELLS + 1, dtype=np.int64) * nnz
+    return scipy.sparse.csr_matrix((values, cols.reshape(-1), indptr),
+                                   shape=(OVER_CELLS, OVER_GENES))
+
+
+class StreamProbe:
+    """Timings of the streaming path while it runs, by wrapping its
+    pieces: the host's seconds per batch building it (the native densify,
+    or the CSR wire's COO block) and placing it (the pinned buffers and the
+    copies' launch); for each training step, the host's seconds in the
+    step's call, whether it was a replay or a capture, and a replay's
+    device milliseconds (events around the graph's replay); the placement
+    each ``train`` chose and the fetch mode each training loop ran."""
+
+    def __init__(self):
+        self.host, self.place, self.steps, self.setup = [], [], [], []
+        self.placements, self.fetch_modes = [], []
+        self._step = None
+
+    @contextlib.contextmanager
+    def watching(self):
+        from scvae_tpu_torch.data import pipeline
+        from scvae_tpu_torch.models import api, step, training
+
+        probe = self
+        setup = pipeline.BatchPipeline.__init__
+        host_batch = pipeline.BatchPipeline._host_batch
+        to_device = pipeline.BatchPipeline._to_device
+        train_step = step.TrainStep.__call__
+        graphed = step._GraphedBody.__call__
+        choose = api.VariationalAutoencoder._choose_device_placement
+        loop = training.run_training_loop
+
+        def timed_setup(self, *args, **kwargs):
+            start = time.perf_counter()
+            setup(self, *args, **kwargs)
+            probe.setup.append(time.perf_counter() - start)
+
+        def timed_host_batch(self, idx):
+            start = time.perf_counter()
+            out = host_batch(self, idx)
+            probe.host.append(time.perf_counter() - start)
+            return out
+
+        def timed_to_device(self, host, number):
+            start = time.perf_counter()
+            out = to_device(self, host, number)
+            probe.place.append(time.perf_counter() - start)
+            return out
+
+        def timed_step(self, *args, **kwargs):
+            probe._step = {"events": None, "captured": 0.0}
+            start = time.perf_counter()
+            out = train_step(self, *args, **kwargs)
+            probe._step["host_s"] = time.perf_counter() - start
+            probe.steps.append(probe._step)
+            probe._step = None
+            return out
+
+        def timed_graphed(self):
+            if probe._step is None or not self._warm:
+                return graphed(self)
+            if self._graph is None:
+                start = time.perf_counter()
+                graphed(self)
+                probe._step["captured"] = time.perf_counter() - start
+                return
+            before = torch.cuda.Event(enable_timing=True)
+            after = torch.cuda.Event(enable_timing=True)
+            before.record()
+            graphed(self)
+            after.record()
+            probe._step["events"] = (before, after)
+
+        def chosen(self, *args):
+            placed = choose(self, *args)
+            probe.placements.append(placed)
+            return placed
+
+        def fetching(**kwargs):
+            probe.fetch_modes.append(kwargs["fetch_mode"])
+            return loop(**kwargs)
+
+        patches = ((pipeline.BatchPipeline, "__init__", timed_setup),
+                   (pipeline.BatchPipeline, "_host_batch", timed_host_batch),
+                   (pipeline.BatchPipeline, "_to_device", timed_to_device),
+                   (step.TrainStep, "__call__", timed_step),
+                   (step._GraphedBody, "__call__", timed_graphed),
+                   (api.VariationalAutoencoder, "_choose_device_placement",
+                    chosen),
+                   (training, "run_training_loop", fetching))
+        originals = [(owner, name, getattr(owner, name))
+                     for owner, name, _ in patches]
+        for owner, name, value in patches:
+            setattr(owner, name, value)
+        try:
+            yield self
+        finally:
+            for owner, name, value in originals:
+                setattr(owner, name, value)
+
+    def report(self, result) -> dict:
+        """Over all batches of the run: the host's ms per batch to build
+        and to place it, and the seconds to set up a pipeline (its checks
+        of the arrays: the count dtype, the wire's statistics).  Over the
+        last epoch's steps: the replays' median device ms and host ms in
+        the step's call, the captures and their seconds, and the device's
+        busy share (the replays' device time over the epoch's wall time; a
+        capture's step and the copies into the graphs' inputs are left
+        out)."""
+        torch.cuda.synchronize()
+        last = self.steps[-result.steps_per_epoch:]
+        replays = [s for s in last if s["events"] is not None]
+        device_ms = [a.elapsed_time(b) for a, b in
+                     (s["events"] for s in replays)]
+        return {
+            "host_ms": 1e3 * float(np.mean(self.host)),
+            "place_ms": 1e3 * float(np.mean(self.place)),
+            "replay_ms": float(np.median(device_ms)),
+            "dispatch_ms": 1e3 * float(np.median([s["host_s"]
+                                                  for s in replays])),
+            "replays": len(replays),
+            "captures": sum(bool(s["captured"]) for s in last),
+            "capture_s": sum(s["captured"] for s in last),
+            "setup_s": float(np.mean(self.setup)),
+            "busy": sum(device_ms) / (1e3 * result.epoch_seconds[-1]),
+        }
+
+
+def stream_launch_check(label, launches, steps, fused=True):
+    """NB's K2 and K3's three kernels once per training step on a fused
+    configuration and no likelihood kernel otherwise; K1 never."""
+    nb = {f"nb_{kernel}" for kernel in ("forward", "backward_gradient",
+                                        "backward_dh", "backward_dw")}
+    for kernel, count in launches.items():
+        want = steps if fused and kernel in nb else 0
+        if count != want:
+            raise AssertionError(f"{label}: {kernel} launched {count} times "
+                                 f"in {steps} streamed steps (want {want})")
+
+
+def check_streamed_batches(counts, card):
+    """Phase 4e (1): the headline counts through ``BatchPipeline`` with
+    ``wire_format="auto"`` (which must pick the CSR wire), epoch 0 of seed
+    0: each of the first three batches materialized on the card equal, bit
+    for bit, to K1's gather of the same rows from the device-staged int16
+    counts as float32; one training loss of the headline VAE-NB and its
+    gradients on that batch from the same generator state on both routes
+    (the device route as the epoch gathers it: bf16 fields and the staged
+    row constants) within STREAM_LOSS_RTOL and STREAM_GRADIENT_RTOL of the
+    largest |gradient|.  Prints the wire's capacity and bytes per batch
+    against dense int16, and the overflow batches of an epoch."""
+    from scvae_tpu_torch import DataSet, ops
+    from scvae_tpu_torch.data.pipeline import (
+        BatchPipeline,
+        CSRWire,
+        build_model_arrays,
+        device_resident_data,
+    )
+    from scvae_tpu_torch.models import api, step, vae
+
+    dev = torch.device("cuda")
+    arrays = build_model_arrays(DataSet("in-memory", values=counts))
+    stream = BatchPipeline(arrays, BATCH, seed=0,
+                           count_dtype=api.VariationalAutoencoder
+                           .DEVICE_COUNT_DTYPES, device=dev)
+    if "x" not in stream._csr_wire:
+        raise AssertionError("the headline counts did not take the CSR wire")
+    spec = stream._csr_wire["x"]
+    capacity = spec["capacity"]
+    order = np.random.RandomState(0).permutation(N_CELLS)
+    stored = np.diff(counts.indptr)
+    overflows = sum(int(stored[order[i:i + BATCH]].sum()) > capacity
+                    for i in range(0, N_CELLS, BATCH))
+    wire_bytes = capacity * sum(np.dtype(d).itemsize for d in (
+        np.int16, spec["col_dtype"], spec["row_dtype"]))
+    config = vae.VAEConfig(feature_size=N_GENES, latent_size=LATENT,
+                           hidden_sizes=(HIDDEN, HIDDEN),
+                           reconstruction_distribution="negative binomial")
+    data = api._append_lgamma_rowsum(device_resident_data(arrays, device=dev),
+                                     config)
+    dtypes = api._bf16_batch_dtypes(arrays, config, dev)
+    params, state = vae.init(config, torch.Generator().manual_seed(0))
+    exact = True
+    for i, batch in zip(range(STREAM_CHECKED_BATCHES), stream.epoch()):
+        if not isinstance(batch["x"], CSRWire) or batch["x"] is not (
+                batch["t"]):
+            raise AssertionError(f"streamed batch {i} is not one CSR wire")
+        idx = torch.from_numpy(order[i * BATCH:(i + 1) * BATCH].astype(
+            np.int32)).to(dev)
+        streamed = step.cast_batch_to_f32(step.materialize_batch(batch))
+        gathered = ops.gather_rows(data["x"], idx, torch.float32)
+        if not torch.equal(streamed["x"], gathered):
+            raise AssertionError(f"streamed batch {i} differs from K1's")
+        device_batch = step.gather_batch(data, idx, dtype_overrides=dtypes)
+        results = []
+        for route in (device_batch, streamed):
+            p = step.tree_map(lambda a: a.to(dev).requires_grad_(True),
+                              params)
+            s = step.tree_map(lambda a: a.to(dev), state)
+            generator = torch.Generator(device=dev).manual_seed(i)
+            loss, _ = vae.loss_fn(config, p, s, route, generator)
+            grads = torch.autograd.grad(loss, step.tree_leaves(p))
+            results.append((loss.detach(), torch.cat(
+                [g.reshape(-1) for g in grads])))
+        (loss_d, grads_d), (loss_s, grads_s) = results
+        check_close(f"streamed batch {i} loss against the device route's",
+                    loss_s, loss_d, STREAM_LOSS_RTOL)
+        check_close(f"streamed batch {i} gradients against the device "
+                    "route's", grads_s, grads_d, STREAM_GRADIENT_RTOL)
+        exact = exact and torch.equal(grads_s, grads_d) and torch.equal(
+            loss_s, loss_d)
+    copies = {}
+    for what, nbytes in (("wire", wire_bytes),
+                         ("dense int16", BATCH * N_GENES * 2)):
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        target = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        copies[what] = time_ms(lambda: target.copy_(pinned,
+                                                    non_blocking=True))
+    print(f"stream batches: CSR wire capacity {capacity} entries, "
+          f"{wire_bytes} bytes a batch against {BATCH * N_GENES * 2} dense "
+          f"int16 ({BATCH * N_GENES * 2 / wire_bytes:.3g}x fewer); a copy "
+          f"from pinned memory {copies['wire']:.4g} ms against "
+          f"{copies['dense int16']:.4g} ms on the device; "
+          f"{overflows} overflow batches of {-(-N_CELLS // BATCH)} in an "
+          f"epoch; the first {STREAM_CHECKED_BATCHES} batches equal to K1's "
+          "bit for bit, loss and gradients "
+          f"{'bit for bit' if exact else 'within bounds'} on both routes "
+          f"({card})", flush=True)
+
+
+def stream_model(label, model_kind, name, **options):
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+    )
+
+    kwargs = dict(feature_size=options.pop("feature_size", N_GENES),
+                  latent_size=LATENT, hidden_sizes=[HIDDEN, HIDDEN],
+                  reconstruction_distribution=name,
+                  log_directory=os.path.join(STREAM_DIRECTORY, label),
+                  **options)
+    if model_kind == "gmvae":
+        return GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=CLUSTERS, **kwargs)
+    return VariationalAutoencoder(**kwargs)
+
+
+def stream_run(label, model_kind, name, training_set, validation_set, card,
+               fused=True, epochs=EPOCHS, rising=True, features=N_GENES,
+               **train_options):
+    """One streamed ``train`` through the API, probed; checks its launches
+    (``stream_launch_check``), that it did not stage the set on the device,
+    and a finite ELBO, rising from the first epoch to the last with
+    ``rising``; returns (model, result, probe, launches)."""
+    from scvae_tpu_torch import ops
+
+    model = stream_model(label, model_kind, name, feature_size=features)
+    probe = StreamProbe()
+    ops.reset_launch_counts()
+    with probe.watching():
+        result = model.train(training_set, validation_set,
+                             number_of_epochs=epochs, minibatch_size=BATCH,
+                             seed=0, device="cuda", verbose=False,
+                             **train_options)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = result.steps_per_epoch * epochs
+    stream_launch_check(label, launches, steps, fused)
+    if probe.placements and any(probe.placements):
+        raise AssertionError(f"{label}: placed on the device")
+    elbo = result.history["training"]["lower_bound"]
+    if not (np.all(np.isfinite(elbo))
+            and (not rising or epochs < 2 or elbo[-1] > elbo[0])):
+        raise AssertionError(f"{label}: training ELBO {elbo}")
+    report = probe.report(result)
+    seconds = result.epoch_seconds[-1]
+    rows = (training_set.number_of_examples
+            if hasattr(training_set, "number_of_examples")
+            else training_set.shape[0])
+    report.update(steps_per_s=result.steps_per_epoch / seconds,
+                  cells_per_s=rows / seconds)
+    print(f"stream {label}: ELBO {elbo}; epoch {epochs}: "
+          f"{report['steps_per_s']:.6g} steps/s, "
+          f"{report['cells_per_s']:.6g} cells/s, "
+          f"{1e3 / report['steps_per_s']:.4g} ms a step; host "
+          f"{report['host_ms']:.4g} ms a batch to densify or build the wire, "
+          f"{report['place_ms']:.4g} ms to place it, "
+          f"{report['dispatch_ms']:.4g} ms in a replayed step's call; a "
+          f"replay {report['replay_ms']:.4g} ms on the device "
+          f"({report['replays']} replays, {report['captures']} captures "
+          f"taking {report['capture_s']:.4g} s in the epoch); a pipeline's "
+          f"set-up {report['setup_s']:.4g} s; device busy "
+          f"{report['busy']:.3g} of the epoch; "
+          f"fetch {probe.fetch_modes}; launches "
+          f"{({k: v for k, v in launches.items() if v})} ({card})",
+          flush=True)
+    return model, result, probe, launches
+
+
+def phase_streaming(counts, card):
+    """Phase 4e: the streaming path.  Returns the launches by the kernels
+    line's entries (the GMVAE's NB kernels under the cycled ones, the
+    over-budget run's under the nb_4096 ones)."""
+    from scvae_tpu_torch import DataSet
+
+    shutil.rmtree(STREAM_DIRECTORY, ignore_errors=True)
+    check_streamed_batches(counts, card)
+    total = collections.Counter()
+    train, valid = split_counts(counts)
+
+    # (2) the headline VAE-NB, streamed, deferred fetch asked for
+    _, result, probe, launches = stream_run(
+        "VAE-NB-stream", "vae", "negative binomial", train, valid, card,
+        data_placement="streaming", metrics_fetch="deferred")
+    if probe.fetch_modes != ["sync"]:
+        raise AssertionError(f"VAE-NB-stream ran {probe.fetch_modes}")
+    total.update(launches)
+    print(f"stream VAE-NB: epoch {EPOCHS} streamed "
+          f"{result.steps_per_epoch / result.epoch_seconds[-1]:.6g} steps/s "
+          f"against {RATES['negative binomial']:.6g} on the device path "
+          f"(phase 4) ({card})", flush=True)
+
+    # (3) GMVAE-NB, 10 clusters: NB's kernels over 20,480 rows a step
+    _, _, _, launches = stream_run(
+        "GMVAE-NB-stream", "gmvae", "negative binomial", train, valid, card,
+        data_placement="streaming")
+    total.update({f"{k}_cycled": v for k, v in launches.items()})
+
+    # (4) noisy preprocessing: "auto" must stream, each epoch new values
+    from scvae_tpu_torch.models import api
+
+    drawn = []
+
+    class Recording(api.BatchPipeline):
+        def __init__(self, arrays, *args, **kwargs):
+            drawn.append(arrays["x"])
+            super().__init__(arrays, *args, **kwargs)
+
+    noisy = DataSet("in-memory", values=counts,
+                    noisy_preprocessing_methods=["normalise", "binarise"])
+    original, api.BatchPipeline = api.BatchPipeline, Recording
+    try:
+        np.random.seed(0)
+        stream_run("VAE-Bernoulli-noisy", "vae", "bernoulli", noisy, None,
+                   card, fused=False, rising=False, data_placement="auto")
+    finally:
+        api.BatchPipeline = original
+    # epoch 1's training and evaluation arrays, then epoch 2's
+    if len(drawn) != 2 * EPOCHS or (drawn[0] != drawn[2]).nnz == 0:
+        raise AssertionError("the noisy epochs drew the same values")
+    print(f"stream VAE-Bernoulli-noisy: {len(drawn)} noisy arrays drawn, "
+          f"epochs 1 and 2 differ in {(drawn[0] != drawn[2]).nnz} of "
+          f"{drawn[0].nnz} stored entries ({card})", flush=True)
+    del drawn, noisy
+
+    # (5) over the device budget
+    free = host_free_bytes()
+    start = time.perf_counter()
+    over = over_budget_counts()
+    build_s = time.perf_counter() - start
+    dense_bytes = OVER_CELLS * OVER_GENES * 2
+    print(f"stream over-budget set: {OVER_CELLS} x {OVER_GENES}, "
+          f"{over.nnz} stored entries, built in {build_s:.3f} s; dense int16 "
+          f"{dense_bytes / 1e9:.4g} GB against the budget "
+          f"{api.VariationalAutoencoder.DEVICE_DATA_BUDGET_BYTES / 2**30:g} "
+          f"GiB; host free {free / 2**30:.4g} GiB before, "
+          f"{host_free_bytes() / 2**30:.4g} GiB after", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, result, probe, launches = stream_run(
+        "VAE-NB-over-budget", "vae", "negative binomial", over, None, card,
+        epochs=1, features=OVER_GENES, data_placement="auto",
+        full_train_evaluation=False)
+    peak = torch.cuda.max_memory_allocated()
+    if probe.placements != [False]:
+        raise AssertionError(f"over-budget placement {probe.placements}")
+    if peak >= api.VariationalAutoencoder.DEVICE_DATA_BUDGET_BYTES:
+        raise AssertionError(f"over-budget run peaked at {peak} bytes")
+    total.update({f"{k.replace('nb_', 'nb_4096_')}": v
+                  for k, v in launches.items()})
+    evaluated = DataSet("in-memory", values=over[:OVER_EVALUATED])
+    start = time.perf_counter()
+    reconstructed = model.evaluate(evaluated, device="cuda", verbose=False,
+                                   output_versions="reconstructed")
+    evaluate_s = time.perf_counter() - start
+    metrics = model._last_evaluation_metrics
+    if not (reconstructed.values.shape == (OVER_EVALUATED, OVER_GENES)
+            and np.all(np.isfinite(reconstructed.values))
+            and all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"over-budget evaluation {metrics}, "
+                             f"{reconstructed.values.shape}")
+    print(f"stream VAE-NB-over-budget: peak device memory "
+          f"{peak / 2**30:.4g} GiB (budget "
+          f"{api.VariationalAutoencoder.DEVICE_DATA_BUDGET_BYTES / 2**30:g} "
+          f"GiB); evaluate of {OVER_EVALUATED} rows in {evaluate_s:.3f} s: "
+          f"{metrics}, p_x_mean {reconstructed.values.shape} ({card})",
+          flush=True)
+    return total
+
+
 def _grouped_batch(name, config, state, x, t):
     """One validation minibatch through the grouped kernels and through the
     flat kernels, with bf16 operands and in float32: log p(x|z,y) of the
@@ -2325,8 +2840,9 @@ def after_training(label, model_kind, name, train, valid, card):
     evaluate_s = time.perf_counter() - start
     metrics = model._last_evaluation_metrics
     values = reconstructed.values
-    if ops.launch_counts()["gather_rows"] == 0:
-        raise AssertionError(f"{label}: evaluate gathered no batch with K1")
+    if ops.launch_counts()["gather_rows"]:
+        raise AssertionError(f"{label}: evaluate gathered with K1; it reads "
+                             "its set through the pipeline")
     if not (all(np.isfinite(v) for v in metrics.values())
             and values.shape == valid.shape and np.all(np.isfinite(values))
             and np.all(values >= 0)):
@@ -2776,6 +3292,14 @@ def main() -> int:
     # 4b. eager against graph; 4c. deferred against sync
     phase_graph_vs_eager(data, card)
     phase_deferred(counts, card)
+
+    # 4e. streaming: NB's kernels at 2,048 rows (VAE-NB-stream), over the
+    # GMVAE's 20,480 rows, and at 4,096 genes over the device budget
+    for entry, count in phase_streaming(counts, card).items():
+        if entry in launches:
+            launches[entry] += count
+        elif count:
+            raise AssertionError(f"streaming launched {entry}")
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))

@@ -3,7 +3,8 @@
 A port of the ``scvae_tpu`` engine to PyTorch with hand-written CUDA kernels
 for an NVIDIA H100 (``sm_90a``).  It imports neither JAX nor ``scvae_tpu``.
 So far it trains a VAE or a Gaussian-mixture VAE (GMVAE) on a count matrix
-held on the device, with a Poisson, negative-binomial, zero-inflated
+held on the device, or streamed from host memory when it is over the
+device budget, with a Poisson, negative-binomial, zero-inflated
 Poisson, zero-inflated negative-binomial or constrained-Poisson likelihood,
 or the categorised form of the first four (``number_of_reconstruction_classes``
 > 0, up to 32 heads in all):

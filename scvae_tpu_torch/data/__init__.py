@@ -1,6 +1,6 @@
 """Data engine: loaders, preprocessing, splitting, caching, the
-``DataSet`` container, and device-resident staging (the port of
-``scvae_tpu/data/``; the streaming pipeline is not ported yet)."""
+``DataSet`` container, device-resident staging and the streaming pipeline
+(the port of ``scvae_tpu/data/``)."""
 
 from scvae_tpu_torch.data.dataset import DataSet
 from scvae_tpu_torch.data.loaders import LOADERS, create_development_data_set

@@ -1,16 +1,25 @@
-"""Device-resident staging of count matrices (the ported part of
-``scvae_tpu/data/pipeline.py``).
+"""Host input pipeline and device-resident staging of count matrices (the
+port of ``scvae_tpu/data/pipeline.py``).
 
-A dataset that fits in device memory is densified once and held there as a
+A data set that fits in device memory is densified once and held there as a
 plain row-major (N, F) tensor at the narrowest exact integer width (int16 for
 typical transcript counts; float32 for values that are not integral, such as
 preprocessed ones); every training step gathers its rows with the row-gather
 kernel.  The TPU's packed layout is not needed on the GPU.
+
+A data set over the device budget streams from host memory through
+:class:`BatchPipeline`: a seeded shuffle per epoch, each batch's rows
+densified on the host by the native CSR gather (``scvae_tpu_torch.native``)
+or shipped as a padded COO block (:class:`CSRWire`, densified on the device
+by ``models.step.materialize_batch``), and on CUDA copied from pinned host
+buffers on a copy stream while the card runs the steps before it.  The mesh
+wire and multi-process feeding of the JAX package are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import collections
+from typing import Any, Iterator
 
 import numpy as np
 import scipy.sparse
@@ -77,26 +86,321 @@ def device_resident_data(
     return out
 
 
-def build_model_arrays(data_set, *, use_binarised: bool = False,
+def densify_rows(values, indices: np.ndarray) -> np.ndarray:
+    """Rows ``indices`` of ``values`` as a dense array: float32 from a CSR
+    matrix through the native gather (a failed build raises); from any
+    other matrix through its own row indexing, floats narrowed to float32
+    and integer fields (batch indices) kept in their dtype."""
+    if scipy.sparse.issparse(values) and values.format == "csr":
+        from scvae_tpu_torch import native
+
+        return native.csr_gather_dense(values, np.asarray(indices))
+    rows = values[indices]
+    if scipy.sparse.issparse(rows):
+        rows = rows.toarray()
+    rows = np.asarray(rows)
+    if not np.issubdtype(rows.dtype, np.integer):
+        rows = rows.astype(np.float32, copy=False)
+    return np.ascontiguousarray(rows)
+
+
+class CSRWire:
+    """A batch's count matrix shipped host → device as padded COO instead
+    of dense: ``data``, ``cols`` and ``rows`` are (capacity,) tensors at
+    narrow integer widths, padding entries carry ``rows == n_rows`` (and
+    are dropped by ``models.step.materialize_batch``), ``n_rows`` and
+    ``n_cols`` the dense shape.  At single-cell sparsity (~93% zeros) it
+    carries several times fewer bytes than the dense int16 batch."""
+
+    def __init__(self, data, cols, rows, n_rows: int, n_cols: int):
+        self.data = data
+        self.cols = cols
+        self.rows = rows
+        self.n_rows = int(n_rows)
+        self.n_cols = int(n_cols)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+
+def _narrow_int(max_value: int):
+    return np.int16 if max_value <= np.iinfo(np.int16).max else np.int32
+
+
+class _PinnedSlot:
+    """One pinned host buffer per (field, shape, dtype) and the event of the
+    last copy out of them."""
+
+    def __init__(self):
+        self.buffers: dict[tuple, torch.Tensor] = {}
+        self.event: torch.cuda.Event | None = None
+
+
+class BatchPipeline:
+    """Iterates batch dictionaries of one data subset (JAX's
+    ``BatchPipeline``, one device).
+
+    ``arrays`` maps field name → row-indexable host array (CSR or ndarray);
+    every field is sliced with the same indices, shuffled per epoch by a
+    ``RandomState(seed)`` that lives as long as the pipeline.
+    ``count_dtype`` (a dtype or candidates, narrowest first) ships integral
+    ``x``/``t`` at the narrowest width that holds them; ``wire_format``
+    "csr" ships such a CSR field as a :class:`CSRWire` at a fixed capacity
+    (the batch's mean stored entries plus four standard deviations, rounded
+    up to 1,024), "auto" only where that is under half the dense bytes, and
+    a batch that overflows the capacity goes dense.  Fields that are the
+    same host array (x and t usually are) are built and sent once.
+
+    ``epoch()`` yields dictionaries of tensors on ``device`` (CUDA unless
+    it says otherwise) with ``prefetch`` batches built ahead.  On CUDA each
+    batch is written into one of ``prefetch + 1`` sets of pinned host
+    buffers and copied with ``non_blocking`` on a copy stream; the stream
+    that takes the batch waits for that copy's event, and a set of pinned
+    buffers is rewritten only after its last copy's event has completed.
+    ``sharding`` (the mesh wire) is not ported and must be None."""
+
+    def __init__(self, arrays: dict[str, Any], batch_size: int, *,
+                 shuffle: bool = True, drop_remainder: bool = False,
+                 seed: int = 0, sharding: Any = None, prefetch: int = 2,
+                 count_dtype=None, wire_format: str = "auto",
+                 device: torch.device | str | None = None):
+        if sharding is not None:
+            raise NotImplementedError("sharded pipelines are not ported yet")
+        if not arrays:
+            raise ValueError("arrays must be non-empty")
+        self.arrays = arrays
+        self.n = next(iter(arrays.values())).shape[0]
+        for name, arr in arrays.items():
+            if arr.shape[0] != self.n:
+                raise ValueError(
+                    f"Field {name!r} has {arr.shape[0]} rows, expected {self.n}"
+                )
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self.sharding = sharding
+        self.prefetch = max(int(prefetch), 0)
+        self.device = torch.device("cuda" if device is None else device)
+        self._rng = np.random.RandomState(seed)
+        self._wire_dtypes: dict[str, Any] = {}
+        if count_dtype is not None:
+            candidates = (tuple(count_dtype)
+                          if isinstance(count_dtype, (tuple, list))
+                          else (count_dtype,))
+            checked_by_id: dict[int, Any] = {}
+            for name in ("x", "t"):
+                arr = arrays.get(name)
+                if arr is None:
+                    continue
+                key = id(arr)
+                if key not in checked_by_id:
+                    checked_by_id[key] = narrowest_count_dtype(arr, candidates)
+                if checked_by_id[key] is not None:
+                    self._wire_dtypes[name] = checked_by_id[key]
+        if wire_format not in ("auto", "csr", "dense"):
+            raise ValueError("wire_format must be auto, csr, or dense")
+        self._csr_wire: dict[str, dict] = {}
+        if wire_format in ("auto", "csr"):
+            for name in ("x", "t"):
+                arr = arrays.get(name)
+                if (arr is None or not scipy.sparse.issparse(arr)
+                        or arr.format != "csr"
+                        or name not in self._wire_dtypes):
+                    continue
+                nnz_per_row = np.diff(arr.indptr)
+                density = arr.nnz / max(arr.shape[0] * arr.shape[1], 1)
+                # wire bytes per entry: data, column and row (narrow ints)
+                entry_bytes = (
+                    np.dtype(self._wire_dtypes[name]).itemsize
+                    + np.dtype(_narrow_int(arr.shape[1])).itemsize
+                    + np.dtype(_narrow_int(batch_size)).itemsize
+                )
+                dense_bytes = np.dtype(self._wire_dtypes[name]).itemsize
+                if (wire_format == "auto"
+                        and density * entry_bytes > 0.5 * dense_bytes):
+                    continue  # not sparse enough to pay off
+                mean = float(nnz_per_row.mean()) * batch_size
+                std = float(nnz_per_row.std()) * np.sqrt(batch_size)
+                capacity = int(-(-(mean + 4.0 * std + 1) // 1024) * 1024)
+                self._csr_wire[name] = {
+                    "capacity": capacity,
+                    "col_dtype": _narrow_int(arr.shape[1]),
+                    "row_dtype": _narrow_int(batch_size),
+                }
+        self._slots: list[_PinnedSlot] = []
+        self._copy_stream = None
+
+    def batches_per_epoch(self) -> int:
+        if self.drop_remainder:
+            return self.n // self.batch_size
+        return -(-self.n // self.batch_size)
+
+    def _epoch_indices(self) -> np.ndarray:
+        if self.shuffle:
+            return self._rng.permutation(self.n)
+        return np.arange(self.n)
+
+    def _host_batch(self, idx: np.ndarray) -> dict[str, Any]:
+        """The batch's fields as numpy arrays (a :class:`CSRWire` of numpy
+        arrays for a wire field); fields that are the same host array with
+        the same wire dtype and format are one object."""
+        built: dict[tuple, Any] = {}
+        batch: dict[str, Any] = {}
+        for name, arr in self.arrays.items():
+            wire_dtype = self._wire_dtypes.get(name)
+            csr_spec = self._csr_wire.get(name)
+            key = (id(arr),
+                   None if wire_dtype is None else np.dtype(wire_dtype).str,
+                   csr_spec is not None)
+            if key not in built:
+                wire = None
+                if csr_spec is not None:
+                    coo = self._coo_block(arr, idx, wire_dtype, csr_spec,
+                                          csr_spec["capacity"])
+                    if coo is not None:
+                        wire = CSRWire(*coo, n_rows=len(idx),
+                                       n_cols=arr.shape[1])
+                if wire is not None:
+                    built[key] = wire
+                else:
+                    dense = densify_rows(arr, idx)
+                    if wire_dtype is not None:
+                        dense = dense.astype(wire_dtype)
+                    built[key] = dense
+            batch[name] = built[key]
+        return batch
+
+    @staticmethod
+    def _coo_block(arr, idx, wire_dtype, spec, capacity):
+        """Padded-COO arrays (data, cols, rows) of the rows ``idx``, with
+        batch-local row ids (padding = ``len(idx)``), or ``None`` when their
+        stored entries overflow ``capacity``."""
+        starts = arr.indptr[idx]
+        counts = arr.indptr[idx + 1] - starts
+        total = int(counts.sum())
+        if total > capacity:
+            return None
+        # element e of the wire belongs to batch row row_of[e] and is that
+        # row's (e - row_base[row_of[e]])-th stored entry
+        cum = np.cumsum(counts)
+        pos = np.arange(total)
+        row_of = np.searchsorted(cum, pos, side="right")
+        row_base = np.concatenate([[0], cum[:-1]])
+        src = starts[row_of] + (pos - row_base[row_of])
+        pad = capacity - total
+        data = np.concatenate([arr.data[src].astype(wire_dtype),
+                               np.zeros(pad, wire_dtype)])
+        cols = np.concatenate([arr.indices[src].astype(spec["col_dtype"]),
+                               np.zeros(pad, spec["col_dtype"])])
+        rows = np.concatenate([row_of.astype(spec["row_dtype"]),
+                               np.full(pad, len(idx), spec["row_dtype"])])
+        return data, cols, rows
+
+    def _to_device(self, host: dict[str, Any], number: int):
+        """(the batch with its arrays as tensors on the device, the event
+        of their copy or None on the CPU, those tensors).  ``number``
+        picks the set of pinned buffers."""
+        arrays: list[np.ndarray] = []
+        for value in host.values():
+            parts = ((value.data, value.cols, value.rows)
+                     if isinstance(value, CSRWire) else (value,))
+            arrays.extend(p for p in parts
+                          if not any(p is a for a in arrays))
+        if self.device.type == "cpu":
+            placed = [torch.from_numpy(np.ascontiguousarray(a))
+                      for a in arrays]
+            event = None
+        else:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+                self._slots = [_PinnedSlot()
+                               for _ in range(self.prefetch + 1)]
+            slot = self._slots[number % len(self._slots)]
+            if slot.event is not None:
+                slot.event.synchronize()  # its last copy has finished
+            placed = []
+            with torch.cuda.stream(self._copy_stream):
+                for j, a in enumerate(arrays):
+                    key = (j, a.shape, a.dtype.str)
+                    buffer = slot.buffers.get(key)
+                    if buffer is None:
+                        buffer = torch.empty(
+                            a.shape, dtype=torch.from_numpy(a).dtype,
+                            pin_memory=True)
+                        slot.buffers[key] = buffer
+                    buffer.numpy()[...] = a
+                    placed.append(buffer.to(self.device, non_blocking=True))
+                event = torch.cuda.Event()
+                event.record(self._copy_stream)
+            slot.event = event
+        by_id = {id(a): t for a, t in zip(arrays, placed)}
+        for value in host.values():
+            if isinstance(value, CSRWire) and id(value) not in by_id:
+                by_id[id(value)] = CSRWire(
+                    by_id[id(value.data)], by_id[id(value.cols)],
+                    by_id[id(value.rows)], value.n_rows, value.n_cols)
+        return ({name: by_id[id(value)] for name, value in host.items()},
+                event, placed)
+
+    def _make_batch(self, idx: np.ndarray, number: int):
+        return self._to_device(self._host_batch(idx), number)
+
+    def epoch(self) -> Iterator[dict[str, Any]]:
+        """One pass over the data, ``prefetch`` batches built ahead."""
+        indices = self._epoch_indices()
+        n_batches = self.batches_per_epoch()
+        slices = iter([
+            (i, indices[i * self.batch_size:(i + 1) * self.batch_size])
+            for i in range(n_batches)
+        ])
+        queue: collections.deque = collections.deque()
+        for number, idx in slices:
+            queue.append(self._make_batch(idx, number))
+            if len(queue) == self.prefetch + 1:
+                break
+        while queue:
+            batch, event, placed = queue.popleft()
+            following = next(slices, None)
+            if following is not None:
+                queue.append(self._make_batch(following[1], following[0]))
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for tensor in placed:
+                    tensor.record_stream(stream)
+            yield batch
+
+
+def build_model_arrays(data_set, *, use_preprocessed: bool = True,
+                       use_binarised: bool = False,
                        use_count_sum_as_parameter: bool = False,
                        use_count_sum_as_feature: bool = False,
-                       include_batch_indices: bool = False
-                       ) -> dict[str, Any]:
+                       include_batch_indices: bool = False,
+                       noisy_preprocess=None) -> dict[str, Any]:
     """The fields a model batch needs from a
     :class:`~scvae_tpu_torch.data.DataSet` (the JAX package's
-    ``build_model_arrays``, ``scvae_tpu/data/pipeline.py:624-664``, without
-    its noisy preprocessing): inputs ``x`` are the preprocessed values when
-    the set has them, else the values (a float matrix is then staged as
-    float32); targets ``t`` are the binarised values when a Bernoulli
-    likelihood asks for them and the set has them, else ``x``.  With them
-    the per-cell ``count_sum`` (N, 1) float32 of the original values when
-    the likelihood takes it, the ``count_sum_feature`` (N, 1) float32
-    (normalised) when the decoder takes it, and the ``batch_indices``
-    (N, 1) int32 for batch correction when the set has them."""
-    x = (data_set.values if data_set.preprocessed_values is None
-         else data_set.preprocessed_values)
-    t = (data_set.binarised_values
-         if use_binarised and data_set.binarised_values is not None else x)
+    ``build_model_arrays``, ``scvae_tpu/data/pipeline.py:624-664``): with
+    ``noisy_preprocess`` (a preprocessor built with ``noisy=True``) inputs
+    and targets are both that function of a copy of the values, drawn
+    anew on every call; otherwise inputs ``x`` are the preprocessed values
+    when the set has them (and ``use_preprocessed``), else the values (a
+    float matrix is then staged as float32), and targets ``t`` the
+    binarised values when a Bernoulli likelihood asks for them and the set
+    has them, else ``x``.  With them the per-cell ``count_sum`` (N, 1)
+    float32 of the original values when the likelihood takes it, the
+    ``count_sum_feature`` (N, 1) float32 (normalised) when the decoder
+    takes it, and the ``batch_indices`` (N, 1) int32 for batch correction
+    when the set has them."""
+    if noisy_preprocess is not None:
+        x = t = noisy_preprocess(data_set.values.copy())
+    else:
+        x = (data_set.preprocessed_values
+             if use_preprocessed and data_set.preprocessed_values is not None
+             else data_set.values)
+        t = (data_set.binarised_values
+             if use_binarised and data_set.binarised_values is not None
+             else x)
     arrays: dict[str, Any] = {"x": x, "t": t}
     if use_count_sum_as_parameter:
         arrays["count_sum"] = data_set.count_sum.astype(np.float32)

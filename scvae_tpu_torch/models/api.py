@@ -1,33 +1,38 @@
 """High-level model API: ``VariationalAutoencoder`` with the reference's
-``train``, ``evaluate`` and ``sample`` (the ported part of
+``train``, ``evaluate`` and ``sample`` (the port of
 ``scvae_tpu/models/api.py``).  The model-specific parts are the hooks
 ``_init_state``, ``_loss_fn``, ``_eval_fn``, ``_evaluation_outputs`` and
 ``_prior_draws``, which ``GaussianMixtureVariationalAutoencoder``
 (``models/gmvae_api.py``) overrides to run through the same methods.
 
-Training runs on the device-resident path: the count matrix (and a
-validation set) is staged on the device once as row-major int16 (a
-data set's preprocessed values as float32), each step
-gathers a shuffled minibatch with the row-gather kernel and trains through
-the fused likelihood kernels where the likelihood has them (the unfused
-path elsewhere, or with ``fused_likelihood=False``).  With a log directory
-a run keeps its
-checkpoints (in the JAX package's format, with the ``best/`` and
-``early_stopping/`` versions), learning curves and per-epoch vectors under
-``<log_directory>/<name>[/run_<id>]``, resumes from them, and ``evaluate``
-and ``sample`` restore them; ``evaluate`` gathers its batches from the
-device-resident evaluation set with the same kernel, and its output sets
-carry the evaluation set's labels, batch indices, title, specifications
-and directory, as the JAX package's do.  Entry points run on
-CUDA unless the caller passes ``device="cpu"``; without a GPU they raise.
-On CUDA each training step and each full-batch step of the per-epoch
-evaluation passes is a replay of a CUDA graph captured once per ``train``
-call (``models/step.py``); on the CPU they run eagerly.
-``metrics_fetch="deferred"`` fetches each epoch's metrics one epoch late,
-as in the JAX package (``models/training.py``).  Without a log directory
-the run goes under the default ``models/`` directory, as in the JAX
-package.  Arguments that need parts not ported yet (streaming, meshes,
-intermediate analyses, a caches directory) raise ``NotImplementedError``.
+Training takes one of two data paths, chosen as the JAX package chooses
+(``_choose_device_placement``).  A training set whose dense form fits the
+device budget is staged on the device once as row-major int16 (a data
+set's preprocessed values as float32), and each step gathers a shuffled
+minibatch with the row-gather kernel.  A larger one, any set with
+``data_placement="streaming"`` and any set with noisy preprocessing streams
+from host memory through ``data.pipeline.BatchPipeline``: the host builds
+each batch (the native CSR gather, or the padded-COO CSR wire that the step
+densifies on the card) while the card runs the step before it.  Both paths
+train through the fused likelihood kernels where the likelihood has them
+(the unfused path elsewhere, or with ``fused_likelihood=False``).  With a
+log directory a run keeps its checkpoints (in the JAX package's format,
+with the ``best/`` and ``early_stopping/`` versions), learning curves and
+per-epoch vectors under ``<log_directory>/<name>[/run_<id>]``, resumes from
+them, and ``evaluate`` and ``sample`` restore them; with
+``caches_directory`` it trains in a scratch copy there and is moved back at
+the end.  ``evaluate`` reads its set through the pipeline, and its output
+sets carry the evaluation set's labels, batch indices, title,
+specifications and directory, as the JAX package's do.  Entry points run
+on CUDA unless the caller passes ``device="cpu"``; without a GPU they
+raise.  On CUDA each training step and each evaluation step of the
+per-epoch passes is a replay of a CUDA graph (``models/step.py``); on the
+CPU they run eagerly.  ``metrics_fetch="deferred"`` fetches each epoch's
+metrics one epoch late on the device path, as in the JAX package
+(``models/training.py``); streaming runs it as "sync", as JAX does.
+Without a log directory the run goes under the default ``models/``
+directory, as in the JAX package.  Meshes and intermediate analyses are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ import torch
 
 from scvae_tpu_torch.data.dataset import DataSet
 from scvae_tpu_torch.data.pipeline import (
+    BatchPipeline,
     build_model_arrays,
     device_resident_data,
     narrowest_count_dtype,
 )
+from scvae_tpu_torch.data.processing import build_preprocessor
 from scvae_tpu_torch.data.utilities import indices_for_evaluation_subset
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import checkpoints, naming, step, training, vae
@@ -177,8 +184,8 @@ class VariationalAutoencoder:
 
     type = "VAE"
     early_stopping_rounds = training.EARLY_STOPPING_ROUNDS
-    # Datasets whose dense device form fits under this budget are staged on
-    # the device once (the only data path ported so far).
+    # Data sets whose dense device form fits under this budget are staged on
+    # the device once; larger ones stream from host memory.
     DEVICE_DATA_BUDGET_BYTES = 8 << 30
     DEVICE_COUNT_DTYPES = (np.int16, np.int32)
 
@@ -376,11 +383,13 @@ class VariationalAutoencoder:
         return device_resident_data(arrays, device=device,
                                     count_dtype=self.DEVICE_COUNT_DTYPES)
 
-    def _model_arrays(self, data_set: DataSet) -> dict[str, Any]:
+    def _model_arrays(self, data_set: DataSet,
+                      noisy_preprocess=None) -> dict[str, Any]:
         """The fields the model's batches need (JAX ``_model_arrays``): the
         binarised targets of a Bernoulli likelihood, the count sums it
         takes as a parameter or a feature, the batch indices of batch
-        correction."""
+        correction; with ``noisy_preprocess`` a fresh noisy copy of the
+        values as inputs and targets."""
         config = self.config
         return build_model_arrays(
             data_set,
@@ -388,7 +397,35 @@ class VariationalAutoencoder:
             use_count_sum_as_parameter=config.use_count_sum_as_parameter,
             use_count_sum_as_feature=config.use_count_sum_as_feature,
             include_batch_indices=config.batch_correction,
+            noisy_preprocess=noisy_preprocess,
         )
+
+    def _choose_device_placement(self, training_set: DataSet,
+                                 data_placement: str) -> bool:
+        """True: stage the training set on the device; False: stream it
+        (JAX ``_choose_device_placement``).  "auto" stages it when its
+        dense form fits ``DEVICE_DATA_BUDGET_BYTES``, sized from the
+        preprocessed values when the set has them, else the values, at
+        the narrowest of ``DEVICE_COUNT_DTYPES`` that holds them (4 bytes
+        an entry for values that are not integral)."""
+        if data_placement == "device":
+            return True
+        if data_placement == "streaming":
+            return False
+        if data_placement != "auto":
+            raise ValueError(
+                "data_placement must be auto, device, or streaming")
+        n = training_set.number_of_examples or 0
+        f = training_set.number_of_features or 0
+        itemsize = 4
+        values = getattr(training_set, "preprocessed_values", None)
+        if values is None:
+            values = training_set.values
+        if values is not None:
+            dtype = narrowest_count_dtype(values, self.DEVICE_COUNT_DTYPES)
+            if dtype is not None:
+                itemsize = np.dtype(dtype).itemsize
+        return n * f * itemsize <= self.DEVICE_DATA_BUDGET_BYTES
 
     def _scaled_minibatch_size(self, minibatch_size: int, scenario: str) -> int:
         """Keep the flattened sample×batch constant (reference :807-811)."""
@@ -464,19 +501,13 @@ class VariationalAutoencoder:
         log directory the run resumes from its checkpoint unless
         ``reset_training``; ``new_run`` gives it a new run id.
         ``metrics_fetch``: "sync", or "deferred" to process each epoch's
-        results while the next epoch trains (the same curves and files)."""
-        unported = {
-            "streaming data placement": data_placement == "streaming",
-            "intermediate analyses": (
-                intermediate_analyser is not None or analyses_directory is not None
-            ),
-            "caches_directory": caches_directory is not None,
-            "noisy preprocessing": bool(getattr(
-                training_set, "noisy_preprocessing_methods", None)),
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet")
+        results while the next epoch trains (the same curves and files).
+        ``data_placement``: "device", "streaming" or "auto" (see the module
+        docstring); ``caches_directory``: train in a scratch copy of the
+        log directory under it."""
+        if intermediate_analyser is not None or analyses_directory is not None:
+            raise NotImplementedError(
+                "intermediate analyses are not ported yet")
         _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
         if data_placement not in ("auto", "device", "streaming"):
             raise ValueError("data_placement must be auto, device, or streaming")
@@ -493,21 +524,18 @@ class VariationalAutoencoder:
         if learning_rate is None:
             learning_rate = self.config.learning_rate
 
-        values = training_set.values
         n_train = training_set.number_of_examples
-        dtype = narrowest_count_dtype(values, self.DEVICE_COUNT_DTYPES)
-        itemsize = 4 if dtype is None else np.dtype(dtype).itemsize
-        if (data_placement == "auto"
-                and n_train * training_set.number_of_features * itemsize
-                > self.DEVICE_DATA_BUDGET_BYTES):
-            raise NotImplementedError(
-                "the data set exceeds the device budget and streaming is not "
-                "ported yet"
-            )
         n_iw = self.number_of_importance_samples["training"]
         n_mc = self.number_of_monte_carlo_samples["training"]
         batch_size = self._scaled_minibatch_size(minibatch_size, "training")
-        if n_train < batch_size:
+        noisy = None
+        if training_set.noisy_preprocessing_methods:
+            noisy = build_preprocessor(
+                training_set.noisy_preprocessing_methods, noisy=True)
+        # noisy preprocessing draws new values every epoch: it streams
+        use_device_data = noisy is None and self._choose_device_placement(
+            training_set, data_placement)
+        if use_device_data and n_train < batch_size:
             raise ValueError(
                 f"minibatch of {batch_size} rows exceeds the {n_train} "
                 "training examples"
@@ -516,6 +544,17 @@ class VariationalAutoencoder:
         if new_run and not run_id:
             run_id = naming.generate_run_id()
         log_dir = self.log_directory(run_id=run_id)
+        # With a caches directory the run trains in a scratch copy of its
+        # log directory there and is moved back afterwards (the reference's
+        # temporary log directory, JAX ``api.py:710-724, 924-931``).
+        permanent_log_dir = None
+        if caches_directory:
+            permanent_log_dir = log_dir
+            log_dir = naming.log_directory(caches_directory, self.name,
+                                           run_id=run_id)
+            if (os.path.exists(permanent_log_dir)
+                    and not os.path.exists(log_dir)):
+                shutil.copytree(permanent_log_dir, log_dir)
         self._active_log_directory = log_dir
         if reset_training and os.path.exists(log_dir):
             shutil.rmtree(log_dir)
@@ -539,27 +578,39 @@ class VariationalAutoencoder:
             if verbose:
                 print(f"Resuming training from epoch {start_epoch}.")
 
-        arrays = self._model_arrays(training_set)
-        data = _append_lgamma_rowsum(self._stage(arrays, device), self.config)
-        train_epoch = step.make_train_epoch(
-            self._loss_fn(n_iw, n_mc), optimizer,
-            batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
-        )
-        run_epoch = training.device_epoch_runner(
-            train_epoch, data, n_train, batch_size, seed,
-            lazy=metrics_fetch == "deferred",
-        )
-        evaluate_training = (
-            self._device_evaluator(data, n_train, batch_size, n_iw, n_mc)
-            if full_train_evaluation else None
-        )
-        evaluate_validation = None
-        if validation_set is not None:
-            validation_data = self._stage(
-                self._model_arrays(validation_set), device)
-            evaluate_validation = self._device_evaluator(
-                validation_data, validation_set.number_of_examples,
-                batch_size, n_iw, n_mc)
+        if use_device_data:
+            arrays = self._model_arrays(training_set)
+            data = _append_lgamma_rowsum(self._stage(arrays, device),
+                                         self.config)
+            train_epoch = step.make_train_epoch(
+                self._loss_fn(n_iw, n_mc), optimizer,
+                batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
+            )
+            run_epoch = training.device_epoch_runner(
+                train_epoch, data, n_train, batch_size, seed,
+                lazy=metrics_fetch == "deferred",
+            )
+            evaluate_training = (
+                self._device_evaluator(data, n_train, batch_size, n_iw, n_mc)
+                if full_train_evaluation else None
+            )
+            evaluate_validation = None
+            if validation_set is not None:
+                validation_data = self._stage(
+                    self._model_arrays(validation_set), device)
+                evaluate_validation = self._device_evaluator(
+                    validation_data, validation_set.number_of_examples,
+                    batch_size, n_iw, n_mc)
+            steps_per_epoch = n_train // batch_size
+        else:
+            run_epoch, evaluate_training, evaluate_validation = (
+                self._streaming_runners(
+                    training_set, validation_set, noisy, optimizer,
+                    batch_size, seed, full_train_evaluation, n_iw, n_mc,
+                    device))
+            steps_per_epoch = -(-n_train // batch_size)
+            # each step's batch is fed from the host: no fetch to defer
+            metrics_fetch = "sync"
         result = training.run_training_loop(
             train_state=train_state,
             run_epoch=run_epoch,
@@ -567,7 +618,7 @@ class VariationalAutoencoder:
             evaluate_validation=evaluate_validation,
             number_of_epochs=number_of_epochs,
             generator=generator,
-            steps_per_epoch=n_train // batch_size,
+            steps_per_epoch=steps_per_epoch,
             number_of_warm_up_epochs=self.config.number_of_warm_up_epochs,
             log_directory=log_dir,
             early_stopping_rounds=self.early_stopping_rounds,
@@ -577,7 +628,56 @@ class VariationalAutoencoder:
             fetch_mode=metrics_fetch,
         )
         self.stopped_early = result.stopped_early
+        if permanent_log_dir is not None:
+            checkpoints.wait_for_pending_writes()
+            if os.path.exists(permanent_log_dir):
+                shutil.rmtree(permanent_log_dir)
+            shutil.copytree(log_dir, permanent_log_dir)
+            shutil.rmtree(log_dir)
         return result
+
+    def _streaming_runners(self, training_set, validation_set, noisy,
+                           optimizer, batch_size, seed,
+                           full_train_evaluation, n_iw, n_mc, device):
+        """(epoch runner, training evaluator, validation evaluator) for data
+        streamed from the host (JAX ``api.py:854-901``).  Each epoch builds
+        a pipeline shuffled from ``seed + epoch``; under noisy
+        preprocessing each such pipeline draws new values and ships them
+        as float32; the full training-set evaluation reads the pipeline of
+        epoch 0 (drawing again under noise), the validation set its own
+        values in order.  The NB row constants are summed in each step."""
+        count_dtype = None if noisy is not None else self.DEVICE_COUNT_DTYPES
+
+        def make_training_pipeline(epoch: int) -> BatchPipeline:
+            arrays = self._model_arrays(training_set, noisy_preprocess=noisy)
+            return BatchPipeline(arrays, batch_size, shuffle=True,
+                                 seed=seed + epoch, count_dtype=count_dtype,
+                                 device=device)
+
+        train_step = step.make_train_step(self._loss_fn(n_iw, n_mc),
+                                          optimizer)
+        eval_step = step.make_eval_step(self._eval_fn(n_iw, n_mc))
+        run_epoch = training.streaming_epoch_runner(train_step,
+                                                    make_training_pipeline)
+        evaluate_training = None
+        if full_train_evaluation:
+            def evaluate_training(train_state, generator):
+                return training.evaluate_on_pipeline(
+                    eval_step, train_state, make_training_pipeline(0),
+                    generator)
+        evaluate_validation = None
+        if validation_set is not None:
+            validation_arrays = self._model_arrays(validation_set)
+
+            def evaluate_validation(train_state, generator):
+                return training.evaluate_on_pipeline(
+                    eval_step, train_state,
+                    BatchPipeline(validation_arrays, batch_size,
+                                  shuffle=False,
+                                  count_dtype=self.DEVICE_COUNT_DTYPES,
+                                  device=device),
+                    generator)
+        return run_epoch, evaluate_training, evaluate_validation
 
     # -- evaluate ----------------------------------------------------------
 
@@ -602,12 +702,13 @@ class VariationalAutoencoder:
                          run_id, use_early_stopping_model, use_best_model,
                          evaluation_subset_indices, seed, device,
                          metric_keys, row_keys):
-        """``_evaluation_outputs`` over the set in sequential batches
-        gathered from its device-resident copy: the per-row outputs
-        ``row_keys`` as (N, …) arrays, the reconstruction's standard
-        deviations for the evaluation subset only (sparse rows, as the
-        reference keeps them for large sets), and the row-weighted
-        ``metric_keys``."""
+        """``_evaluation_outputs`` over the set in sequential batches read
+        through a :class:`BatchPipeline` (the narrow count dtypes and the
+        CSR wire where they pay, two batches built ahead), as JAX reads
+        it: the per-row outputs ``row_keys`` as (N, …) arrays, the
+        reconstruction's standard deviations for the evaluation subset only
+        (sparse rows, as the reference keeps them for large sets), and the
+        row-weighted ``metric_keys``."""
         if minibatch_size is None:
             minibatch_size = get_default("models", "minibatch_size")
         n_iw = self.number_of_importance_samples["evaluation"]
@@ -618,7 +719,9 @@ class VariationalAutoencoder:
         if evaluation_subset_indices is None:
             evaluation_subset_indices = indices_for_evaluation_subset(
                 evaluation_set)
-        data = self._stage(self._model_arrays(evaluation_set), device)
+        pipeline = BatchPipeline(
+            self._model_arrays(evaluation_set), batch_size, shuffle=False,
+            prefetch=2, count_dtype=self.DEVICE_COUNT_DTYPES, device=device)
         n, f = evaluation_set.number_of_examples, self.config.feature_size
         rows: dict[str, np.ndarray | None] = dict.fromkeys(row_keys)
         p_x_stddev = scipy.sparse.lil_matrix((n, f), dtype=np.float32)
@@ -627,12 +730,11 @@ class VariationalAutoencoder:
         subset[np.asarray(evaluation_subset_indices, np.int64)] = True
         totals = dict.fromkeys(metric_keys, 0.0)
         generator = torch.Generator(device=device).manual_seed(seed)
+        start = 0
         with torch.no_grad():
-            for start in range(0, n, batch_size):
-                stop = min(start + batch_size, n)
-                idx = torch.arange(start, stop, dtype=torch.int32,
-                                   device=device)
-                batch = step.cast_batch_to_f32(step.gather_batch(data, idx))
+            for batch in pipeline.epoch():
+                batch = step.cast_batch_to_f32(step.materialize_batch(batch))
+                stop = start + batch["t"].shape[0]
                 out = self._evaluation_outputs(
                     train_state.params, train_state.model_state, batch,
                     generator, n_iw, n_mc)
@@ -650,6 +752,7 @@ class VariationalAutoencoder:
                         out["stddev_of_p_x_given_z_mean"].cpu().numpy()[picked])
                 for key in metric_keys:
                     totals[key] += float(out[key]) * (stop - start)
+                start = stop
         metrics = {key: value / max(n, 1) for key, value in totals.items()}
         return rows, (p_x_stddev, stddev_of_mean), metrics
 

@@ -16,6 +16,13 @@ of hundreds of operations dispatched from Python.  A replay reads fixed
 buffers: the data, the epoch's index rows (copied into a static buffer once
 per epoch), the train state, the warm-up weight and a 0-d step index that
 the graph itself advances, and writes each step's metrics at that index.
+
+Data streamed from the host (``data.pipeline.BatchPipeline``) trains one
+batch per call of :class:`TrainStep` (JAX ``make_train_step``) and is
+evaluated by :class:`EvalStep`: the CSR wire is densified on the device
+(:func:`materialize_batch`), and on CUDA each batch signature has a graph
+of its own, whose fixed inputs every batch is copied into before the
+replay.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from scvae_tpu_torch import ops
+from scvae_tpu_torch.data.pipeline import CSRWire
 
 LossFn = Callable[..., tuple[torch.Tensor, tuple[dict[str, torch.Tensor], Any]]]
 
@@ -168,6 +176,31 @@ def cast_batch_to_f32(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
     }
 
 
+def materialize_batch(batch: dict[str, Any]) -> dict[str, Any]:
+    """Densify the :class:`~scvae_tpu_torch.data.pipeline.CSRWire` fields
+    on their device: a scatter-add of the padded COO into zeros, float32
+    (JAX ``materialize_batch``).  The scatter runs into (B + 1, F) and
+    drops the last row, which takes the padding entries (``rows == B``),
+    so no index is out of range; duplicate (row, column) entries add, as
+    in JAX.  A wire that several fields share is densified once."""
+    dense: dict[int, torch.Tensor] = {}
+    out = {}
+    for name, value in batch.items():
+        if isinstance(value, CSRWire):
+            if id(value) not in dense:
+                flat = torch.zeros((value.n_rows + 1) * value.n_cols,
+                                   dtype=torch.float32,
+                                   device=value.data.device)
+                index = value.rows.long() * value.n_cols + value.cols.long()
+                flat.scatter_add_(0, index, value.data.float())
+                dense[id(value)] = flat.view(value.n_rows + 1,
+                                             value.n_cols)[:value.n_rows]
+            out[name] = dense[id(value)]
+        else:
+            out[name] = value
+    return out
+
+
 def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
     """``apply(ts, batch, generator, warm_up_weight) → metrics``: one
     training step on ``ts`` in place (parameters, batch-norm statistics,
@@ -195,21 +228,6 @@ def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
         return metrics
 
     return apply
-
-
-def make_train_step(loss_fn: LossFn, optimizer: ClipAdam):
-    """``train_step(ts, batch, generator, warm_up_weight) → (ts, metrics)``.
-
-    ``loss_fn(params, model_state, batch, generator, warm_up_weight)`` returns
-    ``(loss, (metrics, new_model_state))``.  Metrics stay on the device."""
-    apply = _apply_step(loss_fn, optimizer)
-
-    def train_step(ts: TrainState, batch, generator, warm_up_weight):
-        metrics = apply(ts, batch, generator, warm_up_weight)
-        ts.step += 1
-        return ts, metrics
-
-    return train_step
 
 
 class _GraphedBody:
@@ -272,6 +290,188 @@ def _bound_to(tensors: list[torch.Tensor], bound: list[torch.Tensor],
             a is not b for a, b in zip(tensors, bound)):
         raise ValueError(f"this epoch runs on the {what} it was first "
                          f"called with; build another for other {what}")
+
+
+def _batch_parts(batch: dict[str, Any]) -> list[torch.Tensor]:
+    """The batch's tensors in field order, each shared object once (a wire
+    as its data, columns and rows)."""
+    seen: set[int] = set()
+    parts: list[torch.Tensor] = []
+    for value in batch.values():
+        if id(value) in seen:
+            continue
+        seen.add(id(value))
+        parts.extend((value.data, value.cols, value.rows)
+                     if isinstance(value, CSRWire) else (value,))
+    return parts
+
+
+def _signature(batch: dict[str, Any]) -> tuple:
+    """What a captured graph fixes of a batch: each field's shapes and
+    dtypes, and which fields share one object."""
+    first: dict[int, str] = {}
+    signature = []
+    for name, value in batch.items():
+        shared = first.setdefault(id(value), name)
+        tensors = ((value.data, value.cols, value.rows)
+                   if isinstance(value, CSRWire) else (value,))
+        shape = (value.n_rows, value.n_cols) if isinstance(
+            value, CSRWire) else None
+        signature.append((name, shared, shape) + tuple(
+            (tuple(t.shape), t.dtype) for t in tensors))
+    return tuple(signature)
+
+
+def _static_copy(batch: dict[str, Any]) -> dict[str, Any]:
+    """A batch of the same structure on clones of its tensors."""
+    made: dict[int, Any] = {}
+    for value in batch.values():
+        if id(value) not in made:
+            made[id(value)] = (
+                CSRWire(value.data.clone(), value.cols.clone(),
+                        value.rows.clone(), value.n_rows, value.n_cols)
+                if isinstance(value, CSRWire) else value.clone())
+    return {name: made[id(value)] for name, value in batch.items()}
+
+
+def _batch_device(batch: dict[str, Any]) -> torch.device:
+    return _batch_parts(batch)[0].device
+
+
+class _BatchGraphs:
+    """``body(static_batch, generator) → outputs`` run once per batch
+    through a graph for the batch's signature (:func:`_signature`): each
+    signature gets fixed input tensors, which every batch of it is copied
+    into on the current stream, a generator of its own and a
+    :class:`_GraphedBody` (eager on the signature's first batch, captured
+    on its second, replayed from then on).  Around each run the given
+    generator's state is copied into the signature's generator and back,
+    so the draws are those of one generator.  The outputs are the graph's
+    own tensors: valid until the next run of the same signature."""
+
+    def __init__(self, body: Callable[[dict[str, Any], torch.Generator],
+                                      dict[str, torch.Tensor]]):
+        self._body = body
+        self._entries: dict[tuple, dict[str, Any]] = {}
+
+    def __call__(self, batch: dict[str, Any],
+                 generator: torch.Generator) -> dict[str, torch.Tensor]:
+        key = _signature(batch)
+        entry = self._entries.get(key)
+        if entry is None:
+            device = _batch_device(batch)
+            entry = {"static": _static_copy(batch), "outputs": {},
+                     "generator": torch.Generator(device=device)}
+
+            def run(entry=entry):
+                entry["outputs"] = self._body(entry["static"],
+                                              entry["generator"])
+
+            entry["run"] = _GraphedBody(run, entry["generator"])
+            self._entries[key] = entry
+        else:
+            torch._foreach_copy_(_batch_parts(entry["static"]),
+                                 _batch_parts(batch))
+        entry["generator"].set_state(generator.get_state())
+        entry["run"]()
+        generator.set_state(entry["generator"].get_state())
+        return entry["outputs"]
+
+
+class TrainStep:
+    """``train_step(ts, batch, generator, warm_up_weight) → (ts, metrics)``
+    on one batch that the caller hands over (JAX ``make_train_step``): the
+    batch's wire fields densified on its device (:func:`materialize_batch`),
+    one step on ``ts`` in place, ``ts.step`` advanced.  On the CPU, or with
+    ``capture=False``, each step runs eagerly.  On CUDA each batch
+    signature (a full batch of the CSR wire at the pipeline's capacity, a
+    dense batch that overflowed it, a shorter last batch) is captured in a
+    CUDA graph of its own (:class:`_BatchGraphs`): the batch is copied
+    into the graph's fixed inputs, then the graph is replayed; the graphs
+    read the train state they were captured on.  The metrics stay on the
+    device; on CUDA they are valid until the next step."""
+
+    def __init__(self, loss_fn: LossFn, optimizer: ClipAdam, *,
+                 capture: bool = True):
+        self._apply = _apply_step(loss_fn, optimizer)
+        self._capture = capture
+        self._graphs: _BatchGraphs | None = None
+        self._bound: list[torch.Tensor] | None = None
+
+    def _graphed_body(self, static, generator):
+        return self._apply(self._ts, materialize_batch(static), generator,
+                           self._warm_up_weight)
+
+    def __call__(self, ts: TrainState, batch, generator, warm_up_weight):
+        device = _batch_device(batch)
+        if not (self._capture and device.type == "cuda"):
+            metrics = self._apply(ts, materialize_batch(batch), generator,
+                                  warm_up_weight)
+        else:
+            leaves = tree_leaves(ts.params) + tree_leaves(ts.model_state)
+            if self._graphs is None:
+                self._ts, self._bound = ts, leaves
+                self._warm_up_weight = torch.zeros((), device=device)
+                self._graphs = _BatchGraphs(self._graphed_body)
+            _bound_to(leaves, self._bound, "train state")
+            self._warm_up_weight.fill_(warm_up_weight)
+            metrics = self._graphs(batch, generator)
+        ts.step += 1
+        return ts, metrics
+
+
+def make_train_step(loss_fn: LossFn, optimizer: ClipAdam, *,
+                    capture: bool = True) -> TrainStep:
+    """The counterpart of JAX's ``make_train_step`` (``capture`` for its
+    ``jit``); ``loss_fn(params, model_state, batch, generator,
+    warm_up_weight)`` returns ``(loss, (metrics, new_model_state))``."""
+    return TrainStep(loss_fn, optimizer, capture=capture)
+
+
+class EvalStep:
+    """``eval_step(params, model_state, batch, generator) → metrics`` of
+    one batch without gradients (JAX ``make_eval_step``): wire fields
+    densified on the device, integer fields promoted to float32, then
+    ``eval_fn``.  On CUDA (unless ``capture=False``) each batch signature
+    runs through a graph of its own, as in :class:`TrainStep`; the graphs
+    read the step's own copies of the parameters and batch-norm state,
+    which each call fills from the ones it is given.  On CUDA the metrics
+    are valid until the next call."""
+
+    def __init__(self, eval_fn: Callable[..., dict[str, torch.Tensor]], *,
+                 capture: bool = True):
+        self._eval_fn = eval_fn
+        self._capture = capture
+        self._graphs: _BatchGraphs | None = None
+
+    def _graphed_body(self, static, generator):
+        return self._eval_fn(self._params, self._model_state,
+                             cast_batch_to_f32(materialize_batch(static)),
+                             generator)
+
+    @torch.no_grad()
+    def __call__(self, params, model_state, batch, generator):
+        if not (self._capture and _batch_device(batch).type == "cuda"):
+            return self._eval_fn(params, model_state,
+                                 cast_batch_to_f32(materialize_batch(batch)),
+                                 generator)
+        if self._graphs is None:
+            self._params = tree_map(torch.clone, params)
+            self._model_state = tree_map(torch.clone, model_state)
+            self._graphs = _BatchGraphs(self._graphed_body)
+        for mine, given in ((self._params, params),
+                            (self._model_state, model_state)):
+            leaves = tree_leaves(mine)
+            if leaves:
+                torch._foreach_copy_(leaves, matching_leaves(given, mine))
+        return self._graphs(batch, generator)
+
+
+def make_eval_step(eval_fn: Callable[..., dict[str, torch.Tensor]], *,
+                   capture: bool = True) -> EvalStep:
+    """The counterpart of JAX's ``make_eval_step`` (``capture`` for its
+    ``jit``)."""
+    return EvalStep(eval_fn, capture=capture)
 
 
 class TrainEpoch:

@@ -1,11 +1,13 @@
 """The training loop (the port of ``scvae_tpu/models/training.py``).
 
 ``run_training_loop`` runs epochs: the KL warm-up weight, one epoch through
-the runner, the NaN abort, the training metrics (a full evaluation pass
-when an evaluator is given) and the validation metrics, an optional
-callback, and with a log directory the learning curves, the per-epoch
-vectors, a checkpoint each epoch and its ``best/`` and ``early_stopping/``
-versions.  Early stopping follows the validation lower bound
+the runner (``device_epoch_runner`` over device-resident data, or
+``streaming_epoch_runner`` over batches streamed from the host, with
+``evaluate_on_pipeline`` for the full passes), the NaN abort, the training
+metrics (a full evaluation pass when an evaluator is given) and the
+validation metrics, an optional callback, and with a log directory the
+learning curves, the per-epoch vectors, a checkpoint each epoch and its
+``best/`` and ``early_stopping/`` versions.  Early stopping follows the validation lower bound
 (``EARLY_STOPPING_ROUNDS`` epochs without improvement).  Checkpoint files
 are written by the checkpoints module's background worker unless
 ``async_checkpoints`` is off; the loop waits for them before it returns.
@@ -49,6 +51,7 @@ import torch
 from scvae_tpu_torch.models import checkpoints
 from scvae_tpu_torch.models.objectives import EarlyStopping, warm_up_weight
 from scvae_tpu_torch.models.step import (
+    EVAL_METRIC_KEYS,
     TrainState,
     epoch_permutation,
     snapshot_state,
@@ -95,6 +98,63 @@ def evaluation_generator(generator: torch.Generator, epoch: int,
         (generator.initial_seed(), epoch, evaluator)).generate_state(
             1, np.uint64)[0]
     return torch.Generator(device=generator.device).manual_seed(int(seed))
+
+
+def evaluate_on_pipeline(eval_step: Callable[..., dict[str, Any]],
+                         train_state: TrainState, pipeline,
+                         generator: torch.Generator, *,
+                         scalar_keys=None) -> dict[str, Any]:
+    """Full-pass evaluation over a :class:`~scvae_tpu_torch.data.pipeline.
+    BatchPipeline` (JAX ``evaluate_on_pipeline``): each batch's metrics
+    stay on the device until the pass ends, then are weighted by the
+    batch's rows in float64 in batch order, as JAX sums them; vector
+    metrics (the per-neuron KL) are averaged elementwise."""
+    if scalar_keys is None:
+        scalar_keys = EVAL_METRIC_KEYS
+    kept: dict[str, list[torch.Tensor]] = {k: [] for k in scalar_keys}
+    sizes: list[int] = []
+    for batch in pipeline.epoch():
+        metrics = eval_step(train_state.params, train_state.model_state,
+                            batch, generator)
+        for k in scalar_keys:
+            if k in metrics:
+                kept[k].append(metrics[k].detach().clone())
+        sizes.append(int(batch["t"].shape[0]))
+    if not sizes:
+        return {k: float("nan") for k in scalar_keys}
+    totals: dict[str, Any] = {k: 0.0 for k in scalar_keys}
+    for k, values in kept.items():
+        if values:
+            for value, b in zip(torch.stack(values).cpu().numpy(), sizes):
+                totals[k] = totals[k] + np.asarray(value, np.float64) * b
+    n_total = sum(sizes)
+    out = {}
+    for k, v in totals.items():
+        v = v / n_total
+        out[k] = float(v) if np.ndim(v) == 0 else np.asarray(v)
+    return out
+
+
+def streaming_epoch_runner(train_step: Callable,
+                           make_training_pipeline: Callable[[int], Any]
+                           ) -> EpochRunner:
+    """Runner for data streamed from the host (JAX
+    ``streaming_epoch_runner``): the epoch's pipeline from
+    ``make_training_pipeline(epoch)``, one step per batch.  Each step's
+    lower bound stays on the device and all are fetched once when the
+    epoch ends, so the host builds the next batch while the card runs the
+    step; the epoch's lower bound is their mean in float64, JAX's value."""
+
+    def run_epoch(train_state, epoch, wuw, generator):
+        bounds = []
+        for batch in make_training_pipeline(epoch).epoch():
+            train_state, metrics = train_step(train_state, batch, generator,
+                                              wuw)
+            bounds.append(metrics["lower_bound"].detach().clone())
+        values = torch.stack(bounds).cpu().numpy().astype(np.float64)
+        return train_state, {"lower_bound": float(np.mean(values))}
+
+    return run_epoch
 
 
 def device_epoch_runner(train_epoch: Callable, data: dict[str, torch.Tensor],

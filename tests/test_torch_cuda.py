@@ -1540,3 +1540,132 @@ def test_options_step_matches_cpu(device, name, model, options):
     largest = max(float(gr.abs().max()) for gr in want[1:])
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max()) <= 2e-5 * largest
+
+
+@pytest.mark.parametrize("float32", [False, True])
+def test_nb_kernels_at_4096_genes(device, float32):
+    """NB's K2 and K3's three kernels at the over-budget set's 4,096 genes
+    (twice the headline's), a 2,048-row minibatch and decoder width 256,
+    kernel by kernel against their plain versions."""
+    _check_tensor_core_kernels("negative binomial", *_family_case(
+        device, "negative binomial", 2048, 2048, 256, 4096, torch.bfloat16,
+        seed=7), float32=float32)
+
+
+def _stream_counts(n):
+    """(n, 200) counts: 16 full rows first, then rows of about 3 stored
+    entries.  In order, batches of 16 ship the CSR wire at a capacity of
+    1,024 entries, but the first (3,200 entries) overflows it and goes
+    dense."""
+    import numpy as np
+    import scipy.sparse
+
+    rng = np.random.RandomState(0)
+    dense = (rng.poisson(3.0, (n, 200)) + 1) * (
+        rng.uniform(size=(n, 200)) < 0.015)
+    dense[:16] = 1 + rng.poisson(3.0, (16, 200))
+    return scipy.sparse.csr_matrix(dense.astype(np.float32))
+
+
+def test_pinned_buffers_reused_after_their_copies(device):
+    """Prefetch 2 over 20 batches, with the copy stream held back before
+    every copy so that the host runs ahead of it: each batch, dense (the
+    first, which overflows the wire) or on the wire, materialized on the
+    card equals its rows densified on the host."""
+    import numpy as np
+
+    from scvae_tpu_torch.data import pipeline
+    from scvae_tpu_torch.models import step
+
+    values = _stream_counts(320)
+    rows = np.arange(320, dtype=np.int32)[:, None]
+
+    class HeldBack(pipeline.BatchPipeline):
+        def _to_device(self, host, number):
+            if self._copy_stream is not None:
+                with torch.cuda.stream(self._copy_stream):
+                    torch.cuda._sleep(2_000_000)
+            return super()._to_device(host, number)
+
+    stream = HeldBack({"x": values, "t": values, "row": rows}, 16,
+                      shuffle=False, prefetch=2,
+                      count_dtype=(np.int16, np.int32), wire_format="csr",
+                      device=device)
+    assert stream._csr_wire["x"]["capacity"] == 1024
+    kinds, got = [], []
+    for batch in stream.epoch():
+        kinds.append(type(batch["x"]).__name__)
+        dense = step.materialize_batch(batch)
+        got.append((dense["x"].clone(), batch["row"].clone()))
+    torch.cuda.synchronize()
+    assert kinds == ["Tensor"] + ["CSRWire"] * 19
+    for i, (x, row) in enumerate(got):
+        idx = np.arange(i * 16, (i + 1) * 16)
+        np.testing.assert_array_equal(row.cpu().numpy()[:, 0], idx)
+        np.testing.assert_array_equal(x.float().cpu().numpy(),
+                                      values[idx].toarray())
+
+
+def _streamed_run(device, capture):
+    """Two epochs of a small VAE-NB streamed from the host in order, in
+    batches of 16 (the first dense, having overflowed the wire, then the
+    wire, and a shorter last batch), from one seed: (train state, the
+    steps' metrics, the generator's state, the launches)."""
+    import numpy as np
+
+    from scvae_tpu_torch.data import pipeline
+    from scvae_tpu_torch.models import step, vae
+
+    values = _stream_counts(270)
+    config = vae.VAEConfig(feature_size=200, latent_size=8,
+                           hidden_sizes=(32, 32),
+                           reconstruction_distribution="negative binomial")
+    params, state = vae.init(config, torch.Generator().manual_seed(0))
+    optimizer = step.make_optimizer(1e-3)
+    ts = step.create_train_state(
+        step.tree_map(lambda a: a.to(device), params),
+        step.tree_map(lambda a: a.to(device), state), optimizer)
+
+    def loss(params, model_state, batch, generator, warm_up_weight):
+        return vae.loss_fn(config, params, model_state, batch, generator,
+                           warm_up_weight=warm_up_weight)
+
+    train_step = step.make_train_step(loss, optimizer, capture=capture)
+    generator = torch.Generator(device=device).manual_seed(0)
+    ops.reset_launch_counts()
+    metrics, kinds = [], set()
+    for epoch in range(2):
+        stream = pipeline.BatchPipeline(
+            {"x": values, "t": values}, 16, shuffle=False,
+            count_dtype=(np.int16, np.int32), wire_format="csr",
+            device=device)
+        for batch in stream.epoch():
+            kinds.add((type(batch["x"]).__name__, batch["x"].shape[0]))
+            ts, out = train_step(ts, batch, generator, 0.5 + epoch / 4)
+            metrics.append({k: v.clone() for k, v in out.items()})
+    torch.cuda.synchronize()
+    assert kinds == {("Tensor", 16), ("CSRWire", 16), ("CSRWire", 14)}
+    return ts, metrics, generator.get_state(), ops.launch_counts()
+
+
+def test_streamed_step_graphed_matches_eager(device):
+    """The streamed VAE-NB steps as graph replays, one graph per batch
+    signature (the wire, the dense batch of an overflow, the shorter last
+    batch), against the same steps run eagerly: bit for bit."""
+    from scvae_tpu_torch.models import step
+
+    (ts, metrics, gen, launches), (ts_e, metrics_e, gen_e, launches_e) = (
+        _streamed_run(device, True), _streamed_run(device, False))
+    for part in ("params", "model_state"):
+        for a, b in zip(step.tree_leaves(getattr(ts, part)),
+                        step.tree_leaves(getattr(ts_e, part)), strict=True):
+            assert torch.equal(a, b), part
+    assert torch.equal(ts.opt_state["count"], ts_e.opt_state["count"])
+    assert ts.step == ts_e.step == len(metrics)
+    for got, want in zip(metrics, metrics_e, strict=True):
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    assert torch.equal(gen, gen_e)
+    assert launches == launches_e
+    assert launches["nb_forward"] == len(metrics)
+    assert launches.get("gather_rows", 0) == 0

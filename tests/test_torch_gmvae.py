@@ -357,9 +357,6 @@ def test_unported_options_raise(monkeypatch, in_tmp_path):
         feature_size=10, reconstruction_distribution="bernoulli").config)
     gmvae = model(number_of_latent_clusters=2)
     x = np.ones((32, 10), np.float32)
-    with pytest.raises(NotImplementedError):
-        gmvae.train(x, device="cpu", caches_directory="caches")
-
     with pytest.raises(FileNotFoundError, match="train the model first"):
         gmvae.sample(device="cpu")  # nothing under the default directory
     # labels are ported: a labelled set trains with its accuracy and
@@ -375,6 +372,12 @@ def test_unported_options_raise(monkeypatch, in_tmp_path):
                                device="cpu", verbose=False)
     assert evaluated.predicted_labels.shape == (32,)
     assert set(evaluated.predicted_labels) <= {"a", "b"}
+    # a caches directory is ported: the GMVAE trains there on the CPU,
+    # resuming the run above for its second epoch
+    result = gmvae.train(labelled, device="cpu", caches_directory="caches",
+                         number_of_epochs=2, minibatch_size=16, verbose=False)
+    curve = result.history["training"]["lower_bound"]
+    assert len(curve) == 2 and np.isfinite(curve).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gmvae.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)

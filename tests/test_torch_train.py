@@ -164,10 +164,14 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, in_tmp_path):
         model.train(x, number_of_epochs=1, minibatch_size=16, verbose=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.evaluate(x)
-    for unported in ({"data_placement": "streaming"},
-                     {"caches_directory": "caches"}):
-        with pytest.raises(NotImplementedError):
-            model.train(x, number_of_epochs=1, device="cpu", **unported)
+    # streaming and a caches directory are ported: each trains on the CPU
+    for ported in ({"data_placement": "streaming"},
+                   {"caches_directory": "caches"}):
+        result = model.train(x, number_of_epochs=1, minibatch_size=16,
+                             device="cpu", verbose=False, reset_training=True,
+                             **ported)
+        assert np.isfinite(result.history["training"]["lower_bound"]).all()
+        assert result.train_state.step == 2
     with pytest.raises(NotImplementedError):
         model.evaluate(x, device="cpu", number_of_devices=2)
     # the reference default, Poisson, is ported, and so is every other
