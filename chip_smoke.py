@@ -141,7 +141,28 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              with the majority vote recomputed on the host, ``evaluate``'s
              predicted labels equal to that vote's labels, NB's K2 and K3's
              three kernels once per training step, K1 at least once; the
-             accuracy callback's seconds per epoch and the steps/s.
+             accuracy callback's seconds per epoch and the steps/s;
+5c. analyses — the evaluation analyses of 5b (b)'s model on the card
+             (``scvae_tpu_torch.analyses``), each held against the same
+             function with ``device="cpu"`` on the same inputs: the status
+             methods against the run (trained, a best model, the epochs,
+             ``learning_curves`` equal to the loop's curves); ``evaluate``
+             of the test set and of the training set's latent values;
+             ``predict_labels`` with k-means (K = 10, mini-batch over the
+             55,548 × 100 training latents, seed 0: the same partition on
+             the CPU from the same seed, ARI ≥ 0.999, and the mini-batch
+             fit's steps and inertia) and with "model";
+             ``compute_clustering_metrics`` over the 6,858 × 2,048 test
+             values (ARI and accuracies equal, AMI within 1e-12, the
+             unsampled silhouette within 1e-6 relative) and the silhouette
+             of the training latents at the 20,000-row sample (1e-6);
+             summary statistics of the test values and latents, a
+             2-component PCA of the training latents with the prior
+             centroids' means and covariances, and an IncrementalPCA of
+             the 2,048-gene test values (1e-6); ``analyse_results`` with
+             "metrics" and "predictions", then "latent_values", into
+             ``build/analyses``: each expected file written and its
+             pickles loading; each part's seconds on the card.
 
 Phase 3 also holds the grouped kernels K4/K5 of every base family, bf16
 and float32 (h, W and da as three bf16 terms), against their plain
@@ -3223,18 +3244,239 @@ def phase_labelled(counts, card):
           f"{result.steps_per_epoch / seconds:.6g} steps/s; launches "
           f"{({k: v for k, v in launches.items() if v})} ({card})",
           flush=True)
-    return launches
+    return launches, (model, result, (training_set, validation_set, test_set))
+
+
+ANALYSES_DIRECTORY = os.path.join(BUILD, "analyses")
+ANALYSIS_SEED = 0
+ANALYSIS_RTOL = 1e-6
+AMI_ATOL = 1e-12
+KMEANS_MINIMUM_ARI = 0.999
+
+
+def timed(seconds, part, fn, *args, **kwargs):
+    """``fn``'s result, its wall seconds (the device synchronised) kept
+    under ``part``."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    value = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    seconds[part] = time.perf_counter() - start
+    return value
+
+
+def check_equal(name, got, want, atol=0.0):
+    log(f"check {name}: {got!r} against {want!r} on the CPU (limit {atol:g})")
+    if not (got == want or abs(got - want) <= atol
+            or (np.isnan(got) and np.isnan(want))):
+        raise AssertionError(f"{name}: {got} on the card, {want} on the CPU")
+
+
+def check_relative(name, got, want, rtol=ANALYSIS_RTOL):
+    """Arrays, or dicts of numbers, within ``rtol`` of the largest |want|."""
+    if isinstance(want, dict):
+        keys = [k for k, v in want.items() if isinstance(v, float)]
+        got = np.array([got[k] for k in keys])
+        want = np.array([want[k] for k in keys])
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.nanmax(np.abs(want)))
+    err = float(np.nanmax(np.abs(got - want)))
+    log(f"check {name}: max abs error {err:.3g}, {err / scale:.3g} of "
+        f"{scale:.4g} (limit {rtol:g})")
+    if got.shape != want.shape or not np.array_equal(np.isnan(got),
+                                                     np.isnan(want)):
+        raise AssertionError(f"{name}: shapes or NaNs differ")
+    if not err <= rtol * scale:
+        raise AssertionError(f"{name}: {err} exceeds {rtol} x {scale}")
+
+
+def check_status_methods(model, result):
+    """The status methods against the training run: trained, a best model,
+    the epochs of each version, the curves of the loop."""
+    trained = model.number_of_epochs_trained()
+    best = model.number_of_epochs_trained(best_model=True)
+    log(f"check status methods: trained {model.has_been_trained()}, best "
+        f"model {model.better_model_exists()} (epoch {best}), stopped early "
+        f"{model.model_stopped_early()}, {trained} epochs")
+    if not (model.has_been_trained() and model.better_model_exists()
+            and trained == result.number_of_epochs_trained == LABELLED_EPOCHS
+            and best == result.best_epoch + 1):
+        raise AssertionError(f"status methods: {trained} epochs trained, "
+                             f"best {best}; the run: "
+                             f"{result.number_of_epochs_trained}, "
+                             f"{result.best_epoch}")
+    if model.model_stopped_early() and not (
+            0 < model.number_of_epochs_trained(early_stopping=True) <= trained):
+        raise AssertionError("status methods: the early-stopping version")
+    if model.learning_curves() != result.history:
+        raise AssertionError("learning_curves differs from the loop's curves")
+    if model.has_been_trained(run_id="absent"):
+        raise AssertionError("status methods: an absent run is trained")
+
+
+def expected_result_files(directory, kind, specifications):
+    names = [f"{kind}-metrics.log", f"{kind}-metrics.pkl.gz",
+             f"{kind}-prediction-{specifications.name}.log",
+             f"{kind}-prediction-{specifications.name}.pkl.gz",
+             f"predictions_{kind}.tsv.gz", f"latent_values_{kind}.tsv.gz"]
+    return [os.path.join(directory, name) for name in names]
+
+
+def phase_analyses(model, result, sets, card, device="cuda"):
+    """Phase 5c: the analyses of phase 5b (b)'s labelled GMVAE-NB on
+    ``device``, each held against the same function on the CPU; returns
+    each part's seconds on ``device``."""
+    import gzip
+    import pickle
+
+    from scvae_tpu_torch.analyses import (
+        PredictionSpecifications,
+        analyse_results,
+        decompose,
+        metrics,
+        predict_labels,
+    )
+    from scvae_tpu_torch.analyses.kmeans import MiniBatchKMeans
+    from scvae_tpu_torch.models import checkpoints
+
+    training_set, _, test_set = sets
+    seconds = {}
+    timed(seconds, "status methods", check_status_methods, model, result)
+
+    transformed, reconstructed, latent = timed(
+        seconds, "evaluate (test)", model.evaluate, test_set,
+        use_best_model=False, verbose=False, device=device)
+    training_latent = timed(
+        seconds, "evaluate (training, latent)", model.evaluate, training_set,
+        output_versions="latent", verbose=False, device=device)["z"]
+    test_latent = latent["z"]
+    if test_latent.values.shape != (test_set.number_of_examples, LATENT):
+        raise AssertionError(f"latent values {test_latent.values.shape}")
+
+    # k-means on the training latents (mini-batch above 10,000 rows)
+    specifications = PredictionSpecifications("k-means", CLUSTERS,
+                                              "training")
+    predictions = timed(seconds, "k-means predict_labels", predict_labels,
+                        training_latent, test_latent,
+                        specifications=specifications, seed=ANALYSIS_SEED,
+                        device=device)
+    cpu_predictions = predict_labels(training_latent, test_latent,
+                                     specifications=specifications,
+                                     seed=ANALYSIS_SEED, device="cpu")
+    partition_ari = metrics.adjusted_rand_index(
+        predictions[0], cpu_predictions[0], device="cpu")
+    log(f"check k-means partition: ARI {partition_ari} against the CPU's "
+        f"from the same seed (limit {KMEANS_MINIMUM_ARI})")
+    if partition_ari < KMEANS_MINIMUM_ARI:
+        raise AssertionError(f"k-means: ARI {partition_ari} against the CPU")
+    card_kmeans = timed(seconds, "mini-batch k-means fit", MiniBatchKMeans(
+        CLUSTERS, seed=ANALYSIS_SEED, device=device).fit,
+        training_latent.values)
+    cpu_kmeans = MiniBatchKMeans(CLUSTERS, seed=ANALYSIS_SEED,
+                                 device="cpu").fit(training_latent.values)
+    check_equal("mini-batch k-means steps", card_kmeans.n_steps_,
+                cpu_kmeans.n_steps_)
+    check_relative("mini-batch k-means inertia", card_kmeans.inertia_,
+                   cpu_kmeans.inertia_)
+    model_predictions = predict_labels(training_latent, test_latent,
+                                       method="model",
+                                       number_of_clusters=CLUSTERS,
+                                       device=device)
+    if not np.array_equal(model_predictions[1], test_latent.predicted_labels):
+        raise AssertionError("the model's predicted labels")
+    for data_set in (transformed, reconstructed):
+        data_set.update_predictions(
+            prediction_specifications=specifications,
+            predicted_cluster_ids=predictions[0],
+            predicted_labels=predictions[1],
+            predicted_superset_labels=predictions[2])
+
+    # clustering metrics over the 2,048-gene test values, then the
+    # silhouette of the training latents at the 20,000-row sample
+    clustering = timed(seconds, "clustering metrics (test values)",
+                       metrics.compute_clustering_metrics, transformed,
+                       device=device)
+    cpu_clustering = metrics.compute_clustering_metrics(transformed,
+                                                        device="cpu")
+    for name, values in cpu_clustering.items():
+        for key, value in values.items():
+            if value is None:
+                continue
+            tolerance = AMI_ATOL if "mutual" in name else 0.0
+            if name == "silhouette score":
+                check_relative(f"{name} ({key})", clustering[name][key],
+                               value)
+            else:
+                check_equal(f"{name} ({key})", clustering[name][key], value,
+                            tolerance)
+    sampled = timed(seconds, "silhouette (training latents, sampled)",
+                    metrics.silhouette_score, training_latent.values,
+                    card_kmeans.labels_, seed=ANALYSIS_SEED, device=device)
+    check_relative("silhouette (training latents, 20,000 sampled)", sampled,
+                   metrics.silhouette_score(training_latent.values,
+                                            card_kmeans.labels_,
+                                            seed=ANALYSIS_SEED, device="cpu"))
+
+    for label, values in (("test values", test_set.values),
+                          ("test latents", test_latent.values)):
+        check_relative(f"summary statistics ({label})", timed(
+            seconds, f"summary statistics ({label})",
+            metrics.summary_statistics, values, tolerance=0.5,
+            device=device), metrics.summary_statistics(
+                values, tolerance=0.5, device="cpu"))
+
+    centroids = checkpoints.load_centroids(model.log_directory())
+    centroids = {"prior": {key: np.asarray(value[-1])
+                           for key, value in centroids.items()}}
+    got = timed(seconds, "PCA (training latents, centroids)", decompose,
+                training_latent.values, centroids=centroids, method="PCA",
+                number_of_components=2, device=device)
+    want = decompose(training_latent.values, centroids=centroids,
+                     method="PCA", number_of_components=2, device="cpu")
+    check_relative("PCA of the training latents", got[0], want[0])
+    for parameter, values in want[1]["prior"].items():
+        check_relative(f"PCA of the centroids' {parameter}",
+                       got[1]["prior"][parameter], values)
+    check_relative("IncrementalPCA of the test values", timed(
+        seconds, "IncrementalPCA (test values)", decompose, test_set.values,
+        method="PCA", device=device), decompose(test_set.values,
+                                                method="PCA", device="cpu"))
+
+    shutil.rmtree(ANALYSES_DIRECTORY, ignore_errors=True)
+    for included in (["metrics", "predictions"], ["latent_values"]):
+        files = timed(seconds, f"analyse_results ({', '.join(included)})",
+                      analyse_results, transformed, reconstructed, latent,
+                      model, included_analyses=included,
+                      analyses_directory=ANALYSES_DIRECTORY, device=device)
+    for path in expected_result_files(files["directory"], test_set.kind,
+                                      specifications):
+        if not os.path.isfile(path):
+            raise AssertionError(f"analyse_results wrote no {path}")
+        if path.endswith(".pkl.gz"):
+            with gzip.open(path) as f:
+                pickle.load(f)
+    print(f"analyses of the labelled GMVAE-NB: k-means accuracy "
+          f"{clustering['accuracies']['accuracy']}, ARI (clusters) "
+          f"{clustering['adjusted Rand index']['clusters']}, silhouette "
+          f"(clusters) {clustering['silhouette score']['clusters']}, "
+          f"(training latents, sampled) {sampled}; mini-batch k-means "
+          f"{card_kmeans.n_steps_} steps; seconds "
+          f"{ {k: round(v, 4) for k, v in seconds.items()} } ({card})",
+          flush=True)
+    return seconds
 
 
 def phase_data(counts, card):
-    """Phase 5b: the data engine on the card; returns the launches of (a)'s
-    and (b)'s training runs by kernel entry (the GMVAEs' NB kernels under
-    their cycled entries)."""
+    """Phase 5b: the data engine on the card, then phase 5c, the analyses
+    of (b)'s model; returns the launches of (a)'s and (b)'s training runs
+    by kernel entry (the GMVAEs' NB kernels under their cycled entries)."""
     shutil.rmtree(DATA_RUNS_DIRECTORY, ignore_errors=True)
     launches = phase_development(card)
-    for kernel, count in phase_labelled(counts, card).items():
+    labelled, run = phase_labelled(counts, card)
+    for kernel, count in labelled.items():
         entry = kernel if kernel == "gather_rows" else kernel + "_cycled"
         launches[entry] = launches.get(entry, 0) + count
+    phase_analyses(*run, card)
     return launches
 
 
@@ -3305,7 +3547,7 @@ def main() -> int:
     launches.update(phase_after(counts, card))
     # 5b. the data engine: NB's kernels over the golden VAE's 100 rows, the
     # golden GMVAE's 300 and the labelled GMVAE's 20,480 decoder rows, K1
-    # on their batches
+    # on their batches; 5c. the analyses of the labelled GMVAE
     for entry, count in phase_data(counts, card).items():
         if entry in launches:
             launches[entry] += count

@@ -28,14 +28,23 @@ per-epoch cluster accuracy) and evaluation (predicted labels):
     from scvae_tpu_torch import DataSet
     training, validation, test = DataSet("development").split()
 
+Trained models are evaluated, their labels predicted by k-means on the
+latent values or by the GMVAE's clusters, and their clustering metrics,
+summary statistics and decompositions computed on the device
+(``scvae_tpu_torch.analyses``); the command line runs ``train`` and
+``evaluate`` (``python -m scvae_tpu_torch``).  The figures and
+cross-analysis are not ported yet.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
-from scvae_tpu_torch.data import DataSet
-from scvae_tpu_torch.models import (
+__version__ = "0.1.0"
+
+from scvae_tpu_torch.data import DataSet  # noqa: E402
+from scvae_tpu_torch.models import (  # noqa: E402
     GaussianMixtureVariationalAutoencoder,
     VariationalAutoencoder,
 )
 
 __all__ = ["DataSet", "GaussianMixtureVariationalAutoencoder",
-           "VariationalAutoencoder"]
+           "VariationalAutoencoder", "__version__"]

@@ -31,8 +31,11 @@ CPU they run eagerly.  ``metrics_fetch="deferred"`` fetches each epoch's
 metrics one epoch late on the device path, as in the JAX package
 (``models/training.py``); streaming runs it as "sync", as JAX does.
 Without a log directory the run goes under the default ``models/``
-directory, as in the JAX package.  Meshes and intermediate analyses are
-not ported yet and raise ``NotImplementedError``.
+directory, as in the JAX package.  The status methods
+(``has_been_trained``, ``better_model_exists``, ``model_stopped_early``,
+``number_of_epochs_trained``, ``learning_curves``) read a run's files.
+Meshes and intermediate analyses are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from scvae_tpu_torch.models.utilities import (
     validate_model_parameters,
 )
 from scvae_tpu_torch.ops.special import lgamma
+from scvae_tpu_torch.utils.device import resolve_device
 
 _CONFIG_KWARGS = (
     "parameterise_latent_posterior", "analytical_kl_term",
@@ -85,18 +89,6 @@ def check_constructor_kwargs(kwargs: dict, config_kwargs) -> None:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
     if kwargs.get("mesh") is not None:
         raise NotImplementedError("device meshes are not ported yet")
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """``cuda`` unless the caller asks for the CPU; raises without a GPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
@@ -319,6 +311,39 @@ class VariationalAutoencoder:
         return naming.log_directory(base, self.name, run_id=run_id,
                                     early_stopping=early_stopping,
                                     best_model=best_model)
+
+    # -- status (JAX ``api.py:364-400``; they only read the run's files) ---
+
+    def _version_exists(self, run_id: str | None, **version) -> bool:
+        checkpoints.wait_for_pending_writes()
+        return checkpoints.checkpoint_exists(
+            self.log_directory(run_id=run_id, **version))
+
+    def has_been_trained(self, run_id: str | None = None) -> bool:
+        return self._version_exists(run_id)
+
+    def better_model_exists(self, run_id: str | None = None) -> bool:
+        return self._version_exists(run_id, best_model=True)
+
+    def model_stopped_early(self, run_id: str | None = None) -> bool:
+        return self._version_exists(run_id, early_stopping=True)
+
+    def number_of_epochs_trained(self, run_id: str | None = None,
+                                 early_stopping: bool = False,
+                                 best_model: bool = False) -> int:
+        return training.resume_start_epoch(self.log_directory(
+            run_id=run_id, early_stopping=early_stopping,
+            best_model=best_model))
+
+    def learning_curves(
+        self, run_id: str | None = None
+    ) -> dict[str, dict[str, list[float]]]:
+        """Per-epoch curves of each set ("training", "validation"), a GMVAE's
+        ``accuracy`` among them, as the run's ``learning_curves.json``
+        holds them."""
+        checkpoints.wait_for_pending_writes()
+        return checkpoints.load_learning_curves(
+            self.log_directory(run_id=run_id))
 
     # -- model hooks -------------------------------------------------------
 

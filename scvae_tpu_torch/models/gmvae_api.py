@@ -22,7 +22,10 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from scvae_tpu_torch.analyses.prediction import map_cluster_ids_to_label_ids
+from scvae_tpu_torch.analyses.prediction import (
+    labels_of_clusters,
+    map_cluster_ids_to_label_ids,
+)
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.models import checkpoints, gmvae, step
 from scvae_tpu_torch.models.api import (
@@ -293,13 +296,13 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         cluster_ids = rows["cluster_ids"].astype(np.int32)
         predicted_labels = None
         if evaluation_set.has_labels:
-            predicted_labels = _predicted_labels(
+            predicted_labels = labels_of_clusters(
                 evaluation_set.labels, evaluation_set.class_name_to_class_id,
                 evaluation_set.class_id_to_class_name,
                 evaluation_set.excluded_classes, cluster_ids)
         predicted_superset_labels = None
         if evaluation_set.has_superset_labels:
-            predicted_superset_labels = _predicted_labels(
+            predicted_superset_labels = labels_of_clusters(
                 evaluation_set.superset_labels,
                 evaluation_set.superset_class_name_to_superset_class_id,
                 evaluation_set.superset_class_id_to_superset_class_name,
@@ -340,13 +343,3 @@ def _label_ids(labels, to_id, excluded_names):
     excluded = [to_id[name] for name in (excluded_names or [])
                 if name in to_id]
     return label_ids, excluded
-
-
-def _predicted_labels(labels, to_id, to_name, excluded_names,
-                      cluster_ids) -> np.ndarray:
-    """The class name each example's cluster maps to by majority vote over
-    ``labels``, excluded classes left out of the vote."""
-    label_ids, excluded = _label_ids(labels, to_id, excluded_names)
-    predicted_ids = map_cluster_ids_to_label_ids(label_ids, cluster_ids,
-                                                 excluded)
-    return np.array([to_name[i] for i in predicted_ids])

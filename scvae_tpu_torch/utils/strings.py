@@ -1,12 +1,17 @@
 """String helpers with the reference's behaviour (the port's copy of
-``normalise_string`` and ``proper_string`` from
-``scvae_tpu/utils/strings.py``): they take part in distribution-name
-resolution, run naming and data-set names, so they must give the JAX
-package's strings exactly."""
+``format_time``, ``normalise_string``, ``proper_string`` and
+``capitalise_string`` from ``scvae_tpu/utils/strings.py``): they take part
+in distribution-name resolution, run naming, data-set names and the
+analyses' logs, so they must give the JAX package's strings exactly."""
 
 from __future__ import annotations
 
 import re
+import time
+
+
+def format_time(t: float) -> str:
+    return time.strftime("%Y-%m-%d %H:%M:%S %Z", time.localtime(t))
 
 
 def normalise_string(s: str) -> str:
@@ -33,3 +38,17 @@ def proper_string(
         if transformed in related:
             return proper
     return original_string
+
+
+def capitalise_string(original_string: str) -> str:
+    parts = re.split(pattern=r"(\s)", string=original_string, maxsplit=1)
+    if len(parts) == 3:
+        first_word, split_character, rest = parts
+        if re.match(pattern=r"[A-Z]", string=first_word):
+            capitalised_first = first_word
+        else:
+            capitalised_first = first_word.capitalize()
+        return capitalised_first + split_character + rest
+    if re.match(pattern=r"[A-Z]", string=original_string):
+        return original_string
+    return original_string.capitalize()

@@ -62,6 +62,12 @@ against the same callback on the CPU from the same parameters and set
 a training step on log-preprocessed values, which the model stages as
 float32 and K1 gathers from a float32 source.
 
+The analyses on the card (``analyses/``) against the same functions on
+the CPU: ARI equal, AMI within 1e-12; the silhouette, summary statistics
+and correlations within 1e-9; k-means and mini-batch k-means from the same
+seed the same partition; PCA, IncrementalPCA and the randomised SVD within
+1e-6.
+
 The compiled epoch (``models/step.py``): a small NB VAE and GMVAE trained
 for two epochs as CUDA graph replays against the same steps run eagerly
 from the same state and generator (parameters within 2e-5 of the largest,
@@ -1669,3 +1675,91 @@ def test_streamed_step_graphed_matches_eager(device):
     assert launches == launches_e
     assert launches["nb_forward"] == len(metrics)
     assert launches.get("gather_rows", 0) == 0
+
+
+# -- the analyses on the card against the CPU -----------------------------------
+
+
+def _analysis_blobs(seed, n, k, features, spread=6.0):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    centres = rs.randn(k, features) * spread
+    ids = rs.randint(0, k, n)
+    return centres[ids] + rs.randn(n, features), ids
+
+
+def test_clustering_metrics_match_cpu(device):
+    """ARI equal, AMI within 1e-12; the silhouette (float64 on both),
+    summary statistics and correlations within 1e-9 relative."""
+    import numpy as np
+    import scipy.sparse
+
+    from scvae_tpu_torch.analyses import metrics
+
+    values, ids = _analysis_blobs(0, 3_001, 7, 33)
+    labels = np.array([f"type {i}" for i in ids])
+    rs = np.random.RandomState(1)
+    predicted = np.where(rs.rand(len(ids)) < 0.7, ids, rs.randint(0, 9,
+                                                                  len(ids)))
+    assert metrics.adjusted_rand_index(
+        labels, predicted, ["type 2"], device=device) == (
+            metrics.adjusted_rand_index(labels, predicted, ["type 2"],
+                                        device="cpu"))
+    # float64 sums in another order
+    assert abs(metrics.adjusted_mutual_information(
+        labels, predicted, ["type 2"], device=device)
+        - metrics.adjusted_mutual_information(
+            labels, predicted, ["type 2"], device="cpu")) <= 1e-12
+    got = metrics.silhouette_score(values, predicted, device=device)
+    want = metrics.silhouette_score(values, predicted, device="cpu")
+    assert abs(got - want) <= 1e-9 * abs(want)
+    for x in (values, scipy.sparse.csr_matrix(np.where(values > 2, values,
+                                                       0))):
+        got = metrics.summary_statistics(x, tolerance=0.5, device=device)
+        want = metrics.summary_statistics(x, tolerance=0.5, device="cpu")
+        for key, value in want.items():
+            if key != "name":
+                assert abs(got[key] - value) <= 1e-9 * abs(value), key
+    got = metrics.correlation_matrix(values, axis="features", device=device)
+    want = metrics.correlation_matrix(values, axis="features", device="cpu")
+    assert np.abs(got - want).max() <= 1e-9
+
+
+@pytest.mark.parametrize("rows", [2_000, 12_000])
+def test_kmeans_matches_cpu(device, rows):
+    """k-means (up to 10,000 rows) and mini-batch k-means (above): the
+    same seed gives the same draws on both devices, so the same
+    partition (ARI ≥ 0.999) and inertia within 1e-9."""
+    import numpy as np
+
+    from scvae_tpu_torch.analyses import metrics
+    from scvae_tpu_torch.analyses.kmeans import KMeans, MiniBatchKMeans
+
+    values, _ = _analysis_blobs(2, rows, 10, 16)
+    estimator = KMeans if rows <= 10_000 else MiniBatchKMeans
+    got = estimator(10, seed=3, device=device).fit(values)
+    want = estimator(10, seed=3, device="cpu").fit(values)
+    assert metrics.adjusted_rand_index(got.labels_, want.labels_,
+                                       device="cpu") >= 0.999
+    assert abs(got.inertia_ - want.inertia_) <= 1e-9 * want.inertia_
+    np.testing.assert_array_equal(got.predict(values[:100]),
+                                  want.predict(values[:100]))
+
+
+@pytest.mark.parametrize("method,features", [("PCA", 40), ("PCA", 2_100),
+                                             ("SVD", 40)])
+def test_decompositions_match_cpu(device, method, features):
+    """PCA (exact), IncrementalPCA (over 2,000 features) and the
+    randomised SVD: transforms within 1e-6 relative (the SVD's by
+    absolute value)."""
+    import numpy as np
+
+    from scvae_tpu_torch.analyses import decompose
+
+    values, _ = _analysis_blobs(4, 500, 5, features)
+    got = decompose(values, method=method, seed=5, device=device)
+    want = decompose(values, method=method, seed=5, device="cpu")
+    if method == "SVD":
+        got, want = np.abs(got), np.abs(want)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

@@ -324,9 +324,9 @@ def test_chip_smoke_majority_vote_matches_the_package(seed, monkeypatch):
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
     from scvae_tpu_torch.analyses.prediction import (
+        labels_of_clusters,
         map_cluster_ids_to_label_ids,
     )
-    from scvae_tpu_torch.models import gmvae_api
 
     rng = np.random.RandomState(seed)
     names = np.array(["alpha", "beta", "delta", "gamma"])
@@ -340,7 +340,7 @@ def test_chip_smoke_majority_vote_matches_the_package(seed, monkeypatch):
     to_id = {name: i for i, name in enumerate(names)}
     mapping, accuracy = chip_smoke.majority_vote(labels, clusters, excluded)
     assert mapping[5] == "beta" and 6 not in mapping
-    predicted = gmvae_api._predicted_labels(
+    predicted = labels_of_clusters(
         labels, to_id, dict(enumerate(names)), excluded, clusters)
     np.testing.assert_array_equal(
         predicted, [mapping.get(c, names[0]) for c in clusters.tolist()])
