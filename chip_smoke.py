@@ -162,7 +162,27 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              the 2,048-gene test values (1e-6); ``analyse_results`` with
              "metrics" and "predictions", then "latent_values", into
              ``build/analyses``: each expected file written and its
-             pickles loading; each part's seconds on the card.
+             pickles loading; each part's seconds on the card;
+5d. figures' computing parts — (a) the headline VAE-NB on phase 5's split
+             for three epochs through ``train(intermediate_analyser=…)``
+             (an analyser that records what it is given: the card's
+             machine has no matplotlib): called at the JAX package's
+             epochs (``log_spaced_indices(3)``: every epoch), the last
+             epoch's 2,000 × 100 latent values equal to ``latent_means``
+             of the stored parameters on the CPU (within the small step's
+             bound), NB's K2 and K3's three kernels once per step and K1;
+             (b) ICA of 5c's 6,858 test latents in float64: its first 20
+             fixed-point steps against the CPU, the whole run (200 steps:
+             it does not converge on these near-Gaussian latents) timed;
+             t-SNE's P, PCA start and first gradient on a
+             2,000-row sample of them against the CPU, then the whole
+             descent there (KL(P ‖ Q) within 3%: the CPU's own moves by
+             1.2% when the inputs move by a float32 step; 10-nearest-
+             neighbour preservation within 0.02 of the CPU's); t-SNE of all 6,858
+             test latents and of the 55,548 training latents on the card
+             alone, their seconds, KL and preservation; (c) the distance
+             matrix of 1,000 test latents (``torch.cdist``) against the
+             CPU; each part's seconds on a line of its own.
 
 Phase 3 also holds the grouped kernels K4/K5 of every base family, bf16
 and float32 (h, W and da as three bf16 terms), against their plain
@@ -3257,10 +3277,10 @@ KMEANS_MINIMUM_ARI = 0.999
 def timed(seconds, part, fn, *args, **kwargs):
     """``fn``'s result, its wall seconds (the device synchronised) kept
     under ``part``."""
-    torch.cuda.synchronize()
+    synchronise()
     start = time.perf_counter()
     value = fn(*args, **kwargs)
-    torch.cuda.synchronize()
+    synchronise()
     seconds[part] = time.perf_counter() - start
     return value
 
@@ -3325,7 +3345,8 @@ def expected_result_files(directory, kind, specifications):
 def phase_analyses(model, result, sets, card, device="cuda"):
     """Phase 5c: the analyses of phase 5b (b)'s labelled GMVAE-NB on
     ``device``, each held against the same function on the CPU; returns
-    each part's seconds on ``device``."""
+    each part's seconds on ``device`` and the (training, test) latent
+    values."""
     import gzip
     import pickle
 
@@ -3463,21 +3484,258 @@ def phase_analyses(model, result, sets, card, device="cuda"):
           f"{card_kmeans.n_steps_} steps; seconds "
           f"{ {k: round(v, 4) for k, v in seconds.items()} } ({card})",
           flush=True)
-    return seconds
+    return seconds, (training_latent.values, test_latent.values)
 
 
 def phase_data(counts, card):
     """Phase 5b: the data engine on the card, then phase 5c, the analyses
     of (b)'s model; returns the launches of (a)'s and (b)'s training runs
-    by kernel entry (the GMVAEs' NB kernels under their cycled entries)."""
+    by kernel entry (the GMVAEs' NB kernels under their cycled entries)
+    and 5c's (training, test) latent values."""
     shutil.rmtree(DATA_RUNS_DIRECTORY, ignore_errors=True)
     launches = phase_development(card)
     labelled, run = phase_labelled(counts, card)
     for kernel, count in labelled.items():
         entry = kernel if kernel == "gather_rows" else kernel + "_cycled"
         launches[entry] = launches.get(entry, 0) + count
-    phase_analyses(*run, card)
+    _, latents = phase_analyses(*run, card)
+    return launches, latents
+
+
+# Phase 5d: the intermediate analyses and the figure analyses' computing
+# parts.  t-SNE's checks against the CPU run on a sample of the test
+# latents (the CPU takes ~0.25 s a step at 6,858 rows): P, the start and
+# the first gradient, then the whole descent's KL(P ‖ Q) and 10-nearest-
+# neighbour preservation.
+INTERMEDIATE_DIRECTORY = os.path.join(BUILD, "intermediate_training")
+INTERMEDIATE_ROWS = 2_000
+TSNE_SAMPLE = 2_000
+# ICA's fixed point on these near-Gaussian latents (singular values 81.0,
+# 76.5, 74.2, …) does not converge in 200 steps, and a rounding difference
+# grows until the 200th step's rotation parts (card against CPU O(1); JAX
+# against the port on the CPU 2%): the steps are held to the 20th (read
+# 6e-11), the whole run timed on the card alone.
+ICA_CHECKED_STEPS = 20
+# The first gradient: float32 sums over every pair in another order, and
+# the repulsion's y_i Σq² − Σq² y_j in float32.
+TSNE_GRADIENT_RTOL = 1e-4
+# The sample's P and gradient on the card once more with chunks of 65
+# rows for the neighbours (2,000 float64 distances a row) and 131 for the
+# repulsion (2,000 float32 kernel values a row), against the CPU's one
+# chunk: the chunk offsets and the normaliser summed over chunks.
+TSNE_SMALL_CHUNK_BYTES = 1 << 20
+# KL(P ‖ Q) after the whole descent: on these near-Gaussian latents the
+# descent is chaotic, and the CPU's own KL moves over 3.1737–3.2115 (1.2%)
+# when the inputs move by one float32 step; card and CPU read 0.16% and
+# 0.85% apart in two runs.
+TSNE_KL_RTOL = 0.03
+TSNE_NEIGHBOURS = 10
+TSNE_PRESERVATION_ATOL = 0.02
+
+
+def phase_intermediate(counts, card, device="cuda"):
+    """Phase 5d (a): the headline VAE-NB on phase 5's split for three
+    epochs on ``device`` with an intermediate analyser that records what it
+    is given (the card's machine has no matplotlib); returns the run's
+    launches."""
+    from scvae_tpu_torch import VariationalAutoencoder, ops
+    from scvae_tpu_torch.models import vae
+    from scvae_tpu_torch.utils.profiling import log_spaced_indices
+
+    shutil.rmtree(INTERMEDIATE_DIRECTORY, ignore_errors=True)
+    train, valid = split_counts(counts)
+    model = VariationalAutoencoder(
+        feature_size=N_GENES, latent_size=LATENT,
+        hidden_sizes=[HIDDEN, HIDDEN],
+        reconstruction_distribution="negative binomial",
+        log_directory=INTERMEDIATE_DIRECTORY)
+    calls = []
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    result = model.train(train, valid, number_of_epochs=AFTER_EPOCHS,
+                         minibatch_size=BATCH, seed=0, device=device,
+                         verbose=False, analyses_directory="recorded",
+                         intermediate_analyser=lambda **call: calls.append(
+                             call))
+    synchronise(device)
+    seconds = time.perf_counter() - start
+    launches = ops.launch_counts()
+    check_step_launches("intermediate VAE-NB", launches,
+                        result.steps_per_epoch * AFTER_EPOCHS)
+    epochs = [call["epoch"] for call in calls]
+    want = log_spaced_indices(AFTER_EPOCHS).tolist()
+    log(f"check intermediate epochs: {epochs} against {want}")
+    if epochs != want:
+        raise AssertionError(f"intermediate analyses at epochs {epochs}, "
+                             f"the JAX package's at {want}")
+    last = calls[-1]
+    if not (last["latent_values"].shape == (INTERMEDIATE_ROWS, LATENT)
+            and last["model_name"] == model.name
+            and last["analyses_directory"] == "recorded"):
+        raise AssertionError("intermediate analyser's arguments: "
+                             f"{last['latent_values'].shape}, "
+                             f"{last['model_name']}")
+    state, _ = model._restore(None, False, False, torch.device("cpu"))
+    x = torch.from_numpy(
+        train[:INTERMEDIATE_ROWS].toarray().astype(np.float32))
+    check_close("intermediate latent values (last epoch) against the "
+                "stored parameters on the CPU",
+                torch.from_numpy(last["latent_values"]),
+                vae.latent_means(model.config, state.params,
+                                 state.model_state, x), AUTOGRAD_RTOL)
+    print(f"intermediate VAE-NB: analyses at epochs {epochs}, "
+          f"{last['latent_values'].shape} latent values each; training "
+          f"with the analyser {seconds:.4f} s for {AFTER_EPOCHS} epochs; "
+          f"launches {({k: v for k, v in launches.items() if v})} ({card})",
+          flush=True)
+    print(f"seconds 5d (a) intermediate training: {seconds:.4f}", flush=True)
     return launches
+
+
+def tsne_kl_divergence(p, embedding, device) -> float:
+    """KL(P ‖ Q) of a 2-D ``embedding`` (N, 2) under a t-SNE fit's sparse
+    P (``TSNE.p_``), with Q the Student-t kernel (one degree of freedom)
+    normalised exactly over every pair, in float64 row chunks."""
+    from scvae_tpu_torch.analyses.tsne import _row_chunks, _squared_distances
+
+    y = torch.as_tensor(np.asarray(embedding), device=device).double()
+    n = y.shape[0]
+    rows, columns = p.indices()
+    difference = y[rows] - y[columns]
+    q = 1.0 / (1.0 + (difference * difference).sum(1))
+    sum_q = torch.zeros((), dtype=torch.float64, device=y.device)
+    for start, stop in _row_chunks(n, n * 8 * y.shape[1]):
+        block = 1.0 / (1.0 + _squared_distances(y, slice(start, stop)))
+        sum_q += block.sum() - (stop - start)
+    values = p.values()
+    return float(torch.sum(values * torch.log(values * sum_q / q)))
+
+
+def neighbour_preservation(values, embedding, k, device) -> float:
+    """The mean share of each row's ``k`` nearest neighbours among the rows
+    of ``values`` that are also among its ``k`` nearest in ``embedding``."""
+    from scvae_tpu_torch.analyses.tsne import nearest_neighbours
+
+    high, _ = nearest_neighbours(
+        torch.from_numpy(np.asarray(values, np.float64)).to(device), k)
+    low, _ = nearest_neighbours(
+        torch.from_numpy(np.asarray(embedding, np.float64)).to(device), k)
+    shared = (high[:, :, None] == low[:, None, :]).any(-1).sum(1)
+    return float(shared.double().mean()) / k
+
+
+def tsne_run(values, device):
+    """A 2-D t-SNE of ``values`` on ``device``: (embedding, seconds, KL(P ‖
+    Q) of the embedding, 10-nearest-neighbour preservation)."""
+    from scvae_tpu_torch.analyses.tsne import TSNE
+
+    model = TSNE(2, 42, device)
+    synchronise(device)
+    start = time.perf_counter()
+    embedding = model.fit_transform(values)
+    synchronise(device)
+    seconds = time.perf_counter() - start
+    return (embedding, seconds,
+            tsne_kl_divergence(model.p_, embedding, device),
+            neighbour_preservation(values, embedding, TSNE_NEIGHBOURS,
+                                   device))
+
+
+def synchronise(device="cuda") -> None:
+    """Wait for the card, where there is one and ``device`` is it."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def phase_embeddings(training_latent, test_latent, card, device="cuda"):
+    """Phase 5d (b) and (c): ICA and t-SNE of phase 5c's test latents and
+    t-SNE of its training latents on ``device``, and the distance matrix
+    of 1,000 rows, against the CPU; returns each part's seconds."""
+    from scvae_tpu_torch.analyses.decomposition import FastICA
+    from scvae_tpu_torch.analyses.subanalyses import pairwise_distances
+    from scvae_tpu_torch.analyses import tsne
+    from scvae_tpu_torch.analyses.tsne import TSNE, _SparseObjective
+
+    seconds = {}
+    test64 = np.asarray(test_latent, np.float64)
+    steps = {}
+    for where in (device, "cpu"):
+        ica = FastICA(2, 42, where)
+        ica.MAXIMUM_ITERATIONS = ICA_CHECKED_STEPS
+        steps[where] = ica.fit_transform(test64)
+    check_relative(f"ICA of the test latents (float64), "
+                   f"{ICA_CHECKED_STEPS} fixed-point steps",
+                   steps[device], steps["cpu"])
+    ica = FastICA(2, 42, device)
+    got = timed(seconds, "ICA (test latents)", ica.fit_transform, test64)
+    if not (got.shape == (test64.shape[0], 2) and np.isfinite(got).all()):
+        raise AssertionError(f"ICA of the test latents: {got.shape}")
+    print(f"ICA of {test64.shape[0]} test latents: {ica.n_iter_} "
+          f"fixed-point steps ({card})", flush=True)
+
+    sample = np.sort(np.random.RandomState(0).choice(
+        test_latent.shape[0], TSNE_SAMPLE, replace=False))
+    values = np.asarray(test_latent[sample])
+    parts = {}
+    whole = tsne.CHUNK_BYTES
+    for where, chunk in ((device, whole), (device, TSNE_SMALL_CHUNK_BYTES),
+                         ("cpu", whole)):
+        tsne.CHUNK_BYTES = chunk
+        try:
+            model = TSNE(2, 42, where)
+            x = torch.from_numpy(values).to(where)
+            p = model.joint_probabilities(x)
+            y = model.initial_embedding(x.double())
+            _, gradient = _SparseObjective(p, 1)(y, False)
+        finally:
+            tsne.CHUNK_BYTES = whole
+        parts[where, chunk] = (p.to_dense().cpu(), y.cpu(), gradient.cpu())
+    for chunk in (whole, TSNE_SMALL_CHUNK_BYTES):
+        for index, name, rtol in ((0, "P", ANALYSIS_RTOL),
+                                  (1, "PCA start", ANALYSIS_RTOL),
+                                  (2, "first gradient", TSNE_GRADIENT_RTOL)):
+            check_close(f"t-SNE {name} ({TSNE_SAMPLE} test latents, chunks "
+                        f"of {chunk} bytes)", parts[device, chunk][index],
+                        parts["cpu", whole][index], rtol)
+    _, card_seconds, card_kl, card_kept = tsne_run(values, device)
+    _, cpu_seconds, cpu_kl, cpu_kept = tsne_run(values, "cpu")
+    log(f"check t-SNE ({TSNE_SAMPLE} test latents): KL {card_kl} on the "
+        f"card, {cpu_kl} on the CPU (limit {TSNE_KL_RTOL} relative); "
+        f"{TSNE_NEIGHBOURS}-NN preservation {card_kept} / {cpu_kept} "
+        f"(limit {TSNE_PRESERVATION_ATOL})")
+    if not (abs(card_kl - cpu_kl) <= TSNE_KL_RTOL * cpu_kl
+            and abs(card_kept - cpu_kept) <= TSNE_PRESERVATION_ATOL):
+        raise AssertionError("t-SNE on the card parts from the CPU's: KL "
+                             f"{card_kl} / {cpu_kl}, preservation "
+                             f"{card_kept} / {cpu_kept}")
+    seconds[f"t-SNE ({TSNE_SAMPLE} test latents)"] = card_seconds
+    seconds[f"t-SNE ({TSNE_SAMPLE} test latents, CPU)"] = cpu_seconds
+    runs = {}
+    for label, latents in (("test", test_latent),
+                           ("training", training_latent)):
+        embedding, run_seconds, kl, kept = tsne_run(np.asarray(latents),
+                                                    device)
+        if not (embedding.shape == (latents.shape[0], 2)
+                and np.isfinite(embedding).all() and np.isfinite(kl)):
+            raise AssertionError(f"t-SNE of the {label} latents: "
+                                 f"{embedding.shape}, KL {kl}")
+        seconds[f"t-SNE ({latents.shape[0]} {label} latents)"] = run_seconds
+        runs[label] = (latents.shape[0], kl, kept)
+
+    rows = test64[:1_000]
+    got = timed(seconds, "distances (1,000 test latents)",
+                pairwise_distances, rows, device=device)
+    check_relative("distances of 1,000 test latents",
+                   got, pairwise_distances(rows, "cpu"))
+    for part, value in seconds.items():
+        print(f"seconds 5d {part}: {value:.4f}", flush=True)
+    print("embeddings: " + "; ".join(
+        f"t-SNE of {n} {label} latents: KL {kl:.6g}, {TSNE_NEIGHBOURS}-NN "
+        f"preservation {kept:.4f}" for label, (n, kl, kept) in runs.items())
+        + f"; the {TSNE_SAMPLE}-row sample: KL {card_kl:.6g} (CPU "
+        f"{cpu_kl:.6g}), preservation {card_kept:.4f} (CPU {cpu_kept:.4f}) "
+        f"({card})", flush=True)
+    return seconds
 
 
 def main() -> int:
@@ -3548,9 +3806,16 @@ def main() -> int:
     # 5b. the data engine: NB's kernels over the golden VAE's 100 rows, the
     # golden GMVAE's 300 and the labelled GMVAE's 20,480 decoder rows, K1
     # on their batches; 5c. the analyses of the labelled GMVAE
-    for entry, count in phase_data(counts, card).items():
+    data_launches, latents = phase_data(counts, card)
+    for entry, count in data_launches.items():
         if entry in launches:
             launches[entry] += count
+    # 5d. the intermediate analyses (VAE-NB: NB's kernels at 2,048 rows, K1)
+    # and the figure analyses' computing parts on 5c's latents
+    for entry, count in phase_intermediate(counts, card).items():
+        if entry in launches:
+            launches[entry] += count
+    phase_embeddings(*latents, card)
     for name in kernels:
         if "_grouped_" in name and not launches.get(name):
             raise AssertionError(f"{name} was not launched after training")

@@ -1,11 +1,12 @@
-"""Analyses of data sets and trained models (the ported parts of
-``scvae_tpu/analyses/``): metrics, label prediction, decompositions and the
-metric and prediction files of the result analyses, computed on a device.
-The figures and cross-analysis are not ported yet."""
+"""Analyses of data sets and trained models (the port of
+``scvae_tpu/analyses/``): metrics, label prediction, decompositions (PCA,
+SVD, ICA, t-SNE), the orchestrators and their figures; computed on a
+device, drawn on the host.  Cross-analysis is not ported yet."""
 
 from scvae_tpu_torch.analyses.analyses import (
     ANALYSIS_GROUPS,
     analyse_data,
+    analyse_intermediate_results,
     analyse_model,
     analyse_results,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "PREDICTION_METHODS",
     "PredictionSpecifications",
     "analyse_data",
+    "analyse_intermediate_results",
     "analyse_model",
     "analyse_results",
     "decompose",

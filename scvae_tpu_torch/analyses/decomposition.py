@@ -6,8 +6,8 @@ transforms of other value sets and projection of Gaussian-mixture centroids
 
 The JAX package calls scikit-learn; these are scikit-learn 1.9.0's
 estimators computed with PyTorch on a device (CUDA unless ``"cpu"``), in
-float64, with its sign convention (``svd_flip``: the largest |entry| of
-each component is positive):
+float64 (ICA and t-SNE as below), with its sign convention (``svd_flip``:
+the largest |entry| of each component is positive):
 
 * PCA of a dense set of at most 2,000 features: exact, from the SVD of the
   centred values;
@@ -18,11 +18,22 @@ each component is positive):
 * SVD: ``TruncatedSVD``'s randomised algorithm (10 oversamples, 5 power
   iterations normalised by LU, the smaller side first), its Gaussian test
   matrix drawn from ``numpy.random.RandomState(seed)`` (None: a fresh
-  generator, as the JAX package's is unseeded).
+  generator, as the JAX package's is unseeded);
+* ICA: ``FastICA(n_components, random_state)`` with its defaults (the
+  parallel algorithm, log cosh, at most 200 iterations to 1e-4,
+  unit-variance whitening by the SVD with scikit-learn's sign convention
+  on u, symmetric decorrelation by ``torch.linalg.eigh``), its initial
+  unmixing matrix drawn as ``RandomState(seed).normal(size=(k, k))``, in
+  the dtype scikit-learn computes in (float32 for float32 inputs, else
+  float64);
+* t-SNE: ``TSNE(n_components, method="barnes_hut" if n_components < 4
+  else "exact", random_state)`` (``tsne.py``); it transforms no other value set, as in the JAX package.
 
+ICA and t-SNE draw from seed 42, as the JAX package's ``random_state=42``,
+or from ``seed`` with ``random=True`` (the JAX package's unseeded switch).
 Results come back as numpy arrays of the float dtype scikit-learn gives
-(float32 from PCA and SVD of float32 inputs, else float64).  ICA and t-SNE
-are not ported yet and raise ``NotImplementedError``.
+(float32 from PCA, SVD and ICA of float32 inputs and from t-SNE, else
+float64).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
+from scvae_tpu_torch.analyses.tsne import TSNE
 from scvae_tpu_torch.defaults import get_default
 from scvae_tpu_torch.utils.device import (
     float64_tensor,
@@ -162,6 +174,28 @@ class IncrementalPCA(_Projection):
         return self.transform(values)
 
 
+def _randomised_svd(m: torch.Tensor, n_components: int, n_iter: int,
+                    seed) -> tuple[torch.Tensor, torch.Tensor]:
+    """scikit-learn's ``_randomized_svd`` (10 oversamples, power iterations
+    normalised by LU, the smaller side first, no sign flip): (u, vt)."""
+    transpose = m.shape[0] < m.shape[1]
+    if transpose:
+        m = m.T
+    q = torch.from_numpy(random_state(seed).normal(
+        size=(m.shape[1], n_components + 10))).to(m.device)
+    for _ in range(n_iter):
+        permutation, lower, _ = torch.linalg.lu(m @ q)
+        q = permutation @ lower
+        permutation, lower, _ = torch.linalg.lu(m.T @ q)
+        q = permutation @ lower
+    q, _ = torch.linalg.qr(m @ q)
+    u_hat, _, vt = torch.linalg.svd(q.T @ m, full_matrices=False)
+    u = q @ u_hat
+    if transpose:
+        return vt[:n_components].T, u[:, :n_components].T
+    return u[:, :n_components], vt[:n_components]
+
+
 class TruncatedSVD(_Projection):
     """scikit-learn's ``TruncatedSVD(n_components)`` (randomised, 5
     iterations, 10 oversamples); no centring."""
@@ -172,26 +206,85 @@ class TruncatedSVD(_Projection):
 
     def fit_transform(self, values) -> np.ndarray:
         self.dtype = _output_dtype(values)
-        m = float64_tensor(values, self.device)
-        transpose = m.shape[0] < m.shape[1]
-        if transpose:
-            m = m.T
-        q = torch.from_numpy(random_state(self.seed).normal(
-            size=(m.shape[1], self.n_components + 10))).to(self.device)
-        for _ in range(5):
-            permutation, lower, _ = torch.linalg.lu(m @ q)
-            q = permutation @ lower
-            permutation, lower, _ = torch.linalg.lu(m.T @ q)
-            q = permutation @ lower
-        q, _ = torch.linalg.qr(m @ q)
-        u_hat, _, vt = torch.linalg.svd(q.T @ m, full_matrices=False)
-        u = q @ u_hat
-        if transpose:
-            u, vt = vt[:self.n_components].T, u[:, :self.n_components].T
-        else:
-            u, vt = u[:, :self.n_components], vt[:self.n_components]
+        u, vt = _randomised_svd(float64_tensor(values, self.device),
+                                self.n_components, 5, self.seed)
         _, self.components = _svd_flip(u, vt)
         return self.transform(values)
+
+
+class RandomisedPCA(_Projection):
+    """scikit-learn's ``PCA(n_components, random_state=seed)`` where its
+    "auto" solver is the randomised one: the centred values' randomised
+    SVD (7 power iterations below a tenth of the smaller side, else 4)."""
+
+    def __init__(self, n_components: int, seed, device):
+        super().__init__(n_components, device)
+        self.seed = seed
+
+    def fit_transform(self, values) -> np.ndarray:
+        self.dtype = _output_dtype(values)
+        x = float64_tensor(values, self.device)
+        self.mean = x.mean(0)
+        n_iter = 7 if self.n_components < 0.1 * min(x.shape) else 4
+        u, vt = _randomised_svd(x - self.mean, self.n_components, n_iter,
+                                self.seed)
+        _, self.components = _svd_flip(u, vt)
+        return self.transform(values)
+
+
+def _symmetric_decorrelation(w: torch.Tensor) -> torch.Tensor:
+    """(W Wᵀ)^(-1/2) W through ``torch.linalg.eigh``."""
+    s, u = torch.linalg.eigh(w @ w.T)
+    s = torch.clamp(s, min=torch.finfo(w.dtype).tiny)
+    return (u * (1.0 / torch.sqrt(s))) @ u.T @ w
+
+
+class FastICA(_Projection):
+    """scikit-learn's ``FastICA(n_components, random_state=seed)``;
+    ``n_iter_`` is the number of fixed-point steps taken."""
+
+    MAXIMUM_ITERATIONS = 200
+    TOLERANCE = 1e-4
+
+    def __init__(self, n_components: int, seed, device):
+        super().__init__(n_components, device)
+        self.seed = seed
+
+    def fit_transform(self, values) -> np.ndarray:
+        if scipy.sparse.issparse(values):
+            values = values.toarray()
+        values = np.asarray(values)
+        self.dtype = np.dtype(np.float32 if values.dtype == np.float32
+                              else np.float64)
+        xt = torch.from_numpy(values.astype(self.dtype)).to(self.device).T
+        n_features, n_samples = xt.shape
+        k = min(self.n_components, n_samples, n_features)
+        mean = xt.mean(-1)
+        xt = xt - mean[:, None]
+        u, d = torch.linalg.svd(xt, full_matrices=False)[:2]
+        u = u * torch.sign(u[0])
+        whitening = (u / d).T[:k]
+        x1 = whitening @ xt * np.sqrt(n_samples)
+        w = _symmetric_decorrelation(torch.from_numpy(
+            random_state(self.seed).normal(size=(k, k)).astype(self.dtype)
+        ).to(self.device))
+        for self.n_iter_ in range(1, self.MAXIMUM_ITERATIONS + 1):
+            gwtx = torch.tanh(w @ x1)
+            g_wtx = (1.0 - gwtx * gwtx).mean(-1)
+            w1 = _symmetric_decorrelation(gwtx @ x1.T / float(n_samples)
+                                          - g_wtx[:, None] * w)
+            limit = float(torch.max(torch.abs(
+                torch.abs((w1 * w).sum(1)) - 1.0)))
+            w = w1
+            if limit < self.TOLERANCE:
+                break
+        sources = (w @ whitening @ xt).T
+        deviations = sources.std(0, correction=0, keepdim=True)
+        sources = sources / deviations
+        w = w / deviations.T
+        self.components = (w @ whitening).double()
+        self.mean = mean.double()
+        return sources.cpu().numpy()
 
 
 def decompose(
@@ -209,8 +302,9 @@ def decompose(
 
     Returns ``values_decomposed``, plus the transformed ``other_value_sets``
     and/or ``centroids`` when those were given.  ``seed`` seeds the SVD's
-    randomised range finder (``random`` is the JAX package's switch of the
-    fixed seed of ICA and t-SNE, which are not ported yet)."""
+    randomised range finder; ICA and t-SNE draw from seed 42, or from
+    ``seed`` with ``random`` (the JAX package's switch of that fixed
+    seed)."""
     if method is None:
         method = get_default("analyses", "decomposition_method")
     method = proper_string(normalise_string(method),
@@ -219,6 +313,7 @@ def decompose(
         number_of_components = get_default(
             "analyses", "decomposition_dimensionality"
         )
+    method_seed = seed if random else DECOMPOSITION_RANDOM_SEED
 
     if method == "PCA":
         if (
@@ -230,9 +325,10 @@ def decompose(
             model = IncrementalPCA(number_of_components, device)
     elif method == "SVD":
         model = TruncatedSVD(number_of_components, seed, device)
-    elif method in ("ICA", "t-SNE"):
-        raise NotImplementedError(
-            f"the {method} decomposition is not ported yet")
+    elif method == "ICA":
+        model = FastICA(number_of_components, method_seed, device)
+    elif method == "t-SNE":
+        model = TSNE(number_of_components, method_seed, device)
     else:
         raise ValueError(f"Method `{method}` not found.")
 
@@ -244,7 +340,7 @@ def decompose(
         other_value_sets = {"unknown": other_value_sets}
         wrapped_other = True
 
-    if other_sets_given and other_value_sets:
+    if other_sets_given and other_value_sets and method != "t-SNE":
         other_decomposed = {
             name: (model.transform(vals) if vals is not None else None)
             for name, vals in other_value_sets.items()

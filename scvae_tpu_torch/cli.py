@@ -7,11 +7,12 @@
         -P kmeans -K 3 --included-analyses metrics predictions latent_values
 
 Models and analyses run on CUDA; ``main(argv, device="cpu")`` runs them on
-the CPU.  Loading a data set goes through ``DataSet.load``'s HDF5 cache,
-which needs ``h5py``.  Not ported yet, and so raising
-``NotImplementedError``: ``cross-analyse``, ``train`` with an analyses
-directory (the intermediate analyses), every analysis that draws a figure
-(among them the default "standard" group's), and several devices.
+the CPU.  Figures are drawn on the host and need matplotlib.  Loading a
+data set goes through ``DataSet.load``'s HDF5 cache, which needs
+``h5py``.  ``train -A`` runs the intermediate analyses at log-spaced
+epochs, then the model analyses, as the JAX package does.  Not ported yet,
+and so raising ``NotImplementedError``: ``cross-analyse`` and several
+devices.
 """
 
 from __future__ import annotations
@@ -224,8 +225,7 @@ def analyse(
     device=None,
     **_ignored,
 ):
-    """Data-only analyses (reference ``cli.py:47-108``): the summary
-    statistics ("metrics"); the figure analyses raise."""
+    """Data-only analyses (reference ``cli.py:47-108``)."""
     title("Data analysis")
     data_set, subsets = _load_data_set(
         data_set_file_or_name,
@@ -309,11 +309,9 @@ def train(
     device=None,
     **_ignored,
 ):
-    """Train subcommand (reference ``cli.py:111-264``)."""
-    if analyses_directory:
-        raise NotImplementedError(
-            "train with an analyses directory (-A: the intermediate "
-            "analyses and the learning-curve figures) is not ported yet")
+    """Train subcommand (reference ``cli.py:111-264``); with ``-A`` the
+    intermediate analyses at log-spaced epochs and the model analyses after
+    training (JAX ``cli.py:310-380``)."""
     title("Model training")
     data_set, subsets = _load_data_set(
         data_set_file_or_name,
@@ -332,6 +330,15 @@ def train(
         training_set, validation_set, _ = subsets
     else:
         training_set, validation_set = data_set, None
+
+    if analyses_directory:
+        analyses_directory = _data_set_analyses_directory(
+            analyses_directory,
+            training_set,
+            split_data_set,
+            splitting_method,
+            splitting_fraction,
+        )
 
     model = _setup_model(
         training_set,
@@ -360,6 +367,24 @@ def train(
         models_directory=models_directory,
     )
     heading(f"Training {model.type} model: {model.name}")
+
+    intermediate_analyser = None
+    if analyses_directory:
+        def intermediate_analyser(
+            epoch, latent_values, data_set, model_name, model_type,
+            run_id, analyses_directory=analyses_directory, **_ignored,
+        ):
+            analyses.analyse_intermediate_results(
+                epoch=epoch,
+                latent_values=latent_values,
+                data_set=data_set,
+                model_name=model_name,
+                model_type=model_type,
+                run_id=run_id,
+                analyses_directory=analyses_directory,
+                device=device,
+            )
+
     model.train(
         training_set,
         validation_set,
@@ -369,11 +394,22 @@ def train(
         run_id=run_id or None,
         new_run=bool(new_run),
         reset_training=bool(reset_training),
+        intermediate_analyser=intermediate_analyser,
+        analyses_directory=analyses_directory,
         caches_directory=caches_directory,
         number_of_devices=number_of_devices,
         model_parallelism=model_parallelism,
         device=device,
     )
+    if analyses_directory:
+        # the library's default analyses: the train subcommand has no
+        # --included-analyses flag (JAX cli.py:370-379)
+        analyses.analyse_model(
+            model, run_id=run_id or None,
+            included_analyses=None,
+            analyses_directory=analyses_directory,
+            device=device,
+        )
     return 0
 
 
@@ -523,6 +559,7 @@ def evaluate(
         model, run_id=run_id or None,
         included_analyses=included_analyses,
         analyses_directory=analyses_directory,
+        device=device,
     )
 
     subset_indices = indices_for_evaluation_subset(evaluation_set)

@@ -34,8 +34,9 @@ Without a log directory the run goes under the default ``models/``
 directory, as in the JAX package.  The status methods
 (``has_been_trained``, ``better_model_exists``, ``model_stopped_early``,
 ``number_of_epochs_trained``, ``learning_curves``) read a run's files.
-Meshes and intermediate analyses are not ported yet and raise
-``NotImplementedError``.
+``train(intermediate_analyser=…)`` hands an analyser the training set's
+latent means at log-spaced epochs, as the JAX package does.  Meshes are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -260,6 +261,10 @@ class VariationalAutoencoder:
     # -- identity ----------------------------------------------------------
 
     @property
+    def latent_distribution_name(self) -> str:
+        return self.config.latent_distribution
+
+    @property
     def number_of_latent_clusters(self) -> int:
         return 1
 
@@ -389,6 +394,59 @@ class VariationalAutoencoder:
         like = torch.zeros((), device=device)
         p_z = vae._build_prior(self.config, like)
         return p_z.sample(generator, (sample_size, self.config.latent_size)), None
+
+    def _latent_values_fn(self):
+        """(params, model_state, x) → the latent means of the intermediate
+        analyses."""
+        config = self.config
+
+        def latents(params, model_state, x):
+            return vae.latent_means(config, params, model_state, x)
+
+        return latents
+
+    def _make_intermediate_callback(self, intermediate_analyser,
+                                    training_set: DataSet,
+                                    number_of_epochs: int,
+                                    run_id: str | None,
+                                    analyses_directory: str | None,
+                                    device: torch.device):
+        """An epoch callback that hands ``intermediate_analyser`` the latent
+        means of the training set's first min(N, 2,000) rows at log-spaced
+        epochs (JAX ``api.py:603-656``; the reference's
+        ``variational_autoencoder.py:1479-1547``): the preprocessed values
+        where the set has them, densified.  The rows are staged on
+        ``device`` once, here, whatever the training data's placement; the
+        callback runs eagerly between epochs, outside the captured step,
+        and draws no random numbers."""
+        from scvae_tpu_torch.utils.profiling import log_spaced_indices
+
+        epochs = set(log_spaced_indices(number_of_epochs).tolist())
+        latents_fn = self._latent_values_fn()
+        values = (training_set.preprocessed_values
+                  if training_set.preprocessed_values is not None
+                  else training_set.values)
+        rows = values[:min(training_set.number_of_examples, 2000)]
+        if scipy.sparse.issparse(rows):
+            rows = rows.toarray()
+        x = torch.from_numpy(np.asarray(rows, np.float32)).to(device)
+
+        def callback(epoch, train_state, epoch_metrics):
+            if epoch not in epochs:
+                return
+            latent_values = latents_fn(train_state.params,
+                                       train_state.model_state, x)
+            intermediate_analyser(
+                epoch=epoch,
+                latent_values=latent_values.cpu().numpy(),
+                data_set=training_set,
+                model_name=self.name,
+                model_type=self.type,
+                run_id=run_id,
+                analyses_directory=analyses_directory,
+            )
+
+        return callback
 
     # -- internals ---------------------------------------------------------
 
@@ -529,10 +587,11 @@ class VariationalAutoencoder:
         results while the next epoch trains (the same curves and files).
         ``data_placement``: "device", "streaming" or "auto" (see the module
         docstring); ``caches_directory``: train in a scratch copy of the
-        log directory under it."""
-        if intermediate_analyser is not None or analyses_directory is not None:
-            raise NotImplementedError(
-                "intermediate analyses are not ported yet")
+        log directory under it; ``intermediate_analyser(epoch=…,
+        latent_values=…, data_set=…, model_name=…, model_type=…, run_id=…,
+        analyses_directory=…)`` is called at log-spaced epochs with the
+        latent means of the training set's first 2,000 rows, before
+        ``epoch_callback``."""
         _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
         if data_placement not in ("auto", "device", "streaming"):
             raise ValueError("data_placement must be auto, device, or streaming")
@@ -581,6 +640,17 @@ class VariationalAutoencoder:
                     and not os.path.exists(log_dir)):
                 shutil.copytree(permanent_log_dir, log_dir)
         self._active_log_directory = log_dir
+        if intermediate_analyser is not None:
+            intermediate_callback = self._make_intermediate_callback(
+                intermediate_analyser, training_set, number_of_epochs,
+                run_id, analyses_directory, device)
+            user_callback = epoch_callback
+
+            def epoch_callback(epoch, train_state, epoch_metrics):
+                intermediate_callback(epoch, train_state, epoch_metrics)
+                if user_callback is not None:
+                    user_callback(epoch, train_state, epoch_metrics)
+
         if reset_training and os.path.exists(log_dir):
             shutil.rmtree(log_dir)
 

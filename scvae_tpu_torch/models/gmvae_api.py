@@ -181,6 +181,14 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                                    generator)
         return z, ys
 
+    def _latent_values_fn(self):
+        config = self.config
+
+        def latents(params, model_state, x):
+            return gmvae.latent_means(config, params, model_state, x)
+
+        return latents
+
     # -- per-epoch cluster accuracy ---------------------------------------
 
     def _make_accuracy_callback(self, data_sets: dict[str, Any],

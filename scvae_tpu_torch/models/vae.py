@@ -593,6 +593,21 @@ def evaluation_outputs(
     }
 
 
+def latent_means(config: VAEConfig, params: Params, state: State,
+                 x: torch.Tensor) -> torch.Tensor:
+    """q(z|x) means (B, D) without running the decoder, batch norm in
+    inference mode, in float32 (JAX ``vae.py:659-672``): the latent path of
+    the intermediate analyses."""
+    with torch.no_grad():
+        if config.inference_architecture == "MLP":
+            h, _ = networks.apply_mlp(params["encoder"],
+                                      state.get("encoder", {}), x,
+                                      training=False)
+        else:
+            h = x
+        return _build_posterior(config, params, h).mean()
+
+
 def decode_means(config, params: Params, state: State,
                  z: torch.Tensor) -> torch.Tensor:
     """E[x|z] (N, F) of latent values ``z`` (N, D) through the decoder in

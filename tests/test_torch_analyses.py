@@ -1,7 +1,8 @@
 """The port's analyses against the JAX package's on the CPU, on the same
 numpy inputs made from seeds: the clustering metrics, the summary
 statistics, the correlations, the decompositions, k-means and label
-prediction, and the metric and prediction files of ``analyse_results``.
+prediction, the metric and prediction files of ``analyse_results``, and
+the tree of files (figures and TSVs) that each orchestrator writes.
 
 The JAX package computes these with scikit-learn, the port with PyTorch on
 a device (here ``device="cpu"``) in float64.  Where the JAX package's
@@ -33,19 +34,38 @@ import scipy.sparse
 import sklearn.cluster
 import sklearn.decomposition
 import sklearn.metrics
+import torch
 
 from scvae_tpu.analyses import analyses as janalyses
 from scvae_tpu.analyses import decomposition as jdecomposition
+from scvae_tpu.analyses import figures as jfigures
 from scvae_tpu.analyses import metrics as jmetrics
 from scvae_tpu.analyses import prediction as jprediction
 from scvae_tpu.data import DataSet as JaxDataSet
+from scvae_tpu.utils.strings import normalise_string
 from scvae_tpu_torch import DataSet
-from scvae_tpu_torch.analyses import analyses, decomposition, metrics
+from scvae_tpu_torch.analyses import analyses, decomposition, figures, metrics
 from scvae_tpu_torch.analyses import prediction
 from scvae_tpu_torch.analyses.kmeans import KMeans, MiniBatchKMeans
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One thread for PyTorch and OpenMP in this module: t-SNE and ICA take
+    many small steps, and the products of IncrementalPCA and the
+    silhouette, which the threads of parallel test workers would
+    oversubscribe (IncrementalPCA's test took 103 s under six workers with
+    every thread, 2 s alone with one)."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(threads)
 
 
 def _labels(seed, n, k, agreement=None, reference=None):
@@ -311,9 +331,23 @@ def test_svd_matches_jax(shape):
 
 @pytest.mark.parametrize("method", ["ICA", "t-SNE"])
 def test_unported_decompositions_raise(method):
-    with pytest.raises(NotImplementedError, match=method):
-        decomposition.decompose(_low_rank(19, 30, 5), method=method,
-                                device=CPU)
+    """ICA and t-SNE (the exact method, four components) against JAX's
+    ``decompose`` (scikit-learn) on the same values, to 1e-6 and 1e-5 of
+    the largest |value| (tests/test_torch_decomposition.py holds the 2-D
+    t-SNE, P and the PCA start).  The values mix non-Gaussian sources, as
+    ICA assumes: on mostly Gaussian values (``_low_rank``) FastICA's
+    fixed-point iteration grows a rounding difference about threefold a
+    step, and any two linear-algebra libraries part there (ROADMAP C)."""
+    rs = np.random.RandomState(19)
+    values = (rs.laplace(size=(60, 3)) @ rs.randn(3, 5) + rs.randn(5)
+              + 0.1 * rs.randn(60, 5))  # of full rank: no component is noise
+    components = 4 if method == "t-SNE" else 2
+    got = decomposition.decompose(values, method=method,
+                                  number_of_components=components, device=CPU)
+    want = jdecomposition.decompose(values, method=method,
+                                    number_of_components=components)
+    assert got.dtype == want.dtype and got.shape == (60, components)
+    assert _rel(got, want) <= (1e-5 if method == "t-SNE" else 1e-6)
 
 
 # -- k-means and label prediction ---------------------------------------------
@@ -533,21 +567,158 @@ def test_latent_values_file(tmp_path):
     assert list(frame.columns) == ["latent variable 1", "latent variable 2"]
 
 
+@pytest.fixture(scope="module")
+def trained_gmvae(development_splits, tmp_path_factory):
+    """A GMVAE the port trained for three epochs with validation on the
+    development split, evaluated on the test set: (the JAX model on the
+    same log directory, the port's model, the port's output sets)."""
+    from scvae_tpu.models.gmvae_api import (
+        GaussianMixtureVariationalAutoencoder as JaxGMVAE,
+    )
+    from scvae_tpu_torch import GaussianMixtureVariationalAutoencoder
+
+    (_, _, _), (training, validation, test) = development_splits
+    arguments = dict(feature_size=25, latent_size=3, hidden_sizes=[8],
+                     reconstruction_distribution="poisson",
+                     number_of_latent_clusters=3,
+                     log_directory=str(tmp_path_factory.mktemp("models")))
+    model = GaussianMixtureVariationalAutoencoder(**arguments)
+    model.train(training, validation, number_of_epochs=3, minibatch_size=64,
+                device=CPU, verbose=False)
+    outputs = model.evaluate(test, device=CPU, verbose=False)
+    jax_model = JaxGMVAE(**arguments)
+    jax_model._last_evaluation_metrics = model._last_evaluation_metrics
+    return jax_model, model, outputs
+
+
+def _copy_set(module, data_set):
+    """``data_set`` rebuilt in ``module``'s ``DataSet`` from its arrays."""
+    copy = module(
+        "synthetic", values=data_set.values,
+        total_standard_deviations=data_set.total_standard_deviations,
+        explained_standard_deviations=(
+            data_set.explained_standard_deviations),
+        labels=data_set.labels, example_names=data_set.example_names,
+        feature_names=data_set.feature_names,
+        specifications={"excluded classes": data_set.excluded_classes or []},
+        kind=data_set.kind, version=data_set.version)
+    copy.update_predictions(
+        predicted_cluster_ids=data_set.predicted_cluster_ids,
+        predicted_labels=data_set.predicted_labels)
+    return copy
+
+
+def _sets(module, outputs):
+    transformed, reconstructed, latent = outputs
+    return (_copy_set(module, transformed), _copy_set(module, reconstructed),
+            {key: _copy_set(module, value) for key, value in latent.items()})
+
+
+def _tsv(path):
+    import pandas
+
+    return pandas.read_csv(path, sep="\t", index_col=0)
+
+
+def _assert_same_tsvs(port_directory, jax_directory):
+    """Every TSV of JAX's tree in the port's: the same rows and columns;
+    predictions and latent values equal, PCA and ICA exports to 1e-5 of
+    the largest |value| (the sets are float32, which ICA computes in, as
+    scikit-learn does), t-SNE exports (the exact objective against
+    scikit-learn's Barnes–Hut) finite."""
+    for name in _tree(jax_directory):
+        if not name.endswith(".tsv.gz"):
+            continue
+        got, want = _tsv(port_directory / name), _tsv(jax_directory / name)
+        assert list(got.index) == list(want.index), name
+        assert got.shape == want.shape, name
+        base = os.path.basename(name)
+        if base.startswith("t_sne"):
+            assert np.isfinite(got.values).all(), name
+        elif base.startswith(("pca", "ica")):
+            assert _rel(got.values, want.values) <= 1e-5, name
+        else:
+            assert got.equals(want), name
+
+
+def save_unrendered(figure, name, directory, *, for_publication=False):
+    """A figure module's ``_save`` without the drawing: the same path, an
+    empty file."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, normalise_string(name) + ".png")
+    open(path, "wb").close()
+    jfigures.plt.close(figure)
+    return path
+
+
 @pytest.mark.parametrize("analysis", [
     "latent_space", "profile_comparisons", "heat_maps", "standard", "all",
 ])
-def test_figure_analyses_raise(tmp_path, analysis):
-    port_set, _ = _metric_sets()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        analyses.analyse_results(port_set, None, None, _Model(),
-                                 included_analyses=[analysis],
-                                 analyses_directory=str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        analyses.analyse_model(_Model(), included_analyses=["simple"],
-                               analyses_directory=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="distributions"):
-        analyses.analyse_data([port_set], included_analyses=["standard"],
-                              analyses_directory=str(tmp_path), device=CPU)
+def test_figure_analyses_raise(tmp_path, analysis, trained_gmvae,
+                               development_splits, monkeypatch):
+    """Each orchestrator with ``analysis`` writes the JAX package's tree of
+    files: the model analyses of a run the port trained (the JAX model
+    reads the same log directory), the result analyses of its evaluation
+    (both packages' sets built from the same arrays), the data analyses of
+    the development split's test set and, for "all", the intermediate
+    analyses of the same latent values; "all" with the decomposition
+    exports, and PCA, ICA and t-SNE in the result analyses.
+
+    Every figure function runs on the orchestrators' inputs, and each
+    package saves its figures as empty files, not rendered: rendering is
+    most of the time.  tests/test_torch_figures.py holds each function's
+    pixels against JAX's, and tests/test_torch_analyses_render.py renders
+    the port's figures of "all"."""
+    for module in (jfigures, figures):
+        monkeypatch.setattr(module, "_save", save_unrendered)
+    jax_model, model, outputs = trained_gmvae
+    port_directory, jax_directory = tmp_path / "port", tmp_path / "jax"
+    options = {}
+    if analysis == "all":
+        options = {"decomposition_methods": ["PCA", "ICA", "t-SNE"],
+                   "export_options": ["decomposition", "latent"]}
+    subset = np.arange(5)
+    analyses.analyse_model(model, included_analyses=[analysis],
+                           analyses_directory=str(port_directory), device=CPU)
+    janalyses.analyse_model(jax_model, included_analyses=[analysis],
+                            analyses_directory=str(jax_directory))
+    for module, orchestrator, directory, extra in (
+            (DataSet, analyses.analyse_results, port_directory,
+             {"device": CPU}),
+            (JaxDataSet, janalyses.analyse_results, jax_directory, {})):
+        model_object = model if module is DataSet else jax_model
+        orchestrator(*_sets(module, outputs), model_object,
+                     evaluation_subset_indices=subset,
+                     included_analyses=[analysis],
+                     analyses_directory=str(directory), **options, **extra)
+    (jax_sets, port_sets) = development_splits
+    exports = {"export_options": options.get("export_options")}
+    analyses.analyse_data([port_sets[2]], included_analyses=[analysis],
+                          analyses_directory=str(port_directory), device=CPU,
+                          **exports)
+    janalyses.analyse_data([jax_sets[2]], included_analyses=[analysis],
+                           analyses_directory=str(jax_directory), **exports)
+    if analysis == "all":
+        latent = np.random.RandomState(23).randn(
+            port_sets[0].number_of_examples, 3)
+        curves = model.learning_curves()
+        for orchestrator, directory, extra in (
+                (analyses.analyse_intermediate_results, port_directory,
+                 {"device": CPU}),
+                (janalyses.analyse_intermediate_results, jax_directory, {})):
+            orchestrator(2, learning_curves=curves, latent_values=latent,
+                         data_set=port_sets[0], model_name=model.name,
+                         analyses_directory=str(directory), **extra)
+    port_tree, jax_tree = _tree(port_directory), _tree(jax_directory)
+    assert port_tree == jax_tree
+    assert any(name.endswith(".png") for name in port_tree)
+    _assert_same_tsvs(port_directory, jax_directory)
+    if analysis == "all":
+        for figure in ("kl_divergence_evolution.png",
+                       "centroid_means_evolution.png",
+                       "latent_space_clusters.png", "t_sne_test_z.png",
+                       "ica_test_y.png", "distances_test_z.png", "epoch_3"):
+            assert any(figure in name for name in port_tree), figure
 
 
 def test_analyse_data_statistics_match_jax(development_splits, tmp_path):
@@ -568,7 +739,8 @@ def test_analyse_data_statistics_match_jax(development_splits, tmp_path):
 
 def test_analyses_import_no_sklearn_or_jax(tmp_path):
     """The analyses and the CLI run without scikit-learn, JAX and the JAX
-    package (the card's machine has none of them)."""
+    package (the card's machine has none of them): k-means, the metrics,
+    PCA, SVD, ICA and t-SNE."""
     code = """
 import sys
 for name in ("h5py", "sklearn", "jax", "scvae_tpu"):
@@ -589,9 +761,14 @@ assert metrics.silhouette_score(values[::10], ids[::10], device="cpu") > 0.5
 assert decompose(values, method="PCA", device="cpu").shape == (12_000, 2)
 assert decompose(values, method="SVD", seed=0, device="cpu").shape == (
     12_000, 2)
+assert decompose(values[::20], method="ICA", device="cpu").shape == (
+    600, 2)
+assert decompose(values[::100], method="t-SNE", device="cpu").shape == (
+    120, 2)
 blocked = [name for name in ("h5py", "sklearn", "jax", "scvae_tpu")
            if sys.modules.get(name) is not None]
 assert not blocked, blocked
 """
     subprocess.run([sys.executable, "-c", code], cwd=tmp_path, check=True,
-                   timeout=300, env={**os.environ, "PYTHONPATH": REPO})
+                   timeout=300, env={**os.environ, "PYTHONPATH": REPO,
+                                        "OMP_NUM_THREADS": "1"})

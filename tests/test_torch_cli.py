@@ -17,8 +17,11 @@ package's on the CPU.
   equal to JAX's metric functions recomputed from the port's prediction
   TSV (1e-12; the silhouette 1e-6, scikit-learn's distances of the float32
   values being float32);
-* the default ``evaluate`` (its "standard" analyses draw figures),
-  ``cross-analyse`` and ``train -A`` raise ``NotImplementedError``.
+* ``train -A`` (the intermediate analyses at log-spaced epochs, then the
+  model analyses) and ``evaluate -A`` with its default ("standard")
+  analyses of each package: the same tree of files, figures included; the
+  latent values' TSVs with the same rows and columns;
+* ``cross-analyse`` and several devices raise ``NotImplementedError``.
 """
 
 import argparse
@@ -29,14 +32,17 @@ import pickle
 import numpy as np
 import pandas
 import pytest
+import torch
 
 from scvae_tpu import cli as jcli
+from scvae_tpu.analyses import figures as jfigures
 from scvae_tpu.analyses import metrics as jmetrics
 from scvae_tpu.data import DataSet as JaxDataSet
 from scvae_tpu.models.api import VariationalAutoencoder as JaxVAE
 from scvae_tpu.models.gmvae_api import (
     GaussianMixtureVariationalAutoencoder as JaxGMVAE,
 )
+from scvae_tpu.utils.strings import normalise_string
 from scvae_tpu_torch import (
     DataSet,
     GaussianMixtureVariationalAutoencoder,
@@ -45,6 +51,20 @@ from scvae_tpu_torch import (
 )
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One thread for PyTorch and OpenMP in this module: t-SNE and ICA take
+    many small steps, which the threads of parallel test workers would
+    oversubscribe."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(threads)
 
 
 def _subcommands(parser):
@@ -242,14 +262,65 @@ def test_unported_subcommands_raise(cli_runs, tmp_path):
     root = cli_runs["port"]
     data = _data_arguments(root)
     model = [*MODEL_ARGUMENTS, "-M", str(root / "models")]
-    with pytest.raises(NotImplementedError, match="learning_curves"):
-        cli.main(["evaluate", *data, *model, "-A", str(tmp_path)],
-                 device=CPU)
     with pytest.raises(NotImplementedError, match="cross-analyse"):
         cli.main(["cross-analyse", str(root / "analyses")], device=CPU)
-    with pytest.raises(NotImplementedError, match="analyses directory"):
-        cli.main(["train", *data, *model, "-e", "1", "-A", str(tmp_path)],
-                 device=CPU)
     with pytest.raises(NotImplementedError, match="several devices"):
         cli.main(["train", *data, *model, "-e", "1",
                   "--number-of-devices", "2"], device=CPU)
+
+
+def _save_unrendered(figure, name, directory, *, for_publication=False):
+    """The JAX package's ``figures._save`` without the drawing: the same
+    path, an empty file."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, normalise_string(name) + ".png")
+    open(path, "wb").close()
+    jfigures.plt.close(figure)
+    return path
+
+
+@pytest.fixture(scope="module")
+def analysis_runs(tmp_path_factory):
+    """Each package's ``train -A`` for three epochs, then ``evaluate -A``
+    with the default analyses, on the development split; {package: root
+    directory}.  The port renders its figures; the JAX package's are saved
+    as empty files (tests/test_torch_figures.py holds each figure's pixels
+    against JAX's)."""
+    runs = {}
+    for package, main in (("jax", jcli.main),
+                          ("port", lambda argv: cli.main(argv, device=CPU))):
+        root = tmp_path_factory.mktemp(package + "_analyses")
+        data = _data_arguments(root)
+        model = [*MODEL_ARGUMENTS, "-M", str(root / "models")]
+        analyses = ["-A", str(root / "analyses")]
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(jfigures, "_save", _save_unrendered)
+            assert main(["train", *data, *model, "-e", "3", *analyses]) == 0
+            assert main(["evaluate", *data, *model, *analyses]) == 0
+        runs[package] = root
+    return runs
+
+
+def test_cli_analyses_write_jax_tree(analysis_runs):
+    port = _files(analysis_runs["port"] / "analyses")
+    jax = _files(analysis_runs["jax"] / "analyses")
+    assert port == jax
+    assert all((analysis_runs["port"] / "analyses" / name).stat().st_size
+               for name in port if name.endswith(".png"))
+    for epoch in (1, 2, 3):  # log_spaced_indices(3): every epoch
+        assert any(f"intermediate/epoch_{epoch}/latent_space.png" in name
+                   for name in port), epoch
+    for figure in ("learning_curves.png", "latent_space_labels.png",
+                   "pca_test_z.png", "count_histogram_cutoff_10_test.png"):
+        assert any(name.endswith(figure) for name in port), figure
+    latent = [name for name in jax
+              if os.path.basename(name) == "latent_values_test.tsv.gz"]
+    assert len(latent) == 2  # end of training and the best model
+    for name in latent:
+        got = pandas.read_csv(analysis_runs["port"] / "analyses" / name,
+                              sep="\t", index_col=0)
+        want = pandas.read_csv(analysis_runs["jax"] / "analyses" / name,
+                               sep="\t", index_col=0)
+        assert list(got.index) == list(want.index)
+        assert list(got.columns) == list(want.columns)
+        assert np.isfinite(got.values).all()

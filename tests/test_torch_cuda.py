@@ -1763,3 +1763,77 @@ def test_decompositions_match_cpu(device, method, features):
     if method == "SVD":
         got, want = np.abs(got), np.abs(want)
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("method,components", [("ICA", 2), ("t-SNE", 2),
+                                               ("t-SNE", 4)])
+def test_ica_and_tsne_match_cpu(device, method, components):
+    """ICA (float64) within 1e-6 relative; t-SNE's P and first gradient
+    within 1e-6 and 1e-4 (float32 sums in another order), the descent's
+    final KL(P ‖ Q) (``kl_divergence_``) within 1% and its 10-nearest-
+    neighbour preservation within 0.02, in 2-D and by the exact method
+    (four components)."""
+    import numpy as np
+
+    from chip_smoke import neighbour_preservation
+    from scvae_tpu_torch.analyses import decompose
+    from scvae_tpu_torch.analyses.tsne import TSNE, _SparseObjective
+
+    values, _ = _analysis_blobs(6, 600, 5, 12)
+    if method == "ICA":
+        got = decompose(values, method=method, device=device)
+        want = decompose(values, method=method, device="cpu")
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+        return
+    if components == 4:
+        values = values[:200]
+    parts = {}
+    for where in (device, "cpu"):
+        model = TSNE(components, 42, where)
+        x = torch.from_numpy(values).to(where)
+        p = model.joint_probabilities(x)
+        gradient = torch.zeros(())
+        if p.is_sparse:
+            _, gradient = _SparseObjective(p, 1)(
+                model.initial_embedding(x), False)
+            p = p.to_dense()
+        embedding = model.fit_transform(values)
+        parts[where] = (p.cpu(), gradient.cpu(),
+                        model.kl_divergence_,
+                        neighbour_preservation(values, embedding, 10, where))
+    _close(parts[device][0], parts["cpu"][0], 1e-6)
+    if components == 2:
+        _close(parts[device][1], parts["cpu"][1], 1e-4)
+    assert abs(parts[device][2] - parts["cpu"][2]) <= 0.01 * parts["cpu"][2]
+    assert abs(parts[device][3] - parts["cpu"][3]) <= 0.02
+
+
+def test_distances_and_intermediate_latents_match_cpu(device, tmp_path):
+    """The distance matrix (``torch.cdist``, float64) within 1e-12
+    relative; ``train`` with an intermediate analyser on the card at every
+    epoch of three, its last latent values within 2e-5 of the stored
+    parameters' on the CPU."""
+    import numpy as np
+
+    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch.analyses.subanalyses import pairwise_distances
+    from scvae_tpu_torch.models import vae
+
+    values, _ = _analysis_blobs(7, 1_000, 4, 30)
+    got = pairwise_distances(values, device)
+    want = pairwise_distances(values, "cpu")
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    counts = np.random.RandomState(8).poisson(2.0, (600, 40))
+    model = VariationalAutoencoder(feature_size=40, latent_size=3,
+                                   hidden_sizes=[16],
+                                   log_directory=str(tmp_path))
+    calls = []
+    model.train(counts, number_of_epochs=3, minibatch_size=100,
+                device=device, verbose=False,
+                intermediate_analyser=lambda **call: calls.append(call))
+    assert [call["epoch"] for call in calls] == [0, 1, 2]
+    state, _ = model._restore(None, False, False, torch.device("cpu"))
+    x = torch.from_numpy(counts.astype(np.float32))
+    _close(torch.from_numpy(calls[-1]["latent_values"]),
+           vae.latent_means(model.config, state.params, state.model_state,
+                            x), 2e-5)
