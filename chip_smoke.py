@@ -48,6 +48,18 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              the full-batch evaluation steps run as CUDA graph replays (the
              entry points' default on CUDA), and the counters count each
              replay's launches;
+4a. trace  — the main path under ``utils.profiling.trace``: the headline
+             VAE-NB through ``VariationalAutoencoder.train`` for two
+             epochs, a ``StepTimer`` around the epochs and ``trace``
+             around epoch 2 (a gzip'd Chrome trace under ``build/trace``);
+             ``summarize_trace`` of it holds K2's and K3's heads kernel
+             (``tc_heads_kernel``), the products (``tc_product_kernel``)
+             and K1 (``gather_vector_kernel``) by name, each name's count
+             equal to the launches the counters took in epoch 2 (graph
+             replays included), and ``device_memory_stats()`` reads
+             0 < bytes in use ≤ the limit; prints each kernel's events,
+             time and rank, the timer's summary and, on a line of its own,
+             the trace's ten largest entries;
 4d. options — one training loss of the headline VAE-NB and its
              gradients, fused against unfused on the same inputs (the loss
              within 4e-4 relative; the gradients within 4e-4 of the
@@ -1962,6 +1974,99 @@ def trained_config(model, name, k_max, precision, options=None):
     return vae.VAEConfig(**kwargs)
 
 
+# Phase 4a: the main path under ``utils.profiling.trace``.  Each kernel
+# name part of the trace and the launch counters of the kernels it names.
+TRACE_DIRECTORY = os.path.join(BUILD, "trace")
+TRACED_KERNELS = {
+    "tc_heads_kernel": ("nb_forward", "nb_backward_gradient"),  # K2, K3
+    "tc_product_kernel": ("nb_backward_dh", "nb_backward_dw"),  # K3
+    "gather_vector_kernel": ("gather_rows",),  # K1
+}
+TRACE_TOP = 30
+
+
+def phase_trace(counts, card):
+    """Phase 4a: the headline VAE-NB through ``train`` for two epochs, with
+    a ``StepTimer`` around the epochs and ``trace`` around epoch 2; then
+    ``summarize_trace`` of the trace holds each of TRACED_KERNELS by name,
+    its count equal to the launches the counters took in that epoch, and
+    ``device_memory_stats`` reads 0 < bytes in use ≤ the limit.  Returns
+    the run's launches."""
+    from scvae_tpu_torch import VariationalAutoencoder, ops
+    from scvae_tpu_torch.utils.profiling import (
+        StepTimer,
+        device_memory_stats,
+        summarize_trace,
+        trace,
+    )
+
+    start = time.perf_counter()
+    shutil.rmtree(TRACE_DIRECTORY, ignore_errors=True)
+    traces = os.path.join(TRACE_DIRECTORY, "trace")
+    model = VariationalAutoencoder(
+        feature_size=N_GENES, latent_size=LATENT,
+        hidden_sizes=[HIDDEN, HIDDEN],
+        reconstruction_distribution="negative binomial",
+        log_directory=os.path.join(TRACE_DIRECTORY, "model"))
+    timer = StepTimer(items_per_step=N_CELLS // BATCH * BATCH)
+    window = {}
+    tracing = contextlib.ExitStack()
+
+    def callback(epoch, train_state, metrics):
+        timer.stop()
+        if epoch == 0:
+            window["before"] = ops.launch_counts()
+            tracing.enter_context(trace(traces))
+        else:
+            tracing.close()
+            window["after"] = ops.launch_counts()
+        if epoch + 1 < EPOCHS:
+            timer.start()
+
+    ops.reset_launch_counts()
+    with tracing:
+        timer.start()
+        result = model.train(counts, number_of_epochs=EPOCHS,
+                             minibatch_size=BATCH, seed=0, device="cuda",
+                             verbose=False, epoch_callback=callback)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    traced = {name: window["after"].get(name, 0)
+              - window["before"].get(name, 0) for name in window["after"]}
+    if traced["nb_forward"] != result.steps_per_epoch:
+        raise AssertionError(f"trace: nb_forward launched "
+                             f"{traced['nb_forward']} times in epoch 2's "
+                             f"{result.steps_per_epoch} steps")
+    entries = summarize_trace(traces, top=None)
+    for part, counters in TRACED_KERNELS.items():
+        found = [(rank, entry) for rank, entry in enumerate(entries)
+                 if part in entry["name"]]
+        count = sum(entry["count"] for _, entry in found)
+        want = sum(traced[name] for name in counters)
+        if not found or count != want:
+            raise AssertionError(f"trace: {part} {count} times in the "
+                                 f"trace, {want} launches counted "
+                                 f"({', '.join(counters)})")
+        ranks = [rank + 1 for rank, _ in found]
+        print(f"trace: {part} {count} events (launches "
+              f"{ {name: traced[name] for name in counters} }), "
+              f"{sum(entry['total_ms'] for _, entry in found):.4f} ms, "
+              f"ranks {ranks} of {len(entries)} (in the top {TRACE_TOP}: "
+              f"{max(ranks) <= TRACE_TOP})", flush=True)
+    memory = device_memory_stats()
+    if not all(0 < entry["bytes_in_use"] <= entry["bytes_limit"]
+               for entry in memory):
+        raise AssertionError(f"trace: device memory {memory}")
+    print(f"trace: VAE-NB, {EPOCHS} epochs of {result.steps_per_epoch} "
+          f"steps; StepTimer {timer.summary()} (epochs "
+          f"{[round(d, 4) for d in timer.durations]} s, epoch 2 traced); "
+          f"epoch seconds {[round(s, 4) for s in result.epoch_seconds]}; "
+          f"memory {memory}; phase {time.perf_counter() - start:.1f} s "
+          f"({card})", flush=True)
+    print("trace top: " + json.dumps(entries[:10]), flush=True)
+    return launches
+
+
 def phase_graph_vs_eager(data, card):
     """Phase 4b: each GRAPHED configuration trained for two epochs from the
     same seed through ``train_config_level``, eagerly and then through the
@@ -3783,6 +3888,11 @@ def main() -> int:
             entry = kernel + "_cycled" if model == "gmvae" else kernel
             if kernel == "gather_rows" or entry in kernels:
                 launches[kernel if kernel == "gather_rows" else entry] += count
+
+    # 4a. the headline VAE-NB under trace: NB's kernels at 2,048 rows, K1
+    for entry, count in phase_trace(counts, card).items():
+        if entry in launches:
+            launches[entry] += count
 
     # 4d. the model options and the rest of the distributions
     for entry, count in phase_options(data, card).items():

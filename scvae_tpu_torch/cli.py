@@ -10,9 +10,9 @@ Models and analyses run on CUDA; ``main(argv, device="cpu")`` runs them on
 the CPU.  Figures are drawn on the host and need matplotlib.  Loading a
 data set goes through ``DataSet.load``'s HDF5 cache, which needs
 ``h5py``.  ``train -A`` runs the intermediate analyses at log-spaced
-epochs, then the model analyses, as the JAX package does.  Not ported yet,
-and so raising ``NotImplementedError``: ``cross-analyse`` and several
-devices.
+epochs, then the model analyses, as the JAX package does.
+``cross-analyse`` reads the analyses' files on the host.  Not ported yet,
+and so raising ``NotImplementedError``: several devices.
 """
 
 from __future__ import annotations
@@ -665,10 +665,42 @@ def evaluate(
     return 0
 
 
-def cross_analyse(analyses_directory, **_ignored):
-    """Cross-analyse subcommand (reference ``cli.py:569-598``): not ported
-    yet."""
-    raise NotImplementedError("cross-analyse is not ported yet")
+def cross_analyse(
+    analyses_directory,
+    include_data_sets=None,
+    exclude_data_sets=None,
+    include_models=None,
+    exclude_models=None,
+    include_prediction_methods=None,
+    exclude_prediction_methods=None,
+    extra_model_specification_for_plots=None,
+    no_prediction_methods_for_gmvae_in_plots=False,
+    epoch_cut_off=None,
+    other_methods=None,
+    export_options=None,
+    log_summary=None,
+    **_ignored,
+):
+    """Cross-analyse subcommand (reference ``cli.py:569-598``), on the
+    host: no device takes part."""
+    analyses.cross_analyse(
+        analyses_directory,
+        data_set_included_strings=include_data_sets,
+        data_set_excluded_strings=exclude_data_sets,
+        model_included_strings=include_models,
+        model_excluded_strings=exclude_models,
+        prediction_included_strings=include_prediction_methods,
+        prediction_excluded_strings=exclude_prediction_methods,
+        additional_other_option=extra_model_specification_for_plots,
+        no_prediction_methods_for_gmvae_in_plots=(
+            no_prediction_methods_for_gmvae_in_plots
+        ),
+        epoch_cut_off=epoch_cut_off,
+        other_methods=other_methods,
+        export_options=export_options,
+        log_summary=log_summary,
+    )
+    return 0
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,10 @@
-"""Acquisition: locate the raw files a data-set spec points at, then
-dispatch to the right format loader.
+"""Acquisition: download or copy the raw files a data-set spec points at,
+then dispatch to the right format loader.
 
 The port's copy of ``scvae_tpu/data/loading.py`` (the counterpart of
-``scvae/data/loading.py:31-133``) without its downloads: a file is found
-at its local path, or at the path the JAX package would have downloaded it
-to; where that package would download, this one raises
-``FileNotFoundError`` naming that path.  After loading, dense value
+``scvae/data/loading.py:31-133``).  Downloads stream through ``requests``
+into ``<path>.part``, renamed to the path the JAX package uses once
+complete; local paths are used in place.  After loading, dense value
 matrices are converted to CSR (``loading.py:119-127``).
 """
 
@@ -23,11 +22,24 @@ from scvae_tpu_torch.data.loaders import LOADERS
 from scvae_tpu_torch.data.sparse import SparseRowMatrix
 
 
+def _download(url: str, path: str) -> None:
+    import requests
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with requests.get(url, stream=True, timeout=60) as response:
+        response.raise_for_status()
+        tmp = path + ".part"
+        with open(tmp, "wb") as f:
+            for chunk in response.iter_content(chunk_size=1 << 20):
+                f.write(chunk)
+        os.replace(tmp, path)
+
+
 def acquire_data_set(
     title: str, urls: dict[str, Any], directory: str
 ) -> dict[str, Any]:
-    """Locate every URL in the spec; returns the same nested structure with
-    local paths (reference ``loading.py:31-94``)."""
+    """Fetch (or locate) every URL in the spec; returns the same nested
+    structure with local paths (reference ``loading.py:31-94``)."""
     paths: dict[str, Any] = {}
     if not urls:
         return paths
@@ -55,13 +67,12 @@ def acquire_data_set(
             path = os.path.join(directory, title, filename)
             if not os.path.exists(path):
                 if parsed.scheme in ("http", "https", "ftp"):
+                    print(f"Downloading {url} → {path}")
+                    _download(str(url), path)
+                else:
                     raise FileNotFoundError(
-                        f"{path} is missing: the port does not download "
-                        f"{url!r}; place the file there"
+                        f"Cannot acquire {url!r} (not a URL or local file)"
                     )
-                raise FileNotFoundError(
-                    f"Cannot acquire {url!r} (not a URL or local file)"
-                )
             paths[values_or_labels][kind] = path
     return paths
 

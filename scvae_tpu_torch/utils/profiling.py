@@ -1,9 +1,84 @@
-"""The epochs that get an intermediate analysis (the port's copy of
-``scvae_tpu/utils/profiling.py:37-46``)."""
+"""Tracing and profiling tools (the port of ``scvae_tpu/utils/profiling.py``):
+
+* :func:`trace` — a context manager around ``torch.profiler`` that writes
+  a gzip'd Chrome trace where ``jax.profiler`` leaves its own,
+  ``<log_dir>/plugins/profile/<run>/<host>.trace.json.gz``;
+* :func:`summarize_trace` — the total time and count of each event name
+  of the newest such trace, JAX's or the port's;
+* :class:`StepTimer` — host-side step timing with log-spaced reporting
+  like the reference's 11-points-per-epoch prints
+  (``variational_autoencoder.py:868-870``) plus items/s throughput;
+* :func:`device_memory_stats` — memory in use on each CUDA device;
+* :func:`log_spaced_indices` — the epochs that get an intermediate
+  analysis, and the steps a timer reports.
+"""
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import glob
+import gzip
+import json
+import os
+import socket
+import time
+from typing import Iterator
+
 import numpy as np
+import torch
+
+from scvae_tpu_torch.utils.device import resolve_device
+from scvae_tpu_torch.utils.strings import format_duration
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device=None) -> Iterator[None]:
+    """Record the host's operations and, on CUDA (the default unless
+    ``device="cpu"``), the device's kernels, graph replays' included.  The
+    device is synchronised on entry and exit, so the trace holds the
+    kernels of the work queued inside it and no others."""
+    device = resolve_device(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=activities) as profiler:
+        try:
+            yield
+        finally:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    directory = os.path.join(log_dir, "plugins", "profile",
+                             time.strftime("%Y_%m_%d_%H_%M_%S"))
+    os.makedirs(directory, exist_ok=True)
+    profiler.export_chrome_trace(
+        os.path.join(directory, socket.gethostname() + ".trace.json.gz"))
+
+
+def summarize_trace(trace_directory: str, top: int | None = 15) -> list[dict]:
+    """The ``top`` event names (None: all) of the newest
+    ``*.trace.json.gz`` under ``trace_directory`` by total duration, as
+    dictionaries with ``name``, ``total_ms`` and ``count``: every complete
+    event (``"ph": "X"``) counts, the host's operations and the device's
+    kernels alike."""
+    paths = sorted(glob.glob(
+        os.path.join(trace_directory, "**", "*.trace.json.gz"),
+        recursive=True))
+    if not paths:
+        raise FileNotFoundError(f"No *.trace.json.gz under {trace_directory}")
+    totals: dict[str, float] = collections.defaultdict(float)
+    counts: dict[str, int] = collections.defaultdict(int)
+    with gzip.open(paths[-1]) as f:
+        events = json.load(f).get("traceEvents", [])
+    for event in events:
+        if event.get("ph") == "X":
+            name = event.get("name", "")
+            totals[name] += event.get("dur", 0) / 1e3
+            counts[name] += 1
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+    return [{"name": name, "total_ms": round(ms, 3), "count": counts[name]}
+            for name, ms in ranked]
 
 
 def log_spaced_indices(n: int, count: int = 11) -> np.ndarray:
@@ -16,3 +91,80 @@ def log_spaced_indices(n: int, count: int = 11) -> np.ndarray:
         - 1
     )
     return raw[(raw >= 0) & (raw < n)]
+
+
+class StepTimer:
+    """Per-step host timing with throughput summary."""
+
+    def __init__(self, items_per_step: int = 0, report_steps=None,
+                 verbose: bool = False):
+        self.items_per_step = items_per_step
+        self.durations: list[float] = []
+        self._started: float | None = None
+        self._report = set(
+            np.asarray(report_steps).tolist() if report_steps is not None
+            else [])
+        self.verbose = verbose
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    def start(self) -> None:
+        self._started = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._started is None:
+            return
+        duration = time.perf_counter() - self._started
+        self.durations.append(duration)
+        step = len(self.durations) - 1
+        if self.verbose and step in self._report:
+            print(f"    step {step + 1}: {format_duration(duration)}")
+        self._started = None
+
+    @property
+    def total_seconds(self) -> float:
+        return float(np.sum(self.durations))
+
+    @property
+    def mean_seconds(self) -> float:
+        return float(np.mean(self.durations)) if self.durations else 0.0
+
+    @property
+    def items_per_second(self) -> float:
+        total = self.total_seconds
+        if total <= 0:
+            return 0.0
+        return self.items_per_step * len(self.durations) / total
+
+    def summary(self) -> str:
+        return (
+            f"{len(self.durations)} steps, mean "
+            f"{format_duration(self.mean_seconds)}/step"
+            + (f", {self.items_per_second:,.0f} items/s"
+               if self.items_per_step else "")
+        )
+
+
+def device_memory_stats(device=None) -> list[dict]:
+    """Memory statistics with the JAX package's keys (``device``,
+    ``bytes_in_use``, ``bytes_limit``): with no ``device``, one entry per
+    CUDA device (raises without a GPU); on the CPU, as JAX's CPU device,
+    ``None`` for both sizes.  ``bytes_in_use`` is what PyTorch's caching
+    allocator has handed out, ``bytes_limit`` the device's memory."""
+    chosen = resolve_device(device)
+    if chosen.type == "cpu":
+        return [{"device": str(chosen), "bytes_in_use": None,
+                 "bytes_limit": None}]
+    indices = (range(torch.cuda.device_count()) if chosen.index is None
+               else [chosen.index])
+    return [{"device": f"cuda:{index}",
+             "bytes_in_use": torch.cuda.memory_stats(index).get(
+                 "allocated_bytes.all.current", 0),
+             "bytes_limit": torch.cuda.mem_get_info(index)[1]}
+            for index in indices]

@@ -330,7 +330,7 @@ def test_svd_matches_jax(shape):
 
 
 @pytest.mark.parametrize("method", ["ICA", "t-SNE"])
-def test_unported_decompositions_raise(method):
+def test_ica_and_tsne_match_jax(method):
     """ICA and t-SNE (the exact method, four components) against JAX's
     ``decompose`` (scikit-learn) on the same values, to 1e-6 and 1e-5 of
     the largest |value| (tests/test_torch_decomposition.py holds the 2-D
@@ -654,7 +654,7 @@ def save_unrendered(figure, name, directory, *, for_publication=False):
 @pytest.mark.parametrize("analysis", [
     "latent_space", "profile_comparisons", "heat_maps", "standard", "all",
 ])
-def test_figure_analyses_raise(tmp_path, analysis, trained_gmvae,
+def test_figure_analyses_write_jax_tree(tmp_path, analysis, trained_gmvae,
                                development_splits, monkeypatch):
     """Each orchestrator with ``analysis`` writes the JAX package's tree of
     files: the model analyses of a run the port trained (the JAX model

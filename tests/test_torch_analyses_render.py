@@ -1,7 +1,7 @@
 """The port's orchestrators with "all", their figures rendered: a GMVAE
 the port trains for three epochs on the development split, evaluated on
 its test set, then the model, result, data and intermediate analyses on
-the CPU, as ``test_figure_analyses_raise[all]`` in
+the CPU, as ``test_figure_analyses_write_jax_tree[all]`` in
 tests/test_torch_analyses.py runs them.  That test holds the tree of files
 and the TSVs against the JAX package's with the figures saved unrendered;
 tests/test_torch_figures.py holds each figure's pixels against JAX's.
@@ -19,7 +19,7 @@ from scvae_tpu_torch import DataSet, GaussianMixtureVariationalAutoencoder
 from scvae_tpu_torch.analyses import analyses
 
 CPU = "cpu"
-# The figures of test_figure_analyses_raise[all]'s tree (57), and the
+# The figures of test_figure_analyses_write_jax_tree[all]'s tree (57), and the
 # class histogram of the label superset, which its copied sets lack.
 FIGURES = 58
 

@@ -21,7 +21,10 @@ package's on the CPU.
   model analyses) and ``evaluate -A`` with its default ("standard")
   analyses of each package: the same tree of files, figures included; the
   latent values' TSVs with the same rows and columns;
-* ``cross-analyse`` and several devices raise ``NotImplementedError``.
+* ``cross-analyse -s`` of each package over copies of the tree that each
+  package's ``train -A`` / ``evaluate -A`` wrote: the same
+  ``comparison.csv`` and summary log, byte for byte;
+* several devices raise ``NotImplementedError``.
 """
 
 import argparse
@@ -258,12 +261,10 @@ def test_cli_metrics_recompute_from_predictions(cli_runs):
         assert metrics["accuracy"] == [want["accuracies"]["accuracy"]]
 
 
-def test_unported_subcommands_raise(cli_runs, tmp_path):
+def test_several_devices_raise(cli_runs, tmp_path):
     root = cli_runs["port"]
     data = _data_arguments(root)
     model = [*MODEL_ARGUMENTS, "-M", str(root / "models")]
-    with pytest.raises(NotImplementedError, match="cross-analyse"):
-        cli.main(["cross-analyse", str(root / "analyses")], device=CPU)
     with pytest.raises(NotImplementedError, match="several devices"):
         cli.main(["train", *data, *model, "-e", "1",
                   "--number-of-devices", "2"], device=CPU)
@@ -324,3 +325,31 @@ def test_cli_analyses_write_jax_tree(analysis_runs):
         assert list(got.index) == list(want.index)
         assert list(got.columns) == list(want.columns)
         assert np.isfinite(got.values).all()
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_cross_analyse_matches_jax(writer, analysis_runs, tmp_path,
+                                   monkeypatch):
+    """Both packages' ``cross-analyse`` over copies of the analyses tree
+    that ``writer``'s ``train -A`` and ``evaluate -A`` wrote, the figures
+    saved unrendered."""
+    import shutil
+
+    from scvae_tpu_torch.analyses import figures
+
+    for module in (jfigures, figures):
+        monkeypatch.setattr(module, "_save", _save_unrendered)
+    written = {}
+    for package, main in (("jax", jcli.main),
+                          ("port", lambda argv: cli.main(argv, device=CPU))):
+        tree = tmp_path / package
+        shutil.copytree(analysis_runs[writer] / "analyses", tree)
+        assert main(["cross-analyse", str(tree), "-s"]) == 0
+        written[package] = tree / "cross_analysis" / "all"
+    assert _files(written["port"]) == _files(written["jax"])
+    for name in ("comparison.csv", "all.log"):
+        got = (written["port"] / name).read_bytes()
+        assert got == (written["jax"] / name).read_bytes(), name
+    table = pandas.read_csv(written["port"] / "comparison.csv")
+    assert len(table) == 2  # the end of training and the best model
+    assert np.isfinite(table["ELBO"]).all()

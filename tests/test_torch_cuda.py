@@ -76,6 +76,12 @@ permutation one the capture never saw; the full-batch evaluation epoch
 likewise, also on parameters other than those it was captured with; the
 launch counters count each replay's launches; a step that a capture
 refuses raises.
+
+The profiling tools (``utils/profiling.py``): ``trace`` around two
+epochs of that NB VAE, the second all replays; ``summarize_trace`` finds
+the heads kernel, the products and K1 by name, each as often as the launch
+counters count them, and ``device_memory_stats`` reads 0 < bytes in use ≤
+the card's memory.
 """
 
 import pytest
@@ -1837,3 +1843,37 @@ def test_distances_and_intermediate_latents_match_cpu(device, tmp_path):
     _close(torch.from_numpy(calls[-1]["latent_values"]),
            vae.latent_means(model.config, state.params, state.model_state,
                             x), 2e-5)
+
+
+def test_trace_finds_the_graphed_kernels(device, tmp_path):
+    """``utils.profiling.trace`` around two epochs of a small NB VAE (the
+    second all graph replays): ``summarize_trace`` finds K2's and K3's
+    heads kernel, the products and K1 by name, each as often as the launch
+    counters count them; ``device_memory_stats`` reads 0 < bytes in use ≤
+    the limit, as ``chip_smoke.py`` phase 4a holds at the headline."""
+    from scvae_tpu_torch.utils.profiling import (
+        device_memory_stats,
+        summarize_trace,
+        trace,
+    )
+
+    perms = [_perm(device, seed) for seed in (0, 1)]
+    with trace(str(tmp_path)):
+        launches = _train(device, "vae", True, perms)[3]
+    entries = summarize_trace(str(tmp_path), top=None)
+
+    def events(*parts):
+        return sum(entry["count"] for entry in entries
+                   if any(part in entry["name"] for part in parts))
+
+    steps = GRAPH_CELLS // GRAPH_BATCH * len(perms)
+    assert launches["nb_forward"] == steps
+    assert events("tc_heads_kernel") == (
+        launches["nb_forward"] + launches["nb_backward_gradient"])
+    assert events("tc_product_kernel") == (
+        launches["nb_backward_dh"] + launches["nb_backward_dw"])
+    assert events("gather_vector_kernel", "gather_element_kernel") == (
+        launches["gather_rows"]) == steps
+    (memory,) = device_memory_stats()
+    assert memory["device"] == "cuda:0"
+    assert 0 < memory["bytes_in_use"] <= memory["bytes_limit"]

@@ -389,27 +389,67 @@ def test_parsing_matches_jax(tmp_path):
         parsing.parse_input("no such set")
 
 
-def test_acquisition_finds_files_and_never_downloads(tmp_path):
+class FakeResponse:
+    """What ``_download`` reads of a streamed ``requests`` response: the
+    body in chunks, or an HTTP error status."""
+
+    def __init__(self, body=b"", status=200):
+        self.body, self.status = body, status
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def raise_for_status(self):
+        import requests
+
+        if self.status >= 400:
+            raise requests.HTTPError(f"{self.status} error")
+
+    def iter_content(self, chunk_size=1):
+        for start in range(0, len(self.body), chunk_size):
+            yield self.body[start:start + chunk_size]
+
+
+def test_acquisition_downloads_to_jax_path(tmp_path, monkeypatch):
+    import requests
+
+    body = b"cell\tgene\n" * 40_000  # over one 1 MiB chunk
+    requested = []
+
+    def get(url, stream=False, timeout=None):
+        requested.append((url, stream, timeout))
+        return FakeResponse(body)
+
+    monkeypatch.setattr(requests, "get", get)
     urls = {"values": {"full": "https://example.org/x/counts.tsv.gz"},
             "labels": {"full": str(tmp_path)}}
-    with pytest.raises(FileNotFoundError, match="does not download") as error:
-        loading.acquire_data_set("Set", urls, str(tmp_path / "d"))
-    where = os.path.join(str(tmp_path / "d"), "Set",
-                         "Set-values-full-counts.tsv.gz")
-    assert where in str(error.value)
-    # a file at the path the JAX package would download to is used
-    os.makedirs(os.path.dirname(where))
-    open(where, "w").close()
-    got = loading.acquire_data_set("Set", urls, str(tmp_path / "d"))
-    assert got == jloading.acquire_data_set("Set", urls, str(tmp_path / "d"))
-    assert got["values"]["full"] == where
-    assert got["labels"]["full"] == str(tmp_path)
+    got = loading.acquire_data_set("Set", urls, str(tmp_path / "port"))
+    want = jloading.acquire_data_set("Set", urls, str(tmp_path / "jax"))
+    assert requested == [("https://example.org/x/counts.tsv.gz", True, 60)] * 2
+    where = os.path.join("Set", "Set-values-full-counts.tsv.gz")
+    assert got["values"]["full"] == os.path.join(str(tmp_path / "port"), where)
+    assert want["values"]["full"] == os.path.join(str(tmp_path / "jax"), where)
+    assert got["labels"] == want["labels"] == {"full": str(tmp_path)}
+    for side in ("port", "jax"):
+        assert (tmp_path / side / where).read_bytes() == body
+        assert os.listdir(tmp_path / side / "Set") == [os.path.basename(where)]
+    # a file already at that path is used, with no request
+    assert loading.acquire_data_set("Set", urls, str(tmp_path / "port")) == got
+    assert len(requested) == 2
     with pytest.raises(FileNotFoundError, match="not a URL"):
         loading.acquire_data_set("Set", {"values": {"full": "nowhere.tsv"}},
                                  str(tmp_path))
-    # a catalogue set whose files are missing raises before anything loads
-    with pytest.raises(FileNotFoundError, match="does not download"):
+    # a catalogue set whose files are missing downloads them, as JAX's
+    # does; an HTTP error leaves no file behind
+    monkeypatch.setattr(requests, "get",
+                        lambda url, **_: FakeResponse(status=404))
+    with pytest.raises(requests.HTTPError, match="404"):
         dataset.DataSet("10x-MBC-20k", directory=str(tmp_path / "c")).load()
+    assert not [name for _, _, names in os.walk(tmp_path / "c")
+                for name in names]
 
 
 def test_strings_match_jax():

@@ -10,34 +10,38 @@ draws:
 2. both golden configurations, trained by the port from JAX's initial
    weights (``params.params_from_jax`` of JAX's init from the run's key)
    with every training step's and every evaluation batch's z noise drawn
-   from the keys JAX derives for them, follow JAX's run in this test:
-   the KL curves within rtol 1e-3 at every epoch, the lower bounds within
-   rtol 1e-3 up to the epoch where the VAE's run parts from JAX's (see
-   below) and inside the ±2% bands at every golden epoch, the GMVAE's
-   accuracies within 0.01.  The draws go in through a test-side
+   from the keys JAX derives for them, follow JAX's run in this test: the
+   KL curves within rtol 1e-3 at every epoch, the validation curves inside
+   the ±2% bands at every golden epoch, the GMVAE's accuracies within
+   0.01, and after epoch 1 every parameter element but the noise-driven
+   ones (below) within 1e-6.  The draws go in through a test-side
    substitution of the port's ``Normal.sample``;
-3. on the port's own draws the curves are finite and the accuracies lie in
+3. with the noise-driven elements frozen on both sides (the ``-frozen``
+   cases) every parameter agrees with JAX's to 1e-6 after every epoch and
+   the lower bounds follow JAX's within rtol 1e-3 at every epoch;
+4. on the port's own draws the curves are finite and the accuracies lie in
    [0, 1], and the deferred fetch gives the sync fetch's accuracies.
 
-Where the VAE parts from JAX: its validation lower bound reads 7.3e-4,
-8.3e-4 and 0.9e-4 from JAX's over epochs 1–3, 1.3e-3 at epoch 4 and 1.6e-2
-at epoch 10, while its KL stays within 3.3e-4 throughout.  The
-reconstruction term drifts because Adam takes full-size steps on the
-rounding noise of gradients that are exactly zero in exact arithmetic (the
-biases right before batch norm, and the posterior mean's bias while the KL
-weight is 0): after epoch 1 every other parameter agrees to 1e-7 (held
-here to 1e-6), those differ by up to 0.012, and the evaluation's batch
-norm, which uses the running statistics, passes their shift on.  JAX's run
-takes the same steps on its own rounding, so any implementation that
-rounds otherwise parts from it there.  The ``vae-frozen`` case tests that
-explanation: with the updates of those leaves set to zero in both
-optimisers, every parameter agrees with JAX's to 1e-6 after every epoch
-and the lower bounds follow JAX's within rtol 1e-3 through epoch 10.
+The noise-driven elements are those whose gradient is zero in exact
+arithmetic (``_noise_driven``).  Adam takes full-size steps on their
+rounding noise, so they move by up to 0.06 and differ from JAX's by as
+much; the evaluation's batch norm, which uses the running statistics,
+passes their shift on to the lower bound.  JAX's run takes the same steps
+on its own rounding, so any implementation that rounds otherwise parts from
+it there, and how far depends on the host's rounding: the unfrozen lower
+bounds are therefore held to the bands only.  On one x86 host the
+unfrozen VAE's training lower bound read 3.8e-4, 4.3e-3 and 6.2e-3 from
+JAX's over epochs 1–3 and 2.5e-2 at epoch 10 (validation 3.9e-5 to
+1.9e-2), the unfrozen GMVAE's 1.1e-3, 1.8e-4 and 2.3e-4 (validation
+7.7e-4 to 2.1e-4), with the KL within 2.0e-4; another host read the VAE
+within 1e-3 through epoch 3.  Frozen, both read within 2e-6 at every
+epoch and every parameter within 1.2e-7.
 """
 
 import collections
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -64,13 +68,12 @@ COMMON = dict(feature_size=25, latent_size=2, hidden_sizes=[32],
               reconstruction_distribution="negative binomial")
 TRAIN = dict(minibatch_size=MINIBATCH, learning_rate=1e-3, seed=0,
              verbose=False)
-# name: (model kwargs, epochs, keys split per forward pass, the epochs
-#        whose lower bounds follow JAX's with no leaf frozen, the golden
+# name: (model kwargs, epochs, keys split per forward pass, the golden
 #        bands of tests/test_golden.py)
 CONFIGS = {
-    "vae": (dict(number_of_warm_up_epochs=5), 10, 3, 3,
+    "vae": (dict(number_of_warm_up_epochs=5), 10, 3,
             {"lower_bound": {0: -14318.4, 4: -24735.4, 9: -6052.0}}),
-    "gmvae": (dict(number_of_latent_clusters=3), 3, 4, 3,
+    "gmvae": (dict(number_of_latent_clusters=3), 3, 4,
               {"lower_bound": {0: -7576.6, 1: -6453.5, 2: -8586.9},
                "kl_divergence": {0: 570.50, 1: 320.11, 2: 255.02}}),
 }
@@ -174,30 +177,45 @@ def jax_draws(monkeypatch):
     return queue
 
 
-def _noise_driven(key):
-    """The VAE's leaves whose gradient is zero in exact arithmetic: the
-    biases right before batch norm, and the posterior mean's bias (zero
-    while the KL weight is 0, and the decoder's batch norm removes it)."""
-    return (("['layers']" in key and key.endswith("['bias']"))
-            or key == "['posterior']['mu']['bias']")
+def _noise_driven(name, key, shape):
+    """The elements of a leaf whose gradient is zero in exact arithmetic, as
+    a boolean mask.  Found by a float64 gradient of JAX's loss at JAX's
+    initial weights on the first minibatches, where the other elements read
+    0.03 or more: in both models the biases right before batch norm (at
+    most 6.4e-14); in the VAE also the posterior mean's bias while the KL
+    weight is 0 (3.1e-15; the decoder's batch norm removes it); in the
+    GMVAE the rows of q(z|x, y)'s first kernel that multiply the one-hot y
+    (4e-17: each cluster's pass adds them to every row, and its batch norm
+    removes them).  The GMVAE warms up for no epoch, so its q(z|x, y) mean
+    bias always has a gradient (3.5)."""
+    mask = np.zeros(shape, bool)
+    if (("['layers']" in key and key.endswith("['bias']"))
+            or (name == "vae" and key == "['posterior']['mu']['bias']")):
+        mask[...] = True
+    elif name == "gmvae" and key == "['q_z']['encoder']['layers'][0]['kernel']":
+        mask[COMMON["feature_size"]:] = True
+    return mask
 
 
-def _freeze_noise_driven(monkeypatch):
-    """Set the updates of the noise-driven leaves to zero in JAX's and in
+def _freeze_noise_driven(name, monkeypatch):
+    """Set the updates of the noise-driven elements to zero in JAX's and in
     the port's optimiser (otherwise each is ``clip(1.0)`` then Adam)."""
     def jax_optimizer(learning_rate):
-        def mask(params):
+        def zero_noise_driven(updates, params=None):
             return jax.tree_util.tree_map_with_path(
-                lambda path, _: _noise_driven(jax.tree_util.keystr(path)),
-                params)
-        return optax.chain(optax.masked(optax.set_to_zero(), mask),
+                lambda path, update: jnp.where(
+                    _noise_driven(name, jax.tree_util.keystr(path),
+                                  update.shape), 0.0, update),
+                updates)
+        return optax.chain(optax.stateless(zero_noise_driven),
                            optax.clip(1.0), optax.adam(learning_rate))
 
     class FrozenClipAdam(tstep.ClipAdam):
         def update_(self, params, grads, opt_state):
-            frozen = {id(leaf) for key, leaf in tparams.flatten(params).items()
-                      if _noise_driven(key)}
-            grads = [torch.zeros_like(grad) if id(leaf) in frozen else grad
+            masks = {id(leaf): torch.from_numpy(
+                         _noise_driven(name, key, tuple(leaf.shape)))
+                     for key, leaf in tparams.flatten(params).items()}
+            grads = [grad.masked_fill(masks[id(leaf)], 0.0)
                      for leaf, grad in zip(tstep.tree_leaves(params), grads)]
             super().update_(params, grads, opt_state)
 
@@ -206,14 +224,14 @@ def _freeze_noise_driven(monkeypatch):
 
 
 @pytest.mark.parametrize("name, frozen", [("vae", False), ("vae", True),
-                                          ("gmvae", False)],
-                         ids=["vae", "vae-frozen", "gmvae"])
+                                          ("gmvae", False), ("gmvae", True)],
+                         ids=["vae", "vae-frozen", "gmvae", "gmvae-frozen"])
 def test_golden_run_on_jax_draws(name, frozen, splits, jax_draws, tmp_path,
                                  monkeypatch):
     (jax_train, jax_valid, _), (train_set, valid_set, _) = splits
     jax_model, model, epochs = _models(name, tmp_path)
     if frozen:
-        _freeze_noise_driven(monkeypatch)
+        _freeze_noise_driven(name, monkeypatch)
     per_epoch = {"jax": [], "port": []}
 
     def keep_parameters(side, flatten):
@@ -253,27 +271,26 @@ def test_golden_run_on_jax_draws(name, frozen, splits, jax_draws, tmp_path,
                       **TRAIN).history
     assert not jax_draws  # every draw of JAX's run was used, in turn
 
-    if name == "vae":
-        # frozen: every parameter is JAX's after every epoch; else after
-        # epoch 1 every parameter but the noise-driven ones
-        for epoch in range(epochs if frozen else 1):
-            for key, leaf in per_epoch["port"][epoch].items():
-                if frozen or not _noise_driven(key):
-                    np.testing.assert_allclose(
-                        leaf, per_epoch["jax"][epoch][key], rtol=0,
-                        atol=1e-6, err_msg=f"{key} epoch {epoch + 1}")
+    # frozen: every parameter is JAX's after every epoch; else after epoch 1
+    # every parameter but the noise-driven ones
+    for epoch in range(epochs if frozen else 1):
+        for key, leaf in per_epoch["port"][epoch].items():
+            checked = (np.ones(leaf.shape, bool) if frozen
+                       else ~_noise_driven(name, key, leaf.shape))
+            np.testing.assert_allclose(
+                leaf[checked], per_epoch["jax"][epoch][key][checked], rtol=0,
+                atol=1e-6, err_msg=f"{key} epoch {epoch + 1}")
 
-    followed = epochs if frozen else CONFIGS[name][3]
-    bands = CONFIGS[name][4]
     for kind in ("training", "validation"):
         assert len(got[kind]["lower_bound"]) == epochs
         np.testing.assert_allclose(got[kind]["kl_divergence"],
                                    want[kind]["kl_divergence"], rtol=1e-3,
                                    err_msg=kind)
-        np.testing.assert_allclose(got[kind]["lower_bound"][:followed],
-                                   want[kind]["lower_bound"][:followed],
-                                   rtol=1e-3, err_msg=kind)
-    for metric, band in bands.items():
+        if frozen:
+            np.testing.assert_allclose(got[kind]["lower_bound"],
+                                       want[kind]["lower_bound"], rtol=1e-3,
+                                       err_msg=kind)
+    for metric, band in CONFIGS[name][3].items():
         curve = got["validation"][metric]
         assert np.all(np.isfinite(curve))
         for epoch, value in band.items():

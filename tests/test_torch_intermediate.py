@@ -3,7 +3,8 @@
 weights (moved with ``params_from_jax``); the intermediate callback of the
 VAE and the GMVAE (the epochs at which it calls the analyser, and what it
 hands it: the latent means of the training set's first 2,000 rows, to
-rtol 1e-5) on the development split; and ``train`` with an analyser, on
+rtol 1e-5 and an absolute 1e-6 of the largest |value|) on the development
+split; and ``train`` with an analyser, on
 the device path and streamed, at JAX's epochs, with the last call's values
 those of the stored parameters."""
 
@@ -111,8 +112,12 @@ def test_intermediate_callback_matches_jax(kind, development_splits,
     for got, want in zip(port_calls, jax_calls):
         assert sorted(got) == sorted(want)
         assert got["latent_values"].shape == (training.number_of_examples, 3)
+        # float32 sums of head-product terms up to ~50 in magnitude, taken
+        # in another order, move a small mean by ~1e-5: the absolute bound
+        # is 1e-6 of the array's largest |value|
+        largest = np.abs(want["latent_values"]).max()
         np.testing.assert_allclose(got["latent_values"], want["latent_values"],
-                                   rtol=1e-5, atol=1e-6)
+                                   rtol=1e-5, atol=1e-6 * largest)
         assert got["data_set"] is training
         for key in ("model_name", "model_type", "run_id",
                     "analyses_directory"):
