@@ -115,6 +115,20 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              steps/s and cells/s, the host's ms a batch to build and to
              place it, a replay's device ms and the device's busy share of
              the last epoch;
+4f. mesh  — data parallel on a world of one NCCL rank (a ``FileStore``
+             under ``build/``; the process group is destroyed when the
+             phase ends): the headline VAE-NB and GMVAE-NB (10 clusters)
+             for two epochs and VAE-NB-stream (phase 4e's split,
+             ``data_placement="streaming"``) for one through
+             ``train(number_of_devices=1)``, each beside the same run
+             without a mesh: the lower bounds within 1e-6 relative, the
+             same launches, NB's K2 and K3's three kernels once a step
+             and K1 once a step and evaluation batch on the device path;
+             a second mesh run of each, traced in epoch 2, holds NCCL's
+             reduction kernels (``oneRankReduce`` on one rank) as many as
+             the all-reduces counted there, ``collectives_per_step`` a
+             training step and one an evaluation (epoch on the device
+             path, batch streamed); the steps/s with and without the mesh;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
@@ -1857,9 +1871,10 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda",
     params, state = (step.tree_map(lambda a: a.to(dev), tree) for tree in
                      module.init(config, torch.Generator().manual_seed(0)))
 
-    def loss(params, model_state, batch, generator, warm_up_weight):
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
         return module.loss_fn(config, params, model_state, batch, generator,
-                              warm_up_weight=warm_up_weight)
+                              warm_up_weight=warm_up_weight, shard=shard)
 
     if streamed:
         def pipeline(epoch):
@@ -2852,6 +2867,247 @@ def phase_streaming(counts, card):
           f"{api.VariationalAutoencoder.DEVICE_DATA_BUDGET_BYTES / 2**30:g} "
           f"GiB); evaluate of {OVER_EVALUATED} rows in {evaluate_s:.3f} s: "
           f"{metrics}, p_x_mean {reconstructed.values.shape} ({card})",
+          flush=True)
+    return total
+
+
+MESH_DIRECTORY = os.path.join(BUILD, "mesh_training")
+MESH_CURVE_RTOL = 1e-6
+# NCCL's kernels of an all-reduce: one rank's reduction, several ranks'
+NCCL_REDUCTIONS = ("oneRankReduce", "AllReduce")
+# (label, model, data placement, epochs)
+MESHED = (("VAE-NB", "vae", "device", EPOCHS),
+          ("GMVAE-NB", "gmvae", "device", EPOCHS),
+          ("VAE-NB-stream", "vae", "streaming", 1))
+
+
+def mesh_model(label, kind, run):
+    from scvae_tpu_torch import (
+        GaussianMixtureVariationalAutoencoder,
+        VariationalAutoencoder,
+    )
+
+    kwargs = dict(feature_size=N_GENES, latent_size=LATENT,
+                  hidden_sizes=[HIDDEN, HIDDEN],
+                  reconstruction_distribution="negative binomial",
+                  log_directory=os.path.join(MESH_DIRECTORY, label, run))
+    if kind == "gmvae":
+        return GaussianMixtureVariationalAutoencoder(
+            number_of_latent_clusters=CLUSTERS, **kwargs)
+    return VariationalAutoencoder(**kwargs)
+
+
+def collectives_per_step(kind) -> int:
+    """The all-reduces of one data-parallel training step: each batch norm
+    (two a network; the VAE's encoder and decoder, the GMVAE's q(y|x),
+    q(z|x, y) and decoder) averages its mean and its variance, and the
+    backward each again; then one average of the gradients and the
+    metrics."""
+    layers = 2 * (3 if kind == "gmvae" else 2)
+    return 4 * layers + 1
+
+
+def mesh_run(label, kind, placement, epochs, training_set, validation_set,
+             run, traced=False):
+    """One ``train`` of a MESHED configuration, on the mesh unless ``run``
+    is "single"; with ``traced``, for at least two epochs, with ``trace``
+    around the last (its training and its evaluation passes: graph
+    replays, and none of ``train``'s barriers).  Returns (result, launches
+    of the run, the traced window's launches and collectives, trace
+    directory)."""
+    from scvae_tpu_torch import ops, parallel
+    from scvae_tpu_torch.utils.profiling import trace
+
+    traces = os.path.join(MESH_DIRECTORY, label, "trace")
+    tracing = contextlib.ExitStack()
+    window = {}
+
+    def counts():
+        return {**ops.launch_counts(), **parallel.collective_counts()}
+
+    if traced:
+        epochs = max(epochs, 2)
+
+    def callback(epoch, train_state, metrics):
+        if traced and epoch == epochs - 2:
+            window["before"] = counts()
+            tracing.enter_context(trace(traces))
+        if traced and epoch == epochs - 1:
+            torch.cuda.synchronize()
+            tracing.close()
+            window["after"] = counts()
+
+    model = mesh_model(label, kind, run)
+    ops.reset_launch_counts()
+    parallel.reset_collective_counts()
+    with tracing:
+        result = model.train(
+            training_set, validation_set, number_of_epochs=epochs,
+            minibatch_size=BATCH, seed=0, device="cuda", verbose=False,
+            data_placement=placement, epoch_callback=callback,
+            number_of_devices=None if run == "single" else 1)
+    torch.cuda.synchronize()
+    traced_counts = ({name: window["after"][name] - window["before"].get(
+        name, 0) for name in window["after"]} if traced else None)
+    return result, ops.launch_counts(), traced_counts, traces
+
+
+def mesh_evaluate(label, kind, evaluation_set):
+    """``evaluate`` of the run without a mesh's checkpoint on
+    ``evaluation_set``, without and with a mesh (``number_of_devices=1``):
+    (the largest relative difference of the metrics, the same of each
+    output array (its largest difference over its largest magnitude),
+    the all-reduces counted in the mesh's evaluation, seconds of each)."""
+    from scvae_tpu_torch import parallel
+
+    runs, seconds = [], []
+    for devices in (None, 1):
+        model = mesh_model(label, kind, "single")
+        parallel.reset_collective_counts()
+        start = time.perf_counter()
+        _, reconstructed, latent = model.evaluate(
+            evaluation_set, device="cuda", verbose=False,
+            number_of_devices=devices)
+        seconds.append(time.perf_counter() - start)
+        latents = latent if isinstance(latent, dict) else {"z": latent}
+        arrays = {"reconstructed": reconstructed.values,
+                  "stddev": reconstructed.total_standard_deviations.toarray()}
+        arrays.update({f"latent {name}": np.asarray(value.values)
+                       for name, value in latents.items()})
+        runs.append((model._last_evaluation_metrics, arrays))
+    (metrics, arrays), (metrics_m, arrays_m) = runs
+    worst = max(abs(metrics_m[k] - v) / max(abs(v), 1e-30)
+                for k, v in metrics.items())
+    outputs = {name: float(np.max(np.abs(arrays_m[name] - want))
+                           / max(float(np.max(np.abs(want))), 1e-30))
+               for name, want in arrays.items()}
+    return (worst, outputs, parallel.collective_counts()["all_reduce"],
+            seconds)
+
+
+def phase_mesh(counts, card):
+    """Phase 4f: data parallel on a world of one NCCL rank (a ``FileStore``
+    under ``build/``, the group destroyed when the phase ends).  Each
+    MESHED configuration trains at the headline width through
+    ``train(number_of_devices=1)`` and beside it without a mesh; the phase
+    holds the lower bounds within 1e-6 relative (on one rank the mesh
+    changes no value), the same launches, NB's K2 and K3's three kernels
+    once a step and K1 once a step and evaluation batch on the device
+    path; in a second mesh run (two epochs) ``trace`` around epoch 2 finds
+    NCCL's reduction kernels as often as the collectives were counted in
+    it, the training steps' share of them ``collectives_per_step`` a step,
+    and one for each evaluation (epoch on the device path, batch
+    streamed); on the device path ``evaluate(number_of_devices=1)`` of
+    the validation rows within 1e-6 relative of ``evaluate`` without the
+    mesh (``mesh_evaluate``); prints
+    the steps/s with and without the mesh.  Returns the mesh runs'
+    launches by the kernels line's entries (the GMVAE's NB kernels under
+    the cycled ones)."""
+    import torch.distributed as dist
+
+    from scvae_tpu_torch import parallel
+    from scvae_tpu_torch.utils.profiling import summarize_trace
+
+    start = time.perf_counter()
+    shutil.rmtree(MESH_DIRECTORY, ignore_errors=True)
+    os.makedirs(MESH_DIRECTORY)
+    total = collections.Counter()
+    train, valid = split_counts(counts)
+    parallel.distributed_initialize(
+        device="cuda",
+        store=dist.FileStore(os.path.join(MESH_DIRECTORY, "store"), 1),
+        world_size=1, rank=0)
+    try:
+        for label, kind, placement, epochs in MESHED:
+            sets = ((counts, None) if placement == "device"
+                    else (train, valid))
+            single, single_launches, _, _ = mesh_run(
+                label, kind, placement, epochs, *sets, "single")
+            meshed, launches, _, _ = mesh_run(
+                label, kind, placement, epochs, *sets, "mesh")
+            _, _, window, traces = mesh_run(
+                label, kind, placement, epochs, *sets, "traced", traced=True)
+            worst = 0.0
+            for subset, curves in single.history.items():
+                for name, want in curves.items():
+                    got = np.asarray(meshed.history[subset][name])
+                    want = np.asarray(want)
+                    worst = max(worst, float(np.max(
+                        np.abs(got - want) / np.abs(want))))
+            if not worst <= MESH_CURVE_RTOL:
+                raise AssertionError(f"mesh {label}: curves {worst:.3g} "
+                                     "relative from the run without a mesh")
+            if launches != single_launches:
+                raise AssertionError(f"mesh {label}: launches {launches}, "
+                                     f"without the mesh {single_launches}")
+            steps = meshed.steps_per_epoch
+            for kernel in ("forward", "backward_gradient", "backward_dh",
+                           "backward_dw"):
+                if launches[f"nb_{kernel}"] != steps * epochs:
+                    raise AssertionError(
+                        f"mesh {label}: nb_{kernel} launched "
+                        f"{launches[f'nb_{kernel}']} times in "
+                        f"{steps * epochs} steps")
+            # the device path's evaluation epoch averages once
+            evaluations = 1
+            if placement == "device":
+                gathers = steps + counts.shape[0] // BATCH
+                if window["gather_rows"] != gathers:
+                    raise AssertionError(
+                        f"mesh {label}: K1 {window['gather_rows']} times in "
+                        f"epoch 2's {steps} steps and "
+                        f"{counts.shape[0] // BATCH} evaluation batches")
+            else:  # each evaluation batch's metrics averaged once
+                evaluations = sum(-(-s.shape[0] // BATCH) for s in sets)
+            per_step = collectives_per_step(kind)
+            want = steps * per_step + evaluations
+            entries = summarize_trace(traces, top=None)
+            found = {entry["name"]: entry for entry in entries
+                     if any(part in entry["name"]
+                            for part in NCCL_REDUCTIONS)}
+            reductions = sum(entry["count"] for entry in found.values())
+            if not window["all_reduce"] == want == reductions:
+                raise AssertionError(
+                    f"mesh {label}: {window['all_reduce']} all-reduces "
+                    f"counted and {reductions} NCCL reduction kernels traced "
+                    f"in epoch 2, {steps} steps x {per_step} + "
+                    f"{evaluations} expected")
+            if placement == "device":
+                worst_metric, outputs, reduced, seconds = mesh_evaluate(
+                    label, kind, valid)
+                if not max([worst_metric, *outputs.values()]) <= (
+                        MESH_CURVE_RTOL):
+                    raise AssertionError(
+                        f"mesh {label}: evaluate with the mesh "
+                        f"{worst_metric:.3g} (metrics), {outputs} relative "
+                        "from evaluate without it")
+                print(f"mesh {label}: evaluate of {valid.shape[0]} rows with "
+                      f"the mesh {worst_metric:.3g} (metrics), {outputs} "
+                      f"relative from without it; {reduced} all-reduces; "
+                      f"{seconds[1]:.3f} s with the mesh, {seconds[0]:.3f} s "
+                      f"without ({card})", flush=True)
+            rates = {run: result.steps_per_epoch / result.epoch_seconds[-1]
+                     for run, result in (("mesh", meshed),
+                                         ("single", single))}
+            print(f"mesh {label}: {epochs} epoch(s) of {steps} steps on a "
+                  f"world of one NCCL rank; lower bounds "
+                  f"{meshed.history['training']['lower_bound']} (without "
+                  f"the mesh {single.history['training']['lower_bound']}, "
+                  f"{worst:.3g} relative at most); {per_step} all-reduces a "
+                  f"step; epoch 2 traced: {reductions} NCCL reduction "
+                  f"kernels ({ {n: e['count'] for n, e in found.items()} }, "
+                  f"{sum(e['total_ms'] for e in found.values()):.4f} ms) = "
+                  f"{window['all_reduce']} counted = {steps} x {per_step} + "
+                  f"{evaluations}; steps/s {rates['mesh']:.6g} with the "
+                  f"mesh, {rates['single']:.6g} without ({card})",
+                  flush=True)
+            for name, count in launches.items():
+                if count:
+                    cycled = kind == "gmvae" and name != "gather_rows"
+                    total[f"{name}_cycled" if cycled else name] += count
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh: phase {time.perf_counter() - start:.1f} s ({card})",
           flush=True)
     return total
 
@@ -3910,6 +4166,14 @@ def main() -> int:
             launches[entry] += count
         elif count:
             raise AssertionError(f"streaming launched {entry}")
+
+    # 4f. data parallel on a world of one NCCL rank: K1 and NB's kernels at
+    # 2,048 rows (VAE-NB, VAE-NB-stream), over the GMVAE's 20,480 rows
+    for entry, count in phase_mesh(counts, card).items():
+        if entry in launches:
+            launches[entry] += count
+        elif count:
+            raise AssertionError(f"the mesh runs launched {entry}")
 
     # 5. after training: the grouped kernels' launches come from this path
     launches.update(phase_after(counts, card))

@@ -11,8 +11,11 @@ the CPU.  Figures are drawn on the host and need matplotlib.  Loading a
 data set goes through ``DataSet.load``'s HDF5 cache, which needs
 ``h5py``.  ``train -A`` runs the intermediate analyses at log-spaced
 epochs, then the model analyses, as the JAX package does.
-``cross-analyse`` reads the analyses' files on the host.  Not ported yet,
-and so raising ``NotImplementedError``: several devices.
+``cross-analyse`` reads the analyses' files on the host.
+``--number-of-devices N`` trains and evaluates data parallel over a world of
+N processes, one a device: ``torchrun --nproc-per-node N -m scvae_tpu_torch
+train …``.  ``--model-parallelism`` above 1 (the gene split) is not ported
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from scvae_tpu_torch.models import (
     VariationalAutoencoder,
 )
 from scvae_tpu_torch.models.naming import parse_model_versions
+from scvae_tpu_torch.parallel.mesh import check_model_axis
 from scvae_tpu_torch.utils.strings import normalise_string
 from scvae_tpu_torch.utils.terminal import heading, title
 
@@ -961,16 +965,17 @@ def build_parser() -> argparse.ArgumentParser:
         subparser.add_argument(
             "--number-of-devices", metavar="N", type=int, default=None,
             help=(
-                "number of accelerator devices for the (data, model) mesh"
-                " (not ported yet: one device)"
+                "number of accelerator devices for the (data, model) mesh:"
+                " a world of as many processes, one a device (torchrun"
+                " --nproc-per-node N)"
             ),
         )
         subparser.add_argument(
             "--model-parallelism", metavar="M", type=int, default=None,
             help=(
                 "tensor-parallel factor sharding the gene-axis"
-                " reconstruction heads over the model mesh axis (not ported"
-                " yet)"
+                " reconstruction heads over the model mesh axis (not ported:"
+                " above 1 raises)"
             ),
         )
         subparser.add_argument(
@@ -1154,6 +1159,7 @@ def main(argv=None, device=None) -> int:
     arguments = vars(parser.parse_args(argv))
     arguments.pop("command", None)
     func = arguments.pop("func")
+    check_model_axis(arguments.get("model_parallelism"))
     return func(**arguments, device=device) or 0
 
 

@@ -12,8 +12,9 @@ A data set over the device budget streams from host memory through
 densified on the host by the native CSR gather (``scvae_tpu_torch.native``)
 or shipped as a padded COO block (:class:`CSRWire`, densified on the device
 by ``models.step.materialize_batch``), and on CUDA copied from pinned host
-buffers on a copy stream while the card runs the steps before it.  The mesh
-wire and multi-process feeding of the JAX package are not ported.
+buffers on a copy stream while the card runs the steps before it.  Under
+a data-parallel mesh each rank builds and ships only its contiguous block
+of each batch (the JAX package's process-local rows and per-shard wire).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Any, Iterator
 import numpy as np
 import scipy.sparse
 import torch
+
+from scvae_tpu_torch.parallel.mesh import ShardedBatch
 
 
 def narrowest_count_dtype(values, candidates=(np.int16, np.int32)):
@@ -128,6 +131,14 @@ def _narrow_int(max_value: int):
     return np.int16 if max_value <= np.iinfo(np.int16).max else np.int32
 
 
+def _wire_capacity(nnz_per_row: np.ndarray, rows: int) -> int:
+    """Entries of a wire for ``rows`` rows: their mean stored entries plus
+    four standard deviations, rounded up to 1,024."""
+    mean = float(nnz_per_row.mean()) * rows
+    std = float(nnz_per_row.std()) * np.sqrt(rows)
+    return int(-(-(mean + 4.0 * std + 1) // 1024) * 1024)
+
+
 class _PinnedSlot:
     """One pinned host buffer per (field, shape, dtype) and the event of the
     last copy out of them."""
@@ -158,15 +169,22 @@ class BatchPipeline:
     buffers and copied with ``non_blocking`` on a copy stream; the stream
     that takes the batch waits for that copy's event, and a set of pinned
     buffers is rewritten only after its last copy's event has completed.
-    ``sharding`` (the mesh wire) is not ported and must be None."""
+
+    ``sharding`` (``parallel.batch_sharding(mesh)``): every rank draws the
+    same permutation, and for a batch whose rows the data axis divides
+    builds only its contiguous block of them, yielded as a
+    ``parallel.ShardedBatch`` (a wire field with the block's row ids, at a
+    capacity sized for the block); a batch that it does not divide is
+    built whole on every rank and yielded as a plain dictionary
+    (replicated).  A field goes dense on every rank when any rank's block
+    overflows its wire (every rank holds the whole set, so each sees every
+    block's entries): the ranks then run the same batch signatures."""
 
     def __init__(self, arrays: dict[str, Any], batch_size: int, *,
                  shuffle: bool = True, drop_remainder: bool = False,
                  seed: int = 0, sharding: Any = None, prefetch: int = 2,
                  count_dtype=None, wire_format: str = "auto",
                  device: torch.device | str | None = None):
-        if sharding is not None:
-            raise NotImplementedError("sharded pipelines are not ported yet")
         if not arrays:
             raise ValueError("arrays must be non-empty")
         self.arrays = arrays
@@ -180,6 +198,7 @@ class BatchPipeline:
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
         self.sharding = sharding
+        self._shards = 1 if sharding is None else sharding.mesh.shape["data"]
         self.prefetch = max(int(prefetch), 0)
         self.device = torch.device("cuda" if device is None else device)
         self._rng = np.random.RandomState(seed)
@@ -201,6 +220,8 @@ class BatchPipeline:
         if wire_format not in ("auto", "csr", "dense"):
             raise ValueError("wire_format must be auto, csr, or dense")
         self._csr_wire: dict[str, dict] = {}
+        # a rank's block of a batch under a sharding: its wire's capacity
+        self._block_capacity: dict[str, int] = {}
         if wire_format in ("auto", "csr"):
             for name in ("x", "t"):
                 arr = arrays.get(name)
@@ -220,14 +241,13 @@ class BatchPipeline:
                 if (wire_format == "auto"
                         and density * entry_bytes > 0.5 * dense_bytes):
                     continue  # not sparse enough to pay off
-                mean = float(nnz_per_row.mean()) * batch_size
-                std = float(nnz_per_row.std()) * np.sqrt(batch_size)
-                capacity = int(-(-(mean + 4.0 * std + 1) // 1024) * 1024)
                 self._csr_wire[name] = {
-                    "capacity": capacity,
+                    "capacity": _wire_capacity(nnz_per_row, batch_size),
                     "col_dtype": _narrow_int(arr.shape[1]),
                     "row_dtype": _narrow_int(batch_size),
                 }
+                self._block_capacity[name] = _wire_capacity(
+                    nnz_per_row, batch_size // self._shards)
         self._slots: list[_PinnedSlot] = []
         self._copy_stream = None
 
@@ -241,10 +261,16 @@ class BatchPipeline:
             return self._rng.permutation(self.n)
         return np.arange(self.n)
 
-    def _host_batch(self, idx: np.ndarray) -> dict[str, Any]:
-        """The batch's fields as numpy arrays (a :class:`CSRWire` of numpy
-        arrays for a wire field); fields that are the same host array with
-        the same wire dtype and format are one object."""
+    def _host_batch(self, idx: np.ndarray,
+                    shard=None) -> dict[str, Any]:
+        """The fields of the rows ``idx`` as numpy arrays (a
+        :class:`CSRWire` of numpy arrays for a wire field); with a
+        ``shard`` (a ``parallel.RowShard`` of them) the rank's block, whose
+        wire field has a block's capacity and goes dense when any block
+        overflows it.  Fields that are the same host array with the same
+        wire dtype and format are one object."""
+        rows = idx if shard is None else idx[shard.offset:
+                                             shard.offset + shard.rows]
         built: dict[tuple, Any] = {}
         batch: dict[str, Any] = {}
         for name, arr in self.arrays.items():
@@ -255,21 +281,37 @@ class BatchPipeline:
                    csr_spec is not None)
             if key not in built:
                 wire = None
-                if csr_spec is not None:
-                    coo = self._coo_block(arr, idx, wire_dtype, csr_spec,
-                                          csr_spec["capacity"])
+                capacity = self._capacity(name, idx, shard)
+                if capacity is not None:
+                    coo = self._coo_block(arr, rows, wire_dtype, csr_spec,
+                                          capacity)
                     if coo is not None:
-                        wire = CSRWire(*coo, n_rows=len(idx),
+                        wire = CSRWire(*coo, n_rows=len(rows),
                                        n_cols=arr.shape[1])
                 if wire is not None:
                     built[key] = wire
                 else:
-                    dense = densify_rows(arr, idx)
+                    dense = densify_rows(arr, rows)
                     if wire_dtype is not None:
                         dense = dense.astype(wire_dtype)
                     built[key] = dense
             batch[name] = built[key]
         return batch
+
+    def _capacity(self, name: str, idx: np.ndarray, shard) -> int | None:
+        """The wire capacity of field ``name`` for the rows ``idx`` (a
+        rank's block of them with a ``shard``), or None for the dense form:
+        under a ``shard`` a block's capacity, None when any rank's block
+        overflows it."""
+        spec = self._csr_wire.get(name)
+        if spec is None or shard is None:
+            return None if spec is None else spec["capacity"]
+        arr = self.arrays[name]
+        entries = arr.indptr[idx + 1] - arr.indptr[idx]
+        capacity = self._block_capacity[name]
+        if entries.reshape(self._shards, -1).sum(1).max() > capacity:
+            return None
+        return capacity
 
     @staticmethod
     def _coo_block(arr, idx, wire_dtype, spec, capacity):
@@ -344,7 +386,14 @@ class BatchPipeline:
                 event, placed)
 
     def _make_batch(self, idx: np.ndarray, number: int):
-        return self._to_device(self._host_batch(idx), number)
+        """(batch, copy event, placed tensors) of the rows ``idx``: under a
+        sharding the rank's block of them when the ranks divide them."""
+        if self.sharding is None or len(idx) % self._shards:
+            return self._to_device(self._host_batch(idx), number)
+        shard = self.sharding.mesh.rows(len(idx))
+        batch, event, placed = self._to_device(
+            self._host_batch(idx, shard), number)
+        return ShardedBatch(batch, shard), event, placed
 
     def epoch(self) -> Iterator[dict[str, Any]]:
         """One pass over the data, ``prefetch`` batches built ahead."""

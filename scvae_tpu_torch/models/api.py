@@ -35,8 +35,18 @@ directory, as in the JAX package.  The status methods
 (``has_been_trained``, ``better_model_exists``, ``model_stopped_early``,
 ``number_of_epochs_trained``, ``learning_curves``) read a run's files.
 ``train(intermediate_analyser=…)`` hands an analyser the training set's
-latent means at log-spaced epochs, as the JAX package does.  Meshes are
-not ported yet and raise ``NotImplementedError``.
+latent means at log-spaced epochs, as the JAX package does.
+
+``train`` and ``evaluate`` take JAX's ``mesh`` / ``devices`` /
+``number_of_devices`` / ``model_parallelism`` (and the constructor a
+default ``mesh``): a data-parallel mesh over a world of processes, one a
+device (``parallel.mesh``; ``torchrun --nproc-per-node N`` for N devices).
+Every rank seeds alike, so it starts from the same weights and draws the
+same permutations; it stages the whole set and trains on its block of each
+batch, which must divide over the ranks (the minibatch is rounded down to
+a multiple of their number, as in JAX).  The curves, decisions and
+returned sets are the same on every rank, and rank 0 alone writes the
+run's files.  A model axis above 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from scvae_tpu_torch.models.utilities import (
     validate_model_parameters,
 )
 from scvae_tpu_torch.ops.special import lgamma
+from scvae_tpu_torch.parallel import mesh as parallel
 from scvae_tpu_torch.utils.device import resolve_device
 
 _CONFIG_KWARGS = (
@@ -79,17 +90,14 @@ _CHECKED_KWARGS = ("mesh",)
 
 
 def check_constructor_kwargs(kwargs: dict, config_kwargs) -> None:
-    """Raise ``TypeError`` for an argument neither model takes, and
-    ``NotImplementedError`` for a device mesh, which the port does not run
-    yet.  ``fused_likelihood`` goes to the configuration (True: the fused
-    kernels, False: the unfused path, None: the kernels where they
-    exist)."""
+    """Raise ``TypeError`` for an argument neither model takes.
+    ``fused_likelihood`` goes to the configuration (True: the fused
+    kernels, False: the unfused path, None: the kernels where they exist);
+    ``mesh`` is the default mesh of ``train`` and ``evaluate``."""
     unknown = (set(kwargs) - set(config_kwargs) - set(_SAMPLE_KWARGS)
                - set(_CHECKED_KWARGS))
     if unknown:
         raise TypeError(f"unexpected arguments {sorted(unknown)}")
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError("device meshes are not ported yet")
 
 
 def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
@@ -148,11 +156,21 @@ def _bf16_batch_dtypes(arrays: dict[str, Any], config,
     return overrides or None
 
 
-def _unported_mesh(mesh, devices, number_of_devices, model_parallelism):
-    if any(v is not None
-           for v in (mesh, devices, number_of_devices, model_parallelism)):
-        raise NotImplementedError("meshes and several devices are not "
-                                  "ported yet")
+def mesh_and_device(mesh, devices, number_of_devices, model_parallelism,
+                    device) -> tuple[parallel.Mesh | None, torch.device]:
+    """The run's mesh (``parallel.resolve_mesh``, JAX's rules) and its
+    device: the mesh's on a mesh, else ``device`` (CUDA by default)."""
+    device = resolve_device(device)
+    mesh = parallel.resolve_mesh(mesh, devices, number_of_devices,
+                                 model_parallelism, device=device)
+    return mesh, (device if mesh is None else mesh.device)
+
+
+def mesh_minibatch_size(batch_size: int, mesh) -> int:
+    """A minibatch that the data axis divides, to cut over it (JAX
+    ``api.py:751-755``)."""
+    shards = 1 if mesh is None else mesh.shape["data"]
+    return max(shards, (batch_size // shards) * shards)
 
 
 def _place(params, model_state, optimizer, device) -> step.TrainState:
@@ -256,6 +274,7 @@ class VariationalAutoencoder:
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
         self.base_log_directory = default(log_directory, "models", "directory")
+        self.mesh = kwargs.get("mesh")
         self.stopped_early = None
 
     # -- identity ----------------------------------------------------------
@@ -359,34 +378,41 @@ class VariationalAutoencoder:
         return _place(*vae.init(self.config, generator), optimizer, device)
 
     def _loss_fn(self, n_iw: int, n_mc: int):
+        """``loss(params, model_state, batch, generator, warm_up_weight,
+        shard=None)``; a ``shard`` (``parallel.RowShard``) makes it the
+        rank's part of the global batch's loss."""
         config = self.config
 
-        def loss(params, model_state, batch, generator, warm_up_weight):
+        def loss(params, model_state, batch, generator, warm_up_weight,
+                 shard=None):
             return vae.loss_fn(
                 config, params, model_state, batch, generator,
                 n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight,
+                shard=shard,
             )
 
         return loss
 
     def _eval_fn(self, n_iw: int, n_mc: int):
-        """``evaluate(params, model_state, batch, generator) → metrics`` of
-        one batch on the unfused float32 path."""
+        """``evaluate(params, model_state, batch, generator, shard=None) →
+        metrics`` of one batch on the unfused float32 path."""
         config = self.config
 
-        def evaluate(params, model_state, batch, generator):
+        def evaluate(params, model_state, batch, generator, shard=None):
             metrics, _ = vae.elbo_terms(
                 config, params, model_state, batch, generator,
-                training=False, n_iw=n_iw, n_mc=n_mc,
+                training=False, n_iw=n_iw, n_mc=n_mc, shard=shard,
             )
             return metrics
 
         return evaluate
 
     def _evaluation_outputs(self, params, model_state, batch, generator,
-                            n_iw: int, n_mc: int) -> dict[str, torch.Tensor]:
+                            n_iw: int, n_mc: int,
+                            shard=None) -> dict[str, torch.Tensor]:
         return vae.evaluation_outputs(self.config, params, model_state, batch,
-                                      generator, n_iw=n_iw, n_mc=n_mc)
+                                      generator, n_iw=n_iw, n_mc=n_mc,
+                                      shard=shard)
 
     def _prior_draws(self, params, sample_size: int,
                      generator: torch.Generator, device: torch.device):
@@ -418,7 +444,9 @@ class VariationalAutoencoder:
         where the set has them, densified.  The rows are staged on
         ``device`` once, here, whatever the training data's placement; the
         callback runs eagerly between epochs, outside the captured step,
-        and draws no random numbers."""
+        and draws no random numbers.  Under a mesh every rank computes the
+        latents of all the rows (replicated), and rank 0 alone hands them
+        to the analyser, which writes files."""
         from scvae_tpu_torch.utils.profiling import log_spaced_indices
 
         epochs = set(log_spaced_indices(number_of_epochs).tolist())
@@ -436,6 +464,8 @@ class VariationalAutoencoder:
                 return
             latent_values = latents_fn(train_state.params,
                                        train_state.model_state, x)
+            if not checkpoints.is_write_process():
+                return
             intermediate_analyser(
                 epoch=epoch,
                 latent_values=latent_values.cpu().numpy(),
@@ -519,16 +549,18 @@ class VariationalAutoencoder:
         return max(1, int(np.floor(minibatch_size / scale)))
 
     def _device_evaluator(self, data: dict[str, torch.Tensor], n: int,
-                          batch_size: int, n_iw: int, n_mc: int):
+                          batch_size: int, n_iw: int, n_mc: int, mesh=None):
         """Full-pass evaluation (unfused, float32): the sequential full
-        batches through ``step.make_eval_epoch`` (graph replays on CUDA),
-        then one remainder batch, weighted by rows like the JAX package."""
+        batches through ``step.make_eval_epoch`` (graph replays on CUDA;
+        under a ``mesh`` each rank's block of each), then one remainder
+        batch, whole on every rank (replicated), weighted by rows like the
+        JAX package."""
         device = next(iter(data.values())).device
         idx = torch.from_numpy(step.sequential_batches(n, batch_size)).to(device)
         n_full = int(idx.numel())
         keys = step.EVAL_METRIC_KEYS
         eval_fn = self._eval_fn(n_iw, n_mc)
-        eval_epoch = step.make_eval_epoch(eval_fn, keys)
+        eval_epoch = step.make_eval_epoch(eval_fn, keys, mesh=mesh)
 
         def evaluate(ts: step.TrainState, generator: torch.Generator):
             out = {k: 0.0 for k in keys}
@@ -591,13 +623,16 @@ class VariationalAutoencoder:
         latent_values=…, data_set=…, model_name=…, model_type=…, run_id=…,
         analyses_directory=…)`` is called at log-spaced epochs with the
         latent means of the training set's first 2,000 rows, before
-        ``epoch_callback``."""
-        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
+        ``epoch_callback``.  ``mesh`` (else the constructor's), ``devices``,
+        ``number_of_devices``, ``model_parallelism``: data parallel over a
+        world of processes (see the module docstring)."""
         if data_placement not in ("auto", "device", "streaming"):
             raise ValueError("data_placement must be auto, device, or streaming")
         if metrics_fetch not in ("sync", "deferred"):
             raise ValueError("metrics_fetch must be 'sync' or 'deferred'")
-        device = resolve_device(device)
+        mesh, device = mesh_and_device(
+            mesh if mesh is not None else self.mesh, devices,
+            number_of_devices, model_parallelism, device)
         training_set = self._data_set(training_set)
         if validation_set is not None:
             validation_set = self._data_set(validation_set)
@@ -611,7 +646,8 @@ class VariationalAutoencoder:
         n_train = training_set.number_of_examples
         n_iw = self.number_of_importance_samples["training"]
         n_mc = self.number_of_monte_carlo_samples["training"]
-        batch_size = self._scaled_minibatch_size(minibatch_size, "training")
+        batch_size = mesh_minibatch_size(
+            self._scaled_minibatch_size(minibatch_size, "training"), mesh)
         noisy = None
         if training_set.noisy_preprocessing_methods:
             noisy = build_preprocessor(
@@ -631,12 +667,15 @@ class VariationalAutoencoder:
         # With a caches directory the run trains in a scratch copy of its
         # log directory there and is moved back afterwards (the reference's
         # temporary log directory, JAX ``api.py:710-724, 924-931``).
+        # Under a mesh rank 0 alone writes the run directory, and every rank
+        # waits for it at the barriers below before it reads the directory.
+        write = checkpoints.is_write_process()
         permanent_log_dir = None
         if caches_directory:
             permanent_log_dir = log_dir
             log_dir = naming.log_directory(caches_directory, self.name,
                                            run_id=run_id)
-            if (os.path.exists(permanent_log_dir)
+            if (write and os.path.exists(permanent_log_dir)
                     and not os.path.exists(log_dir)):
                 shutil.copytree(permanent_log_dir, log_dir)
         self._active_log_directory = log_dir
@@ -651,8 +690,10 @@ class VariationalAutoencoder:
                 if user_callback is not None:
                     user_callback(epoch, train_state, epoch_metrics)
 
-        if reset_training and os.path.exists(log_dir):
+        if reset_training and write and os.path.exists(log_dir):
             shutil.rmtree(log_dir)
+        if mesh is not None:
+            mesh.barrier()
 
         optimizer = step.make_optimizer(learning_rate)
         train_state = self._init_state(
@@ -670,6 +711,8 @@ class VariationalAutoencoder:
             checkpoints.truncate_learning_curves(log_dir, start_epoch)
             checkpoints.truncate_centroids(log_dir, start_epoch)
             checkpoints.truncate_array_series(log_dir, start_epoch)
+            if mesh is not None:
+                mesh.barrier()
             if verbose:
                 print(f"Resuming training from epoch {start_epoch}.")
 
@@ -680,13 +723,15 @@ class VariationalAutoencoder:
             train_epoch = step.make_train_epoch(
                 self._loss_fn(n_iw, n_mc), optimizer,
                 batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
+                mesh=mesh,
             )
             run_epoch = training.device_epoch_runner(
                 train_epoch, data, n_train, batch_size, seed,
                 lazy=metrics_fetch == "deferred",
             )
             evaluate_training = (
-                self._device_evaluator(data, n_train, batch_size, n_iw, n_mc)
+                self._device_evaluator(data, n_train, batch_size, n_iw, n_mc,
+                                       mesh)
                 if full_train_evaluation else None
             )
             evaluate_validation = None
@@ -695,14 +740,14 @@ class VariationalAutoencoder:
                     self._model_arrays(validation_set), device)
                 evaluate_validation = self._device_evaluator(
                     validation_data, validation_set.number_of_examples,
-                    batch_size, n_iw, n_mc)
+                    batch_size, n_iw, n_mc, mesh)
             steps_per_epoch = n_train // batch_size
         else:
             run_epoch, evaluate_training, evaluate_validation = (
                 self._streaming_runners(
                     training_set, validation_set, noisy, optimizer,
                     batch_size, seed, full_train_evaluation, n_iw, n_mc,
-                    device))
+                    device, mesh))
             steps_per_epoch = -(-n_train // batch_size)
             # each step's batch is fed from the host: no fetch to defer
             metrics_fetch = "sync"
@@ -723,31 +768,37 @@ class VariationalAutoencoder:
             fetch_mode=metrics_fetch,
         )
         self.stopped_early = result.stopped_early
-        if permanent_log_dir is not None:
+        if permanent_log_dir is not None and write:
             checkpoints.wait_for_pending_writes()
             if os.path.exists(permanent_log_dir):
                 shutil.rmtree(permanent_log_dir)
             shutil.copytree(log_dir, permanent_log_dir)
             shutil.rmtree(log_dir)
+        if mesh is not None:
+            mesh.barrier()
         return result
 
     def _streaming_runners(self, training_set, validation_set, noisy,
                            optimizer, batch_size, seed,
-                           full_train_evaluation, n_iw, n_mc, device):
+                           full_train_evaluation, n_iw, n_mc, device,
+                           mesh=None):
         """(epoch runner, training evaluator, validation evaluator) for data
         streamed from the host (JAX ``api.py:854-901``).  Each epoch builds
         a pipeline shuffled from ``seed + epoch``; under noisy
         preprocessing each such pipeline draws new values and ships them
         as float32; the full training-set evaluation reads the pipeline of
         epoch 0 (drawing again under noise), the validation set its own
-        values in order.  The NB row constants are summed in each step."""
+        values in order.  The NB row constants are summed in each step.
+        Under a ``mesh`` each rank builds its block of every batch that the
+        ranks divide (A8.3, the mesh wire) and the rest whole."""
         count_dtype = None if noisy is not None else self.DEVICE_COUNT_DTYPES
+        sharding = None if mesh is None else parallel.batch_sharding(mesh)
 
         def make_training_pipeline(epoch: int) -> BatchPipeline:
             arrays = self._model_arrays(training_set, noisy_preprocess=noisy)
             return BatchPipeline(arrays, batch_size, shuffle=True,
-                                 seed=seed + epoch, count_dtype=count_dtype,
-                                 device=device)
+                                 seed=seed + epoch, sharding=sharding,
+                                 count_dtype=count_dtype, device=device)
 
         train_step = step.make_train_step(self._loss_fn(n_iw, n_mc),
                                           optimizer)
@@ -768,7 +819,7 @@ class VariationalAutoencoder:
                 return training.evaluate_on_pipeline(
                     eval_step, train_state,
                     BatchPipeline(validation_arrays, batch_size,
-                                  shuffle=False,
+                                  shuffle=False, sharding=sharding,
                                   count_dtype=self.DEVICE_COUNT_DTYPES,
                                   device=device),
                     generator)
@@ -795,7 +846,7 @@ class VariationalAutoencoder:
 
     def _evaluation_pass(self, evaluation_set: DataSet, minibatch_size,
                          run_id, use_early_stopping_model, use_best_model,
-                         evaluation_subset_indices, seed, device,
+                         evaluation_subset_indices, seed, device, mesh,
                          metric_keys, row_keys):
         """``_evaluation_outputs`` over the set in sequential batches read
         through a :class:`BatchPipeline` (the narrow count dtypes and the
@@ -803,12 +854,17 @@ class VariationalAutoencoder:
         it: the per-row outputs ``row_keys`` as (N, …) arrays, the
         reconstruction's standard deviations for the evaluation subset only
         (sparse rows, as the reference keeps them for large sets), and the
-        row-weighted ``metric_keys``."""
+        row-weighted ``metric_keys``.  Under a ``mesh`` each rank evaluates
+        its block of every batch that the ranks divide, then the blocks'
+        rows (of the standard deviations, the subset's alone) are gathered
+        and their metrics averaged, so every rank holds the whole batch's
+        outputs; the rest run whole on every rank."""
         if minibatch_size is None:
             minibatch_size = get_default("models", "minibatch_size")
         n_iw = self.number_of_importance_samples["evaluation"]
         n_mc = self.number_of_monte_carlo_samples["evaluation"]
-        batch_size = self._scaled_minibatch_size(minibatch_size, "evaluation")
+        batch_size = mesh_minibatch_size(
+            self._scaled_minibatch_size(minibatch_size, "evaluation"), mesh)
         train_state, _ = self._restore(run_id, use_early_stopping_model,
                                        use_best_model, device)
         if evaluation_subset_indices is None:
@@ -816,6 +872,7 @@ class VariationalAutoencoder:
                 evaluation_set)
         pipeline = BatchPipeline(
             self._model_arrays(evaluation_set), batch_size, shuffle=False,
+            sharding=None if mesh is None else parallel.batch_sharding(mesh),
             prefetch=2, count_dtype=self.DEVICE_COUNT_DTYPES, device=device)
         n, f = evaluation_set.number_of_examples, self.config.feature_size
         rows: dict[str, np.ndarray | None] = dict.fromkeys(row_keys)
@@ -828,23 +885,37 @@ class VariationalAutoencoder:
         start = 0
         with torch.no_grad():
             for batch in pipeline.epoch():
-                batch = step.cast_batch_to_f32(step.materialize_batch(batch))
-                stop = start + batch["t"].shape[0]
+                shard = getattr(batch, "shard", None)
+                stop = start + parallel.batch_rows(batch)
                 out = self._evaluation_outputs(
-                    train_state.params, train_state.model_state, batch,
-                    generator, n_iw, n_mc)
+                    train_state.params, train_state.model_state,
+                    step.cast_batch_to_f32(step.materialize_batch(batch)),
+                    generator, n_iw, n_mc, shard=shard)
+                picked = np.nonzero(subset[start:stop])[0]
+                # the evaluation subset's rows of the two standard deviations
+                stddevs = torch.cat([out["p_x_stddev"],
+                                     out["stddev_of_p_x_given_z_mean"]], -1)
+                if shard is None:
+                    stddevs = stddevs[torch.from_numpy(picked).to(device)]
+                else:
+                    averaged = parallel.average(
+                        [out[key] for key in metric_keys])
+                    out = {**dict(zip(metric_keys, averaged)),
+                           **{key: mesh.gather_rows(out[key])
+                              for key in row_keys}}
+                    if picked.size:
+                        stddevs = mesh.gather_picked(
+                            stddevs, torch.from_numpy(picked), shard)
                 for key in row_keys:
                     value = out[key].cpu().numpy()
                     if rows[key] is None:
                         rows[key] = np.empty((n,) + value.shape[1:],
                                              value.dtype)
                     rows[key][start:stop] = value
-                picked = np.nonzero(subset[start:stop])[0]
                 if picked.size:
-                    p_x_stddev[start + picked] = (
-                        out["p_x_stddev"].cpu().numpy()[picked])
-                    stddev_of_mean[start + picked] = (
-                        out["stddev_of_p_x_given_z_mean"].cpu().numpy()[picked])
+                    both = stddevs.cpu().numpy()
+                    p_x_stddev[start + picked] = both[:, :f]
+                    stddev_of_mean[start + picked] = both[:, f:]
                 for key in metric_keys:
                     totals[key] += float(out[key]) * (stop - start)
                 start = stop
@@ -904,14 +975,17 @@ class VariationalAutoencoder:
         """Evaluate a stored version of the model on ``evaluation_set``;
         returns the (transformed, reconstructed, latent) data sets that
         ``output_versions`` asks for (one set alone when it names one) and
-        keeps the metrics in ``_last_evaluation_metrics``."""
-        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
+        keeps the metrics in ``_last_evaluation_metrics``.  Under a mesh
+        (``mesh``, else the constructor's, or ``devices`` /
+        ``number_of_devices``) every rank returns the same sets."""
         output_versions = _output_versions(output_versions)
-        device = resolve_device(device)
+        mesh, device = mesh_and_device(
+            mesh if mesh is not None else self.mesh, devices,
+            number_of_devices, model_parallelism, device)
         evaluation_set = self._data_set(evaluation_set)
         rows, stddevs, metrics = self._evaluation_pass(
             evaluation_set, minibatch_size, run_id, use_early_stopping_model,
-            use_best_model, evaluation_subset_indices, seed, device,
+            use_best_model, evaluation_subset_indices, seed, device, mesh,
             ("lower_bound", "reconstruction_error", "kl_divergence"),
             ("p_x_mean", "q_z_mean"))
         if verbose:

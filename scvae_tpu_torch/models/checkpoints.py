@@ -16,6 +16,8 @@ the JAX package's do: the operations run in the order they were queued,
 and ``save_checkpoint`` copies the tensors to the host before it queues
 the write, so training may go on updating them.  ``wait_for_pending_writes``
 blocks until the queue is empty and raises the first failed write.
+Under ``torch.distributed`` the ranks share one view of the run directory
+and only rank 0 writes (:func:`is_write_process`); every rank reads.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scvae_tpu_torch import params as tparams
 from scvae_tpu_torch.models.step import TrainState
@@ -72,6 +75,13 @@ def wait_for_pending_writes() -> None:
         future.result()
 
 
+def is_write_process() -> bool:
+    """True unless this process is a rank other than 0 of a process group:
+    the ranks of a data-parallel run share one run directory, and rank 0
+    writes it (JAX ``_is_write_process``)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _numpy(value: Any) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
@@ -111,6 +121,8 @@ def save_checkpoint(directory: str, train_state: TrainState, *, epoch: int,
     """Persist ``train_state`` and its metadata (the epoch and the step)
     into ``directory``; with ``async_write`` the host copy is made here and
     the files are written by the background worker."""
+    if not is_write_process():
+        return
     flat = tparams.train_state_to_jax(train_state.params,
                                       train_state.model_state,
                                       train_state.opt_state, train_state.step)
@@ -156,6 +168,8 @@ def copy_checkpoint_version(source_directory: str, target_directory: str, *,
                             async_write: bool = False) -> None:
     """Snapshot the checkpoint of ``source_directory`` into a version
     directory (``best/`` or ``early_stopping/``)."""
+    if not is_write_process():
+        return
     if async_write:
         _submit(_copy_version, source_directory, target_directory)
     else:
@@ -170,6 +184,8 @@ def _remove(directory: str) -> None:
 
 
 def remove_checkpoint(directory: str, *, async_write: bool = False) -> None:
+    if not is_write_process():
+        return
     if async_write:
         _submit(_remove, directory)
     else:
@@ -183,6 +199,8 @@ def remove_checkpoint(directory: str, *, async_write: bool = False) -> None:
 
 def append_centroids(directory: str, centroids: dict[str, Any]) -> None:
     """Append one epoch's {probabilities, means, covariance_matrices}."""
+    if not is_write_process():
+        return
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, CENTROIDS_FILE)
     history = _read_json(path, [])
@@ -200,6 +218,8 @@ def load_centroids(directory: str) -> dict[str, np.ndarray] | None:
 
 
 def truncate_centroids(directory: str, number_of_epochs: int) -> None:
+    if not is_write_process():
+        return
     path = os.path.join(directory, CENTROIDS_FILE)
     if os.path.exists(path):
         _write_json(path, _read_json(path, [])[:number_of_epochs])
@@ -211,6 +231,8 @@ def truncate_centroids(directory: str, number_of_epochs: int) -> None:
 
 
 def append_array_series(directory: str, name: str, vector: Any) -> None:
+    if not is_write_process():
+        return
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, ARRAY_SERIES_FILE)
     series = _read_json(path, {})
@@ -227,6 +249,8 @@ def load_array_series(directory: str, name: str) -> np.ndarray | None:
 
 
 def truncate_array_series(directory: str, number_of_epochs: int) -> None:
+    if not is_write_process():
+        return
     path = os.path.join(directory, ARRAY_SERIES_FILE)
     if os.path.exists(path):
         series = _read_json(path, {})
@@ -246,6 +270,8 @@ def load_learning_curves(directory: str) -> dict[str, dict[str, list[float]]]:
 def append_learning_curves(directory: str,
                            epoch_metrics: dict[str, dict[str, float]]) -> None:
     """``epoch_metrics``: {"training": {"lower_bound": …}, "validation": …}."""
+    if not is_write_process():
+        return
     os.makedirs(directory, exist_ok=True)
     curves = load_learning_curves(directory)
     for kind, metrics in epoch_metrics.items():
@@ -257,6 +283,8 @@ def append_learning_curves(directory: str,
 
 def truncate_learning_curves(directory: str, number_of_epochs: int) -> None:
     """Keep only the first ``number_of_epochs`` epochs (on resume)."""
+    if not is_write_process():
+        return
     curves = load_learning_curves(directory)
     _write_json(os.path.join(directory, LEARNING_CURVES_FILE), {
         kind: {name: values[:number_of_epochs]

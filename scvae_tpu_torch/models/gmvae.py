@@ -291,10 +291,15 @@ def forward(
     n_mc: int = 1,
     build_reconstruction: bool = True,
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> GMVAEOutputs:
     """q(y|x), q(z|x,y_k) for every cluster, z, the decoder per cluster (and
     the reconstruction distribution).  ``noise`` (S, K, B, D) replaces the
-    generator's standard-normal draws for z."""
+    generator's standard-normal draws for z.  With a ``shard``
+    (``parallel.RowShard``) the batch is this rank's rows of a global batch:
+    batch norm takes the global batch's statistics (each cluster's), and
+    every draw (and ``noise``) is the global batch's, cut to the rank's
+    rows."""
     x = batch["x"]
     b = x.shape[0]
     k = config.n_clusters
@@ -307,7 +312,7 @@ def forward(
         training=training, generator=generator,
         input_dropout_keep_prob=config.dropout_keep_probability_x,
         hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, shard=shard,
     )
     q_y = Categorical(logits=_q_y_logits(params, h_y))
     p_y = Categorical(logits=_p_y_logits(config, params, x.device))
@@ -330,7 +335,7 @@ def forward(
             encoder, state.get("q_z", {}), pre0, training=training,
             generator=generator,
             hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-            compute_dtype=compute_dtype, clusters=True,
+            compute_dtype=compute_dtype, clusters=True, shard=shard,
         )
     else:
         xy = torch.cat([x.expand(k, b, x.shape[-1]),
@@ -340,7 +345,7 @@ def forward(
             generator=generator,
             input_dropout_keep_prob=config.dropout_keep_probability_x,
             hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-            compute_dtype=compute_dtype, clusters=True,
+            compute_dtype=compute_dtype, clusters=True, shard=shard,
         )
     q_z = posterior_spec.build(_build_theta(
         posterior_spec, params["q_z"]["heads"], h_z, compute_dtype))
@@ -350,6 +355,9 @@ def forward(
     p_z = prior_spec.build(_build_theta(prior_spec, params["p_z"]["heads"],
                                         eye[:, None, :]))
 
+    if shard is not None:
+        noise = shard.normal((s,) + tuple(q_z.batch_shape()), generator,
+                             q_z.parameters()[0], noise)
     z = q_z.sample(generator, (s,), noise=noise)  # (S, K, B, D)
 
     # the decoder per cluster: (K, S, B, D [+ extras]) → (K, S, B, H)
@@ -363,7 +371,7 @@ def forward(
         training=training, generator=generator,
         input_dropout_keep_prob=config.dropout_keep_probability_z,
         hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-        compute_dtype=compute_dtype, clusters=True,
+        compute_dtype=compute_dtype, clusters=True, shard=shard,
     )
 
     p_x = None
@@ -404,6 +412,7 @@ def elbo_terms(
     n_mc: int = 1,
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> tuple[dict[str, torch.Tensor], GMVAEOutputs]:
     """The y-marginalised ELBO (reference ``gaussian_mixture_variational_
     autoencoder.py:3223-3434``): ``lower_bound``, ``lower_bound_weighted``
@@ -411,12 +420,15 @@ def elbo_terms(
     free-nats floor on KL_y), ``reconstruction_error``, ``kl_divergence``,
     ``kl_divergence_z``, ``kl_divergence_y`` and ``kl_divergence_neurons``
     (D,; (1,) for the full-covariance latent, whose z terms are
-    per-event).  The fused likelihood is training-only."""
+    per-event).  The fused likelihood is training-only.  With a ``shard``
+    (see :func:`forward`) each is the mean over the rank's rows, whose
+    average over the ranks is the global batch's value; the free-nats floor
+    applies to the global KL_y, averaged over the ranks first."""
     use_fused = training and fused_path_enabled(config)
     outputs = forward(
         config, params, state, batch, generator, training=training,
         n_iw=n_iw, n_mc=n_mc, build_reconstruction=not use_fused,
-        noise=noise,
+        noise=noise, shard=shard,
     )
     t = batch["t"]
     k = config.n_clusters
@@ -436,11 +448,13 @@ def elbo_terms(
     kl_divergence_y = torch.mean(kl_y_per_example)
     free_nats = config.proportion_of_free_nats_for_y_kl_divergence
     # the floor added to zeros on the device: a capture refuses host copies
-    kl_divergence_y_modified = (
-        torch.maximum(kl_divergence_y, torch.zeros_like(kl_divergence_y)
-                      + free_nats * p_y_entropy)
-        if free_nats else kl_divergence_y
-    )
+    kl_divergence_y_modified = kl_divergence_y
+    if free_nats:
+        # a maximum of the mean: the global mean's, on every rank
+        kl_global = (kl_divergence_y if shard is None
+                     else shard.mean(kl_divergence_y))
+        kl_divergence_y_modified = torch.maximum(
+            kl_global, torch.zeros_like(kl_global) + free_nats * p_y_entropy)
 
     # z terms on samples (S, K, B, D): posterior (K, B, D), prior (K, 1, D);
     # the Gaussians give per-dimension log-probabilities, (S, K, B, D), and
@@ -501,11 +515,15 @@ def loss_fn(
     n_mc: int = 1,
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
-    """Training objective: −lower_bound_weighted."""
+    """Training objective: −lower_bound_weighted; with a ``shard`` (the
+    rank's row offset and the global batch's size) the rank's part, whose
+    average over the ranks is the global loss."""
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator, training=True,
         n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight, noise=noise,
+        shard=shard,
     )
     return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
 
@@ -529,6 +547,7 @@ def evaluation_outputs(
     n_iw: int = 1,
     n_mc: int = 1,
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> dict[str, torch.Tensor]:
     """The metrics of one batch in evaluation mode and its outputs
     marginalised over y with q(y|x): the reconstruction ``p_x_mean`` (B, F)
@@ -538,7 +557,7 @@ def evaluation_outputs(
     samples ``z`` (S, K, B, D) (reference evaluate loop ``:2336-2786``)."""
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator, training=False,
-        n_iw=n_iw, n_mc=n_mc, noise=noise,
+        n_iw=n_iw, n_mc=n_mc, noise=noise, shard=shard,
     )
     b = batch["t"].shape[0]
     y_probs = outputs.q_y.probs  # (B, K)

@@ -34,9 +34,8 @@ from scvae_tpu_torch.models.api import (
     VariationalAutoencoder,
     _output_versions,
     _place,
-    _unported_mesh,
     check_constructor_kwargs,
-    resolve_device,
+    mesh_and_device,
 )
 from scvae_tpu_torch.models.utilities import parse_numbers_of_samples
 
@@ -128,6 +127,7 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         self.latent_size = self.config.latent_size
         self.hidden_sizes = self.config.hidden_sizes
         self.base_log_directory = default(log_directory, "models", "directory")
+        self.mesh = kwargs.get("mesh")
         self.stopped_early = None
 
     @property
@@ -149,10 +149,12 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
     def _loss_fn(self, n_iw: int, n_mc: int):
         config = self.config
 
-        def loss(params, model_state, batch, generator, warm_up_weight):
+        def loss(params, model_state, batch, generator, warm_up_weight,
+                 shard=None):
             return gmvae.loss_fn(
                 config, params, model_state, batch, generator,
                 n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight,
+                shard=shard,
             )
 
         return loss
@@ -160,20 +162,21 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
     def _eval_fn(self, n_iw: int, n_mc: int):
         config = self.config
 
-        def evaluate(params, model_state, batch, generator):
+        def evaluate(params, model_state, batch, generator, shard=None):
             metrics, _ = gmvae.elbo_terms(
                 config, params, model_state, batch, generator,
-                training=False, n_iw=n_iw, n_mc=n_mc,
+                training=False, n_iw=n_iw, n_mc=n_mc, shard=shard,
             )
             return metrics
 
         return evaluate
 
     def _evaluation_outputs(self, params, model_state, batch, generator,
-                            n_iw: int, n_mc: int) -> dict[str, torch.Tensor]:
+                            n_iw: int, n_mc: int,
+                            shard=None) -> dict[str, torch.Tensor]:
         return gmvae.evaluation_outputs(self.config, params, model_state,
                                         batch, generator, n_iw=n_iw,
-                                        n_mc=n_mc)
+                                        n_mc=n_mc, shard=shard)
 
     def _prior_draws(self, params, sample_size: int,
                      generator: torch.Generator, device: torch.device):
@@ -242,12 +245,17 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         centroids to the run's files each epoch and, with
         ``track_accuracy``, the cluster accuracy of each labelled set
         (reference ``:1299-1333``)."""
+        # the mesh first: its device is the rank's, where the sets go
+        kwargs["mesh"], device = mesh_and_device(
+            kwargs.get("mesh") or self.mesh, kwargs.pop("devices", None),
+            kwargs.pop("number_of_devices", None),
+            kwargs.pop("model_parallelism", None), kwargs.get("device"))
         accuracy_callback = None
         if track_accuracy and any(getattr(data, "has_labels", False)
                                   for data in (training_set, validation_set)):
             accuracy_callback = self._make_accuracy_callback(
                 {"training": training_set, "validation": validation_set},
-                resolve_device(kwargs.get("device")))
+                device)
         user_callback = epoch_callback
 
         def callback(epoch, train_state, epoch_metrics):
@@ -286,13 +294,14 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
         and every output set carries the predicted cluster ids and, for a
         labelled set, the labels and superset labels its clusters map to
         by majority vote (JAX ``gmvae_api.py:485-520``)."""
-        _unported_mesh(mesh, devices, number_of_devices, model_parallelism)
         output_versions = _output_versions(output_versions)
-        device = resolve_device(device)
+        mesh, device = mesh_and_device(
+            mesh if mesh is not None else self.mesh, devices,
+            number_of_devices, model_parallelism, device)
         evaluation_set = self._data_set(evaluation_set)
         rows, stddevs, metrics = self._evaluation_pass(
             evaluation_set, minibatch_size, run_id, use_early_stopping_model,
-            use_best_model, evaluation_subset_indices, seed, device,
+            use_best_model, evaluation_subset_indices, seed, device, mesh,
             ("lower_bound", "reconstruction_error", "kl_divergence",
              "kl_divergence_z", "kl_divergence_y"),
             ("p_x_mean", "q_z_mean", "y_probs", "cluster_ids"))

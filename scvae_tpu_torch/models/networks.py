@@ -12,6 +12,12 @@ The GMVAE runs one network for every latent cluster.  The JAX package
 cluster and the new running statistics are the mean over clusters; here the
 cluster axis is the leading axis of the input and ``clusters=True`` gives
 those semantics.
+
+With a ``shard`` (``parallel.RowShard``: this rank's rows of a global batch
+cut over the data axis) training batch norm takes the global batch's
+statistics and dropout draws the global batch's mask, so R ranks compute
+what one process computes on the whole batch.  Activations hold the
+batch's rows on axis −2.
 """
 
 from __future__ import annotations
@@ -96,15 +102,23 @@ def init_batch_norm(dim: int) -> tuple[Params, State]:
 
 def apply_batch_norm(
     params: Params, state: State, x: torch.Tensor, *, training: bool,
-    clusters: bool = False,
+    clusters: bool = False, shard=None,
 ) -> tuple[torch.Tensor, State]:
     """Normalise over all leading axes, or with ``clusters`` over all but
     the first (the cluster axis) for each cluster; returns (output,
-    new_state)."""
+    new_state).  With a ``shard`` the training statistics are the global
+    batch's, in two passes, each averaged over the ranks (equal blocks) by
+    a differentiable all-reduce: the mean, then the mean square deviation
+    from it, as each block's variance plus the square of its mean's
+    deviation (one pass of Σx and Σx² would cancel in float32; on one rank
+    both are the local statistics, bit for bit)."""
     if training:
         axes = tuple(range(1 if clusters else 0, x.dim() - 1))
         mean = torch.mean(x, dim=axes, keepdim=True)
         var = torch.var(x, dim=axes, unbiased=False, keepdim=True)
+        if shard is not None:
+            local_mean, mean = mean, shard.mean(mean)
+            var = shard.mean(var + torch.square(local_mean - mean))
         batch_mean, batch_var = (
             v.detach().reshape(-1, x.shape[-1]) for v in (mean, var))
         if clusters:  # one update per cluster, averaged over clusters
@@ -123,11 +137,16 @@ def apply_batch_norm(
 
 
 def dropout(x: torch.Tensor, keep_prob: float,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout with the reference's keep-probability convention."""
+            generator: torch.Generator | None, shard=None) -> torch.Tensor:
+    """Inverted dropout with the reference's keep-probability convention
+    (with a ``shard``, the rank's rows of the global batch's mask)."""
     if keep_prob >= 1.0 or keep_prob <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if shard is None:
+        uniform = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        uniform = shard.uniform(x.shape, generator, x.device)
+    keep = uniform < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -168,14 +187,16 @@ def apply_mlp(
     hidden_dropout_keep_prob: float = 1.0,
     compute_dtype=None,
     clusters: bool = False,
+    shard=None,
 ) -> tuple[torch.Tensor, State]:
     """Dropout → dense → batch-norm → activation per layer (batch norm per
-    cluster of the leading axis with ``clusters``)."""
+    cluster of the leading axis with ``clusters``; global statistics and
+    draws with a ``shard``)."""
     return _finish_mlp(
         params, state, x, 0, training=training, generator=generator,
         activation=activation, input_dropout_keep_prob=input_dropout_keep_prob,
         hidden_dropout_keep_prob=hidden_dropout_keep_prob,
-        compute_dtype=compute_dtype, clusters=clusters,
+        compute_dtype=compute_dtype, clusters=clusters, shard=shard,
     )
 
 
@@ -190,6 +211,7 @@ def apply_mlp_from_first_preactivation(
     hidden_dropout_keep_prob: float = 1.0,
     compute_dtype=None,
     clusters: bool = False,
+    shard=None,
 ) -> tuple[torch.Tensor, State]:
     """Finish an MLP from the first layer's pre-activation ``pre0``.
 
@@ -202,13 +224,13 @@ def apply_mlp_from_first_preactivation(
         params, state, pre0, 1, training=training, generator=generator,
         activation=activation, input_dropout_keep_prob=1.0,
         hidden_dropout_keep_prob=hidden_dropout_keep_prob,
-        compute_dtype=compute_dtype, clusters=clusters,
+        compute_dtype=compute_dtype, clusters=clusters, shard=shard,
     )
 
 
 def _finish_mlp(params, state, h, first, *, training, generator, activation,
                 input_dropout_keep_prob, hidden_dropout_keep_prob,
-                compute_dtype, clusters):
+                compute_dtype, clusters, shard):
     """Layers from ``first`` on, with ``h`` the input of layer ``first`` (or,
     for ``first`` = 1, layer 0's pre-activation)."""
     use_bn = "batch_norm" in params
@@ -218,12 +240,12 @@ def _finish_mlp(params, state, h, first, *, training, generator, activation,
             keep = (input_dropout_keep_prob if i == 0
                     else hidden_dropout_keep_prob)
             if training and keep < 1.0:
-                h = dropout(h, keep, generator)
+                h = dropout(h, keep, generator, shard)
             h = apply_dense(layer, h, compute_dtype=compute_dtype)
         if use_bn:
             h, bn_s = apply_batch_norm(
                 params["batch_norm"][i], state["batch_norm"][i], h,
-                training=training, clusters=clusters,
+                training=training, clusters=clusters, shard=shard,
             )
             new_bn_states.append(bn_s)
         h = activation(h)

@@ -23,6 +23,15 @@ evaluated by :class:`EvalStep`: the CSR wire is densified on the device
 (:func:`materialize_batch`), and on CUDA each batch signature has a graph
 of its own, whose fixed inputs every batch is copied into before the
 replay.
+
+Data parallel (``parallel.Mesh``): the epochs take a ``mesh``, and each
+rank gathers its block of each global row of indices; a streamed batch
+that holds a rank's block (``parallel.ShardedBatch``) carries its
+``RowShard``.  The loss then reads the global batch's statistics and
+draws, and the step averages the gradients and its metrics over the
+ranks in one all-reduce before the clip and Adam, inside the captured
+graph on CUDA.  A whole batch (a streamed remainder that the ranks do not
+divide) runs replicated: every rank computes it alike, with no collective.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from scvae_tpu_torch import ops
 from scvae_tpu_torch.data.pipeline import CSRWire
+from scvae_tpu_torch.parallel import mesh as parallel
 
 LossFn = Callable[..., tuple[torch.Tensor, tuple[dict[str, torch.Tensor], Any]]]
 
@@ -202,29 +212,35 @@ def materialize_batch(batch: dict[str, Any]) -> dict[str, Any]:
 
 
 def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
-    """``apply(ts, batch, generator, warm_up_weight) → metrics``: one
-    training step on ``ts`` in place (parameters, batch-norm statistics,
-    optimiser state), the host step count untouched."""
+    """``apply(ts, batch, generator, warm_up_weight, shard=None) →
+    metrics``: one training step on ``ts`` in place (parameters,
+    batch-norm statistics, optimiser state), the host step count
+    untouched.  With a ``shard`` the gradients and the metrics are
+    averaged over the ranks (one all-reduce) before the optimiser."""
 
-    def apply(ts: TrainState, batch, generator, warm_up_weight):
+    def apply(ts: TrainState, batch, generator, warm_up_weight, shard=None):
         leaves = tree_leaves(ts.params)
         for leaf in leaves:
             leaf.requires_grad_(True)
         loss, (metrics, new_model_state) = loss_fn(
             ts.params, ts.model_state, cast_batch_to_f32(batch), generator,
-            warm_up_weight,
+            warm_up_weight, shard=shard,
         )
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves))
         for leaf in leaves:
             leaf.requires_grad_(False)
-        optimizer.update_(ts.params, list(grads), ts.opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        if shard is not None:
+            reduced = parallel.average(grads + list(metrics.values()))
+            grads = reduced[:len(grads)]
+            metrics = dict(zip(metrics, reduced[len(grads):]))
+        optimizer.update_(ts.params, grads, ts.opt_state)
         state = tree_leaves(ts.model_state)
         if state:
             with torch.no_grad():
                 torch._foreach_copy_(
                     state, matching_leaves(new_model_state, ts.model_state))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
         return metrics
 
     return apply
@@ -236,9 +252,9 @@ class _GraphedBody:
     replayed from then on.  ``generator``, the only generator the body
     draws from, is registered with the graph, so a replay draws what the
     body would draw eagerly from the generator's state at that moment.  The
-    kernel launches counted while capturing were recorded, not run: they
-    are taken off the counters and added once per replay.  A capture or
-    replay that fails raises."""
+    kernel launches and collectives counted while capturing were recorded,
+    not run: they are taken off the counters and added once per replay.  A
+    capture or replay that fails raises."""
 
     def __init__(self, body: Callable[[], None], generator: torch.Generator):
         self._body = body
@@ -255,12 +271,12 @@ class _GraphedBody:
         if self._graph is None:
             self._capture()
         self._graph.replay()
-        ops.add_launch_counts(self._launches)
+        _add_counts(self._launches)
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
-        before = ops.launch_counts()
+        before = _counts()
         # A graph destroyed during a capture invalidates the capture (CUDA
         # refuses cudaGraphDestroy then), and the graphs of earlier epochs
         # and ``train`` calls die with the reference cycles around them:
@@ -274,12 +290,22 @@ class _GraphedBody:
         finally:
             if collecting:
                 gc.enable()
-        after = ops.launch_counts()
+        after = _counts()
         self._launches = {name: count - before.get(name, 0)
                           for name, count in after.items()
                           if count != before.get(name, 0)}
-        ops.add_launch_counts(self._launches, times=-1)
+        _add_counts(self._launches, times=-1)
         self._graph = graph
+
+
+def _counts() -> dict[str, int]:
+    """The kernel launch and the collective counters (distinct names)."""
+    return {**ops.launch_counts(), **parallel.collective_counts()}
+
+
+def _add_counts(counts: dict[str, int], times: int = 1) -> None:
+    ops.add_launch_counts(counts, times)
+    parallel.add_collective_counts(counts, times)
 
 
 def _bound_to(tensors: list[torch.Tensor], bound: list[torch.Tensor],
@@ -339,8 +365,9 @@ def _batch_device(batch: dict[str, Any]) -> torch.device:
 
 
 class _BatchGraphs:
-    """``body(static_batch, generator) → outputs`` run once per batch
-    through a graph for the batch's signature (:func:`_signature`): each
+    """``body(static_batch, generator, shard) → outputs`` run once per batch
+    through a graph for the batch's signature (:func:`_signature`, and
+    the ``RowShard`` of a ``parallel.ShardedBatch``): each
     signature gets fixed input tensors, which every batch of it is copied
     into on the current stream, a generator of its own and a
     :class:`_GraphedBody` (eager on the signature's first batch, captured
@@ -349,14 +376,14 @@ class _BatchGraphs:
     so the draws are those of one generator.  The outputs are the graph's
     own tensors: valid until the next run of the same signature."""
 
-    def __init__(self, body: Callable[[dict[str, Any], torch.Generator],
-                                      dict[str, torch.Tensor]]):
+    def __init__(self, body: Callable[..., dict[str, torch.Tensor]]):
         self._body = body
         self._entries: dict[tuple, dict[str, Any]] = {}
 
     def __call__(self, batch: dict[str, Any],
                  generator: torch.Generator) -> dict[str, torch.Tensor]:
-        key = _signature(batch)
+        shard = getattr(batch, "shard", None)
+        key = (_signature(batch), shard)
         entry = self._entries.get(key)
         if entry is None:
             device = _batch_device(batch)
@@ -365,7 +392,7 @@ class _BatchGraphs:
 
             def run(entry=entry):
                 entry["outputs"] = self._body(entry["static"],
-                                              entry["generator"])
+                                              entry["generator"], shard)
 
             entry["run"] = _GraphedBody(run, entry["generator"])
             self._entries[key] = entry
@@ -388,8 +415,11 @@ class TrainStep:
     dense batch that overflowed it, a shorter last batch) is captured in a
     CUDA graph of its own (:class:`_BatchGraphs`): the batch is copied
     into the graph's fixed inputs, then the graph is replayed; the graphs
-    read the train state they were captured on.  The metrics stay on the
-    device; on CUDA they are valid until the next step."""
+    read the train state they were captured on.  A batch that holds a
+    rank's block of a global batch (``parallel.ShardedBatch``) trains as
+    that block, with the gradients averaged over the ranks; any other
+    batch as a whole.  The metrics stay on the device; on CUDA they are
+    valid until the next step."""
 
     def __init__(self, loss_fn: LossFn, optimizer: ClipAdam, *,
                  capture: bool = True):
@@ -398,15 +428,16 @@ class TrainStep:
         self._graphs: _BatchGraphs | None = None
         self._bound: list[torch.Tensor] | None = None
 
-    def _graphed_body(self, static, generator):
+    def _graphed_body(self, static, generator, shard):
         return self._apply(self._ts, materialize_batch(static), generator,
-                           self._warm_up_weight)
+                           self._warm_up_weight, shard)
 
     def __call__(self, ts: TrainState, batch, generator, warm_up_weight):
         device = _batch_device(batch)
         if not (self._capture and device.type == "cuda"):
             metrics = self._apply(ts, materialize_batch(batch), generator,
-                                  warm_up_weight)
+                                  warm_up_weight, getattr(batch, "shard",
+                                                          None))
         else:
             leaves = tree_leaves(ts.params) + tree_leaves(ts.model_state)
             if self._graphs is None:
@@ -435,8 +466,10 @@ class EvalStep:
     ``eval_fn``.  On CUDA (unless ``capture=False``) each batch signature
     runs through a graph of its own, as in :class:`TrainStep`; the graphs
     read the step's own copies of the parameters and batch-norm state,
-    which each call fills from the ones it is given.  On CUDA the metrics
-    are valid until the next call."""
+    which each call fills from the ones it is given.  A rank's block of a
+    global batch (``parallel.ShardedBatch``) gives the global batch's
+    metrics, averaged over the ranks.  On CUDA the metrics are valid until
+    the next call."""
 
     def __init__(self, eval_fn: Callable[..., dict[str, torch.Tensor]], *,
                  capture: bool = True):
@@ -444,17 +477,24 @@ class EvalStep:
         self._capture = capture
         self._graphs: _BatchGraphs | None = None
 
-    def _graphed_body(self, static, generator):
-        return self._eval_fn(self._params, self._model_state,
-                             cast_batch_to_f32(materialize_batch(static)),
-                             generator)
+    def _evaluate(self, params, model_state, batch, generator, shard):
+        metrics = self._eval_fn(params, model_state,
+                                cast_batch_to_f32(materialize_batch(batch)),
+                                generator, shard=shard)
+        if shard is not None:
+            metrics = dict(zip(metrics, parallel.average(
+                list(metrics.values()))))
+        return metrics
+
+    def _graphed_body(self, static, generator, shard):
+        return self._evaluate(self._params, self._model_state, static,
+                              generator, shard)
 
     @torch.no_grad()
     def __call__(self, params, model_state, batch, generator):
         if not (self._capture and _batch_device(batch).type == "cuda"):
-            return self._eval_fn(params, model_state,
-                                 cast_batch_to_f32(materialize_batch(batch)),
-                                 generator)
+            return self._evaluate(params, model_state, batch, generator,
+                                  getattr(batch, "shard", None))
         if self._graphs is None:
             self._params = tree_map(torch.clone, params)
             self._model_state = tree_map(torch.clone, model_state)
@@ -483,20 +523,25 @@ class TrainEpoch:
     bound, the mean loss); the caller decides when to fetch them.  An
     object serves one train state, one data set and one number of batches:
     on CUDA its graph reads their tensors.  The generator's state is copied
-    into the graph's own generator before the epoch and back after it."""
+    into the graph's own generator before the epoch and back after it.
+    With a ``mesh`` (``parallel.Mesh``) every rank holds the whole data and
+    the same ``perm``, and trains on its block of each row of it."""
 
     def __init__(self, loss_fn: LossFn, optimizer: ClipAdam, *,
                  batch_dtypes: dict[str, torch.dtype] | None = None,
-                 capture: bool = True):
+                 capture: bool = True, mesh=None):
         self._apply = _apply_step(loss_fn, optimizer)
         self._batch_dtypes = batch_dtypes
         self._capture = capture
+        self._mesh = mesh
         self._bound: list[torch.Tensor] | None = None
         self._run: Callable[[], None] | None = None
 
     def _bind(self, ts: TrainState, data, perm: torch.Tensor) -> None:
         device = perm.device
         self._ts, self._data = ts, data
+        self._shard = (None if self._mesh is None
+                       else self._mesh.rows(perm.shape[1]))
         self._bound = (tree_leaves(ts.params) + tree_leaves(ts.model_state)
                        + tree_leaves(data))
         self._perm = torch.empty_like(perm)
@@ -513,10 +558,12 @@ class TrainEpoch:
 
     def _body(self) -> None:
         row = self._perm.index_select(0, self._index).reshape(-1)
+        if self._shard is not None:
+            row = self._shard.block(row, 0)
         batch = gather_batch(self._data, row,
                              dtype_overrides=self._batch_dtypes)
         metrics = self._apply(self._ts, batch, self._draws,
-                              self._warm_up_weight)
+                              self._warm_up_weight, self._shard)
         at = self._index.reshape(1)
         self._bounds.index_copy_(0, at, metrics["lower_bound"].reshape(1))
         self._losses.index_copy_(0, at, metrics["loss"].reshape(1))
@@ -553,12 +600,13 @@ class TrainEpoch:
 
 def make_train_epoch(loss_fn: LossFn, optimizer: ClipAdam, *,
                      batch_dtypes: dict[str, torch.dtype] | None = None,
-                     capture: bool = True) -> TrainEpoch:
+                     capture: bool = True, mesh=None) -> TrainEpoch:
     """The counterpart of JAX's ``make_train_epoch``; ``capture`` (JAX's
     ``jit``) runs the steps on CUDA as graph replays, and ``capture=False``
-    eagerly (on the CPU every step runs eagerly)."""
+    eagerly (on the CPU every step runs eagerly); ``mesh`` (JAX's
+    ``batch_constraint``) trains each rank on its block of every batch."""
     return TrainEpoch(loss_fn, optimizer, batch_dtypes=batch_dtypes,
-                      capture=capture)
+                      capture=capture, mesh=mesh)
 
 
 # Metrics collected by full-pass evaluators.
@@ -580,20 +628,25 @@ class EvalEpoch:
     on its own, as JAX's host wrapper does).  On CUDA the batches are graph
     replays after one eager batch, as in :class:`TrainEpoch`; the graph
     reads its own copies of the parameters and batch-norm state, which
-    each call fills from the ones it is given."""
+    each call fills from the ones it is given.  With a ``mesh`` each rank
+    evaluates its block of every batch, and the sums are averaged over the
+    ranks once, at the end of the call."""
 
     def __init__(self, eval_fn: Callable[..., dict[str, torch.Tensor]],
                  scalar_keys: tuple[str, ...] = EVAL_METRIC_KEYS, *,
-                 capture: bool = True):
+                 capture: bool = True, mesh=None):
         self._eval_fn = eval_fn
         self._keys = scalar_keys
         self._capture = capture
+        self._mesh = mesh
         self._bound: list[torch.Tensor] | None = None
         self._sums: list[torch.Tensor] | None = None
 
     def _bind(self, params, model_state, data, idx: torch.Tensor) -> None:
         device = idx.device
         self._data = data
+        self._shard = (None if self._mesh is None
+                       else self._mesh.rows(idx.shape[1]))
         self._bound = tree_leaves(data)
         self._idx = torch.empty_like(idx)
         self._index = torch.zeros((), dtype=torch.int64, device=device)
@@ -607,9 +660,11 @@ class EvalEpoch:
 
     def _body(self) -> None:
         row = self._idx.index_select(0, self._index).reshape(-1)
+        if self._shard is not None:
+            row = self._shard.block(row, 0)
         batch = cast_batch_to_f32(gather_batch(self._data, row))
         metrics = self._eval_fn(self._params, self._model_state, batch,
-                                self._draws)
+                                self._draws, shard=self._shard)
         values = [metrics[k] for k in self._keys]
         if self._sums is None:
             self._sums = [torch.zeros_like(v) for v in values]
@@ -645,15 +700,18 @@ class EvalEpoch:
             self._run()
         if self._generator is not None:
             generator.set_state(self._generator.get_state())
-        return {k: s / idx.shape[0] for k, s in zip(self._keys, self._sums)}
+        sums = self._sums
+        if self._shard is not None:
+            sums = parallel.average(sums)
+        return {k: s / idx.shape[0] for k, s in zip(self._keys, sums)}
 
 
 def make_eval_epoch(eval_fn: Callable[..., dict[str, torch.Tensor]],
                     scalar_keys: tuple[str, ...] = EVAL_METRIC_KEYS, *,
-                    capture: bool = True) -> EvalEpoch:
+                    capture: bool = True, mesh=None) -> EvalEpoch:
     """The counterpart of JAX's ``make_eval_epoch`` (``capture`` for its
-    ``jit``)."""
-    return EvalEpoch(eval_fn, scalar_keys, capture=capture)
+    ``jit``, ``mesh`` for its ``batch_constraint``)."""
+    return EvalEpoch(eval_fn, scalar_keys, capture=capture, mesh=mesh)
 
 
 def sequential_batches(n: int, batch_size: int) -> np.ndarray:

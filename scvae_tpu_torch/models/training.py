@@ -57,6 +57,7 @@ from scvae_tpu_torch.models.step import (
     snapshot_state,
     tree_finite,
 )
+from scvae_tpu_torch.parallel.mesh import batch_rows
 
 EARLY_STOPPING_ROUNDS = 10
 
@@ -107,8 +108,10 @@ def evaluate_on_pipeline(eval_step: Callable[..., dict[str, Any]],
     """Full-pass evaluation over a :class:`~scvae_tpu_torch.data.pipeline.
     BatchPipeline` (JAX ``evaluate_on_pipeline``): each batch's metrics
     stay on the device until the pass ends, then are weighted by the
-    batch's rows in float64 in batch order, as JAX sums them; vector
-    metrics (the per-neuron KL) are averaged elementwise."""
+    batch's rows in float64 in batch order, as JAX sums them (a rank's
+    block of a global batch by the global batch's rows: its metrics are the
+    global batch's); vector metrics (the per-neuron KL) are averaged
+    elementwise."""
     if scalar_keys is None:
         scalar_keys = EVAL_METRIC_KEYS
     kept: dict[str, list[torch.Tensor]] = {k: [] for k in scalar_keys}
@@ -119,7 +122,7 @@ def evaluate_on_pipeline(eval_step: Callable[..., dict[str, Any]],
         for k in scalar_keys:
             if k in metrics:
                 kept[k].append(metrics[k].detach().clone())
-        sizes.append(int(batch["t"].shape[0]))
+        sizes.append(batch_rows(batch))
     if not sizes:
         return {k: float("nan") for k in scalar_keys}
     totals: dict[str, Any] = {k: 0.0 for k in scalar_keys}

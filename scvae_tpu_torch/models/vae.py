@@ -393,10 +393,14 @@ def forward(
     deterministic_z: bool = False,
     build_reconstruction: bool = True,
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> VAEOutputs:
     """Encoder → posterior → z → decoder (→ reconstruction distribution).
     ``noise`` (S, B, D) replaces the generator's standard-normal draws for
-    z (parity tests feed both frameworks the same draws)."""
+    z (parity tests feed both frameworks the same draws).  With a ``shard``
+    (``parallel.RowShard``) the batch is this rank's rows of a global batch:
+    batch norm takes the global batch's statistics, and every draw (and
+    ``noise``) is the global batch's, cut to the rank's rows."""
     x = batch["x"]
     compute_dtype = config.compute_dtype(training, x.device)
     new_state: State = {}
@@ -407,7 +411,7 @@ def forward(
             training=training, generator=generator,
             input_dropout_keep_prob=config.dropout_keep_probability_x,
             hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, shard=shard,
         )
     else:  # LFM: the linear factor model reads x itself
         h = x
@@ -417,6 +421,9 @@ def forward(
     if deterministic_z:
         z = q_z.mean()[None]
     else:
+        if shard is not None:
+            noise = shard.normal((n_iw * n_mc,) + tuple(q_z.batch_shape()),
+                                 generator, q_z.parameters()[0], noise)
         z = q_z.sample(generator, (n_iw * n_mc,), noise=noise)
 
     extras = decoder_extras(config, batch, z.shape[0], z.dtype)
@@ -427,7 +434,7 @@ def forward(
             training=training, generator=generator,
             input_dropout_keep_prob=config.dropout_keep_probability_z,
             hidden_dropout_keep_prob=config.dropout_keep_probability_h,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, shard=shard,
         )
     else:
         dec_h = dec_in
@@ -491,6 +498,7 @@ def elbo_terms(
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     deterministic_z: bool = False,
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
     """The ELBO decomposition (reference ``variational_autoencoder.py:
     2560-2734``).  The fused path is training-only (and taken only where
@@ -499,14 +507,17 @@ def elbo_terms(
 
     Returns ``lower_bound`` (IW bound), ``lower_bound_weighted`` (training
     objective with warm-up·kl_weight), ``reconstruction_error``,
-    ``kl_divergence`` and ``kl_divergence_neurons`` (D,)."""
+    ``kl_divergence`` and ``kl_divergence_neurons`` (D,).  With a ``shard``
+    (see :func:`forward`) each is the mean over the rank's rows: the
+    ranks' average is the global batch's value, since every term is a mean
+    over rows of per-row values."""
     use_fused = (training and not deterministic_z
                  and fused_path_enabled(config))
     outputs = forward(
         config, params, state, batch, generator,
         training=training, n_iw=n_iw, n_mc=n_mc,
         deterministic_z=deterministic_z,
-        build_reconstruction=not use_fused, noise=noise,
+        build_reconstruction=not use_fused, noise=noise, shard=shard,
     )
     t = batch["t"]
     b = t.shape[0]
@@ -563,6 +574,7 @@ def evaluation_outputs(
     n_mc: int = 1,
     deterministic_z: bool = False,
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> dict[str, torch.Tensor]:
     """The ELBO metrics of one batch in evaluation mode, and the posterior-
     predictive reconstruction: ``p_x_mean`` Ê[x] (B, F), the mean over the
@@ -573,6 +585,7 @@ def evaluation_outputs(
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator, training=False,
         n_iw=n_iw, n_mc=n_mc, deterministic_z=deterministic_z, noise=noise,
+        shard=shard,
     )
     if deterministic_z:
         n_iw = n_mc = 1
@@ -633,11 +646,14 @@ def loss_fn(
     n_mc: int = 1,
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
+    shard=None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
-    """Training objective: −lower_bound_weighted (reference ``:2755``)."""
+    """Training objective: −lower_bound_weighted (reference ``:2755``);
+    with a ``shard`` (the rank's row offset and the global batch's size)
+    the rank's part, whose average over the ranks is the global loss."""
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator,
         training=True, n_iw=n_iw, n_mc=n_mc,
-        warm_up_weight=warm_up_weight, noise=noise,
+        warm_up_weight=warm_up_weight, noise=noise, shard=shard,
     )
     return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)

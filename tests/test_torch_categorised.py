@@ -476,9 +476,10 @@ def test_vae_categorised_trains_on_cpu():
     data = device_resident_data(
         build_model_arrays(DataSet("in-memory", values=x)), device="cpu")
 
-    def loss(params, model_state, batch, generator, warm_up_weight):
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
         return tvae.loss_fn(config, params, model_state, batch, generator,
-                            warm_up_weight=warm_up_weight)
+                            warm_up_weight=warm_up_weight, shard=shard)
 
     run_epoch = training.device_epoch_runner(
         step.make_train_epoch(loss, optimizer), data, 256, 64, seed=0)

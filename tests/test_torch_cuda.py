@@ -82,7 +82,15 @@ epochs of that NB VAE, the second all replays; ``summarize_trace`` finds
 the heads kernel, the products and K1 by name, each as often as the launch
 counters count them, and ``device_memory_stats`` reads 0 < bytes in use ≤
 the card's memory.
+
+Data parallel (``parallel/``) on a world of one NCCL rank: that NB VAE's
+two graphed epochs with the mesh against the same epochs without it (the
+curves within 1e-6 relative, the parameters within the small step's
+bound), and NCCL's reduction kernel found in the trace of the mesh's
+replayed epoch as often as the step's all-reduces were counted.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -1184,13 +1192,14 @@ def _graph_case(device, kind):
     optimizer = step.make_optimizer(1e-3)
     params, state = module.init(config, torch.Generator().manual_seed(0))
 
-    def loss(params, model_state, batch, generator, warm_up_weight):
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
         return module.loss_fn(config, params, model_state, batch, generator,
-                              warm_up_weight=warm_up_weight)
+                              warm_up_weight=warm_up_weight, shard=shard)
 
-    def evaluate(params, model_state, batch, generator):
+    def evaluate(params, model_state, batch, generator, shard=None):
         return module.elbo_terms(config, params, model_state, batch,
-                                 generator, training=False)[0]
+                                 generator, training=False, shard=shard)[0]
 
     def fresh():
         return step.create_train_state(
@@ -1309,8 +1318,8 @@ def test_failed_capture_raises(device):
     data, dtypes, optimizer, loss, _, fresh = _graph_case(device, "vae")
     calls = []
 
-    def reads_the_loss(*args):
-        value, aux = loss(*args)
+    def reads_the_loss(*args, **kwargs):
+        value, aux = loss(*args, **kwargs)
         calls.append(float(value.detach()))  # a device-to-host copy
         return value, aux
 
@@ -1638,9 +1647,10 @@ def _streamed_run(device, capture):
         step.tree_map(lambda a: a.to(device), params),
         step.tree_map(lambda a: a.to(device), state), optimizer)
 
-    def loss(params, model_state, batch, generator, warm_up_weight):
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
         return vae.loss_fn(config, params, model_state, batch, generator,
-                           warm_up_weight=warm_up_weight)
+                           warm_up_weight=warm_up_weight, shard=shard)
 
     train_step = step.make_train_step(loss, optimizer, capture=capture)
     generator = torch.Generator(device=device).manual_seed(0)
@@ -1877,3 +1887,75 @@ def test_trace_finds_the_graphed_kernels(device, tmp_path):
     (memory,) = device_memory_stats()
     assert memory["device"] == "cuda:0"
     assert 0 < memory["bytes_in_use"] <= memory["bytes_limit"]
+
+
+def test_mesh_of_one_matches_no_mesh_and_traces_the_all_reduce(device,
+                                                                tmp_path):
+    """Data parallel on a world of one NCCL rank: the small NB VAE's two
+    graphed epochs through ``make_train_epoch(mesh=…)`` against the same
+    epochs without a mesh (on one rank the mesh changes no value: the
+    curves within 1e-6 relative, the parameters within the small step's
+    bound), and ``trace`` around the mesh's second epoch, all replays,
+    finds NCCL's reduction kernel as often as the step's collectives were
+    counted: 17 a step (each of the four batch norms averages its mean
+    and its variance, and the backward each again, then one average of
+    the gradients and the metrics)."""
+    import torch.distributed as dist
+
+    from scvae_tpu_torch.models import step, vae
+    from scvae_tpu_torch.parallel import mesh as parallel
+    from scvae_tpu_torch.utils.profiling import summarize_trace, trace
+
+    data, dtypes, optimizer, _, _, fresh = _graph_case(device, "vae")
+    config = vae.VAEConfig(feature_size=300, latent_size=8,
+                           hidden_sizes=(32, 32),
+                           reconstruction_distribution="negative binomial")
+
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
+        return vae.loss_fn(config, params, model_state, batch, generator,
+                           warm_up_weight=warm_up_weight, shard=shard)
+
+    perms = [_perm(device, seed) for seed in (0, 1)]
+    steps = GRAPH_CELLS // GRAPH_BATCH
+    parallel.distributed_initialize(
+        device="cuda", store=dist.FileStore(str(tmp_path / "store"), 1),
+        world_size=1, rank=0)
+    try:
+        mesh = parallel.create_mesh(device="cuda")
+        runs = {}
+        for name, on in (("single", None), ("mesh", mesh)):
+            ts = fresh()
+            train_epoch = step.make_train_epoch(loss, optimizer,
+                                                batch_dtypes=dtypes, mesh=on)
+            generator = torch.Generator(device=device).manual_seed(0)
+            curves = []
+            for epoch, perm in enumerate(perms):
+                tracing = (trace(str(tmp_path / "trace"))
+                           if on is not None and epoch == 1
+                           else contextlib.nullcontext())
+                before = parallel.collective_counts()["all_reduce"]
+                with tracing:
+                    ts, metrics = train_epoch(ts, data, perm, generator, 1.0)
+                    torch.cuda.synchronize()
+                counted = parallel.collective_counts()["all_reduce"] - before
+                curves.append({k: float(v) for k, v in metrics.items()})
+            runs[name] = (ts, curves)
+    finally:
+        dist.destroy_process_group()
+    (ts, curves), (ts_m, curves_m) = runs["single"], runs["mesh"]
+    for got, want in zip(curves_m, curves):
+        for key in want:
+            assert abs(got[key] - want[key]) <= 1e-6 * abs(want[key]), key
+    pairs = [(a, b) for part in ("params", "model_state")
+             for a, b in zip(step.tree_leaves(getattr(ts_m, part)),
+                             step.tree_leaves(getattr(ts, part)))]
+    largest = max(float(b.abs().max()) for _, b in pairs)
+    assert max(float((a - b).abs().max()) for a, b in pairs) <= 2e-5 * largest
+    assert counted == steps * 17
+    reductions = sum(entry["count"]
+                     for entry in summarize_trace(str(tmp_path / "trace"),
+                                                  top=None)
+                     if any(part in entry["name"]
+                            for part in ("oneRankReduce", "AllReduce")))
+    assert reductions == counted

@@ -87,9 +87,9 @@ def test_train_epoch_matches_jax():
             jax.random.split(sub, 3)[2], (1, B, LATENT)))))
     noise = iter(noises)
 
-    def port_loss(params, model_state, batch, generator, wuw):
+    def port_loss(params, model_state, batch, generator, wuw, shard=None):
         return vae.loss_fn(tconfig, params, model_state, batch, generator,
-                           warm_up_weight=wuw, noise=next(noise))
+                           warm_up_weight=wuw, noise=next(noise), shard=shard)
 
     t_optimizer = step.make_optimizer(LR)
     tts = step.create_train_state(*_port_state(params, state), t_optimizer)
@@ -140,9 +140,10 @@ def test_eval_epoch_matches_jax():
         params, state, {"x": jnp.asarray(x), "t": jnp.asarray(x)},
         jnp.asarray(idx), jax.random.PRNGKey(0))
 
-    def port_eval(params, model_state, batch, generator):
+    def port_eval(params, model_state, batch, generator, shard=None):
         return vae.elbo_terms(tconfig, params, model_state, batch, generator,
-                              training=False, deterministic_z=True)[0]
+                              training=False, deterministic_z=True,
+                              shard=shard)[0]
 
     tparams_, tstate = _port_state(params, state)
     xt = torch.from_numpy(x)
@@ -216,13 +217,14 @@ def _model(kind):
     ts = step.create_train_state(
         *module.init(config, torch.Generator().manual_seed(0)), optimizer)
 
-    def loss(params, model_state, batch, generator, warm_up_weight):
+    def loss(params, model_state, batch, generator, warm_up_weight,
+             shard=None):
         return module.loss_fn(config, params, model_state, batch, generator,
-                              warm_up_weight=warm_up_weight)
+                              warm_up_weight=warm_up_weight, shard=shard)
 
-    def evaluate(params, model_state, batch, generator):
+    def evaluate(params, model_state, batch, generator, shard=None):
         return module.elbo_terms(config, params, model_state, batch,
-                                 generator, training=False)[0]
+                                 generator, training=False, shard=shard)[0]
 
     return data, optimizer, ts, loss, evaluate
 

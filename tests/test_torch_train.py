@@ -71,11 +71,11 @@ def _trajectories(deterministic_z):
         for key in keys
     ])
 
-    def port_loss(params, model_state, batch, generator, wuw):
+    def port_loss(params, model_state, batch, generator, wuw, shard=None):
         metrics, outputs = tvae.elbo_terms(
             tconfig, params, model_state, batch, generator, training=True,
             deterministic_z=deterministic_z, warm_up_weight=wuw,
-            noise=None if deterministic_z else next(noises),
+            noise=None if deterministic_z else next(noises), shard=shard,
         )
         return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
 
@@ -172,7 +172,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, in_tmp_path):
                              **ported)
         assert np.isfinite(result.history["training"]["lower_bound"]).all()
         assert result.train_state.step == 2
-    with pytest.raises(NotImplementedError):
+    # a mesh of two devices needs a world of two processes (torchrun)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         model.evaluate(x, device="cpu", number_of_devices=2)
     # the reference default, Poisson, is ported, and so is every other
     # reconstruction distribution (Bernoulli trains unfused)
