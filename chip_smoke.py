@@ -18,7 +18,13 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              cycled target rows, at decoder width 1,024, NB's K2 and
              K3's three kernels at the LFM decoder's widths 100, 101 and
              105 (padded to 104, 104 and 112), and at the over-budget set's
-             4,096 genes (entries "nb_4096_…"); with its time,
+             4,096 genes (entries "nb_4096_…"); the gene split's
+             block launches (``check_gene_blocks``: NB over 2,048 and
+             20,480 rows, categorised ZINB with K = 10, the heads of
+             2,048 genes in two blocks of 1,024 through ``ops.sharded``'s
+             split Functions with no group, summed and put together
+             against the whole-F kernels and the plain versions, each
+             block's time beside the whole-F time); with its time,
              the plain version's time, the least time the card could take
              and, for the products, one ``torch.mm`` of the same product
              (dW: the product alone, db not included);
@@ -128,7 +134,9 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              reduction kernels (``oneRankReduce`` on one rank) as many as
              the all-reduces counted there, ``collectives_per_step`` a
              training step and one an evaluation (epoch on the device
-             path, batch streamed); the steps/s with and without the mesh;
+             path, batch streamed), no model-axis all-reduce, and the
+             collectives of each kind; the steps/s with and without the
+             mesh;
 5. after   — the life of a model after training: the counts split 90/10
              into training and validation rows; VAE-NB and a GMVAE (10
              clusters) for each base family trained at the headline width
@@ -1444,6 +1452,147 @@ def check_cycled_rows(x, gen, flush):
     return {f"{kernel}_cycled": values for kernel, values in results.items()}
 
 
+# Phase 3's gene-block launches (the model axis's kernels on one card): the
+# split autograd Functions of ``ops.sharded`` with no group, once per block
+# of GENE_BLOCKS, at the headline shapes: (label, likelihood, classes,
+# decoder rows as a multiple of the minibatch's).
+GENE_BLOCKS = 2
+GENE_BLOCK_CASES = (("nb", "negative binomial", 0, 1),
+                    ("nb_cycled", "negative binomial", 0, CLUSTERS),
+                    ("cat_zinb", "zero-inflated negative binomial", 10, 1))
+
+
+def check_gene_blocks(x, gen, flush, card):
+    """Each GENE_BLOCK_CASES case on the gene split's path with the model
+    group of a card of its own: bf16 inputs, the decoder rows against the
+    minibatch's targets (cycled for the GMVAE's), the heads of F = 2,048
+    genes cut in two blocks of 1,024; each block through
+    ``ops.sharded_fused_log_likelihood`` (the categorised:
+    ``sharded_fused_categorised_log_likelihood``) with a ``GeneSplit`` of
+    no group, forward and backward (autograd, the row cotangents g).  The
+    row sums and dh summed over the blocks, the heads' gradients put
+    together, are held against the whole-F kernels and against the plain
+    versions within phase 3's bounds for those kernels.  Prints the
+    blocks' kernel times beside the whole-F kernels' (the same
+    ``fused_forward`` / ``fused_backward`` or categorised calls that the
+    split Functions make, on the blocks cut beforehand)."""
+    from scvae_tpu_torch import ops
+    from scvae_tpu_torch.parallel import GeneSplit
+
+    bf16 = torch.bfloat16
+    m_t, f = x.shape
+    splits = [GeneSplit(i, GENE_BLOCKS) for i in range(GENE_BLOCKS)]
+    for label, name, k_max, groups in GENE_BLOCK_CASES:
+        m = groups * m_t
+        heads_of = ops.FAMILIES[name].heads
+        n_base = len(heads_of)
+        h = torch.relu(torch.randn(m, HIDDEN, generator=gen, device=x.device))
+        g = torch.randn(m, generator=gen, device=x.device) / m_t
+        t = categorised_targets(x, k_max, gen) if k_max else x
+        ws, bs = head_weights(gen, n_base + (k_max + 1 if k_max else 0),
+                              HIDDEN, f, x.device)
+        classes = ([torch.stack(ws[n_base:]), torch.stack(bs[n_base:])]
+                   if k_max else [])
+        ws, bs = ws[:n_base], bs[:n_base]
+        kw = dict(compute_dtype=bf16)
+        if k_max:
+            ll, lse = ops.categorised_forward(name, h, ws, bs, *classes, t,
+                                              **kw)
+            plain, plain_lse = ops.reference_categorised_forward(
+                name, h, ws, bs, *classes, t, **kw)
+            args = (name, g, h, ws, bs, *classes, t)
+            whole = [ll, *ops.categorised_backward(*args, lse, **kw)]
+            plain = [plain,
+                     ops.reference_categorised_dh(*args, plain_lse, **kw),
+                     *ops.reference_categorised_dw(*args, plain_lse, **kw)]
+        else:
+            fwd = dict(kw, include_lgamma_const=False)
+            whole = [ops.fused_forward(name, h, ws, bs, t, **fwd),
+                     *ops.fused_backward(name, g, h, ws, bs, t, **kw)]
+            plain = [ops.reference_forward(name, h, ws, bs, t, **fwd),
+                     *ops.reference_backward(name, g, h, ws, bs, t, **kw)]
+        # the blocks: row sums and dh summed, the heads' gradients put
+        # together in the layout of the whole-F calls
+        sums = [0.0, 0.0]
+        parts = [[] for _ in range(2 * n_base + len(classes))]
+        for split in splits:
+            hv = h.clone().requires_grad_(True)
+            leaves = [split.block(a).contiguous().requires_grad_(True)
+                      for w, b in zip(ws, bs) for a in (w, b)]
+            cut = [split.block(c).contiguous().requires_grad_(True)
+                   for c in classes]
+            heads = {p: {"kernel": leaves[2 * i], "bias": leaves[2 * i + 1]}
+                     for i, p in enumerate(heads_of)}
+            if k_max:
+                out = ops.sharded_fused_categorised_log_likelihood(
+                    name, hv, heads, *cut, t, genes=split, **kw)
+            else:
+                out = ops.sharded_fused_log_likelihood(
+                    name, hv, heads, t, genes=split,
+                    include_lgamma_const=False, **kw)
+            dh, *grads = torch.autograd.grad(out, [hv, *leaves, *cut],
+                                             grad_outputs=g)
+            sums = [sums[0] + out.detach(), sums[1] + dh]
+            for part, grad in zip(parts, grads):
+                part.append(grad)
+        got = [*sums, *(torch.cat(part, -1) for part in parts)]
+        names = (["row sums", "dh"]
+                 + [f"{p}_{head}" for head in heads_of for p in ("dW", "db")]
+                 + (["dW_classes", "db_classes"] if k_max else []))
+        for what, against in (("the whole-F kernels", whole),
+                              ("the plain versions", plain)):
+            for i, (part, a, b) in enumerate(zip(names, got, against,
+                                                 strict=True)):
+                check_close(f"gene blocks {label} M={m} {part} vs {what}", a,
+                            b, FORWARD_RTOL if i == 0 else BACKWARD_RTOL)
+        # times: each block's calls against the whole-F calls
+        cut_t = [split.block(t).contiguous() for split in splits]
+        cut_w = [[split.block(w).contiguous() for w in ws] for split in splits]
+        cut_b = [[split.block(b).contiguous() for b in bs] for split in splits]
+        cut_c = [[split.block(c).contiguous() for c in classes]
+                 for split in splits]
+        if k_max:
+            lses = [ops.categorised_forward(name, h, cut_w[i], cut_b[i],
+                                            *cut_c[i], cut_t[i], **kw)[1]
+                    for i in range(GENE_BLOCKS)]
+            calls = {
+                "forward": (
+                    lambda i: ops.categorised_forward(
+                        name, h, cut_w[i], cut_b[i], *cut_c[i], cut_t[i],
+                        **kw),
+                    lambda: ops.categorised_forward(name, h, ws, bs,
+                                                    *classes, t, **kw)),
+                "backward": (
+                    lambda i: ops.categorised_backward(
+                        name, g, h, cut_w[i], cut_b[i], *cut_c[i], cut_t[i],
+                        lses[i], **kw),
+                    lambda: ops.categorised_backward(
+                        name, g, h, ws, bs, *classes, t, lse, **kw)),
+            }
+        else:
+            calls = {
+                "forward": (
+                    lambda i: ops.fused_forward(name, h, cut_w[i], cut_b[i],
+                                                cut_t[i], **fwd),
+                    lambda: ops.fused_forward(name, h, ws, bs, t, **fwd)),
+                "backward": (
+                    lambda i: ops.fused_backward(name, g, h, cut_w[i],
+                                                 cut_b[i], cut_t[i], **kw),
+                    lambda: ops.fused_backward(name, g, h, ws, bs, t, **kw)),
+            }
+        timed = []
+        for kind, (block, whole_call) in calls.items():
+            blocks = [time_ms(lambda i=i: block(i), reps=10, flush=flush)
+                      for i in range(GENE_BLOCKS)]
+            timed.append(
+                f"{kind} " + " + ".join(f"{ms:.4f}" for ms in blocks)
+                + f" ms on {GENE_BLOCKS} blocks of {f // GENE_BLOCKS} genes, "
+                f"{time_ms(whole_call, reps=10, flush=flush):.4f} ms on "
+                f"{f} genes")
+        print(f"gene blocks {label} M={m} over {m_t} target rows: "
+              + "; ".join(timed) + f" ({card})", flush=True)
+
+
 def check_over_budget_genes(g, gen, flush):
     """NB's K2 and K3's three kernels as the over-budget run (phase 4e)
     calls them: a 2,048-row minibatch of 4,096 genes, Poisson(3) + 1 at
@@ -1762,8 +1911,9 @@ def check_wide(x, g, gen):
                         b_ref, AUTOGRAD_RTOL)
 
 
-def phase_kernels(counts_dev):
-    """Each kernel against its plain version at the headline shapes."""
+def phase_kernels(counts_dev, card):
+    """Each kernel against its plain version at the headline shapes, and
+    the gene split's block launches (``check_gene_blocks``)."""
     from scvae_tpu_torch import ops
 
     dev = counts_dev.device
@@ -1786,6 +1936,7 @@ def phase_kernels(counts_dev):
         results.update(check_grouped(name, x, gen, flush, CLUSTERS))
         check_grouped(name, x, gen, flush, GROUP_CAP)
     results.update(check_over_budget_genes(g, gen, flush))
+    check_gene_blocks(x, gen, flush, card)
     check_wide(x, g, gen)
     check_lfm_widths(x, flush)
     torch.cuda.synchronize()
@@ -2957,7 +3108,8 @@ def mesh_evaluate(label, kind, evaluation_set):
     ``evaluation_set``, without and with a mesh (``number_of_devices=1``):
     (the largest relative difference of the metrics, the same of each
     output array (its largest difference over its largest magnitude),
-    the all-reduces counted in the mesh's evaluation, seconds of each)."""
+    the collectives of each kind counted in the mesh's evaluation, seconds
+    of each)."""
     from scvae_tpu_torch import parallel
 
     runs, seconds = [], []
@@ -2981,8 +3133,7 @@ def mesh_evaluate(label, kind, evaluation_set):
     outputs = {name: float(np.max(np.abs(arrays_m[name] - want))
                            / max(float(np.max(np.abs(want))), 1e-30))
                for name, want in arrays.items()}
-    return (worst, outputs, parallel.collective_counts()["all_reduce"],
-            seconds)
+    return (worst, outputs, parallel.collective_counts(), seconds)
 
 
 def phase_mesh(counts, card):
@@ -3066,6 +3217,11 @@ def phase_mesh(counts, card):
                      if any(part in entry["name"]
                             for part in NCCL_REDUCTIONS)}
             reductions = sum(entry["count"] for entry in found.values())
+            kinds = {kind: window[kind] for kind in
+                     ("all_reduce", "all_reduce_sum", "all_gather")}
+            if kinds["all_reduce_sum"]:
+                raise AssertionError(f"mesh {label}: a model-axis all-reduce "
+                                     f"without a model axis: {kinds}")
             if not window["all_reduce"] == want == reductions:
                 raise AssertionError(
                     f"mesh {label}: {window['all_reduce']} all-reduces "
@@ -3083,7 +3239,7 @@ def phase_mesh(counts, card):
                         "from evaluate without it")
                 print(f"mesh {label}: evaluate of {valid.shape[0]} rows with "
                       f"the mesh {worst_metric:.3g} (metrics), {outputs} "
-                      f"relative from without it; {reduced} all-reduces; "
+                      f"relative from without it; collectives {reduced}; "
                       f"{seconds[1]:.3f} s with the mesh, {seconds[0]:.3f} s "
                       f"without ({card})", flush=True)
             rates = {run: result.steps_per_epoch / result.epoch_seconds[-1]
@@ -3098,7 +3254,8 @@ def phase_mesh(counts, card):
                   f"kernels ({ {n: e['count'] for n, e in found.items()} }, "
                   f"{sum(e['total_ms'] for e in found.values()):.4f} ms) = "
                   f"{window['all_reduce']} counted = {steps} x {per_step} + "
-                  f"{evaluations}; steps/s {rates['mesh']:.6g} with the "
+                  f"{evaluations}; collectives of each kind {kinds}; steps/s "
+                  f"{rates['mesh']:.6g} with the "
                   f"mesh, {rates['single']:.6g} without ({card})",
                   flush=True)
             for name, count in launches.items():
@@ -4122,7 +4279,7 @@ def main() -> int:
     # 3. kernels
     counts = make_counts(N_CELLS, N_GENES)
     counts_dev = torch.from_numpy(counts.toarray().astype(np.int16)).cuda()
-    kernels = phase_kernels(counts_dev)
+    kernels = phase_kernels(counts_dev, card)
     del counts_dev
     print("kernels: " + ", ".join(
         f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "

@@ -32,8 +32,11 @@ Trained models are evaluated, their labels predicted by k-means on the
 latent values or by the GMVAE's clusters, and their clustering metrics,
 summary statistics and decompositions computed on the device
 (``scvae_tpu_torch.analyses``); the command line runs ``train`` and
-``evaluate`` (``python -m scvae_tpu_torch``).  The figures and
-cross-analysis are not ported yet.
+``evaluate`` (``python -m scvae_tpu_torch``), and ``cross-analyse``; the
+figures are drawn on the host with matplotlib.  ``train`` and
+``evaluate`` run over a world of processes, one a device: cells over the
+data axis, genes of the reconstruction heads over the model axis
+(``scvae_tpu_torch.parallel``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

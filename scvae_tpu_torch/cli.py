@@ -12,10 +12,10 @@ data set goes through ``DataSet.load``'s HDF5 cache, which needs
 ``h5py``.  ``train -A`` runs the intermediate analyses at log-spaced
 epochs, then the model analyses, as the JAX package does.
 ``cross-analyse`` reads the analyses' files on the host.
-``--number-of-devices N`` trains and evaluates data parallel over a world of
-N processes, one a device: ``torchrun --nproc-per-node N -m scvae_tpu_torch
-train …``.  ``--model-parallelism`` above 1 (the gene split) is not ported
-and raises ``NotImplementedError``.
+``--number-of-devices N`` trains and evaluates over a world of N
+processes, one a device: ``torchrun --nproc-per-node N -m scvae_tpu_torch
+train …``; ``--model-parallelism M`` cuts the reconstruction heads' genes
+over M of them (the (data, model) mesh of N / M × M).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from scvae_tpu_torch.models import (
     VariationalAutoencoder,
 )
 from scvae_tpu_torch.models.naming import parse_model_versions
-from scvae_tpu_torch.parallel.mesh import check_model_axis
 from scvae_tpu_torch.utils.strings import normalise_string
 from scvae_tpu_torch.utils.terminal import heading, title
 
@@ -974,8 +973,7 @@ def build_parser() -> argparse.ArgumentParser:
             "--model-parallelism", metavar="M", type=int, default=None,
             help=(
                 "tensor-parallel factor sharding the gene-axis"
-                " reconstruction heads over the model mesh axis (not ported:"
-                " above 1 raises)"
+                " reconstruction heads over the model mesh axis"
             ),
         )
         subparser.add_argument(
@@ -1159,7 +1157,6 @@ def main(argv=None, device=None) -> int:
     arguments = vars(parser.parse_args(argv))
     arguments.pop("command", None)
     func = arguments.pop("func")
-    check_model_axis(arguments.get("model_parallelism"))
     return func(**arguments, device=device) or 0
 
 

@@ -46,7 +46,12 @@ same permutations; it stages the whole set and trains on its block of each
 batch, which must divide over the ranks (the minibatch is rounded down to
 a multiple of their number, as in JAX).  The curves, decisions and
 returned sets are the same on every rank, and rank 0 alone writes the
-run's files.  A model axis above 1 raises ``NotImplementedError``.
+run's files.  With ``model_parallelism`` M above 1 the ranks lie on a
+(N / M, M) grid: ``train`` cuts the reconstruction and class heads and
+their Adam moments to each rank's gene block after it builds or restores
+the train state, runs the likelihood kernels on the block, and hands the
+callbacks, the checkpoints and its result the whole state; ``evaluate``
+restores the whole state on every rank and cuts the rows only.
 """
 
 from __future__ import annotations
@@ -164,6 +169,11 @@ def mesh_and_device(mesh, devices, number_of_devices, model_parallelism,
     mesh = parallel.resolve_mesh(mesh, devices, number_of_devices,
                                  model_parallelism, device=device)
     return mesh, (device if mesh is None else mesh.device)
+
+
+def _genes(mesh):
+    """The mesh's gene split (``parallel.GeneSplit``), or None."""
+    return None if mesh is None else mesh.genes
 
 
 def mesh_minibatch_size(batch_size: int, mesh) -> int:
@@ -377,10 +387,12 @@ class VariationalAutoencoder:
         ``device``, with ``optimizer``'s state."""
         return _place(*vae.init(self.config, generator), optimizer, device)
 
-    def _loss_fn(self, n_iw: int, n_mc: int):
+    def _loss_fn(self, n_iw: int, n_mc: int, genes=None):
         """``loss(params, model_state, batch, generator, warm_up_weight,
         shard=None)``; a ``shard`` (``parallel.RowShard``) makes it the
-        rank's part of the global batch's loss."""
+        rank's part of the global batch's loss, ``genes``
+        (``parallel.GeneSplit``) reads the parameters as the rank's gene
+        block of the heads."""
         config = self.config
 
         def loss(params, model_state, batch, generator, warm_up_weight,
@@ -388,20 +400,22 @@ class VariationalAutoencoder:
             return vae.loss_fn(
                 config, params, model_state, batch, generator,
                 n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight,
-                shard=shard,
+                shard=shard, genes=genes,
             )
 
         return loss
 
-    def _eval_fn(self, n_iw: int, n_mc: int):
+    def _eval_fn(self, n_iw: int, n_mc: int, genes=None):
         """``evaluate(params, model_state, batch, generator, shard=None) →
-        metrics`` of one batch on the unfused float32 path."""
+        metrics`` of one batch on the unfused float32 path (``genes`` as in
+        :meth:`_loss_fn`)."""
         config = self.config
 
         def evaluate(params, model_state, batch, generator, shard=None):
             metrics, _ = vae.elbo_terms(
                 config, params, model_state, batch, generator,
                 training=False, n_iw=n_iw, n_mc=n_mc, shard=shard,
+                genes=genes,
             )
             return metrics
 
@@ -559,7 +573,7 @@ class VariationalAutoencoder:
         idx = torch.from_numpy(step.sequential_batches(n, batch_size)).to(device)
         n_full = int(idx.numel())
         keys = step.EVAL_METRIC_KEYS
-        eval_fn = self._eval_fn(n_iw, n_mc)
+        eval_fn = self._eval_fn(n_iw, n_mc, _genes(mesh))
         eval_epoch = step.make_eval_epoch(eval_fn, keys, mesh=mesh)
 
         def evaluate(ts: step.TrainState, generator: torch.Generator):
@@ -696,6 +710,7 @@ class VariationalAutoencoder:
             mesh.barrier()
 
         optimizer = step.make_optimizer(learning_rate)
+        genes = _genes(mesh)
         train_state = self._init_state(
             torch.Generator().manual_seed(seed), optimizer, device
         )
@@ -715,13 +730,20 @@ class VariationalAutoencoder:
                 mesh.barrier()
             if verbose:
                 print(f"Resuming training from epoch {start_epoch}.")
+        placements = None
+        if mesh is not None:
+            # each rank's gene block of the heads and their Adam moments,
+            # by the placements of the whole state, which the loop's
+            # rebuild of the whole state reads
+            placements = parallel.param_shardings(train_state.params, mesh)
+            train_state = parallel.shard_train_state(train_state, mesh)
 
         if use_device_data:
             arrays = self._model_arrays(training_set)
             data = _append_lgamma_rowsum(self._stage(arrays, device),
                                          self.config)
             train_epoch = step.make_train_epoch(
-                self._loss_fn(n_iw, n_mc), optimizer,
+                self._loss_fn(n_iw, n_mc, genes), optimizer,
                 batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
                 mesh=mesh,
             )
@@ -766,6 +788,7 @@ class VariationalAutoencoder:
             verbose=verbose,
             epoch_callback=epoch_callback,
             fetch_mode=metrics_fetch,
+            placements=placements,
         )
         self.stopped_early = result.stopped_early
         if permanent_log_dir is not None and write:
@@ -800,9 +823,10 @@ class VariationalAutoencoder:
                                  seed=seed + epoch, sharding=sharding,
                                  count_dtype=count_dtype, device=device)
 
-        train_step = step.make_train_step(self._loss_fn(n_iw, n_mc),
+        genes = _genes(mesh)
+        train_step = step.make_train_step(self._loss_fn(n_iw, n_mc, genes),
                                           optimizer)
-        eval_step = step.make_eval_step(self._eval_fn(n_iw, n_mc))
+        eval_step = step.make_eval_step(self._eval_fn(n_iw, n_mc, genes))
         run_epoch = training.streaming_epoch_runner(train_step,
                                                     make_training_pipeline)
         evaluate_training = None
@@ -855,10 +879,11 @@ class VariationalAutoencoder:
         reconstruction's standard deviations for the evaluation subset only
         (sparse rows, as the reference keeps them for large sets), and the
         row-weighted ``metric_keys``.  Under a ``mesh`` each rank evaluates
-        its block of every batch that the ranks divide, then the blocks'
-        rows (of the standard deviations, the subset's alone) are gathered
-        and their metrics averaged, so every rank holds the whole batch's
-        outputs; the rest run whole on every rank."""
+        its block of every batch that the data axis divides, then the
+        blocks' rows (of the standard deviations, the subset's alone) are
+        gathered and their metrics averaged over the data group, so every
+        rank holds the whole batch's outputs; the rest run whole on every
+        rank."""
         if minibatch_size is None:
             minibatch_size = get_default("models", "minibatch_size")
         n_iw = self.number_of_importance_samples["evaluation"]
@@ -898,7 +923,7 @@ class VariationalAutoencoder:
                 if shard is None:
                     stddevs = stddevs[torch.from_numpy(picked).to(device)]
                 else:
-                    averaged = parallel.average(
+                    averaged = shard.average(
                         [out[key] for key in metric_keys])
                     out = {**dict(zip(metric_keys, averaged)),
                            **{key: mesh.gather_rows(out[key])
@@ -977,7 +1002,10 @@ class VariationalAutoencoder:
         ``output_versions`` asks for (one set alone when it names one) and
         keeps the metrics in ``_last_evaluation_metrics``.  Under a mesh
         (``mesh``, else the constructor's, or ``devices`` /
-        ``number_of_devices``) every rank returns the same sets."""
+        ``number_of_devices`` / ``model_parallelism``) every rank returns
+        the same sets; the rows are cut over the data axis, and with a
+        model axis every rank holds the whole heads (the reconstruction
+        reads all F genes), as the stored checkpoint holds them."""
         output_versions = _output_versions(output_versions)
         mesh, device = mesh_and_device(
             mesh if mesh is not None else self.mesh, devices,

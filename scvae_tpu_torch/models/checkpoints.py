@@ -120,7 +120,10 @@ def save_checkpoint(directory: str, train_state: TrainState, *, epoch: int,
                     async_write: bool = False) -> None:
     """Persist ``train_state`` and its metadata (the epoch and the step)
     into ``directory``; with ``async_write`` the host copy is made here and
-    the files are written by the background worker."""
+    the files are written by the background worker.  The state is whole:
+    under a gene split every rank rebuilds it first
+    (``parallel.unshard_train_state``, as the training loop does), since
+    only rank 0 gets past the test below."""
     if not is_write_process():
         return
     flat = tparams.train_state_to_jax(train_state.params,

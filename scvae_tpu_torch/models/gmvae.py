@@ -58,6 +58,7 @@ from scvae_tpu_torch.models.vae import (
     init_reconstruction,
     reconstruction_log_prob,
     resolve_compute_dtype,
+    whole_heads,
 )
 
 
@@ -413,6 +414,7 @@ def elbo_terms(
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
     shard=None,
+    genes=None,
 ) -> tuple[dict[str, torch.Tensor], GMVAEOutputs]:
     """The y-marginalised ELBO (reference ``gaussian_mixture_variational_
     autoencoder.py:3223-3434``): ``lower_bound``, ``lower_bound_weighted``
@@ -423,8 +425,14 @@ def elbo_terms(
     per-event).  The fused likelihood is training-only.  With a ``shard``
     (see :func:`forward`) each is the mean over the rank's rows, whose
     average over the ranks is the global batch's value; the free-nats floor
-    applies to the global KL_y, averaged over the ranks first."""
+    applies to the global KL_y, averaged over the ranks first.  With
+    ``genes`` (a ``parallel.GeneSplit``) ``params`` holds the rank's gene
+    block of the heads it cuts: the fused path runs the kernels on the
+    block over the K·S groups, the unfused path on the heads gathered
+    whole (``vae.whole_heads``)."""
     use_fused = training and fused_path_enabled(config)
+    if not use_fused:
+        params = whole_heads(config, params, genes)
     outputs = forward(
         config, params, state, batch, generator, training=training,
         n_iw=n_iw, n_mc=n_mc, build_reconstruction=not use_fused,
@@ -473,7 +481,8 @@ def elbo_terms(
     if use_fused:
         # (K, S, B): one launch over the K·S·B decoder rows
         log_p_x = fused_log_p_x(config, params, batch, outputs.decoder_hidden,
-                                t, config.compute_dtype(training, t.device))
+                                t, config.compute_dtype(training, t.device),
+                                genes)
     else:
         log_p_x = reconstruction_log_prob(config, outputs.p_x, t)
     # (K, S, B) → per-cluster sample means weighted by q(y|x)
@@ -516,14 +525,16 @@ def loss_fn(
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
     shard=None,
+    genes=None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
     """Training objective: −lower_bound_weighted; with a ``shard`` (the
     rank's row offset and the global batch's size) the rank's part, whose
-    average over the ranks is the global loss."""
+    average over the data group is the global loss; with ``genes`` on the
+    rank's gene block of the heads (see :func:`elbo_terms`)."""
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator, training=True,
         n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight, noise=noise,
-        shard=shard,
+        shard=shard, genes=genes,
     )
     return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)
 

@@ -146,7 +146,7 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
                     device: torch.device) -> step.TrainState:
         return _place(*gmvae.init(self.config, generator), optimizer, device)
 
-    def _loss_fn(self, n_iw: int, n_mc: int):
+    def _loss_fn(self, n_iw: int, n_mc: int, genes=None):
         config = self.config
 
         def loss(params, model_state, batch, generator, warm_up_weight,
@@ -154,18 +154,19 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
             return gmvae.loss_fn(
                 config, params, model_state, batch, generator,
                 n_iw=n_iw, n_mc=n_mc, warm_up_weight=warm_up_weight,
-                shard=shard,
+                shard=shard, genes=genes,
             )
 
         return loss
 
-    def _eval_fn(self, n_iw: int, n_mc: int):
+    def _eval_fn(self, n_iw: int, n_mc: int, genes=None):
         config = self.config
 
         def evaluate(params, model_state, batch, generator, shard=None):
             metrics, _ = gmvae.elbo_terms(
                 config, params, model_state, batch, generator,
                 training=False, n_iw=n_iw, n_mc=n_mc, shard=shard,
+                genes=genes,
             )
             return metrics
 

@@ -29,9 +29,12 @@ rank gathers its block of each global row of indices; a streamed batch
 that holds a rank's block (``parallel.ShardedBatch``) carries its
 ``RowShard``.  The loss then reads the global batch's statistics and
 draws, and the step averages the gradients and its metrics over the
-ranks in one all-reduce before the clip and Adam, inside the captured
-graph on CUDA.  A whole batch (a streamed remainder that the ranks do not
-divide) runs replicated: every rank computes it alike, with no collective.
+rank's data group in one all-reduce before the clip and Adam, inside the
+captured graph on CUDA.  A whole batch (a streamed remainder that the
+ranks do not divide) runs replicated: every rank computes it alike, with
+no data-axis collective.  Under a model axis the loss function holds the
+gene split (the API binds it): its model-axis all-reduces run inside the
+step too, and the clip, element-wise, needs no norm across the blocks.
 """
 
 from __future__ import annotations
@@ -216,7 +219,7 @@ def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
     metrics``: one training step on ``ts`` in place (parameters,
     batch-norm statistics, optimiser state), the host step count
     untouched.  With a ``shard`` the gradients and the metrics are
-    averaged over the ranks (one all-reduce) before the optimiser."""
+    averaged over its data group (one all-reduce) before the optimiser."""
 
     def apply(ts: TrainState, batch, generator, warm_up_weight, shard=None):
         leaves = tree_leaves(ts.params)
@@ -232,7 +235,7 @@ def _apply_step(loss_fn: LossFn, optimizer: ClipAdam):
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         if shard is not None:
-            reduced = parallel.average(grads + list(metrics.values()))
+            reduced = shard.average(grads + list(metrics.values()))
             grads = reduced[:len(grads)]
             metrics = dict(zip(metrics, reduced[len(grads):]))
         optimizer.update_(ts.params, grads, ts.opt_state)
@@ -482,7 +485,7 @@ class EvalStep:
                                 cast_batch_to_f32(materialize_batch(batch)),
                                 generator, shard=shard)
         if shard is not None:
-            metrics = dict(zip(metrics, parallel.average(
+            metrics = dict(zip(metrics, shard.average(
                 list(metrics.values()))))
         return metrics
 
@@ -702,7 +705,7 @@ class EvalEpoch:
             generator.set_state(self._generator.get_state())
         sums = self._sums
         if self._shard is not None:
-            sums = parallel.average(sums)
+            sums = self._shard.average(sums)
         return {k: s / idx.shape[0] for k, s in zip(self._keys, sums)}
 
 

@@ -36,6 +36,14 @@ epoch e rebuilds the early-stopping state from the stored validation curve
 and sets the generator to the stored state, so it draws what an
 uninterrupted run would draw from epoch e on: the counterpart of the JAX
 package's replay of its key splits (``_fast_forward_rng``).
+
+Under a mesh whose model axis cuts the heads (``placements``, those of
+the whole parameters), the runner and the evaluators work on each rank's
+gene block, and every rank rebuilds the whole train state
+(``parallel.unshard_train_state``) for the callback and the checkpoint of
+each epoch where there is one (an all-gather over the model group of
+every cut head and its Adam moments), and for the state the loop
+returns: the checkpoints hold whole arrays, in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ from scvae_tpu_torch.models.step import (
     snapshot_state,
     tree_finite,
 )
-from scvae_tpu_torch.parallel.mesh import batch_rows
+from scvae_tpu_torch.parallel.mesh import batch_rows, unshard_train_state
 
 EARLY_STOPPING_ROUNDS = 10
 
@@ -236,6 +244,7 @@ def run_training_loop(
     epoch_callback: Callable[[int, TrainState, dict], None] | None = None,
     async_checkpoints: bool = True,
     fetch_mode: str = "sync",
+    placements=None,
 ) -> TrainingResult:
     """Run epochs ``start_epoch`` to ``number_of_epochs`` (see the module
     docstring).  ``fetch_mode="deferred"`` needs a runner whose lower bound
@@ -276,6 +285,9 @@ def run_training_loop(
         if evaluate_validation is not None:
             epoch_metrics["validation"] = evaluate_validation(
                 state, evaluation_generator(generator, epoch, 1))
+        if epoch_callback is not None or log_directory:
+            # on every rank alike: the callback and the checkpoint read it
+            state = unshard_train_state(state, placements)
         # before the records, so that the callback may add metrics
         if epoch_callback is not None:
             epoch_callback(epoch, state, epoch_metrics)
@@ -337,6 +349,7 @@ def run_training_loop(
         outcome["epochs"] = number_of_epochs  # as JAX's, on any resume
 
     checkpoints.wait_for_pending_writes()
+    train_state = unshard_train_state(train_state, placements)
     if not tree_finite(train_state.params):
         raise ArithmeticError("Model parameters became non-finite.")
     return TrainingResult(

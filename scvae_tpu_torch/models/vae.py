@@ -21,6 +21,7 @@ means of given z (ancestral sampling).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -380,6 +381,25 @@ def _build_reconstruction(config: VAEConfig, params: Params,
     return p_x
 
 
+def whole_heads(config, params: Params, genes) -> Params:
+    """``params`` with whole reconstruction and categorised class heads:
+    under a gene split (``genes``, a ``parallel.GeneSplit``) every head that
+    it cuts gathered over the model group (differentiable: the gradient of
+    the rank's block), for the paths that read all F genes; without one,
+    ``params`` itself.  A VAE's or a GMVAE's."""
+    if genes is None:
+        return params
+    spec = config.reconstruction_spec.parameters
+    whole = dict(params)
+    whole["reconstruction"] = {
+        name: genes.whole(head, spec[name].size_fn(config.feature_size))
+        for name, head in params["reconstruction"].items()}
+    if config.k_max:
+        whole["categorised_logits"] = genes.whole(
+            params["categorised_logits"], config.feature_size)
+    return whole
+
+
 def forward(
     config: VAEConfig,
     params: Params,
@@ -452,34 +472,44 @@ def forward(
 
 
 def fused_log_p_x(config, params: Params, batch: Batch, h: torch.Tensor,
-                  t: torch.Tensor, compute_dtype) -> torch.Tensor:
+                  t: torch.Tensor, compute_dtype, genes=None) -> torch.Tensor:
     """log p(x|z) of the fused training path in one launch: the decoder
     output h (..., H) against the targets t (M_t, F), whose rows cycle.
+    With ``genes`` (``parallel.GeneSplit``) the heads are this rank's gene
+    block where the split cuts F, and the kernels run on the block, their
+    row sums summed over the model group (``ops.sharded``).
 
     The −lgamma(1+t) term is constant in the parameters and additive per
-    row, so the kernel skips it and it is subtracted here: the row sums the
-    data pipeline staged once per dataset
+    row, so the kernel skips it and it is subtracted here, once, over all
+    F genes: the row sums the data pipeline staged once per dataset
     (``models.api._append_lgamma_rowsum``), else summed here once per
     target row (not once per decoder row: a GMVAE has K·S of those per
     target row).  The constrained Poisson's kernel and the categorised
     likelihood (lgamma inside its shifted branch) keep their own."""
     name = config.reconstruction_distribution
+    likelihood = ops.fused_log_likelihood
+    categorised = ops.fused_categorised_log_likelihood
+    if genes is not None:
+        likelihood = functools.partial(ops.sharded_fused_log_likelihood,
+                                       genes=genes)
+        categorised = functools.partial(
+            ops.sharded_fused_categorised_log_likelihood, genes=genes)
     if config.k_max:
-        return ops.fused_categorised_log_likelihood(
+        return categorised(
             name, h, params["reconstruction"],
             params["categorised_logits"]["kernel"],
             params["categorised_logits"]["bias"], t,
             compute_dtype=compute_dtype,
         )
     if config.use_count_sum_as_parameter:
-        return ops.fused_log_likelihood(
+        return likelihood(
             name, h, params["reconstruction"], t,
             count_sum=batch["count_sum"], compute_dtype=compute_dtype,
         )
     row_const = batch.get("t_lgamma_rowsum")
     if row_const is None:
         row_const = torch.sum(lgamma(1.0 + t.float()), dim=-1)
-    return ops.fused_log_likelihood(
+    return likelihood(
         name, h, params["reconstruction"], t, compute_dtype=compute_dtype,
         include_lgamma_const=False,
     ) - row_const
@@ -499,11 +529,16 @@ def elbo_terms(
     deterministic_z: bool = False,
     noise: torch.Tensor | None = None,
     shard=None,
+    genes=None,
 ) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
     """The ELBO decomposition (reference ``variational_autoencoder.py:
     2560-2734``).  The fused path is training-only (and taken only where
     :func:`fused_path_enabled`); evaluation keeps the unfused distribution
-    path and the full ``p_x`` outputs.
+    path and the full ``p_x`` outputs.  With ``genes`` (a
+    ``parallel.GeneSplit``) ``params`` holds the rank's gene block of the
+    heads it cuts: the fused path runs the kernels on the block
+    (:func:`fused_log_p_x`), the unfused path on the heads gathered whole
+    (:func:`whole_heads`).
 
     Returns ``lower_bound`` (IW bound), ``lower_bound_weighted`` (training
     objective with warm-up·kl_weight), ``reconstruction_error``,
@@ -513,6 +548,8 @@ def elbo_terms(
     over rows of per-row values."""
     use_fused = (training and not deterministic_z
                  and fused_path_enabled(config))
+    if not use_fused:
+        params = whole_heads(config, params, genes)
     outputs = forward(
         config, params, state, batch, generator,
         training=training, n_iw=n_iw, n_mc=n_mc,
@@ -526,7 +563,7 @@ def elbo_terms(
 
     if use_fused:
         rows = fused_log_p_x(config, params, batch, outputs.decoder_hidden, t,
-                             config.compute_dtype(training, t.device))
+                             config.compute_dtype(training, t.device), genes)
         log_p_x_given_z = rows.reshape(n_iw, n_mc, b)
     else:
         log_p_x_given_z = reconstruction_log_prob(
@@ -647,13 +684,17 @@ def loss_fn(
     warm_up_weight: float | torch.Tensor = 1.0,  # a 0-d tensor in an epoch
     noise: torch.Tensor | None = None,
     shard=None,
+    genes=None,
 ) -> tuple[torch.Tensor, tuple[dict[str, torch.Tensor], State]]:
     """Training objective: −lower_bound_weighted (reference ``:2755``);
     with a ``shard`` (the rank's row offset and the global batch's size)
-    the rank's part, whose average over the ranks is the global loss."""
+    the rank's part, whose average over the data group is the global loss;
+    with ``genes`` on the rank's gene block of the heads (see
+    :func:`elbo_terms`)."""
     metrics, outputs = elbo_terms(
         config, params, state, batch, generator,
         training=True, n_iw=n_iw, n_mc=n_mc,
         warm_up_weight=warm_up_weight, noise=noise, shard=shard,
+        genes=genes,
     )
     return -metrics["lower_bound_weighted"], (metrics, outputs.new_state)

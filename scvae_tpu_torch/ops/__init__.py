@@ -4,7 +4,7 @@ Every wrapper here launches its kernel on a CUDA tensor (building the
 extension on first use) and runs its plain version on a CPU tensor.
 """
 
-from scvae_tpu_torch.ops import fused_likelihood, gather
+from scvae_tpu_torch.ops import fused_likelihood, gather, sharded
 from scvae_tpu_torch.ops.fused_likelihood import (
     FAMILIES,
     MAX_FUSED_GROUPS,
@@ -43,6 +43,10 @@ from scvae_tpu_torch.ops.fused_likelihood import (
     supports_grouped_likelihood,
 )
 from scvae_tpu_torch.ops.gather import gather_rows, reference_gather
+from scvae_tpu_torch.ops.sharded import (
+    sharded_fused_categorised_log_likelihood,
+    sharded_fused_log_likelihood,
+)
 from scvae_tpu_torch.ops.special import digamma, lgamma
 
 _COUNTERS = (gather.LAUNCHES, fused_likelihood.LAUNCHES)
@@ -112,6 +116,8 @@ __all__ = [
     "reference_grouped_forward",
     "reference_log_likelihood",
     "reset_launch_counts",
+    "sharded_fused_categorised_log_likelihood",
+    "sharded_fused_log_likelihood",
     "supports_fused_likelihood",
     "supports_grouped_likelihood",
 ]

@@ -1,8 +1,9 @@
-"""The distribution layer: the device mesh, its placements and the
-data-parallel collectives on ``torch.distributed`` (the port of
-``scvae_tpu/parallel``; the model axis is not ported)."""
+"""The distribution layer: the device mesh, its placements and its
+collectives on ``torch.distributed``, over the data axis and the model
+(gene) axis (the port of ``scvae_tpu/parallel``)."""
 
 from scvae_tpu_torch.parallel.mesh import (
+    GeneSplit,
     Mesh,
     RowShard,
     ShardedBatch,
@@ -17,9 +18,11 @@ from scvae_tpu_torch.parallel.mesh import (
     resolve_mesh,
     shard_batch,
     shard_train_state,
+    unshard_train_state,
 )
 
 __all__ = [
+    "GeneSplit",
     "Mesh",
     "RowShard",
     "ShardedBatch",
@@ -34,4 +37,5 @@ __all__ = [
     "resolve_mesh",
     "shard_batch",
     "shard_train_state",
+    "unshard_train_state",
 ]

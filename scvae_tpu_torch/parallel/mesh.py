@@ -1,32 +1,51 @@
-"""The device mesh and the data-parallel collectives on ``torch.distributed``
-(the port of ``scvae_tpu/parallel/mesh.py``).
+"""The device mesh and its collectives on ``torch.distributed`` (the port
+of ``scvae_tpu/parallel/mesh.py``).
 
-The mesh has JAX's two axes, ``data`` (cells) and ``model`` (genes).  The
-port runs the data axis; a ``model`` axis above 1 (the gene split of the
-reconstruction heads) raises ``NotImplementedError``.  PyTorch runs one
-process a device, so a mesh is the world of processes: rank r runs on
-``cuda:LOCAL_RANK`` (NCCL) or on the CPU (gloo), and a mesh of N devices
-needs a world of N processes (``torchrun --nproc-per-node N``).
+The mesh has JAX's two axes, ``data`` (cells) and ``model`` (genes).
+PyTorch runs one process a device, so a mesh is the world of processes:
+rank r runs on ``cuda:LOCAL_RANK`` (NCCL) or on the CPU (gloo), and a mesh
+of N devices needs a world of N processes (``torchrun --nproc-per-node
+N``).  With a model axis of M the ranks lie on JAX's grid, the devices
+reshaped to (N / M, M): rank r is at data index r // M and model index
+r % M.  The ranks of one data index form a *model group*, those of one
+model index a *data group*; every rank makes every group, in one order.
 
-Under GSPMD, JAX's data-parallel step computes what the unsharded step
-computes; the port does explicitly what the JAX compiler inserts.  Every
-rank holds the whole train state, and each global batch of B rows is cut
-into R contiguous blocks of B/R rows, block r on rank r (a
-:class:`RowShard`).  Then:
+Under GSPMD, JAX's step computes what the unsharded step computes; the
+port does explicitly what the JAX compiler inserts.  Each global batch of
+B rows is cut into N / M contiguous blocks of B·M/N rows, block d on the
+ranks of data index d (a :class:`RowShard`: the ranks of a model group
+hold the same rows).  Then:
 
 * batch-norm statistics are the global batch's: each rank's mean is
-  averaged over the ranks by a differentiable all-reduce, then the mean
-  square deviation from that global mean (``models.networks``);
+  averaged over its data group by a differentiable all-reduce, then the
+  mean square deviation from that global mean (``models.networks``);
 * every random draw of a step is drawn at the global batch's shape from
   the one generator every rank seeds alike and cut to the rank's rows
   (:meth:`RowShard.normal`, :meth:`RowShard.uniform`);
 * each rank's loss is the mean over its rows, the gradients and the
-  step's metrics are averaged over the ranks in one all-reduce before the
-  clip and Adam (``models.step``).
+  step's metrics are averaged over the data group in one all-reduce
+  before the clip and Adam (``models.step``).
 
-All-reduces average (``ReduceOp.AVG``): ranks hold equal blocks, so the
-average of their means is the global mean.  Each collective that a
-wrapper here issues adds one to its count (:func:`collective_counts`).
+With a model axis above 1 each rank holds its F/M-gene block of the
+reconstruction heads, the categorised class heads and their Adam moments
+(:func:`param_shardings`, :func:`shard_train_state`; JAX's rule: a leaf
+whose path names ``reconstruction`` or ``categorised_logits`` and whose
+whole last axis M divides); every other leaf is whole.  Whether a width is
+cut is :meth:`GeneSplit.splits` of the whole width alone, wherever it is
+asked: the placements, the kernels' wrappers (``ops.sharded``) and the
+paths that gather the heads (``models.vae.whole_heads``).  The likelihood
+kernels run on the block: the row sums and the decoder's gradient are
+summed over the model group (:class:`GeneSplit`).  A path that needs the
+whole heads gathers them (:meth:`GeneSplit.gather`), and
+:func:`unshard_train_state` rebuilds the whole train state on every rank
+(checkpoints, callbacks, the state ``train`` returns) by the placements
+that cut it, since a block's width no longer tells whether it was cut.
+
+The data axis averages (``ReduceOp.AVG``): ranks hold equal blocks, so the
+average of their means is the global mean; the model axis sums.  Each
+collective that a wrapper here issues adds one to its count
+(:func:`collective_counts`): ``all_reduce`` over the data axis,
+``all_reduce_sum`` over the model axis, ``all_gather`` over either.
 """
 
 from __future__ import annotations
@@ -38,7 +57,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = {"all_reduce": 0}
+COLLECTIVES = {"all_reduce": 0, "all_reduce_sum": 0, "all_gather": 0}
 
 
 def collective_counts() -> dict[str, int]:
@@ -57,32 +76,103 @@ def add_collective_counts(counts: dict[str, int], times: int = 1) -> None:
         COLLECTIVES[name] += times * counts[name]
 
 
-def all_reduce_mean(tensor: torch.Tensor) -> torch.Tensor:
-    """Average ``tensor`` over the ranks in place."""
-    dist.all_reduce(tensor, op=dist.ReduceOp.AVG)
+def all_reduce_mean(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Average ``tensor`` over the ranks of ``group`` (None: the world) in
+    place."""
+    dist.all_reduce(tensor, op=dist.ReduceOp.AVG, group=group)
     COLLECTIVES["all_reduce"] += 1
     return tensor
 
 
+def all_gather(tensor: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``tensor`` of ``group`` (None: the world) concatenated in
+    rank order along ``dim``."""
+    parts = [torch.empty_like(tensor)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.cat(parts, dim)
+
+
 class _Mean(torch.autograd.Function):
-    """The average over the ranks, differentiable: its adjoint is the
-    average of the gradients."""
+    """The average over the ranks of a group, differentiable: its adjoint
+    is the average of the gradients."""
 
     @staticmethod
-    def forward(ctx, tensor):
-        return all_reduce_mean(tensor.clone())
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return all_reduce_mean(tensor.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_mean(grad.contiguous().clone())
+        return all_reduce_mean(grad.contiguous().clone(), ctx.group), None
 
 
-def average(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The tensors averaged over the ranks through one flat all-reduce."""
+def average(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The tensors averaged over the ranks of ``group`` (None: the world)
+    through one flat all-reduce."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    all_reduce_mean(flat)
+    all_reduce_mean(flat, group)
     pieces = flat.split([t.numel() for t in tensors])
     return [p.view(t.shape).to(t.dtype) for p, t in zip(pieces, tensors)]
+
+
+class _GatherGenes(torch.autograd.Function):
+    """A gene block's whole tensor, gathered over the model group along
+    the last axis; its adjoint keeps the rank's block of the gradient, since
+    every rank of the group computes the same function of the whole
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, tensor, split):
+        ctx.split = split
+        ctx.width = tensor.shape[-1]
+        return all_gather(tensor, split.group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        width = ctx.width
+        return grad.narrow(-1, ctx.split.index * width, width).contiguous(), None
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneSplit:
+    """The gene axis cut into ``size`` equal blocks, of which this rank
+    holds block ``index``; ``group`` is the model group, whose ranks hold
+    the other blocks (None: no collective, the caller combines the
+    blocks).  Only a width that ``size`` divides is cut (JAX's
+    ``_can_split_model``); other heads stay whole on every rank."""
+
+    index: int
+    size: int
+    group: Any = None
+
+    def splits(self, features: int) -> bool:
+        return self.size > 1 and features % self.size == 0
+
+    def block(self, tensor: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last axis of a whole tensor (a view)."""
+        width = tensor.shape[-1] // self.size
+        return tensor.narrow(-1, self.index * width, width)
+
+    def sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` over the model group in place."""
+        if self.group is not None:
+            dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=self.group)
+            COLLECTIVES["all_reduce_sum"] += 1
+        return tensor
+
+    def gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of this rank's block (differentiable)."""
+        return _GatherGenes.apply(tensor, self)
+
+    def whole(self, head: dict[str, torch.Tensor],
+              width: int) -> dict[str, torch.Tensor]:
+        """A head ({"kernel", "bias"}) of whole width ``width``, gathered
+        where it is cut."""
+        if not self.splits(width):
+            return head
+        return {name: self.gather(leaf) for name, leaf in head.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +184,7 @@ class RowShard:
     offset: int
     rows: int
     total: int
+    group: Any = None  # the data group (None: the world)
 
     def block(self, tensor: torch.Tensor, axis: int = -2) -> torch.Tensor:
         """The rank's rows of a tensor of the global batch."""
@@ -127,8 +218,12 @@ class RowShard:
                                      generator=generator, device=device))
 
     def mean(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The average over the ranks (differentiable)."""
-        return _Mean.apply(tensor)
+        """The average over the data group (differentiable)."""
+        return _Mean.apply(tensor, self.group)
+
+    def average(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The tensors averaged over the data group (one all-reduce)."""
+        return average(tensors, self.group)
 
 
 class ShardedBatch(dict):
@@ -151,20 +246,26 @@ def batch_rows(batch: dict[str, Any]) -> int:
 class Mesh:
     """A ``(data, model)`` mesh over the world's ranks, one device a process.
     ``shape`` maps each axis to its size, as JAX's ``Mesh.shape`` does;
-    ``device`` is this process's device."""
+    ``device`` is this process's device; ``data_index`` and
+    ``model_index`` its place on the grid; ``data_group`` and
+    ``model_group`` its groups along each axis (the data group None, the
+    world, when the model axis is 1; the model group None then);
+    ``genes`` is this rank's :class:`GeneSplit` with a model axis above
+    1, else None."""
 
     axis_names = ("data", "model")
 
-    def __init__(self, ranks, model_parallelism: int, device: torch.device):
+    def __init__(self, ranks, model_parallelism: int, device: torch.device,
+                 rank: int = 0, data_group=None, model_group=None):
         self.ranks = tuple(ranks)
         self.shape = {"data": len(self.ranks) // model_parallelism,
                       "model": model_parallelism}
         self.device = torch.device(device)
-
-    @property
-    def rank(self) -> int:
-        """This process's position on the data axis."""
-        return dist.get_rank()
+        self.data_index, self.model_index = divmod(rank, model_parallelism)
+        self.data_group, self.model_group = data_group, model_group
+        self.genes = (GeneSplit(self.model_index, model_parallelism,
+                                model_group)
+                      if model_parallelism > 1 else None)
 
     def rows(self, total: int) -> RowShard:
         """This rank's block of a global batch of ``total`` rows, which the
@@ -173,14 +274,12 @@ class Mesh:
         if total % n:
             raise ValueError(f"{total} rows are not divisible over {n} ranks")
         rows = total // n
-        return RowShard(self.rank * rows, rows, total)
+        return RowShard(self.data_index * rows, rows, total, self.data_group)
 
     def gather_rows(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The ranks' blocks of a (rows, …) tensor, concatenated in rank
-        order."""
-        parts = [torch.empty_like(tensor) for _ in range(self.shape["data"])]
-        dist.all_gather(parts, tensor.contiguous())
-        return torch.cat(parts)
+        """The data group's blocks of a (rows, …) tensor, concatenated in
+        order along the data axis."""
+        return all_gather(tensor, self.data_group)
 
     def gather_picked(self, tensor: torch.Tensor, picked: torch.Tensor,
                       shard: RowShard) -> torch.Tensor:
@@ -191,7 +290,7 @@ class Mesh:
         block = torch.div(picked, shard.rows, rounding_mode="floor")
         counts = torch.bincount(block, minlength=self.shape["data"]).tolist()
         width = max(counts)
-        mine = picked[block == self.rank] - shard.offset
+        mine = picked[block == self.data_index] - shard.offset
         part = tensor.new_zeros((width,) + tuple(tensor.shape[1:]))
         part[:mine.numel()] = tensor.index_select(0, mine.to(tensor.device))
         kept = torch.cat([torch.arange(count) + r * width
@@ -243,13 +342,30 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", 1))
 
 
-def check_model_axis(model_parallelism: int | None) -> None:
-    """Raise ``NotImplementedError`` for a model axis above 1."""
-    if (model_parallelism or 1) > 1:
-        raise NotImplementedError(
-            f"model parallelism {model_parallelism}: the gene split of the "
-            "reconstruction heads over a model axis (ROADMAP A8.2) is not "
-            "ported; the mesh takes the data axis only")
+# (the world's default group, world size, model axis) → every rank's
+# (data group, model group): each rank makes every group of the grid once.
+# The key holds the default group itself, not its id: a world made after
+# ``destroy_process_group`` is another object and makes its own groups.
+_GROUPS: dict[tuple, tuple] = {}
+
+
+def _grid_groups(world: int, model_parallelism: int) -> tuple:
+    """This rank's (data group, model group) of the (world / M, M) grid:
+    every rank makes every group, data groups first, in one order, as
+    ``dist.new_group`` requires."""
+    default = dist.group.WORLD
+    for stale in [key for key in _GROUPS if key[0] is not default]:
+        del _GROUPS[stale]  # groups of a destroyed world
+    key = (default, world, model_parallelism)
+    if key not in _GROUPS:
+        m, rank = model_parallelism, dist.get_rank()
+        data_index, model_index = divmod(rank, m)
+        data_groups = [dist.new_group(list(range(j, world, m)))
+                       for j in range(m)]
+        model_groups = [dist.new_group(list(range(i * m, (i + 1) * m)))
+                        for i in range(world // m)]
+        _GROUPS[key] = (data_groups[model_index], model_groups[data_index])
+    return _GROUPS[key]
 
 
 def create_mesh(devices=None, n_devices: int | None = None,
@@ -257,8 +373,11 @@ def create_mesh(devices=None, n_devices: int | None = None,
                 device: torch.device | str = "cuda") -> Mesh:
     """A ``(data, model)`` mesh over the world's processes, each running on
     a device of type ``device``.  ``devices`` (ranks) or ``n_devices``, when
-    given, must be the world's size; the process group is initialised
-    (:func:`distributed_initialize`) if it is not yet."""
+    given, must be the world's size, which ``model_parallelism`` must
+    divide; the process group is initialised
+    (:func:`distributed_initialize`) if it is not yet, and with a model
+    axis above 1 the grid's groups are made (every rank must call this
+    alike)."""
     world = _world_size()
     n = world
     if devices is not None:
@@ -271,14 +390,19 @@ def create_mesh(devices=None, n_devices: int | None = None,
             f"device; the world size is {world}: run the program under "
             f"`torchrun --nproc-per-node {n}`")
     if n % model_parallelism != 0:
-        raise ValueError(f"{n} devices not divisible by model parallelism "
-                         f"{model_parallelism}")
-    check_model_axis(model_parallelism)
+        raise ValueError(
+            f"{n} devices not divisible by model parallelism "
+            f"{model_parallelism}: a model axis of {model_parallelism} needs "
+            "a world of a multiple of as many processes: run the program "
+            f"under `torchrun --nproc-per-node {model_parallelism}`")
     distributed_initialize(device=device)
+    rank = dist.get_rank()
+    groups = ((None, None) if model_parallelism == 1
+              else _grid_groups(world, model_parallelism))
     device = torch.device(device)
     if device.type == "cuda":
-        device = torch.device("cuda", _local_rank(dist.get_rank()))
-    return Mesh(range(world), model_parallelism, device)
+        device = torch.device("cuda", _local_rank(rank))
+    return Mesh(range(world), model_parallelism, device, rank, *groups)
 
 
 def resolve_mesh(mesh: Mesh | None = None, devices=None,
@@ -301,11 +425,13 @@ def resolve_mesh(mesh: Mesh | None = None, devices=None,
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """How a tensor lies on the mesh: whole on every rank (replicated), or
-    its leading (row) axis cut over the data axis (``rows``)."""
+    """How a tensor lies on the mesh: whole on every rank (replicated), its
+    leading (row) axis cut over the data axis (``rows``), or its last (gene)
+    axis cut over the model axis (``genes``)."""
 
     mesh: Mesh
     rows: bool = False
+    genes: bool = False
 
 
 def replicated(mesh: Mesh) -> Placement:
@@ -313,16 +439,51 @@ def replicated(mesh: Mesh) -> Placement:
 
 
 def batch_sharding(mesh: Mesh) -> Placement:
-    """Leading (cell) axis over the data axis."""
+    """Leading (cell) axis over the data axis, replicated over model."""
     return Placement(mesh, rows=True)
 
 
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+def _tree_map(fn: Callable[..., Any], tree: Any, *others: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``others`` (trees of its structure)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(_tree_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
+def _is_gene_axis_param(path: tuple) -> bool:
+    names = "".join(f"[{key!r}]" for key in path)
+    return "reconstruction" in names or "categorised_logits" in names
+
+
+def param_shardings(params: Any, mesh: Mesh) -> Any:
+    """The placement of each parameter of the whole ``params`` (JAX's
+    rule): the reconstruction and categorised class heads' kernels and
+    biases cut on their last (gene) axis over ``model`` where the mesh's
+    gene split cuts that width (:meth:`GeneSplit.splits`); everything else
+    replicated.  A block's width does not say whether it was cut, so the
+    placements of a cut state are those of the whole one it came from."""
+    genes = mesh.genes
+
+    def rule(path, leaf):
+        if (genes is not None and _is_gene_axis_param(path)
+                and leaf.dim() >= 1 and genes.splits(leaf.shape[-1])):
+            return Placement(mesh, genes=True)
+        return replicated(mesh)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, path + (i,))
+                              for i, v in enumerate(tree))
+        return rule(path, tree)
+
+    return walk(params, ())
 
 
 def replicate_to_mesh(tree: Any, mesh: Mesh) -> Any:
@@ -330,23 +491,64 @@ def replicate_to_mesh(tree: Any, mesh: Mesh) -> Any:
     return _tree_map(lambda t: t.to(mesh.device), tree)
 
 
-def param_shardings(params: Any, mesh: Mesh) -> Any:
-    """The placement of each parameter: with the model axis at 1, which
-    the mesh requires, every leaf is replicated."""
-    return _tree_map(lambda _: replicated(mesh), params)
+def _like_params(fn, train_state, placements, mesh):
+    """A train state whose parameters and Adam moments are ``fn(leaf,
+    placement)`` by ``placements``, everything else on the rank's
+    device."""
+    from scvae_tpu_torch.models.step import TrainState
+
+    place = lambda tree: _tree_map(fn, tree, placements)  # noqa: E731
+    opt_state = {key: (place(value) if key in ("mu", "nu")
+                       else replicate_to_mesh(value, mesh))
+                 for key, value in train_state.opt_state.items()}
+    return TrainState(
+        params=place(train_state.params),
+        model_state=replicate_to_mesh(train_state.model_state, mesh),
+        opt_state=opt_state, step=train_state.step)
 
 
 def shard_train_state(train_state: Any, mesh: Mesh) -> Any:
-    """The train state replicated on this rank's device (parameters, batch
-    statistics and optimiser state: ``param_shardings`` replicates every
-    parameter)."""
-    from scvae_tpu_torch.models.step import TrainState
+    """The whole train state placed on the mesh: on this rank's device, and
+    each leaf that ``param_shardings`` cuts on the gene axis (the heads and
+    their Adam moments) as this rank's block, a tensor of its own."""
 
-    return TrainState(
-        params=replicate_to_mesh(train_state.params, mesh),
-        model_state=replicate_to_mesh(train_state.model_state, mesh),
-        opt_state=replicate_to_mesh(train_state.opt_state, mesh),
-        step=train_state.step)
+    def place(leaf, placement):
+        leaf = leaf.to(mesh.device)
+        if placement.genes:
+            return mesh.genes.block(leaf).clone(
+                memory_format=torch.contiguous_format)
+        return leaf
+
+    return _like_params(place, train_state,
+                        param_shardings(train_state.params, mesh), mesh)
+
+
+def _cut(placements: Any) -> list[Placement]:
+    """The placements of a tree (or None) that cut a gene axis."""
+    if isinstance(placements, dict):
+        placements = list(placements.values())
+    if isinstance(placements, (list, tuple)):
+        return [p for tree in placements for p in _cut(tree)]
+    return [placements] if placements is not None and placements.genes else []
+
+
+def unshard_train_state(train_state: Any, placements: Any) -> Any:
+    """The inverse of :func:`shard_train_state`: the whole train state on
+    every rank, the cut leaves gathered over the model group (every rank
+    must call it).  ``placements`` are ``param_shardings`` of the whole
+    parameters that the state was cut from; where they cut nothing (or are
+    None) the state as it is."""
+    cut = _cut(placements)
+    if not cut:
+        return train_state
+    mesh = cut[0].mesh
+
+    def whole(leaf, placement):
+        if placement.genes:
+            return all_gather(leaf, mesh.model_group, dim=-1)
+        return leaf
+
+    return _like_params(whole, train_state, placements, mesh)
 
 
 def shard_batch(batch: dict[str, Any], mesh: Mesh) -> ShardedBatch:

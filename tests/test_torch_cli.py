@@ -24,9 +24,9 @@ package's on the CPU.
 * ``cross-analyse -s`` of each package over copies of the tree that each
   package's ``train -A`` / ``evaluate -A`` wrote: the same
   ``comparison.csv`` and summary log, byte for byte;
-* ``--number-of-devices 2`` in a world of one process raises
-  ``ValueError`` (it runs under ``torchrun``), ``--model-parallelism 2``
-  ``NotImplementedError`` (the gene split is not ported).
+* ``--number-of-devices 2`` and ``--model-parallelism 2`` in a world of
+  one process raise ``ValueError``, which names ``torchrun``: each needs a
+  world of two processes.
 """
 
 import argparse
@@ -264,15 +264,15 @@ def test_cli_metrics_recompute_from_predictions(cli_runs):
 
 
 def test_device_mesh_flags(cli_runs, tmp_path):
-    """``--number-of-devices 2`` needs a world of two processes
-    (``torchrun``); a model axis above 1 (the gene split) is not ported."""
+    """``--number-of-devices 2`` and ``--model-parallelism 2`` each need a
+    world of two processes (``torchrun``)."""
     root = cli_runs["port"]
     data = _data_arguments(root)
     model = [*MODEL_ARGUMENTS, "-M", str(root / "models")]
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         cli.main(["train", *data, *model, "-e", "1",
                   "--number-of-devices", "2"], device=CPU)
-    with pytest.raises(NotImplementedError, match="A8.2"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         cli.main(["train", *data, *model, "-e", "1",
                   "--model-parallelism", "2"], device=CPU)
 

@@ -60,21 +60,25 @@ DROPOUT_CASES = {"vae-nb-dropout": ("vae", "negative binomial"),
 KEEP = (0.8, 0.9, 0.85)
 
 
-def development_split():
+def development_split(features=None):
     """The development set, 1,000 rows kept at random and split 0.9 at
     random, built in memory as ``DataSet("development", example_filter=
-    ["random", 1000]).split(method="random", fraction=0.9)`` builds it."""
+    ["random", 1000]).split(method="random", fraction=0.9)`` builds it;
+    with ``features``, its first ``features`` genes alone."""
     import scipy.sparse
 
     raw = create_development_data_set()
     values, names, labels, _ = processing.filter_examples(
         {"original": raw["values"]}, raw["example names"], "random", [1000],
         labels=raw["labels"])
+    genes = slice(features)
     data_set = DataSet(
         "development", specifications=DATA_SET_CATALOGUE["development"],
-        values=SparseRowMatrix(scipy.sparse.csr_matrix(values["original"])),
+        values=SparseRowMatrix(scipy.sparse.csr_matrix(
+            values["original"][:, genes])),
         labels=labels, example_names=names,
-        feature_names=raw["feature names"], example_filter=["random", 1000])
+        feature_names=raw["feature names"][genes],
+        example_filter=["random", 1000])
     return data_set.split(method="random", fraction=0.9)
 
 
@@ -144,7 +148,8 @@ def noise_driven(key: str, shape) -> np.ndarray:
             or key == "['posterior']['mu']['bias']"):
         mask[...] = True
     elif key == "['q_z']['encoder']['layers'][0]['kernel']":
-        mask[COMMON["feature_size"]:] = True
+        clusters = MODELS["gmvae"][1]["number_of_latent_clusters"]
+        mask[shape[0] - clusters:] = True
     return mask
 
 
@@ -162,9 +167,10 @@ class FrozenClipAdam(tstep.ClipAdam):
         super().update_(params, grads, opt_state)
 
 
-def model(kind, log_directory):
+def model(kind, log_directory, features=COMMON["feature_size"]):
     model_class, kwargs = MODELS[kind]
-    return model_class(**COMMON, **kwargs, log_directory=str(log_directory))
+    return model_class(**{**COMMON, "feature_size": features}, **kwargs,
+                       log_directory=str(log_directory))
 
 
 def record_training_rows(rows):
@@ -185,25 +191,36 @@ def record_training_rows(rows):
     tstep.gather_batch = patched
 
 
-def train_golden(kind, log_directory, splits, devices=None,
-                 metrics_fetch="sync"):
-    """(history, steps) of the golden configuration trained for
-    ``EPOCHS[kind]`` epochs on the development split."""
+def train_result(kind, log_directory, splits, devices=None,
+                 metrics_fetch="sync", model_parallelism=None):
+    """The result of ``train`` of the golden configuration for
+    ``EPOCHS[kind]`` epochs on the development split (as wide as its
+    genes)."""
     training_set, validation_set, _ = splits
-    result = model(kind, log_directory).train(
+    return model(kind, log_directory, training_set.number_of_features).train(
         training_set, validation_set, number_of_epochs=EPOCHS[kind],
         minibatch_size=MINIBATCH, learning_rate=1e-3, seed=0, verbose=False,
-        metrics_fetch=metrics_fetch, number_of_devices=devices, device=CPU)
+        metrics_fetch=metrics_fetch, number_of_devices=devices,
+        model_parallelism=model_parallelism, device=CPU)
+
+
+def train_golden(kind, log_directory, splits, devices=None,
+                 metrics_fetch="sync", model_parallelism=None):
+    """(history, steps) of :func:`train_result`."""
+    result = train_result(kind, log_directory, splits, devices,
+                          metrics_fetch, model_parallelism)
     return result.history, result.train_state.step
 
 
-def evaluate_golden(kind, log_directory, values, devices=None):
+def evaluate_golden(kind, log_directory, values, devices=None,
+                    model_parallelism=None):
     """The metrics and per-row outputs of ``evaluate`` on ``values`` with a
     minibatch of 20."""
-    evaluated = model(kind, log_directory)
+    evaluated = model(kind, log_directory, values.shape[1])
     transformed, reconstructed, latent = evaluated.evaluate(
         values, minibatch_size=20, seed=3, verbose=False,
-        number_of_devices=devices, device=CPU)
+        number_of_devices=devices, model_parallelism=model_parallelism,
+        device=CPU)
     metrics = evaluated._last_evaluation_metrics
     out = {f"metric/{name}": np.array(metrics[name]) for name in metrics}
     out |= {"reconstructed": reconstructed.values,
@@ -216,23 +233,28 @@ def evaluate_golden(kind, log_directory, values, devices=None):
     return out
 
 
-def train_streaming(kind, log_directory, values, devices=None):
+def train_streaming(kind, log_directory, values, devices=None,
+                    model_parallelism=None):
     """The history of ``kind`` streamed for two epochs on ``values``."""
-    result = model(kind, log_directory).train(
+    result = model(kind, log_directory, values.shape[1]).train(
         values, values[:90], number_of_epochs=2, minibatch_size=MINIBATCH,
         learning_rate=1e-3, seed=1, verbose=False,
-        data_placement="streaming", number_of_devices=devices, device=CPU)
+        data_placement="streaming", number_of_devices=devices,
+        model_parallelism=model_parallelism, device=CPU)
     return result.history
 
 
-def resume(kind, log_directory, splits, devices=None):
+def resume(kind, log_directory, splits, devices=None,
+           model_parallelism=None):
     """The history of a run resumed from its checkpoint to ``EPOCHS[kind]
     + 1`` epochs."""
     training_set, validation_set, _ = splits
-    result = model(kind, log_directory).train(
+    result = model(kind, log_directory,
+                   training_set.number_of_features).train(
         training_set, validation_set, number_of_epochs=EPOCHS[kind] + 1,
         minibatch_size=MINIBATCH, learning_rate=1e-3, seed=0, verbose=False,
-        number_of_devices=devices, device=CPU)
+        number_of_devices=devices, model_parallelism=model_parallelism,
+        device=CPU)
     return result.history
 
 
@@ -296,12 +318,14 @@ def main(rank, world, store, inputs, output):
     mesh = parallel.create_mesh(device=CPU)
     results["mesh_shape"] = np.array([mesh.shape["data"],
                                       mesh.shape["model"]])
+    genes = parallel.create_mesh(model_parallelism=2, device=CPU)
+    results["gene_mesh_shape"] = np.array([genes.shape["data"],
+                                           genes.shape["model"]])
     errors = []
-    for mp, error in ((2, NotImplementedError), (3, ValueError)):
-        try:
-            parallel.create_mesh(model_parallelism=mp, device=CPU)
-        except error as exc:
-            errors.append(f"{mp}:{type(exc).__name__}:{exc}")
+    try:
+        parallel.create_mesh(model_parallelism=3, device=CPU)
+    except ValueError as exc:
+        errors.append(f"3:{type(exc).__name__}:{exc}")
     results["mesh_errors"] = np.array(errors)
     placements = parallel.param_shardings({"a": [torch.zeros(2)],
                                            "b": torch.zeros(3)}, mesh)
