@@ -56,16 +56,19 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              replay's launches;
 4a. trace  — the main path under ``utils.profiling.trace``: the headline
              VAE-NB through ``VariationalAutoencoder.train`` for two
-             epochs, a ``StepTimer`` around the epochs and ``trace``
-             around epoch 2 (a gzip'd Chrome trace under ``build/trace``);
-             ``summarize_trace`` of it holds K2's and K3's heads kernel
-             (``tc_heads_kernel``), the products (``tc_product_kernel``)
-             and K1 (``gather_vector_kernel``) by name, each name's count
-             equal to the launches the counters took in epoch 2 (graph
-             replays included), and ``device_memory_stats()`` reads
-             0 < bytes in use ≤ the limit; prints each kernel's events,
-             time and rank, the timer's summary and, on a line of its own,
-             the trace's ten largest entries;
+             epochs with the span recorder (``utils/tracing.py``) on, and
+             ``trace`` around epoch 2 (a gzip'd Chrome trace under
+             ``build/trace``); ``summarize_trace`` of it holds K2's and
+             K3's heads kernel (``tc_heads_kernel``), the products
+             (``tc_product_kernel``) and K1 (``gather_vector_kernel``) by
+             name, each name's count equal to the launches the counters
+             took in epoch 2 (graph replays included), and the
+             ``epoch.train`` span as a ``user_annotation``; the
+             ``epoch.train`` spans equal ``epoch_seconds`` within 1 ms an
+             epoch, and ``device_memory_stats()`` reads 0 < bytes in use
+             ≤ the limit; prints each kernel's events, time and rank, the
+             spans of each epoch and, on a line of its own, the trace's
+             ten largest entries;
 4d. options — one training loss of the headline VAE-NB and its
              gradients, fused against unfused on the same inputs (the loss
              within 4e-4 relative; the gradients within 4e-4 of the
@@ -2153,14 +2156,15 @@ TRACE_TOP = 30
 
 def phase_trace(counts, card):
     """Phase 4a: the headline VAE-NB through ``train`` for two epochs, with
-    a ``StepTimer`` around the epochs and ``trace`` around epoch 2; then
+    the span recorder on and ``trace`` around epoch 2; then
     ``summarize_trace`` of the trace holds each of TRACED_KERNELS by name,
     its count equal to the launches the counters took in that epoch, and
-    ``device_memory_stats`` reads 0 < bytes in use ≤ the limit.  Returns
-    the run's launches."""
+    the ``epoch.train`` span; the ``epoch.train`` spans equal the loop's
+    ``epoch_seconds`` within 1 ms an epoch; ``device_memory_stats`` reads
+    0 < bytes in use ≤ the limit.  Returns the run's launches."""
     from scvae_tpu_torch import VariationalAutoencoder, ops
+    from scvae_tpu_torch.utils import tracing
     from scvae_tpu_torch.utils.profiling import (
-        StepTimer,
         device_memory_stats,
         summarize_trace,
         trace,
@@ -2174,28 +2178,35 @@ def phase_trace(counts, card):
         hidden_sizes=[HIDDEN, HIDDEN],
         reconstruction_distribution="negative binomial",
         log_directory=os.path.join(TRACE_DIRECTORY, "model"))
-    timer = StepTimer(items_per_step=N_CELLS // BATCH * BATCH)
     window = {}
-    tracing = contextlib.ExitStack()
+    profiling = contextlib.ExitStack()
 
     def callback(epoch, train_state, metrics):
-        timer.stop()
         if epoch == 0:
             window["before"] = ops.launch_counts()
-            tracing.enter_context(trace(traces))
+            profiling.enter_context(trace(traces))
         else:
-            tracing.close()
+            profiling.close()
             window["after"] = ops.launch_counts()
-        if epoch + 1 < EPOCHS:
-            timer.start()
 
     ops.reset_launch_counts()
-    with tracing:
-        timer.start()
-        result = model.train(counts, number_of_epochs=EPOCHS,
-                             minibatch_size=BATCH, seed=0, device="cuda",
-                             verbose=False, epoch_callback=callback)
+    tracing.reset()
+    tracing.enable()
+    try:
+        with profiling:
+            result = model.train(counts, number_of_epochs=EPOCHS,
+                                 minibatch_size=BATCH, seed=0,
+                                 device="cuda", verbose=False,
+                                 epoch_callback=callback)
+    finally:
+        tracing.disable()
     torch.cuda.synchronize()
+    spans = tracing.spans()
+    trained = [span.seconds for span in spans if span.name == "epoch.train"]
+    if len(trained) != EPOCHS or any(
+            abs(a - b) > 1e-3 for a, b in zip(trained, result.epoch_seconds)):
+        raise AssertionError(f"trace: epoch.train spans {trained} s against "
+                             f"epoch seconds {result.epoch_seconds}")
     launches = ops.launch_counts()
     traced = {name: window["after"].get(name, 0)
               - window["before"].get(name, 0) for name in window["after"]}
@@ -2204,6 +2215,8 @@ def phase_trace(counts, card):
                              f"{traced['nb_forward']} times in epoch 2's "
                              f"{result.steps_per_epoch} steps")
     entries = summarize_trace(traces, top=None)
+    if not any(entry["name"] == "epoch.train" for entry in entries):
+        raise AssertionError("trace: no epoch.train annotation")
     for part, counters in TRACED_KERNELS.items():
         found = [(rank, entry) for rank, entry in enumerate(entries)
                  if part in entry["name"]]
@@ -2223,9 +2236,12 @@ def phase_trace(counts, card):
     if not all(0 < entry["bytes_in_use"] <= entry["bytes_limit"]
                for entry in memory):
         raise AssertionError(f"trace: device memory {memory}")
+    per_epoch = collections.defaultdict(list)
+    for span in spans:
+        if span.name.startswith("epoch."):
+            per_epoch[span.name].append(round(span.seconds, 4))
     print(f"trace: VAE-NB, {EPOCHS} epochs of {result.steps_per_epoch} "
-          f"steps; StepTimer {timer.summary()} (epochs "
-          f"{[round(d, 4) for d in timer.durations]} s, epoch 2 traced); "
+          f"steps, epoch 2 traced; spans (s an epoch) {dict(per_epoch)}; "
           f"epoch seconds {[round(s, 4) for s in result.epoch_seconds]}; "
           f"memory {memory}; phase {time.perf_counter() - start:.1f} s "
           f"({card})", flush=True)

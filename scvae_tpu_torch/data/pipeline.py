@@ -27,6 +27,7 @@ import scipy.sparse
 import torch
 
 from scvae_tpu_torch.parallel.mesh import ShardedBatch
+from scvae_tpu_torch.utils import tracing
 
 
 def narrowest_count_dtype(values, candidates=(np.int16, np.int32)):
@@ -75,16 +76,18 @@ def device_resident_data(
     for name, arr in arrays.items():
         key = id(arr)
         if key not in placed_by_id:
-            dense = arr.toarray() if scipy.sparse.issparse(arr) else np.asarray(arr)
-            dtype = None
-            if name in ("x", "t"):
-                dtype = narrowest_count_dtype(arr, tuple(count_dtype))
-            elif np.issubdtype(dense.dtype, np.integer):
-                dtype = np.int32  # the batch indices
-            dense = dense.astype(dtype or np.float32, copy=False)
-            placed_by_id[key] = torch.from_numpy(
-                np.ascontiguousarray(dense)
-            ).to(device)
+            with tracing.span("stage.densify", field=name):
+                dense = (arr.toarray() if scipy.sparse.issparse(arr)
+                         else np.asarray(arr))
+                dtype = None
+                if name in ("x", "t"):
+                    dtype = narrowest_count_dtype(arr, tuple(count_dtype))
+                elif np.issubdtype(dense.dtype, np.integer):
+                    dtype = np.int32  # the batch indices
+                dense = np.ascontiguousarray(
+                    dense.astype(dtype or np.float32, copy=False))
+            with tracing.span("stage.h2d", field=name, bytes=dense.nbytes):
+                placed_by_id[key] = torch.from_numpy(dense).to(device)
         out[name] = placed_by_id[key]
     return out
 

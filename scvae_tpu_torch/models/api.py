@@ -81,6 +81,7 @@ from scvae_tpu_torch.models.utilities import (
 )
 from scvae_tpu_torch.ops.special import lgamma
 from scvae_tpu_torch.parallel import mesh as parallel
+from scvae_tpu_torch.utils import tracing
 from scvae_tpu_torch.utils.device import resolve_device
 
 _CONFIG_KWARGS = (
@@ -120,10 +121,14 @@ def _append_lgamma_rowsum(data: dict[str, torch.Tensor], config,
             or config.reconstruction_distribution == "constrained poisson"):
         return data
     t = data["t"]
-    rowsum = torch.cat([
-        torch.sum(lgamma(1.0 + t[start:start + chunk].float()), dim=-1)
-        for start in range(0, t.shape[0], chunk)
-    ])
+    with tracing.span("stage.row_sums"):
+        rowsum = torch.cat([
+            torch.sum(lgamma(1.0 + t[start:start + chunk].float()), dim=-1)
+            for start in range(0, t.shape[0], chunk)
+        ])
+        if tracing.enabled() and rowsum.is_cuda:
+            # only while recording: the span would end at the queueing
+            torch.cuda.synchronize(rowsum.device)
     return {**data, "t_lgamma_rowsum": rowsum}
 
 
@@ -739,12 +744,20 @@ class VariationalAutoencoder:
             train_state = parallel.shard_train_state(train_state, mesh)
 
         if use_device_data:
-            arrays = self._model_arrays(training_set)
-            data = _append_lgamma_rowsum(self._stage(arrays, device),
-                                         self.config)
+            with tracing.span("train.stage"):
+                arrays = self._model_arrays(training_set)
+                data = _append_lgamma_rowsum(self._stage(arrays, device),
+                                             self.config)
+                with tracing.span("stage.batch_dtypes"):
+                    batch_dtypes = _bf16_batch_dtypes(arrays, self.config,
+                                                      device)
+                validation_data = None
+                if validation_set is not None:
+                    validation_data = self._stage(
+                        self._model_arrays(validation_set), device)
             train_epoch = step.make_train_epoch(
                 self._loss_fn(n_iw, n_mc, genes), optimizer,
-                batch_dtypes=_bf16_batch_dtypes(arrays, self.config, device),
+                batch_dtypes=batch_dtypes,
                 mesh=mesh,
             )
             run_epoch = training.device_epoch_runner(
@@ -757,9 +770,7 @@ class VariationalAutoencoder:
                 if full_train_evaluation else None
             )
             evaluate_validation = None
-            if validation_set is not None:
-                validation_data = self._stage(
-                    self._model_arrays(validation_set), device)
+            if validation_data is not None:
                 evaluate_validation = self._device_evaluator(
                     validation_data, validation_set.number_of_examples,
                     batch_size, n_iw, n_mc, mesh)

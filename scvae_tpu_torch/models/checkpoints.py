@@ -15,7 +15,9 @@ writers (``save_checkpoint``, ``copy_checkpoint_version``,
 the JAX package's do: the operations run in the order they were queued,
 and ``save_checkpoint`` copies the tensors to the host before it queues
 the write, so training may go on updating them.  ``wait_for_pending_writes``
-blocks until the queue is empty and raises the first failed write.
+blocks until the queue is empty and raises the first failed write.  The
+worker's writes and version copies are the spans ``checkpoint.write`` and
+``checkpoint.copy_version`` (``utils/tracing.py``), on its own thread.
 Under ``torch.distributed`` the ranks share one view of the run directory
 and only rank 0 writes (:func:`is_write_process`); every rank reads.
 """
@@ -35,6 +37,7 @@ import torch.distributed as dist
 
 from scvae_tpu_torch import params as tparams
 from scvae_tpu_torch.models.step import TrainState
+from scvae_tpu_torch.utils import tracing
 
 CHECKPOINT_FILE = "checkpoint.npz"
 METADATA_FILE = "checkpoint.json"
@@ -104,15 +107,17 @@ def _read_json(path: str, default: Any) -> Any:
 
 def _write_checkpoint(directory: str, flat: dict[str, np.ndarray],
                       metadata: dict[str, Any]) -> None:
-    os.makedirs(directory, exist_ok=True)
-    tmp = os.path.join(directory, CHECKPOINT_FILE + ".tmp")
-    with open(tmp, "wb") as f:
-        np.savez(f, **flat)
-    os.replace(tmp, os.path.join(directory, CHECKPOINT_FILE))
-    tmp = os.path.join(directory, METADATA_FILE + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(metadata, f, indent=2)
-    os.replace(tmp, os.path.join(directory, METADATA_FILE))
+    with tracing.span("checkpoint.write", epoch=metadata["epoch"]) as span:
+        os.makedirs(directory, exist_ok=True)
+        tmp = os.path.join(directory, CHECKPOINT_FILE + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+            span.annotate(bytes=f.tell())
+        os.replace(tmp, os.path.join(directory, CHECKPOINT_FILE))
+        tmp = os.path.join(directory, METADATA_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(metadata, f, indent=2)
+        os.replace(tmp, os.path.join(directory, METADATA_FILE))
 
 
 def save_checkpoint(directory: str, train_state: TrainState, *, epoch: int,
@@ -160,11 +165,17 @@ def restore_checkpoint(directory: str,
 
 
 def _copy_version(source_directory: str, target_directory: str) -> None:
-    os.makedirs(target_directory, exist_ok=True)
-    for filename in (CHECKPOINT_FILE, METADATA_FILE):
-        source = os.path.join(source_directory, filename)
-        if os.path.exists(source):
-            shutil.copyfile(source, os.path.join(target_directory, filename))
+    with tracing.span("checkpoint.copy_version",
+                      version=os.path.basename(target_directory)) as span:
+        os.makedirs(target_directory, exist_ok=True)
+        copied = 0
+        for filename in (CHECKPOINT_FILE, METADATA_FILE):
+            source = os.path.join(source_directory, filename)
+            if os.path.exists(source):
+                shutil.copyfile(source,
+                                os.path.join(target_directory, filename))
+                copied += os.path.getsize(source)
+        span.annotate(bytes=copied)
 
 
 def copy_checkpoint_version(source_directory: str, target_directory: str, *,

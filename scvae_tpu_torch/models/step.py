@@ -49,6 +49,7 @@ import torch
 from scvae_tpu_torch import ops
 from scvae_tpu_torch.data.pipeline import CSRWire
 from scvae_tpu_torch.parallel import mesh as parallel
+from scvae_tpu_torch.utils import tracing
 
 LossFn = Callable[..., tuple[torch.Tensor, tuple[dict[str, torch.Tensor], Any]]]
 
@@ -257,26 +258,33 @@ class _GraphedBody:
     body would draw eagerly from the generator's state at that moment.  The
     kernel launches and collectives counted while capturing were recorded,
     not run: they are taken off the counters and added once per replay.  A
-    capture or replay that fails raises."""
+    capture or replay that fails raises.  The eager call and the capture
+    are the spans ``step.eager`` and ``step.capture`` (attribute ``kind``),
+    and each capture adds one to the counter ``step.graph_captures``."""
 
-    def __init__(self, body: Callable[[], None], generator: torch.Generator):
+    def __init__(self, body: Callable[[], None], generator: torch.Generator,
+                 kind: str):
         self._body = body
         self._generator = generator
+        self._kind = kind  # "train" or "eval": the spans' attribute
         self._warm = False
         self._graph: torch.cuda.CUDAGraph | None = None
         self._launches: dict[str, int] = {}
 
     def __call__(self) -> None:
         if not self._warm:
-            self._body()
+            with tracing.span("step.eager", kind=self._kind):
+                self._body()
             self._warm = True
             return
         if self._graph is None:
-            self._capture()
+            with tracing.span("step.capture", kind=self._kind):
+                self._capture()
         self._graph.replay()
         _add_counts(self._launches)
 
     def _capture(self) -> None:
+        tracing.count("step.graph_captures")
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
         before = _counts()
@@ -379,8 +387,10 @@ class _BatchGraphs:
     so the draws are those of one generator.  The outputs are the graph's
     own tensors: valid until the next run of the same signature."""
 
-    def __init__(self, body: Callable[..., dict[str, torch.Tensor]]):
+    def __init__(self, body: Callable[..., dict[str, torch.Tensor]],
+                 kind: str):
         self._body = body
+        self._kind = kind
         self._entries: dict[tuple, dict[str, Any]] = {}
 
     def __call__(self, batch: dict[str, Any],
@@ -397,7 +407,8 @@ class _BatchGraphs:
                 entry["outputs"] = self._body(entry["static"],
                                               entry["generator"], shard)
 
-            entry["run"] = _GraphedBody(run, entry["generator"])
+            entry["run"] = _GraphedBody(run, entry["generator"],
+                                        self._kind)
             self._entries[key] = entry
         else:
             torch._foreach_copy_(_batch_parts(entry["static"]),
@@ -446,7 +457,7 @@ class TrainStep:
             if self._graphs is None:
                 self._ts, self._bound = ts, leaves
                 self._warm_up_weight = torch.zeros((), device=device)
-                self._graphs = _BatchGraphs(self._graphed_body)
+                self._graphs = _BatchGraphs(self._graphed_body, "train")
             _bound_to(leaves, self._bound, "train state")
             self._warm_up_weight.fill_(warm_up_weight)
             metrics = self._graphs(batch, generator)
@@ -501,7 +512,7 @@ class EvalStep:
         if self._graphs is None:
             self._params = tree_map(torch.clone, params)
             self._model_state = tree_map(torch.clone, model_state)
-            self._graphs = _BatchGraphs(self._graphed_body)
+            self._graphs = _BatchGraphs(self._graphed_body, "eval")
         for mine, given in ((self._params, params),
                             (self._model_state, model_state)):
             leaves = tree_leaves(mine)
@@ -555,7 +566,7 @@ class TrainEpoch:
         self._generator = None
         if self._capture and device.type == "cuda":
             self._generator = torch.Generator(device=device)
-            self._run = _GraphedBody(self._body, self._generator)
+            self._run = _GraphedBody(self._body, self._generator, "train")
         else:
             self._run = self._body
 
@@ -659,7 +670,7 @@ class EvalEpoch:
             self._params = tree_map(torch.clone, params)
             self._model_state = tree_map(torch.clone, model_state)
             self._generator = torch.Generator(device=device)
-            self._run = _GraphedBody(self._body, self._generator)
+            self._run = _GraphedBody(self._body, self._generator, "eval")
 
     def _body(self) -> None:
         row = self._idx.index_select(0, self._index).reshape(-1)

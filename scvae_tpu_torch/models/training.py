@@ -44,6 +44,15 @@ gene block, and every rank rebuilds the whole train state
 each epoch where there is one (an all-gather over the model group of
 every cut head and its Adam moments), and for the state the loop
 returns: the checkpoints hold whole arrays, in the JAX package's format.
+
+Spans (``utils/tracing.py``, recorded only while the recorder is on): each
+epoch is an ``epoch`` span with the children ``epoch.train`` (the interval
+of ``epoch_seconds``, from the dispatch to the fetch of the lower bound;
+recorded at the fetch in the deferred mode, where it begins before its
+``epoch`` span), ``epoch.evaluate`` (``split``: training or validation),
+``epoch.callback``, ``epoch.record`` (the learning curves) and
+``epoch.checkpoint`` (the checkpoint's host copy and queued write, and
+the version copies and removals).
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from scvae_tpu_torch.models.step import (
     tree_finite,
 )
 from scvae_tpu_torch.parallel.mesh import batch_rows, unshard_train_state
+from scvae_tpu_torch.utils import tracing
 
 EARLY_STOPPING_ROUNDS = 10
 
@@ -265,39 +275,41 @@ def run_training_loop(
     epoch_seconds: list[float] = []
     outcome = {"stopped_early": False, "epochs": start_epoch}
 
-    def process(epoch: int, state: TrainState, train_metrics: dict,
-                stored_generator: str, started: float) -> bool:
-        """Fetch and record one epoch's results; True: stop training."""
+    def fetch(train_metrics: dict, started: float) -> float:
+        """The training pass's lower bound, fetched: the pass ends here."""
         lower_bound = float(train_metrics["lower_bound"])
         epoch_seconds.append(time.perf_counter() - started)
+        return lower_bound
+
+    def process(epoch: int, state: TrainState, train_metrics: dict,
+                lower_bound: float, stored_generator: str) -> bool:
+        """Record one epoch's results; True: stop training."""
         if not np.isfinite(lower_bound):
             raise ArithmeticError(
                 f"The lower bound became NaN/inf at epoch {epoch + 1}."
             )
-        epoch_metrics = {
-            "training": (
-                evaluate_training(state,
-                                  evaluation_generator(generator, epoch, 0))
-                if evaluate_training is not None
-                else {k: float(v) for k, v in train_metrics.items()}
-            )
-        }
+        if evaluate_training is not None:
+            with tracing.span("epoch.evaluate", split="training"):
+                training_metrics = evaluate_training(
+                    state, evaluation_generator(generator, epoch, 0))
+        else:
+            training_metrics = {k: float(v) for k, v in train_metrics.items()}
+        epoch_metrics = {"training": training_metrics}
         if evaluate_validation is not None:
-            epoch_metrics["validation"] = evaluate_validation(
-                state, evaluation_generator(generator, epoch, 1))
+            with tracing.span("epoch.evaluate", split="validation"):
+                epoch_metrics["validation"] = evaluate_validation(
+                    state, evaluation_generator(generator, epoch, 1))
         if epoch_callback is not None or log_directory:
             # on every rank alike: the callback and the checkpoint read it
             state = unshard_train_state(state, placements)
         # before the records, so that the callback may add metrics
         if epoch_callback is not None:
-            epoch_callback(epoch, state, epoch_metrics)
-        scalars = _record(epoch_metrics, history, log_directory)
-        if log_directory:
-            checkpoints.append_learning_curves(log_directory, scalars)
-            checkpoints.save_checkpoint(
-                log_directory, state, epoch=epoch + 1,
-                extra_metadata={"generator_state": stored_generator},
-                async_write=async_checkpoints)
+            with tracing.span("epoch.callback"):
+                epoch_callback(epoch, state, epoch_metrics)
+        with tracing.span("epoch.record"):
+            scalars = _record(epoch_metrics, history, log_directory)
+            if log_directory:
+                checkpoints.append_learning_curves(log_directory, scalars)
         if verbose:
             pieces = [f"Epoch {epoch + 1}/{number_of_epochs} "
                       f"({epoch_seconds[-1]:.3g} s)",
@@ -309,42 +321,67 @@ def run_training_loop(
             print("  ".join(pieces))
         outcome["epochs"] = epoch + 1
 
+        status = None
         if "validation" in epoch_metrics:
             status = early.update(epoch_metrics["validation"]["lower_bound"],
                                   epoch)
-            if log_directory:
-                _keep_versions(log_directory, status, async_checkpoints)
-            if status["stop"]:
-                outcome["stopped_early"] = True
-                if verbose:
-                    print(f"Stopping early: no validation improvement for "
-                          f"{early_stopping_rounds} epochs.")
-                return True
-        elif log_directory:  # no validation set: the best is the latest
-            checkpoints.copy_checkpoint_version(
-                log_directory, os.path.join(log_directory, "best"),
-                async_write=async_checkpoints)
+        if log_directory:
+            with tracing.span("epoch.checkpoint"):
+                checkpoints.save_checkpoint(
+                    log_directory, state, epoch=epoch + 1,
+                    extra_metadata={"generator_state": stored_generator},
+                    async_write=async_checkpoints)
+                if status is not None:
+                    _keep_versions(log_directory, status, async_checkpoints)
+                else:  # no validation set: the best is the latest
+                    checkpoints.copy_checkpoint_version(
+                        log_directory, os.path.join(log_directory, "best"),
+                        async_write=async_checkpoints)
+        if status is not None and status["stop"]:
+            outcome["stopped_early"] = True
+            if verbose:
+                print(f"Stopping early: no validation improvement for "
+                      f"{early_stopping_rounds} epochs.")
+            return True
         return False
 
-    pending = None  # deferred: (epoch, snapshot, metrics, generator, start)
+    def process_deferred(epoch: int, state: TrainState, train_metrics: dict,
+                         stored_generator: str, started: float,
+                         started_ns: int) -> bool:
+        """Fetch and record an epoch dispatched before the current one: its
+        training span began before its ``epoch`` span."""
+        with tracing.span("epoch", epoch=epoch):
+            lower_bound = fetch(train_metrics, started)
+            tracing.record("epoch.train", started_ns, time.time_ns(),
+                           epoch=epoch)
+            return process(epoch, state, train_metrics, lower_bound,
+                           stored_generator)
+
+    pending = None  # deferred: (epoch, snapshot, metrics, generator, starts)
     for epoch in range(start_epoch, number_of_epochs):
         wuw = warm_up_weight(epoch, number_of_warm_up_epochs)
-        started = time.perf_counter()
+        if fetch_mode == "sync":
+            with tracing.span("epoch", epoch=epoch):
+                started = time.perf_counter()
+                with tracing.span("epoch.train", epoch=epoch):
+                    train_state, train_metrics = run_epoch(
+                        train_state, epoch, wuw, generator)
+                    lower_bound = fetch(train_metrics, started)
+                if process(epoch, train_state, train_metrics, lower_bound,
+                           generator_state(generator)):
+                    break
+            continue
+        started, started_ns = time.perf_counter(), time.time_ns()
         train_state, train_metrics = run_epoch(train_state, epoch, wuw,
                                                generator)
-        if fetch_mode == "sync":
-            if process(epoch, train_state, train_metrics,
-                       generator_state(generator), started):
-                break
-            continue
         dispatched = (epoch, snapshot_state(train_state), train_metrics,
-                      generator_state(generator), started)
-        if pending is not None and process(*pending):
+                      generator_state(generator), started, started_ns)
+        if pending is not None and process_deferred(*pending):
             pending = None
             break
         pending = dispatched
     if pending is not None:
-        process(*pending)
+        process_deferred(*pending)
     if fetch_mode == "sync" and not outcome["stopped_early"]:
         outcome["epochs"] = number_of_epochs  # as JAX's, on any resume
 

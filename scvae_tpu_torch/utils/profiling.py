@@ -5,12 +5,12 @@
   ``<log_dir>/plugins/profile/<run>/<host>.trace.json.gz``;
 * :func:`summarize_trace` — the total time and count of each event name
   of the newest such trace, JAX's or the port's;
-* :class:`StepTimer` — host-side step timing with log-spaced reporting
-  like the reference's 11-points-per-epoch prints
-  (``variational_autoencoder.py:868-870``) plus items/s throughput;
 * :func:`device_memory_stats` — memory in use on each CUDA device;
 * :func:`log_spaced_indices` — the epochs that get an intermediate
-  analysis, and the steps a timer reports.
+  analysis.
+
+The loop's own timing is ``utils/tracing.py``'s spans, which :func:`trace`
+records into its trace.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from scvae_tpu_torch.utils import tracing
 from scvae_tpu_torch.utils.device import resolve_device
-from scvae_tpu_torch.utils.strings import format_duration
 
 
 @contextlib.contextmanager
@@ -37,16 +37,22 @@ def trace(log_dir: str, device=None) -> Iterator[None]:
     """Record the host's operations and, on CUDA (the default unless
     ``device="cpu"``), the device's kernels, graph replays' included.  The
     device is synchronised on entry and exit, so the trace holds the
-    kernels of the work queued inside it and no others."""
+    kernels of the work queued inside it and no others.  The span recorder
+    (``utils/tracing.py``) is on inside, so the program's spans show as
+    ``user_annotation`` events; afterwards it is as it was."""
     device = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
+    recording = tracing.enabled()
     with torch.profiler.profile(activities=activities) as profiler:
+        tracing.enable()
         try:
             yield
         finally:
+            if not recording:
+                tracing.disable()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
     directory = os.path.join(log_dir, "plugins", "profile",
@@ -91,64 +97,6 @@ def log_spaced_indices(n: int, count: int = 11) -> np.ndarray:
         - 1
     )
     return raw[(raw >= 0) & (raw < n)]
-
-
-class StepTimer:
-    """Per-step host timing with throughput summary."""
-
-    def __init__(self, items_per_step: int = 0, report_steps=None,
-                 verbose: bool = False):
-        self.items_per_step = items_per_step
-        self.durations: list[float] = []
-        self._started: float | None = None
-        self._report = set(
-            np.asarray(report_steps).tolist() if report_steps is not None
-            else [])
-        self.verbose = verbose
-
-    def __enter__(self):
-        self.start()
-        return self
-
-    def __exit__(self, *exc):
-        self.stop()
-        return False
-
-    def start(self) -> None:
-        self._started = time.perf_counter()
-
-    def stop(self) -> None:
-        if self._started is None:
-            return
-        duration = time.perf_counter() - self._started
-        self.durations.append(duration)
-        step = len(self.durations) - 1
-        if self.verbose and step in self._report:
-            print(f"    step {step + 1}: {format_duration(duration)}")
-        self._started = None
-
-    @property
-    def total_seconds(self) -> float:
-        return float(np.sum(self.durations))
-
-    @property
-    def mean_seconds(self) -> float:
-        return float(np.mean(self.durations)) if self.durations else 0.0
-
-    @property
-    def items_per_second(self) -> float:
-        total = self.total_seconds
-        if total <= 0:
-            return 0.0
-        return self.items_per_step * len(self.durations) / total
-
-    def summary(self) -> str:
-        return (
-            f"{len(self.durations)} steps, mean "
-            f"{format_duration(self.mean_seconds)}/step"
-            + (f", {self.items_per_second:,.0f} items/s"
-               if self.items_per_step else "")
-        )
 
 
 def device_memory_stats(device=None) -> list[dict]:

@@ -81,7 +81,11 @@ The profiling tools (``utils/profiling.py``): ``trace`` around two
 epochs of that NB VAE, the second all replays; ``summarize_trace`` finds
 the heads kernel, the products and K1 by name, each as often as the launch
 counters count them, and ``device_memory_stats`` reads 0 < bytes in use ≤
-the card's memory.
+the card's memory.  The span recorder (``utils/tracing.py``) through an
+NB VAE's ``train``: one eager call and one capture of each graphed epoch,
+all in the first epoch, the capture counter as their count, the training
+spans equal to ``epoch_seconds``, and in a trace each span within 1 ms of
+its ``user_annotation`` and the epoch's kernels inside its spans.
 
 Data parallel (``parallel/``) on a world of one NCCL rank: that NB VAE's
 two graphed epochs with the mesh against the same epochs without it (the
@@ -1350,7 +1354,7 @@ def test_capture_survives_garbage_graphs(device):
 
     x = torch.zeros(8, device=device)
     generator = torch.Generator(device=device).manual_seed(0)
-    old = step._GraphedBody(lambda: x.add_(1.0), generator)
+    old = step._GraphedBody(lambda: x.add_(1.0), generator, "train")
     for _ in range(3):  # eager, captured, replayed
         old()
     keep = []
@@ -1361,7 +1365,7 @@ def test_capture_survives_garbage_graphs(device):
             gc.collect()
         x.mul_(2.0)
 
-    new = step._GraphedBody(body, generator)
+    new = step._GraphedBody(body, generator, "train")
     new()  # eager
     cycle = [old]
     cycle.append(cycle)
@@ -1891,6 +1895,96 @@ def test_trace_finds_the_graphed_kernels(device, tmp_path):
     (memory,) = device_memory_stats()
     assert memory["device"] == "cuda:0"
     assert 0 < memory["bytes_in_use"] <= memory["bytes_limit"]
+
+
+def test_spans_of_a_graphed_train(device, tmp_path):
+    """Three epochs of a small NB VAE through ``train`` with the recorder
+    on, epoch 2 under ``trace``: the training and the evaluation epoch each
+    run eagerly once and are captured once, in the first epoch (the counter
+    ``step.graph_captures`` 2, none later); Σ ``epoch.train`` equals
+    ``epoch_seconds`` within 1 ms an epoch; in the trace each of epoch 2's
+    spans lies within 1 ms of its ``user_annotation`` (``ts`` × 1000 +
+    ``baseTimeNanoseconds``), every kernel starts inside an annotation of
+    an epoch's phase, and most inside ``epoch.train`` or
+    ``epoch.evaluate``."""
+    import gzip
+    import json
+    import os
+
+    import numpy as np
+
+    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch.utils import tracing
+    from scvae_tpu_torch.utils.profiling import trace
+
+    counts = np.random.RandomState(0).poisson(
+        2.0, (GRAPH_CELLS, 300)).astype(np.float32)
+    model = VariationalAutoencoder(
+        feature_size=300, latent_size=4, hidden_sizes=[32],
+        reconstruction_distribution="negative binomial",
+        log_directory=str(tmp_path / "model"))
+    profiled = contextlib.ExitStack()
+
+    def callback(epoch, train_state, metrics):
+        if epoch == 0:
+            profiled.enter_context(trace(str(tmp_path / "trace")))
+        elif epoch == 1:
+            profiled.close()
+
+    tracing.reset()
+    tracing.enable()
+    try:
+        with profiled:
+            result = model.train(counts, number_of_epochs=3,
+                                 minibatch_size=GRAPH_BATCH, device=device,
+                                 verbose=False, epoch_callback=callback)
+    finally:
+        tracing.disable()
+    spans = tracing.spans()
+    named = {}
+    for span in spans:
+        named.setdefault(span.name, []).append(span)
+    assert sorted(s.attrs["kind"] for s in named["step.eager"]) == [
+        "eval", "train"]
+    assert sorted(s.attrs["kind"] for s in named["step.capture"]) == [
+        "eval", "train"]
+    assert tracing.counters() == {"step.graph_captures": 2}
+    first_epoch = named["epoch"][0]
+    for s in named["step.eager"] + named["step.capture"]:
+        assert s.end_ns <= first_epoch.end_ns
+    trained = [s.seconds for s in named["epoch.train"]]
+    assert len(trained) == len(result.epoch_seconds) == 3
+    for got, want in zip(trained, result.epoch_seconds):
+        assert abs(got - want) <= 1e-3
+
+    (run,) = os.listdir(tmp_path / "trace" / "plugins" / "profile")
+    (name,) = os.listdir(tmp_path / "trace" / "plugins" / "profile" / run)
+    with gzip.open(tmp_path / "trace" / "plugins" / "profile" / run / name,
+                   "rt") as f:
+        events = json.load(f)
+    base = int(events["baseTimeNanoseconds"])
+    events = [e for e in events["traceEvents"] if e.get("ph") == "X"]
+    annotations = {e["name"]: e for e in events
+                   if e.get("cat") == "user_annotation"}
+    window = {}
+    for phase in ("epoch.train", "epoch.evaluate"):
+        span = named[phase][1]
+        event = annotations[phase]
+        start = float(event["ts"]) * 1e3 + base
+        end = start + float(event["dur"]) * 1e3
+        assert abs(span.start_ns - start) < 1e6, phase
+        assert abs(span.end_ns - end) < 1e6, phase
+        window[phase] = (float(event["ts"]),
+                         float(event["ts"]) + float(event["dur"]))
+    phases = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith("epoch.")]
+    kernels = [float(e["ts"]) for e in events if e.get("cat") == "kernel"]
+    assert kernels
+    assert all(any(a <= ts <= b for a, b in phases) for ts in kernels)
+    inside = [ts for ts in kernels
+              if any(a <= ts <= b for a, b in window.values())]
+    assert len(inside) >= 0.9 * len(kernels)
 
 
 def test_mesh_of_one_matches_no_mesh_and_traces_the_all_reduce(device,

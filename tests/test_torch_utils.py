@@ -6,9 +6,8 @@ CPU:
 * the port's ``trace`` on ``device="cpu"`` around a small VAE's training:
   a gzip'd Chrome trace where ``jax.profiler`` leaves its own, which both
   packages' ``summarize_trace`` read with the same result;
-* ``StepTimer`` against JAX's with ``time.perf_counter`` patched to the
-  same clock: the durations, the properties, the summary and the reported
-  steps' lines; ``format_duration`` against JAX's;
+* ``format_duration`` against JAX's (the spans that replaced
+  ``StepTimer``: ``tests/test_torch_tracing.py``);
 * ``device_memory_stats(device="cpu")`` against JAX's CPU entry (its
   device's name aside), and raising without a GPU when no device is given;
 * ``_download`` of both packages with ``requests.get`` patched to a fake
@@ -19,7 +18,6 @@ CPU:
 import gzip
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -116,50 +114,6 @@ def test_trace_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
         with profiling.trace(str(tmp_path)):
             pass
     assert not os.listdir(tmp_path)
-
-
-class _Clock:
-    """A ``time.perf_counter`` that steps through fixed readings."""
-
-    def __init__(self, readings):
-        self.readings = list(readings)
-
-    def __call__(self):
-        return self.readings.pop(0)
-
-
-@pytest.mark.parametrize("items", [0, 2_048])
-def test_step_timer_matches_jax(items, monkeypatch, capsys):
-    # durations of 0.5 ms, 250 ms, 2.5 s, 75 s and 0.25 s
-    readings = [0.0, 0.0005, 1.0, 1.25, 2.0, 4.5, 10.0, 85.0, 90.0, 90.25]
-    timers, printed = {}, {}
-    for name, module in (("port", profiling), ("jax", jprofiling)):
-        monkeypatch.setattr(time, "perf_counter", _Clock(readings))
-        timer = module.StepTimer(items_per_step=items, report_steps=[0, 3],
-                                 verbose=True)
-        for step in range(5):
-            if step == 2:
-                with timer:
-                    pass
-            else:
-                timer.start()
-                timer.stop()
-        timer.stop()  # a stop without a start records nothing
-        timers[name] = timer
-        printed[name] = capsys.readouterr().out
-    got, want = timers["port"], timers["jax"]
-    assert got.durations == want.durations
-    assert len(got.durations) == 5
-    assert got.total_seconds == want.total_seconds
-    assert got.mean_seconds == want.mean_seconds
-    assert got.items_per_second == want.items_per_second
-    assert got.summary() == want.summary()
-    assert printed["port"] == printed["jax"]
-    assert printed["port"].splitlines() == ["    step 1: <1 ms",
-                                           "    step 4: 1m 15s"]
-    empty = profiling.StepTimer()
-    assert (empty.summary(), empty.items_per_second) == (
-        jprofiling.StepTimer().summary(), 0.0)
 
 
 @pytest.mark.parametrize("seconds", [0.0, 0.0004, 0.25, 0.9996, 1.0, 59.96,
