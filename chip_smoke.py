@@ -49,8 +49,11 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              package's ``bench.py`` config 3): a finite, rising ELBO, and
              each of the configuration's likelihood kernels launched exactly
              once per training step (GMVAE-NB: once over all clusters, not K
-             times), no other likelihood kernel (the evaluation passes take
-             the unfused path), the row gather at least once.  Training and
+             times), a VAE's float32 forward of its likelihood (``…_forward_
+             float32``) besides once per batch of the per-epoch evaluations
+             (the remainder batch included: the evaluation passes take the
+             float32 fused forward on CUDA; the GMVAE's the unfused path), no
+             other likelihood kernel, the row gather at least once.  Training and
              the full-batch evaluation steps run as CUDA graph replays (the
              entry points' default on CUDA), and the counters count each
              replay's launches;
@@ -59,7 +62,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              epochs with the span recorder (``utils/tracing.py``) on, and
              ``trace`` around epoch 2 (a gzip'd Chrome trace under
              ``build/trace``); ``summarize_trace`` of it holds K2's and
-             K3's heads kernel (``tc_heads_kernel``), the products
+             K3's heads kernel (``tc_heads_kernel``, which the
+             evaluation's float32 K2 runs too), the products
              (``tc_product_kernel``) and K1 (``gather_vector_kernel``) by
              name, each name's count equal to the launches the counters
              took in epoch 2 (graph replays included), and the
@@ -113,7 +117,8 @@ Phases, each of which must pass (a failure raises and exits non-zero):
              for two epochs, ``metrics_fetch="deferred"`` run as sync;
              (3) GMVAE-NB-stream (10 clusters) likewise; both with a
              finite, rising ELBO, NB's K2 and K3's three kernels once a
-             step and no K1; (4) VAE-Bernoulli-noisy,
+             step (VAE-NB-stream's evaluations NB's float32 K2 besides once
+             a batch) and no K1; (4) VAE-Bernoulli-noisy,
              ``noisy_preprocessing_methods=["normalise", "binarise"]``
              under ``data_placement="auto"`` (which streams), two epochs:
              a finite ELBO, the epochs' values drawn anew, no likelihood
@@ -2059,6 +2064,20 @@ def train_config_level(config, counts, epoch_callback=None, device="cuda",
         verbose=False, epoch_callback=epoch_callback)
 
 
+def set_rows(data) -> int:
+    """The rows of a training or validation set: a ``DataSet`` or a
+    matrix."""
+    return (data.number_of_examples if hasattr(data, "number_of_examples")
+            else data.shape[0])
+
+
+def evaluation_batches(sets, epochs=EPOCHS) -> int:
+    """The batches of ``train``'s per-epoch evaluations of ``sets`` over
+    ``epochs`` epochs: each set in minibatches of BATCH, its remainder a
+    batch of its own."""
+    return epochs * sum(-(-set_rows(data) // BATCH) for data in sets)
+
+
 def train_config(label, model, name, k_max, counts, card, precision=None):
     """One trained configuration at the headline width for two epochs
     (``precision`` None: the API's default); returns the kernel launches
@@ -2102,11 +2121,16 @@ def train_config(label, model, name, k_max, counts, card, precision=None):
     kernels = ["forward", "backward_gradient", "backward_dh", "backward_dw"]
     suffix = "_float32" if precision == "float32" else ""
     ours = {f"{prefix}_{kernel}{suffix}" for kernel in kernels}
+    # a VAE's per-epoch evaluation: the float32 forward once a batch
+    evaluated = ({f"{prefix}_forward_float32": evaluation_batches([counts])}
+                 if model == "vae" else {})
     for kernel, count in launches.items():
-        want = steps if kernel in ours else 0
+        want = (steps if kernel in ours else 0) + evaluated.get(kernel, 0)
         if kernel != "gather_rows" and count != want:
             raise AssertionError(f"{label}: {kernel} launched {count} times "
-                                 f"in {steps} training steps (want {want})")
+                                 f"in {steps} training steps and "
+                                 f"{evaluated.get(kernel, 0)} evaluation "
+                                 f"batches (want {want})")
     if launches["gather_rows"] < steps:
         raise AssertionError(f"{label}: gather_rows launched "
                              f"{launches['gather_rows']} times in {steps} "
@@ -2147,7 +2171,9 @@ def trained_config(model, name, k_max, precision, options=None):
 # name part of the trace and the launch counters of the kernels it names.
 TRACE_DIRECTORY = os.path.join(BUILD, "trace")
 TRACED_KERNELS = {
-    "tc_heads_kernel": ("nb_forward", "nb_backward_gradient"),  # K2, K3
+    # K2, K3, and the evaluation's float32 K2 (on the same heads kernel)
+    "tc_heads_kernel": ("nb_forward", "nb_backward_gradient",
+                        "nb_forward_float32"),
     "tc_product_kernel": ("nb_backward_dh", "nb_backward_dw"),  # K3
     "gather_vector_kernel": ("gather_rows",),  # K1
 }
@@ -2476,8 +2502,9 @@ def phase_options(data, card):
     for two epochs into an emptied directory under ``build/``: one small
     step on the CPU and the card first (phase 4's), then a finite ELBO
     that rises from epoch 1 to 2, K1 at least once a step, NB's K2 and
-    K3's three kernels once a step on the fused configurations and no
-    likelihood kernel on the unfused ones; GMVAE-NB-full's prior
+    K3's three kernels once a step on the fused configurations (a fused
+    VAE's float32 K2 besides once a batch of its per-epoch evaluations)
+    and no likelihood kernel on the unfused ones; GMVAE-NB-full's prior
     covariances symmetric positive definite.  Returns the launches, by
     the kernels line's entries (a GMVAE's NB kernels are the cycled
     ones)."""
@@ -2514,11 +2541,16 @@ def phase_options(data, card):
         torch.cuda.synchronize()
         launches = ops.launch_counts()
         steps = result.steps_per_epoch * EPOCHS
+        # a fused VAE's per-epoch evaluation: the float32 forward a batch
+        evaluated = (evaluation_batches([training_set])
+                     if fused and model == "vae" else 0)
         for kernel, count in launches.items():
-            want = steps if fused and kernel in nb else 0
+            want = ((steps if fused and kernel in nb else 0)
+                    + (evaluated if kernel == "nb_forward_float32" else 0))
             if kernel != "gather_rows" and count != want:
                 raise AssertionError(f"{label}: {kernel} launched {count} "
-                                     f"times in {steps} training steps "
+                                     f"times in {steps} training steps and "
+                                     f"{evaluated} evaluation batches "
                                      f"(want {want})")
         if launches["gather_rows"] < steps:
             raise AssertionError(f"{label}: gather_rows launched "
@@ -2766,16 +2798,19 @@ class StreamProbe:
         }
 
 
-def stream_launch_check(label, launches, steps, fused=True):
+def stream_launch_check(label, launches, steps, fused=True, evaluated=0):
     """NB's K2 and K3's three kernels once per training step on a fused
-    configuration and no likelihood kernel otherwise; K1 never."""
+    configuration, NB's float32 K2 once per ``evaluated`` evaluation batch,
+    and no likelihood kernel otherwise; K1 never."""
     nb = {f"nb_{kernel}" for kernel in ("forward", "backward_gradient",
                                         "backward_dh", "backward_dw")}
     for kernel, count in launches.items():
-        want = steps if fused and kernel in nb else 0
+        want = ((steps if fused and kernel in nb else 0)
+                + (evaluated if kernel == "nb_forward_float32" else 0))
         if count != want:
             raise AssertionError(f"{label}: {kernel} launched {count} times "
-                                 f"in {steps} streamed steps (want {want})")
+                                 f"in {steps} streamed steps and {evaluated} "
+                                 f"evaluation batches (want {want})")
 
 
 def check_streamed_batches(counts, card):
@@ -2905,7 +2940,15 @@ def stream_run(label, model_kind, name, training_set, validation_set, card,
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     steps = result.steps_per_epoch * epochs
-    stream_launch_check(label, launches, steps, fused)
+    # a fused VAE's per-epoch evaluations take NB's float32 K2
+    evaluated = 0
+    if fused and model_kind == "vae":
+        evaluated = evaluation_batches(
+            ([training_set] if train_options.get("full_train_evaluation",
+                                                 True) else [])
+            + ([validation_set] if validation_set is not None else []),
+            epochs)
+    stream_launch_check(label, launches, steps, fused, evaluated)
     if probe.placements and any(probe.placements):
         raise AssertionError(f"{label}: placed on the device")
     elbo = result.history["training"]["lower_bound"]
@@ -2914,11 +2957,8 @@ def stream_run(label, model_kind, name, training_set, validation_set, card,
         raise AssertionError(f"{label}: training ELBO {elbo}")
     report = probe.report(result)
     seconds = result.epoch_seconds[-1]
-    rows = (training_set.number_of_examples
-            if hasattr(training_set, "number_of_examples")
-            else training_set.shape[0])
     report.update(steps_per_s=result.steps_per_epoch / seconds,
-                  cells_per_s=rows / seconds)
+                  cells_per_s=set_rows(training_set) / seconds)
     print(f"stream {label}: ELBO {elbo}; epoch {epochs}: "
           f"{report['steps_per_s']:.6g} steps/s, "
           f"{report['cells_per_s']:.6g} cells/s, "

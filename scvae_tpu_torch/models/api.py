@@ -1,9 +1,10 @@
 """High-level model API: ``VariationalAutoencoder`` with the reference's
 ``train``, ``evaluate`` and ``sample`` (the port of
 ``scvae_tpu/models/api.py``).  The model-specific parts are the hooks
-``_init_state``, ``_loss_fn``, ``_eval_fn``, ``_evaluation_outputs`` and
-``_prior_draws``, which ``GaussianMixtureVariationalAutoencoder``
-(``models/gmvae_api.py``) overrides to run through the same methods.
+``_init_state``, ``_loss_fn``, ``_fused_evaluation``, ``_eval_fn``,
+``_evaluation_outputs`` and ``_prior_draws``, which
+``GaussianMixtureVariationalAutoencoder`` (``models/gmvae_api.py``)
+overrides to run through the same methods.
 
 Training takes one of two data paths, chosen as the JAX package chooses
 (``_choose_device_placement``).  A training set whose dense form fits the
@@ -27,9 +28,13 @@ specifications and directory, as the JAX package's do.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``; without a GPU they
 raise.  On CUDA each training step and each evaluation step of the
 per-epoch passes is a replay of a CUDA graph (``models/step.py``); on the
-CPU they run eagerly.  ``metrics_fetch="deferred"`` fetches each epoch's
-metrics one epoch late on the device path, as in the JAX package
-(``models/training.py``); streaming runs it as "sync", as JAX does.
+CPU they run eagerly.  The per-epoch evaluation passes, which read the
+metrics only, take log p(x|z) on CUDA from the float32 fused forward
+where the likelihood has one; ``evaluate`` builds the reconstruction
+distribution, whose means it returns.  ``metrics_fetch="deferred"``
+fetches each epoch's metrics one epoch late on the device path, as in the
+JAX package (``models/training.py``); streaming runs it as "sync", as JAX
+does.
 Without a log directory the run goes under the default ``models/``
 directory, as in the JAX package.  The status methods
 (``has_been_trained``, ``better_model_exists``, ``model_stopped_early``,
@@ -410,10 +415,25 @@ class VariationalAutoencoder:
 
         return loss
 
+    def _fused_evaluation(self, device) -> bool:
+        """Whether :meth:`_eval_fn`'s metrics take log p(x|z) from the
+        float32 fused forward on ``device``: on CUDA, where the
+        configuration trains on the fused kernels
+        (``vae.fused_path_enabled``); the CPU keeps the unfused path."""
+        return (torch.device(device).type == "cuda"
+                and vae.fused_path_enabled(self.config))
+
+    def _count_evaluation_pass(self, device) -> None:
+        """One evaluation pass of the per-epoch evaluators on ``device``,
+        counted as ``eval.fused_passes`` or ``eval.unfused_passes``."""
+        tracing.count("eval.fused_passes" if self._fused_evaluation(device)
+                      else "eval.unfused_passes")
+
     def _eval_fn(self, n_iw: int, n_mc: int, genes=None):
         """``evaluate(params, model_state, batch, generator, shard=None) →
-        metrics`` of one batch on the unfused float32 path (``genes`` as in
-        :meth:`_loss_fn`)."""
+        metrics`` of one batch in float32 (``genes`` as in
+        :meth:`_loss_fn`): log p(x|z) from the fused forward where
+        :meth:`_fused_evaluation`, else from the unfused distribution."""
         config = self.config
 
         def evaluate(params, model_state, batch, generator, shard=None):
@@ -421,6 +441,7 @@ class VariationalAutoencoder:
                 config, params, model_state, batch, generator,
                 training=False, n_iw=n_iw, n_mc=n_mc, shard=shard,
                 genes=genes,
+                fused_evaluation=self._fused_evaluation(batch["t"].device),
             )
             return metrics
 
@@ -569,11 +590,13 @@ class VariationalAutoencoder:
 
     def _device_evaluator(self, data: dict[str, torch.Tensor], n: int,
                           batch_size: int, n_iw: int, n_mc: int, mesh=None):
-        """Full-pass evaluation (unfused, float32): the sequential full
-        batches through ``step.make_eval_epoch`` (graph replays on CUDA;
-        under a ``mesh`` each rank's block of each), then one remainder
-        batch, whole on every rank (replicated), weighted by rows like the
-        JAX package."""
+        """Full-pass evaluation in float32 through :meth:`_eval_fn` (the
+        fused forward on CUDA where the configuration has it): the
+        sequential full batches through ``step.make_eval_epoch`` (graph
+        replays on CUDA; under a ``mesh`` each rank's block of each), then
+        one remainder batch, whole on every rank (replicated), weighted by
+        rows like the JAX package.  Each pass is counted
+        (:meth:`_count_evaluation_pass`)."""
         device = next(iter(data.values())).device
         idx = torch.from_numpy(step.sequential_batches(n, batch_size)).to(device)
         n_full = int(idx.numel())
@@ -582,6 +605,7 @@ class VariationalAutoencoder:
         eval_epoch = step.make_eval_epoch(eval_fn, keys, mesh=mesh)
 
         def evaluate(ts: step.TrainState, generator: torch.Generator):
+            self._count_evaluation_pass(device)
             out = {k: 0.0 for k in keys}
             if n_full:
                 means = eval_epoch(ts.params, ts.model_state, data, idx,
@@ -843,6 +867,7 @@ class VariationalAutoencoder:
         evaluate_training = None
         if full_train_evaluation:
             def evaluate_training(train_state, generator):
+                self._count_evaluation_pass(device)
                 return training.evaluate_on_pipeline(
                     eval_step, train_state, make_training_pipeline(0),
                     generator)
@@ -851,6 +876,7 @@ class VariationalAutoencoder:
             validation_arrays = self._model_arrays(validation_set)
 
             def evaluate_validation(train_state, generator):
+                self._count_evaluation_pass(device)
                 return training.evaluate_on_pipeline(
                     eval_step, train_state,
                     BatchPipeline(validation_arrays, batch_size,

@@ -3,10 +3,11 @@ reference's ``train``, ``evaluate`` and ``sample`` (the ported part of
 ``scvae_tpu/models/gmvae_api.py``).
 
 It overrides the VAE API's model hooks (``_init_state``, ``_loss_fn``,
-``_eval_fn``, ``_evaluation_outputs``, ``_prior_draws``) and runs through the
-same methods.  Training appends the prior centroids to the run's
-``centroids.json`` each epoch and, for labelled data sets, the cluster
-accuracy of each set to its learning curves (``accuracy``).  ``evaluate``
+``_fused_evaluation``, ``_eval_fn``, ``_evaluation_outputs``,
+``_prior_draws``) and runs through the same methods.  Training appends the
+prior centroids to the run's ``centroids.json`` each epoch and, for
+labelled data sets, the cluster accuracy of each set to its learning
+curves (``accuracy``).  ``evaluate``
 adds the y latent set and attaches the predicted cluster ids to every
 output set, and for a labelled set the labels (and superset labels) that
 the clusters map to by majority vote.  Like the JAX package's, this
@@ -158,6 +159,10 @@ class GaussianMixtureVariationalAutoencoder(VariationalAutoencoder):
             )
 
         return loss
+
+    def _fused_evaluation(self, device) -> bool:
+        """The GMVAE's evaluation keeps the unfused path everywhere."""
+        return False
 
     def _eval_fn(self, n_iw: int, n_mc: int, genes=None):
         config = self.config

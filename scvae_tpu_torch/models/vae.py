@@ -473,8 +473,9 @@ def forward(
 
 def fused_log_p_x(config, params: Params, batch: Batch, h: torch.Tensor,
                   t: torch.Tensor, compute_dtype, genes=None) -> torch.Tensor:
-    """log p(x|z) of the fused training path in one launch: the decoder
-    output h (..., H) against the targets t (M_t, F), whose rows cycle.
+    """log p(x|z) of the fused path in one launch (training's, and the
+    metrics-only evaluation's in float32): the decoder output h (..., H)
+    against the targets t (M_t, F), whose rows cycle.
     With ``genes`` (``parallel.GeneSplit``) the heads are this rank's gene
     block where the split cuts F, and the kernels run on the block, their
     row sums summed over the model group (``ops.sharded``).
@@ -530,15 +531,19 @@ def elbo_terms(
     noise: torch.Tensor | None = None,
     shard=None,
     genes=None,
+    fused_evaluation: bool = False,
 ) -> tuple[dict[str, torch.Tensor], VAEOutputs]:
     """The ELBO decomposition (reference ``variational_autoencoder.py:
-    2560-2734``).  The fused path is training-only (and taken only where
-    :func:`fused_path_enabled`); evaluation keeps the unfused distribution
-    path and the full ``p_x`` outputs.  With ``genes`` (a
-    ``parallel.GeneSplit``) ``params`` holds the rank's gene block of the
-    heads it cuts: the fused path runs the kernels on the block
-    (:func:`fused_log_p_x`), the unfused path on the heads gathered whole
-    (:func:`whole_heads`).
+    2560-2734``).  Training takes the fused path where
+    :func:`fused_path_enabled`; evaluation keeps the unfused distribution
+    path and the full ``p_x`` outputs, unless ``fused_evaluation``: then,
+    where :func:`fused_path_enabled`, log p(x|z) comes from the fused
+    forward at the evaluation's compute dtype (float32) and no ``p_x`` is
+    built (``outputs.p_x`` is None), for callers that read the metrics
+    only.  With ``genes`` (a ``parallel.GeneSplit``) ``params`` holds the
+    rank's gene block of the heads it cuts: the fused path runs the
+    kernels on the block (:func:`fused_log_p_x`), the unfused path on the
+    heads gathered whole (:func:`whole_heads`).
 
     Returns ``lower_bound`` (IW bound), ``lower_bound_weighted`` (training
     objective with warm-up·kl_weight), ``reconstruction_error``,
@@ -546,7 +551,7 @@ def elbo_terms(
     (see :func:`forward`) each is the mean over the rank's rows: the
     ranks' average is the global batch's value, since every term is a mean
     over rows of per-row values."""
-    use_fused = (training and not deterministic_z
+    use_fused = ((training or fused_evaluation) and not deterministic_z
                  and fused_path_enabled(config))
     if not use_fused:
         params = whole_heads(config, params, genes)

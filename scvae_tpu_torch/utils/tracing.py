@@ -21,7 +21,10 @@ work happens:
   learning curves) and ``epoch.checkpoint`` (the host copy and the queued
   writes);
 * ``checkpoint.write`` and ``checkpoint.copy_version``
-  (``models/checkpoints.py``, on the writer thread).
+  (``models/checkpoints.py``, on the writer thread);
+* the counters ``eval.fused_passes`` and ``eval.unfused_passes``
+  (``models/api.py``): each per-epoch evaluation pass of a set, by whether
+  its log p(x|z) comes from the float32 fused forward.
 
 No span is opened per training step: a step is one graph replay, and the
 step's time is the epoch's training span over its steps.  The spans end

@@ -96,6 +96,14 @@ replayed epoch as often as the step's all-reduces were counted.
 The gene split's launches (``ops.sharded``) on one card: two gene blocks
 through the split Functions with a ``GeneSplit`` of no group, summed and
 put together, against the whole-F kernels.
+
+The per-epoch evaluation on the float32 fused forward (``models/api.py``
+``_device_evaluator``): against the unfused evaluation of the same state,
+NB at the brain cell's widths (2,048 rows a batch and a remainder over
+27,998 genes, hidden 100) and every likelihood with a kernel at 2,000
+genes, the lower bound within 1e-6 relative, the float32 forward launched
+once a batch and the passes counted; and the fused evaluation of two gene
+blocks with no group against the whole-F one.
 """
 
 import contextlib
@@ -1901,8 +1909,9 @@ def test_spans_of_a_graphed_train(device, tmp_path):
     """Three epochs of a small NB VAE through ``train`` with the recorder
     on, epoch 2 under ``trace``: the training and the evaluation epoch each
     run eagerly once and are captured once, in the first epoch (the counter
-    ``step.graph_captures`` 2, none later); Σ ``epoch.train`` equals
-    ``epoch_seconds`` within 1 ms an epoch; in the trace each of epoch 2's
+    ``step.graph_captures`` 2, none later), and each epoch's evaluation
+    takes the fused forward (``eval.fused_passes`` 3); Σ ``epoch.train``
+    equals ``epoch_seconds`` within 1 ms an epoch; in the trace each of epoch 2's
     spans lies within 1 ms of its ``user_annotation`` (``ts`` × 1000 +
     ``baseTimeNanoseconds``), every kernel starts inside an annotation of
     an epoch's phase, and most inside ``epoch.train`` or
@@ -1948,7 +1957,8 @@ def test_spans_of_a_graphed_train(device, tmp_path):
         "eval", "train"]
     assert sorted(s.attrs["kind"] for s in named["step.capture"]) == [
         "eval", "train"]
-    assert tracing.counters() == {"step.graph_captures": 2}
+    assert tracing.counters() == {"step.graph_captures": 2,
+                                  "eval.fused_passes": 3}
     first_epoch = named["epoch"][0]
     for s in named["step.eager"] + named["step.capture"]:
         assert s.end_ns <= first_epoch.end_ns
@@ -2124,3 +2134,137 @@ def test_gene_blocks_match_whole_kernels(device, name, k_max, m, m_t, f,
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         _close(a, b, 2e-5 if i == 0 or compute is None else 4e-4)
+
+
+# --------------------------------------------------------------------------
+# The per-epoch evaluation on the float32 fused forward
+# --------------------------------------------------------------------------
+
+# (likelihood, classes, genes, rows, batch): NB at the brain cell's widths
+# (27,998 genes, minibatch 2,048 and its remainder of 1,800, hidden 100,
+# latent 2), then every likelihood with a kernel at a smaller F
+EVALUATOR_CASES = [
+    ("negative binomial", 0, 27_998, 2 * 2_048 + 1_800, 2_048),
+    ("poisson", 0, 2_000, 2 * 256 + 100, 256),
+    ("negative binomial", 0, 2_000, 2 * 256 + 100, 256),
+    ("zero-inflated poisson", 0, 2_000, 2 * 256 + 100, 256),
+    ("zero-inflated negative binomial", 0, 2_000, 2 * 256 + 100, 256),
+    ("constrained poisson", 0, 2_000, 2 * 256 + 100, 256),
+    ("poisson", 10, 2_000, 2 * 256 + 100, 256),
+]
+
+
+def _evaluator_case(device, name, k_max, f, rows, seed=0):
+    """A VAE of scVAE's widths (hidden [100], latent 2) with likelihood
+    ``name``, its training set of ``rows`` × ``f`` counts (Poisson(3) + 1
+    at density 0.07; with classes every other row Poisson(K)) staged on
+    the card as ``train`` stages it, and a train state from ``seed``."""
+    import numpy as np
+
+    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch.data.dataset import DataSet
+    from scvae_tpu_torch.models import api, step
+
+    rng = np.random.RandomState(seed)
+    counts = ((rng.random_sample((rows, f)) < 0.07)
+              * (rng.poisson(3.0, (rows, f)) + 1)).astype(np.float32)
+    if k_max:
+        counts[1::2] = rng.poisson(k_max, (len(counts[1::2]), f))
+    model = VariationalAutoencoder(
+        feature_size=f, latent_size=2, hidden_sizes=[100],
+        reconstruction_distribution=name,
+        number_of_reconstruction_classes=k_max)
+    arrays = model._model_arrays(DataSet("in-memory", values=counts))
+    data = api._append_lgamma_rowsum(model._stage(arrays, device),
+                                     model.config)
+    ts = model._init_state(torch.Generator().manual_seed(seed),
+                           step.make_optimizer(1e-4), device)
+    return model, data, ts
+
+
+@pytest.mark.parametrize("name,k_max,f,rows,batch", EVALUATOR_CASES)
+def test_fused_device_evaluator_matches_unfused(device, monkeypatch, name,
+                                                k_max, f, rows, batch):
+    """``_device_evaluator`` of the training set (its full batches as graph
+    replays, then the remainder eagerly) on the float32 fused forward
+    against the same evaluator on the unfused path, twice from the same
+    generator seed: the lower bound and the reconstruction term within
+    1e-6 relative, the KL within 1e-6; each call counts one
+    ``eval.fused_passes``, and launches the float32 forward once a batch,
+    remainder included, and no other likelihood kernel."""
+    import math
+
+    import numpy as np
+
+    from scvae_tpu_torch import VariationalAutoencoder
+    from scvae_tpu_torch.utils import tracing
+
+    model, data, ts = _evaluator_case(device, name, k_max, f, rows)
+    prefix = ("cp" if name == "constrained poisson"
+              else ops.FAMILIES[name].prefix)
+    prefix = f"cat_{prefix}" if k_max else prefix
+    results = {}
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(VariationalAutoencoder, "_fused_evaluation",
+                                lambda self, device: False)
+        evaluate = model._device_evaluator(data, rows, batch, 1, 1)
+        ops.reset_launch_counts()
+        tracing.reset()
+        tracing.enable()
+        try:
+            results[fused] = [
+                evaluate(ts, torch.Generator(device=device).manual_seed(5))
+                for _ in range(2)]
+        finally:
+            tracing.disable()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items()
+                    if v and k != "gather_rows"}
+        passes = "eval.fused_passes" if fused else "eval.unfused_passes"
+        assert tracing.counters().get(passes) == 2
+        want = {f"{prefix}_forward_float32": 2 * math.ceil(rows / batch)}
+        assert launches == (want if fused else {}), launches
+    tracing.reset()
+    for got, want in zip(results[True], results[False]):
+        for key in ("lower_bound", "reconstruction_error", "kl_divergence"):
+            gap = abs(got[key] - want[key]) / abs(want[key])
+            assert gap <= 1e-6, (key, gap)
+    first, second = results[True]
+    for key in first:  # a replay of the same state and draws: the same
+        assert np.array_equal(first[key], second[key]), key
+
+
+@pytest.mark.parametrize("name", ["negative binomial",
+                                  "zero-inflated negative binomial"])
+def test_fused_evaluation_gene_blocks_match_whole(device, name):
+    """The fused evaluation under a gene split of two blocks of 1,024 with
+    no group (each block's row sums on the block's heads, less the whole
+    row constant): the blocks' reconstruction terms and the row constant's
+    mean add up to the whole-F fused evaluation's within 1e-6, and each
+    block's KL is the whole one's."""
+    from scvae_tpu_torch.models import step, vae
+    from scvae_tpu_torch.parallel import GeneSplit
+
+    model, data, ts = _evaluator_case(device, name, 0, 2_048, 512)
+    idx = torch.arange(512, dtype=torch.int32, device=device)
+    batch = step.cast_batch_to_f32(step.gather_batch(data, idx))
+
+    def evaluate(params, genes=None):
+        with torch.no_grad():
+            return vae.elbo_terms(
+                model.config, params, ts.model_state, batch,
+                torch.Generator(device=device).manual_seed(5),
+                training=False, genes=genes, fused_evaluation=True)[0]
+
+    whole = evaluate(ts.params)
+    total = torch.mean(batch["t_lgamma_rowsum"])
+    for split in (GeneSplit(0, 2), GeneSplit(1, 2)):
+        cut = {**ts.params, "reconstruction": {
+            head: {k: split.block(v).contiguous() for k, v in leaf.items()}
+            for head, leaf in ts.params["reconstruction"].items()}}
+        block = evaluate(cut, split)
+        assert torch.equal(block["kl_divergence"], whole["kl_divergence"])
+        total = total + block["reconstruction_error"]
+    gap = abs(float(total) - float(whole["reconstruction_error"]))
+    assert gap <= 1e-6 * abs(float(whole["reconstruction_error"])), gap

@@ -14,7 +14,8 @@
   ``epoch`` › ``epoch.train``, ``epoch.evaluate``, ``epoch.callback``,
   ``epoch.record``, ``epoch.checkpoint``, with ``checkpoint.write`` and
   ``checkpoint.copy_version`` on the writer thread; Σ ``epoch.train``
-  equals ``TrainingResult.epoch_seconds`` within 1 ms an epoch;
+  equals ``TrainingResult.epoch_seconds`` within 1 ms an epoch, and the
+  counter ``eval.unfused_passes`` counts the CPU's evaluation passes;
 * a ``train`` stopped by its callback closes the spans it leaves;
 * the same run with the recorder off records nothing.
 
@@ -256,7 +257,8 @@ def test_train_records_each_phase_of_each_epoch(tmp_path, fetch):
     for s in writes + named["checkpoint.copy_version"]:
         assert s.thread.startswith("checkpoints") and s.parent is None
     assert "step.eager" not in named  # the CPU's steps are not graphed
-    assert tracing.counters() == {}
+    # the CPU's evaluation passes keep the unfused path
+    assert tracing.counters() == {"eval.unfused_passes": EPOCHS}
 
 
 def test_a_stopped_train_closes_its_spans(tmp_path):

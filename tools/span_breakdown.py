@@ -22,6 +22,9 @@ It prints the run's result line, then one JSON line of what the spans give
   ``step.eager`` and ``step.capture`` spans, and the seconds of
   ``train``'s first epoch before ``train.stage`` and between it and the
   first ``epoch`` span, which no span covers;
+* over the run: its ``epoch.evaluate`` spans against the evaluation
+  passes the counters ``eval.fused_passes`` and ``eval.unfused_passes``
+  counted;
 * with ``--trace 1``, over the profiled epoch: the device time of the
   operations whose launching runtime call (matched by the trace's
   ``correlation``) starts inside its ``epoch.train`` span, a step, and
@@ -229,9 +232,15 @@ def main() -> int:
                               bool(args.trace), started=STARTED)
     (run,) = marks.runs
     spans = tracing.spans()
+    counters = tracing.counters()
     found = {"workload": args.workload, "seed": args.seed,
              "trace": args.trace, "window": window_phases(spans, marks, run),
-             "setup": set_up(spans, marks, run)}
+             "setup": set_up(spans, marks, run),
+             "evaluations": {
+                 "epoch.evaluate": sum(s.name == "epoch.evaluate"
+                                       for s in spans),
+                 **{name: counters.get(name, 0) for name in (
+                     "eval.fused_passes", "eval.unfused_passes")}}}
     if args.trace:
         found["profiled"] = profiled(spans, marks.raw, run.steps_per_epoch)
     print(json.dumps(result), flush=True)
